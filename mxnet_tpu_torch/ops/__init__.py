@@ -1,0 +1,5 @@
+"""Operator library: importing this package populates the registry."""
+from .registry import OP_REGISTRY, get_op, list_ops, register, alias
+from . import tensor  # noqa: F401 — registers the tensor ops
+from . import nn  # noqa: F401 — registers the layer ops
+from . import cuda_kernels  # noqa: F401 — CUDA kernels + their variants
