@@ -7,29 +7,48 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build every CUDA kernel of the decode path from ``mxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel), print the build seconds, the
-   compiler's register report, the card's name and power limit, and the
-   TF32 switches (both held off: the reference computes in full float32);
+1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all eight in parallel), print the build seconds,
+   the compiler's register report, the card's name and power limit, and
+   the TF32 switches (held off for the decode phases: the reference
+   computes in full float32);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the decode path gives it, and time kernel, plain version and —
-   where one PyTorch call computes the same function — that library call;
+   shapes its path gives it and at edge shapes, and time kernel, device,
+   plain version and — where one PyTorch call computes the same function
+   — that library call;
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
    8 requests of 16 prompt tokens and 64 new tokens, staggered so the
-   rung switches; every launch counter is zeroed just before and must
-   have risen while serving; one served stream is then teacher-forced
-   through the decoder on the card and on the CPU (plain versions) and
-   the logits compared;
+   rung switches; every decode kernel's counter is zeroed just before
+   and must have risen while serving; one served stream is then
+   teacher-forced on the card and on the CPU and the logits compared;
 4. profile 16 full-rung decode steps: wall time per step, the device-busy
-   share, and the kernels that take the most device time.
+   share, and the kernels that take the most device time;
+5. train ResNet-50 (1000 classes, 3x224x224, batch 32, numpy-seeded
+   synthetic data through ``NDArrayIter``, Xavier init, SGD lr 0.1
+   momentum 0.9 wd 1e-4) through ``Module.fit`` on ``gpu(0)`` for 8
+   batches: images/s and p50/p99 step ms without the first batch, kernel
+   launches per step (softmax 1, cross-entropy backward 1, sgd_mom 157),
+   a finite loss and moved parameters;
+6. one step of the same model at batch 2 on the card and on the CPU from
+   the same parameters, TF32 off: the forward (probabilities, BatchNorm
+   moving statistics) within 1e-4, and the updated weights within ten
+   times the CPU's own spread under a 1e-6 relative perturbation of the
+   starting weights (one ResNet-50 step at batch 2 amplifies rounding:
+   a perturbation that small already moves conv0's gradient visibly);
+7. two steps of the same fit with ``optimizer="adam"`` at batch 4 (the
+   Adam kernel must launch, 157 times per step);
+8. profile 4 ResNet-50 training steps: device-busy share, the kernels
+   that take the most device time, ms per step.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
-launches on the served path, max abs error against the plain version,
-kernel / plain / library milliseconds and the bound); the last line is
-``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout,
-the script exits non-zero and prints no result.
+launches on its path — the decode kernels while serving, softmax /
+cross-entropy / SGD-momentum while fitting with SGD, Adam while fitting
+with Adam — max abs error against the plain version, kernel / plain /
+library milliseconds and the bound); the last line is ``{"ok": true,
+"device": {...}}``. Without CUDA, or outside a checkout, the script exits
+non-zero and prints no result.
 """
 import json
 import os
@@ -45,14 +64,25 @@ PROMPT, NEW, N_REQ = 16, 64, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
-       "decode_attention": 2e-5}
+       "decode_attention": 2e-5, "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
+       "sgd_mom": 1e-6, "adam": 1e-6}
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
     "layernorm": "mxnet_tpu/ops/pallas_kernels.py:585",
     "bias_gelu": "mxnet_tpu/ops/pallas_kernels.py:746",
     "decode_attention": "mxnet_tpu/ops/pallas_kernels.py:953",
+    "softmax": "mxnet_tpu/ops/pallas_kernels.py:104",
+    "softmax_ce_bwd": "mxnet_tpu/ops/pallas_kernels.py:112",
+    "sgd_mom": "mxnet_tpu/ops/pallas_kernels.py:497",
+    "adam": "mxnet_tpu/ops/pallas_kernels.py:509",
 }
+DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
+TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
+    32, 8
+SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+FWD_TOL = 1e-4          # card vs CPU forward (probabilities, moving stats)
+SPREAD_FACTOR = 10.0    # card vs CPU weights, in units of the CPU's spread
 
 
 def _timed(fn, reps=200, warm=20):
@@ -122,17 +152,33 @@ def phase_build(ck):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
-          f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    print(_tf32(False) + " float32_matmul_precision="
+          f"{torch.get_float32_matmul_precision()} (decode phases)")
     return smi
 
 
-def phase_kernels(ck):
-    """Each kernel against its plain version at the decode path's shapes.
-    Returns {name: record} for the result line."""
+def _tf32(on):
+    """cuDNN's TF32 switch (PyTorch's default: on); matmuls stay full
+    float32. Returns the line that records it."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return (f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def _resnet50_param_shapes(mx, batch):
+    """ResNet-50's 157 parameter shapes at the training phase's input."""
+    from mxnet_tpu_torch.models import resnet
+    sym = resnet.get_symbol(TRAIN_CLASSES, 50, TRAIN_IMAGE)
+    arg_shapes, _, _ = sym.infer_shape(data=(batch,) + TRAIN_IMAGE)
+    return [s for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")]
+
+
+def phase_kernels(mx, ck):
+    """Each kernel against its plain version at its path's shapes (and
+    edge shapes). Returns {name: record} for the result line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -212,6 +258,7 @@ def phase_kernels(ck):
              "bias_gelu": lambda: ck.bias_gelu(h, hb),
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
+    calls.update(_training_kernels(mx, ck, rs, t, rec))
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
@@ -223,6 +270,104 @@ def phase_kernels(ck):
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {r['max_abs_err']} > {TOL[name]}")
     return rec
+
+
+def _training_kernels(mx, ck, rs, t, rec):
+    """The four training kernels at the ResNet-50 path's shapes: the
+    (32, 1000) head, and the optimizer over all 157 parameter arrays of
+    one step (so ms and bound are per training step). Fills ``rec``;
+    returns the timed calls."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops.loss import softmax_output
+    N, C = TRAIN_BATCH, TRAIN_CLASSES
+    # 5. softmax: (32, 1000), then C = 1, 1025 (block-per-row), 65536, N = 1
+    x = t(4 * rs.randn(N, C).astype(np.float32))
+    err = _max_err(ck.softmax(x), ck.softmax_plain(x))
+    for shape in ((4, 1), (3, 1025), (2, 65536), (1, C)):
+        e = t(4 * rs.randn(*shape).astype(np.float32))
+        err = max(err, _max_err(ck.softmax(e), ck.softmax_plain(e)))
+    rec["softmax"] = dict(
+        max_abs_err=err, ms=_timed(lambda: ck.softmax(x)),
+        plain_ms=_timed(lambda: ck.softmax_plain(x)),
+        library_ms=_timed(lambda: torch.softmax(x, -1)),
+        bound=_bound_ms(2 * N * C * 4, 5 * N * C))
+    # 6. cross-entropy backward: labels in range, past C and negative;
+    #    the op's ignore mask and "valid" normalization through autograd
+    p = ck.softmax_plain(x)
+    lab = t(np.concatenate([rs.randint(0, C, N - 3), [C, -1, C - 1]])
+            .astype(np.float32))
+    err = max(_max_err(ck.softmax_ce_bwd(p, lab, s, u, -1.0),
+                       ck.softmax_ce_bwd_plain(p, lab, s, u, -1.0))
+              for s in (1.0, 1 / N) for u in (False, True))
+    attrs = mx.ops.get_op("SoftmaxOutput").normalize_attrs(
+        {"use_ignore": True, "normalization": "valid"})
+    grads = []
+    for fns in ({"softmax": ck.softmax, "ce_grad": ck.softmax_ce_bwd}, {}):
+        xx = x.clone().requires_grad_(True)
+        softmax_output(xx, lab, attrs, **fns).sum().backward()
+        grads.append(xx.grad)
+    err = max(err, _max_err(*grads))
+    rec["softmax_ce_bwd"] = dict(
+        max_abs_err=err, ms=_timed(lambda: ck.softmax_ce_bwd(p, lab, 1.0)),
+        plain_ms=_timed(lambda: ck.softmax_ce_bwd_plain(p, lab, 1.0)),
+        library_ms=None,     # no one PyTorch call emits this gradient
+        bound=_bound_ms(2 * N * C * 4 + N * 4, 3 * N * C))
+    # 7./8. the updates, over one step's 157 arrays, plus an odd length
+    shapes = _resnet50_param_shapes(mx, N)
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    big = max(shapes, key=lambda s: int(np.prod(s)))
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def arrays(k):
+        return [[torch.randn(s, device=dev, generator=gen).abs_()
+                 if j == 3 else torch.randn(s, device=dev, generator=gen)
+                 for j in range(k)] for s in shapes]
+    hp = dict(lr=0.1, momentum=0.9, wd=1e-4, rescale=1 / N, clip=-1.0)
+    err = 0.0
+    for s in (big, (1000003,)):
+        w, g, m = (torch.randn(s, device=dev, generator=gen)
+                   for _ in range(3))
+        for clip in (-1.0, 0.01):
+            h = dict(hp, clip=clip)
+            err = max(err, max(_max_err(a, b) for a, b in zip(
+                ck.sgd_mom_update(w.clone(), g, m.clone(), **h),
+                ck.sgd_mom_update_plain(w, g, m, **h))))
+    sgd = arrays(3)
+    rec["sgd_mom"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: [ck.sgd_mom_update(*a, **hp) for a in sgd],
+                  reps=50, warm=5),
+        plain_ms=_timed(lambda: [ck.sgd_mom_update_plain(*a, **hp)
+                                 for a in sgd], reps=20, warm=2),
+        library_ms=None,     # torch.optim.SGD keeps buf = mu*buf + g
+        bound=_bound_ms(5 * 4 * n_el, 7 * n_el))
+    ah = dict(lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=1e-4,
+              rescale=1 / N, clip=-1.0)
+    err = 0.0
+    for s in (big, (1000003,)):
+        w, g, mean = (torch.randn(s, device=dev, generator=gen)
+                      for _ in range(3))
+        var = torch.rand(s, device=dev, generator=gen)
+        err = max(err, max(_max_err(a, b) for a, b in zip(
+            ck.adam_update(w.clone(), g, mean.clone(), var.clone(), **ah),
+            ck.adam_update_plain(w, g, mean, var, **ah))))
+    adam = arrays(4)
+    rec["adam"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: [ck.adam_update(*a, **ah) for a in adam],
+                  reps=50, warm=5),
+        plain_ms=_timed(lambda: [ck.adam_update_plain(*a, **ah)
+                                 for a in adam], reps=20, warm=2),
+        library_ms=None,     # torch.optim.Adam places epsilon elsewhere
+        bound=_bound_ms(7 * 4 * n_el, 14 * n_el))
+    print(f"kernels: the updates are timed over one ResNet-50 step: "
+          f"{len(shapes)} arrays, {n_el} elements, largest {big}")
+    return {"softmax": lambda: ck.softmax(x),
+            "softmax_ce_bwd": lambda: ck.softmax_ce_bwd(p, lab, 1.0),
+            "sgd_mom": lambda: [ck.sgd_mom_update(*a, **hp) for a in sgd],
+            "adam": lambda: [ck.adam_update(*a, **ah) for a in adam]}
 
 
 def _model(mx, rs):
@@ -280,8 +425,10 @@ def phase_serve(mx, ck):
             for i in wave:
                 h = sched.submit(prompts[i])
                 handles.append(h)
+            # the event is bound now: a later wave rebinds `started`, and
+            # this wave's handle keeps streaming after its wave is done
             h.add_token_callback(
-                lambda _h, _tok, idx: idx >= 3 and started.set())
+                lambda _h, _tok, idx, ev=started: idx >= 3 and ev.set())
             if not started.wait(timeout=300):
                 raise AssertionError("serving stalled: no tokens streamed")
         outs = [h.result(timeout=600) for h in handles]
@@ -301,7 +448,7 @@ def phase_serve(mx, ck):
                              f"{[len(o) for o in outs]}")
     if stats["migrations"] < 2:
         raise AssertionError("the rung never switched")
-    for name in ck.KERNELS:
+    for name in DECODE_KERNELS:
         if not counts[name] > after_warm[name]:
             raise AssertionError(f"kernel {name} was not launched while "
                                  "serving")
@@ -368,6 +515,202 @@ def phase_profile(mx, sym, params, steps=16):
               f"launches/step  {key[:90]}")
 
 
+def _resnet50(mx):
+    from mxnet_tpu_torch.models import resnet
+    return resnet.get_symbol(TRAIN_CLASSES, 50, TRAIN_IMAGE)
+
+
+def _images(n, seed):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return (rs.rand(n, *TRAIN_IMAGE).astype(np.float32),
+            rs.randint(0, TRAIN_CLASSES, n).astype(np.float32))
+
+
+def phase_train(mx, ck):
+    """ResNet-50 through Module.fit on gpu(0). Returns (launch counts of
+    the fit, the bound module for the profile phase)."""
+    import numpy as np
+    import torch
+    print(_tf32(True) + " (PyTorch's default, for the training phases)")
+    X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
+    it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+    mod = mx.mod.Module(_resnet50(mx), context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    args, _ = mod.get_params()
+    before = {k: args[k].asnumpy() for k in ("conv0_weight", "fc1_weight")}
+    stamps = []
+
+    def step_end(_param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    metric = mx.metric.create(["acc", "ce"])
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer_params=SGD,
+            batch_end_callback=step_end)
+    counts = ck.launch_counts()
+    steps = np.diff(stamps) * 1e3          # the first batch excluded
+    print(f"train: ResNet-50 {TRAIN_IMAGE} batch {TRAIN_BATCH}, "
+          f"{len(stamps)} steps in {time.perf_counter() - t0:.2f} s "
+          f"(first {1e3 * (stamps[0] - t0):.1f} ms); without the first: "
+          f"{TRAIN_BATCH * len(steps) / (steps.sum() / 1e3):.1f} img/s, "
+          f"step p50 {np.percentile(steps, 50):.2f} ms p99 "
+          f"{np.percentile(steps, 99):.2f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_step = {k: v / len(stamps) for k, v in counts.items()}
+    print(f"train: launches per step {per_step}")
+    n_params = len(args)
+    want = {"softmax": 1, "softmax_ce_bwd": 1, "sgd_mom": n_params}
+    for k, v in want.items():
+        if per_step[k] != v:
+            raise AssertionError(f"{k}: {per_step[k]} launches per step, "
+                                 f"want {v}")
+    names, values = metric.get()
+    print(f"train: {dict(zip(names, values))}")
+    if not np.isfinite(values[1]):
+        raise AssertionError("the training loss is not finite")
+    for k, v in before.items():
+        moved = float(np.abs(args[k].asnumpy() - v).max())
+        print(f"train: {k} moved by up to {moved:.3g}")
+        if not moved > 0:
+            raise AssertionError(f"{k} did not move")
+    return counts, mod, it
+
+
+def _one_step(mx, sym, args, auxs, ctx, X, y, optimizer_params):
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.fit(mx.io.NDArrayIter(X, y, batch_size=len(X)), num_epoch=1,
+            arg_params=mx.convert.params_from_numpy(args, ctx),
+            aux_params=mx.convert.params_from_numpy(auxs, ctx),
+            optimizer_params=optimizer_params)
+    a, x = mod.get_params()
+    return (mod.get_outputs()[0].asnumpy(),
+            {k: v.asnumpy() for k, v in a.items()},
+            {k: v.asnumpy() for k, v in x.items()})
+
+
+def phase_train_parity(mx):
+    """One ResNet-50 step at batch 2, card vs CPU, TF32 off."""
+    import numpy as np
+    import torch
+    print(_tf32(False) + " (parity phase)")
+    sym = _resnet50(mx)
+    X, y = _images(2, SEED + 1)
+    init = mx.mod.Module(sym, context=mx.cpu())
+    init.bind([("data", X.shape)], [("softmax_label", y.shape)])
+    init.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in init.get_params())
+    rs = np.random.RandomState(SEED + 2)
+    nudged = {k: (v * (1 + 1e-6 * rs.randn(*v.shape))).astype(np.float32)
+              for k, v in args.items()}
+    t0 = time.perf_counter()
+    cpu = _one_step(mx, sym, args, auxs, mx.cpu(), X, y, SGD)
+    spread = _one_step(mx, sym, nudged, auxs, mx.cpu(), X, y, SGD)
+    t_cpu = time.perf_counter() - t0
+    gpu = _one_step(mx, sym, args, auxs, mx.gpu(0), X, y, SGD)
+    prob_err = float(np.abs(gpu[0] - cpu[0]).max())
+    aux_err = max(float((np.abs(gpu[2][k] - v) / (1 + np.abs(v))).max())
+                  for k, v in cpu[2].items())
+    worst, worst_k, arg_err = -1.0, None, 0.0
+    for k, v in cpu[1].items():
+        d = float(np.abs(gpu[1][k] - v).max())
+        floor = float(np.abs(spread[1][k] - v).max())
+        arg_err = max(arg_err, d)
+        ratio = d / (SPREAD_FACTOR * floor + 1e-5)
+        if ratio > worst:
+            worst, worst_k = ratio, (k, d, floor)
+    print(f"parity: one step at batch 2 (CPU steps {t_cpu:.1f} s): max "
+          f"|prob card - cpu| = {prob_err:.3g} (limit {FWD_TOL}); max "
+          f"relative |aux card - cpu| = {aux_err:.3g} (limit {FWD_TOL}); "
+          f"max |arg card - cpu| = {arg_err:.3g}; worst array {worst_k[0]}: "
+          f"{worst_k[1]:.3g} against the CPU's 1e-6 spread {worst_k[2]:.3g}"
+          f" (limit {SPREAD_FACTOR} x spread + 1e-5, ratio {worst:.3f})")
+    if not (prob_err <= FWD_TOL and aux_err <= FWD_TOL and worst <= 1.0):
+        raise AssertionError("card and CPU training steps disagree")
+
+
+def phase_adam(mx, ck):
+    """Two Adam steps of the same fit at batch 4; returns the counts."""
+    import torch
+    print(_tf32(True))
+    X, y = _images(8, SEED + 3)
+    mod = mx.mod.Module(_resnet50(mx), context=mx.gpu(0))
+    ck.reset_launch_counts()
+    mod.fit(mx.io.NDArrayIter(X, y, batch_size=4), num_epoch=1,
+            optimizer="adam", initializer=mx.initializer.Xavier(
+                rng=torch.Generator().manual_seed(SEED)),
+            optimizer_params={"learning_rate": 1e-3, "wd": 1e-4})
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    n_params = len(mod.get_params()[0])
+    print(f"adam: 2 steps at batch 4: launches {counts}")
+    if counts["adam"] != 2 * n_params or counts["sgd_mom"]:
+        raise AssertionError(f"adam launched {counts['adam']} times, want "
+                             f"{2 * n_params}")
+    return counts
+
+
+#: device kernels by who wrote them: the port's CUDA kernels, the
+#: convolution and GEMM libraries (cuDNN, cuBLAS, CUTLASS), PyTorch's own
+#: elementwise / reduction kernels, and copies
+_PORT_KERNELS = ("softmax_", "sgd_mom_f32", "adam_f32", "ln_fwd_f32",
+                 "bias_gelu_", "emb_gather", "decode_attn")
+
+
+def _kernel_group(key):
+    if any(k in key for k in _PORT_KERNELS):
+        return "port kernels"
+    if key.startswith("Memcpy") or key.startswith("Memset"):
+        return "copies"
+    if "at::native" in key:
+        return "PyTorch elementwise/reduction"
+    return "conv/GEMM libraries"
+
+
+def phase_train_profile(mod, it, steps=4):
+    """Where a ResNet-50 training step's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    it.reset()
+    batch = next(iter(it))
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = sorted(((_self_device_us(e), e.count, e.key)
+                   for e in prof.key_averages() if _self_device_us(e) > 0),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3 / steps
+    print(f"train profile: {steps} steps: wall {wall_ms:.2f} ms/step, "
+          f"device busy {busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}%"
+          f" of wall), {sum(r[1] for r in rows) // steps} kernel launches "
+          "per step")
+    groups = {}
+    for us, count, key in rows:
+        g = _kernel_group(key)
+        t, c = groups.get(g, (0.0, 0))
+        groups[g] = (t + us, c + count)
+    for g, (us, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  group {g}: {us / 1e3 / steps:.3f} ms/step "
+              f"({100 * us / 1e3 / steps / busy_ms:.1f}% of device time), "
+              f"{count // steps} launches/step")
+    for us, count, key in rows[:12]:
+        print(f"  {us / 1e3 / steps:9.4f} ms/step  {count // steps:5d} "
+              f"launches/step  {key[:90]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -382,22 +725,32 @@ def main():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
+    t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     smi = phase_build(ck)
-    rec = phase_kernels(ck)
-    counts, sym, params = phase_serve(mx, ck)
+    rec = phase_kernels(mx, ck)
+    serve_counts, sym, params = phase_serve(mx, ck)
     phase_profile(mx, sym, params)
+    train_counts, train_mod, train_it = phase_train(mx, ck)
+    phase_train_parity(mx)
+    adam_counts = phase_adam(mx, ck)
+    phase_train_profile(train_mod, train_it)
+    launches = dict(train_counts)
+    launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
+    launches["adam"] = adam_counts["adam"]
     kernels = []
     for name in ck.KERNELS:
         r = rec[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{ck._SPECS[name][0]}",
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

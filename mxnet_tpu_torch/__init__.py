@@ -6,9 +6,11 @@ JAX package. It keeps the JAX package's module names so each counterpart
 is easy to find. Its entry points run on the card (``gpu(0)`` is the
 default context) unless the caller passes ``mx.cpu()``.
 
-The ported slice is the decode-serving path: the transformer LM of
-``models.transformer`` served by ``serve.serve_decoder``, with the four
-TPU kernels on that path rewritten as CUDA C++ for sm_90a
+Two slices are ported: the decode-serving path (the transformer LM of
+``models.transformer`` served by ``serve.serve_decoder``) and the
+single-device training path (``mod.Module.fit`` over the image
+classifiers of ``models``, ResNet-50 first, with SGD-momentum or Adam).
+The TPU kernels on those paths are rewritten as CUDA C++ for sm_90a
 (``ops/cuda_kernels.py``, sources under ``csrc/``).
 """
 from . import base
@@ -29,6 +31,13 @@ from .name import NameManager, Prefix
 from . import name
 from .executor import Executor
 from . import io
+from . import initializer
+from . import optimizer
+from .optimizer import Optimizer
+from . import lr_scheduler
+from . import metric
+from . import callback
+from . import model
 from . import module
 from . import module as mod
 from . import models

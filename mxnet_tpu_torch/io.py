@@ -1,11 +1,21 @@
-"""Data descriptors: ``DataDesc`` and ``DataBatch``."""
+"""Data descriptors (``DataDesc``, ``DataBatch``) and the in-memory
+iterators (``DataIter``, ``NDArrayIter``).
+
+``NDArrayIter`` keeps its data in host numpy arrays and yields batches of
+host (``cpu``) NDArrays; the executor group copies each batch onto the
+bound device. Shuffling draws from an explicit numpy ``RandomState``
+(``shuffle_seed``), so two iterators built alike yield alike.
+"""
 from __future__ import annotations
 
 from collections import namedtuple
 
 import numpy as np
 
-__all__ = ["DataDesc", "DataBatch"]
+from .context import cpu
+from .ndarray import NDArray
+
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -30,3 +40,138 @@ class DataBatch:
         self.bucket_key = bucket_key
         self.provide_data = provide_data
         self.provide_label = provide_label
+
+
+class DataIter:
+    """Base iterator: ``next()`` yields DataBatch until StopIteration."""
+
+    def __init__(self, batch_size=0):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self):
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        return self.next()
+
+    def iter_next(self):
+        return False
+
+    def getdata(self):
+        return None
+
+    def getlabel(self):
+        return None
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        return 0
+
+
+def _init_data(data, allow_empty, default_name):
+    """Normalize input to a list of (name, numpy array)."""
+    if data is None:
+        if not allow_empty:
+            raise ValueError("NDArrayIter needs data")
+        data = []
+    if isinstance(data, (np.ndarray, NDArray)):
+        data = [data]
+    if isinstance(data, list):
+        if not allow_empty and not data:
+            raise ValueError("NDArrayIter needs data")
+        data = {default_name: data[0]} if len(data) == 1 else \
+            {f"_{i}_{default_name}": d for i, d in enumerate(data)}
+    if not isinstance(data, dict):
+        raise TypeError("Input must be NDArray, numpy.ndarray, a list of "
+                        "them or dict with them as values")
+    return [(k, v.asnumpy() if isinstance(v, NDArray) else np.asarray(v))
+            for k, v in data.items()]
+
+
+class NDArrayIter(DataIter):
+    """Iterate over in-memory arrays in batches of ``batch_size``.
+
+    ``last_batch_handle``: ``"pad"`` fills the last batch from the start
+    of the data and reports the fill as ``pad``; ``"discard"`` drops the
+    incomplete batch; ``"roll_over"`` starts the next epoch where the
+    filled batch left off. ``shuffle`` permutes the samples once, with a
+    ``RandomState(shuffle_seed)``."""
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label", shuffle_seed=0):
+        super().__init__(batch_size)
+        self.data = _init_data(data, allow_empty=False,
+                               default_name=data_name)
+        self.label = _init_data(label, allow_empty=True,
+                                default_name=label_name)
+        self.idx = np.arange(self.data[0][1].shape[0])
+        if shuffle:
+            np.random.RandomState(shuffle_seed).shuffle(self.idx)
+            self.data = [(k, v[self.idx]) for k, v in self.data]
+            self.label = [(k, v[self.idx]) for k, v in self.label]
+        if last_batch_handle == "discard":
+            n = self.data[0][1].shape[0]
+            self.idx = self.idx[:n - n % batch_size]
+        self.num_data = self.idx.shape[0]
+        if self.num_data < batch_size:
+            raise ValueError("batch_size needs to be smaller than data size")
+        self.cursor = -batch_size
+        self.last_batch_handle = last_batch_handle
+
+    @property
+    def provide_data(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.data]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.label]
+
+    def hard_reset(self):
+        self.cursor = -self.batch_size
+
+    def reset(self):
+        if self.last_batch_handle == "roll_over" and \
+                self.cursor > self.num_data:
+            self.cursor = -self.batch_size + \
+                (self.cursor % self.num_data) % self.batch_size
+        else:
+            self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def _batch(self, source):
+        lo, hi = self.cursor, self.cursor + self.batch_size
+        if hi <= self.num_data:
+            return [NDArray(np.ascontiguousarray(v[lo:hi]), ctx=cpu())
+                    for _, v in source]
+        pad = hi - self.num_data
+        return [NDArray(np.concatenate((v[lo:self.num_data], v[:pad])),
+                        ctx=cpu()) for _, v in source]
+
+    def getdata(self):
+        return self._batch(self.data)
+
+    def getlabel(self):
+        return self._batch(self.label)
+
+    def getpad(self):
+        if self.last_batch_handle == "pad" and \
+                self.cursor + self.batch_size > self.num_data:
+            return self.cursor + self.batch_size - self.num_data
+        return 0

@@ -246,9 +246,14 @@ def load(fname):
 def imperative_invoke(op_name, *inputs, out=None, **kwargs):
     """Run a registered op eagerly on NDArrays: normalize attrs, dispatch
     by device (kernel variant on CUDA, plain version on the CPU), write
-    aux states back into their handles, wrap the outputs."""
+    aux states back into their handles, wrap the outputs. An op that
+    declares ``mutate_inputs`` (the optimizer updates) has output k
+    written into the handle of input ``mutate_inputs[k]``; its CUDA
+    kernel updates that tensor in place, so the write is the same tensor
+    there."""
     opdef = get_op(op_name)
     attrs = opdef.normalize_attrs(kwargs)
+    in_names = opdef.input_names(attrs)
     aux_n = len(opdef.aux_names(attrs))
     ctx = inputs[0].context if inputs and isinstance(inputs[0], NDArray) \
         else current_context()
@@ -257,6 +262,10 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
     regular, aux = (arrs[:len(arrs) - aux_n], arrs[len(arrs) - aux_n:]) \
         if aux_n else (arrs, [])
     outputs, new_aux = dispatch(opdef, attrs, regular, aux, False, None)
+    for mname, new_val in zip(opdef.mutate_inputs, outputs):
+        handle = inputs[in_names.index(mname)]
+        if isinstance(handle, NDArray):
+            handle._set(new_val)
     if aux_n:
         for handle, new_val in zip(inputs[len(arrs) - aux_n:], new_aux):
             if isinstance(handle, NDArray):

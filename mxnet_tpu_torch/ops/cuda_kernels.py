@@ -1,23 +1,28 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
-decode path. Four kernels, each a CUDA C++ source under
-``mxnet_tpu_torch/csrc/``:
+The counterpart of the JAX package's ``ops/pallas_kernels.py``. Eight
+kernels, each a CUDA C++ source under ``mxnet_tpu_torch/csrc/``:
 
-====================  =========================================  ===========
-wrapper               replaces (mxnet_tpu/ops/pallas_kernels.py)  source
-====================  =========================================  ===========
-``embedding``         ``_emb_gather_kernel`` (``_pl_embedding``)  embedding.cu
-``layernorm``         ``_ln_fwd_kernel`` (``_pl_layernorm_fwd``)  layernorm.cu
-``bias_gelu``         ``_bias_gelu_kernel`` (``_pl_bias_gelu``)   bias_gelu.cu
-``decode_attention``  ``_decode_attn_kernel``                     decode_attention.cu
-====================  =========================================  ===========
+====================  =============================================  ===================
+wrapper               replaces (mxnet_tpu/ops/pallas_kernels.py)     source
+====================  =============================================  ===================
+``embedding``         ``_emb_gather_kernel`` (``_pl_embedding``)     embedding.cu
+``layernorm``         ``_ln_fwd_kernel`` (``_pl_layernorm_fwd``)     layernorm.cu
+``bias_gelu``         ``_bias_gelu_kernel`` (``_pl_bias_gelu``)      bias_gelu.cu
+``decode_attention``  ``_decode_attn_kernel``                        decode_attention.cu
+``softmax``           ``_softmax_fwd_kernel`` (``_pl_softmax``)      softmax.cu
+``softmax_ce_bwd``    ``_softmax_ce_bwd_kernel``                     softmax_ce_bwd.cu
+``sgd_mom_update``    ``_sgd_mom_kernel`` (``_tiled_elementwise``)   sgd_mom.cu
+``adam_update``       ``_adam_kernel`` (``_tiled_elementwise``)      adam.cu
+====================  =============================================  ===================
 
-Each source carries a note on what bounds it on the card and what its
-design does about that. Beside each wrapper sits its plain PyTorch version
-(``*_plain``), which computes the same function the way the TPU kernel
-does; the CPU tests hold it against the JAX package, and ``chip_smoke.py``
-holds the kernel against it on the card.
+The first four serve the decode path, the last four the training path
+(the SoftmaxOutput head and the optimizer updates). Each source carries a
+note on what bounds it on the card and what its design does about that.
+Beside each wrapper sits its plain PyTorch version (``*_plain``), which
+computes the same function the way the TPU kernel does; the CPU tests
+hold it against the JAX package, and ``chip_smoke.py`` holds the kernel
+against it on the card.
 
 Dispatch is by device and nothing else: a wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel (building it
@@ -25,7 +30,8 @@ first if needed) or raises — a build failure, a launch failure and an
 input the kernel does not take all raise, and nothing gives way to the
 plain version. Every wrapper counts its launches in a plain integer
 attribute (``embedding.launches`` ...), incremented where it launches and
-nowhere else.
+nowhere else. The optimizer wrappers update the weight and state tensors
+in place on both devices.
 
 Build: at first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` per source, all started together, into
@@ -47,21 +53,27 @@ from pathlib import Path
 
 import torch
 
-from ..base import MXNetError, parse_float
+from ..base import MXNetError, parse_bool, parse_float
+from .loss import softmax_ce_grad, softmax_output, softmax_rows
 from .nn import bias_gelu as nn_bias_gelu
+from .optimizer_op import adam_step, sgd_mom_step
 from .registry import get_op
 from .tensor import embedding_lookup
 
 __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "layernorm_plain", "fused_layernorm", "bias_gelu",
            "bias_gelu_plain", "decode_attention", "decode_attention_plain",
-           "launch_counts", "reset_launch_counts", "KERNELS"]
+           "softmax", "softmax_plain", "softmax_ce_bwd",
+           "softmax_ce_bwd_plain", "sgd_mom_update", "sgd_mom_update_plain",
+           "adam_update", "adam_update_plain", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _ARCH = "arch=compute_90a,code=sm_90a"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 
 #: kernel name -> (source file, C symbol, ctypes argtypes)
 _SPECS = {
@@ -73,6 +85,13 @@ _SPECS = {
                   [_P, _P, _P, _I, _I, _P]),
     "decode_attention": ("decode_attention.cu", "mx_decode_attention_f32",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "softmax": ("softmax.cu", "mx_softmax_f32", [_P, _P, _I, _I, _P]),
+    "softmax_ce_bwd": ("softmax_ce_bwd.cu", "mx_softmax_ce_bwd_f32",
+                       [_P, _P, _P, _I, _I, _F, _I, _F, _P]),
+    "sgd_mom": ("sgd_mom.cu", "mx_sgd_mom_f32",
+                [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
+    "adam": ("adam.cu", "mx_adam_f32",
+             [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
 }
 KERNELS = tuple(_SPECS)
 
@@ -381,14 +400,191 @@ def decode_attention(q, k_cache, v_cache, pos):
 
 decode_attention.launches = 0
 
+# ==========================================================================
+# 5. row softmax (SoftmaxOutput forward)
+# ==========================================================================
+#: e = exp(x - max), e / sum(e) per row, float32 (the SoftmaxOutput op's
+#: own row function, shared)
+softmax_plain = softmax_rows
+
+#: the JAX package's eligibility bound for its softmax kernel
+SOFTMAX_MAX_C = 65536
+
+
+def softmax(x2):
+    """Row softmax of x2 (N, C) float32, C <= 65536 -> (N, C)."""
+    if not _cpu_or_cuda("softmax", x2):
+        return softmax_plain(x2)
+    _check("softmax", x=(x2, torch.float32))
+    if x2.ndim != 2 or x2.shape[1] > SOFTMAX_MAX_C:
+        raise MXNetError(f"softmax: want (N, C) with C <= {SOFTMAX_MAX_C}, "
+                         f"got {tuple(x2.shape)}")
+    n, c = x2.shape
+    y = torch.empty_like(x2)
+    _launch("softmax", x2, x2.data_ptr(), y.data_ptr(), n, c)
+    softmax.launches += 1
+    return y
+
+
+softmax.launches = 0
+
+
+# ==========================================================================
+# 6. softmax cross-entropy gradient (SoftmaxOutput backward)
+# ==========================================================================
+#: (p - onehot(int(label))) * keep * scale (the op's own row function)
+softmax_ce_bwd_plain = softmax_ce_grad
+
+
+def softmax_ce_bwd(prob2, label, scale, use_ignore=False, ignore_label=-1.0):
+    """Cross-entropy gradient over prob2 (N, C) float32 with label (N,)
+    float32 -> (N, C)."""
+    if not _cpu_or_cuda("softmax_ce_bwd", prob2):
+        return softmax_ce_bwd_plain(prob2, label, scale, use_ignore,
+                                    ignore_label)
+    _check("softmax_ce_bwd", prob=(prob2, torch.float32),
+           label=(label, torch.float32))
+    if prob2.ndim != 2 or tuple(label.shape) != (prob2.shape[0],):
+        raise MXNetError(f"softmax_ce_bwd: want prob (N, C) and label (N,),"
+                         f" got {tuple(prob2.shape)} and "
+                         f"{tuple(label.shape)}")
+    n, c = prob2.shape
+    g = torch.empty_like(prob2)
+    _launch("softmax_ce_bwd", prob2, prob2.data_ptr(), label.data_ptr(),
+            g.data_ptr(), n, c, float(scale), int(bool(use_ignore)),
+            float(ignore_label))
+    softmax_ce_bwd.launches += 1
+    return g
+
+
+softmax_ce_bwd.launches = 0
+
+
+# ==========================================================================
+# 7. SGD with momentum (in place)
+# ==========================================================================
+#: functional (w', m') = the sgd_mom_update op's plain forward
+sgd_mom_update_plain = sgd_mom_step
+
+
+def _check_same(name, **tensors):
+    _check(name, **{k: (t, torch.float32) for k, t in tensors.items()})
+    shapes = {tuple(t.shape) for t in tensors.values()}
+    if len(shapes) != 1:
+        raise MXNetError(f"{name}: operands differ in shape: {shapes}")
+
+
+def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0, rescale=1.0,
+                   clip=-1.0):
+    """In place on ``weight`` and ``mom`` (same shape, float32):
+    ``mom = momentum * mom - lr * (clip(rescale * grad) + wd * weight)``,
+    ``weight += mom``. ``clip <= 0`` means no clip. Returns (weight,
+    mom)."""
+    if not _cpu_or_cuda("sgd_mom_update", weight):
+        new_w, new_m = sgd_mom_update_plain(weight, grad, mom, lr, momentum,
+                                            wd, rescale, clip)
+        weight.copy_(new_w)
+        mom.copy_(new_m)
+        return weight, mom
+    _check_same("sgd_mom_update", weight=weight, grad=grad, mom=mom)
+    _launch("sgd_mom", weight, weight.data_ptr(), grad.data_ptr(),
+            mom.data_ptr(), weight.numel(), float(lr), float(momentum),
+            float(wd), float(rescale), float(clip))
+    sgd_mom_update.launches += 1
+    return weight, mom
+
+
+sgd_mom_update.launches = 0
+
+
+# ==========================================================================
+# 8. Adam (in place)
+# ==========================================================================
+#: functional (w', mean', var') = the adam_update op's plain forward
+adam_update_plain = adam_step
+
+
+def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale=1.0, clip=-1.0):
+    """In place on ``weight``, ``mean`` and ``var`` (same shape,
+    float32): the Adam moments and ``weight -= lr * mean / (sqrt(var) +
+    epsilon)``. Returns (weight, mean, var)."""
+    if not _cpu_or_cuda("adam_update", weight):
+        for dst, src in zip((weight, mean, var), adam_update_plain(
+                weight, grad, mean, var, lr, beta1, beta2, epsilon, wd,
+                rescale, clip)):
+            dst.copy_(src)
+        return weight, mean, var
+    _check_same("adam_update", weight=weight, grad=grad, mean=mean, var=var)
+    _launch("adam", weight, weight.data_ptr(), grad.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), weight.numel(), float(lr),
+            float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
+            float(epsilon), float(wd), float(rescale), float(clip))
+    adam_update.launches += 1
+    return weight, mean, var
+
+
+adam_update.launches = 0
+
 _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
-             "bias_gelu": bias_gelu, "decode_attention": decode_attention}
+             "bias_gelu": bias_gelu, "decode_attention": decode_attention,
+             "softmax": softmax, "softmax_ce_bwd": softmax_ce_bwd,
+             "sgd_mom": sgd_mom_update, "adam": adam_update}
 
 
 # ==========================================================================
 # the "cuda" variants of the ops these kernels serve (attention_decode's
 # variant lives with the op, in rtc.py)
 # ==========================================================================
-get_op("FusedBiasGeLU").add_variant("cuda", _bias_gelu_cuda)
-get_op("Embedding").add_variant("cuda", _embedding_cuda)
-get_op("LayerNorm").add_variant("cuda", _layernorm_cuda)
+def _softmax_output_cuda(attrs, inputs, aux, is_train, rng):
+    """SoftmaxOutput on the card: the softmax kernel forward, the
+    cross-entropy kernel backward (an autograd.Function, so the variant
+    trains). Labels go to the kernel as float32, as the TPU path casts
+    them."""
+    data, label = inputs
+    if parse_bool(attrs.get("multi_output", False)):
+        raise MXNetError("SoftmaxOutput(multi_output=True): no CUDA kernel "
+                         "takes the per-position softmax yet; run it on "
+                         "mx.cpu()")
+    return [softmax_output(data, label.to(torch.float32).contiguous(),
+                           attrs, softmax=softmax,
+                           ce_grad=softmax_ce_bwd)], []
+
+
+def _sgd_mom_cuda(attrs, inputs, aux, is_train, rng):
+    w, g, m = inputs
+    return list(sgd_mom_update(
+        w, g, m, attrs["lr"], attrs.get("momentum", 0.0),
+        attrs.get("wd", 0.0), attrs.get("rescale_grad", 1.0),
+        attrs.get("clip_gradient", -1.0))), []
+
+
+def _adam_cuda(attrs, inputs, aux, is_train, rng):
+    w, g, mean, var = inputs
+    return list(adam_update(
+        w, g, mean, var, attrs["lr"], attrs.get("beta1", 0.9),
+        attrs.get("beta2", 0.999), attrs.get("epsilon", 1e-8),
+        attrs.get("wd", 0.0), attrs.get("rescale_grad", 1.0),
+        attrs.get("clip_gradient", -1.0))), []
+
+
+_LN_BWD = ("the LayerNorm backward kernels _ln_bwd_dx_kernel and "
+           "_ln_bwd_dparams_kernel, mxnet_tpu/ops/pallas_kernels.py:600 and "
+           ":612")
+_UPDATE_BWD = ("a gradient of the update itself, which the JAX package "
+               "takes through its composition")
+get_op("FusedBiasGeLU").add_variant(
+    "cuda", _bias_gelu_cuda,
+    backward_pending="the GeLU backward kernel _bias_gelu_dx_kernel, "
+                     "mxnet_tpu/ops/pallas_kernels.py:751")
+get_op("Embedding").add_variant(
+    "cuda", _embedding_cuda,
+    backward_pending="the embedding gradient, a scatter-add the JAX "
+                     "package takes through its composition")
+get_op("LayerNorm").add_variant("cuda", _layernorm_cuda,
+                                backward_pending=_LN_BWD)
+get_op("SoftmaxOutput").add_variant("cuda", _softmax_output_cuda)
+get_op("sgd_mom_update").add_variant("cuda", _sgd_mom_cuda,
+                                     backward_pending=_UPDATE_BWD)
+get_op("adam_update").add_variant("cuda", _adam_cuda,
+                                  backward_pending=_UPDATE_BWD)

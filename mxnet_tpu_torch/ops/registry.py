@@ -16,15 +16,26 @@ inputs on a CUDA device run the variant (which launches the kernel or
 raises), inputs on the CPU run ``forward``, the plain version. There is
 no shape gate, no autotuner and no fallback from a kernel to the plain
 version.
+
+Gradients: a plain forward is differentiable through PyTorch's autograd
+(the loss heads are ``torch.autograd.Function``s with the JAX package's
+custom backward). A ``"cuda"`` variant is differentiable when it is an
+``autograd.Function`` whose backward is a kernel too; one whose backward
+kernel is not ported yet is registered with ``backward_pending`` naming
+that kernel, and ``dispatch`` refuses to run it on inputs that require
+grad — its output would carry no autograd history, and the gradient
+would be lost without a word.
 """
 from __future__ import annotations
 
 import inspect
 
+import torch
+
 from ..base import MXNetError
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "OP_REGISTRY",
-           "dispatch"]
+           "dispatch", "refuse_without_backward"]
 
 OP_REGISTRY = {}
 
@@ -49,6 +60,11 @@ class OpDef:
     shape_passthrough : the op is shape-identity on its first input.
     variants : ``{"cuda": forward}`` — the kernel-backed forward CUDA
         tensors run.
+    is_loss : the op is a loss head: its backward ignores the incoming
+        head gradient, and ``Executor.backward`` seeds ones for it.
+    mutate_inputs : names of inputs the op updates (the optimizer ops):
+        output k is the new value of input ``mutate_inputs[k]``, and
+        ``imperative_invoke`` writes it into that input's handle.
     stateful_infer : the op's aux states are read AND written during
         inference forwards (the KV-cache decode contract) — the executor
         writes ``new_aux`` back even when ``is_train=False``.
@@ -60,8 +76,11 @@ class OpDef:
     def __init__(self, name, forward, inputs=("data",), aux=(),
                  num_outputs=1, output_names=None, attr_spec=None,
                  infer_shape=None, num_visible=None, shape_passthrough=False,
-                 variants=None, stateful_infer=False, aux_dtypes=None):
+                 variants=None, stateful_infer=False, aux_dtypes=None,
+                 is_loss=False, mutate_inputs=()):
         self.name = name
+        self.is_loss = bool(is_loss)
+        self.mutate_inputs = tuple(mutate_inputs)
         self.forward = forward
         self.variants = {}
         for vname, vfn in (variants or {}).items():
@@ -112,13 +131,17 @@ class OpDef:
         return list(self._output_names)
 
     # --- kernel variants --------------------------------------------------
-    def add_variant(self, name, forward):
-        """Attach the kernel-backed forward for one device (``"cuda"``)."""
+    def add_variant(self, name, forward, backward_pending=None):
+        """Attach the kernel-backed forward for one device (``"cuda"``).
+        ``backward_pending`` names the backward kernel that is still to
+        be ported when the variant has none: ``dispatch`` then raises on
+        inputs that require grad."""
         if name != "cuda":
             raise MXNetError(
                 f"op {self.name!r}: variant {name!r} — the port keys "
                 "kernel variants by device, and only 'cuda' exists")
-        self.variants[name] = {"fn": forward}
+        self.variants[name] = {"fn": forward,
+                               "backward_pending": backward_pending}
         return self
 
     def normalize_attrs(self, kwargs):
@@ -150,9 +173,23 @@ def dispatch(opdef, attrs, inputs, aux, is_train, rng):
                 None)
     if lead is not None and lead.device.type == "cuda" and \
             "cuda" in opdef.variants:
-        return opdef.variants["cuda"]["fn"](attrs, inputs, aux, is_train,
-                                            rng)
+        variant = opdef.variants["cuda"]
+        refuse_without_backward(opdef, variant, inputs)
+        return variant["fn"](attrs, inputs, aux, is_train, rng)
     return opdef.forward(attrs, inputs, aux, is_train, rng)
+
+
+def refuse_without_backward(opdef, variant, inputs):
+    """Raise when ``variant`` has no backward kernel yet and would run,
+    with autograd recording, on an input that requires grad: its output
+    would carry no history and the gradient would be lost."""
+    pending = variant["backward_pending"]
+    if pending and torch.is_grad_enabled() and \
+            any(t is not None and t.requires_grad for t in inputs):
+        raise MXNetError(
+            f"op {opdef.name!r}: its CUDA kernel has no backward yet "
+            f"({pending} is still to be ported), so it cannot run on "
+            "inputs that require grad")
 
 
 def _validate_infer_signature(op_name, what, fn):

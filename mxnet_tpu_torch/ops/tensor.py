@@ -3,13 +3,15 @@
 The subset of the JAX package's ``ops/tensor.py`` that the transformer LM
 binds: ``Reshape`` with its special codes, ``transpose``, ``slice_axis``,
 ``dot``, elementwise and broadcast add, ``expand_dims``, ``_arange`` and
-the ``Embedding`` composition. Every op here except ``Embedding`` is
+the ``Embedding`` composition — plus ``Flatten``, which the image
+classifiers bind. Every op here except ``Embedding`` is
 plain PyTorch on both devices, as the JAX package leaves them to XLA;
 ``Embedding`` gets its CUDA kernel as the ``"cuda"`` variant in
 ``cuda_kernels.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import (parse_tuple, parse_bool, parse_int, parse_float,
@@ -23,6 +25,21 @@ def _infer_elemwise(attrs, in_shapes, out_known=None):
     for s in list(in_shapes) + list(out_known or []):
         merged = merge_shape(merged, s)
     return [merged] * len(in_shapes), [merged], []
+
+
+def _flatten_infer(attrs, in_shapes):
+    s = in_shapes[0]
+    if s is None or any(d == 0 for d in s[1:]):
+        return in_shapes, [None], []
+    return in_shapes, [(s[0], int(np.prod(s[1:], dtype=np.int64)))], []
+
+
+@register("Flatten", inputs=("data",), infer_shape=_flatten_infer)
+def _flatten(attrs, x):
+    return x.reshape(x.shape[0], -1)
+
+
+alias("flatten", "Flatten")
 
 
 register("elemwise_add", inputs=("lhs", "rhs"),

@@ -1,5 +1,5 @@
-"""Attention ops of the transformer LM: ``attention`` and the KV-cache
-``attention_decode``.
+"""Attention ops of the transformer LM (``attention`` and the KV-cache
+``attention_decode``), and the ``pallas_sgd_mom_update`` op name.
 
 ``attention_decode`` is the decode path's stateful op: its K/V caches and
 int32 cursor are op AUX state, read AND written on inference forwards
@@ -37,6 +37,7 @@ import torch
 from .base import MXNetError, parse_bool, parse_float
 from .ops import cuda_kernels
 from .ops.nn import rope_apply
+from .ops.optimizer_op import sgd_mom_step
 from .ops.registry import OP_REGISTRY, register
 
 __all__ = []
@@ -235,6 +236,31 @@ def _cache_dtype_of(attrs):
     return _CACHE_DTYPE_ALIASES.get(val, val)
 
 
+# --------------------------------------------------------------------------
+# pallas_sgd_mom_update: the explicit op name of the fused SGD-momentum
+# update (mxnet_tpu/rtc.py). Unlike sgd_mom_update it is functional — it
+# returns the new weight and momentum and leaves its inputs alone — so the
+# CUDA variant runs the in-place kernel on copies.
+# --------------------------------------------------------------------------
+def _pallas_sgd_hyper(attrs):
+    clip = attrs.get("clip_gradient")
+    return dict(lr=float(attrs["lr"]),
+                momentum=float(attrs.get("momentum", 0.0)),
+                wd=float(attrs.get("wd", 0.0)),
+                rescale=float(attrs.get("rescale_grad", 1.0)),
+                clip=-1.0 if clip is None else float(clip))
+
+
+def _pallas_sgd_mom_plain(attrs, weight, grad, mom):
+    return sgd_mom_step(weight, grad, mom, **_pallas_sgd_hyper(attrs))
+
+
+def _pallas_sgd_mom_cuda(attrs, inputs, aux, is_train, rng):
+    w, g, m = inputs
+    return list(cuda_kernels.sgd_mom_update(
+        w.clone(), g, m.clone(), **_pallas_sgd_hyper(attrs))), []
+
+
 def _register():
     if "attention" not in OP_REGISTRY:
         register("attention", inputs=("q", "k", "v"),
@@ -256,8 +282,22 @@ def _register():
                             "rope": (None, False),
                             "rope_base": (float, 10000.0),
                             "per_slot": (None, False),
-                            "cache_dtype": (str, "")},
-                 variants={"cuda": _attention_decode_cuda})
+                            "cache_dtype": (str, "")}).add_variant(
+            "cuda", _attention_decode_cuda,
+            backward_pending="a decode-attention backward (the op is "
+                             "inference-only; training takes the "
+                             "full-sequence attention graph)")
+    if "pallas_sgd_mom_update" not in OP_REGISTRY:
+        register("pallas_sgd_mom_update", inputs=("weight", "grad", "mom"),
+                 simple=_pallas_sgd_mom_plain, num_outputs=2,
+                 output_names=["weight_out", "mom_out"],
+                 attr_spec={"lr": (float, None), "momentum": (float, 0.0),
+                            "wd": (float, 0.0),
+                            "rescale_grad": (float, 1.0),
+                            "clip_gradient": (float, None)}).add_variant(
+            "cuda", _pallas_sgd_mom_cuda,
+            backward_pending="a gradient of the update itself, which the "
+                             "JAX package takes through its composition")
 
 
 _register()

@@ -271,16 +271,32 @@ class Symbol:
             f.write(self.tojson())
 
     # ----------------------------------------------------------------- binding
-    def simple_bind(self, ctx=None, type_dict=None, **kwargs):
-        """Bind for inference with zero-filled cells of the given shapes."""
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **kwargs):
+        """Bind with zero-filled cells of the given shapes (and a zero
+        gradient cell per argument whose ``grad_req`` is not "null")."""
         from .executor import Executor
         return Executor.simple_bind(self, ctx or current_context(),
-                                    type_dict, kwargs)
+                                    type_dict, kwargs, grad_req)
 
-    def bind(self, ctx=None, args=None, aux_states=None):
-        """Bind for inference over caller-provided argument/aux cells."""
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        """Bind over caller-provided argument / gradient / aux cells."""
         from .executor import Executor
-        return Executor(self, ctx or current_context(), args, aux_states)
+        return Executor(self, ctx or current_context(), args, args_grad,
+                        grad_req, aux_states)
+
+    def attr_dict(self):
+        """{node name: {attr: str}} for every node with attributes (op
+        params and user attrs such as ``__lr_mult__``)."""
+        ret = {}
+        for node in self._topo_nodes():
+            d = {k: attr_to_str(v) for k, v in node.attrs.items()}
+            d.update({k: v for k, v in node._extra.items()
+                      if not k.startswith("__is_aux__")})
+            if d:
+                ret[node.name] = d
+        return ret
 
 
 def _node_provenance(node, in_shapes=None):

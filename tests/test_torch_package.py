@@ -4,7 +4,8 @@
   (checked in a fresh interpreter), and no source file of the port — nor
   ``chip_smoke.py`` — imports either (checked on the syntax tree);
 * entry points default to the card: ``current_context()`` is ``gpu(0)``,
-  and without CUDA, binding there raises instead of running on the host.
+  and without CUDA, binding there raises instead of running on the host
+  — for the training path's ``Module.fit`` as for serving.
 """
 import ast
 import os
@@ -45,6 +46,7 @@ def _imported_roots(path):
 def test_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch as mx\n"
             "mx.models.transformer.get_decode_symbol(per_slot=True)\n"
+            "mx.models.resnet.get_symbol(10, 8, '3,16,16')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nassert not bad, bad\n")
@@ -94,6 +96,16 @@ def test_serve_decoder_without_context_raises_without_cuda():
         mxt.mod.Module(sym, label_names=[]).bind([("data", (1, 1))])
 
 
+def test_fit_without_context_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: gpu(0) is a valid default here")
+    from mxnet_tpu_torch.models import mlp
+    it = mxt.io.NDArrayIter(np.zeros((4, 1, 2, 2), np.float32),
+                            np.zeros(4, np.float32), batch_size=2)
+    with pytest.raises(MXNetError, match="needs CUDA"):
+        mxt.mod.Module(mlp.get_symbol(10)).fit(it, num_epoch=1)
+
+
 def test_chip_smoke_refuses_without_cuda():
     """chip_smoke.py exits non-zero and prints no result line without a
     card."""
@@ -119,11 +131,17 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_inference_only_binding():
+    """The decode graph is inference-only: it binds for training (the
+    port trains), but its attention_decode op refuses a training
+    forward."""
     sym = ttfm.get_decode_symbol(vocab_size=16, d_model=8, n_layer=1,
                                  n_head=2, capacity=8, per_slot=True)
     mod = mxt.mod.Module(sym, label_names=[], context=mxt.cpu())
-    with pytest.raises(MXNetError, match="inference only"):
-        mod.bind([("data", (1, 1))], None, for_training=True)
+    mod.bind([("data", (1, 1))], None, for_training=True)
+    mod.init_params(arg_params={}, aux_params={}, allow_missing=True)
+    with pytest.raises(MXNetError, match="inference op"):
+        mod.forward(mxt.io.DataBatch([np.zeros((1, 1), np.int32)], []),
+                    is_train=True)
     with pytest.raises(MXNetError, match="fp8"):
         ttfm.get_decode_symbol(vocab_size=16, d_model=8, n_layer=1,
                                n_head=2, capacity=8, cache_dtype="fp8")
