@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all eight in parallel), print the build seconds,
+   ``nvcc`` per source, all twelve in parallel), print the build seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
    computes in full float32);
@@ -40,15 +40,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. two steps of the same fit with ``optimizer="adam"`` at batch 4 (the
    Adam kernel must launch, 157 times per step);
 8. profile 4 ResNet-50 training steps: device-busy share, the kernels
-   that take the most device time, ms per step.
+   that take the most device time, ms per step;
+9. train the repo's transformer LM at the bench's full width (V=32000,
+   d_model=512, 8 layers, 8 heads, T=1024, batch 8, ``SyntheticLMIter``
+   seed 0, Xavier init, SGD lr 0.05) through ``Module.fit`` on ``gpu(0)``
+   for 8 batches: tokens/s and p50/p99 step ms without the first batch,
+   peak device memory, kernel launches per step (embedding 1, LayerNorm
+   17 forward + 17 dx + 17 dgamma/dbeta, GeLU 8 + 8, flash attention 8,
+   softmax 1, cross-entropy backward 1), a finite loss and moved
+   parameters;
+10. one SGD step of the same LM at batch 2, T=128 on the card and on the
+   CPU from the same numpy-seeded parameters, TF32 off: the
+   probabilities within 1e-4, every gradient within 1e-4 of its array's
+   largest magnitude, every updated weight within 1e-5;
+11. profile 4 LM training steps: device-busy share, device time by group
+   (the port's kernels / cuBLAS and the libraries / PyTorch elementwise /
+   copies), the kernels that take the most device time.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
-cross-entropy / SGD-momentum while fitting with SGD, Adam while fitting
-with Adam — max abs error against the plain version, kernel / plain /
-library milliseconds and the bound); the last line is ``{"ok": true,
-"device": {...}}``. Without CUDA, or outside a checkout, the script exits
-non-zero and prints no result.
+cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
+while fitting with Adam, the LayerNorm and GeLU backward kernels and
+flash attention while fitting the LM — max abs error against the plain
+version, kernel / plain / library milliseconds and the bound); the last
+line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
+checkout, the script exits non-zero and prints no result.
 """
 import json
 import os
@@ -63,9 +79,13 @@ LADDER = [1, 4, 8]
 PROMPT, NEW, N_REQ = 16, 64, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+# ln_bwd_dparams: sums over up to 8192 rows reach a few hundred, where a
+# float32 ulp is 3e-5, and the plain version sums in another order
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "decode_attention": 2e-5, "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
-       "sgd_mom": 1e-6, "adam": 1e-6}
+       "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
+       "ln_bwd_dparams": 5e-4, "bias_gelu_dx": 2e-5,
+       "flash_attention": 2e-5}
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -76,6 +96,10 @@ REPLACES = {
     "softmax_ce_bwd": "mxnet_tpu/ops/pallas_kernels.py:112",
     "sgd_mom": "mxnet_tpu/ops/pallas_kernels.py:497",
     "adam": "mxnet_tpu/ops/pallas_kernels.py:509",
+    "ln_bwd_dx": "mxnet_tpu/ops/pallas_kernels.py:600",
+    "ln_bwd_dparams": "mxnet_tpu/ops/pallas_kernels.py:612",
+    "bias_gelu_dx": "mxnet_tpu/ops/pallas_kernels.py:751",
+    "flash_attention": "mxnet_tpu/rtc.py:301",
 }
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
@@ -83,6 +107,18 @@ TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
 SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 FWD_TOL = 1e-4          # card vs CPU forward (probabilities, moving stats)
 SPREAD_FACTOR = 10.0    # card vs CPU weights, in units of the CPU's spread
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 1024, 8
+LM_SGD = (("learning_rate", 0.05),)
+LM_KERNELS = ("ln_bwd_dx", "ln_bwd_dparams", "bias_gelu_dx",
+              "flash_attention")
+#: LM launches per training step at the bench's 8 layers
+LM_PER_STEP = {"embedding": 1, "layernorm": 2 * N_LAYER + 1,
+               "ln_bwd_dx": 2 * N_LAYER + 1, "ln_bwd_dparams": 2 * N_LAYER + 1,
+               "bias_gelu": N_LAYER, "bias_gelu_dx": N_LAYER,
+               "flash_attention": N_LAYER, "softmax": 1, "softmax_ce_bwd": 1}
+LM_PARITY_BATCH, LM_PARITY_SEQ = 2, 128
+GRAD_RTOL = 1e-4        # card vs CPU LM gradients, of each array's max |g|
+LM_WEIGHT_TOL = 1e-5    # card vs CPU LM weights after one step
 
 
 def _timed(fn, reps=200, warm=20):
@@ -259,6 +295,7 @@ def phase_kernels(mx, ck):
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
     calls.update(_training_kernels(mx, ck, rs, t, rec))
+    calls.update(_lm_kernels(ck, rs, t, rec))
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
@@ -368,6 +405,100 @@ def _training_kernels(mx, ck, rs, t, rec):
             "softmax_ce_bwd": lambda: ck.softmax_ce_bwd(p, lab, 1.0),
             "sgd_mom": lambda: [ck.sgd_mom_update(*a, **hp) for a in sgd],
             "adam": lambda: [ck.adam_update(*a, **ah) for a in adam]}
+
+
+def _lm_kernels(ck, rs, t, rec):
+    """The four LM-training kernels at the full-width LM path's shapes:
+    LayerNorm over (8192, 512), GeLU over (8192, 2048), causal flash
+    attention over (8, 8, 1024, 64); plus edge shapes. Fills ``rec``;
+    returns the timed calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    N, C = LM_BATCH * LM_SEQ, D
+
+    def ln_case(n, c):
+        x = t((3 * rs.randn(n, c) + 1).astype(np.float32))
+        g = t((1 + 0.1 * rs.randn(c)).astype(np.float32))
+        b = t((0.1 * rs.randn(c)).astype(np.float32))
+        ct = t(rs.randn(n, c).astype(np.float32))
+        _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
+        return x, g, b, ct, mean, rstd
+    cases = [ln_case(N, C)] + [ln_case(*e) for e in ((1, C), (64, 1),
+                                                      (2, 65536))]
+    err_dx = max(_max_err(ck.layernorm_bwd_dx(x, g, ct, m, r),
+                          ck.layernorm_bwd_dx_plain(x, g, ct, m, r))
+                 for x, g, _b, ct, m, r in cases)
+    err_dp = max(max(_max_err(a, b) for a, b in zip(
+        ck.layernorm_bwd_dparams(x, ct, m, r),
+        ck.layernorm_bwd_dparams_plain(x, ct, m, r)))
+        for x, _g, _b, ct, m, r in cases)
+    x, g, b, ct, m, r = cases[0]
+    # the library's LayerNorm backward computes dx, dgamma, dbeta in one
+    # call: its time stands beside rows 11 and 12 together
+    _, lm_mean, lm_rstd = torch.ops.aten.native_layer_norm(x, (C,), g, b,
+                                                           1e-5)
+    lib = _timed(lambda: torch.ops.aten.native_layer_norm_backward(
+        ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True]))
+    rec["ln_bwd_dx"] = dict(
+        max_abs_err=err_dx,
+        ms=_timed(lambda: ck.layernorm_bwd_dx(x, g, ct, m, r)),
+        plain_ms=_timed(lambda: ck.layernorm_bwd_dx_plain(x, g, ct, m, r)),
+        library_ms=lib,
+        bound=_bound_ms((3 * N * C + C + 2 * N) * 4, 11 * N * C))
+    rec["ln_bwd_dparams"] = dict(
+        max_abs_err=err_dp,
+        ms=_timed(lambda: ck.layernorm_bwd_dparams(x, ct, m, r)),
+        plain_ms=_timed(lambda: ck.layernorm_bwd_dparams_plain(x, ct, m, r)),
+        library_ms=lib,
+        bound=_bound_ms((2 * N * C + 2 * N + 2 * C) * 4, 4 * N * C))
+    # GeLU backward: (8192, 2048), then (3, 13) and (1, 4)
+    F4 = 4 * D
+    h = t((3 * rs.randn(N, F4)).astype(np.float32))
+    hb = t(rs.randn(F4).astype(np.float32))
+    hct = t(rs.randn(N, F4).astype(np.float32))
+    err = _max_err(ck.bias_gelu_dx(h, hb, hct),
+                   ck.bias_gelu_dx_plain(h, hb, hct))
+    for n, c in ((3, 13), (1, 4)):
+        e = [t(rs.randn(*s).astype(np.float32)) for s in ((n, c), (c,),
+                                                           (n, c))]
+        err = max(err, _max_err(ck.bias_gelu_dx(*e),
+                                ck.bias_gelu_dx_plain(*e)))
+    rec["bias_gelu_dx"] = dict(
+        max_abs_err=err, ms=_timed(lambda: ck.bias_gelu_dx(h, hb, hct)),
+        plain_ms=_timed(lambda: ck.bias_gelu_dx_plain(h, hb, hct)),
+        library_ms=None,     # no one PyTorch call takes GeLU' x ct
+        bound=_bound_ms((3 * N * F4 + F4) * 4, 12 * N * F4))
+    # flash attention: causal (8, 8, 1024, 64), then T = 1, T = 1000
+    # (a ragged last tile), Dh = 128, and non-causal
+    Dh = D // N_HEAD
+    q, k, v = (t(rs.randn(LM_BATCH, N_HEAD, LM_SEQ, Dh).astype(np.float32))
+               for _ in range(3))
+    err = _max_err(ck.flash_attention(q, k, v, True),
+                   ck.flash_attention_plain(q, k, v, True))
+    for shape, causal in (((2, 2, 1, Dh), True), ((1, 2, 1000, Dh), True),
+                          ((2, 2, 200, 128), True), ((2, 2, 256, Dh), False),
+                          ((1, 2, 300, 128), False)):
+        e = [t(rs.randn(*shape).astype(np.float32)) for _ in range(3)]
+        err = max(err, _max_err(ck.flash_attention(*e, causal),
+                                ck.flash_attention_plain(*e, causal)))
+    pairs = LM_BATCH * N_HEAD * LM_SEQ * (LM_SEQ + 1) // 2
+    rec["flash_attention"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: ck.flash_attention(q, k, v, True), reps=50),
+        plain_ms=_timed(lambda: ck.flash_attention_plain(q, k, v, True),
+                        reps=20, warm=3),
+        library_ms=_timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=50),
+        bound=_bound_ms(4 * q.numel() * 4, 4 * pairs * Dh))
+    print(f"kernels: LM rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}), "
+          f"flash {tuple(q.shape)} causal; library_ms of ln_bwd_dx and "
+          "ln_bwd_dparams is ONE native_layer_norm_backward call (dx, "
+          "dgamma and dbeta together)")
+    return {"ln_bwd_dx": lambda: ck.layernorm_bwd_dx(x, g, ct, m, r),
+            "ln_bwd_dparams": lambda: ck.layernorm_bwd_dparams(x, ct, m, r),
+            "bias_gelu_dx": lambda: ck.bias_gelu_dx(h, hb, hct),
+            "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
 
 
 def _model(mx, rs):
@@ -656,11 +787,15 @@ def phase_adam(mx, ck):
     return counts
 
 
-#: device kernels by who wrote them: the port's CUDA kernels, the
-#: convolution and GEMM libraries (cuDNN, cuBLAS, CUTLASS), PyTorch's own
-#: elementwise / reduction kernels, and copies
-_PORT_KERNELS = ("softmax_", "sgd_mom_f32", "adam_f32", "ln_fwd_f32",
-                 "bias_gelu_", "emb_gather", "decode_attn")
+#: device kernels by who wrote them: the port's CUDA kernels (by their
+#: names in csrc/ — PyTorch's own softmax kernels are softmax_warp_forward
+#: / _backward, so no bare "softmax_" prefix), the convolution and GEMM
+#: libraries (cuDNN, cuBLAS, CUTLASS), PyTorch's own elementwise /
+#: reduction kernels, and copies
+_PORT_KERNELS = ("softmax_warp_f32", "softmax_block_f32", "softmax_ce_bwd_f32",
+                 "sgd_mom_f32", "adam_f32", "ln_fwd_f32", "bias_gelu_",
+                 "emb_gather", "decode_attn", "ln_bwd_dx_f32", "ln_dparams_",
+                 "flash_fwd_f32")
 
 
 def _kernel_group(key):
@@ -668,13 +803,16 @@ def _kernel_group(key):
         return "port kernels"
     if key.startswith("Memcpy") or key.startswith("Memset"):
         return "copies"
-    if "at::native" in key:
+    if "at::native" in key or "softmax_warp_" in key:
         return "PyTorch elementwise/reduction"
     return "conv/GEMM libraries"
 
 
-def phase_train_profile(mod, it, steps=4):
-    """Where a ResNet-50 training step's time goes."""
+def phase_train_profile(mod, it, steps=4, label="train profile",
+                        gemm_flops=None):
+    """Where a training step's time goes (ResNet-50's, the LM's). With
+    ``gemm_flops`` (the matmul flops of one step), also the rate the
+    convolution/GEMM libraries reach over their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     it.reset()
@@ -693,7 +831,7 @@ def phase_train_profile(mod, it, steps=4):
                    for e in prof.key_averages() if _self_device_us(e) > 0),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
-    print(f"train profile: {steps} steps: wall {wall_ms:.2f} ms/step, "
+    print(f"{label}: {steps} steps: wall {wall_ms:.2f} ms/step, "
           f"device busy {busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}%"
           f" of wall), {sum(r[1] for r in rows) // steps} kernel launches "
           "per step")
@@ -709,6 +847,148 @@ def phase_train_profile(mod, it, steps=4):
     for us, count, key in rows[:12]:
         print(f"  {us / 1e3 / steps:9.4f} ms/step  {count // steps:5d} "
               f"launches/step  {key[:90]}")
+    if gemm_flops:
+        lib_s = groups["conv/GEMM libraries"][0] / 1e6 / steps
+        print(f"  the libraries' GEMMs: {gemm_flops / 1e12:.3f} TFLOP per "
+              f"step, {gemm_flops / lib_s / 1e12:.1f} TFLOP/s over their "
+              f"device time ({100 * gemm_flops / lib_s / F32_FLOPS_PER_S:.1f}"
+              f"% of the float32 peak outside the tensor cores)")
+    for us, count, key in rows:
+        if _kernel_group(key) == "port kernels":
+            print(f"  port {us / 1e3 / steps:9.4f} ms/step  "
+                  f"{count // steps:5d} launches/step  {key[:80]}")
+
+
+def _lm_gemm_flops():
+    """Matmul flops of one full-width LM step: 6 per weight per token
+    (forward, data and weight gradients) over the FullyConnected weights
+    (12 D^2 a layer) and the tied head (V D), plus the attention
+    backward's recompute: 6 (T x T x Dh) products per (b, h) row."""
+    weights = N_LAYER * 12 * D * D + V * D
+    attn = N_LAYER * 6 * 2 * LM_BATCH * N_HEAD * LM_SEQ ** 2 * (D // N_HEAD)
+    return 6 * weights * LM_BATCH * LM_SEQ + attn
+
+
+def _lm_symbol(seq):
+    from mxnet_tpu_torch.models import transformer as tfm
+    return tfm.get_symbol(vocab_size=V, d_model=D, n_layer=N_LAYER,
+                          n_head=N_HEAD, seq_len=seq)
+
+
+def phase_lm_train(mx, ck):
+    """The transformer LM at the bench's full width through Module.fit
+    on gpu(0). Returns (launch counts of the fit, module, iterator)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(True) + " (PyTorch's default, for the LM training phase)")
+    it = tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, LM_STEPS, seed=SEED)
+    mod = mx.mod.Module(_lm_symbol(LM_SEQ), context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    args, _ = mod.get_params()
+    watch = ("lm_tok_embed_weight", "lm_l0_qkv_weight", "lm_l0_ln1_beta",
+             f"lm_l{N_LAYER - 1}_ffn2_weight", "lm_ln_f_gamma")
+    before = {k: args[k].asnumpy() for k in watch}
+    stamps = []
+
+    def step_end(_param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    metric = mx.metric.create(["acc", "ce"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params=LM_SGD, batch_end_callback=step_end)
+    counts = ck.launch_counts()
+    steps = np.diff(stamps) * 1e3          # the first batch excluded
+    tokens = LM_BATCH * LM_SEQ
+    print(f"lm train: V={V} d_model={D} {N_LAYER} layers {N_HEAD} heads "
+          f"T={LM_SEQ} batch {LM_BATCH}, {len(stamps)} steps in "
+          f"{time.perf_counter() - t0:.2f} s (first "
+          f"{1e3 * (stamps[0] - t0):.1f} ms); without the first: "
+          f"{tokens * len(steps) / (steps.sum() / 1e3):.1f} tokens/s, step "
+          f"p50 {np.percentile(steps, 50):.2f} ms p99 "
+          f"{np.percentile(steps, 99):.2f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_step = {k: v / len(stamps) for k, v in counts.items()}
+    print(f"lm train: launches per step {per_step}")
+    want = {k: LM_PER_STEP.get(k, 0) for k in counts}
+    if per_step != want:
+        raise AssertionError(f"LM launches per step {per_step}, want {want}")
+    names, values = metric.get()
+    print(f"lm train: {dict(zip(names, values))}")
+    if not np.isfinite(values[1]):
+        raise AssertionError("the LM training loss is not finite")
+    for k, v in before.items():
+        moved = float(np.abs(args[k].asnumpy() - v).max())
+        print(f"lm train: {k} moved by up to {moved:.3g}")
+        if not moved > 0:
+            raise AssertionError(f"{k} did not move")
+    return counts, mod, it
+
+
+def _lm_step(mx, sym, params, ctx, batch):
+    """One forward/backward/update of the LM from ``params`` on ``ctx``:
+    (probabilities, {name: gradient}, {name: updated weight}), numpy."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(batch.provide_data, batch.provide_label)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(params, ctx))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=LM_SGD)
+    mod.forward_backward(batch)
+    exe = mod._exec_group.executor
+    grads = {k: v.asnumpy() for k, v in exe.grad_dict.items()}
+    mod.update()
+    return (mod.get_outputs()[0].asnumpy(), grads,
+            {k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+
+
+def phase_lm_parity(mx):
+    """One LM step at full width, batch 2, T=128, card vs CPU, TF32 off."""
+    import numpy as np
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(False) + " (LM parity phase)")
+    sym = _lm_symbol(LM_PARITY_SEQ)
+    shapes, _, _ = sym.infer_shape(
+        data=(LM_PARITY_BATCH, LM_PARITY_SEQ),
+        softmax_label=(LM_PARITY_BATCH * LM_PARITY_SEQ,))
+    rs = np.random.RandomState(SEED + 4)
+    params = {n: ((1 + 0.1 * rs.randn(*s)) if n.endswith("gamma")
+                  else 0.02 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    batch = next(iter(tfm.SyntheticLMIter(V, LM_PARITY_BATCH, LM_PARITY_SEQ,
+                                          1, seed=SEED + 5)))
+    t0 = time.perf_counter()
+    cpu = _lm_step(mx, sym, params, mx.cpu(), batch)
+    t_cpu = time.perf_counter() - t0
+    gpu = _lm_step(mx, sym, params, mx.gpu(0), batch)
+    prob_err = float(np.abs(gpu[0] - cpu[0]).max())
+    label = batch.label[0].asnumpy().astype(np.int64)
+    rows = np.arange(len(label))
+    loss = [float(-np.log(p[rows, label] + 1e-8).mean()) for p in (gpu[0],
+                                                                   cpu[0])]
+    worst_g, worst_w = (-1.0, None), (-1.0, None)
+    for k, g in cpu[1].items():
+        ratio = float(np.abs(gpu[1][k] - g).max()) / \
+            (GRAD_RTOL * float(np.abs(g).max()) + 1e-12)
+        worst_g = max(worst_g, (ratio, k))
+        d = float(np.abs(gpu[2][k] - cpu[2][k]).max())
+        worst_w = max(worst_w, (d, k))
+    print(f"lm parity: one step at batch {LM_PARITY_BATCH}, T="
+          f"{LM_PARITY_SEQ} (CPU step {t_cpu:.1f} s): loss card "
+          f"{loss[0]:.7f} cpu {loss[1]:.7f}; max |prob card - cpu| = "
+          f"{prob_err:.3g} (limit {FWD_TOL}); worst gradient "
+          f"{worst_g[1]}: {worst_g[0]:.3g} of its limit ({GRAD_RTOL} x its "
+          f"max |g|); worst weight {worst_w[1]}: |card - cpu| = "
+          f"{worst_w[0]:.3g} (limit {LM_WEIGHT_TOL}); "
+          f"{len(cpu[1])} gradients")
+    if not (prob_err <= FWD_TOL and abs(loss[0] - loss[1]) <= FWD_TOL
+            and worst_g[0] <= 1.0 and worst_w[0] <= LM_WEIGHT_TOL):
+        raise AssertionError("card and CPU LM steps disagree")
 
 
 def main():
@@ -736,9 +1016,15 @@ def main():
     phase_train_parity(mx)
     adam_counts = phase_adam(mx, ck)
     phase_train_profile(train_mod, train_it)
+    del train_mod, train_it
+    lm_counts, lm_mod, lm_it = phase_lm_train(mx, ck)
+    phase_lm_parity(mx)
+    phase_train_profile(lm_mod, lm_it, label="lm profile",
+                        gemm_flops=_lm_gemm_flops())
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
+    launches.update({k: lm_counts[k] for k in LM_KERNELS})
     kernels = []
     for name in ck.KERNELS:
         r = rec[name]

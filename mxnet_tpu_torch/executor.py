@@ -148,6 +148,11 @@ class Executor:
             aux = ins[len(ins) - n_aux:] if n_aux else []
             outs, new_aux = dispatch(opdef, node.attrs, regular, aux,
                                      is_train, None)
+            if not ins:
+                # a source op (``_arange``: the learned positions' ids)
+                # makes its tensor on the host; it belongs on the bound
+                # device with everything that reads it
+                outs = [o.to(self._ctx.torch_device()) for o in outs]
             if n_aux and (is_train or opdef.stateful_infer):
                 for (inp, _), new in zip(node.inputs[len(ins) - n_aux:],
                                          new_aux):

@@ -2,15 +2,21 @@
 
 The JAX package's model, node for node and name for name: a pre-LN,
 tied-embedding language model over ``Embedding`` (CUDA gather kernel),
-``LayerNorm`` (CUDA kernel), ``attention_decode`` (CUDA flash-decode
-kernel for the attention read), ``FusedBiasGeLU`` (CUDA epilogue kernel)
-and ``FullyConnected`` / ``dot`` (``torch.matmul``). A parameter set from
-``mxnet_tpu`` loads unchanged.
+``LayerNorm`` (CUDA kernel, backward kernels), ``attention`` (CUDA
+flash-attention kernel) or ``attention_decode`` (CUDA flash-decode kernel
+for the attention read), ``FusedBiasGeLU`` (CUDA epilogue kernel and its
+backward kernel), ``SoftmaxOutput`` (CUDA softmax and cross-entropy
+kernels) and ``FullyConnected`` / ``dot`` (``torch.matmul``). A parameter
+set from ``mxnet_tpu`` loads unchanged.
 
+* ``get_symbol`` — the training graph: data ``(B, T)`` token ids, label
+  ``(B*T,)`` next-token ids, the softmax-CE head over the tied embedding;
+  ``include_loss=False`` gives the logits ``(B, T, V)`` the decode parity
+  tests compare against.
 * ``get_decode_symbol`` — the inference decoder: ``(B, S)`` new tokens per
   step, per-layer K/V caches riding executor aux state.
-* ``get_symbol(include_loss=False)`` — the full-sequence forward, logits
-  ``(B, T, V)``: the reference the decode parity tests compare against.
+* ``SyntheticLMIter`` — the synthetic next-token batches the LM trains on
+  (the JAX package's numpy stream, batch for batch).
 
 ``KVCacheDecoder`` (one shared cursor) and ``BatchedKVCacheDecoder`` (one
 cursor per slot) drive a bound decode module and own what the device
@@ -27,8 +33,9 @@ import torch
 from .. import symbol as sym
 from ..base import MXNetError
 
-__all__ = ["get_symbol", "get_decode_symbol", "KVCacheDecoder",
-           "BatchedKVCacheDecoder", "default_cache_capacity"]
+__all__ = ["get_symbol", "get_decode_symbol", "SyntheticLMIter",
+           "KVCacheDecoder", "BatchedKVCacheDecoder",
+           "default_cache_capacity"]
 
 
 def default_cache_capacity():
@@ -129,16 +136,19 @@ def _embed(data, tok_w, *, seq_len, vocab_size, d_model, pos_embed,
 
 def get_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
                seq_len=32, pos_embed="rotary", rope_base=10000.0,
-               dropout=0.0, include_loss=False, max_seq_len=None,
-               name="lm"):
-    """Full-sequence forward: data ``(B, seq_len)`` token ids -> logits
-    ``(B, seq_len, vocab)``. Only the loss-free graph is ported (the loss
-    head belongs to training), and its ``attention`` runs on the CPU
-    until its flash kernel is ported."""
-    if include_loss or dropout:
-        raise MXNetError("get_symbol: the training graph (loss head, "
-                         "dropout) is not ported yet; use "
-                         "include_loss=False, dropout=0")
+               dropout=0.0, include_loss=True, normalization="batch",
+               max_seq_len=None, name="lm"):
+    """Training/full-sequence graph.
+
+    data: ``(B, seq_len)`` token ids (``SyntheticLMIter`` feeds int32);
+    label: ``(B*seq_len,)`` next-token ids fed straight into the
+    ``SoftmaxOutput`` head (named ``softmax``, ``normalization`` as
+    given) over the logits ``(B*seq_len, vocab)`` of the tied embedding.
+    ``include_loss=False`` returns the logits ``(B, seq_len, vocab)``.
+    ``dropout`` > 0 raises: ``Dropout`` is not ported yet."""
+    if dropout:
+        raise MXNetError("get_symbol: dropout > 0 needs the Dropout op, "
+                         "which is not ported yet; use dropout=0")
     _validate(d_model, n_head, pos_embed)
     max_seq_len = max_seq_len or seq_len
     T = seq_len
@@ -152,11 +162,15 @@ def get_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
                    pos_embed=pos_embed, rope_base=rope_base, name=name)
     x = sym.LayerNorm(x, name=f"{name}_ln_f")
     flat = sym.Reshape(x, shape=(-3, 0), name=f"{name}_head_fold")
-    # tied-embedding head: logits = x @ E^T over the token table
+    # tied-embedding head: logits = x @ E^T over the SAME variable the
+    # token embedding reads (one weight, two gradients that autograd sums)
     logits = sym.dot(flat, tok_w, transpose_b=True,
                      name=f"{name}_logits")              # (B*T, V)
-    return sym.Reshape(logits, shape=(-1, T, vocab_size),
-                       name=f"{name}_logits_btv")
+    if not include_loss:
+        return sym.Reshape(logits, shape=(-1, T, vocab_size),
+                           name=f"{name}_logits_btv")
+    return sym.SoftmaxOutput(logits, name="softmax",
+                             normalization=normalization)
 
 
 def get_decode_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
@@ -192,6 +206,55 @@ def get_decode_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
     logits = sym.dot(flat, tok_w, transpose_b=True, name=f"{name}_logits")
     return sym.Reshape(logits, shape=(-1, S, vocab_size),
                        name=f"{name}_logits_bsv")
+
+
+class SyntheticLMIter:
+    """Synthetic next-token LM batches: data ``(B, T)`` int32 ids, label
+    ``(B*T,)`` float32 ids (the stream shifted by one), matching
+    ``get_symbol``'s flat-label loss contract. The stream is the JAX
+    package's: ``RandomState(seed).randint(0, V, (n_batches * B, T + 1))``
+    as int32. Batches are host (``cpu``) NDArrays, which the executor
+    group copies onto the bound device."""
+
+    def __init__(self, vocab_size, batch_size, seq_len, n_batches,
+                 seed=0):
+        from .. import ndarray as nd
+        from ..context import cpu
+        from ..io import DataDesc
+        rs = np.random.RandomState(seed)
+        stream = rs.randint(
+            0, vocab_size,
+            (n_batches * batch_size, seq_len + 1)).astype(np.int32)
+        rows = [stream[i * batch_size:(i + 1) * batch_size]
+                for i in range(n_batches)]
+        self._data = [nd.array(r[:, :seq_len], ctx=cpu()) for r in rows]
+        self._label = [nd.array(r[:, 1:].reshape(-1).astype(np.float32),
+                                ctx=cpu()) for r in rows]
+        self.provide_data = [DataDesc("data", (batch_size, seq_len),
+                                      np.int32)]
+        self.provide_label = [DataDesc("softmax_label",
+                                       (batch_size * seq_len,))]
+        self.batch_size = batch_size
+        self._i = 0
+
+    def reset(self):
+        self._i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        from ..io import DataBatch
+        if self._i >= len(self._data):
+            raise StopIteration
+        b = DataBatch(data=[self._data[self._i]],
+                      label=[self._label[self._i]],
+                      provide_data=self.provide_data,
+                      provide_label=self.provide_label)
+        self._i += 1
+        return b
+
+    next = __next__
 
 
 def _cells(module, suffixes):

@@ -1,28 +1,43 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-The counterpart of the JAX package's ``ops/pallas_kernels.py``. Eight
-kernels, each a CUDA C++ source under ``mxnet_tpu_torch/csrc/``:
+The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
+``rtc.py``'s flash-attention kernel). Twelve kernels, each a CUDA C++
+source under ``mxnet_tpu_torch/csrc/``:
 
-====================  =============================================  ===================
-wrapper               replaces (mxnet_tpu/ops/pallas_kernels.py)     source
-====================  =============================================  ===================
-``embedding``         ``_emb_gather_kernel`` (``_pl_embedding``)     embedding.cu
-``layernorm``         ``_ln_fwd_kernel`` (``_pl_layernorm_fwd``)     layernorm.cu
-``bias_gelu``         ``_bias_gelu_kernel`` (``_pl_bias_gelu``)      bias_gelu.cu
-``decode_attention``  ``_decode_attn_kernel``                        decode_attention.cu
-``softmax``           ``_softmax_fwd_kernel`` (``_pl_softmax``)      softmax.cu
-``softmax_ce_bwd``    ``_softmax_ce_bwd_kernel``                     softmax_ce_bwd.cu
-``sgd_mom_update``    ``_sgd_mom_kernel`` (``_tiled_elementwise``)   sgd_mom.cu
-``adam_update``       ``_adam_kernel`` (``_tiled_elementwise``)      adam.cu
-====================  =============================================  ===================
+=========================  ==================================================  ===================
+wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          source
+=========================  ==================================================  ===================
+``embedding``              ``_emb_gather_kernel`` (``_pl_embedding``)          embedding.cu
+``layernorm``              ``_ln_fwd_kernel`` (``_pl_layernorm_fwd``)          layernorm.cu
+``bias_gelu``              ``_bias_gelu_kernel`` (``_pl_bias_gelu``)           bias_gelu.cu
+``decode_attention``       ``_decode_attn_kernel``                             decode_attention.cu
+``softmax``                ``_softmax_fwd_kernel`` (``_pl_softmax``)           softmax.cu
+``softmax_ce_bwd``         ``_softmax_ce_bwd_kernel``                          softmax_ce_bwd.cu
+``sgd_mom_update``         ``_sgd_mom_kernel`` (``_tiled_elementwise``)        sgd_mom.cu
+``adam_update``            ``_adam_kernel`` (``_tiled_elementwise``)           adam.cu
+``layernorm_bwd_dx``       ``_ln_bwd_dx_kernel`` (``_ln_pl_bwd_rule``)         ln_bwd_dx.cu
+``layernorm_bwd_dparams``  ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd_dparams.cu
+``bias_gelu_dx``           ``_bias_gelu_dx_kernel`` (``_bias_gelu_bwd_rule``)  bias_gelu_dx.cu
+``flash_attention``        ``_flash_kernel`` of ``mxnet_tpu/rtc.py``           flash_attention.cu
+=========================  ==================================================  ===================
 
-The first four serve the decode path, the last four the training path
-(the SoftmaxOutput head and the optimizer updates). Each source carries a
-note on what bounds it on the card and what its design does about that.
-Beside each wrapper sits its plain PyTorch version (``*_plain``), which
-computes the same function the way the TPU kernel does; the CPU tests
-hold it against the JAX package, and ``chip_smoke.py`` holds the kernel
-against it on the card.
+The first four serve the decode path; with the last four they train the
+transformer LM; softmax / cross-entropy and the optimizer updates serve
+every training path. Each source carries a note on what bounds it on the
+card and what its design does about that. Beside each wrapper sits its
+plain PyTorch version (``*_plain``), which computes the same function the
+way the TPU kernel does; the CPU tests hold it against the JAX package,
+and ``chip_smoke.py`` holds the kernel against it on the card.
+
+Gradients: the ``"cuda"`` variants of ``LayerNorm``, ``FusedBiasGeLU``
+and ``Embedding`` (and ``attention``'s, in ``rtc.py``) are
+``torch.autograd.Function``s. LayerNorm's backward is the two backward
+kernels (the statistic outputs' cotangents count as zero, as in the JAX
+rule); FusedBiasGeLU's is ``bias_gelu_dx`` plus a plain column sum for
+the bias, as the JAX package leaves that sum to XLA; Embedding's is a
+plain float32 ``index_add_`` of ``ct * scale`` (``embedding_bwd_plain``),
+the counterpart of ``_emb_bwd_rule``, which is no kernel in the JAX
+package either.
 
 Dispatch is by device and nothing else: a wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel (building it
@@ -55,7 +70,7 @@ import torch
 
 from ..base import MXNetError, parse_bool, parse_float
 from .loss import softmax_ce_grad, softmax_output, softmax_rows
-from .nn import bias_gelu as nn_bias_gelu
+from .nn import _INV_SQRT2, bias_gelu as nn_bias_gelu
 from .optimizer_op import adam_step, sgd_mom_step
 from .registry import get_op
 from .tensor import embedding_lookup
@@ -65,8 +80,12 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "bias_gelu_plain", "decode_attention", "decode_attention_plain",
            "softmax", "softmax_plain", "softmax_ce_bwd",
            "softmax_ce_bwd_plain", "sgd_mom_update", "sgd_mom_update_plain",
-           "adam_update", "adam_update_plain", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "adam_update", "adam_update_plain", "layernorm_bwd_dx",
+           "layernorm_bwd_dx_plain", "layernorm_bwd_dparams",
+           "layernorm_bwd_dparams_plain", "bias_gelu_dx",
+           "bias_gelu_dx_plain", "flash_attention", "flash_attention_plain",
+           "embedding_bwd_plain", "layernorm_fn", "bias_gelu_fn",
+           "embedding_fn", "launch_counts", "reset_launch_counts", "KERNELS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -92,6 +111,14 @@ _SPECS = {
                 [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
     "adam": ("adam.cu", "mx_adam_f32",
              [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
+    "ln_bwd_dx": ("ln_bwd_dx.cu", "mx_ln_bwd_dx_f32",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "ln_bwd_dparams": ("ln_bwd_dparams.cu", "mx_ln_bwd_dparams_f32",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "bias_gelu_dx": ("bias_gelu_dx.cu", "mx_bias_gelu_dx_f32",
+                     [_P, _P, _P, _P, _I, _I, _P]),
+    "flash_attention": ("flash_attention.cu", "mx_flash_attention_f32",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 KERNELS = tuple(_SPECS)
 
@@ -245,12 +272,52 @@ def embedding(ids, weight, scale=1.0):
 embedding.launches = 0
 
 
+def embedding_bwd_plain(ids, ct, num_rows, scale=1.0):
+    """The weight gradient of ``embedding``: ``ct * scale`` (float32)
+    added into zeros (num_rows, D) at the rows ``ids`` (N,) read, the ids
+    in [-V, 0) counted from the end and every other out-of-range id
+    dropped, as ``_emb_bwd_rule``'s scatter-add does. Its order of
+    addition is ``index_add_``'s."""
+    ct32 = ct.reshape(ids.shape[0], -1).to(torch.float32)
+    if scale != 1.0:
+        ct32 = ct32 * scale
+    idx = ids.to(torch.int64)
+    idx = torch.where(idx < 0, idx + num_rows, idx)
+    valid = (idx >= 0) & (idx < num_rows)
+    ct32 = torch.where(valid[:, None], ct32, torch.zeros((), device=ct.device))
+    dw = torch.zeros((num_rows, ct32.shape[1]), dtype=torch.float32,
+                     device=ct.device)
+    return dw.index_add_(0, idx.clamp(0, num_rows - 1), ct32)
+
+
+class _EmbeddingFn(torch.autograd.Function):
+    """Forward: the gather kernel. Backward: ``embedding_bwd_plain`` for
+    the weight; the ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ids, weight, scale):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.scale, ctx.dtype = weight.shape[0], scale, weight.dtype
+        return embedding(ids, weight, scale)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, = ctx.saved_tensors
+        dw = embedding_bwd_plain(ids, ct, ctx.rows, ctx.scale)
+        return None, dw.to(ctx.dtype), None
+
+
+def embedding_fn(ids, weight, scale=1.0):
+    """Differentiable ``embedding``: ids (N,) int32, weight (V, D)."""
+    return _EmbeddingFn.apply(ids, weight, float(scale))
+
+
 def _embedding_cuda(attrs, inputs, aux, is_train, rng):
     data, weight = inputs
-    # token ids arrive int32 (the decode drivers feed int32); PyTorch
-    # indexes in int64, the kernel in int32
-    ids = data.reshape(-1).to(torch.int32).contiguous()
-    out = embedding(ids, weight, parse_float(attrs.get("scale", 1.0)))
+    # token ids arrive int32 (the decode drivers and SyntheticLMIter feed
+    # int32); PyTorch indexes in int64, the kernel in int32
+    ids = data.reshape(-1).to(weight.device, torch.int32).contiguous()
+    out = embedding_fn(ids, weight, parse_float(attrs.get("scale", 1.0)))
     return [out.reshape(tuple(data.shape) + (weight.shape[1],))], []
 
 
@@ -291,12 +358,42 @@ def layernorm(x2, gamma, beta, eps):
 layernorm.launches = 0
 
 
+class _LayerNormFn(torch.autograd.Function):
+    """Forward: the LayerNorm kernel, which saves mean and rstd.
+    Backward: ``layernorm_bwd_dx`` and ``layernorm_bwd_dparams``; the
+    cotangents of the statistic outputs count as zero (they are marked
+    non-differentiable), as in ``_ln_pl_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, eps):
+        y, mean, rstd = layernorm(x2, gamma, beta, eps)
+        ctx.save_for_backward(x2, gamma, mean, rstd)
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _grstd):
+        x2, gamma, mean, rstd = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = dg = db = None
+        if ctx.needs_input_grad[0]:
+            dx = layernorm_bwd_dx(x2, gamma, gy, mean, rstd)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dg, db = layernorm_bwd_dparams(x2, gy, mean, rstd)
+        return dx, dg, db, None
+
+
+def layernorm_fn(x2, gamma, beta, eps):
+    """Differentiable ``layernorm``: (y, mean, rstd) of x2 (N, C)."""
+    return _LayerNormFn.apply(x2, gamma, beta, float(eps))
+
+
 def fused_layernorm(data, gamma, beta, eps=1e-5):
     """The LayerNorm op's contract over the last axis: ``(out, mean,
     std)`` with mean/std shaped ``data.shape[:-1]`` and std = 1/rstd."""
     c = data.shape[-1]
-    y, mean, rstd = layernorm(data.reshape(-1, c).contiguous(), gamma,
-                              beta, eps)
+    y, mean, rstd = layernorm_fn(data.reshape(-1, c).contiguous(), gamma,
+                                 beta, eps)
     lead = data.shape[:-1]
     return y.reshape(data.shape), mean.reshape(lead), \
         (1.0 / rstd).reshape(lead)
@@ -339,10 +436,33 @@ def bias_gelu(x2, bias):
 bias_gelu.launches = 0
 
 
+class _BiasGeLUFn(torch.autograd.Function):
+    """Forward: the bias + GeLU kernel. Backward: ``bias_gelu_dx``, and
+    the bias gradient as the plain column sum of dx (the JAX package
+    leaves that reduction to XLA)."""
+
+    @staticmethod
+    def forward(ctx, x2, bias):
+        ctx.save_for_backward(x2, bias)
+        return bias_gelu(x2, bias)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2, bias = ctx.saved_tensors
+        dx = bias_gelu_dx(x2, bias, gy.contiguous())
+        db = torch.sum(dx, 0) if ctx.needs_input_grad[1] else None
+        return (dx if ctx.needs_input_grad[0] else None), db
+
+
+def bias_gelu_fn(x2, bias):
+    """Differentiable ``bias_gelu`` over x2 (N, C)."""
+    return _BiasGeLUFn.apply(x2, bias)
+
+
 def _bias_gelu_cuda(attrs, inputs, aux, is_train, rng):
     data, bias = inputs
     c = data.shape[-1]
-    y = bias_gelu(data.reshape(-1, c).contiguous(), bias)
+    y = bias_gelu_fn(data.reshape(-1, c).contiguous(), bias)
     return [y.reshape(data.shape)], []
 
 
@@ -526,15 +646,206 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
 
 adam_update.launches = 0
 
+
+# ==========================================================================
+# 9. LayerNorm backward: dx
+# ==========================================================================
+#: the JAX package's eligibility bound for its LayerNorm kernels
+LN_MAX_C = 65536
+
+
+def layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd):
+    """dx of LayerNorm over x2 (N, C) from the saved mean and rstd (N,),
+    in float32: ``rstd (gy - mean(gy) - xh mean(gy xh))`` with ``xh = (x
+    - mean) rstd`` and ``gy = ct gamma``."""
+    r = rstd.to(torch.float32)[:, None]
+    xh = (x2.to(torch.float32) - mean.to(torch.float32)[:, None]) * r
+    gy = ct.to(torch.float32) * gamma.to(torch.float32)
+    m1 = gy.mean(dim=-1, keepdim=True)
+    m2 = (gy * xh).mean(dim=-1, keepdim=True)
+    return (r * (gy - m1 - xh * m2)).to(x2.dtype)
+
+
+def _check_ln_bwd(name, x2, ct, mean, rstd):
+    if x2.ndim != 2 or tuple(ct.shape) != tuple(x2.shape) or \
+            tuple(mean.shape) != (x2.shape[0],) or \
+            tuple(rstd.shape) != (x2.shape[0],):
+        raise MXNetError(f"{name}: want x, ct (N, C) and mean, rstd (N,), "
+                         f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
+                         f"{tuple(mean.shape)}, {tuple(rstd.shape)}")
+    if x2.shape[1] > LN_MAX_C:
+        raise MXNetError(f"{name}: C={x2.shape[1]} > {LN_MAX_C}")
+
+
+def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
+    """LayerNorm's input gradient: x2, ct (N, C), gamma (C,), mean, rstd
+    (N,), float32, C <= 65536 -> dx (N, C)."""
+    if not _cpu_or_cuda("layernorm_bwd_dx", x2):
+        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
+    _check("layernorm_bwd_dx", x=(x2, torch.float32),
+           gamma=(gamma, torch.float32), ct=(ct, torch.float32),
+           mean=(mean, torch.float32), rstd=(rstd, torch.float32))
+    _check_ln_bwd("layernorm_bwd_dx", x2, ct, mean, rstd)
+    n, c = x2.shape
+    if tuple(gamma.shape) != (c,):
+        raise MXNetError(f"layernorm_bwd_dx: gamma must be ({c},)")
+    dx = torch.empty_like(x2)
+    _launch("ln_bwd_dx", x2, x2.data_ptr(), gamma.data_ptr(), ct.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), n, c)
+    layernorm_bwd_dx.launches += 1
+    return dx
+
+
+layernorm_bwd_dx.launches = 0
+
+
+# ==========================================================================
+# 10. LayerNorm backward: dgamma, dbeta
+# ==========================================================================
+def layernorm_bwd_dparams_plain(x2, ct, mean, rstd):
+    """(dgamma, dbeta), each (C,) float32, summed over the rows of x2 and
+    ct (N, C): ``sum(ct xh)`` and ``sum(ct)``."""
+    xh = (x2.to(torch.float32) - mean.to(torch.float32)[:, None]) * \
+        rstd.to(torch.float32)[:, None]
+    c32 = ct.to(torch.float32)
+    return (c32 * xh).sum(dim=0), c32.sum(dim=0)
+
+
+def _dparams_chunks(n):
+    """(rows per chunk, chunks) of the kernel's first stage: 64-row
+    chunks, larger (a multiple of 8) when N needs more than 65535."""
+    rows = max(64, -(-n // 65535))
+    rows = -(-rows // 8) * 8
+    return rows, max(1, -(-n // rows))
+
+
+def layernorm_bwd_dparams(x2, ct, mean, rstd):
+    """LayerNorm's parameter gradients over x2, ct (N, C) with mean, rstd
+    (N,), float32, C <= 65536 -> (dgamma, dbeta) (C,). A deterministic
+    two-stage reduction: one call, one launch count."""
+    if not _cpu_or_cuda("layernorm_bwd_dparams", x2):
+        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
+    _check("layernorm_bwd_dparams", x=(x2, torch.float32),
+           ct=(ct, torch.float32), mean=(mean, torch.float32),
+           rstd=(rstd, torch.float32))
+    _check_ln_bwd("layernorm_bwd_dparams", x2, ct, mean, rstd)
+    n, c = x2.shape
+    rows, chunks = _dparams_chunks(n)
+    part = torch.empty((2, chunks, c), dtype=torch.float32, device=x2.device)
+    dg = torch.empty((c,), dtype=torch.float32, device=x2.device)
+    db = torch.empty((c,), dtype=torch.float32, device=x2.device)
+    _launch("ln_bwd_dparams", x2, x2.data_ptr(), ct.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), n, c, rows,
+            chunks)
+    layernorm_bwd_dparams.launches += 1
+    return dg, db
+
+
+layernorm_bwd_dparams.launches = 0
+
+
+# ==========================================================================
+# 11. bias + GeLU backward: dx
+# ==========================================================================
+_INV_SQRT2PI = 0.3989422804014327
+
+
+def bias_gelu_dx_plain(x2, bias, ct):
+    """``ct (0.5 (1 + erf(z / sqrt 2)) + z phi(z))`` with z = x2 + bias,
+    in float32, with the TPU kernel's constants."""
+    z = x2.to(torch.float32) + bias.to(torch.float32)
+    phi = torch.exp(-0.5 * z * z) * _INV_SQRT2PI
+    dgelu = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2)) + z * phi
+    return (ct.to(torch.float32) * dgelu).to(x2.dtype)
+
+
+def bias_gelu_dx(x2, bias, ct):
+    """The bias + GeLU input gradient over x2, ct (N, C) float32 with
+    bias (C,) -> dx (N, C)."""
+    if not _cpu_or_cuda("bias_gelu_dx", x2):
+        return bias_gelu_dx_plain(x2, bias, ct)
+    _check("bias_gelu_dx", x=(x2, torch.float32),
+           bias=(bias, torch.float32), ct=(ct, torch.float32))
+    if x2.ndim != 2 or tuple(ct.shape) != tuple(x2.shape) or \
+            tuple(bias.shape) != (x2.shape[1],):
+        raise MXNetError(f"bias_gelu_dx: want x, ct (N, C) and bias (C,), "
+                         f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
+                         f"{tuple(bias.shape)}")
+    n, c = x2.shape
+    dx = torch.empty_like(x2)
+    _launch("bias_gelu_dx", x2, x2.data_ptr(), bias.data_ptr(),
+            ct.data_ptr(), dx.data_ptr(), n, c)
+    bias_gelu_dx.launches += 1
+    return dx
+
+
+bias_gelu_dx.launches = 0
+
+
+# ==========================================================================
+# 12. flash-attention forward
+# ==========================================================================
+def flash_attention_plain(q, k, v, causal=False):
+    """Softmax attention of q over k, v (B, H, T, Dh) as the flash kernel
+    computes it: q scaled by Dh^-1/2 BEFORE the product, float32 scores
+    and softmax, the causal mask keeping key <= query. Returns float32
+    (B, H, T, Dh)."""
+    qs = q.to(torch.float32) * (float(q.shape[-1]) ** -0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.to(torch.float32))
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        live = torch.ones((tq, tk), dtype=torch.bool,
+                          device=q.device).tril(tk - tq)
+        s = s.masked_fill(~live, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                        v.to(torch.float32))
+
+
+def flash_attention(q, k, v, causal=False):
+    """Self-attention of q, k, v (B, H, T, Dh) float32 -> (B, H, T, Dh).
+    The kernel takes Dh in {64, 128}, any T, and Tq == Tk only."""
+    if not _cpu_or_cuda("flash_attention", q):
+        return flash_attention_plain(q, k, v, causal)
+    _check("flash_attention", q=(q, torch.float32), k=(k, torch.float32),
+           v=(v, torch.float32))
+    if q.ndim != 4 or tuple(k.shape) != tuple(q.shape) or \
+            tuple(v.shape) != tuple(q.shape):
+        raise MXNetError("flash_attention: self-attention only, want q, k, "
+                         f"v (B, H, T, Dh) alike (Tq == Tk), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, T, Dh = q.shape
+    if Dh not in (64, 128):
+        raise MXNetError(f"flash_attention: head dim {Dh} — the kernel "
+                         "takes 64 or 128")
+    if B * H > 65535:
+        raise MXNetError(f"flash_attention: B*H={B * H} > 65535")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise MXNetError("flash_attention: q, k, v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    _launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B * H, T, Dh, int(bool(causal)),
+            float(Dh) ** -0.5)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
 _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "bias_gelu": bias_gelu, "decode_attention": decode_attention,
              "softmax": softmax, "softmax_ce_bwd": softmax_ce_bwd,
-             "sgd_mom": sgd_mom_update, "adam": adam_update}
+             "sgd_mom": sgd_mom_update, "adam": adam_update,
+             "ln_bwd_dx": layernorm_bwd_dx,
+             "ln_bwd_dparams": layernorm_bwd_dparams,
+             "bias_gelu_dx": bias_gelu_dx,
+             "flash_attention": flash_attention}
 
 
 # ==========================================================================
 # the "cuda" variants of the ops these kernels serve (attention_decode's
-# variant lives with the op, in rtc.py)
+# and attention's variants live with the ops, in rtc.py)
 # ==========================================================================
 def _softmax_output_cuda(attrs, inputs, aux, is_train, rng):
     """SoftmaxOutput on the card: the softmax kernel forward, the
@@ -568,21 +879,11 @@ def _adam_cuda(attrs, inputs, aux, is_train, rng):
         attrs.get("clip_gradient", -1.0))), []
 
 
-_LN_BWD = ("the LayerNorm backward kernels _ln_bwd_dx_kernel and "
-           "_ln_bwd_dparams_kernel, mxnet_tpu/ops/pallas_kernels.py:600 and "
-           ":612")
 _UPDATE_BWD = ("a gradient of the update itself, which the JAX package "
                "takes through its composition")
-get_op("FusedBiasGeLU").add_variant(
-    "cuda", _bias_gelu_cuda,
-    backward_pending="the GeLU backward kernel _bias_gelu_dx_kernel, "
-                     "mxnet_tpu/ops/pallas_kernels.py:751")
-get_op("Embedding").add_variant(
-    "cuda", _embedding_cuda,
-    backward_pending="the embedding gradient, a scatter-add the JAX "
-                     "package takes through its composition")
-get_op("LayerNorm").add_variant("cuda", _layernorm_cuda,
-                                backward_pending=_LN_BWD)
+get_op("FusedBiasGeLU").add_variant("cuda", _bias_gelu_cuda)
+get_op("Embedding").add_variant("cuda", _embedding_cuda)
+get_op("LayerNorm").add_variant("cuda", _layernorm_cuda)
 get_op("SoftmaxOutput").add_variant("cuda", _softmax_output_cuda)
 get_op("sgd_mom_update").add_variant("cuda", _sgd_mom_cuda,
                                      backward_pending=_UPDATE_BWD)

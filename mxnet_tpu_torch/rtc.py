@@ -1,5 +1,6 @@
-"""Attention ops of the transformer LM (``attention`` and the KV-cache
-``attention_decode``), and the ``pallas_sgd_mom_update`` op name.
+"""Attention ops of the transformer LM (``attention``, its explicit name
+``pallas_flash_attention``, and the KV-cache ``attention_decode``), and
+the ``pallas_sgd_mom_update`` op name.
 
 ``attention_decode`` is the decode path's stateful op: its K/V caches and
 int32 cursor are op AUX state, read AND written on inference forwards
@@ -23,11 +24,17 @@ both devices, exactly as the JAX package keeps them outside its kernel;
 only the attention READ has a kernel — ``cuda_kernels.decode_attention``,
 the op's ``"cuda"`` variant.
 
-``attention`` (the full-sequence op of ``get_symbol``, the reference the
-decode parity tests compare against) is ported as its plain composition
-only. Its flash-attention kernel (``mxnet_tpu/rtc.py`` ``_flash_kernel``)
-is not ported yet, so on a CUDA tensor the op raises instead of running
-the composition in the kernel's place.
+``attention`` (the full-sequence op of ``get_symbol``, which the LM
+trains through and the decode parity tests compare against) is the plain
+composition on the CPU and the flash-attention kernel
+(``cuda_kernels.flash_attention``, the port of ``mxnet_tpu/rtc.py``
+``_flash_kernel``) on the card. The card's variant is an
+``autograd.Function`` whose backward recomputes the plain composition and
+takes its vector-Jacobian product, as the JAX package's ``custom_vjp``
+does: the forward never holds the (T, T) scores, the backward holds them
+for one layer at a time (at B=8, H=8, T=1024 one float32 score tensor is
+268 MB). ``pallas_flash_attention`` is the same op under the name the
+JAX package registers for its kernel.
 """
 from __future__ import annotations
 
@@ -40,11 +47,11 @@ from .ops.nn import rope_apply
 from .ops.optimizer_op import sgd_mom_step
 from .ops.registry import OP_REGISTRY, register
 
-__all__ = []
+__all__ = ["flash_attention_fn"]
 
 
 # --------------------------------------------------------------------------
-# attention: plain composition (its flash kernel is a later slice)
+# attention: the plain composition, and the flash kernel on the card
 # --------------------------------------------------------------------------
 def _attention_plain(attrs, q, k, v):
     """Softmax attention, q/k/v (B, H, T, D), float32 logits and
@@ -62,11 +69,36 @@ def _attention_plain(attrs, q, k, v):
     return out.to(q.dtype)
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """Forward: the flash kernel. Backward: the vector-Jacobian product
+    of ``_attention_plain`` recomputed from the saved q, k, v (the JAX
+    package's flash recompute, ``mxnet_tpu/rtc.py`` ``flash_attention``);
+    the recompute is plain PyTorch, as the JAX package's is XLA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return cuda_kernels.flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, ct):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _attention_plain({"causal": ctx.causal}, *leaves)
+        return (*torch.autograd.grad(out, leaves, ct), None)
+
+
+def flash_attention_fn(q, k, v, causal=False):
+    """Differentiable flash attention of q, k, v (B, H, T, Dh)."""
+    return _FlashAttentionFn.apply(q, k, v, bool(causal))
+
+
 def _attention_cuda(attrs, inputs, aux, is_train, rng):
-    raise MXNetError(
-        "attention: the flash-attention kernel (mxnet_tpu/rtc.py "
-        "_flash_kernel) is not ported to CUDA yet; run the full-sequence "
-        "graph on mx.cpu(), or decode with get_decode_symbol")
+    q, k, v = (t.contiguous() for t in inputs)
+    return [flash_attention_fn(q, k, v,
+                               parse_bool(attrs.get("causal", False)))], []
 
 
 # --------------------------------------------------------------------------
@@ -262,13 +294,14 @@ def _pallas_sgd_mom_cuda(attrs, inputs, aux, is_train, rng):
 
 
 def _register():
-    if "attention" not in OP_REGISTRY:
-        register("attention", inputs=("q", "k", "v"),
-                 simple=_attention_plain, shape_passthrough=True,
-                 attr_spec={"causal": (None, False),
-                            "block_q": (int, 128),
-                            "block_k": (int, 128)},
-                 variants={"cuda": _attention_cuda})
+    for name in ("attention", "pallas_flash_attention"):
+        if name not in OP_REGISTRY:
+            register(name, inputs=("q", "k", "v"),
+                     simple=_attention_plain, shape_passthrough=True,
+                     attr_spec={"causal": (None, False),
+                                "block_q": (int, 128),
+                                "block_k": (int, 128)},
+                     variants={"cuda": _attention_cuda})
     if "attention_decode" not in OP_REGISTRY:
         register("attention_decode", inputs=("q", "k", "v"),
                  aux=("k_cache", "v_cache", "cache_pos"),

@@ -17,6 +17,13 @@ and the elementwise updates, which round as their plain versions do, are
 held to 1e-6. A small model is then decoded on the card and on the CPU
 through the same scheduler, an MLP and a LeNet are fitted on both, and
 the launch counters must show every kernel ran.
+
+The LM-training kernels (LayerNorm dx and dgamma/dbeta, the GeLU input
+gradient, flash attention) are held against their plain versions at the
+LM path's shapes and edge shapes (one row, one column, C = 65536, T = 1
+and a ragged T, Dh = 128, non-causal), the parameter-gradient reduction
+must repeat bit for bit, each differentiable op's gradients on the card
+must match its plain op's on the CPU, and a small LM fits alike on both.
 """
 import numpy as np
 import pytest
@@ -227,17 +234,176 @@ def test_training_kernels_refuse_what_they_do_not_take(dev):
 
 
 @pytest.mark.cuda
-def test_layernorm_variant_raises_under_grad(dev):
-    """A kernel without its backward yet refuses to run on inputs that
-    require grad (its output would carry no gradient)."""
-    op = mx.ops.get_op("LayerNorm")
-    x = _rnd(dev, 4, 16).requires_grad_(True)
-    g, b = torch.ones(16, device=dev), torch.zeros(16, device=dev)
-    from mxnet_tpu_torch.ops.registry import dispatch
-    with pytest.raises(MXNetError, match="_ln_bwd_dx_kernel"):
-        dispatch(op, op.normalize_attrs({}), [x, g, b], [], True, None)
-    with torch.no_grad():
-        dispatch(op, op.normalize_attrs({}), [x, g, b], [], False, None)
+@pytest.mark.parametrize("n,c", [(8192, 512), (1, 512), (7, 1), (3, 65536),
+                                 (5, 13), (300, 100)])
+def test_ln_bwd_kernels(dev, n, c):
+    """dx within 2e-5; dgamma / dbeta, sums over N rows, within 1e-4
+    absolute and relative (at N = 8192 they reach a few hundred, where
+    a float32 ulp is 3e-5)."""
+    x = 3 * _rnd(dev, n, c) + 1
+    g, b = _rnd(dev, c, seed=1), _rnd(dev, c, seed=2)
+    ct = _rnd(dev, n, c, seed=3)
+    _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
+    _same(ck.layernorm_bwd_dx(x, g, ct, mean, rstd),
+          ck.layernorm_bwd_dx_plain(x, g, ct, mean, rstd))
+    _same(ck.layernorm_bwd_dparams(x, ct, mean, rstd),
+          ck.layernorm_bwd_dparams_plain(x, ct, mean, rstd), tol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ln_bwd_dparams_repeats_bit_for_bit(dev):
+    """The two-stage reduction has a fixed order: repeated calls give
+    identical bits (no float atomics)."""
+    x, ct = _rnd(dev, 8192, 512), _rnd(dev, 8192, 512, seed=1)
+    mean = x.mean(1)
+    rstd = torch.rsqrt(x.var(1, unbiased=False) + 1e-5)
+    first = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
+    for _ in range(3):
+        again = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8192, 2048), (3, 13), (1, 4)])
+def test_bias_gelu_dx_kernel(dev, n, c):
+    x, b = 3 * _rnd(dev, n, c), _rnd(dev, c, seed=1)
+    ct = _rnd(dev, n, c, seed=2)
+    _same(ck.bias_gelu_dx(x, b, ct), ck.bias_gelu_dx_plain(x, b, ct))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(8, 8, 1024, 64), (2, 2, 1, 64),
+                                   (1, 2, 1000, 64), (2, 1, 200, 128),
+                                   (1, 1, 64, 128), (1, 3, 65, 64)])
+def test_flash_attention_kernel(dev, shape, causal):
+    q, k, v = (_rnd(dev, *shape, seed=i) for i in range(3))
+    _same(ck.flash_attention(q, k, v, causal),
+          ck.flash_attention_plain(q, k, v, causal))
+
+
+@pytest.mark.cuda
+def test_lm_kernels_refuse_what_they_do_not_take(dev):
+    q = _rnd(dev, 1, 2, 16, 32)
+    with pytest.raises(MXNetError, match="head dim"):
+        ck.flash_attention(q, q, q, True)
+    q = _rnd(dev, 1, 2, 16, 64)
+    with pytest.raises(MXNetError, match="Tq == Tk"):
+        ck.flash_attention(q, _rnd(dev, 1, 2, 8, 64), _rnd(dev, 1, 2, 8, 64))
+    with pytest.raises(MXNetError, match="float32"):
+        ck.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(MXNetError, match="contiguous"):
+        t = q.transpose(2, 3)
+        ck.flash_attention(t, t, t)
+    x = _rnd(dev, 4, 8)
+    m = torch.zeros(4, device=dev)
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.layernorm_bwd_dx(x.t(), x[0], x.t(), m, m)
+    with pytest.raises(MXNetError, match="65536"):
+        big = _rnd(dev, 1, 65537)
+        ck.layernorm_bwd_dparams(big, big, m[:1], m[:1])
+    with pytest.raises(MXNetError, match="float32"):
+        ck.bias_gelu_dx(x.half(), x[0].half(), x.half())
+
+
+_GRAD_CASES = {
+    "LayerNorm": (lambda d: [3 * _rnd(d, 4, 64, 512) + 1,
+                             _rnd(d, 512, seed=1), _rnd(d, 512, seed=2)],
+                  {}, ("layernorm", "ln_bwd_dx", "ln_bwd_dparams")),
+    "FusedBiasGeLU": (lambda d: [_rnd(d, 256, 2048), _rnd(d, 2048, seed=1)],
+                      {}, ("bias_gelu", "bias_gelu_dx")),
+    "Embedding": (lambda d: [torch.tensor([[0, 5, 99, -1], [3, 3, 100, -101]],
+                                          dtype=torch.int32, device=d),
+                             _rnd(d, 100, 64)],
+                  {"input_dim": 100, "output_dim": 64, "scale": 8.0},
+                  ("embedding",)),
+    "attention": (lambda d: [_rnd(d, 2, 4, 300, 64, seed=i)
+                             for i in range(3)],
+                  {"causal": True}, ("flash_attention",)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_GRAD_CASES))
+def test_op_gradient_on_card(dev, name):
+    """The op's CUDA variant with autograd on the card (kernel forward,
+    kernel backward where the TPU path has one) against its plain op on
+    the CPU: outputs and every input gradient within 1e-4 (the
+    parameter gradients sum over up to 1024 rows; the embedding's sums
+    with atomics), and the kernels of both directions launched."""
+    make, kwargs, kernels = _GRAD_CASES[name]
+    op = mx.ops.get_op(name)
+    attrs = op.normalize_attrs(kwargs)
+    res = {}
+    before = ck.launch_counts()
+    for where in ("cuda", "cpu"):
+        ins = [t.to(where).detach().requires_grad_(t.is_floating_point())
+               for t in make(dev)]
+        fn = op.variants["cuda"]["fn"] if where == "cuda" else op.forward
+        out = fn(attrs, ins, [], True, None)[0][0]
+        ct = _rnd(dev, *out.shape, seed=9).to(where)
+        torch.where(torch.isfinite(out), out, 0.0).backward(ct)
+        res[where] = [out.detach().cpu()] + [
+            None if t.grad is None else t.grad.cpu() for t in ins]
+    after = ck.launch_counts()
+    for k in kernels:
+        assert after[k] > before[k], (k, after)
+    for a, b in zip(res["cuda"], res["cpu"]):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                       equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_embed", ["rotary", "learned"])
+def test_small_lm_fit_alike_on_card_and_cpu(dev, pos_embed):
+    """Four SGD batches of a small LM (d_model 128, 2 heads: Dh = 64)
+    from the same parameters on the card and on the CPU, TF32 off:
+    parameters within 1e-4, and each LM kernel launched its count per
+    step on the card (none on the CPU). Learned positions add a second
+    embedding gather, over the position ids the graph makes."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _lm_fit_both(pos_embed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _lm_fit_both(pos_embed):
+    V, D, L, H, T, B, N = 96, 128, 2, 2, 48, 4, 4
+    sym = tfm.get_symbol(V, D, L, H, T, pos_embed=pos_embed)
+    shapes, _, _ = sym.infer_shape(data=(B, T), softmax_label=(B * T,))
+    rs = np.random.RandomState(0)
+    params = {n: ((1.0 if n.endswith("gamma") else 0.0)
+                  + 0.1 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    out = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ck.reset_launch_counts()
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.fit(tfm.SyntheticLMIter(V, B, T, N, seed=1), num_epoch=1,
+                arg_params=mx.convert.params_from_numpy(params, ctx),
+                optimizer="sgd", optimizer_params={"learning_rate": 0.05})
+        out[ctx.device_type] = {k: v.asnumpy()
+                                for k, v in mod.get_params()[0].items()}
+        counts = ck.launch_counts()
+        if ctx.device_type == "gpu":
+            want = {"embedding": 1 + (pos_embed == "learned"),
+                    "layernorm": 2 * L + 1,
+                    "ln_bwd_dx": 2 * L + 1, "ln_bwd_dparams": 2 * L + 1,
+                    "bias_gelu": L, "bias_gelu_dx": L,
+                    "flash_attention": L, "softmax": 1, "softmax_ce_bwd": 1}
+            assert counts == {k: N * want.get(k, 0) for k in counts}, counts
+        else:
+            assert not any(counts.values()), counts
+    for k, v in out["cpu"].items():
+        assert np.abs(v - params[k]).max() > 0, k
+        np.testing.assert_allclose(out["gpu"][k], v, atol=1e-4, rtol=1e-4,
+                                   err_msg=k)
 
 
 @pytest.mark.cuda

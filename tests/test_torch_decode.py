@@ -157,7 +157,7 @@ def test_decode_steps_reproduce_full_forward(params):
     tokens = np.random.RandomState(3).randint(0, V, (2, T))
     full = mxt.mod.Module(ttfm.get_symbol(
         vocab_size=V, d_model=D, n_layer=L, n_head=H, seq_len=T,
-        max_seq_len=CAP), label_names=[], context=CPU)
+        include_loss=False, max_seq_len=CAP), label_names=[], context=CPU)
     full.bind([("data", (2, T))], None, for_training=False)
     full.init_params(arg_params=_torch_args(params), allow_missing=False)
     full.forward(mxt.io.DataBatch([mxt.nd.array(tokens, ctx=CPU)], []))

@@ -11,7 +11,9 @@ round in other orders; Adam's ``(1 - b2) g^2`` is grouped differently in
 the JAX composition than in its kernel).
 
 Also here: the dispatch rule that a CUDA variant without a backward
-kernel refuses inputs that require grad, reached directly on the CPU.
+refuses inputs that require grad (the decode attention and the update
+ops), and that the differentiable variants take them, reached directly on
+the CPU.
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 """
 import numpy as np
@@ -217,10 +219,10 @@ def test_training_ops_carry_cuda_variants():
 
 # ------------------------------------------- variants without a backward
 @pytest.mark.parametrize("name,kernel", [
-    ("LayerNorm", "_ln_bwd_dx_kernel"),
-    ("FusedBiasGeLU", "_bias_gelu_dx_kernel"),
-    ("Embedding", "embedding gradient"),
-    ("attention_decode", "decode-attention backward")])
+    ("attention_decode", "decode-attention backward"),
+    ("sgd_mom_update", "gradient of the update"),
+    ("adam_update", "gradient of the update"),
+    ("pallas_sgd_mom_update", "gradient of the update")])
 def test_variant_without_backward_refuses_grad(name, kernel):
     """The check dispatch makes before a CUDA variant runs: an input that
     requires grad, with autograd recording, raises and names the backward
@@ -235,11 +237,17 @@ def test_variant_without_backward_refuses_grad(name, kernel):
         refuse_without_backward(op, variant, [x, torch.randn(8)])
 
 
-def test_differentiable_variant_takes_grad():
-    op = mxt.ops.get_op("SoftmaxOutput")
+@pytest.mark.parametrize("name", ["SoftmaxOutput", "LayerNorm",
+                                  "FusedBiasGeLU", "Embedding", "attention",
+                                  "pallas_flash_attention"])
+def test_differentiable_variant_takes_grad(name):
+    """The CUDA variants whose backward is in place (a kernel, or the
+    JAX package's own plain rule) run on inputs that require grad."""
+    op = mxt.ops.get_op(name)
+    assert not op.variants["cuda"]["backward_pending"]
     refuse_without_backward(op, op.variants["cuda"],
                             [torch.randn(2, 8, requires_grad=True),
-                             torch.zeros(2)])
+                             torch.randn(8, requires_grad=True)])
 
 
 def test_pallas_sgd_mom_update_op_is_functional():
