@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all twelve in parallel), print the build seconds,
+   ``nvcc`` per source, all fourteen in parallel), print the build seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
    computes in full float32);
@@ -55,14 +55,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    largest magnitude, every updated weight within 1e-5;
 11. profile 4 LM training steps: device-busy share, device time by group
    (the port's kernels / cuBLAS and the libraries / PyTorch elementwise /
-   copies), the kernels that take the most device time.
+   copies), the kernels that take the most device time;
+12. serve ResNet-50 (1000 classes, 3x224x224, Xavier seed 0) bound on
+   ``gpu(0)`` through ``mx.serve.serve`` at ladder [1, 2, 4, 8] three
+   times — float32, int8, fp8 — each answering 24 scripted requests of
+   1-3 rows, one every 4 ms, through ``run_scripted`` on a real clock:
+   req/s, p50/p99 latency, occupancy, padding waste, the two quantized
+   kernels' libraries (unloaded first) loaded by a quantized ladder's
+   warmup and no kernel library loaded after it, exactly 53
+   ``dequant_rows`` + 1 ``qfc_matmul`` launches per quantized forward
+   (warmup's 2 per rung included) and none on the float ladder,
+   quantized outputs within ``INT8_TOL`` / ``FP8_TOL`` of the float
+   ladder's;
+13. one int8 and one fp8 quantized ResNet-50 forward at batch 2 on the
+   card, through the engine phase 12 served, and on the CPU from the
+   same quantized parameters, TF32 off: probabilities within 1e-5, the
+   logits within 1e-4 of their largest magnitude, and the same top-1;
+14. rung-8 dispatches of the three ladders: wall per dispatch in turns
+   (float32, int8, fp8, fp8, int8, float32; 8 each), then 8 of each
+   under the profiler: device busy, launches per forward, and for int8
+   the device time by group (cuDNN / the two quantized kernels / softmax
+   / PyTorch elementwise / copies).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
 while fitting with Adam, the LayerNorm and GeLU backward kernels and
-flash attention while fitting the LM — max abs error against the plain
-version, kernel / plain / library milliseconds and the bound); the last
+flash attention while fitting the LM, the quantized kernels while
+serving int8 and fp8 — max abs error against the plain version, kernel /
+plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
 checkout, the script exits non-zero and prints no result.
 """
@@ -81,11 +102,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 # ln_bwd_dparams: sums over up to 8192 rows reach a few hundred, where a
 # float32 ulp is 3e-5, and the plain version sums in another order
+# qfc_matmul's error is relative to the output's largest magnitude (it
+# sums K products in another order than cuBLAS); dequant_rows is exact
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "decode_attention": 2e-5, "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
        "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
        "ln_bwd_dparams": 5e-4, "bias_gelu_dx": 2e-5,
-       "flash_attention": 2e-5}
+       "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0}
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -100,6 +123,8 @@ REPLACES = {
     "ln_bwd_dparams": "mxnet_tpu/ops/pallas_kernels.py:612",
     "bias_gelu_dx": "mxnet_tpu/ops/pallas_kernels.py:751",
     "flash_attention": "mxnet_tpu/rtc.py:301",
+    "qfc_matmul": "mxnet_tpu/ops/quant.py:151",
+    "dequant_rows": "mxnet_tpu/ops/quant.py:234",
 }
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
@@ -119,6 +144,12 @@ LM_PER_STEP = {"embedding": 1, "layernorm": 2 * N_LAYER + 1,
 LM_PARITY_BATCH, LM_PARITY_SEQ = 2, 128
 GRAD_RTOL = 1e-4        # card vs CPU LM gradients, of each array's max |g|
 LM_WEIGHT_TOL = 1e-5    # card vs CPU LM weights after one step
+QUANT_RUNGS = [1, 2, 4, 8]
+QUANT_REQS = 24         # requests of 1-3 rows, one every QUANT_GAP_S
+QUANT_GAP_S = 0.004
+QUANT_KERNELS = ("qfc_matmul", "dequant_rows")
+QUANT_PARITY_TOL = 1e-5  # card vs CPU quantized probabilities, TF32 off
+QUANT_LOGIT_RTOL = 1e-4  # the same, on logits, of their largest magnitude
 
 
 def _timed(fn, reps=200, warm=20):
@@ -296,16 +327,19 @@ def phase_kernels(mx, ck):
                                                              pos1)}
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
+    calls.update(_quant_kernels(mx, ck, rs, t, rec))
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
+        err = r.get("rel_err", r["max_abs_err"])
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
-              f"(tol {TOL[name]}) kernel_ms={r['ms']:.5f} "
+              + (f"rel_err={err:.3g} " if "rel_err" in r else "")
+              + f"(tol {TOL[name]}) kernel_ms={r['ms']:.5f} "
               f"device_ms={dev_ms} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']} "
               f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
-        if not r["max_abs_err"] <= TOL[name]:
+        if not err <= TOL[name]:
             raise AssertionError(f"kernel {name} disagrees with its plain "
-                                 f"version: {r['max_abs_err']} > {TOL[name]}")
+                                 f"version: {err} > {TOL[name]}")
     return rec
 
 
@@ -499,6 +533,109 @@ def _lm_kernels(ck, rs, t, rec):
             "ln_bwd_dparams": lambda: ck.layernorm_bwd_dparams(x, ct, m, r),
             "bias_gelu_dx": lambda: ck.bias_gelu_dx(h, hb, hct),
             "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
+
+
+def _quant_weight(rs, t, n, k, storage):
+    """(n, k) narrow weight on the card: random codes plus the extremes
+    (+-127 / +-448), the e4m3 subnormals, 0 and -0."""
+    import numpy as np
+    import torch
+    if storage == torch.int8:
+        codes = rs.randint(-128, 128, n * k)
+        codes[:min(4, codes.size)] = [127, -127, -128, 0][:codes.size]
+        return t(codes.reshape(n, k), torch.int8)
+    vals = (rs.randn(n * k) * 40).clip(-448, 448).astype(np.float32)
+    edge = np.asarray([448.0, -448.0, 2.0 ** -9, -(2.0 ** -9), 2.0 ** -7,
+                       7 * 2.0 ** -9, 0.0, -0.0], np.float32)
+    vals[:min(edge.size, vals.size)] = edge[:vals.size]
+    return t(vals.reshape(n, k)).to(torch.float8_e4m3fn)
+
+
+def _dequant_library(wq, scale):
+    """The row dequant as ONE PyTorch call, int8 weights only: int8 x
+    float32 promotes to float32 and rounds each product once, as the
+    kernel does (PyTorch refuses to promote float8_e4m3fn)."""
+    import torch
+    return torch.mul(wq, scale.unsqueeze(1))
+
+
+def _quant_kernels(mx, ck, rs, t, rec):
+    """The two quantized-serving kernels, int8 and float8_e4m3fn weights:
+    the dequant-fused matmul at ResNet-50's fc1 rung 8 ((8, 2048) x (1000,
+    2048)) and at edges (M = 1, 257; K = 13; N = 1, 1001), held within
+    QFC_RTOL of the output's largest magnitude; the row dequant at the
+    path's (512, 4608) and (2048, 512) and at edges (1 and 147 columns),
+    held bit for bit to its plain version and, with int8 weights, to
+    ``_dequant_library``. Timed with int8 weights (fp8 printed beside): the
+    matmul per call, the dequant per ResNet-50 forward — all 53 conv
+    weights, 53 launches. Fills ``rec``; returns the timed calls."""
+    import numpy as np
+    import torch
+    storages = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+
+    def scale(n):
+        return t(np.abs(rs.randn(n)).astype(np.float32) / 100 + 1e-3)
+    err_q = rel_q = 0.0
+    for st in storages.values():
+        for m, k, n in ((QUANT_RUNGS[-1], 2048, TRAIN_CLASSES),
+                        (1, 2048, 1000), (257, 64, 33), (5, 13, 7),
+                        (3, 300, 1), (4, 64, 1001)):
+            x = t(rs.randn(m, k).astype(np.float32))
+            w, s = _quant_weight(rs, t, n, k, st), scale(n)
+            ref = ck.qfc_matmul_plain(x, w, s)
+            err = _max_err(ck.qfc_matmul(x, w, s), ref)
+            err_q = max(err_q, err)
+            rel_q = max(rel_q, err / max(float(ref.abs().max()), 1e-30))
+    err_d = 0.0
+    for st in storages.values():
+        for rows, cols in ((512, 4608), (2048, 512), (64, 147), (3, 1),
+                           (5, 13)):
+            w, s = _quant_weight(rs, t, rows, cols, st), scale(rows)
+            got, ref = ck.dequant_rows(w, s), ck.dequant_rows_plain(w, s)
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                err_d = max(err_d, _max_err(got, ref), 1e-30)
+            if st == torch.int8 and not torch.equal(
+                    got.view(torch.int32),
+                    _dequant_library(w, s).view(torch.int32)):
+                raise AssertionError(f"torch.mul differs from dequant_rows "
+                                     f"at ({rows}, {cols}) int8")
+    x8 = t(rs.randn(QUANT_RUNGS[-1], 2048).astype(np.float32))
+    fc = {k: (_quant_weight(rs, t, TRAIN_CLASSES, 2048, st),
+              scale(TRAIN_CLASSES)) for k, st in storages.items()}
+    shapes = [s for s in _resnet50_param_shapes(mx, 1) if len(s) == 4]
+    convs = {k: [(_quant_weight(rs, t, s[0], int(np.prod(s[1:])), st),
+                  scale(s[0])) for s in shapes]
+             for k, st in storages.items()}
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    m, (n, k) = x8.shape[0], fc["int8"][0].shape
+    qfc = {key: _timed(lambda key=key: ck.qfc_matmul(x8, *fc[key]))
+           for key in storages}
+    deq = {key: _timed(lambda key=key: [ck.dequant_rows(*a)
+                                        for a in convs[key]],
+                       reps=50, warm=5)
+           for key in storages}
+    big = convs["int8"][int(np.argmax([np.prod(s) for s in shapes]))]
+    print(f"kernels: qfc_matmul ({m}, {k}) x ({n}, {k}) ms int8 "
+          f"{qfc['int8']:.5f} e4m3 {qfc['e4m3']:.5f}; dequant_rows per "
+          f"ResNet-50 forward ({len(shapes)} weights, {n_el} elements) ms "
+          f"int8 {deq['int8']:.5f} e4m3 {deq['e4m3']:.5f}; one "
+          f"{tuple(big[0].shape)} dequant "
+          f"{_timed(lambda: ck.dequant_rows(*big)):.5f} ms")
+    rec["qfc_matmul"] = dict(
+        max_abs_err=err_q, rel_err=rel_q, ms=qfc["int8"],
+        plain_ms=_timed(lambda: ck.qfc_matmul_plain(x8, *fc["int8"])),
+        library_ms=None,    # torch._int_mm / _scaled_mm need narrow x too
+        bound=_bound_ms(m * k * 4 + n * k + n * 4 + m * n * 4, 2 * m * n * k))
+    rec["dequant_rows"] = dict(
+        max_abs_err=err_d, ms=deq["int8"],
+        plain_ms=_timed(lambda: [ck.dequant_rows_plain(*a)
+                                 for a in convs["int8"]], reps=50, warm=5),
+        library_ms=_timed(lambda: [_dequant_library(*a)
+                                   for a in convs["int8"]], reps=50, warm=5),
+        bound=_bound_ms(5 * n_el + 4 * sum(s[0] for s in shapes), n_el))
+    return {"qfc_matmul": lambda: ck.qfc_matmul(x8, *fc["int8"]),
+            "dequant_rows": lambda: [ck.dequant_rows(*a)
+                                     for a in convs["int8"]]}
 
 
 def _model(mx, rs):
@@ -991,6 +1128,254 @@ def phase_lm_parity(mx):
         raise AssertionError("card and CPU LM steps disagree")
 
 
+class _PacedClock:
+    """Real time for ``run_scripted``: ``now`` reads the monotonic clock
+    and ``advance`` sleeps, so the scripted arrivals land at real
+    instants and the latencies count the card's work. The script submits
+    and dispatches on one thread, so an arrival due while a dispatch runs
+    waits for it."""
+
+    def now(self):
+        return time.monotonic()
+
+    def advance(self, seconds):
+        time.sleep(max(0.0, seconds))
+        return self.now()
+
+
+def _unload(ck, names):
+    """Forget the loaded libraries of kernels ``names`` (their built
+    files stay), so that their next launch loads them again and counts
+    in ``ck.libraries_loaded()``."""
+    for name in names:
+        ck._libs.pop(name, None)
+    for key in [k for k in ck._fns if k[0] in names]:
+        del ck._fns[key]
+
+
+def _centered_log(prob):
+    """Each row of log(prob) less its mean: log-softmax is the logits less
+    one constant per row, so these are the logits less their row mean."""
+    import numpy as np
+    z = np.log(np.maximum(prob.astype(np.float64), 1e-300))
+    return z - z.mean(axis=1, keepdims=True)
+
+
+def _quant_request(i, rng):
+    """Request i of the scripted mix: 1-3 rows (1 + i % 3), numpy-seeded."""
+    import numpy as np
+    return {"data": rng.rand(1 + i % 3, *TRAIN_IMAGE).astype(np.float32)}
+
+
+def phase_quant_serve(mx, ck):
+    """ResNet-50 (1000 classes, 3x224x224, Xavier seed 0) bound on gpu(0)
+    and served through mx.serve.serve at ladder QUANT_RUNGS three times:
+    float32, int8, fp8. Each serves QUANT_REQS scripted requests of 1-3
+    rows, one every QUANT_GAP_S. Returns (the module, the quantized
+    kernels' launches over the int8 and fp8 runs, {tier: server})."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import quant
+    print(_tf32(True) + " (PyTorch's default, for the quantized-serving "
+          "phase)")
+    mod = mx.mod.Module(_resnet50(mx), context=mx.gpu(0))
+    rung = QUANT_RUNGS[-1]
+    mod.bind([("data", (rung,) + TRAIN_IMAGE)], [("softmax_label", (rung,))],
+             for_training=False)
+    mod.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    ops = [n.op for n in mod._symbol._topo_nodes() if not n.is_variable]
+    per_fwd = {"dequant_rows": ops.count("Convolution"),
+               "qfc_matmul": ops.count("FullyConnected")}
+    outs, launches, servers = {}, dict.fromkeys(QUANT_KERNELS, 0), {}
+    for tier in (None, "int8", "fp8"):
+        name = tier or "float32"
+        # the kernel phase loaded every library already: unload the two
+        # quantized kernels' so that this ladder's warmup must load them
+        # again, and the zero read after it means the warmup ran them
+        _unload(ck, QUANT_KERNELS)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        server = mx.serve.serve(mod, name=name, ladder=QUANT_RUNGS,
+                                compute_dtype=tier, clock=_PacedClock(),
+                                start=False)
+        warm_s = time.perf_counter() - t0
+        warm_loads = server.engine(name).warmup_compiles
+        handles, submit = [], server.submit
+
+        def keep(*a, submit=submit, handles=handles, **k):
+            handles.append(submit(*a, **k))
+            return handles[-1]
+        server.submit = keep        # run_scripted's submits, kept
+        now = server._clock.now()
+        summary = mx.serve.run_scripted(
+            server, [now + i * QUANT_GAP_S for i in range(QUANT_REQS)],
+            _quant_request)
+        counts = ck.launch_counts()
+        stats = server.stats()
+        m = stats["models"][name]
+        forwards = 2 * len(QUANT_RUNGS) + m["dispatches"]
+        ran = {k: counts[k] for k in QUANT_KERNELS}
+        print(f"quant serve {name}: bound + warmed in {warm_s:.2f} s; "
+              f"{summary['completed']} of {summary['offered']} requests, "
+              f"{summary['req_per_sec']} req/s, latency ms p50 "
+              f"{summary['latency_ms']['p50']} p99 "
+              f"{summary['latency_ms']['p99']}; {m['dispatches']} dispatches"
+              f", batch_occupancy {m['batch_occupancy']}, padding_waste_pct "
+              f"{m['padding_waste_pct']}, kernel libraries loaded by "
+              f"warmup {warm_loads}, compiles_since_warmup "
+              f"{stats['compiles_since_warmup']}; exec_est_ms "
+              f"{m['exec_est_ms']}; launches {ran} over {forwards} forwards "
+              "(warmup included)")
+        if stats["compiles_since_warmup"] != 0:
+            raise AssertionError(f"{name}: kernels built after warmup")
+        if warm_loads != (len(QUANT_KERNELS) if tier else 0):
+            raise AssertionError(f"{name}: warmup loaded {warm_loads} "
+                                 "kernel libraries")
+        if summary["completed"] != QUANT_REQS or summary["errors"]:
+            raise AssertionError(f"{name}: {summary}")
+        for k in QUANT_KERNELS:
+            want = per_fwd[k] * forwards if tier else 0
+            if ran[k] != want:
+                raise AssertionError(f"{name}: {k} launched {ran[k]} "
+                                     f"times, want {want}")
+            launches[k] += ran[k]
+        outs[name] = [h.result(timeout=0)[0].asnumpy() for h in handles]
+        for i, o in enumerate(outs[name]):
+            if o.shape != (1 + i % 3, TRAIN_CLASSES) or \
+                    not np.isfinite(o).all():
+                raise AssertionError(f"{name}: request {i} answered "
+                                     f"{o.shape}, finite "
+                                     f"{np.isfinite(o).all()}")
+        servers[name] = server
+    for tier, tol in (("int8", quant.INT8_TOL), ("fp8", quant.FP8_TOL)):
+        worst = max(float(np.abs(q - f).max())
+                    for q, f in zip(outs[tier], outs["float32"]))
+        zq, zf = (_centered_log(np.concatenate(outs[k]))
+                  for k in (tier, "float32"))
+        print(f"quant serve {tier}: max |prob - float32 ladder's| = "
+              f"{worst:.3g} (tolerance {tol}); centered logits "
+              f"{float(np.abs(zq - zf).max()) / float(np.abs(zf).max()):.3g}"
+              " of the float32 ladder's largest apart (not gated)")
+        if not all(np.allclose(q, f, **tol)
+                   for q, f in zip(outs[tier], outs["float32"])):
+            raise AssertionError(f"{tier} outputs leave {tol} of the float "
+                                 "ladder's")
+    return mod, launches, servers
+
+
+def phase_quant_parity(mx, mod, servers):
+    """One int8 and one fp8 quantized ResNet-50 forward at batch 2, TF32
+    off: on the card through the engine that phase 12 served (its
+    rewritten graph and kernels), against a CPU Module of the same
+    rewrite from the same parameters. The random model's probabilities
+    all lie near 1/1000, so beside them the logits the softmax saw are
+    held, relative to their largest magnitude (``_centered_log``)."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import quant
+    print(_tf32(False) + " (quantized parity phase)")
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in mod.get_params())
+    X = _images(2, SEED + 6)[0]
+    for tier in ("int8", "fp8"):
+        card = servers[tier].engine(tier).forward(len(X), {"data": X})
+        qsym, qargs = quant.quantize_symbol(mod._symbol, args, dtype=tier)
+        m = mx.mod.Module(qsym, context=mx.cpu())
+        m.bind([("data", X.shape)], [("softmax_label", (len(X),))],
+               for_training=False)
+        m.init_params(arg_params=qargs, aux_params=auxs)
+        m.forward(mx.io.DataBatch([X], None), is_train=False)
+        prob = [card[0].asnumpy(), m.get_outputs()[0].asnumpy()]
+        err = float(np.abs(prob[0] - prob[1]).max())
+        z = [_centered_log(p) for p in prob]
+        z_err = float(np.abs(z[0] - z[1]).max()) / float(np.abs(z[1]).max())
+        top = [p.argmax(1).tolist() for p in prob]
+        print(f"quant parity {tier}: batch 2 through the served engine, "
+              f"max |prob card - cpu| = {err:.3g} (limit "
+              f"{QUANT_PARITY_TOL}); centered logits {z_err:.3g} of their "
+              f"largest magnitude {float(np.abs(z[1]).max()):.4g} apart "
+              f"(limit {QUANT_LOGIT_RTOL}); top-1 card {top[0]} cpu "
+              f"{top[1]}; max prob {float(prob[1].max()):.4g}")
+        if not (err <= QUANT_PARITY_TOL and z_err <= QUANT_LOGIT_RTOL
+                and top[0] == top[1]):
+            raise AssertionError(f"{tier}: card and CPU quantized forwards "
+                                 "disagree")
+
+
+def _quant_group(key):
+    for name in ("dequant_rows", "qfc_matmul"):
+        if name in key:
+            return f"{name} kernel"
+    if "softmax_warp_f32" in key or "softmax_block_f32" in key:
+        return "softmax kernel"
+    if key.startswith("Memcpy") or key.startswith("Memset"):
+        return "copies"
+    if "at::native" in key:
+        return "PyTorch elementwise/reduction"
+    return "cuDNN/cuBLAS"
+
+
+def phase_quant_profile(servers, steps=8):
+    """Where a rung-8 dispatch goes, per tier: ``steps`` full-rung
+    submits, each dispatched at once by pump(). The three ladders' wall
+    per dispatch is taken in turns (float32, int8, fp8, fp8, int8,
+    float32) without the profiler; then each ladder's device time under
+    it, with int8's split by kernel group."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    print(_tf32(True))
+    rung = QUANT_RUNGS[-1]
+    X = np.random.RandomState(SEED + 7).rand(rung, *TRAIN_IMAGE) \
+        .astype(np.float32)
+
+    def dispatch(server):
+        h = server.submit({"data": X})
+        if server.pump() != 1:
+            raise AssertionError("a full-rung request did not dispatch")
+        h.result(timeout=0)
+
+    def wall_ms(server):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dispatch(server)
+        return (time.perf_counter() - t0) * 1e3 / steps
+    for server in servers.values():
+        dispatch(server)
+    turns = [(name, wall_ms(servers[name])) for name in
+             ("float32", "int8", "fp8", "fp8", "int8", "float32")]
+    print(f"quant turns, {steps} rung-{rung} dispatches each, wall "
+          "ms/dispatch: " + ", ".join(f"{n} {ms:.3f}" for n, ms in turns))
+    for name, server in servers.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                dispatch(server)
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        rows = [(_self_device_us(e), e.count, e.key)
+                for e in prof.key_averages() if _self_device_us(e) > 0]
+        busy_ms = sum(r[0] for r in rows) / 1e3 / steps
+        print(f"quant profile: {name} rung {rung}, {steps} dispatches: "
+              f"wall {wall:.3f} ms/dispatch, device busy {busy_ms:.3f} "
+              f"ms/dispatch ({100 * busy_ms / wall:.1f}% of wall), "
+              f"{sum(r[1] for r in rows) / steps:.1f} kernel launches per "
+              "forward")
+        if name != "int8":
+            continue
+        groups = {}
+        for us, count, key in rows:
+            g = _quant_group(key)
+            t, c = groups.get(g, (0.0, 0))
+            groups[g] = (t + us, c + count)
+        for g, (us, count) in sorted(groups.items(),
+                                     key=lambda kv: -kv[1][0]):
+            print(f"  group {g}: {us / 1e3 / steps:.4f} ms/dispatch "
+                  f"({100 * us / 1e3 / steps / busy_ms:.1f}% of device "
+                  f"time), {count / steps:.1f} launches/dispatch")
+        for us, count, key in sorted(rows, reverse=True)[:8]:
+            print(f"  {us / 1e3 / steps:9.4f} ms/dispatch  "
+                  f"{count / steps:6.1f} launches/dispatch  {key[:90]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1021,10 +1406,18 @@ def main():
     phase_lm_parity(mx)
     phase_train_profile(lm_mod, lm_it, label="lm profile",
                         gemm_flops=_lm_gemm_flops())
+    del lm_mod, lm_it
+    torch.cuda.empty_cache()
+    q_mod, quant_counts, q_servers = phase_quant_serve(mx, ck)
+    phase_quant_parity(mx, q_mod, q_servers)
+    phase_quant_profile(q_servers)
+    for server in q_servers.values():
+        server.stop()
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
+    launches.update(quant_counts)
     kernels = []
     for name in ck.KERNELS:
         r = rec[name]

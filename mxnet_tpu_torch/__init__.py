@@ -6,12 +6,14 @@ JAX package. It keeps the JAX package's module names so each counterpart
 is easy to find. Its entry points run on the card (``gpu(0)`` is the
 default context) unless the caller passes ``mx.cpu()``.
 
-Two slices are ported: the decode-serving path (the transformer LM of
-``models.transformer`` served by ``serve.serve_decoder``) and the
+Four slices are ported: the decode-serving path (the transformer LM of
+``models.transformer`` served by ``serve.serve_decoder``), the
 single-device training path (``mod.Module.fit`` over the image
-classifiers of ``models``, ResNet-50 first, with SGD-momentum or Adam).
-The TPU kernels on those paths are rewritten as CUDA C++ for sm_90a
-(``ops/cuda_kernels.py``, sources under ``csrc/``).
+classifiers of ``models``, ResNet-50 first, with SGD-momentum or Adam,
+and over the transformer LM), and one-shot serving
+(``serve.serve(module)``) in float32 or the int8 / fp8 quantized tiers
+(``ops/quant.py``). The TPU kernels on those paths are rewritten as CUDA
+C++ for sm_90a (``ops/cuda_kernels.py``, sources under ``csrc/``).
 """
 from . import base
 from .base import MXNetError
@@ -41,6 +43,8 @@ from . import model
 from . import module
 from . import module as mod
 from . import models
+from . import telemetry
+from . import faults
 from . import serve
 from . import convert
 

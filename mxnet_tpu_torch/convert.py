@@ -7,6 +7,11 @@ the aux states — BatchNorm's moving mean and variance) becomes the
 port's parameter dict as it is. ``nd.load`` of a ``.params`` file written
 by ``mxnet_tpu`` gives the same arrays.
 
+Quantized parameters (``ops/quant.py``) cross too: int8 arrays as they
+are, and the JAX package's ``float8_e4m3fn`` / ``float8_e5m2`` numpy
+arrays (an extension dtype the port does not import) through a uint8
+view of their bytes, into torch's fp8 dtypes.
+
 Optimizer states travel as ``{param name: numpy array}`` (SGD's
 momentum) or ``{param name: [mean, var]}`` (Adam), the layout of the JAX
 package's exported fused states; ``set_optimizer_states`` loads such a
@@ -16,9 +21,14 @@ back.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .context import current_context
 from .ndarray import NDArray, array
+
+#: numpy extension dtype names of fp8 arrays -> torch dtypes
+_FP8_BY_NAME = {"float8_e4m3fn": torch.float8_e4m3fn,
+                "float8_e5m2": torch.float8_e5m2}
 
 __all__ = ["params_from_numpy", "set_optimizer_states",
            "optimizer_states_to_numpy"]
@@ -29,7 +39,21 @@ def params_from_numpy(arg_params, ctx=None):
     the current context). dtypes are kept (float64 narrows to float32).
     Serves arguments and aux states alike."""
     ctx = ctx or current_context()
-    return {k: array(v, ctx=ctx) for k, v in arg_params.items()}
+    return {k: _fp8_array(v, ctx) if _fp8_dtype(v) is not None
+            else array(v, ctx=ctx) for k, v in arg_params.items()}
+
+
+def _fp8_dtype(v):
+    return _FP8_BY_NAME.get(getattr(getattr(v, "dtype", None), "name", None))
+
+
+def _fp8_array(v, ctx):
+    """A numpy fp8 array -> NDArray of the same bytes in torch's dtype."""
+    a = np.ascontiguousarray(v)
+    raw = bytearray(a.view(np.uint8).tobytes())
+    t = torch.frombuffer(raw, dtype=torch.uint8) if raw else \
+        torch.zeros(0, dtype=torch.uint8)
+    return NDArray(t.view(_fp8_dtype(v)).reshape(a.shape), ctx=ctx)
 
 
 def set_optimizer_states(module, states):

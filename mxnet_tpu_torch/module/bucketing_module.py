@@ -105,3 +105,18 @@ class BucketingModule(BaseModule):
             bound.append(key)
         self._active_key = prev
         return bound
+
+    def forward(self, data_batch, is_train=None):
+        """Run ``data_batch`` on the module of its ``bucket_key`` (the
+        default bucket when it has none), binding that bucket first if
+        needed."""
+        assert self.binded and self.params_initialized
+        key = data_batch.bucket_key
+        if key is None:
+            key = self._default_bucket_key
+        self.switch_bucket(key, data_batch.provide_data,
+                           data_batch.provide_label)
+        self._active.forward(data_batch, is_train=is_train)
+
+    def get_outputs(self, merge_multi_context=True):
+        return self._active.get_outputs(merge_multi_context)

@@ -19,12 +19,17 @@ wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          s
 ``layernorm_bwd_dparams``  ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd_dparams.cu
 ``bias_gelu_dx``           ``_bias_gelu_dx_kernel`` (``_bias_gelu_bwd_rule``)  bias_gelu_dx.cu
 ``flash_attention``        ``_flash_kernel`` of ``mxnet_tpu/rtc.py``           flash_attention.cu
+``qfc_matmul``             ``_qfc_kernel`` of ``mxnet_tpu/ops/quant.py``       qfc_matmul.cu
+``dequant_rows``           ``_dequant_rows_kernel`` of ``ops/quant.py``        dequant_rows.cu
 =========================  ==================================================  ===================
 
-The first four serve the decode path; with the last four they train the
-transformer LM; softmax / cross-entropy and the optimizer updates serve
-every training path. Each source carries a note on what bounds it on the
-card and what its design does about that. Beside each wrapper sits its
+The first four serve the decode path; with the ones from
+``layernorm_bwd_dx`` to ``flash_attention`` they train the transformer LM;
+softmax / cross-entropy and the optimizer updates serve every training
+path; the last two serve the quantized tiers (``QuantizedFullyConnected``
+and ``QuantizedConvolution``), each with one C entry point per weight
+storage type (int8, float8_e4m3fn). Each source carries a note on what
+bounds it on the card and what its design does about that. Beside each wrapper sits its
 plain PyTorch version (``*_plain``), which computes the same function the
 way the TPU kernel does; the CPU tests hold it against the JAX package,
 and ``chip_smoke.py`` holds the kernel against it on the card.
@@ -50,10 +55,13 @@ in place on both devices.
 
 Build: at first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` per source, all started together, into
-``build/kernels/`` at the root of the checkout; each library exposes a
-plain C function that returns ``cudaGetLastError()`` and is bound with
+``build/kernels/`` at the root of the checkout; each library exposes
+plain C functions that return ``cudaGetLastError()`` and are bound with
 ``ctypes``. Libraries are named by a hash of their source, so an edited
-source rebuilds and an unchanged one is reused.
+source rebuilds and an unchanged one is reused. ``libraries_loaded()``
+counts the libraries this process has built or loaded: eager PyTorch has
+no programs to compile, so it is the serving engine's counterpart of the
+JAX package's compile count.
 """
 from __future__ import annotations
 
@@ -70,8 +78,10 @@ import torch
 
 from ..base import MXNetError, parse_bool, parse_float
 from .loss import softmax_ce_grad, softmax_output, softmax_rows
-from .nn import _INV_SQRT2, bias_gelu as nn_bias_gelu
+from .nn import _INV_SQRT2, _convolution as nn_convolution, \
+    bias_gelu as nn_bias_gelu
 from .optimizer_op import adam_step, sgd_mom_step
+from .quant import dequantize, qfc_matmul_plain
 from .registry import get_op
 from .tensor import embedding_lookup
 
@@ -85,7 +95,9 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "layernorm_bwd_dparams_plain", "bias_gelu_dx",
            "bias_gelu_dx_plain", "flash_attention", "flash_attention_plain",
            "embedding_bwd_plain", "layernorm_fn", "bias_gelu_fn",
-           "embedding_fn", "launch_counts", "reset_launch_counts", "KERNELS"]
+           "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
+           "dequant_rows_plain", "launch_counts", "reset_launch_counts",
+           "libraries_loaded", "KERNELS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -94,7 +106,8 @@ _ARCH = "arch=compute_90a,code=sm_90a"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
-#: kernel name -> (source file, C symbol, ctypes argtypes)
+#: kernel name -> (source file, C symbol or {weight storage: C symbol},
+#: ctypes argtypes)
 _SPECS = {
     "embedding": ("embedding.cu", "mx_embedding_f32",
                   [_P, _P, _P, _I, _I, _I, _F, _P]),
@@ -119,11 +132,19 @@ _SPECS = {
                      [_P, _P, _P, _P, _I, _I, _P]),
     "flash_attention": ("flash_attention.cu", "mx_flash_attention_f32",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "qfc_matmul": ("qfc_matmul.cu", {"int8": "mx_qfc_matmul_i8_f32",
+                                     "e4m3": "mx_qfc_matmul_e4m3_f32"},
+                   [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "dequant_rows": ("dequant_rows.cu",
+                     {"int8": "mx_dequant_rows_i8_f32",
+                      "e4m3": "mx_dequant_rows_e4m3_f32"},
+                     [_P, _P, _P, _I, _I, _P]),
 }
 KERNELS = tuple(_SPECS)
 
 _lock = threading.Lock()
-_fns = {}              # kernel name -> bound ctypes function
+_libs = {}             # kernel name -> loaded library
+_fns = {}              # (kernel name, C symbol) -> bound ctypes function
 build_log = {}         # kernel name -> nvcc's stderr (ptxas register report)
 
 
@@ -177,28 +198,37 @@ def build(names=KERNELS):
     return time.perf_counter() - t0
 
 
-def _fn(name):
-    """The bound C entry point of one kernel, building it on first use."""
-    fn = _fns.get(name)
+def _fn(name, storage=None):
+    """The bound C entry point of one kernel (the one for ``storage``
+    where the kernel has one per weight storage type), building and
+    loading its library on first use."""
+    sym = _SPECS[name][1] if storage is None else _SPECS[name][1][storage]
+    fn = _fns.get((name, sym))
     if fn is not None:
         return fn
     with _lock:
-        if name not in _fns:
+        if name not in _libs:
             build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, _SPECS[name][1])
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        if (name, sym) not in _fns:
+            fn = getattr(_libs[name], sym)
             fn.argtypes = _SPECS[name][2]
             fn.restype = ctypes.c_int
-            _fns[name] = fn
-    return _fns[name]
+            _fns[(name, sym)] = fn
+    return _fns[(name, sym)]
 
 
-def _launch(name, tensor, *args):
+def libraries_loaded():
+    """How many kernel libraries this process has built or loaded."""
+    return len(_libs)
+
+
+def _launch(name, tensor, *args, storage=None):
     """Launch one kernel on the current stream of ``tensor``'s device and
     raise on a refused launch."""
     with torch.cuda.device(tensor.device):
         stream = torch.cuda.current_stream(tensor.device).cuda_stream
-        err = _fn(name)(*args, stream)
+        err = _fn(name, storage)(*args, stream)
     if err != 0:
         raise MXNetError(f"CUDA kernel {name!r} launch failed: cudaError "
                          f"{err}")
@@ -833,6 +863,77 @@ def flash_attention(q, k, v, causal=False):
 
 flash_attention.launches = 0
 
+
+# ==========================================================================
+# 13. dequant-fused dense matmul (QuantizedFullyConnected)
+# 14. per-row weight dequant (QuantizedConvolution)
+# ==========================================================================
+#: float(wq2[o, c]) * scale[o] over rows (O, cols), in float32 (the
+#: quantized ops' own dequant, shared)
+dequant_rows_plain = dequantize
+
+#: weight storage dtype -> the kernels' C entry point suffix
+_QUANT_STORAGE = {torch.int8: "int8", torch.float8_e4m3fn: "e4m3"}
+
+
+def _check_quant(name, wq, **tensors):
+    """A narrow weight (int8 or float8_e4m3fn) plus the float32 tensors,
+    contiguous, on one CUDA device; returns the storage key."""
+    storage = _QUANT_STORAGE.get(wq.dtype)
+    if storage is None:
+        raise MXNetError(f"{name}: weight is {wq.dtype}, the kernel takes "
+                         "torch.int8 or torch.float8_e4m3fn")
+    _check(name, weight=(wq, wq.dtype),
+           **{k: (t, torch.float32) for k, t in tensors.items()})
+    return storage
+
+
+def qfc_matmul(x2, wq, scale):
+    """``x2 @ (wq * scale[:, None]).T``: x2 (M, K) float32, wq (N, K)
+    int8 or float8_e4m3fn, scale (N,) float32 -> (M, N) float32, each
+    weight scaled before the product."""
+    if not _cpu_or_cuda("qfc_matmul", x2):
+        return qfc_matmul_plain(x2, wq, scale)
+    storage = _check_quant("qfc_matmul", wq, x=x2, scale=scale)
+    if x2.ndim != 2 or wq.ndim != 2 or wq.shape[1] != x2.shape[1] or \
+            tuple(scale.shape) != (wq.shape[0],):
+        raise MXNetError(f"qfc_matmul: want x (M, K), weight (N, K) and "
+                         f"scale (N,), got {tuple(x2.shape)}, "
+                         f"{tuple(wq.shape)}, {tuple(scale.shape)}")
+    (m, k), n = x2.shape, wq.shape[0]
+    if m > 64 * 65535:
+        raise MXNetError(f"qfc_matmul: M={m} > {64 * 65535}")
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    _launch("qfc_matmul", x2, x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, n, k, storage=storage)
+    qfc_matmul.launches += 1
+    return out
+
+
+qfc_matmul.launches = 0
+
+
+def dequant_rows(wq2, scale):
+    """``float(wq2[o, c]) * scale[o]``: wq2 (O, cols) int8 or
+    float8_e4m3fn, scale (O,) float32 -> (O, cols) float32, bit for bit
+    the plain version's."""
+    if not _cpu_or_cuda("dequant_rows", wq2):
+        return dequant_rows_plain(wq2, scale)
+    storage = _check_quant("dequant_rows", wq2, scale=scale)
+    if wq2.ndim != 2 or tuple(scale.shape) != (wq2.shape[0],):
+        raise MXNetError(f"dequant_rows: want weight (O, cols) and scale "
+                         f"(O,), got {tuple(wq2.shape)}, "
+                         f"{tuple(scale.shape)}")
+    rows, cols = wq2.shape
+    out = torch.empty((rows, cols), dtype=torch.float32, device=wq2.device)
+    _launch("dequant_rows", wq2, wq2.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), rows, cols, storage=storage)
+    dequant_rows.launches += 1
+    return out
+
+
+dequant_rows.launches = 0
+
 _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "bias_gelu": bias_gelu, "decode_attention": decode_attention,
              "softmax": softmax, "softmax_ce_bwd": softmax_ce_bwd,
@@ -840,7 +941,8 @@ _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "ln_bwd_dx": layernorm_bwd_dx,
              "ln_bwd_dparams": layernorm_bwd_dparams,
              "bias_gelu_dx": bias_gelu_dx,
-             "flash_attention": flash_attention}
+             "flash_attention": flash_attention, "qfc_matmul": qfc_matmul,
+             "dequant_rows": dequant_rows}
 
 
 # ==========================================================================
@@ -879,8 +981,44 @@ def _adam_cuda(attrs, inputs, aux, is_train, rng):
         attrs.get("clip_gradient", -1.0))), []
 
 
+def _float32_data(op, data):
+    if data.dtype != torch.float32:
+        raise MXNetError(f"{op}: the CUDA kernels take float32 data, got "
+                         f"{data.dtype}")
+
+
+def _qfc_cuda(attrs, inputs, aux, is_train, rng):
+    """QuantizedFullyConnected on the card: the dequant-fused matmul
+    kernel, then the bias add (after the kernel, as in the JAX package's
+    Pallas variant)."""
+    data, weight, scale = inputs[:3]
+    _float32_data("QuantizedFullyConnected", data)
+    if data.ndim > 2 and parse_bool(attrs.get("flatten", True)):
+        data = data.reshape(data.shape[0], -1)
+    lead = data.shape[:-1]
+    out = qfc_matmul(data.reshape(-1, data.shape[-1]).contiguous(), weight,
+                     scale)
+    if len(inputs) > 3:
+        out = out + inputs[3].to(torch.float32)
+    return [out.reshape(tuple(lead) + (weight.shape[0],))], []
+
+
+def _qconv_cuda(attrs, inputs, aux, is_train, rng):
+    """QuantizedConvolution on the card: the row-dequant kernel rebuilds
+    the float32 weight, then cuDNN convolves (the convolution stays a
+    library call, as it stays XLA's in the JAX package)."""
+    data, weight, scale = inputs[:3]
+    _float32_data("QuantizedConvolution", data)
+    wf = dequant_rows(weight.reshape(weight.shape[0], -1), scale)
+    return [nn_convolution(attrs, data, wf.reshape(weight.shape),
+                           inputs[3] if len(inputs) > 3 else None)], []
+
+
 _UPDATE_BWD = ("a gradient of the update itself, which the JAX package "
                "takes through its composition")
+_QUANT_BWD = ("a gradient of a quantized op: quantized graphs are an "
+              "inference tier, which the JAX package gives no gradient "
+              "either")
 get_op("FusedBiasGeLU").add_variant("cuda", _bias_gelu_cuda)
 get_op("Embedding").add_variant("cuda", _embedding_cuda)
 get_op("LayerNorm").add_variant("cuda", _layernorm_cuda)
@@ -889,3 +1027,7 @@ get_op("sgd_mom_update").add_variant("cuda", _sgd_mom_cuda,
                                      backward_pending=_UPDATE_BWD)
 get_op("adam_update").add_variant("cuda", _adam_cuda,
                                   backward_pending=_UPDATE_BWD)
+get_op("QuantizedFullyConnected").add_variant("cuda", _qfc_cuda,
+                                              backward_pending=_QUANT_BWD)
+get_op("QuantizedConvolution").add_variant("cuda", _qconv_cuda,
+                                           backward_pending=_QUANT_BWD)

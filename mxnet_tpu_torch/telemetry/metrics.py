@@ -1,0 +1,218 @@
+"""Metrics registry: named counters, gauges, histograms.
+
+The port's copy of ``mxnet_tpu/telemetry/metrics.py``: monotonic
+counters, last-value gauges and fixed-bucket histograms, keyed by
+``(name, sorted label items)`` like Prometheus series, so
+``counter("serve.requests", model="a")`` and ``model="b"`` are distinct
+series of one family. Lookup is create-or-get under a lock; mutation
+relies on the GIL. Metric objects record whether or not the span tracer
+is enabled — they are cheap accumulators, and the serving server's
+``stats()`` reads them.
+
+Pure stdlib.
+"""
+from __future__ import annotations
+
+import threading
+
+__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
+           "snapshot", "reset", "get_metric"]
+
+_lock = threading.Lock()
+_registry = {}     # (name, labels_tuple) -> metric object
+
+# latency-oriented default buckets (seconds), ~decade spacing with a 2/5
+# split
+DEFAULT_BUCKETS = (1e-4, 5e-4, 1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0,
+                   5.0, 10.0, 60.0)
+
+
+class _Metric:
+    __slots__ = ("name", "labels")
+
+    def __init__(self, name, labels):
+        self.name = name
+        self.labels = labels      # tuple of (k, v) pairs, sorted
+
+    @property
+    def key(self):
+        """Series identity rendered Prometheus-style."""
+        if not self.labels:
+            return self.name
+        inner = ",".join(f'{k}="{v}"' for k, v in self.labels)
+        return f"{self.name}{{{inner}}}"
+
+
+class Counter(_Metric):
+    """Monotonic accumulator."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, name, labels):
+        super().__init__(name, labels)
+        self.value = 0
+
+    def inc(self, n=1):
+        if n < 0:
+            raise ValueError("counters only increase")
+        self.value += n
+        return self
+
+
+class Gauge(_Metric):
+    """Last-written value."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, name, labels):
+        super().__init__(name, labels)
+        self.value = 0.0
+
+    def set(self, v):
+        self.value = float(v)
+        return self
+
+    def inc(self, n=1):
+        self.value += n
+        return self
+
+    def dec(self, n=1):
+        self.value -= n
+        return self
+
+
+class Histogram(_Metric):
+    """Fixed-bucket histogram: cumulative bucket counts + sum/min/max.
+
+    ``observe(v, exemplar=...)`` optionally attaches an exemplar (a trace
+    id) to the bucket the observation lands in, so a p99 latency bucket
+    links to one concrete trace; exemplars change no count or quantile.
+    """
+
+    __slots__ = ("buckets", "bucket_counts", "count", "sum", "min", "max",
+                 "exemplars")
+
+    def __init__(self, name, labels, buckets=None):
+        super().__init__(name, labels)
+        self.buckets = tuple(sorted(buckets or DEFAULT_BUCKETS))
+        self.bucket_counts = [0] * len(self.buckets)
+        self.count = 0
+        self.sum = 0.0
+        self.min = None
+        self.max = None
+        self.exemplars = {}     # bucket index (len = +Inf) -> (id, value)
+
+    def observe(self, v, exemplar=None):
+        v = float(v)
+        self.count += 1
+        self.sum += v
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+        landed = len(self.buckets)          # +Inf overflow slot
+        for i, le in enumerate(self.buckets):
+            if v <= le:
+                self.bucket_counts[i] += 1
+                landed = min(landed, i)
+        if exemplar is not None:
+            self.exemplars[landed] = (str(exemplar), v)
+        return self
+
+    def exemplar(self, q):
+        """The exemplar nearest the q-quantile: the one attached to the
+        quantile's bucket, else the closest bucket above it (a trace that
+        is at least as slow). None when no exemplar applies."""
+        if not self.count or not self.exemplars:
+            return None
+        rank = q * self.count
+        idx = len(self.buckets)             # default: overflow slot
+        for i, c in enumerate(self.bucket_counts):
+            if c >= rank:                   # counts are cumulative
+                idx = i
+                break
+        for i in range(idx, len(self.buckets) + 1):
+            if i in self.exemplars:
+                return self.exemplars[i][0]
+        # nothing at or above: the slowest exemplar seen
+        return self.exemplars[max(self.exemplars)][0]
+
+    @property
+    def mean(self):
+        return self.sum / self.count if self.count else 0.0
+
+    def cumulative(self):
+        """[(le, cumulative count)] — the Prometheus _bucket series."""
+        return list(zip(self.buckets, self.bucket_counts))
+
+    def quantile(self, q):
+        """Estimated q-quantile (0 <= q <= 1) by linear interpolation over
+        the cumulative buckets (Prometheus' ``histogram_quantile``);
+        observations above the last bound clamp to the recorded max.
+        None while empty."""
+        if not self.count:
+            return None
+        rank = q * self.count
+        prev_le, prev_cum = 0.0, 0
+        for le, cum in self.cumulative():
+            if cum >= rank:
+                if cum == prev_cum:
+                    return le
+                frac = (rank - prev_cum) / (cum - prev_cum)
+                return prev_le + frac * (le - prev_le)
+            prev_le, prev_cum = le, cum
+        return self.max
+
+
+def _get(cls, name, labels, **ctor):
+    key = (name, tuple(sorted(labels.items())))
+    with _lock:
+        m = _registry.get(key)
+        if m is None:
+            m = cls(name, key[1], **ctor)
+            _registry[key] = m
+        elif not isinstance(m, cls):
+            raise TypeError(
+                f"metric {name!r} already registered as "
+                f"{type(m).__name__}, not {cls.__name__}")
+        return m
+
+
+def counter(name, **labels):
+    return _get(Counter, name, labels)
+
+
+def gauge(name, **labels):
+    return _get(Gauge, name, labels)
+
+
+def histogram(name, buckets=None, **labels):
+    return _get(Histogram, name, labels, buckets=buckets)
+
+
+def get_metric(name, **labels):
+    """Registered metric or None (no create)."""
+    return _registry.get((name, tuple(sorted(labels.items()))))
+
+
+def snapshot():
+    """One dict of everything: {"counters": {series: value}, "gauges":
+    {series: value}, "histograms": {series: {count, sum, min, max, mean,
+    buckets}}}, series keys rendered Prometheus-style."""
+    with _lock:
+        metrics = list(_registry.values())
+    out = {"counters": {}, "gauges": {}, "histograms": {}}
+    for m in metrics:
+        if isinstance(m, Counter):
+            out["counters"][m.key] = m.value
+        elif isinstance(m, Gauge):
+            out["gauges"][m.key] = m.value
+        else:
+            out["histograms"][m.key] = {
+                "count": m.count, "sum": m.sum, "min": m.min,
+                "max": m.max, "mean": m.mean,
+                "buckets": {str(le): c for le, c in m.cumulative()}}
+    return out
+
+
+def reset():
+    with _lock:
+        _registry.clear()

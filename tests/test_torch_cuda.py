@@ -24,6 +24,16 @@ LM path's shapes and edge shapes (one row, one column, C = 65536, T = 1
 and a ragged T, Dh = 128, non-causal), the parameter-gradient reduction
 must repeat bit for bit, each differentiable op's gradients on the card
 must match its plain op's on the CPU, and a small LM fits alike on both.
+
+The quantized-serving kernels (the dequant-fused matmul, the conv-weight
+row dequant) are held against their plain versions for int8 and
+float8_e4m3fn weights that hold +-448 (+-127), e4m3 subnormals, 0 and -0,
+at the ResNet-50 serving path's shapes and at edges (M = 1, M = 257,
+K = 13, N = 1, N = 1001, one column, 147 columns): the matmul within
+1e-5 of the output's largest magnitude (it sums in another order), the
+dequant bit for bit. The quantized ops' CUDA variants refuse float16
+data and inputs that require grad, and a quantized server on the card
+answers with no kernel build after warmup and the CPU server's outputs.
 """
 import numpy as np
 import pytest
@@ -454,3 +464,143 @@ def _fit_both(models, model, optimizer):
     for k, v in out["cpu"].items():
         np.testing.assert_allclose(out["gpu"][k], v, atol=1e-4, rtol=1e-4,
                                    err_msg=k)
+
+
+# --------------------------------------------------- quantized serving
+def _quant_weight(dev, n, k, storage, seed=0):
+    """(n, k) weight in ``storage`` (torch.int8 or float8_e4m3fn) holding
+    random codes plus the extremes, the e4m3 subnormals, 0 and -0."""
+    rs = np.random.RandomState(seed)
+    if storage == torch.int8:
+        codes = rs.randint(-128, 128, n * k)
+        edge = [127, -127, -128, 0]
+        codes[:min(4, codes.size)] = edge[:codes.size]
+        return torch.as_tensor(codes.astype(np.int8)).reshape(n, k).to(dev)
+    vals = (rs.randn(n * k) * 40).clip(-448, 448).astype(np.float32)
+    edge = np.asarray([448.0, -448.0, 2.0 ** -9, -(2.0 ** -9), 2.0 ** -7,
+                       7 * 2.0 ** -9, 0.0, -0.0], np.float32)
+    vals[:min(len(edge), vals.size)] = edge[:vals.size]
+    return torch.as_tensor(vals).reshape(n, k).to(torch.float8_e4m3fn) \
+        .to(dev)
+
+
+_QSTORAGE = [torch.int8, torch.float8_e4m3fn]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (1, 2048, 1000),
+                                   (257, 64, 33), (5, 13, 7), (3, 300, 1),
+                                   (4, 64, 1001), (2, 4, 4)])
+def test_qfc_matmul_kernel(dev, storage, m, k, n):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rnd(dev, m, k)
+    w = _quant_weight(dev, n, k, storage)
+    s = _rnd(dev, n, seed=1).abs() / 100 + 1e-3
+    got, ref = ck.qfc_matmul(x, w, s), ck.qfc_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+@pytest.mark.parametrize("rows,cols", [(512, 4608), (2048, 512), (64, 147),
+                                       (3, 1), (5, 13), (1000, 4)])
+def test_dequant_rows_kernel_bitwise(dev, storage, rows, cols):
+    w = _quant_weight(dev, rows, cols, storage)
+    s = _rnd(dev, rows, seed=1).abs() / 100 + 1e-3
+    got, ref = ck.dequant_rows(w, s), ck.dequant_rows_plain(w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    # a row view that starts off a 4-byte boundary takes the scalar path
+    w2 = w.reshape(-1)[1:1 + (rows - 1) * cols].reshape(rows - 1, cols) \
+        if rows > 1 else w
+    s2 = s[:w2.shape[0]]
+    assert torch.equal(ck.dequant_rows(w2, s2).view(torch.int32),
+                       ck.dequant_rows_plain(w2, s2).view(torch.int32))
+    if storage == torch.int8:
+        # one PyTorch call computes the same function: int8 x float32
+        # promotes to float32 and rounds each product once
+        lib = torch.mul(w, s.unsqueeze(1))
+        assert torch.equal(got.view(torch.int32), lib.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_quantized_variants_refuse_what_they_do_not_take(dev):
+    qfc = mx.ops.get_op("QuantizedFullyConnected")
+    qcv = mx.ops.get_op("QuantizedConvolution")
+    fattrs = qfc.normalize_attrs({"num_hidden": 4, "no_bias": True})
+    cattrs = qcv.normalize_attrs({"kernel": (3, 3), "num_filter": 4,
+                                  "no_bias": True})
+    w = _quant_weight(dev, 4, 8, torch.int8)
+    s = torch.ones(4, device=dev)
+    wc = _quant_weight(dev, 4, 18, torch.int8).reshape(4, 2, 3, 3)
+    with pytest.raises(MXNetError, match="float32"):
+        mx.ops.registry.dispatch(qfc, fattrs, [_rnd(dev, 2, 8).half(), w, s],
+                                 [], False, None)
+    with pytest.raises(MXNetError, match="float32"):
+        mx.ops.registry.dispatch(qcv, cattrs,
+                                 [_rnd(dev, 1, 2, 5, 5).half(), wc, s], [],
+                                 False, None)
+    x = _rnd(dev, 2, 8).requires_grad_(True)
+    with pytest.raises(MXNetError, match="inference tier"):
+        mx.ops.registry.dispatch(qfc, fattrs, [x, w, s], [], False, None)
+    with pytest.raises(MXNetError, match="int8 or torch.float8_e4m3fn"):
+        ck.qfc_matmul(_rnd(dev, 2, 8), w.float(), s)
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.dequant_rows(_quant_weight(dev, 8, 4, torch.int8).t(), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["int8", "fp8"])
+def test_quantized_server_on_card(dev, tier):
+    """A small convnet served through mx.serve.serve on gpu(0) and on the
+    CPU from the same parameters: the same outputs (TF32 off), no kernel
+    build after warmup, and exactly one dequant per conv and one fused
+    matmul per dense layer on every card forward."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        data = mx.sym.var("data")
+        c = mx.sym.Convolution(data=data, kernel=(3, 3), num_filter=8,
+                               pad=(1, 1), name="c1")
+        a = mx.sym.Activation(c, act_type="relu")
+        f = mx.sym.FullyConnected(a, num_hidden=10, name="f1")
+        sym = mx.sym.SoftmaxOutput(f, name="softmax")
+        rs = np.random.RandomState(0)
+        shapes, _, _ = sym.infer_shape(data=(4, 3, 8, 8))
+        params = {n: (0.2 * rs.randn(*sh)).astype(np.float32)
+                  for n, sh in zip(sym.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+        x = rs.rand(3, 3, 8, 8).astype(np.float32)
+        outs = {}
+        for ctx in (mx.gpu(0), mx.cpu()):
+            mod = mx.mod.Module(sym, context=ctx)
+            mod.bind([("data", (4, 3, 8, 8))], [("softmax_label", (4,))],
+                     for_training=False)
+            mod.init_params(arg_params=mx.convert.params_from_numpy(params,
+                                                                    ctx),
+                            aux_params={})
+            ck.reset_launch_counts()
+            server = mx.serve.serve(mod, ladder=[1, 2, 4], compute_dtype=tier,
+                                    clock=FakeClock(), start=False)
+            warm = ck.launch_counts()
+            h = server.submit({"data": x})
+            server.pump()
+            server._clock.advance(1.0)
+            server.pump()
+            outs[ctx.device_type] = h.result(timeout=0)[0].asnumpy()
+            counts = ck.launch_counts()
+            assert server.stats()["compiles_since_warmup"] == 0
+            assert h.bucket == 4
+            if ctx.device_type == "gpu":
+                assert warm["dequant_rows"] == warm["qfc_matmul"] == 6
+                assert counts["dequant_rows"] == counts["qfc_matmul"] == 7
+            else:
+                assert not any(counts.values()), counts
+            server.stop()
+        np.testing.assert_allclose(outs["gpu"], outs["cpu"], atol=1e-5,
+                                   rtol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

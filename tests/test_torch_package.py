@@ -1,8 +1,12 @@
 """Package rules of the PyTorch port.
 
-* ``import mxnet_tpu_torch`` pulls in neither JAX nor the JAX package
-  (checked in a fresh interpreter), and no source file of the port — nor
-  ``chip_smoke.py`` — imports either (checked on the syntax tree);
+* ``import mxnet_tpu_torch`` pulls in neither JAX, the JAX package nor
+  ``ml_dtypes`` (the numpy fp8 dtypes the JAX package's quantized tier
+  uses) — checked in a fresh interpreter that also quantizes to fp8,
+  serves, and touches the telemetry and fault planes — and no source
+  file of the port, its ``telemetry/`` and ``faults/`` subpackages
+  included, nor ``chip_smoke.py`` imports any of them (checked on the
+  syntax tree);
 * entry points default to the card: ``current_context()`` is ``gpu(0)``,
   and without CUDA, binding there raises instead of running on the host
   — for the training path's ``Module.fit`` as for serving.
@@ -22,7 +26,7 @@ from mxnet_tpu_torch.models import transformer as ttfm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mxnet_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "flax", "optax", "ml_dtypes")
 
 
 def _port_sources():
@@ -47,6 +51,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch as mx\n"
             "mx.models.transformer.get_decode_symbol(per_slot=True)\n"
             "mx.models.resnet.get_symbol(10, 8, '3,16,16')\n"
+            "import numpy as np\n"
+            "from mxnet_tpu_torch.ops import quant\n"
+            "quant.quantize_per_channel(np.ones((2, 3), 'f'), dtype='fp8')\n"
+            "mx.telemetry.counter('x').inc(); mx.faults.point('x')\n"
+            "mx.serve.InferenceServer(clock=mx.serve.FakeClock())\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nassert not bad, bad\n")
@@ -145,3 +154,14 @@ def test_inference_only_binding():
     with pytest.raises(MXNetError, match="fp8"):
         ttfm.get_decode_symbol(vocab_size=16, d_model=8, n_layer=1,
                                n_head=2, capacity=8, cache_dtype="fp8")
+
+
+def test_new_subpackages_are_guarded():
+    """The syntax-tree guard walks the telemetry and fault planes too."""
+    rel = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for path in ("telemetry/__init__.py", "telemetry/metrics.py",
+                 "telemetry/core.py", "telemetry/trace.py",
+                 "telemetry/flightrec.py", "faults/__init__.py",
+                 "faults/plane.py", "faults/breaker.py", "ops/quant.py",
+                 "serve/server.py", "serve/engine.py"):
+        assert path in rel, path
