@@ -8,14 +8,15 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all fourteen in parallel), print the build seconds,
+   ``nvcc`` per source, all sixteen in parallel), print the build seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
    computes in full float32);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge shapes, and time kernel, device,
    plain version and — where one PyTorch call computes the same function
-   — that library call;
+   — that library call (the BatchNorm pair over the fused ResNet-50
+   step's 33 conv outputs at batch 32, and edges);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -30,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    momentum 0.9 wd 1e-4) through ``Module.fit`` on ``gpu(0)`` for 8
    batches: images/s and p50/p99 step ms without the first batch, kernel
    launches per step (softmax 1, cross-entropy backward 1, sgd_mom 157),
-   a finite loss and moved parameters;
+   a finite loss and moved parameters, and with telemetry on the fit's
+   MFU readings (``mfu.model`` of the bf16 peak, ``mfu.flops_per_step``,
+   ``mfu.node_coverage``, ``mfu.achieved_flops_per_sec``), held to the
+   script's own FLOPs over the p50 step within 10 %;
 6. one step of the same model at batch 2 on the card and on the CPU from
    the same parameters, TF32 off: the forward (probabilities, BatchNorm
    moving statistics) within 1e-4, and the updated weights within ten
@@ -47,8 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    for 8 batches: tokens/s and p50/p99 step ms without the first batch,
    peak device memory, kernel launches per step (embedding 1, LayerNorm
    17 forward + 17 dx + 17 dgamma/dbeta, GeLU 8 + 8, flash attention 8,
-   softmax 1, cross-entropy backward 1), a finite loss and moved
-   parameters;
+   softmax 1, cross-entropy backward 1), a finite loss, moved
+   parameters and the fit's MFU readings as in phase 5;
 10. one SGD step of the same LM at batch 2, T=128 on the card and on the
    CPU from the same numpy-seeded parameters, TF32 off: the
    probabilities within 1e-4, every gradient within 1e-4 of its array's
@@ -75,18 +79,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (float32, int8, fp8, fp8, int8, float32; 8 each), then 8 of each
    under the profiler: device busy, launches per forward, and for int8
    the device time by group (cuDNN / the two quantized kernels / softmax
-   / PyTorch elementwise / copies).
+   / PyTorch elementwise / copies);
+15. train ResNet-50 in its fused configuration (the 33 Conv -> BatchNorm
+   -> ReLU triples as ``FusedConvBNReLU``) through ``Module.fit`` as in
+   phase 5, telemetry on: img/s, p50/p99, exactly 33 ``bn_stats`` + 33
+   ``bn_apply_relu`` + 1 softmax + 1 cross-entropy backward + 157
+   ``sgd_mom`` launches per step and nothing else, a finite loss, moved
+   parameters, the MFU readings;
+16. one fused step at batch 2, TF32 off, on the card and on the CPU
+   through the CUDA variant's ``autograd.Function`` (its kernels are
+   their plain halves there), held as phase 6; then the fused and plain
+   nets' inference forward on the card from renamed parameters (random
+   BatchNorm statistics and affine), within 1e-4;
+17. serve the fused ResNet-50 at ladder [1, 2, 4, 8] with phase 12's 24
+   scripted requests, from phase 12's parameters renamed: req/s, p50/p99,
+   warmup loading ``bn_apply_relu``'s library and nothing loaded after,
+   exactly 33 ``bn_apply_relu`` and 0 ``bn_stats`` per forward, outputs
+   within 1e-4 of the float32 ladder's;
+18. profile fused and plain ResNet-50 training steps at batch 32 in turns
+   (plain, fused, fused, plain; 2 each) and 8 rung-8 dispatches of each
+   ladder: device busy, launches, and device time by group (cuDNN / the
+   BatchNorm pair / the port's other kernels / PyTorch elementwise /
+   copies).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
 while fitting with Adam, the LayerNorm and GeLU backward kernels and
 flash attention while fitting the LM, the quantized kernels while
-serving int8 and fp8 — max abs error against the plain version, kernel /
+serving int8 and fp8, the BatchNorm pair while fitting and serving the
+fused ResNet-50 — max abs error against the plain version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
 checkout, the script exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -108,7 +135,13 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "decode_attention": 2e-5, "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
        "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
        "ln_bwd_dparams": 5e-4, "bias_gelu_dx": 2e-5,
-       "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0}
+       "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0,
+       "bn_stats": 1e-5, "bn_apply_relu": 0.0}
+# bn_stats' error is relative to each channel's sum of squares (which also
+# bounds its sum: sum(x)^2 <= n sum(x^2)): float32 sums of up to 401,408
+# terms (the stem's channels at batch 32), taken in another order than
+# torch.sum's; bn_apply_relu rounds its product and sum as the plain
+# version does, so it must match exactly
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -125,6 +158,8 @@ REPLACES = {
     "flash_attention": "mxnet_tpu/rtc.py:301",
     "qfc_matmul": "mxnet_tpu/ops/quant.py:151",
     "dequant_rows": "mxnet_tpu/ops/quant.py:234",
+    "bn_stats": "mxnet_tpu/ops/pallas_kernels.py:217",
+    "bn_apply_relu": "mxnet_tpu/ops/pallas_kernels.py:231",
 }
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
@@ -150,6 +185,13 @@ QUANT_GAP_S = 0.004
 QUANT_KERNELS = ("qfc_matmul", "dequant_rows")
 QUANT_PARITY_TOL = 1e-5  # card vs CPU quantized probabilities, TF32 off
 QUANT_LOGIT_RTOL = 1e-4  # the same, on logits, of their largest magnitude
+CBR_KERNELS = ("bn_stats", "bn_apply_relu")
+RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
+                num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
+BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
+FUSED_TOL = 1e-4        # fused vs plain ResNet-50 probabilities on the card
+MFU_RTOL = 0.10         # mfu.achieved_flops_per_sec vs FLOPs / p50 step
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores: mfu.model's peak
 
 
 def _timed(fn, reps=200, warm=20):
@@ -328,6 +370,7 @@ def phase_kernels(mx, ck):
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
+    calls.update(_bn_kernels(mx, ck, rs, t, rec))
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
         err = r.get("rel_err", r["max_abs_err"])
@@ -638,6 +681,84 @@ def _quant_kernels(mx, ck, rs, t, rec):
                                      for a in convs["int8"]]}
 
 
+def _stats_err(ck, x):
+    """bn_stats against its plain version: the largest error of a
+    channel's sum or sum of squares, relative to its sum of squares."""
+    import torch
+    (s, sq), (ps, psq) = ck.bn_stats(x), ck.bn_stats_plain(x)
+    d = torch.maximum((s - ps).abs(), (sq - psq).abs())
+    return float((d / psq.clamp_min(1e-30)).max()), _max_err(
+        torch.stack([s, sq]), torch.stack([ps, psq]))
+
+
+def _bn_kernels(mx, ck, rs, t, rec):
+    """The two FusedConvBNReLU kernels at the fused ResNet-50 path's
+    shapes: the 33 fused conv outputs of one batch-32 training step (ms,
+    bound and library per step, 33 launches each; the stem's
+    (32, 64, 112, 112) alone printed beside), plus edges: HW = 1, 49,
+    3136, 15 (not a multiple of 4), C = 1, N = 1, and a misaligned view.
+    bn_stats is held relative to each channel's sum of squares,
+    bn_apply_relu bit for bit. Fills ``rec``; returns the timed calls."""
+    import numpy as np
+    import torch
+    shapes = _cbr_shapes(mx, TRAIN_BATCH)
+    xs = [t((2 * rs.randn(*s) + 0.5).astype(np.float32)) for s in shapes]
+    ss = [(t((1 + 0.1 * rs.randn(s[1])).astype(np.float32)),
+           t(rs.randn(s[1]).astype(np.float32))) for s in shapes]
+    edges = [(2, 8, 1, 1), (3, 16, 7, 7), (2, 64, 56, 56), (5, 3, 3, 5),
+             (4, 1, 6, 6), (1, 7, 8, 8), (1, 1, 1, 1)]
+    cases = xs[:1] + xs[-1:] + [t((2 * rs.randn(*e) + 0.5).astype(
+        np.float32)) for e in edges]
+    flat = t(rs.randn(1 + 2 * 8 * 16).astype(np.float32))
+    cases.append(flat[1:].view(2, 8, 4, 4))          # 4-byte aligned only
+    rel_s = abs_s = abs_a = 0.0
+    for x in cases:
+        r, a = _stats_err(ck, x)
+        rel_s, abs_s = max(rel_s, r), max(abs_s, a)
+        c = x.shape[1]
+        sc = t((1 + 0.1 * rs.randn(c)).astype(np.float32))
+        sh = t(rs.randn(c).astype(np.float32))
+        got, ref = ck.bn_apply_relu(x, sc, sh), \
+            ck.bn_apply_relu_plain(x, sc, sh)
+        if not torch.equal(got, ref):
+            abs_a = max(abs_a, _max_err(got, ref), 1e-30)
+    nan = t(np.asarray([[[[np.nan, 1.0], [-1.0, 0.0]]]], np.float32))
+    one = t(np.ones(1, np.float32))
+    if not torch.equal(ck.bn_apply_relu(nan, one, one * 0).isnan(),
+                       ck.bn_apply_relu_plain(nan, one, one * 0).isnan()):
+        raise AssertionError("bn_apply_relu does not pass NaN through")
+    elems = sum(int(np.prod(s)) for s in shapes)
+    chans = sum(s[1] for s in shapes)
+    stem = xs[0]
+    print(f"kernels: the BatchNorm pair over the fused ResNet-50 step's "
+          f"{len(shapes)} conv outputs ({elems} floats, "
+          f"{4 * elems / 1e6:.1f} MB); stem {tuple(stem.shape)} alone: "
+          f"bn_stats {_timed(lambda: ck.bn_stats(stem)):.5f} ms, "
+          f"bn_apply_relu "
+          f"{_timed(lambda: ck.bn_apply_relu(stem, *ss[0])):.5f} ms")
+    rec["bn_stats"] = dict(
+        max_abs_err=abs_s, rel_err=rel_s,
+        ms=_timed(lambda: [ck.bn_stats(x) for x in xs], reps=50, warm=5),
+        plain_ms=_timed(lambda: [ck.bn_stats_plain(x) for x in xs],
+                        reps=20, warm=2),
+        # one read of x and the moments the op derives from the sums
+        library_ms=_timed(lambda: [torch.var_mean(x, dim=(0, 2, 3),
+                                                  unbiased=False)
+                                   for x in xs], reps=20, warm=2),
+        bound=_bound_ms(4 * elems + 8 * chans, 3 * elems))
+    rec["bn_apply_relu"] = dict(
+        max_abs_err=abs_a,
+        ms=_timed(lambda: [ck.bn_apply_relu(x, *p) for x, p in zip(xs, ss)],
+                  reps=50, warm=5),
+        plain_ms=_timed(lambda: [ck.bn_apply_relu_plain(x, *p)
+                                 for x, p in zip(xs, ss)], reps=20, warm=2),
+        library_ms=None,    # no one PyTorch call scales, shifts and clamps
+        bound=_bound_ms(8 * elems + 8 * chans, 3 * elems))
+    return {"bn_stats": lambda: [ck.bn_stats(x) for x in xs],
+            "bn_apply_relu": lambda: [ck.bn_apply_relu(x, *p)
+                                      for x, p in zip(xs, ss)]}
+
+
 def _model(mx, rs):
     """The decode symbol at full width and random parameters (numpy)."""
     import numpy as np
@@ -795,10 +916,183 @@ def _images(n, seed):
             rs.randint(0, TRAIN_CLASSES, n).astype(np.float32))
 
 
+def fused_resnet(sym, units, filter_list, num_classes, image_shape):
+    """ResNet (bottleneck units, ImageNet stem) in its fused
+    configuration, node for node ``models/resnet.py`` otherwise: the
+    Convolution -> BatchNorm -> ReLU triples (the stem's, and each unit's
+    conv1 + bn2 + relu2 and conv2 + bn3 + relu3) are ``FusedConvBNReLU``
+    nodes named after the convolution (the conv's attributes without
+    ``no_bias``, plus the BatchNorm's). ``sym`` is a symbol module; the
+    tests keep a copy of this builder."""
+    def cbr(data, num_filter, kernel, stride, pad, name):
+        return sym.FusedConvBNReLU(data=data, num_filter=num_filter,
+                                   kernel=kernel, stride=stride, pad=pad,
+                                   workspace=256, name=name, **BN)
+
+    data = sym.BatchNorm(data=sym.var("data"), fix_gamma=True, eps=2e-5,
+                         momentum=0.9, name="bn_data")
+    body = cbr(data, filter_list[0], (7, 7), (2, 2), (3, 3), "conv0")
+    body = sym.Pooling(data=body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                       pool_type="max", name="pool0")
+    for i, n_units in enumerate(units):
+        nf = filter_list[i + 1]
+        for j in range(n_units):
+            name = f"stage{i + 1}_unit{j + 1}"
+            stride = (1, 1) if i == 0 or j > 0 else (2, 2)
+            act1 = sym.Activation(
+                data=sym.BatchNorm(data=body, name=name + "_bn1", **BN),
+                act_type="relu", name=name + "_relu1")
+            conv1 = cbr(act1, nf // 4, (1, 1), (1, 1), (0, 0),
+                        name + "_conv1")
+            conv2 = cbr(conv1, nf // 4, (3, 3), stride, (1, 1),
+                        name + "_conv2")
+            conv3 = sym.Convolution(data=conv2, num_filter=nf, kernel=(1, 1),
+                                    stride=(1, 1), pad=(0, 0), no_bias=True,
+                                    workspace=256, name=name + "_conv3")
+            shortcut = body if j else sym.Convolution(
+                data=act1, num_filter=nf, kernel=(1, 1), stride=stride,
+                no_bias=True, workspace=256, name=name + "_sc")
+            body = conv3 + shortcut
+    relu1 = sym.Activation(data=sym.BatchNorm(data=body, name="bn1", **BN),
+                           act_type="relu", name="relu1")
+    pool1 = sym.Pooling(data=relu1, global_pool=True, kernel=(7, 7),
+                        pool_type="avg", name="pool1")
+    fc1 = sym.FullyConnected(data=sym.Flatten(data=pool1),
+                             num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(data=fc1, name="softmax")
+
+
+def fused_names(units):
+    """{plain ResNet parameter name: fused configuration's}: gamma, beta
+    and the moving statistics of each fused triple move from the
+    BatchNorm's name to the convolution's (4 x 33 = 132 for ResNet-50)."""
+    pairs = [("bn0", "conv0")]
+    for i, n_units in enumerate(units):
+        for j in range(n_units):
+            name = f"stage{i + 1}_unit{j + 1}"
+            pairs += [(name + "_bn2", name + "_conv1"),
+                      (name + "_bn3", name + "_conv2")]
+    return {f"{src}_{k}": f"{dst}_{k}" for src, dst in pairs
+            for k in ("gamma", "beta", "moving_mean", "moving_var")}
+
+
+def _renamed(params):
+    names = fused_names(RESNET50["units"])
+    return {names.get(k, k): v for k, v in params.items()}
+
+
+def _fused50(mx):
+    return fused_resnet(mx.sym, **RESNET50)
+
+
+def _cbr_shapes(mx, batch):
+    """The output shapes of the fused ResNet-50's 33 FusedConvBNReLU
+    nodes at ``batch`` images: the shapes both kernels see on the path."""
+    sym = _fused50(mx)
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(batch,) + TRAIN_IMAGE)
+    known = dict(zip(sym.list_arguments(), arg_shapes))
+    known.update(zip(sym.list_auxiliary_states(), aux_shapes))
+    entries = sym._infer_entry_shapes(known)
+    return [tuple(entries[id(n)][0]) for n in sym._topo_nodes()
+            if n.op == "FusedConvBNReLU"]
+
+
+def _step_recorder():
+    """A batch_end_callback that synchronizes the card and keeps the wall
+    clock and the fit's ``mfu.achieved_flops_per_sec`` gauge (None while
+    telemetry is off) at each batch's end: returns (callback, stamps,
+    rates)."""
+    import torch
+    from mxnet_tpu_torch.telemetry import metrics
+    stamps, rates = [], []
+
+    def step_end(_param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        g = metrics.get_metric("mfu.achieved_flops_per_sec")
+        rates.append(None if g is None else g.value)
+    return step_end, stamps, rates
+
+
+class _HandOffStamps:
+    """A DataIter seen through a clock: keeps the time at which each batch
+    is handed to ``fit``. From there to the batch's end callback is the
+    work that ``fit``'s ``module.fit.batch`` span times (forward, backward,
+    update, to completion) plus the metric update, and not the iterator's
+    host copy of the next batch, which the span leaves out."""
+
+    def __init__(self, it):
+        self._it, self.stamps = it, []
+
+    def __getattr__(self, name):
+        return getattr(self._it, name)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._it)
+        self.stamps.append(time.perf_counter())
+        return batch
+
+
+@contextlib.contextmanager
+def _telemetry(mx):
+    """Telemetry on (its registry cleared) for one fit: the batch spans
+    synchronize the card, and the fit sets its MFU gauges."""
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    try:
+        yield
+    finally:
+        mx.telemetry.disable()
+
+
+def _mfu_readings(mx, mod, it, batch_ms, rates, label):
+    """Print the four MFU readings ``Module.fit`` set while telemetry was
+    on, and hold them to the script's own count: ``mfu.flops_per_step``
+    is ``cost_table``'s train FLOPs; the p50 of the per-batch
+    ``mfu.achieved_flops_per_sec`` (``rates``, the first batch excluded)
+    lies within MFU_RTOL of those FLOPs plus the optimizer update's over
+    the p50 of the script's own batch times (``batch_ms``: hand-off to
+    batch end, the same batches). The step time between end callbacks
+    also holds the iterator's host copy of the batch, which the span
+    leaves out, and which varies with the load on a shared host."""
+    import numpy as np
+    from mxnet_tpu_torch.ops.cost import optimizer_flops
+    from mxnet_tpu_torch.telemetry import metrics, mfu
+    table = mfu.cost_table(mod.symbol, dict(list(it.provide_data) +
+                                            list(it.provide_label)))
+    n_params = sum(int(np.prod(v.shape)) for v in mod.get_params()[0].values())
+    flops = table["train_flops"] + optimizer_flops(
+        type(mod._optimizer).__name__, n_params)
+    got = {k: metrics.get_metric(k) for k in (
+        "mfu.model", "mfu.flops_per_step", "mfu.node_coverage",
+        "mfu.achieved_flops_per_sec")}
+    if any(g is None for g in got.values()):
+        raise AssertionError(f"{label}: MFU gauges missing: {got}")
+    got = {k: g.value for k, g in got.items()}
+    own = flops / (float(np.percentile(batch_ms, 50)) / 1e3)
+    off = float(np.percentile(rates[1:], 50)) / own - 1
+    print(f"{label}: mfu.model={got['mfu.model']:.5f} (of the bf16 peak, "
+          f"{BF16_FLOPS_PER_S:.3g} FLOP/s) mfu.flops_per_step="
+          f"{got['mfu.flops_per_step']:.6g} mfu.node_coverage="
+          f"{got['mfu.node_coverage']:.3f} mfu.achieved_flops_per_sec="
+          f"{got['mfu.achieved_flops_per_sec']:.6g} (last batch; p50 over "
+          f"the batches {100 * off:+.1f}% from the script's FLOPs per step "
+          f"{flops:.6g} over the p50 batch, hand-off to end, "
+          f"{np.percentile(batch_ms, 50):.2f} ms = {own:.6g} FLOP/s, limit "
+          f"{100 * MFU_RTOL:.0f}%)")
+    if got["mfu.flops_per_step"] != table["train_flops"] or \
+            abs(off) > MFU_RTOL or got["mfu.node_coverage"] != 1.0:
+        raise AssertionError(f"{label}: MFU readings disagree with the "
+                             "script's count")
+
+
 def phase_train(mx, ck):
     """ResNet-50 through Module.fit on gpu(0). Returns (launch counts of
     the fit, the bound module for the profile phase)."""
-    import numpy as np
     import torch
     print(_tf32(True) + " (PyTorch's default, for the training phases)")
     X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
@@ -807,46 +1101,61 @@ def phase_train(mx, ck):
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(mx.initializer.Xavier(
         rng=torch.Generator().manual_seed(SEED)))
-    args, _ = mod.get_params()
-    before = {k: args[k].asnumpy() for k in ("conv0_weight", "fc1_weight")}
-    stamps = []
-
-    def step_end(_param):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-    metric = mx.metric.create(["acc", "ce"])
-    torch.cuda.synchronize()
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer_params=SGD,
-            batch_end_callback=step_end)
-    counts = ck.launch_counts()
-    steps = np.diff(stamps) * 1e3          # the first batch excluded
-    print(f"train: ResNet-50 {TRAIN_IMAGE} batch {TRAIN_BATCH}, "
-          f"{len(stamps)} steps in {time.perf_counter() - t0:.2f} s "
-          f"(first {1e3 * (stamps[0] - t0):.1f} ms); without the first: "
-          f"{TRAIN_BATCH * len(steps) / (steps.sum() / 1e3):.1f} img/s, "
-          f"step p50 {np.percentile(steps, 50):.2f} ms p99 "
-          f"{np.percentile(steps, 99):.2f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    per_step = {k: v / len(stamps) for k, v in counts.items()}
-    print(f"train: launches per step {per_step}")
-    n_params = len(args)
-    want = {"softmax": 1, "softmax_ce_bwd": 1, "sgd_mom": n_params}
+    print(f"train: ResNet-50 {TRAIN_IMAGE} batch {TRAIN_BATCH}")
+    counts, per_step = _fit_phase(mx, ck, mod, it, "train", TRAIN_BATCH,
+                                  "img", ("conv0_weight", "fc1_weight"),
+                                  optimizer_params=SGD)
+    want = {"softmax": 1, "softmax_ce_bwd": 1,
+            "sgd_mom": len(mod.get_params()[0])}
     for k, v in want.items():
         if per_step[k] != v:
             raise AssertionError(f"{k}: {per_step[k]} launches per step, "
                                  f"want {v}")
+    return counts, mod, it
+
+
+def _fit_phase(mx, ck, mod, it, label, items, unit, watch, **fit_kw):
+    """Fit the bound, initialized ``mod`` over ``it`` on the card for one
+    epoch with telemetry on: prints items/s and p50/p99 step ms without
+    the first batch, peak device memory, the MFU readings, launches per
+    step and the train metric; requires a finite loss and the ``watch``
+    parameters moved. Returns (launches of the fit, launches per step)."""
+    import numpy as np
+    import torch
+    args, _ = mod.get_params()
+    before = {k: args[k].asnumpy() for k in watch}
+    step_end, stamps, rates = _step_recorder()
+    metric = mx.metric.create(["acc", "ce"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    fed = _HandOffStamps(it)
+    t0 = time.perf_counter()
+    with _telemetry(mx):
+        mod.fit(fed, num_epoch=1, eval_metric=metric,
+                batch_end_callback=step_end, **fit_kw)
+    counts = ck.launch_counts()
+    steps = np.diff(stamps) * 1e3          # the first batch excluded
+    batches = (np.subtract(stamps, fed.stamps) * 1e3)[1:]
+    print(f"{label}: {len(stamps)} steps in {time.perf_counter() - t0:.2f} "
+          f"s (first {1e3 * (stamps[0] - t0):.1f} ms); without the first: "
+          f"{items * len(steps) / (steps.sum() / 1e3):.1f} {unit}/s, step "
+          f"p50 {np.percentile(steps, 50):.2f} ms p99 "
+          f"{np.percentile(steps, 99):.2f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _mfu_readings(mx, mod, it, batches, rates, label)
+    per_step = {k: v / len(stamps) for k, v in counts.items()}
+    print(f"{label}: launches per step {per_step}")
     names, values = metric.get()
-    print(f"train: {dict(zip(names, values))}")
+    print(f"{label}: {dict(zip(names, values))}")
     if not np.isfinite(values[1]):
-        raise AssertionError("the training loss is not finite")
+        raise AssertionError(f"{label}: the training loss is not finite")
     for k, v in before.items():
         moved = float(np.abs(args[k].asnumpy() - v).max())
-        print(f"train: {k} moved by up to {moved:.3g}")
+        print(f"{label}: {k} moved by up to {moved:.3g}")
         if not moved > 0:
-            raise AssertionError(f"{k} did not move")
-    return counts, mod, it
+            raise AssertionError(f"{label}: {k} did not move")
+    return counts, per_step
 
 
 def _one_step(mx, sym, args, auxs, ctx, X, y, optimizer_params):
@@ -861,25 +1170,35 @@ def _one_step(mx, sym, args, auxs, ctx, X, y, optimizer_params):
             {k: v.asnumpy() for k, v in x.items()})
 
 
-def phase_train_parity(mx):
-    """One ResNet-50 step at batch 2, card vs CPU, TF32 off."""
-    import numpy as np
+def _resnet50_start(mx, batch):
+    """ResNet-50's Xavier (seed SEED) parameters and aux states, numpy,
+    and ``batch`` images with labels (seed SEED + 1)."""
     import torch
-    print(_tf32(False) + " (parity phase)")
-    sym = _resnet50(mx)
-    X, y = _images(2, SEED + 1)
-    init = mx.mod.Module(sym, context=mx.cpu())
+    X, y = _images(batch, SEED + 1)
+    init = mx.mod.Module(_resnet50(mx), context=mx.cpu())
     init.bind([("data", X.shape)], [("softmax_label", y.shape)])
     init.init_params(mx.initializer.Xavier(
         rng=torch.Generator().manual_seed(SEED)))
     args, auxs = ({k: v.asnumpy() for k, v in d.items()}
                   for d in init.get_params())
+    return args, auxs, X, y
+
+
+def _step_parity(mx, sym, args, auxs, X, y, label,
+                 cpu_scope=contextlib.nullcontext):
+    """One SGD step of ``sym`` on the card and on the CPU (inside
+    ``cpu_scope()``) from the same parameters: the forward (probabilities,
+    moving statistics) within FWD_TOL, the updated weights within
+    SPREAD_FACTOR times the CPU's own spread under a 1e-6 relative
+    perturbation of the starting weights."""
+    import numpy as np
     rs = np.random.RandomState(SEED + 2)
     nudged = {k: (v * (1 + 1e-6 * rs.randn(*v.shape))).astype(np.float32)
               for k, v in args.items()}
     t0 = time.perf_counter()
-    cpu = _one_step(mx, sym, args, auxs, mx.cpu(), X, y, SGD)
-    spread = _one_step(mx, sym, nudged, auxs, mx.cpu(), X, y, SGD)
+    with cpu_scope():
+        cpu = _one_step(mx, sym, args, auxs, mx.cpu(), X, y, SGD)
+        spread = _one_step(mx, sym, nudged, auxs, mx.cpu(), X, y, SGD)
     t_cpu = time.perf_counter() - t0
     gpu = _one_step(mx, sym, args, auxs, mx.gpu(0), X, y, SGD)
     prob_err = float(np.abs(gpu[0] - cpu[0]).max())
@@ -893,14 +1212,22 @@ def phase_train_parity(mx):
         ratio = d / (SPREAD_FACTOR * floor + 1e-5)
         if ratio > worst:
             worst, worst_k = ratio, (k, d, floor)
-    print(f"parity: one step at batch 2 (CPU steps {t_cpu:.1f} s): max "
-          f"|prob card - cpu| = {prob_err:.3g} (limit {FWD_TOL}); max "
+    print(f"{label}: one step at batch {len(X)} (CPU steps {t_cpu:.1f} s): "
+          f"max |prob card - cpu| = {prob_err:.3g} (limit {FWD_TOL}); max "
           f"relative |aux card - cpu| = {aux_err:.3g} (limit {FWD_TOL}); "
           f"max |arg card - cpu| = {arg_err:.3g}; worst array {worst_k[0]}: "
           f"{worst_k[1]:.3g} against the CPU's 1e-6 spread {worst_k[2]:.3g}"
           f" (limit {SPREAD_FACTOR} x spread + 1e-5, ratio {worst:.3f})")
     if not (prob_err <= FWD_TOL and aux_err <= FWD_TOL and worst <= 1.0):
-        raise AssertionError("card and CPU training steps disagree")
+        raise AssertionError(f"{label}: card and CPU training steps "
+                             "disagree")
+
+
+def phase_train_parity(mx):
+    """One ResNet-50 step at batch 2, card vs CPU, TF32 off."""
+    print(_tf32(False) + " (parity phase)")
+    args, auxs, X, y = _resnet50_start(mx, 2)
+    _step_parity(mx, _resnet50(mx), args, auxs, X, y, "parity")
 
 
 def phase_adam(mx, ck):
@@ -932,7 +1259,7 @@ def phase_adam(mx, ck):
 _PORT_KERNELS = ("softmax_warp_f32", "softmax_block_f32", "softmax_ce_bwd_f32",
                  "sgd_mom_f32", "adam_f32", "ln_fwd_f32", "bias_gelu_",
                  "emb_gather", "decode_attn", "ln_bwd_dx_f32", "ln_dparams_",
-                 "flash_fwd_f32")
+                 "flash_fwd_f32", "bn_stats_", "bn_apply_relu_")
 
 
 def _kernel_group(key):
@@ -1015,7 +1342,6 @@ def _lm_symbol(seq):
 def phase_lm_train(mx, ck):
     """The transformer LM at the bench's full width through Module.fit
     on gpu(0). Returns (launch counts of the fit, module, iterator)."""
-    import numpy as np
     import torch
     from mxnet_tpu_torch.models import transformer as tfm
     print(_tf32(True) + " (PyTorch's default, for the LM training phase)")
@@ -1024,47 +1350,16 @@ def phase_lm_train(mx, ck):
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(mx.initializer.Xavier(
         rng=torch.Generator().manual_seed(SEED)))
-    args, _ = mod.get_params()
     watch = ("lm_tok_embed_weight", "lm_l0_qkv_weight", "lm_l0_ln1_beta",
              f"lm_l{N_LAYER - 1}_ffn2_weight", "lm_ln_f_gamma")
-    before = {k: args[k].asnumpy() for k in watch}
-    stamps = []
-
-    def step_end(_param):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-    metric = mx.metric.create(["acc", "ce"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
-            optimizer_params=LM_SGD, batch_end_callback=step_end)
-    counts = ck.launch_counts()
-    steps = np.diff(stamps) * 1e3          # the first batch excluded
-    tokens = LM_BATCH * LM_SEQ
     print(f"lm train: V={V} d_model={D} {N_LAYER} layers {N_HEAD} heads "
-          f"T={LM_SEQ} batch {LM_BATCH}, {len(stamps)} steps in "
-          f"{time.perf_counter() - t0:.2f} s (first "
-          f"{1e3 * (stamps[0] - t0):.1f} ms); without the first: "
-          f"{tokens * len(steps) / (steps.sum() / 1e3):.1f} tokens/s, step "
-          f"p50 {np.percentile(steps, 50):.2f} ms p99 "
-          f"{np.percentile(steps, 99):.2f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    per_step = {k: v / len(stamps) for k, v in counts.items()}
-    print(f"lm train: launches per step {per_step}")
+          f"T={LM_SEQ} batch {LM_BATCH}")
+    counts, per_step = _fit_phase(mx, ck, mod, it, "lm train",
+                                  LM_BATCH * LM_SEQ, "tokens", watch,
+                                  optimizer="sgd", optimizer_params=LM_SGD)
     want = {k: LM_PER_STEP.get(k, 0) for k in counts}
     if per_step != want:
         raise AssertionError(f"LM launches per step {per_step}, want {want}")
-    names, values = metric.get()
-    print(f"lm train: {dict(zip(names, values))}")
-    if not np.isfinite(values[1]):
-        raise AssertionError("the LM training loss is not finite")
-    for k, v in before.items():
-        moved = float(np.abs(args[k].asnumpy() - v).max())
-        print(f"lm train: {k} moved by up to {moved:.3g}")
-        if not moved > 0:
-            raise AssertionError(f"{k} did not move")
     return counts, mod, it
 
 
@@ -1167,12 +1462,68 @@ def _quant_request(i, rng):
     return {"data": rng.rand(1 + i % 3, *TRAIN_IMAGE).astype(np.float32)}
 
 
+def _serve_ladder(mx, ck, mod, name, kernels, **serve_kw):
+    """Serve ``mod`` through mx.serve.serve at ladder QUANT_RUNGS on a
+    real clock and answer QUANT_REQS scripted requests of 1-3 rows, one
+    every QUANT_GAP_S. The libraries of ``kernels`` are unloaded first
+    (phase 2 loaded every library), so that the ladder's warmup must load
+    them again and a zero ``compiles_since_warmup`` after it means warmup
+    ran them. Returns (server, libraries loaded by warmup, forwards run
+    (warmup's 2 per rung included), {kernel: launches}, outputs)."""
+    import numpy as np
+    _unload(ck, kernels)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = mx.serve.serve(mod, name=name, ladder=QUANT_RUNGS,
+                            clock=_PacedClock(), start=False, **serve_kw)
+    warm_s = time.perf_counter() - t0
+    warm_loads = server.engine(name).warmup_compiles
+    handles, submit = [], server.submit
+
+    def keep(*a, **k):
+        handles.append(submit(*a, **k))
+        return handles[-1]
+    server.submit = keep        # run_scripted's submits, kept
+    now = server._clock.now()
+    summary = mx.serve.run_scripted(
+        server, [now + i * QUANT_GAP_S for i in range(QUANT_REQS)],
+        _quant_request)
+    server.submit = submit
+    counts = ck.launch_counts()
+    stats = server.stats()
+    m = stats["models"][name]
+    forwards = 2 * len(QUANT_RUNGS) + m["dispatches"]
+    ran = {k: counts[k] for k in kernels}
+    print(f"serve {name}: bound + warmed in {warm_s:.2f} s; "
+          f"{summary['completed']} of {summary['offered']} requests, "
+          f"{summary['req_per_sec']} req/s, latency ms p50 "
+          f"{summary['latency_ms']['p50']} p99 "
+          f"{summary['latency_ms']['p99']}; {m['dispatches']} dispatches"
+          f", batch_occupancy {m['batch_occupancy']}, padding_waste_pct "
+          f"{m['padding_waste_pct']}, kernel libraries loaded by "
+          f"warmup {warm_loads}, compiles_since_warmup "
+          f"{stats['compiles_since_warmup']}; exec_est_ms "
+          f"{m['exec_est_ms']}; launches {ran} over {forwards} forwards "
+          "(warmup included)")
+    if stats["compiles_since_warmup"] != 0:
+        raise AssertionError(f"{name}: kernels built after warmup")
+    if summary["completed"] != QUANT_REQS or summary["errors"]:
+        raise AssertionError(f"{name}: {summary}")
+    outs = [h.result(timeout=0)[0].asnumpy() for h in handles]
+    for i, o in enumerate(outs):
+        if o.shape != (1 + i % 3, TRAIN_CLASSES) or not np.isfinite(o).all():
+            raise AssertionError(f"{name}: request {i} answered {o.shape}, "
+                                 f"finite {np.isfinite(o).all()}")
+    return server, warm_loads, forwards, ran, outs
+
+
 def phase_quant_serve(mx, ck):
     """ResNet-50 (1000 classes, 3x224x224, Xavier seed 0) bound on gpu(0)
     and served through mx.serve.serve at ladder QUANT_RUNGS three times:
     float32, int8, fp8. Each serves QUANT_REQS scripted requests of 1-3
     rows, one every QUANT_GAP_S. Returns (the module, the quantized
-    kernels' launches over the int8 and fp8 runs, {tier: server})."""
+    kernels' launches over the int8 and fp8 runs, {tier: server}, the
+    float32 ladder's outputs)."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.ops import quant
@@ -1190,63 +1541,17 @@ def phase_quant_serve(mx, ck):
     outs, launches, servers = {}, dict.fromkeys(QUANT_KERNELS, 0), {}
     for tier in (None, "int8", "fp8"):
         name = tier or "float32"
-        # the kernel phase loaded every library already: unload the two
-        # quantized kernels' so that this ladder's warmup must load them
-        # again, and the zero read after it means the warmup ran them
-        _unload(ck, QUANT_KERNELS)
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        server = mx.serve.serve(mod, name=name, ladder=QUANT_RUNGS,
-                                compute_dtype=tier, clock=_PacedClock(),
-                                start=False)
-        warm_s = time.perf_counter() - t0
-        warm_loads = server.engine(name).warmup_compiles
-        handles, submit = [], server.submit
-
-        def keep(*a, submit=submit, handles=handles, **k):
-            handles.append(submit(*a, **k))
-            return handles[-1]
-        server.submit = keep        # run_scripted's submits, kept
-        now = server._clock.now()
-        summary = mx.serve.run_scripted(
-            server, [now + i * QUANT_GAP_S for i in range(QUANT_REQS)],
-            _quant_request)
-        counts = ck.launch_counts()
-        stats = server.stats()
-        m = stats["models"][name]
-        forwards = 2 * len(QUANT_RUNGS) + m["dispatches"]
-        ran = {k: counts[k] for k in QUANT_KERNELS}
-        print(f"quant serve {name}: bound + warmed in {warm_s:.2f} s; "
-              f"{summary['completed']} of {summary['offered']} requests, "
-              f"{summary['req_per_sec']} req/s, latency ms p50 "
-              f"{summary['latency_ms']['p50']} p99 "
-              f"{summary['latency_ms']['p99']}; {m['dispatches']} dispatches"
-              f", batch_occupancy {m['batch_occupancy']}, padding_waste_pct "
-              f"{m['padding_waste_pct']}, kernel libraries loaded by "
-              f"warmup {warm_loads}, compiles_since_warmup "
-              f"{stats['compiles_since_warmup']}; exec_est_ms "
-              f"{m['exec_est_ms']}; launches {ran} over {forwards} forwards "
-              "(warmup included)")
-        if stats["compiles_since_warmup"] != 0:
-            raise AssertionError(f"{name}: kernels built after warmup")
+        server, warm_loads, forwards, ran, outs[name] = _serve_ladder(
+            mx, ck, mod, name, QUANT_KERNELS, compute_dtype=tier)
         if warm_loads != (len(QUANT_KERNELS) if tier else 0):
             raise AssertionError(f"{name}: warmup loaded {warm_loads} "
                                  "kernel libraries")
-        if summary["completed"] != QUANT_REQS or summary["errors"]:
-            raise AssertionError(f"{name}: {summary}")
         for k in QUANT_KERNELS:
             want = per_fwd[k] * forwards if tier else 0
             if ran[k] != want:
                 raise AssertionError(f"{name}: {k} launched {ran[k]} "
                                      f"times, want {want}")
             launches[k] += ran[k]
-        outs[name] = [h.result(timeout=0)[0].asnumpy() for h in handles]
-        for i, o in enumerate(outs[name]):
-            if o.shape != (1 + i % 3, TRAIN_CLASSES) or \
-                    not np.isfinite(o).all():
-                raise AssertionError(f"{name}: request {i} answered "
-                                     f"{o.shape}, finite "
-                                     f"{np.isfinite(o).all()}")
         servers[name] = server
     for tier, tol in (("int8", quant.INT8_TOL), ("fp8", quant.FP8_TOL)):
         worst = max(float(np.abs(q - f).max())
@@ -1261,7 +1566,7 @@ def phase_quant_serve(mx, ck):
                    for q, f in zip(outs[tier], outs["float32"])):
             raise AssertionError(f"{tier} outputs leave {tol} of the float "
                                  "ladder's")
-    return mod, launches, servers
+    return mod, launches, servers, outs["float32"]
 
 
 def phase_quant_parity(mx, mod, servers):
@@ -1376,6 +1681,227 @@ def phase_quant_profile(servers, steps=8):
                   f"{count / steps:6.1f} launches/dispatch  {key[:90]}")
 
 
+def phase_fused_train(mx, ck):
+    """The fused ResNet-50 through Module.fit on gpu(0): phase 5's data,
+    Xavier seed and SGD, batch 32, 8 batches, telemetry on. Returns the
+    fit's launch counts."""
+    import torch
+    print(_tf32(True) + " (PyTorch's default, for the fused training "
+          "phase)")
+    X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
+    it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+    mod = mx.mod.Module(_fused50(mx), context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    counts, per_step = _fit_phase(
+        mx, ck, mod, it, "fused train", TRAIN_BATCH, "img",
+        ("conv0_weight", "conv0_gamma", "stage4_unit3_conv2_beta",
+         "fc1_weight"), optimizer_params=SGD)
+    n_cbr = sum(n.op == "FusedConvBNReLU" for n in mod.symbol._topo_nodes())
+    n_params = len(mod.get_params()[0])
+    want = dict.fromkeys(counts, 0)
+    want.update(bn_stats=n_cbr, bn_apply_relu=n_cbr, softmax=1,
+                softmax_ce_bwd=1, sgd_mom=n_params)
+    print(f"fused train: want per step {n_cbr} bn_stats and "
+          f"bn_apply_relu, 1 softmax, 1 softmax_ce_bwd, {n_params} sgd_mom"
+          " (one per parameter array), nothing else")
+    if per_step != want:
+        raise AssertionError(f"fused launches per step {per_step}, want "
+                             f"{want}")
+    return counts
+
+
+@contextlib.contextmanager
+def _cuda_variant_on_cpu(mx):
+    """FusedConvBNReLU's CPU forward replaced by its CUDA variant (the
+    autograd.Function, whose kernels are their plain halves on CPU
+    tensors), so the CPU side computes what the card does: the one-pass
+    variance forward, the plain recompute backward."""
+    op = mx.ops.get_op("FusedConvBNReLU")
+    plain = op.forward
+    op.forward = op.variants["cuda"]["fn"]
+    try:
+        yield
+    finally:
+        op.forward = plain
+
+
+def phase_fused_parity(mx, ck):
+    """Phase 6 for the fused net, from phase 6's parameters renamed: one
+    step at batch 2, card vs CPU (the CUDA variant's Function on CPU
+    tensors), TF32 off; then the fused and plain nets' inference forward
+    on the card."""
+    import numpy as np
+    print(_tf32(False) + " (fused parity phase)")
+    p_args, p_auxs, X, y = _resnet50_start(mx, 2)
+    args, auxs = _renamed(p_args), _renamed(p_auxs)
+    ck.reset_launch_counts()
+    _step_parity(mx, _fused50(mx), args, auxs, X, y, "fused parity",
+                 cpu_scope=lambda: _cuda_variant_on_cpu(mx))
+    ran = {k: ck.launch_counts()[k] for k in CBR_KERNELS}
+    print(f"fused parity: the card's step launched {ran}")
+    if not all(ran.values()):
+        raise AssertionError("the fused step ran without its kernels")
+    # Xavier leaves every BatchNorm at mean 0, variance 1, gamma 1, beta
+    # 0, where the two nets' arithmetic coincides bit for bit: the
+    # inference forwards are compared from statistics and affine
+    # parameters drawn at random instead
+    rs = np.random.RandomState(SEED + 9)
+    p_args = {k: ((1 + 0.2 * rs.randn(*v.shape)) if k.endswith("_gamma")
+                  else 0.2 * rs.randn(*v.shape) if k.endswith("_beta")
+                  else v).astype(np.float32) for k, v in p_args.items()}
+    p_auxs = {k: (0.2 * rs.randn(*v.shape) if k.endswith("_mean")
+                  else 1 + 0.5 * rs.rand(*v.shape)).astype(np.float32)
+              for k, v in p_auxs.items()}
+    probs = []
+    for s, a, x in ((_fused50(mx), _renamed(p_args), _renamed(p_auxs)),
+                    (_resnet50(mx), p_args, p_auxs)):
+        m = mx.mod.Module(s, context=mx.gpu(0))
+        m.bind([("data", X.shape)], [("softmax_label", y.shape)],
+               for_training=False)
+        m.init_params(arg_params=mx.convert.params_from_numpy(a, mx.gpu(0)),
+                      aux_params=mx.convert.params_from_numpy(x, mx.gpu(0)))
+        m.forward(mx.io.DataBatch([X], None), is_train=False)
+        probs.append(m.get_outputs()[0].asnumpy())
+    err = float(np.abs(probs[0] - probs[1]).max())
+    z = [_centered_log(p) for p in probs]
+    z_err = float(np.abs(z[0] - z[1]).max()) / float(np.abs(z[1]).max())
+    print(f"fused parity: inference forward on the card, fused vs plain "
+          f"from renamed parameters with random BatchNorm statistics and "
+          f"affine: max |prob| difference {err:.3g} (limit {FUSED_TOL}); "
+          f"centered logits {z_err:.3g} of their largest magnitude "
+          f"{float(np.abs(z[1]).max()):.4g} apart (not gated); max prob "
+          f"{float(probs[1].max()):.4g}")
+    if not err <= FUSED_TOL:
+        raise AssertionError("fused and plain inference forwards disagree")
+
+
+def phase_fused_serve(mx, ck, plain_mod, plain_outs):
+    """The fused ResNet-50 served through mx.serve.serve at ladder
+    QUANT_RUNGS with phase 12's scripted requests, from phase 12's
+    parameters renamed; its outputs against the float32 ladder's. Returns
+    (the fused kernels' launches, the server)."""
+    import numpy as np
+    print(_tf32(True) + " (fused serving phase)")
+    rung = QUANT_RUNGS[-1]
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in plain_mod.get_params())
+    mod = mx.mod.Module(_fused50(mx), context=mx.gpu(0))
+    mod.bind([("data", (rung,) + TRAIN_IMAGE)], [("softmax_label", (rung,))],
+             for_training=False)
+    mod.init_params(
+        arg_params=mx.convert.params_from_numpy(_renamed(args), mx.gpu(0)),
+        aux_params=mx.convert.params_from_numpy(_renamed(auxs), mx.gpu(0)))
+    n_cbr = sum(n.op == "FusedConvBNReLU" for n in mod.symbol._topo_nodes())
+    server, warm_loads, forwards, ran, outs = _serve_ladder(
+        mx, ck, mod, "fused", CBR_KERNELS)
+    if warm_loads != 1:
+        raise AssertionError(f"fused serve: warmup loaded {warm_loads} "
+                             "libraries, want bn_apply_relu's")
+    if ran != {"bn_stats": 0, "bn_apply_relu": n_cbr * forwards}:
+        raise AssertionError(f"fused serve: launches {ran}, want 0 "
+                             f"bn_stats and {n_cbr} bn_apply_relu per "
+                             "forward")
+    worst = max(float(np.abs(o - p).max()) for o, p in zip(outs, plain_outs))
+    print(f"fused serve: max |prob - float32 ladder's| = {worst:.3g} "
+          f"(limit {FUSED_TOL})")
+    if not worst <= FUSED_TOL:
+        raise AssertionError("fused and plain ladders disagree")
+    return ran, server
+
+
+def _cbr_group(key):
+    if "bn_stats_" in key or "bn_apply_relu_" in key:
+        return "bn_stats + bn_apply_relu"
+    if any(k in key for k in _PORT_KERNELS):
+        return "other port kernels"
+    if key.startswith("Memcpy") or key.startswith("Memset"):
+        return "copies"
+    if "at::native" in key:
+        return "PyTorch elementwise/reduction"
+    return "cuDNN/cuBLAS"
+
+
+def _profiled(fn, steps):
+    """(wall ms per call, device-busy ms per call, launches per call,
+    {group: (ms per call, launches per call)}) of ``steps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    groups = {}
+    for e in prof.key_averages():
+        us = _self_device_us(e)
+        if us > 0:
+            t, c = groups.get(_cbr_group(e.key), (0.0, 0))
+            groups[_cbr_group(e.key)] = (t + us / 1e3 / steps,
+                                         c + e.count / steps)
+    busy = sum(t for t, _ in groups.values())
+    return wall, busy, sum(c for _, c in groups.values()), groups
+
+
+def phase_fused_profile(mx, fused_server, plain_server, steps=2):
+    """Fused vs plain ResNet-50 under the profiler: training steps at
+    batch 32 in turns (plain, fused, fused, plain; ``steps`` each, so 4
+    per net), then 8 rung-8 dispatches of each ladder. Device busy,
+    launches, and device time by group."""
+    import numpy as np
+    import torch
+    print(_tf32(True) + " (fused profile phase)")
+    X, y = _images(TRAIN_BATCH, SEED + 8)
+    batch = mx.io.DataBatch([X], [y])
+    mods = {}
+    for name, sym in (("plain", _resnet50(mx)), ("fused", _fused50(mx))):
+        m = mx.mod.Module(sym, context=mx.gpu(0))
+        m.bind([("data", X.shape)], [("softmax_label", y.shape)])
+        m.init_params(mx.initializer.Xavier(
+            rng=torch.Generator().manual_seed(SEED)))
+        m.init_optimizer(optimizer_params=SGD)
+        mods[name] = m
+
+    def step(m):
+        m.forward_backward(batch)
+        m.update()
+    runs = {"plain": [], "fused": []}
+    for name in ("plain", "fused", "fused", "plain"):
+        runs[name].append(_profiled(lambda m=mods[name]: step(m), steps))
+    Xs = np.random.RandomState(SEED + 7).rand(QUANT_RUNGS[-1], *TRAIN_IMAGE) \
+        .astype(np.float32)
+
+    def dispatch(server):
+        h = server.submit({"data": Xs})
+        if server.pump() != 1:
+            raise AssertionError("a full-rung request did not dispatch")
+        h.result(timeout=0)
+    for name, server in (("plain", plain_server), ("fused", fused_server)):
+        runs[name + " serve"] = [_profiled(lambda s=server: dispatch(s), 8)]
+    for name, rr in runs.items():
+        n = len(rr)
+        wall = sum(r[0] for r in rr) / n
+        busy = sum(r[1] for r in rr) / n
+        launches = sum(r[2] for r in rr) / n
+        unit = "dispatch" if "serve" in name else "step"
+        print(f"fused profile: {name}, {n * (8 if 'serve' in name else steps)}"
+              f" {unit}s: wall {wall:.2f} ms/{unit}, device busy {busy:.3f} "
+              f"ms/{unit} ({100 * busy / wall:.1f}% of wall), "
+              f"{launches:.1f} kernel launches per {unit}")
+        groups = {}
+        for r in rr:
+            for g, (t, c) in r[3].items():
+                t0, c0 = groups.get(g, (0.0, 0.0))
+                groups[g] = (t0 + t / n, c0 + c / n)
+        for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"  group {g}: {t:.3f} ms/{unit} ({100 * t / busy:.1f}% "
+                  f"of device time), {c:.1f} launches/{unit}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1408,16 +1934,22 @@ def main():
                         gemm_flops=_lm_gemm_flops())
     del lm_mod, lm_it
     torch.cuda.empty_cache()
-    q_mod, quant_counts, q_servers = phase_quant_serve(mx, ck)
+    q_mod, quant_counts, q_servers, float_outs = phase_quant_serve(mx, ck)
     phase_quant_parity(mx, q_mod, q_servers)
     phase_quant_profile(q_servers)
-    for server in q_servers.values():
+    cbr_counts = phase_fused_train(mx, ck)
+    phase_fused_parity(mx, ck)
+    cbr_serve_counts, f_server = phase_fused_serve(mx, ck, q_mod, float_outs)
+    phase_fused_profile(mx, f_server, q_servers["float32"])
+    for server in list(q_servers.values()) + [f_server]:
         server.stop()
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
     launches.update(quant_counts)
+    launches.update({k: cbr_counts[k] + cbr_serve_counts[k]
+                     for k in CBR_KERNELS})
     kernels = []
     for name in ck.KERNELS:
         r = rec[name]

@@ -6,14 +6,17 @@ JAX package. It keeps the JAX package's module names so each counterpart
 is easy to find. Its entry points run on the card (``gpu(0)`` is the
 default context) unless the caller passes ``mx.cpu()``.
 
-Four slices are ported: the decode-serving path (the transformer LM of
+Five slices are ported: the decode-serving path (the transformer LM of
 ``models.transformer`` served by ``serve.serve_decoder``), the
 single-device training path (``mod.Module.fit`` over the image
 classifiers of ``models``, ResNet-50 first, with SGD-momentum or Adam,
-and over the transformer LM), and one-shot serving
+and over the transformer LM, with the per-batch telemetry and MFU
+accounting of ``telemetry.mfu``), one-shot serving
 (``serve.serve(module)``) in float32 or the int8 / fp8 quantized tiers
-(``ops/quant.py``). The TPU kernels on those paths are rewritten as CUDA
-C++ for sm_90a (``ops/cuda_kernels.py``, sources under ``csrc/``).
+(``ops/quant.py``), and ``FusedConvBNReLU`` graphs (ResNet-50 with its
+Conv -> BatchNorm -> ReLU triples fused) through both. The TPU kernels
+on those paths are rewritten as CUDA C++ for sm_90a
+(``ops/cuda_kernels.py``, sources under ``csrc/``).
 """
 from . import base
 from .base import MXNetError

@@ -9,16 +9,34 @@ epoch-end callbacks given the current parameters, and an optional
 loop are not ported yet, and ``fit`` refuses each of them by name:
 ``spmd``, ``zero_stage``, ``steps_per_dispatch`` > 1, ``remat``,
 ``health``, ``elastic``, ``checkpoint`` / ``resume`` and ``monitor``.
+
+Per-batch telemetry, as in the JAX package: with the span tracer enabled
+each batch is a ``module.fit.batch`` span (histogram
+``module.fit.batch.seconds``), counts in ``module.fit.batches``, records a
+``batch_end`` event and sets the MFU gauges (``mfu.achieved_flops_per_sec``
+and, on a card ``telemetry.mfu.PEAKS`` knows, ``mfu.model``) from the
+step's FLOPs, which ``telemetry.mfu.cost_table`` and the optimizer's
+update count once per ``fit``. One difference the card forces: CUDA
+launches return before the work is done, so on a CUDA binding the span
+closes after ``torch.cuda.synchronize()`` — its duration is the batch's
+time to completion, not its enqueue time. With the tracer off (the
+default) the loop adds no synchronization and notes each batch in the
+flight-recorder ring.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+import numpy as np
+import torch
+
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..model import BatchEndParam
+from ..ops.cost import optimizer_flops
 
 __all__ = ["BaseModule"]
 
@@ -94,6 +112,7 @@ class BaseModule:
                          allow_missing=allow_missing, force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        self._mfu_profile = self._build_mfu_profile(train_data)
         eval_metric = metric_mod.create(eval_metric)
         validation_metric = validation_metric or eval_metric
 
@@ -101,8 +120,8 @@ class BaseModule:
             start = time.time()
             eval_metric.reset()
             for nbatch, batch in enumerate(train_data):
-                self.forward_backward(batch)
-                self.update()
+                self._fit_batch(epoch, nbatch, batch,
+                                getattr(train_data, "batch_size", 0))
                 self.update_metric(eval_metric, batch.label)
                 if batch_end_callback is not None:
                     _fire(batch_end_callback,
@@ -126,6 +145,84 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def _fit_batch(self, epoch, nbatch, batch, batch_size):
+        """One training batch with its telemetry (see the module's
+        docstring)."""
+        traced = _telemetry.enabled()
+        batch_span = _telemetry.span(
+            "module.fit.batch", _hist="module.fit.batch.seconds",
+            epoch=epoch, nbatch=nbatch)
+        t0 = time.perf_counter_ns()
+        with batch_span:
+            self.forward_backward(batch)
+            self.update()
+            dev = self._bound_device()
+            if traced and dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if traced:
+            _telemetry.counter("module.fit.batches").inc()
+            _telemetry.record_event(
+                "batch_end", epoch=epoch, nbatch=nbatch,
+                duration_us=batch_span.dur, batch_size=batch_size)
+            self._note_mfu(batch_span.dur)
+        else:
+            _telemetry.flightrec.note(
+                "module.fit.batch", epoch=epoch, nbatch=nbatch,
+                dur_us=(time.perf_counter_ns() - t0) // 1000,
+                batch_size=batch_size)
+
+    def _bound_device(self):
+        """The torch device of the (one) bound context, or None."""
+        ctxs = getattr(self, "_context", None)
+        return ctxs[0].torch_device() if ctxs else None
+
+    def _build_mfu_profile(self, train_data):
+        """(train FLOPs per batch, peak FLOP/s or None): the op cost
+        metadata folded over the bound graph plus the optimizer's update
+        — the per-batch MFU gauges' numerator and denominator. Also sets
+        ``mfu.node_coverage``, ``mfu.flops_per_step`` (the graph's train
+        FLOPs, without the update) and the per-op ``mfu.op.*`` gauges.
+        None when the graph's shapes cannot be inferred from the data's
+        (the gauges then stay unset rather than guessed). The peak is the
+        bound card's, from ``telemetry.mfu.PEAKS``; None on the CPU."""
+        sym = self.symbol
+        if sym is None:
+            return None
+        shapes = {name: tuple(shape) for name, shape in
+                  list(train_data.provide_data) +
+                  list(train_data.provide_label or [])}
+        try:
+            table = _telemetry.mfu.cost_table(sym, shapes, train=True)
+        except MXNetError:
+            return None
+        flops = table["train_flops"]
+        if not flops:
+            return None
+        opt = getattr(self, "_optimizer", None)
+        if opt is not None:
+            n_params = sum(int(np.prod(a.shape)) for a in
+                           (getattr(self, "_arg_params", None) or {}).values())
+            flops += optimizer_flops(type(opt).__name__, n_params)
+        dev = self._bound_device()
+        peak = None
+        if dev is not None and dev.type == "cuda":
+            peak, _bw = _telemetry.mfu.device_peaks(
+                torch.cuda.get_device_name(dev))
+        _telemetry.mfu.record_gauges(table, train=True)
+        return flops, peak
+
+    def _note_mfu(self, dur_us):
+        """The per-batch MFU gauges: train FLOPs over the measured batch
+        time, and that rate over the card's peak where one is known."""
+        prof = getattr(self, "_mfu_profile", None)
+        if not prof or not dur_us:
+            return
+        flops, peak = prof
+        rate = flops / (dur_us / 1e6)
+        _telemetry.gauge("mfu.achieved_flops_per_sec").set(rate)
+        if peak:
+            _telemetry.gauge("mfu.model").set(rate / peak)
 
     # ------------------------------------------------------------ evaluation
     def score(self, eval_data, eval_metric, num_batch=None,

@@ -6,3 +6,4 @@ from . import loss  # noqa: F401 — registers the loss heads
 from . import optimizer_op  # noqa: F401 — registers the update ops
 from . import quant  # noqa: F401 — registers the quantized ops
 from . import cuda_kernels  # noqa: F401 — CUDA kernels + their variants
+from . import cost  # noqa: F401 — seeds the ops' cost metadata

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
-``rtc.py``'s flash-attention kernel). Twelve kernels, each a CUDA C++
+``rtc.py``'s flash-attention kernel). Sixteen kernels, each a CUDA C++
 source under ``mxnet_tpu_torch/csrc/``:
 
 =========================  ==================================================  ===================
@@ -21,14 +21,18 @@ wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          s
 ``flash_attention``        ``_flash_kernel`` of ``mxnet_tpu/rtc.py``           flash_attention.cu
 ``qfc_matmul``             ``_qfc_kernel`` of ``mxnet_tpu/ops/quant.py``       qfc_matmul.cu
 ``dequant_rows``           ``_dequant_rows_kernel`` of ``ops/quant.py``        dequant_rows.cu
+``bn_stats``               ``_bn_stats_kernel`` (``_pl_channel_stats``)        bn_stats.cu
+``bn_apply_relu``          ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
 =========================  ==================================================  ===================
 
 The first four serve the decode path; with the ones from
 ``layernorm_bwd_dx`` to ``flash_attention`` they train the transformer LM;
 softmax / cross-entropy and the optimizer updates serve every training
-path; the last two serve the quantized tiers (``QuantizedFullyConnected``
-and ``QuantizedConvolution``), each with one C entry point per weight
-storage type (int8, float8_e4m3fn). Each source carries a note on what
+path; ``qfc_matmul`` and ``dequant_rows`` serve the quantized tiers
+(``QuantizedFullyConnected`` and ``QuantizedConvolution``), each with one
+C entry point per weight storage type (int8, float8_e4m3fn); the last two
+are the BatchNorm-and-ReLU half of ``FusedConvBNReLU``, in training and
+inference. Each source carries a note on what
 bounds it on the card and what its design does about that. Beside each wrapper sits its
 plain PyTorch version (``*_plain``), which computes the same function the
 way the TPU kernel does; the CPU tests hold it against the JAX package,
@@ -42,7 +46,9 @@ rule); FusedBiasGeLU's is ``bias_gelu_dx`` plus a plain column sum for
 the bias, as the JAX package leaves that sum to XLA; Embedding's is a
 plain float32 ``index_add_`` of ``ct * scale`` (``embedding_bwd_plain``),
 the counterpart of ``_emb_bwd_rule``, which is no kernel in the JAX
-package either.
+package either. FusedConvBNReLU's backward recomputes its plain
+composition and differentiates it, as the JAX package's does: it has no
+backward kernel there either.
 
 Dispatch is by device and nothing else: a wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel (building it
@@ -79,7 +85,7 @@ import torch
 from ..base import MXNetError, parse_bool, parse_float
 from .loss import softmax_ce_grad, softmax_output, softmax_rows
 from .nn import _INV_SQRT2, _convolution as nn_convolution, \
-    bias_gelu as nn_bias_gelu
+    bias_gelu as nn_bias_gelu, cbr_plain
 from .optimizer_op import adam_step, sgd_mom_step
 from .quant import dequantize, qfc_matmul_plain
 from .registry import get_op
@@ -96,7 +102,9 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "bias_gelu_dx_plain", "flash_attention", "flash_attention_plain",
            "embedding_bwd_plain", "layernorm_fn", "bias_gelu_fn",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
-           "dequant_rows_plain", "launch_counts", "reset_launch_counts",
+           "dequant_rows_plain", "bn_stats", "bn_stats_plain",
+           "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
+           "conv_bn_relu_fn", "launch_counts", "reset_launch_counts",
            "libraries_loaded", "KERNELS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -139,6 +147,10 @@ _SPECS = {
                      {"int8": "mx_dequant_rows_i8_f32",
                       "e4m3": "mx_dequant_rows_e4m3_f32"},
                      [_P, _P, _P, _I, _I, _P]),
+    "bn_stats": ("bn_stats.cu", "mx_bn_stats_f32",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "bn_apply_relu": ("bn_apply_relu.cu", "mx_bn_apply_relu_f32",
+                      [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 KERNELS = tuple(_SPECS)
 
@@ -934,6 +946,171 @@ def dequant_rows(wq2, scale):
 
 dequant_rows.launches = 0
 
+# ==========================================================================
+# 15. BatchNorm channel statistics (FusedConvBNReLU, training)
+# 16. BatchNorm apply + ReLU (FusedConvBNReLU)
+# ==========================================================================
+def bn_stats_plain(x4):
+    """Per-channel (sum, sum of squares) over every axis of x4 (N, C, H, W)
+    but the channel, in float32: ``_pl_channel_stats``' function."""
+    x = x4.to(torch.float32)
+    return x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))
+
+
+def _check_nchw(name, x4):
+    if x4.ndim != 4:
+        raise MXNetError(f"{name}: want x (N, C, H, W), got "
+                         f"{tuple(x4.shape)}")
+
+
+#: floats of one channel that one first-stage block of ``bn_stats`` sums
+_STATS_SLICE = 8192
+
+
+def _stats_slices(n, hw):
+    """(rows per slice, slices) of ``bn_stats``' first stage: whole (n, c)
+    rows, about ``_STATS_SLICE`` floats a slice, at most 65535 slices; a
+    function of the shape alone, so repeated calls sum in one order."""
+    rows = min(n, max(1, -(-_STATS_SLICE // max(hw, 1))))
+    rows = max(rows, -(-n // 65535), 1)
+    return rows, max(1, -(-n // rows))
+
+
+def bn_stats(x4):
+    """Per-channel (sum, sum of squares) of x4 (N, C, H, W) float32 -> two
+    (C,) float32. A deterministic two-stage reduction: one call, one
+    launch count."""
+    if not _cpu_or_cuda("bn_stats", x4):
+        return bn_stats_plain(x4)
+    _check("bn_stats", x=(x4, torch.float32))
+    _check_nchw("bn_stats", x4)
+    n, c, h, w = x4.shape
+    rows, slices = _stats_slices(n, h * w)
+    if rows * h * w + 256 >= 2 ** 31:
+        raise MXNetError(f"bn_stats: {rows} rows of {h * w} floats exceed "
+                         "a first-stage slice's 32-bit index")
+    part = torch.empty((2, slices, c), dtype=torch.float32, device=x4.device)
+    s = torch.empty((c,), dtype=torch.float32, device=x4.device)
+    sq = torch.empty((c,), dtype=torch.float32, device=x4.device)
+    _launch("bn_stats", x4, x4.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), s.data_ptr(), sq.data_ptr(), n, c, h * w,
+            rows, slices)
+    bn_stats.launches += 1
+    return s, sq
+
+
+bn_stats.launches = 0
+
+
+def bn_apply_relu_plain(x4, scale, shift):
+    """``max(x4 * scale[c] + shift[c], 0)`` over x4 (N, C, H, W) in
+    float32, the product and the sum rounded separately:
+    ``_pl_apply_bn_relu``' function."""
+    bshape = (1, -1, 1, 1)
+    z = x4.to(torch.float32) * scale.reshape(bshape) + shift.reshape(bshape)
+    return torch.maximum(z, torch.zeros((), dtype=z.dtype, device=z.device))
+
+
+def bn_apply_relu(x4, scale, shift):
+    """``max(x4 * scale[c] + shift[c], 0)``: x4 (N, C, H, W), scale and
+    shift (C,), float32 -> (N, C, H, W), bit for bit the plain version's."""
+    if not _cpu_or_cuda("bn_apply_relu", x4):
+        return bn_apply_relu_plain(x4, scale, shift)
+    _check("bn_apply_relu", x=(x4, torch.float32),
+           scale=(scale, torch.float32), shift=(shift, torch.float32))
+    _check_nchw("bn_apply_relu", x4)
+    n, c, h, w = x4.shape
+    if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
+        raise MXNetError(f"bn_apply_relu: scale and shift must be ({c},), "
+                         f"got {tuple(scale.shape)}, {tuple(shift.shape)}")
+    y = torch.empty_like(x4)
+    _launch("bn_apply_relu", x4, x4.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), y.data_ptr(), n, c, h * w)
+    bn_apply_relu.launches += 1
+    return y
+
+
+bn_apply_relu.launches = 0
+
+
+def _cbr_scale_shift(attrs, gamma, mean, var, beta):
+    """The per-channel scale and shift of the apply pass, on (C,) vectors
+    in float32: ``scale = gamma / sqrt(var + eps)``, ``shift = beta - mean
+    * scale`` (gamma read as ones under ``fix_gamma``)."""
+    if parse_bool(attrs.get("fix_gamma", True)):
+        gamma = torch.ones_like(gamma)
+    scale = torch.rsqrt(var + parse_float(attrs.get("eps", 1e-3))) * \
+        gamma.to(torch.float32)
+    return scale, beta.to(torch.float32) - mean * scale
+
+
+def conv_bn_relu(attrs, data, weight, gamma, beta, moving_mean, moving_var,
+                 is_train):
+    """FusedConvBNReLU's forward through the two kernels, as the JAX
+    package's ``_cbr_pallas_impl``: the convolution (cuDNN on the card),
+    then in training without ``use_global_stats`` ``bn_stats`` and the
+    one-pass biased variance ``max(sq / cnt - mean^2, 0)`` with the
+    momentum update of the moving statistics, else the moving statistics;
+    then ``bn_apply_relu``. Returns (y, new_moving_mean, new_moving_var)."""
+    conv = nn_convolution(attrs, data, weight).contiguous()
+    if is_train and not parse_bool(attrs.get("use_global_stats", False)):
+        n, _c, h, w = conv.shape
+        cnt = float(n * h * w)
+        s, sq = bn_stats(conv)
+        mean = s / cnt
+        var = torch.clamp(sq / cnt - mean * mean, min=0.0)
+        momentum = parse_float(attrs.get("momentum", 0.9))
+        new_mean = momentum * moving_mean + (1 - momentum) * mean
+        new_var = momentum * moving_var + (1 - momentum) * var
+    else:
+        mean, var = moving_mean, moving_var
+        new_mean, new_var = moving_mean, moving_var
+    scale, shift = _cbr_scale_shift(attrs, gamma, mean, var, beta)
+    return bn_apply_relu(conv, scale, shift), new_mean, new_var
+
+
+class _ConvBNReLUFn(torch.autograd.Function):
+    """Forward: ``conv_bn_relu`` (the two kernels). Backward: the JAX
+    package's ``bwd`` of ``_cbr_make`` — no backward kernel exists there,
+    so the plain composition (``cbr_plain``: convolution, BatchNorm with
+    its two-pass statistics, ReLU) is recomputed and differentiated with
+    respect to data, weight, gamma and beta; the moving statistics get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, data, weight, gamma, beta, moving_mean, moving_var,
+                attrs, is_train):
+        y, new_mean, new_var = conv_bn_relu(attrs, data, weight, gamma, beta,
+                                            moving_mean, moving_var, is_train)
+        ctx.save_for_backward(data, weight, gamma, beta, moving_mean,
+                              moving_var)
+        ctx.attrs, ctx.is_train = attrs, is_train
+        ctx.mark_non_differentiable(new_mean, new_var)
+        return y, new_mean, new_var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        data, weight, gamma, beta, mm, mv = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(r)
+                      for t, r in zip((data, weight, gamma, beta), need)]
+            y, _ = cbr_plain(ctx.attrs, *leaves, mm, mv, ctx.is_train)
+            got = iter(torch.autograd.grad(
+                y, [t for t, r in zip(leaves, need) if r], gy,
+                allow_unused=True))
+        return tuple(next(got) if r else None for r in need) + \
+            (None,) * 4
+
+
+def conv_bn_relu_fn(attrs, data, weight, gamma, beta, moving_mean,
+                    moving_var, is_train):
+    """Differentiable ``conv_bn_relu``: (y, new_moving_mean,
+    new_moving_var)."""
+    return _ConvBNReLUFn.apply(data, weight, gamma, beta, moving_mean,
+                               moving_var, attrs, bool(is_train))
+
+
 _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "bias_gelu": bias_gelu, "decode_attention": decode_attention,
              "softmax": softmax, "softmax_ce_bwd": softmax_ce_bwd,
@@ -942,7 +1119,8 @@ _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "ln_bwd_dparams": layernorm_bwd_dparams,
              "bias_gelu_dx": bias_gelu_dx,
              "flash_attention": flash_attention, "qfc_matmul": qfc_matmul,
-             "dequant_rows": dequant_rows}
+             "dequant_rows": dequant_rows, "bn_stats": bn_stats,
+             "bn_apply_relu": bn_apply_relu}
 
 
 # ==========================================================================
@@ -1014,12 +1192,28 @@ def _qconv_cuda(attrs, inputs, aux, is_train, rng):
                            inputs[3] if len(inputs) > 3 else None)], []
 
 
+def _cbr_cuda(attrs, inputs, aux, is_train, rng):
+    """FusedConvBNReLU on the card: the two BatchNorm kernels around a
+    cuDNN convolution (the JAX package leaves the convolution to XLA too),
+    as an autograd.Function whose backward recomputes the plain
+    composition."""
+    data, weight, gamma, beta = inputs
+    _float32_data("FusedConvBNReLU", data)
+    if data.ndim != 4:
+        raise MXNetError(f"FusedConvBNReLU: the CUDA kernels take NCHW "
+                         f"data, got {tuple(data.shape)}")
+    y, new_mean, new_var = conv_bn_relu_fn(attrs, data, weight, gamma, beta,
+                                           aux[0], aux[1], is_train)
+    return [y], [new_mean, new_var]
+
+
 _UPDATE_BWD = ("a gradient of the update itself, which the JAX package "
                "takes through its composition")
 _QUANT_BWD = ("a gradient of a quantized op: quantized graphs are an "
               "inference tier, which the JAX package gives no gradient "
               "either")
 get_op("FusedBiasGeLU").add_variant("cuda", _bias_gelu_cuda)
+get_op("FusedConvBNReLU").add_variant("cuda", _cbr_cuda)
 get_op("Embedding").add_variant("cuda", _embedding_cuda)
 get_op("LayerNorm").add_variant("cuda", _layernorm_cuda)
 get_op("SoftmaxOutput").add_variant("cuda", _softmax_output_cuda)

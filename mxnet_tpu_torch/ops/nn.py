@@ -12,6 +12,8 @@ The image-classification layers the ResNet training path binds —
 ``Convolution`` (``F.conv*``, as ``lax.conv`` lies outside any Pallas
 kernel), ``Pooling``, ``Activation`` and ``BatchNorm`` — are the JAX
 package's compositions written in PyTorch; their backward is autograd's.
+``FusedConvBNReLU`` is those three in one op (its plain forward is their
+composition; the BatchNorm-and-ReLU half has CUDA kernels).
 """
 from __future__ import annotations
 
@@ -389,3 +391,42 @@ register("BatchNorm", inputs=("data", "gamma", "beta"),
                     "output_mean_var": (parse_bool, False)},
          infer_shape=_bn_infer)
 alias("CuDNNBatchNorm", "BatchNorm")
+
+
+# --------------------------------------------------------------------------
+# FusedConvBNReLU
+# --------------------------------------------------------------------------
+def cbr_plain(attrs, data, weight, gamma, beta, moving_mean, moving_var,
+              is_train):
+    """The JAX package's ``_cbr_xla_impl``: Convolution (no bias) ->
+    BatchNorm -> ReLU through this module's own compositions, so the fused
+    op computes bit for bit what the three ops compute. Returns (y,
+    [new_moving_mean, new_moving_var])."""
+    conv = _convolution(attrs, data, weight)
+    outs, new_aux = _bn_fwd(attrs, [conv, gamma, beta],
+                            [moving_mean, moving_var], is_train, None)
+    return torch.maximum(outs[0], torch.zeros((), dtype=outs[0].dtype,
+                                              device=outs[0].device)), new_aux
+
+
+def _cbr_forward(attrs, inputs, aux, is_train, rng):
+    data, weight, gamma, beta = inputs
+    y, new_aux = cbr_plain(attrs, data, weight, gamma, beta, aux[0], aux[1],
+                           is_train)
+    return [y], new_aux
+
+
+def _cbr_infer(attrs, in_shapes):
+    new_in, out_s, _ = _conv_infer(dict(attrs, no_bias=True), in_shapes[:2])
+    c = (parse_int(attrs["num_filter"]),)
+    return [new_in[0], new_in[1], c, c], out_s, [c, c]
+
+
+_CBR_ATTRS = {k: v for k, v in _CONV_ATTRS.items() if k != "no_bias"}
+_CBR_ATTRS.update({"eps": (parse_float, 1e-3),
+                   "momentum": (parse_float, 0.9),
+                   "fix_gamma": (parse_bool, True),
+                   "use_global_stats": (parse_bool, False)})
+register("FusedConvBNReLU", inputs=("data", "weight", "gamma", "beta"),
+         aux=("moving_mean", "moving_var"), full=_cbr_forward,
+         attr_spec=_CBR_ATTRS, infer_shape=_cbr_infer)

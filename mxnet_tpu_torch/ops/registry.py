@@ -20,11 +20,19 @@ version.
 Gradients: a plain forward is differentiable through PyTorch's autograd
 (the loss heads are ``torch.autograd.Function``s with the JAX package's
 custom backward). A ``"cuda"`` variant is differentiable when it is an
-``autograd.Function`` whose backward is a kernel too; one whose backward
-kernel is not ported yet is registered with ``backward_pending`` naming
-that kernel, and ``dispatch`` refuses to run it on inputs that require
-grad — its output would carry no autograd history, and the gradient
-would be lost without a word.
+``autograd.Function`` whose backward is a kernel too, or — where the JAX
+package has no backward kernel and recomputes its composition under
+``jax.custom_vjp`` (``attention``, ``FusedConvBNReLU``) — whose backward
+recomputes the plain composition and differentiates it. One whose
+backward kernel is not ported yet is registered with ``backward_pending``
+naming that kernel, and ``dispatch`` refuses to run it on inputs that
+require grad — its output would carry no autograd history, and the
+gradient would be lost without a word.
+
+Cost metadata: ``flops(attrs, in_shapes)`` and ``bytes_moved(attrs,
+in_shapes)`` estimate one forward execution at those input shapes
+(``ops/cost.py`` seeds them; ``telemetry/mfu.py`` folds them over a bound
+graph into the MFU figures).
 """
 from __future__ import annotations
 
@@ -79,6 +87,8 @@ class OpDef:
                  variants=None, stateful_infer=False, aux_dtypes=None,
                  is_loss=False, mutate_inputs=()):
         self.name = name
+        self.flops = None           # cost metadata: ops/cost.py seeds it
+        self.bytes_moved = None
         self.is_loss = bool(is_loss)
         self.mutate_inputs = tuple(mutate_inputs)
         self.forward = forward
@@ -143,6 +153,29 @@ class OpDef:
         self.variants[name] = {"fn": forward,
                                "backward_pending": backward_pending}
         return self
+
+    # --- cost metadata ------------------------------------------------------
+    def set_cost(self, flops=None, bytes_moved=None):
+        """Attach or replace cost metadata (fn(attrs, in_shapes) -> float)."""
+        if flops is not None:
+            self.flops = flops
+        if bytes_moved is not None:
+            self.bytes_moved = bytes_moved
+        return self
+
+    def has_cost(self):
+        return self.flops is not None and self.bytes_moved is not None
+
+    def cost(self, attrs, in_shapes):
+        """(flops, bytes) of one forward execution, or None when the op
+        has no metadata or the estimate fails (partial shapes)."""
+        if not self.has_cost():
+            return None
+        try:
+            return (float(self.flops(attrs, in_shapes)),
+                    float(self.bytes_moved(attrs, in_shapes)))
+        except (ValueError, TypeError, KeyError, IndexError):
+            return None
 
     def normalize_attrs(self, kwargs):
         """Parse raw kwargs/JSON strings into the typed attr dict."""

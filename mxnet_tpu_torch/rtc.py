@@ -334,3 +334,8 @@ def _register():
 
 
 _register()
+
+# rtc's ops register after ops/cost.py's import-time pass — re-seed so
+# attention / attention_decode / pallas_sgd_mom_update carry estimators
+from .ops import cost as _cost          # noqa: E402
+_cost.seed_costs()

@@ -1,13 +1,17 @@
-"""Telemetry: metrics registry, span tracer, trace plane, flight recorder.
+"""Telemetry: metrics registry, span tracer, trace plane, flight recorder,
+MFU accounting.
 
-The port carries the pieces the serving server reads and writes; the
-JAX package's exporters (chrome trace, Prometheus, JSON lines), fleet
-aggregation, memory accounting and the training-health plane come with
-later slices.
+The port carries the pieces the serving server and ``Module.fit`` read
+and write; the JAX package's exporters (chrome trace, Prometheus, JSON
+lines), fleet aggregation, memory accounting and the training-health
+plane come with later slices.
 
 * ``telemetry.metrics`` — counters, gauges, histograms (``stats()``
   reads its serving series);
-* ``telemetry.core`` — ``span`` (off by default), ``enable``/``disable``;
+* ``telemetry.core`` — ``span`` and ``event`` (off by default),
+  ``enable``/``disable``;
+* ``telemetry.mfu`` — cost tables over a bound graph, the card's peaks,
+  the ``mfu.*`` gauges ``Module.fit`` sets;
 * ``telemetry.trace`` — per-request span trees;
 * ``telemetry.flightrec`` — the always-on activity ring and crash
   reports.
@@ -22,17 +26,19 @@ Usage::
 """
 from __future__ import annotations
 
-from .core import span, enable, disable, enabled
+from .core import span, event, record_event, enable, disable, enabled
 from .metrics import (Counter, Gauge, Histogram, counter, gauge, histogram,
                       get_metric)
 from . import core
 from . import metrics
 from . import flightrec
 from . import trace
+from . import mfu
 
-__all__ = ["span", "enable", "disable", "enabled", "Counter", "Gauge",
-           "Histogram", "counter", "gauge", "histogram", "get_metric",
-           "snapshot", "reset", "core", "metrics", "flightrec", "trace"]
+__all__ = ["span", "event", "record_event", "enable", "disable", "enabled",
+           "Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
+           "get_metric", "snapshot", "reset", "core", "metrics", "flightrec",
+           "trace", "mfu"]
 
 
 def snapshot():

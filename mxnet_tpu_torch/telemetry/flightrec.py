@@ -3,7 +3,8 @@
 The port's copy of ``mxnet_tpu/telemetry/flightrec.py``: a fixed-size
 ring (``collections.deque`` with ``maxlen``) of recent activity — the
 serving server notes every registration, dispatch, breaker transition
-and shed, and finished spans and trace records are mirrored in — cheap
+and shed, ``Module.fit`` notes every batch while the span tracer is off,
+and finished spans, events and trace records are mirrored in — cheap
 enough to leave on (one dict build and one deque append per record).
 ``dump_crash`` writes the ring, the metrics registry, the CUDA devices
 and the ``MXNET_*``/``CUDA_*`` environment as one JSON file in
@@ -25,7 +26,7 @@ import threading
 import time
 import traceback
 
-__all__ = ["note", "note_span", "configure", "get_records", "clear",
+__all__ = ["note", "note_span", "note_event", "configure", "get_records", "clear",
            "dump_crash"]
 
 log = logging.getLogger(__name__)
@@ -66,6 +67,15 @@ def note_span(span):
         return
     _ring.append({"kind": "span", "name": span.name, "ts_us": span.ts,
                   "dur_us": span.dur, **span.args})
+
+
+def note_event(rec):
+    """Mirror a ``core.event()`` record (already timestamped) into the
+    ring."""
+    if not _enabled:
+        return
+    _ring.append({"kind": rec["kind"], "ts_us": rec["ts_us"],
+                  **rec["payload"]})
 
 
 def get_records():

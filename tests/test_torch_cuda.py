@@ -604,3 +604,102 @@ def test_quantized_server_on_card(dev, tier):
                                    rtol=1e-5)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# ------------------------------------------------ FusedConvBNReLU's kernels
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64, 56, 56), (8, 512, 7, 7),
+                                   (4, 8, 1, 1), (2, 3, 5, 3),
+                                   (1, 16, 12, 12), (3, 1, 6, 6),
+                                   (1, 1, 1, 1)])
+def test_bn_kernels(dev, shape):
+    """bn_stats within 1e-5 of each channel's sum of squares (float32 sums
+    in another order; the bound also holds the channel's sum, as
+    sum(x)^2 <= n sum(x^2)), bn_apply_relu bit for bit."""
+    x = 2 * _rnd(dev, *shape) + 0.5
+    (s, sq), (ps, psq) = ck.bn_stats(x), ck.bn_stats_plain(x)
+    torch.cuda.synchronize()
+    bound = 1e-5 * psq
+    assert ((s - ps).abs() <= bound).all() and \
+        ((sq - psq).abs() <= bound).all()
+    c = shape[1]
+    scale, shift = _rnd(dev, c, seed=1), _rnd(dev, c, seed=2)
+    assert torch.equal(ck.bn_apply_relu(x, scale, shift),
+                       ck.bn_apply_relu_plain(x, scale, shift))
+
+
+@pytest.mark.cuda
+def test_bn_kernels_misaligned_repeat_and_refuse(dev):
+    """A contiguous view that is only 4-byte aligned takes the scalar
+    path and still agrees; bn_stats repeats bit for bit (no atomics);
+    NaN passes through the apply pass; what the kernels do not take
+    raises."""
+    xv = _rnd(dev, 1 + 2 * 8 * 16)[1:].view(2, 8, 4, 4)
+    ones, zeros = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    assert torch.equal(ck.bn_apply_relu(xv, ones, zeros),
+                       ck.bn_apply_relu_plain(xv, ones, zeros))
+    (s, sq), (ps, psq) = ck.bn_stats(xv), ck.bn_stats_plain(xv)
+    assert ((sq - psq).abs() <= 1e-5 * psq).all()
+    x = _rnd(dev, 32, 64, 56, 56)
+    first, again = ck.bn_stats(x), ck.bn_stats(x)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    nan = torch.tensor([[[[float("nan"), -1.0]]]], device=dev)
+    one = torch.ones(1, device=dev)
+    assert ck.bn_apply_relu(nan, one, one * 0)[0, 0, 0, 0].isnan()
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.bn_stats(x.transpose(2, 3))
+    with pytest.raises(MXNetError, match="float32"):
+        ck.bn_apply_relu(x.half(), x.new_ones(64), x.new_zeros(64))
+    with pytest.raises(MXNetError, match=r"\(N, C, H, W\)"):
+        ck.bn_stats(x[0])
+    with pytest.raises(MXNetError, match="scale and shift"):
+        ck.bn_apply_relu(x, x.new_ones(63), x.new_zeros(63))
+    with pytest.raises(MXNetError, match="CUDA tensor"):
+        ck.bn_apply_relu(x, torch.ones(64), torch.zeros(64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_train", [True, False])
+@pytest.mark.parametrize("extra", [{"fix_gamma": False}, {"fix_gamma": True},
+                                   {"use_global_stats": True}],
+                         ids=["gamma", "fix_gamma", "global_stats"])
+def test_fused_op_on_card(dev, is_train, extra):
+    """FusedConvBNReLU's CUDA variant on the card against the same
+    autograd.Function on CPU tensors (where its kernels are their plain
+    halves), TF32 off: output and new moving statistics within 2e-5,
+    gradients of data, weight, gamma and beta within 1e-4 (float32
+    convolutions sum in another order); the kernels launched."""
+    op = mx.ops.get_op("FusedConvBNReLU")
+    attrs = op.normalize_attrs(dict(kernel=(3, 3), num_filter=16,
+                                    pad=(1, 1), stride=(2, 2), eps=2e-5,
+                                    **extra))
+    make = [(4, 8, 15, 15), (16, 8, 3, 3), (16,), (16,), (16,), (16,)]
+    arrays = [_rnd(torch.device("cpu"), *s, seed=i) for i, s in
+              enumerate(make)]
+    arrays[1] = 0.2 * arrays[1]
+    arrays[5] = arrays[5].abs() + 0.5                 # moving variance
+    ct = _rnd(torch.device("cpu"), 4, 16, 8, 8, seed=9)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    before = ck.launch_counts()
+    res = {}
+    try:
+        for where in (dev, torch.device("cpu")):
+            ins = [a.to(where).requires_grad_(True) for a in arrays[:4]]
+            (y,), aux = op.variants["cuda"]["fn"](
+                attrs, ins, [a.to(where) for a in arrays[4:]], is_train,
+                None)
+            grads = torch.autograd.grad(y, ins, ct.to(where),
+                                        allow_unused=True)
+            res[where.type] = [y.detach().cpu()] + [a.cpu() for a in aux] + \
+                [torch.zeros_like(a) if g is None else g.cpu()
+                 for g, a in zip(grads, arrays)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    after = ck.launch_counts()
+    train_stats = is_train and not extra.get("use_global_stats")
+    assert after["bn_apply_relu"] == before["bn_apply_relu"] + 1
+    assert after["bn_stats"] == before["bn_stats"] + int(train_stats)
+    for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+        tol = 2e-5 if i < 3 else 1e-4
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
