@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes its path gives it and at edge shapes, and time kernel, device,
    plain version and — where one PyTorch call computes the same function
    — that library call (the BatchNorm pair over the fused ResNet-50
-   step's 33 conv outputs at batch 32, and edges);
+   step's 33 conv outputs at batch 32, and edges; the flash-decode
+   kernel's fp8 instances over float8_e4m3fn and float8_e5m2 cells at
+   S = 1, 4, 64, Dh 64 and 128, cursors 0 / mid / C - S and NaN cells,
+   after ``rtc.fp8_cast`` gave the same bytes on the card as on the CPU);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -100,7 +103,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (plain, fused, fused, plain; 2 each) and 8 rung-8 dispatches of each
    ladder: device busy, launches, and device time by group (cuDNN / the
    BatchNorm pair / the port's other kernels / PyTorch elementwise /
-   copies).
+   copies);
+19. chunked prefill: phase 3's model through ``serve_decoder(symbol_gen=,
+   prefill_chunk=64)`` at ladder [1, 4, 8], 8 prompts of 65-150 tokens and
+   64 new tokens each, submitted at once and pumped on a real clock, then
+   the same at ``prefill_chunk=1``: every dispatch (the S=64 windows too)
+   launches the decode kernels exactly once per layer, each request's
+   dispatches and TTFT side by side, greedy chains equal (or parted at a
+   CPU near-tie), one S=64 window's logits card vs CPU within LOGIT_TOL;
+20. speculative decoding: phase 3's 8 requests with a 1-layer draft (the
+   target's embedding, layer 0 and final LayerNorm) at spec_k 4 against the
+   target alone: acceptance, iterations and tokens/s of both, greedy chains
+   equal (near-tie rule); a self draft accepts >= 0.95;
+21. the prefix store: ladder [4], an 8 MiB store, 8 requests of a shared
+   128-token prefix plus one distinct token: hit rate 7/8, the restored
+   rows bitwise the cold capture's, cold and warm TTFT, the
+   ``serve.decode.*`` telemetry agreeing with ``stats()``;
+22. the fp8 KV cache: phase 3's 8 requests at ladder [1, 4, 8] with float32,
+   float8_e4m3fn and float8_e5m2 cells: ``decode_attention_fp8`` launches
+   at every fp8 dispatch, the cells stay float8, tokens/s beside float32;
+   one stream teacher-forced card vs CPU over the card's cells within
+   FP8_LOGIT_TOL;
+23. profile a rung-8 S=64 prefill window and a rung-8 speculative
+   iteration: wall, device busy, launches, device time by group.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
@@ -108,7 +133,9 @@ cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
 while fitting with Adam, the LayerNorm and GeLU backward kernels and
 flash attention while fitting the LM, the quantized kernels while
 serving int8 and fp8, the BatchNorm pair while fitting and serving the
-fused ResNet-50 — max abs error against the plain version, kernel /
+fused ResNet-50, ``decode_attention_fp8`` (the decode kernel's fp8
+instances) while serving the fp8 caches — max abs error against the plain
+version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
 checkout, the script exits non-zero and prints no result.
@@ -132,7 +159,8 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 # qfc_matmul's error is relative to the output's largest magnitude (it
 # sums K products in another order than cuBLAS); dequant_rows is exact
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
-       "decode_attention": 2e-5, "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
+       "decode_attention": 2e-5, "decode_attention_fp8": 2e-5,
+       "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
        "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
        "ln_bwd_dparams": 5e-4, "bias_gelu_dx": 2e-5,
        "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0,
@@ -148,6 +176,7 @@ REPLACES = {
     "layernorm": "mxnet_tpu/ops/pallas_kernels.py:585",
     "bias_gelu": "mxnet_tpu/ops/pallas_kernels.py:746",
     "decode_attention": "mxnet_tpu/ops/pallas_kernels.py:953",
+    "decode_attention_fp8": "mxnet_tpu/ops/pallas_kernels.py:953",
     "softmax": "mxnet_tpu/ops/pallas_kernels.py:104",
     "softmax_ce_bwd": "mxnet_tpu/ops/pallas_kernels.py:112",
     "sgd_mom": "mxnet_tpu/ops/pallas_kernels.py:497",
@@ -192,6 +221,17 @@ BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
 FUSED_TOL = 1e-4        # fused vs plain ResNet-50 probabilities on the card
 MFU_RTOL = 0.10         # mfu.achieved_flops_per_sec vs FLOPs / p50 step
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores: mfu.model's peak
+#: the decode fast paths (phases 19-24): the prefill chunk and the verify
+#: window; 8 prompts of 65-150 tokens (more than one chunk, remainders)
+PREFILL_CHUNK, SPEC_K = 64, 4
+PREFILL_PROMPTS = [65, 150, 96, 127, 70, 140, 100, 129]
+PREFIX_LEN, PREFIX_NEW, PREFIX_MB = 128, 8, 8
+SELF_DRAFT_NEW = 24
+#: card vs CPU logits over fp8 cells: the CPU step reads the card's cells,
+#: but this step's new K/V row is cast on each side from float32 values
+#: that differ in the last bits, and a value at an fp8 rounding boundary
+#: lands one code apart (a 1/16 to 1/8 step in that element)
+FP8_LOGIT_TOL = 1e-2
 
 
 def _timed(fn, reps=200, warm=20):
@@ -367,6 +407,7 @@ def phase_kernels(mx, ck):
              "bias_gelu": lambda: ck.bias_gelu(h, hb),
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
+    calls.update(_decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1))
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
@@ -384,6 +425,70 @@ def phase_kernels(mx, ck):
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {err} > {TOL[name]}")
     return rec
+
+
+def _decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1):
+    """The flash-decode kernel's fp8 instances: the f32 row's caches cast
+    as the decode path casts them (``rtc.fp8_cast``, whose bytes on the
+    card must be its bytes on the CPU), at the served S=1 step and at the
+    S=4 (verify) and S=64 (prefill) windows; edges: cursors 0, mid and
+    C - S, a reused slot (cursor 0 over stale rows), Dh 128, NaN cells in
+    a live prefix. Timed with float8_e4m3fn at the served step (e5m2
+    printed beside). Fills ``rec``; returns the timed call."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.rtc import fp8_cast
+    dtypes = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+    edge = np.asarray([0.0, -0.0, 448.0, -448.0, 463.9, 464.0, 465.0, 1000.0,
+                       -500.0, np.nan, np.inf, -np.inf, 2.0 ** -9, 2.0 ** -10,
+                       2.0 ** -17, 1e-40, 57344.0, 61440.0], np.float32)
+    x = np.concatenate([(rs.randn(100000) * 10 ** rs.uniform(-6, 5, 100000))
+                        .astype(np.float32), edge])
+    for dt in dtypes.values():
+        card = fp8_cast(t(x), dt).view(torch.uint8).cpu()
+        host = fp8_cast(torch.from_numpy(x), dt).view(torch.uint8)
+        if not torch.equal(card, host):
+            raise AssertionError(f"fp8_cast to {dt}: card and CPU bytes "
+                                 "differ")
+    B, H, C, Dh = kc.shape
+    err = 0.0
+    for dt in dtypes.values():
+        for S, dh in ((1, Dh), (4, Dh), (64, Dh), (1, 128), (64, 128)):
+            k8, v8 = (fp8_cast(t(3 * rs.randn(B, H, C, dh)), dt)
+                      for _ in range(2))
+            q = t(rs.randn(B, H, S, dh).astype(np.float32))
+            cur = [0, (C - S) // 2, C - S, 5, 0, 1, 200 % (C - S + 1), 31]
+            pos = t(cur, torch.int32)
+            err = max(err, _max_err(ck.decode_attention(q, k8, v8, pos),
+                                    ck.decode_attention_plain(q, k8, v8,
+                                                              pos)))
+        nan = int(fp8_cast(torch.tensor([float("nan")]), dt)
+                  .view(torch.uint8))
+        k8.view(torch.uint8)[1, 0, 3, 5] = nan   # live for row 1 (mid)
+        v8.view(torch.uint8)[2, 1, 7, 9] = nan   # live for row 2 (C - S)
+        got = ck.decode_attention(q, k8, v8, pos)
+        err = max(err, _max_err(got, ck.decode_attention_plain(q, k8, v8,
+                                                               pos)))
+        if not (got[1, 0].isnan().all() and got[2, 1, :, 9].isnan().all()
+                and not got[0].isnan().any()):
+            raise AssertionError("decode_attention_fp8: NaN cells do not "
+                                 "pass through as in the plain version")
+    k8, v8 = (fp8_cast(c, dtypes["e4m3"]) for c in (kc, vc))
+    e5 = [fp8_cast(c, dtypes["e5m2"]) for c in (kc, vc)]
+    live = np.minimum(C, np.asarray([0, 1, 127, 128, 255, 63, 200, 31]) + 1)
+    print(f"kernels: decode_attention_fp8 at the served step, e5m2 "
+          f"{_timed(lambda: ck.decode_attention(q1, *e5, pos1)):.5f} ms; "
+          "fp8_cast gives the same bytes on the card and the CPU")
+    rec["decode_attention_fp8"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: ck.decode_attention(q1, k8, v8, pos1)),
+        plain_ms=_timed(lambda: ck.decode_attention_plain(q1, k8, v8, pos1)),
+        library_ms=None,    # no one PyTorch call reads fp8 K/V (SDPA
+        bound=_bound_ms(    # needs a dequantized copy first)
+            2 * q1.numel() * 4 + B * 4 + int(live.sum()) * H * Dh * 1 * 2,
+            int(live.sum()) * H * Dh * 4))
+    return {"decode_attention_fp8": lambda: ck.decode_attention(q1, k8, v8,
+                                                                pos1)}
 
 
 def _training_kernels(mx, ck, rs, t, rec):
@@ -783,7 +888,8 @@ def _decoder(mx, sym, params, ctx, slots=1):
     mod = mx.mod.Module(sym, data_names=("data",), label_names=[],
                         context=ctx)
     mod.bind([("data", (slots, 1))], None, for_training=False)
-    mod.init_params(arg_params=mx.convert.params_from_numpy(params, ctx),
+    mod.init_params(initializer=None,
+                    arg_params=mx.convert.params_from_numpy(params, ctx),
                     aux_params={}, allow_missing=True)
     return tfm.BatchedKVCacheDecoder(mod, CAP, slots=slots)
 
@@ -870,7 +976,7 @@ def phase_serve(mx, ck):
           f"cpu| = {worst:.3g} (tol {LOGIT_TOL})")
     if not worst <= LOGIT_TOL:
         raise AssertionError("card and CPU logits disagree")
-    return counts, sym, params
+    return counts, sym, params, prompts
 
 
 def phase_profile(mx, sym, params, steps=16):
@@ -1902,6 +2008,388 @@ def phase_fused_profile(mx, fused_server, plain_server, steps=2):
                   f"of device time), {c:.1f} launches/{unit}")
 
 
+# --------------------------------------------------------------------------
+# phases 19-24: decode serving's fast paths
+# --------------------------------------------------------------------------
+def _gen(n_layer=N_LAYER, cache_dtype=None):
+    """The decode graph at full width as a ``step_len -> Symbol`` factory
+    (``serve_decoder``'s ``symbol_gen``)."""
+    from mxnet_tpu_torch.models import transformer as tfm
+    return lambda s: tfm.get_decode_symbol(
+        vocab_size=V, d_model=D, n_layer=n_layer, n_head=N_HEAD,
+        capacity=CAP, per_slot=True, step_len=s, cache_dtype=cache_dtype)
+
+
+def _draft_params(params):
+    """The 1-layer draft of the same width: the target's token embedding,
+    layer 0 and final LayerNorm (random weights, as the target's)."""
+    import re
+    return {k: v for k, v in params.items()
+            if not re.match(r"lm_l\d+_", k) or k.startswith("lm_l0_")}
+
+
+def _serve_all(sched, prompts, new, **submit_kw):
+    """Submit every prompt at once and pump the scheduler to the end on
+    its real clock: (outputs, handles, wall seconds)."""
+    t0 = time.perf_counter()
+    hs = [sched.submit(p, max_new_tokens=new, **submit_kw) for p in prompts]
+    sched.pump()
+    wall = time.perf_counter() - t0
+    return [h.result(timeout=0).tolist() for h in hs], hs, wall
+
+
+def _decode_launches(label, counts, dispatches, read="decode_attention"):
+    """Every dispatch of a served run is one forward: it must have
+    launched the gather once, LayerNorm 2L + 1, GeLU L and the cache read
+    (``read``) L times — an S=64 window as much as an S=1 step."""
+    want = dict.fromkeys(counts, 0)
+    want.update(embedding=dispatches, layernorm=(2 * N_LAYER + 1) *
+                dispatches, bias_gelu=N_LAYER * dispatches)
+    want[read] = N_LAYER * dispatches
+    print(f"{label}: launches {counts} over {dispatches} dispatches")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+
+
+class _CpuRef:
+    """The full-width model on the CPU (one slot and an S=64 window), for
+    the logits after a stream: phase 3's near-tie rule for tokens on
+    which two card runs differ."""
+
+    def __init__(self, mx, params):
+        from mxnet_tpu_torch.models import transformer as tfm
+        gen, ctx = _gen(), mx.cpu()
+        base = mx.mod.Module(gen(1), data_names=("data",), label_names=[],
+                             context=ctx)
+        base.bind([("data", (1, 1))], None, for_training=False)
+        base.init_params(initializer=None,
+                         arg_params=mx.convert.params_from_numpy(params, ctx),
+                         aux_params={}, allow_missing=True)
+        win = mx.mod.Module(gen(PREFILL_CHUNK), data_names=("data",),
+                            label_names=[], context=ctx)
+        win.bind([("data", (1, PREFILL_CHUNK))], None, for_training=False,
+                 shared_module=base)
+        self.drv = tfm.BatchedKVCacheDecoder(base, CAP, slots=1)
+        self.drv.add_window(PREFILL_CHUNK, win)
+
+    def logits(self, stream):
+        """CPU logits of the token after ``stream`` (windows of 64, then
+        single tokens)."""
+        import numpy as np
+        d = self.drv
+        d.leave(0)
+        d.join(0)
+        i = 0
+        while len(stream) - i >= PREFILL_CHUNK:
+            out = d.step(np.asarray([stream[i:i + PREFILL_CHUNK]]))
+            i += PREFILL_CHUNK
+        for tok in stream[i:]:
+            out = d.step(np.asarray([[tok]]))
+        return out.asnumpy()[0, -1]
+
+
+def _same_or_near_ties(cpu_ref, prompts, got, want, label):
+    """``got`` and ``want`` are two card runs' greedy chains: equal, or at
+    the first token where a chain differs both tokens lie within LOGIT_TOL
+    of the CPU's largest logit (a float32 near-tie; after it the streams
+    legitimately part). Returns the requests that differ."""
+    parted = 0
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        parted += 1
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        z = cpu_ref.logits(list(p) + a[:i])
+        print(f"{label}: a chain parts at token {i}: {a[i]} vs {b[i]}, CPU "
+              f"logits {z[a[i]]:.6f} / {z[b[i]]:.6f}, max {z.max():.6f}")
+        if min(z[a[i]], z[b[i]]) < z.max() - LOGIT_TOL:
+            raise AssertionError(f"{label}: chains differ beyond a near-tie")
+    return parted
+
+
+def _trace_counts(mx, handle):
+    spans = mx.telemetry.trace.spans(handle.trace_id)
+    return (sum(s["name"] == "serve.decode.step" for s in spans),
+            sum(s["name"] == "serve.decode.prefill" for s in spans))
+
+
+def phase_prefill(mx, ck, params, cpu_ref):
+    """Chunked prefill at full width through serve_decoder on gpu(0):
+    ladder [1, 4, 8], 8 prompts of 65-150 tokens, 64 new each, submitted
+    at once and pumped on a real clock, at prefill_chunk 64 and 1. Every
+    dispatch launches the decode kernels (the S=64 windows too); the two
+    runs' greedy chains agree (or part at a near-tie); one S=64 window's
+    logits on the card and the CPU agree within LOGIT_TOL. Returns the
+    chunked scheduler (phase 23 profiles it)."""
+    import numpy as np
+    print(_tf32(False) + " (decode fast-path phases)")
+    rs = np.random.RandomState(SEED + 10)
+    prompts = [rs.randint(0, V, n).tolist() for n in PREFILL_PROMPTS]
+    gen, runs = _gen(), {}
+    for chunk in (PREFILL_CHUNK, 1):
+        sched = mx.serve.serve_decoder(
+            gen(1), mx.convert.params_from_numpy(params, mx.gpu(0)),
+            name=f"prefill{chunk}", capacity=CAP, ladder=LADDER,
+            context=mx.gpu(0), start=False, symbol_gen=gen,
+            prefill_chunk=chunk, prefix_cache_mb=0)
+        mx.telemetry.trace.clear()
+        ck.reset_launch_counts()
+        outs, hs, wall = _serve_all(sched, prompts, NEW)
+        st = sched.stats()
+        _decode_launches(f"prefill chunk {chunk}", ck.launch_counts(),
+                         st["iterations"])
+        per = [(len(p),) + _trace_counts(mx, h) + (h.ttft, h.ttft_exec)
+               for p, h in zip(prompts, hs)]
+        runs[chunk] = (outs, per, wall, st, sched)
+        n_tok = sum(len(o) for o in outs)
+        print(f"prefill chunk {chunk}: {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s; {st['iterations']} iterations, "
+              f"{st['prefill_chunks']} prefill chunks, exec_est_ms "
+              f"{st['exec_est_ms']}")
+    if not runs[PREFILL_CHUNK][3]["prefill_chunks"]:
+        raise AssertionError("no prefill window was dispatched")
+    print("prefill per request (prompt tokens: dispatches, prefill "
+          f"dispatches, ttft s, ttft_exec s) chunk {PREFILL_CHUNK} | chunk 1:")
+    for a, b in zip(runs[PREFILL_CHUNK][1], runs[1][1]):
+        print(f"  T={a[0]:3d}: {a[1]:3d} {a[2]:3d} {a[3]:.4f} {a[4]:.4f} | "
+              f"{b[1]:3d} {b[2]:3d} {b[3]:.4f} {b[4]:.4f}")
+    parted = _same_or_near_ties(cpu_ref, prompts, runs[PREFILL_CHUNK][0],
+                                runs[1][0], "prefill")
+    print(f"prefill: chunk {PREFILL_CHUNK} and chunk 1 greedy chains: "
+          f"{len(prompts) - parted} of {len(prompts)} equal")
+    # one S=64 window, card vs CPU, from cursor 0
+    drv = runs[PREFILL_CHUNK][4].engine.driver(1)
+    window = np.asarray([prompts[1][:PREFILL_CHUNK]])
+    drv.join(0)
+    card = drv.step(window).asnumpy()[0]
+    drv.leave(0)
+    cpu_ref.drv.leave(0)
+    cpu_ref.drv.join(0)
+    host = cpu_ref.drv.step(window).asnumpy()[0]
+    err = float(np.abs(card - host).max())
+    print(f"prefill: one S={PREFILL_CHUNK} window, max |logit card - cpu| = "
+          f"{err:.3g} (tol {LOGIT_TOL})")
+    if not err <= LOGIT_TOL:
+        raise AssertionError("card and CPU window logits disagree")
+    return runs[PREFILL_CHUNK][4]
+
+
+def phase_spec(mx, ck, params, prompts, cpu_ref):
+    """Speculative decoding at full width: phase 3's 8 prompts, 64 new
+    tokens, submitted at once, the 1-layer draft at spec_k 4 against the
+    target alone (both with chunked prefill); greedy chains agree (or
+    part at a near-tie); then a self draft (the target as its own draft)
+    must accept >= 0.95 of its proposals. Returns the speculative
+    scheduler (phase 23 profiles it)."""
+    gen = _gen()
+    common = dict(capacity=CAP, ladder=LADDER, context=mx.gpu(0),
+                  start=False, symbol_gen=gen, prefill_chunk=PREFILL_CHUNK,
+                  prefix_cache_mb=0)
+
+    def tp(p):
+        return mx.convert.params_from_numpy(p, mx.gpu(0))
+    alone = mx.serve.serve_decoder(gen(1), tp(params), name="spec-off",
+                                   **common)
+    ref, _, ref_wall = _serve_all(alone, prompts, NEW)
+    spec = mx.serve.serve_decoder(
+        gen(1), tp(params), name="spec-on", draft_symbol_gen=_gen(1),
+        draft_params=tp(_draft_params(params)), spec_k=SPEC_K, **common)
+    ck.reset_launch_counts()
+    outs, _, wall = _serve_all(spec, prompts, NEW)
+    counts = ck.launch_counts()
+    st, st_ref = spec.stats(), alone.stats()
+    n_tok = sum(len(o) for o in outs)
+    print(f"spec: 1-layer draft, spec_k {SPEC_K}: {st['spec']}; "
+          f"{st['iterations']} iterations, {n_tok / wall:.1f} tokens/s; "
+          f"target alone: {st_ref['iterations']} iterations, "
+          f"{sum(len(o) for o in ref) / ref_wall:.1f} tokens/s; launches "
+          f"{counts}")
+    if not all(counts[k] for k in DECODE_KERNELS):
+        raise AssertionError("spec: a decode kernel was not launched")
+    parted = _same_or_near_ties(cpu_ref, prompts, outs, ref, "spec")
+    print(f"spec: greedy chains equal to the target alone's in "
+          f"{len(prompts) - parted} of {len(prompts)} requests")
+    self_draft = mx.serve.serve_decoder(
+        gen(1), tp(params), name="spec-self", draft_symbol_gen=gen,
+        draft_params=tp(params), spec_k=SPEC_K, **common)
+    _serve_all(self_draft, prompts, SELF_DRAFT_NEW)
+    acc = self_draft.stats()["spec"]
+    print(f"spec: self draft, {SELF_DRAFT_NEW} new tokens: {acc}")
+    if not acc["acceptance"] >= 0.95:
+        raise AssertionError(f"self-draft acceptance {acc['acceptance']}")
+    return spec
+
+
+def phase_prefix(mx, ck, params):
+    """The prefix store at full width: ladder [4], an 8 MiB store, 8
+    requests of a shared 128-token prefix plus one distinct token each
+    (the first alone, cold; then 7 at once, warm): the hit rate is 7/8,
+    the rows each warm slot holds are bitwise the cold capture's, and
+    every dispatch launched the decode kernels."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(SEED + 11)
+    shared = rs.randint(0, V, PREFIX_LEN).tolist()
+    prompts = [shared + [int(t)] for t in rs.randint(0, V, N_REQ)]
+    gen = _gen()
+    sched = mx.serve.serve_decoder(
+        gen(1), mx.convert.params_from_numpy(params, mx.gpu(0)),
+        name="prefix", capacity=CAP, ladder=[4], context=mx.gpu(0),
+        start=False, symbol_gen=gen, prefill_chunk=PREFILL_CHUNK,
+        prefix_cache_mb=PREFIX_MB)
+    ck.reset_launch_counts()
+    _, cold, _ = _serve_all(sched, prompts[:1], PREFIX_NEW,
+                            prefix_id="shared")
+    _, warm, _ = _serve_all(sched, prompts[1:], PREFIX_NEW,
+                            prefix_id="shared")
+    st = sched.stats()
+    _decode_launches("prefix", ck.launch_counts(), st["iterations"])
+    store = st["prefix"]
+    ttft = [h.ttft_exec for h in warm]
+    print(f"prefix: {store}; ttft_exec cold {cold[0].ttft_exec:.4f} s, "
+          f"warm mean {np.mean(ttft):.4f} s (min {min(ttft):.4f}, max "
+          f"{max(ttft):.4f}); {st['iterations']} iterations")
+    if store["hits"] != N_REQ - 1 or store["misses"] != 1:
+        raise AssertionError(f"prefix hit rate {store['hit_rate']}, want "
+                             f"{N_REQ - 1}/{N_REQ}")
+    tel = {k: mx.telemetry.get_metric(f"serve.decode.{k}", model="prefix")
+           for k in ("prefix.hits", "prefix.misses", "prefix.captures",
+                     "iterations", "step.seconds")}
+    print("prefix: telemetry " + ", ".join(
+        f"serve.decode.{k}={getattr(m, 'count', None) or m.value}"
+        for k, m in tel.items()))
+    if (tel["prefix.hits"].value, tel["prefix.misses"].value,
+            tel["prefix.captures"].value, tel["step.seconds"].count) != \
+            (N_REQ - 1, 1, 1, st["iterations"]):
+        raise AssertionError("prefix: the serve.decode telemetry disagrees "
+                             "with stats()")
+    entry = sched.prefix_store.lookup("shared", prompts[0])[1]
+    drv = sched.engine.driver(4)
+    for slot in range(4):
+        rows = drv.capture_rows(slot, PREFIX_LEN)
+        for nm, r in entry.payloads["target"].items():
+            if not torch.equal(rows[nm].view(torch.uint8),
+                               r[:, :PREFIX_LEN].view(torch.uint8)):
+                raise AssertionError(f"prefix: slot {slot} {nm} is not the "
+                                     "cold capture's bytes")
+    print(f"prefix: the first {PREFIX_LEN} rows of all 4 slots are bitwise "
+          "the cold capture's")
+
+
+def phase_fp8(mx, ck, params, prompts):
+    """The fp8 KV cache at full width: phase 3's 8 prompts, 64 new tokens,
+    submitted at once, ladder [1, 4, 8], with float32, float8_e4m3fn and
+    float8_e5m2 cells: the fp8 runs launch ``decode_attention_fp8`` at
+    every dispatch (and the float32 read never), and their cells stay
+    float8. Then one stream teacher-forced on the card and the CPU, the
+    CPU step reading the card's cells. Returns the fp8 launches."""
+    import numpy as np
+    import torch
+    runs, fp8_launches = {}, 0
+    for cd in (None, "fp8", "e5m2"):
+        gen = _gen(cache_dtype=cd)
+        sched = mx.serve.serve_decoder(
+            gen(1), mx.convert.params_from_numpy(params, mx.gpu(0)),
+            name=f"cache-{cd}", capacity=CAP, ladder=LADDER,
+            context=mx.gpu(0), start=False, prefix_cache_mb=0)
+        ck.reset_launch_counts()
+        outs, _, wall = _serve_all(sched, prompts, NEW)
+        counts, st = ck.launch_counts(), sched.stats()
+        read = "decode_attention_fp8" if cd else "decode_attention"
+        _decode_launches(f"cache {cd or 'float32'}", counts,
+                         st["iterations"], read=read)
+        fp8_launches += counts["decode_attention_fp8"]
+        cells = {cell.astorch().dtype for nm, cell in
+                 sched.engine._bm._leader._exec_group.executor
+                 .aux_dict.items() if nm.endswith("_cache")}
+        n_tok = sum(len(o) for o in outs)
+        runs[cd] = outs
+        same = sum(a == b for a, b in zip(outs, runs[None]))
+        print(f"cache {cd or 'float32'}: cells {sorted(map(str, cells))}; "
+              f"{n_tok / wall:.1f} tokens/s ({st['iterations']} iterations, "
+              f"{wall:.3f} s); {same} of {len(outs)} chains equal to the "
+              "float32 cache's")
+        want = {None: torch.float32, "fp8": torch.float8_e4m3fn,
+                "e5m2": torch.float8_e5m2}[cd]
+        if cells != {want}:
+            raise AssertionError(f"cache cells {cells}, want {want}")
+    # teacher-force request 0's e4m3 stream; before each step the CPU
+    # driver takes the card's cells, so the step compares one read
+    sym = _gen(cache_dtype="fp8")(1)
+    stream = prompts[0] + runs["fp8"][0][:8]
+    gpu, cpu = (_decoder(mx, sym, params, ctx)
+                for ctx in (mx.gpu(0), mx.cpu()))
+    g_aux, c_aux = (d._mod._exec_group.executor.aux_dict for d in (gpu, cpu))
+    worst, flipped = 0.0, 0
+    for d in (gpu, cpu):
+        d.join(0)
+    for i, tok in enumerate(stream[:-1]):
+        for nm, cell in g_aux.items():
+            c_aux[nm].astorch().view(torch.uint8).copy_(
+                cell.astorch().view(torch.uint8).cpu())
+        a = gpu.step(np.asarray([[tok]])).asnumpy()[0, 0]
+        b = cpu.step(np.asarray([[tok]])).asnumpy()[0, 0]
+        flipped += sum(int((cell.astorch().view(torch.uint8).cpu() !=
+                            c_aux[nm].astorch().view(torch.uint8)).sum())
+                       for nm, cell in g_aux.items()
+                       if nm.endswith("_cache"))
+        if not np.isfinite(a).all():
+            raise AssertionError(f"fp8 step {i}: logits not finite")
+        worst = max(worst, float(np.abs(a - b).max()))
+        if i >= PROMPT - 1 and b[stream[i + 1]] < b.max() - FP8_LOGIT_TOL:
+            raise AssertionError(f"fp8: served token {stream[i + 1]} at step "
+                                 f"{i} is not the CPU argmax")
+    print(f"fp8: teacher-forced {len(stream) - 1} steps over the card's "
+          f"cells: max |logit card - cpu| = {worst:.3g} (tol "
+          f"{FP8_LOGIT_TOL}); {flipped} new cells one code apart")
+    if not worst <= FP8_LOGIT_TOL:
+        raise AssertionError("card and CPU fp8 logits disagree")
+    return fp8_launches
+
+
+def phase_fastpath_profile(mx, prefill_sched, spec_sched, steps=4):
+    """A rung-8 S=64 prefill window and a rung-8 speculative iteration
+    (4 draft steps and one S=4 verify) under the profiler: wall, device
+    busy, launches, device time by group."""
+    import types
+    import numpy as np
+    rs = np.random.RandomState(SEED + 12)
+    rows = list(range(LADDER[-1]))
+    drv = prefill_sched.engine.driver(LADDER[-1])
+    sdrv, ddrv = (e.driver(LADDER[-1]) for e in (spec_sched.engine,
+                                                  spec_sched.draft))
+    for d in (drv, sdrv, ddrv):
+        for r in rows:
+            d.join(r)
+    window = rs.randint(0, V, (LADDER[-1], PREFILL_CHUNK))
+    base = rs.randint(0, V, (LADDER[-1], 1))
+    greedy = mx.serve.SamplingParams()
+    meta = [(r, types.SimpleNamespace(sampling=greedy, rng=None))
+            for r in rows]
+
+    def prefill():
+        drv.rewind_many(rows, [0] * len(rows))
+        drv.step(window).asnumpy()
+
+    def spec_iteration():
+        for d in (sdrv, ddrv):
+            d.rewind_many(rows, [PROMPT] * len(rows))
+        spec_sched._dispatch_spec(sdrv, ddrv, base, meta, SPEC_K)
+    for label, fn in ((f"S={PREFILL_CHUNK} prefill window", prefill),
+                      (f"speculative iteration (k={SPEC_K})",
+                       spec_iteration)):
+        wall, busy, launches, groups = _profiled(fn, steps)
+        print(f"fast-path profile: rung {LADDER[-1]} {label}, {steps} "
+              f"dispatches: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}% of wall), {launches:.1f} launches")
+        for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"  group {g}: {t:.3f} ms ({100 * t / busy:.1f}%), "
+                  f"{c:.1f} launches")
+    for d in (drv, sdrv, ddrv):
+        for r in rows:
+            d.leave(r)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1921,7 +2409,7 @@ def main():
           f"cuda {torch.version.cuda}")
     smi = phase_build(ck)
     rec = phase_kernels(mx, ck)
-    serve_counts, sym, params = phase_serve(mx, ck)
+    serve_counts, sym, params, prompts = phase_serve(mx, ck)
     phase_profile(mx, sym, params)
     train_counts, train_mod, train_it = phase_train(mx, ck)
     phase_train_parity(mx)
@@ -1943,6 +2431,13 @@ def main():
     phase_fused_profile(mx, f_server, q_servers["float32"])
     for server in list(q_servers.values()) + [f_server]:
         server.stop()
+    mx.telemetry.trace.configure(capacity=1 << 16)
+    cpu_ref = _CpuRef(mx, params)
+    prefill_sched = phase_prefill(mx, ck, params, cpu_ref)
+    spec_sched = phase_spec(mx, ck, params, prompts, cpu_ref)
+    phase_prefix(mx, ck, params)
+    fp8_launches = phase_fp8(mx, ck, params, prompts)
+    phase_fastpath_profile(mx, prefill_sched, spec_sched)
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
@@ -1950,12 +2445,14 @@ def main():
     launches.update(quant_counts)
     launches.update({k: cbr_counts[k] + cbr_serve_counts[k]
                      for k in CBR_KERNELS})
+    launches["decode_attention_fp8"] = fp8_launches
     kernels = []
-    for name in ck.KERNELS:
+    for name in ck.launch_counts():
         r = rec[name]
+        lib = "decode_attention" if name == "decode_attention_fp8" else name
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"mxnet_tpu_torch/csrc/{ck._SPECS[name][0]}",
+            "source": f"mxnet_tpu_torch/csrc/{ck._SPECS[lib][0]}",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

@@ -10,25 +10,39 @@
 // cache write happen before the call, outside this kernel (mxnet_tpu_torch/
 // rtc.py), exactly as in the JAX package.
 //
+// The cache is float32 or fp8 storage (float8_e4m3fn, float8_e5m2), one
+// template instance each. An fp8 tile is read 16 bytes a thread and
+// converted to float32 in pairs while it is staged into shared memory, as
+// the TPU kernel dequantizes its cache blocks on read (astype(float32)); the
+// conversion is exact, so from the staged tile on the fp8 instances compute
+// exactly what the float32 instance computes. A score that is NaN or +inf
+// (a NaN cell, e.g. a float8_e4m3fn overflow on write, or an e5m2 infinity)
+// makes its row NaN, as it does in the plain softmax.
+//
 // Bound: bytes. Each row reads its live K and V prefix once, 2 * live * Dh
-// * 4 bytes, for 4 * S * live * Dh flops; at S=1 that is half a flop per
-// byte, far below the card's operations-per-byte line. The TPU kernel runs
-// the key blocks as a sequential grid axis with scratch carried between
-// steps, and skips dead blocks by clamping its index map; here a block owns
-// one (b, h) row and up to kSq query rows and LOOPS over the key tiles of
-// the live prefix, so dead tiles are neither read nor computed. Tiles of
-// kBk keys are staged in shared memory (K rows padded by one float so the
-// 32 lanes of a warp, one key each, hit 32 different banks); every product
-// is a float32 FMA, no tensor cores and so no TF32, matching the reference's
-// Precision.HIGHEST. The cursor is taken per (b, h) row, b-major: b = bh / H.
+// * (4 or 1) bytes, for 4 * S * live * Dh flops; at S=1 that is half a flop
+// (two flops for fp8) per byte, far below the card's operations-per-byte
+// line. The TPU kernel runs the key blocks as a sequential grid axis with
+// scratch carried between steps, and skips dead blocks by clamping its index
+// map; here a block owns one (b, h) row and up to kSq query rows and LOOPS
+// over the key tiles of the live prefix, so dead tiles are neither read nor
+// computed. Tiles of kBk keys are staged in shared memory (K rows padded by
+// one float so the 32 lanes of a warp, one key each, hit 32 different
+// banks); every product is a float32 FMA, no tensor cores and so no TF32,
+// matching the reference's Precision.HIGHEST. The cursor is taken per
+// (b, h) row, b-major: b = bh / H.
 //
 // Known limit of this first version: the grid is one block per (b, h) row
 // and query tile, so the decode path's B=8, H=8, S=1 launches 64 blocks on
 // 132 SMs and the card is not filled; splitting the key range across
 // blocks (split-K with a combine pass) is later work.
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -36,6 +50,14 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kSq = 16;        // query rows per block
 constexpr int kBk = 32;        // keys per shared-memory tile (one per lane)
+
+// fp8 storage types: the interpretation __nv_cvt_fp8x2_to_halfraw2 takes
+struct E4M3 {
+  static constexpr __nv_fp8_interpretation_t kind = __NV_E4M3;
+};
+struct E5M2 {
+  static constexpr __nv_fp8_interpretation_t kind = __NV_E5M2;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -48,13 +70,79 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int DH>
+// 16 fp8 codes (one aligned 16-byte load) -> 16 floats, converted in pairs
+// through half (exact for both fp8 formats, NaN and infinities kept)
+template <typename Fp8>
+__device__ __forceinline__ void fp8x16_to_float(uint4 raw, float* dst) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_fp8x2_storage_t pair =
+          static_cast<__nv_fp8x2_storage_t>(words[w] >> (16 * h));
+      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(pair, Fp8::kind);
+      const float2 f = __half22float2(__half2(hr));
+      dst[4 * w + 2 * h] = f.x;
+      dst[4 * w + 2 * h + 1] = f.y;
+    }
+  }
+}
+
+// Stage keys [k_start, k_start + kBk) of one (b, h) row into ks/vs, zero
+// past n_keys. float32 cache: one float a thread per step. fp8 cache: one
+// 16-byte chunk (16 codes of one row) a thread per step.
+template <int DH, typename Cache>
+__device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
+                                           int k_start, int n_keys,
+                                           float (*ks)[DH + 1],
+                                           float (*vs)[DH]) {
+  const int t = threadIdx.x;
+  if constexpr (std::is_same<Cache, float>::value) {
+    const float* kf = static_cast<const float*>(kb);
+    const float* vf = static_cast<const float*>(vb);
+    for (int e = t; e < kBk * DH; e += kThreads) {
+      const int j = e / DH, d = e % DH;
+      const int kp = k_start + j;
+      const bool in = kp < n_keys;
+      ks[j][d] = in ? kf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
+      vs[j][d] = in ? vf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
+    }
+  } else {
+    constexpr int kChunks = DH / 16;  // 16-byte chunks per cache row
+    const uint8_t* k8 = static_cast<const uint8_t*>(kb);
+    const uint8_t* v8 = static_cast<const uint8_t*>(vb);
+    for (int c = t; c < kBk * kChunks; c += kThreads) {
+      const int j = c / kChunks, d0 = (c % kChunks) * 16;
+      const int kp = k_start + j;
+      float kv[16], vv[16];
+      if (kp < n_keys) {
+        const int64_t off = static_cast<int64_t>(kp) * DH + d0;
+        fp8x16_to_float<Cache>(
+            __ldg(reinterpret_cast<const uint4*>(k8 + off)), kv);
+        fp8x16_to_float<Cache>(
+            __ldg(reinterpret_cast<const uint4*>(v8 + off)), vv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) kv[i] = vv[i] = 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        ks[j][d0 + i] = kv[i];
+        vs[j][d0 + i] = vv[i];
+      }
+    }
+  }
+}
+
+template <int DH, typename Cache>
 __global__ void __launch_bounds__(kThreads)
-decode_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const int32_t* __restrict__ pos,
-                float* __restrict__ out, int heads, int s_len, int cap,
-                float scale) {
+decode_attn(const float* __restrict__ q, const void* __restrict__ k,
+            const void* __restrict__ v, const int32_t* __restrict__ pos,
+            float* __restrict__ out, int heads, int s_len, int cap,
+            float scale) {
   constexpr int kAcc = kSq * DH / kThreads;  // accumulator entries / thread
+  constexpr int kElem = std::is_same<Cache, float>::value ? 4 : 1;
   __shared__ float qs[kSq][DH];
   __shared__ float ks[kBk][DH + 1];
   __shared__ float vs[kBk][DH];
@@ -68,8 +156,9 @@ decode_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = t >> 5;
   const int64_t cursor = pos[bh / heads];
   const float* qb = q + static_cast<int64_t>(bh) * s_len * DH;
-  const float* kb = k + static_cast<int64_t>(bh) * cap * DH;
-  const float* vb = v + static_cast<int64_t>(bh) * cap * DH;
+  const int64_t row_bytes = static_cast<int64_t>(bh) * cap * DH * kElem;
+  const void* kb = static_cast<const uint8_t*>(k) + row_bytes;
+  const void* vb = static_cast<const uint8_t*>(v) + row_bytes;
 
   // the scaled query tile; rows past S are zero and never written out
   for (int e = t; e < kSq * DH; e += kThreads) {
@@ -92,13 +181,7 @@ decode_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k_start = 0; k_start < n_keys; k_start += kBk) {
     __syncthreads();  // previous tile fully consumed (and qs/m/l ready)
-    for (int e = t; e < kBk * DH; e += kThreads) {
-      const int j = e / DH, d = e % DH;
-      const int kp = k_start + j;
-      const bool in = kp < cap;
-      ks[j][d] = in ? kb[static_cast<int64_t>(kp) * DH + d] : 0.0f;
-      vs[j][d] = in ? vb[static_cast<int64_t>(kp) * DH + d] : 0.0f;
-    }
+    stage_tile<DH, Cache>(kb, vb, k_start, n_keys, ks, vs);
     __syncthreads();
 
     // scores: warp w takes rows w, w+4, ...; lane j takes key j
@@ -111,11 +194,13 @@ decode_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
       const bool valid = s < s_len && kp < cap &&
                          static_cast<int64_t>(kp) <= cursor + s;
       sc = valid ? sc : -INFINITY;
-      // online-softmax update of row r (the TPU kernel's m/l/corr rule)
+      // online-softmax update of row r (the TPU kernel's m/l/corr rule); a
+      // live NaN or +inf score poisons the row as in the plain softmax
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(sc));
       const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      const float p = isfinite(sc) ? expf(sc - m_safe) : 0.0f;
+      const float p = isfinite(sc) ? expf(sc - m_safe)
+                      : (isnan(sc) || sc > 0.0f) ? NAN : 0.0f;
       const float corr = isfinite(m_old) ? expf(m_old - m_safe) : 0.0f;
       const float psum = warp_sum(p);
       ps[r][lane] = p;
@@ -153,33 +238,58 @@ decode_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <typename Cache>
+int launch(const void* q, const void* k, const void* v, const void* pos,
+           void* out, int batch, int heads, int s_len, int cap, int dh,
+           float scale, void* stream) {
+  if (batch * heads == 0 || s_len == 0) return 0;
+  const dim3 grid(batch * heads, (s_len + kSq - 1) / kSq);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const int32_t* pf = static_cast<const int32_t*>(pos);
+  float* of = static_cast<float*>(out);
+  if (dh == 64) {
+    decode_attn<64, Cache><<<grid, kThreads, 0, st>>>(qf, k, v, pf, of, heads,
+                                                      s_len, cap, scale);
+  } else if (dh == 128) {
+    decode_attn<128, Cache><<<grid, kThreads, 0, st>>>(qf, k, v, pf, of,
+                                                       heads, s_len, cap,
+                                                       scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q (b*h, s, dh), k/v cache (b*h, cap, dh), pos (b,) int32, out
-// (b*h, s, dh); float32, contiguous, one device. dh must be 64 or 128.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for another dh).
+// q (b*h, s, dh) float32, k/v cache (b*h, cap, dh) of the entry point's
+// storage type, pos (b,) int32, out (b*h, s, dh) float32; contiguous, one
+// device; an fp8 cache 16-byte aligned. dh must be 64 or 128. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for another dh).
 extern "C" int mx_decode_attention_f32(const void* q, const void* k,
                                        const void* v, const void* pos,
                                        void* out, int batch, int heads,
                                        int s_len, int cap, int dh,
                                        float scale, void* stream) {
-  if (batch * heads == 0 || s_len == 0) return 0;
-  const dim3 grid(batch * heads, (s_len + kSq - 1) / kSq);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int32_t* pf = static_cast<const int32_t*>(pos);
-  float* of = static_cast<float*>(out);
-  if (dh == 64) {
-    decode_attn_f32<64><<<grid, kThreads, 0, st>>>(qf, kf, vf, pf, of, heads,
-                                                    s_len, cap, scale);
-  } else if (dh == 128) {
-    decode_attn_f32<128><<<grid, kThreads, 0, st>>>(qf, kf, vf, pf, of,
-                                                     heads, s_len, cap,
-                                                     scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
+                       stream);
+}
+
+extern "C" int mx_decode_attention_e4m3(const void* q, const void* k,
+                                        const void* v, const void* pos,
+                                        void* out, int batch, int heads,
+                                        int s_len, int cap, int dh,
+                                        float scale, void* stream) {
+  return launch<E4M3>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
+                      stream);
+}
+
+extern "C" int mx_decode_attention_e5m2(const void* q, const void* k,
+                                        const void* v, const void* pos,
+                                        void* out, int batch, int heads,
+                                        int s_len, int cap, int dh,
+                                        float scale, void* stream) {
+  return launch<E5M2>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
+                      stream);
 }

@@ -14,12 +14,14 @@ set from ``mxnet_tpu`` loads unchanged.
   ``include_loss=False`` gives the logits ``(B, T, V)`` the decode parity
   tests compare against.
 * ``get_decode_symbol`` — the inference decoder: ``(B, S)`` new tokens per
-  step, per-layer K/V caches riding executor aux state.
+  step, per-layer K/V caches (float32, or fp8 storage) riding executor aux
+  state.
 * ``SyntheticLMIter`` — the synthetic next-token batches the LM trains on
   (the JAX package's numpy stream, batch for batch).
 
 ``KVCacheDecoder`` (one shared cursor) and ``BatchedKVCacheDecoder`` (one
-cursor per slot) drive a bound decode module and own what the device
+cursor per slot, plus S-token window modules for chunked prefill and
+speculative verify) drive a bound decode module and own what the device
 cannot check cheaply: host-side cursor mirrors, so capacity overflow is
 caught before dispatch without reading the device cursor back.
 """
@@ -35,7 +37,7 @@ from ..base import MXNetError
 
 __all__ = ["get_symbol", "get_decode_symbol", "SyntheticLMIter",
            "KVCacheDecoder", "BatchedKVCacheDecoder",
-           "default_cache_capacity"]
+           "default_cache_capacity", "default_cache_dtype"]
 
 
 def default_cache_capacity():
@@ -47,6 +49,13 @@ def default_cache_capacity():
         return 256
 
 
+def default_cache_dtype():
+    """Decode KV-cache storage default: ``MXNET_LM_CACHE_DTYPE`` (``fp8``
+    stores cache rows as float8_e4m3fn, cast on write and read back
+    exactly), else None for float32 cells."""
+    return os.environ.get("MXNET_LM_CACHE_DTYPE") or None
+
+
 def _proj(x, num_hidden, name, no_bias=False):
     """FullyConnected over the flattened (B*T, D) token axis."""
     flat = sym.Reshape(x, shape=(-3, 0), name=f"{name}_fold")
@@ -55,7 +64,7 @@ def _proj(x, num_hidden, name, no_bias=False):
 
 
 def _block(x, *, i, seq_len, d_model, n_head, pos_embed, rope_base, name,
-           decode=False, capacity=None, per_slot=False):
+           decode=False, capacity=None, per_slot=False, cache_dtype=None):
     """One pre-LN transformer block; ``decode=True`` swaps the full
     ``attention`` for the KV-cache ``attention_decode`` (same parameter
     names either way)."""
@@ -77,8 +86,8 @@ def _block(x, *, i, seq_len, d_model, n_head, pos_embed, rope_base, name,
     if decode:
         att = sym.attention_decode(
             q, k, v, capacity=capacity, rope=(pos_embed == "rotary"),
-            rope_base=rope_base, per_slot=per_slot, cache_dtype="",
-            name=f"{pfx}_attn")
+            rope_base=rope_base, per_slot=per_slot,
+            cache_dtype=cache_dtype or "", name=f"{pfx}_attn")
     else:
         if pos_embed == "rotary":
             q = sym.RoPE(q, base=rope_base, name=f"{pfx}_rope_q")
@@ -178,16 +187,23 @@ def get_decode_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
                       capacity=None, step_len=1, max_seq_len=None,
                       per_slot=False, cache_dtype=None, name="lm"):
     """Incremental KV-cache decoder: ``(B, step_len)`` new token ids in,
-    logits ``(B, step_len, vocab)`` out, per-layer float32 K/V caches of
+    logits ``(B, step_len, vocab)`` out, per-layer K/V caches of
     ``capacity`` positions riding executor aux state. ``per_slot=True``
     builds the slot-pooled graph (a (B, 1) cursor per slot) that
-    ``BatchedKVCacheDecoder`` and ``serve.decode`` drive. The fp8 cache
-    (``cache_dtype``) is not ported yet and raises."""
-    if cache_dtype:
-        raise MXNetError("get_decode_symbol: the fp8 KV cache "
-                         f"(cache_dtype={cache_dtype!r}) is not ported yet")
+    ``BatchedKVCacheDecoder`` and ``serve.decode`` drive. ``step_len`` > 1
+    builds the S-token window variant of the same graph (chunked prefill,
+    speculative verify): each slot consumes S tokens from its own cursor,
+    causally masked within the window, and logits row ``s`` predicts the
+    token after stream position ``cursor + s``; with learned positions
+    ``pos_ids`` is then ``(B, step_len)``.
+
+    ``cache_dtype`` (``"fp8"``/``"e4m3"`` -> float8_e4m3fn, ``"e5m2"``;
+    default ``MXNET_LM_CACHE_DTYPE``) declares fp8 cache cells: rows are
+    cast on write and read back exactly, a quarter of the float32 cache's
+    bytes. None keeps float32 cells; the cursor stays int32."""
     _validate(d_model, n_head, pos_embed)
     capacity = capacity or default_cache_capacity()
+    cache_dtype = cache_dtype or default_cache_dtype()
     max_seq_len = max_seq_len or capacity
     S = step_len
     data = sym.var("data")
@@ -200,7 +216,8 @@ def get_decode_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
     for i in range(n_layer):
         x = _block(x, i=i, seq_len=S, d_model=d_model, n_head=n_head,
                    pos_embed=pos_embed, rope_base=rope_base, name=name,
-                   decode=True, capacity=capacity, per_slot=per_slot)
+                   decode=True, capacity=capacity, per_slot=per_slot,
+                   cache_dtype=cache_dtype)
     x = sym.LayerNorm(x, name=f"{name}_ln_f")
     flat = sym.Reshape(x, shape=(-3, 0), name=f"{name}_head_fold")
     logits = sym.dot(flat, tok_w, transpose_b=True, name=f"{name}_logits")
@@ -318,10 +335,19 @@ class BatchedKVCacheDecoder:
     Each slot is an independent sequence: ``join`` claims a slot (rewinds
     its device cursor), ``leave`` releases it host-side only (the retired
     row keeps advancing harmlessly inside its own slot), and ``step``
-    advances EVERY slot by one token in one dispatch. ``pos`` mirrors the
-    device cursors on the host, so overflow is caught before dispatch and
-    the device cursor is never read back. The cursor pokes (``join``,
-    ``rewind_many``) write the cursor cells in place."""
+    advances EVERY slot by one S-token window in one dispatch. ``pos``
+    mirrors the device cursors on the host, so overflow is caught before
+    dispatch and the device cursor is never read back. The cursor pokes
+    (``join``, ``rewind_many``) write the cursor cells in place.
+
+    Besides the S=1 module a driver carries *window* modules
+    (``add_window``): ``step_len=S`` graphs over the same parameter and
+    aux cells, which chunked prefill and speculative verify ride. ``step``
+    dispatches on ``tokens.shape[1]``. ``rewind`` pokes a slot's cursor to
+    any position: the seam for padded final prefill chunks, prefix-store
+    joins at cursor C and speculative rollback. ``capture_rows`` /
+    ``restore_rows`` copy a slot's cache rows out and back (the prefix
+    store)."""
 
     def __init__(self, module, capacity, slots=None, pos_embed="rotary"):
         self._mod = module
@@ -332,9 +358,31 @@ class BatchedKVCacheDecoder:
         self.slots = int(slots)
         self.pos = np.zeros(self.slots, np.int64)    # device-cursor mirror
         self.active = np.zeros(self.slots, bool)
+        self._windows = {}                           # step_len -> module
+
+    def add_window(self, step_len, module):
+        """Register an S-token window module. It must be bound with
+        ``shared_module=`` this driver's S=1 module, so that both advance
+        the SAME cache and cursor cells (the executor group shares aux
+        cells of equal shape and dtype)."""
+        self._windows[int(step_len)] = module
+
+    @property
+    def window_lens(self):
+        return sorted(self._windows)
 
     def _cursor_cells(self):
         return _cells(self._mod, ("cache_pos",))
+
+    def _kv_cells(self):
+        """(name, cell) of every layer's K and V cache, in graph order."""
+        exe = self._mod._exec_group.executor
+        return [(nm, cell) for nm, cell in exe.aux_dict.items()
+                if nm.endswith(("k_cache", "v_cache"))]
+
+    def free_slots(self):
+        """Slot indices with no active sequence."""
+        return [i for i in range(self.slots) if not self.active[i]]
 
     def join(self, slot):
         """Claim ``slot`` for a new sequence: rewind its cursor to 0 in
@@ -371,6 +419,24 @@ class BatchedKVCacheDecoder:
                 torch.as_tensor(val, device=t.device)
         self.pos[idx] = val.astype(np.int64)
 
+    def capture_rows(self, slot, length):
+        """``slot``'s first ``length`` cache positions of every layer:
+        ``{cell name: (H, length, Dh) tensor}``, host copies in the cells'
+        dtype. The prefix store keeps these under its byte budget."""
+        slot, length = int(slot), int(length)
+        return {nm: cell.astorch()[slot, :, :length].to("cpu", copy=True)
+                for nm, cell in self._kv_cells()}
+
+    def restore_rows(self, slot, rows):
+        """Write captured rows back into ``slot``'s first positions, in
+        place and bit for bit (the prefix store's join). The caller sets
+        the cursor."""
+        slot = int(slot)
+        for nm, cell in self._kv_cells():
+            t = cell.astorch()
+            row = rows[nm]
+            t[slot, :, :row.shape[1]] = row.to(t.device, t.dtype)
+
     def overflowing(self, window=1):
         """Active slots whose next ``window``-token dispatch would pass
         capacity — the scheduler retires these (alone) before dispatch."""
@@ -378,33 +444,38 @@ class BatchedKVCacheDecoder:
                 if self.active[i] and self.pos[i] + window > self.capacity]
 
     def step(self, tokens):
-        """Advance every slot by one token: ``tokens`` (slots,) or
-        (slots, 1) int ids (retired slots ride any valid id, 0 by
-        convention) -> logits (slots, 1, V) NDArray. Raises BEFORE
-        dispatch when an active slot would overflow its cache."""
+        """Advance every slot by one S-token window: ``tokens`` (slots,)
+        or (slots, S) int ids (retired slots ride any valid id, 0 by
+        convention) -> logits (slots, S, V) NDArray. S=1 runs the S=1
+        module, S>1 the window module ``add_window`` registered. Raises
+        BEFORE dispatch when an active slot would overflow its cache."""
         from .. import ndarray as nd
         from ..io import DataBatch
         tokens = np.asarray(tokens)
         if tokens.ndim == 1:
             tokens = tokens[:, None]
-        if tokens.shape != (self.slots, 1):
+        S = tokens.shape[1]
+        if tokens.shape != (self.slots, S) or S < 1:
+            raise MXNetError(f"step() wants ({self.slots}, S) tokens, got "
+                             f"{tokens.shape}")
+        mod = self._mod if S == 1 else self._windows.get(S)
+        if mod is None:
             raise MXNetError(
-                f"step() wants ({self.slots}, 1) tokens, got "
-                f"{tokens.shape} (S>1 windows — chunked prefill and "
-                "speculative verify — are not ported yet)")
-        over = self.overflowing(1)
+                f"no window module for step_len={S} (have "
+                f"{self.window_lens}); add_window() it first")
+        over = self.overflowing(S)
         if over:
             raise MXNetError(
                 f"KV cache overflow in slot(s) {over}: position "
-                f"{[int(self.pos[i]) for i in over]} + 1 exceeds "
+                f"{[int(self.pos[i]) for i in over]} + {S} exceeds "
                 f"capacity {self.capacity}; retire the sequence(s) or "
                 "re-bind with a larger capacity")
         ctx = self._mod._exec_group.context
         data = [nd.array(tokens.astype(np.int32), ctx=ctx)]
         if self.pos_embed == "learned":
+            pos = self.pos[:, None] + np.arange(S)[None, :]
             data.append(nd.array(np.minimum(
-                self.pos[:, None], self.capacity - 1).astype(np.float32),
-                ctx=ctx))
-        self._mod.forward(DataBatch(data=data, label=[]), is_train=False)
-        self.pos += 1            # the program advances EVERY slot
-        return self._mod.get_outputs()[0]
+                pos, self.capacity - 1).astype(np.float32), ctx=ctx))
+        mod.forward(DataBatch(data=data, label=[]), is_train=False)
+        self.pos += S            # the program advances EVERY slot
+        return mod.get_outputs()[0]

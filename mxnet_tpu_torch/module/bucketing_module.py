@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import logging
 
+from ..initializer import Uniform
 from .base_module import BaseModule
 from .module import Module
 
@@ -44,9 +45,10 @@ class BucketingModule(BaseModule):
     def _active(self):
         return self._buckets[self._active_key]
 
-    def init_params(self, initializer=None, arg_params=None,
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
                     aux_params=None, allow_missing=False, force_init=False):
-        """Fill the leader's cells (every bucket aliases them)."""
+        """Fill the leader's cells (every bucket aliases them); the
+        initializer defaults to ``Uniform(0.01)`` as ``Module``'s does."""
         if self.params_initialized and not force_init:
             return
         assert self.binded

@@ -18,6 +18,7 @@ import pickle
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import current_context
+from ..initializer import Uniform
 from ..model import _create_kvstore, load_checkpoint
 from ..ndarray import NDArray
 from .base_module import BaseModule
@@ -105,12 +106,14 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         return self._arg_params, self._aux_params
 
-    def init_params(self, initializer=None, arg_params=None,
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
                     aux_params=None, allow_missing=False, force_init=False):
         """Fill the bound cells, in place: from ``arg_params`` /
         ``aux_params`` (name -> NDArray or array) where present, else by
-        ``initializer(name, cell)`` when one is given. A parameter found
-        in neither raises unless ``allow_missing`` — then it keeps its
+        ``initializer(name, cell)`` — ``Uniform(0.01)`` by default, as in
+        the JAX package; it raises ``ValueError`` on a name it has no rule
+        for. A parameter missing from given params raises unless
+        ``allow_missing``; with ``initializer=None`` it then keeps its
         bound zeros (the decode caches and cursors do exactly that)."""
         if self.params_initialized and not force_init:
             return

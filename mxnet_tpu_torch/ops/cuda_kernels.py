@@ -25,7 +25,10 @@ wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          s
 ``bn_apply_relu``          ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
 =========================  ==================================================  ===================
 
-The first four serve the decode path; with the ones from
+The first four serve the decode path; ``decode_attention`` has one C
+entry point per cache storage type (float32, float8_e4m3fn,
+float8_e5m2), and its fp8 launches count in ``decode_attention_fp8``
+(the wrapper that takes fp8 caches). With the ones from
 ``layernorm_bwd_dx`` to ``flash_attention`` they train the transformer LM;
 softmax / cross-entropy and the optimizer updates serve every training
 path; ``qfc_matmul`` and ``dequant_rows`` serve the quantized tiers
@@ -93,7 +96,8 @@ from .tensor import embedding_lookup
 
 __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "layernorm_plain", "fused_layernorm", "bias_gelu",
-           "bias_gelu_plain", "decode_attention", "decode_attention_plain",
+           "bias_gelu_plain", "decode_attention", "decode_attention_fp8",
+           "decode_attention_plain",
            "softmax", "softmax_plain", "softmax_ce_bwd",
            "softmax_ce_bwd_plain", "sgd_mom_update", "sgd_mom_update_plain",
            "adam_update", "adam_update_plain", "layernorm_bwd_dx",
@@ -105,7 +109,7 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "dequant_rows_plain", "bn_stats", "bn_stats_plain",
            "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
            "conv_bn_relu_fn", "launch_counts", "reset_launch_counts",
-           "libraries_loaded", "KERNELS"]
+           "libraries_loaded", "KERNELS", "COUNTERS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -114,7 +118,7 @@ _ARCH = "arch=compute_90a,code=sm_90a"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
-#: kernel name -> (source file, C symbol or {weight storage: C symbol},
+#: kernel name -> (source file, C symbol or {storage type: C symbol},
 #: ctypes argtypes)
 _SPECS = {
     "embedding": ("embedding.cu", "mx_embedding_f32",
@@ -123,7 +127,10 @@ _SPECS = {
                   [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "bias_gelu": ("bias_gelu.cu", "mx_bias_gelu_f32",
                   [_P, _P, _P, _I, _I, _P]),
-    "decode_attention": ("decode_attention.cu", "mx_decode_attention_f32",
+    "decode_attention": ("decode_attention.cu",
+                         {"f32": "mx_decode_attention_f32",
+                          "e4m3": "mx_decode_attention_e4m3",
+                          "e5m2": "mx_decode_attention_e5m2"},
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "softmax": ("softmax.cu", "mx_softmax_f32", [_P, _P, _I, _I, _P]),
     "softmax_ce_bwd": ("softmax_ce_bwd.cu", "mx_softmax_ce_bwd_f32",
@@ -212,8 +219,8 @@ def build(names=KERNELS):
 
 def _fn(name, storage=None):
     """The bound C entry point of one kernel (the one for ``storage``
-    where the kernel has one per weight storage type), building and
-    loading its library on first use."""
+    where the kernel has one per storage type of its weight or cache),
+    building and loading its library on first use."""
     sym = _SPECS[name][1] if storage is None else _SPECS[name][1][storage]
     fn = _fns.get((name, sym))
     if fn is not None:
@@ -275,13 +282,14 @@ def _cpu_or_cuda(name, t):
 
 
 def launch_counts():
-    """{kernel name: launches so far}."""
-    return {n: _WRAPPERS[n].launches for n in KERNELS}
+    """{counter name: launches so far}: one counter per kernel, and
+    ``decode_attention_fp8`` for the flash-decode kernel's fp8 instances."""
+    return {n: w.launches for n, w in _WRAPPERS.items()}
 
 
 def reset_launch_counts():
-    for n in KERNELS:
-        _WRAPPERS[n].launches = 0
+    for w in _WRAPPERS.values():
+        w.launches = 0
 
 
 # ==========================================================================
@@ -514,8 +522,9 @@ def _bias_gelu_cuda(attrs, inputs, aux, is_train, rng):
 def decode_attention_plain(q, k_cache, v_cache, pos):
     """Attention of q (B, H, S, Dh) over the cache prefix each row sees:
     key k_pos is live for query s of row b iff k_pos <= pos[b] + s. The
-    query is scaled by Dh^-1/2 before the product, as in the TPU kernel.
-    Returns float32 (B, H, S, Dh)."""
+    query is scaled by Dh^-1/2 before the product, as in the TPU kernel;
+    fp8 cells are read back exactly (``.to(float32)``). Returns float32
+    (B, H, S, Dh)."""
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
     qs = q.to(torch.float32) * (float(Dh) ** -0.5)
@@ -529,38 +538,78 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
                         v_cache.to(torch.float32))
 
 
-def decode_attention(q, k_cache, v_cache, pos):
-    """Cursor-bounded flash-decode read: q (B, H, S, Dh), caches
-    (B, H, C, Dh) with this step's rows already written, pos (B,) int32
-    per-row cursors -> float32 (B, H, S, Dh). The kernel takes float32,
-    Dh in {64, 128} and S <= 64."""
-    if not _cpu_or_cuda("decode_attention", q):
-        return decode_attention_plain(q, k_cache, v_cache, pos)
-    _check("decode_attention", q=(q, torch.float32),
-           k_cache=(k_cache, torch.float32),
-           v_cache=(v_cache, torch.float32), pos=(pos, torch.int32))
+#: cache storage dtype -> the kernel's C entry point suffix
+_DECODE_STORAGE = {torch.float32: "f32", torch.float8_e4m3fn: "e4m3",
+                   torch.float8_e5m2: "e5m2"}
+
+
+def _decode_launch(name, q, k_cache, v_cache, pos):
+    """Check the inputs of the flash-decode kernel and launch the instance
+    for the cache's storage type: float32 q, caches float32 or fp8 (both
+    the same), int32 pos, Dh in {64, 128}, S <= 64; an fp8 cache 16-byte
+    aligned (the kernel reads it 16 bytes a thread)."""
+    storage = _DECODE_STORAGE.get(k_cache.dtype)
+    if storage is None:
+        raise MXNetError(f"{name}: cache is {k_cache.dtype}, the kernel "
+                         "takes float32, float8_e4m3fn or float8_e5m2")
+    _check(name, q=(q, torch.float32), k_cache=(k_cache, k_cache.dtype),
+           v_cache=(v_cache, k_cache.dtype), pos=(pos, torch.int32))
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
     if Dh not in (64, 128):
-        raise MXNetError(f"decode_attention: head dim {Dh} — the kernel "
-                         "takes 64 or 128")
+        raise MXNetError(f"{name}: head dim {Dh} — the kernel takes 64 or "
+                         "128")
     if S > 64:
-        raise MXNetError(f"decode_attention: window S={S} > 64")
+        raise MXNetError(f"{name}: window S={S} > 64")
     if tuple(k_cache.shape) != (B, H, C, Dh) or \
             tuple(v_cache.shape) != (B, H, C, Dh) or \
             tuple(pos.shape) != (B,):
-        raise MXNetError("decode_attention: want caches (B, H, C, Dh) and "
-                         f"pos (B,), got {tuple(k_cache.shape)}, "
+        raise MXNetError(f"{name}: want caches (B, H, C, Dh) and pos (B,), "
+                         f"got {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}, {tuple(pos.shape)}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise MXNetError(f"{name}: the caches must be 16-byte aligned")
     out = torch.empty((B, H, S, Dh), dtype=torch.float32, device=q.device)
     _launch("decode_attention", q, q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, S, C,
-            Dh, float(Dh) ** -0.5)
+            Dh, float(Dh) ** -0.5, storage=storage)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """Cursor-bounded flash-decode read: q (B, H, S, Dh) float32, caches
+    (B, H, C, Dh) float32, float8_e4m3fn or float8_e5m2 with this step's
+    rows already written, pos (B,) int32 per-row cursors -> float32
+    (B, H, S, Dh). fp8 caches go to ``decode_attention_fp8``, which counts
+    their launches. The kernel takes Dh in {64, 128} and S <= 64."""
+    if not _cpu_or_cuda("decode_attention", q):
+        return decode_attention_plain(q, k_cache, v_cache, pos)
+    if k_cache.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return decode_attention_fp8(q, k_cache, v_cache, pos)
+    out = _decode_launch("decode_attention", q, k_cache, v_cache, pos)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_fp8(q, k_cache, v_cache, pos):
+    """``decode_attention`` over fp8 caches (float8_e4m3fn or
+    float8_e5m2): the kernel's fp8 instances read the cells and
+    dequantize them as they stage each tile; no float32 copy of the cache
+    is made."""
+    if not _cpu_or_cuda("decode_attention_fp8", q):
+        return decode_attention_plain(q, k_cache, v_cache, pos)
+    if k_cache.dtype not in (torch.float8_e4m3fn, torch.float8_e5m2):
+        raise MXNetError(f"decode_attention_fp8: cache is {k_cache.dtype}, "
+                         "want float8_e4m3fn or float8_e5m2")
+    out = _decode_launch("decode_attention_fp8", q, k_cache, v_cache, pos)
+    decode_attention_fp8.launches += 1
+    return out
+
+
+decode_attention_fp8.launches = 0
 
 # ==========================================================================
 # 5. row softmax (SoftmaxOutput forward)
@@ -1113,6 +1162,7 @@ def conv_bn_relu_fn(attrs, data, weight, gamma, beta, moving_mean,
 
 _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "bias_gelu": bias_gelu, "decode_attention": decode_attention,
+             "decode_attention_fp8": decode_attention_fp8,
              "softmax": softmax, "softmax_ce_bwd": softmax_ce_bwd,
              "sgd_mom": sgd_mom_update, "adam": adam_update,
              "ln_bwd_dx": layernorm_bwd_dx,
@@ -1121,6 +1171,9 @@ _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "flash_attention": flash_attention, "qfc_matmul": qfc_matmul,
              "dequant_rows": dequant_rows, "bn_stats": bn_stats,
              "bn_apply_relu": bn_apply_relu}
+#: the launch counters: one per kernel, and one for the flash-decode
+#: kernel's fp8 instances
+COUNTERS = tuple(_WRAPPERS)
 
 
 # ==========================================================================

@@ -13,16 +13,25 @@ forward. Two cursor layouts, one op:
   independent decode slot at its own position in its own slice of the
   slot-pooled (B, H, C, Dh) cache (``BatchedKVCacheDecoder``). S=1 writes
   land per slot at the slot's cursor and leave every other cache position
-  bit-identical (a cursor past capacity writes nothing); S>1 windows land
-  per row at the row's cursor, clamped as the JAX package's
-  ``dynamic_update_slice`` clamps.
+  bit-identical (a cursor past capacity writes nothing); S>1 windows
+  (chunked prefill, speculative verify) land per row at the row's cursor,
+  clamped as the JAX package's ``dynamic_update_slice`` clamps.
+
+The cache cells are float32, or fp8 storage (``cache_dtype`` "fp8" /
+"e4m3" -> ``float8_e4m3fn``, "e5m2" -> ``float8_e5m2``): rows are cast on
+store and read back exactly (``.to(float32)``). The store cast is
+``fp8_cast``, which gives the bytes XLA's cast gives — PyTorch's own cast
+saturates float8_e4m3fn overflow at +-448 where XLA writes NaN — and every
+write goes through a ``uint8`` view of an fp8 cell (PyTorch has no
+``index_copy_`` for float8 on the CPU), so the same bytes land on both
+devices.
 
 The cache writes update the aux tensors IN PLACE (the executor's cells
 own them), where the JAX package builds new arrays: this saves two full
 cache copies per layer per step. RoPE and the writes are plain PyTorch on
 both devices, exactly as the JAX package keeps them outside its kernel;
 only the attention READ has a kernel — ``cuda_kernels.decode_attention``,
-the op's ``"cuda"`` variant.
+the op's ``"cuda"`` variant, which reads float32 and fp8 cells alike.
 
 ``attention`` (the full-sequence op of ``get_symbol``, which the LM
 trains through and the decode parity tests compare against) is the plain
@@ -47,7 +56,7 @@ from .ops.nn import rope_apply
 from .ops.optimizer_op import sgd_mom_step
 from .ops.registry import OP_REGISTRY, register
 
-__all__ = ["flash_attention_fn"]
+__all__ = ["flash_attention_fn", "fp8_cast"]
 
 
 # --------------------------------------------------------------------------
@@ -126,6 +135,43 @@ def _decode_check_overflow(pos, S, capacity, per_slot):
             "capacity= or reset the cache")
 
 
+#: fp8 storage -> (the least magnitude XLA's cast overflows at, its NaN
+#: code, its overflow code); the sign bit is or-ed in. float8_e4m3fn has no
+#: infinity: past 464, the midpoint above its largest finite 448, and at
+#: +-inf the cast gives NaN. float8_e5m2 rounds to +-inf from 61440 on.
+_FP8_XLA = {
+    torch.float8_e4m3fn: (float(np.nextafter(np.float32(464.0),
+                                             np.float32(np.inf))), 0x7F, 0x7F),
+    torch.float8_e5m2: (61440.0, 0x7E, 0x7C),
+}
+
+
+def fp8_cast(x, dtype):
+    """``x`` cast to the fp8 ``dtype`` as XLA casts float32 (the JAX
+    package's ``astype``): round to nearest even; magnitudes from the
+    overflow point on (and +-inf) become NaN for float8_e4m3fn, where
+    PyTorch's cast saturates at +-448, and +-inf for float8_e5m2; NaN
+    becomes sign | 0x7f (e4m3fn) or sign | 0x7e (e5m2). In-range values
+    take PyTorch's cast, which rounds as XLA does."""
+    over, nan_code, over_code = _FP8_XLA[dtype]
+    x = x.to(torch.float32)
+    codes = x.to(dtype).view(torch.uint8)
+    sign = torch.signbit(x).to(torch.uint8) << 7
+    codes = torch.where(x.abs() >= over, sign | over_code, codes)
+    codes = torch.where(torch.isnan(x), sign | nan_code, codes)
+    return codes.view(dtype)
+
+
+def _store_views(cache, new):
+    """(cell, rows) as a cache write sees them: a float32 cell and the
+    rows as they are; an fp8 cell as its ``uint8`` bytes and the rows as
+    ``fp8_cast``'s codes."""
+    if cache.dtype in _FP8_XLA:
+        return (cache.view(torch.uint8),
+                fp8_cast(new, cache.dtype).view(torch.uint8))
+    return cache, new.to(cache.dtype)
+
+
 def _decode_rope_write(attrs, q, k, v, k_cache, v_cache, pos, per_slot):
     """RoPE + cache write, shared by the plain forward and the CUDA
     variant, so the cache contents are bit-identical across the two.
@@ -141,14 +187,13 @@ def _decode_rope_write(attrs, q, k, v, k_cache, v_cache, pos, per_slot):
             else pos + steps
         q = rope_apply(q, positions, base)
         k = rope_apply(k, positions, base)
-    k = k.to(k_cache.dtype)
-    v = v.to(v_cache.dtype)
+    pairs = (_store_views(k_cache, k), _store_views(v_cache, v))
     if not per_slot:
         # one window for every row at the shared cursor; the start clamps
         # to [0, C - S] like dynamic_update_slice
         idx = pos.clamp(0, capacity - S) + torch.arange(S, device=dev)
-        k_cache.index_copy_(2, idx, k)
-        v_cache.index_copy_(2, idx, v)
+        for cache, new in pairs:
+            cache.index_copy_(2, idx, new)
     elif S == 1:
         # each slot's token at its own cursor; a cursor past capacity
         # writes back the value already there (no clamped write), so
@@ -156,7 +201,7 @@ def _decode_rope_write(attrs, q, k, v, k_cache, v_cache, pos, per_slot):
         rows = torch.arange(B, device=dev)
         at = pos.clamp(0, capacity - 1)
         hit = ((pos >= 0) & (pos < capacity))[:, None, None]
-        for cache, new in ((k_cache, k), (v_cache, v)):
+        for cache, new in pairs:
             cache[rows, :, at, :] = torch.where(hit, new[:, :, 0, :],
                                                 cache[rows, :, at, :])
     else:
@@ -165,8 +210,8 @@ def _decode_rope_write(attrs, q, k, v, k_cache, v_cache, pos, per_slot):
         rows = torch.arange(B, device=dev)[:, None]
         idx = pos.clamp(0, capacity - S)[:, None] + \
             torch.arange(S, device=dev)[None, :]
-        k_cache[rows, :, idx, :] = k.transpose(1, 2)
-        v_cache[rows, :, idx, :] = v.transpose(1, 2)
+        for cache, new in pairs:
+            cache[rows, :, idx, :] = new.transpose(1, 2)
     return q
 
 
@@ -183,13 +228,6 @@ def _decode_pos(attrs, cursor, B, S, capacity):
     return pos, new_cursor, per_slot
 
 
-def _check_cache_dtype(k_cache):
-    if k_cache.dtype != torch.float32:
-        raise MXNetError(
-            f"attention_decode: {k_cache.dtype} cache cells — the fp8 KV "
-            "cache is not ported yet; build the graph without cache_dtype")
-
-
 def _attention_decode_fwd(attrs, inputs, aux, is_train, rng):
     """Plain forward: RoPE + cache write, then masked float32 softmax
     attention over each row's prefix (key_pos <= cursor + s)."""
@@ -198,7 +236,6 @@ def _attention_decode_fwd(attrs, inputs, aux, is_train, rng):
     if is_train:
         raise MXNetError("attention_decode is an inference op (train "
                          "with the full-sequence `attention` graph)")
-    _check_cache_dtype(k_cache)
     B, H, S, Dh = q.shape
     capacity = k_cache.shape[2]
     pos, new_cursor, per_slot = _decode_pos(attrs, cursor, B, S, capacity)
@@ -221,13 +258,12 @@ def _attention_decode_fwd(attrs, inputs, aux, is_train, rng):
 def _attention_decode_cuda(attrs, inputs, aux, is_train, rng):
     """CUDA variant: the same RoPE + cache write, then the attention read
     through the flash-decode kernel, which reads only each row's live
-    prefix [0, cursor_b + S)."""
+    prefix [0, cursor_b + S) and dequantizes fp8 cells as it reads."""
     q, k, v = inputs
     k_cache, v_cache, cursor = aux
     if is_train:
         raise MXNetError("attention_decode is an inference op (train "
                          "with the full-sequence `attention` graph)")
-    _check_cache_dtype(k_cache)
     B, H, S, Dh = q.shape
     capacity = k_cache.shape[2]
     pos, new_cursor, per_slot = _decode_pos(attrs, cursor, B, S, capacity)

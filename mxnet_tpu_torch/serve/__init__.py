@@ -9,10 +9,14 @@
   deadline-aware fair scheduling, a circuit breaker per model;
 * batching.py — ladder, pad/slice, admission queue;
 * ``PoissonLoadGen`` / ``run_scripted`` (loadgen.py) — open-loop load;
-* ``serve_decoder`` (decode.py) — continuous-batching KV-cache decode.
+* ``serve_decoder`` (decode.py) — continuous-batching KV-cache decode,
+  with chunked prefill, speculative decoding (``speculative_verify``,
+  sampling.py) and the prefix store (``PrefixStore``, prefix.py).
 
 Config: ``MXNET_SERVE_BUCKETS`` (default ladder), ``MXNET_SERVE_MAX_QUEUE``,
-``MXNET_SERVE_DEADLINE_MS``, ``MXNET_SERVE_QUANTIZE``. Warm restarts
+``MXNET_SERVE_DEADLINE_MS``, ``MXNET_SERVE_QUANTIZE``; for decode
+``MXNET_SERVE_DECODE_SLOTS``, ``MXNET_SERVE_PREFILL_CHUNK``,
+``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_PREFIX_CACHE_MB``. Warm restarts
 (``serve/warm.py``) and ``.mxp`` artifacts (``PredictorEngine``) are not
 ported yet and raise.
 """
@@ -28,7 +32,9 @@ from .registry import ModelRegistry
 from .server import InferenceServer, serve
 from .loadgen import PoissonLoadGen, run_scripted
 from .decode import (DecodeEngine, DecodeHandle, DecodeScheduler,
-                     default_slot_ladder, serve_decoder)
+                     default_prefill_chunk, default_slot_ladder,
+                     default_spec_k, serve_decoder)
+from .prefix import PrefixStore
 from .sampling import SamplingParams
 
 __all__ = ["MonotonicClock", "FakeClock", "BucketLadder",
@@ -38,4 +44,5 @@ __all__ = ["MonotonicClock", "FakeClock", "BucketLadder",
            "PredictorEngine", "ModelRegistry", "InferenceServer",
            "serve", "PoissonLoadGen", "run_scripted", "DecodeEngine",
            "DecodeScheduler", "DecodeHandle", "default_slot_ladder",
+           "default_prefill_chunk", "default_spec_k", "PrefixStore",
            "SamplingParams", "serve_decoder"]

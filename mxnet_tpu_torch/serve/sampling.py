@@ -1,5 +1,6 @@
 """Token sampling for the decode plane: greedy argmax, or temperature /
-top-k / top-p on a recorded per-request rng chain.
+top-k / top-p on a recorded per-request rng chain, and the exact
+speculative rejection rule (``speculative_verify``).
 
 Sampling runs on the host on the logits row the step returned.
 Determinism contract (the JAX package's, unchanged): every request owns
@@ -13,7 +14,8 @@ import numpy as np
 
 from ..base import MXNetError
 
-__all__ = ["SamplingParams", "token_probs", "sample_from", "sample_token"]
+__all__ = ["SamplingParams", "token_probs", "sample_from", "sample_token",
+           "speculative_verify"]
 
 
 class SamplingParams:
@@ -99,3 +101,43 @@ def sample_token(logits, params, rng):
     if params.greedy:
         return int(np.argmax(np.asarray(logits)))
     return sample_from(token_probs(logits, params), rng.random())
+
+
+def speculative_verify(target_rows, draft_rows, proposals, params, rng):
+    """Exact rejection sampling over one slot's K draft proposals.
+
+    ``target_rows`` / ``draft_rows`` are (K, V) logits: row ``j`` is the
+    distribution for the stream position proposal ``j`` fills (the
+    target's from the S=K verify window, the draft's from proposal
+    dispatch ``j``). Returns ``(accepted, tokens)``: the proposals kept,
+    and what the slot commits — the accepted prefix plus, after a
+    rejection, one token drawn from the residual ``max(p - q, 0)`` (so
+    1 <= len(tokens) <= K). Under greedy this accepts while the draft's
+    and the target's argmax agree and then emits the target's argmax:
+    target-only greedy decode, token for token."""
+    proposals = [int(d) for d in proposals]
+    emitted = []
+    for j, d in enumerate(proposals):
+        p = token_probs(target_rows[j], params)
+        q = token_probs(draft_rows[j], params)
+        pd, qd = float(p[d]), float(q[d])
+        if params.greedy:
+            accept = pd > 0.0               # one-hot match, no draw
+        elif qd <= 0.0:
+            # the draft proposed d at q(d)=0 only if the filters diverged:
+            # accept it only where the target admits it
+            accept = pd > 0.0
+        else:
+            accept = rng.random() < min(1.0, pd / qd)
+        if accept:
+            emitted.append(d)
+            continue
+        resid = np.maximum(p - q, 0.0)
+        if resid.sum() <= 0.0:
+            resid = p                        # degenerate: q covers p
+        if params.greedy:
+            emitted.append(int(np.argmax(resid)))
+        else:
+            emitted.append(sample_from(resid, rng.random()))
+        return j, emitted
+    return len(proposals), emitted

@@ -449,7 +449,9 @@ def _create(op_name, input_syms, name=None, attr=None, **params):
         if callable(adt):
             adt = adt(attrs or {})
         if adt is not None:
-            aux_extra["__dtype__"] = str(np.dtype(adt))
+            # a name as it is (numpy knows no float8 without ml_dtypes)
+            aux_extra["__dtype__"] = adt if isinstance(adt, str) \
+                else str(np.dtype(adt))
         inputs.append((Node(None, f"{node_name}_{anm}", extra=aux_extra), 0))
 
     node = Node(op_name, node_name, attrs, inputs, extra)

@@ -9,14 +9,16 @@ machine that has only PyTorch and the CUDA toolkit:
 Each kernel is held against its plain version on the card, at the decode
 and training paths' shapes and at edge shapes its code branches on (rows
 that do not fill a vector or a tile, head dim 128, windows up to 64,
-caches that are not a multiple of the key tile, cursors at both ends;
+caches that are not a multiple of the key tile, cursors at both ends,
+float32 and fp8 (float8_e4m3fn, float8_e5m2) caches, NaN cells;
 softmax rows of 1 and 65536 classes, labels outside the classes and
 ignored rows; update lengths that are not a multiple of the block).
 Tolerance: float32 2e-5 (the kernels sum in another order); the gather
 and the elementwise updates, which round as their plain versions do, are
 held to 1e-6. A small model is then decoded on the card and on the CPU
-through the same scheduler, an MLP and a LeNet are fitted on both, and
-the launch counters must show every kernel ran.
+through the same scheduler (and again with chunked prefill, speculative
+decoding, the prefix store and an fp8 cache), an MLP and a LeNet are
+fitted on both, and the launch counters must show every kernel ran.
 
 The LM-training kernels (LayerNorm dx and dgamma/dbeta, the GeLU input
 gradient, flash attention) are held against their plain versions at the
@@ -43,6 +45,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as tfm
 from mxnet_tpu_torch.ops import cuda_kernels as ck
+from mxnet_tpu_torch.rtc import fp8_cast
 from mxnet_tpu_torch.serve import FakeClock
 
 TOL = 2e-5
@@ -107,6 +110,58 @@ def test_decode_attention_kernel(dev, dh, S, C):
           ck.decode_attention_plain(q, kc, vc, cursors))
 
 
+_FP8 = [torch.float8_e4m3fn, torch.float8_e5m2]
+
+
+def _fp8_cache(dev, shape, dtype, seed):
+    """Random fp8 cells, cast as the decode path casts them on write."""
+    return fp8_cast(3 * _rnd(dev, *shape, seed=seed), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _FP8, ids=["e4m3", "e5m2"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S,C", [(1, 256), (4, 256), (64, 256), (17, 100)])
+def test_decode_attention_fp8_kernel(dev, dtype, dh, S, C):
+    """The fp8 instances against the plain read of the same cells, at
+    cursors 0, mid and C - S; a reused slot (cursor back at 0 over stale
+    rows) is the cursor-0 row."""
+    B, H = 3, 2
+    cursors = torch.tensor([0, (C - S) // 2, C - S], dtype=torch.int32,
+                           device=dev)
+    q = _rnd(dev, B, H, S, dh)
+    kc, vc = (_fp8_cache(dev, (B, H, C, dh), dtype, seed)
+              for seed in (1, 2))
+    before = dict(ck.launch_counts())
+    _same(ck.decode_attention(q, kc, vc, cursors),
+          ck.decode_attention_plain(q, kc, vc, cursors))
+    counts = ck.launch_counts()
+    assert counts["decode_attention_fp8"] == \
+        before["decode_attention_fp8"] + 1
+    assert counts["decode_attention"] == before["decode_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32] + _FP8,
+                         ids=["f32", "e4m3", "e5m2"])
+def test_decode_attention_nan_cells_pass_through(dev, dtype):
+    """A NaN K cell in a row's live prefix makes that row NaN, a NaN V
+    cell that column, as in the plain softmax; other rows are untouched."""
+    B, H, S, C, dh = 3, 2, 4, 64, 64
+    cursors = torch.tensor([10, 20, 30], dtype=torch.int32, device=dev)
+    q = _rnd(dev, B, H, S, dh)
+    kc = _rnd(dev, B, H, C, dh, seed=1)
+    vc = _rnd(dev, B, H, C, dh, seed=2)
+    kc[1, 0, 5, 3] = float("nan")
+    vc[2, 1, 7, 9] = float("nan")
+    if dtype != torch.float32:
+        kc, vc = fp8_cast(kc, dtype), fp8_cast(vc, dtype)
+    got = ck.decode_attention(q, kc, vc, cursors)
+    _same(got, ck.decode_attention_plain(q, kc, vc, cursors))
+    assert got[1, 0].isnan().all() and got[2, 1, :, 9].isnan().all()
+    assert not got[0].isnan().any()
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = _rnd(dev, 1, 1, 1, 32)
@@ -114,6 +169,23 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(MXNetError, match="head dim"):
         ck.decode_attention(q, kc, kc, pos)
+    k8 = fp8_cast(_rnd(dev, 1, 1, 8, 32), torch.float8_e4m3fn)
+    with pytest.raises(MXNetError, match="head dim"):
+        ck.decode_attention(q, k8, k8, pos)
+    q64 = _rnd(dev, 1, 1, 1, 64)
+    flat = fp8_cast(_rnd(dev, 1 + 9 * 64), torch.float8_e5m2)
+    k8 = flat[:9 * 64].view(1, 1, 9, 64)
+    shifted = flat[1:1 + 8 * 64].view(1, 1, 8, 64)    # 1 byte off
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        ck.decode_attention(q64, shifted, shifted, pos)
+    with pytest.raises(MXNetError, match="float8_e5m2"):
+        ck.decode_attention(q64, k8[:, :, :8], _rnd(dev, 1, 1, 8, 64), pos)
+    with pytest.raises(MXNetError, match="S=65"):
+        ck.decode_attention(_rnd(dev, 1, 1, 65, 64), k8[:, :, :8],
+                            k8[:, :, :8], pos)
+    with pytest.raises(MXNetError, match="want float8"):
+        ck.decode_attention_fp8(q64, _rnd(dev, 1, 1, 8, 64),
+                                _rnd(dev, 1, 1, 8, 64), pos)
     with pytest.raises(MXNetError, match="float32"):
         ck.bias_gelu(_rnd(dev, 2, 8).half(), _rnd(dev, 8).half())
     with pytest.raises(MXNetError, match="contiguous"):
@@ -151,6 +223,60 @@ def test_small_model_decodes_alike_on_card_and_cpu(dev):
         else:
             assert not any(counts.values()), counts
     assert chains["gpu"] == chains["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", [None, "fp8"])
+def test_small_model_fast_paths_alike_on_card_and_cpu(dev, cache_dtype):
+    """Chunked prefill (S=4 windows), speculative decoding (a 1-layer
+    draft, spec_k 3) and the prefix store through serve_decoder, with a
+    live slot migrated between rungs: greedy chains card == CPU, 3 of 4
+    prefix hits on both, and on the card the decode read of the cache
+    dtype launched (the fp8 instances count in
+    ``decode_attention_fp8``)."""
+    V, D, H, CAP = 96, 64, 1, 32
+
+    def gen(n_layer):
+        return lambda s: tfm.get_decode_symbol(
+            vocab_size=V, d_model=D, n_layer=n_layer, n_head=H,
+            capacity=CAP, per_slot=True, step_len=s, cache_dtype=cache_dtype)
+    rs = np.random.RandomState(0)
+
+    def params(n_layer):
+        sym = gen(n_layer)(1)
+        shapes, _, _ = sym.infer_shape(data=(1, 1))
+        return {n: ((1.0 if n.endswith("gamma") else 0.0)
+                    + 0.3 * rs.randn(*s)).astype(np.float32)
+                for n, s in zip(sym.list_arguments(), shapes)
+                if n != "data"}
+    target, draft = params(2), params(1)
+    shared = rs.randint(0, V, 7).tolist()
+    prompts = [shared + [int(t)] for t in rs.randint(0, V, 4)]
+    chains, hits = {}, {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ck.reset_launch_counts()
+        sched = mx.serve.serve_decoder(
+            gen(2)(1), mx.convert.params_from_numpy(target, ctx),
+            ladder=[1, 2, 4], clock=FakeClock(), start=False, context=ctx,
+            symbol_gen=gen(2), prefill_chunk=4, draft_symbol_gen=gen(1),
+            draft_params=mx.convert.params_from_numpy(draft, ctx),
+            spec_k=3, prefix_cache_mb=1)
+        first = sched.submit(prompts[0], max_new_tokens=6, prefix_id="p")
+        sched.pump(max_iterations=2)     # prefilled and stored, still live
+        hs = [first] + [sched.submit(p, max_new_tokens=6, prefix_id="p")
+                        for p in prompts[1:]]
+        sched.pump()
+        chains[ctx.device_type] = [h.result(timeout=0).tolist() for h in hs]
+        hits[ctx.device_type] = sched.stats()["prefix"]["hits"]
+        assert sched.stats()["migrations"] >= 1    # a live slot moved
+        counts = ck.launch_counts()
+        read = "decode_attention_fp8" if cache_dtype else "decode_attention"
+        if ctx.device_type == "gpu":
+            assert counts[read] > 0, counts
+            other = ({"decode_attention", "decode_attention_fp8"} - {read})
+            assert not any(counts[k] for k in other), counts
+    assert chains["gpu"] == chains["cpu"]
+    assert hits["gpu"] == hits["cpu"] == 3
 
 
 @pytest.mark.cuda
@@ -579,7 +705,8 @@ def test_quantized_server_on_card(dev, tier):
             mod = mx.mod.Module(sym, context=ctx)
             mod.bind([("data", (4, 3, 8, 8))], [("softmax_label", (4,))],
                      for_training=False)
-            mod.init_params(arg_params=mx.convert.params_from_numpy(params,
+            mod.init_params(initializer=None,
+                            arg_params=mx.convert.params_from_numpy(params,
                                                                     ctx),
                             aux_params={})
             ck.reset_launch_counts()

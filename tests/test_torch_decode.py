@@ -182,13 +182,27 @@ def test_decode_steps_reproduce_full_forward(params):
 
 
 def test_batched_decoder_overflow_raises_before_dispatch(params):
-    td = ttfm.BatchedKVCacheDecoder(_torch_module(params, 2, True), CAP)
+    """A slot whose next window would pass capacity raises before the
+    dispatch, for S=1 and for an S=4 window module; a window length with
+    no module raises too."""
+    base = _torch_module(params, 2, True)
+    td = ttfm.BatchedKVCacheDecoder(base, CAP)
+    with pytest.raises(MXNetError, match="no window module"):
+        td.step(np.zeros((2, 4), np.int32))
+    win = mxt.mod.Module(ttfm.get_decode_symbol(
+        vocab_size=V, d_model=D, n_layer=L, n_head=H, capacity=CAP,
+        per_slot=True, step_len=4), label_names=[], context=CPU)
+    win.bind([("data", (2, 4))], None, for_training=False,
+             shared_module=base)
+    td.add_window(4, win)
     td.join(0)
-    td.rewind(0, CAP)
+    td.rewind(0, CAP - 3)
+    with pytest.raises(MXNetError, match="overflow in slot"):
+        td.step(np.zeros((2, 4), np.int32))
+    td.rewind(0, CAP - 4)
+    assert td.step(np.zeros((2, 4), np.int32)).shape == (2, 4, V)
     with pytest.raises(MXNetError, match="overflow in slot"):
         td.step(np.zeros((2, 1), np.int32))
-    with pytest.raises(MXNetError, match="S>1 windows"):
-        td.step(np.zeros((2, 4), np.int32))
 
 
 # -------------------------------------------------------------- serving
@@ -274,23 +288,62 @@ def test_serve_decoder_streams_tokens_through_thread(params):
     assert [i for i, _ in seen] == list(range(6))
 
 
+def _gen(capacity=CAP):
+    return lambda s: ttfm.get_decode_symbol(
+        vocab_size=V, d_model=D, n_layer=L, n_head=H, capacity=capacity,
+        per_slot=True, step_len=s)
+
+
 @pytest.mark.parametrize("kwarg", ["symbol_gen", "draft_symbol_gen"])
 def test_serve_decoder_refuses_later_slice_options(params, kwarg):
-    sym = ttfm.get_decode_symbol(vocab_size=V, d_model=D, n_layer=L,
-                                 n_head=H, capacity=CAP, per_slot=True)
-    with pytest.raises(MXNetError, match="later slice"):
-        mxt.serve.serve_decoder(sym, _torch_args(params), context=CPU,
-                                start=False, **{kwarg: lambda s: sym})
+    """The fast-path options are refused where they cannot work: a
+    ``symbol_gen`` whose windows would not share the rung's cache cells
+    (another capacity), and a ``draft_symbol_gen`` without
+    ``draft_params`` or without ``symbol_gen`` (the JAX package's
+    errors)."""
+    sym = _gen()(1)
+    kw = dict(context=CPU, start=False, ladder=[1], prefill_chunk=4)
+    if kwarg == "symbol_gen":
+        with pytest.raises(MXNetError, match="did not share aux cell"):
+            mxt.serve.serve_decoder(sym, _torch_args(params),
+                                    symbol_gen=_gen(2 * CAP), **kw)
+        return
+    with pytest.raises(MXNetError, match="draft_params"):
+        mxt.serve.serve_decoder(sym, _torch_args(params),
+                                draft_symbol_gen=_gen(), **kw)
+    with pytest.raises(MXNetError, match="symbol_gen"):
+        mxt.serve.serve_decoder(sym, _torch_args(params),
+                                draft_symbol_gen=_gen(),
+                                draft_params=_torch_args(params), **kw)
 
 
 def test_submit_refuses_prefix_id(params):
+    """A ``prefix_id`` whose stored tokens do not head the new prompt is
+    refused as a join (a miss and a mismatch, never a wrong join): the
+    sequence decodes as a cold one and its own prompt is stored under the
+    id, which the next matching submit joins."""
     sched = mxt.serve.serve_decoder(
-        ttfm.get_decode_symbol(vocab_size=V, d_model=D, n_layer=L,
-                               n_head=H, capacity=CAP, per_slot=True),
-        _torch_args(params), ladder=[1], clock=FakeClock(), start=False,
-        context=CPU)
-    with pytest.raises(MXNetError, match="prefix store"):
-        sched.submit([1, 2], prefix_id="sys")
+        _gen()(1), _torch_args(params), ladder=[1], clock=FakeClock(),
+        start=False, context=CPU, symbol_gen=_gen(), prefill_chunk=4,
+        prefix_cache_mb=1)
+    first = sched.submit([1, 2, 3, 4, 5], max_new_tokens=3, prefix_id="sys")
+    sched.pump()
+    other = sched.submit([9, 8, 7, 6, 5], max_new_tokens=3, prefix_id="sys")
+    sched.pump()
+    st = sched.stats()["prefix"]
+    assert st["hits"] == 0 and st["mismatches"] == 1 and st["misses"] == 2
+    cold = mxt.serve.serve_decoder(
+        _gen()(1), _torch_args(params), ladder=[1], clock=FakeClock(),
+        start=False, context=CPU, prefix_cache_mb=0)
+    ref = cold.submit([9, 8, 7, 6, 5], max_new_tokens=3)
+    cold.pump()
+    assert other.result(timeout=0).tolist() == ref.result(timeout=0).tolist()
+    again = sched.submit([9, 8, 7, 6, 5], max_new_tokens=3, prefix_id="sys")
+    sched.pump()
+    assert sched.stats()["prefix"]["hits"] == 1
+    assert again.result(timeout=0).tolist() == \
+        other.result(timeout=0).tolist()
+    assert len(first.result(timeout=0)) == 3
 
 
 # --------------------------------------------------------- weights files

@@ -166,7 +166,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     ck.decode_attention(torch.randn(1, 1, 1, 64), torch.randn(1, 1, 8, 64),
                         torch.randn(1, 1, 8, 64),
                         torch.tensor([3], dtype=torch.int32))
-    assert ck.launch_counts() == {n: 0 for n in ck.KERNELS}
+    assert ck.launch_counts() == {n: 0 for n in ck.COUNTERS}
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -50,6 +50,8 @@ def _imported_roots(path):
 def test_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch as mx\n"
             "mx.models.transformer.get_decode_symbol(per_slot=True)\n"
+            "mx.models.transformer.get_decode_symbol(per_slot=True, "
+            "cache_dtype='fp8').simple_bind(ctx=mx.cpu(), data=(1, 1))\n"
             "mx.models.resnet.get_symbol(10, 8, '3,16,16')\n"
             "import numpy as np\n"
             "from mxnet_tpu_torch.ops import quant\n"
@@ -142,18 +144,26 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_inference_only_binding():
     """The decode graph is inference-only: it binds for training (the
     port trains), but its attention_decode op refuses a training
-    forward."""
-    sym = ttfm.get_decode_symbol(vocab_size=16, d_model=8, n_layer=1,
-                                 n_head=2, capacity=8, per_slot=True)
-    mod = mxt.mod.Module(sym, label_names=[], context=mxt.cpu())
-    mod.bind([("data", (1, 1))], None, for_training=True)
-    mod.init_params(arg_params={}, aux_params={}, allow_missing=True)
-    with pytest.raises(MXNetError, match="inference op"):
-        mod.forward(mxt.io.DataBatch([np.zeros((1, 1), np.int32)], []),
-                    is_train=True)
-    with pytest.raises(MXNetError, match="fp8"):
-        ttfm.get_decode_symbol(vocab_size=16, d_model=8, n_layer=1,
-                               n_head=2, capacity=8, cache_dtype="fp8")
+    forward — with float32 and with fp8 cache cells (``cache_dtype``),
+    which bind as float8 storage and serve an inference forward."""
+    for cache_dtype, want in ((None, torch.float32),
+                              ("fp8", torch.float8_e4m3fn),
+                              ("e5m2", torch.float8_e5m2)):
+        sym = ttfm.get_decode_symbol(vocab_size=16, d_model=8, n_layer=1,
+                                     n_head=2, capacity=8, per_slot=True,
+                                     cache_dtype=cache_dtype)
+        mod = mxt.mod.Module(sym, label_names=[], context=mxt.cpu())
+        mod.bind([("data", (1, 1))], None, for_training=True)
+        mod.init_params(initializer=None, arg_params={}, aux_params={},
+                        allow_missing=True)
+        cache = mod._exec_group.executor.aux_dict["lm_l0_attn_k_cache"]
+        assert cache.astorch().dtype == want
+        batch = mxt.io.DataBatch([np.zeros((1, 1), np.int32)], [])
+        with pytest.raises(MXNetError, match="inference op"):
+            mod.forward(batch, is_train=True)
+        mod.forward(batch, is_train=False)
+        assert cache.astorch().dtype == want
+        assert mod.get_outputs()[0].shape == (1, 1, 16)
 
 
 def test_new_subpackages_are_guarded():

@@ -205,7 +205,7 @@ def test_training_wrappers_on_cpu_update_in_place_and_count_nothing():
     x = _t(rs.randn(4, 10).astype(np.float32))
     p = ck.softmax(x)
     ck.softmax_ce_bwd(p, _t(np.arange(4, dtype=np.float32)), 1.0)
-    assert ck.launch_counts() == {n: 0 for n in ck.KERNELS}
+    assert ck.launch_counts() == {n: 0 for n in ck.COUNTERS}
 
 
 def test_training_ops_carry_cuda_variants():
