@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all sixteen in parallel), print the build seconds,
+   ``nvcc`` per source, all sixteen in parallel; four of them hold a
+   float32 and a bfloat16 instance), print the build seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
    computes in full float32);
@@ -19,7 +20,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step's 33 conv outputs at batch 32, and edges; the flash-decode
    kernel's fp8 instances over float8_e4m3fn and float8_e5m2 cells at
    S = 1, 4, 64, Dh 64 and 128, cursors 0 / mid / C - S and NaN cells,
-   after ``rtc.fp8_cast`` gave the same bytes on the card as on the CPU);
+   after ``rtc.fp8_cast`` gave the same bytes on the card as on the CPU;
+   the bfloat16 instances of softmax, the CE gradient and the BatchNorm
+   pair at the bfloat16 ResNet-50 path's shapes and edges, bounds at
+   bfloat16 bytes);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -125,7 +129,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one stream teacher-forced card vs CPU over the card's cells within
    FP8_LOGIT_TOL;
 23. profile a rung-8 S=64 prefill window and a rung-8 speculative
-   iteration: wall, device busy, launches, device time by group.
+   iteration: wall, device busy, launches, device time by group;
+24. (run after 18) train ResNet-50, plain and fused, through
+   ``Module(compute_dtype="bfloat16").fit`` as in phase 5, telemetry on:
+   img/s, p50/p99, the MFU readings, exactly 1 ``softmax_bf16`` + 1
+   ``softmax_ce_bwd_bf16`` (+ 33 ``bn_stats_bf16`` + 33
+   ``bn_apply_relu_bf16`` fused) + 157 ``sgd_mom`` per step and no float32
+   instance, a finite loss, and every bound cell still float32;
+25. bfloat16 card vs CPU at batch 2 (phase 6's parameters with random
+   BatchNorm statistics and affine, TF32 off): the inference forward and
+   a training step's forward within ``BF16_SPREAD`` times the CPU's own
+   bfloat16-vs-float32 distance (centered log-probabilities, loss);
+26. serve ResNet-50, plain and fused, in bfloat16 at ladder [1, 2, 4, 8]
+   with phase 12's requests and parameters: req/s, p50/p99, the softmax
+   (and ``bn_apply_relu``) library loaded by warmup and nothing after,
+   exactly 1 ``softmax_bf16`` (+ 33 ``bn_apply_relu_bf16``) per forward,
+   outputs within ``INT8_TOL`` of the float32 ladder's, top-1 agreement;
+27. profile bfloat16 training steps (plain, fused, fused, plain; 2 each)
+   and 8 rung-8 dispatches of each bfloat16 ladder.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
@@ -134,8 +155,9 @@ while fitting with Adam, the LayerNorm and GeLU backward kernels and
 flash attention while fitting the LM, the quantized kernels while
 serving int8 and fp8, the BatchNorm pair while fitting and serving the
 fused ResNet-50, ``decode_attention_fp8`` (the decode kernel's fp8
-instances) while serving the fp8 caches — max abs error against the plain
-version, kernel /
+instances) while serving the fp8 caches, the four ``*_bf16`` instances
+while fitting and serving ResNet-50 in bfloat16 — max abs error against
+the plain version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
 checkout, the script exits non-zero and prints no result.
@@ -164,12 +186,17 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
        "ln_bwd_dparams": 5e-4, "bias_gelu_dx": 2e-5,
        "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0,
-       "bn_stats": 1e-5, "bn_apply_relu": 0.0}
+       "bn_stats": 1e-5, "bn_apply_relu": 0.0,
+       "softmax_bf16": 1.0, "softmax_ce_bwd_bf16": 0.0,
+       "bn_stats_bf16": 1e-5, "bn_apply_relu_bf16": 0.0}
 # bn_stats' error is relative to each channel's sum of squares (which also
 # bounds its sum: sum(x)^2 <= n sum(x^2)): float32 sums of up to 401,408
 # terms (the stem's channels at batch 32), taken in another order than
 # torch.sum's; bn_apply_relu rounds its product and sum as the plain
-# version does, so it must match exactly
+# version does, so it must match exactly. The bfloat16 instances: softmax
+# in bfloat16 ulps (1: a row's float32 sum in another order can move a
+# quotient across a rounding boundary), the CE gradient and the apply pass
+# exactly, the statistics as bn_stats
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -189,6 +216,10 @@ REPLACES = {
     "dequant_rows": "mxnet_tpu/ops/quant.py:234",
     "bn_stats": "mxnet_tpu/ops/pallas_kernels.py:217",
     "bn_apply_relu": "mxnet_tpu/ops/pallas_kernels.py:231",
+    "softmax_bf16": "mxnet_tpu/ops/pallas_kernels.py:104",
+    "softmax_ce_bwd_bf16": "mxnet_tpu/ops/pallas_kernels.py:112",
+    "bn_stats_bf16": "mxnet_tpu/ops/pallas_kernels.py:217",
+    "bn_apply_relu_bf16": "mxnet_tpu/ops/pallas_kernels.py:231",
 }
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
@@ -215,11 +246,18 @@ QUANT_KERNELS = ("qfc_matmul", "dequant_rows")
 QUANT_PARITY_TOL = 1e-5  # card vs CPU quantized probabilities, TF32 off
 QUANT_LOGIT_RTOL = 1e-4  # the same, on logits, of their largest magnitude
 CBR_KERNELS = ("bn_stats", "bn_apply_relu")
+BF16_KERNELS = ("softmax_bf16", "softmax_ce_bwd_bf16", "bn_stats_bf16",
+                "bn_apply_relu_bf16")
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
 FUSED_TOL = 1e-4        # fused vs plain ResNet-50 probabilities on the card
 MFU_RTOL = 0.10         # mfu.achieved_flops_per_sec vs FLOPs / p50 step
+#: bfloat16 card vs CPU (phase 25): within this many times the CPU's own
+#: bfloat16-vs-float32 distance — cuDNN and oneDNN round bfloat16 at other
+#: places; on a narrow ResNet the port's and the JAX package's bfloat16
+#: fits differ by 0.95-2.2 times that distance (tests/test_torch_bf16.py)
+BF16_SPREAD = 3.0
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores: mfu.model's peak
 #: the decode fast paths (phases 19-24): the prefill chunk and the verify
 #: window; 8 prompts of 65-150 tokens (more than one chunk, remainders)
@@ -412,11 +450,13 @@ def phase_kernels(mx, ck):
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
     calls.update(_bn_kernels(mx, ck, rs, t, rec))
+    calls.update(_bf16_kernels(mx, ck, rs, t, rec))
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
-        err = r.get("rel_err", r["max_abs_err"])
+        err = r.get("ulps", r.get("rel_err", r["max_abs_err"]))
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
               + (f"rel_err={err:.3g} " if "rel_err" in r else "")
+              + (f"bf16_ulps={err:.3g} " if "ulps" in r else "")
               + f"(tol {TOL[name]}) kernel_ms={r['ms']:.5f} "
               f"device_ms={dev_ms} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']} "
@@ -862,6 +902,125 @@ def _bn_kernels(mx, ck, rs, t, rec):
     return {"bn_stats": lambda: [ck.bn_stats(x) for x in xs],
             "bn_apply_relu": lambda: [ck.bn_apply_relu(x, *p)
                                       for x, p in zip(xs, ss)]}
+
+
+def _bf16_ulps(a, b):
+    """Largest |a - b| in bfloat16 ulps of the larger magnitude (values
+    below the normal range in ulps of the smallest normal)."""
+    import torch
+    a, b = a.double(), b.double()
+    mag = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                        torch.tensor(2.0 ** -126, dtype=torch.float64,
+                                     device=a.device))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max()) if a.numel() else 0.0
+
+
+def _bf16_kernels(mx, ck, rs, t, rec):
+    """The four bfloat16 instances at the bfloat16 ResNet-50 path's shapes
+    (the (32, 1000) head; the fused net's 33 conv outputs per batch-32
+    step, the stem's (32, 64, 112, 112) alone printed beside) and edges:
+    C = 7 (odd: one value at a time), 1025 (block per row), 65536, a
+    misaligned view; labels 257 and 999 (float32, which bfloat16 would
+    round to 256 and 1000), outside the classes, ignored; HW = 49 and 15
+    (one value at a time), 196 (8-byte loads). Softmax within one
+    bfloat16 ulp of its plain version (float32 sums in another order can
+    move a quotient across a rounding boundary), the CE gradient and the
+    apply pass bit for bit, the statistics relative to each channel's sum
+    of squares. Bounds at bfloat16 bytes. Fills ``rec``; returns the
+    timed calls."""
+    import numpy as np
+    import torch
+    bf = torch.bfloat16
+    N, C = TRAIN_BATCH, TRAIN_CLASSES
+
+    def tb(a):
+        return t(a).to(bf)
+
+    def skew(n, *shape):
+        """A contiguous bfloat16 view 2 bytes off its allocation."""
+        return tb(4 * rs.randn(1 + n).astype(np.float32))[1:].view(*shape)
+    x = tb(4 * rs.randn(N, C).astype(np.float32))
+    ulps = _bf16_ulps(ck.softmax(x), ck.softmax_plain(x))
+    for e in [tb(4 * rs.randn(*sh).astype(np.float32))
+              for sh in ((1, 7), (3, 1025), (2, 65536), (4, 2))] + \
+            [skew(4 * C, 4, C)]:
+        ulps = max(ulps, _bf16_ulps(ck.softmax(e), ck.softmax_plain(e)))
+    rec["softmax_bf16"] = dict(
+        max_abs_err=_max_err(ck.softmax(x), ck.softmax_plain(x)), ulps=ulps,
+        ms=_timed(lambda: ck.softmax(x)),
+        plain_ms=_timed(lambda: ck.softmax_plain(x)),
+        library_ms=_timed(lambda: torch.softmax(x, -1)),
+        bound=_bound_ms(2 * N * C * 2, 5 * N * C))
+    p = ck.softmax_plain(x)
+    lab = t(np.concatenate([rs.randint(0, C, N - 5),
+                            [257, 999, C, -1, C - 1]]).astype(np.float32))
+    err = 0.0
+    for pp, ll in ((p, lab), (skew(N * C, N, C), lab),
+                   (ck.softmax_plain(tb(rs.randn(N, 7).astype(np.float32))),
+                    lab.clamp(max=6))):
+        for s in (1.0, 1 / N):
+            for u in (False, True):
+                got = ck.softmax_ce_bwd(pp, ll, s, u, -1.0)
+                want = ck.softmax_ce_bwd_plain(pp, ll, s, u, -1.0)
+                if not torch.equal(got, want):
+                    err = max(err, _max_err(got, want), 1e-30)
+    rec["softmax_ce_bwd_bf16"] = dict(
+        max_abs_err=err, ms=_timed(lambda: ck.softmax_ce_bwd(p, lab, 1.0)),
+        plain_ms=_timed(lambda: ck.softmax_ce_bwd_plain(p, lab, 1.0)),
+        library_ms=None,     # no one PyTorch call emits this gradient
+        bound=_bound_ms(2 * N * C * 2 + N * 4, 3 * N * C))
+    shapes = _cbr_shapes(mx, TRAIN_BATCH)
+    xs = [tb((2 * rs.randn(*sh) + 0.5).astype(np.float32)) for sh in shapes]
+    ss = [(t((1 + 0.1 * rs.randn(sh[1])).astype(np.float32)),
+           t(rs.randn(sh[1]).astype(np.float32))) for sh in shapes]
+    cases = xs[:1] + xs[-1:] + [
+        tb((2 * rs.randn(*e) + 0.5).astype(np.float32))
+        for e in ((4, 256, 14, 14), (3, 16, 7, 7), (5, 3, 3, 5),
+                  (2, 8, 1, 1), (1, 1, 1, 1))] + [skew(2 * 8 * 16, 2, 8, 4, 4)]
+    rel_s = abs_s = abs_a = 0.0
+    for xx in cases:
+        r, a = _stats_err(ck, xx)
+        rel_s, abs_s = max(rel_s, r), max(abs_s, a)
+        c = xx.shape[1]
+        sc = t((1 + 0.1 * rs.randn(c)).astype(np.float32))
+        sh = t(rs.randn(c).astype(np.float32))
+        got, want = ck.bn_apply_relu(xx, sc, sh), \
+            ck.bn_apply_relu_plain(xx, sc, sh)
+        if not torch.equal(got, want):
+            abs_a = max(abs_a, _max_err(got, want), 1e-30)
+    elems = sum(int(np.prod(sh)) for sh in shapes)
+    chans = sum(sh[1] for sh in shapes)
+    stem = xs[0]
+    print(f"kernels: the bfloat16 BatchNorm pair over the fused ResNet-50 "
+          f"step's {len(shapes)} conv outputs ({elems} values, "
+          f"{2 * elems / 1e6:.1f} MB); stem {tuple(stem.shape)} alone: "
+          f"bn_stats_bf16 {_timed(lambda: ck.bn_stats(stem)):.5f} ms, "
+          f"bn_apply_relu_bf16 "
+          f"{_timed(lambda: ck.bn_apply_relu(stem, *ss[0])):.5f} ms")
+    rec["bn_stats_bf16"] = dict(
+        max_abs_err=abs_s, rel_err=rel_s,
+        ms=_timed(lambda: [ck.bn_stats(xx) for xx in xs], reps=50, warm=5),
+        plain_ms=_timed(lambda: [ck.bn_stats_plain(xx) for xx in xs],
+                        reps=20, warm=2),
+        # one read of x and the moments the op derives from the sums
+        library_ms=_timed(lambda: [torch.var_mean(xx, dim=(0, 2, 3),
+                                                  unbiased=False)
+                                   for xx in xs], reps=20, warm=2),
+        bound=_bound_ms(2 * elems + 8 * chans, 3 * elems))
+    rec["bn_apply_relu_bf16"] = dict(
+        max_abs_err=abs_a,
+        ms=_timed(lambda: [ck.bn_apply_relu(xx, *q)
+                           for xx, q in zip(xs, ss)], reps=50, warm=5),
+        plain_ms=_timed(lambda: [ck.bn_apply_relu_plain(xx, *q)
+                                 for xx, q in zip(xs, ss)], reps=20, warm=2),
+        library_ms=None,    # no one PyTorch call scales, shifts and clamps
+        bound=_bound_ms(4 * elems + 8 * chans, 3 * elems))
+    return {"softmax_bf16": lambda: ck.softmax(x),
+            "softmax_ce_bwd_bf16": lambda: ck.softmax_ce_bwd(p, lab, 1.0),
+            "bn_stats_bf16": lambda: [ck.bn_stats(xx) for xx in xs],
+            "bn_apply_relu_bf16": lambda: [ck.bn_apply_relu(xx, *q)
+                                           for xx, q in zip(xs, ss)]}
 
 
 def _model(mx, rs):
@@ -1362,9 +1521,9 @@ def phase_adam(mx, ck):
 #: / _backward, so no bare "softmax_" prefix), the convolution and GEMM
 #: libraries (cuDNN, cuBLAS, CUTLASS), PyTorch's own elementwise /
 #: reduction kernels, and copies
-_PORT_KERNELS = ("softmax_warp_f32", "softmax_block_f32", "softmax_ce_bwd_f32",
-                 "sgd_mom_f32", "adam_f32", "ln_fwd_f32", "bias_gelu_",
-                 "emb_gather", "decode_attn", "ln_bwd_dx_f32", "ln_dparams_",
+_PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
+                 "adam_f32", "ln_fwd_f32", "bias_gelu_", "emb_gather",
+                 "decode_attn", "ln_bwd_dx_f32", "ln_dparams_",
                  "flash_fwd_f32", "bn_stats_", "bn_apply_relu_")
 
 
@@ -1717,7 +1876,7 @@ def _quant_group(key):
     for name in ("dequant_rows", "qfc_matmul"):
         if name in key:
             return f"{name} kernel"
-    if "softmax_warp_f32" in key or "softmax_block_f32" in key:
+    if "softmax_rows_" in key:
         return "softmax kernel"
     if key.startswith("Memcpy") or key.startswith("Memset"):
         return "copies"
@@ -1988,13 +2147,19 @@ def phase_fused_profile(mx, fused_server, plain_server, steps=2):
         h.result(timeout=0)
     for name, server in (("plain", plain_server), ("fused", fused_server)):
         runs[name + " serve"] = [_profiled(lambda s=server: dispatch(s), 8)]
+    _print_profiles("fused profile", runs, steps)
+
+
+def _print_profiles(label, runs, steps):
+    """Print ``_profiled`` readings: {name: [readings]}, "serve" names
+    over 8 dispatches each, the others over ``steps`` training steps."""
     for name, rr in runs.items():
         n = len(rr)
         wall = sum(r[0] for r in rr) / n
         busy = sum(r[1] for r in rr) / n
         launches = sum(r[2] for r in rr) / n
         unit = "dispatch" if "serve" in name else "step"
-        print(f"fused profile: {name}, {n * (8 if 'serve' in name else steps)}"
+        print(f"{label}: {name}, {n * (8 if 'serve' in name else steps)}"
               f" {unit}s: wall {wall:.2f} ms/{unit}, device busy {busy:.3f} "
               f"ms/{unit} ({100 * busy / wall:.1f}% of wall), "
               f"{launches:.1f} kernel launches per {unit}")
@@ -2006,6 +2171,212 @@ def phase_fused_profile(mx, fused_server, plain_server, steps=2):
         for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
             print(f"  group {g}: {t:.3f} ms/{unit} ({100 * t / busy:.1f}% "
                   f"of device time), {c:.1f} launches/{unit}")
+
+
+# --------------------------------------------------------------------------
+# phases 24-27: ResNet-50 in bfloat16 mixed precision (compute_dtype)
+# --------------------------------------------------------------------------
+def _bf16_cells(label, mod):
+    """Every bound cell of ``mod`` (master weights, gradients, moving
+    statistics) is still float32 under compute_dtype."""
+    import torch
+    exe = mod._exec_group.executor
+    got = {v.astorch().dtype for d in (exe.arg_dict, exe.aux_dict,
+                                       exe.grad_dict) for k, v in d.items()
+           if k not in ("data", "softmax_label")}
+    print(f"{label}: bound cells {sorted(map(str, got))}")
+    if got != {torch.float32}:
+        raise AssertionError(f"{label}: cells left float32: {got}")
+
+
+def phase_bf16_train(mx, ck):
+    """ResNet-50, plain and fused, through Module(compute_dtype="bfloat16")
+    .fit on gpu(0): phase 5's data, Xavier seed and SGD, batch 32, 8
+    batches, telemetry on. Exactly the bfloat16 instances launch (1
+    softmax + 1 CE gradient, and for the fused net 33 + 33 BatchNorm
+    kernels) beside 157 float32 sgd_mom per step, and nothing else.
+    Returns ({net: launch counts}, {net: module})."""
+    import torch
+    print(_tf32(True) + " (PyTorch's default; cuDNN's bfloat16 "
+          "convolutions do not read it)")
+    counts, mods = {}, {}
+    for net, build in (("plain", _resnet50), ("fused", _fused50)):
+        X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
+        it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+        mod = mx.mod.Module(build(mx), context=mx.gpu(0),
+                            compute_dtype="bfloat16")
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(mx.initializer.Xavier(
+            rng=torch.Generator().manual_seed(SEED)))
+        label = f"bf16 {net} train"
+        counts[net], per_step = _fit_phase(
+            mx, ck, mod, it, label, TRAIN_BATCH, "img",
+            ("conv0_weight", "fc1_weight"), optimizer_params=SGD)
+        n_cbr = sum(n.op == "FusedConvBNReLU"
+                    for n in mod.symbol._topo_nodes())
+        want = dict.fromkeys(per_step, 0)
+        want.update(softmax_bf16=1, softmax_ce_bwd_bf16=1,
+                    sgd_mom=len(mod.get_params()[0]))
+        if n_cbr:
+            want.update(bn_stats_bf16=n_cbr, bn_apply_relu_bf16=n_cbr)
+        print(f"{label}: want per step "
+              f"{ {k: v for k, v in want.items() if v} }, nothing else")
+        if per_step != want:
+            raise AssertionError(f"{label}: launches per step {per_step}")
+        _bf16_cells(label, mod)
+        mods[net] = (mod, it)
+    return counts, mods
+
+
+def _bf16_forward(mx, sym, args, auxs, ctx, X, y, cd, is_train):
+    """One forward of ``sym`` on ``ctx``: (probabilities as float32 numpy,
+    the batch's mean cross-entropy)."""
+    import numpy as np
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=cd)
+    mod.bind([("data", X.shape)], [("softmax_label", y.shape)],
+             for_training=is_train)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(args, ctx),
+                    aux_params=mx.convert.params_from_numpy(auxs, ctx))
+    mod.forward(mx.io.DataBatch([X], [y]), is_train=is_train)
+    p = mod.get_outputs()[0].asnumpy()
+    loss = float(-np.log(np.maximum(p[np.arange(len(y)), y.astype(int)],
+                                    1e-30)).mean())
+    return p, loss
+
+
+def phase_bf16_parity(mx):
+    """ResNet-50 in bfloat16 at batch 2, card against the port's CPU run
+    from the same parameters (phase 6's, with random BatchNorm statistics
+    and affine), TF32 off: the inference forward and the first training
+    step's forward (its loss). bfloat16 rounds at other places in cuDNN
+    and oneDNN, so the card is held to the CPU within BF16_SPREAD times
+    the distance between the CPU's own bfloat16 and float32 runs: the
+    centered log-probabilities (max abs) and the loss."""
+    import numpy as np
+    print(_tf32(False) + " (bf16 parity phase)")
+    args, auxs, X, y = _resnet50_start(mx, 2)
+    rs = np.random.RandomState(SEED + 9)
+    args = {k: ((1 + 0.2 * rs.randn(*v.shape)) if k.endswith("_gamma")
+                else 0.2 * rs.randn(*v.shape) if k.endswith("_beta")
+                else v).astype(np.float32) for k, v in args.items()}
+    auxs = {k: (0.2 * rs.randn(*v.shape) if k.endswith("_mean")
+                else 1 + 0.5 * rs.rand(*v.shape)).astype(np.float32)
+            for k, v in auxs.items()}
+    sym = _resnet50(mx)
+    for is_train in (False, True):
+        t0 = time.perf_counter()
+        runs = {k: _bf16_forward(mx, sym, args, auxs, ctx, X, y, cd,
+                                 is_train)
+                for k, ctx, cd in (("card", mx.gpu(0), "bfloat16"),
+                                   ("cpu", mx.cpu(), "bfloat16"),
+                                   ("cpu32", mx.cpu(), None))}
+        z = {k: _centered_log(p) for k, (p, _) in runs.items()}
+        d = float(np.abs(z["card"] - z["cpu"]).max())
+        spread = float(np.abs(z["cpu"] - z["cpu32"]).max())
+        dl = abs(runs["card"][1] - runs["cpu"][1])
+        # the loss's own bfloat16 spread may cancel to nearly 0: the
+        # centered log-probs' spread bounds a row's log-prob moves too
+        spread_l = max(abs(runs["cpu"][1] - runs["cpu32"][1]), spread)
+        mode = "training step's forward" if is_train else "inference"
+        print(f"bf16 parity ({mode}, batch 2, {time.perf_counter() - t0:.1f}"
+              f" s): centered log-probs card vs CPU {d:.4g}, CPU bfloat16 "
+              f"vs float32 {spread:.4g} (limit {BF16_SPREAD} x); loss card "
+              f"{runs['card'][1]:.6f} CPU {runs['cpu'][1]:.6f} float32 "
+              f"{runs['cpu32'][1]:.6f} (limit {BF16_SPREAD} x "
+              f"{spread_l:.3g}); top-1 card {runs['card'][0].argmax(1)}"
+              f" CPU {runs['cpu'][0].argmax(1)}")
+        if not (np.isfinite(z["card"]).all() and
+                d <= BF16_SPREAD * spread and
+                dl <= BF16_SPREAD * spread_l):
+            raise AssertionError(f"bf16 parity ({mode}): card and CPU "
+                                 "disagree beyond bfloat16's own spread")
+
+
+def phase_bf16_serve(mx, ck, plain_mod, plain_outs):
+    """ResNet-50, plain and fused, served in bfloat16 through
+    mx.serve.serve(compute_dtype="bfloat16") at ladder QUANT_RUNGS with
+    phase 12's scripted requests and parameters: req/s, p50/p99, nothing
+    loaded after warmup, exactly 1 softmax_bf16 (+ 33 bn_apply_relu_bf16
+    for the fused net) per forward and no float32 instance, outputs
+    within INT8_TOL of the float32 ladder's (bfloat16 keeps 8 significant
+    bits, as the int8 tier's weights keep about 8, and rounds the
+    activations too), top-1 agreement reported. Returns ({kernel counter:
+    launches}, {net: server})."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import quant
+    print(_tf32(True) + " (bf16 serving phase)")
+    rung = QUANT_RUNGS[-1]
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in plain_mod.get_params())
+    launches, servers = {}, {}
+    ref = np.concatenate(plain_outs)
+    for net, build, a, x in (("plain", _resnet50, args, auxs),
+                             ("fused", _fused50, _renamed(args),
+                              _renamed(auxs))):
+        mod = mx.mod.Module(build(mx), context=mx.gpu(0))
+        mod.bind([("data", (rung,) + TRAIN_IMAGE)],
+                 [("softmax_label", (rung,))], for_training=False)
+        mod.init_params(arg_params=mx.convert.params_from_numpy(a, mx.gpu(0)),
+                        aux_params=mx.convert.params_from_numpy(x, mx.gpu(0)))
+        n_cbr = sum(n.op == "FusedConvBNReLU"
+                    for n in mod.symbol._topo_nodes())
+        libs = ("softmax", "bn_apply_relu") if n_cbr else ("softmax",)
+        server, warm_loads, forwards, _, outs = _serve_ladder(
+            mx, ck, mod, f"bf16 {net}", libs, compute_dtype="bfloat16")
+        counts = ck.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want["softmax_bf16"] = forwards
+        if n_cbr:
+            want["bn_apply_relu_bf16"] = n_cbr * forwards
+        if warm_loads != len(libs) or counts != want:
+            raise AssertionError(f"bf16 {net} serve: warmup loaded "
+                                 f"{warm_loads} libraries (want "
+                                 f"{len(libs)}), launches "
+                                 f"{ {k: v for k, v in counts.items() if v} }"
+                                 f", want {forwards} forwards' worth")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        got = np.concatenate(outs)
+        zg, zr = _centered_log(got), _centered_log(ref)
+        top1 = float((got.argmax(1) == ref.argmax(1)).mean())
+        print(f"bf16 {net} serve: max |prob - float32 ladder's| = "
+              f"{float(np.abs(got - ref).max()):.3g} (tolerance "
+              f"{quant.INT8_TOL}); centered logits "
+              f"{float(np.abs(zg - zr).max()) / float(np.abs(zr).max()):.3g}"
+              f" of the float32 ladder's largest apart; top-1 agreement "
+              f"{top1:.3f} over {len(got)} rows (not gated)")
+        if not np.allclose(got, ref, **quant.INT8_TOL):
+            raise AssertionError(f"bf16 {net} serve leaves INT8_TOL of the "
+                                 "float32 ladder")
+        servers[net] = server
+    return launches, servers
+
+
+def phase_bf16_profile(mods, servers, steps=2):
+    """bfloat16 ResNet-50 under the profiler: training steps at batch 32,
+    plain and fused in turns (plain, fused, fused, plain), and 8 rung-8
+    dispatches of each bfloat16 ladder: wall, device busy, launches,
+    device time by group."""
+    print(_tf32(True) + " (bf16 profile phase)")
+    it = mods["plain"][1]
+    it.reset()
+    batch = next(iter(it))
+    runs = {"plain": [], "fused": []}
+    for net in ("plain", "fused", "fused", "plain"):
+        def step(m=mods[net][0]):
+            m.forward_backward(batch)
+            m.update()
+        runs[net].append(_profiled(step, steps))
+    Xs = batch.data[0].asnumpy()[:QUANT_RUNGS[-1]]
+
+    def dispatch(server):
+        h = server.submit({"data": Xs})
+        if server.pump() != 1:
+            raise AssertionError("a full-rung request did not dispatch")
+        h.result(timeout=0)
+    for net, server in servers.items():
+        runs[net + " serve"] = [_profiled(lambda s=server: dispatch(s), 8)]
+    _print_profiles("bf16 profile", runs, steps)
 
 
 # --------------------------------------------------------------------------
@@ -2429,7 +2800,14 @@ def main():
     phase_fused_parity(mx, ck)
     cbr_serve_counts, f_server = phase_fused_serve(mx, ck, q_mod, float_outs)
     phase_fused_profile(mx, f_server, q_servers["float32"])
-    for server in list(q_servers.values()) + [f_server]:
+    bf16_counts, bf16_mods = phase_bf16_train(mx, ck)
+    phase_bf16_parity(mx)
+    bf16_serve_counts, bf16_servers = phase_bf16_serve(mx, ck, q_mod,
+                                                       float_outs)
+    phase_bf16_profile(bf16_mods, bf16_servers)
+    del bf16_mods
+    for server in list(q_servers.values()) + [f_server] + \
+            list(bf16_servers.values()):
         server.stop()
     mx.telemetry.trace.configure(capacity=1 << 16)
     cpu_ref = _CpuRef(mx, params)
@@ -2446,13 +2824,14 @@ def main():
     launches.update({k: cbr_counts[k] + cbr_serve_counts[k]
                      for k in CBR_KERNELS})
     launches["decode_attention_fp8"] = fp8_launches
+    for name in BF16_KERNELS:
+        launches[name] = sum(c[name] for c in bf16_counts.values()) + \
+            bf16_serve_counts.get(name, 0)
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]
-        lib = "decode_attention" if name == "decode_attention_fp8" else name
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"mxnet_tpu_torch/csrc/{ck._SPECS[lib][0]}",
+            "name": name, "route": "cuda", "source": ck.source(name),
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],

@@ -19,8 +19,25 @@ heads (whose backward ignores them) and zeros for the other outputs, and
 writes each leaf's gradient into its ``grad_dict`` cell — replacing it
 under ``"write"``, adding to it under ``"add"``; an argument the outputs
 do not depend on gets a zero gradient.
+
+Mixed precision (``compute_dtype="bfloat16"``, the JAX package's
+``_load_var``): every floating argument and aux state is cast to bfloat16
+where the graph reads it, while the cells keep their float32 storage —
+master weights, gradients and moving statistics. The cast is
+differentiable, so gradients come back float32; new aux values are
+written back in their cells' dtype. A variable that feeds a loss head's
+label slot keeps its dtype (class ids above 256 do not survive
+bfloat16). float16 is a later slice and raises. A cast that autograd
+does not record (every read of an inference forward, the aux states and
+inputs of a training one) is kept per source tensor and reused while
+that tensor's version counter stands still, so a served rung does not
+cast every parameter again on every forward; anything that writes a
+cell in place bumps its counter (PyTorch's in-place ops do, and so do
+the in-place update kernels' wrappers).
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -29,9 +46,53 @@ from .base import MXNetError
 from .ndarray import NDArray, to_torch_dtype
 from .ops.registry import dispatch
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "parse_compute_dtype"]
 
 _GRAD_REQS = ("write", "add", "null")
+
+#: id(source tensor) -> (weak reference to it, its version when cast, the
+#: cast): the casts of ``compute_dtype`` reads that autograd does not
+#: record, shared by every executor that reads the same cell; an entry
+#: leaves with its source tensor
+_CASTS = {}
+
+
+def _forget(ref, key):
+    if _CASTS.get(key, (None,))[0] is ref:
+        del _CASTS[key]
+
+
+def parse_compute_dtype(compute_dtype):
+    """``compute_dtype`` as the executor takes it: None (or float32) for
+    none, ``torch.bfloat16`` for ``"bfloat16"`` / ``torch.bfloat16`` (or
+    a numpy dtype or scalar type named ``bfloat16``). float16 and every
+    other type raise."""
+    if compute_dtype is None:
+        return None
+    if isinstance(compute_dtype, (str, torch.dtype)):
+        name = str(compute_dtype).replace("torch.", "")
+    else:       # a numpy dtype, or a scalar type such as np.float16
+        name = getattr(compute_dtype, "__name__", None) or str(compute_dtype)
+    if name in ("float32", "float"):
+        return None
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name in ("float16", "half", "fp16"):
+        raise MXNetError("compute_dtype=float16 is a later slice of the "
+                         "port (ROADMAP.md queue B); bfloat16 is ported")
+    raise MXNetError(f"compute_dtype={compute_dtype!r}: the port's mixed "
+                     "precision takes bfloat16")
+
+
+def _loss_label_names(symbol):
+    """Variables that feed a loss head's label slot (every input of a
+    loss op but its first)."""
+    names = set()
+    for node in symbol._topo_nodes():
+        if not node.is_variable and node.opdef().is_loss:
+            names.update(inp.name for inp, _ in node.inputs[1:]
+                         if inp.is_variable)
+    return names
 
 
 class Executor:
@@ -41,12 +102,16 @@ class Executor:
     lists in ``list_arguments`` / ``list_auxiliary_states`` order).
     ``grad_req``: ``"write"``, ``"add"`` or ``"null"``, one for all or a
     dict / list per argument; an argument without an ``args_grad`` cell
-    is not differentiated."""
+    is not differentiated. ``compute_dtype``: None, or ``"bfloat16"`` for
+    mixed precision (see the module docstring)."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None):
+                 aux_states=None, compute_dtype=None):
         self._symbol = symbol
         self._ctx = ctx
+        self.compute_dtype = parse_compute_dtype(compute_dtype)
+        self._label_names = _loss_label_names(symbol) \
+            if self.compute_dtype is not None else set()
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -70,7 +135,8 @@ class Executor:
         self._recorded = None     # (graph outputs, {name: leaf}) to train
 
     @staticmethod
-    def simple_bind(symbol, ctx, type_dict, shapes, grad_req):
+    def simple_bind(symbol, ctx, type_dict, shapes, grad_req,
+                    compute_dtype=None):
         """Bind with zero-filled cells: shapes from ``shapes`` plus
         inference, dtypes from ``type_dict`` (default float32) and the
         aux dtypes the ops declare; a zero gradient cell for each argument
@@ -89,7 +155,8 @@ class Executor:
         aux = {nm: NDArray(torch.zeros(s, dtype=aux_types[nm], device=dev),
                            ctx=ctx)
                for nm, s in zip(symbol.list_auxiliary_states(), aux_shapes)}
-        return Executor(symbol, ctx, args, grads, req, aux)
+        return Executor(symbol, ctx, args, grads, req, aux,
+                        compute_dtype=compute_dtype)
 
     @property
     def arg_arrays(self):
@@ -130,16 +197,34 @@ class Executor:
             self._recorded = (outs, leaves)
         return self.outputs
 
+    def _load(self, name, t):
+        """A variable's tensor as the graph reads it: cast to
+        ``compute_dtype`` when floating and not a loss label."""
+        if self.compute_dtype is None or not t.is_floating_point() or \
+                name in self._label_names or t.dtype == self.compute_dtype:
+            return t
+        if t.requires_grad:
+            return t.to(self.compute_dtype)
+        key = id(t)
+        hit = _CASTS.get(key)
+        if hit is not None and hit[0]() is t and hit[1] == t._version and \
+                hit[2].dtype == self.compute_dtype:
+            return hit[2]
+        cast = t.to(self.compute_dtype)
+        _CASTS[key] = (weakref.ref(t, lambda r, k=key: _forget(r, k)),
+                       t._version, cast)
+        return cast
+
     def _run(self, is_train, leaves):
         values = {}
         for node in self._nodes:
             if node.is_variable:
                 if node._extra.get("__is_aux__"):
-                    values[id(node)] = [self.aux_dict[node.name].astorch()]
+                    t = self.aux_dict[node.name].astorch()
                 else:
-                    values[id(node)] = [leaves[node.name]
-                                        if node.name in leaves else
-                                        self.arg_dict[node.name].astorch()]
+                    t = leaves[node.name] if node.name in leaves else \
+                        self.arg_dict[node.name].astorch()
+                values[id(node)] = [self._load(node.name, t)]
                 continue
             opdef = node.opdef()
             ins = [values[id(inp)][idx] for inp, idx in node.inputs]
@@ -156,8 +241,11 @@ class Executor:
             if n_aux and (is_train or opdef.stateful_infer):
                 for (inp, _), new in zip(node.inputs[len(ins) - n_aux:],
                                          new_aux):
-                    self.aux_dict[inp.name]._set(
-                        new.detach() if new.requires_grad else new)
+                    cell = self.aux_dict[inp.name]
+                    new = new.detach() if new.requires_grad else new
+                    if self.compute_dtype is not None:
+                        new = new.to(cell.astorch().dtype)
+                    cell._set(new)
             values[id(node)] = outs
         return [values[id(n)][i] for n, i in self._symbol._outputs]
 

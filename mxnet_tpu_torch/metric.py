@@ -36,12 +36,17 @@ def check_label_shapes(labels, preds):
 
 
 def _pair(label, pred):
-    """(label, pred) as tensors on the prediction's device."""
+    """(label, pred) as tensors on the prediction's device; a bfloat16
+    prediction (``compute_dtype``) is widened to float32, as
+    ``asnumpy()`` widens it."""
     p = pred.astorch() if isinstance(pred, NDArray) \
         else torch.as_tensor(np.asarray(pred))
     lab = label.astorch() if isinstance(label, NDArray) \
         else torch.as_tensor(np.asarray(label))
-    return lab.to(p.device), p.detach()
+    p = p.detach()
+    if p.dtype in (torch.bfloat16, torch.float16):
+        p = p.float()
+    return lab.to(p.device), p
 
 
 class EvalMetric:

@@ -4,7 +4,9 @@ The *leader* module (default bucket) owns the parameter cells; every
 other bucket binds with ``shared_module=`` the leader, so all buckets
 alias the SAME parameter NDArrays and a bucket switch copies no weights.
 The decode engine uses it as its slot-rung ladder (``_leader``,
-``_buckets``, ``warm_buckets``).
+``_buckets``, ``warm_buckets``). ``_module_kwargs`` are every bucket
+Module's constructor keywords; the serving engine adds ``compute_dtype``
+there, as the JAX package's engine does.
 """
 from __future__ import annotations
 

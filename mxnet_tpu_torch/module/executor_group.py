@@ -11,7 +11,8 @@ Training (``for_training=True``): every parameter gets a gradient cell
 the data inputs get one under ``inputs_need_grad``. ``forward`` / ``backward`` / ``get_outputs`` /
 ``get_input_grads`` / ``update_metric`` are the reference's group
 surface over the one executor; ``param_arrays`` and ``grad_arrays`` are
-flat, one cell per parameter.
+flat, one cell per parameter. ``compute_dtype`` (``"bfloat16"``) goes to
+the executor, which casts where the graph reads; the cells stay float32.
 """
 from __future__ import annotations
 
@@ -30,10 +31,12 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, shared_group=None,
-                 logger=logging, inputs_need_grad=False, grad_req="write"):
+                 logger=logging, inputs_need_grad=False, grad_req="write",
+                 compute_dtype=None):
         if len(contexts) != 1:
             raise MXNetError(f"the port binds one device, got {contexts}")
         self.symbol = symbol
+        self.compute_dtype = compute_dtype
         self.contexts = contexts
         self.context = contexts[0]
         self.logger = logger
@@ -109,7 +112,8 @@ class DataParallelExecutorGroup:
                                                 device=dev),
                                     ctx=self.context)
         self.executor = Executor(self.symbol, self.context, args, grads,
-                                 self.grad_req, aux)
+                                 self.grad_req, aux,
+                                 compute_dtype=self.compute_dtype)
         self.execs = [self.executor]
         self.param_arrays = [args[n] for n in self.param_names]
         self.grad_arrays = [grads.get(n) for n in self.param_names]

@@ -9,6 +9,11 @@ card, per parameter array. The JAX package fuses forward, backward and
 update into one jitted step on a single device; PyTorch runs eagerly and
 there is no program to fuse, so the port keeps the updater path, which
 computes the same numbers.
+
+``compute_dtype="bfloat16"`` is the JAX package's mixed precision: the
+graph reads every floating parameter, input and aux state cast to
+bfloat16 (labels of loss heads excepted), while the bound cells — master
+weights, gradients, optimizer states, moving statistics — stay float32.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import pickle
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import current_context
+from ..executor import parse_compute_dtype
 from ..initializer import Uniform
 from ..model import _create_kvstore, load_checkpoint
 from ..ndarray import NDArray
@@ -30,12 +36,15 @@ __all__ = ["Module"]
 class Module(BaseModule):
     """Train or predict over a single Symbol bound to one context
     (default: the current context, ``gpu(0)`` unless a ``with mx.cpu():``
-    scope says otherwise)."""
+    scope says otherwise). ``compute_dtype``: None, or ``"bfloat16"`` /
+    ``torch.bfloat16`` for mixed precision."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None):
+                 context=None, compute_dtype=None):
         super().__init__(logger=logger)
+        parse_compute_dtype(compute_dtype)      # float16 etc. raise here
+        self._compute_dtype = compute_dtype
         context = context if context is not None else current_context()
         self._context = list(context) if isinstance(context, (list, tuple)) \
             else [context]
@@ -165,7 +174,7 @@ class Module(BaseModule):
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, shared_group,
             logger=self.logger, inputs_need_grad=inputs_need_grad,
-            grad_req=grad_req)
+            grad_req=grad_req, compute_dtype=self._compute_dtype)
         self.for_training = bool(for_training)
         self.inputs_need_grad = bool(inputs_need_grad)
         self.binded = True

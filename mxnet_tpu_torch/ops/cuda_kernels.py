@@ -28,8 +28,18 @@ wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          s
 The first four serve the decode path; ``decode_attention`` has one C
 entry point per cache storage type (float32, float8_e4m3fn,
 float8_e5m2), and its fp8 launches count in ``decode_attention_fp8``
-(the wrapper that takes fp8 caches). With the ones from
-``layernorm_bwd_dx`` to ``flash_attention`` they train the transformer LM;
+(the wrapper that takes fp8 caches). ``softmax``, ``softmax_ce_bwd``,
+``bn_stats`` and ``bn_apply_relu`` have a float32 and a bfloat16
+instance (``compute_dtype="bfloat16"``, the JAX package's mixed
+precision): each wrapper takes the instance of its tensor's dtype, and
+the bfloat16 launches count in ``softmax_bf16``, ``softmax_ce_bwd_bf16``,
+``bn_stats_bf16`` and ``bn_apply_relu_bf16`` (the wrappers that take
+bfloat16). A bfloat16 instance reads bfloat16, computes in float32 as
+the TPU kernel does, and stores bfloat16 (float32 for the statistics);
+it is never the float32 kernel behind a cast. Every other kernel takes
+float32 only and raises on half precision, naming the later slice.
+With the ones from ``layernorm_bwd_dx`` to ``flash_attention`` they
+train the transformer LM;
 softmax / cross-entropy and the optimizer updates serve every training
 path; ``qfc_matmul`` and ``dequant_rows`` serve the quantized tiers
 (``QuantizedFullyConnected`` and ``QuantizedConvolution``), each with one
@@ -60,17 +70,19 @@ input the kernel does not take all raise, and nothing gives way to the
 plain version. Every wrapper counts its launches in a plain integer
 attribute (``embedding.launches`` ...), incremented where it launches and
 nowhere else. The optimizer wrappers update the weight and state tensors
-in place on both devices.
+in place on both devices, and on the card bump their version counters
+(the kernels write through raw pointers, which PyTorch does not see).
 
 Build: at first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` per source, all started together, into
 ``build/kernels/`` at the root of the checkout; each library exposes
 plain C functions that return ``cudaGetLastError()`` and are bound with
-``ctypes``. Libraries are named by a hash of their source, so an edited
-source rebuilds and an unchanged one is reused. ``libraries_loaded()``
-counts the libraries this process has built or loaded: eager PyTorch has
-no programs to compile, so it is the serving engine's counterpart of the
-JAX package's compile count.
+``ctypes``. Libraries are named by a hash of their source and of the
+shared headers (``csrc/*.cuh``), so an edited source rebuilds and an
+unchanged one is reused. ``libraries_loaded()`` counts the libraries
+this process has built or loaded: eager PyTorch has no programs to
+compile, so it is the serving engine's counterpart of the JAX package's
+compile count.
 """
 from __future__ import annotations
 
@@ -84,11 +96,12 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd.graph import increment_version
 
 from ..base import MXNetError, parse_bool, parse_float
 from .loss import softmax_ce_grad, softmax_output, softmax_rows
 from .nn import _INV_SQRT2, _convolution as nn_convolution, \
-    bias_gelu as nn_bias_gelu, cbr_plain
+    bias_gelu as nn_bias_gelu, cbr_plain, momentum_update, weak_scalar
 from .optimizer_op import adam_step, sgd_mom_step
 from .quant import dequantize, qfc_matmul_plain
 from .registry import get_op
@@ -108,8 +121,10 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
            "dequant_rows_plain", "bn_stats", "bn_stats_plain",
            "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
-           "conv_bn_relu_fn", "launch_counts", "reset_launch_counts",
-           "libraries_loaded", "KERNELS", "COUNTERS"]
+           "conv_bn_relu_fn", "softmax_bf16", "softmax_ce_bwd_bf16",
+           "bn_stats_bf16", "bn_apply_relu_bf16", "launch_counts",
+           "reset_launch_counts", "libraries_loaded", "source",
+           "KERNELS", "COUNTERS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -132,8 +147,12 @@ _SPECS = {
                           "e4m3": "mx_decode_attention_e4m3",
                           "e5m2": "mx_decode_attention_e5m2"},
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "softmax": ("softmax.cu", "mx_softmax_f32", [_P, _P, _I, _I, _P]),
-    "softmax_ce_bwd": ("softmax_ce_bwd.cu", "mx_softmax_ce_bwd_f32",
+    "softmax": ("softmax.cu", {"f32": "mx_softmax_f32",
+                               "bf16": "mx_softmax_bf16"},
+                [_P, _P, _I, _I, _P]),
+    "softmax_ce_bwd": ("softmax_ce_bwd.cu",
+                       {"f32": "mx_softmax_ce_bwd_f32",
+                        "bf16": "mx_softmax_ce_bwd_bf16"},
                        [_P, _P, _P, _I, _I, _F, _I, _F, _P]),
     "sgd_mom": ("sgd_mom.cu", "mx_sgd_mom_f32",
                 [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
@@ -154,9 +173,11 @@ _SPECS = {
                      {"int8": "mx_dequant_rows_i8_f32",
                       "e4m3": "mx_dequant_rows_e4m3_f32"},
                      [_P, _P, _P, _I, _I, _P]),
-    "bn_stats": ("bn_stats.cu", "mx_bn_stats_f32",
+    "bn_stats": ("bn_stats.cu", {"f32": "mx_bn_stats_f32",
+                                 "bf16": "mx_bn_stats_bf16"},
                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "bn_apply_relu": ("bn_apply_relu.cu", "mx_bn_apply_relu_f32",
+    "bn_apply_relu": ("bn_apply_relu.cu", {"f32": "mx_bn_apply_relu_f32",
+                                           "bf16": "mx_bn_apply_relu_bf16"},
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 KERNELS = tuple(_SPECS)
@@ -179,9 +200,11 @@ def _nvcc():
 
 
 def _lib_path(name):
-    src = _CSRC / _SPECS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + _ARCH.encode()).hexdigest()
-    return _BUILD_DIR / f"libmx_{name}_{digest[:12]}.so"
+    h = hashlib.sha256((_CSRC / _SPECS[name][0]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(_ARCH.encode())
+    return _BUILD_DIR / f"libmx_{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS):
@@ -253,9 +276,18 @@ def _launch(name, tensor, *args, storage=None):
                          f"{err}")
 
 
+#: what a float32 kernel says of half-precision input
+_HALF_LATER = {
+    torch.bfloat16: "its bfloat16 instance is a later slice of the port "
+                    "(ROADMAP.md queue B)",
+    torch.float16: "float16 is a later slice of the port (ROADMAP.md "
+                   "queue B)"}
+
+
 def _check(name, **tensors):
-    """The inputs a kernel takes: float32 (int32 where named), contiguous,
-    all on one CUDA device. Anything else raises."""
+    """The inputs a kernel takes: the dtype named for each (float32,
+    int32, or a kernel instance's bfloat16), contiguous, all on one CUDA
+    device. Anything else raises."""
     dev = None
     for key, (t, dtype) in tensors.items():
         if t.device.type != "cuda":
@@ -265,8 +297,11 @@ def _check(name, **tensors):
             raise MXNetError(f"{name}: inputs span {dev} and {t.device}")
         dev = t.device
         if t.dtype != dtype:
+            later = _HALF_LATER.get(t.dtype) if dtype == torch.float32 \
+                else None
             raise MXNetError(f"{name}: {key} is {t.dtype}, the kernel "
-                             f"takes {dtype}")
+                             f"takes {dtype}" + (f"; {later}" if later
+                                                 else ""))
         if not t.is_contiguous():
             raise MXNetError(f"{name}: {key} must be contiguous")
 
@@ -282,9 +317,16 @@ def _cpu_or_cuda(name, t):
 
 
 def launch_counts():
-    """{counter name: launches so far}: one counter per kernel, and
-    ``decode_attention_fp8`` for the flash-decode kernel's fp8 instances."""
+    """{counter name: launches so far}: one counter per kernel, plus
+    ``decode_attention_fp8`` for the flash-decode kernel's fp8 instances
+    and ``<kernel>_bf16`` for the bfloat16 instances."""
     return {n: w.launches for n, w in _WRAPPERS.items()}
+
+
+def source(counter):
+    """The repo path of the CUDA source behind launch counter
+    ``counter``."""
+    return f"mxnet_tpu_torch/csrc/{_SPECS[_COUNTER_KERNEL[counter]][0]}"
 
 
 def reset_launch_counts():
@@ -614,25 +656,44 @@ decode_attention_fp8.launches = 0
 # ==========================================================================
 # 5. row softmax (SoftmaxOutput forward)
 # ==========================================================================
-#: e = exp(x - max), e / sum(e) per row, float32 (the SoftmaxOutput op's
-#: own row function, shared)
+#: e = exp(x - max), e / sum(e) per row in float32, stored in x's type
+#: (the SoftmaxOutput op's own row function, shared)
 softmax_plain = softmax_rows
 
 #: the JAX package's eligibility bound for its softmax kernel
 SOFTMAX_MAX_C = 65536
 
+#: tensor dtype -> C entry point suffix, for the kernels with a bfloat16
+#: instance
+_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-def softmax(x2):
-    """Row softmax of x2 (N, C) float32, C <= 65536 -> (N, C)."""
-    if not _cpu_or_cuda("softmax", x2):
-        return softmax_plain(x2)
-    _check("softmax", x=(x2, torch.float32))
+
+def _takes(name):
+    """The data dtype the wrapper ``name`` takes: bfloat16 for a
+    ``*_bf16`` instance, else float32."""
+    return torch.bfloat16 if name.endswith("_bf16") else torch.float32
+
+
+def _softmax_launch(name, x2):
+    _check(name, x=(x2, _takes(name)))
     if x2.ndim != 2 or x2.shape[1] > SOFTMAX_MAX_C:
-        raise MXNetError(f"softmax: want (N, C) with C <= {SOFTMAX_MAX_C}, "
+        raise MXNetError(f"{name}: want (N, C) with C <= {SOFTMAX_MAX_C}, "
                          f"got {tuple(x2.shape)}")
     n, c = x2.shape
     y = torch.empty_like(x2)
-    _launch("softmax", x2, x2.data_ptr(), y.data_ptr(), n, c)
+    _launch("softmax", x2, x2.data_ptr(), y.data_ptr(), n, c,
+            storage=_STORAGE[x2.dtype])
+    return y
+
+
+def softmax(x2):
+    """Row softmax of x2 (N, C) float32 or bfloat16, C <= 65536 -> (N, C)
+    in x2's dtype; bfloat16 goes to ``softmax_bf16``."""
+    if not _cpu_or_cuda("softmax", x2):
+        return softmax_plain(x2)
+    if x2.dtype == torch.bfloat16:
+        return softmax_bf16(x2)
+    y = _softmax_launch("softmax", x2)
     softmax.launches += 1
     return y
 
@@ -640,35 +701,74 @@ def softmax(x2):
 softmax.launches = 0
 
 
+def softmax_bf16(x2):
+    """``softmax``'s bfloat16 instance: x2 (N, C) bfloat16, float32
+    arithmetic, y rounded to bfloat16."""
+    if not _cpu_or_cuda("softmax_bf16", x2):
+        return softmax_plain(x2)
+    y = _softmax_launch("softmax_bf16", x2)
+    softmax_bf16.launches += 1
+    return y
+
+
+softmax_bf16.launches = 0
+
+
 # ==========================================================================
 # 6. softmax cross-entropy gradient (SoftmaxOutput backward)
 # ==========================================================================
-#: (p - onehot(int(label))) * keep * scale (the op's own row function)
+#: (p - onehot(int(label))) * keep * scale in float32, stored in p's type
+#: (the op's own row function)
 softmax_ce_bwd_plain = softmax_ce_grad
 
 
-def softmax_ce_bwd(prob2, label, scale, use_ignore=False, ignore_label=-1.0):
-    """Cross-entropy gradient over prob2 (N, C) float32 with label (N,)
-    float32 -> (N, C)."""
-    if not _cpu_or_cuda("softmax_ce_bwd", prob2):
-        return softmax_ce_bwd_plain(prob2, label, scale, use_ignore,
-                                    ignore_label)
-    _check("softmax_ce_bwd", prob=(prob2, torch.float32),
-           label=(label, torch.float32))
+def _ce_launch(name, prob2, label, scale, use_ignore, ignore_label):
+    _check(name, prob=(prob2, _takes(name)), label=(label, torch.float32))
     if prob2.ndim != 2 or tuple(label.shape) != (prob2.shape[0],):
-        raise MXNetError(f"softmax_ce_bwd: want prob (N, C) and label (N,),"
-                         f" got {tuple(prob2.shape)} and "
-                         f"{tuple(label.shape)}")
+        raise MXNetError(f"{name}: want prob (N, C) and label (N,), got "
+                         f"{tuple(prob2.shape)} and {tuple(label.shape)}")
     n, c = prob2.shape
     g = torch.empty_like(prob2)
     _launch("softmax_ce_bwd", prob2, prob2.data_ptr(), label.data_ptr(),
             g.data_ptr(), n, c, float(scale), int(bool(use_ignore)),
-            float(ignore_label))
+            float(ignore_label), storage=_STORAGE[prob2.dtype])
+    return g
+
+
+def softmax_ce_bwd(prob2, label, scale, use_ignore=False, ignore_label=-1.0):
+    """Cross-entropy gradient over prob2 (N, C) float32 or bfloat16 with
+    label (N,) float32 -> (N, C) in prob2's dtype; bfloat16 goes to
+    ``softmax_ce_bwd_bf16``."""
+    if not _cpu_or_cuda("softmax_ce_bwd", prob2):
+        return softmax_ce_bwd_plain(prob2, label, scale, use_ignore,
+                                    ignore_label)
+    if prob2.dtype == torch.bfloat16:
+        return softmax_ce_bwd_bf16(prob2, label, scale, use_ignore,
+                                   ignore_label)
+    g = _ce_launch("softmax_ce_bwd", prob2, label, scale, use_ignore,
+                   ignore_label)
     softmax_ce_bwd.launches += 1
     return g
 
 
 softmax_ce_bwd.launches = 0
+
+
+def softmax_ce_bwd_bf16(prob2, label, scale, use_ignore=False,
+                        ignore_label=-1.0):
+    """``softmax_ce_bwd``'s bfloat16 instance: prob2 (N, C) bfloat16,
+    label (N,) float32, float32 arithmetic, the gradient rounded to
+    bfloat16."""
+    if not _cpu_or_cuda("softmax_ce_bwd_bf16", prob2):
+        return softmax_ce_bwd_plain(prob2, label, scale, use_ignore,
+                                    ignore_label)
+    g = _ce_launch("softmax_ce_bwd_bf16", prob2, label, scale, use_ignore,
+                   ignore_label)
+    softmax_ce_bwd_bf16.launches += 1
+    return g
+
+
+softmax_ce_bwd_bf16.launches = 0
 
 
 # ==========================================================================
@@ -701,6 +801,7 @@ def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0, rescale=1.0,
     _launch("sgd_mom", weight, weight.data_ptr(), grad.data_ptr(),
             mom.data_ptr(), weight.numel(), float(lr), float(momentum),
             float(wd), float(rescale), float(clip))
+    increment_version((weight, mom))      # written through raw pointers
     sgd_mom_update.launches += 1
     return weight, mom
 
@@ -731,6 +832,7 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
             mean.data_ptr(), var.data_ptr(), weight.numel(), float(lr),
             float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
             float(epsilon), float(wd), float(rescale), float(clip))
+    increment_version((weight, mean, var))
     adam_update.launches += 1
     return weight, mean, var
 
@@ -1025,56 +1127,87 @@ def _stats_slices(n, hw):
     return rows, max(1, -(-n // rows))
 
 
-def bn_stats(x4):
-    """Per-channel (sum, sum of squares) of x4 (N, C, H, W) float32 -> two
-    (C,) float32. A deterministic two-stage reduction: one call, one
-    launch count."""
-    if not _cpu_or_cuda("bn_stats", x4):
-        return bn_stats_plain(x4)
-    _check("bn_stats", x=(x4, torch.float32))
-    _check_nchw("bn_stats", x4)
+def _stats_launch(name, x4):
+    _check(name, x=(x4, _takes(name)))
+    _check_nchw(name, x4)
     n, c, h, w = x4.shape
     rows, slices = _stats_slices(n, h * w)
     if rows * h * w + 256 >= 2 ** 31:
-        raise MXNetError(f"bn_stats: {rows} rows of {h * w} floats exceed "
-                         "a first-stage slice's 32-bit index")
+        raise MXNetError(f"{name}: {rows} rows of {h * w} values exceed a "
+                         "first-stage slice's 32-bit index")
     part = torch.empty((2, slices, c), dtype=torch.float32, device=x4.device)
     s = torch.empty((c,), dtype=torch.float32, device=x4.device)
     sq = torch.empty((c,), dtype=torch.float32, device=x4.device)
     _launch("bn_stats", x4, x4.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), s.data_ptr(), sq.data_ptr(), n, c, h * w,
-            rows, slices)
-    bn_stats.launches += 1
+            rows, slices, storage=_STORAGE[x4.dtype])
     return s, sq
+
+
+def bn_stats(x4):
+    """Per-channel (sum, sum of squares) of x4 (N, C, H, W) float32 or
+    bfloat16 -> two (C,) float32. A deterministic two-stage reduction: one
+    call, one launch count; bfloat16 goes to ``bn_stats_bf16``."""
+    if not _cpu_or_cuda("bn_stats", x4):
+        return bn_stats_plain(x4)
+    if x4.dtype == torch.bfloat16:
+        return bn_stats_bf16(x4)
+    out = _stats_launch("bn_stats", x4)
+    bn_stats.launches += 1
+    return out
 
 
 bn_stats.launches = 0
 
 
+def bn_stats_bf16(x4):
+    """``bn_stats``' bfloat16 instance: x4 bfloat16, each value widened
+    exactly, float32 sums."""
+    if not _cpu_or_cuda("bn_stats_bf16", x4):
+        return bn_stats_plain(x4)
+    out = _stats_launch("bn_stats_bf16", x4)
+    bn_stats_bf16.launches += 1
+    return out
+
+
+bn_stats_bf16.launches = 0
+
+
 def bn_apply_relu_plain(x4, scale, shift):
     """``max(x4 * scale[c] + shift[c], 0)`` over x4 (N, C, H, W) in
-    float32, the product and the sum rounded separately:
-    ``_pl_apply_bn_relu``' function."""
+    float32, the product and the sum rounded separately, stored in x4's
+    type: ``_pl_apply_bn_relu``' function."""
     bshape = (1, -1, 1, 1)
     z = x4.to(torch.float32) * scale.reshape(bshape) + shift.reshape(bshape)
-    return torch.maximum(z, torch.zeros((), dtype=z.dtype, device=z.device))
+    return torch.maximum(z, torch.zeros((), dtype=z.dtype, device=z.device)
+                         ).to(x4.dtype)
+
+
+def _apply_launch(name, x4, scale, shift):
+    _check(name, x=(x4, _takes(name)), scale=(scale, torch.float32),
+           shift=(shift, torch.float32))
+    _check_nchw(name, x4)
+    n, c, h, w = x4.shape
+    if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
+        raise MXNetError(f"{name}: scale and shift must be ({c},), got "
+                         f"{tuple(scale.shape)}, {tuple(shift.shape)}")
+    y = torch.empty_like(x4)
+    _launch("bn_apply_relu", x4, x4.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), y.data_ptr(), n, c, h * w,
+            storage=_STORAGE[x4.dtype])
+    return y
 
 
 def bn_apply_relu(x4, scale, shift):
-    """``max(x4 * scale[c] + shift[c], 0)``: x4 (N, C, H, W), scale and
-    shift (C,), float32 -> (N, C, H, W), bit for bit the plain version's."""
+    """``max(x4 * scale[c] + shift[c], 0)``: x4 (N, C, H, W) float32 or
+    bfloat16, scale and shift (C,) float32 -> (N, C, H, W) in x4's dtype,
+    bit for bit the plain version's; bfloat16 goes to
+    ``bn_apply_relu_bf16``."""
     if not _cpu_or_cuda("bn_apply_relu", x4):
         return bn_apply_relu_plain(x4, scale, shift)
-    _check("bn_apply_relu", x=(x4, torch.float32),
-           scale=(scale, torch.float32), shift=(shift, torch.float32))
-    _check_nchw("bn_apply_relu", x4)
-    n, c, h, w = x4.shape
-    if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
-        raise MXNetError(f"bn_apply_relu: scale and shift must be ({c},), "
-                         f"got {tuple(scale.shape)}, {tuple(shift.shape)}")
-    y = torch.empty_like(x4)
-    _launch("bn_apply_relu", x4, x4.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), y.data_ptr(), n, c, h * w)
+    if x4.dtype == torch.bfloat16:
+        return bn_apply_relu_bf16(x4, scale, shift)
+    y = _apply_launch("bn_apply_relu", x4, scale, shift)
     bn_apply_relu.launches += 1
     return y
 
@@ -1082,14 +1215,30 @@ def bn_apply_relu(x4, scale, shift):
 bn_apply_relu.launches = 0
 
 
+def bn_apply_relu_bf16(x4, scale, shift):
+    """``bn_apply_relu``'s bfloat16 instance: x4 bfloat16, float32 scale,
+    shift and arithmetic, y rounded once to bfloat16."""
+    if not _cpu_or_cuda("bn_apply_relu_bf16", x4):
+        return bn_apply_relu_plain(x4, scale, shift)
+    y = _apply_launch("bn_apply_relu_bf16", x4, scale, shift)
+    bn_apply_relu_bf16.launches += 1
+    return y
+
+
+bn_apply_relu_bf16.launches = 0
+
+
 def _cbr_scale_shift(attrs, gamma, mean, var, beta):
-    """The per-channel scale and shift of the apply pass, on (C,) vectors
-    in float32: ``scale = gamma / sqrt(var + eps)``, ``shift = beta - mean
-    * scale`` (gamma read as ones under ``fix_gamma``)."""
+    """The per-channel scale and shift of the apply pass, on (C,) vectors,
+    float32: ``scale = gamma / sqrt(var + eps)``, ``shift = beta - mean *
+    scale`` (gamma read as ones under ``fix_gamma``). Under
+    ``compute_dtype`` the moving statistics arrive in bfloat16, and
+    ``rsqrt(var + eps)`` is then taken in bfloat16 and widened, as in the
+    JAX package's ``_cbr_scale_shift``."""
     if parse_bool(attrs.get("fix_gamma", True)):
         gamma = torch.ones_like(gamma)
-    scale = torch.rsqrt(var + parse_float(attrs.get("eps", 1e-3))) * \
-        gamma.to(torch.float32)
+    scale = torch.rsqrt(var + weak_scalar(
+        parse_float(attrs.get("eps", 1e-3)), var)) * gamma.to(torch.float32)
     return scale, beta.to(torch.float32) - mean * scale
 
 
@@ -1100,7 +1249,10 @@ def conv_bn_relu(attrs, data, weight, gamma, beta, moving_mean, moving_var,
     then in training without ``use_global_stats`` ``bn_stats`` and the
     one-pass biased variance ``max(sq / cnt - mean^2, 0)`` with the
     momentum update of the moving statistics, else the moving statistics;
-    then ``bn_apply_relu``. Returns (y, new_moving_mean, new_moving_var)."""
+    then ``bn_apply_relu``. Returns (y, new_moving_mean, new_moving_var).
+    bfloat16 data (``compute_dtype``) takes the kernels' bfloat16
+    instances; the moving statistics then arrive in bfloat16 and move by
+    ``momentum_update``, as ``BatchNorm``'s do."""
     conv = nn_convolution(attrs, data, weight).contiguous()
     if is_train and not parse_bool(attrs.get("use_global_stats", False)):
         n, _c, h, w = conv.shape
@@ -1109,8 +1261,8 @@ def conv_bn_relu(attrs, data, weight, gamma, beta, moving_mean, moving_var,
         mean = s / cnt
         var = torch.clamp(sq / cnt - mean * mean, min=0.0)
         momentum = parse_float(attrs.get("momentum", 0.9))
-        new_mean = momentum * moving_mean + (1 - momentum) * mean
-        new_var = momentum * moving_var + (1 - momentum) * var
+        new_mean = momentum_update(momentum, moving_mean, mean)
+        new_var = momentum_update(momentum, moving_var, var)
     else:
         mean, var = moving_mean, moving_var
         new_mean, new_var = moving_mean, moving_var
@@ -1170,10 +1322,18 @@ _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "bias_gelu_dx": bias_gelu_dx,
              "flash_attention": flash_attention, "qfc_matmul": qfc_matmul,
              "dequant_rows": dequant_rows, "bn_stats": bn_stats,
-             "bn_apply_relu": bn_apply_relu}
-#: the launch counters: one per kernel, and one for the flash-decode
-#: kernel's fp8 instances
+             "bn_apply_relu": bn_apply_relu, "softmax_bf16": softmax_bf16,
+             "softmax_ce_bwd_bf16": softmax_ce_bwd_bf16,
+             "bn_stats_bf16": bn_stats_bf16,
+             "bn_apply_relu_bf16": bn_apply_relu_bf16}
+#: the launch counters: one per kernel, one for the flash-decode kernel's
+#: fp8 instances, and one per bfloat16 instance
 COUNTERS = tuple(_WRAPPERS)
+#: launch counter -> the kernel (``_SPECS`` key) it counts
+_COUNTER_KERNEL = {n: n for n in _SPECS}
+_COUNTER_KERNEL.update({"decode_attention_fp8": "decode_attention"})
+_COUNTER_KERNEL.update({n + "_bf16": n for n in (
+    "softmax", "softmax_ce_bwd", "bn_stats", "bn_apply_relu")})
 
 
 # ==========================================================================
@@ -1214,8 +1374,9 @@ def _adam_cuda(attrs, inputs, aux, is_train, rng):
 
 def _float32_data(op, data):
     if data.dtype != torch.float32:
+        later = _HALF_LATER.get(data.dtype)
         raise MXNetError(f"{op}: the CUDA kernels take float32 data, got "
-                         f"{data.dtype}")
+                         f"{data.dtype}" + (f"; {later}" if later else ""))
 
 
 def _qfc_cuda(attrs, inputs, aux, is_train, rng):
@@ -1251,7 +1412,11 @@ def _cbr_cuda(attrs, inputs, aux, is_train, rng):
     as an autograd.Function whose backward recomputes the plain
     composition."""
     data, weight, gamma, beta = inputs
-    _float32_data("FusedConvBNReLU", data)
+    if data.dtype not in _STORAGE:
+        raise MXNetError(f"FusedConvBNReLU: the CUDA kernels take float32 "
+                         f"or bfloat16 data, got {data.dtype}" + (
+                             f"; {_HALF_LATER[data.dtype]}"
+                             if data.dtype in _HALF_LATER else ""))
     if data.ndim != 4:
         raise MXNetError(f"FusedConvBNReLU: the CUDA kernels take NCHW "
                          f"data, got {tuple(data.shape)}")

@@ -14,6 +14,14 @@ kernel), ``Pooling``, ``Activation`` and ``BatchNorm`` — are the JAX
 package's compositions written in PyTorch; their backward is autograd's.
 ``FusedConvBNReLU`` is those three in one op (its plain forward is their
 composition; the BatchNorm-and-ReLU half has CUDA kernels).
+
+Mixed precision (``compute_dtype="bfloat16"``): the executor hands these
+ops bfloat16 data, parameters and moving statistics. Weights are cast to
+the data's type, as the JAX package casts them, and the BatchNorm
+arithmetic follows the JAX package's types op for op: a Python scalar
+meeting a bfloat16 tensor is first rounded to bfloat16 (JAX's weak
+typing, ``weak_scalar``), and a bfloat16 tensor meeting a float32 one
+promotes to float32.
 """
 from __future__ import annotations
 
@@ -342,6 +350,28 @@ def _activation(attrs, x):
 # --------------------------------------------------------------------------
 # BatchNorm
 # --------------------------------------------------------------------------
+def momentum_update(momentum, moving, batch):
+    """``momentum * moving + (1 - momentum) * batch``, the moving
+    statistics' update. Under ``compute_dtype`` ``moving`` arrives in
+    bfloat16: ``momentum`` is then rounded to bfloat16 (``weak_scalar``)
+    and the sum promotes to float32, and the product is kept in float32,
+    as the JAX package's compiled step computes it (XLA holds excess
+    precision inside the fusion), so the stored statistics match its bit
+    for bit given the same batch statistics."""
+    return weak_scalar(momentum, moving) * moving.to(batch.dtype) + \
+        (1 - momentum) * batch
+
+
+def weak_scalar(value, like):
+    """The Python scalar ``value`` as JAX's weak typing reads it beside the
+    tensor ``like``: rounded to ``like``'s half-precision type (0.9 is
+    0.8984375 in bfloat16), unchanged beside float32. PyTorch would keep
+    the scalar in float32 and round only the result."""
+    if like.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(value, dtype=like.dtype))
+    return value
+
+
 def _bn_infer(attrs, in_shapes):
     data_s = in_shapes[0]
     c = (data_s[1],) if data_s is not None else None
@@ -356,7 +386,10 @@ def _bn_fwd(attrs, inputs, aux, is_train, rng):
     (``F.batch_norm`` would move it toward the unbiased one, so it is not
     used). ``fix_gamma`` replaces gamma by ones, so gamma's gradient is 0.
     Outputs [out, mean, var]; new aux [moving_mean, moving_var], detached
-    from the graph."""
+    from the graph. Under ``compute_dtype`` the moving statistics arrive in
+    bfloat16: the update is ``momentum_update``'s, and inference takes
+    ``rsqrt(var + eps)`` in bfloat16 (``eps`` rounded to bfloat16), as the
+    JAX package's types say."""
     data, gamma, beta = inputs
     moving_mean, moving_var = aux
     eps = parse_float(attrs.get("eps", 1e-3))
@@ -368,12 +401,12 @@ def _bn_fwd(attrs, inputs, aux, is_train, rng):
     if is_train and not parse_bool(attrs.get("use_global_stats", False)):
         var, mean = torch.var_mean(data.to(torch.float32), dim=axes,
                                    unbiased=False)
-        new_mean = momentum * moving_mean + (1 - momentum) * mean.detach()
-        new_var = momentum * moving_var + (1 - momentum) * var.detach()
+        new_mean = momentum_update(momentum, moving_mean, mean.detach())
+        new_var = momentum_update(momentum, moving_var, var.detach())
     else:
         mean, var = moving_mean, moving_var
         new_mean, new_var = moving_mean, moving_var
-    inv = torch.rsqrt(var + eps)
+    inv = torch.rsqrt(var + weak_scalar(eps, var))
     out = (data - mean.reshape(bshape).to(data.dtype)) * \
         (inv.reshape(bshape) * gamma.reshape(bshape)).to(data.dtype) + \
         beta.reshape(bshape).to(data.dtype)

@@ -11,8 +11,12 @@ returns the output NDArrays, on the card unless the engine was given
 ``compute_dtype="int8"`` / ``"fp8"`` (``"float8_e4m3fn"``) selects a
 quantized inference tier: the symbol is rewritten onto the Quantized*
 ops and every dense/conv weight splits into a narrow storage cell plus
-per-channel float32 scales (``ops/quant.py``) before binding. Any other
-``compute_dtype`` raises: mixed precision is a later slice.
+per-channel float32 scales (``ops/quant.py``) before binding.
+``compute_dtype="bfloat16"`` (or ``torch.bfloat16``) serves in mixed
+precision: every rung Module takes it (``BucketingModule._module_kwargs``,
+as the JAX package threads it), so each forward reads the float32 cells
+cast to bfloat16 and answers bfloat16 outputs, which ``asnumpy()`` widens
+to float32. float16 raises: it is a later slice.
 
 ``warmup(clock)`` runs two forwards per rung (the first builds anything
 still unbuilt, the second measures steady-state execution on the given
@@ -163,17 +167,12 @@ class BucketEngine(_EngineBase):
         from ..module import BucketingModule
 
         self.quantized = None
-        if compute_dtype is not None:
-            if str(compute_dtype) not in _QUANT_TIERS:
-                raise MXNetError(
-                    f"model {name!r}: compute_dtype={compute_dtype!r} — "
-                    "mixed precision is not ported yet (a later slice); "
-                    f"the port serves float32 or a quantized tier "
-                    f"{_QUANT_TIERS}")
+        if compute_dtype is not None and str(compute_dtype) in _QUANT_TIERS:
             from ..ops import quant as _quant
             symbol, arg_params = _quant.quantize_symbol(
                 symbol, dict(arg_params or {}), dtype=str(compute_dtype))
             self.quantized = str(compute_dtype)
+            compute_dtype = None
 
         if isinstance(data_shapes, dict):
             data_shapes = list(data_shapes.items())
@@ -192,6 +191,8 @@ class BucketEngine(_EngineBase):
                                     list(self._label_names)),
             default_bucket_key=self.ladder.max,
             logger=logger or log, context=self._context)
+        if compute_dtype is not None:
+            self._bm._module_kwargs["compute_dtype"] = compute_dtype
         self._bm.bind(self._provide_data(self.ladder.max),
                       label_shapes=self._provide_label(self.ladder.max),
                       for_training=False)
@@ -201,7 +202,8 @@ class BucketEngine(_EngineBase):
             [(b, self._provide_data(b), self._provide_label(b))
              for b in self.ladder])
 
-        # input dtypes as bound (what the rung modules take)
+        # input dtypes as bound (what the rung modules take: float32 cells
+        # under compute_dtype too, cast where the graph reads them)
         leader = self._bm._buckets[self.ladder.max]
         arg_dict = leader._exec_group.executor.arg_dict
         self.input_dtypes = {

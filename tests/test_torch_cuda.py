@@ -830,3 +830,268 @@ def test_fused_op_on_card(dev, is_train, extra):
     for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
         tol = 2e-5 if i < 3 else 1e-4
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------ the bfloat16 instances
+def _bf16_ulps(a, b):
+    """Largest |a - b| in bfloat16 ulps of the larger magnitude (values
+    below the normal range in ulps of the smallest normal)."""
+    torch.cuda.synchronize()
+    a, b = a.double().cpu(), b.double().cpu()
+    mag = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                        torch.tensor(2.0 ** -126, dtype=torch.float64))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max()) if a.numel() else 0.0
+
+
+def _misaligned_bf16(dev, n, *shape):
+    """A contiguous bfloat16 view one element (2 bytes) off its
+    allocation, so the kernels take their one-value-at-a-time path."""
+    return (4 * _rnd(dev, 1 + n)).to(torch.bfloat16)[1:].view(*shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(32, 1000), (1, 7), (5, 1), (3, 1025),
+                                 (2, 65536), (4, 2)])
+def test_softmax_bf16_kernel(dev, n, c):
+    """The bfloat16 instance within one bfloat16 ulp of its plain version
+    (a row sums in another order in float32, which can move a quotient
+    across a rounding boundary); only its own counter moves."""
+    xs = [(4 * _rnd(dev, n, c)).to(torch.bfloat16),
+          _misaligned_bf16(dev, n * c, n, c)]
+    for x in xs:
+        before = ck.launch_counts()
+        got = ck.softmax(x)
+        after = ck.launch_counts()
+        assert got.dtype == torch.bfloat16
+        assert after["softmax_bf16"] == before["softmax_bf16"] + 1
+        assert after["softmax"] == before["softmax"]
+        assert _bf16_ulps(got, ck.softmax_plain(x)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1000, 7])
+@pytest.mark.parametrize("use_ignore", [False, True])
+def test_softmax_ce_bwd_bf16_kernel(dev, c, use_ignore):
+    """Bit for bit its plain version: labels past 256 (257, 999: float32
+    on both sides), outside the classes, and ignored rows; the pair path
+    (even C) and the scalar one (odd C, or a misaligned view)."""
+    n = 6
+    p = ck.softmax_plain((4 * _rnd(dev, n, c)).to(torch.bfloat16))
+    lab = torch.tensor([257, 999, c - 1, 0, c, -1], dtype=torch.float32,
+                       device=dev).clamp(max=c)
+    lab[0] = min(257, c - 1)
+    for pp in (p, _misaligned_bf16(dev, n * c, n, c)):
+        for scale in (1.0, 1 / n):
+            got = ck.softmax_ce_bwd(pp, lab, scale, use_ignore, 0.0)
+            assert got.dtype == torch.bfloat16
+            want = ck.softmax_ce_bwd_plain(pp, lab, scale, use_ignore, 0.0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64, 112, 112), (32, 512, 7, 7),
+                                   (4, 256, 14, 14), (2, 3, 5, 3),
+                                   (4, 8, 1, 1), (1, 1, 1, 1)])
+def test_bn_kernels_bf16(dev, shape):
+    """bn_stats' bfloat16 instance within 1e-5 of each channel's sum of
+    squares (float32 sums in another order), bn_apply_relu's bit for
+    bit, at the 16-byte (HW % 8 == 0), 8-byte (HW = 196) and
+    one-value (HW = 49, 15, 1) paths; only the bfloat16 counters move."""
+    x = (2 * _rnd(dev, *shape) + 0.5).to(torch.bfloat16)
+    c = shape[1]
+    scale, shift = _rnd(dev, c, seed=1), _rnd(dev, c, seed=2)
+    before = ck.launch_counts()
+    (s, sq), y = ck.bn_stats(x), ck.bn_apply_relu(x, scale, shift)
+    after = ck.launch_counts()
+    assert s.dtype == torch.float32 and y.dtype == torch.bfloat16
+    (ps, psq), py = ck.bn_stats_plain(x), ck.bn_apply_relu_plain(
+        x, scale, shift)
+    torch.cuda.synchronize()
+    bound = 1e-5 * psq
+    assert ((s - ps).abs() <= bound).all() and \
+        ((sq - psq).abs() <= bound).all()
+    assert torch.equal(y, py)
+    for k in ("bn_stats", "bn_apply_relu"):
+        assert after[k + "_bf16"] == before[k + "_bf16"] + 1
+        assert after[k] == before[k]
+
+
+@pytest.mark.cuda
+def test_bn_kernels_bf16_misaligned_repeat_and_nan(dev):
+    xv = _misaligned_bf16(dev, 2 * 8 * 16, 2, 8, 4, 4)
+    ones, zeros = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    assert torch.equal(ck.bn_apply_relu(xv, ones, zeros),
+                       ck.bn_apply_relu_plain(xv, ones, zeros))
+    (s, sq), (ps, psq) = ck.bn_stats(xv), ck.bn_stats_plain(xv)
+    assert ((sq - psq).abs() <= 1e-5 * psq).all()
+    x = _rnd(dev, 32, 64, 56, 56).to(torch.bfloat16)
+    first, again = ck.bn_stats(x), ck.bn_stats(x)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    nan = torch.tensor([[[[float("nan"), -1.0]]]], device=dev,
+                       dtype=torch.bfloat16)
+    one = torch.ones(1, device=dev)
+    assert ck.bn_apply_relu(nan, one, one * 0)[0, 0, 0, 0].isnan()
+    with pytest.raises(MXNetError, match="float32"):
+        ck.bn_apply_relu(x, ones.to(torch.bfloat16), zeros)
+
+
+@pytest.mark.cuda
+def test_float32_only_kernels_refuse_bf16_naming_the_later_slice(dev):
+    x = _rnd(dev, 8, 64).to(torch.bfloat16)
+    g = _rnd(dev, 64).to(torch.bfloat16)
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.layernorm(x, g, g, 1e-5)
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.bias_gelu(x, g)
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.embedding(torch.zeros(2, dtype=torch.int32, device=dev), x)
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.flash_attention(*[_rnd(dev, 1, 1, 8, 64).to(torch.bfloat16)] * 3)
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.softmax(x.half())
+    w = x.float()
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.sgd_mom_update(w, x, w.clone(), 0.1)
+
+
+def _bf16_nets():
+    """A narrow plain ResNet, and a small net with FusedConvBNReLU, a
+    BatchNorm, pooling and the softmax head (this file imports no test
+    helpers, which import JAX)."""
+    from mxnet_tpu_torch.models import resnet
+    plain = resnet.resnet(units=[1, 1, 1, 1], num_stages=4,
+                          filter_list=[16, 32, 64, 128, 256], num_classes=10,
+                          image_shape=(3, 40, 40), bottle_neck=True)
+    sym = mx.sym
+    bn = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
+    body = sym.FusedConvBNReLU(data=sym.var("data"), num_filter=16,
+                               kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                               name="c0", **bn)
+    body = sym.FusedConvBNReLU(data=body, num_filter=32, kernel=(3, 3),
+                               pad=(1, 1), name="c1", **bn)
+    body = sym.Activation(data=sym.BatchNorm(data=body, name="b2", **bn),
+                          act_type="relu")
+    body = sym.Pooling(data=body, global_pool=True, kernel=(7, 7),
+                       pool_type="avg")
+    fused = sym.SoftmaxOutput(data=sym.FullyConnected(
+        data=sym.Flatten(data=body), num_hidden=10, name="fc"),
+        name="softmax")
+    return {"plain": plain, "fused": fused}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["plain", "fused"])
+def test_bf16_fit_and_serve_on_card(dev, net):
+    """``Module(compute_dtype="bfloat16")`` fitted two batches at lr 0.01
+    on the card and on the CPU from the same parameters, TF32 off: the
+    bfloat16 instances launch (softmax and the CE gradient; the
+    BatchNorm pair for the fused net) and no float32 instance of them
+    does; every cell stays float32. cuDNN's and oneDNN's bfloat16
+    convolutions round their sums apart, and two steps carry that on (a
+    narrow net's conv0 weight moves 1e-2 apart), so each weight and
+    moving statistic is held within 3 times the distance between the
+    CPU's own bfloat16 and float32 fits (plus 1e-6). Then one forward
+    served on the card and on the CPU: probabilities within 2e-2 (a few
+    bfloat16 ulps at 1) and the same top-1."""
+    sym = _bf16_nets()[net]
+    rs = np.random.RandomState(0)
+    X = rs.rand(8, 3, 40, 40).astype(np.float32)
+    y = rs.randint(0, 10, 8).astype(np.float32)
+    init = mx.mod.Module(sym, context=mx.cpu())
+    init.bind([("data", (4, 3, 40, 40))], [("softmax_label", (4,))])
+    init.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(0)))
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in init.get_params())
+    sgd = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    res, counts = {}, None
+    try:
+        for ctx, cd in ((mx.gpu(0), "bfloat16"), (mx.cpu(), "bfloat16"),
+                        (mx.cpu(), None)):
+            ck.reset_launch_counts()
+            m = mx.mod.Module(sym, context=ctx, compute_dtype=cd)
+            m.fit(mx.io.NDArrayIter(X, y, batch_size=4), num_epoch=1,
+                  arg_params=mx.convert.params_from_numpy(args, ctx),
+                  aux_params=mx.convert.params_from_numpy(auxs, ctx),
+                  optimizer_params=sgd)
+            if counts is None:
+                counts = ck.launch_counts()
+            a, x = m.get_params()
+            for cells in (a, x):
+                assert {v.astorch().dtype for v in cells.values()} == \
+                    {torch.float32}
+            server = mx.serve.serve(m, context=ctx, ladder=[1, 2, 4],
+                                    start=False, clock=FakeClock())
+            try:
+                h = server.submit({"data": X[:3]})
+                server._clock.advance(1.0)
+                while server.pump():
+                    pass
+                out = h.result(timeout=0)[0]
+                assert out.astorch().dtype == (torch.bfloat16 if cd
+                                               else torch.float32)
+            finally:
+                server.stop()
+            res[ctx.device_type + str(cd)] = (
+                {k: v.asnumpy() for k, v in a.items()},
+                {k: v.asnumpy() for k, v in x.items()}, out.asnumpy())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = {"softmax_bf16": 2, "softmax_ce_bwd_bf16": 2,
+            "softmax": 0, "softmax_ce_bwd": 0, "bn_stats": 0,
+            "bn_apply_relu": 0}
+    if net == "fused":
+        want.update(bn_stats_bf16=2 * 2, bn_apply_relu_bf16=2 * 2)
+    assert {k: counts[k] for k in want} == want
+    card, cpu, cpu32 = (res[k] for k in ("gpubfloat16", "cpubfloat16",
+                                         "cpuNone"))
+    for i in (0, 1):
+        for k, v in cpu[i].items():
+            spread = np.abs(v - cpu32[i][k]).max()
+            np.testing.assert_allclose(card[i][k], v, atol=3 * spread + 1e-6,
+                                       err_msg=k)
+    go, co = card[2], cpu[2]
+    np.testing.assert_allclose(go, co, atol=2e-2)
+    assert go.argmax(1).tolist() == co.argmax(1).tolist()
+
+
+@pytest.mark.cuda
+def test_kept_bf16_casts_follow_the_update_kernel(dev):
+    """The SGD kernel writes weights through raw pointers; its wrapper
+    bumps their version counters, so an inference forward after
+    ``update()`` re-casts them: the same outputs as a fresh Module on the
+    updated parameters."""
+    rs = np.random.RandomState(6)
+    X = rs.randn(4, 16).astype(np.float32)
+    y = np.asarray([3, 9, 0, 5], np.float32)
+    data = mx.sym.var("data")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.BatchNorm(data, fix_gamma=False, name="bn"), num_hidden=10,
+        name="fc"), name="softmax")
+    shapes = ([("data", X.shape)], [("softmax_label", y.shape)])
+    mod = mx.mod.Module(net, context=mx.gpu(0), compute_dtype="bfloat16")
+    mod.bind(*shapes)
+    mod.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(0)))
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.5,
+                                         "momentum": 0.9})
+    batch = mx.io.DataBatch([X], [y])
+    mod.forward(batch, is_train=False)
+    first = mod.get_outputs()[0].asnumpy()
+    before = ck.launch_counts()["sgd_mom"]
+    mod.forward_backward(batch)
+    mod.update()
+    assert ck.launch_counts()["sgd_mom"] > before
+    mod.forward(batch, is_train=False)
+    got = mod.get_outputs()[0].asnumpy()
+    fresh = mx.mod.Module(net, context=mx.gpu(0), compute_dtype="bfloat16")
+    fresh.bind(*shapes, for_training=False)
+    fresh.init_params(arg_params=mod.get_params()[0],
+                      aux_params=mod.get_params()[1])
+    fresh.forward(batch, is_train=False)
+    np.testing.assert_array_equal(got, fresh.get_outputs()[0].asnumpy())
+    assert np.abs(got - first).max() > 1e-3
