@@ -146,7 +146,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    exactly 1 ``softmax_bf16`` (+ 33 ``bn_apply_relu_bf16``) per forward,
    outputs within ``INT8_TOL`` of the float32 ladder's, top-1 agreement;
 27. profile bfloat16 training steps (plain, fused, fused, plain; 2 each)
-   and 8 rung-8 dispatches of each bfloat16 ladder.
+   and 8 rung-8 dispatches of each bfloat16 ladder;
+28. ``mx.rtc.Rtc``: a user ``axpb`` kernel (CUDA C++ written in this
+   script, compiled at its first push by NVRTC) over 2^24 floats, bit
+   for bit
+   ``torch.add(y, x, alpha=2)`` with the default launch and with given
+   grid / block dims; a wrong shape raises; times against ``2 x + y``
+   and ``torch.add`` and the byte bound;
+29. ``mx.rtc.register_cuda_op``: ``relu_user`` (a forward and a VJP kernel
+   written here; its plain version ``torch.maximum(x, 0)``, the plain
+   Activation's, whose gradient at x == 0 is ct / 2) in the place of
+   ResNet-50's 50 ``Activation(relu)`` nodes (the symbol's JSON rewired;
+   the same parameters load): one step's loss and gradients at batch 32
+   against the plain graph's, TF32 off and cuDNN deterministic (its default
+   weight gradients sum with atomics: two runs of the plain graph differ),
+   within FWD_TOL of the largest |g|; then ``Module.fit`` for 8 steps
+   beside the plain graph's fit from the same parameters and batches (phase
+   6's Xavier start, phase 5's data): img/s of both, exactly 50 + 50
+   launches a step, the weights within SPREAD_FACTOR times the spread of
+   the plain fit from 1e-6-perturbed weights (measured on the card: 8 CPU
+   steps at batch 32 would take minutes); both kernels over one step's 50
+   inputs (exact zeros included) bit for bit against the plain version and
+   its autograd backward, timed beside ``torch.relu`` and
+   ``threshold_backward``; 2 profiled steps of each fit (plain, user, user,
+   plain); the op registered without a VJP kernel refuses a training
+   forward;
+30. ``mx.operator.CustomOp``: MXNet's custom softmax (numpy forward,
+   backward ``p - onehot(label)``, ``need_top_grad=False``) in the place
+   of ResNet-50's ``SoftmaxOutput``: one step's gradients against the
+   ``SoftmaxOutput`` graph's within FWD_TOL, then 8 steps of each, step
+   ms side by side;
+31. ``mx.autograd``: a stage-1 bottleneck without BatchNorm at batch 32
+   (256 -> 64 -> 64 -> 256 channels, 56 x 56) through ``mx.nd`` inside
+   ``train_section``, its gradients from ``mx.autograd.backward``
+   against the Executor's of the same symbol within FWD_TOL.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
@@ -156,7 +189,9 @@ flash attention while fitting the LM, the quantized kernels while
 serving int8 and fp8, the BatchNorm pair while fitting and serving the
 fused ResNet-50, ``decode_attention_fp8`` (the decode kernel's fp8
 instances) while serving the fp8 caches, the four ``*_bf16`` instances
-while fitting and serving ResNet-50 in bfloat16 — max abs error against
+while fitting and serving ResNet-50 in bfloat16, the user kernels
+``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
+(the relu_user fit; their source is this script) — max abs error against
 the plain version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
@@ -220,6 +255,9 @@ REPLACES = {
     "softmax_ce_bwd_bf16": "mxnet_tpu/ops/pallas_kernels.py:112",
     "bn_stats_bf16": "mxnet_tpu/ops/pallas_kernels.py:217",
     "bn_apply_relu_bf16": "mxnet_tpu/ops/pallas_kernels.py:231",
+    "rtc_axpb": "mxnet_tpu/rtc.py:41",
+    "relu_user": "mxnet_tpu/rtc.py:101",
+    "relu_user_vjp": "mxnet_tpu/rtc.py:101",
 }
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
@@ -265,6 +303,28 @@ PREFILL_CHUNK, SPEC_K = 64, 4
 PREFILL_PROMPTS = [65, 150, 96, 127, 70, 140, 100, 129]
 PREFIX_LEN, PREFIX_NEW, PREFIX_MB = 128, 8, 8
 SELF_DRAFT_NEW = 24
+#: the user-extension phases (28-31): user CUDA kernels through mx.rtc,
+#: written here as a user writes them; REPLACES names the JAX package's
+#: mechanism they go through (Rtc, register_pallas_op)
+USER_KERNELS = ("rtc_axpb", "relu_user", "relu_user_vjp")
+RTC_N = 1 << 24                # phase 28: 2^24 floats, 192 MiB moved
+GRID_STRIDE = ("for (long long i = blockIdx.x * (long long)blockDim.x + "
+               "threadIdx.x; i < {n}; i += (long long)gridDim.x * "
+               "blockDim.x)\n")
+AXPB_BODY = GRID_STRIDE.format(n=RTC_N) + "    out[i] = 2.0f * x[i] + y[i];"
+#: relu_user computes the plain Activation(relu) of the port (and of the
+#: JAX package): max(x, 0), whose gradient at x == 0 is ct / 2 as
+#: torch.maximum's (and jnp.maximum's) is, where torch.relu's
+#: threshold_backward gives 0 -- a batch-32 ResNet-50 step meets exact
+#: zeros at a few ReLU inputs; NaN passes through both ways
+RELU_BODY = GRID_STRIDE.format(n="n") + \
+    "    out[i] = data[i] < 0.0f ? 0.0f : data[i];"
+RELU_VJP_BODY = GRID_STRIDE.format(n="n") + \
+    "    grad_data[i] = data[i] < 0.0f ? 0.0f\n" + \
+    "        : (data[i] == 0.0f ? 0.5f * ct[i] : ct[i]);"
+RESNET50_RELUS = 50     # Activation(act_type=relu) nodes of ResNet-50
+#: phase 31: a stage-1 bottleneck without BatchNorm at batch 32
+BOTTLENECK = dict(batch=32, channels=256, mid=64, hw=56)
 #: card vs CPU logits over fp8 cells: the CPU step reads the card's cells,
 #: but this step's new K/V row is cast on each side from float32 values
 #: that differ in the last bits, and a value at an fp8 rounding boundary
@@ -1530,6 +1590,8 @@ _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
 def _kernel_group(key):
     if any(k in key for k in _PORT_KERNELS):
         return "port kernels"
+    if key.startswith(USER_KERNELS):
+        return "user kernels"
     if key.startswith("Memcpy") or key.startswith("Memset"):
         return "copies"
     if "at::native" in key or "softmax_warp_" in key:
@@ -2761,6 +2823,645 @@ def phase_fastpath_profile(mx, prefill_sched, spec_sched, steps=4):
             d.leave(r)
 
 
+# --------------------------------------------------------------------------
+# the user-extension surfaces: mx.rtc, mx.operator, mx.autograd
+# --------------------------------------------------------------------------
+def phase_rtc(mx):
+    """An ``Rtc`` push of a user ``axpb`` kernel over 2^24 floats: bit for
+    bit ``torch.add(y, x, alpha=2)``, with the default launch and with
+    given dims; a wrong shape raises. Returns (its record, launches)."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(RTC_N, generator=gen).to(dev)
+    y = torch.randn(RTC_N, generator=gen).to(dev)
+    xs, ys = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    out = mx.nd.NDArray(torch.empty_like(x))
+    kernel = mx.rtc.Rtc("rtc_axpb", [("x", xs), ("y", ys)], [("out", out)],
+                        AXPB_BODY)
+    want = torch.add(y, x, alpha=2.0)
+    rtc.reset_launch_counts()
+    t0 = time.perf_counter()
+    kernel.push([xs, ys], [out])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    err = _max_err(out.astorch(), want)
+    out.astorch().zero_()
+    kernel.push([xs, ys], [out], grid_dims=(528,), block_dims=(512,))
+    torch.cuda.synchronize()
+    err = max(err, _max_err(out.astorch(), want))
+    launches = rtc.launch_counts()["rtc_axpb"]
+    print(f"rtc: route nvrtc, first push {first:.3f} s "
+          f"(build and load included), max |err| {err} against "
+          f"torch.add(y, x, alpha=2) (default launch, then grid 528 x "
+          f"block 512); launches {launches}")
+    if err != 0.0 or launches != 2:
+        raise AssertionError("rtc_axpb disagrees with torch.add or did not "
+                             "launch twice")
+    try:
+        kernel.push([xs, mx.nd.NDArray(y[:1000])], [out])
+    except mx.MXNetError as e:
+        print(f"rtc: a wrong shape raises: {e}")
+    else:
+        raise AssertionError("Rtc.push took an input of the wrong shape")
+    push = lambda: kernel.push([xs, ys], [out])     # noqa: E731
+    rec = {"max_abs_err": err, "ms": _timed(push),
+           "device_ms": _device_ms(push),
+           "plain_ms": _timed(lambda: 2.0 * x + y),
+           "library_ms": _timed(lambda: torch.add(y, x, alpha=2.0)),
+           "bound": _bound_ms(3 * RTC_N * 4, 2 * RTC_N)}
+    print(f"rtc_axpb: {rec['ms']:.5f} ms, device {rec['device_ms']}, plain "
+          f"{rec['plain_ms']:.5f}, library {rec['library_ms']:.5f}, bound "
+          f"{rec['bound'][0]:.5f} ({rec['bound'][1]})")
+    return rec, launches
+
+
+def _rewired(mx, sym, rewire):
+    """``sym`` through its JSON with ``rewire(node)`` applied to each node
+    (it returns whether it changed the node); returns (symbol, count)."""
+    graph = json.loads(sym.tojson())
+    count = sum(bool(rewire(node)) for node in graph["nodes"])
+    return mx.sym.load_json(json.dumps(graph)), count
+
+
+def _relu_to(op):
+    def rewire(node):
+        if node["op"] == "Activation" and \
+                node.get("attrs", {}).get("act_type") == "relu":
+            node["op"] = op
+            node["attrs"] = {k: v for k, v in node["attrs"].items()
+                             if k != "act_type"}
+            return True
+        return False
+    return rewire
+
+
+def _register_relu_user(mx):
+    import torch
+    for name, vjp in (("relu_user", RELU_VJP_BODY), ("relu_user_novjp",
+                                                      None)):
+        if name not in mx.sym.__dict__:
+            mx.rtc.register_cuda_op(
+                name, kernel=lambda attrs: RELU_BODY,
+                vjp_kernel=None if vjp is None else (lambda attrs, v=vjp: v),
+                out_shapes=lambda attrs, shapes: [(shapes[0], None)],
+                reference=lambda attrs, x: torch.maximum(x, x.new_zeros(())))
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms for a comparison of two graphs on
+    the card: its default weight-gradient algorithms sum with atomics in
+    an order that changes from run to run."""
+    import torch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _grads_close(got, want):
+    """The largest gradient difference between two {name: numpy} dicts, as
+    a share of the largest gradient magnitude in ``want`` (a per-array
+    scale would blow up arrays whose gradient sums cancel, such as
+    bn0_gamma's, 1e-4 of the others at batch 4); returns (share, name)."""
+    import numpy as np
+    scale = max(float(np.abs(g).max()) for g in want.values())
+    worst, worst_k = 0.0, None
+    for k, g in want.items():
+        d = float(np.abs(got[k] - g).max()) / scale
+        if d > worst:
+            worst, worst_k = d, k
+    return worst, worst_k
+
+
+def _ce_loss(mod, y):
+    import numpy as np
+    prob = mod.get_outputs()[0].asnumpy()
+    return float(-np.log(prob[np.arange(len(y)), y.astype(int)]).mean())
+
+
+def _step_pair(mx, syms, args, auxs, X, y, label):
+    """One forward_backward of each symbol in ``syms`` (the plain one
+    last) from the same parameters on the card, TF32 off, cuDNN
+    deterministic: the loss and every gradient within FWD_TOL (of the
+    largest |g|)."""
+    batch = mx.io.DataBatch([mx.nd.array(X, ctx=mx.gpu(0))],
+                            [mx.nd.array(y, ctx=mx.gpu(0))])
+
+    def step(sym, scope):
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        mod.bind([("data", X.shape)], [("softmax_label", y.shape)])
+        mod.init_params(arg_params=mx.convert.params_from_numpy(
+            args, mx.gpu(0)), aux_params=mx.convert.params_from_numpy(
+            auxs, mx.gpu(0)))
+        with scope():
+            mod.forward_backward(batch)
+        return mod, {k: g.asnumpy() for k, g in
+                     mod._exec_group.executor.grad_dict.items()}
+
+    mods, grads = zip(*[step(sym, _deterministic) for sym in syms])
+    losses = [_ce_loss(m, y) for m in mods]
+    worst, worst_k = _grads_close(*grads)
+    noise, noise_k = _grads_close(*[step(syms[1], contextlib.nullcontext)[1]
+                                    for _ in range(2)])
+    print(f"{label}: the plain graph run twice with cuDNN's default "
+          f"algorithms: {noise:.3g} of the largest |g| apart ({noise_k})")
+    print(f"{label}: one step at batch {len(X)}, TF32 off, cuDNN "
+          f"deterministic: loss "
+          f"{losses[0]:.6f} against the plain graph's {losses[1]:.6f}; max "
+          f"gradient difference {worst:.3g} of the largest |g| ({worst_k}; "
+          f"limit {FWD_TOL})")
+    if abs(losses[0] - losses[1]) > FWD_TOL or worst > FWD_TOL:
+        raise AssertionError(f"{label}: the step disagrees with the plain "
+                             "graph's")
+
+
+def _fit_timed(mx, sym, args, auxs, X, y, label):
+    """Fit ``sym`` on the card for one epoch over (X, y) from the given
+    parameters: prints img/s and p50 step ms without the first batch;
+    returns (the module, step seconds)."""
+    import numpy as np
+    it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    step_end, stamps, _ = _step_recorder()
+    metric = mx.metric.create(["acc", "ce"])
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer_params=SGD,
+            arg_params=mx.convert.params_from_numpy(args, mx.gpu(0)),
+            aux_params=mx.convert.params_from_numpy(auxs, mx.gpu(0)),
+            batch_end_callback=step_end)
+    steps = np.diff(stamps)
+    names, values = metric.get()
+    print(f"{label}: {len(stamps)} steps, without the first "
+          f"{TRAIN_BATCH * len(steps) / steps.sum():.1f} img/s, step p50 "
+          f"{1e3 * np.percentile(steps, 50):.2f} ms; "
+          f"{dict(zip(names, values))}")
+    if not np.isfinite(values[1]):
+        raise AssertionError(f"{label}: the training loss is not finite")
+    return mod, steps
+
+
+def _weights_within_spread(label, mod, plain, spread):
+    """``mod``'s weights against the plain fit's, each array within
+    SPREAD_FACTOR times the spread of the plain fit from 1e-6-perturbed
+    starting weights."""
+    import numpy as np
+    got, want, pert = (m.get_params()[0] for m in (mod, plain, spread))
+    worst, worst_k = -1.0, None
+    for k, w in want.items():
+        w = w.asnumpy()
+        d = float(np.abs(got[k].asnumpy() - w).max())
+        floor = float(np.abs(pert[k].asnumpy() - w).max())
+        ratio = d / (SPREAD_FACTOR * floor + 1e-5)
+        if ratio > worst:
+            worst, worst_k = ratio, (k, d, floor)
+    print(f"{label}: weights after {TRAIN_STEPS} steps against the plain "
+          f"fit's: worst {worst_k[0]} {worst_k[1]:.3g} against the 1e-6 "
+          f"spread {worst_k[2]:.3g} (limit {SPREAD_FACTOR} x spread + 1e-5, "
+          f"ratio {worst:.3f})")
+    if worst > 1.0:
+        raise AssertionError(f"{label}: the fit left the plain fit's spread")
+
+
+def _relu_shapes(mx, sym, batch):
+    """The input shapes of the graph's ``relu_user`` nodes at ``batch``."""
+    shapes = sym._infer_entry_shapes({"data": (batch,) + TRAIN_IMAGE,
+                                      "softmax_label": (batch,)})
+    return [shapes[id(n.inputs[0][0])][n.inputs[0][1]]
+            for n in sym._topo_nodes() if n.op == "relu_user"]
+
+
+def _relu_kernel_records(mx, shapes):
+    """``relu_user`` and its VJP over one step's inputs (the 50 shapes of
+    ResNet-50 at batch 32, exact zeros planted) against the plain version
+    (``torch.maximum(x, 0)`` and its autograd backward); torch.relu and
+    threshold_backward are timed beside them (they differ at x == 0)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    xs = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    cts = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    for x in xs:
+        x.view(-1)[::97] = 0.0
+    op = mx.ops.get_op("relu_user")
+    kernels = op.variants["cuda"]["kernels"]
+    plain = lambda x: op.forward({}, [x], [], False, None)[0][0]  # noqa: E731
+    fwd = lambda: [kernels.forward({}, [x])[0] for x in xs]  # noqa: E731
+    vjp = lambda: [kernels.vjp({}, [x], [c])[0]  # noqa: E731
+                   for x, c in zip(xs, cts)]
+
+    def plain_vjp(x, c):
+        leaf = x.detach().requires_grad_(True)
+        return torch.autograd.grad(plain(leaf), leaf, c)[0]
+    thb = torch.ops.aten.threshold_backward
+    err_f = max(_max_err(a, plain(x)) for a, x in zip(fwd(), xs))
+    err_b = max(_max_err(a, plain_vjp(x, c))
+                for a, x, c in zip(vjp(), xs, cts))
+    n = sum(x.numel() for x in xs)
+    recs = {
+        "relu_user": {
+            "max_abs_err": err_f, "ms": _timed(fwd, reps=20, warm=3),
+            "device_ms": _device_ms(fwd, reps=10),
+            "plain_ms": _timed(lambda: [plain(x) for x in xs], 20, 3),
+            "library_ms": _timed(lambda: [torch.relu(x) for x in xs], 20,
+                                 3),
+            "bound": _bound_ms(2 * 4 * n, n)},
+        "relu_user_vjp": {
+            "max_abs_err": err_b, "ms": _timed(vjp, reps=20, warm=3),
+            "device_ms": _device_ms(vjp, reps=10),
+            "plain_ms": _timed(lambda: [plain_vjp(x, c) for x, c
+                                        in zip(xs, cts)], 20, 3),
+            "library_ms": _timed(lambda: [thb(c, x, 0.0) for x, c
+                                          in zip(xs, cts)], 20, 3),
+            "bound": _bound_ms(3 * 4 * n, n)}}
+    for name, r in recs.items():
+        print(f"{name}: over one step's {len(xs)} inputs ({n} values): "
+              f"{r['ms']:.5f} ms per step, device {r['device_ms']}, plain "
+              f"{r['plain_ms']:.5f}, library {r['library_ms']:.5f}, bound "
+              f"{r['bound'][0]:.5f} ({r['bound'][1]}), max |err| "
+              f"{r['max_abs_err']}")
+        if r["max_abs_err"] != 0.0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return recs
+
+
+def _py_node():
+    """A Python autograd node with one launch each way and no ctypes (a
+    clone forward, a clone backward): the host cost of the node alone."""
+    import torch
+
+    class Clone(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.clone()
+
+        @staticmethod
+        def backward(ctx, ct):
+            return ct.clone()
+    return Clone.apply
+
+
+def _host_us(fn, reps=1000, warm=20):
+    """Host microseconds per call of ``fn`` over ``reps`` calls, to a
+    synchronize (the device work of each call is a few microseconds)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
+
+
+def _user_op_host_probe(mx, mods, batch):
+    """Where a step with 50 user ReLUs spends its extra host time. On a
+    4096-float input, where the device takes a few microseconds a kernel
+    and the host sets the pace: each piece of one user launch, one
+    ReLU's forward and backward through the op, and a chain of 50 ReLUs
+    forward and backward (the step's count), each against the plain
+    version and a Python autograd node without ctypes. Then one step's
+    forward and backward apart through the modules of the fits (plain,
+    user, user, plain; 3 each): the host's time to return, the time to a
+    synchronize and the garbage collector's time; and the forward's host
+    time by op, each executor dispatch timed in place."""
+    import gc
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import rtc
+    print("user op probe: live threads "
+          f"{sorted(t.name for t in threading.enumerate())}")
+    dev = torch.device("cuda", 0)
+    x = torch.randn(4096, device=dev)
+    out = torch.empty_like(x)
+    op = mx.ops.get_op("relu_user")
+    kern = op.variants["cuda"]["kernels"]
+    funcs = {
+        "relu_user": lambda t: op.variants["cuda"]["fn"](
+            {}, [t], [], True, None)[0][0],
+        "plain": lambda t: op.forward({}, [t], [], True, None)[0][0],
+        "python node": _py_node()}
+    params = [("data", torch.float32, True), ("out", torch.float32, False)]
+    src = rtc.kernel_source("relu_user", params, RELU_BODY, True)
+    pieces = {
+        "kernel_source": lambda: rtc.kernel_source("relu_user", params,
+                                                   RELU_BODY, True),
+        "_launch_user": lambda: rtc._launch_user(
+            "relu_user", "relu_user", src, [x, out], x.numel(), (16,),
+            (256,)),
+        "op forward, no autograd": lambda: kern.forward({}, [x]),
+        "torch.maximum": lambda: funcs["plain"](x)}
+    print("user op probe: host us per call: " + ", ".join(
+        f"{k} {_host_us(f):.2f}" for k, f in pieces.items()))
+    leaf = x.clone().requires_grad_(True)
+    ct = torch.ones_like(x)
+
+    def one(f):
+        return lambda: torch.autograd.grad(f(leaf), leaf, ct)
+
+    def chain(f):
+        def run():
+            y = leaf
+            for _ in range(RESNET50_RELUS):
+                y = f(y)
+            torch.autograd.grad(y, leaf, ct)
+        return run
+    per_relu = {k: (_host_us(one(f)), _host_us(chain(f), reps=100) /
+                    RESNET50_RELUS) for k, f in funcs.items()}
+    print("user op probe: host us per ReLU, forward + backward, alone / in "
+          f"a chain of {RESNET50_RELUS}: " + ", ".join(
+              f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in per_relu.items()))
+    order = (("plain", mods[0]), ("relu_user", mods[1]),
+             ("relu_user", mods[1]), ("plain", mods[0]))
+    gc_acc = {"t": None, "ms": 0.0, "n": 0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_acc["t"] = time.perf_counter()
+        elif gc_acc["t"] is not None:
+            gc_acc["ms"] += 1e3 * (time.perf_counter() - gc_acc["t"])
+            gc_acc["n"] += 1
+    times = {}
+    gc.callbacks.append(on_gc)
+    try:
+        for name, mod in order:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                g0 = gc_acc["ms"], gc_acc["n"]
+                t0 = time.perf_counter()
+                mod.forward(batch, is_train=True)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                mod.backward()
+                t3 = time.perf_counter()
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                times.setdefault(name, []).append(
+                    (1e3 * (t1 - t0), 1e3 * (t2 - t0), 1e3 * (t3 - t2),
+                     1e3 * (t4 - t2), gc_acc["ms"] - g0[0],
+                     gc_acc["n"] - g0[1]))
+    finally:
+        gc.callbacks.remove(on_gc)
+    med = {k: np.median(np.array(v), axis=0) for k, v in times.items()}
+    for name, (fh, fs, bh, bs, _, _) in med.items():
+        got = np.array(times[name])
+        print(f"user op probe: {name} step, median of 6: forward host "
+              f"{fh:.2f} ms (to sync {fs:.2f}), backward host {bh:.2f} ms "
+              f"(to sync {bs:.2f}); garbage collection "
+              f"{got[:, 4].sum() / len(got):.2f} ms and "
+              f"{got[:, 5].sum() / len(got):.1f} passes a step")
+    d = med["relu_user"] - med["plain"]
+    chained = RESNET50_RELUS * 1e-3 * (per_relu["relu_user"][1] -
+                                       per_relu["plain"][1])
+    print(f"user op probe: relu_user minus plain: forward host {d[0]:+.2f}"
+          f" ms (to sync {d[1]:+.2f}), backward host {d[2]:+.2f} ms (to "
+          f"sync {d[3]:+.2f}); the chain predicts {chained:+.2f} ms a step")
+    # the forward's host time by op, in place: each dispatch timed from
+    # the executor's call to its return (plain, user, user, plain, 2
+    # forwards each, twice: 8 forwards a graph, medians per forward)
+    from mxnet_tpu_torch import executor
+    real, spent = executor.dispatch, {}
+
+    def timed(opdef, *a):
+        t = time.perf_counter()
+        try:
+            return real(opdef, *a)
+        finally:
+            spent[opdef.name] = spent.get(opdef.name, 0.0) + \
+                time.perf_counter() - t
+    forwards = {"plain": [], "relu_user": []}
+    executor.dispatch = timed
+    try:
+        for name, mod in order * 2:
+            for _ in range(2):
+                spent.clear()
+                torch.cuda.synchronize()
+                mod.forward(batch, is_train=True)
+                forwards[name].append(dict(spent))
+        torch.cuda.synchronize()
+    finally:
+        executor.dispatch = real
+    ops = sorted({op for f in forwards.values() for d in f for op in d})
+    med = {name: {op: 1e3 * np.median([d.get(op, 0.0) for d in f])
+                  for op in ops} for name, f in forwards.items()}
+    tot = {name: 1e3 * np.array([sum(d.values()) for d in f])
+           for name, f in forwards.items()}
+    rows = sorted(ops, key=lambda op: -abs(med["relu_user"][op] -
+                                           med["plain"][op]))
+    print("user op probe: forward host ms by op, plain / relu_user "
+          "(median of 8 forwards each): " + ", ".join(
+              f"{op} {med['plain'][op]:.2f} / {med['relu_user'][op]:.2f}"
+              for op in rows[:6]) + "; all ops per forward min / median / "
+          "max: " + "; ".join(
+              f"{name} {t.min():.2f} / {np.median(t):.2f} / {t.max():.2f}"
+              for name, t in tot.items()))
+
+
+def phase_user_op(mx, args, auxs):
+    """ResNet-50 with its 50 ReLUs as the user op ``relu_user`` (a forward
+    and a VJP kernel, registered with ``register_cuda_op``) through
+    ``Module.fit``: one step's loss and gradients against the plain
+    graph's (TF32 off), then 8 steps beside the plain graph's fit from the
+    same parameters and batches, exactly 50 + 50 launches a step, the
+    weights within the plain fit's spread; the kernels over one step's
+    inputs; the op without a VJP kernel refused in a training bind.
+    Returns (records, launches)."""
+    import numpy as np
+    from mxnet_tpu_torch import rtc
+    _register_relu_user(mx)
+    plain = _resnet50(mx)
+    user, count = _rewired(mx, plain, _relu_to("relu_user"))
+    print(f"user op: {count} Activation(relu) nodes of ResNet-50 rewired "
+          "to relu_user (route nvrtc)")
+    if count != RESNET50_RELUS or plain.list_arguments() != \
+            user.list_arguments():
+        raise AssertionError("the rewired ResNet-50 differs from the plain "
+                             "one beyond its ReLUs")
+    print(_tf32(False) + " (user op step phase)")
+    X1, y1 = _images(TRAIN_BATCH, SEED + 3)
+    _step_pair(mx, (user, plain), args, auxs, X1, y1, "user op")
+    print(_tf32(True) + " (user op fits)")
+    X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
+    rs = np.random.RandomState(SEED + 2)
+    nudged = {k: (v * (1 + 1e-6 * rs.randn(*v.shape))).astype(np.float32)
+              for k, v in args.items()}
+    plain_mod, plain_steps = _fit_timed(mx, plain, args, auxs, X, y,
+                                        "user op: plain fit")
+    rtc.reset_launch_counts()
+    user_mod, user_steps = _fit_timed(mx, user, args, auxs, X, y,
+                                      "user op: relu_user fit")
+    counts = rtc.launch_counts()
+    per_step = {k: counts[k] / TRAIN_STEPS for k in ("relu_user",
+                                                     "relu_user_vjp")}
+    print(f"user op: launches per step {per_step} (want "
+          f"{RESNET50_RELUS} each); step p50 "
+          f"{1e3 * np.percentile(user_steps, 50):.2f} ms against the plain "
+          f"{1e3 * np.percentile(plain_steps, 50):.2f} ms")
+    if any(v != RESNET50_RELUS for v in per_step.values()):
+        raise AssertionError("relu_user / relu_user_vjp did not launch 50 "
+                             "times a step")
+    spread_mod, _ = _fit_timed(mx, plain, nudged, auxs, X, y,
+                               "user op: plain fit, perturbed start")
+    _weights_within_spread("user op", user_mod, plain_mod, spread_mod)
+    it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+    for name, mod in (("plain", plain_mod), ("relu_user", user_mod),
+                      ("relu_user", user_mod), ("plain", plain_mod)):
+        phase_train_profile(mod, it, steps=2,
+                            label=f"user op profile, {name}")
+    it.reset()
+    _user_op_host_probe(mx, (plain_mod, user_mod), next(iter(it)))
+    recs = _relu_kernel_records(mx, _relu_shapes(mx, user, TRAIN_BATCH))
+    novjp, _ = _rewired(mx, plain, _relu_to("relu_user_novjp"))
+    mod = mx.mod.Module(novjp, context=mx.gpu(0))
+    mod.bind([("data", (2,) + TRAIN_IMAGE)], [("softmax_label", (2,))])
+    mod.init_params(arg_params=mx.convert.params_from_numpy(args, mx.gpu(0)),
+                    aux_params=mx.convert.params_from_numpy(auxs, mx.gpu(0)))
+    try:
+        mod.forward(mx.io.DataBatch([X[:2]], [y[:2]]), is_train=True)
+    except mx.MXNetError as e:
+        print(f"user op: without a vjp_kernel a training forward raises: "
+              f"{e}")
+    else:
+        raise AssertionError("relu_user_novjp ran a training forward")
+    return recs, counts
+
+
+def _register_custom_softmax(mx):
+    import numpy as np
+    if "chip_softmax" in mx.operator.get_all_registered():
+        return
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0], e / e.sum(axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            label = in_data[1].asnumpy().astype(np.int64)
+            p = out_data[0].asnumpy().copy()
+            p[np.arange(label.shape[0]), label] -= 1.0
+            self.assign(in_grad[0], req[0], p)
+
+    @mx.operator.register("chip_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes=None):
+            return Softmax()
+
+
+def phase_custom_op(mx, args, auxs):
+    """ResNet-50 with MXNet's canonical custom softmax (a numpy forward,
+    backward p - onehot(label), need_top_grad=False) in the place of
+    SoftmaxOutput: one Module.fit step's gradients against the
+    SoftmaxOutput graph's (TF32 off), then 8 steps of each, step ms side by
+    side."""
+    import numpy as np
+    _register_custom_softmax(mx)
+
+    def rewire(node):
+        if node["op"] != "SoftmaxOutput":
+            return False
+        node["op"], node["attrs"] = "Custom", {"op_type": "chip_softmax"}
+        return True
+    plain = _resnet50(mx)
+    custom, count = _rewired(mx, plain, rewire)
+    if count != 1 or custom.list_arguments() != plain.list_arguments():
+        raise AssertionError("the custom-softmax ResNet-50 differs from the "
+                             "plain one beyond its head")
+    print(_tf32(False) + " (CustomOp step phase)")
+    X1, y1 = _images(TRAIN_BATCH, SEED + 4)
+    _step_pair(mx, (custom, plain), args, auxs, X1, y1, "custom op")
+    print(_tf32(True) + " (CustomOp fits)")
+    X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
+    _, plain_steps = _fit_timed(mx, plain, args, auxs, X, y,
+                                "custom op: SoftmaxOutput fit")
+    _, custom_steps = _fit_timed(mx, custom, args, auxs, X, y,
+                                 "custom op: Custom softmax fit")
+    a, b = (1e3 * np.percentile(s, 50) for s in (custom_steps, plain_steps))
+    print(f"custom op: step p50 {a:.2f} ms against SoftmaxOutput's "
+          f"{b:.2f} ms ({a - b:+.2f} ms; the numpy body copies "
+          f"({TRAIN_BATCH}, {TRAIN_CLASSES}) floats each way twice and "
+          "waits for the device at each copy)")
+
+
+def phase_autograd(mx):
+    """A stage-1 bottleneck without BatchNorm at batch 32 (256 -> 64 -> 64
+    -> 256 channels, 56 x 56; Convolution, Activation, _plus) through
+    ``mx.nd`` inside ``train_section`` on the card: the gradients from
+    ``mx.autograd.backward`` against the Executor's of the same symbol,
+    TF32 off, cuDNN deterministic, within FWD_TOL of the largest |g|."""
+    import numpy as np
+    import torch
+    print(_tf32(False) + " (autograd phase)")
+    b, c, m, hw = (BOTTLENECK[k] for k in ("batch", "channels", "mid", "hw"))
+    rs = np.random.RandomState(SEED + 6)
+    vals = {"data": rs.randn(b, c, hw, hw),
+            "w1": rs.randn(m, c, 1, 1) * np.sqrt(2.0 / c),
+            "w2": rs.randn(m, m, 3, 3) * np.sqrt(2.0 / (9 * m)),
+            "w3": rs.randn(c, m, 1, 1) * np.sqrt(2.0 / m)}
+    vals = {k: v.astype(np.float32) for k, v in vals.items()}
+
+    def block(F, x, w1, w2, w3):
+        h = F.Convolution(F.Activation(x, act_type="relu"), w1,
+                          kernel=(1, 1), num_filter=m, no_bias=True)
+        h = F.Convolution(F.Activation(h, act_type="relu"), w2,
+                          kernel=(3, 3), pad=(1, 1), num_filter=m,
+                          no_bias=True)
+        h = F.Convolution(F.Activation(h, act_type="relu"), w3,
+                          kernel=(1, 1), num_filter=c, no_bias=True)
+        return F._plus(h, x)
+
+    names = list(vals)
+    cells = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in vals.items()}
+    grads = {k: mx.nd.zeros(v.shape, ctx=mx.gpu(0)) for k, v in vals.items()}
+    mx.autograd.mark_variables([cells[k] for k in names],
+                               [grads[k] for k in names])
+    t0 = time.perf_counter()
+    with _deterministic():
+        with mx.autograd.train_section():
+            out = block(mx.nd, *[cells[k] for k in names])
+        mx.autograd.backward(out)
+        torch.cuda.synchronize()
+    t_ag = time.perf_counter() - t0
+    sym = block(mx.sym, *[mx.sym.var(k) for k in names])
+    exe = sym.simple_bind(mx.gpu(0), **{k: v.shape for k, v in vals.items()})
+    for k, v in vals.items():
+        exe.arg_dict[k][:] = v
+    t0 = time.perf_counter()
+    with _deterministic():
+        exe.forward(is_train=True)
+        exe.backward([mx.nd.array(np.ones(out.shape, np.float32),
+                                  ctx=mx.gpu(0))])
+        torch.cuda.synchronize()
+    t_exe = time.perf_counter() - t0
+    out_err = float(np.abs(out.asnumpy() - exe.outputs[0].asnumpy()).max())
+    worst, worst_k = _grads_close({k: grads[k].asnumpy() for k in names},
+                                  {k: exe.grad_dict[k].asnumpy()
+                                   for k in names})
+    print(f"autograd: bottleneck {b}x{c}x{hw}x{hw}: output max |diff| "
+          f"{out_err:.3g}, max gradient difference {worst:.3g} of the "
+          f"largest |g| "
+          f"({worst_k}; limit {FWD_TOL}) against the Executor; first "
+          f"forward+backward {1e3 * t_ag:.1f} ms imperative, "
+          f"{1e3 * t_exe:.1f} ms Executor")
+    if worst > FWD_TOL or out_err > FWD_TOL:
+        raise AssertionError("autograd disagrees with the Executor")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2816,6 +3517,14 @@ def main():
     phase_prefix(mx, ck, params)
     fp8_launches = phase_fp8(mx, ck, params, prompts)
     phase_fastpath_profile(mx, prefill_sched, spec_sched)
+    del prefill_sched, spec_sched
+    torch.cuda.empty_cache()
+    user_rec, axpb_launches = phase_rtc(mx)
+    args50, auxs50, _, _ = _resnet50_start(mx, 2)
+    relu_rec, relu_counts = phase_user_op(mx, args50, auxs50)
+    user_rec = {"rtc_axpb": user_rec, **relu_rec}
+    phase_custom_op(mx, args50, auxs50)
+    phase_autograd(mx)
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
@@ -2836,6 +3545,21 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    user_launches = {"rtc_axpb": axpb_launches,
+                     "relu_user": relu_counts["relu_user"],
+                     "relu_user_vjp": relu_counts["relu_user_vjp"]}
+    for name in USER_KERNELS:
+        r = user_rec[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "chip_smoke.py",
+            "replaces": REPLACES[name], "launches": user_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels that did not launch on their path: "
+                             f"{idle}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

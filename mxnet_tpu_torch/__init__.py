@@ -6,25 +6,32 @@ JAX package. It keeps the JAX package's module names so each counterpart
 is easy to find. Its entry points run on the card (``gpu(0)`` is the
 default context) unless the caller passes ``mx.cpu()``.
 
-Five slices are ported: the decode-serving path (the transformer LM of
-``models.transformer`` served by ``serve.serve_decoder``), the
-single-device training path (``mod.Module.fit`` over the image
-classifiers of ``models``, ResNet-50 first, with SGD-momentum or Adam,
-and over the transformer LM, with the per-batch telemetry and MFU
+Eight slices are ported: the decode-serving path (the transformer LM
+of ``models.transformer`` served by ``serve.serve_decoder``, with
+chunked prefill, speculative decoding, the prefix store and the fp8 KV
+cache), the single-device training path (``mod.Module.fit`` over the
+image classifiers of ``models``, ResNet-50 first, with SGD-momentum or
+Adam, and over the transformer LM, with the per-batch telemetry and MFU
 accounting of ``telemetry.mfu``), one-shot serving
 (``serve.serve(module)``) in float32 or the int8 / fp8 quantized tiers
-(``ops/quant.py``), and ``FusedConvBNReLU`` graphs (ResNet-50 with its
-Conv -> BatchNorm -> ReLU triples fused) through both. The TPU kernels
-on those paths are rewritten as CUDA C++ for sm_90a
-(``ops/cuda_kernels.py``, sources under ``csrc/``).
+(``ops/quant.py``), ``FusedConvBNReLU`` graphs (ResNet-50 with its
+Conv -> BatchNorm -> ReLU triples fused) through both, ResNet-50 in
+bfloat16 mixed precision (``compute_dtype``), and the user-extension
+surfaces: ``mx.rtc.Rtc`` and ``mx.rtc.register_cuda_op`` (the user's
+own CUDA kernels), ``mx.operator.CustomOp`` (a Python layer) and
+``mx.autograd`` (imperative gradients). The TPU kernels on those paths
+are rewritten as CUDA C++ for sm_90a (``ops/cuda_kernels.py``, sources
+under ``csrc/``).
 """
 from . import base
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
 from . import ops  # populates the op registry (before nd/sym autogen)
 from . import rtc  # registers attention / attention_decode
+from . import operator  # registers Custom
 from . import ndarray
 from . import ndarray as nd
+from . import autograd
 from . import _op_gen
 _op_gen.init_ndarray_module(ndarray.__dict__)
 from . import symbol

@@ -259,7 +259,9 @@ class Executor:
                              "with at least one argument to differentiate")
         outs, leaves = self._recorded
         if out_grads is None:
-            heads = [torch.ones_like(o) if is_loss else None
+            # zeros reach an op that ignores its head gradient (a Custom
+            # op with need_top_grad=False), as the JAX executor's do
+            heads = [torch.ones_like(o) if is_loss else torch.zeros_like(o)
                      for o, is_loss in zip(outs, self._loss_mask)]
         else:
             if isinstance(out_grads, NDArray):

@@ -7,8 +7,20 @@ alias. ``_set`` swaps a new tensor into the cell; code that owns a cell
 may also update its tensor in place (the KV-cache writes, cursor rewinds
 and rung migrations do, and say so where they do).
 
+Arithmetic: ``+ - * / % **`` (with their reflected and in-place
+forms), unary ``-`` and ``abs``, the six comparisons (which return the
+input's dtype), ``[]`` and ``[] =`` are one PyTorch op each on the
+array's own device. Like ``imperative_invoke`` they record autograd
+history only inside ``autograd.train_section()``; everywhere else they
+run under ``torch.no_grad()``. ``__setitem__`` builds the new value and
+swaps it in with ``_set``, so every alias of the cell sees it. A
+variable marked with ``autograd.mark_variables`` stays a leaf that
+requires grad whatever ``_set`` swaps in: ``backward`` differentiates
+its current value.
+
 Sync points: ``asnumpy()`` copies to the host, which waits for the
-device. Nothing else here synchronizes.
+device; so does ``bool()`` of a one-element array. Nothing else here
+synchronizes.
 """
 from __future__ import annotations
 
@@ -71,7 +83,7 @@ def _to_tensor(data):
 class NDArray:
     """Mutable handle over a ``torch.Tensor``."""
 
-    __slots__ = ("_data", "_ctx", "writable")
+    __slots__ = ("_data", "_ctx", "writable", "_grad", "__weakref__")
 
     def __init__(self, data, ctx=None, writable=True):
         if isinstance(data, NDArray):
@@ -85,6 +97,7 @@ class NDArray:
         self._data = data
         self._ctx = ctx if ctx is not None else context_of(data.device)
         self.writable = writable
+        self._grad = None     # (grad cell, req) once autograd marks it
 
     # ------------------------------------------------------------------ core
     def astorch(self):
@@ -93,9 +106,13 @@ class NDArray:
         return self._data
 
     def _set(self, new_data):
-        """Swap in a new tensor (the mutation primitive)."""
+        """Swap in a new tensor (the mutation primitive). A variable that
+        autograd marked gets the new value as a fresh leaf that requires
+        grad."""
         if not self.writable:
             raise MXNetError("trying to write to a read-only NDArray")
+        if self._grad is not None:
+            new_data = new_data.detach().requires_grad_(True)
         self._data = new_data
 
     @property
@@ -125,6 +142,115 @@ class NDArray:
     def __repr__(self):
         return (f"{self.asnumpy()!r}\n<NDArray "
                 f"{'x'.join(map(str, self.shape))} @{self._ctx}>")
+
+    def __bool__(self):
+        return bool(self._data)
+
+    # ------------------------------------------------------------ indexing
+    def __getitem__(self, key):
+        with _grad_scope():
+            out = self._data[_index(key)]
+        return NDArray(out, ctx=self._ctx)
+
+    def __setitem__(self, key, value):
+        t = self._data
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, (int, float, bool)):
+            value = torch.as_tensor(np.asarray(value))
+        if isinstance(value, torch.Tensor):
+            value = value.to(device=t.device, dtype=t.dtype)
+        with _grad_scope():
+            if isinstance(key, slice) and key == slice(None):
+                new = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                if isinstance(value, torch.Tensor):
+                    new.copy_(value)
+                else:
+                    new.fill_(value)
+            else:
+                new = t.clone()
+                new[_index(key)] = value
+        self._set(new)
+
+    # ---------------------------------------------------------- arithmetic
+    def _binary(self, other, fn):
+        """``fn(self, other)`` for an NDArray or a scalar ``other``."""
+        if isinstance(other, NDArray):
+            other = other._data
+        elif isinstance(other, np.generic):
+            other = other.item()
+        elif not isinstance(other, (int, float)):
+            return NotImplemented
+        with _grad_scope():
+            out = fn(self._data, other)
+        return NDArray(out, ctx=self._ctx)
+
+    def _inplace(self, result):
+        if result is NotImplemented:
+            return result
+        self._set(result._data)
+        return self
+
+    def __add__(self, o): return self._binary(o, torch.add)
+    __radd__ = __add__
+    def __sub__(self, o): return self._binary(o, torch.sub)
+    def __rsub__(self, o): return self._binary(o, lambda a, b: b - a)
+    def __mul__(self, o): return self._binary(o, torch.mul)
+    __rmul__ = __mul__
+    def __truediv__(self, o): return self._binary(o, torch.true_divide)
+    def __rtruediv__(self, o):
+        return self._binary(o, lambda a, b: torch.true_divide(b, a))
+    def __mod__(self, o): return self._binary(o, torch.remainder)
+    def __rmod__(self, o):
+        return self._binary(o, lambda a, b: torch.remainder(b, a))
+    def __pow__(self, o): return self._binary(o, torch.pow)
+    def __rpow__(self, o): return self._binary(o, lambda a, b: torch.pow(b, a))
+    def __iadd__(self, o): return self._inplace(self + o)
+    def __isub__(self, o): return self._inplace(self - o)
+    def __imul__(self, o): return self._inplace(self * o)
+    def __itruediv__(self, o): return self._inplace(self / o)
+    def __imod__(self, o): return self._inplace(self % o)
+    def __ipow__(self, o): return self._inplace(self ** o)
+
+    def __neg__(self):
+        with _grad_scope():
+            return NDArray(-self._data, ctx=self._ctx)
+
+    def __abs__(self):
+        with _grad_scope():
+            return NDArray(torch.abs(self._data), ctx=self._ctx)
+
+    def __eq__(self, o): return self._binary(o, _compare(torch.eq))
+    def __ne__(self, o): return self._binary(o, _compare(torch.ne))
+    def __gt__(self, o): return self._binary(o, _compare(torch.gt))
+    def __ge__(self, o): return self._binary(o, _compare(torch.ge))
+    def __lt__(self, o): return self._binary(o, _compare(torch.lt))
+    def __le__(self, o): return self._binary(o, _compare(torch.le))
+    __hash__ = object.__hash__
+
+
+def _compare(fn):
+    """A comparison whose 0/1 result takes the left operand's dtype."""
+    return lambda a, b: fn(a, b).to(a.dtype)
+
+
+def _index(key):
+    """An index with its NDArrays as tensors."""
+    if isinstance(key, NDArray):
+        return key._data
+    if isinstance(key, tuple):
+        return tuple(k._data if isinstance(k, NDArray) else k for k in key)
+    return key
+
+
+def _grad_scope(mutates=False):
+    """Where an imperative op runs: recording autograd inside
+    ``autograd.train_section()``, under ``torch.no_grad()`` everywhere
+    else and for ops that update their inputs."""
+    from . import autograd
+    if autograd.is_training() and not mutates:
+        return torch.enable_grad()
+    return torch.no_grad()
 
 
 # ---------------------------------------------------------------- factories
@@ -250,7 +376,11 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
     declares ``mutate_inputs`` (the optimizer updates) has output k
     written into the handle of input ``mutate_inputs[k]``; its CUDA
     kernel updates that tensor in place, so the write is the same tensor
-    there."""
+    there. Inside ``autograd.train_section()`` the op runs with
+    ``is_train=True`` and records autograd history (an op that updates
+    its inputs records none); elsewhere with ``is_train=False`` under
+    ``torch.no_grad()``."""
+    from . import autograd
     opdef = get_op(op_name)
     attrs = opdef.normalize_attrs(kwargs)
     in_names = opdef.input_names(attrs)
@@ -261,7 +391,10 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
             else NDArray(x, ctx=ctx).astorch() for x in inputs]
     regular, aux = (arrs[:len(arrs) - aux_n], arrs[len(arrs) - aux_n:]) \
         if aux_n else (arrs, [])
-    outputs, new_aux = dispatch(opdef, attrs, regular, aux, False, None)
+    is_train = autograd.is_training()
+    with _grad_scope(mutates=bool(opdef.mutate_inputs)):
+        outputs, new_aux = dispatch(opdef, attrs, regular, aux, is_train,
+                                    None)
     for mname, new_val in zip(opdef.mutate_inputs, outputs):
         handle = inputs[in_names.index(mname)]
         if isinstance(handle, NDArray):
@@ -269,7 +402,7 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
     if aux_n:
         for handle, new_val in zip(inputs[len(arrs) - aux_n:], new_aux):
             if isinstance(handle, NDArray):
-                handle._set(new_val)
+                handle._set(new_val.detach())
     results = [NDArray(o, ctx=ctx) for o in outputs]
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]

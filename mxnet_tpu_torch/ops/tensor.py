@@ -4,7 +4,9 @@ The subset of the JAX package's ``ops/tensor.py`` that the transformer LM
 binds: ``Reshape`` with its special codes, ``transpose``, ``slice_axis``,
 ``dot``, elementwise and broadcast add, ``expand_dims``, ``_arange`` and
 the ``Embedding`` composition — plus ``Flatten``, which the image
-classifiers bind. Every op here except ``Embedding`` is
+classifiers bind, and ``sum`` (alias ``sum_axis``) and the unary
+``relu``, which imperative autograd code calls. Every op here except
+``Embedding`` is
 plain PyTorch on both devices, as the JAX package leaves them to XLA;
 ``Embedding`` gets its CUDA kernel as the ``"cuda"`` variant in
 ``cuda_kernels.py``.
@@ -15,8 +17,23 @@ import numpy as np
 import torch
 
 from ..base import (parse_tuple, parse_bool, parse_int, parse_float,
-                    merge_shape)
+                    merge_shape, str_to_attr)
 from .registry import register, alias
+
+
+def _axis_param(val):
+    """An ``axis`` attr: None, an int or a tuple of ints."""
+    if val is None or val == "None" or val == "()":
+        return None
+    if isinstance(val, str):
+        val = str_to_attr(val)
+    if isinstance(val, (int, np.integer)):
+        return int(val)
+    return tuple(int(v) for v in val)
+
+
+_REDUCE_ATTRS = {"axis": (_axis_param, None), "keepdims": (parse_bool, False),
+                 "exclude": (parse_bool, False)}
 
 
 def _infer_elemwise(attrs, in_shapes, out_known=None):
@@ -40,6 +57,35 @@ def _flatten(attrs, x):
 
 
 alias("flatten", "Flatten")
+
+
+@register("sum", inputs=("data",), attr_spec=dict(_REDUCE_ATTRS))
+def _sum(attrs, x):
+    """The sum over ``axis`` (all axes when None; the axes NOT listed
+    under ``exclude``), in the input's dtype as ``jnp.sum`` keeps it
+    (bool sums to int32)."""
+    axis = attrs.get("axis")
+    keepdims = attrs.get("keepdims", False)
+    if axis is None:
+        axis = tuple(range(x.ndim))
+    axis = (axis,) if isinstance(axis, int) else tuple(axis)
+    axis = tuple(a % x.ndim for a in axis)
+    if attrs.get("exclude", False):
+        axis = tuple(i for i in range(x.ndim) if i not in axis)
+    dtype = torch.int32 if x.dtype == torch.bool else x.dtype
+    if not axis:
+        return x.to(dtype).clone()
+    return torch.sum(x, dim=axis, keepdim=keepdims, dtype=dtype)
+
+
+alias("sum_axis", "sum")
+
+
+@register("relu", inputs=("data",), infer_shape=_infer_elemwise)
+def _relu(attrs, x):
+    # torch.maximum, as Activation(act_type="relu"): at x == 0 its
+    # gradient splits 1/2-1/2 between the operands as jnp.maximum's does
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 register("elemwise_add", inputs=("lhs", "rhs"),

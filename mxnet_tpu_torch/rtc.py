@@ -1,6 +1,23 @@
-"""Attention ops of the transformer LM (``attention``, its explicit name
+"""``mx.rtc``: user CUDA kernels (``Rtc``, ``register_cuda_op``), the
+attention ops of the transformer LM (``attention``, its explicit name
 ``pallas_flash_attention``, and the KV-cache ``attention_decode``), and
 the ``pallas_sgd_mom_update`` op name.
+
+User kernels are MXNet's original ``mx.rtc`` shape: CUDA C++ source,
+compiled at first use and launched on NDArrays. The JAX package's
+counterparts (``mxnet_tpu/rtc.py`` ``Rtc`` and ``register_pallas_op``)
+take Pallas kernels; the port has no Pallas and no interpreter, so a
+user kernel runs on CUDA tensors only, and an op registered without a
+plain ``reference`` raises on the CPU. The user writes the body of a
+``__global__`` function; the port writes its signature from the names
+and dtypes (float32 -> ``float``, bfloat16 -> ``__nv_bfloat16``, int32
+-> ``int``), ``extern "C"`` so the symbol keeps its name. The source is
+compiled for sm_90a by NVRTC (``libnvrtc`` of the CUDA toolkit, through
+``ctypes``) into a cubin cached under ``build/kernels/`` by the hash of
+its source; the cubin is loaded into the device's primary context (the one
+PyTorch uses) with the driver API, one module per device, and launched
+with ``cuLaunchKernel`` on PyTorch's current stream. Every user kernel
+counts its launches under its name (``launch_counts()``).
 
 ``attention_decode`` is the decode path's stateful op: its K/V caches and
 int32 cursor are op AUX state, read AND written on inference forwards
@@ -47,16 +64,27 @@ JAX package registers for its kernel.
 """
 from __future__ import annotations
 
+import ctypes
+import glob
+import hashlib
+import math
+import os
+import threading
+
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
 from .base import MXNetError, parse_bool, parse_float
+from .ndarray import to_torch_dtype
 from .ops import cuda_kernels
 from .ops.nn import rope_apply
 from .ops.optimizer_op import sgd_mom_step
 from .ops.registry import OP_REGISTRY, register
 
-__all__ = ["flash_attention_fn", "fp8_cast"]
+__all__ = ["Rtc", "register_cuda_op", "kernel_source", "launch_counts",
+           "reset_launch_counts", "flash_attention_fn",
+           "fp8_cast"]
 
 
 # --------------------------------------------------------------------------
@@ -370,6 +398,456 @@ def _register():
 
 
 _register()
+
+# --------------------------------------------------------------------------
+# user CUDA kernels: the build (NVRTC) and the driver API
+# --------------------------------------------------------------------------
+_CTYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
+           torch.int32: "int"}
+_ARCH = "sm_90a"
+_lock = threading.Lock()
+_LAUNCHES = {}         # user kernel name -> launches
+_FUNCS = {}            # (source, device index) -> CUfunction
+_CONTEXTS = {}         # device index -> its primary CUcontext
+#: "cuda" -> the driver library; "nvrtc" -> (NVRTC, its include dir) or
+#: None where the toolkit has no NVRTC
+_libs = {}
+
+
+def kernel_source(name, params, body, with_n):
+    """The CUDA source of user kernel ``name``: ``extern "C" __global__
+    void name(<params>[, long long n]) { body }``, where ``params`` is a
+    list of (name, torch dtype, read-only) and ``with_n`` adds the
+    element count ``n``. Dtypes other than float32, bfloat16 and int32
+    raise."""
+    args = []
+    for pname, dtype, const in params:
+        ctype = _CTYPES.get(dtype)
+        if ctype is None:
+            raise MXNetError(
+                f"user kernel {name!r}: {pname!r} is {dtype}; a user "
+                "kernel takes float32, bfloat16 or int32")
+        args.append(f"{'const ' if const else ''}{ctype}* {pname}")
+    if with_n:
+        args.append("long long n")
+    head = "#include <cuda_bf16.h>\n" if any(
+        dt == torch.bfloat16 for _, dt, _ in params) else ""
+    return (f'{head}extern "C" __global__ void {name}({", ".join(args)})\n'
+            f"{{\n{body}\n}}\n")
+
+
+def _cuda_homes():
+    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+             "/usr/local/cuda"]
+    return [h for h in dict.fromkeys(homes) if h and os.path.isdir(h)]
+
+
+def _nvrtc():
+    """(the NVRTC library, its CUDA include dir), its builtins loaded
+    first so that NVRTC finds them; None where no CUDA home has one."""
+    if "nvrtc" in _libs:
+        return _libs["nvrtc"]
+    found_lib = None
+    for home in _cuda_homes():
+        found = sorted(glob.glob(os.path.join(home, "lib64", "libnvrtc.so*")))
+        if not found:
+            continue
+        for builtins in sorted(glob.glob(os.path.join(
+                home, "lib64", "libnvrtc-builtins.so*"))):
+            ctypes.CDLL(builtins, mode=ctypes.RTLD_GLOBAL)
+            break
+        lib = ctypes.CDLL(found[0])
+        lib.nvrtcGetErrorString.restype = ctypes.c_char_p
+        lib.nvrtcGetErrorString.argtypes = [ctypes.c_int]
+        found_lib = (lib, os.path.join(home, "include"))
+        break
+    _libs["nvrtc"] = found_lib
+    return found_lib
+
+
+def _nvrtc_cubin(nvrtc, name, source):
+    lib, include = nvrtc
+
+    def check(res, what):
+        if res != 0:
+            raise MXNetError(f"user kernel {name!r}: {what} failed: "
+                             f"{lib.nvrtcGetErrorString(res).decode()}")
+
+    prog = ctypes.c_void_p()
+    check(lib.nvrtcCreateProgram(ctypes.byref(prog), source.encode(),
+                                 f"{name}.cu".encode(), 0, None, None),
+          "nvrtcCreateProgram")
+    try:
+        opts = [f"--gpu-architecture={_ARCH}".encode(),
+                f"-I{include}".encode()]
+        res = lib.nvrtcCompileProgram(prog, len(opts),
+                                      (ctypes.c_char_p * len(opts))(*opts))
+        size = ctypes.c_size_t()
+        check(lib.nvrtcGetProgramLogSize(prog, ctypes.byref(size)),
+              "nvrtcGetProgramLogSize")
+        log = ctypes.create_string_buffer(size.value)
+        check(lib.nvrtcGetProgramLog(prog, log), "nvrtcGetProgramLog")
+        log = log.value.decode(errors="replace")
+        if res != 0:
+            raise MXNetError(
+                f"user kernel {name!r} does not compile (NVRTC: "
+                f"{lib.nvrtcGetErrorString(res).decode()}):\n{log}\n"
+                f"--- source ---\n{source}")
+        check(lib.nvrtcGetCUBINSize(prog, ctypes.byref(size)),
+              "nvrtcGetCUBINSize")
+        cubin = ctypes.create_string_buffer(size.value)
+        check(lib.nvrtcGetCUBIN(prog, cubin), "nvrtcGetCUBIN")
+        return cubin.raw
+    finally:
+        lib.nvrtcDestroyProgram(ctypes.byref(prog))
+
+
+def _cubin(name, source):
+    """The sm_90a cubin of ``source``, from ``build/kernels/`` when an
+    earlier run compiled the same source."""
+    digest = hashlib.sha256(f"{_ARCH}\n{source}".encode()).hexdigest()[:16]
+    path = cuda_kernels._BUILD_DIR / f"rtc_{name}_{digest}.cubin"
+    if path.exists():
+        return path.read_bytes()
+    nvrtc = _nvrtc()
+    if nvrtc is None:
+        looked = ", ".join(os.path.join(h, "lib64") for h in _cuda_homes())
+        raise MXNetError(
+            f"user kernel {name!r} compiles with NVRTC, and no libnvrtc.so "
+            "was found under $CUDA_HOME, $CUDA_PATH or /usr/local/cuda "
+            f"(looked in: {looked or 'none of them exists'})")
+    cubin = _nvrtc_cubin(nvrtc, name, source)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(cubin)
+    os.replace(tmp, path)
+    return cubin
+
+
+def _driver():
+    lib = _libs.get("cuda")
+    if lib is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuLaunchKernel.argtypes = [ctypes.c_void_p] + \
+            [ctypes.c_uint] * 7 + [ctypes.c_void_p] * 3
+        _check(lib, lib.cuInit(0), "cuInit")
+        _libs["cuda"] = lib
+    return lib
+
+
+def _check(lib, res, what):
+    if res != 0:
+        msg = ctypes.c_char_p()
+        lib.cuGetErrorString(res, ctypes.byref(msg))
+        raise MXNetError(f"{what} failed: CUresult {res} "
+                         f"({(msg.value or b'?').decode()})")
+
+
+def _make_current(lib, index):
+    """Make device ``index``'s primary context (PyTorch's) current on
+    this thread; modules and launches belong to it."""
+    ctx = _CONTEXTS.get(index)
+    if ctx is None:
+        torch.cuda.current_device()
+        dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+        _check(lib, lib.cuDeviceGet(ctypes.byref(dev), index), "cuDeviceGet")
+        _check(lib, lib.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+               "cuDevicePrimaryCtxRetain")
+        if not ctx.value:
+            raise MXNetError(f"no CUDA context for device {index}")
+        _CONTEXTS[index] = ctx
+    cur = ctypes.c_void_p()
+    _check(lib, lib.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
+    if cur.value != ctx.value:
+        _check(lib, lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+
+
+def _function(lib, name, source, index):
+    key = (source, index)
+    fn = _FUNCS.get(key)
+    if fn is None:
+        with _lock:
+            fn = _FUNCS.get(key)
+            if fn is None:
+                image = _cubin(name, source)
+                mod, fn = ctypes.c_void_p(), ctypes.c_void_p()
+                _check(lib, lib.cuModuleLoadData(ctypes.byref(mod), image),
+                       f"loading user kernel {name!r}")
+                _check(lib, lib.cuModuleGetFunction(
+                    ctypes.byref(fn), mod, name.encode()),
+                    f"finding user kernel {name!r}")
+                _FUNCS[key] = fn
+    return fn
+
+
+def _dims(dims, what):
+    dims = (dims,) if isinstance(dims, int) else tuple(int(d) for d in dims)
+    if not 1 <= len(dims) <= 3 or min(dims) < 1:
+        raise MXNetError(f"{what} must be 1 to 3 positive ints, got {dims}")
+    return dims + (1,) * (3 - len(dims))
+
+
+def _launch_user(counter, name, source, tensors, n, grid, block):
+    """Launch user kernel ``name`` (compiled from ``source``) over the
+    contiguous CUDA ``tensors`` (then ``n``, when not None) on the current
+    stream, and count it under ``counter``."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise MXNetError(f"user kernel {name!r}: tensors span {dev} and "
+                             f"{t.device}")
+    lib = _driver()
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with torch.cuda.device(index):
+        _make_current(lib, index)
+        fn = _function(lib, name, source, index)
+        args = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+        if n is not None:
+            args.append(ctypes.c_longlong(n))
+        params = (ctypes.c_void_p * len(args))(
+            *[ctypes.addressof(a) for a in args])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check(lib, lib.cuLaunchKernel(fn, *_dims(grid, "grid"),
+                                       *_dims(block, "block"), 0, stream,
+                                       params, None),
+               f"launching user kernel {name!r}")
+    _LAUNCHES[counter] = _LAUNCHES.get(counter, 0) + 1
+
+
+def launch_counts():
+    """{user kernel name: launches so far}."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts():
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def _on_card(name, tensors):
+    if any(t.device.type != "cuda" for t in tensors):
+        raise MXNetError(
+            f"user kernel {name!r} runs on CUDA tensors only: the port "
+            "compiles CUDA source for the card and has no interpreter for "
+            "it on the host")
+
+
+class Rtc:
+    """A user CUDA kernel pushed onto NDArrays (MXNet's ``mx.rtc.Rtc``).
+
+    ``inputs`` / ``outputs`` are (name, NDArray) pairs that fix each
+    argument's name, shape and dtype; ``kernel`` is the body of the
+    ``__global__`` function, whose signature the port writes as
+    ``extern "C" __global__ void <name>(const T* <input>..., T* <output>
+    ...)`` (``source`` holds the whole text). The kernel compiles at the
+    first push."""
+
+    def __init__(self, name, inputs, outputs, kernel):
+        self.name = name
+        self._ins = [(nm, tuple(a.shape), a.astorch().dtype)
+                     for nm, a in inputs]
+        self._outs = [(nm, tuple(a.shape), a.astorch().dtype)
+                      for nm, a in outputs]
+        self.source = kernel_source(
+            name, [(nm, dt, True) for nm, _, dt in self._ins] +
+            [(nm, dt, False) for nm, _, dt in self._outs], kernel, False)
+        _LAUNCHES.setdefault(name, 0)
+
+    def push(self, ins, outs, grid_dims=None, block_dims=None):
+        """Launch on ``ins`` and write ``outs`` in place, over
+        ``grid_dims`` blocks of ``block_dims`` threads (each 1 to 3
+        ints); by default a 1-D grid of 256-thread blocks over the first
+        output's elements. The kernel sees contiguous arrays: a
+        non-contiguous output is computed in a contiguous copy, which is
+        then written back through it, so the array it views sees the
+        result."""
+        if len(ins) != len(self._ins):
+            raise MXNetError(f"{self.name}: expected "
+                             f"{len(self._ins)} inputs")
+        if len(outs) != len(self._outs):
+            raise MXNetError(f"{self.name}: expected "
+                             f"{len(self._outs)} outputs, "
+                             f"got {len(outs)}")
+        for a, (nm, shp, _) in zip(ins, self._ins):
+            if tuple(a.shape) != shp:
+                raise MXNetError(f"{self.name}: input {nm!r} shape "
+                                 f"{tuple(a.shape)} != declared {shp}")
+        for i, (o, (_, shp, _)) in enumerate(zip(outs, self._outs)):
+            if tuple(o.shape) != shp:
+                raise MXNetError(f"{self.name}: output {i} shape "
+                                 f"{tuple(o.shape)} != declared {shp}")
+        for a, (nm, _, dt) in zip(list(ins) + list(outs),
+                                  self._ins + self._outs):
+            if a.astorch().dtype != dt:
+                raise MXNetError(f"{self.name}: {nm!r} is "
+                                 f"{a.astorch().dtype}, declared {dt}")
+        src = [a.astorch().contiguous() for a in ins]
+        dst = [o.astorch().contiguous() for o in outs]
+        _on_card(self.name, src + dst)
+        n = dst[0].numel() if dst else 0
+        block = (256,) if block_dims is None else block_dims
+        grid = (max(1, -(-n // 256)),) if grid_dims is None else grid_dims
+        _launch_user(self.name, self.name, self.source, src + dst, None,
+                     grid, block)
+        for o, t in zip(outs, dst):
+            if t is o.astorch():
+                increment_version(t)
+            else:                   # a view: write back through it
+                with torch.no_grad():
+                    o.astorch().copy_(t)
+        return outs
+
+
+class _CudaOp:
+    """A registered user op's kernels: the forward ``name`` over
+    ``(inputs..., out | out0, out1..., n)`` and the VJP ``name_vjp`` over
+    ``(inputs..., ct | ct0, ct1..., grad_<input>..., n)``."""
+
+    def __init__(self, name, kernel, vjp_kernel, out_shapes, inputs, grid,
+                 block):
+        self.name, self.kernel, self.vjp_kernel = name, kernel, vjp_kernel
+        self.out_shapes, self.inputs = out_shapes, tuple(inputs)
+        self.grid, self.block = grid, block
+
+    def _launch(self, kname, body, attrs, in_shapes, ins, outs, names):
+        params = [(nm, t.dtype, i < len(ins))
+                  for i, (nm, t) in enumerate(zip(names, ins + outs))]
+        source = kernel_source(kname, params, body, True)
+        n = outs[0].numel()
+        block = self.block(attrs, in_shapes) if callable(self.block) \
+            else self.block
+        block = (256,) if block is None else block
+        grid = self.grid(attrs, in_shapes) if callable(self.grid) \
+            else self.grid
+        if grid is None:
+            grid = (max(1, -(-n // math.prod(_dims(block, "block")))),)
+        _launch_user(kname, kname, source, ins + outs, n, grid, block)
+        return outs
+
+    def forward(self, attrs, ins):
+        ins = [t.contiguous() for t in ins]
+        _on_card(self.name, ins)
+        in_shapes = [tuple(t.shape) for t in ins]
+        outs = [torch.empty(tuple(s), device=ins[0].device,
+                            dtype=ins[0].dtype if dt is None
+                            else to_torch_dtype(dt))
+                for s, dt in self.out_shapes(attrs, in_shapes)]
+        names = list(self.inputs) + (["out"] if len(outs) == 1 else
+                                     [f"out{i}" for i in range(len(outs))])
+        return self._launch(self.name, self.kernel(attrs), attrs, in_shapes,
+                            ins, outs, names)
+
+    def vjp(self, attrs, ins, cts):
+        ins = [t.contiguous() for t in ins]
+        cts = [c.contiguous() for c in cts]
+        in_shapes = [tuple(t.shape) for t in ins]
+        grads = [torch.empty_like(t) for t in ins]
+        cts_names = ["ct"] if len(cts) == 1 else \
+            [f"ct{i}" for i in range(len(cts))]
+        names = list(self.inputs) + cts_names + \
+            [f"grad_{nm}" for nm in self.inputs]
+        return self._launch(f"{self.name}_vjp", self.vjp_kernel(attrs),
+                            attrs, in_shapes, ins + cts, grads, names)
+
+
+class _CudaOpFn(torch.autograd.Function):
+    """A user op with a VJP kernel: the forward kernel forward, the VJP
+    kernel backward."""
+
+    @staticmethod
+    def forward(ctx, op, attrs, *ins):
+        ctx.op, ctx.attrs = op, attrs
+        ctx.save_for_backward(*ins)
+        return tuple(op.forward(attrs, list(ins)))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None, *ctx.op.vjp(ctx.attrs, ctx.saved_tensors,
+                                        list(cts)))
+
+
+def register_cuda_op(name, kernel, out_shapes, inputs=("data",),
+                     vjp_kernel=None, grid=None, block=None, attr_spec=None,
+                     reference=None):
+    """Register a user CUDA kernel as the op ``name`` (``mx.nd.<name>``,
+    ``mx.sym.<name>``): the counterpart of the JAX package's
+    ``register_pallas_op``.
+
+    Parameters
+    ----------
+    kernel : fn(attrs) -> the body of the forward kernel, attrs formatted
+        in. Its signature: one ``const T*`` per input (named as in
+        ``inputs``), one ``T*`` per output (``out``, or ``out0``,
+        ``out1`` ...), then ``long long n``, the first output's element
+        count.
+    out_shapes : fn(attrs, in_shapes) -> [(shape, dtype or None)]; None
+        takes input 0's dtype. In a graph the op has one output.
+    vjp_kernel : optional fn(attrs) -> the body of the backward kernel,
+        over the inputs, the cotangents (``ct``, or ``ct0`` ...) and one
+        gradient per input (``grad_<input>``), then ``n`` (input 0's
+        element count). With it the op is differentiable on the card;
+        without it the card refuses inputs that require grad.
+    grid, block : each a value (1 to 3 ints) or fn(attrs, in_shapes);
+        by default 256-thread blocks, as many as cover ``n`` once. Both
+        kernels launch with them.
+    reference : optional plain PyTorch version fn(attrs, *inputs) with
+        the kernel's semantics: the op's forward on CPU tensors (and its
+        gradient there, through PyTorch's autograd). Without it a CPU
+        call raises.
+
+    Each source compiles once (cached per its text, which holds the
+    dtypes); launches count under ``name`` and ``name_vjp``. The op's
+    ``variants["cuda"]["kernels"]`` launches either kernel alone:
+    ``forward(attrs, inputs)`` and ``vjp(attrs, inputs, cotangents)``
+    return new tensors."""
+    op = _CudaOp(name, kernel, vjp_kernel, out_shapes, inputs, grid, block)
+
+    def cuda_variant(attrs, ins, aux, is_train, rng):
+        if vjp_kernel is None:
+            return op.forward(attrs, list(ins)), []
+        return list(_CudaOpFn.apply(op, attrs, *ins)), []
+
+    def no_plain(attrs, ins, aux, is_train, rng):
+        raise MXNetError(
+            f"op {name!r} has no plain version (register_cuda_op(..., "
+            "reference=...)): the port has no interpreter for CUDA "
+            "source, so it runs on CUDA tensors only")
+
+    def infer(attrs, in_shapes):
+        if any(s is None for s in in_shapes):
+            return in_shapes, [None], []
+        return in_shapes, [tuple(s) for s, _ in out_shapes(
+            attrs, [tuple(s) for s in in_shapes])], []
+
+    def nbytes(attrs, in_shapes):
+        # the accounting sees shapes alone: inputs count at its 4 B an
+        # element (ops/cost.py), outputs at their declared dtype's width
+        outs = out_shapes(attrs, [tuple(s) for s in in_shapes])
+        return 4.0 * sum(math.prod(s) for s in in_shapes) + sum(
+            math.prod(s) * (4 if dt is None else to_torch_dtype(dt).itemsize)
+            for s, dt in outs)
+
+    kw = dict(inputs=tuple(inputs), attr_spec=attr_spec or {},
+              infer_shape=infer)
+    opdef = register(name, simple=reference, **kw) if reference is not None \
+        else register(name, full=no_plain, **kw)
+    opdef.add_variant(
+        "cuda", cuda_variant,
+        backward_pending=None if vjp_kernel is not None else
+        f"{name}'s vjp_kernel (register_cuda_op(..., vjp_kernel=...))")
+    opdef.variants["cuda"]["kernels"] = op
+    # a user kernel's operations are unknown to the port: 0 FLOPs; its
+    # bytes are each input read once and each output written once
+    opdef.set_cost(flops=lambda attrs, in_shapes: 0.0, bytes_moved=nbytes)
+    _LAUNCHES.setdefault(name, 0)
+    if vjp_kernel is not None:
+        _LAUNCHES.setdefault(f"{name}_vjp", 0)
+    from . import _op_gen, ndarray, symbol
+    _op_gen.init_ndarray_module(ndarray.__dict__)
+    symbol._init_symbol_module(symbol.__dict__)
+    return opdef
+
 
 # rtc's ops register after ops/cost.py's import-time pass — re-seed so
 # attention / attention_decode / pallas_sgd_mom_update carry estimators

@@ -36,6 +36,17 @@ K = 13, N = 1, N = 1001, one column, 147 columns): the matmul within
 dequant bit for bit. The quantized ops' CUDA variants refuse float16
 data and inputs that require grad, and a quantized server on the card
 answers with no kernel build after warmup and the CPU server's outputs.
+
+User kernels (``mx.rtc``): an ``Rtc`` push with and without launch
+dims, bit for bit against ``torch.add``; a ``register_cuda_op`` ReLU
+whose forward and VJP kernels equal ``torch.relu`` and its
+``threshold_backward`` bit for bit (zeros included), under
+``mx.autograd`` and in an executor against the CPU's reference; the
+refusal of an op without a VJP kernel in a training forward; bfloat16
+and int32 signatures. CustomOps on CUDA
+tensors (an NDArray body on the device, the numpy softmax head against
+``SoftmaxOutput``) and ``mx.autograd`` over convolutions on the card
+against the CPU, TF32 off (1e-4: cuDNN and oneDNN sum in other orders).
 """
 import numpy as np
 import pytest
@@ -1095,3 +1106,282 @@ def test_kept_bf16_casts_follow_the_update_kernel(dev):
     fresh.forward(batch, is_train=False)
     np.testing.assert_array_equal(got, fresh.get_outputs()[0].asnumpy())
     assert np.abs(got - first).max() > 1e-3
+
+
+# --------------------------------------------------------------------------
+# user kernels (mx.rtc), CustomOp and autograd on the card
+# --------------------------------------------------------------------------
+def _grid_stride(n="n"):
+    return ("for (long long i = blockIdx.x * (long long)blockDim.x + "
+            f"threadIdx.x; i < {n}; i += (long long)gridDim.x * blockDim.x)"
+            "\n")
+
+
+def _relu_ops():
+    """``tc_relu_user`` (forward + VJP kernels, reference torch.relu) and
+    ``tc_relu_novjp`` (no VJP kernel), registered once."""
+    if "tc_relu_user" not in mx.sym.__dict__:
+        mx.rtc.register_cuda_op(
+            "tc_relu_user",
+            kernel=lambda attrs: _grid_stride() +
+            "    out[i] = data[i] > 0.0f ? data[i] : 0.0f;",
+            vjp_kernel=lambda attrs: _grid_stride() +
+            "    grad_data[i] = data[i] > 0.0f ? ct[i] : 0.0f;",
+            out_shapes=lambda attrs, shapes: [(shapes[0], None)],
+            reference=lambda attrs, x: torch.relu(x))
+        mx.rtc.register_cuda_op(
+            "tc_relu_novjp",
+            kernel=lambda attrs: _grid_stride() +
+            "    out[i] = data[i] > 0.0f ? data[i] : 0.0f;",
+            out_shapes=lambda attrs, shapes: [(shapes[0], None)],
+            reference=lambda attrs, x: torch.relu(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [None, ((64,), (128,)), ((3, 2), (32, 2))],
+                         ids=["default", "1d", "2d"])
+def test_rtc_push(dev, dims):
+    """Rtc over 2^20 floats: ``out = 2 x + y`` equals torch.add(y, x,
+    alpha=2) bit for bit, with the default launch and with given dims (a
+    grid-stride body over every thread of the launch)."""
+    n = 1 << 20
+    x, y = _rnd(dev, n, seed=1), _rnd(dev, n, seed=2)
+    out = mx.nd.array(np.zeros(n, np.float32), ctx=mx.gpu(0))
+    body = ("    long long t = (blockIdx.y * (long long)gridDim.x + "
+            "blockIdx.x) * blockDim.x * blockDim.y + threadIdx.y * "
+            "blockDim.x + threadIdx.x;\n"
+            "    long long step = (long long)gridDim.x * gridDim.y * "
+            "blockDim.x * blockDim.y;\n"
+            f"    for (long long i = t; i < {n}; i += step)\n"
+            "        out[i] = 2.0f * x[i] + y[i];")
+    xs, ys = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    rtc = mx.rtc.Rtc("tc_axpb", [("x", xs), ("y", ys)], [("out", out)], body)
+    before = mx.rtc.launch_counts()["tc_axpb"]
+    kw = {} if dims is None else {"grid_dims": dims[0],
+                                  "block_dims": dims[1]}
+    rtc.push([xs, ys], [out], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out.astorch(), torch.add(y, x, alpha=2.0))
+    assert mx.rtc.launch_counts()["tc_axpb"] == before + 1
+    with pytest.raises(MXNetError, match="shape"):
+        rtc.push([xs, mx.nd.NDArray(y[:10])], [out])
+    with pytest.raises(MXNetError, match="block"):
+        rtc.push([xs, ys], [out], block_dims=(0,))
+
+
+@pytest.mark.cuda
+def test_rtc_push_writes_through_a_view(dev):
+    """A non-contiguous output (a column of a wider array) is written in
+    place: the array it views sees the result, its other column stays."""
+    n = 1 << 12
+    x = _rnd(dev, n, seed=3)
+    base = torch.zeros(n, 2, device=dev)
+    col = mx.nd.NDArray(base[:, 0])
+    assert not col.astorch().is_contiguous()
+    xs = mx.nd.NDArray(x)
+    rtc = mx.rtc.Rtc("tc_twice", [("x", xs)], [("out", col)],
+                     _grid_stride(n) + "    out[i] = 2.0f * x[i];")
+    rtc.push([xs], [col])
+    torch.cuda.synchronize()
+    assert torch.equal(base[:, 0], 2.0 * x)
+    assert torch.equal(col.astorch(), 2.0 * x)
+    assert not base[:, 1].any()
+
+
+@pytest.mark.cuda
+def test_register_cuda_op_forward_and_vjp(dev):
+    """The forward kernel equals torch.relu and the VJP kernel torch's
+    threshold_backward bit for bit, zeros included (x == 0 gives 0), on
+    shapes that do not fill a block; through mx.nd under autograd and
+    through an executor."""
+    _relu_ops()
+    for shape in [(32, 64, 56, 56), (3, 5), (1,)]:
+        x = _rnd(dev, *shape, seed=3)
+        x.view(-1)[::7] = 0.0
+        ct = _rnd(dev, *shape, seed=4)
+        counts = mx.rtc.launch_counts()
+        xs = mx.nd.NDArray(x.clone())
+        gx = mx.nd.NDArray(torch.zeros_like(x))
+        mx.autograd.mark_variables(xs, gx)
+        with mx.autograd.train_section():
+            y = mx.nd.tc_relu_user(xs)
+        mx.autograd.backward(y, out_grads=mx.nd.NDArray(ct))
+        torch.cuda.synchronize()
+        leaf = x.clone().requires_grad_(True)
+        want = torch.relu(leaf)
+        want.backward(ct)
+        assert torch.equal(y.astorch(), want.detach())
+        assert torch.equal(gx.astorch(), leaf.grad)
+        now = mx.rtc.launch_counts()
+        assert now["tc_relu_user"] == counts["tc_relu_user"] + 1
+        assert now["tc_relu_user_vjp"] == counts["tc_relu_user_vjp"] + 1
+    # in an executor graph: card (kernels) against CPU (reference)
+    sym = mx.sym.tc_relu_user(mx.sym.FullyConnected(
+        mx.sym.var("data"), num_hidden=7, name="fc"))
+    rs = np.random.RandomState(5)
+    vals = {"data": rs.randn(4, 9), "fc_weight": rs.randn(7, 9),
+            "fc_bias": rs.randn(7)}
+    got = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        exe = sym.simple_bind(ctx, data=(4, 9))
+        for k, v in vals.items():
+            exe.arg_dict[k][:] = v.astype(np.float32)
+        exe.forward(is_train=True)
+        exe.backward([mx.nd.array(np.ones((4, 7), np.float32), ctx=ctx)])
+        got.append([exe.outputs[0].asnumpy()] +
+                   [exe.grad_dict[k].asnumpy() for k in sorted(vals)])
+    for a, b in zip(*got):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_op_without_vjp_refuses_grad(dev):
+    _relu_ops()
+    x = mx.nd.NDArray(_rnd(dev, 4, 6, seed=6))
+    torch.testing.assert_close(mx.nd.tc_relu_novjp(x).astorch(),
+                               torch.relu(x.astorch()))
+    exe = mx.sym.tc_relu_novjp(mx.sym.var("data")).simple_bind(
+        mx.gpu(0), data=(4, 6))
+    with pytest.raises(MXNetError, match="vjp_kernel"):
+        exe.forward(is_train=True)
+    exe.forward(is_train=False)
+
+
+@pytest.mark.cuda
+def test_user_kernel_bf16_and_int32_signatures(dev):
+    if "tc_bf16_twice" not in mx.sym.__dict__:
+        mx.rtc.register_cuda_op(
+            "tc_bf16_twice",
+            kernel=lambda attrs: _grid_stride() +
+            "    out[i] = __float2bfloat16(2.0f * __bfloat162float(data[i]));",
+            out_shapes=lambda attrs, shapes: [(shapes[0], None)])
+    x = _rnd(dev, 1000, seed=7).to(torch.bfloat16)
+    got = mx.nd.tc_bf16_twice(mx.nd.NDArray(x)).astorch()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, (x.float() * 2.0).to(torch.bfloat16))
+    idx = torch.arange(-500, 500, dtype=torch.int32, device=dev)
+    out = mx.nd.NDArray(torch.zeros_like(idx))
+    rtc = mx.rtc.Rtc("tc_affine_i32", [("idx", mx.nd.NDArray(idx))],
+                     [("out", out)], _grid_stride(1000) +
+                     "    out[i] = 3 * idx[i] + 1;")
+    assert "const int* idx, int* out" in rtc.source
+    rtc.push([mx.nd.NDArray(idx)], [out])
+    assert torch.equal(out.astorch(), 3 * idx + 1)
+
+
+def _custom_ops():
+    if "tc_scale_nd" in mx.operator.get_all_registered():
+        return
+
+    class ScaleNd(mx.operator.CustomOp):
+        """A body in NDArray arithmetic: it stays on the device."""
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * 3.0 + 1.0)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * 3.0)
+
+    @mx.operator.register("tc_scale_nd")
+    class ScaleNdProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=True)
+
+        def create_operator(self, ctx, in_shapes, in_dtypes=None):
+            assert ctx == mx.gpu(0) or ctx == mx.cpu()
+            return ScaleNd()
+
+    class Softmax(mx.operator.CustomOp):
+        """The canonical custom softmax: numpy on the host."""
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0], e / e.sum(axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            label = in_data[1].asnumpy().astype(np.int64)
+            p = out_data[0].asnumpy().copy()
+            p[np.arange(label.shape[0]), label] -= 1.0
+            self.assign(in_grad[0], req[0], p)
+
+    @mx.operator.register("tc_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes=None):
+            return Softmax()
+
+
+@pytest.mark.cuda
+def test_custom_op_on_cuda_tensors(dev):
+    """CustomOps on the card: an NDArray body keeps its tensors on the
+    device, a numpy body round-trips through the host; forward and
+    backward equal the CPU's, and the custom softmax head's gradients
+    equal SoftmaxOutput's."""
+    _custom_ops()
+    rs = np.random.RandomState(8)
+    xv = rs.randn(6, 5).astype(np.float32)
+    lab = rs.randint(0, 10, 6).astype(np.float32)
+    wv = rs.randn(10, 5).astype(np.float32)
+    y = mx.nd.Custom(mx.nd.array(xv, ctx=mx.gpu(0)), op_type="tc_scale_nd")
+    assert y.context == mx.gpu(0) and y.astorch().is_cuda
+    np.testing.assert_allclose(y.asnumpy(), xv * 3.0 + 1.0, rtol=1e-6)
+    fc = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=10,
+                               no_bias=True, name="fc")
+    label = mx.sym.var("softmax_label")
+    got = {}
+    for name, net in (("custom", mx.sym.Custom(fc, label,
+                                                op_type="tc_softmax")),
+                      ("plain", mx.sym.SoftmaxOutput(fc, label))):
+        for ctx in (mx.gpu(0), mx.cpu()):
+            exe = net.simple_bind(ctx, data=(6, 5), softmax_label=(6,))
+            exe.arg_dict["data"][:] = xv
+            exe.arg_dict["softmax_label"][:] = lab
+            exe.arg_dict["fc_weight"][:] = wv
+            exe.forward(is_train=True)
+            exe.backward()
+            got[name, str(ctx)] = (exe.outputs[0].asnumpy(),
+                                   exe.grad_dict["fc_weight"].asnumpy())
+    want = got["plain", "cpu(0)"]
+    for key, (prob, grad) in got.items():
+        np.testing.assert_allclose(prob, want[0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(grad, want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_autograd_backward_on_cuda(dev):
+    """A conv -> relu -> conv -> residual add through mx.nd inside a train
+    section on the card: the gradients of the marked weights and input
+    equal the CPU's, TF32 off."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rs = np.random.RandomState(9)
+        vals = [rs.randn(2, 8, 10, 10), 0.2 * rs.randn(4, 8, 1, 1),
+                0.2 * rs.randn(8, 4, 3, 3)]
+        head = rs.randn(2, 8, 10, 10).astype(np.float32)
+        got = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            xs = [mx.nd.array(v.astype(np.float32), ctx=ctx) for v in vals]
+            gs = [mx.nd.zeros(v.shape, ctx=ctx) for v in vals]
+            mx.autograd.mark_variables(xs, gs)
+            with mx.autograd.train_section():
+                h = mx.nd.Activation(mx.nd.Convolution(
+                    xs[0], xs[1], kernel=(1, 1), num_filter=4, no_bias=True),
+                    act_type="relu")
+                out = mx.nd.Convolution(h, xs[2], kernel=(3, 3), pad=(1, 1),
+                                        num_filter=8, no_bias=True) + xs[0]
+            mx.autograd.backward(out, out_grads=mx.nd.array(head, ctx=ctx))
+            got.append([g.asnumpy() for g in gs])
+        for a, b in zip(*got):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

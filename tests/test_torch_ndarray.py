@@ -1,0 +1,189 @@
+"""The NDArray operators and the ``sum`` / ``relu`` ops: the PyTorch port
+against the JAX package on the same numpy-seeded inputs (CPU).
+
+Every operator the port's NDArray carries — ``+ - * / % **`` with
+arrays and scalars, reflected and in place, unary ``-`` and ``abs``, the
+six comparisons (0/1 in the input's dtype), ``[]`` and ``[] =`` — and
+the registry ops ``sum`` (``axis``, ``keepdims``, ``exclude``; alias
+``sum_axis``) and ``relu``, one case each. Where the JAX package's
+NDArray has no such operator (``%`` reflected, which Python then
+refuses), numpy is the reference. Tolerance 1e-6: one float32 op each,
+``sum`` over at most 24 terms in another order.
+"""
+import numpy as np
+import pytest
+
+import mxnet_tpu as mxj
+import mxnet_tpu_torch as mxt
+
+TOL = 1e-6
+RS = np.random.RandomState(0)
+A = RS.uniform(-2.0, 2.0, (4, 6)).astype(np.float32)
+B = RS.uniform(0.5, 2.0, (4, 6)).astype(np.float32)
+P = RS.uniform(0.5, 1.5, (4, 6)).astype(np.float32)   # pow's base
+X3 = RS.randn(2, 3, 4).astype(np.float32)
+
+
+def _inplace(op):
+    """``a <op>= b``; returns (the name's new value, the old handle)."""
+    def run(a, b):
+        alias = a
+        if op == "+":
+            a += b
+        elif op == "-":
+            a -= b
+        elif op == "*":
+            a *= b
+        elif op == "/":
+            a /= b
+        elif op == "%":
+            a %= b
+        else:
+            a **= b
+        return a, alias
+    return run
+
+
+BINARY = {
+    "add": lambda a, b: a + b, "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b, "div": lambda a, b: a / b,
+    "mod": lambda a, b: a % b, "pow": lambda a, b: a ** b,
+}
+SCALAR = {"add": 1.5, "sub": 0.75, "mul": -2.0, "div": 4.0, "mod": 0.75,
+          "pow": 2.0}
+REFLECTED = {
+    "add": lambda a: 1.5 + a, "sub": lambda a: 0.75 - a,
+    "mul": lambda a: -2.0 * a, "div": lambda a: 4.0 / a,
+    "pow": lambda a: 2.0 ** a,
+}
+SYMBOL = {"add": "+", "sub": "-", "mul": "*", "div": "/", "mod": "%",
+          "pow": "**"}
+COMPARE = {
+    "eq": lambda a, b: a == b, "ne": lambda a, b: a != b,
+    "gt": lambda a, b: a > b, "ge": lambda a, b: a >= b,
+    "lt": lambda a, b: a < b, "le": lambda a, b: a <= b,
+}
+
+
+def _both(fn, *arrays):
+    """``fn(package, *NDArrays)`` in the JAX package and in the port
+    (CPU), as numpy."""
+    return tuple(fn(pkg, *[pkg.nd.array(x, ctx=pkg.cpu())
+                           for x in arrays]).asnumpy()
+                 for pkg in (mxj, mxt))
+
+
+def _same(want, got):
+    assert want.shape == got.shape and want.dtype == got.dtype, \
+        (want.shape, got.shape, want.dtype, got.dtype)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _lhs(name):
+    return P if name == "pow" else A
+
+
+@pytest.mark.parametrize("name", list(BINARY))
+@pytest.mark.parametrize("form", ["array", "scalar", "reflected",
+                                  "inplace_array", "inplace_scalar"])
+def test_binary_operator(name, form):
+    fn = BINARY[name]
+    lhs = _lhs(name)
+    if form == "array":
+        _same(*_both(lambda pkg, a, b: fn(a, b), lhs, B))
+    elif form == "scalar":
+        _same(*_both(lambda pkg, a: fn(a, SCALAR[name]), lhs))
+    elif form == "reflected":
+        if name == "mod":
+            # the JAX package's NDArray has no __rmod__: numpy is the
+            # reference
+            got = (3.0 % mxt.nd.array(B, ctx=mxt.cpu())).asnumpy()
+            _same(np.mod(np.float32(3.0), B), got)
+        else:
+            _same(*_both(lambda pkg, a: REFLECTED[name](a), lhs))
+    else:
+        run = _inplace(SYMBOL[name])
+        other = SCALAR[name] if form == "inplace_scalar" else None
+        j_a, t_a = mxj.nd.array(lhs, ctx=mxj.cpu()), \
+            mxt.nd.array(lhs, ctx=mxt.cpu())
+        j_out, _ = run(j_a, other if other is not None
+                       else mxj.nd.array(B, ctx=mxj.cpu()))
+        t_out, t_alias = run(t_a, other if other is not None
+                             else mxt.nd.array(B, ctx=mxt.cpu()))
+        _same(j_out.asnumpy(), t_out.asnumpy())
+        # the port updates the cell itself: an alias sees the new value
+        assert t_out is t_alias
+
+
+@pytest.mark.parametrize("name", ["neg", "abs"])
+def test_unary_operator(name):
+    fn = (lambda a: -a) if name == "neg" else abs
+    _same(*_both(lambda pkg, a: fn(a), A))
+
+
+@pytest.mark.parametrize("name", list(COMPARE))
+@pytest.mark.parametrize("other", ["array", "scalar"])
+def test_comparison_returns_input_dtype(name, other):
+    a = np.round(A)
+    b = np.round(B) if other == "array" else 1.0
+    if other == "array":
+        want, got = _both(lambda pkg, x, y: COMPARE[name](x, y), a, b)
+    else:
+        want, got = _both(lambda pkg, x: COMPARE[name](x, b), a)
+    assert got.dtype == np.float32
+    _same(want, got)
+
+
+@pytest.mark.parametrize("key", [1, -1, slice(1, 3), (2, slice(0, 4, 2)),
+                                 (slice(None), 3)],
+                         ids=["int", "negative", "slice", "tuple",
+                              "column"])
+def test_getitem(key):
+    _same(*_both(lambda pkg, a: a[key], A))
+
+
+@pytest.mark.parametrize("case", ["int_scalar", "slice_array",
+                                  "full_scalar", "full_array",
+                                  "full_ndarray"])
+def test_setitem(case):
+    row = RS.randn(6).astype(np.float32)
+
+    def run(pkg, a):
+        if case == "int_scalar":
+            a[1] = 5.0
+        elif case == "slice_array":
+            a[1:3] = np.stack([row, row])
+        elif case == "full_scalar":
+            a[:] = -1.25
+        elif case == "full_array":
+            a[:] = B
+        else:
+            a[:] = pkg.nd.array(B, ctx=pkg.cpu())
+        return a
+
+    j = run(mxj, mxj.nd.array(A, ctx=mxj.cpu()))
+    t = mxt.nd.array(A, ctx=mxt.cpu())
+    alias = t
+    t = run(mxt, t)
+    _same(j.asnumpy(), t.asnumpy())
+    assert alias is t
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"axis": 1}, {"axis": (0, 2)},
+                                    {"axis": 1, "keepdims": True},
+                                    {"axis": -1, "exclude": True},
+                                    {"keepdims": True}],
+                         ids=["all", "axis", "axes", "keepdims", "exclude",
+                              "all_keepdims"])
+def test_sum(kwargs):
+    _same(*_both(lambda pkg, x: pkg.nd.sum(x, **kwargs), X3))
+
+
+def test_sum_axis_alias():
+    _same(*_both(lambda pkg, x: pkg.nd.sum_axis(x, axis=0), X3))
+
+
+def test_relu():
+    z = X3.copy()
+    z[0, 0, :2] = 0.0
+    _same(*_both(lambda pkg, x: pkg.nd.relu(x), z))

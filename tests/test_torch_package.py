@@ -3,7 +3,9 @@
 * ``import mxnet_tpu_torch`` pulls in neither JAX, the JAX package nor
   ``ml_dtypes`` (the numpy fp8 dtypes the JAX package's quantized tier
   uses) — checked in a fresh interpreter that also quantizes to fp8,
-  serves, and touches the telemetry and fault planes — and no source
+  serves, touches the telemetry and fault planes, takes a gradient
+  through ``mx.autograd`` and registers a user op through ``mx.rtc`` —
+  and no source
   file of the port, its ``telemetry/`` and ``faults/`` subpackages
   included, nor ``chip_smoke.py`` imports any of them (checked on the
   syntax tree);
@@ -58,6 +60,16 @@ def test_import_leaves_jax_out():
             "quant.quantize_per_channel(np.ones((2, 3), 'f'), dtype='fp8')\n"
             "mx.telemetry.counter('x').inc(); mx.faults.point('x')\n"
             "mx.serve.InferenceServer(clock=mx.serve.FakeClock())\n"
+            "x = mx.nd.array(np.ones(3, 'f'), ctx=mx.cpu())\n"
+            "g = mx.nd.zeros((3,), ctx=mx.cpu())\n"
+            "mx.autograd.mark_variables(x, g)\n"
+            "with mx.autograd.train_section(): y = mx.nd.sum(x * x)\n"
+            "mx.autograd.backward(y); assert g.asnumpy().tolist() == [2] * 3\n"
+            "mx.rtc.register_cuda_op('pkg_probe', kernel=lambda a: '', "
+            "out_shapes=lambda a, s: [(s[0], None)], "
+            "reference=lambda a, v: v + 1)\n"
+            "assert mx.nd.pkg_probe(x).asnumpy().tolist() == [2] * 3\n"
+            "mx.operator.CustomOpProp; mx.rtc.Rtc\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nassert not bad, bad\n")
@@ -173,5 +185,6 @@ def test_new_subpackages_are_guarded():
                  "telemetry/core.py", "telemetry/trace.py",
                  "telemetry/flightrec.py", "faults/__init__.py",
                  "faults/plane.py", "faults/breaker.py", "ops/quant.py",
-                 "serve/server.py", "serve/engine.py"):
+                 "serve/server.py", "serve/engine.py", "autograd.py",
+                 "operator.py", "rtc.py", "ops/tensor.py"):
         assert path in rel, path
