@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all sixteen in parallel; four of them hold a
+   ``nvcc`` per source, all sixteen in parallel; eight of them hold a
    float32 and a bfloat16 instance), print the build seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
@@ -22,8 +22,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    S = 1, 4, 64, Dh 64 and 128, cursors 0 / mid / C - S and NaN cells,
    after ``rtc.fp8_cast`` gave the same bytes on the card as on the CPU;
    the bfloat16 instances of softmax, the CE gradient and the BatchNorm
-   pair at the bfloat16 ResNet-50 path's shapes and edges, bounds at
-   bfloat16 bytes);
+   pair at the bfloat16 ResNet-50 path's shapes and edges, and of the
+   gather, LayerNorm, GeLU and the decode read at the bfloat16 decode
+   path's shapes and edges, bounds at bfloat16 bytes);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -179,7 +180,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 31. ``mx.autograd``: a stage-1 bottleneck without BatchNorm at batch 32
    (256 -> 64 -> 64 -> 256 channels, 56 x 56) through ``mx.nd`` inside
    ``train_section``, its gradients from ``mx.autograd.backward``
-   against the Executor's of the same symbol within FWD_TOL.
+   against the Executor's of the same symbol within FWD_TOL;
+32. (run after 23) phase 3's serving in bfloat16 mixed precision:
+   ``serve_decoder(compute_dtype="bfloat16")`` at full width with phase
+   3's prompts and arrivals, alternated with the float32 ladder (float32,
+   bfloat16, bfloat16, float32): tokens/s and p50/p99 iteration ms of
+   each; the four decode libraries (unloaded first) loaded by warmup and
+   nothing after; exactly 1 ``embedding_bf16`` + 17 ``layernorm_bf16`` +
+   8 ``bias_gelu_bf16`` + 8 ``decode_attention_bf16`` launches per S=1
+   dispatch and no float32 decode kernel; the cast layer's 16 cache casts
+   and 16 write-backs per dispatch (the parameters' casts kept); request
+   0's stream teacher-forced card vs CPU in bfloat16 within
+   BF16_LOGIT_TOL (atol and rtol), each served token the CPU's argmax or
+   a near-tie;
+33. chunked prefill (S=64) and speculative decoding (phase 20's draft,
+   spec_k 4) armed under bfloat16: phase 3's prompts at once, windows and
+   speculative iterations ran, only the bfloat16 decode instances
+   launched, greedy chains equal to phase 32's (or parted at a bfloat16
+   near-tie), one S=64 window card vs CPU within BF16_SPREAD times the
+   CPU's own bfloat16-vs-float32 distance;
+34. 8 rung-8 steps of the float32 and the bfloat16 server in turns
+   (float32, bfloat16, bfloat16, float32): wall without the profiler;
+   under the profiler wall, device busy, launches, device time by group,
+   and the cache casts and write-backs per step; the host's time per
+   step by op (the profiler's CPU activity).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
@@ -188,8 +212,10 @@ while fitting with Adam, the LayerNorm and GeLU backward kernels and
 flash attention while fitting the LM, the quantized kernels while
 serving int8 and fp8, the BatchNorm pair while fitting and serving the
 fused ResNet-50, ``decode_attention_fp8`` (the decode kernel's fp8
-instances) while serving the fp8 caches, the four ``*_bf16`` instances
-while fitting and serving ResNet-50 in bfloat16, the user kernels
+instances) while serving the fp8 caches, the softmax, CE-gradient and
+BatchNorm ``*_bf16`` instances while fitting and serving ResNet-50 in
+bfloat16, the decode path's four ``*_bf16`` instances while serving the
+LM in bfloat16 (phase 32), the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
 (the relu_user fit; their source is this script) — max abs error against
 the plain version, kernel /
@@ -223,7 +249,9 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0,
        "bn_stats": 1e-5, "bn_apply_relu": 0.0,
        "softmax_bf16": 1.0, "softmax_ce_bwd_bf16": 0.0,
-       "bn_stats_bf16": 1e-5, "bn_apply_relu_bf16": 0.0}
+       "bn_stats_bf16": 1e-5, "bn_apply_relu_bf16": 0.0,
+       "embedding_bf16": 0.0, "layernorm_bf16": 1.0, "bias_gelu_bf16": 1.0,
+       "decode_attention_bf16": 2e-5}
 # bn_stats' error is relative to each channel's sum of squares (which also
 # bounds its sum: sum(x)^2 <= n sum(x^2)): float32 sums of up to 401,408
 # terms (the stem's channels at batch 32), taken in another order than
@@ -231,7 +259,11 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
 # version does, so it must match exactly. The bfloat16 instances: softmax
 # in bfloat16 ulps (1: a row's float32 sum in another order can move a
 # quotient across a rounding boundary), the CE gradient and the apply pass
-# exactly, the statistics as bn_stats
+# exactly, the statistics as bn_stats. The decode path's bfloat16
+# instances: the gather exactly, LayerNorm and GeLU in bfloat16 ulps beyond
+# the float32 instances' 2e-5 (a product in another order can move a
+# rounding), the decode read (float32 out, exactly widened inputs) as the
+# float32 read
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -255,6 +287,10 @@ REPLACES = {
     "softmax_ce_bwd_bf16": "mxnet_tpu/ops/pallas_kernels.py:112",
     "bn_stats_bf16": "mxnet_tpu/ops/pallas_kernels.py:217",
     "bn_apply_relu_bf16": "mxnet_tpu/ops/pallas_kernels.py:231",
+    "embedding_bf16": "mxnet_tpu/ops/pallas_kernels.py:858",
+    "layernorm_bf16": "mxnet_tpu/ops/pallas_kernels.py:585",
+    "bias_gelu_bf16": "mxnet_tpu/ops/pallas_kernels.py:746",
+    "decode_attention_bf16": "mxnet_tpu/ops/pallas_kernels.py:953",
     "rtc_axpb": "mxnet_tpu/rtc.py:41",
     "relu_user": "mxnet_tpu/rtc.py:101",
     "relu_user_vjp": "mxnet_tpu/rtc.py:101",
@@ -286,6 +322,14 @@ QUANT_LOGIT_RTOL = 1e-4  # the same, on logits, of their largest magnitude
 CBR_KERNELS = ("bn_stats", "bn_apply_relu")
 BF16_KERNELS = ("softmax_bf16", "softmax_ce_bwd_bf16", "bn_stats_bf16",
                 "bn_apply_relu_bf16")
+#: the decode path's bfloat16 instances (phases 32-34: serve_decoder with
+#: compute_dtype="bfloat16")
+BF16_DECODE_KERNELS = ("embedding_bf16", "layernorm_bf16", "bias_gelu_bf16",
+                       "decode_attention_bf16")
+#: bfloat16 card vs CPU decode logits, atol and rtol (the JAX package's own
+#: bfloat16 decode tolerance): cuBLAS and oneDNN round bfloat16 products
+#: at other places
+BF16_LOGIT_TOL = 2e-2
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -506,6 +550,10 @@ def phase_kernels(mx, ck):
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
     calls.update(_decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1))
+    calls.update(_bf16_decode_kernels(
+        ck, rs, t, rec, dict(ids=ids, w=w, scale=scale, x=x, g=g, b=b, h=h,
+                             hb=hb, kc=kc, vc=vc, q1=q1, pos1=pos1,
+                             mask=mask, live=live)))
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
@@ -964,16 +1012,118 @@ def _bn_kernels(mx, ck, rs, t, rec):
                                       for x, p in zip(xs, ss)]}
 
 
-def _bf16_ulps(a, b):
-    """Largest |a - b| in bfloat16 ulps of the larger magnitude (values
-    below the normal range in ulps of the smallest normal)."""
+def _bf16_ulps(a, b, atol=0.0):
+    """Largest |a - b|, less ``atol``, in bfloat16 ulps of the larger
+    magnitude (values below the normal range in ulps of the smallest
+    normal)."""
     import torch
     a, b = a.double(), b.double()
     mag = torch.maximum(torch.maximum(a.abs(), b.abs()),
                         torch.tensor(2.0 ** -126, dtype=torch.float64,
                                      device=a.device))
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(((a - b).abs() / ulp).max()) if a.numel() else 0.0
+    over = ((a - b).abs() - atol).clamp(min=0.0)
+    return float((over / ulp).max()) if a.numel() else 0.0
+
+
+def _bf16_decode_kernels(ck, rs, t, rec, f32):
+    """The decode path's four bfloat16 instances at the bfloat16 decode
+    path's shapes (phase 2's float32 inputs ``f32`` rounded to bfloat16:
+    8 ids into the (32000, 512) table, LayerNorm (8, 512), GeLU (8, 2048),
+    the decode read at B=8, H=8, C=256, Dh=64, S=1 with staggered cursors)
+    and edges: out-of-range ids; D = 13 and C = 13 (one value at a time);
+    misaligned views; an S=16 window and a cursor at C - 1. The gather bit
+    for bit, LayerNorm and GeLU within one bfloat16 ulp beyond 2e-5 (the
+    statistics within 2e-5), the read within 2e-5 of its plain version on
+    the same values. Bounds at bfloat16 bytes (the read's output float32).
+    Fills ``rec``; returns the timed calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+
+    def tb(a):
+        return t(a).to(bf)
+
+    def skew(n, *shape):
+        """A contiguous bfloat16 view 2 bytes off its allocation."""
+        return tb(rs.randn(1 + n).astype(np.float32))[1:].view(*shape)
+    ids, scale = f32["ids"], f32["scale"]
+    w = f32["w"].to(bf)
+    bad = t([-1, V, -V - 1, 5], torch.int32)
+    small = t([0, 49, -1, 50, 7], torch.int32)
+    err = 0.0
+    for ww, ii in ((w, ids), (w, bad), (tb(rs.randn(50, 13)), small),
+                   (skew(50 * 16, 50, 16), small)):
+        for sc in (1.0, scale):
+            err = max(err, _max_err(ck.embedding(ii, ww, sc),
+                                    ck.embedding_plain(ii, ww, sc)))
+    n = ids.numel()
+    rec["embedding_bf16"] = dict(
+        max_abs_err=err, ms=_timed(lambda: ck.embedding(ids, w, scale)),
+        plain_ms=_timed(lambda: ck.embedding_plain(ids, w, scale)),
+        library_ms=None,    # no single PyTorch call gathers AND scales
+        bound=_bound_ms(n * 4 + 2 * n * D * 2, n * D))
+    x, g, b = (f32[k].to(bf) for k in ("x", "g", "b"))
+    ulps = abs_err = stat_err = 0.0
+    for xx, gg, bb in ((x, g, b),
+                       (tb(3 * rs.randn(3, 100)), tb(rs.randn(100)),
+                        tb(rs.randn(100))),
+                       (tb(rs.randn(5, 13)), tb(rs.randn(13)),
+                        tb(rs.randn(13))),
+                       (skew(4 * D, 4, D), g, b)):
+        got, ref = ck.layernorm(xx, gg, bb, 1e-5), \
+            ck.layernorm_plain(xx, gg, bb, 1e-5)
+        ulps = max(ulps, _bf16_ulps(got[0], ref[0], atol=2e-5))
+        abs_err = max(abs_err, _max_err(got[0], ref[0]))
+        stat_err = max(stat_err, *(_max_err(p, q)
+                                   for p, q in zip(got[1:], ref[1:])))
+    if not stat_err <= 2e-5:
+        raise AssertionError(f"layernorm_bf16: mean/rstd off by {stat_err}")
+    rec["layernorm_bf16"] = dict(
+        max_abs_err=abs_err, ulps=ulps,
+        ms=_timed(lambda: ck.layernorm(x, g, b, 1e-5)),
+        plain_ms=_timed(lambda: ck.layernorm_plain(x, g, b, 1e-5)),
+        library_ms=_timed(lambda: F.layer_norm(x, (D,), g, b, 1e-5)),
+        bound=_bound_ms(2 * x.numel() * 2 + 2 * D * 2 + 2 * 8 * 4,
+                        8 * x.numel()))
+    h, hb = f32["h"].to(bf), f32["hb"].to(bf)
+    ulps = abs_err = 0.0
+    for xx, bb in ((h, hb), (tb(3 * rs.randn(3, 13)), tb(rs.randn(13))),
+                   (tb(rs.randn(1, 4)), tb(rs.randn(4))),
+                   (skew(8 * 4 * D, 8, 4 * D), hb)):
+        got, ref = ck.bias_gelu(xx, bb), ck.bias_gelu_plain(xx, bb)
+        ulps = max(ulps, _bf16_ulps(got, ref, atol=2e-5))
+        abs_err = max(abs_err, _max_err(got, ref))
+    rec["bias_gelu_bf16"] = dict(
+        max_abs_err=abs_err, ulps=ulps,
+        ms=_timed(lambda: ck.bias_gelu(h, hb)),
+        plain_ms=_timed(lambda: ck.bias_gelu_plain(h, hb)),
+        library_ms=None,    # bias add + GeLU is two PyTorch calls
+        bound=_bound_ms(2 * h.numel() * 2 + hb.numel() * 2, 8 * h.numel()))
+    kc, vc, q1 = (f32[k].to(bf) for k in ("kc", "vc", "q1"))
+    pos1 = f32["pos1"]
+    B, H, Dh = kc.shape[0], kc.shape[1], kc.shape[3]
+    err = _max_err(ck.decode_attention(q1, kc, vc, pos1),
+                   ck.decode_attention_plain(q1, kc, vc, pos1))
+    q16 = tb(rs.randn(B, H, 16, Dh))
+    edge = t([0, 1, 127, 128, CAP - 16, CAP - 1, 200, 31], torch.int32)
+    err = max(err, _max_err(ck.decode_attention(q16, kc, vc, edge),
+                            ck.decode_attention_plain(q16, kc, vc, edge)))
+    live = int(f32["live"].sum())
+    rec["decode_attention_bf16"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: ck.decode_attention(q1, kc, vc, pos1)),
+        plain_ms=_timed(lambda: ck.decode_attention_plain(q1, kc, vc, pos1)),
+        library_ms=_timed(lambda: F.scaled_dot_product_attention(
+            q1, kc, vc, attn_mask=f32["mask"])),
+        bound=_bound_ms(q1.numel() * (2 + 4) + B * 4 + live * H * Dh * 2 * 2,
+                        live * H * Dh * 4))
+    return {"embedding_bf16": lambda: ck.embedding(ids, w, scale),
+            "layernorm_bf16": lambda: ck.layernorm(x, g, b, 1e-5),
+            "bias_gelu_bf16": lambda: ck.bias_gelu(h, hb),
+            "decode_attention_bf16": lambda: ck.decode_attention(q1, kc, vc,
+                                                                 pos1)}
 
 
 def _bf16_kernels(mx, ck, rs, t, rec):
@@ -1102,15 +1252,56 @@ def _model(mx, rs):
     return sym, params
 
 
-def _decoder(mx, sym, params, ctx, slots=1):
+def _decoder(mx, sym, params, ctx, slots=1, compute_dtype=None):
+    """A driver over ``sym`` bound on ``ctx`` (int32 token ids, which
+    ``compute_dtype`` leaves alone)."""
+    import numpy as np
     from mxnet_tpu_torch.models import transformer as tfm
     mod = mx.mod.Module(sym, data_names=("data",), label_names=[],
-                        context=ctx)
-    mod.bind([("data", (slots, 1))], None, for_training=False)
+                        context=ctx, compute_dtype=compute_dtype)
+    mod.bind([mx.io.DataDesc("data", (slots, 1), np.int32)], None,
+             for_training=False)
     mod.init_params(initializer=None,
                     arg_params=mx.convert.params_from_numpy(params, ctx),
                     aux_params={}, allow_missing=True)
     return tfm.BatchedKVCacheDecoder(mod, CAP, slots=slots)
+
+
+def _serve_waves(sched, prompts):
+    """Phase 3's arrivals through the running scheduler's dispatch thread:
+    1 request, then 3 (rung 1 -> 4), then 4 (-> 8), each wave once the
+    previous one has streamed a few tokens; stops the scheduler. Returns
+    (outputs, wall seconds)."""
+    try:
+        handles = []
+        t_serve = time.perf_counter()
+        for wave in ((0,), (1, 2, 3), (4, 5, 6, 7)):
+            started = threading.Event()
+            for i in wave:
+                h = sched.submit(prompts[i])
+                handles.append(h)
+            # the event is bound now: a later wave rebinds `started`, and
+            # this wave's handle keeps streaming after its wave is done
+            h.add_token_callback(
+                lambda _h, _tok, idx, ev=started: idx >= 3 and ev.set())
+            if not started.wait(timeout=300):
+                raise AssertionError("serving stalled: no tokens streamed")
+        outs = [h.result(timeout=600) for h in handles]
+        return outs, time.perf_counter() - t_serve
+    finally:
+        sched.stop()
+
+
+def _check_served(outs, stats):
+    """NEW in-range tokens per request, and the rung switched."""
+    if any(len(o) != NEW for o in outs):
+        raise AssertionError(f"want {NEW} tokens per request, got "
+                             f"{[len(o) for o in outs]}")
+    if stats["migrations"] < 2:
+        raise AssertionError("the rung never switched")
+    for o in outs:
+        if not ((o >= 0) & (o < V)).all():
+            raise AssertionError("served token ids out of range")
 
 
 def phase_serve(mx, ck):
@@ -1129,26 +1320,7 @@ def phase_serve(mx, ck):
     print(f"serve: engine built and warmed in "
           f"{time.perf_counter() - t0:.2f} s")
     after_warm = ck.launch_counts()
-    try:
-        handles = []
-        t_serve = time.perf_counter()
-        # staggered arrivals: 1, then 3 (rung 1 -> 4), then 4 (-> 8),
-        # each wave once the previous one has streamed a few tokens
-        for wave in ((0,), (1, 2, 3), (4, 5, 6, 7)):
-            started = threading.Event()
-            for i in wave:
-                h = sched.submit(prompts[i])
-                handles.append(h)
-            # the event is bound now: a later wave rebinds `started`, and
-            # this wave's handle keeps streaming after its wave is done
-            h.add_token_callback(
-                lambda _h, _tok, idx, ev=started: idx >= 3 and ev.set())
-            if not started.wait(timeout=300):
-                raise AssertionError("serving stalled: no tokens streamed")
-        outs = [h.result(timeout=600) for h in handles]
-        wall = time.perf_counter() - t_serve
-    finally:
-        sched.stop()
+    outs, wall = _serve_waves(sched, prompts)
     counts = ck.launch_counts()
     stats = sched.stats()
     n_tok = sum(len(o) for o in outs)
@@ -1157,19 +1329,11 @@ def phase_serve(mx, ck):
           f"migrations={stats['migrations']} iterations="
           f"{stats['iterations']}")
     print(f"serve: launches warmup={after_warm} total={counts}")
-    if any(len(o) != NEW for o in outs):
-        raise AssertionError(f"want {NEW} tokens per request, got "
-                             f"{[len(o) for o in outs]}")
-    if stats["migrations"] < 2:
-        raise AssertionError("the rung never switched")
+    _check_served(outs, stats)
     for name in DECODE_KERNELS:
         if not counts[name] > after_warm[name]:
             raise AssertionError(f"kernel {name} was not launched while "
                                  "serving")
-    for o in outs:
-        if not ((o >= 0) & (o < V)).all():
-            raise AssertionError("served token ids out of range")
-
     # teacher-force request 0's stream (prompt + 8 served tokens) on the
     # card and on the CPU; compare logits, and check each served token is
     # the CPU argmax or within LOGIT_TOL of it (a float32 near-tie)
@@ -1582,7 +1746,7 @@ def phase_adam(mx, ck):
 #: libraries (cuDNN, cuBLAS, CUTLASS), PyTorch's own elementwise /
 #: reduction kernels, and copies
 _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
-                 "adam_f32", "ln_fwd_f32", "bias_gelu_", "emb_gather",
+                 "adam_f32", "ln_fwd", "bias_gelu", "emb_gather",
                  "decode_attn", "ln_bwd_dx_f32", "ln_dparams_",
                  "flash_fwd_f32", "bn_stats_", "bn_apply_relu_")
 
@@ -2150,9 +2314,10 @@ def _cbr_group(key):
     return "cuDNN/cuBLAS"
 
 
-def _profiled(fn, steps):
+def _profiled(fn, steps, group=None):
     """(wall ms per call, device-busy ms per call, launches per call,
-    {group: (ms per call, launches per call)}) of ``steps`` calls."""
+    {group: (ms per call, launches per call)}) of ``steps`` calls, the
+    kernels grouped by ``group`` (default ``_cbr_group``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2163,13 +2328,14 @@ def _profiled(fn, steps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
+    group = group or _cbr_group
     groups = {}
     for e in prof.key_averages():
         us = _self_device_us(e)
         if us > 0:
-            t, c = groups.get(_cbr_group(e.key), (0.0, 0))
-            groups[_cbr_group(e.key)] = (t + us / 1e3 / steps,
-                                         c + e.count / steps)
+            t, c = groups.get(group(e.key), (0.0, 0))
+            groups[group(e.key)] = (t + us / 1e3 / steps,
+                                    c + e.count / steps)
     busy = sum(t for t, _ in groups.values())
     return wall, busy, sum(c for _, c in groups.values()), groups
 
@@ -2471,13 +2637,16 @@ def _serve_all(sched, prompts, new, **submit_kw):
     return [h.result(timeout=0).tolist() for h in hs], hs, wall
 
 
-def _decode_launches(label, counts, dispatches, read="decode_attention"):
+def _decode_launches(label, counts, dispatches, read="decode_attention",
+                     suffix=""):
     """Every dispatch of a served run is one forward: it must have
     launched the gather once, LayerNorm 2L + 1, GeLU L and the cache read
-    (``read``) L times — an S=64 window as much as an S=1 step."""
+    (``read``) L times — an S=64 window as much as an S=1 step — and
+    nothing else; ``suffix`` "_bf16" counts the bfloat16 instances."""
     want = dict.fromkeys(counts, 0)
-    want.update(embedding=dispatches, layernorm=(2 * N_LAYER + 1) *
-                dispatches, bias_gelu=N_LAYER * dispatches)
+    want["embedding" + suffix] = dispatches
+    want["layernorm" + suffix] = (2 * N_LAYER + 1) * dispatches
+    want["bias_gelu" + suffix] = N_LAYER * dispatches
     want[read] = N_LAYER * dispatches
     print(f"{label}: launches {counts} over {dispatches} dispatches")
     if counts != want:
@@ -2489,19 +2658,22 @@ class _CpuRef:
     the logits after a stream: phase 3's near-tie rule for tokens on
     which two card runs differ."""
 
-    def __init__(self, mx, params):
+    def __init__(self, mx, params, compute_dtype=None):
+        import numpy as np
         from mxnet_tpu_torch.models import transformer as tfm
         gen, ctx = _gen(), mx.cpu()
         base = mx.mod.Module(gen(1), data_names=("data",), label_names=[],
-                             context=ctx)
-        base.bind([("data", (1, 1))], None, for_training=False)
+                             context=ctx, compute_dtype=compute_dtype)
+        base.bind([mx.io.DataDesc("data", (1, 1), np.int32)], None,
+                  for_training=False)
         base.init_params(initializer=None,
                          arg_params=mx.convert.params_from_numpy(params, ctx),
                          aux_params={}, allow_missing=True)
         win = mx.mod.Module(gen(PREFILL_CHUNK), data_names=("data",),
-                            label_names=[], context=ctx)
-        win.bind([("data", (1, PREFILL_CHUNK))], None, for_training=False,
-                 shared_module=base)
+                            label_names=[], context=ctx,
+                            compute_dtype=compute_dtype)
+        win.bind([mx.io.DataDesc("data", (1, PREFILL_CHUNK), np.int32)],
+                 None, for_training=False, shared_module=base)
         self.drv = tfm.BatchedKVCacheDecoder(base, CAP, slots=1)
         self.drv.add_window(PREFILL_CHUNK, win)
 
@@ -2521,11 +2693,12 @@ class _CpuRef:
         return out.asnumpy()[0, -1]
 
 
-def _same_or_near_ties(cpu_ref, prompts, got, want, label):
+def _same_or_near_ties(cpu_ref, prompts, got, want, label, tol=LOGIT_TOL,
+                       rtol=0.0):
     """``got`` and ``want`` are two card runs' greedy chains: equal, or at
-    the first token where a chain differs both tokens lie within LOGIT_TOL
-    of the CPU's largest logit (a float32 near-tie; after it the streams
-    legitimately part). Returns the requests that differ."""
+    the first token where a chain differs both tokens lie within ``tol +
+    rtol * |max|`` of the CPU's largest logit (a near-tie; after it the
+    streams legitimately part). Returns the requests that differ."""
     parted = 0
     for p, a, b in zip(prompts, got, want):
         if a == b:
@@ -2535,7 +2708,7 @@ def _same_or_near_ties(cpu_ref, prompts, got, want, label):
         z = cpu_ref.logits(list(p) + a[:i])
         print(f"{label}: a chain parts at token {i}: {a[i]} vs {b[i]}, CPU "
               f"logits {z[a[i]]:.6f} / {z[b[i]]:.6f}, max {z.max():.6f}")
-        if min(z[a[i]], z[b[i]]) < z.max() - LOGIT_TOL:
+        if min(z[a[i]], z[b[i]]) < z.max() - tol - rtol * abs(z.max()):
             raise AssertionError(f"{label}: chains differ beyond a near-tie")
     return parted
 
@@ -2819,6 +2992,253 @@ def phase_fastpath_profile(mx, prefill_sched, spec_sched, steps=4):
             print(f"  group {g}: {t:.3f} ms ({100 * t / busy:.1f}%), "
                   f"{c:.1f} launches")
     for d in (drv, sdrv, ddrv):
+        for r in rows:
+            d.leave(r)
+
+
+# --------------------------------------------------------------------------
+# phases 32-34: LM decode serving in bfloat16 (compute_dtype)
+# --------------------------------------------------------------------------
+def _bf16_within(a, b):
+    """(worst |a - b|, worst |a - b| / (BF16_LOGIT_TOL * (1 + |b|))):
+    the second is at most 1 when a is within BF16_LOGIT_TOL of b, atol and
+    rtol."""
+    import numpy as np
+    d = np.abs(a - b)
+    return float(d.max()), float((d / (BF16_LOGIT_TOL *
+                                       (1 + np.abs(b)))).max())
+
+
+def phase_bf16_decode(mx, ck, params, prompts):
+    """Phase 3's serving in bfloat16 mixed precision: the full-width model
+    through ``serve_decoder(compute_dtype="bfloat16")``'s dispatch thread
+    with phase 3's prompts and arrivals, alternated with the float32
+    ladder (float32, bfloat16, bfloat16, float32). Each run: the four
+    decode libraries unloaded first so that warmup loads them (and nothing
+    loads after it), the launches of every dispatch exactly those of one
+    forward — in bfloat16 the ``*_bf16`` instances and no float32 decode
+    kernel —, the cast layer's casts and write-backs exactly the 2L caches
+    a dispatch (the parameters' casts are kept). Then request 0's bfloat16
+    stream (prompt + 8 served tokens) teacher-forced on the card and on
+    the CPU in bfloat16: logits within BF16_LOGIT_TOL, every served token
+    the CPU's argmax or a near-tie. Returns (the bfloat16 runs' launches,
+    {label: the last scheduler}, the bfloat16 chains)."""
+    import numpy as np
+    print(_tf32(False) + " (bf16 decode phases)")
+    sym = _gen()(1)
+    rates, last, bf16_counts = {}, {}, None
+    for cd in (None, "bfloat16", "bfloat16", None):
+        label = cd or "float32"
+        _unload(ck, DECODE_KERNELS)
+        t0 = time.perf_counter()
+        sched = mx.serve.serve_decoder(
+            sym, mx.convert.params_from_numpy(params, mx.gpu(0)),
+            name=f"lm-{label}", capacity=CAP, ladder=LADDER,
+            context=mx.gpu(0), default_max_new=NEW, compute_dtype=cd)
+        warm_s = time.perf_counter() - t0
+        ck.reset_launch_counts()
+        mx.executor.reset_cast_counts()
+        outs, wall = _serve_waves(sched, prompts)
+        counts, casts = ck.launch_counts(), mx.executor.cast_counts()
+        st = sched.stats()
+        its, n_tok = st["iterations"], sum(len(o) for o in outs)
+        print(f"bf16 decode: {label}: built and warmed in {warm_s:.2f} s, "
+              f"{sched.engine.warmup_compiles} kernel libraries loaded by "
+              f"warmup, compiles_since_warmup {st['compiles_since_warmup']};"
+              f" {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+              f"tokens/s; iteration ms {st['step_ms']}; {its} iterations, "
+              f"{st['migrations']} migrations; cast layer {casts}")
+        _check_served(outs, st)
+        if cd:
+            _decode_launches(f"bf16 decode {label}", counts, its,
+                             read="decode_attention_bf16", suffix="_bf16")
+            bf16_counts = {k: counts[k] + (bf16_counts or {}).get(k, 0)
+                           for k in BF16_DECODE_KERNELS}
+            chains = [o.tolist() for o in outs]
+        else:
+            _decode_launches(f"bf16 decode {label}", counts, its)
+        per = 2 * N_LAYER * its if cd else 0
+        if casts != {"casts": per, "write_backs": per}:
+            raise AssertionError(f"{label}: cast layer {casts}, want {per} "
+                                 "casts and write-backs (2L a dispatch)")
+        if sched.engine.warmup_compiles != len(DECODE_KERNELS) or \
+                st["compiles_since_warmup"] != 0:
+            raise AssertionError(f"{label}: warmup did not load the decode "
+                                 "libraries, or a library loaded after it")
+        rates.setdefault(label, []).append(n_tok / wall)
+        last[label] = sched
+    f32, bf = (np.mean(rates[k]) for k in ("float32", "bfloat16"))
+    print(f"bf16 decode: tokens/s float32 {rates['float32']} (mean "
+          f"{f32:.1f}), bfloat16 {rates['bfloat16']} (mean {bf:.1f}): "
+          f"bfloat16 {100 * (bf / f32 - 1):+.1f}%")
+    stream = prompts[0] + chains[0][:8]
+    gpu, cpu = (_decoder(mx, sym, params, ctx, compute_dtype="bfloat16")
+                for ctx in (mx.gpu(0), mx.cpu()))
+    cpu32 = _decoder(mx, sym, params, mx.cpu())
+    worst = ratio = own = 0.0
+    for d in (gpu, cpu, cpu32):
+        d.join(0)
+    for i, tok in enumerate(stream[:-1]):
+        a, b, c = (d.step(np.asarray([[tok]])).asnumpy()[0, 0]
+                   for d in (gpu, cpu, cpu32))
+        if a.shape != (V,) or not np.isfinite(a).all():
+            raise AssertionError(f"bf16 step {i}: logits {a.shape} not "
+                                 "finite")
+        w, r = _bf16_within(a, b)
+        worst, ratio = max(worst, w), max(ratio, r)
+        own = max(own, float(np.abs(b - c).max()))
+        top = float(b.max())
+        if i >= PROMPT - 1 and b[stream[i + 1]] < \
+                top - 2 * BF16_LOGIT_TOL * (1 + abs(top)):
+            raise AssertionError(f"bf16: served token {stream[i + 1]} at "
+                                 f"step {i} is not the CPU argmax "
+                                 f"{int(b.argmax())} nor a near-tie")
+    print(f"bf16 decode: teacher-forced {len(stream) - 1} steps: max "
+          f"|logit card - cpu| = {worst:.3g}, {ratio:.3f} of the tolerance "
+          f"({BF16_LOGIT_TOL} atol and rtol); the CPU's own bfloat16 vs "
+          f"float32 distance {own:.3g}")
+    if not ratio <= 1.0:
+        raise AssertionError("bf16 card and CPU logits disagree")
+    return bf16_counts, last, chains
+
+
+def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32):
+    """Chunked prefill and speculative decoding armed under bfloat16:
+    phase 3's prompts through one ``serve_decoder(compute_dtype=
+    "bfloat16", symbol_gen=, prefill_chunk=64, draft_symbol_gen=,
+    spec_k=4)`` (phase 20's 1-layer draft), submitted at once and pumped:
+    windows and speculative iterations ran, only the bfloat16 decode
+    instances launched, the greedy chains equal phase 32's bfloat16
+    chains ``ref`` or part at a bfloat16 near-tie (CPU bfloat16
+    reference), and one S=64 window's logits card vs CPU bfloat16 within
+    BF16_SPREAD times the CPU's own bfloat16-vs-float32 distance (the
+    float32 ``_CpuRef`` ``cpu32``): over a 64-row window 8 layers of
+    bfloat16 roundings, placed otherwise by cuBLAS than by oneDNN,
+    accumulate to about BF16_LOGIT_TOL."""
+    import numpy as np
+    gen = _gen()
+
+    def tp(p):
+        return mx.convert.params_from_numpy(p, mx.gpu(0))
+    sched = mx.serve.serve_decoder(
+        gen(1), tp(params), name="bf16-fast", capacity=CAP, ladder=LADDER,
+        context=mx.gpu(0), start=False, compute_dtype="bfloat16",
+        symbol_gen=gen, prefill_chunk=PREFILL_CHUNK,
+        draft_symbol_gen=_gen(1), draft_params=tp(_draft_params(params)),
+        spec_k=SPEC_K, prefix_cache_mb=0)
+    ck.reset_launch_counts()
+    outs, _, wall = _serve_all(sched, prompts, NEW)
+    counts, st = ck.launch_counts(), sched.stats()
+    n_tok = sum(len(o) for o in outs)
+    print(f"bf16 fast paths: {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s; {st['iterations']} iterations, "
+          f"{st['prefill_chunks']} prefill chunks, spec {st['spec']}; "
+          f"launches {counts}")
+    if not all(counts[k] for k in BF16_DECODE_KERNELS) or \
+            any(v for k, v in counts.items() if k not in BF16_DECODE_KERNELS):
+        raise AssertionError("bf16 fast paths: want the bfloat16 decode "
+                             "instances and nothing else")
+    if not st["prefill_chunks"] or not st["spec"]["proposed"]:
+        raise AssertionError("bf16 fast paths: no window or no speculation")
+    cpu_ref = _CpuRef(mx, params, compute_dtype="bfloat16")
+    parted = _same_or_near_ties(cpu_ref, prompts, outs, ref,
+                                "bf16 fast paths", tol=2 * BF16_LOGIT_TOL,
+                                rtol=2 * BF16_LOGIT_TOL)
+    print(f"bf16 fast paths: greedy chains equal to phase 32's in "
+          f"{len(prompts) - parted} of {len(prompts)} requests")
+    window = np.random.RandomState(SEED + 13).randint(
+        0, V, (1, PREFILL_CHUNK))
+    drv = sched.engine.driver(1)
+    drv.join(0)
+    card = drv.step(window).asnumpy()[0]
+    drv.leave(0)
+    host = {}
+    for key, r in (("bf16", cpu_ref), ("f32", cpu32)):
+        r.drv.leave(0)
+        r.drv.join(0)
+        host[key] = r.drv.step(window).asnumpy()[0]
+    worst, ratio = _bf16_within(card, host["bf16"])
+    own = float(np.abs(host["bf16"] - host["f32"]).max())
+    print(f"bf16 fast paths: one S={PREFILL_CHUNK} window, max |logit card "
+          f"- cpu| = {worst:.3g} ({ratio:.3f} of {BF16_LOGIT_TOL} atol and "
+          f"rtol); the CPU's own bfloat16 vs float32 distance {own:.3g} "
+          f"(limit {BF16_SPREAD} times that)")
+    if not worst <= BF16_SPREAD * own:
+        raise AssertionError("bf16 card and CPU window logits disagree")
+
+
+def _decode_group(key):
+    if any(k in key for k in _PORT_KERNELS):
+        return "port kernels"
+    if key.startswith("Memcpy") or key.startswith("Memset"):
+        return "copies"
+    if "copy_kernel" in key:
+        return "copy kernels (the casts)"
+    if "at::native" in key:
+        return "PyTorch elementwise/reduction"
+    return "cuBLAS"
+
+
+def phase_bf16_decode_profile(mx, scheds, steps=8):
+    """Rung-8 S=1 steps of phase 32's float32 and bfloat16 servers, each
+    way in turns (float32, bfloat16, bfloat16, float32; ``steps`` each):
+    the wall per step without the profiler; under the profiler wall,
+    device busy, launches, device time by group and the cast layer's
+    cache casts and write-backs per step; then the host's time per step
+    (the profiler's CPU activity): the self time of every op and the ops
+    that take the most."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rows = list(range(LADDER[-1]))
+    tokens = np.random.RandomState(SEED + 14).randint(0, V, (len(rows), 1))
+    drivers = {k: s.engine.driver(LADDER[-1]) for k, s in scheds.items()}
+    for d in drivers.values():
+        for r in rows:
+            d.join(r)
+    order = ("float32", "bfloat16", "bfloat16", "float32")
+
+    def steps_of(label, n):
+        drv = drivers[label]
+        drv.rewind_many(rows, [PROMPT] * len(rows))
+        return [lambda: drv.step(tokens).asnumpy()] * n
+    walls = {"float32": [], "bfloat16": []}
+    for label in order:
+        fns = steps_of(label, steps + 1)
+        fns[0]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fn in fns[1:]:
+            fn()
+        walls[label].append((time.perf_counter() - t0) * 1e3 / steps)
+    print(f"bf16 decode profile: rung {LADDER[-1]} wall ms/step without "
+          f"the profiler, in turns {order}: {walls}")
+    runs, casts = {"float32": [], "bfloat16": []}, {}
+    for label in order:
+        fns = steps_of(label, 1)
+        mx.executor.reset_cast_counts()
+        runs[label].append(_profiled(fns[0], steps, group=_decode_group))
+        casts[label] = {k: v / (steps + 1) for k, v in
+                        mx.executor.cast_counts().items()}
+    _print_profiles("bf16 decode profile", runs, steps)
+    print(f"bf16 decode profile: wall ms/step of each profiled turn "
+          f"{ {k: [round(r[0], 3) for r in v] for k, v in runs.items()} }; "
+          f"cast layer per step {casts}")
+    for label in ("float32", "bfloat16"):
+        fn = steps_of(label, 1)[0]
+        fn()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(steps):
+                fn()
+        evts = [(e.self_cpu_time_total / 1e3 / steps, e.count / steps,
+                 e.key) for e in prof.key_averages()]
+        total = sum(e[0] for e in evts)
+        print(f"bf16 decode host profile: {label}: {total:.3f} ms/step of "
+              f"ops' self time on the host, {sum(e[1] for e in evts):.0f} "
+              "op calls/step; most:")
+        for ms, n, key in sorted(evts, reverse=True)[:10]:
+            print(f"  {ms:8.4f} ms/step {n:6.1f} calls/step  {key[:70]}")
+    for d in drivers.values():
         for r in rows:
             d.leave(r)
 
@@ -3518,6 +3938,11 @@ def main():
     fp8_launches = phase_fp8(mx, ck, params, prompts)
     phase_fastpath_profile(mx, prefill_sched, spec_sched)
     del prefill_sched, spec_sched
+    bf16_decode_counts, bf16_scheds, bf16_chains = phase_bf16_decode(
+        mx, ck, params, prompts)
+    phase_bf16_fastpaths(mx, ck, params, prompts, bf16_chains, cpu_ref)
+    phase_bf16_decode_profile(mx, bf16_scheds)
+    del bf16_scheds
     torch.cuda.empty_cache()
     user_rec, axpb_launches = phase_rtc(mx)
     args50, auxs50, _, _ = _resnet50_start(mx, 2)
@@ -3536,6 +3961,7 @@ def main():
     for name in BF16_KERNELS:
         launches[name] = sum(c[name] for c in bf16_counts.values()) + \
             bf16_serve_counts.get(name, 0)
+    launches.update(bf16_decode_counts)
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

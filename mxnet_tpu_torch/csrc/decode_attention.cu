@@ -10,19 +10,22 @@
 // cache write happen before the call, outside this kernel (mxnet_tpu_torch/
 // rtc.py), exactly as in the JAX package.
 //
-// The cache is float32 or fp8 storage (float8_e4m3fn, float8_e5m2), one
-// template instance each. An fp8 tile is read 16 bytes a thread and
-// converted to float32 in pairs while it is staged into shared memory, as
-// the TPU kernel dequantizes its cache blocks on read (astype(float32)); the
-// conversion is exact, so from the staged tile on the fp8 instances compute
-// exactly what the float32 instance computes. A score that is NaN or +inf
+// The cache is float32 or fp8 storage (float8_e4m3fn, float8_e5m2) with a
+// float32 query, or bfloat16 with a bfloat16 query (the mixed-precision
+// path), one template instance each. An fp8 or bfloat16 tile is read 16
+// bytes a thread and widened to float32 while it is staged into shared
+// memory, as the TPU kernel widens its query and cache blocks on read
+// (astype(float32)); a bfloat16 query is widened before it is scaled. Every
+// widening is exact, so from the staged tile on the narrow instances
+// compute exactly what the float32 instance computes, and the output is
+// float32 in every instance (the op casts it to the query's type). A score that is NaN or +inf
 // (a NaN cell, e.g. a float8_e4m3fn overflow on write, or an e5m2 infinity)
 // makes its row NaN, as it does in the plain softmax.
 //
 // Bound: bytes. Each row reads its live K and V prefix once, 2 * live * Dh
-// * (4 or 1) bytes, for 4 * S * live * Dh flops; at S=1 that is half a flop
-// (two flops for fp8) per byte, far below the card's operations-per-byte
-// line. The TPU kernel runs the key blocks as a sequential grid axis with
+// * (4, 2 or 1) bytes, for 4 * S * live * Dh flops; at S=1 that is half a
+// flop (one for bfloat16, two for fp8) per byte, far below the card's
+// operations-per-byte line. The TPU kernel runs the key blocks as a sequential grid axis with
 // scratch carried between steps, and skips dead blocks by clamping its index
 // map; here a block owns one (b, h) row and up to kSq query rows and LOOPS
 // over the key tiles of the live prefix, so dead tiles are neither read nor
@@ -43,6 +46,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "vec_io.cuh"
 
 namespace {
 
@@ -89,8 +94,14 @@ __device__ __forceinline__ void fp8x16_to_float(uint4 raw, float* dst) {
   }
 }
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 // Stage keys [k_start, k_start + kBk) of one (b, h) row into ks/vs, zero
-// past n_keys. float32 cache: one float a thread per step. fp8 cache: one
+// past n_keys. float32 cache: one float a thread per step. bfloat16 cache:
+// one 16-byte chunk (8 values of one row) a thread per step. fp8 cache: one
 // 16-byte chunk (16 codes of one row) a thread per step.
 template <int DH, typename Cache>
 __device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
@@ -107,6 +118,29 @@ __device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
       const bool in = kp < n_keys;
       ks[j][d] = in ? kf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
       vs[j][d] = in ? vf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
+    }
+  } else if constexpr (std::is_same<Cache, __nv_bfloat16>::value) {
+    using Unit = mxio::Io<__nv_bfloat16, 8>;
+    constexpr int kChunks = DH / 8;  // 16-byte chunks per cache row
+    const __nv_bfloat16* kh = static_cast<const __nv_bfloat16*>(kb);
+    const __nv_bfloat16* vh = static_cast<const __nv_bfloat16*>(vb);
+    for (int c = t; c < kBk * kChunks; c += kThreads) {
+      const int j = c / kChunks, d0 = (c % kChunks) * 8;
+      const int kp = k_start + j;
+      float kv[8], vv[8];
+      if (kp < n_keys) {
+        const int64_t u = static_cast<int64_t>(kp) * kChunks + c % kChunks;
+        Unit::load(kh, u, kv);
+        Unit::load(vh, u, vv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) kv[i] = vv[i] = 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ks[j][d0 + i] = kv[i];
+        vs[j][d0 + i] = vv[i];
+      }
     }
   } else {
     constexpr int kChunks = DH / 16;  // 16-byte chunks per cache row
@@ -135,14 +169,16 @@ __device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
   }
 }
 
-template <int DH, typename Cache>
+template <int DH, typename Cache, typename Q>
 __global__ void __launch_bounds__(kThreads)
-decode_attn(const float* __restrict__ q, const void* __restrict__ k,
+decode_attn(const Q* __restrict__ q, const void* __restrict__ k,
             const void* __restrict__ v, const int32_t* __restrict__ pos,
             float* __restrict__ out, int heads, int s_len, int cap,
             float scale) {
   constexpr int kAcc = kSq * DH / kThreads;  // accumulator entries / thread
-  constexpr int kElem = std::is_same<Cache, float>::value ? 4 : 1;
+  constexpr int kElem = std::is_same<Cache, float>::value ? 4
+                        : std::is_same<Cache, __nv_bfloat16>::value ? 2
+                                                                    : 1;
   __shared__ float qs[kSq][DH];
   __shared__ float ks[kBk][DH + 1];
   __shared__ float vs[kBk][DH];
@@ -155,7 +191,7 @@ decode_attn(const float* __restrict__ q, const void* __restrict__ k,
   const int lane = t & 31;
   const int warp = t >> 5;
   const int64_t cursor = pos[bh / heads];
-  const float* qb = q + static_cast<int64_t>(bh) * s_len * DH;
+  const Q* qb = q + static_cast<int64_t>(bh) * s_len * DH;
   const int64_t row_bytes = static_cast<int64_t>(bh) * cap * DH * kElem;
   const void* kb = static_cast<const uint8_t*>(k) + row_bytes;
   const void* vb = static_cast<const uint8_t*>(v) + row_bytes;
@@ -163,7 +199,8 @@ decode_attn(const float* __restrict__ q, const void* __restrict__ k,
   // the scaled query tile; rows past S are zero and never written out
   for (int e = t; e < kSq * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
-    qs[r][d] = (s0 + r < s_len) ? qb[(s0 + r) * DH + d] * scale : 0.0f;
+    qs[r][d] = (s0 + r < s_len) ? widen(qb[(s0 + r) * DH + d]) * scale
+                                : 0.0f;
   }
   if (t < kSq) {
     m_s[t] = -INFINITY;
@@ -238,23 +275,22 @@ decode_attn(const float* __restrict__ q, const void* __restrict__ k,
   }
 }
 
-template <typename Cache>
+template <typename Cache, typename Q = float>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            void* out, int batch, int heads, int s_len, int cap, int dh,
            float scale, void* stream) {
   if (batch * heads == 0 || s_len == 0) return 0;
   const dim3 grid(batch * heads, (s_len + kSq - 1) / kSq);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
+  const Q* qt = static_cast<const Q*>(q);
   const int32_t* pf = static_cast<const int32_t*>(pos);
   float* of = static_cast<float*>(out);
   if (dh == 64) {
-    decode_attn<64, Cache><<<grid, kThreads, 0, st>>>(qf, k, v, pf, of, heads,
-                                                      s_len, cap, scale);
+    decode_attn<64, Cache, Q><<<grid, kThreads, 0, st>>>(
+        qt, k, v, pf, of, heads, s_len, cap, scale);
   } else if (dh == 128) {
-    decode_attn<128, Cache><<<grid, kThreads, 0, st>>>(qf, k, v, pf, of,
-                                                       heads, s_len, cap,
-                                                       scale);
+    decode_attn<128, Cache, Q><<<grid, kThreads, 0, st>>>(
+        qt, k, v, pf, of, heads, s_len, cap, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -263,9 +299,10 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 
 }  // namespace
 
-// q (b*h, s, dh) float32, k/v cache (b*h, cap, dh) of the entry point's
-// storage type, pos (b,) int32, out (b*h, s, dh) float32; contiguous, one
-// device; an fp8 cache 16-byte aligned. dh must be 64 or 128. Returns
+// q (b*h, s, dh) float32 (bfloat16 for the bfloat16 entry point), k/v
+// cache (b*h, cap, dh) of the entry point's storage type, pos (b,) int32,
+// out (b*h, s, dh) float32; contiguous, one device; an fp8 or bfloat16
+// cache 16-byte aligned. dh must be 64 or 128. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for another dh).
 extern "C" int mx_decode_attention_f32(const void* q, const void* k,
                                        const void* v, const void* pos,
@@ -292,4 +329,14 @@ extern "C" int mx_decode_attention_e5m2(const void* q, const void* k,
                                         float scale, void* stream) {
   return launch<E5M2>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
                       stream);
+}
+
+extern "C" int mx_decode_attention_bf16(const void* q, const void* k,
+                                        const void* v, const void* pos,
+                                        void* out, int batch, int heads,
+                                        int s_len, int cap, int dh,
+                                        float scale, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, pos, out, batch,
+                                              heads, s_len, cap, dh, scale,
+                                              stream);
 }

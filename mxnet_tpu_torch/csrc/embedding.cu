@@ -2,15 +2,20 @@
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py _emb_gather_kernel, launched by
 // _pl_embedding (scalar-prefetched ids pick the weight block per grid step).
-// Computes out[i, :] = W[ids[i], :] * scale, the multiply in float32.
+// Computes out[i, :] = W[ids[i], :] * scale, the multiply in float32. Two
+// instances: float32, and bfloat16 (the mixed-precision path), which widens
+// each value exactly, scales it in float32 and rounds the product to
+// nearest even once, as the TPU kernel's (x.astype(f32) * scale).astype(
+// bf16) does; at scale 1 the row is copied exactly.
 //
 // Bound: bytes. Each output row costs one table row read and one row
-// written (2 * N * D * 4 bytes; 32 KiB at the decode path's N=8, D=512),
-// no arithmetic to speak of. Design: one warp per output row, with 16-byte
-// (float4) loads and stores along the row when D % 4 == 0 and both rows are
-// 16-byte aligned (neighbouring lanes on neighbouring addresses), scalar
-// accesses otherwise. The block loads its own ids; there is no prefetch
-// stage to carry over.
+// written (2 * N * D * sizeof(T) bytes; 32 KiB at the decode path's N=8,
+// D=512 in float32), no arithmetic to speak of. Design: one warp per output
+// row, with 16-byte accesses along the row (4 floats or 8 bfloat16 values,
+// vec_io.cuh) when D is a multiple of that unit and both rows are 16-byte
+// aligned (neighbouring lanes on neighbouring addresses), one value at a
+// time otherwise. The block loads its own ids; there is no prefetch stage
+// to carry over.
 //
 // Out-of-range ids never read outside the table: an id in [-V, 0) counts
 // from the end and any other id outside [0, V) writes a NaN row, which is
@@ -18,43 +23,58 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace {
+
+using mxio::Io;
 
 constexpr int kThreads = 256;  // 8 warps: 8 rows per block
 
-__global__ void emb_gather_f32(const int32_t* __restrict__ ids,
-                               const float* __restrict__ w,
-                               float* __restrict__ out, int n, int v, int d,
-                               float scale) {
+// One warp per output row; each lane walks units of W values (W divides d).
+template <typename T, int W>
+__global__ void emb_gather(const int32_t* __restrict__ ids,
+                           const T* __restrict__ w, T* __restrict__ out,
+                           int n, int v, int d, float scale) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= n) return;
   int64_t id = ids[row];
   if (id < 0) id += v;
-  float* dst = out + static_cast<int64_t>(row) * d;
+  T* dst = out + static_cast<int64_t>(row) * d;
+  const int units = d / W;
+  float f[W];
   if (id < 0 || id >= v) {
-    const float nan = __int_as_float(0x7fc00000);
-    for (int c = lane; c < d; c += 32) dst[c] = nan;
+#pragma unroll
+    for (int k = 0; k < W; ++k) f[k] = __int_as_float(0x7fc00000);
+    for (int c = lane; c < units; c += 32) Io<T, W>::store(dst, c, f);
     return;
   }
-  const float* src = w + id * static_cast<int64_t>(d);
-  const bool vec = (d & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(src) |
-                     reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
-  if (vec) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int c = lane; c < (d >> 2); c += 32) {
-      float4 x = s4[c];
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-      d4[c] = x;
-    }
-  } else {
-    for (int c = lane; c < d; c += 32) dst[c] = src[c] * scale;
+  const T* src = w + id * static_cast<int64_t>(d);
+  for (int c = lane; c < units; c += 32) {
+    Io<T, W>::load(src, c, f);
+#pragma unroll
+    for (int k = 0; k < W; ++k) f[k] *= scale;
+    Io<T, W>::store(dst, c, f);
   }
+}
+
+// W: the widest unit of 16 bytes (4 floats, 8 bfloat16) when every row can
+// take it, else 1
+template <typename T>
+void launch(const void* ids, const void* w, void* out, int n, int v, int d,
+            float scale, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int blocks = (n * 32 + kThreads - 1) / kThreads;
+  const int32_t* i32 = static_cast<const int32_t*>(ids);
+  const T* wt = static_cast<const T*>(w);
+  T* ot = static_cast<T*>(out);
+  if (d % kVec == 0 && mxio::aligned(w, 16) && mxio::aligned(out, 16))
+    emb_gather<T, kVec><<<blocks, kThreads, 0, st>>>(i32, wt, ot, n, v, d,
+                                                     scale);
+  else
+    emb_gather<T, 1><<<blocks, kThreads, 0, st>>>(i32, wt, ot, n, v, d,
+                                                  scale);
 }
 
 }  // namespace
@@ -64,12 +84,18 @@ __global__ void emb_gather_f32(const int32_t* __restrict__ ids,
 extern "C" int mx_embedding_f32(const void* ids, const void* w, void* out,
                                 int n, int v, int d, float scale,
                                 void* stream) {
-  if (n > 0) {
-    const int blocks = (n * 32 + kThreads - 1) / kThreads;
-    emb_gather_f32<<<blocks, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(ids), static_cast<const float*>(w),
-        static_cast<float*>(out), n, v, d, scale);
-  }
+  if (n > 0 && d > 0)
+    launch<float>(ids, w, out, n, v, d, scale,
+                  static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over a bfloat16 table and output.
+extern "C" int mx_embedding_bf16(const void* ids, const void* w, void* out,
+                                 int n, int v, int d, float scale,
+                                 void* stream) {
+  if (n > 0 && d > 0)
+    launch<__nv_bfloat16>(ids, w, out, n, v, d, scale,
+                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

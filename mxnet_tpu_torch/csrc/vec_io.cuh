@@ -1,6 +1,6 @@
 // Loads and stores of W consecutive values as float32, for the kernels that
-// have a float32 and a bfloat16 instance (softmax, softmax_ce_bwd, bn_stats,
-// bn_apply_relu).
+// have a float32 and a bfloat16 instance (embedding, layernorm, bias_gelu,
+// decode_attention, softmax, softmax_ce_bwd, bn_stats, bn_apply_relu).
 //
 // Io<T, W>::load(p, u, f) reads unit u (the W values p[u*W .. u*W+W-1]) into
 // f[0..W-1] as float32; Io<T, W>::store(p, u, f) writes f back in T. A unit is

@@ -24,16 +24,23 @@ Mixed precision (``compute_dtype="bfloat16"``, the JAX package's
 ``_load_var``): every floating argument and aux state is cast to bfloat16
 where the graph reads it, while the cells keep their float32 storage —
 master weights, gradients and moving statistics. The cast is
-differentiable, so gradients come back float32; new aux values are
-written back in their cells' dtype. A variable that feeds a loss head's
-label slot keeps its dtype (class ids above 256 do not survive
-bfloat16). float16 is a later slice and raises. A cast that autograd
-does not record (every read of an inference forward, the aux states and
-inputs of a training one) is kept per source tensor and reused while
-that tensor's version counter stands still, so a served rung does not
-cast every parameter again on every forward; anything that writes a
-cell in place bumps its counter (PyTorch's in-place ops do, and so do
-the in-place update kernels' wrappers).
+differentiable, so gradients come back float32. A new aux value is
+written back in its cell's dtype where that dtype holds it exactly (a
+float32 cell: BatchNorm's moving statistics, a decode step's KV caches,
+which the op wrote in their bfloat16 cast); a cell too narrow for it (an
+fp8 KV cache) takes the bfloat16 value itself, as the JAX package's
+cell takes its compute-width value, so no write-back rounds. A variable
+that feeds a loss head's label slot keeps its dtype (class ids above 256
+do not survive bfloat16). float16 is a later slice and raises. A cast
+that autograd does not record (every read of an inference forward, the
+aux states and inputs of a training one) is kept per source tensor and
+reused while that tensor's version counter stands still, so a served
+rung does not cast every parameter again on every forward; anything
+that writes a cell in place bumps its counter (PyTorch's in-place ops
+do, and so do the in-place update kernels' wrappers). A write-back drops
+the kept cast of the tensor it replaces, which an op may have written in
+place. ``cast_counts()`` counts the casts made and the write-backs that
+changed a dtype.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from .base import MXNetError
 from .ndarray import NDArray, to_torch_dtype
 from .ops.registry import dispatch
 
-__all__ = ["Executor", "parse_compute_dtype"]
+__all__ = ["Executor", "parse_compute_dtype", "cast_counts",
+           "reset_cast_counts"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -57,9 +65,26 @@ _GRAD_REQS = ("write", "add", "null")
 _CASTS = {}
 
 
+#: "casts": casts ``_load`` made (kept casts reused are not counted);
+#: "write_backs": new aux values cast back to their cell's dtype
+_COUNTS = {"casts": 0, "write_backs": 0}
+
+
 def _forget(ref, key):
     if _CASTS.get(key, (None,))[0] is ref:
         del _CASTS[key]
+
+
+def cast_counts():
+    """{"casts": n, "write_backs": n} of the mixed-precision cast layer
+    since the last ``reset_cast_counts()``: each is one elementwise
+    launch on the card."""
+    return dict(_COUNTS)
+
+
+def reset_cast_counts():
+    for key in _COUNTS:
+        _COUNTS[key] = 0
 
 
 def parse_compute_dtype(compute_dtype):
@@ -204,12 +229,14 @@ class Executor:
                 name in self._label_names or t.dtype == self.compute_dtype:
             return t
         if t.requires_grad:
+            _COUNTS["casts"] += 1
             return t.to(self.compute_dtype)
         key = id(t)
         hit = _CASTS.get(key)
         if hit is not None and hit[0]() is t and hit[1] == t._version and \
                 hit[2].dtype == self.compute_dtype:
             return hit[2]
+        _COUNTS["casts"] += 1
         cast = t.to(self.compute_dtype)
         _CASTS[key] = (weakref.ref(t, lambda r, k=key: _forget(r, k)),
                        t._version, cast)
@@ -244,7 +271,7 @@ class Executor:
                     cell = self.aux_dict[inp.name]
                     new = new.detach() if new.requires_grad else new
                     if self.compute_dtype is not None:
-                        new = new.to(cell.astorch().dtype)
+                        new = _write_back(cell.astorch(), new)
                     cell._set(new)
             values[id(node)] = outs
         return [values[id(n)][i] for n, i in self._symbol._outputs]
@@ -286,6 +313,22 @@ class Executor:
             if self.grad_req[name] == "add":
                 g = cell.astorch() + g
             cell._set(g)
+
+
+def _write_back(old, new):
+    """The tensor a cell holding ``old`` takes for the new aux value
+    ``new`` under ``compute_dtype``: ``new`` in ``old``'s dtype when that
+    holds it exactly, else ``new`` itself (a float cell narrower than the
+    compute dtype: an fp8 cache). Drops the kept cast of ``old``."""
+    hit = _CASTS.get(id(old))
+    if hit is not None and hit[0]() is old:
+        del _CASTS[id(old)]
+    if new.dtype == old.dtype or (
+            old.is_floating_point() and new.is_floating_point() and
+            torch.finfo(old.dtype).bits < torch.finfo(new.dtype).bits):
+        return new
+    _COUNTS["write_backs"] += 1
+    return new.to(old.dtype)
 
 
 def aux_dtypes(symbol):

@@ -26,18 +26,20 @@ wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          s
 =========================  ==================================================  ===================
 
 The first four serve the decode path; ``decode_attention`` has one C
-entry point per cache storage type (float32, float8_e4m3fn,
+entry point per cache storage type (float32, bfloat16, float8_e4m3fn,
 float8_e5m2), and its fp8 launches count in ``decode_attention_fp8``
-(the wrapper that takes fp8 caches). ``softmax``, ``softmax_ce_bwd``,
+(the wrapper that takes fp8 caches). ``embedding``, ``layernorm``,
+``bias_gelu``, ``decode_attention``, ``softmax``, ``softmax_ce_bwd``,
 ``bn_stats`` and ``bn_apply_relu`` have a float32 and a bfloat16
 instance (``compute_dtype="bfloat16"``, the JAX package's mixed
 precision): each wrapper takes the instance of its tensor's dtype, and
-the bfloat16 launches count in ``softmax_bf16``, ``softmax_ce_bwd_bf16``,
-``bn_stats_bf16`` and ``bn_apply_relu_bf16`` (the wrappers that take
-bfloat16). A bfloat16 instance reads bfloat16, computes in float32 as
-the TPU kernel does, and stores bfloat16 (float32 for the statistics);
-it is never the float32 kernel behind a cast. Every other kernel takes
-float32 only and raises on half precision, naming the later slice.
+the bfloat16 launches count in ``<kernel>_bf16`` (``embedding_bf16``
+... ``bn_apply_relu_bf16``, the wrappers that take bfloat16). A
+bfloat16 instance reads bfloat16, computes in float32 as the TPU kernel
+does, and stores bfloat16 (float32 for the statistics and for the
+decode read's output, as the TPU kernels store them); it is never the
+float32 kernel behind a cast. Every other kernel takes float32 only and
+raises on half precision, naming the later slice.
 With the ones from ``layernorm_bwd_dx`` to ``flash_attention`` they
 train the transformer LM;
 softmax / cross-entropy and the optimizer updates serve every training
@@ -121,8 +123,10 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
            "dequant_rows_plain", "bn_stats", "bn_stats_plain",
            "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
-           "conv_bn_relu_fn", "softmax_bf16", "softmax_ce_bwd_bf16",
-           "bn_stats_bf16", "bn_apply_relu_bf16", "launch_counts",
+           "conv_bn_relu_fn", "embedding_bf16", "layernorm_bf16",
+           "bias_gelu_bf16", "decode_attention_bf16", "softmax_bf16",
+           "softmax_ce_bwd_bf16", "bn_stats_bf16", "bn_apply_relu_bf16",
+           "launch_counts",
            "reset_launch_counts", "libraries_loaded", "source",
            "KERNELS", "COUNTERS"]
 
@@ -136,14 +140,18 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: kernel name -> (source file, C symbol or {storage type: C symbol},
 #: ctypes argtypes)
 _SPECS = {
-    "embedding": ("embedding.cu", "mx_embedding_f32",
+    "embedding": ("embedding.cu", {"f32": "mx_embedding_f32",
+                                   "bf16": "mx_embedding_bf16"},
                   [_P, _P, _P, _I, _I, _I, _F, _P]),
-    "layernorm": ("layernorm.cu", "mx_layernorm_fwd_f32",
+    "layernorm": ("layernorm.cu", {"f32": "mx_layernorm_fwd_f32",
+                                   "bf16": "mx_layernorm_fwd_bf16"},
                   [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
-    "bias_gelu": ("bias_gelu.cu", "mx_bias_gelu_f32",
+    "bias_gelu": ("bias_gelu.cu", {"f32": "mx_bias_gelu_f32",
+                                   "bf16": "mx_bias_gelu_bf16"},
                   [_P, _P, _P, _I, _I, _P]),
     "decode_attention": ("decode_attention.cu",
                          {"f32": "mx_decode_attention_f32",
+                          "bf16": "mx_decode_attention_bf16",
                           "e4m3": "mx_decode_attention_e4m3",
                           "e5m2": "mx_decode_attention_e5m2"},
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
@@ -316,6 +324,17 @@ def _cpu_or_cuda(name, t):
                      f"{t.device}")
 
 
+#: tensor dtype -> C entry point suffix, for the kernels with a bfloat16
+#: instance
+_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _takes(name):
+    """The data dtype the wrapper ``name`` takes: bfloat16 for a
+    ``*_bf16`` instance, else float32."""
+    return torch.bfloat16 if name.endswith("_bf16") else torch.float32
+
+
 def launch_counts():
     """{counter name: launches so far}: one counter per kernel, plus
     ``decode_attention_fp8`` for the flash-decode kernel's fp8 instances
@@ -343,25 +362,46 @@ def reset_launch_counts():
 embedding_plain = embedding_lookup
 
 
-def embedding(ids, weight, scale=1.0):
-    """Gather rows ``ids`` (N,) int32 of ``weight`` (V, D) float32, times
-    ``scale`` -> (N, D)."""
-    if not _cpu_or_cuda("embedding", weight):
-        return embedding_plain(ids, weight, scale)
-    _check("embedding", ids=(ids, torch.int32),
-           weight=(weight, torch.float32))
+def _emb_launch(name, ids, weight, scale):
+    _check(name, ids=(ids, torch.int32), weight=(weight, _takes(name)))
     if weight.ndim != 2 or ids.ndim != 1:
-        raise MXNetError(f"embedding: want ids (N,) and weight (V, D), got "
+        raise MXNetError(f"{name}: want ids (N,) and weight (V, D), got "
                          f"{tuple(ids.shape)} and {tuple(weight.shape)}")
     n, (v, d) = ids.shape[0], weight.shape
     out = torch.empty((n, d), dtype=weight.dtype, device=weight.device)
     _launch("embedding", weight, ids.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), n, v, d, float(scale))
+            out.data_ptr(), n, v, d, float(scale),
+            storage=_STORAGE[weight.dtype])
+    return out
+
+
+def embedding(ids, weight, scale=1.0):
+    """Gather rows ``ids`` (N,) int32 of ``weight`` (V, D) float32 or
+    bfloat16, times ``scale`` -> (N, D) in the weight's dtype; bfloat16
+    goes to ``embedding_bf16``."""
+    if not _cpu_or_cuda("embedding", weight):
+        return embedding_plain(ids, weight, scale)
+    if weight.dtype == torch.bfloat16:
+        return embedding_bf16(ids, weight, scale)
+    out = _emb_launch("embedding", ids, weight, scale)
     embedding.launches += 1
     return out
 
 
 embedding.launches = 0
+
+
+def embedding_bf16(ids, weight, scale=1.0):
+    """``embedding``'s bfloat16 instance: weight (V, D) bfloat16, each row
+    scaled in float32 and rounded to bfloat16 once."""
+    if not _cpu_or_cuda("embedding_bf16", weight):
+        return embedding_plain(ids, weight, scale)
+    out = _emb_launch("embedding_bf16", ids, weight, scale)
+    embedding_bf16.launches += 1
+    return out
+
+
+embedding_bf16.launches = 0
 
 
 def embedding_bwd_plain(ids, ct, num_rows, scale=1.0):
@@ -428,26 +468,50 @@ def layernorm_plain(x2, gamma, beta, eps):
     return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
 
 
-def layernorm(x2, gamma, beta, eps):
-    """LayerNorm of x2 (N, C) float32 -> (y, mean (N,), rstd (N,))."""
-    if not _cpu_or_cuda("layernorm", x2):
-        return layernorm_plain(x2, gamma, beta, eps)
-    _check("layernorm", x=(x2, torch.float32), gamma=(gamma, torch.float32),
-           beta=(beta, torch.float32))
+def _ln_launch(name, x2, gamma, beta, eps):
+    dtype = _takes(name)
+    _check(name, x=(x2, dtype), gamma=(gamma, dtype), beta=(beta, dtype))
+    if x2.ndim != 2:
+        raise MXNetError(f"{name}: want x (N, C), got {tuple(x2.shape)}")
     n, c = x2.shape
     if gamma.shape != (c,) or beta.shape != (c,):
-        raise MXNetError(f"layernorm: gamma/beta must be ({c},)")
+        raise MXNetError(f"{name}: gamma/beta must be ({c},)")
     y = torch.empty_like(x2)
     mean = torch.empty((n,), dtype=torch.float32, device=x2.device)
     rstd = torch.empty((n,), dtype=torch.float32, device=x2.device)
     _launch("layernorm", x2, x2.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            n, c, float(eps))
-    layernorm.launches += 1
+            n, c, float(eps), storage=_STORAGE[x2.dtype])
     return y, mean, rstd
 
 
+def layernorm(x2, gamma, beta, eps):
+    """LayerNorm of x2 (N, C) float32 or bfloat16 (gamma, beta (C,) of
+    the same dtype) -> (y in x2's dtype, mean (N,), rstd (N,) float32);
+    bfloat16 goes to ``layernorm_bf16``."""
+    if not _cpu_or_cuda("layernorm", x2):
+        return layernorm_plain(x2, gamma, beta, eps)
+    if x2.dtype == torch.bfloat16:
+        return layernorm_bf16(x2, gamma, beta, eps)
+    out = _ln_launch("layernorm", x2, gamma, beta, eps)
+    layernorm.launches += 1
+    return out
+
+
 layernorm.launches = 0
+
+
+def layernorm_bf16(x2, gamma, beta, eps):
+    """``layernorm``'s bfloat16 instance: x2, gamma, beta bfloat16,
+    float32 statistics and arithmetic, y rounded to bfloat16 once."""
+    if not _cpu_or_cuda("layernorm_bf16", x2):
+        return layernorm_plain(x2, gamma, beta, eps)
+    out = _ln_launch("layernorm_bf16", x2, gamma, beta, eps)
+    layernorm_bf16.launches += 1
+    return out
+
+
+layernorm_bf16.launches = 0
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -510,22 +574,45 @@ def _layernorm_cuda(attrs, inputs, aux, is_train, rng):
 bias_gelu_plain = nn_bias_gelu
 
 
-def bias_gelu(x2, bias):
-    """Bias + exact GeLU over x2 (N, C) float32 with bias (C,)."""
-    if not _cpu_or_cuda("bias_gelu", x2):
-        return bias_gelu_plain(x2, bias)
-    _check("bias_gelu", x=(x2, torch.float32), bias=(bias, torch.float32))
+def _gelu_launch(name, x2, bias):
+    _check(name, x=(x2, _takes(name)), bias=(bias, _takes(name)))
+    if x2.ndim != 2:
+        raise MXNetError(f"{name}: want x (N, C), got {tuple(x2.shape)}")
     n, c = x2.shape
     if bias.shape != (c,):
-        raise MXNetError(f"bias_gelu: bias must be ({c},)")
+        raise MXNetError(f"{name}: bias must be ({c},)")
     y = torch.empty_like(x2)
     _launch("bias_gelu", x2, x2.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            n, c)
+            n, c, storage=_STORAGE[x2.dtype])
+    return y
+
+
+def bias_gelu(x2, bias):
+    """Bias + exact GeLU over x2 (N, C) float32 or bfloat16 with bias (C,)
+    of the same dtype; bfloat16 goes to ``bias_gelu_bf16``."""
+    if not _cpu_or_cuda("bias_gelu", x2):
+        return bias_gelu_plain(x2, bias)
+    if x2.dtype == torch.bfloat16:
+        return bias_gelu_bf16(x2, bias)
+    y = _gelu_launch("bias_gelu", x2, bias)
     bias_gelu.launches += 1
     return y
 
 
 bias_gelu.launches = 0
+
+
+def bias_gelu_bf16(x2, bias):
+    """``bias_gelu``'s bfloat16 instance: x2 and bias bfloat16, float32
+    arithmetic, y rounded to bfloat16 once."""
+    if not _cpu_or_cuda("bias_gelu_bf16", x2):
+        return bias_gelu_plain(x2, bias)
+    y = _gelu_launch("bias_gelu_bf16", x2, bias)
+    bias_gelu_bf16.launches += 1
+    return y
+
+
+bias_gelu_bf16.launches = 0
 
 
 class _BiasGeLUFn(torch.autograd.Function):
@@ -581,20 +668,22 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
 
 
 #: cache storage dtype -> the kernel's C entry point suffix
-_DECODE_STORAGE = {torch.float32: "f32", torch.float8_e4m3fn: "e4m3",
-                   torch.float8_e5m2: "e5m2"}
+_DECODE_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16",
+                   torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
 
 
 def _decode_launch(name, q, k_cache, v_cache, pos):
     """Check the inputs of the flash-decode kernel and launch the instance
-    for the cache's storage type: float32 q, caches float32 or fp8 (both
-    the same), int32 pos, Dh in {64, 128}, S <= 64; an fp8 cache 16-byte
-    aligned (the kernel reads it 16 bytes a thread)."""
+    for the cache's storage type: float32 q with float32 or fp8 caches
+    (both the same), or bfloat16 q with bfloat16 caches; int32 pos, Dh in
+    {64, 128}, S <= 64; the caches 16-byte aligned (a narrow cache is
+    read 16 bytes a thread)."""
     storage = _DECODE_STORAGE.get(k_cache.dtype)
     if storage is None:
         raise MXNetError(f"{name}: cache is {k_cache.dtype}, the kernel "
-                         "takes float32, float8_e4m3fn or float8_e5m2")
-    _check(name, q=(q, torch.float32), k_cache=(k_cache, k_cache.dtype),
+                         "takes float32, bfloat16, float8_e4m3fn or "
+                         "float8_e5m2")
+    _check(name, q=(q, _takes(name)), k_cache=(k_cache, k_cache.dtype),
            v_cache=(v_cache, k_cache.dtype), pos=(pos, torch.int32))
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
@@ -619,15 +708,19 @@ def _decode_launch(name, q, k_cache, v_cache, pos):
 
 
 def decode_attention(q, k_cache, v_cache, pos):
-    """Cursor-bounded flash-decode read: q (B, H, S, Dh) float32, caches
-    (B, H, C, Dh) float32, float8_e4m3fn or float8_e5m2 with this step's
-    rows already written, pos (B,) int32 per-row cursors -> float32
-    (B, H, S, Dh). fp8 caches go to ``decode_attention_fp8``, which counts
-    their launches. The kernel takes Dh in {64, 128} and S <= 64."""
+    """Cursor-bounded flash-decode read: q (B, H, S, Dh) float32 with
+    caches (B, H, C, Dh) float32, float8_e4m3fn or float8_e5m2, or q and
+    caches bfloat16, with this step's rows already written, pos (B,)
+    int32 per-row cursors -> float32 (B, H, S, Dh). fp8 caches go to
+    ``decode_attention_fp8`` and bfloat16 to ``decode_attention_bf16``,
+    which count their launches. The kernel takes Dh in {64, 128} and
+    S <= 64."""
     if not _cpu_or_cuda("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if k_cache.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
         return decode_attention_fp8(q, k_cache, v_cache, pos)
+    if torch.bfloat16 in (q.dtype, k_cache.dtype):
+        return decode_attention_bf16(q, k_cache, v_cache, pos)
     out = _decode_launch("decode_attention", q, k_cache, v_cache, pos)
     decode_attention.launches += 1
     return out
@@ -653,6 +746,24 @@ def decode_attention_fp8(q, k_cache, v_cache, pos):
 
 decode_attention_fp8.launches = 0
 
+
+def decode_attention_bf16(q, k_cache, v_cache, pos):
+    """``decode_attention``'s bfloat16 instance: q and caches bfloat16
+    (the mixed-precision path, caches cast where the graph reads them),
+    widened exactly as each tile is staged; float32 arithmetic and a
+    float32 output."""
+    if not _cpu_or_cuda("decode_attention_bf16", q):
+        return decode_attention_plain(q, k_cache, v_cache, pos)
+    if k_cache.dtype != torch.bfloat16:
+        raise MXNetError(f"decode_attention_bf16: cache is {k_cache.dtype}, "
+                         "want torch.bfloat16")
+    out = _decode_launch("decode_attention_bf16", q, k_cache, v_cache, pos)
+    decode_attention_bf16.launches += 1
+    return out
+
+
+decode_attention_bf16.launches = 0
+
 # ==========================================================================
 # 5. row softmax (SoftmaxOutput forward)
 # ==========================================================================
@@ -662,17 +773,6 @@ softmax_plain = softmax_rows
 
 #: the JAX package's eligibility bound for its softmax kernel
 SOFTMAX_MAX_C = 65536
-
-#: tensor dtype -> C entry point suffix, for the kernels with a bfloat16
-#: instance
-_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def _takes(name):
-    """The data dtype the wrapper ``name`` takes: bfloat16 for a
-    ``*_bf16`` instance, else float32."""
-    return torch.bfloat16 if name.endswith("_bf16") else torch.float32
-
 
 def _softmax_launch(name, x2):
     _check(name, x=(x2, _takes(name)))
@@ -1322,7 +1422,12 @@ _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "bias_gelu_dx": bias_gelu_dx,
              "flash_attention": flash_attention, "qfc_matmul": qfc_matmul,
              "dequant_rows": dequant_rows, "bn_stats": bn_stats,
-             "bn_apply_relu": bn_apply_relu, "softmax_bf16": softmax_bf16,
+             "bn_apply_relu": bn_apply_relu,
+             "embedding_bf16": embedding_bf16,
+             "layernorm_bf16": layernorm_bf16,
+             "bias_gelu_bf16": bias_gelu_bf16,
+             "decode_attention_bf16": decode_attention_bf16,
+             "softmax_bf16": softmax_bf16,
              "softmax_ce_bwd_bf16": softmax_ce_bwd_bf16,
              "bn_stats_bf16": bn_stats_bf16,
              "bn_apply_relu_bf16": bn_apply_relu_bf16}
@@ -1333,7 +1438,8 @@ COUNTERS = tuple(_WRAPPERS)
 _COUNTER_KERNEL = {n: n for n in _SPECS}
 _COUNTER_KERNEL.update({"decode_attention_fp8": "decode_attention"})
 _COUNTER_KERNEL.update({n + "_bf16": n for n in (
-    "softmax", "softmax_ce_bwd", "bn_stats", "bn_apply_relu")})
+    "embedding", "layernorm", "bias_gelu", "decode_attention", "softmax",
+    "softmax_ce_bwd", "bn_stats", "bn_apply_relu")})
 
 
 # ==========================================================================

@@ -301,11 +301,18 @@ class DecodeEngine:
     capacity) each rung gets a Module over ``symbol_gen(W)`` bound with
     ``shared_module=`` the rung's S=1 module, so that its parameter AND
     cache/cursor cells are the rung's own — the engine checks every aux
-    cell is shared."""
+    cell is shared.
+
+    ``compute_dtype="bfloat16"`` serves in mixed precision, as the JAX
+    package's engine does: every rung and window Module casts the
+    parameters and caches to bfloat16 where the graph reads them (the
+    executor's cast layer), the decode kernels run their bfloat16
+    instances and the logits come back bfloat16."""
 
     def __init__(self, name, symbol, arg_params, aux_params=None,
-                 capacity=None, ladder=None, context=None, logger=None,
-                 symbol_gen=None, window_lens=()):
+                 capacity=None, ladder=None, context=None,
+                 compute_dtype=None, logger=None, symbol_gen=None,
+                 window_lens=()):
         from ..context import current_context
         from ..models.transformer import BatchedKVCacheDecoder
         from ..module import BucketingModule
@@ -334,6 +341,8 @@ class DecodeEngine:
             sym_gen=lambda slots: (symbol, list(self.data_names), []),
             default_bucket_key=self.ladder.max,
             logger=logger or log, context=self._context)
+        if compute_dtype is not None:
+            self._bm._module_kwargs["compute_dtype"] = compute_dtype
         self._bm.bind(self._provide_data(self.ladder.max),
                       label_shapes=None, for_training=False)
         # the decode graph's aux states (KV caches + cursors) are absent
@@ -369,9 +378,9 @@ class DecodeEngine:
                     f"DecodeEngine({name!r}): window_lens="
                     f"{self.window_lens} needs symbol_gen= (a "
                     "step_len -> per-slot decode symbol factory)")
-            self._build_windows(symbol_gen, logger or log)
+            self._build_windows(symbol_gen, compute_dtype, logger or log)
 
-    def _build_windows(self, symbol_gen, logger):
+    def _build_windows(self, symbol_gen, compute_dtype, logger):
         from ..module import Module
         for rung in self.ladder:
             base = self._bm._buckets[rung]
@@ -379,7 +388,8 @@ class DecodeEngine:
             for S in self.window_lens:
                 mod = Module(symbol_gen(S), data_names=list(self.data_names),
                              label_names=[], logger=logger,
-                             context=self._context)
+                             context=self._context,
+                             compute_dtype=compute_dtype)
                 mod.bind(self._provide_data(rung, S), label_shapes=None,
                          for_training=False, shared_module=base)
                 w_exe = mod._exec_group.executor
@@ -1150,9 +1160,10 @@ class DecodeScheduler:
 
 def serve_decoder(symbol, arg_params, name="decoder", capacity=None,
                   ladder=None, clock=None, start=True, max_queue=None,
-                  default_max_new=None, context=None, logger=None,
-                  symbol_gen=None, prefill_chunk=None, draft_symbol_gen=None,
-                  draft_params=None, spec_k=None, prefix_cache_mb=None):
+                  default_max_new=None, context=None, compute_dtype=None,
+                  logger=None, symbol_gen=None, prefill_chunk=None,
+                  draft_symbol_gen=None, draft_params=None, spec_k=None,
+                  prefix_cache_mb=None):
     """One-call front end for continuous decode batching:
     ``serve_decoder(decode_symbol, params).submit([ids...])``.
 
@@ -1161,7 +1172,9 @@ def serve_decoder(symbol, arg_params, name="decoder", capacity=None,
     ``DecodeEngine`` on ``context`` (default ``gpu(0)``; without CUDA that
     raises unless ``context=mx.cpu()``), warms every rung and, by default,
     starts the dispatch thread — ``start=False`` + ``pump()`` with a
-    FakeClock is the deterministic test path.
+    FakeClock is the deterministic test path. ``compute_dtype=
+    "bfloat16"`` serves in mixed precision (target and draft alike);
+    float16 raises.
 
     Fast paths, as in the JAX package:
 
@@ -1193,14 +1206,15 @@ def serve_decoder(symbol, arg_params, name="decoder", capacity=None,
                 "window dispatch")
         window_lens.add(k)
     engine = DecodeEngine(name, symbol, arg_params, capacity=capacity,
-                          ladder=ladder, context=context, logger=logger,
+                          ladder=ladder, context=context,
+                          compute_dtype=compute_dtype, logger=logger,
                           symbol_gen=symbol_gen, window_lens=window_lens)
     if draft_symbol_gen is not None:
         draft_engine = DecodeEngine(
             name + ".draft", draft_symbol_gen(1), draft_params,
             capacity=engine.capacity, ladder=engine.ladder.sizes,
-            context=context, logger=logger, symbol_gen=draft_symbol_gen,
-            window_lens=window_lens)
+            context=context, compute_dtype=compute_dtype, logger=logger,
+            symbol_gen=draft_symbol_gen, window_lens=window_lens)
     budget = None if prefix_cache_mb is None \
         else int(float(prefix_cache_mb) * (1 << 20))
     store = None

@@ -15,7 +15,10 @@ softmax rows of 1 and 65536 classes, labels outside the classes and
 ignored rows; update lengths that are not a multiple of the block).
 Tolerance: float32 2e-5 (the kernels sum in another order); the gather
 and the elementwise updates, which round as their plain versions do, are
-held to 1e-6. A small model is then decoded on the card and on the CPU
+held to 1e-6. The decode kernels' bfloat16 instances: the gather bit for
+bit, LayerNorm and GeLU within one bfloat16 ulp beyond 2e-5, the
+decode read (float32 out) within 2e-5; a small model served in bfloat16
+on the card and the CPU within 2e-2, with exact launch counts. A small model is then decoded on the card and on the CPU
 through the same scheduler (and again with chunked prefill, speculative
 decoding, the prefix store and an fp8 cache), an MLP and a LeNet are
 fitted on both, and the launch counters must show every kernel ran.
@@ -844,15 +847,17 @@ def test_fused_op_on_card(dev, is_train, extra):
 
 
 # ------------------------------------------------ the bfloat16 instances
-def _bf16_ulps(a, b):
-    """Largest |a - b| in bfloat16 ulps of the larger magnitude (values
-    below the normal range in ulps of the smallest normal)."""
+def _bf16_ulps(a, b, atol=0.0):
+    """Largest |a - b|, less ``atol``, in bfloat16 ulps of the larger
+    magnitude (values below the normal range in ulps of the smallest
+    normal)."""
     torch.cuda.synchronize()
     a, b = a.double().cpu(), b.double().cpu()
     mag = torch.maximum(torch.maximum(a.abs(), b.abs()),
                         torch.tensor(2.0 ** -126, dtype=torch.float64))
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(((a - b).abs() / ulp).max()) if a.numel() else 0.0
+    over = ((a - b).abs() - atol).clamp(min=0.0)
+    return float((over / ulp).max()) if a.numel() else 0.0
 
 
 def _misaligned_bf16(dev, n, *shape):
@@ -950,14 +955,21 @@ def test_bn_kernels_bf16_misaligned_repeat_and_nan(dev):
 
 @pytest.mark.cuda
 def test_float32_only_kernels_refuse_bf16_naming_the_later_slice(dev):
+    """The LM-training kernels take float32 only; the decode kernels
+    (which have bfloat16 instances) refuse float16."""
     x = _rnd(dev, 8, 64).to(torch.bfloat16)
     g = _rnd(dev, 64).to(torch.bfloat16)
+    st = torch.ones(8, device=dev)
     with pytest.raises(MXNetError, match="later slice"):
-        ck.layernorm(x, g, g, 1e-5)
+        ck.layernorm_bwd_dx(x, g, x, st, st)
     with pytest.raises(MXNetError, match="later slice"):
-        ck.bias_gelu(x, g)
+        ck.bias_gelu_dx(x, g, x)
     with pytest.raises(MXNetError, match="later slice"):
-        ck.embedding(torch.zeros(2, dtype=torch.int32, device=dev), x)
+        ck.layernorm(x.half(), g.half(), g.half(), 1e-5)
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.bias_gelu(x.half(), g.half())
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.embedding(torch.zeros(2, dtype=torch.int32, device=dev), x.half())
     with pytest.raises(MXNetError, match="later slice"):
         ck.flash_attention(*[_rnd(dev, 1, 1, 8, 64).to(torch.bfloat16)] * 3)
     with pytest.raises(MXNetError, match="later slice"):
@@ -965,6 +977,214 @@ def test_float32_only_kernels_refuse_bf16_naming_the_later_slice(dev):
     w = x.float()
     with pytest.raises(MXNetError, match="later slice"):
         ck.sgd_mom_update(w, x, w.clone(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d", [(32000, 512), (50, 13), (7, 4)])
+def test_embedding_bf16_kernel(dev, v, d):
+    """Bit for bit its plain version (each row scaled in float32 and
+    rounded once), out-of-range ids included, at the 16-byte path (D % 8
+    == 0), the one-value path and on a misaligned table; only the
+    bfloat16 counter moves."""
+    ids = torch.tensor([0, v - 1, -1, -v, v, -v - 1, 3],
+                       dtype=torch.int32, device=dev)
+    for w in (_rnd(dev, v, d).to(torch.bfloat16),
+              _misaligned_bf16(dev, v * d, v, d)):
+        for scale in (1.0, float(np.sqrt(d))):
+            before = ck.launch_counts()
+            got = ck.embedding(ids, w, scale)
+            after = ck.launch_counts()
+            assert got.dtype == torch.bfloat16
+            assert after["embedding_bf16"] == before["embedding_bf16"] + 1
+            assert after["embedding"] == before["embedding"]
+            _same(got, ck.embedding_plain(ids, w, scale), tol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8, 512), (3, 100), (5, 13), (1, 4096)])
+def test_layernorm_bf16_kernel(dev, n, c):
+    """y within one bfloat16 ulp of its plain version beyond the float32
+    kernel's 2e-5 (the product order can move a rounding), mean and rstd
+    float32 within 2e-5; aligned and misaligned x."""
+    g = _rnd(dev, c, seed=1).to(torch.bfloat16)
+    b = _rnd(dev, c, seed=2).to(torch.bfloat16)
+    for x in ((3 * _rnd(dev, n, c) + 1).to(torch.bfloat16),
+              _misaligned_bf16(dev, n * c, n, c)):
+        before = ck.launch_counts()
+        y, mean, rstd = ck.layernorm(x, g, b, 1e-5)
+        after = ck.launch_counts()
+        py, pmean, prstd = ck.layernorm_plain(x, g, b, 1e-5)
+        assert y.dtype == torch.bfloat16 and mean.dtype == torch.float32
+        assert _bf16_ulps(y, py, atol=TOL) <= 1
+        _same((mean, rstd), (pmean, prstd))
+        assert after["layernorm_bf16"] == before["layernorm_bf16"] + 1
+        assert after["layernorm"] == before["layernorm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8, 2048), (3, 13), (1, 4)])
+def test_bias_gelu_bf16_kernel(dev, n, c):
+    b = _rnd(dev, c, seed=1).to(torch.bfloat16)
+    for x in ((3 * _rnd(dev, n, c)).to(torch.bfloat16),
+              _misaligned_bf16(dev, n * c, n, c)):
+        before = ck.launch_counts()
+        y = ck.bias_gelu(x, b)
+        after = ck.launch_counts()
+        assert y.dtype == torch.bfloat16
+        assert _bf16_ulps(y, ck.bias_gelu_plain(x, b), atol=TOL) <= 1
+        assert after["bias_gelu_bf16"] == before["bias_gelu_bf16"] + 1
+        assert after["bias_gelu"] == before["bias_gelu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S,C", [(1, 256), (16, 256), (17, 100), (64, 64)])
+def test_decode_attention_bf16_kernel(dev, dh, S, C):
+    """bfloat16 q and caches, widened exactly: within 2e-5 of the plain
+    read of the same values (float32 arithmetic in another order), at
+    cursors 0, mid, C - S and C - 1; the output float32; only the
+    bfloat16 counter moves."""
+    B, H = 4, 2
+    cursors = torch.tensor([0, (C - S) // 2, C - S, C - 1],
+                           dtype=torch.int32, device=dev)
+    q = _rnd(dev, B, H, S, dh).to(torch.bfloat16)
+    kc, vc = (_rnd(dev, B, H, C, dh, seed=s).to(torch.bfloat16)
+              for s in (1, 2))
+    before = ck.launch_counts()
+    got = ck.decode_attention(q, kc, vc, cursors)
+    after = ck.launch_counts()
+    assert got.dtype == torch.float32
+    _same(got, ck.decode_attention_plain(q, kc, vc, cursors))
+    assert after["decode_attention_bf16"] == \
+        before["decode_attention_bf16"] + 1
+    assert after["decode_attention"] == before["decode_attention"]
+
+
+@pytest.mark.cuda
+def test_bf16_decode_kernels_refuse_what_they_do_not_take(dev):
+    bf = torch.bfloat16
+    q = _rnd(dev, 1, 1, 1, 64).to(bf)
+    kc = _rnd(dev, 1, 1, 8, 64).to(bf)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    shifted = _misaligned_bf16(dev, 8 * 64, 1, 1, 8, 64)
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        ck.decode_attention(q, shifted, shifted, pos)
+    with pytest.raises(MXNetError, match="takes torch.bfloat16"):
+        ck.decode_attention(q.float(), kc, kc, pos)       # float32 q
+    with pytest.raises(MXNetError, match="want torch.bfloat16"):
+        ck.decode_attention_bf16(q, kc.float(), kc.float(), pos)
+    with pytest.raises(MXNetError, match="head dim"):
+        ck.decode_attention(q[..., :32].contiguous(),
+                            kc[..., :32].contiguous(),
+                            kc[..., :32].contiguous(), pos)
+    x, g = _rnd(dev, 2, 8).to(bf), _rnd(dev, 8).to(bf)
+    with pytest.raises(MXNetError, match="takes torch.bfloat16"):
+        ck.layernorm(x, g.float(), g, 1e-5)               # float32 gamma
+    with pytest.raises(MXNetError, match="takes torch.bfloat16"):
+        ck.bias_gelu(x, g.float())
+    with pytest.raises(MXNetError, match="int32"):
+        ck.embedding(torch.zeros(2, dtype=torch.int64, device=dev), x)
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.layernorm(x.t(), g, g, 1e-5)
+
+
+def _bf16_decode_model(n_layer, seed, cache_dtype=None):
+    V, D, H, CAP = 300, 64, 1, 32
+
+    def gen(s):
+        return tfm.get_decode_symbol(
+            vocab_size=V, d_model=D, n_layer=n_layer, n_head=H,
+            capacity=CAP, per_slot=True, step_len=s, cache_dtype=cache_dtype)
+    sym = gen(1)
+    shapes, _, _ = sym.infer_shape(data=(1, 1))
+    rs = np.random.RandomState(seed)
+    params = {n: ((1.0 if n.endswith("gamma") else 0.0)
+                  + 0.3 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes) if n != "data"}
+    return gen, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", [None, "fp8"])
+def test_bf16_decode_on_card_matches_cpu(dev, cache_dtype):
+    """``serve_decoder(compute_dtype="bfloat16")`` on the card and on the
+    CPU: a fixed token chain (ids past 256) teacher-forced through the
+    served rung-2 driver gives logits within 2e-2 (atol and rtol: cuBLAS
+    and oneDNN round bfloat16 products at other places); on the card
+    every S=1 step launches 1 / 2L + 1 / L / L of the four bfloat16
+    instances and no other kernel, no library loads after warmup, and an
+    fp8 cache cell holds the bfloat16 cache after its first step."""
+    gen, params = _bf16_decode_model(2, 0, cache_dtype)
+    chain = np.random.RandomState(1).randint(0, 300, (12, 2))
+    chain[0] = [299, 257]
+    logits = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        sched = mx.serve.serve_decoder(
+            gen(1), mx.convert.params_from_numpy(params, ctx), ladder=[2],
+            clock=FakeClock(), start=False, context=ctx,
+            compute_dtype="bfloat16")
+        drv = sched.engine.driver(2)
+        drv.join(0)
+        drv.join(1)
+        ck.reset_launch_counts()
+        logits[ctx.device_type] = np.concatenate(
+            [drv.step(tok[:, None]).asnumpy() for tok in chain], axis=1)
+        counts = ck.launch_counts()
+        if ctx.device_type == "gpu":
+            want = dict.fromkeys(counts, 0)
+            want.update(embedding_bf16=12, layernorm_bf16=5 * 12,
+                        bias_gelu_bf16=2 * 12, decode_attention_bf16=2 * 12)
+            assert counts == want
+            assert sched.stats()["compiles_since_warmup"] == 0
+        cache = drv._mod._exec_group.executor.aux_dict["lm_l0_attn_k_cache"]
+        assert cache.astorch().dtype == (
+            torch.bfloat16 if cache_dtype else torch.float32)
+    np.testing.assert_allclose(logits["gpu"], logits["cpu"], atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_fast_paths_on_card(dev):
+    """Chunked prefill (S=4), speculative decoding (a 1-layer draft,
+    spec_k 3) and the prefix store under bfloat16 on the card: every
+    request answers, 3 of 4 prefix hits, only the bfloat16 decode
+    instances launch; an S=4 window's logits card vs CPU within 2e-2."""
+    gen, target = _bf16_decode_model(2, 0)
+    dgen, draft = _bf16_decode_model(1, 1)
+    rs = np.random.RandomState(2)
+    shared = rs.randint(0, 300, 7).tolist()
+    prompts = [shared + [int(t)] for t in rs.randint(0, 300, 4)]
+    window = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ck.reset_launch_counts()
+        sched = mx.serve.serve_decoder(
+            gen(1), mx.convert.params_from_numpy(target, ctx),
+            ladder=[1, 2, 4], clock=FakeClock(), start=False, context=ctx,
+            compute_dtype="bfloat16", symbol_gen=gen, prefill_chunk=4,
+            draft_symbol_gen=dgen,
+            draft_params=mx.convert.params_from_numpy(draft, ctx),
+            spec_k=3, prefix_cache_mb=1)
+        first = sched.submit(prompts[0], max_new_tokens=6, prefix_id="p")
+        sched.pump(max_iterations=2)
+        hs = [first] + [sched.submit(p, max_new_tokens=6, prefix_id="p")
+                        for p in prompts[1:]]
+        sched.pump()
+        assert all(len(h.result(timeout=0)) == 6 for h in hs)
+        st = sched.stats()
+        assert st["prefix"]["hits"] == 3 and st["spec"]["proposed"] > 0
+        counts = ck.launch_counts()
+        if ctx.device_type == "gpu":
+            bf16 = {"embedding_bf16", "layernorm_bf16", "bias_gelu_bf16",
+                    "decode_attention_bf16"}
+            assert all(counts[k] > 0 for k in bf16), counts
+            assert not any(v for k, v in counts.items() if k not in bf16)
+        drv = sched.engine.driver(1)
+        drv.leave(0)
+        drv.join(0)
+        window[ctx.device_type] = drv.step(
+            np.asarray([prompts[1][:4]])).asnumpy()
+    np.testing.assert_allclose(window["gpu"], window["cpu"], atol=2e-2,
+                               rtol=2e-2)
 
 
 def _bf16_nets():
