@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all sixteen in parallel; eight of them hold a
+   ``nvcc`` per source, all sixteen in parallel; twelve of them hold a
    float32 and a bfloat16 instance), print the build seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
@@ -22,9 +22,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    S = 1, 4, 64, Dh 64 and 128, cursors 0 / mid / C - S and NaN cells,
    after ``rtc.fp8_cast`` gave the same bytes on the card as on the CPU;
    the bfloat16 instances of softmax, the CE gradient and the BatchNorm
-   pair at the bfloat16 ResNet-50 path's shapes and edges, and of the
+   pair at the bfloat16 ResNet-50 path's shapes and edges, of the
    gather, LayerNorm, GeLU and the decode read at the bfloat16 decode
-   path's shapes and edges, bounds at bfloat16 bytes);
+   path's shapes and edges, and of the LayerNorm backward pair, GeLU'
+   and flash attention at the bfloat16 LM path's shapes and edges,
+   bounds at bfloat16 bytes; the softmax head's pair at the LM head's
+   (8192, 32000) in float32 and bfloat16, device time beside the bound);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -203,7 +206,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (float32, bfloat16, bfloat16, float32): wall without the profiler;
    under the profiler wall, device busy, launches, device time by group,
    and the cache casts and write-backs per step; the host's time per
-   step by op (the profiler's CPU activity).
+   step by op (the profiler's CPU activity);
+35. (run after 31) the LM of phase 9 through
+   ``Module(compute_dtype="bfloat16").fit`` and in float32, in turns
+   (float32, bfloat16, bfloat16, float32; 8 batches each, telemetry on):
+   tokens/s, p50/p99 step ms, peak device memory and the MFU readings of
+   each; every bfloat16 step launches exactly 1 ``embedding_bf16``, 17
+   ``layernorm_bf16`` + 17 ``layernorm_bwd_dx_bf16`` + 17
+   ``layernorm_bwd_dparams_bf16``, 8 ``bias_gelu_bf16`` + 8
+   ``bias_gelu_dx_bf16``, 8 ``flash_attention_bf16``, 1 ``softmax_bf16``
+   and 1 ``softmax_ce_bwd_bf16`` and no float32 instance; one cast per
+   parameter per step (99: the tied embedding table once); a finite
+   loss, moved parameters, every bound cell float32;
+36. one bfloat16 SGD step of the LM at batch 2, T=128, card vs CPU from
+   phase 10's parameters, TF32 off: probabilities, every gradient and
+   every weight's update within ``BF16_SPREAD`` times the CPU's own
+   bfloat16-vs-float32 distance of that array (plus one bfloat16 ulp of
+   its largest magnitude);
+37. profile 4 float32 and 4 bfloat16 LM steps in turns: wall, device
+   busy, launches, device time by group (the port's kernels / cuBLAS /
+   PyTorch elementwise / the casts / copies), casts per step, and the
+   rate of the cuBLAS group over the step's matmul flops.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
@@ -215,7 +238,8 @@ fused ResNet-50, ``decode_attention_fp8`` (the decode kernel's fp8
 instances) while serving the fp8 caches, the softmax, CE-gradient and
 BatchNorm ``*_bf16`` instances while fitting and serving ResNet-50 in
 bfloat16, the decode path's four ``*_bf16`` instances while serving the
-LM in bfloat16 (phase 32), the user kernels
+LM in bfloat16 (phase 32), the LM-training path's four ``*_bf16``
+instances while fitting the LM in bfloat16 (phase 35), the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
 (the relu_user fit; their source is this script) — max abs error against
 the plain version, kernel /
@@ -251,7 +275,9 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "softmax_bf16": 1.0, "softmax_ce_bwd_bf16": 0.0,
        "bn_stats_bf16": 1e-5, "bn_apply_relu_bf16": 0.0,
        "embedding_bf16": 0.0, "layernorm_bf16": 1.0, "bias_gelu_bf16": 1.0,
-       "decode_attention_bf16": 2e-5}
+       "decode_attention_bf16": 2e-5, "layernorm_bwd_dx_bf16": 1.0,
+       "layernorm_bwd_dparams_bf16": 1.0, "bias_gelu_dx_bf16": 1.0,
+       "flash_attention_bf16": 1.0}
 # bn_stats' error is relative to each channel's sum of squares (which also
 # bounds its sum: sum(x)^2 <= n sum(x^2)): float32 sums of up to 401,408
 # terms (the stem's channels at batch 32), taken in another order than
@@ -263,7 +289,11 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
 # instances: the gather exactly, LayerNorm and GeLU in bfloat16 ulps beyond
 # the float32 instances' 2e-5 (a product in another order can move a
 # rounding), the decode read (float32 out, exactly widened inputs) as the
-# float32 read
+# float32 read. The LM-training path's bfloat16 instances, in bfloat16
+# ulps: dx, GeLU' and attention within one beyond 2e-5 of their plain
+# versions on the same values (float32 arithmetic in another order can
+# move a rounding), dgamma / dbeta (float32 sums over 8192 rows) within
+# one beyond 1e-4
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -291,6 +321,10 @@ REPLACES = {
     "layernorm_bf16": "mxnet_tpu/ops/pallas_kernels.py:585",
     "bias_gelu_bf16": "mxnet_tpu/ops/pallas_kernels.py:746",
     "decode_attention_bf16": "mxnet_tpu/ops/pallas_kernels.py:953",
+    "layernorm_bwd_dx_bf16": "mxnet_tpu/ops/pallas_kernels.py:600",
+    "layernorm_bwd_dparams_bf16": "mxnet_tpu/ops/pallas_kernels.py:612",
+    "bias_gelu_dx_bf16": "mxnet_tpu/ops/pallas_kernels.py:751",
+    "flash_attention_bf16": "mxnet_tpu/rtc.py:301",
     "rtc_axpb": "mxnet_tpu/rtc.py:41",
     "relu_user": "mxnet_tpu/rtc.py:101",
     "relu_user_vjp": "mxnet_tpu/rtc.py:101",
@@ -330,6 +364,19 @@ BF16_DECODE_KERNELS = ("embedding_bf16", "layernorm_bf16", "bias_gelu_bf16",
 #: bfloat16 decode tolerance): cuBLAS and oneDNN round bfloat16 products
 #: at other places
 BF16_LOGIT_TOL = 2e-2
+#: the LM-training path's bfloat16 instances (phases 35-37:
+#: Module(compute_dtype="bfloat16").fit of the bench LM)
+BF16_LM_KERNELS = ("layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
+                   "bias_gelu_dx_bf16", "flash_attention_bf16")
+#: bfloat16 LM launches per training step at the bench's 8 layers: every
+#: kernel of LM_PER_STEP in its bfloat16 instance, and nothing else
+LM_BF16_PER_STEP = {
+    "embedding_bf16": 1, "layernorm_bf16": 2 * N_LAYER + 1,
+    "layernorm_bwd_dx_bf16": 2 * N_LAYER + 1,
+    "layernorm_bwd_dparams_bf16": 2 * N_LAYER + 1,
+    "bias_gelu_bf16": N_LAYER, "bias_gelu_dx_bf16": N_LAYER,
+    "flash_attention_bf16": N_LAYER, "softmax_bf16": 1,
+    "softmax_ce_bwd_bf16": 1}
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -394,19 +441,34 @@ def _timed(fn, reps=200, warm=20):
 
 
 def _device_ms(fn, reps=50):
-    """Device milliseconds per call: the CUDA kernel time the profiler
-    records over ``reps`` calls (host launch cost excluded), or None when
-    the profiler records no device activity."""
+    """Device milliseconds per call with the L2 cold: CUDA events around
+    each call alone, after 1 GiB is written (more than the 50 MB L2) so
+    that the call reads its inputs from device memory as a step does.
+    A spin kernel after the write keeps the card busy while the host
+    enqueues the call, so the events time its kernels and the gaps
+    between them, not its host work. ``_device_ms(lambda: None)`` reads
+    the events' own floor."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages())
-    return total_us / 1e3 / reps if total_us > 0 else None
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(2e9 * (3 * host_s + 2e-4))     # clock cycles, <= 2 GHz
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        torch.cuda._sleep(spin)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def _self_device_us(evt):
@@ -414,9 +476,12 @@ def _self_device_us(evt):
         getattr(evt, "self_cuda_time_total", 0)
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, peak=F32_FLOPS_PER_S):
+    """The least time for ``nbytes`` moved and ``flops`` done at the
+    peak rate of the inputs' type (float32 outside the tensor cores by
+    default)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -556,9 +621,13 @@ def phase_kernels(mx, ck):
                              mask=mask, live=live)))
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
+    calls.update(_lm_bf16_kernels(ck, rs, t, rec))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
     calls.update(_bn_kernels(mx, ck, rs, t, rec))
     calls.update(_bf16_kernels(mx, ck, rs, t, rec))
+    print("kernels: device_ms is CUDA events around each call with 1 GiB "
+          "written before it (inputs read from device memory); the events' "
+          f"floor (no call) {_device_ms(lambda: None):.6f} ms")
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
         err = r.get("ulps", r.get("rel_err", r["max_abs_err"]))
@@ -831,6 +900,139 @@ def _lm_kernels(ck, rs, t, rec):
             "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
 
 
+def _lm_bf16_kernels(ck, rs, t, rec):
+    """The LM-training path's four bfloat16 instances at the bfloat16 LM
+    path's shapes (LayerNorm backward over (8192, 512), GeLU' over (8192,
+    2048), causal flash attention over (8, 8, 1024, 64)) and edges: one
+    row, one column, C = 13, 65536, misaligned views (one value at a
+    time), T = 1, a ragged T, Dh 128, non-causal. Bounds at bfloat16
+    bytes and the bfloat16 peak (flash attention's operations at the
+    float32 CUDA-core rate it computes in printed beside).
+    Also the softmax head's bfloat16 pair at the LM head's (8192, 32000)
+    beside the float32 pair's device times. Fills ``rec``; returns the
+    timed calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    N, C = LM_BATCH * LM_SEQ, D
+
+    def tb(a):
+        return t(np.asarray(a, np.float32)).to(bf)
+
+    def skew(n, *shape):
+        """A contiguous bfloat16 view 2 bytes off its allocation."""
+        return tb(3 * rs.randn(1 + n) + 1)[1:].view(*shape)
+
+    def ln_case(n, c, x=None):
+        x = tb(3 * rs.randn(n, c) + 1) if x is None else x
+        g, b = tb(1 + 0.1 * rs.randn(c)), tb(0.1 * rs.randn(c))
+        ct = tb(rs.randn(n, c))
+        _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
+        return x, g, b, ct, mean, rstd
+    cases = [ln_case(N, C)] + [ln_case(*e) for e in (
+        (1, C), (64, 1), (5, 13), (2, 65536))] + [
+        ln_case(4, C, skew(4 * C, 4, C))]
+    ulp_dx = ulp_dp = err_dx = err_dp = 0.0
+    for x, g, _b, ct, m, r in cases:
+        got, want = ck.layernorm_bwd_dx(x, g, ct, m, r), \
+            ck.layernorm_bwd_dx_plain(x, g, ct, m, r)
+        ulp_dx = max(ulp_dx, _bf16_ulps(got, want, atol=2e-5))
+        err_dx = max(err_dx, _max_err(got, want))
+        for got, want in zip(ck.layernorm_bwd_dparams(x, ct, m, r),
+                             ck.layernorm_bwd_dparams_plain(x, ct, m, r)):
+            ulp_dp = max(ulp_dp, _bf16_ulps(got, want, atol=1e-4))
+            err_dp = max(err_dp, _max_err(got, want))
+    x, g, b, ct, m, r = cases[0]
+    _, lm_mean, lm_rstd = torch.ops.aten.native_layer_norm(x, (C,), g, b,
+                                                           1e-5)
+    lib = _timed(lambda: torch.ops.aten.native_layer_norm_backward(
+        ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True]))
+    rec["layernorm_bwd_dx_bf16"] = dict(
+        max_abs_err=err_dx, ulps=ulp_dx,
+        ms=_timed(lambda: ck.layernorm_bwd_dx(x, g, ct, m, r)),
+        plain_ms=_timed(lambda: ck.layernorm_bwd_dx_plain(x, g, ct, m, r)),
+        library_ms=lib,
+        bound=_bound_ms(3 * N * C * 2 + C * 2 + 2 * N * 4, 11 * N * C,
+                        BF16_FLOPS_PER_S))
+    rec["layernorm_bwd_dparams_bf16"] = dict(
+        max_abs_err=err_dp, ulps=ulp_dp,
+        ms=_timed(lambda: ck.layernorm_bwd_dparams(x, ct, m, r)),
+        plain_ms=_timed(lambda: ck.layernorm_bwd_dparams_plain(x, ct, m, r)),
+        library_ms=lib,
+        bound=_bound_ms(2 * N * C * 2 + 2 * N * 4 + 2 * C * 2, 4 * N * C,
+                        BF16_FLOPS_PER_S))
+    F4 = 4 * D
+    h, hb, hct = tb(3 * rs.randn(N, F4)), tb(rs.randn(F4)), tb(rs.randn(N, F4))
+    ulps = err = 0.0
+    for xx, bb, cc in ((h, hb, hct), (tb(rs.randn(3, 13)), tb(rs.randn(13)),
+                                      tb(rs.randn(3, 13))),
+                       (tb(rs.randn(1, 4)), tb(rs.randn(4)),
+                        tb(rs.randn(1, 4))),
+                       (skew(2 * 16, 2, 16), tb(rs.randn(16)),
+                        tb(rs.randn(2, 16)))):
+        got, want = ck.bias_gelu_dx(xx, bb, cc), \
+            ck.bias_gelu_dx_plain(xx, bb, cc)
+        ulps = max(ulps, _bf16_ulps(got, want, atol=2e-5))
+        err = max(err, _max_err(got, want))
+    rec["bias_gelu_dx_bf16"] = dict(
+        max_abs_err=err, ulps=ulps,
+        ms=_timed(lambda: ck.bias_gelu_dx(h, hb, hct)),
+        plain_ms=_timed(lambda: ck.bias_gelu_dx_plain(h, hb, hct)),
+        library_ms=None,     # no one PyTorch call takes GeLU' x ct
+        bound=_bound_ms(3 * N * F4 * 2 + F4 * 2, 12 * N * F4,
+                        BF16_FLOPS_PER_S))
+    Dh = D // N_HEAD
+    q, k, v = (tb(rs.randn(LM_BATCH, N_HEAD, LM_SEQ, Dh)) for _ in range(3))
+    got, want = ck.flash_attention(q, k, v, True), \
+        ck.flash_attention_plain(q, k, v, True)
+    ulps, err = _bf16_ulps(got, want, atol=2e-5), _max_err(got, want)
+    for shape, causal in (((2, 2, 1, Dh), True), ((1, 2, 1000, Dh), True),
+                          ((2, 2, 200, 128), True), ((2, 2, 256, Dh), False),
+                          ((1, 2, 300, 128), False)):
+        e = [tb(rs.randn(*shape)) for _ in range(3)]
+        got, want = ck.flash_attention(*e, causal), \
+            ck.flash_attention_plain(*e, causal)
+        ulps = max(ulps, _bf16_ulps(got, want, atol=2e-5))
+        err = max(err, _max_err(got, want))
+    pairs = LM_BATCH * N_HEAD * LM_SEQ * (LM_SEQ + 1) // 2
+    rec["flash_attention_bf16"] = dict(
+        max_abs_err=err, ulps=ulps,
+        ms=_timed(lambda: ck.flash_attention(q, k, v, True), reps=50),
+        plain_ms=_timed(lambda: ck.flash_attention_plain(q, k, v, True),
+                        reps=20, warm=3),
+        library_ms=_timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=50),
+        bound=_bound_ms(4 * q.numel() * 2, 4 * pairs * Dh, BF16_FLOPS_PER_S))
+    print(f"kernels: LM bf16 rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}),"
+          f" flash {tuple(q.shape)} causal; flash_attention_bf16's "
+          f"operations at the float32 CUDA-core rate it computes in would "
+          f"take {4 * pairs * Dh / F32_FLOPS_PER_S * 1e3:.6f} ms")
+    # the softmax head's pair at the LM head's (8192, 32000)
+    head = torch.randn(N, V, device=q.device,
+                       generator=torch.Generator(q.device).manual_seed(SEED))
+    lab = t(rs.randint(0, V, N).astype(np.float32))
+    for dtype, tag, peak in ((torch.float32, "", F32_FLOPS_PER_S),
+                             (bf, "_bf16", BF16_FLOPS_PER_S)):
+        z = (4 * head).to(dtype)
+        p = ck.softmax(z)
+        nb = N * V * z.element_size()
+        print(f"kernels: at the LM head's ({N}, {V}) {dtype}: softmax{tag} "
+              f"device_ms={_device_ms(lambda: ck.softmax(z), reps=10)} "
+              f"bound_ms={_bound_ms(2 * nb, 5 * N * V, peak)[0]:.6f}; "
+              f"softmax_ce_bwd{tag} device_ms="
+              f"{_device_ms(lambda: ck.softmax_ce_bwd(p, lab, 1.0), reps=10)}"
+              f" bound_ms={_bound_ms(2 * nb + N * 4, 3 * N * V, peak)[0]:.6f}")
+    del head, z, p
+    return {"layernorm_bwd_dx_bf16": lambda: ck.layernorm_bwd_dx(x, g, ct, m,
+                                                                 r),
+            "layernorm_bwd_dparams_bf16": lambda: ck.layernorm_bwd_dparams(
+                x, ct, m, r),
+            "bias_gelu_dx_bf16": lambda: ck.bias_gelu_dx(h, hb, hct),
+            "flash_attention_bf16": lambda: ck.flash_attention(q, k, v,
+                                                               True)}
+
+
 def _quant_weight(rs, t, n, k, storage):
     """(n, k) narrow weight on the card: random codes plus the extremes
     (+-127 / +-448), the e4m3 subnormals, 0 and -0."""
@@ -1063,7 +1265,7 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
         max_abs_err=err, ms=_timed(lambda: ck.embedding(ids, w, scale)),
         plain_ms=_timed(lambda: ck.embedding_plain(ids, w, scale)),
         library_ms=None,    # no single PyTorch call gathers AND scales
-        bound=_bound_ms(n * 4 + 2 * n * D * 2, n * D))
+        bound=_bound_ms(n * 4 + 2 * n * D * 2, n * D, BF16_FLOPS_PER_S))
     x, g, b = (f32[k].to(bf) for k in ("x", "g", "b"))
     ulps = abs_err = stat_err = 0.0
     for xx, gg, bb in ((x, g, b),
@@ -1086,7 +1288,7 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
         plain_ms=_timed(lambda: ck.layernorm_plain(x, g, b, 1e-5)),
         library_ms=_timed(lambda: F.layer_norm(x, (D,), g, b, 1e-5)),
         bound=_bound_ms(2 * x.numel() * 2 + 2 * D * 2 + 2 * 8 * 4,
-                        8 * x.numel()))
+                        8 * x.numel(), BF16_FLOPS_PER_S))
     h, hb = f32["h"].to(bf), f32["hb"].to(bf)
     ulps = abs_err = 0.0
     for xx, bb in ((h, hb), (tb(3 * rs.randn(3, 13)), tb(rs.randn(13))),
@@ -1100,7 +1302,8 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
         ms=_timed(lambda: ck.bias_gelu(h, hb)),
         plain_ms=_timed(lambda: ck.bias_gelu_plain(h, hb)),
         library_ms=None,    # bias add + GeLU is two PyTorch calls
-        bound=_bound_ms(2 * h.numel() * 2 + hb.numel() * 2, 8 * h.numel()))
+        bound=_bound_ms(2 * h.numel() * 2 + hb.numel() * 2, 8 * h.numel(),
+                        BF16_FLOPS_PER_S))
     kc, vc, q1 = (f32[k].to(bf) for k in ("kc", "vc", "q1"))
     pos1 = f32["pos1"]
     B, H, Dh = kc.shape[0], kc.shape[1], kc.shape[3]
@@ -1118,7 +1321,7 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
         library_ms=_timed(lambda: F.scaled_dot_product_attention(
             q1, kc, vc, attn_mask=f32["mask"])),
         bound=_bound_ms(q1.numel() * (2 + 4) + B * 4 + live * H * Dh * 2 * 2,
-                        live * H * Dh * 4))
+                        live * H * Dh * 4, BF16_FLOPS_PER_S))
     return {"embedding_bf16": lambda: ck.embedding(ids, w, scale),
             "layernorm_bf16": lambda: ck.layernorm(x, g, b, 1e-5),
             "bias_gelu_bf16": lambda: ck.bias_gelu(h, hb),
@@ -1161,7 +1364,7 @@ def _bf16_kernels(mx, ck, rs, t, rec):
         ms=_timed(lambda: ck.softmax(x)),
         plain_ms=_timed(lambda: ck.softmax_plain(x)),
         library_ms=_timed(lambda: torch.softmax(x, -1)),
-        bound=_bound_ms(2 * N * C * 2, 5 * N * C))
+        bound=_bound_ms(2 * N * C * 2, 5 * N * C, BF16_FLOPS_PER_S))
     p = ck.softmax_plain(x)
     lab = t(np.concatenate([rs.randint(0, C, N - 5),
                             [257, 999, C, -1, C - 1]]).astype(np.float32))
@@ -1179,7 +1382,7 @@ def _bf16_kernels(mx, ck, rs, t, rec):
         max_abs_err=err, ms=_timed(lambda: ck.softmax_ce_bwd(p, lab, 1.0)),
         plain_ms=_timed(lambda: ck.softmax_ce_bwd_plain(p, lab, 1.0)),
         library_ms=None,     # no one PyTorch call emits this gradient
-        bound=_bound_ms(2 * N * C * 2 + N * 4, 3 * N * C))
+        bound=_bound_ms(2 * N * C * 2 + N * 4, 3 * N * C, BF16_FLOPS_PER_S))
     shapes = _cbr_shapes(mx, TRAIN_BATCH)
     xs = [tb((2 * rs.randn(*sh) + 0.5).astype(np.float32)) for sh in shapes]
     ss = [(t((1 + 0.1 * rs.randn(sh[1])).astype(np.float32)),
@@ -1217,7 +1420,7 @@ def _bf16_kernels(mx, ck, rs, t, rec):
         library_ms=_timed(lambda: [torch.var_mean(xx, dim=(0, 2, 3),
                                                   unbiased=False)
                                    for xx in xs], reps=20, warm=2),
-        bound=_bound_ms(2 * elems + 8 * chans, 3 * elems))
+        bound=_bound_ms(2 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
     rec["bn_apply_relu_bf16"] = dict(
         max_abs_err=abs_a,
         ms=_timed(lambda: [ck.bn_apply_relu(xx, *q)
@@ -1225,7 +1428,7 @@ def _bf16_kernels(mx, ck, rs, t, rec):
         plain_ms=_timed(lambda: [ck.bn_apply_relu_plain(xx, *q)
                                  for xx, q in zip(xs, ss)], reps=20, warm=2),
         library_ms=None,    # no one PyTorch call scales, shifts and clamps
-        bound=_bound_ms(4 * elems + 8 * chans, 3 * elems))
+        bound=_bound_ms(4 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
     return {"softmax_bf16": lambda: ck.softmax(x),
             "softmax_ce_bwd_bf16": lambda: ck.softmax_ce_bwd(p, lab, 1.0),
             "bn_stats_bf16": lambda: [ck.bn_stats(xx) for xx in xs],
@@ -1603,12 +1806,15 @@ def phase_train(mx, ck):
     return counts, mod, it
 
 
-def _fit_phase(mx, ck, mod, it, label, items, unit, watch, **fit_kw):
+def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
+               **fit_kw):
     """Fit the bound, initialized ``mod`` over ``it`` on the card for one
     epoch with telemetry on: prints items/s and p50/p99 step ms without
     the first batch, peak device memory, the MFU readings, launches per
     step and the train metric; requires a finite loss and the ``watch``
-    parameters moved. Returns (launches of the fit, launches per step)."""
+    parameters moved. ``into``, a dict, takes the rate, the p50 / p99
+    step ms and the peak GiB. Returns (launches of the fit, launches per
+    step)."""
     import numpy as np
     import torch
     args, _ = mod.get_params()
@@ -1626,12 +1832,16 @@ def _fit_phase(mx, ck, mod, it, label, items, unit, watch, **fit_kw):
     counts = ck.launch_counts()
     steps = np.diff(stamps) * 1e3          # the first batch excluded
     batches = (np.subtract(stamps, fed.stamps) * 1e3)[1:]
+    got = dict(rate=items * len(steps) / (steps.sum() / 1e3),
+               p50=float(np.percentile(steps, 50)),
+               p99=float(np.percentile(steps, 99)),
+               peak=torch.cuda.max_memory_allocated() / 2**30)
+    if into is not None:
+        into.update(got)
     print(f"{label}: {len(stamps)} steps in {time.perf_counter() - t0:.2f} "
           f"s (first {1e3 * (stamps[0] - t0):.1f} ms); without the first: "
-          f"{items * len(steps) / (steps.sum() / 1e3):.1f} {unit}/s, step "
-          f"p50 {np.percentile(steps, 50):.2f} ms p99 "
-          f"{np.percentile(steps, 99):.2f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{got['rate']:.1f} {unit}/s, step p50 {got['p50']:.2f} ms p99 "
+          f"{got['p99']:.2f} ms; peak device memory {got['peak']:.2f} GiB")
     _mfu_readings(mx, mod, it, batches, rates, label)
     per_step = {k: v / len(stamps) for k, v in counts.items()}
     print(f"{label}: launches per step {per_step}")
@@ -1747,8 +1957,8 @@ def phase_adam(mx, ck):
 #: reduction kernels, and copies
 _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
                  "adam_f32", "ln_fwd", "bias_gelu", "emb_gather",
-                 "decode_attn", "ln_bwd_dx_f32", "ln_dparams_",
-                 "flash_fwd_f32", "bn_stats_", "bn_apply_relu_")
+                 "decode_attn", "ln_bwd_dx", "ln_dparams_", "flash_fwd",
+                 "bn_stats_", "bn_apply_relu_")
 
 
 def _kernel_group(key):
@@ -1854,10 +2064,11 @@ def phase_lm_train(mx, ck):
     return counts, mod, it
 
 
-def _lm_step(mx, sym, params, ctx, batch):
+def _lm_step(mx, sym, params, ctx, batch, compute_dtype=None):
     """One forward/backward/update of the LM from ``params`` on ``ctx``:
-    (probabilities, {name: gradient}, {name: updated weight}), numpy."""
-    mod = mx.mod.Module(sym, context=ctx)
+    (probabilities, {name: gradient}, {name: updated weight}), numpy
+    float32."""
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
     mod.bind(batch.provide_data, batch.provide_label)
     mod.init_params(arg_params=mx.convert.params_from_numpy(params, ctx))
     mod.init_optimizer(optimizer="sgd", optimizer_params=LM_SGD)
@@ -1869,11 +2080,11 @@ def _lm_step(mx, sym, params, ctx, batch):
             {k: v.asnumpy() for k, v in mod.get_params()[0].items()})
 
 
-def phase_lm_parity(mx):
-    """One LM step at full width, batch 2, T=128, card vs CPU, TF32 off."""
+def _lm_parity_start(mx):
+    """The parity phases' LM symbol (T=128), numpy-seeded parameters and
+    one batch of batch 2."""
     import numpy as np
     from mxnet_tpu_torch.models import transformer as tfm
-    print(_tf32(False) + " (LM parity phase)")
     sym = _lm_symbol(LM_PARITY_SEQ)
     shapes, _, _ = sym.infer_shape(
         data=(LM_PARITY_BATCH, LM_PARITY_SEQ),
@@ -1885,6 +2096,14 @@ def phase_lm_parity(mx):
               if n not in ("data", "softmax_label")}
     batch = next(iter(tfm.SyntheticLMIter(V, LM_PARITY_BATCH, LM_PARITY_SEQ,
                                           1, seed=SEED + 5)))
+    return sym, params, batch
+
+
+def phase_lm_parity(mx):
+    """One LM step at full width, batch 2, T=128, card vs CPU, TF32 off."""
+    import numpy as np
+    print(_tf32(False) + " (LM parity phase)")
+    sym, params, batch = _lm_parity_start(mx)
     t0 = time.perf_counter()
     cpu = _lm_step(mx, sym, params, mx.cpu(), batch)
     t_cpu = time.perf_counter() - t0
@@ -3174,7 +3393,7 @@ def _decode_group(key):
         return "copies"
     if "copy_kernel" in key:
         return "copy kernels (the casts)"
-    if "at::native" in key:
+    if "at::native" in key or "softmax_warp_" in key:
         return "PyTorch elementwise/reduction"
     return "cuBLAS"
 
@@ -3882,6 +4101,161 @@ def phase_autograd(mx):
         raise AssertionError("autograd disagrees with the Executor")
 
 
+# --------------------------------------------------------------------------
+# phases 35-37: transformer-LM training in bfloat16 (compute_dtype)
+# --------------------------------------------------------------------------
+def phase_lm_bf16_train(mx, ck):
+    """The bench-width LM through Module(compute_dtype=...).fit on gpu(0)
+    in float32 and in bfloat16, in turns (float32, bfloat16, bfloat16,
+    float32; LM_STEPS batches each, phase 9's data, Xavier seed and SGD,
+    telemetry on): tokens/s, p50/p99 step ms, peak memory and the MFU
+    readings of each; every bfloat16 step launches exactly
+    LM_BF16_PER_STEP and no float32 instance; one cast per parameter per
+    step (the tied embedding table once); the bound cells float32.
+    Returns (the bfloat16 fits' launch counts, {dtype: (module,
+    iterator)} of the last fit of each)."""
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(True) + " (PyTorch's default, for the LM bf16 training "
+          "phase)")
+    stats = {"float32": [], "bfloat16": []}
+    counts, mods = {}, {}
+    for turn, dtype in enumerate(("float32", "bfloat16", "bfloat16",
+                                  "float32")):
+        mods.pop(dtype, None)
+        torch.cuda.empty_cache()
+        it = tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, LM_STEPS, seed=SEED)
+        mod = mx.mod.Module(_lm_symbol(LM_SEQ), context=mx.gpu(0),
+                            compute_dtype=None if dtype == "float32"
+                            else dtype)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(mx.initializer.Xavier(
+            rng=torch.Generator().manual_seed(SEED)))
+        label = f"lm {dtype} train (turn {turn + 1})"
+        got = {}
+        mx.executor.reset_cast_counts()
+        fit_counts, per_step = _fit_phase(
+            mx, ck, mod, it, label, LM_BATCH * LM_SEQ, "tokens",
+            ("lm_tok_embed_weight", "lm_l0_qkv_weight", "lm_l0_ln1_beta",
+             f"lm_l{N_LAYER - 1}_ffn2_weight", "lm_ln_f_gamma"), into=got,
+            optimizer="sgd", optimizer_params=LM_SGD)
+        stats[dtype].append(got)
+        casts = mx.executor.cast_counts()["casts"] / LM_STEPS
+        n_params = len(mod.get_params()[0])
+        if dtype == "bfloat16":
+            want = {k: LM_BF16_PER_STEP.get(k, 0) for k in per_step}
+            print(f"{label}: {casts:.1f} casts per step for {n_params} "
+                  "parameters (the tied embedding table read twice, cast "
+                  "once)")
+            if per_step != want:
+                raise AssertionError(f"{label}: launches per step "
+                                     f"{per_step}, want {want}")
+            if casts != n_params:
+                raise AssertionError(f"{label}: {casts} casts per step, "
+                                     f"want {n_params}")
+            for k, v in fit_counts.items():
+                counts[k] = counts.get(k, 0) + v
+        elif per_step != {k: LM_PER_STEP.get(k, 0) for k in per_step} \
+                or casts:
+            raise AssertionError(f"{label}: launches per step {per_step}, "
+                                 f"casts {casts}")
+        _bf16_cells(label, mod)
+        mods[dtype] = (mod, it)
+    summary = {k: [f"{g['rate']:.1f} tokens/s, p50 {g['p50']:.2f} ms, p99 "
+                   f"{g['p99']:.2f} ms, peak {g['peak']:.2f} GiB"
+                   for g in v] for k, v in stats.items()}
+    ratio = (sum(g["rate"] for g in stats["bfloat16"]) /
+             sum(g["rate"] for g in stats["float32"]))
+    print(f"lm bf16 train: in turns (float32, bfloat16, bfloat16, float32):"
+          f" {summary}; bfloat16 / float32 tokens/s = {ratio:.3f}")
+    return counts, mods
+
+
+def phase_lm_bf16_parity(mx):
+    """One bfloat16 SGD step of the LM at full width, batch 2, T=128, on
+    the card and on the CPU from phase 10's parameters and batch, TF32
+    off, beside the CPU's float32 step: the probabilities, every gradient
+    and every weight's update (updated weight less the start) of the card
+    within BF16_SPREAD times the CPU's own bfloat16-vs-float32 distance
+    of that array, plus one bfloat16 ulp of the array's largest magnitude
+    (one rounding that lands the other way on one element near the
+    largest, which a bfloat16 sum of near-cancelling terms can show where
+    bfloat16 and float32 happen to agree). The losses are printed."""
+    import numpy as np
+    print(_tf32(False) + " (LM bf16 parity phase)")
+    sym, params, batch = _lm_parity_start(mx)
+    t0 = time.perf_counter()
+    cpu = _lm_step(mx, sym, params, mx.cpu(), batch, "bfloat16")
+    cpu32 = _lm_step(mx, sym, params, mx.cpu(), batch)
+    t_cpu = time.perf_counter() - t0
+    card = _lm_step(mx, sym, params, mx.gpu(0), batch, "bfloat16")
+    label = batch.label[0].asnumpy().astype(np.int64)
+    rows = np.arange(len(label))
+    loss = [float(-np.log(r[0][rows, label] + 1e-8).mean())
+            for r in (card, cpu, cpu32)]
+
+    def ratio(a, b, own):
+        top = float(np.abs(b).max())
+        ulp = 2.0 ** (np.floor(np.log2(max(top, 2.0 ** -126))) - 7)
+        return float(np.abs(a - b).max()) / (BF16_SPREAD * own + ulp)
+    for r in (card, cpu, cpu32):                # updates, not weights
+        r[2].update({k: w - params[k] for k, w in r[2].items()})
+    worst = {"prob": (ratio(card[0], cpu[0],
+                            float(np.abs(cpu[0] - cpu32[0]).max())), "prob")}
+    for i, what in ((1, "gradient"), (2, "update")):
+        worst[what] = max(
+            (ratio(card[i][k], cpu[i][k],
+                   float(np.abs(cpu[i][k] - cpu32[i][k]).max())), k)
+            for k in cpu[i])
+    print(f"lm bf16 parity: one step at batch {LM_PARITY_BATCH}, T="
+          f"{LM_PARITY_SEQ} (two CPU steps {t_cpu:.1f} s): loss card "
+          f"{loss[0]:.6f} cpu bf16 {loss[1]:.6f} cpu float32 {loss[2]:.6f}; "
+          f"worst of its limit (BF16_SPREAD {BF16_SPREAD} x the CPU's "
+          f"bfloat16-vs-float32 distance + one bf16 ulp of the array's max):"
+          f" {worst}; {len(cpu[1])} gradients")
+    if not (all(r <= 1.0 for r, _ in worst.values()) and
+            np.isfinite(card[0]).all() and np.isfinite(loss[0])):
+        raise AssertionError("bf16 card and CPU LM steps disagree beyond "
+                             "bfloat16's own spread")
+
+
+def phase_lm_bf16_profile(mx, mods, steps=2):
+    """LM training steps of phase 35's float32 and bfloat16 modules under
+    the profiler in turns (float32, bfloat16, bfloat16, float32;
+    ``steps`` each): wall, device busy, launches, device time by group
+    (the port's kernels / cuBLAS / PyTorch elementwise / the casts /
+    copies), the casts per step, and the rate the cuBLAS group reaches
+    over the step's matmul flops; then the bfloat16 step's kernels that
+    take the most device time (phase 11's listing)."""
+    print(_tf32(True) + " (LM bf16 profile phase)")
+    batches = {}
+    for dtype, (mod, it) in mods.items():
+        it.reset()
+        batches[dtype] = next(iter(it))
+    runs = {"float32": [], "bfloat16": []}
+    casts = {}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        mod = mods[dtype][0]
+
+        def step(m=mod, b=batches[dtype]):
+            m.forward_backward(b)
+            m.update()
+        mx.executor.reset_cast_counts()
+        runs[dtype].append(_profiled(step, steps, group=_decode_group))
+        casts[dtype] = mx.executor.cast_counts()["casts"] / (steps + 1)
+    _print_profiles("lm bf16 profile", runs, steps)
+    flops = _lm_gemm_flops()
+    for dtype, rr in runs.items():
+        lib = sum(r[3].get("cuBLAS", (0.0, 0))[0] for r in rr) / len(rr)
+        rate = flops / (lib / 1e3)
+        print(f"lm bf16 profile: {dtype}: {casts[dtype]:.1f} casts per step;"
+              f" the matmuls' {flops / 1e12:.3f} TFLOP per step over the "
+              f"cuBLAS group's {lib:.3f} ms = {rate / 1e12:.1f} TFLOP/s "
+              f"({100 * rate / BF16_FLOPS_PER_S:.1f}% of the bf16 peak)")
+    phase_train_profile(*mods["bfloat16"], steps=steps,
+                        label="lm bf16 profile, kernels")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3950,6 +4324,15 @@ def main():
     user_rec = {"rtc_axpb": user_rec, **relu_rec}
     phase_custom_op(mx, args50, auxs50)
     phase_autograd(mx)
+    del args50, auxs50
+    torch.cuda.empty_cache()
+    t_lm = time.perf_counter()
+    bf16_lm_counts, lm_mods = phase_lm_bf16_train(mx, ck)
+    phase_lm_bf16_parity(mx)
+    phase_lm_bf16_profile(mx, lm_mods)
+    del lm_mods
+    print(f"chip_smoke: phases 35-37 (LM training in bfloat16) took "
+          f"{time.perf_counter() - t_lm:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
@@ -3962,6 +4345,7 @@ def main():
         launches[name] = sum(c[name] for c in bf16_counts.values()) + \
             bf16_serve_counts.get(name, 0)
     launches.update(bf16_decode_counts)
+    launches.update({k: bf16_lm_counts[k] for k in BF16_LM_KERNELS})
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

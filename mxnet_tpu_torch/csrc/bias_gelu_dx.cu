@@ -6,21 +6,30 @@
 // and the output cotangent ct (N, C):
 //   z = x + bias,  phi = exp(-z^2 / 2) / sqrt(2 pi)
 //   dx = ct * (0.5 * (1 + erf(z / sqrt(2))) + z * phi)
-// with the TPU kernel's constants. The bias gradient, the column sum of
-// dx, stays a plain reduction beside the kernel, as the JAX package
-// leaves it to XLA.
+// with the TPU kernel's constants. Two instances: float32, and bfloat16
+// (the mixed-precision path: x, bias, ct and dx bfloat16), which widens
+// every value exactly, computes in float32 as the float32 instance does
+// and rounds dx to nearest even once. The bias gradient, the column sum
+// of dx, stays a plain float32-accumulated reduction beside the kernel,
+// as the JAX package leaves it to XLA.
 //
 // Bound: bytes. x and ct are read and dx written once (3 * N * C * 4
-// bytes); erff and expf cost a few dozen instructions per element, still
-// below the card's operations-per-byte line. Design: one elementwise pass,
-// a grid-stride loop with 16-byte (float4) accesses when C % 4 == 0 and
-// every pointer is 16-byte aligned (a float4 then never straddles two
-// rows), scalar otherwise. erff and expf are the full-precision library
-// functions, not the approximate intrinsics.
+// bytes in float32, half that in bfloat16); erff and expf cost a few
+// dozen instructions per element, still below the card's operations-per-
+// byte line. Design: one elementwise pass, a grid-stride loop with 16-byte
+// accesses (4 floats or 8 bfloat16 values, vec_io.cuh) when C is a
+// multiple of that unit and every pointer is 16-byte aligned (a unit then
+// never straddles two rows), one value at a time otherwise. erff and expf
+// are the full-precision library functions, not the approximate
+// intrinsics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace {
+
+using mxio::Io;
 
 constexpr int kThreads = 256;
 constexpr float kInvSqrt2 = 0.7071067811865476f;
@@ -31,33 +40,45 @@ __device__ __forceinline__ float dgelu(float z) {
   return 0.5f * (1.0f + erff(z * kInvSqrt2)) + z * phi;
 }
 
-__global__ void bias_gelu_dx_vec4(const float4* __restrict__ x,
-                                  const float4* __restrict__ b,
-                                  const float4* __restrict__ ct,
-                                  float4* __restrict__ dx, int64_t n4,
-                                  int c4) {
+// Grid-stride over units of W values; `cu` units per row of bias.
+template <typename T, int W>
+__global__ void bias_gelu_dx(const T* __restrict__ x, const T* __restrict__ b,
+                             const T* __restrict__ ct, T* __restrict__ dx,
+                             int64_t units, int cu) {
+  float f[W], bb[W], g[W];
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
-       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float4 v = x[i], bb = b[i % c4], g = ct[i];
-    float4 o;
-    o.x = g.x * dgelu(v.x + bb.x);
-    o.y = g.y * dgelu(v.y + bb.y);
-    o.z = g.z * dgelu(v.z + bb.z);
-    o.w = g.w * dgelu(v.w + bb.w);
-    dx[i] = o;
+       i < units; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    Io<T, W>::load(x, i, f);
+    Io<T, W>::load(b, i % cu, bb);
+    Io<T, W>::load(ct, i, g);
+#pragma unroll
+    for (int k = 0; k < W; ++k) f[k] = g[k] * dgelu(f[k] + bb[k]);
+    Io<T, W>::store(dx, i, f);
   }
 }
 
-__global__ void bias_gelu_dx_scalar(const float* __restrict__ x,
-                                    const float* __restrict__ b,
-                                    const float* __restrict__ ct,
-                                    float* __restrict__ dx, int64_t n,
-                                    int c) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    dx[i] = ct[i] * dgelu(x[i] + b[i % c]);
+template <typename T>
+void launch(const void* x, const void* bias, const void* ct, void* dx,
+            int n, int c, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = c % kVec == 0 && mxio::aligned(x, 16) &&
+                   mxio::aligned(bias, 16) && mxio::aligned(ct, 16) &&
+                   mxio::aligned(dx, 16);
+  const int w = vec ? kVec : 1;
+  const int64_t units = static_cast<int64_t>(n) * c / w;
+  int64_t blocks = (units + kThreads - 1) / kThreads;
+  if (blocks > 65535) blocks = 65535;
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(bias);
+  const T* ctt = static_cast<const T*>(ct);
+  T* dt = static_cast<T*>(dx);
+  if (vec)
+    bias_gelu_dx<T, kVec><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+        xt, bt, ctt, dt, units, c / kVec);
+  else
+    bias_gelu_dx<T, 1><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+        xt, bt, ctt, dt, units, c);
 }
 
 }  // namespace
@@ -67,27 +88,17 @@ __global__ void bias_gelu_dx_scalar(const float* __restrict__ x,
 extern "C" int mx_bias_gelu_dx_f32(const void* x, const void* bias,
                                    const void* ct, void* dx, int n, int c,
                                    void* stream) {
-  const int64_t total = static_cast<int64_t>(n) * c;
-  if (total > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = (c & 3) == 0 &&
-                     ((reinterpret_cast<uintptr_t>(x) |
-                       reinterpret_cast<uintptr_t>(bias) |
-                       reinterpret_cast<uintptr_t>(ct) |
-                       reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
-    const int64_t work = vec ? total / 4 : total;
-    int64_t blocks = (work + kThreads - 1) / kThreads;
-    if (blocks > 65535) blocks = 65535;
-    if (vec) {
-      bias_gelu_dx_vec4<<<static_cast<int>(blocks), kThreads, 0, s>>>(
-          static_cast<const float4*>(x), static_cast<const float4*>(bias),
-          static_cast<const float4*>(ct), static_cast<float4*>(dx), work,
-          c / 4);
-    } else {
-      bias_gelu_dx_scalar<<<static_cast<int>(blocks), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(bias),
-          static_cast<const float*>(ct), static_cast<float*>(dx), work, c);
-    }
-  }
+  if (static_cast<int64_t>(n) * c > 0)
+    launch<float>(x, bias, ct, dx, n, c, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over bfloat16 x, bias, ct and dx.
+extern "C" int mx_bias_gelu_dx_bf16(const void* x, const void* bias,
+                                    const void* ct, void* dx, int n, int c,
+                                    void* stream) {
+  if (static_cast<int64_t>(n) * c > 0)
+    launch<__nv_bfloat16>(x, bias, ct, dx, n, c,
+                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

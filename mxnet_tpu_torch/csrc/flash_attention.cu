@@ -11,18 +11,27 @@
 //   p = exp(s - m_safe) where s is finite else 0,
 //   corr = exp(m - m_safe) where m is finite else 0,
 //   l = l * corr + sum_k p,  acc = acc * corr + p . v
-// and out = acc / max(l, 1e-30). q, k, v and out are (B*H, T, Dh) float32.
+// and out = acc / max(l, 1e-30). q, k, v and out are (B*H, T, Dh).
+// Two instances: float32, and bfloat16 (the mixed-precision path: q, k,
+// v and out bfloat16), which widens each Q, K and V tile exactly as it
+// stages it into the float32 shared tiles (16 bytes, 8 values, a load),
+// scales q in float32 before the product and computes every product and
+// the online softmax in float32 as the float32 instance does, and rounds
+// the output to nearest even once. It uses no bfloat16 tensor cores:
+// they would round q * scale and p to bfloat16, which the TPU kernel
+// (float32 operands at Precision.HIGHEST) does not; shared memory is the
+// float32 instance's (117,760 bytes at Dh = 128).
 //
 // Bound: operations. The two products take 4 * T * T * Dh flops per
 // (b, h) row (half of that under the causal mask), against 4 * T * Dh * 4
-// bytes moved; at T = 1024, Dh = 64 that is ~250 flops per byte, far above
-// the float32 line of ~20. Every product is a float32 FMA on the CUDA
-// cores: no tensor cores and so no TF32, which the reference's
-// Precision.HIGHEST rules out. Design: one block of 256 threads per (b*h,
-// 64-query tile); the block LOOPS over 64-key tiles (the TPU kernel's
-// sequential grid axis), staging the scaled Q tile once and each K and V
-// tile in shared memory, keeping m, l and the output accumulator in
-// registers. Each thread owns 4 query rows (the same rows in S and in the
+// bytes moved (half that in bfloat16); at T = 1024, Dh = 64 that is ~250
+// flops per byte (~500 in bfloat16), far above the float32 line of ~20.
+// Every product is a float32 FMA on the CUDA cores: no tensor cores and
+// so no TF32, which the reference's Precision.HIGHEST rules out. Design:
+// one block of 256 threads per (b*h, 64-query tile); the block LOOPS
+// over 64-key tiles (the TPU kernel's sequential grid axis), staging the
+// scaled Q tile once and each K and V tile in shared memory, keeping m, l
+// and the output accumulator in registers. Each thread owns 4 query rows (the same rows in S and in the
 // accumulator, so corr applies in place) and 4 keys of S, taken 16 apart
 // so the float4 reads of K rows (padded by 4 floats) hit distinct banks;
 // a row's max and sum reduce over the 16 lanes that share it. P goes
@@ -30,7 +39,8 @@
 // tiles wholly above the diagonal are not visited, and the query tiles
 // with the most keys are scheduled first. Any T is taken: the last query
 // and key tiles are masked in the kernel (keys past T get -inf scores,
-// queries past T are not written). Dh is a template parameter, 64 or 128.
+// queries past T are not written). Dh is a template parameter, 64 or
+// 128, and so is the element type.
 // A later partial mode (ring attention's unnormalized acc, m, l) emits
 // the registers this kernel holds at the end of its key loop instead of
 // acc / l, with the shards' sequence offsets added to the causal test.
@@ -38,7 +48,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace {
+
+using mxio::Io;
 
 constexpr int kThreads = 256;
 constexpr int kBq = 64;  // query rows per block
@@ -61,14 +75,42 @@ __device__ __forceinline__ float sum16(float v) {
   return v;
 }
 
-template <int DH>
+// Stage kBk rows of one (b, h) row's (T, DH) operand, from row r0 on, into
+// a float32 shared tile with leading dimension ld, times `scale` (in
+// float32, after the exact widening), zeros past T: units of W = 16 /
+// sizeof(E) values, one 16-byte load each, stored as W / 4 float4s.
+template <typename E, int DH>
+__device__ __forceinline__ void stage(const E* __restrict__ src, int r0,
+                                      int T_, float scale, float* dst,
+                                      int ld) {
+  constexpr int kW = 16 / sizeof(E);
+  constexpr int kUnits = DH / kW;  // 16-byte units per row
+  for (int e = threadIdx.x; e < kBk * kUnits; e += kThreads) {
+    const int r = e / kUnits, u = e % kUnits;
+    float f[kW];
+    if (r0 + r < T_) {
+      Io<E, kW>::load(src, static_cast<int64_t>(r0 + r) * kUnits + u, f);
+#pragma unroll
+      for (int i = 0; i < kW; ++i) f[i] *= scale;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i) f[i] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kW; i += 4)
+      *reinterpret_cast<float4*>(dst + r * ld + u * kW + i) =
+          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+  }
+}
+
+template <typename E, int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int T,
-              int causal, float scale, int n_qt) {
+flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
+          const E* __restrict__ v, E* __restrict__ out, int T, int causal,
+          float scale, int n_qt) {
+  static_assert(kBq == kBk, "stage() walks kBk rows for Q tiles too");
   constexpr int kLd = DH + 4;    // padded row of the Q and K tiles
   constexpr int kNv = DH / 64;   // float4 groups of the accumulator
-  constexpr int kVec = DH / 4;   // float4 per row
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBq][kLd], scaled
   float* ks = qs + kBq * kLd;                   // [kBk][kLd]
@@ -81,22 +123,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBq;
   const int64_t base = static_cast<int64_t>(bh) * T * DH;
-  const float4* q4 = reinterpret_cast<const float4*>(q + base);
-  const float4* k4 = reinterpret_cast<const float4*>(k + base);
-  const float4* v4 = reinterpret_cast<const float4*>(v + base);
+  const E* qb = q + base;
+  const E* kb = k + base;
+  const E* vb = v + base;
 
-  for (int e = t; e < kBq * kVec; e += kThreads) {
-    const int r = e / kVec, d = (e % kVec) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (q0 + r < T) {
-      x = q4[static_cast<int64_t>(q0 + r) * kVec + d / 4];
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(qs + r * kLd + d) = x;
-  }
+  stage<E, DH>(qb, q0, T, scale, qs, kLd);
 
   float m[4], l[4], acc[4][kNv * 4];
 #pragma unroll
@@ -110,17 +141,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int k_end = causal ? min(T, q0 + kBq) : T;
   for (int k0 = 0; k0 < k_end; k0 += kBk) {
     __syncthreads();  // the previous tile is consumed (and qs is ready)
-    for (int e = t; e < kBk * kVec; e += kThreads) {
-      const int r = e / kVec, d = (e % kVec) * 4;
-      float4 kv = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vv = kv;
-      if (k0 + r < T) {
-        const int64_t i = static_cast<int64_t>(k0 + r) * kVec + d / 4;
-        kv = k4[i];
-        vv = v4[i];
-      }
-      *reinterpret_cast<float4*>(ks + r * kLd + d) = kv;
-      *reinterpret_cast<float4*>(vs + r * DH + d) = vv;
-    }
+    stage<E, DH>(kb, k0, T, 1.0f, ks, kLd);
+    stage<E, DH>(vb, k0, T, 1.0f, vs, DH);
     __syncthreads();
 
     // S = (q * scale) . k for 4 rows x 4 keys
@@ -209,26 +231,41 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + ty * 4 + j;
     if (qp >= T) continue;
     const float lj = fmaxf(l[j], 1e-30f);
-    float* orow = out + base + static_cast<int64_t>(qp) * DH;
+    E* orow = out + base + static_cast<int64_t>(qp) * DH;
 #pragma unroll
-    for (int g = 0; g < kNv; ++g)
-      *reinterpret_cast<float4*>(orow + g * 64 + tx * 4) =
-          make_float4(acc[j][g * 4 + 0] / lj, acc[j][g * 4 + 1] / lj,
-                      acc[j][g * 4 + 2] / lj, acc[j][g * 4 + 3] / lj);
+    for (int g = 0; g < kNv; ++g) {
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = acc[j][g * 4 + e] / lj;
+      Io<E, 4>::store(orow + g * 64, tx, o);  // 4 values at tx * 4
+    }
   }
 }
 
-template <int DH>
-int launch(const float* q, const float* k, const float* v, float* out,
-           int bh, int T, int causal, float scale, cudaStream_t st) {
+template <typename E, int DH>
+int launch(const void* q, const void* k, const void* v, void* out, int bh,
+           int T_, int causal, float scale, cudaStream_t st) {
   constexpr int bytes = smem_floats<DH>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd<E, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (T + kBq - 1) / kBq;
-  flash_fwd_f32<DH><<<dim3(n_qt, bh), kThreads, bytes, st>>>(
-      q, k, v, out, T, causal, scale, n_qt);
+  const int n_qt = (T_ + kBq - 1) / kBq;
+  flash_fwd<E, DH><<<dim3(n_qt, bh), kThreads, bytes, st>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(out), T_, causal, scale,
+      n_qt);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
+             int T_, int dh, int causal, float scale, void* stream) {
+  if (bh == 0 || T_ == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh == 64) return launch<E, 64>(q, k, v, out, bh, T_, causal, scale, st);
+  if (dh == 128)
+    return launch<E, 128>(q, k, v, out, bh, T_, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -240,13 +277,14 @@ extern "C" int mx_flash_attention_f32(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int T, int dh, int causal, float scale,
                                       void* stream) {
-  if (bh == 0 || T == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(out);
-  if (dh == 64) return launch<64>(qf, kf, vf, of, bh, T, causal, scale, st);
-  if (dh == 128) return launch<128>(qf, kf, vf, of, bh, T, causal, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<float>(q, k, v, out, bh, T, dh, causal, scale, stream);
+}
+
+// The same over bfloat16 q, k, v and out.
+extern "C" int mx_flash_attention_bf16(const void* q, const void* k,
+                                       const void* v, void* out, int bh,
+                                       int T, int dh, int causal,
+                                       float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, out, bh, T, dh, causal, scale,
+                                 stream);
 }

@@ -30,16 +30,19 @@ entry point per cache storage type (float32, bfloat16, float8_e4m3fn,
 float8_e5m2), and its fp8 launches count in ``decode_attention_fp8``
 (the wrapper that takes fp8 caches). ``embedding``, ``layernorm``,
 ``bias_gelu``, ``decode_attention``, ``softmax``, ``softmax_ce_bwd``,
-``bn_stats`` and ``bn_apply_relu`` have a float32 and a bfloat16
-instance (``compute_dtype="bfloat16"``, the JAX package's mixed
-precision): each wrapper takes the instance of its tensor's dtype, and
-the bfloat16 launches count in ``<kernel>_bf16`` (``embedding_bf16``
-... ``bn_apply_relu_bf16``, the wrappers that take bfloat16). A
-bfloat16 instance reads bfloat16, computes in float32 as the TPU kernel
-does, and stores bfloat16 (float32 for the statistics and for the
-decode read's output, as the TPU kernels store them); it is never the
-float32 kernel behind a cast. Every other kernel takes float32 only and
-raises on half precision, naming the later slice.
+``bn_stats``, ``bn_apply_relu``, ``layernorm_bwd_dx``,
+``layernorm_bwd_dparams``, ``bias_gelu_dx`` and ``flash_attention``
+have a float32 and a bfloat16 instance (``compute_dtype="bfloat16"``,
+the JAX package's mixed precision): each wrapper takes the instance of
+its tensor's dtype, and the bfloat16 launches count in ``<wrapper>_bf16``
+(``embedding_bf16`` ... ``flash_attention_bf16``, the wrappers that take
+bfloat16). A bfloat16 instance reads bfloat16, computes in float32 as
+the TPU kernel does, and stores bfloat16 (float32 for the statistics and
+for the decode read's output, as the TPU kernels store them); it is
+never the float32 kernel behind a cast. The rest (``sgd_mom_update``,
+``adam_update``, ``qfc_matmul``, ``dequant_rows``) take float32 only and
+raise on half precision, naming the later slice; every wrapper raises on
+float16, a later slice too.
 With the ones from ``layernorm_bwd_dx`` to ``flash_attention`` they
 train the transformer LM;
 softmax / cross-entropy and the optimizer updates serve every training
@@ -126,7 +129,8 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "conv_bn_relu_fn", "embedding_bf16", "layernorm_bf16",
            "bias_gelu_bf16", "decode_attention_bf16", "softmax_bf16",
            "softmax_ce_bwd_bf16", "bn_stats_bf16", "bn_apply_relu_bf16",
-           "launch_counts",
+           "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
+           "bias_gelu_dx_bf16", "flash_attention_bf16", "launch_counts",
            "reset_launch_counts", "libraries_loaded", "source",
            "KERNELS", "COUNTERS"]
 
@@ -166,13 +170,19 @@ _SPECS = {
                 [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
     "adam": ("adam.cu", "mx_adam_f32",
              [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
-    "ln_bwd_dx": ("ln_bwd_dx.cu", "mx_ln_bwd_dx_f32",
+    "ln_bwd_dx": ("ln_bwd_dx.cu", {"f32": "mx_ln_bwd_dx_f32",
+                                   "bf16": "mx_ln_bwd_dx_bf16"},
                   [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
-    "ln_bwd_dparams": ("ln_bwd_dparams.cu", "mx_ln_bwd_dparams_f32",
+    "ln_bwd_dparams": ("ln_bwd_dparams.cu",
+                       {"f32": "mx_ln_bwd_dparams_f32",
+                        "bf16": "mx_ln_bwd_dparams_bf16"},
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "bias_gelu_dx": ("bias_gelu_dx.cu", "mx_bias_gelu_dx_f32",
+    "bias_gelu_dx": ("bias_gelu_dx.cu", {"f32": "mx_bias_gelu_dx_f32",
+                                         "bf16": "mx_bias_gelu_dx_bf16"},
                      [_P, _P, _P, _P, _I, _I, _P]),
-    "flash_attention": ("flash_attention.cu", "mx_flash_attention_f32",
+    "flash_attention": ("flash_attention.cu",
+                        {"f32": "mx_flash_attention_f32",
+                         "bf16": "mx_flash_attention_bf16"},
                         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "qfc_matmul": ("qfc_matmul.cu", {"int8": "mx_qfc_matmul_i8_f32",
                                      "e4m3": "mx_qfc_matmul_e4m3_f32"},
@@ -284,7 +294,9 @@ def _launch(name, tensor, *args, storage=None):
                          f"{err}")
 
 
-#: what a float32 kernel says of half-precision input
+#: what a float32-only kernel (the updates on float32 master weights, the
+#: quantized kernels) says of half-precision input, and a float32
+#: instance of float16
 _HALF_LATER = {
     torch.bfloat16: "its bfloat16 instance is a later slice of the port "
                     "(ROADMAP.md queue B)",
@@ -617,8 +629,9 @@ bias_gelu_bf16.launches = 0
 
 class _BiasGeLUFn(torch.autograd.Function):
     """Forward: the bias + GeLU kernel. Backward: ``bias_gelu_dx``, and
-    the bias gradient as the plain column sum of dx (the JAX package
-    leaves that reduction to XLA)."""
+    the bias gradient as the plain column sum of dx, accumulated in
+    float32 and stored in the bias's dtype (the JAX package leaves that
+    reduction to XLA, ``sum(dx.astype(float32)).astype(bias.dtype)``)."""
 
     @staticmethod
     def forward(ctx, x2, bias):
@@ -629,7 +642,8 @@ class _BiasGeLUFn(torch.autograd.Function):
     def backward(ctx, gy):
         x2, bias = ctx.saved_tensors
         dx = bias_gelu_dx(x2, bias, gy.contiguous())
-        db = torch.sum(dx, 0) if ctx.needs_input_grad[1] else None
+        db = torch.sum(dx, 0, dtype=torch.float32).to(bias.dtype) \
+            if ctx.needs_input_grad[1] else None
         return (dx if ctx.needs_input_grad[0] else None), db
 
 
@@ -950,7 +964,7 @@ LN_MAX_C = 65536
 def layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd):
     """dx of LayerNorm over x2 (N, C) from the saved mean and rstd (N,),
     in float32: ``rstd (gy - mean(gy) - xh mean(gy xh))`` with ``xh = (x
-    - mean) rstd`` and ``gy = ct gamma``."""
+    - mean) rstd`` and ``gy = ct gamma``, stored in x2's dtype."""
     r = rstd.to(torch.float32)[:, None]
     xh = (x2.to(torch.float32) - mean.to(torch.float32)[:, None]) * r
     gy = ct.to(torch.float32) * gamma.to(torch.float32)
@@ -970,21 +984,30 @@ def _check_ln_bwd(name, x2, ct, mean, rstd):
         raise MXNetError(f"{name}: C={x2.shape[1]} > {LN_MAX_C}")
 
 
-def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
-    """LayerNorm's input gradient: x2, ct (N, C), gamma (C,), mean, rstd
-    (N,), float32, C <= 65536 -> dx (N, C)."""
-    if not _cpu_or_cuda("layernorm_bwd_dx", x2):
-        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
-    _check("layernorm_bwd_dx", x=(x2, torch.float32),
-           gamma=(gamma, torch.float32), ct=(ct, torch.float32),
+def _ln_dx_launch(name, x2, gamma, ct, mean, rstd):
+    dtype = _takes(name)
+    _check(name, x=(x2, dtype), gamma=(gamma, dtype), ct=(ct, dtype),
            mean=(mean, torch.float32), rstd=(rstd, torch.float32))
-    _check_ln_bwd("layernorm_bwd_dx", x2, ct, mean, rstd)
+    _check_ln_bwd(name, x2, ct, mean, rstd)
     n, c = x2.shape
     if tuple(gamma.shape) != (c,):
-        raise MXNetError(f"layernorm_bwd_dx: gamma must be ({c},)")
+        raise MXNetError(f"{name}: gamma must be ({c},)")
     dx = torch.empty_like(x2)
     _launch("ln_bwd_dx", x2, x2.data_ptr(), gamma.data_ptr(), ct.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), n, c)
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), n, c,
+            storage=_STORAGE[x2.dtype])
+    return dx
+
+
+def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
+    """LayerNorm's input gradient: x2, ct (N, C), gamma (C,) float32 or
+    bfloat16, mean, rstd (N,) float32, C <= 65536 -> dx (N, C) in x2's
+    dtype; bfloat16 goes to ``layernorm_bwd_dx_bf16``."""
+    if not _cpu_or_cuda("layernorm_bwd_dx", x2):
+        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
+    if x2.dtype == torch.bfloat16:
+        return layernorm_bwd_dx_bf16(x2, gamma, ct, mean, rstd)
+    dx = _ln_dx_launch("layernorm_bwd_dx", x2, gamma, ct, mean, rstd)
     layernorm_bwd_dx.launches += 1
     return dx
 
@@ -992,16 +1015,31 @@ def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
 layernorm_bwd_dx.launches = 0
 
 
+def layernorm_bwd_dx_bf16(x2, gamma, ct, mean, rstd):
+    """``layernorm_bwd_dx``'s bfloat16 instance: x2, gamma, ct bfloat16,
+    float32 statistics and arithmetic, dx rounded to bfloat16 once."""
+    if not _cpu_or_cuda("layernorm_bwd_dx_bf16", x2):
+        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
+    dx = _ln_dx_launch("layernorm_bwd_dx_bf16", x2, gamma, ct, mean, rstd)
+    layernorm_bwd_dx_bf16.launches += 1
+    return dx
+
+
+layernorm_bwd_dx_bf16.launches = 0
+
+
 # ==========================================================================
 # 10. LayerNorm backward: dgamma, dbeta
 # ==========================================================================
 def layernorm_bwd_dparams_plain(x2, ct, mean, rstd):
-    """(dgamma, dbeta), each (C,) float32, summed over the rows of x2 and
-    ct (N, C): ``sum(ct xh)`` and ``sum(ct)``."""
+    """(dgamma, dbeta), each (C,), summed in float32 over the rows of x2
+    and ct (N, C): ``sum(ct xh)`` and ``sum(ct)``, each stored in x2's
+    dtype (rounded once from the float32 sum, as ``_ln_pl_bwd_rule``
+    casts to gamma's dtype)."""
     xh = (x2.to(torch.float32) - mean.to(torch.float32)[:, None]) * \
         rstd.to(torch.float32)[:, None]
     c32 = ct.to(torch.float32)
-    return (c32 * xh).sum(dim=0), c32.sum(dim=0)
+    return (c32 * xh).sum(dim=0).to(x2.dtype), c32.sum(dim=0).to(x2.dtype)
 
 
 def _dparams_chunks(n):
@@ -1012,30 +1050,52 @@ def _dparams_chunks(n):
     return rows, max(1, -(-n // rows))
 
 
-def layernorm_bwd_dparams(x2, ct, mean, rstd):
-    """LayerNorm's parameter gradients over x2, ct (N, C) with mean, rstd
-    (N,), float32, C <= 65536 -> (dgamma, dbeta) (C,). A deterministic
-    two-stage reduction: one call, one launch count."""
-    if not _cpu_or_cuda("layernorm_bwd_dparams", x2):
-        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
-    _check("layernorm_bwd_dparams", x=(x2, torch.float32),
-           ct=(ct, torch.float32), mean=(mean, torch.float32),
+def _dparams_launch(name, x2, ct, mean, rstd):
+    dtype = _takes(name)
+    _check(name, x=(x2, dtype), ct=(ct, dtype), mean=(mean, torch.float32),
            rstd=(rstd, torch.float32))
-    _check_ln_bwd("layernorm_bwd_dparams", x2, ct, mean, rstd)
+    _check_ln_bwd(name, x2, ct, mean, rstd)
     n, c = x2.shape
     rows, chunks = _dparams_chunks(n)
     part = torch.empty((2, chunks, c), dtype=torch.float32, device=x2.device)
-    dg = torch.empty((c,), dtype=torch.float32, device=x2.device)
-    db = torch.empty((c,), dtype=torch.float32, device=x2.device)
+    dg = torch.empty((c,), dtype=x2.dtype, device=x2.device)
+    db = torch.empty((c,), dtype=x2.dtype, device=x2.device)
     _launch("ln_bwd_dparams", x2, x2.data_ptr(), ct.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), n, c, rows,
-            chunks)
-    layernorm_bwd_dparams.launches += 1
+            chunks, storage=_STORAGE[x2.dtype])
     return dg, db
 
 
+def layernorm_bwd_dparams(x2, ct, mean, rstd):
+    """LayerNorm's parameter gradients over x2, ct (N, C) float32 or
+    bfloat16 with mean, rstd (N,) float32, C <= 65536 -> (dgamma, dbeta)
+    (C,) in x2's dtype. A deterministic two-stage reduction: one call, one
+    launch count; bfloat16 goes to ``layernorm_bwd_dparams_bf16``."""
+    if not _cpu_or_cuda("layernorm_bwd_dparams", x2):
+        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
+    if x2.dtype == torch.bfloat16:
+        return layernorm_bwd_dparams_bf16(x2, ct, mean, rstd)
+    out = _dparams_launch("layernorm_bwd_dparams", x2, ct, mean, rstd)
+    layernorm_bwd_dparams.launches += 1
+    return out
+
+
 layernorm_bwd_dparams.launches = 0
+
+
+def layernorm_bwd_dparams_bf16(x2, ct, mean, rstd):
+    """``layernorm_bwd_dparams``' bfloat16 instance: x2, ct bfloat16,
+    float32 statistics, partial sums and arithmetic; dgamma and dbeta
+    rounded to bfloat16 once, in the kernel's final stage."""
+    if not _cpu_or_cuda("layernorm_bwd_dparams_bf16", x2):
+        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
+    out = _dparams_launch("layernorm_bwd_dparams_bf16", x2, ct, mean, rstd)
+    layernorm_bwd_dparams_bf16.launches += 1
+    return out
+
+
+layernorm_bwd_dparams_bf16.launches = 0
 
 
 # ==========================================================================
@@ -1046,34 +1106,55 @@ _INV_SQRT2PI = 0.3989422804014327
 
 def bias_gelu_dx_plain(x2, bias, ct):
     """``ct (0.5 (1 + erf(z / sqrt 2)) + z phi(z))`` with z = x2 + bias,
-    in float32, with the TPU kernel's constants."""
+    in float32, with the TPU kernel's constants, stored in x2's dtype."""
     z = x2.to(torch.float32) + bias.to(torch.float32)
     phi = torch.exp(-0.5 * z * z) * _INV_SQRT2PI
     dgelu = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2)) + z * phi
     return (ct.to(torch.float32) * dgelu).to(x2.dtype)
 
 
-def bias_gelu_dx(x2, bias, ct):
-    """The bias + GeLU input gradient over x2, ct (N, C) float32 with
-    bias (C,) -> dx (N, C)."""
-    if not _cpu_or_cuda("bias_gelu_dx", x2):
-        return bias_gelu_dx_plain(x2, bias, ct)
-    _check("bias_gelu_dx", x=(x2, torch.float32),
-           bias=(bias, torch.float32), ct=(ct, torch.float32))
+def _gelu_dx_launch(name, x2, bias, ct):
+    dtype = _takes(name)
+    _check(name, x=(x2, dtype), bias=(bias, dtype), ct=(ct, dtype))
     if x2.ndim != 2 or tuple(ct.shape) != tuple(x2.shape) or \
             tuple(bias.shape) != (x2.shape[1],):
-        raise MXNetError(f"bias_gelu_dx: want x, ct (N, C) and bias (C,), "
+        raise MXNetError(f"{name}: want x, ct (N, C) and bias (C,), "
                          f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
                          f"{tuple(bias.shape)}")
     n, c = x2.shape
     dx = torch.empty_like(x2)
     _launch("bias_gelu_dx", x2, x2.data_ptr(), bias.data_ptr(),
-            ct.data_ptr(), dx.data_ptr(), n, c)
+            ct.data_ptr(), dx.data_ptr(), n, c, storage=_STORAGE[x2.dtype])
+    return dx
+
+
+def bias_gelu_dx(x2, bias, ct):
+    """The bias + GeLU input gradient over x2, ct (N, C) float32 or
+    bfloat16 with bias (C,) of the same dtype -> dx (N, C) in x2's dtype;
+    bfloat16 goes to ``bias_gelu_dx_bf16``."""
+    if not _cpu_or_cuda("bias_gelu_dx", x2):
+        return bias_gelu_dx_plain(x2, bias, ct)
+    if x2.dtype == torch.bfloat16:
+        return bias_gelu_dx_bf16(x2, bias, ct)
+    dx = _gelu_dx_launch("bias_gelu_dx", x2, bias, ct)
     bias_gelu_dx.launches += 1
     return dx
 
 
 bias_gelu_dx.launches = 0
+
+
+def bias_gelu_dx_bf16(x2, bias, ct):
+    """``bias_gelu_dx``'s bfloat16 instance: x2, bias, ct bfloat16,
+    float32 arithmetic, dx rounded to bfloat16 once."""
+    if not _cpu_or_cuda("bias_gelu_dx_bf16", x2):
+        return bias_gelu_dx_plain(x2, bias, ct)
+    dx = _gelu_dx_launch("bias_gelu_dx_bf16", x2, bias, ct)
+    bias_gelu_dx_bf16.launches += 1
+    return dx
+
+
+bias_gelu_dx_bf16.launches = 0
 
 
 # ==========================================================================
@@ -1082,8 +1163,8 @@ bias_gelu_dx.launches = 0
 def flash_attention_plain(q, k, v, causal=False):
     """Softmax attention of q over k, v (B, H, T, Dh) as the flash kernel
     computes it: q scaled by Dh^-1/2 BEFORE the product, float32 scores
-    and softmax, the causal mask keeping key <= query. Returns float32
-    (B, H, T, Dh)."""
+    and softmax, the causal mask keeping key <= query. Returns (B, H, T,
+    Dh) in q's dtype (float32 arithmetic, rounded once)."""
     qs = q.to(torch.float32) * (float(q.shape[-1]) ** -0.5)
     s = torch.einsum("bhqd,bhkd->bhqk", qs, k.to(torch.float32))
     if causal:
@@ -1092,39 +1173,62 @@ def flash_attention_plain(q, k, v, causal=False):
                           device=q.device).tril(tk - tq)
         s = s.masked_fill(~live, float("-inf"))
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
-                        v.to(torch.float32))
+                        v.to(torch.float32)).to(q.dtype)
 
 
-def flash_attention(q, k, v, causal=False):
-    """Self-attention of q, k, v (B, H, T, Dh) float32 -> (B, H, T, Dh).
-    The kernel takes Dh in {64, 128}, any T, and Tq == Tk only."""
-    if not _cpu_or_cuda("flash_attention", q):
-        return flash_attention_plain(q, k, v, causal)
-    _check("flash_attention", q=(q, torch.float32), k=(k, torch.float32),
-           v=(v, torch.float32))
+def _flash_launch(name, q, k, v, causal):
+    dtype = _takes(name)
+    _check(name, q=(q, dtype), k=(k, dtype), v=(v, dtype))
     if q.ndim != 4 or tuple(k.shape) != tuple(q.shape) or \
             tuple(v.shape) != tuple(q.shape):
-        raise MXNetError("flash_attention: self-attention only, want q, k, "
+        raise MXNetError(f"{name}: self-attention only, want q, k, "
                          f"v (B, H, T, Dh) alike (Tq == Tk), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, T, Dh = q.shape
     if Dh not in (64, 128):
-        raise MXNetError(f"flash_attention: head dim {Dh} — the kernel "
-                         "takes 64 or 128")
+        raise MXNetError(f"{name}: head dim {Dh} — the kernel takes 64 or "
+                         "128")
     if B * H > 65535:
-        raise MXNetError(f"flash_attention: B*H={B * H} > 65535")
+        raise MXNetError(f"{name}: B*H={B * H} > 65535")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise MXNetError("flash_attention: q, k, v must be 16-byte aligned")
+        raise MXNetError(f"{name}: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     _launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B * H, T, Dh, int(bool(causal)),
-            float(Dh) ** -0.5)
+            float(Dh) ** -0.5, storage=_STORAGE[q.dtype])
+    return out
+
+
+def flash_attention(q, k, v, causal=False):
+    """Self-attention of q, k, v (B, H, T, Dh) float32 or bfloat16 ->
+    (B, H, T, Dh) in q's dtype. The kernel takes Dh in {64, 128}, any T,
+    and Tq == Tk only; bfloat16 goes to ``flash_attention_bf16``."""
+    if not _cpu_or_cuda("flash_attention", q):
+        return flash_attention_plain(q, k, v, causal)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bf16(q, k, v, causal)
+    out = _flash_launch("flash_attention", q, k, v, causal)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bf16(q, k, v, causal=False):
+    """``flash_attention``'s bfloat16 instance: q, k, v bfloat16, widened
+    exactly as each tile is staged; q scaled and every product and the
+    online softmax in float32 (no bfloat16 tensor cores); the output
+    rounded to bfloat16 once."""
+    if not _cpu_or_cuda("flash_attention_bf16", q):
+        return flash_attention_plain(q, k, v, causal)
+    out = _flash_launch("flash_attention_bf16", q, k, v, causal)
+    flash_attention_bf16.launches += 1
+    return out
+
+
+flash_attention_bf16.launches = 0
 
 
 # ==========================================================================
@@ -1430,7 +1534,11 @@ _WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
              "softmax_bf16": softmax_bf16,
              "softmax_ce_bwd_bf16": softmax_ce_bwd_bf16,
              "bn_stats_bf16": bn_stats_bf16,
-             "bn_apply_relu_bf16": bn_apply_relu_bf16}
+             "bn_apply_relu_bf16": bn_apply_relu_bf16,
+             "layernorm_bwd_dx_bf16": layernorm_bwd_dx_bf16,
+             "layernorm_bwd_dparams_bf16": layernorm_bwd_dparams_bf16,
+             "bias_gelu_dx_bf16": bias_gelu_dx_bf16,
+             "flash_attention_bf16": flash_attention_bf16}
 #: the launch counters: one per kernel, one for the flash-decode kernel's
 #: fp8 instances, and one per bfloat16 instance
 COUNTERS = tuple(_WRAPPERS)
@@ -1439,7 +1547,10 @@ _COUNTER_KERNEL = {n: n for n in _SPECS}
 _COUNTER_KERNEL.update({"decode_attention_fp8": "decode_attention"})
 _COUNTER_KERNEL.update({n + "_bf16": n for n in (
     "embedding", "layernorm", "bias_gelu", "decode_attention", "softmax",
-    "softmax_ce_bwd", "bn_stats", "bn_apply_relu")})
+    "softmax_ce_bwd", "bn_stats", "bn_apply_relu", "bias_gelu_dx",
+    "flash_attention")})
+_COUNTER_KERNEL.update({"layernorm_bwd_dx_bf16": "ln_bwd_dx",
+                        "layernorm_bwd_dparams_bf16": "ln_bwd_dparams"})
 
 
 # ==========================================================================

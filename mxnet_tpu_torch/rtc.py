@@ -60,7 +60,14 @@ takes its vector-Jacobian product, as the JAX package's ``custom_vjp``
 does: the forward never holds the (T, T) scores, the backward holds them
 for one layer at a time (at B=8, H=8, T=1024 one float32 score tensor is
 268 MB). ``pallas_flash_attention`` is the same op under the name the
-JAX package registers for its kernel.
+JAX package registers for its kernel. Under ``compute_dtype="bfloat16"``
+the forward is the kernel's bfloat16 instance and the recompute runs on
+the bfloat16 q, k, v and returns bfloat16 gradients, as ``jax.vjp`` of
+the JAX package's ``attention`` does. Its scale is the float32 Dh^-1/2,
+the forward kernel's; the JAX recompute takes ``1/sqrt(Dh)`` in q's
+dtype, which bfloat16 rounds at Dh = 128 (0.08837890625 for 0.0883883)
+and keeps exact at Dh = 64, so bfloat16 gradients at Dh = 128 differ
+from the JAX package's by that much more than bfloat16 rounding.
 """
 from __future__ import annotations
 
@@ -107,10 +114,12 @@ def _attention_plain(attrs, q, k, v):
 
 
 class _FlashAttentionFn(torch.autograd.Function):
-    """Forward: the flash kernel. Backward: the vector-Jacobian product
-    of ``_attention_plain`` recomputed from the saved q, k, v (the JAX
-    package's flash recompute, ``mxnet_tpu/rtc.py`` ``flash_attention``);
-    the recompute is plain PyTorch, as the JAX package's is XLA."""
+    """Forward: the flash kernel (its instance of q's dtype). Backward:
+    the vector-Jacobian product of ``_attention_plain`` recomputed from
+    the saved q, k, v (the JAX package's flash recompute,
+    ``mxnet_tpu/rtc.py`` ``flash_attention``), in float32 from the
+    leaves' values, each gradient returned in its leaf's dtype; the
+    recompute is plain PyTorch, as the JAX package's is XLA."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):

@@ -29,6 +29,12 @@ LM path's shapes and edge shapes (one row, one column, C = 65536, T = 1
 and a ragged T, Dh = 128, non-causal), the parameter-gradient reduction
 must repeat bit for bit, each differentiable op's gradients on the card
 must match its plain op's on the CPU, and a small LM fits alike on both.
+Their bfloat16 instances are held the same way in bfloat16 ulps (one
+beyond 2e-5; the parameter sums one beyond 1e-4), aligned and on
+misaligned views, with only the bfloat16 counters moving; the ops'
+gradients in bfloat16 on the card against the CPU's, and a small LM's
+bfloat16 fit (ids and labels past 256) against the CPU's within three
+times the CPU's own bfloat16-vs-float32 distance.
 
 The quantized-serving kernels (the dequant-fused matmul, the conv-weight
 row dequant) are held against their plain versions for int8 and
@@ -955,15 +961,17 @@ def test_bn_kernels_bf16_misaligned_repeat_and_nan(dev):
 
 @pytest.mark.cuda
 def test_float32_only_kernels_refuse_bf16_naming_the_later_slice(dev):
-    """The LM-training kernels take float32 only; the decode kernels
-    (which have bfloat16 instances) refuse float16."""
+    """float16 raises in every kernel, the LM-training kernels (which
+    have bfloat16 instances) and the decode kernels alike, naming the
+    later slice; the updates, which take float32 only (float32 master
+    weights), refuse a bfloat16 gradient the same way."""
     x = _rnd(dev, 8, 64).to(torch.bfloat16)
     g = _rnd(dev, 64).to(torch.bfloat16)
     st = torch.ones(8, device=dev)
     with pytest.raises(MXNetError, match="later slice"):
-        ck.layernorm_bwd_dx(x, g, x, st, st)
+        ck.layernorm_bwd_dx(x.half(), g.half(), x.half(), st, st)
     with pytest.raises(MXNetError, match="later slice"):
-        ck.bias_gelu_dx(x, g, x)
+        ck.bias_gelu_dx(x.half(), g.half(), x.half())
     with pytest.raises(MXNetError, match="later slice"):
         ck.layernorm(x.half(), g.half(), g.half(), 1e-5)
     with pytest.raises(MXNetError, match="later slice"):
@@ -971,10 +979,12 @@ def test_float32_only_kernels_refuse_bf16_naming_the_later_slice(dev):
     with pytest.raises(MXNetError, match="later slice"):
         ck.embedding(torch.zeros(2, dtype=torch.int32, device=dev), x.half())
     with pytest.raises(MXNetError, match="later slice"):
-        ck.flash_attention(*[_rnd(dev, 1, 1, 8, 64).to(torch.bfloat16)] * 3)
+        ck.flash_attention(*[_rnd(dev, 1, 1, 8, 64).half()] * 3)
     with pytest.raises(MXNetError, match="later slice"):
         ck.softmax(x.half())
     w = x.float()
+    with pytest.raises(MXNetError, match="later slice"):
+        ck.sgd_mom_update(w, x.half(), w.clone(), 0.1)
     with pytest.raises(MXNetError, match="later slice"):
         ck.sgd_mom_update(w, x, w.clone(), 0.1)
 
@@ -1605,3 +1615,234 @@ def test_autograd_backward_on_cuda(dev):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# --------------------------------------- LM training in bfloat16 (rows 11-14)
+def _bf16_of_max(got, want):
+    """Largest |got - want| in bfloat16 ulps of want's largest
+    magnitude."""
+    torch.cuda.synchronize()
+    g, w = got.double().cpu(), want.double().cpu()
+    top = max(float(w.abs().max()), 2.0 ** -126)
+    return float((g - w).abs().max()) / 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _moved(before, after, names):
+    """{counter: launches since ``before``} for the counters in names."""
+    return {k: after[k] - before[k] for k in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8192, 512), (1, 512), (7, 1), (3, 65536),
+                                 (5, 13), (300, 100)])
+def test_ln_bwd_bf16_kernels(dev, n, c):
+    """The bfloat16 instances against their plain versions on the same
+    values: dx within one bfloat16 ulp beyond 2e-5 (float32 arithmetic in
+    another order can move a rounding), dgamma / dbeta (float32 sums over
+    N rows, rounded once) within one ulp beyond 1e-4; aligned rows and a
+    misaligned view (one value at a time); only the bfloat16 counters
+    move, once a call, and the outputs are bfloat16."""
+    bf = torch.bfloat16
+    g = (1 + 0.3 * _rnd(dev, c, seed=1)).to(bf)
+    b = _rnd(dev, c, seed=2).to(bf)
+    ct = _rnd(dev, n, c, seed=3).to(bf)
+    for x in ((3 * _rnd(dev, n, c) + 1).to(bf),
+              _misaligned_bf16(dev, n * c, n, c)):
+        _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
+        before = ck.launch_counts()
+        dx = ck.layernorm_bwd_dx(x, g, ct, mean, rstd)
+        dg, db = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
+        after = ck.launch_counts()
+        assert dx.dtype == dg.dtype == db.dtype == bf
+        assert _bf16_ulps(dx, ck.layernorm_bwd_dx_plain(
+            x, g, ct, mean, rstd), atol=TOL) <= 1
+        for got, want in zip((dg, db), ck.layernorm_bwd_dparams_plain(
+                x, ct, mean, rstd)):
+            assert _bf16_ulps(got, want, atol=1e-4) <= 1
+        assert _moved(before, after, (
+            "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
+            "ln_bwd_dx", "ln_bwd_dparams")) == {
+                "layernorm_bwd_dx_bf16": 1, "layernorm_bwd_dparams_bf16": 1,
+                "ln_bwd_dx": 0, "ln_bwd_dparams": 0}
+
+
+@pytest.mark.cuda
+def test_ln_bwd_dparams_bf16_repeats_bit_for_bit(dev):
+    bf = torch.bfloat16
+    x, ct = _rnd(dev, 8192, 512).to(bf), _rnd(dev, 8192, 512, seed=1).to(bf)
+    xf = x.float()
+    mean = xf.mean(1)
+    rstd = torch.rsqrt(xf.var(1, unbiased=False) + 1e-5)
+    first = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
+    for _ in range(3):
+        again = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8192, 2048), (3, 13), (1, 4), (2, 16)])
+def test_bias_gelu_dx_bf16_kernel(dev, n, c):
+    """Within one bfloat16 ulp beyond 2e-5 of the plain version (erff and
+    expf against PyTorch's, float32 either way), aligned and misaligned;
+    only the bfloat16 counter moves."""
+    bf = torch.bfloat16
+    b = _rnd(dev, c, seed=1).to(bf)
+    ct = _rnd(dev, n, c, seed=2).to(bf)
+    for x in ((3 * _rnd(dev, n, c)).to(bf),
+              _misaligned_bf16(dev, n * c, n, c)):
+        before = ck.launch_counts()
+        dx = ck.bias_gelu_dx(x, b, ct)
+        after = ck.launch_counts()
+        assert dx.dtype == bf
+        assert _bf16_ulps(dx, ck.bias_gelu_dx_plain(x, b, ct),
+                          atol=TOL) <= 1
+        assert _moved(before, after, ("bias_gelu_dx_bf16", "bias_gelu_dx")
+                      ) == {"bias_gelu_dx_bf16": 1, "bias_gelu_dx": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(8, 8, 1024, 64), (2, 2, 1, 64),
+                                   (1, 2, 1000, 64), (2, 1, 200, 128),
+                                   (1, 1, 64, 128), (1, 3, 65, 64)])
+def test_flash_attention_bf16_kernel(dev, shape, causal):
+    """bfloat16 q, k, v widened exactly, float32 arithmetic, the output
+    rounded once: within one bfloat16 ulp beyond 2e-5 of the plain
+    version on the same values (T = 1, T not a multiple of 64, Dh 128);
+    only the bfloat16 counter moves."""
+    q, k, v = (_rnd(dev, *shape, seed=i).to(torch.bfloat16)
+               for i in range(3))
+    before = ck.launch_counts()
+    got = ck.flash_attention(q, k, v, causal)
+    after = ck.launch_counts()
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, ck.flash_attention_plain(q, k, v, causal),
+                      atol=TOL) <= 1
+    assert _moved(before, after, ("flash_attention_bf16", "flash_attention")
+                  ) == {"flash_attention_bf16": 1, "flash_attention": 0}
+
+
+@pytest.mark.cuda
+def test_lm_bf16_kernels_refuse_what_they_do_not_take(dev):
+    bf = torch.bfloat16
+    q = _rnd(dev, 1, 2, 16, 64).to(bf)
+    shifted = _misaligned_bf16(dev, 2 * 16 * 64, 1, 2, 16, 64)
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        ck.flash_attention(shifted, shifted, shifted, True)
+    with pytest.raises(MXNetError, match="takes torch.bfloat16"):
+        ck.flash_attention(q, q.float(), q, True)
+    with pytest.raises(MXNetError, match="head dim"):
+        t = _rnd(dev, 1, 2, 16, 32).to(bf)
+        ck.flash_attention(t, t, t)
+    x, g = _rnd(dev, 4, 8).to(bf), _rnd(dev, 8).to(bf)
+    m = torch.zeros(4, device=dev)
+    with pytest.raises(MXNetError, match="takes torch.float32"):
+        ck.layernorm_bwd_dx(x, g, x, m.to(bf), m)       # bfloat16 mean
+    with pytest.raises(MXNetError, match="takes torch.bfloat16"):
+        ck.layernorm_bwd_dparams(x, x.float(), m, m)
+    with pytest.raises(MXNetError, match="takes torch.bfloat16"):
+        ck.bias_gelu_dx(x, g.float(), x)
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.bias_gelu_dx(x.t(), g[:4], x.t())
+
+
+_BF16_GRAD_CASES = {
+    "LayerNorm": (lambda d: [3 * _rnd(d, 4, 64, 512) + 1,
+                             1 + 0.3 * _rnd(d, 512, seed=1),
+                             _rnd(d, 512, seed=2)], {},
+                  ("layernorm_bf16", "layernorm_bwd_dx_bf16",
+                   "layernorm_bwd_dparams_bf16")),
+    "FusedBiasGeLU": (lambda d: [_rnd(d, 256, 2048), _rnd(d, 2048, seed=1)],
+                      {}, ("bias_gelu_bf16", "bias_gelu_dx_bf16")),
+    "attention": (lambda d: [_rnd(d, 2, 4, 300, 64, seed=i)
+                             for i in range(3)],
+                  {"causal": True}, ("flash_attention_bf16",)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_BF16_GRAD_CASES))
+def test_op_gradient_bf16_on_card(dev, name):
+    """The op's CUDA variant on bfloat16 inputs with autograd on the card
+    (the bfloat16 instances forward and backward) against its plain op on
+    the CPU in bfloat16: the output and every gradient bfloat16, within
+    two bfloat16 ulps of each array's largest magnitude (float32 sums in
+    other orders, rounded at other places: the plain op's bias gradient
+    already lies one such ulp from the variant's on the CPU); only the
+    bfloat16 instances launch."""
+    make, kwargs, kernels = _BF16_GRAD_CASES[name]
+    op = mx.ops.get_op(name)
+    attrs = op.normalize_attrs(kwargs)
+    res = {}
+    before = ck.launch_counts()
+    for where in ("cuda", "cpu"):
+        ins = [t.to(where, torch.bfloat16).detach().requires_grad_(True)
+               for t in make(dev)]
+        fn = op.variants["cuda"]["fn"] if where == "cuda" else op.forward
+        out = fn(attrs, ins, [], True, None)[0][0]
+        ct = _rnd(dev, *out.shape, seed=9).to(where, torch.bfloat16)
+        out.backward(ct)
+        res[where] = [out.detach().cpu()] + [t.grad.cpu() for t in ins]
+    after = ck.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert set(moved) == set(kernels), moved
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert _bf16_of_max(a, b) <= 2
+
+
+@pytest.mark.cuda
+def test_small_lm_bf16_fit_alike_on_card_and_cpu(dev):
+    """Four bfloat16 SGD batches of a small LM (V = 300: ids and labels
+    past 256; d_model 128, 2 heads: Dh = 64) from the same parameters on
+    the card and on the CPU, TF32 off: every parameter float32 and within
+    3 times the CPU's own bfloat16-vs-float32 distance plus 1e-6 (cuBLAS
+    and oneDNN round bfloat16 products at other places); on the card
+    each step launches only the bfloat16 instances, 1 / 2L + 1 (x3) / L
+    (x2) / L / 1 / 1 of them (SGD without momentum is no kernel)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _lm_bf16_fit_both()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _lm_bf16_fit_both():
+    V, D, L, H, T, B, N = 300, 128, 2, 2, 48, 4, 4
+    sym = tfm.get_symbol(V, D, L, H, T)
+    shapes, _, _ = sym.infer_shape(data=(B, T), softmax_label=(B * T,))
+    rs = np.random.RandomState(0)
+    params = {n: ((1.0 if n.endswith("gamma") else 0.0)
+                  + 0.1 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    out = {}
+    for ctx, cd in ((mx.gpu(0), "bfloat16"), (mx.cpu(), "bfloat16"),
+                    (mx.cpu(), None)):
+        ck.reset_launch_counts()
+        mod = mx.mod.Module(sym, context=ctx, compute_dtype=cd)
+        mod.fit(tfm.SyntheticLMIter(V, B, T, N, seed=1), num_epoch=1,
+                arg_params=mx.convert.params_from_numpy(params, ctx),
+                optimizer="sgd", optimizer_params={"learning_rate": 0.05})
+        got = mod.get_params()[0]
+        assert {v.astorch().dtype for v in got.values()} == {torch.float32}
+        out[(ctx.device_type, cd)] = {k: v.asnumpy() for k, v in got.items()}
+        counts = ck.launch_counts()
+        if ctx.device_type == "gpu":
+            want = {"embedding_bf16": 1, "layernorm_bf16": 2 * L + 1,
+                    "layernorm_bwd_dx_bf16": 2 * L + 1,
+                    "layernorm_bwd_dparams_bf16": 2 * L + 1,
+                    "bias_gelu_bf16": L, "bias_gelu_dx_bf16": L,
+                    "flash_attention_bf16": L, "softmax_bf16": 1,
+                    "softmax_ce_bwd_bf16": 1}
+            assert counts == {k: N * want.get(k, 0) for k in counts}, counts
+        else:
+            assert not any(counts.values()), counts
+    card, cpu, cpu32 = (out[k] for k in (("gpu", "bfloat16"),
+                                         ("cpu", "bfloat16"), ("cpu", None)))
+    for k, v in cpu.items():
+        assert np.abs(v - params[k]).max() > 0, k
+        spread = float(np.abs(v - cpu32[k]).max())
+        np.testing.assert_allclose(card[k], v, atol=3 * spread + 1e-6,
+                                   rtol=0, err_msg=k)
