@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
    ``nvcc`` per source, all sixteen in parallel; twelve of them hold a
-   float32 and a bfloat16 instance), print the build seconds,
+   float32, a bfloat16 and a float16 instance, and the dequant-fused
+   matmul takes float32, bfloat16 and float16 x), print the build
+   seconds,
    the compiler's register report, the card's name and power limit, and
    the TF32 switches (held off for the decode phases: the reference
    computes in full float32);
@@ -26,8 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gather, LayerNorm, GeLU and the decode read at the bfloat16 decode
    path's shapes and edges, and of the LayerNorm backward pair, GeLU'
    and flash attention at the bfloat16 LM path's shapes and edges,
-   bounds at bfloat16 bytes; the softmax head's pair at the LM head's
-   (8192, 32000) in float32 and bfloat16, device time beside the bound);
+   bounds at bfloat16 bytes; the float16 instances of the same twelve
+   kernels at the same shapes and edges, and the dequant-fused matmul's
+   bfloat16 and float16 instances at the quantized path's; the softmax
+   head's pair at the LM head's (8192, 32000) in float32, bfloat16 and
+   float16, device time beside the bound);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -228,6 +233,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    PyTorch elementwise / the casts / copies), casts per step, and the
    rate of the cuBLAS group over the step's matmul flops.
 
+Then float16 (``compute_dtype="float16"``) on the same paths, with the
+bfloat16 phase functions given the dtype:
+
+38. (run after 27) phase 24 in float16: ResNet-50, plain and fused,
+   through ``Module(compute_dtype="float16").fit``, exact ``*_f16``
+   launches per step;
+39. phase 25 in float16: card vs CPU at batch 2 within ``BF16_SPREAD``
+   times the CPU's own float16-vs-float32 distance;
+40. phase 26 in float16: ResNet-50, plain and fused, served through
+   ``mx.serve.serve(compute_dtype="float16")``;
+41. ResNet-50 quantized to int8 through ``Module(quantize_symbol(...),
+   compute_dtype=...)`` in bfloat16 and float16: one rung-8 forward
+   each with exactly 1 ``qfc_matmul_bf16`` / ``qfc_matmul_f16``, 53
+   ``dequant_rows`` and the head's 16-bit softmax, then card vs CPU at
+   batch 2 within ``BF16_SPREAD`` times the CPU's own 16-bit-vs-float32
+   distance;
+42. (run after 34) phase 32 in float16: ``serve_decoder(compute_dtype=
+   "float16")`` in turns with float32, exact ``*_f16`` launches a
+   dispatch, 2L casts and write-backs, one stream teacher-forced card vs
+   CPU within ``BF16_SPREAD`` times the CPU's own float16-vs-float32
+   distance (the bfloat16 phase's 2e-2 over 8 is printed beside);
+43. phase 33 in float16: chunked prefill and speculative decoding armed;
+44. (run after 37) phase 35 in float16: the bench LM through
+   ``Module(compute_dtype="float16").fit`` in turns with float32, exact
+   ``*_f16`` launches and 99 casts a step;
+45. phase 36 in float16: one LM step card vs CPU.
+
+The profiles (phases 27, 34, 37) run in bfloat16 only.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
@@ -239,7 +273,9 @@ instances) while serving the fp8 caches, the softmax, CE-gradient and
 BatchNorm ``*_bf16`` instances while fitting and serving ResNet-50 in
 bfloat16, the decode path's four ``*_bf16`` instances while serving the
 LM in bfloat16 (phase 32), the LM-training path's four ``*_bf16``
-instances while fitting the LM in bfloat16 (phase 35), the user kernels
+instances while fitting the LM in bfloat16 (phase 35), the ``*_f16``
+instances in phases 38, 40, 42 and 44, the dequant-fused matmul's
+16-bit instances in phase 41, the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
 (the relu_user fit; their source is this script) — max abs error against
 the plain version, kernel /
@@ -277,7 +313,11 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "embedding_bf16": 0.0, "layernorm_bf16": 1.0, "bias_gelu_bf16": 1.0,
        "decode_attention_bf16": 2e-5, "layernorm_bwd_dx_bf16": 1.0,
        "layernorm_bwd_dparams_bf16": 1.0, "bias_gelu_dx_bf16": 1.0,
-       "flash_attention_bf16": 1.0}
+       "flash_attention_bf16": 1.0, "qfc_matmul_bf16": 1e-5}
+# the float16 instances: the bfloat16 instances' limits, in float16 ulps
+# where those are in ulps
+TOL.update({k.replace("_bf16", "_f16"): v for k, v in TOL.items()
+            if k.endswith("_bf16")})
 # bn_stats' error is relative to each channel's sum of squares (which also
 # bounds its sum: sum(x)^2 <= n sum(x^2)): float32 sums of up to 401,408
 # terms (the stem's channels at batch 32), taken in another order than
@@ -325,10 +365,13 @@ REPLACES = {
     "layernorm_bwd_dparams_bf16": "mxnet_tpu/ops/pallas_kernels.py:612",
     "bias_gelu_dx_bf16": "mxnet_tpu/ops/pallas_kernels.py:751",
     "flash_attention_bf16": "mxnet_tpu/rtc.py:301",
+    "qfc_matmul_bf16": "mxnet_tpu/ops/quant.py:151",
     "rtc_axpb": "mxnet_tpu/rtc.py:41",
     "relu_user": "mxnet_tpu/rtc.py:101",
     "relu_user_vjp": "mxnet_tpu/rtc.py:101",
 }
+REPLACES.update({k.replace("_bf16", "_f16"): v for k, v in REPLACES.items()
+                 if k.endswith("_bf16")})
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
     32, 8
@@ -364,6 +407,14 @@ BF16_DECODE_KERNELS = ("embedding_bf16", "layernorm_bf16", "bias_gelu_bf16",
 #: bfloat16 decode tolerance): cuBLAS and oneDNN round bfloat16 products
 #: at other places
 BF16_LOGIT_TOL = 2e-2
+#: the 16-bit compute dtypes: counter suffix, (mantissa bits, smallest
+#: normal exponent), and the decode logits' card-vs-CPU tolerance (a few
+#: ulps at 1: float16's ulp is bfloat16's over 8, and so is its
+#: tolerance; the float16 phases gate on BF16_SPREAD's rule instead and
+#: print this ratio beside it)
+HALF_SFX = {"bfloat16": "bf16", "float16": "f16"}
+HALF_BITS = {"bfloat16": (7, -126), "float16": (10, -14)}
+HALF_LOGIT_TOL = {"bfloat16": BF16_LOGIT_TOL, "float16": BF16_LOGIT_TOL / 8}
 #: the LM-training path's bfloat16 instances (phases 35-37:
 #: Module(compute_dtype="bfloat16").fit of the bench LM)
 BF16_LM_KERNELS = ("layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
@@ -484,6 +535,15 @@ def _bound_ms(nbytes, flops, peak=F32_FLOPS_PER_S):
     by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
+
+
+def _halved(names, half):
+    """The bfloat16 counter names (a tuple, or a dict's keys) for the
+    16-bit type ``half``."""
+    sfx = "_" + HALF_SFX[half]
+    if isinstance(names, dict):
+        return {k.replace("_bf16", sfx): v for k, v in names.items()}
+    return tuple(k.replace("_bf16", sfx) for k in names)
 
 
 def _max_err(a, b):
@@ -615,16 +675,19 @@ def phase_kernels(mx, ck):
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
     calls.update(_decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1))
-    calls.update(_bf16_decode_kernels(
-        ck, rs, t, rec, dict(ids=ids, w=w, scale=scale, x=x, g=g, b=b, h=h,
-                             hb=hb, kc=kc, vc=vc, q1=q1, pos1=pos1,
-                             mask=mask, live=live)))
+    f32 = dict(ids=ids, w=w, scale=scale, x=x, g=g, b=b, h=h, hb=hb, kc=kc,
+               vc=vc, q1=q1, pos1=pos1, mask=mask, live=live)
+    for half in HALF_SFX:
+        calls.update(_bf16_decode_kernels(ck, rs, t, rec, f32, half))
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
-    calls.update(_lm_bf16_kernels(ck, rs, t, rec))
+    for half in HALF_SFX:
+        calls.update(_lm_bf16_kernels(ck, rs, t, rec, half))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
+    calls.update(_quant_half_kernels(ck, rs, t, rec))
     calls.update(_bn_kernels(mx, ck, rs, t, rec))
-    calls.update(_bf16_kernels(mx, ck, rs, t, rec))
+    for half in HALF_SFX:
+        calls.update(_bf16_kernels(mx, ck, rs, t, rec, half))
     print("kernels: device_ms is CUDA events around each call with 1 GiB "
           "written before it (inputs read from device memory); the events' "
           f"floor (no call) {_device_ms(lambda: None):.6f} ms")
@@ -633,7 +696,7 @@ def phase_kernels(mx, ck):
         err = r.get("ulps", r.get("rel_err", r["max_abs_err"]))
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
               + (f"rel_err={err:.3g} " if "rel_err" in r else "")
-              + (f"bf16_ulps={err:.3g} " if "ulps" in r else "")
+              + (f"ulps={err:.3g} " if "ulps" in r else "")
               + f"(tol {TOL[name]}) kernel_ms={r['ms']:.5f} "
               f"device_ms={dev_ms} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']} "
@@ -900,7 +963,7 @@ def _lm_kernels(ck, rs, t, rec):
             "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
 
 
-def _lm_bf16_kernels(ck, rs, t, rec):
+def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
     """The LM-training path's four bfloat16 instances at the bfloat16 LM
     path's shapes (LayerNorm backward over (8192, 512), GeLU' over (8192,
     2048), causal flash attention over (8, 8, 1024, 64)) and edges: one
@@ -911,10 +974,11 @@ def _lm_bf16_kernels(ck, rs, t, rec):
     Also the softmax head's bfloat16 pair at the LM head's (8192, 32000)
     beside the float32 pair's device times. Fills ``rec``; returns the
     timed calls."""
+    sfx = HALF_SFX[half]
     import numpy as np
     import torch
     import torch.nn.functional as F
-    bf = torch.bfloat16
+    bf = getattr(torch, half)
     N, C = LM_BATCH * LM_SEQ, D
 
     def tb(a):
@@ -937,25 +1001,25 @@ def _lm_bf16_kernels(ck, rs, t, rec):
     for x, g, _b, ct, m, r in cases:
         got, want = ck.layernorm_bwd_dx(x, g, ct, m, r), \
             ck.layernorm_bwd_dx_plain(x, g, ct, m, r)
-        ulp_dx = max(ulp_dx, _bf16_ulps(got, want, atol=2e-5))
+        ulp_dx = max(ulp_dx, _half_ulps(half, got, want, atol=2e-5))
         err_dx = max(err_dx, _max_err(got, want))
         for got, want in zip(ck.layernorm_bwd_dparams(x, ct, m, r),
                              ck.layernorm_bwd_dparams_plain(x, ct, m, r)):
-            ulp_dp = max(ulp_dp, _bf16_ulps(got, want, atol=1e-4))
+            ulp_dp = max(ulp_dp, _half_ulps(half, got, want, atol=1e-4))
             err_dp = max(err_dp, _max_err(got, want))
     x, g, b, ct, m, r = cases[0]
     _, lm_mean, lm_rstd = torch.ops.aten.native_layer_norm(x, (C,), g, b,
                                                            1e-5)
     lib = _timed(lambda: torch.ops.aten.native_layer_norm_backward(
         ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True]))
-    rec["layernorm_bwd_dx_bf16"] = dict(
+    rec["layernorm_bwd_dx_" + sfx] = dict(
         max_abs_err=err_dx, ulps=ulp_dx,
         ms=_timed(lambda: ck.layernorm_bwd_dx(x, g, ct, m, r)),
         plain_ms=_timed(lambda: ck.layernorm_bwd_dx_plain(x, g, ct, m, r)),
         library_ms=lib,
         bound=_bound_ms(3 * N * C * 2 + C * 2 + 2 * N * 4, 11 * N * C,
                         BF16_FLOPS_PER_S))
-    rec["layernorm_bwd_dparams_bf16"] = dict(
+    rec["layernorm_bwd_dparams_" + sfx] = dict(
         max_abs_err=err_dp, ulps=ulp_dp,
         ms=_timed(lambda: ck.layernorm_bwd_dparams(x, ct, m, r)),
         plain_ms=_timed(lambda: ck.layernorm_bwd_dparams_plain(x, ct, m, r)),
@@ -973,9 +1037,9 @@ def _lm_bf16_kernels(ck, rs, t, rec):
                         tb(rs.randn(2, 16)))):
         got, want = ck.bias_gelu_dx(xx, bb, cc), \
             ck.bias_gelu_dx_plain(xx, bb, cc)
-        ulps = max(ulps, _bf16_ulps(got, want, atol=2e-5))
+        ulps = max(ulps, _half_ulps(half, got, want, atol=2e-5))
         err = max(err, _max_err(got, want))
-    rec["bias_gelu_dx_bf16"] = dict(
+    rec["bias_gelu_dx_" + sfx] = dict(
         max_abs_err=err, ulps=ulps,
         ms=_timed(lambda: ck.bias_gelu_dx(h, hb, hct)),
         plain_ms=_timed(lambda: ck.bias_gelu_dx_plain(h, hb, hct)),
@@ -986,17 +1050,17 @@ def _lm_bf16_kernels(ck, rs, t, rec):
     q, k, v = (tb(rs.randn(LM_BATCH, N_HEAD, LM_SEQ, Dh)) for _ in range(3))
     got, want = ck.flash_attention(q, k, v, True), \
         ck.flash_attention_plain(q, k, v, True)
-    ulps, err = _bf16_ulps(got, want, atol=2e-5), _max_err(got, want)
+    ulps, err = _half_ulps(half, got, want, atol=2e-5), _max_err(got, want)
     for shape, causal in (((2, 2, 1, Dh), True), ((1, 2, 1000, Dh), True),
                           ((2, 2, 200, 128), True), ((2, 2, 256, Dh), False),
                           ((1, 2, 300, 128), False)):
         e = [tb(rs.randn(*shape)) for _ in range(3)]
         got, want = ck.flash_attention(*e, causal), \
             ck.flash_attention_plain(*e, causal)
-        ulps = max(ulps, _bf16_ulps(got, want, atol=2e-5))
+        ulps = max(ulps, _half_ulps(half, got, want, atol=2e-5))
         err = max(err, _max_err(got, want))
     pairs = LM_BATCH * N_HEAD * LM_SEQ * (LM_SEQ + 1) // 2
-    rec["flash_attention_bf16"] = dict(
+    rec["flash_attention_" + sfx] = dict(
         max_abs_err=err, ulps=ulps,
         ms=_timed(lambda: ck.flash_attention(q, k, v, True), reps=50),
         plain_ms=_timed(lambda: ck.flash_attention_plain(q, k, v, True),
@@ -1004,16 +1068,16 @@ def _lm_bf16_kernels(ck, rs, t, rec):
         library_ms=_timed(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=50),
         bound=_bound_ms(4 * q.numel() * 2, 4 * pairs * Dh, BF16_FLOPS_PER_S))
-    print(f"kernels: LM bf16 rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}),"
-          f" flash {tuple(q.shape)} causal; flash_attention_bf16's "
+    print(f"kernels: LM {sfx} rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}),"
+          f" flash {tuple(q.shape)} causal; flash_attention_{sfx}'s "
           f"operations at the float32 CUDA-core rate it computes in would "
           f"take {4 * pairs * Dh / F32_FLOPS_PER_S * 1e3:.6f} ms")
     # the softmax head's pair at the LM head's (8192, 32000)
     head = torch.randn(N, V, device=q.device,
                        generator=torch.Generator(q.device).manual_seed(SEED))
     lab = t(rs.randint(0, V, N).astype(np.float32))
-    for dtype, tag, peak in ((torch.float32, "", F32_FLOPS_PER_S),
-                             (bf, "_bf16", BF16_FLOPS_PER_S)):
+    heads = ((torch.float32, "", F32_FLOPS_PER_S),) * (half == "bfloat16")
+    for dtype, tag, peak in heads + ((bf, "_" + sfx, BF16_FLOPS_PER_S),):
         z = (4 * head).to(dtype)
         p = ck.softmax(z)
         nb = N * V * z.element_size()
@@ -1024,12 +1088,12 @@ def _lm_bf16_kernels(ck, rs, t, rec):
               f"{_device_ms(lambda: ck.softmax_ce_bwd(p, lab, 1.0), reps=10)}"
               f" bound_ms={_bound_ms(2 * nb + N * 4, 3 * N * V, peak)[0]:.6f}")
     del head, z, p
-    return {"layernorm_bwd_dx_bf16": lambda: ck.layernorm_bwd_dx(x, g, ct, m,
+    return {"layernorm_bwd_dx_" + sfx: lambda: ck.layernorm_bwd_dx(x, g, ct, m,
                                                                  r),
-            "layernorm_bwd_dparams_bf16": lambda: ck.layernorm_bwd_dparams(
+            "layernorm_bwd_dparams_" + sfx: lambda: ck.layernorm_bwd_dparams(
                 x, ct, m, r),
-            "bias_gelu_dx_bf16": lambda: ck.bias_gelu_dx(h, hb, hct),
-            "flash_attention_bf16": lambda: ck.flash_attention(q, k, v,
+            "bias_gelu_dx_" + sfx: lambda: ck.bias_gelu_dx(h, hb, hct),
+            "flash_attention_" + sfx: lambda: ck.flash_attention(q, k, v,
                                                                True)}
 
 
@@ -1136,6 +1200,48 @@ def _quant_kernels(mx, ck, rs, t, rec):
                                      for a in convs["int8"]]}
 
 
+def _quant_half_kernels(ck, rs, t, rec):
+    """The dequant-fused matmul's bfloat16 and float16 instances (a
+    quantized graph under compute_dtype), int8 and float8_e4m3fn weights:
+    x in the 16-bit type at ResNet-50's fc1 rung 8 ((8, 2048) x (1000,
+    2048)) and at edges (M = 1, 257; K = 13; N = 1, 1001), held within
+    TOL (1e-5) of the output's largest magnitude of the plain version on
+    the same values (x widened exactly, float32 sums, float32 out). Timed
+    with
+    int8 weights. Fills ``rec``; returns the timed calls."""
+    import numpy as np
+    import torch
+    storages = (torch.int8, torch.float8_e4m3fn)
+    calls = {}
+    m, k, n = QUANT_RUNGS[-1], 2048, TRAIN_CLASSES
+    w = _quant_weight(rs, t, n, k, torch.int8)
+    s = t(np.abs(rs.randn(n)).astype(np.float32) / 100 + 1e-3)
+    for half, sfx in HALF_SFX.items():
+        dt = getattr(torch, half)
+        err_q = rel_q = 0.0
+        for st in storages:
+            for mm, kk, nn in ((m, k, n), (1, 2048, 1000), (257, 64, 33),
+                               (5, 13, 7), (3, 300, 1), (4, 64, 1001)):
+                x = t(rs.randn(mm, kk).astype(np.float32)).to(dt)
+                ww = _quant_weight(rs, t, nn, kk, st)
+                ss = t(np.abs(rs.randn(nn)).astype(np.float32) / 100 + 1e-3)
+                ref = ck.qfc_matmul_plain(x, ww, ss)
+                err = _max_err(ck.qfc_matmul(x, ww, ss), ref)
+                err_q = max(err_q, err)
+                rel_q = max(rel_q, err / max(float(ref.abs().max()), 1e-30))
+        x8 = t(rs.randn(m, k).astype(np.float32)).to(dt)
+        name = "qfc_matmul_" + sfx
+        rec[name] = dict(
+            max_abs_err=err_q, rel_err=rel_q,
+            ms=_timed(lambda x8=x8: ck.qfc_matmul(x8, w, s)),
+            plain_ms=_timed(lambda x8=x8: ck.qfc_matmul_plain(x8, w, s)),
+            library_ms=None,    # no PyTorch call takes an int8 weight here
+            bound=_bound_ms(m * k * 2 + n * k + n * 4 + m * n * 4,
+                            2 * m * n * k))
+        calls[name] = lambda x8=x8: ck.qfc_matmul(x8, w, s)
+    return calls
+
+
 def _stats_err(ck, x):
     """bn_stats against its plain version: the largest error of a
     channel's sum or sum of squares, relative to its sum of squares."""
@@ -1214,21 +1320,22 @@ def _bn_kernels(mx, ck, rs, t, rec):
                                       for x, p in zip(xs, ss)]}
 
 
-def _bf16_ulps(a, b, atol=0.0):
-    """Largest |a - b|, less ``atol``, in bfloat16 ulps of the larger
-    magnitude (values below the normal range in ulps of the smallest
-    normal)."""
+def _half_ulps(half, a, b, atol=0.0):
+    """Largest |a - b|, less ``atol``, in ulps of the 16-bit type ``half``
+    at the larger magnitude (values below the normal range in ulps of the
+    smallest normal)."""
     import torch
+    bits, emin = HALF_BITS[half]
     a, b = a.double(), b.double()
     mag = torch.maximum(torch.maximum(a.abs(), b.abs()),
-                        torch.tensor(2.0 ** -126, dtype=torch.float64,
+                        torch.tensor(2.0 ** emin, dtype=torch.float64,
                                      device=a.device))
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
     over = ((a - b).abs() - atol).clamp(min=0.0)
     return float((over / ulp).max()) if a.numel() else 0.0
 
 
-def _bf16_decode_kernels(ck, rs, t, rec, f32):
+def _bf16_decode_kernels(ck, rs, t, rec, f32, half="bfloat16"):
     """The decode path's four bfloat16 instances at the bfloat16 decode
     path's shapes (phase 2's float32 inputs ``f32`` rounded to bfloat16:
     8 ids into the (32000, 512) table, LayerNorm (8, 512), GeLU (8, 2048),
@@ -1239,10 +1346,11 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
     statistics within 2e-5), the read within 2e-5 of its plain version on
     the same values. Bounds at bfloat16 bytes (the read's output float32).
     Fills ``rec``; returns the timed calls."""
+    sfx = HALF_SFX[half]
     import numpy as np
     import torch
     import torch.nn.functional as F
-    bf = torch.bfloat16
+    bf = getattr(torch, half)
 
     def tb(a):
         return t(a).to(bf)
@@ -1261,7 +1369,7 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
             err = max(err, _max_err(ck.embedding(ii, ww, sc),
                                     ck.embedding_plain(ii, ww, sc)))
     n = ids.numel()
-    rec["embedding_bf16"] = dict(
+    rec["embedding_" + sfx] = dict(
         max_abs_err=err, ms=_timed(lambda: ck.embedding(ids, w, scale)),
         plain_ms=_timed(lambda: ck.embedding_plain(ids, w, scale)),
         library_ms=None,    # no single PyTorch call gathers AND scales
@@ -1276,13 +1384,13 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
                        (skew(4 * D, 4, D), g, b)):
         got, ref = ck.layernorm(xx, gg, bb, 1e-5), \
             ck.layernorm_plain(xx, gg, bb, 1e-5)
-        ulps = max(ulps, _bf16_ulps(got[0], ref[0], atol=2e-5))
+        ulps = max(ulps, _half_ulps(half, got[0], ref[0], atol=2e-5))
         abs_err = max(abs_err, _max_err(got[0], ref[0]))
         stat_err = max(stat_err, *(_max_err(p, q)
                                    for p, q in zip(got[1:], ref[1:])))
     if not stat_err <= 2e-5:
         raise AssertionError(f"layernorm_bf16: mean/rstd off by {stat_err}")
-    rec["layernorm_bf16"] = dict(
+    rec["layernorm_" + sfx] = dict(
         max_abs_err=abs_err, ulps=ulps,
         ms=_timed(lambda: ck.layernorm(x, g, b, 1e-5)),
         plain_ms=_timed(lambda: ck.layernorm_plain(x, g, b, 1e-5)),
@@ -1295,9 +1403,9 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
                    (tb(rs.randn(1, 4)), tb(rs.randn(4))),
                    (skew(8 * 4 * D, 8, 4 * D), hb)):
         got, ref = ck.bias_gelu(xx, bb), ck.bias_gelu_plain(xx, bb)
-        ulps = max(ulps, _bf16_ulps(got, ref, atol=2e-5))
+        ulps = max(ulps, _half_ulps(half, got, ref, atol=2e-5))
         abs_err = max(abs_err, _max_err(got, ref))
-    rec["bias_gelu_bf16"] = dict(
+    rec["bias_gelu_" + sfx] = dict(
         max_abs_err=abs_err, ulps=ulps,
         ms=_timed(lambda: ck.bias_gelu(h, hb)),
         plain_ms=_timed(lambda: ck.bias_gelu_plain(h, hb)),
@@ -1314,7 +1422,7 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
     err = max(err, _max_err(ck.decode_attention(q16, kc, vc, edge),
                             ck.decode_attention_plain(q16, kc, vc, edge)))
     live = int(f32["live"].sum())
-    rec["decode_attention_bf16"] = dict(
+    rec["decode_attention_" + sfx] = dict(
         max_abs_err=err,
         ms=_timed(lambda: ck.decode_attention(q1, kc, vc, pos1)),
         plain_ms=_timed(lambda: ck.decode_attention_plain(q1, kc, vc, pos1)),
@@ -1322,14 +1430,14 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32):
             q1, kc, vc, attn_mask=f32["mask"])),
         bound=_bound_ms(q1.numel() * (2 + 4) + B * 4 + live * H * Dh * 2 * 2,
                         live * H * Dh * 4, BF16_FLOPS_PER_S))
-    return {"embedding_bf16": lambda: ck.embedding(ids, w, scale),
-            "layernorm_bf16": lambda: ck.layernorm(x, g, b, 1e-5),
-            "bias_gelu_bf16": lambda: ck.bias_gelu(h, hb),
-            "decode_attention_bf16": lambda: ck.decode_attention(q1, kc, vc,
+    return {"embedding_" + sfx: lambda: ck.embedding(ids, w, scale),
+            "layernorm_" + sfx: lambda: ck.layernorm(x, g, b, 1e-5),
+            "bias_gelu_" + sfx: lambda: ck.bias_gelu(h, hb),
+            "decode_attention_" + sfx: lambda: ck.decode_attention(q1, kc, vc,
                                                                  pos1)}
 
 
-def _bf16_kernels(mx, ck, rs, t, rec):
+def _bf16_kernels(mx, ck, rs, t, rec, half="bfloat16"):
     """The four bfloat16 instances at the bfloat16 ResNet-50 path's shapes
     (the (32, 1000) head; the fused net's 33 conv outputs per batch-32
     step, the stem's (32, 64, 112, 112) alone printed beside) and edges:
@@ -1342,9 +1450,10 @@ def _bf16_kernels(mx, ck, rs, t, rec):
     apply pass bit for bit, the statistics relative to each channel's sum
     of squares. Bounds at bfloat16 bytes. Fills ``rec``; returns the
     timed calls."""
+    sfx = HALF_SFX[half]
     import numpy as np
     import torch
-    bf = torch.bfloat16
+    bf = getattr(torch, half)
     N, C = TRAIN_BATCH, TRAIN_CLASSES
 
     def tb(a):
@@ -1354,12 +1463,12 @@ def _bf16_kernels(mx, ck, rs, t, rec):
         """A contiguous bfloat16 view 2 bytes off its allocation."""
         return tb(4 * rs.randn(1 + n).astype(np.float32))[1:].view(*shape)
     x = tb(4 * rs.randn(N, C).astype(np.float32))
-    ulps = _bf16_ulps(ck.softmax(x), ck.softmax_plain(x))
+    ulps = _half_ulps(half, ck.softmax(x), ck.softmax_plain(x))
     for e in [tb(4 * rs.randn(*sh).astype(np.float32))
               for sh in ((1, 7), (3, 1025), (2, 65536), (4, 2))] + \
             [skew(4 * C, 4, C)]:
-        ulps = max(ulps, _bf16_ulps(ck.softmax(e), ck.softmax_plain(e)))
-    rec["softmax_bf16"] = dict(
+        ulps = max(ulps, _half_ulps(half, ck.softmax(e), ck.softmax_plain(e)))
+    rec["softmax_" + sfx] = dict(
         max_abs_err=_max_err(ck.softmax(x), ck.softmax_plain(x)), ulps=ulps,
         ms=_timed(lambda: ck.softmax(x)),
         plain_ms=_timed(lambda: ck.softmax_plain(x)),
@@ -1378,7 +1487,7 @@ def _bf16_kernels(mx, ck, rs, t, rec):
                 want = ck.softmax_ce_bwd_plain(pp, ll, s, u, -1.0)
                 if not torch.equal(got, want):
                     err = max(err, _max_err(got, want), 1e-30)
-    rec["softmax_ce_bwd_bf16"] = dict(
+    rec["softmax_ce_bwd_" + sfx] = dict(
         max_abs_err=err, ms=_timed(lambda: ck.softmax_ce_bwd(p, lab, 1.0)),
         plain_ms=_timed(lambda: ck.softmax_ce_bwd_plain(p, lab, 1.0)),
         library_ms=None,     # no one PyTorch call emits this gradient
@@ -1405,13 +1514,13 @@ def _bf16_kernels(mx, ck, rs, t, rec):
     elems = sum(int(np.prod(sh)) for sh in shapes)
     chans = sum(sh[1] for sh in shapes)
     stem = xs[0]
-    print(f"kernels: the bfloat16 BatchNorm pair over the fused ResNet-50 "
+    print(f"kernels: the {half} BatchNorm pair over the fused ResNet-50 "
           f"step's {len(shapes)} conv outputs ({elems} values, "
           f"{2 * elems / 1e6:.1f} MB); stem {tuple(stem.shape)} alone: "
-          f"bn_stats_bf16 {_timed(lambda: ck.bn_stats(stem)):.5f} ms, "
-          f"bn_apply_relu_bf16 "
+          f"bn_stats_{sfx} {_timed(lambda: ck.bn_stats(stem)):.5f} ms, "
+          f"bn_apply_relu_{sfx} "
           f"{_timed(lambda: ck.bn_apply_relu(stem, *ss[0])):.5f} ms")
-    rec["bn_stats_bf16"] = dict(
+    rec["bn_stats_" + sfx] = dict(
         max_abs_err=abs_s, rel_err=rel_s,
         ms=_timed(lambda: [ck.bn_stats(xx) for xx in xs], reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_stats_plain(xx) for xx in xs],
@@ -1421,7 +1530,7 @@ def _bf16_kernels(mx, ck, rs, t, rec):
                                                   unbiased=False)
                                    for xx in xs], reps=20, warm=2),
         bound=_bound_ms(2 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
-    rec["bn_apply_relu_bf16"] = dict(
+    rec["bn_apply_relu_" + sfx] = dict(
         max_abs_err=abs_a,
         ms=_timed(lambda: [ck.bn_apply_relu(xx, *q)
                            for xx, q in zip(xs, ss)], reps=50, warm=5),
@@ -1429,10 +1538,10 @@ def _bf16_kernels(mx, ck, rs, t, rec):
                                  for xx, q in zip(xs, ss)], reps=20, warm=2),
         library_ms=None,    # no one PyTorch call scales, shifts and clamps
         bound=_bound_ms(4 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
-    return {"softmax_bf16": lambda: ck.softmax(x),
-            "softmax_ce_bwd_bf16": lambda: ck.softmax_ce_bwd(p, lab, 1.0),
-            "bn_stats_bf16": lambda: [ck.bn_stats(xx) for xx in xs],
-            "bn_apply_relu_bf16": lambda: [ck.bn_apply_relu(xx, *q)
+    return {"softmax_" + sfx: lambda: ck.softmax(x),
+            "softmax_ce_bwd_" + sfx: lambda: ck.softmax_ce_bwd(p, lab, 1.0),
+            "bn_stats_" + sfx: lambda: [ck.bn_stats(xx) for xx in xs],
+            "bn_apply_relu_" + sfx: lambda: [ck.bn_apply_relu(xx, *q)
                                            for xx, q in zip(xs, ss)]}
 
 
@@ -2317,6 +2426,69 @@ def phase_quant_parity(mx, mod, servers):
                                  "disagree")
 
 
+def phase_quant_half(mx, ck, mod):
+    """ResNet-50 quantized to int8 (phase 12's parameters) through
+    ``Module(quantize_symbol(...), compute_dtype=...)`` on gpu(0), in
+    bfloat16 and in float16: one rung-8 forward each, which launches
+    exactly one 16-bit matmul instance (``qfc_matmul_bf16`` /
+    ``qfc_matmul_f16``), 53 ``dequant_rows`` and the head's 16-bit
+    softmax, and nothing else, and
+    answers in the compute dtype. Then a batch-2 forward of the same on the
+    card and on the CPU in the compute dtype, beside the CPU's float32
+    quantized forward, TF32 off: the card's centered logits within
+    BF16_SPREAD times the CPU's own 16-bit-vs-float32 distance. Returns
+    {counter: launches}."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import quant
+    print(_tf32(False) + " (quantized half-precision phase)")
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in mod.get_params())
+    qsym, qargs = quant.quantize_symbol(mod._symbol, args, dtype="int8")
+    n_conv = sum(n.op == "QuantizedConvolution"
+                 for n in qsym._topo_nodes())
+    rung = QUANT_RUNGS[-1]
+    X8, X2 = _images(rung, SEED + 7)[0], _images(2, SEED + 6)[0]
+
+    def forward(ctx, X, cd):
+        m = mx.mod.Module(qsym, context=ctx, compute_dtype=cd)
+        m.bind([("data", X.shape)], [("softmax_label", (len(X),))],
+               for_training=False)
+        m.init_params(arg_params=qargs, aux_params=auxs)
+        m.forward(mx.io.DataBatch([X], None), is_train=False)
+        return m.get_outputs()[0]
+    launches = {}
+    z32 = _centered_log(forward(mx.cpu(), X2, None).asnumpy())
+    for half, sfx in HALF_SFX.items():
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = forward(mx.gpu(0), X8, half)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        want = {"qfc_matmul_" + sfx: 1, "dequant_rows": n_conv,
+                "softmax_" + sfx: 1}
+        print(f"quant {sfx}: int8 ResNet-50 under compute_dtype={half}, "
+              f"rung {rung} forward (bind included) {wall:.3f} s, launches "
+              f"{counts}, output {out.astorch().dtype}")
+        if counts != want or out.astorch().dtype != getattr(torch, half):
+            raise AssertionError(f"quant {sfx}: launches {counts}, want "
+                                 f"{want}; output {out.astorch().dtype}")
+        launches["qfc_matmul_" + sfx] = counts["qfc_matmul_" + sfx]
+        z = [_centered_log(forward(ctx, X2, half).asnumpy()
+                           .astype(np.float32))
+             for ctx in (mx.gpu(0), mx.cpu())]
+        d = float(np.abs(z[0] - z[1]).max())
+        own = float(np.abs(z[1] - z32).max())
+        print(f"quant {sfx} parity: batch 2, centered logits card vs CPU "
+              f"{d:.4g}, CPU {half} vs float32 {own:.4g} (limit "
+              f"{BF16_SPREAD} x)")
+        if not (np.isfinite(z[0]).all() and d <= BF16_SPREAD * own):
+            raise AssertionError(f"quant {sfx}: card and CPU disagree "
+                                 f"beyond {half}'s own spread")
+    return launches
+
+
 def _quant_group(key):
     for name in ("dequant_rows", "qfc_matmul"):
         if name in key:
@@ -2636,36 +2808,38 @@ def _bf16_cells(label, mod):
         raise AssertionError(f"{label}: cells left float32: {got}")
 
 
-def phase_bf16_train(mx, ck):
-    """ResNet-50, plain and fused, through Module(compute_dtype="bfloat16")
+def phase_bf16_train(mx, ck, half="bfloat16"):
+    """ResNet-50, plain and fused, through Module(compute_dtype=half)
     .fit on gpu(0): phase 5's data, Xavier seed and SGD, batch 32, 8
     batches, telemetry on. Exactly the bfloat16 instances launch (1
     softmax + 1 CE gradient, and for the fused net 33 + 33 BatchNorm
     kernels) beside 157 float32 sgd_mom per step, and nothing else.
     Returns ({net: launch counts}, {net: module})."""
+    sfx = HALF_SFX[half]
     import torch
-    print(_tf32(True) + " (PyTorch's default; cuDNN's bfloat16 "
+    print(_tf32(True) + f" (PyTorch's default; cuDNN's {half} "
           "convolutions do not read it)")
     counts, mods = {}, {}
     for net, build in (("plain", _resnet50), ("fused", _fused50)):
         X, y = _images(TRAIN_BATCH * TRAIN_STEPS, SEED)
         it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
         mod = mx.mod.Module(build(mx), context=mx.gpu(0),
-                            compute_dtype="bfloat16")
+                            compute_dtype=half)
         mod.bind(it.provide_data, it.provide_label)
         mod.init_params(mx.initializer.Xavier(
             rng=torch.Generator().manual_seed(SEED)))
-        label = f"bf16 {net} train"
+        label = f"{sfx} {net} train"
         counts[net], per_step = _fit_phase(
             mx, ck, mod, it, label, TRAIN_BATCH, "img",
             ("conv0_weight", "fc1_weight"), optimizer_params=SGD)
         n_cbr = sum(n.op == "FusedConvBNReLU"
                     for n in mod.symbol._topo_nodes())
         want = dict.fromkeys(per_step, 0)
-        want.update(softmax_bf16=1, softmax_ce_bwd_bf16=1,
-                    sgd_mom=len(mod.get_params()[0]))
+        want.update({"softmax_" + sfx: 1, "softmax_ce_bwd_" + sfx: 1,
+                     "sgd_mom": len(mod.get_params()[0])})
         if n_cbr:
-            want.update(bn_stats_bf16=n_cbr, bn_apply_relu_bf16=n_cbr)
+            want.update({"bn_stats_" + sfx: n_cbr,
+                         "bn_apply_relu_" + sfx: n_cbr})
         print(f"{label}: want per step "
               f"{ {k: v for k, v in want.items() if v} }, nothing else")
         if per_step != want:
@@ -2691,7 +2865,7 @@ def _bf16_forward(mx, sym, args, auxs, ctx, X, y, cd, is_train):
     return p, loss
 
 
-def phase_bf16_parity(mx):
+def phase_bf16_parity(mx, half="bfloat16"):
     """ResNet-50 in bfloat16 at batch 2, card against the port's CPU run
     from the same parameters (phase 6's, with random BatchNorm statistics
     and affine), TF32 off: the inference forward and the first training
@@ -2699,8 +2873,9 @@ def phase_bf16_parity(mx):
     and oneDNN, so the card is held to the CPU within BF16_SPREAD times
     the distance between the CPU's own bfloat16 and float32 runs: the
     centered log-probabilities (max abs) and the loss."""
+    sfx = HALF_SFX[half]
     import numpy as np
-    print(_tf32(False) + " (bf16 parity phase)")
+    print(_tf32(False) + f" ({sfx} parity phase)")
     args, auxs, X, y = _resnet50_start(mx, 2)
     rs = np.random.RandomState(SEED + 9)
     args = {k: ((1 + 0.2 * rs.randn(*v.shape)) if k.endswith("_gamma")
@@ -2714,8 +2889,8 @@ def phase_bf16_parity(mx):
         t0 = time.perf_counter()
         runs = {k: _bf16_forward(mx, sym, args, auxs, ctx, X, y, cd,
                                  is_train)
-                for k, ctx, cd in (("card", mx.gpu(0), "bfloat16"),
-                                   ("cpu", mx.cpu(), "bfloat16"),
+                for k, ctx, cd in (("card", mx.gpu(0), half),
+                                   ("cpu", mx.cpu(), half),
                                    ("cpu32", mx.cpu(), None))}
         z = {k: _centered_log(p) for k, (p, _) in runs.items()}
         d = float(np.abs(z["card"] - z["cpu"]).max())
@@ -2725,8 +2900,8 @@ def phase_bf16_parity(mx):
         # centered log-probs' spread bounds a row's log-prob moves too
         spread_l = max(abs(runs["cpu"][1] - runs["cpu32"][1]), spread)
         mode = "training step's forward" if is_train else "inference"
-        print(f"bf16 parity ({mode}, batch 2, {time.perf_counter() - t0:.1f}"
-              f" s): centered log-probs card vs CPU {d:.4g}, CPU bfloat16 "
+        print(f"{sfx} parity ({mode}, batch 2, {time.perf_counter() - t0:.1f}"
+              f" s): centered log-probs card vs CPU {d:.4g}, CPU {half} "
               f"vs float32 {spread:.4g} (limit {BF16_SPREAD} x); loss card "
               f"{runs['card'][1]:.6f} CPU {runs['cpu'][1]:.6f} float32 "
               f"{runs['cpu32'][1]:.6f} (limit {BF16_SPREAD} x "
@@ -2735,13 +2910,13 @@ def phase_bf16_parity(mx):
         if not (np.isfinite(z["card"]).all() and
                 d <= BF16_SPREAD * spread and
                 dl <= BF16_SPREAD * spread_l):
-            raise AssertionError(f"bf16 parity ({mode}): card and CPU "
-                                 "disagree beyond bfloat16's own spread")
+            raise AssertionError(f"{sfx} parity ({mode}): card and CPU "
+                                 f"disagree beyond {half}'s own spread")
 
 
-def phase_bf16_serve(mx, ck, plain_mod, plain_outs):
+def phase_bf16_serve(mx, ck, plain_mod, plain_outs, half="bfloat16"):
     """ResNet-50, plain and fused, served in bfloat16 through
-    mx.serve.serve(compute_dtype="bfloat16") at ladder QUANT_RUNGS with
+    mx.serve.serve(compute_dtype=half) at ladder QUANT_RUNGS with
     phase 12's scripted requests and parameters: req/s, p50/p99, nothing
     loaded after warmup, exactly 1 softmax_bf16 (+ 33 bn_apply_relu_bf16
     for the fused net) per forward and no float32 instance, outputs
@@ -2749,9 +2924,10 @@ def phase_bf16_serve(mx, ck, plain_mod, plain_outs):
     bits, as the int8 tier's weights keep about 8, and rounds the
     activations too), top-1 agreement reported. Returns ({kernel counter:
     launches}, {net: server})."""
+    sfx = HALF_SFX[half]
     import numpy as np
     from mxnet_tpu_torch.ops import quant
-    print(_tf32(True) + " (bf16 serving phase)")
+    print(_tf32(True) + f" ({sfx} serving phase)")
     rung = QUANT_RUNGS[-1]
     args, auxs = ({k: v.asnumpy() for k, v in d.items()}
                   for d in plain_mod.get_params())
@@ -2769,14 +2945,14 @@ def phase_bf16_serve(mx, ck, plain_mod, plain_outs):
                     for n in mod.symbol._topo_nodes())
         libs = ("softmax", "bn_apply_relu") if n_cbr else ("softmax",)
         server, warm_loads, forwards, _, outs = _serve_ladder(
-            mx, ck, mod, f"bf16 {net}", libs, compute_dtype="bfloat16")
+            mx, ck, mod, f"{sfx} {net}", libs, compute_dtype=half)
         counts = ck.launch_counts()
         want = dict.fromkeys(counts, 0)
-        want["softmax_bf16"] = forwards
+        want["softmax_" + sfx] = forwards
         if n_cbr:
-            want["bn_apply_relu_bf16"] = n_cbr * forwards
+            want["bn_apply_relu_" + sfx] = n_cbr * forwards
         if warm_loads != len(libs) or counts != want:
-            raise AssertionError(f"bf16 {net} serve: warmup loaded "
+            raise AssertionError(f"{sfx} {net} serve: warmup loaded "
                                  f"{warm_loads} libraries (want "
                                  f"{len(libs)}), launches "
                                  f"{ {k: v for k, v in counts.items() if v} }"
@@ -2786,14 +2962,14 @@ def phase_bf16_serve(mx, ck, plain_mod, plain_outs):
         got = np.concatenate(outs)
         zg, zr = _centered_log(got), _centered_log(ref)
         top1 = float((got.argmax(1) == ref.argmax(1)).mean())
-        print(f"bf16 {net} serve: max |prob - float32 ladder's| = "
+        print(f"{sfx} {net} serve: max |prob - float32 ladder's| = "
               f"{float(np.abs(got - ref).max()):.3g} (tolerance "
               f"{quant.INT8_TOL}); centered logits "
               f"{float(np.abs(zg - zr).max()) / float(np.abs(zr).max()):.3g}"
               f" of the float32 ladder's largest apart; top-1 agreement "
               f"{top1:.3f} over {len(got)} rows (not gated)")
         if not np.allclose(got, ref, **quant.INT8_TOL):
-            raise AssertionError(f"bf16 {net} serve leaves INT8_TOL of the "
+            raise AssertionError(f"{sfx} {net} serve leaves INT8_TOL of the "
                                  "float32 ladder")
         servers[net] = server
     return launches, servers
@@ -3218,19 +3394,19 @@ def phase_fastpath_profile(mx, prefill_sched, spec_sched, steps=4):
 # --------------------------------------------------------------------------
 # phases 32-34: LM decode serving in bfloat16 (compute_dtype)
 # --------------------------------------------------------------------------
-def _bf16_within(a, b):
-    """(worst |a - b|, worst |a - b| / (BF16_LOGIT_TOL * (1 + |b|))):
-    the second is at most 1 when a is within BF16_LOGIT_TOL of b, atol and
-    rtol."""
+def _bf16_within(a, b, half="bfloat16"):
+    """(worst |a - b|, worst |a - b| / (tol * (1 + |b|))) with tol the
+    16-bit type's HALF_LOGIT_TOL: the second is at most 1 when a is within
+    tol of b, atol and rtol."""
     import numpy as np
     d = np.abs(a - b)
-    return float(d.max()), float((d / (BF16_LOGIT_TOL *
-                                       (1 + np.abs(b)))).max())
+    tol = HALF_LOGIT_TOL[half]
+    return float(d.max()), float((d / (tol * (1 + np.abs(b)))).max())
 
 
-def phase_bf16_decode(mx, ck, params, prompts):
+def phase_bf16_decode(mx, ck, params, prompts, half="bfloat16"):
     """Phase 3's serving in bfloat16 mixed precision: the full-width model
-    through ``serve_decoder(compute_dtype="bfloat16")``'s dispatch thread
+    through ``serve_decoder(compute_dtype=half)``'s dispatch thread
     with phase 3's prompts and arrivals, alternated with the float32
     ladder (float32, bfloat16, bfloat16, float32). Each run: the four
     decode libraries unloaded first so that warmup loads them (and nothing
@@ -3239,14 +3415,15 @@ def phase_bf16_decode(mx, ck, params, prompts):
     kernel —, the cast layer's casts and write-backs exactly the 2L caches
     a dispatch (the parameters' casts are kept). Then request 0's bfloat16
     stream (prompt + 8 served tokens) teacher-forced on the card and on
-    the CPU in bfloat16: logits within BF16_LOGIT_TOL, every served token
+    the CPU in bfloat16: logits within HALF_LOGIT_TOL[half], every served token
     the CPU's argmax or a near-tie. Returns (the bfloat16 runs' launches,
     {label: the last scheduler}, the bfloat16 chains)."""
+    sfx = HALF_SFX[half]
     import numpy as np
-    print(_tf32(False) + " (bf16 decode phases)")
+    print(_tf32(False) + f" ({sfx} decode phases)")
     sym = _gen()(1)
     rates, last, bf16_counts = {}, {}, None
-    for cd in (None, "bfloat16", "bfloat16", None):
+    for cd in (None, half, half, None):
         label = cd or "float32"
         _unload(ck, DECODE_KERNELS)
         t0 = time.perf_counter()
@@ -3261,7 +3438,7 @@ def phase_bf16_decode(mx, ck, params, prompts):
         counts, casts = ck.launch_counts(), mx.executor.cast_counts()
         st = sched.stats()
         its, n_tok = st["iterations"], sum(len(o) for o in outs)
-        print(f"bf16 decode: {label}: built and warmed in {warm_s:.2f} s, "
+        print(f"{sfx} decode: {label}: built and warmed in {warm_s:.2f} s, "
               f"{sched.engine.warmup_compiles} kernel libraries loaded by "
               f"warmup, compiles_since_warmup {st['compiles_since_warmup']};"
               f" {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
@@ -3269,13 +3446,13 @@ def phase_bf16_decode(mx, ck, params, prompts):
               f"{st['migrations']} migrations; cast layer {casts}")
         _check_served(outs, st)
         if cd:
-            _decode_launches(f"bf16 decode {label}", counts, its,
-                             read="decode_attention_bf16", suffix="_bf16")
+            _decode_launches(f"{sfx} decode {label}", counts, its,
+                             read="decode_attention_" + sfx, suffix="_" + sfx)
             bf16_counts = {k: counts[k] + (bf16_counts or {}).get(k, 0)
-                           for k in BF16_DECODE_KERNELS}
+                           for k in _halved(BF16_DECODE_KERNELS, half)}
             chains = [o.tolist() for o in outs]
         else:
-            _decode_launches(f"bf16 decode {label}", counts, its)
+            _decode_launches(f"{sfx} decode {label}", counts, its)
         per = 2 * N_LAYER * its if cd else 0
         if casts != {"casts": per, "write_backs": per}:
             raise AssertionError(f"{label}: cast layer {casts}, want {per} "
@@ -3286,12 +3463,12 @@ def phase_bf16_decode(mx, ck, params, prompts):
                                  "libraries, or a library loaded after it")
         rates.setdefault(label, []).append(n_tok / wall)
         last[label] = sched
-    f32, bf = (np.mean(rates[k]) for k in ("float32", "bfloat16"))
-    print(f"bf16 decode: tokens/s float32 {rates['float32']} (mean "
-          f"{f32:.1f}), bfloat16 {rates['bfloat16']} (mean {bf:.1f}): "
-          f"bfloat16 {100 * (bf / f32 - 1):+.1f}%")
+    f32, bf = (np.mean(rates[k]) for k in ("float32", half))
+    print(f"{sfx} decode: tokens/s float32 {rates['float32']} (mean "
+          f"{f32:.1f}), {half} {rates[half]} (mean {bf:.1f}): "
+          f"{half} {100 * (bf / f32 - 1):+.1f}%")
     stream = prompts[0] + chains[0][:8]
-    gpu, cpu = (_decoder(mx, sym, params, ctx, compute_dtype="bfloat16")
+    gpu, cpu = (_decoder(mx, sym, params, ctx, compute_dtype=half)
                 for ctx in (mx.gpu(0), mx.cpu()))
     cpu32 = _decoder(mx, sym, params, mx.cpu())
     worst = ratio = own = 0.0
@@ -3301,30 +3478,35 @@ def phase_bf16_decode(mx, ck, params, prompts):
         a, b, c = (d.step(np.asarray([[tok]])).asnumpy()[0, 0]
                    for d in (gpu, cpu, cpu32))
         if a.shape != (V,) or not np.isfinite(a).all():
-            raise AssertionError(f"bf16 step {i}: logits {a.shape} not "
+            raise AssertionError(f"{sfx} step {i}: logits {a.shape} not "
                                  "finite")
-        w, r = _bf16_within(a, b)
+        w, r = _bf16_within(a, b, half)
         worst, ratio = max(worst, w), max(ratio, r)
         own = max(own, float(np.abs(b - c).max()))
         top = float(b.max())
         if i >= PROMPT - 1 and b[stream[i + 1]] < \
-                top - 2 * BF16_LOGIT_TOL * (1 + abs(top)):
+                top - 2 * HALF_LOGIT_TOL[half] * (1 + abs(top)):
             raise AssertionError(f"bf16: served token {stream[i + 1]} at "
                                  f"step {i} is not the CPU argmax "
                                  f"{int(b.argmax())} nor a near-tie")
-    print(f"bf16 decode: teacher-forced {len(stream) - 1} steps: max "
+    print(f"{sfx} decode: teacher-forced {len(stream) - 1} steps: max "
           f"|logit card - cpu| = {worst:.3g}, {ratio:.3f} of the tolerance "
-          f"({BF16_LOGIT_TOL} atol and rtol); the CPU's own bfloat16 vs "
+          f"({HALF_LOGIT_TOL[half]} atol and rtol); the CPU's own {half} vs "
           f"float32 distance {own:.3g}")
-    if not ratio <= 1.0:
-        raise AssertionError("bf16 card and CPU logits disagree")
+    # float16 is held by the spread rule (its card-vs-CPU distance sits
+    # at the edge of bfloat16's tolerance over 8), bfloat16 by that
+    # tolerance
+    if not (ratio <= 1.0 if half == "bfloat16"
+            else worst <= BF16_SPREAD * own):
+        raise AssertionError(f"{sfx} card and CPU logits disagree")
     return bf16_counts, last, chains
 
 
-def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32):
+def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32,
+                         half="bfloat16"):
     """Chunked prefill and speculative decoding armed under bfloat16:
     phase 3's prompts through one ``serve_decoder(compute_dtype=
-    "bfloat16", symbol_gen=, prefill_chunk=64, draft_symbol_gen=,
+    half, symbol_gen=, prefill_chunk=64, draft_symbol_gen=,
     spec_k=4)`` (phase 20's 1-layer draft), submitted at once and pumped:
     windows and speculative iterations ran, only the bfloat16 decode
     instances launched, the greedy chains equal phase 32's bfloat16
@@ -3333,7 +3515,8 @@ def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32):
     BF16_SPREAD times the CPU's own bfloat16-vs-float32 distance (the
     float32 ``_CpuRef`` ``cpu32``): over a 64-row window 8 layers of
     bfloat16 roundings, placed otherwise by cuBLAS than by oneDNN,
-    accumulate to about BF16_LOGIT_TOL."""
+    accumulate to about HALF_LOGIT_TOL[half]."""
+    sfx = HALF_SFX[half]
     import numpy as np
     gen = _gen()
 
@@ -3341,7 +3524,7 @@ def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32):
         return mx.convert.params_from_numpy(p, mx.gpu(0))
     sched = mx.serve.serve_decoder(
         gen(1), tp(params), name="bf16-fast", capacity=CAP, ladder=LADDER,
-        context=mx.gpu(0), start=False, compute_dtype="bfloat16",
+        context=mx.gpu(0), start=False, compute_dtype=half,
         symbol_gen=gen, prefill_chunk=PREFILL_CHUNK,
         draft_symbol_gen=_gen(1), draft_params=tp(_draft_params(params)),
         spec_k=SPEC_K, prefix_cache_mb=0)
@@ -3349,21 +3532,23 @@ def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32):
     outs, _, wall = _serve_all(sched, prompts, NEW)
     counts, st = ck.launch_counts(), sched.stats()
     n_tok = sum(len(o) for o in outs)
-    print(f"bf16 fast paths: {n_tok} tokens in {wall:.3f} s = "
+    print(f"{sfx} fast paths: {n_tok} tokens in {wall:.3f} s = "
           f"{n_tok / wall:.1f} tokens/s; {st['iterations']} iterations, "
           f"{st['prefill_chunks']} prefill chunks, spec {st['spec']}; "
           f"launches {counts}")
-    if not all(counts[k] for k in BF16_DECODE_KERNELS) or \
-            any(v for k, v in counts.items() if k not in BF16_DECODE_KERNELS):
+    kernels = _halved(BF16_DECODE_KERNELS, half)
+    if not all(counts[k] for k in kernels) or \
+            any(v for k, v in counts.items() if k not in kernels):
         raise AssertionError("bf16 fast paths: want the bfloat16 decode "
                              "instances and nothing else")
     if not st["prefill_chunks"] or not st["spec"]["proposed"]:
         raise AssertionError("bf16 fast paths: no window or no speculation")
-    cpu_ref = _CpuRef(mx, params, compute_dtype="bfloat16")
+    cpu_ref = _CpuRef(mx, params, compute_dtype=half)
     parted = _same_or_near_ties(cpu_ref, prompts, outs, ref,
-                                "bf16 fast paths", tol=2 * BF16_LOGIT_TOL,
-                                rtol=2 * BF16_LOGIT_TOL)
-    print(f"bf16 fast paths: greedy chains equal to phase 32's in "
+                                f"{sfx} fast paths",
+                                tol=2 * HALF_LOGIT_TOL[half],
+                                rtol=2 * HALF_LOGIT_TOL[half])
+    print(f"{sfx} fast paths: greedy chains equal to phase 32's in "
           f"{len(prompts) - parted} of {len(prompts)} requests")
     window = np.random.RandomState(SEED + 13).randint(
         0, V, (1, PREFILL_CHUNK))
@@ -3376,11 +3561,12 @@ def phase_bf16_fastpaths(mx, ck, params, prompts, ref, cpu32):
         r.drv.leave(0)
         r.drv.join(0)
         host[key] = r.drv.step(window).asnumpy()[0]
-    worst, ratio = _bf16_within(card, host["bf16"])
+    worst, ratio = _bf16_within(card, host["bf16"], half)
     own = float(np.abs(host["bf16"] - host["f32"]).max())
-    print(f"bf16 fast paths: one S={PREFILL_CHUNK} window, max |logit card "
-          f"- cpu| = {worst:.3g} ({ratio:.3f} of {BF16_LOGIT_TOL} atol and "
-          f"rtol); the CPU's own bfloat16 vs float32 distance {own:.3g} "
+    print(f"{sfx} fast paths: one S={PREFILL_CHUNK} window, max |logit card "
+          f"- cpu| = {worst:.3g} ({ratio:.3f} of {HALF_LOGIT_TOL[half]} atol "
+          "and "
+          f"rtol); the CPU's own {half} vs float32 distance {own:.3g} "
           f"(limit {BF16_SPREAD} times that)")
     if not worst <= BF16_SPREAD * own:
         raise AssertionError("bf16 card and CPU window logits disagree")
@@ -4104,7 +4290,7 @@ def phase_autograd(mx):
 # --------------------------------------------------------------------------
 # phases 35-37: transformer-LM training in bfloat16 (compute_dtype)
 # --------------------------------------------------------------------------
-def phase_lm_bf16_train(mx, ck):
+def phase_lm_bf16_train(mx, ck, half="bfloat16"):
     """The bench-width LM through Module(compute_dtype=...).fit on gpu(0)
     in float32 and in bfloat16, in turns (float32, bfloat16, bfloat16,
     float32; LM_STEPS batches each, phase 9's data, Xavier seed and SGD,
@@ -4114,13 +4300,14 @@ def phase_lm_bf16_train(mx, ck):
     step (the tied embedding table once); the bound cells float32.
     Returns (the bfloat16 fits' launch counts, {dtype: (module,
     iterator)} of the last fit of each)."""
+    sfx = HALF_SFX[half]
     import torch
     from mxnet_tpu_torch.models import transformer as tfm
-    print(_tf32(True) + " (PyTorch's default, for the LM bf16 training "
+    print(_tf32(True) + f" (PyTorch's default, for the LM {sfx} training "
           "phase)")
-    stats = {"float32": [], "bfloat16": []}
+    stats = {"float32": [], half: []}
     counts, mods = {}, {}
-    for turn, dtype in enumerate(("float32", "bfloat16", "bfloat16",
+    for turn, dtype in enumerate(("float32", half, half,
                                   "float32")):
         mods.pop(dtype, None)
         torch.cuda.empty_cache()
@@ -4142,8 +4329,9 @@ def phase_lm_bf16_train(mx, ck):
         stats[dtype].append(got)
         casts = mx.executor.cast_counts()["casts"] / LM_STEPS
         n_params = len(mod.get_params()[0])
-        if dtype == "bfloat16":
-            want = {k: LM_BF16_PER_STEP.get(k, 0) for k in per_step}
+        if dtype == half:
+            want = {k: _halved(LM_BF16_PER_STEP, half).get(k, 0)
+                    for k in per_step}
             print(f"{label}: {casts:.1f} casts per step for {n_params} "
                   "parameters (the tied embedding table read twice, cast "
                   "once)")
@@ -4164,14 +4352,14 @@ def phase_lm_bf16_train(mx, ck):
     summary = {k: [f"{g['rate']:.1f} tokens/s, p50 {g['p50']:.2f} ms, p99 "
                    f"{g['p99']:.2f} ms, peak {g['peak']:.2f} GiB"
                    for g in v] for k, v in stats.items()}
-    ratio = (sum(g["rate"] for g in stats["bfloat16"]) /
+    ratio = (sum(g["rate"] for g in stats[half]) /
              sum(g["rate"] for g in stats["float32"]))
-    print(f"lm bf16 train: in turns (float32, bfloat16, bfloat16, float32):"
-          f" {summary}; bfloat16 / float32 tokens/s = {ratio:.3f}")
+    print(f"lm {sfx} train: in turns (float32, {half}, {half}, float32):"
+          f" {summary}; {half} / float32 tokens/s = {ratio:.3f}")
     return counts, mods
 
 
-def phase_lm_bf16_parity(mx):
+def phase_lm_bf16_parity(mx, half="bfloat16"):
     """One bfloat16 SGD step of the LM at full width, batch 2, T=128, on
     the card and on the CPU from phase 10's parameters and batch, TF32
     off, beside the CPU's float32 step: the probabilities, every gradient
@@ -4181,14 +4369,15 @@ def phase_lm_bf16_parity(mx):
     (one rounding that lands the other way on one element near the
     largest, which a bfloat16 sum of near-cancelling terms can show where
     bfloat16 and float32 happen to agree). The losses are printed."""
+    sfx = HALF_SFX[half]
     import numpy as np
-    print(_tf32(False) + " (LM bf16 parity phase)")
+    print(_tf32(False) + f" (LM {sfx} parity phase)")
     sym, params, batch = _lm_parity_start(mx)
     t0 = time.perf_counter()
-    cpu = _lm_step(mx, sym, params, mx.cpu(), batch, "bfloat16")
+    cpu = _lm_step(mx, sym, params, mx.cpu(), batch, half)
     cpu32 = _lm_step(mx, sym, params, mx.cpu(), batch)
     t_cpu = time.perf_counter() - t0
-    card = _lm_step(mx, sym, params, mx.gpu(0), batch, "bfloat16")
+    card = _lm_step(mx, sym, params, mx.gpu(0), batch, half)
     label = batch.label[0].asnumpy().astype(np.int64)
     rows = np.arange(len(label))
     loss = [float(-np.log(r[0][rows, label] + 1e-8).mean())
@@ -4196,7 +4385,8 @@ def phase_lm_bf16_parity(mx):
 
     def ratio(a, b, own):
         top = float(np.abs(b).max())
-        ulp = 2.0 ** (np.floor(np.log2(max(top, 2.0 ** -126))) - 7)
+        bits, emin = HALF_BITS[half]
+        ulp = 2.0 ** (np.floor(np.log2(max(top, 2.0 ** emin))) - bits)
         return float(np.abs(a - b).max()) / (BF16_SPREAD * own + ulp)
     for r in (card, cpu, cpu32):                # updates, not weights
         r[2].update({k: w - params[k] for k, w in r[2].items()})
@@ -4207,16 +4397,16 @@ def phase_lm_bf16_parity(mx):
             (ratio(card[i][k], cpu[i][k],
                    float(np.abs(cpu[i][k] - cpu32[i][k]).max())), k)
             for k in cpu[i])
-    print(f"lm bf16 parity: one step at batch {LM_PARITY_BATCH}, T="
+    print(f"lm {sfx} parity: one step at batch {LM_PARITY_BATCH}, T="
           f"{LM_PARITY_SEQ} (two CPU steps {t_cpu:.1f} s): loss card "
-          f"{loss[0]:.6f} cpu bf16 {loss[1]:.6f} cpu float32 {loss[2]:.6f}; "
+          f"{loss[0]:.6f} cpu {sfx} {loss[1]:.6f} cpu float32 {loss[2]:.6f}; "
           f"worst of its limit (BF16_SPREAD {BF16_SPREAD} x the CPU's "
-          f"bfloat16-vs-float32 distance + one bf16 ulp of the array's max):"
+          f"{half}-vs-float32 distance + one {sfx} ulp of the array's max):"
           f" {worst}; {len(cpu[1])} gradients")
     if not (all(r <= 1.0 for r, _ in worst.values()) and
             np.isfinite(card[0]).all() and np.isfinite(loss[0])):
         raise AssertionError("bf16 card and CPU LM steps disagree beyond "
-                             "bfloat16's own spread")
+                             f"{half}'s own spread")
 
 
 def phase_lm_bf16_profile(mx, mods, steps=2):
@@ -4301,8 +4491,17 @@ def main():
                                                        float_outs)
     phase_bf16_profile(bf16_mods, bf16_servers)
     del bf16_mods
+    t_f16 = time.perf_counter()
+    f16_counts, f16_mods = phase_bf16_train(mx, ck, "float16")
+    del f16_mods
+    phase_bf16_parity(mx, "float16")
+    f16_serve_counts, f16_servers = phase_bf16_serve(mx, ck, q_mod,
+                                                     float_outs, "float16")
+    quant_half_counts = phase_quant_half(mx, ck, q_mod)
+    print(f"chip_smoke: the float16 ResNet-50 and quantized half phases "
+          f"took {time.perf_counter() - t_f16:.1f} s")
     for server in list(q_servers.values()) + [f_server] + \
-            list(bf16_servers.values()):
+            list(bf16_servers.values()) + list(f16_servers.values()):
         server.stop()
     mx.telemetry.trace.configure(capacity=1 << 16)
     cpu_ref = _CpuRef(mx, params)
@@ -4317,6 +4516,14 @@ def main():
     phase_bf16_fastpaths(mx, ck, params, prompts, bf16_chains, cpu_ref)
     phase_bf16_decode_profile(mx, bf16_scheds)
     del bf16_scheds
+    t_f16 = time.perf_counter()
+    f16_decode_counts, f16_scheds, f16_chains = phase_bf16_decode(
+        mx, ck, params, prompts, "float16")
+    del f16_scheds
+    phase_bf16_fastpaths(mx, ck, params, prompts, f16_chains, cpu_ref,
+                         "float16")
+    print(f"chip_smoke: the float16 decode phases took "
+          f"{time.perf_counter() - t_f16:.1f} s")
     torch.cuda.empty_cache()
     user_rec, axpb_launches = phase_rtc(mx)
     args50, auxs50, _, _ = _resnet50_start(mx, 2)
@@ -4333,6 +4540,12 @@ def main():
     del lm_mods
     print(f"chip_smoke: phases 35-37 (LM training in bfloat16) took "
           f"{time.perf_counter() - t_lm:.1f} s")
+    t_lm = time.perf_counter()
+    f16_lm_counts, lm_mods = phase_lm_bf16_train(mx, ck, "float16")
+    del lm_mods
+    phase_lm_bf16_parity(mx, "float16")
+    print(f"chip_smoke: the float16 LM training phases took "
+          f"{time.perf_counter() - t_lm:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
@@ -4346,6 +4559,13 @@ def main():
             bf16_serve_counts.get(name, 0)
     launches.update(bf16_decode_counts)
     launches.update({k: bf16_lm_counts[k] for k in BF16_LM_KERNELS})
+    for name in _halved(BF16_KERNELS, "float16"):
+        launches[name] = sum(c[name] for c in f16_counts.values()) + \
+            f16_serve_counts.get(name, 0)
+    launches.update(f16_decode_counts)
+    launches.update({k: f16_lm_counts[k]
+                     for k in _halved(BF16_LM_KERNELS, "float16")})
+    launches.update(quant_half_counts)
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

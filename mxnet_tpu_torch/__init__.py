@@ -15,8 +15,8 @@ Adam, and over the transformer LM, with the per-batch telemetry and MFU
 accounting of ``telemetry.mfu``), one-shot serving
 (``serve.serve(module)``) in float32 or the int8 / fp8 quantized tiers
 (``ops/quant.py``), ``FusedConvBNReLU`` graphs (ResNet-50 with its
-Conv -> BatchNorm -> ReLU triples fused) through both, ResNet-50 in
-bfloat16 mixed precision (``compute_dtype``), and the user-extension
+Conv -> BatchNorm -> ReLU triples fused) through both, ResNet-50 and the
+transformer LM in bfloat16 and float16 mixed precision (``compute_dtype``), and the user-extension
 surfaces: ``mx.rtc.Rtc`` and ``mx.rtc.register_cuda_op`` (the user's
 own CUDA kernels), ``mx.operator.CustomOp`` (a Python layer) and
 ``mx.autograd`` (imperative gradients). The TPU kernels on those paths

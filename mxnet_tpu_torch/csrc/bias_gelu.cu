@@ -3,14 +3,14 @@
 // Replaces: mxnet_tpu/ops/pallas_kernels.py _bias_gelu_kernel, launched by
 // _pl_bias_gelu. Computes, in float32, for x (N, C) and bias (C,):
 //   z = x + bias,  y = 0.5 * z * (1 + erf(z / sqrt(2)))
-// Two instances: float32, and bfloat16 (the mixed-precision path: x, bias
-// and y bfloat16), which widens x and bias exactly, computes in float32 as
-// the TPU kernel does and rounds y to nearest even once.
+// Three instances: float32, and bfloat16 or float16 (the mixed-precision path:
+// x, bias and y bfloat16), which widens x and bias exactly, computes in
+// float32 as the TPU kernel does and rounds y to nearest even once.
 //
 // Bound: bytes. x is read and y written once; erff costs a few dozen
 // instructions per element, still well below the card's operations-per-
 // byte line. Design: one elementwise pass, a grid-stride loop with 16-byte
-// accesses (4 floats or 8 bfloat16 values, vec_io.cuh) when C is a
+// accesses (4 floats or 8 16-bit values, vec_io.cuh) when C is a
 // multiple of that unit and the pointers are 16-byte aligned (a unit then
 // never straddles two rows), one value at a time otherwise. erff is the
 // full-precision library erf, not an approximation.
@@ -84,5 +84,13 @@ extern "C" int mx_bias_gelu_bf16(const void* x, const void* bias, void* y,
   if (static_cast<int64_t>(n) * c > 0)
     launch<__nv_bfloat16>(x, bias, y, n, c,
                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over float16 x, bias and y.
+extern "C" int mx_bias_gelu_f16(const void* x, const void* bias, void* y,
+                                int n, int c, void* stream) {
+  if (static_cast<int64_t>(n) * c > 0)
+    launch<__half>(x, bias, y, n, c, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,9 @@
 // and the output cotangent ct (N, C):
 //   z = x + bias,  phi = exp(-z^2 / 2) / sqrt(2 pi)
 //   dx = ct * (0.5 * (1 + erf(z / sqrt(2))) + z * phi)
-// with the TPU kernel's constants. Two instances: float32, and bfloat16
-// (the mixed-precision path: x, bias, ct and dx bfloat16), which widens
-// every value exactly, computes in float32 as the float32 instance does
+// with the TPU kernel's constants. Three instances: float32, and bfloat16 or
+// float16 (the mixed-precision path: x, bias, ct and dx bfloat16), which
+// widens every value exactly, computes in float32 as the float32 instance does
 // and rounds dx to nearest even once. The bias gradient, the column sum
 // of dx, stays a plain float32-accumulated reduction beside the kernel,
 // as the JAX package leaves it to XLA.
@@ -17,7 +17,7 @@
 // bytes in float32, half that in bfloat16); erff and expf cost a few
 // dozen instructions per element, still below the card's operations-per-
 // byte line. Design: one elementwise pass, a grid-stride loop with 16-byte
-// accesses (4 floats or 8 bfloat16 values, vec_io.cuh) when C is a
+// accesses (4 floats or 8 16-bit values, vec_io.cuh) when C is a
 // multiple of that unit and every pointer is 16-byte aligned (a unit then
 // never straddles two rows), one value at a time otherwise. erff and expf
 // are the full-precision library functions, not the approximate
@@ -100,5 +100,14 @@ extern "C" int mx_bias_gelu_dx_bf16(const void* x, const void* bias,
   if (static_cast<int64_t>(n) * c > 0)
     launch<__nv_bfloat16>(x, bias, ct, dx, n, c,
                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over float16 x, bias, ct and dx.
+extern "C" int mx_bias_gelu_dx_f16(const void* x, const void* bias,
+                                   const void* ct, void* dx, int n, int c,
+                                   void* stream) {
+  if (static_cast<int64_t>(n) * c > 0)
+    launch<__half>(x, bias, ct, dx, n, c, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,9 @@
 // per-channel float32 scale (C,) and shift (C,) the op derives from the
 // statistics, in float32:
 //   y[n, c, hw] = max(x[n, c, hw] * scale[c] + shift[c], 0)
-// and stores y in x's type. Two instances: float32 x and y, and bfloat16 x
-// and y (the mixed-precision path: x widened exactly, y rounded once to
-// nearest even, as the TPU kernel's .astype(o_ref.dtype)). The product and
+// and stores y in x's type. Three instances: float32 x and y, and bfloat16 or
+// float16 x and y (the mixed-precision path: x widened exactly, y rounded once
+// to nearest even, as the TPU kernel's .astype(o_ref.dtype)). The product and
 // the sum are rounded separately (__fmul_rn, __fadd_rn: no fused
 // multiply-add), so the kernel is bit-identical to its plain version; a
 // NaN passes through, as torch.maximum passes it.
@@ -17,7 +17,7 @@
 // sizeof(T) bytes); two flops and a compare per element. Design: one
 // elementwise grid-stride pass over units of V values of one (n, c) row
 // (they never straddle two rows, so they share one channel): 16-byte
-// units (V = 4 floats, or V = 8 bfloat16 values) when HW % V == 0 and x, y
+// units (V = 4 floats, or V = 8 16-bit values) when HW % V == 0 and x, y
 // are 16-byte aligned, for bfloat16 8-byte units of 4 when HW % 4 == 0 and
 // both are 8-byte aligned (stage 3 of ResNet-50 has HW = 196), one value
 // at a time otherwise (stage 4 has HW = 49). The channel of a unit is
@@ -106,19 +106,32 @@ extern "C" int mx_bn_apply_relu_f32(const void* x, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same over bfloat16 x and y; scale and shift stay float32.
-extern "C" int mx_bn_apply_relu_bf16(const void* x, const void* scale,
-                                     const void* shift, void* y, int n,
-                                     int c, int hw, void* stream) {
+// The same over 16-bit x and y (H = __nv_bfloat16 or __half); scale and
+// shift stay float32
+template <typename H>
+int half_apply(const void* x, const void* scale, const void* shift, void* y,
+               int n, int c, int hw, void* stream) {
   const int64_t total = static_cast<int64_t>(n) * c * hw;
   if (total > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if ((hw & 7) == 0 && both_aligned(x, y, 16))
-      launch<__nv_bfloat16, 8>(x, scale, shift, y, total, hw, c, st);
+      launch<H, 8>(x, scale, shift, y, total, hw, c, st);
     else if ((hw & 3) == 0 && both_aligned(x, y, 8))
-      launch<__nv_bfloat16, 4>(x, scale, shift, y, total, hw, c, st);
+      launch<H, 4>(x, scale, shift, y, total, hw, c, st);
     else
-      launch<__nv_bfloat16, 1>(x, scale, shift, y, total, hw, c, st);
+      launch<H, 1>(x, scale, shift, y, total, hw, c, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mx_bn_apply_relu_bf16(const void* x, const void* scale,
+                                     const void* shift, void* y, int n,
+                                     int c, int hw, void* stream) {
+  return half_apply<__nv_bfloat16>(x, scale, shift, y, n, c, hw, stream);
+}
+
+extern "C" int mx_bn_apply_relu_f16(const void* x, const void* scale,
+                                    const void* shift, void* y, int n, int c,
+                                    int hw, void* stream) {
+  return half_apply<__half>(x, scale, shift, y, n, c, hw, stream);
 }

@@ -4,9 +4,9 @@
 // Replaces: mxnet_tpu/ops/pallas_kernels.py _bn_stats_kernel, launched by
 // _pl_channel_stats. Computes, for x (N, C, H, W), contiguous, in float32:
 //   sum[c] = sum_{n, hw} x[n, c, hw]      sq[c] = sum_{n, hw} x[n, c, hw]^2
-// Two instances: float32 x, and bfloat16 x (the mixed-precision path: each
-// value widened exactly, as the TPU kernel's .astype(jnp.float32)); the
-// statistics are float32 in both.
+// Three instances: float32 x, and bfloat16 or float16 x (the mixed-precision
+// path: each value widened exactly, as the TPU kernel's .astype(jnp.float32));
+// the statistics are float32 in both.
 //
 // Bound: bytes. x is read once (N * C * HW * sizeof(T) bytes); the outputs
 // are two (C,) vectors. The TPU kernel walks batch and spatial blocks as a
@@ -19,7 +19,7 @@
 //            shape, so a slice holds about 8K values). Each thread walks
 //            the slice with a fixed stride in units of V values: 16-byte
 //            loads when HW % V == 0 and x is 16-byte aligned (a unit then
-//            never straddles two rows: V = 4 floats, or V = 8 bfloat16
+//            never straddles two rows: V = 4 floats, or V = 8 16-bit
 //            values), for bfloat16 8-byte loads of 4 when HW % 4 == 0 and x
 //            is 8-byte aligned (stage 3 of ResNet-50 has HW = 196), one
 //            value at a time otherwise (stage 4 has HW = 49); the block
@@ -178,23 +178,36 @@ extern "C" int mx_bn_stats_f32(const void* x, void* part_sum, void* part_sq,
       part_sum, part_sq, sum, sq, n, c, hw, slices, st);
 }
 
-// The same over bfloat16 x; the statistics and the scratch stay float32.
-extern "C" int mx_bn_stats_bf16(const void* x, void* part_sum,
-                                void* part_sq, void* sum, void* sq, int n,
-                                int c, int hw, int rows, int slices,
-                                void* stream) {
+// The same over 16-bit x (H = __nv_bfloat16 or __half); the statistics
+// and the scratch stay float32
+template <typename H>
+int half_stats(const void* x, void* part_sum, void* part_sq, void* sum,
+               void* sq, int n, int c, int hw, int rows, int slices,
+               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run(
       [&] {
         if ((hw & 7) == 0 && mxio::aligned(x, 16))
-          partial<__nv_bfloat16, 8>(x, part_sum, part_sq, n, c, hw, rows,
-                                    slices, st);
+          partial<H, 8>(x, part_sum, part_sq, n, c, hw, rows, slices, st);
         else if ((hw & 3) == 0 && mxio::aligned(x, 8))
-          partial<__nv_bfloat16, 4>(x, part_sum, part_sq, n, c, hw, rows,
-                                    slices, st);
+          partial<H, 4>(x, part_sum, part_sq, n, c, hw, rows, slices, st);
         else
-          partial<__nv_bfloat16, 1>(x, part_sum, part_sq, n, c, hw, rows,
-                                    slices, st);
+          partial<H, 1>(x, part_sum, part_sq, n, c, hw, rows, slices, st);
       },
       part_sum, part_sq, sum, sq, n, c, hw, slices, st);
+}
+
+extern "C" int mx_bn_stats_bf16(const void* x, void* part_sum,
+                                void* part_sq, void* sum, void* sq, int n,
+                                int c, int hw, int rows, int slices,
+                                void* stream) {
+  return half_stats<__nv_bfloat16>(x, part_sum, part_sq, sum, sq, n, c, hw,
+                                   rows, slices, stream);
+}
+
+extern "C" int mx_bn_stats_f16(const void* x, void* part_sum, void* part_sq,
+                               void* sum, void* sq, int n, int c, int hw,
+                               int rows, int slices, void* stream) {
+  return half_stats<__half>(x, part_sum, part_sq, sum, sq, n, c, hw, rows,
+                            slices, stream);
 }

@@ -11,16 +11,16 @@
 // rtc.py), exactly as in the JAX package.
 //
 // The cache is float32 or fp8 storage (float8_e4m3fn, float8_e5m2) with a
-// float32 query, or bfloat16 with a bfloat16 query (the mixed-precision
-// path), one template instance each. An fp8 or bfloat16 tile is read 16
-// bytes a thread and widened to float32 while it is staged into shared
-// memory, as the TPU kernel widens its query and cache blocks on read
-// (astype(float32)); a bfloat16 query is widened before it is scaled. Every
-// widening is exact, so from the staged tile on the narrow instances
-// compute exactly what the float32 instance computes, and the output is
-// float32 in every instance (the op casts it to the query's type). A score that is NaN or +inf
-// (a NaN cell, e.g. a float8_e4m3fn overflow on write, or an e5m2 infinity)
-// makes its row NaN, as it does in the plain softmax.
+// float32 query, or bfloat16 or float16 with a query of the same type (the
+// mixed-precision paths), one template instance each. An fp8, bfloat16 or
+// float16 tile is read 16 bytes a thread and widened to float32 while it is
+// staged into shared memory, as the TPU kernel widens its query and cache
+// blocks on read (astype(float32)); a 16-bit query is widened before it is
+// scaled. Every widening is exact, so from the staged tile on the narrow
+// instances compute exactly what the float32 instance computes, and the output
+// is float32 in every instance (the op casts it to the query's type). A score
+// that is NaN or +inf (a NaN cell, e.g. a float8_e4m3fn overflow on write, or
+// an e5m2 infinity) makes its row NaN, as it does in the plain softmax.
 //
 // Bound: bytes. Each row reads its live K and V prefix once, 2 * live * Dh
 // * (4, 2 or 1) bytes, for 4 * S * live * Dh flops; at S=1 that is half a
@@ -98,11 +98,18 @@ __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+// the 16-bit cache types, read 8 values (16 bytes) a unit
+template <typename Cache>
+constexpr bool kHalf16 = std::is_same<Cache, __nv_bfloat16>::value ||
+                         std::is_same<Cache, __half>::value;
 
 // Stage keys [k_start, k_start + kBk) of one (b, h) row into ks/vs, zero
-// past n_keys. float32 cache: one float a thread per step. bfloat16 cache:
-// one 16-byte chunk (8 values of one row) a thread per step. fp8 cache: one
-// 16-byte chunk (16 codes of one row) a thread per step.
+// past n_keys. float32 cache: one float a thread per step. bfloat16 or
+// float16 cache: one 16-byte chunk (8 values of one row) a thread per
+// step. fp8 cache: one 16-byte chunk (16 codes of one row) a thread per
+// step.
 template <int DH, typename Cache>
 __device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
                                            int k_start, int n_keys,
@@ -119,11 +126,11 @@ __device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
       ks[j][d] = in ? kf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
       vs[j][d] = in ? vf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
     }
-  } else if constexpr (std::is_same<Cache, __nv_bfloat16>::value) {
-    using Unit = mxio::Io<__nv_bfloat16, 8>;
+  } else if constexpr (kHalf16<Cache>) {
+    using Unit = mxio::Io<Cache, 8>;
     constexpr int kChunks = DH / 8;  // 16-byte chunks per cache row
-    const __nv_bfloat16* kh = static_cast<const __nv_bfloat16*>(kb);
-    const __nv_bfloat16* vh = static_cast<const __nv_bfloat16*>(vb);
+    const Cache* kh = static_cast<const Cache*>(kb);
+    const Cache* vh = static_cast<const Cache*>(vb);
     for (int c = t; c < kBk * kChunks; c += kThreads) {
       const int j = c / kChunks, d0 = (c % kChunks) * 8;
       const int kp = k_start + j;
@@ -177,8 +184,8 @@ decode_attn(const Q* __restrict__ q, const void* __restrict__ k,
             float scale) {
   constexpr int kAcc = kSq * DH / kThreads;  // accumulator entries / thread
   constexpr int kElem = std::is_same<Cache, float>::value ? 4
-                        : std::is_same<Cache, __nv_bfloat16>::value ? 2
-                                                                    : 1;
+                        : kHalf16<Cache>                    ? 2
+                                                            : 1;
   __shared__ float qs[kSq][DH];
   __shared__ float ks[kBk][DH + 1];
   __shared__ float vs[kBk][DH];
@@ -299,10 +306,10 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 
 }  // namespace
 
-// q (b*h, s, dh) float32 (bfloat16 for the bfloat16 entry point), k/v
+// q (b*h, s, dh) float32 (bfloat16 or float16 for those entry points), k/v
 // cache (b*h, cap, dh) of the entry point's storage type, pos (b,) int32,
-// out (b*h, s, dh) float32; contiguous, one device; an fp8 or bfloat16
-// cache 16-byte aligned. dh must be 64 or 128. Returns
+// out (b*h, s, dh) float32; contiguous, one device; an fp8, bfloat16 or
+// float16 cache 16-byte aligned. dh must be 64 or 128. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for another dh).
 extern "C" int mx_decode_attention_f32(const void* q, const void* k,
                                        const void* v, const void* pos,
@@ -339,4 +346,13 @@ extern "C" int mx_decode_attention_bf16(const void* q, const void* k,
   return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, pos, out, batch,
                                               heads, s_len, cap, dh, scale,
                                               stream);
+}
+
+extern "C" int mx_decode_attention_f16(const void* q, const void* k,
+                                       const void* v, const void* pos,
+                                       void* out, int batch, int heads,
+                                       int s_len, int cap, int dh,
+                                       float scale, void* stream) {
+  return launch<__half, __half>(q, k, v, pos, out, batch, heads, s_len, cap,
+                                dh, scale, stream);
 }

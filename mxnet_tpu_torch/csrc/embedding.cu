@@ -2,8 +2,9 @@
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py _emb_gather_kernel, launched by
 // _pl_embedding (scalar-prefetched ids pick the weight block per grid step).
-// Computes out[i, :] = W[ids[i], :] * scale, the multiply in float32. Two
-// instances: float32, and bfloat16 (the mixed-precision path), which widens
+// Computes out[i, :] = W[ids[i], :] * scale, the multiply in float32. Three
+// instances: float32, and bfloat16 or float16 (the mixed-precision path),
+// which widens
 // each value exactly, scales it in float32 and rounds the product to
 // nearest even once, as the TPU kernel's (x.astype(f32) * scale).astype(
 // bf16) does; at scale 1 the row is copied exactly.
@@ -11,7 +12,7 @@
 // Bound: bytes. Each output row costs one table row read and one row
 // written (2 * N * D * sizeof(T) bytes; 32 KiB at the decode path's N=8,
 // D=512 in float32), no arithmetic to speak of. Design: one warp per output
-// row, with 16-byte accesses along the row (4 floats or 8 bfloat16 values,
+// row, with 16-byte accesses along the row (4 floats or 8 16-bit values,
 // vec_io.cuh) when D is a multiple of that unit and both rows are 16-byte
 // aligned (neighbouring lanes on neighbouring addresses), one value at a
 // time otherwise. The block loads its own ids; there is no prefetch stage
@@ -97,5 +98,15 @@ extern "C" int mx_embedding_bf16(const void* ids, const void* w, void* out,
   if (n > 0 && d > 0)
     launch<__nv_bfloat16>(ids, w, out, n, v, d, scale,
                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over a float16 table and output.
+extern "C" int mx_embedding_f16(const void* ids, const void* w, void* out,
+                                int n, int v, int d, float scale,
+                                void* stream) {
+  if (n > 0 && d > 0)
+    launch<__half>(ids, w, out, n, v, d, scale,
+                   static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

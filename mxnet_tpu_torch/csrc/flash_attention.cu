@@ -12,13 +12,13 @@
 //   corr = exp(m - m_safe) where m is finite else 0,
 //   l = l * corr + sum_k p,  acc = acc * corr + p . v
 // and out = acc / max(l, 1e-30). q, k, v and out are (B*H, T, Dh).
-// Two instances: float32, and bfloat16 (the mixed-precision path: q, k,
-// v and out bfloat16), which widens each Q, K and V tile exactly as it
+// Three instances: float32, and bfloat16 or float16 (the mixed-precision path:
+// q, k, v and out bfloat16), which widens each Q, K and V tile exactly as it
 // stages it into the float32 shared tiles (16 bytes, 8 values, a load),
 // scales q in float32 before the product and computes every product and
 // the online softmax in float32 as the float32 instance does, and rounds
-// the output to nearest even once. It uses no bfloat16 tensor cores:
-// they would round q * scale and p to bfloat16, which the TPU kernel
+// the output to nearest even once. It uses no 16-bit tensor cores:
+// they would round q * scale and p to 16 bits, which the TPU kernel
 // (float32 operands at Precision.HIGHEST) does not; shared memory is the
 // float32 instance's (117,760 bytes at Dh = 128).
 //
@@ -287,4 +287,12 @@ extern "C" int mx_flash_attention_bf16(const void* q, const void* k,
                                        float scale, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, out, bh, T, dh, causal, scale,
                                  stream);
+}
+
+// The same over float16 q, k, v and out.
+extern "C" int mx_flash_attention_f16(const void* q, const void* k,
+                                      const void* v, void* out, int bh,
+                                      int T, int dh, int causal, float scale,
+                                      void* stream) {
+  return dispatch<__half>(q, k, v, out, bh, T, dh, causal, scale, stream);
 }

@@ -5,10 +5,10 @@
 //   mean = sum(x) / C,  var = sum((x - mean)^2) / C   (two-pass, float32)
 //   rstd = 1 / sqrt(var + eps),  y = (x - mean) * rstd * gamma + beta
 // and writes y (N, C), mean (N,) and rstd (N,). The op's std output is
-// 1 / rstd, taken by the wrapper. Two instances: float32, and bfloat16 (the
-// mixed-precision path: x, gamma and beta bfloat16, as the graph casts its
-// parameters), which widens every value exactly, computes as the float32
-// instance does and rounds y to nearest even once; mean and rstd stay
+// 1 / rstd, taken by the wrapper. Three instances: float32, and bfloat16 or
+// float16 (the mixed-precision path: x, gamma and beta bfloat16, as the graph
+// casts its parameters), which widens every value exactly, computes as the
+// float32 instance does and rounds y to nearest even once; mean and rstd stay
 // float32, as the TPU kernel's statistic outputs are.
 //
 // Bound: bytes. x is read and y written once (plus gamma/beta, shared by
@@ -18,7 +18,7 @@
 // memory; after the first pass it sits in L1 (2 KiB at C=512 in float32,
 // 1 KiB in bfloat16), so the second and third walks cost no device-memory
 // traffic, and the kernel takes any C without a register-resident row.
-// Accesses are 16-byte (4 floats or 8 bfloat16 values, vec_io.cuh) when C
+// Accesses are 16-byte (4 floats or 8 16-bit values, vec_io.cuh) when C
 // is a multiple of that unit and the pointers are 16-byte aligned, one
 // value at a time otherwise. The variance is the two-pass form of the TPU
 // kernel, not E[x^2] - mean^2; 1 / sqrtf is IEEE-rounded, not the
@@ -133,5 +133,16 @@ extern "C" int mx_layernorm_fwd_bf16(const void* x, const void* gamma,
   if (n > 0 && c > 0)
     launch<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, n, c, eps,
                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over float16 x, gamma, beta and y; mean and rstd float32.
+extern "C" int mx_layernorm_fwd_f16(const void* x, const void* gamma,
+                                    const void* beta, void* y, void* mean,
+                                    void* rstd, int n, int c, float eps,
+                                    void* stream) {
+  if (n > 0 && c > 0)
+    launch<__half>(x, gamma, beta, y, mean, rstd, n, c, eps,
+                   static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,8 @@
 // float32, from the mean and rstd the forward saved:
 //   dgamma[c] = sum_r ct[r, c] * (x[r, c] - mean[r]) * rstd[r]
 //   dbeta[c]  = sum_r ct[r, c]
-// Two instances: float32, and bfloat16 (the mixed-precision path: x and ct
-// bfloat16, mean and rstd float32), which widens every value exactly,
+// Three instances: float32, and bfloat16 or float16 (the mixed-precision path:
+// x and ct bfloat16, mean and rstd float32), which widens every value exactly,
 // sums in float32 as the float32 instance does, and rounds dgamma and
 // dbeta to nearest even once in its final stage (the TPU path sums in
 // float32 and casts to gamma's dtype, _ln_pl_bwd_rule; here the cast is
@@ -148,4 +148,15 @@ extern "C" int mx_ln_bwd_dparams_bf16(const void* x, const void* ct,
   return launch<__nv_bfloat16>(x, ct, mean, rstd, part_g, part_b, dgamma,
                                dbeta, n, c, rows, chunks,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The same over float16 x and ct, with dgamma and dbeta float16 (each
+// the float32 sum rounded once); mean, rstd and the partials float32.
+extern "C" int mx_ln_bwd_dparams_f16(const void* x, const void* ct,
+                                     const void* mean, const void* rstd,
+                                     void* part_g, void* part_b,
+                                     void* dgamma, void* dbeta, int n, int c,
+                                     int rows, int chunks, void* stream) {
+  return launch<__half>(x, ct, mean, rstd, part_g, part_b, dgamma, dbeta, n,
+                        c, rows, chunks, static_cast<cudaStream_t>(stream));
 }

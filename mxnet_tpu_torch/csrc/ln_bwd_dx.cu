@@ -5,8 +5,8 @@
 // mean and rstd the forward saved:
 //   xh = (x - mean) * rstd,  gy = ct * gamma
 //   dx = rstd * (gy - mean(gy) - xh * mean(gy * xh))
-// Two instances: float32, and bfloat16 (the mixed-precision path: x,
-// gamma, ct and dx bfloat16, mean and rstd float32, as the forward saved
+// Three instances: float32, and bfloat16 or float16 (the mixed-precision path:
+// x, gamma, ct and dx bfloat16, mean and rstd float32, as the forward saved
 // them), which widens every value exactly, computes as the float32
 // instance does and rounds dx to nearest even once, as the TPU kernel
 // stores in x's dtype.
@@ -19,7 +19,7 @@
 // row means in one pass (sum(gy) and sum(gy * xh) side by side), the
 // second writes dx; after the first walk the row's x and ct sit in L1 (4
 // KiB at C = 512 in float32), so only the first walk and the write touch
-// device memory. Accesses are 16-byte (4 floats or 8 bfloat16 values,
+// device memory. Accesses are 16-byte (4 floats or 8 16-bit values,
 // vec_io.cuh) when C is a multiple of that unit and every pointer is
 // 16-byte aligned, one value at a time otherwise. Any C up to the JAX
 // eligibility bound (65536) is taken by the same loop. gy and xh are
@@ -133,5 +133,16 @@ extern "C" int mx_ln_bwd_dx_bf16(const void* x, const void* gamma,
   if (n > 0 && c > 0)
     launch<__nv_bfloat16>(x, gamma, ct, mean, rstd, dx, n, c,
                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same over float16 x, gamma, ct and dx; mean and rstd float32.
+extern "C" int mx_ln_bwd_dx_f16(const void* x, const void* gamma,
+                                const void* ct, const void* mean,
+                                const void* rstd, void* dx, int n, int c,
+                                void* stream) {
+  if (n > 0 && c > 0)
+    launch<__half>(x, gamma, ct, mean, rstd, dx, n, c,
+                   static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

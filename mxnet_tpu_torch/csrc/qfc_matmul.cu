@@ -1,13 +1,18 @@
 // Dequant-fused dense matmul, for Hopper (sm_90a): QuantizedFullyConnected.
 //
 // Replaces: mxnet_tpu/ops/quant.py _qfc_kernel, launched by _pl_qfc_matmul.
-// Computes, for x (M, K) float32, w (N, K) int8 or float8_e4m3fn and the
-// per-output-channel scales s (N,) float32, in float32:
+// Computes, for x (M, K) float32, bfloat16 or float16, w (N, K) int8 or
+// float8_e4m3fn and the per-output-channel scales s (N,) float32, in
+// float32:
 //   out[m, n] = sum_k x[m, k] * (float(w[n, k]) * s[n])
 // Each weight is decoded and multiplied by its row's scale (one rounding,
 // __fmul_rn) before the dot, as the TPU kernel scales its weight tile in
 // VMEM ahead of the MXU product; the float32-wide weight never exists in
-// device memory.
+// device memory. A bfloat16 or float16 x (a quantized graph under
+// compute_dtype) is widened exactly as it is staged, and the output stays
+// float32, as the TPU kernel's out_shape is float32 whatever x's type: the
+// op adds the bias in float32 and rounds to x's type once, as the JAX
+// package's Pallas variant does.
 //
 // Bound: at the serving path's shapes (M <= 8, K = 2048, N = 1000) bytes:
 // the weight is read once (N * K bytes) and a few flops per byte sit far
@@ -27,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace {
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256, kPad = 4;
@@ -44,9 +51,15 @@ __device__ __forceinline__ float decode(uint8_t b, E4M3) {
   return static_cast<float>(v);
 }
 
-template <typename W>
+__device__ __forceinline__ float widen(float v) { return v; }
+template <typename H>
+__device__ __forceinline__ float widen(H v) {
+  return mxio::Half<H>::widen(v);
+}
+
+template <typename W, typename X>
 __global__ void __launch_bounds__(kThreads)
-    qfc_matmul_f32(const float* __restrict__ x, const uint8_t* __restrict__ w,
+    qfc_matmul_f32(const X* __restrict__ x, const uint8_t* __restrict__ w,
                    const float* __restrict__ s, float* __restrict__ out,
                    int m, int n, int k) {
   __shared__ float xs[kBK][kBM + kPad];
@@ -61,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kBM * kBK; e += kThreads) {
       const int r = e / kBK, kk = e % kBK, gm = m0 + r, gk = k0 + kk;
       xs[kk][r] = (gm < m && gk < k)
-                      ? x[static_cast<int64_t>(gm) * k + gk] : 0.0f;
+                      ? widen(x[static_cast<int64_t>(gm) * k + gk]) : 0.0f;
     }
     for (int e = tid; e < kBN * kBK; e += kThreads) {
       const int r = e / kBK, kk = e % kBK, gn = n0 + r, gk = k0 + kk;
@@ -96,14 +109,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename W>
+template <typename W, typename X = float>
 int launch(const void* x, const void* w, const void* s, void* out, int m,
            int n, int k, void* stream) {
   if (m > 0 && n > 0 && k > 0) {
     const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    qfc_matmul_f32<W><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(w),
-        static_cast<const float*>(s), static_cast<float*>(out), m, n, k);
+    qfc_matmul_f32<W, X>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const X*>(x), static_cast<const uint8_t*>(w),
+            static_cast<const float*>(s), static_cast<float*>(out), m, n, k);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -122,4 +136,29 @@ extern "C" int mx_qfc_matmul_e4m3_f32(const void* x, const void* w,
                                       const void* s, void* out, int m, int n,
                                       int k, void* stream) {
   return launch<E4M3>(x, w, s, out, m, n, k, stream);
+}
+
+// The same over bfloat16 or float16 x; s and out stay float32.
+extern "C" int mx_qfc_matmul_i8_bf16(const void* x, const void* w,
+                                     const void* s, void* out, int m, int n,
+                                     int k, void* stream) {
+  return launch<I8, __nv_bfloat16>(x, w, s, out, m, n, k, stream);
+}
+
+extern "C" int mx_qfc_matmul_e4m3_bf16(const void* x, const void* w,
+                                       const void* s, void* out, int m,
+                                       int n, int k, void* stream) {
+  return launch<E4M3, __nv_bfloat16>(x, w, s, out, m, n, k, stream);
+}
+
+extern "C" int mx_qfc_matmul_i8_f16(const void* x, const void* w,
+                                    const void* s, void* out, int m, int n,
+                                    int k, void* stream) {
+  return launch<I8, __half>(x, w, s, out, m, n, k, stream);
+}
+
+extern "C" int mx_qfc_matmul_e4m3_f16(const void* x, const void* w,
+                                      const void* s, void* out, int m, int n,
+                                      int k, void* stream) {
+  return launch<E4M3, __half>(x, w, s, out, m, n, k, stream);
 }

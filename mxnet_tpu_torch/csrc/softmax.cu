@@ -3,8 +3,8 @@
 // Replaces: mxnet_tpu/ops/pallas_kernels.py _softmax_fwd_kernel, launched
 // by _pl_softmax. Computes, per row of x (N, C), in float32:
 //   m = max(x),  e = exp(x - m),  y = e / sum(e)
-// and stores y in x's type. Two instances: float32, and bfloat16 (the
-// mixed-precision path), which reads bfloat16, computes in float32 as the
+// and stores y in x's type. Three instances: float32, and bfloat16 or float16
+// (the mixed-precision path), which reads bfloat16, computes in float32 as the
 // TPU kernel does (its .astype(jnp.float32)), and rounds y to nearest even.
 //
 // Bound: bytes. x is read and y written once (2 * N * C * sizeof(T)
@@ -15,9 +15,9 @@
 // bound), so only the first walk and the write touch device memory. Rows
 // of C <= 1024 take one warp each (8 rows per block, no shared memory);
 // longer rows take a block of 512 threads and reduce through shared
-// memory. A bfloat16 row of even C on 4-byte aligned pointers is walked in
-// __nv_bfloat162 pairs (one 4-byte access per lane), else one value at a
-// time. The exponential is expf (not the approximate __expf) and the
+// memory. A 16-bit row of even C on 4-byte aligned pointers is walked in
+// __nv_bfloat162 or __half2 pairs (one 4-byte access per lane), else one value
+// at a time. The exponential is expf (not the approximate __expf) and the
 // normalisation a true division, as in the TPU kernel.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,15 +141,26 @@ extern "C" int mx_softmax_f32(const void* x, void* y, int n, int c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same over bfloat16 x and y.
-extern "C" int mx_softmax_bf16(const void* x, void* y, int n, int c,
-                               void* stream) {
+// The same over 16-bit x and y (H = __nv_bfloat16 or __half): pairs in one
+// 4-byte access a lane for even C and 4-byte aligned rows, else one value
+template <typename H>
+int half_rows(const void* x, void* y, int n, int c, void* stream) {
   if (n > 0 && c > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if ((c & 1) == 0 && mxio::aligned(x, 4) && mxio::aligned(y, 4))
-      launch<__nv_bfloat16, 2>(x, y, n, c, st);
+      launch<H, 2>(x, y, n, c, st);
     else
-      launch<__nv_bfloat16, 1>(x, y, n, c, st);
+      launch<H, 1>(x, y, n, c, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mx_softmax_bf16(const void* x, void* y, int n, int c,
+                               void* stream) {
+  return half_rows<__nv_bfloat16>(x, y, n, c, stream);
+}
+
+extern "C" int mx_softmax_f16(const void* x, void* y, int n, int c,
+                              void* stream) {
+  return half_rows<__half>(x, y, n, c, stream);
 }

@@ -9,14 +9,14 @@
 // stores g in p's type. A label outside [0, C) matches no column, so its
 // row is p * keep * scale, as the TPU kernel's iota compare gives. The
 // "valid" normalisation divides afterwards, in the wrapper, as the TPU
-// path does. Two instances: float32, and bfloat16 p and g (the
+// path does. Three instances: float32, and bfloat16 or float16 p and g (the
 // mixed-precision path: p widened exactly, g rounded to nearest even; the
 // label stays float32, as the TPU path casts it).
 //
 // Bound: bytes. p is read and g written once (the labels are N floats);
 // two flops per element. Design: one thread per unit of W neighbouring
-// elements of one row (W = 2, one __nv_bfloat162, for bfloat16 of even C
-// on 4-byte aligned pointers; else W = 1) over a grid-stride loop of
+// elements of one row (W = 2, one __nv_bfloat162 or __half2, for 16-bit p of
+// even C on 4-byte aligned pointers; else W = 1) over a grid-stride loop of
 // 64-bit indices, neighbouring threads on neighbouring columns; the row's
 // label is a broadcast read that stays in L1. Each step rounds as the
 // plain version does (no fused multiply-add).
@@ -86,17 +86,32 @@ extern "C" int mx_softmax_ce_bwd_f32(const void* p, const void* label,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same over bfloat16 p and g; the label stays float32.
+// The same over 16-bit p and g (H = __nv_bfloat16 or __half); the label
+// stays float32
+template <typename H>
+int half_grad(const void* p, const void* label, void* g, int n, int c,
+              float scale, int use_ignore, float ignore_label,
+              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((c & 1) == 0 && mxio::aligned(p, 4) && mxio::aligned(g, 4))
+    launch<H, 2>(p, label, g, n, c, scale, use_ignore, ignore_label, st);
+  else
+    launch<H, 1>(p, label, g, n, c, scale, use_ignore, ignore_label, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int mx_softmax_ce_bwd_bf16(const void* p, const void* label,
                                       void* g, int n, int c, float scale,
                                       int use_ignore, float ignore_label,
                                       void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((c & 1) == 0 && mxio::aligned(p, 4) && mxio::aligned(g, 4))
-    launch<__nv_bfloat16, 2>(p, label, g, n, c, scale, use_ignore,
-                             ignore_label, st);
-  else
-    launch<__nv_bfloat16, 1>(p, label, g, n, c, scale, use_ignore,
-                             ignore_label, st);
-  return static_cast<int>(cudaGetLastError());
+  return half_grad<__nv_bfloat16>(p, label, g, n, c, scale, use_ignore,
+                                  ignore_label, stream);
+}
+
+extern "C" int mx_softmax_ce_bwd_f16(const void* p, const void* label,
+                                     void* g, int n, int c, float scale,
+                                     int use_ignore, float ignore_label,
+                                     void* stream) {
+  return half_grad<__half>(p, label, g, n, c, scale, use_ignore,
+                           ignore_label, stream);
 }

@@ -20,18 +20,18 @@ writes each leaf's gradient into its ``grad_dict`` cell — replacing it
 under ``"write"``, adding to it under ``"add"``; an argument the outputs
 do not depend on gets a zero gradient.
 
-Mixed precision (``compute_dtype="bfloat16"``, the JAX package's
-``_load_var``): every floating argument and aux state is cast to bfloat16
-where the graph reads it, while the cells keep their float32 storage —
+Mixed precision (``compute_dtype="bfloat16"`` or ``"float16"``, the JAX
+package's ``_load_var``): every floating argument and aux state is cast
+to the compute dtype where the graph reads it, while the cells keep their float32 storage —
 master weights, gradients and moving statistics. The cast is
 differentiable, so gradients come back float32. A new aux value is
 written back in its cell's dtype where that dtype holds it exactly (a
 float32 cell: BatchNorm's moving statistics, a decode step's KV caches,
-which the op wrote in their bfloat16 cast); a cell too narrow for it (an
-fp8 KV cache) takes the bfloat16 value itself, as the JAX package's
-cell takes its compute-width value, so no write-back rounds. A variable
-that feeds a loss head's label slot keeps its dtype (class ids above 256
-do not survive bfloat16). float16 is a later slice and raises. A cast
+which the op wrote in their compute-dtype cast); a cell too narrow for
+it (an fp8 KV cache) takes the compute-dtype value itself, as the JAX
+package's cell takes its compute-width value, so no write-back rounds. A
+variable that feeds a loss head's label slot keeps its dtype (class ids
+above 256 do not survive bfloat16, nor ids above 2048 float16). A cast
 that autograd does not record (every read of an inference forward, the
 aux states and inputs of a training one) is kept per source tensor and
 reused while that tensor's version counter stands still, so a served
@@ -90,8 +90,9 @@ def reset_cast_counts():
 def parse_compute_dtype(compute_dtype):
     """``compute_dtype`` as the executor takes it: None (or float32) for
     none, ``torch.bfloat16`` for ``"bfloat16"`` / ``torch.bfloat16`` (or
-    a numpy dtype or scalar type named ``bfloat16``). float16 and every
-    other type raise."""
+    a numpy dtype or scalar type named ``bfloat16``), ``torch.float16``
+    for ``"float16"`` / ``torch.float16`` / ``np.float16``. Every other
+    type raises."""
     if compute_dtype is None:
         return None
     if isinstance(compute_dtype, (str, torch.dtype)):
@@ -103,10 +104,9 @@ def parse_compute_dtype(compute_dtype):
     if name in ("bfloat16", "bf16"):
         return torch.bfloat16
     if name in ("float16", "half", "fp16"):
-        raise MXNetError("compute_dtype=float16 is a later slice of the "
-                         "port (ROADMAP.md queue B); bfloat16 is ported")
+        return torch.float16
     raise MXNetError(f"compute_dtype={compute_dtype!r}: the port's mixed "
-                     "precision takes bfloat16")
+                     "precision takes bfloat16 or float16")
 
 
 def _loss_label_names(symbol):
@@ -127,8 +127,8 @@ class Executor:
     lists in ``list_arguments`` / ``list_auxiliary_states`` order).
     ``grad_req``: ``"write"``, ``"add"`` or ``"null"``, one for all or a
     dict / list per argument; an argument without an ``args_grad`` cell
-    is not differentiated. ``compute_dtype``: None, or ``"bfloat16"`` for
-    mixed precision (see the module docstring)."""
+    is not differentiated. ``compute_dtype``: None, or ``"bfloat16"`` or
+    ``"float16"`` for mixed precision (see the module docstring)."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, compute_dtype=None):

@@ -123,7 +123,9 @@ def _validate(d_model, n_head, pos_embed):
 def _embed(data, tok_w, *, seq_len, vocab_size, d_model, pos_embed,
            max_seq_len, name, pos_ids=None, per_slot=False):
     """Token embedding scaled by sqrt(D), plus the learned position table
-    when ``pos_embed='learned'``."""
+    when ``pos_embed='learned'``. Under ``compute_dtype`` its ``pos_ids``
+    (float data) are cast where the graph reads them, in both packages:
+    exact up to 256 in bfloat16 and up to 2048 in float16."""
     x = sym.Embedding(data=data, weight=tok_w, input_dim=vocab_size,
                       output_dim=d_model, scale=float(np.sqrt(d_model)),
                       name=f"{name}_tok_embed")          # (B, T, D)

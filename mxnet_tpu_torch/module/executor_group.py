@@ -11,7 +11,7 @@ Training (``for_training=True``): every parameter gets a gradient cell
 the data inputs get one under ``inputs_need_grad``. ``forward`` / ``backward`` / ``get_outputs`` /
 ``get_input_grads`` / ``update_metric`` are the reference's group
 surface over the one executor; ``param_arrays`` and ``grad_arrays`` are
-flat, one cell per parameter. ``compute_dtype`` (``"bfloat16"``) goes to
+flat, one cell per parameter. ``compute_dtype`` (``"bfloat16"``, ``"float16"``) goes to
 the executor, which casts where the graph reads; the cells stay float32.
 """
 from __future__ import annotations

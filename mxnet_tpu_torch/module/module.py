@@ -10,9 +10,9 @@ update into one jitted step on a single device; PyTorch runs eagerly and
 there is no program to fuse, so the port keeps the updater path, which
 computes the same numbers.
 
-``compute_dtype="bfloat16"`` is the JAX package's mixed precision: the
-graph reads every floating parameter, input and aux state cast to
-bfloat16 (labels of loss heads excepted), while the bound cells — master
+``compute_dtype="bfloat16"`` or ``"float16"`` is the JAX package's mixed
+precision: the graph reads every floating parameter, input and aux state
+cast to the compute dtype (labels of loss heads excepted), while the bound cells — master
 weights, gradients, optimizer states, moving statistics — stay float32.
 """
 from __future__ import annotations
@@ -37,13 +37,16 @@ class Module(BaseModule):
     """Train or predict over a single Symbol bound to one context
     (default: the current context, ``gpu(0)`` unless a ``with mx.cpu():``
     scope says otherwise). ``compute_dtype``: None, or ``"bfloat16"`` /
-    ``torch.bfloat16`` for mixed precision."""
+    ``torch.bfloat16`` or ``"float16"`` / ``torch.float16`` for mixed
+    precision. Like the JAX package, the port has no loss scaling: a
+    float16 fit keeps the gradients float16 rounds to (subnormals
+    included) and loses the ones below its range."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, compute_dtype=None):
         super().__init__(logger=logger)
-        parse_compute_dtype(compute_dtype)      # float16 etc. raise here
+        parse_compute_dtype(compute_dtype)      # other types raise here
         self._compute_dtype = compute_dtype
         context = context if context is not None else current_context()
         self._context = list(context) if isinstance(context, (list, tuple)) \

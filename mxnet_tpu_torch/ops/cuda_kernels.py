@@ -25,24 +25,24 @@ wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          s
 ``bn_apply_relu``          ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
 =========================  ==================================================  ===================
 
-The first four serve the decode path; ``decode_attention`` has one C
-entry point per cache storage type (float32, bfloat16, float8_e4m3fn,
-float8_e5m2), and its fp8 launches count in ``decode_attention_fp8``
-(the wrapper that takes fp8 caches). ``embedding``, ``layernorm``,
-``bias_gelu``, ``decode_attention``, ``softmax``, ``softmax_ce_bwd``,
-``bn_stats``, ``bn_apply_relu``, ``layernorm_bwd_dx``,
-``layernorm_bwd_dparams``, ``bias_gelu_dx`` and ``flash_attention``
-have a float32 and a bfloat16 instance (``compute_dtype="bfloat16"``,
-the JAX package's mixed precision): each wrapper takes the instance of
-its tensor's dtype, and the bfloat16 launches count in ``<wrapper>_bf16``
-(``embedding_bf16`` ... ``flash_attention_bf16``, the wrappers that take
-bfloat16). A bfloat16 instance reads bfloat16, computes in float32 as
-the TPU kernel does, and stores bfloat16 (float32 for the statistics and
-for the decode read's output, as the TPU kernels store them); it is
-never the float32 kernel behind a cast. The rest (``sgd_mom_update``,
-``adam_update``, ``qfc_matmul``, ``dequant_rows``) take float32 only and
-raise on half precision, naming the later slice; every wrapper raises on
-float16, a later slice too.
+The first four serve the decode path. Each wrapper launches the instance
+of its data's dtype and counts the launch under that instance's counter:
+twelve kernels (``embedding`` to ``bn_apply_relu`` but the updates and
+``dequant_rows``) have a float32, a bfloat16 and a float16 instance
+(``compute_dtype="bfloat16"`` or ``"float16"``, the JAX package's mixed
+precision), counted in ``<kernel>``, ``<wrapper>_bf16`` and
+``<wrapper>_f16``; ``decode_attention`` also reads fp8 caches (one C entry
+point per cache storage type, float8_e4m3fn and float8_e5m2), counted in
+``decode_attention_fp8``; ``qfc_matmul`` has one entry point per weight
+storage type (int8, float8_e4m3fn) for each data type. A 16-bit instance
+reads its type, computes in float32 as the TPU kernel does, and stores
+its type once (float32 for the statistics, for the decode read's output
+and for the quantized matmul's, as the TPU kernels store them); it is
+never the float32 kernel behind a cast. The updates (``sgd_mom_update``,
+``adam_update``) take float32 master weights and states only, and
+``dequant_rows`` writes float32 rows from narrow weights whatever the
+data's type. A CUDA tensor of a dtype no instance takes raises, naming
+the dtype.
 With the ones from ``layernorm_bwd_dx`` to ``flash_attention`` they
 train the transformer LM;
 softmax / cross-entropy and the optimizer updates serve every training
@@ -72,9 +72,8 @@ Dispatch is by device and nothing else: a wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel (building it
 first if needed) or raises — a build failure, a launch failure and an
 input the kernel does not take all raise, and nothing gives way to the
-plain version. Every wrapper counts its launches in a plain integer
-attribute (``embedding.launches`` ...), incremented where it launches and
-nowhere else. The optimizer wrappers update the weight and state tensors
+plain version. Every launch is counted (``launch_counts()``) where it is
+made and nowhere else. The optimizer wrappers update the weight and state tensors
 in place on both devices, and on the card bump their version counters
 (the kernels write through raw pointers, which PyTorch does not see).
 
@@ -126,9 +125,7 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
            "dequant_rows_plain", "bn_stats", "bn_stats_plain",
            "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
-           "conv_bn_relu_fn", "embedding_bf16", "layernorm_bf16",
-           "bias_gelu_bf16", "decode_attention_bf16", "softmax_bf16",
-           "softmax_ce_bwd_bf16", "bn_stats_bf16", "bn_apply_relu_bf16",
+           "conv_bn_relu_fn", "decode_attention_bf16",
            "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
            "bias_gelu_dx_bf16", "flash_attention_bf16", "launch_counts",
            "reset_launch_counts", "libraries_loaded", "source",
@@ -141,61 +138,81 @@ _ARCH = "arch=compute_90a,code=sm_90a"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
-#: kernel name -> (source file, C symbol or {storage type: C symbol},
-#: ctypes argtypes)
+#: kernel name -> (source file, {instance key: C symbol}, ctypes argtypes).
+#: An instance key is the data type its tensors hold ("f32", "bf16",
+#: "f16", or "fp8" for the flash-decode read of fp8 caches), then, where
+#: the kernel has one entry point per storage type of its weight or cache,
+#: ":" and that type
 _SPECS = {
     "embedding": ("embedding.cu", {"f32": "mx_embedding_f32",
-                                   "bf16": "mx_embedding_bf16"},
+                                   "bf16": "mx_embedding_bf16",
+                                   "f16": "mx_embedding_f16"},
                   [_P, _P, _P, _I, _I, _I, _F, _P]),
     "layernorm": ("layernorm.cu", {"f32": "mx_layernorm_fwd_f32",
-                                   "bf16": "mx_layernorm_fwd_bf16"},
+                                   "bf16": "mx_layernorm_fwd_bf16",
+                                   "f16": "mx_layernorm_fwd_f16"},
                   [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "bias_gelu": ("bias_gelu.cu", {"f32": "mx_bias_gelu_f32",
-                                   "bf16": "mx_bias_gelu_bf16"},
+                                   "bf16": "mx_bias_gelu_bf16",
+                                   "f16": "mx_bias_gelu_f16"},
                   [_P, _P, _P, _I, _I, _P]),
     "decode_attention": ("decode_attention.cu",
                          {"f32": "mx_decode_attention_f32",
                           "bf16": "mx_decode_attention_bf16",
-                          "e4m3": "mx_decode_attention_e4m3",
-                          "e5m2": "mx_decode_attention_e5m2"},
+                          "f16": "mx_decode_attention_f16",
+                          "fp8:e4m3": "mx_decode_attention_e4m3",
+                          "fp8:e5m2": "mx_decode_attention_e5m2"},
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "softmax": ("softmax.cu", {"f32": "mx_softmax_f32",
-                               "bf16": "mx_softmax_bf16"},
+                               "bf16": "mx_softmax_bf16",
+                               "f16": "mx_softmax_f16"},
                 [_P, _P, _I, _I, _P]),
     "softmax_ce_bwd": ("softmax_ce_bwd.cu",
                        {"f32": "mx_softmax_ce_bwd_f32",
-                        "bf16": "mx_softmax_ce_bwd_bf16"},
+                        "bf16": "mx_softmax_ce_bwd_bf16",
+                        "f16": "mx_softmax_ce_bwd_f16"},
                        [_P, _P, _P, _I, _I, _F, _I, _F, _P]),
-    "sgd_mom": ("sgd_mom.cu", "mx_sgd_mom_f32",
+    "sgd_mom": ("sgd_mom.cu", {"f32": "mx_sgd_mom_f32"},
                 [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
-    "adam": ("adam.cu", "mx_adam_f32",
+    "adam": ("adam.cu", {"f32": "mx_adam_f32"},
              [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
     "ln_bwd_dx": ("ln_bwd_dx.cu", {"f32": "mx_ln_bwd_dx_f32",
-                                   "bf16": "mx_ln_bwd_dx_bf16"},
+                                   "bf16": "mx_ln_bwd_dx_bf16",
+                                   "f16": "mx_ln_bwd_dx_f16"},
                   [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "ln_bwd_dparams": ("ln_bwd_dparams.cu",
                        {"f32": "mx_ln_bwd_dparams_f32",
-                        "bf16": "mx_ln_bwd_dparams_bf16"},
+                        "bf16": "mx_ln_bwd_dparams_bf16",
+                        "f16": "mx_ln_bwd_dparams_f16"},
                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "bias_gelu_dx": ("bias_gelu_dx.cu", {"f32": "mx_bias_gelu_dx_f32",
-                                         "bf16": "mx_bias_gelu_dx_bf16"},
+                                         "bf16": "mx_bias_gelu_dx_bf16",
+                                         "f16": "mx_bias_gelu_dx_f16"},
                      [_P, _P, _P, _P, _I, _I, _P]),
     "flash_attention": ("flash_attention.cu",
                         {"f32": "mx_flash_attention_f32",
-                         "bf16": "mx_flash_attention_bf16"},
+                         "bf16": "mx_flash_attention_bf16",
+                         "f16": "mx_flash_attention_f16"},
                         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "qfc_matmul": ("qfc_matmul.cu", {"int8": "mx_qfc_matmul_i8_f32",
-                                     "e4m3": "mx_qfc_matmul_e4m3_f32"},
+    "qfc_matmul": ("qfc_matmul.cu",
+                   {"f32:int8": "mx_qfc_matmul_i8_f32",
+                    "f32:e4m3": "mx_qfc_matmul_e4m3_f32",
+                    "bf16:int8": "mx_qfc_matmul_i8_bf16",
+                    "bf16:e4m3": "mx_qfc_matmul_e4m3_bf16",
+                    "f16:int8": "mx_qfc_matmul_i8_f16",
+                    "f16:e4m3": "mx_qfc_matmul_e4m3_f16"},
                    [_P, _P, _P, _P, _I, _I, _I, _P]),
     "dequant_rows": ("dequant_rows.cu",
-                     {"int8": "mx_dequant_rows_i8_f32",
-                      "e4m3": "mx_dequant_rows_e4m3_f32"},
+                     {"f32:int8": "mx_dequant_rows_i8_f32",
+                      "f32:e4m3": "mx_dequant_rows_e4m3_f32"},
                      [_P, _P, _P, _I, _I, _P]),
     "bn_stats": ("bn_stats.cu", {"f32": "mx_bn_stats_f32",
-                                 "bf16": "mx_bn_stats_bf16"},
+                                 "bf16": "mx_bn_stats_bf16",
+                                 "f16": "mx_bn_stats_f16"},
                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "bn_apply_relu": ("bn_apply_relu.cu", {"f32": "mx_bn_apply_relu_f32",
-                                           "bf16": "mx_bn_apply_relu_bf16"},
+                                           "bf16": "mx_bn_apply_relu_bf16",
+                                           "f16": "mx_bn_apply_relu_f16"},
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 KERNELS = tuple(_SPECS)
@@ -258,11 +275,10 @@ def build(names=KERNELS):
     return time.perf_counter() - t0
 
 
-def _fn(name, storage=None):
-    """The bound C entry point of one kernel (the one for ``storage``
-    where the kernel has one per storage type of its weight or cache),
+def _fn(name, key):
+    """The bound C entry point of instance ``key`` of kernel ``name``,
     building and loading its library on first use."""
-    sym = _SPECS[name][1] if storage is None else _SPECS[name][1][storage]
+    sym = _SPECS[name][1][key]
     fn = _fns.get((name, sym))
     if fn is not None:
         return fn
@@ -283,31 +299,69 @@ def libraries_loaded():
     return len(_libs)
 
 
-def _launch(name, tensor, *args, storage=None):
-    """Launch one kernel on the current stream of ``tensor``'s device and
-    raise on a refused launch."""
+#: tensor dtype -> the data part of an instance key: the suffix of the C
+#: entry point and of the launch counter of the instance that takes it
+_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float16: "f16"}
+_DTYPES = {k: dt for dt, k in _STORAGE.items()}
+
+#: wrapper name -> the kernel (``_SPECS`` key) it launches
+_WRAPPER_KERNEL = {}
+
+
+def _wrapper(kernel):
+    """Register the decorated function as the wrapper of ``kernel``."""
+    def register_wrapper(fn):
+        _WRAPPER_KERNEL[fn.__name__] = kernel
+        return fn
+    return register_wrapper
+
+
+def _counter(name, key):
+    """The launch counter of wrapper ``name``'s instance ``key``: the
+    kernel's name for float32 data, else ``<wrapper>_<bf16|f16|fp8>``."""
+    data = key.split(":")[0]
+    return _WRAPPER_KERNEL[name] if data == "f32" else f"{name}_{data}"
+
+
+def _instance(name, t, storage=None):
+    """The instance key wrapper ``name`` launches for data ``t`` (and a
+    weight or cache stored as ``storage``); a dtype with no instance
+    raises, naming it."""
+    data = _STORAGE.get(t.dtype)
+    key = data if storage is None else f"{data}:{storage}"
+    keys = _SPECS[_WRAPPER_KERNEL[name]][1]
+    if key not in keys:
+        have = sorted({str(_DTYPES[k.split(":")[0]]) for k in keys
+                       if k.split(":")[0] in _DTYPES})
+        raise MXNetError(f"{name}: no kernel instance takes {t.dtype} "
+                         f"data; it has {', '.join(have)}")
+    return key
+
+
+def _launch(name, key, tensor, *args):
+    """Launch instance ``key`` of wrapper ``name``'s kernel on the current
+    stream of ``tensor``'s device, raise on a refused launch, and count
+    the launch under the instance's counter."""
     with torch.cuda.device(tensor.device):
         stream = torch.cuda.current_stream(tensor.device).cuda_stream
-        err = _fn(name, storage)(*args, stream)
+        err = _fn(_WRAPPER_KERNEL[name], key)(*args, stream)
     if err != 0:
         raise MXNetError(f"CUDA kernel {name!r} launch failed: cudaError "
                          f"{err}")
+    _LAUNCHES[_counter(name, key)] += 1
 
 
-#: what a float32-only kernel (the updates on float32 master weights, the
-#: quantized kernels) says of half-precision input, and a float32
-#: instance of float16
-_HALF_LATER = {
-    torch.bfloat16: "its bfloat16 instance is a later slice of the port "
-                    "(ROADMAP.md queue B)",
-    torch.float16: "float16 is a later slice of the port (ROADMAP.md "
-                   "queue B)"}
+#: what the float32-only kernels (the updates on float32 master weights)
+#: say of half-precision input
+_HALF_LATER = ("the update kernels read float32 master weights, states and "
+               "gradients; a half-precision instance is a later slice of "
+               "the port (ROADMAP.md queue B)")
 
 
 def _check(name, **tensors):
-    """The inputs a kernel takes: the dtype named for each (float32,
-    int32, or a kernel instance's bfloat16), contiguous, all on one CUDA
-    device. Anything else raises."""
+    """The inputs a kernel takes: the dtype named for each, contiguous,
+    all on one CUDA device. Anything else raises."""
     dev = None
     for key, (t, dtype) in tensors.items():
         if t.device.type != "cuda":
@@ -317,11 +371,8 @@ def _check(name, **tensors):
             raise MXNetError(f"{name}: inputs span {dev} and {t.device}")
         dev = t.device
         if t.dtype != dtype:
-            later = _HALF_LATER.get(t.dtype) if dtype == torch.float32 \
-                else None
             raise MXNetError(f"{name}: {key} is {t.dtype}, the kernel "
-                             f"takes {dtype}" + (f"; {later}" if later
-                                                 else ""))
+                             f"takes {dtype}")
         if not t.is_contiguous():
             raise MXNetError(f"{name}: {key} must be contiguous")
 
@@ -336,22 +387,29 @@ def _cpu_or_cuda(name, t):
                      f"{t.device}")
 
 
-#: tensor dtype -> C entry point suffix, for the kernels with a bfloat16
-#: instance
-_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+def _pinned(wrapper, suffix, dtypes, arg=0, want=None):
+    """``wrapper`` held to its instances for ``dtypes`` (of its argument
+    ``arg``): the name an instance had as a wrapper of its own, kept for
+    callers."""
+    name = f"{wrapper.__name__}_{suffix}"
 
-
-def _takes(name):
-    """The data dtype the wrapper ``name`` takes: bfloat16 for a
-    ``*_bf16`` instance, else float32."""
-    return torch.bfloat16 if name.endswith("_bf16") else torch.float32
+    def pinned(*args, **kwargs):
+        t = args[arg]
+        if t.dtype not in dtypes:
+            raise MXNetError(f"{name}: {t.dtype} input, want "
+                             f"{want or ' or '.join(map(str, dtypes))}")
+        return wrapper(*args, **kwargs)
+    pinned.__name__ = pinned.__qualname__ = name
+    pinned.__doc__ = f"``{wrapper.__name__}`` on {want or dtypes} input only."
+    return pinned
 
 
 def launch_counts():
-    """{counter name: launches so far}: one counter per kernel, plus
-    ``decode_attention_fp8`` for the flash-decode kernel's fp8 instances
-    and ``<kernel>_bf16`` for the bfloat16 instances."""
-    return {n: w.launches for n, w in _WRAPPERS.items()}
+    """{counter name: launches so far}: one counter per kernel instance
+    data type — ``<kernel>`` for float32, ``<wrapper>_bf16`` and
+    ``<wrapper>_f16`` for the bfloat16 and float16 instances, and
+    ``decode_attention_fp8`` for the flash-decode read of fp8 caches."""
+    return dict(_LAUNCHES)
 
 
 def source(counter):
@@ -361,8 +419,8 @@ def source(counter):
 
 
 def reset_launch_counts():
-    for w in _WRAPPERS.values():
-        w.launches = 0
+    for n in _LAUNCHES:
+        _LAUNCHES[n] = 0
 
 
 # ==========================================================================
@@ -374,46 +432,23 @@ def reset_launch_counts():
 embedding_plain = embedding_lookup
 
 
-def _emb_launch(name, ids, weight, scale):
-    _check(name, ids=(ids, torch.int32), weight=(weight, _takes(name)))
+@_wrapper("embedding")
+def embedding(ids, weight, scale=1.0):
+    """Gather rows ``ids`` (N,) int32 of ``weight`` (V, D) float32,
+    bfloat16 or float16, times ``scale`` -> (N, D) in the weight's dtype:
+    each value widened exactly, scaled in float32 and rounded once."""
+    if not _cpu_or_cuda("embedding", weight):
+        return embedding_plain(ids, weight, scale)
+    key = _instance("embedding", weight)
+    _check("embedding", ids=(ids, torch.int32), weight=(weight, weight.dtype))
     if weight.ndim != 2 or ids.ndim != 1:
-        raise MXNetError(f"{name}: want ids (N,) and weight (V, D), got "
+        raise MXNetError(f"embedding: want ids (N,) and weight (V, D), got "
                          f"{tuple(ids.shape)} and {tuple(weight.shape)}")
     n, (v, d) = ids.shape[0], weight.shape
     out = torch.empty((n, d), dtype=weight.dtype, device=weight.device)
-    _launch("embedding", weight, ids.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), n, v, d, float(scale),
-            storage=_STORAGE[weight.dtype])
+    _launch("embedding", key, weight, ids.data_ptr(), weight.data_ptr(),
+            out.data_ptr(), n, v, d, float(scale))
     return out
-
-
-def embedding(ids, weight, scale=1.0):
-    """Gather rows ``ids`` (N,) int32 of ``weight`` (V, D) float32 or
-    bfloat16, times ``scale`` -> (N, D) in the weight's dtype; bfloat16
-    goes to ``embedding_bf16``."""
-    if not _cpu_or_cuda("embedding", weight):
-        return embedding_plain(ids, weight, scale)
-    if weight.dtype == torch.bfloat16:
-        return embedding_bf16(ids, weight, scale)
-    out = _emb_launch("embedding", ids, weight, scale)
-    embedding.launches += 1
-    return out
-
-
-embedding.launches = 0
-
-
-def embedding_bf16(ids, weight, scale=1.0):
-    """``embedding``'s bfloat16 instance: weight (V, D) bfloat16, each row
-    scaled in float32 and rounded to bfloat16 once."""
-    if not _cpu_or_cuda("embedding_bf16", weight):
-        return embedding_plain(ids, weight, scale)
-    out = _emb_launch("embedding_bf16", ids, weight, scale)
-    embedding_bf16.launches += 1
-    return out
-
-
-embedding_bf16.launches = 0
 
 
 def embedding_bwd_plain(ids, ct, num_rows, scale=1.0):
@@ -480,50 +515,28 @@ def layernorm_plain(x2, gamma, beta, eps):
     return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
 
 
-def _ln_launch(name, x2, gamma, beta, eps):
-    dtype = _takes(name)
-    _check(name, x=(x2, dtype), gamma=(gamma, dtype), beta=(beta, dtype))
+@_wrapper("layernorm")
+def layernorm(x2, gamma, beta, eps):
+    """LayerNorm of x2 (N, C) float32, bfloat16 or float16 (gamma, beta
+    (C,) of the same dtype) -> (y in x2's dtype, mean (N,), rstd (N,)
+    float32): float32 statistics and arithmetic, y rounded once."""
+    if not _cpu_or_cuda("layernorm", x2):
+        return layernorm_plain(x2, gamma, beta, eps)
+    key = _instance("layernorm", x2)
+    _check("layernorm", x=(x2, x2.dtype), gamma=(gamma, x2.dtype),
+           beta=(beta, x2.dtype))
     if x2.ndim != 2:
-        raise MXNetError(f"{name}: want x (N, C), got {tuple(x2.shape)}")
+        raise MXNetError(f"layernorm: want x (N, C), got {tuple(x2.shape)}")
     n, c = x2.shape
     if gamma.shape != (c,) or beta.shape != (c,):
-        raise MXNetError(f"{name}: gamma/beta must be ({c},)")
+        raise MXNetError(f"layernorm: gamma/beta must be ({c},)")
     y = torch.empty_like(x2)
     mean = torch.empty((n,), dtype=torch.float32, device=x2.device)
     rstd = torch.empty((n,), dtype=torch.float32, device=x2.device)
-    _launch("layernorm", x2, x2.data_ptr(), gamma.data_ptr(),
+    _launch("layernorm", key, x2, x2.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            n, c, float(eps), storage=_STORAGE[x2.dtype])
+            n, c, float(eps))
     return y, mean, rstd
-
-
-def layernorm(x2, gamma, beta, eps):
-    """LayerNorm of x2 (N, C) float32 or bfloat16 (gamma, beta (C,) of
-    the same dtype) -> (y in x2's dtype, mean (N,), rstd (N,) float32);
-    bfloat16 goes to ``layernorm_bf16``."""
-    if not _cpu_or_cuda("layernorm", x2):
-        return layernorm_plain(x2, gamma, beta, eps)
-    if x2.dtype == torch.bfloat16:
-        return layernorm_bf16(x2, gamma, beta, eps)
-    out = _ln_launch("layernorm", x2, gamma, beta, eps)
-    layernorm.launches += 1
-    return out
-
-
-layernorm.launches = 0
-
-
-def layernorm_bf16(x2, gamma, beta, eps):
-    """``layernorm``'s bfloat16 instance: x2, gamma, beta bfloat16,
-    float32 statistics and arithmetic, y rounded to bfloat16 once."""
-    if not _cpu_or_cuda("layernorm_bf16", x2):
-        return layernorm_plain(x2, gamma, beta, eps)
-    out = _ln_launch("layernorm_bf16", x2, gamma, beta, eps)
-    layernorm_bf16.launches += 1
-    return out
-
-
-layernorm_bf16.launches = 0
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -586,45 +599,23 @@ def _layernorm_cuda(attrs, inputs, aux, is_train, rng):
 bias_gelu_plain = nn_bias_gelu
 
 
-def _gelu_launch(name, x2, bias):
-    _check(name, x=(x2, _takes(name)), bias=(bias, _takes(name)))
-    if x2.ndim != 2:
-        raise MXNetError(f"{name}: want x (N, C), got {tuple(x2.shape)}")
-    n, c = x2.shape
-    if bias.shape != (c,):
-        raise MXNetError(f"{name}: bias must be ({c},)")
-    y = torch.empty_like(x2)
-    _launch("bias_gelu", x2, x2.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            n, c, storage=_STORAGE[x2.dtype])
-    return y
-
-
+@_wrapper("bias_gelu")
 def bias_gelu(x2, bias):
-    """Bias + exact GeLU over x2 (N, C) float32 or bfloat16 with bias (C,)
-    of the same dtype; bfloat16 goes to ``bias_gelu_bf16``."""
+    """Bias + exact GeLU over x2 (N, C) float32, bfloat16 or float16 with
+    bias (C,) of the same dtype: float32 arithmetic, y rounded once."""
     if not _cpu_or_cuda("bias_gelu", x2):
         return bias_gelu_plain(x2, bias)
-    if x2.dtype == torch.bfloat16:
-        return bias_gelu_bf16(x2, bias)
-    y = _gelu_launch("bias_gelu", x2, bias)
-    bias_gelu.launches += 1
+    key = _instance("bias_gelu", x2)
+    _check("bias_gelu", x=(x2, x2.dtype), bias=(bias, x2.dtype))
+    if x2.ndim != 2:
+        raise MXNetError(f"bias_gelu: want x (N, C), got {tuple(x2.shape)}")
+    n, c = x2.shape
+    if bias.shape != (c,):
+        raise MXNetError(f"bias_gelu: bias must be ({c},)")
+    y = torch.empty_like(x2)
+    _launch("bias_gelu", key, x2, x2.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), n, c)
     return y
-
-
-bias_gelu.launches = 0
-
-
-def bias_gelu_bf16(x2, bias):
-    """``bias_gelu``'s bfloat16 instance: x2 and bias bfloat16, float32
-    arithmetic, y rounded to bfloat16 once."""
-    if not _cpu_or_cuda("bias_gelu_bf16", x2):
-        return bias_gelu_plain(x2, bias)
-    y = _gelu_launch("bias_gelu_bf16", x2, bias)
-    bias_gelu_bf16.launches += 1
-    return y
-
-
-bias_gelu_bf16.launches = 0
 
 
 class _BiasGeLUFn(torch.autograd.Function):
@@ -681,102 +672,61 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
                         v_cache.to(torch.float32))
 
 
-#: cache storage dtype -> the kernel's C entry point suffix
-_DECODE_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16",
-                   torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
+#: fp8 cache storage dtype -> the storage part of its instance key
+_FP8_STORAGE = {torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
 
 
-def _decode_launch(name, q, k_cache, v_cache, pos):
-    """Check the inputs of the flash-decode kernel and launch the instance
-    for the cache's storage type: float32 q with float32 or fp8 caches
-    (both the same), or bfloat16 q with bfloat16 caches; int32 pos, Dh in
-    {64, 128}, S <= 64; the caches 16-byte aligned (a narrow cache is
-    read 16 bytes a thread)."""
-    storage = _DECODE_STORAGE.get(k_cache.dtype)
-    if storage is None:
-        raise MXNetError(f"{name}: cache is {k_cache.dtype}, the kernel "
-                         "takes float32, bfloat16, float8_e4m3fn or "
-                         "float8_e5m2")
-    _check(name, q=(q, _takes(name)), k_cache=(k_cache, k_cache.dtype),
+@_wrapper("decode_attention")
+def decode_attention(q, k_cache, v_cache, pos):
+    """Cursor-bounded flash-decode read: q (B, H, S, Dh) float32 with
+    caches (B, H, C, Dh) float32, float8_e4m3fn or float8_e5m2, or q and
+    caches bfloat16 or float16 (the mixed-precision paths), with this
+    step's rows already written, pos (B,) int32 per-row cursors ->
+    float32 (B, H, S, Dh). Narrow cells are widened exactly as each tile is
+    staged (no float32 copy of the cache is made); fp8 launches count in
+    ``decode_attention_fp8``. The kernel takes Dh in {64, 128}, S <= 64,
+    and caches 16-byte aligned (a narrow cache is read 16 bytes a
+    thread)."""
+    if not _cpu_or_cuda("decode_attention", q):
+        return decode_attention_plain(q, k_cache, v_cache, pos)
+    if k_cache.dtype in _FP8_STORAGE:
+        key, q_dtype = "fp8:" + _FP8_STORAGE[k_cache.dtype], torch.float32
+    elif k_cache.dtype in _STORAGE:
+        key, q_dtype = _instance("decode_attention", k_cache), k_cache.dtype
+    else:
+        raise MXNetError(f"decode_attention: cache is {k_cache.dtype}, the "
+                         "kernel takes float32, bfloat16, float16, "
+                         "float8_e4m3fn or float8_e5m2")
+    _check("decode_attention", q=(q, q_dtype),
+           k_cache=(k_cache, k_cache.dtype),
            v_cache=(v_cache, k_cache.dtype), pos=(pos, torch.int32))
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
     if Dh not in (64, 128):
-        raise MXNetError(f"{name}: head dim {Dh} — the kernel takes 64 or "
-                         "128")
+        raise MXNetError(f"decode_attention: head dim {Dh} — the kernel "
+                         "takes 64 or 128")
     if S > 64:
-        raise MXNetError(f"{name}: window S={S} > 64")
+        raise MXNetError(f"decode_attention: window S={S} > 64")
     if tuple(k_cache.shape) != (B, H, C, Dh) or \
             tuple(v_cache.shape) != (B, H, C, Dh) or \
             tuple(pos.shape) != (B,):
-        raise MXNetError(f"{name}: want caches (B, H, C, Dh) and pos (B,), "
-                         f"got {tuple(k_cache.shape)}, "
+        raise MXNetError(f"decode_attention: want caches (B, H, C, Dh) and "
+                         f"pos (B,), got {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}, {tuple(pos.shape)}")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise MXNetError(f"{name}: the caches must be 16-byte aligned")
+        raise MXNetError("decode_attention: the caches must be 16-byte "
+                         "aligned")
     out = torch.empty((B, H, S, Dh), dtype=torch.float32, device=q.device)
-    _launch("decode_attention", q, q.data_ptr(), k_cache.data_ptr(),
+    _launch("decode_attention", key, q, q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, S, C,
-            Dh, float(Dh) ** -0.5, storage=storage)
+            Dh, float(Dh) ** -0.5)
     return out
 
 
-def decode_attention(q, k_cache, v_cache, pos):
-    """Cursor-bounded flash-decode read: q (B, H, S, Dh) float32 with
-    caches (B, H, C, Dh) float32, float8_e4m3fn or float8_e5m2, or q and
-    caches bfloat16, with this step's rows already written, pos (B,)
-    int32 per-row cursors -> float32 (B, H, S, Dh). fp8 caches go to
-    ``decode_attention_fp8`` and bfloat16 to ``decode_attention_bf16``,
-    which count their launches. The kernel takes Dh in {64, 128} and
-    S <= 64."""
-    if not _cpu_or_cuda("decode_attention", q):
-        return decode_attention_plain(q, k_cache, v_cache, pos)
-    if k_cache.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        return decode_attention_fp8(q, k_cache, v_cache, pos)
-    if torch.bfloat16 in (q.dtype, k_cache.dtype):
-        return decode_attention_bf16(q, k_cache, v_cache, pos)
-    out = _decode_launch("decode_attention", q, k_cache, v_cache, pos)
-    decode_attention.launches += 1
-    return out
-
-
-decode_attention.launches = 0
-
-
-def decode_attention_fp8(q, k_cache, v_cache, pos):
-    """``decode_attention`` over fp8 caches (float8_e4m3fn or
-    float8_e5m2): the kernel's fp8 instances read the cells and
-    dequantize them as they stage each tile; no float32 copy of the cache
-    is made."""
-    if not _cpu_or_cuda("decode_attention_fp8", q):
-        return decode_attention_plain(q, k_cache, v_cache, pos)
-    if k_cache.dtype not in (torch.float8_e4m3fn, torch.float8_e5m2):
-        raise MXNetError(f"decode_attention_fp8: cache is {k_cache.dtype}, "
-                         "want float8_e4m3fn or float8_e5m2")
-    out = _decode_launch("decode_attention_fp8", q, k_cache, v_cache, pos)
-    decode_attention_fp8.launches += 1
-    return out
-
-
-decode_attention_fp8.launches = 0
-
-
-def decode_attention_bf16(q, k_cache, v_cache, pos):
-    """``decode_attention``'s bfloat16 instance: q and caches bfloat16
-    (the mixed-precision path, caches cast where the graph reads them),
-    widened exactly as each tile is staged; float32 arithmetic and a
-    float32 output."""
-    if not _cpu_or_cuda("decode_attention_bf16", q):
-        return decode_attention_plain(q, k_cache, v_cache, pos)
-    if k_cache.dtype != torch.bfloat16:
-        raise MXNetError(f"decode_attention_bf16: cache is {k_cache.dtype}, "
-                         "want torch.bfloat16")
-    out = _decode_launch("decode_attention_bf16", q, k_cache, v_cache, pos)
-    decode_attention_bf16.launches += 1
-    return out
-
-
-decode_attention_bf16.launches = 0
+decode_attention_fp8 = _pinned(decode_attention, "fp8", tuple(_FP8_STORAGE),
+                               arg=1, want="float8_e4m3fn or float8_e5m2")
+decode_attention_bf16 = _pinned(decode_attention, "bf16", (torch.bfloat16,),
+                                arg=1)
 
 # ==========================================================================
 # 5. row softmax (SoftmaxOutput forward)
@@ -788,44 +738,22 @@ softmax_plain = softmax_rows
 #: the JAX package's eligibility bound for its softmax kernel
 SOFTMAX_MAX_C = 65536
 
-def _softmax_launch(name, x2):
-    _check(name, x=(x2, _takes(name)))
+
+@_wrapper("softmax")
+def softmax(x2):
+    """Row softmax of x2 (N, C) float32, bfloat16 or float16, C <= 65536
+    -> (N, C) in x2's dtype: float32 arithmetic, y rounded once."""
+    if not _cpu_or_cuda("softmax", x2):
+        return softmax_plain(x2)
+    key = _instance("softmax", x2)
+    _check("softmax", x=(x2, x2.dtype))
     if x2.ndim != 2 or x2.shape[1] > SOFTMAX_MAX_C:
-        raise MXNetError(f"{name}: want (N, C) with C <= {SOFTMAX_MAX_C}, "
+        raise MXNetError(f"softmax: want (N, C) with C <= {SOFTMAX_MAX_C}, "
                          f"got {tuple(x2.shape)}")
     n, c = x2.shape
     y = torch.empty_like(x2)
-    _launch("softmax", x2, x2.data_ptr(), y.data_ptr(), n, c,
-            storage=_STORAGE[x2.dtype])
+    _launch("softmax", key, x2, x2.data_ptr(), y.data_ptr(), n, c)
     return y
-
-
-def softmax(x2):
-    """Row softmax of x2 (N, C) float32 or bfloat16, C <= 65536 -> (N, C)
-    in x2's dtype; bfloat16 goes to ``softmax_bf16``."""
-    if not _cpu_or_cuda("softmax", x2):
-        return softmax_plain(x2)
-    if x2.dtype == torch.bfloat16:
-        return softmax_bf16(x2)
-    y = _softmax_launch("softmax", x2)
-    softmax.launches += 1
-    return y
-
-
-softmax.launches = 0
-
-
-def softmax_bf16(x2):
-    """``softmax``'s bfloat16 instance: x2 (N, C) bfloat16, float32
-    arithmetic, y rounded to bfloat16."""
-    if not _cpu_or_cuda("softmax_bf16", x2):
-        return softmax_plain(x2)
-    y = _softmax_launch("softmax_bf16", x2)
-    softmax_bf16.launches += 1
-    return y
-
-
-softmax_bf16.launches = 0
 
 
 # ==========================================================================
@@ -836,53 +764,27 @@ softmax_bf16.launches = 0
 softmax_ce_bwd_plain = softmax_ce_grad
 
 
-def _ce_launch(name, prob2, label, scale, use_ignore, ignore_label):
-    _check(name, prob=(prob2, _takes(name)), label=(label, torch.float32))
-    if prob2.ndim != 2 or tuple(label.shape) != (prob2.shape[0],):
-        raise MXNetError(f"{name}: want prob (N, C) and label (N,), got "
-                         f"{tuple(prob2.shape)} and {tuple(label.shape)}")
-    n, c = prob2.shape
-    g = torch.empty_like(prob2)
-    _launch("softmax_ce_bwd", prob2, prob2.data_ptr(), label.data_ptr(),
-            g.data_ptr(), n, c, float(scale), int(bool(use_ignore)),
-            float(ignore_label), storage=_STORAGE[prob2.dtype])
-    return g
-
-
+@_wrapper("softmax_ce_bwd")
 def softmax_ce_bwd(prob2, label, scale, use_ignore=False, ignore_label=-1.0):
-    """Cross-entropy gradient over prob2 (N, C) float32 or bfloat16 with
-    label (N,) float32 -> (N, C) in prob2's dtype; bfloat16 goes to
-    ``softmax_ce_bwd_bf16``."""
+    """Cross-entropy gradient over prob2 (N, C) float32, bfloat16 or
+    float16 with label (N,) float32 -> (N, C) in prob2's dtype: float32
+    arithmetic, the gradient rounded once."""
     if not _cpu_or_cuda("softmax_ce_bwd", prob2):
         return softmax_ce_bwd_plain(prob2, label, scale, use_ignore,
                                     ignore_label)
-    if prob2.dtype == torch.bfloat16:
-        return softmax_ce_bwd_bf16(prob2, label, scale, use_ignore,
-                                   ignore_label)
-    g = _ce_launch("softmax_ce_bwd", prob2, label, scale, use_ignore,
-                   ignore_label)
-    softmax_ce_bwd.launches += 1
+    key = _instance("softmax_ce_bwd", prob2)
+    _check("softmax_ce_bwd", prob=(prob2, prob2.dtype),
+           label=(label, torch.float32))
+    if prob2.ndim != 2 or tuple(label.shape) != (prob2.shape[0],):
+        raise MXNetError(f"softmax_ce_bwd: want prob (N, C) and label (N,), "
+                         f"got {tuple(prob2.shape)} and "
+                         f"{tuple(label.shape)}")
+    n, c = prob2.shape
+    g = torch.empty_like(prob2)
+    _launch("softmax_ce_bwd", key, prob2, prob2.data_ptr(), label.data_ptr(),
+            g.data_ptr(), n, c, float(scale), int(bool(use_ignore)),
+            float(ignore_label))
     return g
-
-
-softmax_ce_bwd.launches = 0
-
-
-def softmax_ce_bwd_bf16(prob2, label, scale, use_ignore=False,
-                        ignore_label=-1.0):
-    """``softmax_ce_bwd``'s bfloat16 instance: prob2 (N, C) bfloat16,
-    label (N,) float32, float32 arithmetic, the gradient rounded to
-    bfloat16."""
-    if not _cpu_or_cuda("softmax_ce_bwd_bf16", prob2):
-        return softmax_ce_bwd_plain(prob2, label, scale, use_ignore,
-                                    ignore_label)
-    g = _ce_launch("softmax_ce_bwd_bf16", prob2, label, scale, use_ignore,
-                   ignore_label)
-    softmax_ce_bwd_bf16.launches += 1
-    return g
-
-
-softmax_ce_bwd_bf16.launches = 0
 
 
 # ==========================================================================
@@ -893,12 +795,16 @@ sgd_mom_update_plain = sgd_mom_step
 
 
 def _check_same(name, **tensors):
+    for key, t in tensors.items():
+        if t.dtype in (torch.bfloat16, torch.float16):
+            raise MXNetError(f"{name}: {key} is {t.dtype}; {_HALF_LATER}")
     _check(name, **{k: (t, torch.float32) for k, t in tensors.items()})
     shapes = {tuple(t.shape) for t in tensors.values()}
     if len(shapes) != 1:
         raise MXNetError(f"{name}: operands differ in shape: {shapes}")
 
 
+@_wrapper("sgd_mom")
 def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0, rescale=1.0,
                    clip=-1.0):
     """In place on ``weight`` and ``mom`` (same shape, float32):
@@ -912,15 +818,11 @@ def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0, rescale=1.0,
         mom.copy_(new_m)
         return weight, mom
     _check_same("sgd_mom_update", weight=weight, grad=grad, mom=mom)
-    _launch("sgd_mom", weight, weight.data_ptr(), grad.data_ptr(),
-            mom.data_ptr(), weight.numel(), float(lr), float(momentum),
-            float(wd), float(rescale), float(clip))
+    _launch("sgd_mom_update", "f32", weight, weight.data_ptr(),
+            grad.data_ptr(), mom.data_ptr(), weight.numel(), float(lr),
+            float(momentum), float(wd), float(rescale), float(clip))
     increment_version((weight, mom))      # written through raw pointers
-    sgd_mom_update.launches += 1
     return weight, mom
-
-
-sgd_mom_update.launches = 0
 
 
 # ==========================================================================
@@ -930,6 +832,7 @@ sgd_mom_update.launches = 0
 adam_update_plain = adam_step
 
 
+@_wrapper("adam")
 def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
                 epsilon=1e-8, wd=0.0, rescale=1.0, clip=-1.0):
     """In place on ``weight``, ``mean`` and ``var`` (same shape,
@@ -942,16 +845,13 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
             dst.copy_(src)
         return weight, mean, var
     _check_same("adam_update", weight=weight, grad=grad, mean=mean, var=var)
-    _launch("adam", weight, weight.data_ptr(), grad.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), weight.numel(), float(lr),
-            float(beta1), float(1 - beta1), float(beta2), float(1 - beta2),
-            float(epsilon), float(wd), float(rescale), float(clip))
+    _launch("adam_update", "f32", weight, weight.data_ptr(),
+            grad.data_ptr(), mean.data_ptr(), var.data_ptr(), weight.numel(),
+            float(lr), float(beta1), float(1 - beta1), float(beta2),
+            float(1 - beta2), float(epsilon), float(wd), float(rescale),
+            float(clip))
     increment_version((weight, mean, var))
-    adam_update.launches += 1
     return weight, mean, var
-
-
-adam_update.launches = 0
 
 
 # ==========================================================================
@@ -984,48 +884,29 @@ def _check_ln_bwd(name, x2, ct, mean, rstd):
         raise MXNetError(f"{name}: C={x2.shape[1]} > {LN_MAX_C}")
 
 
-def _ln_dx_launch(name, x2, gamma, ct, mean, rstd):
-    dtype = _takes(name)
-    _check(name, x=(x2, dtype), gamma=(gamma, dtype), ct=(ct, dtype),
-           mean=(mean, torch.float32), rstd=(rstd, torch.float32))
-    _check_ln_bwd(name, x2, ct, mean, rstd)
-    n, c = x2.shape
-    if tuple(gamma.shape) != (c,):
-        raise MXNetError(f"{name}: gamma must be ({c},)")
-    dx = torch.empty_like(x2)
-    _launch("ln_bwd_dx", x2, x2.data_ptr(), gamma.data_ptr(), ct.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), n, c,
-            storage=_STORAGE[x2.dtype])
-    return dx
-
-
+@_wrapper("ln_bwd_dx")
 def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
-    """LayerNorm's input gradient: x2, ct (N, C), gamma (C,) float32 or
-    bfloat16, mean, rstd (N,) float32, C <= 65536 -> dx (N, C) in x2's
-    dtype; bfloat16 goes to ``layernorm_bwd_dx_bf16``."""
+    """LayerNorm's input gradient: x2, ct (N, C), gamma (C,) float32,
+    bfloat16 or float16, mean, rstd (N,) float32, C <= 65536 -> dx (N, C)
+    in x2's dtype: float32 arithmetic, dx rounded once."""
     if not _cpu_or_cuda("layernorm_bwd_dx", x2):
         return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
-    if x2.dtype == torch.bfloat16:
-        return layernorm_bwd_dx_bf16(x2, gamma, ct, mean, rstd)
-    dx = _ln_dx_launch("layernorm_bwd_dx", x2, gamma, ct, mean, rstd)
-    layernorm_bwd_dx.launches += 1
+    key = _instance("layernorm_bwd_dx", x2)
+    _check("layernorm_bwd_dx", x=(x2, x2.dtype), gamma=(gamma, x2.dtype),
+           ct=(ct, x2.dtype), mean=(mean, torch.float32),
+           rstd=(rstd, torch.float32))
+    _check_ln_bwd("layernorm_bwd_dx", x2, ct, mean, rstd)
+    n, c = x2.shape
+    if tuple(gamma.shape) != (c,):
+        raise MXNetError(f"layernorm_bwd_dx: gamma must be ({c},)")
+    dx = torch.empty_like(x2)
+    _launch("layernorm_bwd_dx", key, x2, x2.data_ptr(), gamma.data_ptr(),
+            ct.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            n, c)
     return dx
 
 
-layernorm_bwd_dx.launches = 0
-
-
-def layernorm_bwd_dx_bf16(x2, gamma, ct, mean, rstd):
-    """``layernorm_bwd_dx``'s bfloat16 instance: x2, gamma, ct bfloat16,
-    float32 statistics and arithmetic, dx rounded to bfloat16 once."""
-    if not _cpu_or_cuda("layernorm_bwd_dx_bf16", x2):
-        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
-    dx = _ln_dx_launch("layernorm_bwd_dx_bf16", x2, gamma, ct, mean, rstd)
-    layernorm_bwd_dx_bf16.launches += 1
-    return dx
-
-
-layernorm_bwd_dx_bf16.launches = 0
+layernorm_bwd_dx_bf16 = _pinned(layernorm_bwd_dx, "bf16", (torch.bfloat16,))
 
 
 # ==========================================================================
@@ -1050,52 +931,33 @@ def _dparams_chunks(n):
     return rows, max(1, -(-n // rows))
 
 
-def _dparams_launch(name, x2, ct, mean, rstd):
-    dtype = _takes(name)
-    _check(name, x=(x2, dtype), ct=(ct, dtype), mean=(mean, torch.float32),
-           rstd=(rstd, torch.float32))
-    _check_ln_bwd(name, x2, ct, mean, rstd)
+@_wrapper("ln_bwd_dparams")
+def layernorm_bwd_dparams(x2, ct, mean, rstd):
+    """LayerNorm's parameter gradients over x2, ct (N, C) float32,
+    bfloat16 or float16 with mean, rstd (N,) float32, C <= 65536 ->
+    (dgamma, dbeta) (C,) in x2's dtype, each the float32 sum rounded once
+    in the kernel's final stage. A deterministic two-stage reduction: one
+    call, one launch count."""
+    if not _cpu_or_cuda("layernorm_bwd_dparams", x2):
+        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
+    key = _instance("layernorm_bwd_dparams", x2)
+    _check("layernorm_bwd_dparams", x=(x2, x2.dtype), ct=(ct, x2.dtype),
+           mean=(mean, torch.float32), rstd=(rstd, torch.float32))
+    _check_ln_bwd("layernorm_bwd_dparams", x2, ct, mean, rstd)
     n, c = x2.shape
     rows, chunks = _dparams_chunks(n)
     part = torch.empty((2, chunks, c), dtype=torch.float32, device=x2.device)
     dg = torch.empty((c,), dtype=x2.dtype, device=x2.device)
     db = torch.empty((c,), dtype=x2.dtype, device=x2.device)
-    _launch("ln_bwd_dparams", x2, x2.data_ptr(), ct.data_ptr(),
+    _launch("layernorm_bwd_dparams", key, x2, x2.data_ptr(), ct.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), n, c, rows,
-            chunks, storage=_STORAGE[x2.dtype])
+            chunks)
     return dg, db
 
 
-def layernorm_bwd_dparams(x2, ct, mean, rstd):
-    """LayerNorm's parameter gradients over x2, ct (N, C) float32 or
-    bfloat16 with mean, rstd (N,) float32, C <= 65536 -> (dgamma, dbeta)
-    (C,) in x2's dtype. A deterministic two-stage reduction: one call, one
-    launch count; bfloat16 goes to ``layernorm_bwd_dparams_bf16``."""
-    if not _cpu_or_cuda("layernorm_bwd_dparams", x2):
-        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
-    if x2.dtype == torch.bfloat16:
-        return layernorm_bwd_dparams_bf16(x2, ct, mean, rstd)
-    out = _dparams_launch("layernorm_bwd_dparams", x2, ct, mean, rstd)
-    layernorm_bwd_dparams.launches += 1
-    return out
-
-
-layernorm_bwd_dparams.launches = 0
-
-
-def layernorm_bwd_dparams_bf16(x2, ct, mean, rstd):
-    """``layernorm_bwd_dparams``' bfloat16 instance: x2, ct bfloat16,
-    float32 statistics, partial sums and arithmetic; dgamma and dbeta
-    rounded to bfloat16 once, in the kernel's final stage."""
-    if not _cpu_or_cuda("layernorm_bwd_dparams_bf16", x2):
-        return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
-    out = _dparams_launch("layernorm_bwd_dparams_bf16", x2, ct, mean, rstd)
-    layernorm_bwd_dparams_bf16.launches += 1
-    return out
-
-
-layernorm_bwd_dparams_bf16.launches = 0
+layernorm_bwd_dparams_bf16 = _pinned(layernorm_bwd_dparams, "bf16",
+                                     (torch.bfloat16,))
 
 
 # ==========================================================================
@@ -1113,48 +975,29 @@ def bias_gelu_dx_plain(x2, bias, ct):
     return (ct.to(torch.float32) * dgelu).to(x2.dtype)
 
 
-def _gelu_dx_launch(name, x2, bias, ct):
-    dtype = _takes(name)
-    _check(name, x=(x2, dtype), bias=(bias, dtype), ct=(ct, dtype))
+@_wrapper("bias_gelu_dx")
+def bias_gelu_dx(x2, bias, ct):
+    """The bias + GeLU input gradient over x2, ct (N, C) float32, bfloat16
+    or float16 with bias (C,) of the same dtype -> dx (N, C) in x2's
+    dtype: float32 arithmetic, dx rounded once."""
+    if not _cpu_or_cuda("bias_gelu_dx", x2):
+        return bias_gelu_dx_plain(x2, bias, ct)
+    key = _instance("bias_gelu_dx", x2)
+    _check("bias_gelu_dx", x=(x2, x2.dtype), bias=(bias, x2.dtype),
+           ct=(ct, x2.dtype))
     if x2.ndim != 2 or tuple(ct.shape) != tuple(x2.shape) or \
             tuple(bias.shape) != (x2.shape[1],):
-        raise MXNetError(f"{name}: want x, ct (N, C) and bias (C,), "
+        raise MXNetError(f"bias_gelu_dx: want x, ct (N, C) and bias (C,), "
                          f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
                          f"{tuple(bias.shape)}")
     n, c = x2.shape
     dx = torch.empty_like(x2)
-    _launch("bias_gelu_dx", x2, x2.data_ptr(), bias.data_ptr(),
-            ct.data_ptr(), dx.data_ptr(), n, c, storage=_STORAGE[x2.dtype])
+    _launch("bias_gelu_dx", key, x2, x2.data_ptr(), bias.data_ptr(),
+            ct.data_ptr(), dx.data_ptr(), n, c)
     return dx
 
 
-def bias_gelu_dx(x2, bias, ct):
-    """The bias + GeLU input gradient over x2, ct (N, C) float32 or
-    bfloat16 with bias (C,) of the same dtype -> dx (N, C) in x2's dtype;
-    bfloat16 goes to ``bias_gelu_dx_bf16``."""
-    if not _cpu_or_cuda("bias_gelu_dx", x2):
-        return bias_gelu_dx_plain(x2, bias, ct)
-    if x2.dtype == torch.bfloat16:
-        return bias_gelu_dx_bf16(x2, bias, ct)
-    dx = _gelu_dx_launch("bias_gelu_dx", x2, bias, ct)
-    bias_gelu_dx.launches += 1
-    return dx
-
-
-bias_gelu_dx.launches = 0
-
-
-def bias_gelu_dx_bf16(x2, bias, ct):
-    """``bias_gelu_dx``'s bfloat16 instance: x2, bias, ct bfloat16,
-    float32 arithmetic, dx rounded to bfloat16 once."""
-    if not _cpu_or_cuda("bias_gelu_dx_bf16", x2):
-        return bias_gelu_dx_plain(x2, bias, ct)
-    dx = _gelu_dx_launch("bias_gelu_dx_bf16", x2, bias, ct)
-    bias_gelu_dx_bf16.launches += 1
-    return dx
-
-
-bias_gelu_dx_bf16.launches = 0
+bias_gelu_dx_bf16 = _pinned(bias_gelu_dx, "bf16", (torch.bfloat16,))
 
 
 # ==========================================================================
@@ -1176,59 +1019,40 @@ def flash_attention_plain(q, k, v, causal=False):
                         v.to(torch.float32)).to(q.dtype)
 
 
-def _flash_launch(name, q, k, v, causal):
-    dtype = _takes(name)
-    _check(name, q=(q, dtype), k=(k, dtype), v=(v, dtype))
+@_wrapper("flash_attention")
+def flash_attention(q, k, v, causal=False):
+    """Self-attention of q, k, v (B, H, T, Dh) float32, bfloat16 or float16
+    -> (B, H, T, Dh) in q's dtype: the 16-bit tiles widened exactly as
+    they are staged, q scaled and every product and the online softmax in
+    float32 (no 16-bit tensor cores), the output rounded once. The kernel
+    takes Dh in {64, 128}, any T, and Tq == Tk only."""
+    if not _cpu_or_cuda("flash_attention", q):
+        return flash_attention_plain(q, k, v, causal)
+    key = _instance("flash_attention", q)
+    _check("flash_attention", q=(q, q.dtype), k=(k, q.dtype),
+           v=(v, q.dtype))
     if q.ndim != 4 or tuple(k.shape) != tuple(q.shape) or \
             tuple(v.shape) != tuple(q.shape):
-        raise MXNetError(f"{name}: self-attention only, want q, k, "
+        raise MXNetError(f"flash_attention: self-attention only, want q, k, "
                          f"v (B, H, T, Dh) alike (Tq == Tk), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, T, Dh = q.shape
     if Dh not in (64, 128):
-        raise MXNetError(f"{name}: head dim {Dh} — the kernel takes 64 or "
-                         "128")
+        raise MXNetError(f"flash_attention: head dim {Dh} — the kernel "
+                         "takes 64 or 128")
     if B * H > 65535:
-        raise MXNetError(f"{name}: B*H={B * H} > 65535")
+        raise MXNetError(f"flash_attention: B*H={B * H} > 65535")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise MXNetError(f"{name}: q, k, v must be 16-byte aligned")
+        raise MXNetError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
-    _launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B * H, T, Dh, int(bool(causal)),
-            float(Dh) ** -0.5, storage=_STORAGE[q.dtype])
+    _launch("flash_attention", key, q, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B * H, T, Dh, int(bool(causal)),
+            float(Dh) ** -0.5)
     return out
 
 
-def flash_attention(q, k, v, causal=False):
-    """Self-attention of q, k, v (B, H, T, Dh) float32 or bfloat16 ->
-    (B, H, T, Dh) in q's dtype. The kernel takes Dh in {64, 128}, any T,
-    and Tq == Tk only; bfloat16 goes to ``flash_attention_bf16``."""
-    if not _cpu_or_cuda("flash_attention", q):
-        return flash_attention_plain(q, k, v, causal)
-    if q.dtype == torch.bfloat16:
-        return flash_attention_bf16(q, k, v, causal)
-    out = _flash_launch("flash_attention", q, k, v, causal)
-    flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
-
-
-def flash_attention_bf16(q, k, v, causal=False):
-    """``flash_attention``'s bfloat16 instance: q, k, v bfloat16, widened
-    exactly as each tile is staged; q scaled and every product and the
-    online softmax in float32 (no bfloat16 tensor cores); the output
-    rounded to bfloat16 once."""
-    if not _cpu_or_cuda("flash_attention_bf16", q):
-        return flash_attention_plain(q, k, v, causal)
-    out = _flash_launch("flash_attention_bf16", q, k, v, causal)
-    flash_attention_bf16.launches += 1
-    return out
-
-
-flash_attention_bf16.launches = 0
+flash_attention_bf16 = _pinned(flash_attention, "bf16", (torch.bfloat16,))
 
 
 # ==========================================================================
@@ -1239,29 +1063,30 @@ flash_attention_bf16.launches = 0
 #: quantized ops' own dequant, shared)
 dequant_rows_plain = dequantize
 
-#: weight storage dtype -> the kernels' C entry point suffix
+#: weight storage dtype -> the storage part of the kernels' instance keys
 _QUANT_STORAGE = {torch.int8: "int8", torch.float8_e4m3fn: "e4m3"}
 
 
-def _check_quant(name, wq, **tensors):
-    """A narrow weight (int8 or float8_e4m3fn) plus the float32 tensors,
-    contiguous, on one CUDA device; returns the storage key."""
+def _quant_storage(name, wq):
     storage = _QUANT_STORAGE.get(wq.dtype)
     if storage is None:
         raise MXNetError(f"{name}: weight is {wq.dtype}, the kernel takes "
                          "torch.int8 or torch.float8_e4m3fn")
-    _check(name, weight=(wq, wq.dtype),
-           **{k: (t, torch.float32) for k, t in tensors.items()})
     return storage
 
 
+@_wrapper("qfc_matmul")
 def qfc_matmul(x2, wq, scale):
-    """``x2 @ (wq * scale[:, None]).T``: x2 (M, K) float32, wq (N, K)
-    int8 or float8_e4m3fn, scale (N,) float32 -> (M, N) float32, each
-    weight scaled before the product."""
+    """``x2 @ (wq * scale[:, None]).T``: x2 (M, K) float32, bfloat16 or
+    float16, wq (N, K) int8 or float8_e4m3fn, scale (N,) float32 -> (M, N)
+    float32, each weight scaled before the product, x widened exactly and
+    every product summed in float32 (the TPU kernel's output is float32
+    whatever x's type; the op rounds to x's type after the bias)."""
     if not _cpu_or_cuda("qfc_matmul", x2):
         return qfc_matmul_plain(x2, wq, scale)
-    storage = _check_quant("qfc_matmul", wq, x=x2, scale=scale)
+    key = _instance("qfc_matmul", x2, _quant_storage("qfc_matmul", wq))
+    _check("qfc_matmul", x=(x2, x2.dtype), weight=(wq, wq.dtype),
+           scale=(scale, torch.float32))
     if x2.ndim != 2 or wq.ndim != 2 or wq.shape[1] != x2.shape[1] or \
             tuple(scale.shape) != (wq.shape[0],):
         raise MXNetError(f"qfc_matmul: want x (M, K), weight (N, K) and "
@@ -1271,35 +1096,32 @@ def qfc_matmul(x2, wq, scale):
     if m > 64 * 65535:
         raise MXNetError(f"qfc_matmul: M={m} > {64 * 65535}")
     out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    _launch("qfc_matmul", x2, x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), m, n, k, storage=storage)
-    qfc_matmul.launches += 1
+    _launch("qfc_matmul", key, x2, x2.data_ptr(), wq.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), m, n, k)
     return out
 
 
-qfc_matmul.launches = 0
-
-
+@_wrapper("dequant_rows")
 def dequant_rows(wq2, scale):
     """``float(wq2[o, c]) * scale[o]``: wq2 (O, cols) int8 or
     float8_e4m3fn, scale (O,) float32 -> (O, cols) float32, bit for bit
     the plain version's."""
     if not _cpu_or_cuda("dequant_rows", wq2):
         return dequant_rows_plain(wq2, scale)
-    storage = _check_quant("dequant_rows", wq2, scale=scale)
+    key = _instance("dequant_rows", scale,
+                    _quant_storage("dequant_rows", wq2))
+    _check("dequant_rows", weight=(wq2, wq2.dtype),
+           scale=(scale, torch.float32))
     if wq2.ndim != 2 or tuple(scale.shape) != (wq2.shape[0],):
         raise MXNetError(f"dequant_rows: want weight (O, cols) and scale "
                          f"(O,), got {tuple(wq2.shape)}, "
                          f"{tuple(scale.shape)}")
     rows, cols = wq2.shape
     out = torch.empty((rows, cols), dtype=torch.float32, device=wq2.device)
-    _launch("dequant_rows", wq2, wq2.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), rows, cols, storage=storage)
-    dequant_rows.launches += 1
+    _launch("dequant_rows", key, wq2, wq2.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), rows, cols)
     return out
 
-
-dequant_rows.launches = 0
 
 # ==========================================================================
 # 15. BatchNorm channel statistics (FusedConvBNReLU, training)
@@ -1331,50 +1153,28 @@ def _stats_slices(n, hw):
     return rows, max(1, -(-n // rows))
 
 
-def _stats_launch(name, x4):
-    _check(name, x=(x4, _takes(name)))
-    _check_nchw(name, x4)
+@_wrapper("bn_stats")
+def bn_stats(x4):
+    """Per-channel (sum, sum of squares) of x4 (N, C, H, W) float32,
+    bfloat16 or float16 -> two (C,) float32, each value widened exactly. A
+    deterministic two-stage reduction: one call, one launch count."""
+    if not _cpu_or_cuda("bn_stats", x4):
+        return bn_stats_plain(x4)
+    key = _instance("bn_stats", x4)
+    _check("bn_stats", x=(x4, x4.dtype))
+    _check_nchw("bn_stats", x4)
     n, c, h, w = x4.shape
     rows, slices = _stats_slices(n, h * w)
     if rows * h * w + 256 >= 2 ** 31:
-        raise MXNetError(f"{name}: {rows} rows of {h * w} values exceed a "
+        raise MXNetError(f"bn_stats: {rows} rows of {h * w} values exceed a "
                          "first-stage slice's 32-bit index")
     part = torch.empty((2, slices, c), dtype=torch.float32, device=x4.device)
     s = torch.empty((c,), dtype=torch.float32, device=x4.device)
     sq = torch.empty((c,), dtype=torch.float32, device=x4.device)
-    _launch("bn_stats", x4, x4.data_ptr(), part[0].data_ptr(),
+    _launch("bn_stats", key, x4, x4.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), s.data_ptr(), sq.data_ptr(), n, c, h * w,
-            rows, slices, storage=_STORAGE[x4.dtype])
+            rows, slices)
     return s, sq
-
-
-def bn_stats(x4):
-    """Per-channel (sum, sum of squares) of x4 (N, C, H, W) float32 or
-    bfloat16 -> two (C,) float32. A deterministic two-stage reduction: one
-    call, one launch count; bfloat16 goes to ``bn_stats_bf16``."""
-    if not _cpu_or_cuda("bn_stats", x4):
-        return bn_stats_plain(x4)
-    if x4.dtype == torch.bfloat16:
-        return bn_stats_bf16(x4)
-    out = _stats_launch("bn_stats", x4)
-    bn_stats.launches += 1
-    return out
-
-
-bn_stats.launches = 0
-
-
-def bn_stats_bf16(x4):
-    """``bn_stats``' bfloat16 instance: x4 bfloat16, each value widened
-    exactly, float32 sums."""
-    if not _cpu_or_cuda("bn_stats_bf16", x4):
-        return bn_stats_plain(x4)
-    out = _stats_launch("bn_stats_bf16", x4)
-    bn_stats_bf16.launches += 1
-    return out
-
-
-bn_stats_bf16.launches = 0
 
 
 def bn_apply_relu_plain(x4, scale, shift):
@@ -1387,49 +1187,26 @@ def bn_apply_relu_plain(x4, scale, shift):
                          ).to(x4.dtype)
 
 
-def _apply_launch(name, x4, scale, shift):
-    _check(name, x=(x4, _takes(name)), scale=(scale, torch.float32),
-           shift=(shift, torch.float32))
-    _check_nchw(name, x4)
-    n, c, h, w = x4.shape
-    if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
-        raise MXNetError(f"{name}: scale and shift must be ({c},), got "
-                         f"{tuple(scale.shape)}, {tuple(shift.shape)}")
-    y = torch.empty_like(x4)
-    _launch("bn_apply_relu", x4, x4.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), y.data_ptr(), n, c, h * w,
-            storage=_STORAGE[x4.dtype])
-    return y
-
-
+@_wrapper("bn_apply_relu")
 def bn_apply_relu(x4, scale, shift):
-    """``max(x4 * scale[c] + shift[c], 0)``: x4 (N, C, H, W) float32 or
-    bfloat16, scale and shift (C,) float32 -> (N, C, H, W) in x4's dtype,
-    bit for bit the plain version's; bfloat16 goes to
-    ``bn_apply_relu_bf16``."""
+    """``max(x4 * scale[c] + shift[c], 0)``: x4 (N, C, H, W) float32,
+    bfloat16 or float16, scale and shift (C,) float32 -> (N, C, H, W) in
+    x4's dtype, float32 arithmetic rounded once, bit for bit the plain
+    version's."""
     if not _cpu_or_cuda("bn_apply_relu", x4):
         return bn_apply_relu_plain(x4, scale, shift)
-    if x4.dtype == torch.bfloat16:
-        return bn_apply_relu_bf16(x4, scale, shift)
-    y = _apply_launch("bn_apply_relu", x4, scale, shift)
-    bn_apply_relu.launches += 1
+    key = _instance("bn_apply_relu", x4)
+    _check("bn_apply_relu", x=(x4, x4.dtype), scale=(scale, torch.float32),
+           shift=(shift, torch.float32))
+    _check_nchw("bn_apply_relu", x4)
+    n, c, h, w = x4.shape
+    if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
+        raise MXNetError(f"bn_apply_relu: scale and shift must be ({c},), "
+                         f"got {tuple(scale.shape)}, {tuple(shift.shape)}")
+    y = torch.empty_like(x4)
+    _launch("bn_apply_relu", key, x4, x4.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), y.data_ptr(), n, c, h * w)
     return y
-
-
-bn_apply_relu.launches = 0
-
-
-def bn_apply_relu_bf16(x4, scale, shift):
-    """``bn_apply_relu``'s bfloat16 instance: x4 bfloat16, float32 scale,
-    shift and arithmetic, y rounded once to bfloat16."""
-    if not _cpu_or_cuda("bn_apply_relu_bf16", x4):
-        return bn_apply_relu_plain(x4, scale, shift)
-    y = _apply_launch("bn_apply_relu_bf16", x4, scale, shift)
-    bn_apply_relu_bf16.launches += 1
-    return y
-
-
-bn_apply_relu_bf16.launches = 0
 
 
 def _cbr_scale_shift(attrs, gamma, mean, var, beta):
@@ -1516,41 +1293,20 @@ def conv_bn_relu_fn(attrs, data, weight, gamma, beta, moving_mean,
                                moving_var, attrs, bool(is_train))
 
 
-_WRAPPERS = {"embedding": embedding, "layernorm": layernorm,
-             "bias_gelu": bias_gelu, "decode_attention": decode_attention,
-             "decode_attention_fp8": decode_attention_fp8,
-             "softmax": softmax, "softmax_ce_bwd": softmax_ce_bwd,
-             "sgd_mom": sgd_mom_update, "adam": adam_update,
-             "ln_bwd_dx": layernorm_bwd_dx,
-             "ln_bwd_dparams": layernorm_bwd_dparams,
-             "bias_gelu_dx": bias_gelu_dx,
-             "flash_attention": flash_attention, "qfc_matmul": qfc_matmul,
-             "dequant_rows": dequant_rows, "bn_stats": bn_stats,
-             "bn_apply_relu": bn_apply_relu,
-             "embedding_bf16": embedding_bf16,
-             "layernorm_bf16": layernorm_bf16,
-             "bias_gelu_bf16": bias_gelu_bf16,
-             "decode_attention_bf16": decode_attention_bf16,
-             "softmax_bf16": softmax_bf16,
-             "softmax_ce_bwd_bf16": softmax_ce_bwd_bf16,
-             "bn_stats_bf16": bn_stats_bf16,
-             "bn_apply_relu_bf16": bn_apply_relu_bf16,
-             "layernorm_bwd_dx_bf16": layernorm_bwd_dx_bf16,
-             "layernorm_bwd_dparams_bf16": layernorm_bwd_dparams_bf16,
-             "bias_gelu_dx_bf16": bias_gelu_dx_bf16,
-             "flash_attention_bf16": flash_attention_bf16}
-#: the launch counters: one per kernel, one for the flash-decode kernel's
-#: fp8 instances, and one per bfloat16 instance
-COUNTERS = tuple(_WRAPPERS)
-#: launch counter -> the kernel (``_SPECS`` key) it counts
-_COUNTER_KERNEL = {n: n for n in _SPECS}
-_COUNTER_KERNEL.update({"decode_attention_fp8": "decode_attention"})
-_COUNTER_KERNEL.update({n + "_bf16": n for n in (
-    "embedding", "layernorm", "bias_gelu", "decode_attention", "softmax",
-    "softmax_ce_bwd", "bn_stats", "bn_apply_relu", "bias_gelu_dx",
-    "flash_attention")})
-_COUNTER_KERNEL.update({"layernorm_bwd_dx_bf16": "ln_bwd_dx",
-                        "layernorm_bwd_dparams_bf16": "ln_bwd_dparams"})
+def _counters():
+    """(the launch counters in wrapper order, {counter: its kernel})."""
+    kernel_of = {}
+    for name, kernel in _WRAPPER_KERNEL.items():
+        for key in _SPECS[kernel][1]:
+            kernel_of.setdefault(_counter(name, key), kernel)
+    return tuple(kernel_of), kernel_of
+
+
+#: the launch counters: one per kernel and data type of its instances
+#: (``decode_attention_fp8`` for the fp8-cache reads), and the kernel
+#: (``_SPECS`` key) behind each
+COUNTERS, _COUNTER_KERNEL = _counters()
+_LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 
 # ==========================================================================
@@ -1589,36 +1345,33 @@ def _adam_cuda(attrs, inputs, aux, is_train, rng):
         attrs.get("clip_gradient", -1.0))), []
 
 
-def _float32_data(op, data):
-    if data.dtype != torch.float32:
-        later = _HALF_LATER.get(data.dtype)
-        raise MXNetError(f"{op}: the CUDA kernels take float32 data, got "
-                         f"{data.dtype}" + (f"; {later}" if later else ""))
-
-
 def _qfc_cuda(attrs, inputs, aux, is_train, rng):
     """QuantizedFullyConnected on the card: the dequant-fused matmul
-    kernel, then the bias add (after the kernel, as in the JAX package's
-    Pallas variant)."""
+    kernel (its instance of the data's dtype), then the bias add in
+    float32 and one rounding to the data's dtype (after the kernel, as in
+    the JAX package's Pallas variant). Under ``compute_dtype`` the scale
+    arrives in the compute dtype and is widened exactly."""
     data, weight, scale = inputs[:3]
-    _float32_data("QuantizedFullyConnected", data)
     if data.ndim > 2 and parse_bool(attrs.get("flatten", True)):
         data = data.reshape(data.shape[0], -1)
     lead = data.shape[:-1]
     out = qfc_matmul(data.reshape(-1, data.shape[-1]).contiguous(), weight,
-                     scale)
+                     scale.to(torch.float32))
     if len(inputs) > 3:
         out = out + inputs[3].to(torch.float32)
-    return [out.reshape(tuple(lead) + (weight.shape[0],))], []
+    return [out.reshape(tuple(lead) + (weight.shape[0],)).to(data.dtype)], []
 
 
 def _qconv_cuda(attrs, inputs, aux, is_train, rng):
     """QuantizedConvolution on the card: the row-dequant kernel rebuilds
-    the float32 weight, then cuDNN convolves (the convolution stays a
-    library call, as it stays XLA's in the JAX package)."""
+    the float32 weight, then cuDNN convolves in the data's dtype (the
+    weight cast to it, as the JAX package's convolution casts it; the
+    convolution stays a library call, as it stays XLA's in the JAX
+    package). Under ``compute_dtype`` the scale arrives in the compute
+    dtype and is widened exactly."""
     data, weight, scale = inputs[:3]
-    _float32_data("QuantizedConvolution", data)
-    wf = dequant_rows(weight.reshape(weight.shape[0], -1), scale)
+    wf = dequant_rows(weight.reshape(weight.shape[0], -1),
+                      scale.to(torch.float32))
     return [nn_convolution(attrs, data, wf.reshape(weight.shape),
                            inputs[3] if len(inputs) > 3 else None)], []
 
@@ -1630,10 +1383,8 @@ def _cbr_cuda(attrs, inputs, aux, is_train, rng):
     composition."""
     data, weight, gamma, beta = inputs
     if data.dtype not in _STORAGE:
-        raise MXNetError(f"FusedConvBNReLU: the CUDA kernels take float32 "
-                         f"or bfloat16 data, got {data.dtype}" + (
-                             f"; {_HALF_LATER[data.dtype]}"
-                             if data.dtype in _HALF_LATER else ""))
+        raise MXNetError(f"FusedConvBNReLU: the CUDA kernels take float32, "
+                         f"bfloat16 or float16 data, got {data.dtype}")
     if data.ndim != 4:
         raise MXNetError(f"FusedConvBNReLU: the CUDA kernels take NCHW "
                          f"data, got {tuple(data.shape)}")

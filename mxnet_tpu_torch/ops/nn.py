@@ -15,13 +15,15 @@ package's compositions written in PyTorch; their backward is autograd's.
 ``FusedConvBNReLU`` is those three in one op (its plain forward is their
 composition; the BatchNorm-and-ReLU half has CUDA kernels).
 
-Mixed precision (``compute_dtype="bfloat16"``): the executor hands these
-ops bfloat16 data, parameters and moving statistics. Weights are cast to
-the data's type, as the JAX package casts them, and the BatchNorm
-arithmetic follows the JAX package's types op for op: a Python scalar
-meeting a bfloat16 tensor is first rounded to bfloat16 (JAX's weak
-typing, ``weak_scalar``), and a bfloat16 tensor meeting a float32 one
-promotes to float32.
+Mixed precision (``compute_dtype="bfloat16"`` or ``"float16"``): the
+executor hands these ops 16-bit data, parameters and moving statistics.
+Weights are cast to the data's type, as the JAX package casts them, and
+the BatchNorm arithmetic follows the JAX package's types op for op: a
+Python scalar meeting a 16-bit tensor is first rounded to its type (JAX's
+weak typing, ``weak_scalar``: 0.9 is 0.8984375 in bfloat16 and
+0.89990234375 in float16), and a 16-bit tensor meeting a float32 one
+promotes to float32. JAX treats the two 16-bit types alike here, and so
+does the port.
 """
 from __future__ import annotations
 
@@ -353,11 +355,18 @@ def _activation(attrs, x):
 def momentum_update(momentum, moving, batch):
     """``momentum * moving + (1 - momentum) * batch``, the moving
     statistics' update. Under ``compute_dtype`` ``moving`` arrives in
-    bfloat16: ``momentum`` is then rounded to bfloat16 (``weak_scalar``)
+    16 bits: ``momentum`` is then rounded to its type (``weak_scalar``)
     and the sum promotes to float32, and the product is kept in float32,
-    as the JAX package's compiled step computes it (XLA holds excess
-    precision inside the fusion), so the stored statistics match its bit
-    for bit given the same batch statistics."""
+    as the JAX package's compiled bfloat16 step computes it (XLA holds
+    excess precision inside the fusion), so the stored statistics match
+    its bit for bit given the same batch statistics. Its compiled float16
+    step rounds the product to float16 before the sum (measured on the
+    CPU: keeping it in float32 moves a statistic by up to 4e-4 relative),
+    and so does the port."""
+    if moving.dtype == torch.float16:
+        # the compiled float16 step rounds the product to float16
+        return (weak_scalar(momentum, moving) * moving).to(batch.dtype) + \
+            (1 - momentum) * batch
     return weak_scalar(momentum, moving) * moving.to(batch.dtype) + \
         (1 - momentum) * batch
 
@@ -365,7 +374,8 @@ def momentum_update(momentum, moving, batch):
 def weak_scalar(value, like):
     """The Python scalar ``value`` as JAX's weak typing reads it beside the
     tensor ``like``: rounded to ``like``'s half-precision type (0.9 is
-    0.8984375 in bfloat16), unchanged beside float32. PyTorch would keep
+    0.8984375 in bfloat16, 0.89990234375 in float16), unchanged beside
+    float32. PyTorch would keep
     the scalar in float32 and round only the result."""
     if like.dtype in (torch.bfloat16, torch.float16):
         return float(torch.tensor(value, dtype=like.dtype))
@@ -387,8 +397,8 @@ def _bn_fwd(attrs, inputs, aux, is_train, rng):
     used). ``fix_gamma`` replaces gamma by ones, so gamma's gradient is 0.
     Outputs [out, mean, var]; new aux [moving_mean, moving_var], detached
     from the graph. Under ``compute_dtype`` the moving statistics arrive in
-    bfloat16: the update is ``momentum_update``'s, and inference takes
-    ``rsqrt(var + eps)`` in bfloat16 (``eps`` rounded to bfloat16), as the
+    16 bits: the update is ``momentum_update``'s, and inference takes
+    ``rsqrt(var + eps)`` in that type (``eps`` rounded to it), as the
     JAX package's types say."""
     data, gamma, beta = inputs
     moving_mean, moving_var = aux

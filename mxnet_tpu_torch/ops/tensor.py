@@ -185,7 +185,9 @@ def _slice_axis(attrs, x):
     end = x.shape[axis] if end in (None, "None") else int(end)
     if end < 0:
         end += x.shape[axis]
-    return x.narrow(axis, begin, end - begin)
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(begin, end)       # Python semantics: begin < 0 too
+    return x[tuple(idx)]
 
 
 def _embedding_infer(attrs, in_shapes):

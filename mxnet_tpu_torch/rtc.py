@@ -61,13 +61,16 @@ does: the forward never holds the (T, T) scores, the backward holds them
 for one layer at a time (at B=8, H=8, T=1024 one float32 score tensor is
 268 MB). ``pallas_flash_attention`` is the same op under the name the
 JAX package registers for its kernel. Under ``compute_dtype="bfloat16"``
-the forward is the kernel's bfloat16 instance and the recompute runs on
-the bfloat16 q, k, v and returns bfloat16 gradients, as ``jax.vjp`` of
-the JAX package's ``attention`` does. Its scale is the float32 Dh^-1/2,
-the forward kernel's; the JAX recompute takes ``1/sqrt(Dh)`` in q's
-dtype, which bfloat16 rounds at Dh = 128 (0.08837890625 for 0.0883883)
-and keeps exact at Dh = 64, so bfloat16 gradients at Dh = 128 differ
-from the JAX package's by that much more than bfloat16 rounding.
+or ``"float16"`` the forward is the kernel's instance of that dtype and
+the recompute runs on the 16-bit q, k, v and returns 16-bit gradients,
+as ``jax.vjp`` of the JAX package's ``attention`` does. Its scale is the
+float32 Dh^-1/2, the forward kernel's; the JAX recompute takes
+``1/sqrt(Dh)`` in q's dtype, which bfloat16 and float16 both round at
+Dh = 128 (0.08837890625 for 0.0883883) and keep exact at Dh = 64, so
+16-bit gradients at Dh = 128 differ from the JAX package's by that much
+more than the rounding of their type. The decode read
+(``attention_decode``'s ``"cuda"`` variant) takes float16 q and caches
+as it takes bfloat16 ones.
 """
 from __future__ import annotations
 

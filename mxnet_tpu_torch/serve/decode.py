@@ -303,11 +303,11 @@ class DecodeEngine:
     cache/cursor cells are the rung's own — the engine checks every aux
     cell is shared.
 
-    ``compute_dtype="bfloat16"`` serves in mixed precision, as the JAX
-    package's engine does: every rung and window Module casts the
-    parameters and caches to bfloat16 where the graph reads them (the
-    executor's cast layer), the decode kernels run their bfloat16
-    instances and the logits come back bfloat16."""
+    ``compute_dtype="bfloat16"`` or ``"float16"`` serves in mixed
+    precision, as the JAX package's engine does: every rung and window
+    Module casts the parameters and caches to the compute dtype where the
+    graph reads them (the executor's cast layer), the decode kernels run
+    their instances of that dtype and the logits come back in it."""
 
     def __init__(self, name, symbol, arg_params, aux_params=None,
                  capacity=None, ladder=None, context=None,
@@ -1173,8 +1173,8 @@ def serve_decoder(symbol, arg_params, name="decoder", capacity=None,
     raises unless ``context=mx.cpu()``), warms every rung and, by default,
     starts the dispatch thread — ``start=False`` + ``pump()`` with a
     FakeClock is the deterministic test path. ``compute_dtype=
-    "bfloat16"`` serves in mixed precision (target and draft alike);
-    float16 raises.
+    "bfloat16"`` or ``"float16"`` serves in mixed precision (target and
+    draft alike).
 
     Fast paths, as in the JAX package:
 

@@ -12,11 +12,12 @@ returns the output NDArrays, on the card unless the engine was given
 quantized inference tier: the symbol is rewritten onto the Quantized*
 ops and every dense/conv weight splits into a narrow storage cell plus
 per-channel float32 scales (``ops/quant.py``) before binding.
-``compute_dtype="bfloat16"`` (or ``torch.bfloat16``) serves in mixed
-precision: every rung Module takes it (``BucketingModule._module_kwargs``,
-as the JAX package threads it), so each forward reads the float32 cells
-cast to bfloat16 and answers bfloat16 outputs, which ``asnumpy()`` widens
-to float32. float16 raises: it is a later slice.
+``compute_dtype="bfloat16"`` or ``"float16"`` (or the torch dtypes)
+serves in mixed precision: every rung Module takes it
+(``BucketingModule._module_kwargs``, as the JAX package threads it), so
+each forward reads the float32 cells cast to the compute dtype and
+answers outputs in it (``asnumpy()`` widens bfloat16 to float32; float16
+stays numpy float16).
 
 ``warmup(clock)`` runs two forwards per rung (the first builds anything
 still unbuilt, the second measures steady-state execution on the given

@@ -641,7 +641,8 @@ def serve(model, name="default", ladder=None, start=True, clock=None,
     by default starts the dispatch thread; use ``start=False`` +
     ``pump()`` with a FakeClock for deterministic scheduling.
     ``compute_dtype="int8"``/``"fp8"`` serves the quantized tier,
-    ``compute_dtype="bfloat16"`` mixed precision (a Module bound with a
+    ``compute_dtype="bfloat16"`` or ``"float16"`` mixed precision (a
+    Module bound with a
     ``compute_dtype`` serves in it unless another is given).
     """
     server = InferenceServer(clock=clock, max_queue=max_queue,

@@ -28,7 +28,10 @@ The default ``dtype="bf16"`` is the JAX package's contract: ``mfu.model``
 is a share of the bf16 tensor-core peak (989 TFLOP/s) whatever the step
 computes in, so a float32 step's figure is its share of that peak, not of
 the 67 TFLOP/s float32 rate outside the tensor cores (``dtype="f32"``) or
-the 495 TFLOP/s of TF32 (``dtype="tf32"``).
+the 495 TFLOP/s of TF32 (``dtype="tf32"``). A float16 fit
+(``compute_dtype="float16"``) reads the same figure: the H100 SXM's dense
+float16 tensor-core peak is the bf16 one, 989 TFLOP/s, so its
+``mfu.model`` is its share of that peak, as a bf16 fit's is.
 
 Pure stdlib at import; torch is read only by ``device_peaks`` /
 ``device_hbm_bytes`` with no device kind given.

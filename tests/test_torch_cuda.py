@@ -36,15 +36,25 @@ gradients in bfloat16 on the card against the CPU's, and a small LM's
 bfloat16 fit (ids and labels past 256) against the CPU's within three
 times the CPU's own bfloat16-vs-float32 distance.
 
+Every test of a bfloat16 instance or path runs for the float16 instance
+or path too (parameter ``half``), its limits in ulps of its type or
+eight times finer where they are absolute (probabilities 2.5e-3; float16
+decode logits within two float16 ulps of the largest); the update
+kernels refuse half gradients, naming their later slice, and every
+kernel refuses a dtype no instance takes, naming it.
+
 The quantized-serving kernels (the dequant-fused matmul, the conv-weight
 row dequant) are held against their plain versions for int8 and
 float8_e4m3fn weights that hold +-448 (+-127), e4m3 subnormals, 0 and -0,
 at the ResNet-50 serving path's shapes and at edges (M = 1, M = 257,
 K = 13, N = 1, N = 1001, one column, 147 columns): the matmul within
 1e-5 of the output's largest magnitude (it sums in another order), the
-dequant bit for bit. The quantized ops' CUDA variants refuse float16
-data and inputs that require grad, and a quantized server on the card
-answers with no kernel build after warmup and the CPU server's outputs.
+dequant bit for bit; the matmul's bfloat16 and float16 instances the
+same way, and a quantized Module under ``compute_dtype`` card vs CPU.
+The quantized ops' CUDA variants refuse float64 data, an fp8 weight
+widened to the compute dtype, and inputs that require grad, and a
+quantized server on the card answers with no kernel build after warmup
+and the CPU server's outputs.
 
 User kernels (``mx.rtc``): an ``Rtc`` push with and without launch
 dims, bit for bit against ``torch.add``; a ``register_cuda_op`` ReLU
@@ -207,7 +217,7 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ck.decode_attention_fp8(q64, _rnd(dev, 1, 1, 8, 64),
                                 _rnd(dev, 1, 1, 8, 64), pos)
     with pytest.raises(MXNetError, match="float32"):
-        ck.bias_gelu(_rnd(dev, 2, 8).half(), _rnd(dev, 8).half())
+        ck.bias_gelu(_rnd(dev, 2, 8).double(), _rnd(dev, 8).double())
     with pytest.raises(MXNetError, match="contiguous"):
         ck.layernorm(_rnd(dev, 8, 4).t(), _rnd(dev, 8), _rnd(dev, 8), 1e-5)
 
@@ -459,7 +469,7 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
         big = _rnd(dev, 1, 65537)
         ck.layernorm_bwd_dparams(big, big, m[:1], m[:1])
     with pytest.raises(MXNetError, match="float32"):
-        ck.bias_gelu_dx(x.half(), x[0].half(), x.half())
+        ck.bias_gelu_dx(x.double(), x[0].double(), x.double())
 
 
 _GRAD_CASES = {
@@ -650,6 +660,76 @@ def test_qfc_matmul_kernel(dev, storage, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (1, 2048, 1000),
+                                   (257, 64, 33), (5, 13, 7)])
+def test_qfc_matmul_half_kernel(dev, storage, m, k, n, half):
+    """Row 16's 16-bit instances: x widened exactly, float32 sums and a
+    float32 output, within 1e-5 of the output's largest magnitude of the
+    plain version on the same values; only their counter moves."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rnd(dev, m, k).to(half)
+    w = _quant_weight(dev, n, k, storage)
+    s = _rnd(dev, n, seed=1).abs() / 100 + 1e-3
+    name = "qfc_matmul_" + ("bf16" if half == torch.bfloat16 else "f16")
+    before = ck.launch_counts()
+    got = ck.qfc_matmul(x, w, s)
+    after = ck.launch_counts()
+    ref = ck.qfc_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= \
+        1e-5 * max(float(ref.abs().max()), 1e-30)
+    assert _moved(before, after, (name, "qfc_matmul")) == \
+        {name: 1, "qfc_matmul": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", ["bfloat16", "float16"])
+def test_quantized_module_under_compute_dtype_on_card(dev, half):
+    """``Module(quantize_symbol(...), compute_dtype=...)`` (int8) on the
+    card and on the CPU from the same parameters: the probabilities in
+    the compute dtype within a few of its ulps at 1 (2e-2 for bfloat16,
+    2.5e-3 for float16) and the same top-1; one 16-bit matmul launch, one
+    dequant launch and the head's 16-bit softmax a forward."""
+    data = mx.sym.var("data")
+    c = mx.sym.Convolution(data=data, kernel=(3, 3), num_filter=8,
+                           pad=(1, 1), name="c1")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Activation(c, act_type="relu"), num_hidden=10, name="f1"),
+        name="softmax")
+    shape = (4, 3, 8, 8)
+    shapes, _, _ = net.infer_shape(data=shape)
+    rs = np.random.RandomState(0)
+    params = {n: (0.3 * rs.randn(*sh)).astype(np.float32)
+              for n, sh in zip(net.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    qsym, qargs = mx.ops.quant.quantize_symbol(net, params, dtype="int8")
+    X = rs.rand(*shape).astype(np.float32)
+    sfx = "bf16" if half == "bfloat16" else "f16"
+    outs = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        m = mx.mod.Module(qsym, context=ctx, compute_dtype=half)
+        m.bind([("data", shape)], [("softmax_label", (4,))],
+               for_training=False)
+        m.init_params(initializer=None, arg_params=qargs, aux_params={})
+        ck.reset_launch_counts()
+        m.forward(mx.io.DataBatch([X], None), is_train=False)
+        out = m.get_outputs()[0]
+        assert str(out.astorch().dtype) == "torch." + half
+        outs[ctx.device_type] = out.asnumpy().astype(np.float32)
+        if ctx.device_type == "gpu":
+            counts = {k: v for k, v in ck.launch_counts().items() if v}
+            assert counts == {"qfc_matmul_" + sfx: 1, "dequant_rows": 1,
+                              "softmax_" + sfx: 1}
+    np.testing.assert_allclose(outs["gpu"], outs["cpu"],
+                               atol=_PROB_TOL[half])
+    assert outs["gpu"].argmax(1).tolist() == outs["cpu"].argmax(1).tolist()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
 @pytest.mark.parametrize("rows,cols", [(512, 4608), (2048, 512), (64, 147),
                                        (3, 1), (5, 13), (1000, 4)])
@@ -682,13 +762,20 @@ def test_quantized_variants_refuse_what_they_do_not_take(dev):
     w = _quant_weight(dev, 4, 8, torch.int8)
     s = torch.ones(4, device=dev)
     wc = _quant_weight(dev, 4, 18, torch.int8).reshape(4, 2, 3, 3)
+    # 16-bit data runs (its own instance of the matmul; the dequant is
+    # float32 whatever the data), float64 data has no matmul instance
     with pytest.raises(MXNetError, match="float32"):
-        mx.ops.registry.dispatch(qfc, fattrs, [_rnd(dev, 2, 8).half(), w, s],
-                                 [], False, None)
-    with pytest.raises(MXNetError, match="float32"):
-        mx.ops.registry.dispatch(qcv, cattrs,
-                                 [_rnd(dev, 1, 2, 5, 5).half(), wc, s], [],
+        mx.ops.registry.dispatch(qfc, fattrs,
+                                 [_rnd(dev, 2, 8).double(), w, s], [],
                                  False, None)
+    for hd in (torch.float16, torch.bfloat16):
+        (out,), _ = mx.ops.registry.dispatch(
+            qcv, cattrs, [_rnd(dev, 1, 2, 5, 5).to(hd), wc, s.to(hd)], [],
+            False, None)
+        assert out.dtype == hd
+    # an fp8 weight widened by compute_dtype is no quantized weight
+    with pytest.raises(MXNetError, match="int8 or torch.float8_e4m3fn"):
+        ck.qfc_matmul(_rnd(dev, 2, 8).half(), w.half(), s)
     x = _rnd(dev, 2, 8).requires_grad_(True)
     with pytest.raises(MXNetError, match="inference tier"):
         mx.ops.registry.dispatch(qfc, fattrs, [x, w, s], [], False, None)
@@ -796,7 +883,7 @@ def test_bn_kernels_misaligned_repeat_and_refuse(dev):
     with pytest.raises(MXNetError, match="contiguous"):
         ck.bn_stats(x.transpose(2, 3))
     with pytest.raises(MXNetError, match="float32"):
-        ck.bn_apply_relu(x.half(), x.new_ones(64), x.new_zeros(64))
+        ck.bn_apply_relu(x.double(), x.new_ones(64), x.new_zeros(64))
     with pytest.raises(MXNetError, match=r"\(N, C, H, W\)"):
         ck.bn_stats(x[0])
     with pytest.raises(MXNetError, match="scale and shift"):
@@ -853,81 +940,97 @@ def test_fused_op_on_card(dev, is_train, extra):
 
 
 # ------------------------------------------------ the bfloat16 instances
-def _bf16_ulps(a, b, atol=0.0):
-    """Largest |a - b|, less ``atol``, in bfloat16 ulps of the larger
-    magnitude (values below the normal range in ulps of the smallest
-    normal)."""
+#: the 16-bit instances: name -> (torch dtype, counter suffix, mantissa
+#: bits, smallest normal exponent)
+HALVES = {"bfloat16": (torch.bfloat16, "bf16", 7, -126),
+          "float16": (torch.float16, "f16", 10, -14)}
+#: card-vs-CPU limit on probabilities and logits: a few ulps at 1
+#: (2.56), so float16's is bfloat16's 2e-2 over 8
+_PROB_TOL = {"bfloat16": 2e-2, "float16": 2.5e-3}
+
+
+def _ulps16(half, a, b, atol=0.0):
+    """Largest |a - b|, less ``atol``, in ulps of the 16-bit type ``half``
+    at the larger magnitude (values below the normal range in ulps of the
+    smallest normal)."""
+    bits, emin = HALVES[half][2:]
     torch.cuda.synchronize()
     a, b = a.double().cpu(), b.double().cpu()
     mag = torch.maximum(torch.maximum(a.abs(), b.abs()),
-                        torch.tensor(2.0 ** -126, dtype=torch.float64))
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                        torch.tensor(2.0 ** emin, dtype=torch.float64))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
     over = ((a - b).abs() - atol).clamp(min=0.0)
     return float((over / ulp).max()) if a.numel() else 0.0
 
 
-def _misaligned_bf16(dev, n, *shape):
-    """A contiguous bfloat16 view one element (2 bytes) off its
+def _misaligned_bf16(dev, n, *shape, dtype=torch.bfloat16):
+    """A contiguous 16-bit view one element (2 bytes) off its
     allocation, so the kernels take their one-value-at-a-time path."""
-    return (4 * _rnd(dev, 1 + n)).to(torch.bfloat16)[1:].view(*shape)
+    return (4 * _rnd(dev, 1 + n)).to(dtype)[1:].view(*shape)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("n,c", [(32, 1000), (1, 7), (5, 1), (3, 1025),
                                  (2, 65536), (4, 2)])
-def test_softmax_bf16_kernel(dev, n, c):
+def test_softmax_bf16_kernel(dev, n, c, half):
     """The bfloat16 instance within one bfloat16 ulp of its plain version
     (a row sums in another order in float32, which can move a quotient
     across a rounding boundary); only its own counter moves."""
-    xs = [(4 * _rnd(dev, n, c)).to(torch.bfloat16),
-          _misaligned_bf16(dev, n * c, n, c)]
+    hd, sfx = HALVES[half][:2]
+    xs = [(4 * _rnd(dev, n, c)).to(hd),
+          _misaligned_bf16(dev, n * c, n, c, dtype=hd)]
     for x in xs:
         before = ck.launch_counts()
         got = ck.softmax(x)
         after = ck.launch_counts()
-        assert got.dtype == torch.bfloat16
-        assert after["softmax_bf16"] == before["softmax_bf16"] + 1
+        assert got.dtype == hd
+        assert after["softmax_" + sfx] == before["softmax_" + sfx] + 1
         assert after["softmax"] == before["softmax"]
-        assert _bf16_ulps(got, ck.softmax_plain(x)) <= 1
+        assert _ulps16(half, got, ck.softmax_plain(x)) <= 1
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("c", [1000, 7])
 @pytest.mark.parametrize("use_ignore", [False, True])
-def test_softmax_ce_bwd_bf16_kernel(dev, c, use_ignore):
+def test_softmax_ce_bwd_bf16_kernel(dev, c, use_ignore, half):
     """Bit for bit its plain version: labels past 256 (257, 999: float32
     on both sides), outside the classes, and ignored rows; the pair path
     (even C) and the scalar one (odd C, or a misaligned view)."""
+    hd, sfx = HALVES[half][:2]
     n = 6
-    p = ck.softmax_plain((4 * _rnd(dev, n, c)).to(torch.bfloat16))
+    p = ck.softmax_plain((4 * _rnd(dev, n, c)).to(hd))
     lab = torch.tensor([257, 999, c - 1, 0, c, -1], dtype=torch.float32,
                        device=dev).clamp(max=c)
     lab[0] = min(257, c - 1)
-    for pp in (p, _misaligned_bf16(dev, n * c, n, c)):
+    for pp in (p, _misaligned_bf16(dev, n * c, n, c, dtype=hd)):
         for scale in (1.0, 1 / n):
             got = ck.softmax_ce_bwd(pp, lab, scale, use_ignore, 0.0)
-            assert got.dtype == torch.bfloat16
+            assert got.dtype == hd
             want = ck.softmax_ce_bwd_plain(pp, lab, scale, use_ignore, 0.0)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("shape", [(32, 64, 112, 112), (32, 512, 7, 7),
                                    (4, 256, 14, 14), (2, 3, 5, 3),
                                    (4, 8, 1, 1), (1, 1, 1, 1)])
-def test_bn_kernels_bf16(dev, shape):
+def test_bn_kernels_bf16(dev, shape, half):
     """bn_stats' bfloat16 instance within 1e-5 of each channel's sum of
     squares (float32 sums in another order), bn_apply_relu's bit for
     bit, at the 16-byte (HW % 8 == 0), 8-byte (HW = 196) and
     one-value (HW = 49, 15, 1) paths; only the bfloat16 counters move."""
-    x = (2 * _rnd(dev, *shape) + 0.5).to(torch.bfloat16)
+    hd, sfx = HALVES[half][:2]
+    x = (2 * _rnd(dev, *shape) + 0.5).to(hd)
     c = shape[1]
     scale, shift = _rnd(dev, c, seed=1), _rnd(dev, c, seed=2)
     before = ck.launch_counts()
     (s, sq), y = ck.bn_stats(x), ck.bn_apply_relu(x, scale, shift)
     after = ck.launch_counts()
-    assert s.dtype == torch.float32 and y.dtype == torch.bfloat16
+    assert s.dtype == torch.float32 and y.dtype == hd
     (ps, psq), py = ck.bn_stats_plain(x), ck.bn_apply_relu_plain(
         x, scale, shift)
     torch.cuda.synchronize()
@@ -936,137 +1039,146 @@ def test_bn_kernels_bf16(dev, shape):
         ((sq - psq).abs() <= bound).all()
     assert torch.equal(y, py)
     for k in ("bn_stats", "bn_apply_relu"):
-        assert after[k + "_bf16"] == before[k + "_bf16"] + 1
+        assert after[k + "_" + sfx] == before[k + "_" + sfx] + 1
         assert after[k] == before[k]
 
 
 @pytest.mark.cuda
-def test_bn_kernels_bf16_misaligned_repeat_and_nan(dev):
-    xv = _misaligned_bf16(dev, 2 * 8 * 16, 2, 8, 4, 4)
+@pytest.mark.parametrize("half", list(HALVES))
+def test_bn_kernels_bf16_misaligned_repeat_and_nan(dev, half):
+    hd, sfx = HALVES[half][:2]
+    xv = _misaligned_bf16(dev, 2 * 8 * 16, 2, 8, 4, 4, dtype=hd)
     ones, zeros = torch.ones(8, device=dev), torch.zeros(8, device=dev)
     assert torch.equal(ck.bn_apply_relu(xv, ones, zeros),
                        ck.bn_apply_relu_plain(xv, ones, zeros))
     (s, sq), (ps, psq) = ck.bn_stats(xv), ck.bn_stats_plain(xv)
     assert ((sq - psq).abs() <= 1e-5 * psq).all()
-    x = _rnd(dev, 32, 64, 56, 56).to(torch.bfloat16)
+    x = _rnd(dev, 32, 64, 56, 56).to(hd)
     first, again = ck.bn_stats(x), ck.bn_stats(x)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     nan = torch.tensor([[[[float("nan"), -1.0]]]], device=dev,
-                       dtype=torch.bfloat16)
+                       dtype=hd)
     one = torch.ones(1, device=dev)
     assert ck.bn_apply_relu(nan, one, one * 0)[0, 0, 0, 0].isnan()
     with pytest.raises(MXNetError, match="float32"):
-        ck.bn_apply_relu(x, ones.to(torch.bfloat16), zeros)
+        ck.bn_apply_relu(x, ones.to(hd), zeros)
 
 
 @pytest.mark.cuda
 def test_float32_only_kernels_refuse_bf16_naming_the_later_slice(dev):
-    """float16 raises in every kernel, the LM-training kernels (which
-    have bfloat16 instances) and the decode kernels alike, naming the
-    later slice; the updates, which take float32 only (float32 master
-    weights), refuse a bfloat16 gradient the same way."""
-    x = _rnd(dev, 8, 64).to(torch.bfloat16)
-    g = _rnd(dev, 64).to(torch.bfloat16)
-    st = torch.ones(8, device=dev)
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.layernorm_bwd_dx(x.half(), g.half(), x.half(), st, st)
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.bias_gelu_dx(x.half(), g.half(), x.half())
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.layernorm(x.half(), g.half(), g.half(), 1e-5)
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.bias_gelu(x.half(), g.half())
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.embedding(torch.zeros(2, dtype=torch.int32, device=dev), x.half())
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.flash_attention(*[_rnd(dev, 1, 1, 8, 64).half()] * 3)
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.softmax(x.half())
-    w = x.float()
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.sgd_mom_update(w, x.half(), w.clone(), 0.1)
-    with pytest.raises(MXNetError, match="later slice"):
-        ck.sgd_mom_update(w, x, w.clone(), 0.1)
+    """The updates, which take float32 master weights, states and
+    gradients only, refuse a bfloat16 or float16 gradient, naming their
+    later slice; every kernel with 16-bit instances (float16 launches now)
+    refuses a dtype no instance takes, naming it."""
+    x = _rnd(dev, 8, 64)
+    w = x.clone()
+    for hd in (torch.bfloat16, torch.float16):
+        with pytest.raises(MXNetError, match="later slice"):
+            ck.sgd_mom_update(w, x.to(hd), w.clone(), 0.1)
+        with pytest.raises(MXNetError, match="later slice"):
+            ck.adam_update(w, x.to(hd), w.clone(), w.clone(), 0.1)
+    d, g, st = x.double(), x[0].double(), torch.ones(8, device=dev)
+    for call in (lambda: ck.layernorm_bwd_dx(d, g, d, st, st),
+                 lambda: ck.layernorm_bwd_dparams(d, d, st, st),
+                 lambda: ck.bias_gelu_dx(d, g, d),
+                 lambda: ck.layernorm(d, g, g, 1e-5),
+                 lambda: ck.bias_gelu(d, g),
+                 lambda: ck.embedding(torch.zeros(2, dtype=torch.int32,
+                                                  device=dev), d),
+                 lambda: ck.flash_attention(*[_rnd(dev, 1, 1, 8, 64)
+                                              .double()] * 3),
+                 lambda: ck.softmax(d)):
+        with pytest.raises(MXNetError, match="torch.float64 data; it has "
+                           "torch.bfloat16, torch.float16, torch.float32"):
+            call()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("v,d", [(32000, 512), (50, 13), (7, 4)])
-def test_embedding_bf16_kernel(dev, v, d):
+def test_embedding_bf16_kernel(dev, v, d, half):
     """Bit for bit its plain version (each row scaled in float32 and
     rounded once), out-of-range ids included, at the 16-byte path (D % 8
     == 0), the one-value path and on a misaligned table; only the
     bfloat16 counter moves."""
+    hd, sfx = HALVES[half][:2]
     ids = torch.tensor([0, v - 1, -1, -v, v, -v - 1, 3],
                        dtype=torch.int32, device=dev)
-    for w in (_rnd(dev, v, d).to(torch.bfloat16),
-              _misaligned_bf16(dev, v * d, v, d)):
+    for w in (_rnd(dev, v, d).to(hd),
+              _misaligned_bf16(dev, v * d, v, d, dtype=hd)):
         for scale in (1.0, float(np.sqrt(d))):
             before = ck.launch_counts()
             got = ck.embedding(ids, w, scale)
             after = ck.launch_counts()
-            assert got.dtype == torch.bfloat16
-            assert after["embedding_bf16"] == before["embedding_bf16"] + 1
+            assert got.dtype == hd
+            assert after["embedding_" + sfx] == before["embedding_" + sfx] + 1
             assert after["embedding"] == before["embedding"]
             _same(got, ck.embedding_plain(ids, w, scale), tol=0)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("n,c", [(8, 512), (3, 100), (5, 13), (1, 4096)])
-def test_layernorm_bf16_kernel(dev, n, c):
+def test_layernorm_bf16_kernel(dev, n, c, half):
     """y within one bfloat16 ulp of its plain version beyond the float32
     kernel's 2e-5 (the product order can move a rounding), mean and rstd
     float32 within 2e-5; aligned and misaligned x."""
-    g = _rnd(dev, c, seed=1).to(torch.bfloat16)
-    b = _rnd(dev, c, seed=2).to(torch.bfloat16)
-    for x in ((3 * _rnd(dev, n, c) + 1).to(torch.bfloat16),
-              _misaligned_bf16(dev, n * c, n, c)):
+    hd, sfx = HALVES[half][:2]
+    g = _rnd(dev, c, seed=1).to(hd)
+    b = _rnd(dev, c, seed=2).to(hd)
+    for x in ((3 * _rnd(dev, n, c) + 1).to(hd),
+              _misaligned_bf16(dev, n * c, n, c, dtype=hd)):
         before = ck.launch_counts()
         y, mean, rstd = ck.layernorm(x, g, b, 1e-5)
         after = ck.launch_counts()
         py, pmean, prstd = ck.layernorm_plain(x, g, b, 1e-5)
-        assert y.dtype == torch.bfloat16 and mean.dtype == torch.float32
-        assert _bf16_ulps(y, py, atol=TOL) <= 1
+        assert y.dtype == hd and mean.dtype == torch.float32
+        assert _ulps16(half, y, py, atol=TOL) <= 1
         _same((mean, rstd), (pmean, prstd))
-        assert after["layernorm_bf16"] == before["layernorm_bf16"] + 1
+        assert after["layernorm_" + sfx] == before["layernorm_" + sfx] + 1
         assert after["layernorm"] == before["layernorm"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("n,c", [(8, 2048), (3, 13), (1, 4)])
-def test_bias_gelu_bf16_kernel(dev, n, c):
-    b = _rnd(dev, c, seed=1).to(torch.bfloat16)
-    for x in ((3 * _rnd(dev, n, c)).to(torch.bfloat16),
-              _misaligned_bf16(dev, n * c, n, c)):
+def test_bias_gelu_bf16_kernel(dev, n, c, half):
+    hd, sfx = HALVES[half][:2]
+    b = _rnd(dev, c, seed=1).to(hd)
+    for x in ((3 * _rnd(dev, n, c)).to(hd),
+              _misaligned_bf16(dev, n * c, n, c, dtype=hd)):
         before = ck.launch_counts()
         y = ck.bias_gelu(x, b)
         after = ck.launch_counts()
-        assert y.dtype == torch.bfloat16
-        assert _bf16_ulps(y, ck.bias_gelu_plain(x, b), atol=TOL) <= 1
-        assert after["bias_gelu_bf16"] == before["bias_gelu_bf16"] + 1
+        assert y.dtype == hd
+        assert _ulps16(half, y, ck.bias_gelu_plain(x, b), atol=TOL) <= 1
+        assert after["bias_gelu_" + sfx] == before["bias_gelu_" + sfx] + 1
         assert after["bias_gelu"] == before["bias_gelu"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("S,C", [(1, 256), (16, 256), (17, 100), (64, 64)])
-def test_decode_attention_bf16_kernel(dev, dh, S, C):
+def test_decode_attention_bf16_kernel(dev, dh, S, C, half):
     """bfloat16 q and caches, widened exactly: within 2e-5 of the plain
     read of the same values (float32 arithmetic in another order), at
     cursors 0, mid, C - S and C - 1; the output float32; only the
     bfloat16 counter moves."""
+    hd, sfx = HALVES[half][:2]
     B, H = 4, 2
     cursors = torch.tensor([0, (C - S) // 2, C - S, C - 1],
                            dtype=torch.int32, device=dev)
-    q = _rnd(dev, B, H, S, dh).to(torch.bfloat16)
-    kc, vc = (_rnd(dev, B, H, C, dh, seed=s).to(torch.bfloat16)
+    q = _rnd(dev, B, H, S, dh).to(hd)
+    kc, vc = (_rnd(dev, B, H, C, dh, seed=s).to(hd)
               for s in (1, 2))
     before = ck.launch_counts()
     got = ck.decode_attention(q, kc, vc, cursors)
     after = ck.launch_counts()
     assert got.dtype == torch.float32
     _same(got, ck.decode_attention_plain(q, kc, vc, cursors))
-    assert after["decode_attention_bf16"] == \
-        before["decode_attention_bf16"] + 1
+    assert after["decode_attention_" + sfx] == \
+        before["decode_attention_" + sfx] + 1
     assert after["decode_attention"] == before["decode_attention"]
 
 
@@ -1115,15 +1227,18 @@ def _bf16_decode_model(n_layer, seed, cache_dtype=None):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("cache_dtype", [None, "fp8"])
-def test_bf16_decode_on_card_matches_cpu(dev, cache_dtype):
-    """``serve_decoder(compute_dtype="bfloat16")`` on the card and on the
+def test_bf16_decode_on_card_matches_cpu(dev, cache_dtype, half):
+    """``serve_decoder(compute_dtype=half)`` on the card and on the
     CPU: a fixed token chain (ids past 256) teacher-forced through the
     served rung-2 driver gives logits within 2e-2 (atol and rtol: cuBLAS
     and oneDNN round bfloat16 products at other places); on the card
     every S=1 step launches 1 / 2L + 1 / L / L of the four bfloat16
     instances and no other kernel, no library loads after warmup, and an
-    fp8 cache cell holds the bfloat16 cache after its first step."""
+    fp8 cache cell holds the bfloat16 cache after its first step. In
+    float16 the logits are held to two float16 ulps of the largest."""
+    hd, sfx = HALVES[half][:2]
     gen, params = _bf16_decode_model(2, 0, cache_dtype)
     chain = np.random.RandomState(1).randint(0, 300, (12, 2))
     chain[0] = [299, 257]
@@ -1132,7 +1247,7 @@ def test_bf16_decode_on_card_matches_cpu(dev, cache_dtype):
         sched = mx.serve.serve_decoder(
             gen(1), mx.convert.params_from_numpy(params, ctx), ladder=[2],
             clock=FakeClock(), start=False, context=ctx,
-            compute_dtype="bfloat16")
+            compute_dtype=half)
         drv = sched.engine.driver(2)
         drv.join(0)
         drv.join(1)
@@ -1142,23 +1257,30 @@ def test_bf16_decode_on_card_matches_cpu(dev, cache_dtype):
         counts = ck.launch_counts()
         if ctx.device_type == "gpu":
             want = dict.fromkeys(counts, 0)
-            want.update(embedding_bf16=12, layernorm_bf16=5 * 12,
-                        bias_gelu_bf16=2 * 12, decode_attention_bf16=2 * 12)
+            want.update({"embedding_" + sfx: 12, "layernorm_" + sfx: 5 * 12,
+                         "bias_gelu_" + sfx: 2 * 12,
+                         "decode_attention_" + sfx: 2 * 12})
             assert counts == want
             assert sched.stats()["compiles_since_warmup"] == 0
         cache = drv._mod._exec_group.executor.aux_dict["lm_l0_attn_k_cache"]
         assert cache.astorch().dtype == (
-            torch.bfloat16 if cache_dtype else torch.float32)
-    np.testing.assert_allclose(logits["gpu"], logits["cpu"], atol=2e-2,
-                               rtol=2e-2)
+            hd if cache_dtype else torch.float32)
+    if half == "bfloat16":
+        np.testing.assert_allclose(logits["gpu"], logits["cpu"], atol=2e-2,
+                                   rtol=2e-2)
+    else:       # two float16 ulps of the largest logit (measured 1.25)
+        assert _bf16_of_max(torch.from_numpy(logits["gpu"]),
+                            torch.from_numpy(logits["cpu"]), half) <= 2
 
 
 @pytest.mark.cuda
-def test_bf16_fast_paths_on_card(dev):
+@pytest.mark.parametrize("half", list(HALVES))
+def test_bf16_fast_paths_on_card(dev, half):
     """Chunked prefill (S=4), speculative decoding (a 1-layer draft,
     spec_k 3) and the prefix store under bfloat16 on the card: every
     request answers, 3 of 4 prefix hits, only the bfloat16 decode
     instances launch; an S=4 window's logits card vs CPU within 2e-2."""
+    hd, sfx = HALVES[half][:2]
     gen, target = _bf16_decode_model(2, 0)
     dgen, draft = _bf16_decode_model(1, 1)
     rs = np.random.RandomState(2)
@@ -1170,7 +1292,7 @@ def test_bf16_fast_paths_on_card(dev):
         sched = mx.serve.serve_decoder(
             gen(1), mx.convert.params_from_numpy(target, ctx),
             ladder=[1, 2, 4], clock=FakeClock(), start=False, context=ctx,
-            compute_dtype="bfloat16", symbol_gen=gen, prefill_chunk=4,
+            compute_dtype=half, symbol_gen=gen, prefill_chunk=4,
             draft_symbol_gen=dgen,
             draft_params=mx.convert.params_from_numpy(draft, ctx),
             spec_k=3, prefix_cache_mb=1)
@@ -1184,8 +1306,8 @@ def test_bf16_fast_paths_on_card(dev):
         assert st["prefix"]["hits"] == 3 and st["spec"]["proposed"] > 0
         counts = ck.launch_counts()
         if ctx.device_type == "gpu":
-            bf16 = {"embedding_bf16", "layernorm_bf16", "bias_gelu_bf16",
-                    "decode_attention_bf16"}
+            bf16 = {"embedding_" + sfx, "layernorm_" + sfx, "bias_gelu_" + sfx,
+                    "decode_attention_" + sfx}
             assert all(counts[k] > 0 for k in bf16), counts
             assert not any(v for k, v in counts.items() if k not in bf16)
         drv = sched.engine.driver(1)
@@ -1193,8 +1315,9 @@ def test_bf16_fast_paths_on_card(dev):
         drv.join(0)
         window[ctx.device_type] = drv.step(
             np.asarray([prompts[1][:4]])).asnumpy()
-    np.testing.assert_allclose(window["gpu"], window["cpu"], atol=2e-2,
-                               rtol=2e-2)
+    tol = _PROB_TOL[half]
+    np.testing.assert_allclose(window["gpu"], window["cpu"], atol=tol,
+                               rtol=tol)
 
 
 def _bf16_nets():
@@ -1223,9 +1346,10 @@ def _bf16_nets():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("net", ["plain", "fused"])
-def test_bf16_fit_and_serve_on_card(dev, net):
-    """``Module(compute_dtype="bfloat16")`` fitted two batches at lr 0.01
+def test_bf16_fit_and_serve_on_card(dev, net, half):
+    """``Module(compute_dtype=half)`` fitted two batches at lr 0.01
     on the card and on the CPU from the same parameters, TF32 off: the
     bfloat16 instances launch (softmax and the CE gradient; the
     BatchNorm pair for the fused net) and no float32 instance of them
@@ -1236,6 +1360,7 @@ def test_bf16_fit_and_serve_on_card(dev, net):
     CPU's own bfloat16 and float32 fits (plus 1e-6). Then one forward
     served on the card and on the CPU: probabilities within 2e-2 (a few
     bfloat16 ulps at 1) and the same top-1."""
+    hd, sfx = HALVES[half][:2]
     sym = _bf16_nets()[net]
     rs = np.random.RandomState(0)
     X = rs.rand(8, 3, 40, 40).astype(np.float32)
@@ -1251,7 +1376,7 @@ def test_bf16_fit_and_serve_on_card(dev, net):
     torch.backends.cudnn.allow_tf32 = False
     res, counts = {}, None
     try:
-        for ctx, cd in ((mx.gpu(0), "bfloat16"), (mx.cpu(), "bfloat16"),
+        for ctx, cd in ((mx.gpu(0), half), (mx.cpu(), half),
                         (mx.cpu(), None)):
             ck.reset_launch_counts()
             m = mx.mod.Module(sym, context=ctx, compute_dtype=cd)
@@ -1273,7 +1398,7 @@ def test_bf16_fit_and_serve_on_card(dev, net):
                 while server.pump():
                     pass
                 out = h.result(timeout=0)[0]
-                assert out.astorch().dtype == (torch.bfloat16 if cd
+                assert out.astorch().dtype == (hd if cd
                                                else torch.float32)
             finally:
                 server.stop()
@@ -1282,13 +1407,13 @@ def test_bf16_fit_and_serve_on_card(dev, net):
                 {k: v.asnumpy() for k, v in x.items()}, out.asnumpy())
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    want = {"softmax_bf16": 2, "softmax_ce_bwd_bf16": 2,
+    want = {"softmax_" + sfx: 2, "softmax_ce_bwd_" + sfx: 2,
             "softmax": 0, "softmax_ce_bwd": 0, "bn_stats": 0,
             "bn_apply_relu": 0}
     if net == "fused":
-        want.update(bn_stats_bf16=2 * 2, bn_apply_relu_bf16=2 * 2)
+        want.update({"bn_stats_" + sfx: 2 * 2, "bn_apply_relu_" + sfx: 2 * 2})
     assert {k: counts[k] for k in want} == want
-    card, cpu, cpu32 = (res[k] for k in ("gpubfloat16", "cpubfloat16",
+    card, cpu, cpu32 = (res[k] for k in ("gpu" + half, "cpu" + half,
                                          "cpuNone"))
     for i in (0, 1):
         for k, v in cpu[i].items():
@@ -1296,16 +1421,18 @@ def test_bf16_fit_and_serve_on_card(dev, net):
             np.testing.assert_allclose(card[i][k], v, atol=3 * spread + 1e-6,
                                        err_msg=k)
     go, co = card[2], cpu[2]
-    np.testing.assert_allclose(go, co, atol=2e-2)
+    np.testing.assert_allclose(go, co, atol=_PROB_TOL[half])
     assert go.argmax(1).tolist() == co.argmax(1).tolist()
 
 
 @pytest.mark.cuda
-def test_kept_bf16_casts_follow_the_update_kernel(dev):
+@pytest.mark.parametrize("half", list(HALVES))
+def test_kept_bf16_casts_follow_the_update_kernel(dev, half):
     """The SGD kernel writes weights through raw pointers; its wrapper
     bumps their version counters, so an inference forward after
     ``update()`` re-casts them: the same outputs as a fresh Module on the
     updated parameters."""
+    hd, sfx = HALVES[half][:2]
     rs = np.random.RandomState(6)
     X = rs.randn(4, 16).astype(np.float32)
     y = np.asarray([3, 9, 0, 5], np.float32)
@@ -1314,7 +1441,7 @@ def test_kept_bf16_casts_follow_the_update_kernel(dev):
         mx.sym.BatchNorm(data, fix_gamma=False, name="bn"), num_hidden=10,
         name="fc"), name="softmax")
     shapes = ([("data", X.shape)], [("softmax_label", y.shape)])
-    mod = mx.mod.Module(net, context=mx.gpu(0), compute_dtype="bfloat16")
+    mod = mx.mod.Module(net, context=mx.gpu(0), compute_dtype=half)
     mod.bind(*shapes)
     mod.init_params(mx.initializer.Xavier(
         rng=torch.Generator().manual_seed(0)))
@@ -1329,7 +1456,7 @@ def test_kept_bf16_casts_follow_the_update_kernel(dev):
     assert ck.launch_counts()["sgd_mom"] > before
     mod.forward(batch, is_train=False)
     got = mod.get_outputs()[0].asnumpy()
-    fresh = mx.mod.Module(net, context=mx.gpu(0), compute_dtype="bfloat16")
+    fresh = mx.mod.Module(net, context=mx.gpu(0), compute_dtype=half)
     fresh.bind(*shapes, for_training=False)
     fresh.init_params(arg_params=mod.get_params()[0],
                       aux_params=mod.get_params()[1])
@@ -1618,13 +1745,15 @@ def test_autograd_backward_on_cuda(dev):
 
 
 # --------------------------------------- LM training in bfloat16 (rows 11-14)
-def _bf16_of_max(got, want):
-    """Largest |got - want| in bfloat16 ulps of want's largest
-    magnitude."""
+def _bf16_of_max(got, want, half="bfloat16"):
+    """Largest |got - want| in ulps of the 16-bit type ``half`` at want's
+    largest magnitude."""
+    bits, emin = HALVES[half][2:]
     torch.cuda.synchronize()
     g, w = got.double().cpu(), want.double().cpu()
-    top = max(float(w.abs().max()), 2.0 ** -126)
-    return float((g - w).abs().max()) / 2.0 ** (np.floor(np.log2(top)) - 7)
+    top = max(float(w.abs().max()), 2.0 ** emin)
+    return float((g - w).abs().max()) / 2.0 ** (np.floor(np.log2(top)) -
+                                                 bits)
 
 
 def _moved(before, after, names):
@@ -1633,42 +1762,46 @@ def _moved(before, after, names):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("n,c", [(8192, 512), (1, 512), (7, 1), (3, 65536),
                                  (5, 13), (300, 100)])
-def test_ln_bwd_bf16_kernels(dev, n, c):
+def test_ln_bwd_bf16_kernels(dev, n, c, half):
     """The bfloat16 instances against their plain versions on the same
     values: dx within one bfloat16 ulp beyond 2e-5 (float32 arithmetic in
     another order can move a rounding), dgamma / dbeta (float32 sums over
     N rows, rounded once) within one ulp beyond 1e-4; aligned rows and a
     misaligned view (one value at a time); only the bfloat16 counters
     move, once a call, and the outputs are bfloat16."""
-    bf = torch.bfloat16
+    hd, sfx = HALVES[half][:2]
+    bf = hd
     g = (1 + 0.3 * _rnd(dev, c, seed=1)).to(bf)
     b = _rnd(dev, c, seed=2).to(bf)
     ct = _rnd(dev, n, c, seed=3).to(bf)
     for x in ((3 * _rnd(dev, n, c) + 1).to(bf),
-              _misaligned_bf16(dev, n * c, n, c)):
+              _misaligned_bf16(dev, n * c, n, c, dtype=hd)):
         _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
         before = ck.launch_counts()
         dx = ck.layernorm_bwd_dx(x, g, ct, mean, rstd)
         dg, db = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
         after = ck.launch_counts()
         assert dx.dtype == dg.dtype == db.dtype == bf
-        assert _bf16_ulps(dx, ck.layernorm_bwd_dx_plain(
+        assert _ulps16(half, dx, ck.layernorm_bwd_dx_plain(
             x, g, ct, mean, rstd), atol=TOL) <= 1
         for got, want in zip((dg, db), ck.layernorm_bwd_dparams_plain(
                 x, ct, mean, rstd)):
-            assert _bf16_ulps(got, want, atol=1e-4) <= 1
+            assert _ulps16(half, got, want, atol=1e-4) <= 1
         assert _moved(before, after, (
-            "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
+            "layernorm_bwd_dx_" + sfx, "layernorm_bwd_dparams_" + sfx,
             "ln_bwd_dx", "ln_bwd_dparams")) == {
-                "layernorm_bwd_dx_bf16": 1, "layernorm_bwd_dparams_bf16": 1,
+                "layernorm_bwd_dx_" + sfx: 1, "layernorm_bwd_dparams_" + sfx: 1,
                 "ln_bwd_dx": 0, "ln_bwd_dparams": 0}
 
 
 @pytest.mark.cuda
-def test_ln_bwd_dparams_bf16_repeats_bit_for_bit(dev):
-    bf = torch.bfloat16
+@pytest.mark.parametrize("half", list(HALVES))
+def test_ln_bwd_dparams_bf16_repeats_bit_for_bit(dev, half):
+    hd, sfx = HALVES[half][:2]
+    bf = hd
     x, ct = _rnd(dev, 8192, 512).to(bf), _rnd(dev, 8192, 512, seed=1).to(bf)
     xf = x.float()
     mean = xf.mean(1)
@@ -1680,46 +1813,50 @@ def test_ln_bwd_dparams_bf16_repeats_bit_for_bit(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("n,c", [(8192, 2048), (3, 13), (1, 4), (2, 16)])
-def test_bias_gelu_dx_bf16_kernel(dev, n, c):
+def test_bias_gelu_dx_bf16_kernel(dev, n, c, half):
     """Within one bfloat16 ulp beyond 2e-5 of the plain version (erff and
     expf against PyTorch's, float32 either way), aligned and misaligned;
     only the bfloat16 counter moves."""
-    bf = torch.bfloat16
+    hd, sfx = HALVES[half][:2]
+    bf = hd
     b = _rnd(dev, c, seed=1).to(bf)
     ct = _rnd(dev, n, c, seed=2).to(bf)
     for x in ((3 * _rnd(dev, n, c)).to(bf),
-              _misaligned_bf16(dev, n * c, n, c)):
+              _misaligned_bf16(dev, n * c, n, c, dtype=hd)):
         before = ck.launch_counts()
         dx = ck.bias_gelu_dx(x, b, ct)
         after = ck.launch_counts()
         assert dx.dtype == bf
-        assert _bf16_ulps(dx, ck.bias_gelu_dx_plain(x, b, ct),
+        assert _ulps16(half, dx, ck.bias_gelu_dx_plain(x, b, ct),
                           atol=TOL) <= 1
-        assert _moved(before, after, ("bias_gelu_dx_bf16", "bias_gelu_dx")
-                      ) == {"bias_gelu_dx_bf16": 1, "bias_gelu_dx": 0}
+        assert _moved(before, after, ("bias_gelu_dx_" + sfx, "bias_gelu_dx")
+                      ) == {"bias_gelu_dx_" + sfx: 1, "bias_gelu_dx": 0}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(8, 8, 1024, 64), (2, 2, 1, 64),
                                    (1, 2, 1000, 64), (2, 1, 200, 128),
                                    (1, 1, 64, 128), (1, 3, 65, 64)])
-def test_flash_attention_bf16_kernel(dev, shape, causal):
+def test_flash_attention_bf16_kernel(dev, shape, causal, half):
     """bfloat16 q, k, v widened exactly, float32 arithmetic, the output
     rounded once: within one bfloat16 ulp beyond 2e-5 of the plain
     version on the same values (T = 1, T not a multiple of 64, Dh 128);
     only the bfloat16 counter moves."""
-    q, k, v = (_rnd(dev, *shape, seed=i).to(torch.bfloat16)
+    hd, sfx = HALVES[half][:2]
+    q, k, v = (_rnd(dev, *shape, seed=i).to(hd)
                for i in range(3))
     before = ck.launch_counts()
     got = ck.flash_attention(q, k, v, causal)
     after = ck.launch_counts()
-    assert got.dtype == torch.bfloat16
-    assert _bf16_ulps(got, ck.flash_attention_plain(q, k, v, causal),
+    assert got.dtype == hd
+    assert _ulps16(half, got, ck.flash_attention_plain(q, k, v, causal),
                       atol=TOL) <= 1
-    assert _moved(before, after, ("flash_attention_bf16", "flash_attention")
-                  ) == {"flash_attention_bf16": 1, "flash_attention": 0}
+    assert _moved(before, after, ("flash_attention_" + sfx, "flash_attention")
+                  ) == {"flash_attention_" + sfx: 1, "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -1761,8 +1898,9 @@ _BF16_GRAD_CASES = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
 @pytest.mark.parametrize("name", sorted(_BF16_GRAD_CASES))
-def test_op_gradient_bf16_on_card(dev, name):
+def test_op_gradient_bf16_on_card(dev, name, half):
     """The op's CUDA variant on bfloat16 inputs with autograd on the card
     (the bfloat16 instances forward and backward) against its plain op on
     the CPU in bfloat16: the output and every gradient bfloat16, within
@@ -1770,29 +1908,32 @@ def test_op_gradient_bf16_on_card(dev, name):
     other orders, rounded at other places: the plain op's bias gradient
     already lies one such ulp from the variant's on the CPU); only the
     bfloat16 instances launch."""
+    hd, sfx = HALVES[half][:2]
     make, kwargs, kernels = _BF16_GRAD_CASES[name]
+    kernels = [k.replace("_bf16", "_" + sfx) for k in kernels]
     op = mx.ops.get_op(name)
     attrs = op.normalize_attrs(kwargs)
     res = {}
     before = ck.launch_counts()
     for where in ("cuda", "cpu"):
-        ins = [t.to(where, torch.bfloat16).detach().requires_grad_(True)
+        ins = [t.to(where, hd).detach().requires_grad_(True)
                for t in make(dev)]
         fn = op.variants["cuda"]["fn"] if where == "cuda" else op.forward
         out = fn(attrs, ins, [], True, None)[0][0]
-        ct = _rnd(dev, *out.shape, seed=9).to(where, torch.bfloat16)
+        ct = _rnd(dev, *out.shape, seed=9).to(where, hd)
         out.backward(ct)
         res[where] = [out.detach().cpu()] + [t.grad.cpu() for t in ins]
     after = ck.launch_counts()
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert set(moved) == set(kernels), moved
     for a, b in zip(res["cuda"], res["cpu"]):
-        assert a.dtype == b.dtype == torch.bfloat16
-        assert _bf16_of_max(a, b) <= 2
+        assert a.dtype == b.dtype == hd
+        assert _bf16_of_max(a, b, half) <= 2
 
 
 @pytest.mark.cuda
-def test_small_lm_bf16_fit_alike_on_card_and_cpu(dev):
+@pytest.mark.parametrize("half", list(HALVES))
+def test_small_lm_bf16_fit_alike_on_card_and_cpu(dev, half):
     """Four bfloat16 SGD batches of a small LM (V = 300: ids and labels
     past 256; d_model 128, 2 heads: Dh = 64) from the same parameters on
     the card and on the CPU, TF32 off: every parameter float32 and within
@@ -1800,15 +1941,17 @@ def test_small_lm_bf16_fit_alike_on_card_and_cpu(dev):
     and oneDNN round bfloat16 products at other places); on the card
     each step launches only the bfloat16 instances, 1 / 2L + 1 (x3) / L
     (x2) / L / 1 / 1 of them (SGD without momentum is no kernel)."""
+    hd, sfx = HALVES[half][:2]
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        _lm_bf16_fit_both()
+        _lm_bf16_fit_both(half)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _lm_bf16_fit_both():
+def _lm_bf16_fit_both(half):
+    sfx = HALVES[half][1]
     V, D, L, H, T, B, N = 300, 128, 2, 2, 48, 4, 4
     sym = tfm.get_symbol(V, D, L, H, T)
     shapes, _, _ = sym.infer_shape(data=(B, T), softmax_label=(B * T,))
@@ -1818,8 +1961,7 @@ def _lm_bf16_fit_both():
               for n, s in zip(sym.list_arguments(), shapes)
               if n not in ("data", "softmax_label")}
     out = {}
-    for ctx, cd in ((mx.gpu(0), "bfloat16"), (mx.cpu(), "bfloat16"),
-                    (mx.cpu(), None)):
+    for ctx, cd in ((mx.gpu(0), half), (mx.cpu(), half), (mx.cpu(), None)):
         ck.reset_launch_counts()
         mod = mx.mod.Module(sym, context=ctx, compute_dtype=cd)
         mod.fit(tfm.SyntheticLMIter(V, B, T, N, seed=1), num_epoch=1,
@@ -1830,17 +1972,18 @@ def _lm_bf16_fit_both():
         out[(ctx.device_type, cd)] = {k: v.asnumpy() for k, v in got.items()}
         counts = ck.launch_counts()
         if ctx.device_type == "gpu":
-            want = {"embedding_bf16": 1, "layernorm_bf16": 2 * L + 1,
-                    "layernorm_bwd_dx_bf16": 2 * L + 1,
-                    "layernorm_bwd_dparams_bf16": 2 * L + 1,
-                    "bias_gelu_bf16": L, "bias_gelu_dx_bf16": L,
-                    "flash_attention_bf16": L, "softmax_bf16": 1,
-                    "softmax_ce_bwd_bf16": 1}
+            want = {"embedding": 1, "layernorm": 2 * L + 1,
+                    "layernorm_bwd_dx": 2 * L + 1,
+                    "layernorm_bwd_dparams": 2 * L + 1,
+                    "bias_gelu": L, "bias_gelu_dx": L,
+                    "flash_attention": L, "softmax": 1,
+                    "softmax_ce_bwd": 1}
+            want = {k + "_" + sfx: n for k, n in want.items()}
             assert counts == {k: N * want.get(k, 0) for k in counts}, counts
         else:
             assert not any(counts.values()), counts
-    card, cpu, cpu32 = (out[k] for k in (("gpu", "bfloat16"),
-                                         ("cpu", "bfloat16"), ("cpu", None)))
+    card, cpu, cpu32 = (out[k] for k in (("gpu", half), ("cpu", half),
+                                         ("cpu", None)))
     for k, v in cpu.items():
         assert np.abs(v - params[k]).max() > 0, k
         spread = float(np.abs(v - cpu32[k]).max())

@@ -1,7 +1,8 @@
-"""LM decode serving in bfloat16 mixed precision: ``mxnet_tpu_torch``
-against ``mxnet_tpu`` on the CPU at a small size (V=300 — above 256, so
-that a token id that passed through bfloat16 would show —, d_model 32,
-2 layers, 4 heads, cache 32; a 1-layer draft of the same width).
+"""LM decode serving in bfloat16 and float16 mixed precision:
+``mxnet_tpu_torch`` against ``mxnet_tpu`` on the CPU at a small size
+(V=300 — above 256, so that a token id that passed through bfloat16
+would show —, d_model 32, 2 layers, 4 heads, cache 32; a 1-layer draft
+of the same width).
 
 * the bfloat16 plain versions of the decode path's four kernels against
   the JAX package's Pallas kernels (interpret mode) on the same bfloat16
@@ -18,7 +19,12 @@ that a token id that passed through bfloat16 would show —, d_model 32,
   port rounds each op, so a nearer tie may flip);
 * chunked prefill, speculative decoding and the prefix store under
   bfloat16 in the port; the fp8 cache under bfloat16 compute against the
-  JAX package; float16 raises.
+  JAX package; a type with no mixed precision raises.
+
+Every test runs in both 16-bit types; "bfloat16" above stands for
+either. float16's ulp is eight times finer than bfloat16's (2^-10
+against 2^-7 relative), and so are its limits: 2.5e-3 where bfloat16
+takes 2e-2, a top-2 gap of 5e-3 where bfloat16 takes 4e-2.
 
 The JAX side runs as its Pallas kernels in interpret mode
 (``MXNET_KERNEL_TIER=pallas``) and, where noted, as its XLA composition.
@@ -48,16 +54,36 @@ TOL = 2e-2          # the JAX package's own bfloat16 decode tolerance
 GAP = 4e-2          # a JAX top-2 logit gap below this may flip
 CPU = mxt.cpu()
 _names = iter(range(10 ** 6))
+#: compute dtype -> (torch dtype, jax dtype, mantissa bits, tolerance,
+#: top-2 gap): float16's kernel limits are bfloat16's over 8, its finer
+#: ulp; its served logits are held to two float16 ulps of their largest
+#: magnitude (``_logits_close``), and its gap is twice that at the
+#: logits' magnitude here (4 to 8: ulp 2^-8)
+HALF = {"bfloat16": (BF16, jnp.bfloat16, 7, TOL, GAP),
+        "float16": (torch.float16, jnp.float16, 10, TOL / 8, 4 * 2 ** -8)}
+HALVES = list(HALF)
+
+
+def _logits_close(ref, got, dtype):
+    """Served logits: bfloat16 within 2e-2 (atol and rtol); float16
+    within two float16 ulps of the largest |logit| (XLA's float16 on the
+    CPU rounds inside the step at other places than the port, which
+    rounds each op: measured 1.6 ulps; bfloat16 logits agree exactly)."""
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(ref, got, atol=TOL, rtol=TOL)
+        return
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - HALF[dtype][2])
+    assert np.abs(ref - got).max() <= 2 * ulp
 
 
 def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-def _bf(a):
-    """A float32 numpy array as the same bfloat16 values in both
+def _bf(a, dtype="bfloat16"):
+    """A float32 numpy array as the same 16-bit ``dtype`` values in both
     packages (both round to nearest even)."""
-    return jnp.asarray(a, jnp.bfloat16), _t(a).to(BF16)
+    return jnp.asarray(a, HALF[dtype][1]), _t(a).to(HALF[dtype][0])
 
 
 def _np(x):
@@ -65,14 +91,14 @@ def _np(x):
         else x.float().numpy()
 
 
-def _ulps(a, b, atol=2e-5):
-    """Largest |a - b|, less ``atol``, in bfloat16 ulps of the larger
+def _ulps(a, b, atol=2e-5, dtype="bfloat16"):
+    """Largest |a - b|, less ``atol``, in ulps of ``dtype`` at the larger
     magnitude. ``atol`` is the float32 parity tolerance of these kernels
     (the two frameworks' erf and summation orders differ by float32
     ulps, which at a value near zero can move its bfloat16 rounding)."""
     a, b = _np(a), _np(b)
     mag = np.maximum(np.abs(a), np.abs(b))
-    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - HALF[dtype][2])
     return float(np.max(np.maximum(np.abs(a - b) - atol, 0.0) / ulp))
 
 
@@ -86,23 +112,25 @@ def pallas_tier(monkeypatch):
 
 
 # =========================================== rows 1-4: the plain versions
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("scale", [1.0, float(np.sqrt(D))])
-def test_embedding_bf16_plain_matches_pallas_exactly(scale):
+def test_embedding_bf16_plain_matches_pallas_exactly(scale, dtype):
     rs = np.random.RandomState(0)
-    jw, tw = _bf(rs.randn(V, 64).astype(np.float32))
+    jw, tw = _bf(rs.randn(V, 64).astype(np.float32), dtype)
     ids = rs.randint(0, V, 19).astype(np.int32)
     ids[:3] = [V - 1, 256, 257]        # ids bfloat16 could not hold
     ref = pk.fused_embedding(jnp.asarray(ids), jw, scale)
     got = ck.embedding_plain(_t(ids), tw, scale)
-    assert got.dtype == BF16 and ref.dtype == jnp.bfloat16
+    assert got.dtype == tw.dtype and ref.dtype == jw.dtype
     np.testing.assert_array_equal(_np(ref), _np(got))
 
 
-def test_embedding_bf16_plain_out_of_range_matches_composition():
+@pytest.mark.parametrize("dtype", HALVES)
+def test_embedding_bf16_plain_out_of_range_matches_composition(dtype):
     """jnp.take's fill in bfloat16: [-V, 0) counts from the end, the rest
     is NaN."""
     rs = np.random.RandomState(1)
-    jw, tw = _bf(rs.randn(16, 8).astype(np.float32))
+    jw, tw = _bf(rs.randn(16, 8).astype(np.float32), dtype)
     ids = np.asarray([0, 15, 16, -1, -16, -17, 1000, 3], np.int32)
     op = jax_op("Embedding")
     (ref,), _ = op.forward(op.normalize_attrs({"input_dim": 16,
@@ -112,32 +140,34 @@ def test_embedding_bf16_plain_out_of_range_matches_composition():
     np.testing.assert_array_equal(_np(ref), _np(got))   # NaN == NaN
 
 
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("shape", [(8, 64), (5, 48), (16, 512)])
-def test_layernorm_bf16_plain_within_one_ulp_of_pallas(shape):
+def test_layernorm_bf16_plain_within_one_ulp_of_pallas(shape, dtype):
     rs = np.random.RandomState(2)
-    jx, tx = _bf((3 * rs.randn(*shape) + 1).astype(np.float32))
-    jg, tg = _bf(rs.randn(shape[1]).astype(np.float32))
-    jb, tb = _bf(rs.randn(shape[1]).astype(np.float32))
+    jx, tx = _bf((3 * rs.randn(*shape) + 1).astype(np.float32), dtype)
+    jg, tg = _bf(rs.randn(shape[1]).astype(np.float32), dtype)
+    jb, tb = _bf(rs.randn(shape[1]).astype(np.float32), dtype)
     y, mean, rstd = pk._pl_layernorm_fwd(jx, jg, jb, 1e-5)
     py, pmean, prstd = ck.layernorm_plain(tx, tg, tb, 1e-5)
-    assert py.dtype == BF16 and y.dtype == jnp.bfloat16
+    assert py.dtype == tx.dtype and y.dtype == jx.dtype
     assert pmean.dtype == prstd.dtype == torch.float32
-    assert _ulps(y, py) <= 1.0
+    assert _ulps(y, py, dtype=dtype) <= 1.0
     np.testing.assert_allclose(np.asarray(mean)[:, 0], pmean.numpy(),
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(np.asarray(rstd)[:, 0], prstd.numpy(),
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("shape", [(8, 128), (3, 40), (16, 2048)])
-def test_bias_gelu_bf16_plain_within_one_ulp_of_pallas(shape):
+def test_bias_gelu_bf16_plain_within_one_ulp_of_pallas(shape, dtype):
     rs = np.random.RandomState(4)
-    jx, tx = _bf((2 * rs.randn(*shape)).astype(np.float32))
-    jb, tb = _bf(rs.randn(shape[1]).astype(np.float32))
+    jx, tx = _bf((2 * rs.randn(*shape)).astype(np.float32), dtype)
+    jb, tb = _bf(rs.randn(shape[1]).astype(np.float32), dtype)
     ref = pk.fused_bias_gelu(jx, jb)
     got = ck.bias_gelu_plain(tx, tb)
-    assert got.dtype == BF16 and ref.dtype == jnp.bfloat16
-    assert _ulps(ref, got) <= 1.0
+    assert got.dtype == tx.dtype and ref.dtype == jx.dtype
+    assert _ulps(ref, got, dtype=dtype) <= 1.0
 
 
 B4, H2, DH, C = 4, 2, 64, 256   # C=256 spans two 128-key Pallas blocks
@@ -145,28 +175,31 @@ _CURSORS = {1: {"per_slot": [0, C - 1, 127, 128], "scalar": [C - 1] * 4},
             4: {"per_slot": [0, C - 1, 126, 128], "scalar": [0] * 4}}
 
 
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("layout", ["per_slot", "scalar"])
 @pytest.mark.parametrize("S", [1, 4])
-def test_decode_read_bf16_plain_matches_pallas(S, layout):
+def test_decode_read_bf16_plain_matches_pallas(S, layout, dtype):
     """bfloat16 q and caches; cursors at 0 and at the capacity's last
     position (a window there reads only the keys that exist), on both
     sides of the 128-key block boundary, or one cursor for every row."""
     rs = np.random.RandomState(5)
-    jq, tq = _bf(rs.randn(B4, H2, S, DH).astype(np.float32))
-    jk, tk = _bf(rs.randn(B4, H2, C, DH).astype(np.float32))
-    jv, tv = _bf(rs.randn(B4, H2, C, DH).astype(np.float32))
+    jq, tq = _bf(rs.randn(B4, H2, S, DH).astype(np.float32), dtype)
+    jk, tk = _bf(rs.randn(B4, H2, C, DH).astype(np.float32), dtype)
+    jv, tv = _bf(rs.randn(B4, H2, C, DH).astype(np.float32), dtype)
     pos = np.asarray(_CURSORS[S][layout], np.int32)
     ref = pk.decode_attention(jq, jk, jv, jnp.asarray(pos))
     got = ck.decode_attention_plain(tq, tk, tv, _t(pos))
     assert got.dtype == torch.float32 and ref.dtype == jnp.float32
-    np.testing.assert_allclose(np.asarray(ref), got.numpy(), atol=TOL,
-                               rtol=TOL)
+    tol = HALF[dtype][3]
+    np.testing.assert_allclose(np.asarray(ref), got.numpy(), atol=tol,
+                               rtol=tol)
 
 
 # ============================================== attention_decode in bf16
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("per_slot,S", [(True, 1), (True, 4), (False, 1),
                                         (False, 4)])
-def test_attention_decode_bf16_writes_bitwise_like_jax(per_slot, S):
+def test_attention_decode_bf16_writes_bitwise_like_jax(per_slot, S, dtype):
     """The op in bfloat16, RoPE on: both packages write the same cache
     rows bit for bit and advance the cursor alike; the outputs (the
     port's plain forward and its card variant's CPU path) within 2e-2 of
@@ -179,20 +212,21 @@ def test_attention_decode_bf16_writes_bitwise_like_jax(per_slot, S):
     attrs = {"capacity": cap, "per_slot": per_slot, "rope": True}
     jop, top = jax_op("attention_decode"), mxt.ops.get_op("attention_decode")
     jattrs, tattrs = jop.normalize_attrs(attrs), top.normalize_attrs(attrs)
-    jin = [_bf(a)[0] for a in (q, k, v)]
-    jaux = [_bf(kc)[0], _bf(vc)[0], jnp.asarray(cur)]
+    tol = HALF[dtype][3]
+    jin = [_bf(a, dtype)[0] for a in (q, k, v)]
+    jaux = [_bf(kc, dtype)[0], _bf(vc, dtype)[0], jnp.asarray(cur)]
     refs = [jop.forward(jattrs, jin, jaux, False, None),
             jop.variants["pallas"]["fn"](jattrs, jin, jaux, False, None)]
     for fn in (top.forward, top.variants["cuda"]["fn"]):
-        tin = [_bf(a)[1] for a in (q, k, v)]
-        taux = [_bf(kc)[1], _bf(vc)[1], _t(cur)]
+        tin = [_bf(a, dtype)[1] for a in (q, k, v)]
+        taux = [_bf(kc, dtype)[1], _bf(vc, dtype)[1], _t(cur)]
         (out,), new_aux = fn(tattrs, tin, taux, False, None)
-        assert out.dtype == BF16
+        assert out.dtype == HALF[dtype][0]
         for (ref_out,), ref_aux in refs:
-            np.testing.assert_allclose(_np(ref_out), _np(out), atol=TOL,
-                                       rtol=TOL)
+            np.testing.assert_allclose(_np(ref_out), _np(out), atol=tol,
+                                       rtol=tol)
             for r, p in zip(ref_aux[:2], new_aux[:2]):
-                assert p.dtype == BF16
+                assert p.dtype == HALF[dtype][0]
                 np.testing.assert_array_equal(_np(r), _np(p))
             np.testing.assert_array_equal(np.asarray(ref_aux[2]),
                                           new_aux[2].numpy())
@@ -281,7 +315,8 @@ def _teacher_forced(sched, chain, window=1):
     return np.concatenate(out, axis=1)          # (2, steps, V)
 
 
-def test_served_logits_teacher_forced_match_jax(target):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_served_logits_teacher_forced_match_jax(target, dtype):
     """16 steps of a fixed token chain (ids up to V-1 > 256) through the
     served rung: the port's bfloat16 logits within 2e-2 of the JAX
     package's; the logits come back bfloat16, every parameter and cache
@@ -289,11 +324,13 @@ def test_served_logits_teacher_forced_match_jax(target):
     cache cells hold the same values as bfloat16 cells)."""
     chain = _chain(11, 16)
     chain[0] = [V - 1, 257]
-    j, t = JAX.serve(target, ladder=(2,)), PORT.serve(target, ladder=(2,))
+    j = JAX.serve(target, ladder=(2,), compute_dtype=dtype)
+    t = PORT.serve(target, ladder=(2,), compute_dtype=dtype)
     ref, got = _teacher_forced(j, chain), _teacher_forced(t, chain)
-    np.testing.assert_allclose(ref, got, atol=TOL, rtol=TOL)
+    _logits_close(ref, got, dtype)
     drv = t.engine.driver(2)
-    assert drv.step(np.zeros((2, 1), np.int32)).astorch().dtype == BF16
+    out = drv.step(np.zeros((2, 1), np.int32))
+    assert out.astorch().dtype == HALF[dtype][0]
     exe = drv._mod._exec_group.executor
     for nm, cell in list(exe.arg_dict.items()) + list(exe.aux_dict.items()):
         x = cell.astorch()
@@ -304,19 +341,20 @@ def test_served_logits_teacher_forced_match_jax(target):
         else:
             assert x.dtype == torch.float32, nm
             if nm.endswith("_cache"):
-                assert torch.equal(x, x.to(BF16).float()), nm
+                assert torch.equal(x, x.to(HALF[dtype][0]).float()), nm
     assert t.stats()["compiles_since_warmup"] == 0
     j_exe = j.engine.driver(2)._mod._exec_group.executor
-    assert str(j_exe.aux_dict["lm_l0_attn_k_cache"].dtype) == "bfloat16"
+    assert str(j_exe.aux_dict["lm_l0_attn_k_cache"].dtype) == dtype
 
 
-def test_cast_layer_per_dispatch(target):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_cast_layer_per_dispatch(target, dtype):
     """After warmup the parameters' bfloat16 casts are kept: a bfloat16
     dispatch casts the 2L caches and writes them back, and drops the kept
     casts of the cache tensors it replaced (the op wrote those casts in
     place); float32 serving casts nothing."""
     from mxnet_tpu_torch import executor
-    for cd, per in (("bfloat16", 2 * L), (None, 0)):
+    for cd, per in ((dtype, 2 * L), (None, 0)):
         sched = PORT.serve(target, ladder=(2,), compute_dtype=cd)
         drv = sched.engine.driver(2)
         drv.join(0)
@@ -335,17 +373,19 @@ def test_cast_layer_per_dispatch(target):
                                           "write_backs": 3 * per}
 
 
-def test_served_logits_learned_positions_match_jax():
+@pytest.mark.parametrize("dtype", HALVES)
+def test_served_logits_learned_positions_match_jax(dtype):
     """Learned positions: ``pos_ids`` (float32 data) is cast to bfloat16
     where the graph reads it, in both packages — exact for positions
     below 256."""
     params = _params(L, 3, pos_embed="learned")
-    j = JAX.serve(params, ladder=(2,), pos_embed="learned")
-    t = PORT.serve(params, ladder=(2,), pos_embed="learned")
+    j = JAX.serve(params, ladder=(2,), pos_embed="learned",
+                  compute_dtype=dtype)
+    t = PORT.serve(params, ladder=(2,), pos_embed="learned",
+                   compute_dtype=dtype)
     chain = _chain(12, 12)
-    np.testing.assert_allclose(_teacher_forced(j, chain),
-                               _teacher_forced(t, chain), atol=TOL,
-                               rtol=TOL)
+    _logits_close(_teacher_forced(j, chain), _teacher_forced(t, chain),
+                  dtype)
 
 
 def _greedy_run(sched, prompts, max_new=10):
@@ -377,20 +417,21 @@ def _jax_gaps(drv, prompt, chain):
     return top2[:, 1] - top2[:, 0], rows.argmax(1)
 
 
-def test_greedy_chains_match_jax_where_no_near_tie(target):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_greedy_chains_match_jax_where_no_near_tie(target, dtype):
     """Five staggered requests through each package's bfloat16 server
     (the same FakeClock arrivals, ladder [1, 2, 4]): the port's greedy
     chain equals the JAX package's up to the first step whose JAX top-2
     gap is 4e-2 or less, and equal counts."""
     prompts = _prompts(21, 5)
-    j = JAX.serve(target)
+    j = JAX.serve(target, compute_dtype=dtype)
     j_chains = _greedy_run(j, prompts)
-    t_chains = _greedy_run(PORT.serve(target), prompts)
+    t_chains = _greedy_run(PORT.serve(target, compute_dtype=dtype), prompts)
     compared = 0
     for prompt, jc, tc in zip(prompts, j_chains, t_chains):
         gaps, argmax = _jax_gaps(j.engine.driver(1), prompt, jc)
         assert argmax.tolist() == jc     # the chain is the JAX greedy one
-        near = np.nonzero(gaps <= GAP)[0]
+        near = np.nonzero(gaps <= HALF[dtype][4])[0]
         stop = int(near[0]) if near.size else len(jc)
         assert tc[:stop] == jc[:stop]
         compared += stop
@@ -398,35 +439,45 @@ def test_greedy_chains_match_jax_where_no_near_tie(target):
 
 
 # ============================================= fast paths under bfloat16
-@pytest.fixture(scope="module")
-def plain_chains(target):
-    prompts = _prompts(31, 5, lo=4, hi=14)
-    return prompts, _greedy_run(PORT.serve(target), prompts)
+_PLAIN_CHAINS = {}
 
 
-def test_chunked_prefill_bf16_emits_token_at_a_time_chains(target,
-                                                           plain_chains):
-    prompts, want = plain_chains
-    sched = PORT.serve(target, chunk=4)
+def _plain_chains(target, dtype):
+    """Token-at-a-time greedy chains of five prompts, once per dtype."""
+    if dtype not in _PLAIN_CHAINS:
+        prompts = _prompts(31, 5, lo=4, hi=14)
+        _PLAIN_CHAINS[dtype] = prompts, _greedy_run(
+            PORT.serve(target, compute_dtype=dtype), prompts)
+    return _PLAIN_CHAINS[dtype]
+
+
+@pytest.mark.parametrize("dtype", HALVES)
+def test_chunked_prefill_bf16_emits_token_at_a_time_chains(target, dtype):
+    prompts, want = _plain_chains(target, dtype)
+    sched = PORT.serve(target, chunk=4, compute_dtype=dtype)
     assert sched.prefill_chunk == 4
     assert _greedy_run(sched, prompts) == want
     assert sched.stats()["prefill_chunks"] > 0
 
 
+@pytest.mark.parametrize("dtype", HALVES)
 def test_speculative_bf16_emits_token_at_a_time_chains(target, draft,
-                                                       plain_chains):
-    prompts, want = plain_chains
-    sched = PORT.serve(target, chunk=4, draft=draft, spec_k=3)
+                                                       dtype):
+    prompts, want = _plain_chains(target, dtype)
+    sched = PORT.serve(target, chunk=4, draft=draft, spec_k=3,
+                       compute_dtype=dtype)
     assert _greedy_run(sched, prompts) == want
     assert sched.stats()["spec"]["proposed"] > 0
 
 
-def test_prefix_hit_restores_bf16_rows_exactly(target):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_prefix_hit_restores_bf16_rows_exactly(target, dtype):
     """A cold prefill's rows (float32 cells holding bfloat16 values) go
     into the store; a second submit joins with them written back bit for
     bit and decodes the cold output, which a server without the store
     gives too."""
-    sched = PORT.serve(target, chunk=4, ladder=(1,), prefix_mb=4)
+    sched = PORT.serve(target, chunk=4, ladder=(1,), prefix_mb=4,
+                       compute_dtype=dtype)
     prompt = np.random.RandomState(8).randint(1, V, 11).tolist()
     cold = sched.submit(prompt, max_new_tokens=5, prefix_id="sys")
     sched.pump()
@@ -437,24 +488,25 @@ def test_prefix_hit_restores_bf16_rows_exactly(target):
     assert warm.result(timeout=0).tolist() == cold.result(timeout=0).tolist()
     entry = store.lookup("sys", np.asarray(prompt + [0]))[1]
     restored = sched.engine.driver(1).capture_rows(0, len(prompt) - 1)
-    fresh = PORT.serve(target, chunk=4, ladder=(1,))
+    fresh = PORT.serve(target, chunk=4, ladder=(1,), compute_dtype=dtype)
     h = fresh.submit(prompt, max_new_tokens=5)
     fresh.pump()
     assert h.result(timeout=0).tolist() == cold.result(timeout=0).tolist()
     ref = fresh.engine.driver(1).capture_rows(0, len(prompt))
     for nm, rows in entry.payloads["target"].items():
         assert rows.dtype == torch.float32
-        assert torch.equal(rows, rows.to(BF16).float()), nm
+        assert torch.equal(rows, rows.to(HALF[dtype][0]).float()), nm
         assert torch.equal(rows, ref[nm]), nm
         assert torch.equal(restored[nm], rows[:, :len(prompt) - 1]), nm
 
 
-def test_sampled_bf16_serving_is_reproducible(target):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_sampled_bf16_serving_is_reproducible(target, dtype):
     """Sampling runs in numpy on float32 copies of the bfloat16 logits:
     a seeded temperature-sampled request gives the same tokens twice."""
     runs = []
     for _ in range(2):
-        sched = PORT.serve(target)
+        sched = PORT.serve(target, compute_dtype=dtype)
         h = sched.submit([5, 260, 7], max_new_tokens=8,
                          sampling=SamplingParams(temperature=0.9, top_k=50,
                                                  seed=4))
@@ -464,29 +516,39 @@ def test_sampled_bf16_serving_is_reproducible(target):
 
 
 # ======================================================= fp8 under bf16
-def test_fp8_cache_under_bf16_matches_jax(target):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_fp8_cache_under_bf16_matches_jax(target, dtype):
     """An fp8 cache cell under bfloat16 compute: read through a bfloat16
     cast and, as in the JAX package, written back as the bfloat16 cache
     (an fp8 cell cannot hold the bfloat16 rows); teacher-forced logits
     within 2e-2 of the JAX package's, which equal its bfloat16-cache
     logits."""
     chain = _chain(13, 12)
-    j = JAX.serve(target, ladder=(2,), cache_dtype="fp8")
-    t = PORT.serve(target, ladder=(2,), cache_dtype="fp8")
+    j = JAX.serve(target, ladder=(2,), cache_dtype="fp8", compute_dtype=dtype)
+    t = PORT.serve(target, ladder=(2,), cache_dtype="fp8", compute_dtype=dtype)
     ref, got = _teacher_forced(j, chain), _teacher_forced(t, chain)
-    np.testing.assert_allclose(ref, got, atol=TOL, rtol=TOL)
+    _logits_close(ref, got, dtype)
     np.testing.assert_array_equal(
-        ref, _teacher_forced(JAX.serve(target, ladder=(2,)), chain))
+        ref, _teacher_forced(JAX.serve(target, ladder=(2,),
+                                       compute_dtype=dtype), chain))
     for side, sched in ((JAX, j), (PORT, t)):
         exe = sched.engine.driver(2)._mod._exec_group.executor
         cache = exe.aux_dict["lm_l0_attn_k_cache"]
-        assert "bfloat16" in str(cache.dtype), side.jax
+        assert dtype in str(cache.dtype), side.jax
 
 
 # ========================================================= what raises
 def test_float16_raises_naming_the_later_slice(target):
-    with pytest.raises(MXNetError, match="later slice"):
-        PORT.serve(target, compute_dtype="float16")
+    """float16 is no longer a later slice: every spelling parses to it and
+    a float16 server answers float16 logits; a type with no mixed
+    precision still raises, naming the two ported ones."""
+    sched = PORT.serve(target, ladder=(1,), compute_dtype="float16")
+    drv = sched.engine.driver(1)
+    drv.join(0)
+    out = drv.step(np.asarray([[5]], np.int32))
+    assert out.astorch().dtype == torch.float16
+    assert np.isfinite(out.asnumpy()).all()
     x = torch.zeros(2, 64, dtype=torch.float16)
-    with pytest.raises(MXNetError, match="later slice"):
-        mxt.executor.parse_compute_dtype(x.dtype)
+    assert mxt.executor.parse_compute_dtype(x.dtype) is torch.float16
+    with pytest.raises(MXNetError, match="bfloat16 or float16"):
+        PORT.serve(target, compute_dtype="float64")

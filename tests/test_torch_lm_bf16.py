@@ -1,6 +1,9 @@
-"""Transformer-LM training in bfloat16 mixed precision
-(``Module(compute_dtype="bfloat16").fit``): ``mxnet_tpu_torch`` against
-``mxnet_tpu`` on the CPU at small sizes.
+"""Transformer-LM training in bfloat16 and float16 mixed precision
+(``Module(compute_dtype="bfloat16").fit``, ``"float16"`` alike):
+``mxnet_tpu_torch`` against ``mxnet_tpu`` on the CPU at small sizes.
+Every test runs in both 16-bit types; "bfloat16" below stands for
+either, and a limit in ulps is in ulps of the type (2^-7 relative for
+bfloat16, 2^-10 for float16).
 
 Under the JAX package's mixed precision the LM's Pallas kernels run on
 bfloat16 operands: each reads bfloat16, computes in float32 and stores
@@ -59,6 +62,11 @@ from mxnet_tpu_torch.ops import cuda_kernels as ck
 
 BF16 = torch.bfloat16
 CPU = mxt.cpu()
+#: compute dtype -> (torch dtype, jax dtype, mantissa bits, smallest
+#: normal exponent)
+HALF = {"bfloat16": (BF16, jnp.bfloat16, 7, -126),
+        "float16": (torch.float16, jnp.float16, 10, -14)}
+HALVES = list(HALF)
 EPS = 1e-5
 ATOL = 2e-5                 # the elementwise floor (see above)
 V, D, L, H, T, B, N = 512, 64, 2, 4, 32, 8, 3
@@ -66,11 +74,12 @@ SGD = (("learning_rate", 0.05),)
 SPREAD = 3.0
 
 
-def _bf16(a):
-    """numpy -> (torch bfloat16, jax bfloat16), both rounded to nearest
-    even from the same float32 values."""
+def _bf16(a, dtype="bfloat16"):
+    """numpy -> (torch, jax) arrays of the 16-bit ``dtype``, both rounded
+    to nearest even from the same float32 values."""
     a = np.asarray(a, np.float32)
-    return torch.from_numpy(a).to(BF16), jnp.asarray(a).astype(jnp.bfloat16)
+    return torch.from_numpy(a).to(HALF[dtype][0]), \
+        jnp.asarray(a).astype(HALF[dtype][1])
 
 
 def _np(x):
@@ -79,40 +88,44 @@ def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def _is_bf16(*xs):
-    return all((x.dtype == BF16) if isinstance(x, torch.Tensor)
-               else (x.dtype == jnp.bfloat16) for x in xs)
+def _is_bf16(*xs, dtype="bfloat16"):
+    return all((x.dtype == HALF[dtype][0]) if isinstance(x, torch.Tensor)
+               else (x.dtype == HALF[dtype][1]) for x in xs)
 
 
-def _ulp(mag):
-    """The bfloat16 ulp at magnitude ``mag`` (at least the smallest
+def _ulp(mag, dtype="bfloat16"):
+    """The ulp of ``dtype`` at magnitude ``mag`` (at least the smallest
     normal's)."""
-    return 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - 7)
+    bits, emin = HALF[dtype][2:]
+    return 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** emin))) - bits)
 
 
-def _ulps(got, want, atol=ATOL):
-    """Largest |got - want| less ``atol``, in bfloat16 ulps of each
+def _ulps(got, want, atol=ATOL, dtype="bfloat16"):
+    """Largest |got - want| less ``atol``, in ulps of ``dtype`` at each
     value's magnitude."""
     g, w = _np(got).astype(np.float64), _np(want).astype(np.float64)
     over = np.maximum(np.abs(g - w) - atol, 0.0)
-    return float((over / _ulp(np.maximum(np.abs(g), np.abs(w)))).max())
+    return float((over / _ulp(np.maximum(np.abs(g), np.abs(w)),
+                              dtype)).max())
 
 
-def _ulps_of_max(got, want):
-    """Largest |got - want| in bfloat16 ulps of want's largest
+def _ulps_of_max(got, want, dtype="bfloat16"):
+    """Largest |got - want| in ulps of ``dtype`` at want's largest
     magnitude."""
     g, w = _np(got).astype(np.float64), _np(want).astype(np.float64)
-    return float(np.abs(g - w).max() / _ulp(np.abs(w).max()))
+    return float(np.abs(g - w).max() / _ulp(np.abs(w).max(), dtype))
 
 
 # --------------------------------------------------- LayerNorm backward
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("n,c", [(16, 64), (5, 13), (1, 1), (3, 1000),
                                  (64, 512)])
-def test_ln_bwd_plain_bf16_matches_pallas(n, c):
+def test_ln_bwd_plain_bf16_matches_pallas(n, c, dtype):
     rs = np.random.RandomState(0)
     (tx, jx), (tg, jg), (tb, jb), (tct, jct) = (
-        _bf16(3 * rs.randn(n, c) + 1), _bf16(1 + 0.3 * rs.randn(c)),
-        _bf16(0.3 * rs.randn(c)), _bf16(rs.randn(n, c)))
+        _bf16(3 * rs.randn(n, c) + 1, dtype),
+        _bf16(1 + 0.3 * rs.randn(c), dtype),
+        _bf16(0.3 * rs.randn(c), dtype), _bf16(rs.randn(n, c), dtype))
     _, vjp = jax.vjp(lambda x_, g_, b_: pk._ln_pl_fn(x_, g_, b_, EPS),
                      jx, jg, jb)
     zeros = jnp.zeros((n, 1), jnp.float32)
@@ -120,67 +133,71 @@ def test_ln_bwd_plain_bf16_matches_pallas(n, c):
     _, mean, rstd = ck.layernorm_plain(tx, tg, tb, EPS)
     tdx = ck.layernorm_bwd_dx_plain(tx, tg, tct, mean, rstd)
     tdg, tdb = ck.layernorm_bwd_dparams_plain(tx, tct, mean, rstd)
-    assert _is_bf16(dx, dg, db, tdx, tdg, tdb)
+    assert _is_bf16(dx, dg, db, tdx, tdg, tdb, dtype=dtype)
     assert mean.dtype == rstd.dtype == torch.float32
-    assert _ulps(tdx, dx) <= 1
-    assert _ulps_of_max(tdg, dg) <= 1 and _ulps_of_max(tdb, db) <= 1
+    assert _ulps(tdx, dx, dtype=dtype) <= 1
+    assert _ulps_of_max(tdg, dg, dtype) <= 1
+    assert _ulps_of_max(tdb, db, dtype) <= 1
     # the card's autograd.Function on CPU tensors: the same gradients
     leaves = [t.clone().requires_grad_(True) for t in (tx, tg, tb)]
     ck.layernorm_fn(*leaves, EPS)[0].backward(tct)
     for leaf, want in zip(leaves, (tdx, tdg, tdb)):
-        assert leaf.grad.dtype == BF16
+        assert leaf.grad.dtype == HALF[dtype][0]
         assert torch.equal(leaf.grad, want)
 
 
 # ---------------------------------------------------- bias + GeLU backward
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("n,c", [(8, 256), (3, 13), (1, 4), (64, 2048)])
-def test_bias_gelu_bwd_plain_bf16_matches_pallas(n, c):
+def test_bias_gelu_bwd_plain_bf16_matches_pallas(n, c, dtype):
     rs = np.random.RandomState(2)
-    (tx, jx), (tb, jb), (tct, jct) = (_bf16(3 * rs.randn(n, c)),
-                                      _bf16(rs.randn(c)),
-                                      _bf16(rs.randn(n, c)))
+    (tx, jx), (tb, jb), (tct, jct) = (_bf16(3 * rs.randn(n, c), dtype),
+                                      _bf16(rs.randn(c), dtype),
+                                      _bf16(rs.randn(n, c), dtype))
     _, vjp = jax.vjp(pk._bias_gelu_fn, jx, jb)
     dx, db = vjp(jct)
     tdx = ck.bias_gelu_dx_plain(tx, tb, tct)
-    assert _is_bf16(dx, db, tdx)
-    assert _ulps(tdx, dx) <= 1
+    assert _is_bf16(dx, db, tdx, dtype=dtype)
+    assert _ulps(tdx, dx, dtype=dtype) <= 1
     x, b = (t.clone().requires_grad_(True) for t in (tx, tb))
     ck.bias_gelu_fn(x, b).backward(tct)
-    assert _is_bf16(x.grad, b.grad)
+    assert _is_bf16(x.grad, b.grad, dtype=dtype)
     assert torch.equal(x.grad, tdx)
     # the bias gradient: the float32 column sum of dx, rounded once
-    assert torch.equal(b.grad, tdx.float().sum(0).to(BF16))
-    assert _ulps_of_max(b.grad, db) <= 1
+    assert torch.equal(b.grad, tdx.float().sum(0).to(HALF[dtype][0]))
+    assert _ulps_of_max(b.grad, db, dtype) <= 1
 
 
 # ------------------------------------------------------- flash attention
 _FLASH = [((2, 3, 32, 16), 128), ((1, 2, 40, 64), 8), ((2, 2, 64, 128), 16)]
 
 
+@pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape,block", _FLASH)
-def test_flash_attention_plain_bf16_matches_pallas(shape, block, causal):
+def test_flash_attention_plain_bf16_matches_pallas(shape, block, causal,
+                                                   dtype):
     """Forward: the plain version, and the card's Function on CPU
     tensors, against the Pallas kernel. Backward: the Function's
     recompute against ``jax.vjp`` of the Pallas path (its XLA
     recompute)."""
     rs = np.random.RandomState(3)
-    (tq, jq), (tk, jk), (tv, jv), (tct, jct) = (_bf16(rs.randn(*shape))
-                                                for _ in range(4))
+    (tq, jq), (tk, jk), (tv, jv), (tct, jct) = (
+        _bf16(rs.randn(*shape), dtype) for _ in range(4))
     y, vjp = jax.vjp(lambda q_, k_, v_: jrtc.flash_attention(
         q_, k_, v_, causal=causal, block_q=block, block_k=block),
         jq, jk, jv)
     got = ck.flash_attention_plain(tq, tk, tv, causal)
-    assert _is_bf16(y, got)
-    assert _ulps_of_max(got, y) <= 1
+    assert _is_bf16(y, got, dtype=dtype)
+    assert _ulps_of_max(got, y, dtype) <= 1
     leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
     out = trtc.flash_attention_fn(*leaves, causal)
     assert torch.equal(out, got)
     out.backward(tct)
-    tol = 2 if shape[-1] == 128 else 1        # the bfloat16 JAX scale
+    tol = 2 if shape[-1] == 128 else 1        # the 16-bit JAX scale
     for leaf, want in zip(leaves, vjp(jct)):
-        assert _is_bf16(leaf.grad, want)
-        assert _ulps_of_max(leaf.grad, want) <= tol
+        assert _is_bf16(leaf.grad, want, dtype=dtype)
+        assert _ulps_of_max(leaf.grad, want, dtype) <= tol
 
 
 def test_bf16_wrappers_on_cpu_run_plain_and_count_nothing():
@@ -243,11 +260,12 @@ def _jax_fit32():
     return _jax_fit(None)
 
 
-def test_lm_bf16_fit_matches_jax(jax_tier):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_lm_bf16_fit_matches_jax(jax_tier, dtype):
     start, j32 = _jax_fit32()
-    _, jbf = _jax_fit(jnp.bfloat16, start)
+    _, jbf = _jax_fit(HALF[dtype][1], start)
     mod = mxt.mod.Module(ttfm.get_symbol(V, D, L, H, T), context=CPU,
-                         compute_dtype="bfloat16")
+                         compute_dtype=dtype)
     mod.fit(ttfm.SyntheticLMIter(V, B, T, N, seed=0), num_epoch=1,
             optimizer="sgd", optimizer_params=SGD,
             arg_params=mxt.convert.params_from_numpy(start, CPU))
@@ -274,7 +292,8 @@ def _spy(monkeypatch, name, seen):
     monkeypatch.setattr(op, "forward", spy)
 
 
-def test_lm_bf16_cells_ids_labels_and_casts(monkeypatch):
+@pytest.mark.parametrize("dtype", HALVES)
+def test_lm_bf16_cells_ids_labels_and_casts(monkeypatch, dtype):
     """One bfloat16 step with momentum: master weights, gradients and the
     momentum float32; the int32 ids and float32 labels (above 256, odd
     ones included, which bfloat16 would round to even) reach the
@@ -287,7 +306,7 @@ def test_lm_bf16_cells_ids_labels_and_casts(monkeypatch):
     assert (data > 256).any() and (label > 256).any()
     assert ((data > 256) & (data % 2 == 1)).any()
     mod = mxt.mod.Module(ttfm.get_symbol(V, D, L, H, T), context=CPU,
-                         compute_dtype="bfloat16")
+                         compute_dtype=dtype)
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(mxt.initializer.Xavier(
         rng=torch.Generator().manual_seed(0)))
@@ -306,11 +325,12 @@ def test_lm_bf16_cells_ids_labels_and_casts(monkeypatch):
     assert casts == len(params)
     assert len(ids) == 1 and len(heads) == 1
     (tok, table), (logits, lab) = ids[0], heads[0]
-    assert tok.dtype == torch.int32 and table.dtype == BF16
+    half = HALF[dtype][0]
+    assert tok.dtype == torch.int32 and table.dtype == half
     np.testing.assert_array_equal(tok.numpy(), data)
-    assert logits.dtype == BF16 and lab.dtype == torch.float32
+    assert logits.dtype == half and lab.dtype == torch.float32
     np.testing.assert_array_equal(lab.numpy(), label)
-    assert exe.outputs[0].astorch().dtype == BF16
+    assert exe.outputs[0].astorch().dtype == half
     for cells in (mod.get_params()[0], exe.grad_dict):
         assert {v.astorch().dtype for v in cells.values()} == \
             {torch.float32}

@@ -61,7 +61,11 @@ def test_transpose(kwargs):
 
 @pytest.mark.parametrize("kwargs", [{"axis": 1, "begin": 1, "end": 3},
                                     {"axis": 3, "begin": 2, "end": None},
-                                    {"axis": 2, "begin": 0, "end": -1}])
+                                    {"axis": 2, "begin": 0, "end": -1},
+                                    {"axis": -1, "begin": -3, "end": None},
+                                    {"axis": -1, "begin": -3, "end": -1},
+                                    {"axis": 2, "begin": -3, "end": None},
+                                    {"axis": 2, "begin": -3, "end": -1}])
 def test_slice_axis(kwargs):
     _assert_same("slice_axis", kwargs, [X4])
 

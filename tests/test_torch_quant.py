@@ -326,3 +326,109 @@ def test_quant_wrappers_on_cpu_count_nothing():
     ck.dequant_rows(_t(q), _t(s))
     assert ck.launch_counts()["qfc_matmul"] == 0
     assert ck.launch_counts()["dequant_rows"] == 0
+
+
+# ------------------------------------- quantized graphs under compute_dtype
+#: compute dtype -> (torch dtype, jax dtype, mantissa bits)
+HALF = {"bfloat16": (torch.bfloat16, jnp.bfloat16, 7),
+        "float16": (torch.float16, jnp.float16, 10)}
+
+
+def _half_ulps(a, b, bits):
+    """Largest |a - b| in ulps of a type with ``bits`` mantissa bits at
+    the larger magnitude (at least 2^-14's)."""
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), 2.0 ** -14)
+    return float((np.abs(a - b) / 2.0 ** (np.floor(np.log2(mag)) -
+                                          bits)).max())
+
+
+@pytest.mark.parametrize("half", list(HALF))
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(8, 64, 32), (5, 13, 7), (3, 300, 100)])
+def test_qfc_matmul_plain_half_matches_pallas(m, k, n, dtype, half):
+    """Row 16's 16-bit instances: x read in bfloat16 or float16 (widened
+    exactly), the product summed in float32 and returned float32, as the
+    Pallas kernel's output is float32 whatever x's type."""
+    tdt, jdt, _ = HALF[half]
+    x = np.random.RandomState(1).randn(m, k).astype(np.float32)
+    q, s = _quantized(n, k, dtype)
+    jx = jnp.asarray(x).astype(jdt)
+    pallas = jq._pl_qfc_matmul(jx, jnp.asarray(q), jnp.asarray(s))
+    assert pallas.dtype == jnp.float32
+    tx = _t(x).to(tdt)
+    got = ck.qfc_matmul_plain(tx, _t(q), _t(s))
+    assert got.dtype == torch.float32
+    _close(pallas, got)
+    assert torch.equal(ck.qfc_matmul(tx, _t(q), _t(s)), got)   # CPU: plain
+
+
+@pytest.mark.parametrize("half", list(HALF))
+def test_quantized_ops_half_match_jax_pallas_variants(half):
+    """Both quantized ops on 16-bit data, scale and bias (as the executor
+    hands them under compute_dtype) through the JAX package's Pallas
+    variants and the port's plain forward and ``"cuda"`` variant on CPU
+    tensors: outputs in the data's type. The dense op within one ulp of
+    each value (float32 sums in another order, then one rounding); the
+    convolution, which both run in the data's type through their
+    library, within two ulps of the output's largest magnitude (the
+    libraries accumulate in their own orders, and the JAX package rounds
+    the convolution before it adds the bias)."""
+    from mxnet_tpu.ops.registry import get_op as jax_op
+    tdt, jdt, bits = HALF[half]
+    for name, kw, ins in _op_cases("int8"):
+        jop, top = jax_op(name), mxt.ops.get_op(name)
+        jins = [jnp.asarray(a).astype(jdt) if a.dtype == np.float32
+                else jnp.asarray(a) for a in ins]
+        tins = [_t(a).to(tdt) if a.dtype == np.float32 else _t(a)
+                for a in ins]
+        (ref,), _ = jop.variants["pallas"]["fn"](jop.normalize_attrs(kw),
+                                                 jins, [], False, None)
+        tattrs = top.normalize_attrs(kw)
+        (plain,), _ = top.forward(tattrs, tins, [], False, None)
+        (cuda_fn_out,), _ = top.variants["cuda"]["fn"](tattrs, tins, [],
+                                                       False, None)
+        assert ref.dtype == jdt
+        want = np.asarray(ref.astype(jnp.float32))
+        for got in (plain, cuda_fn_out):
+            assert got.dtype == tdt, name
+            if name == "QuantizedFullyConnected":
+                assert _half_ulps(want, got.float().numpy(), bits) <= 1
+            else:
+                ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - bits)
+                assert np.abs(want - got.float().numpy()).max() <= 2 * ulp
+
+
+@pytest.mark.parametrize("half", list(HALF))
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_module_under_compute_dtype_matches_jax(jax_tier, dtype,
+                                                          half):
+    """``Module(quantize_symbol(...), compute_dtype=...)``, the route to
+    row 16's 16-bit instances: the convnet's probabilities in the compute
+    dtype, within a few of its ulps (2.56 at 1, as ``test_torch_bf16.py``
+    holds a ResNet) of the JAX package's in both of its tiers. An fp8
+    weight is widened to the compute dtype by both executors (exactly)."""
+    tdt, jdt, bits = HALF[half]
+    shape = (4, 3, 8, 8)
+    X = np.random.RandomState(2).rand(*shape).astype(np.float32)
+    outs = []
+    for lib, sym_lib, qmod, ctx, cd in (
+            (mx, mx, jq, mx.cpu(), jdt), (mxt, mxt, tq, CPU, half)):
+        sym = _convnet_symbol(sym_lib)
+        params = _params(sym, shape)
+        qsym, qargs = qmod.quantize_symbol(
+            sym, {k: lib.nd.array(v) for k, v in params.items()}
+            if lib is mx else params, dtype=dtype)
+        mod = lib.mod.Module(qsym, context=ctx, compute_dtype=cd)
+        mod.bind([("data", shape)], [("softmax_label", (4,))],
+                 for_training=False)
+        mod.init_params(initializer=None, arg_params=qargs, aux_params={},
+                        allow_missing=False)
+        mod.forward(lib.io.DataBatch([mx.nd.array(X) if lib is mx else X],
+                                     []), is_train=False)
+        out = mod.get_outputs()[0]
+        outs.append(np.asarray(out.asnumpy(), np.float32))
+        if lib is mxt:
+            assert out.astorch().dtype == tdt
+    np.testing.assert_allclose(outs[1], outs[0], atol=2.56 * 2.0 ** -bits)
+    assert outs[1].argmax(1).tolist() == outs[0].argmax(1).tolist()

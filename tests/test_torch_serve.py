@@ -580,8 +580,15 @@ def test_what_is_not_ported_raises():
         mx.serve.serve("model.mxp", start=False)
     with pytest.raises(MXNetError, match="predict.py"):
         mx.serve.PredictorEngine("m", "model.mxp")
-    with pytest.raises(MXNetError, match="later slice"):
-        _serve(_mlp("np2"), ladder=[1], compute_dtype="float16")
+    # float16 serves now (the float16 slice); a type with no mixed
+    # precision still raises, naming the two that are ported
+    x = np.random.RandomState(2).rand(1, FEATS).astype(np.float32)
+    f16 = _serve(_mlp("np2"), ladder=[1], compute_dtype="float16")
+    out = f16.engine().forward(1, {"data": x})[0]
+    assert out.astorch().dtype == torch.float16
+    assert np.isfinite(out.asnumpy()).all()
+    with pytest.raises(MXNetError, match="bfloat16 or float16"):
+        _serve(_mlp("np4"), ladder=[1], compute_dtype="int4")
     with pytest.raises(MXNetError, match="bound"):
         mx.serve.serve(mx.mod.Module(_mlp("np3"), context=CPU), start=False)
 
