@@ -8,7 +8,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all sixteen in parallel; twelve of them hold a
+   ``nvcc`` per source, all sixteen in parallel; the flash-attention
+   source holds the normalized forward and ring attention's partial
+   mode; thirteen kernels hold a
    float32, a bfloat16 and a float16 instance, and the dequant-fused
    matmul takes float32, bfloat16 and float16 x), print the build
    seconds,
@@ -262,6 +264,28 @@ bfloat16 phase functions given the dtype:
 
 The profiles (phases 27, 34, 37) run in bfloat16 only.
 
+Then sequence parallelism (``fit(spmd=True, mesh=MeshConfig(seq=4))``,
+ring attention over ``[gpu(0)] * 4``; phase 2 also holds ring
+attention's partial flash kernel, each instance, against its plain
+version at the shard shapes (2, 8, 1024, 64): non-causal, the causal
+diagonal, a past shard, a future shard (rows that see no key), Tq != Tk):
+
+46. (run after 45) the bench LM at T = 4096, batch 2, through the ring
+   fit and the unsharded fit from the same numpy-seeded parameters and
+   batches, 4 SGD steps each, TF32 off: tokens/s, p50/p99 step ms, peak
+   memory and the MFU readings of each, then 2 profiled steps of each
+   (device busy, time by group, the top kernels); exactly 8 x 10 = 80
+   ``flash_attention_partial`` launches a step (none for a causal ring's
+   wholly future shards) and no ``flash_attention``; the per-step losses
+   within RING_LOSS_TOL and every parameter within RING_WEIGHT_TOL of the
+   unsharded fit's;
+47. one layer's attention at (2, 8, 4096, 64): forward and forward +
+   backward of the ring against the unsharded flash attention;
+48. phase 46 in bfloat16 and in float16 at 2 layers, beside the unsharded
+   fit in the same type and in float32: only the 16-bit partial instance
+   launches (2 x 10 a step), every parameter within ``BF16_SPREAD`` times
+   the unsharded 16-bit-vs-float32 distance plus one ulp.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
@@ -275,7 +299,8 @@ bfloat16, the decode path's four ``*_bf16`` instances while serving the
 LM in bfloat16 (phase 32), the LM-training path's four ``*_bf16``
 instances while fitting the LM in bfloat16 (phase 35), the ``*_f16``
 instances in phases 38, 40, 42 and 44, the dequant-fused matmul's
-16-bit instances in phase 41, the user kernels
+16-bit instances in phase 41, the partial flash kernel's three
+instances in the ring fits of phases 46 and 48, the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
 (the relu_user fit; their source is this script) — max abs error against
 the plain version, kernel /
@@ -313,7 +338,8 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "embedding_bf16": 0.0, "layernorm_bf16": 1.0, "bias_gelu_bf16": 1.0,
        "decode_attention_bf16": 2e-5, "layernorm_bwd_dx_bf16": 1.0,
        "layernorm_bwd_dparams_bf16": 1.0, "bias_gelu_dx_bf16": 1.0,
-       "flash_attention_bf16": 1.0, "qfc_matmul_bf16": 1e-5}
+       "flash_attention_bf16": 1.0, "qfc_matmul_bf16": 1e-5,
+       "flash_attention_partial": 2e-5, "flash_attention_partial_bf16": 2e-5}
 # the float16 instances: the bfloat16 instances' limits, in float16 ulps
 # where those are in ulps
 TOL.update({k.replace("_bf16", "_f16"): v for k, v in TOL.items()
@@ -334,6 +360,9 @@ TOL.update({k.replace("_bf16", "_f16"): v for k, v in TOL.items()
 # versions on the same values (float32 arithmetic in another order can
 # move a rounding), dgamma / dbeta (float32 sums over 8192 rows) within
 # one beyond 1e-4
+# flash_attention_partial (every instance): acc, m and l within 2e-5 of
+# each array's largest magnitude (float32 sums in another order), the
+# rows that see no key exactly -inf / 0 / 0 as the plain version's
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
@@ -365,6 +394,8 @@ REPLACES = {
     "layernorm_bwd_dparams_bf16": "mxnet_tpu/ops/pallas_kernels.py:612",
     "bias_gelu_dx_bf16": "mxnet_tpu/ops/pallas_kernels.py:751",
     "flash_attention_bf16": "mxnet_tpu/rtc.py:301",
+    "flash_attention_partial": "mxnet_tpu/rtc.py:301",
+    "flash_attention_partial_bf16": "mxnet_tpu/rtc.py:301",
     "qfc_matmul_bf16": "mxnet_tpu/ops/quant.py:151",
     "rtc_axpb": "mxnet_tpu/rtc.py:41",
     "relu_user": "mxnet_tpu/rtc.py:101",
@@ -428,6 +459,20 @@ LM_BF16_PER_STEP = {
     "bias_gelu_bf16": N_LAYER, "bias_gelu_dx_bf16": N_LAYER,
     "flash_attention_bf16": N_LAYER, "softmax_bf16": 1,
     "softmax_ce_bwd_bf16": 1}
+#: the sequence-parallel phases (46-48): the bench LM at T = 4096, batch 2
+#: (8192 tokens a batch, as the LM cell's), over MeshConfig(seq=4) on
+#: [gpu(0)] * 4; a causal ring of 4 launches the partial kernel 10 times a
+#: layer (no launch for a wholly future shard)
+RING_SEQ, RING_BATCH, RING_SHARDS, RING_STEPS = 4096, 2, 4, 4
+RING_HALF_LAYERS = 2
+RING_PER_LAYER = RING_SHARDS * (RING_SHARDS + 1) // 2
+#: ring fit vs unsharded fit on the card, TF32 off: per-step loss and every
+#: parameter after RING_STEPS SGD steps. Both compute the same attention;
+#: the ring merges four shards' online softmax where the flash kernel runs
+#: one over all 4096 keys, and its backward recomputes sixteen blocks where
+#: the unsharded one recomputes the whole (T, T) product, so float32 sums
+#: run in other orders: the LM parity phase's card-vs-CPU limits
+RING_LOSS_TOL, RING_WEIGHT_TOL = 1e-4, 1e-5
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -681,6 +726,7 @@ def phase_kernels(mx, ck):
         calls.update(_bf16_decode_kernels(ck, rs, t, rec, f32, half))
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
+    calls.update(_ring_kernels(ck, rs, t, rec))
     for half in HALF_SFX:
         calls.update(_lm_bf16_kernels(ck, rs, t, rec, half))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
@@ -961,6 +1007,87 @@ def _lm_kernels(ck, rs, t, rec):
             "ln_bwd_dparams": lambda: ck.layernorm_bwd_dparams(x, ct, m, r),
             "bias_gelu_dx": lambda: ck.bias_gelu_dx(h, hb, hct),
             "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
+
+
+def _partial_err(got, want):
+    """(largest |got - want| over the finite values of acc, m and l, the
+    same relative to each array's largest magnitude): inf unless the rows
+    that see no key are -inf / 0 / 0 in both."""
+    import torch
+    dead = torch.isneginf(want[1])
+    if not (torch.equal(torch.isneginf(got[1]), dead)
+            and not got[2][dead].any() and not got[0][dead].any()):
+        return float("inf"), float("inf")
+    worst, rel = 0.0, 0.0
+    for a, b in ((got[0], want[0]), (got[1][~dead], want[1][~dead]),
+                 (got[2], want[2])):
+        if b.numel():
+            e = float((a - b).abs().max())
+            worst = max(worst, e)
+            rel = max(rel, e / max(float(b.abs().max()), 1.0))
+    return worst, rel
+
+
+def _ring_kernels(ck, rs, t, rec):
+    """Ring attention's partial flash kernel, each instance (float32,
+    bfloat16, float16), at the sequence-parallel LM's shard shapes (2, 8,
+    1024, 64): non-causal, the causal diagonal (q_off = k_off), a causal
+    past shard (q_off = k_off + 1024), a future shard (every row sees no
+    key), Tq != Tk; timed on the past shard, the block most ring steps
+    launch (6 of a layer's 10), the diagonal's time printed beside. Fills
+    ``rec``; returns the timed calls."""
+    import numpy as np
+    import torch
+    Dh, Ts = D // N_HEAD, RING_SEQ // RING_SHARDS
+    cases = [(Ts, Ts, 0, 0, False), (Ts, Ts, Ts, Ts, True),
+             (Ts, Ts, 2 * Ts, Ts, True), (Ts, Ts, 0, Ts, True),
+             (Ts, Ts // 2, 3 * Ts // 2, Ts, True),
+             (200, 1000, 900, 0, True)]
+    calls = {}
+    for dtype in ("float32",) + tuple(HALF_SFX):
+        dt = getattr(torch, dtype)
+        name = "flash_attention_partial" + (
+            "" if dtype == "float32" else "_" + HALF_SFX[dtype])
+        worst, rel = 0.0, 0.0
+        for tq, tk, q_off, k_off, causal in cases:
+            q = t(rs.randn(RING_BATCH, N_HEAD, tq, Dh).astype(np.float32), dt)
+            k, v = (t(rs.randn(RING_BATCH, N_HEAD, tk, Dh).astype(
+                np.float32), dt) for _ in range(2))
+            e = _partial_err(
+                ck.flash_attention_partial(q, k, v, q_off, k_off, causal),
+                ck.flash_attention_partial_plain(q, k, v, q_off, k_off,
+                                                 causal))
+            worst, rel = max(worst, e[0]), max(rel, e[1])
+        q, k, v = (t(rs.randn(RING_BATCH, N_HEAD, Ts, Dh).astype(np.float32),
+                     dt) for _ in range(3))
+        past = (q, k, v, 2 * Ts, Ts, True)
+        flops = 4 * RING_BATCH * N_HEAD * Ts * Ts * Dh
+        # the 16-bit instances at the 16-bit peak, as row 14's
+        peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
+        diag = (q, k, v, Ts, Ts, True)
+        nbytes = 3 * q.numel() * q.element_size() + q.numel() * 4 + \
+            2 * RING_BATCH * N_HEAD * Ts * 4
+        rec[name] = dict(
+            max_abs_err=worst, rel_err=rel,
+            ms=_timed(lambda: ck.flash_attention_partial(*past), reps=50),
+            plain_ms=_timed(lambda: ck.flash_attention_partial_plain(*past),
+                            reps=20, warm=3),
+            library_ms=None,    # no one PyTorch call returns (acc, m, l)
+            bound=_bound_ms(nbytes, flops, peak))
+        diag_ms = _timed(lambda: ck.flash_attention_partial(*diag), reps=50)
+        print(f"kernels: {name} at ({RING_BATCH}, {N_HEAD}, {Ts}, {Dh}) "
+              f"shards: past shard timed (bound {rec[name]['bound'][0]:.6f}"
+              f" ms); the diagonal {diag_ms:.5f} ms (bound "
+              f"{_bound_ms(nbytes, flops / 2, peak)[0]:.6f} ms: half the "
+              "pairs); "
+              "library_ms None: no one PyTorch call returns the "
+              "unnormalized (acc, m, l)" + (
+                  "" if dtype == "float32" else
+                  f"; its operations at the float32 CUDA-core rate it "
+                  f"computes in would take {flops / F32_FLOPS_PER_S * 1e3:.6f}"
+                  " ms"))
+        calls[name] = lambda past=past: ck.flash_attention_partial(*past)
+    return calls
 
 
 def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
@@ -1916,14 +2043,14 @@ def phase_train(mx, ck):
 
 
 def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
-               **fit_kw):
+               on_batch=None, **fit_kw):
     """Fit the bound, initialized ``mod`` over ``it`` on the card for one
     epoch with telemetry on: prints items/s and p50/p99 step ms without
     the first batch, peak device memory, the MFU readings, launches per
     step and the train metric; requires a finite loss and the ``watch``
     parameters moved. ``into``, a dict, takes the rate, the p50 / p99
-    step ms and the peak GiB. Returns (launches of the fit, launches per
-    step)."""
+    step ms and the peak GiB; ``on_batch`` runs after each batch's end
+    stamp. Returns (launches of the fit, launches per step)."""
     import numpy as np
     import torch
     args, _ = mod.get_params()
@@ -1937,7 +2064,8 @@ def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
     t0 = time.perf_counter()
     with _telemetry(mx):
         mod.fit(fed, num_epoch=1, eval_metric=metric,
-                batch_end_callback=step_end, **fit_kw)
+                batch_end_callback=[step_end] + ([on_batch] if on_batch
+                                                 else []), **fit_kw)
     counts = ck.launch_counts()
     steps = np.diff(stamps) * 1e3          # the first batch excluded
     batches = (np.subtract(stamps, fed.stamps) * 1e3)[1:]
@@ -2171,6 +2299,193 @@ def phase_lm_train(mx, ck):
     if per_step != want:
         raise AssertionError(f"LM launches per step {per_step}, want {want}")
     return counts, mod, it
+
+
+def _ring_start(n_layer):
+    """The sequence-parallel phases' LM symbol at T = 4096 and its
+    numpy-seeded parameters (the LM parity phase's recipe)."""
+    import numpy as np
+    from mxnet_tpu_torch.models import transformer as tfm
+    sym = tfm.get_symbol(vocab_size=V, d_model=D, n_layer=n_layer,
+                         n_head=N_HEAD, seq_len=RING_SEQ)
+    shapes, _, _ = sym.infer_shape(data=(RING_BATCH, RING_SEQ),
+                                   softmax_label=(RING_BATCH * RING_SEQ,))
+    rs = np.random.RandomState(SEED + 6)
+    params = {n: ((1 + 0.1 * rs.randn(*s)) if n.endswith("gamma")
+                  else 0.02 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    return sym, params
+
+
+def _ring_fit(mx, ck, sym, params, label, ring, compute_dtype=None,
+              profile=False):
+    """One fit of RING_STEPS batches (the same seeded batches every time)
+    from ``params`` on the card: over ``[gpu(0)] * RING_SHARDS`` with
+    ``spmd=True, mesh=MeshConfig(seq=RING_SHARDS)`` when ``ring``, else
+    on ``gpu(0)`` alone; with ``profile``, then 2 steps under the
+    profiler. Returns (the fit's launches, launches per step, per-batch
+    losses, the parameters after, the rate and step ms of
+    ``_fit_phase``)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import MeshConfig
+    it = tfm.SyntheticLMIter(V, RING_BATCH, RING_SEQ, RING_STEPS,
+                             seed=SEED + 7)
+    ctx = [mx.gpu(0)] * (RING_SHARDS if ring else 1)
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
+    mod.bind(it.provide_data, it.provide_label, spmd=ring,
+             mesh=MeshConfig(seq=RING_SHARDS) if ring else None)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(params,
+                                                            mx.gpu(0)))
+    losses = []
+
+    def on_batch(param):
+        prob = mod.get_outputs()[0].astorch()
+        label_ids = param.locals["batch"].label[0].astorch().to(
+            prob.device).long()
+        picked = prob.float().gather(1, label_ids[:, None])
+        losses.append(float(-torch.log(picked + 1e-8).mean()))
+    into = {}
+    watch = ("lm_tok_embed_weight", "lm_l0_qkv_weight", "lm_ln_f_gamma")
+    counts, per_step = _fit_phase(mx, ck, mod, it, label,
+                                  RING_BATCH * RING_SEQ,
+                                  "tokens", watch, into=into,
+                                  on_batch=on_batch, optimizer="sgd",
+                                  optimizer_params=LM_SGD)
+    after = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    if profile:
+        phase_train_profile(mod, it, steps=2, label=label + " profile")
+    del mod
+    torch.cuda.empty_cache()
+    return counts, per_step, np.asarray(losses), after, into
+
+
+def _ring_launches(label, per_step, n_layer, sfx=""):
+    """The ring fit's launches per step: every LM kernel of the unsharded
+    step but the normalized flash kernel, and n_layer x 10 partial
+    kernels."""
+    want = dict(LM_PER_STEP, flash_attention=0,
+                flash_attention_partial=n_layer * RING_PER_LAYER)
+    for k in ("layernorm", "ln_bwd_dx", "ln_bwd_dparams"):
+        want[k] = 2 * n_layer + 1
+    for k in ("bias_gelu", "bias_gelu_dx"):
+        want[k] = n_layer
+    if sfx:
+        wrapper = {"ln_bwd_dx": "layernorm_bwd_dx",
+                   "ln_bwd_dparams": "layernorm_bwd_dparams"}
+        want = {wrapper.get(k, k) + sfx: v for k, v in want.items()}
+    want = {k: want.get(k, 0) for k in per_step}
+    print(f"{label}: flash_attention_partial{sfx} "
+          f"{per_step['flash_attention_partial' + sfx]:.1f} launches per "
+          f"step (want {n_layer} layers x {RING_PER_LAYER}), "
+          f"flash_attention{sfx} {per_step['flash_attention' + sfx]:.1f}")
+    if per_step != want:
+        raise AssertionError(f"{label}: launches per step {per_step}, "
+                             f"want {want}")
+
+
+def phase_ring_fit(mx, ck):
+    """The bench LM at T = 4096, batch 2, through fit(spmd=True,
+    mesh=MeshConfig(seq=4)) over [gpu(0)] * 4 and through the unsharded
+    fit, from the same parameters and batches, TF32 off: tokens/s and
+    p50/p99 of each, the ring's exact launches, per-step losses and
+    every parameter within RING_LOSS_TOL / RING_WEIGHT_TOL. Returns the
+    ring fit's launches."""
+    import numpy as np
+    print(_tf32(False) + " (sequence-parallel fit, ring vs unsharded)")
+    sym, params = _ring_start(N_LAYER)
+    print(f"ring fit: V={V} d_model={D} {N_LAYER} layers {N_HEAD} heads "
+          f"T={RING_SEQ} batch {RING_BATCH}, seq={RING_SHARDS} over "
+          f"[gpu(0)] * {RING_SHARDS}, {RING_STEPS} SGD steps")
+    runs = {ring: _ring_fit(mx, ck, sym, params,
+                            "ring fit " + ("ring" if ring else "unsharded"),
+                            ring, profile=True) for ring in (False, True)}
+    _ring_launches("ring fit ring", runs[True][1], N_LAYER)
+    (_, _, loss0, p0, r0), (counts, _, loss1, p1, r1) = runs[False], \
+        runs[True]
+    loss_err = float(np.abs(loss1 - loss0).max())
+    worst = max((float(np.abs(p1[k] - p0[k]).max()), k) for k in p0)
+    print(f"ring fit: losses unsharded {loss0.tolist()} ring "
+          f"{loss1.tolist()}: max |diff| {loss_err:.3g} (limit "
+          f"{RING_LOSS_TOL}); worst parameter {worst[1]}: |ring - "
+          f"unsharded| = {worst[0]:.3g} (limit {RING_WEIGHT_TOL}); "
+          f"tokens/s ring {r1['rate']:.1f} unsharded {r0['rate']:.1f} "
+          f"({r1['rate'] / r0['rate']:.3f}x)")
+    if not (loss_err <= RING_LOSS_TOL and worst[0] <= RING_WEIGHT_TOL):
+        raise AssertionError("the ring fit and the unsharded fit disagree")
+    return counts
+
+
+def phase_ring_half(mx, ck, half):
+    """The sequence-parallel fit in ``half`` (bfloat16 or float16) at
+    RING_HALF_LAYERS layers, beside the unsharded fit in ``half`` and in
+    float32 from the same parameters: the ring launches only the 16-bit
+    partial instance (layers x 10 a step), and every parameter lies
+    within BF16_SPREAD times the unsharded 16-bit fit's distance from the
+    float32 one (plus one 16-bit ulp of its largest magnitude). Returns
+    the ring fit's launches."""
+    import numpy as np
+    sfx = "_" + HALF_SFX[half]
+    sym, params = _ring_start(RING_HALF_LAYERS)
+    _, _, loss32, p32, _ = _ring_fit(
+        mx, ck, sym, params, f"ring {half} float32 unsharded", False)
+    _, _, loss0, p0, r0 = _ring_fit(mx, ck, sym, params,
+                                    f"ring {half} unsharded", False, half)
+    counts, per_step, loss1, p1, r1 = _ring_fit(
+        mx, ck, sym, params, f"ring {half} ring", True, half)
+    _ring_launches(f"ring {half}", per_step, RING_HALF_LAYERS, sfx)
+    bits = HALF_BITS[half][0]
+    worst = (-1.0, None)
+    for k, v in p0.items():
+        limit = BF16_SPREAD * float(np.abs(v - p32[k]).max()) + \
+            float(np.abs(v).max()) * 2.0 ** -bits
+        worst = max(worst, (float(np.abs(p1[k] - v).max()) / limit, k))
+    loss_err = float(np.abs(loss1 - loss0).max())
+    loss_spread = float(np.abs(loss0 - loss32).max())
+    print(f"ring {half}: losses unsharded {loss0.tolist()} ring "
+          f"{loss1.tolist()} float32 {loss32.tolist()}; worst parameter "
+          f"{worst[1]}: {worst[0]:.3g} of its limit ({BF16_SPREAD} x the "
+          f"unsharded {half}-vs-float32 distance + 1 ulp); loss |ring - "
+          f"unsharded| {loss_err:.3g} (limit {BF16_SPREAD} x "
+          f"{loss_spread:.3g} + 1e-4); tokens/s ring {r1['rate']:.1f} "
+          f"unsharded {r0['rate']:.1f}")
+    if not (worst[0] <= 1.0 and
+            loss_err <= BF16_SPREAD * loss_spread + 1e-4):
+        raise AssertionError(f"the {half} ring fit and the unsharded fit "
+                             "disagree")
+    return counts
+
+
+def phase_ring_layer(mx):
+    """One layer's attention at the ring fit's shapes (2, 8, 4096, 64),
+    causal, float32, TF32 off: forward and forward + backward of the
+    ring over [gpu(0)] * 4 (the partial kernels and their merges; the
+    plain ring's recompute) against the unsharded flash attention (the
+    flash kernel; the plain (T, T) recompute), CUDA events around
+    repeated calls."""
+    import torch
+    from mxnet_tpu_torch.parallel import (MeshConfig, build_mesh,
+                                          ring_attention_sharded)
+    from mxnet_tpu_torch.rtc import flash_attention_fn
+    gen = torch.Generator().manual_seed(SEED + 8)
+    qkv = [torch.randn(RING_BATCH, N_HEAD, RING_SEQ, D // N_HEAD,
+                       generator=gen).cuda().requires_grad_(True)
+           for _ in range(3)]
+    ct = torch.randn(qkv[0].shape, generator=gen).cuda()
+    mesh = build_mesh(MeshConfig(seq=RING_SHARDS),
+                      [mx.gpu(0)] * RING_SHARDS)
+    arms = {"ring": lambda: ring_attention_sharded(*qkv, mesh, causal=True),
+            "unsharded": lambda: flash_attention_fn(*qkv, True)}
+    for name, fwd in arms.items():
+        with torch.no_grad():
+            f_ms = _timed(fwd, reps=10, warm=2)
+        fb_ms = _timed(lambda: torch.autograd.grad(fwd(), qkv, ct), reps=5,
+                       warm=1)
+        print(f"ring layer: {name} attention at {tuple(qkv[0].shape)} "
+              f"causal: forward {f_ms:.3f} ms, forward + backward "
+              f"{fb_ms:.3f} ms (backward {fb_ms - f_ms:.3f} ms)")
 
 
 def _lm_step(mx, sym, params, ctx, batch, compute_dtype=None):
@@ -4546,6 +4861,14 @@ def main():
     phase_lm_bf16_parity(mx, "float16")
     print(f"chip_smoke: the float16 LM training phases took "
           f"{time.perf_counter() - t_lm:.1f} s")
+    torch.cuda.empty_cache()
+    t_ring = time.perf_counter()
+    ring_counts = {"float32": phase_ring_fit(mx, ck)}
+    phase_ring_layer(mx)
+    for half in HALF_SFX:
+        ring_counts[half] = phase_ring_half(mx, ck, half)
+    print(f"chip_smoke: the sequence-parallel phases took "
+          f"{time.perf_counter() - t_ring:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
@@ -4566,6 +4889,10 @@ def main():
     launches.update({k: f16_lm_counts[k]
                      for k in _halved(BF16_LM_KERNELS, "float16")})
     launches.update(quant_half_counts)
+    for dtype, counts in ring_counts.items():
+        name = "flash_attention_partial" + (
+            "" if dtype == "float32" else "_" + HALF_SFX[dtype])
+        launches[name] = counts[name]
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

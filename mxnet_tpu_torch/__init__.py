@@ -6,7 +6,7 @@ JAX package. It keeps the JAX package's module names so each counterpart
 is easy to find. Its entry points run on the card (``gpu(0)`` is the
 default context) unless the caller passes ``mx.cpu()``.
 
-Eight slices are ported: the decode-serving path (the transformer LM
+The ported slices: the decode-serving path (the transformer LM
 of ``models.transformer`` served by ``serve.serve_decoder``, with
 chunked prefill, speculative decoding, the prefix store and the fp8 KV
 cache), the single-device training path (``mod.Module.fit`` over the
@@ -19,15 +19,18 @@ Conv -> BatchNorm -> ReLU triples fused) through both, ResNet-50 and the
 transformer LM in bfloat16 and float16 mixed precision (``compute_dtype``), and the user-extension
 surfaces: ``mx.rtc.Rtc`` and ``mx.rtc.register_cuda_op`` (the user's
 own CUDA kernels), ``mx.operator.CustomOp`` (a Python layer) and
-``mx.autograd`` (imperative gradients). The TPU kernels on those paths
-are rewritten as CUDA C++ for sm_90a (``ops/cuda_kernels.py``, sources
-under ``csrc/``).
+``mx.autograd`` (imperative gradients), and sequence-parallel LM
+training (``fit(spmd=True, mesh=parallel.MeshConfig(seq=n))``: ring
+attention over a mesh of one device's contexts, ``parallel/``). The TPU
+kernels on those paths are rewritten as CUDA C++ for sm_90a
+(``ops/cuda_kernels.py``, sources under ``csrc/``).
 """
 from . import base
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
 from . import ops  # populates the op registry (before nd/sym autogen)
 from . import rtc  # registers attention / attention_decode
+from . import parallel
 from . import operator  # registers Custom
 from . import ndarray
 from . import ndarray as nd

@@ -41,9 +41,22 @@
 // and key tiles are masked in the kernel (keys past T get -inf scores,
 // queries past T are not written). Dh is a template parameter, 64 or
 // 128, and so is the element type.
-// A later partial mode (ring attention's unnormalized acc, m, l) emits
-// the registers this kernel holds at the end of its key loop instead of
-// acc / l, with the shards' sequence offsets added to the causal test.
+//
+// Partial mode (template flag PARTIAL; the mx_flash_attention_partial_*
+// entry points). Replaces: mxnet_tpu/rtc.py _flash_kernel(partial=True),
+// launched by _flash_call from flash_attention_partial, the local block
+// of ring attention (mxnet_tpu/parallel/ring_attention.py
+// _ring_attention_flash). q is one query shard (B*H, Tq, Dh) and k, v the
+// K/V shard the ring position holds (B*H, Tk, Dh), Tq and Tk free; q_off
+// and k_off are the shards' absolute sequence offsets, and the causal test
+// is q_off + t >= k_off + key. The key loop is the same; at its end the
+// kernel writes the registers it holds instead of acc / l: the
+// unnormalized accumulator acc (B*H, Tq, Dh) and the running max m and
+// normalizer l (B*H, Tq), all float32, whatever the element type. Key tiles
+// wholly above the diagonal are not visited, so a query row that sees no
+// key keeps the initial m = -inf, l = 0, acc = 0, as the TPU kernel's
+// scratch does. Bound: operations, as above, at the block's share of the
+// work (half a block on the diagonal, none above it).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -103,11 +116,23 @@ __device__ __forceinline__ void stage(const E* __restrict__ src, int r0,
   }
 }
 
-template <typename E, int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
-          const E* __restrict__ v, E* __restrict__ out, int T, int causal,
-          float scale, int n_qt) {
+// One launch's operands: q (bh, Tq, DH), k and v (bh, Tk, DH); out (bh,
+// Tq, DH) in E for the normalized mode, acc (bh, Tq, DH), m and l (bh, Tq)
+// float32 for the partial mode (the other outputs are null).
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  float* acc;
+  float* m;
+  float* l;
+  int bh, Tq, Tk, q_off, k_off, causal;
+  float scale;
+};
+
+template <typename E, int DH, bool PARTIAL>
+__global__ void __launch_bounds__(kThreads) flash_fwd(const Args op, int n_qt) {
   static_assert(kBq == kBk, "stage() walks kBk rows for Q tiles too");
   constexpr int kLd = DH + 4;    // padded row of the Q and K tiles
   constexpr int kNv = DH / 64;   // float4 groups of the accumulator
@@ -121,13 +146,18 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
   const int tx = t & 15;   // keys tx + 16 i of S; columns of the output
   const int ty = t >> 4;   // query rows 4 ty .. 4 ty + 3
   const int bh = blockIdx.y;
+  const int Tq = op.Tq, Tk = op.Tk, causal = op.causal;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBq;
-  const int64_t base = static_cast<int64_t>(bh) * T * DH;
-  const E* qb = q + base;
-  const E* kb = k + base;
-  const E* vb = v + base;
+  const int64_t q_base = static_cast<int64_t>(bh) * Tq * DH;
+  const int64_t k_base = static_cast<int64_t>(bh) * Tk * DH;
+  const E* qb = static_cast<const E*>(op.q) + q_base;
+  const E* kb = static_cast<const E*>(op.k) + k_base;
+  const E* vb = static_cast<const E*>(op.v) + k_base;
+  // the causal test in shard-local positions: key kp is live for query qp
+  // when k_off + kp <= q_off + qp, i.e. kp <= qp + shift
+  const int shift = op.q_off - op.k_off;
 
-  stage<E, DH>(qb, q0, T, scale, qs, kLd);
+  stage<E, DH>(qb, q0, Tq, op.scale, qs, kLd);
 
   float m[4], l[4], acc[4][kNv * 4];
 #pragma unroll
@@ -138,11 +168,12 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
     for (int e = 0; e < kNv * 4; ++e) acc[j][e] = 0.0f;
   }
 
-  const int k_end = causal ? min(T, q0 + kBq) : T;
+  // key tiles wholly above the tile's last query row are not visited
+  const int k_end = causal ? min(Tk, q0 + kBq + shift) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += kBk) {
     __syncthreads();  // the previous tile is consumed (and qs is ready)
-    stage<E, DH>(kb, k0, T, 1.0f, ks, kLd);
-    stage<E, DH>(vb, k0, T, 1.0f, vs, DH);
+    stage<E, DH>(kb, k0, Tk, 1.0f, ks, kLd);
+    stage<E, DH>(vb, k0, Tk, 1.0f, vs, DH);
     __syncthreads();
 
     // S = (q * scale) . k for 4 rows x 4 keys
@@ -179,7 +210,7 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kp = k0 + tx + 16 * i;
-        const bool live = kp < T && (!causal || kp <= qp);
+        const bool live = kp < Tk && (!causal || kp <= qp + shift);
         s[j][i] = live ? s[j][i] : -INFINITY;
         mb = fmaxf(mb, s[j][i]);
       }
@@ -205,7 +236,7 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
     __syncthreads();
 
     // acc += P . V over the tile's keys
-    const int kn = min(kBk, T - k0);
+    const int kn = min(kBk, Tk - k0);
 #pragma unroll 4
     for (int c = 0; c < kn; ++c) {
       const float4 p =
@@ -226,46 +257,76 @@ flash_fwd(const E* __restrict__ q, const E* __restrict__ k,
     }
   }
 
+  // emit: acc / l in E, or (partial) the registers as they stand
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int qp = q0 + ty * 4 + j;
-    if (qp >= T) continue;
-    const float lj = fmaxf(l[j], 1e-30f);
-    E* orow = out + base + static_cast<int64_t>(qp) * DH;
+    if (qp >= Tq) continue;
+    const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
+    if (PARTIAL) {
+      float* arow = op.acc + row * DH;
 #pragma unroll
-    for (int g = 0; g < kNv; ++g) {
-      float o[4];
+      for (int g = 0; g < kNv; ++g)  // 4 values at tx * 4
+        *reinterpret_cast<float4*>(arow + g * 64 + tx * 4) =
+            make_float4(acc[j][g * 4], acc[j][g * 4 + 1], acc[j][g * 4 + 2],
+                        acc[j][g * 4 + 3]);
+      if (tx == 0) {  // the 16 lanes of a row hold the same m and l
+        op.m[row] = m[j];
+        op.l[row] = l[j];
+      }
+    } else {
+      const float lj = fmaxf(l[j], 1e-30f);
+      E* orow = static_cast<E*>(op.out) + row * DH;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = acc[j][g * 4 + e] / lj;
-      Io<E, 4>::store(orow + g * 64, tx, o);  // 4 values at tx * 4
+      for (int g = 0; g < kNv; ++g) {
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = acc[j][g * 4 + e] / lj;
+        Io<E, 4>::store(orow + g * 64, tx, o);  // 4 values at tx * 4
+      }
     }
   }
 }
 
-template <typename E, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int T_, int causal, float scale, cudaStream_t st) {
+template <typename E, int DH, bool PARTIAL>
+int launch(const Args& a, cudaStream_t st) {
   constexpr int bytes = smem_floats<DH>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<E, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd<E, DH, PARTIAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (T_ + kBq - 1) / kBq;
-  flash_fwd<E, DH><<<dim3(n_qt, bh), kThreads, bytes, st>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(out), T_, causal, scale,
-      n_qt);
+  const int n_qt = (a.Tq + kBq - 1) / kBq;
+  flash_fwd<E, DH, PARTIAL><<<dim3(n_qt, a.bh), kThreads, bytes, st>>>(
+      a, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int T_, int dh, int causal, float scale, void* stream) {
-  if (bh == 0 || T_ == 0) return 0;
+template <typename E, bool PARTIAL>
+int dispatch(const Args& a, int dh, void* stream) {
+  if (a.bh == 0 || a.Tq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64) return launch<E, 64>(q, k, v, out, bh, T_, causal, scale, st);
-  if (dh == 128)
-    return launch<E, 128>(q, k, v, out, bh, T_, causal, scale, st);
+  if (dh == 64) return launch<E, 64, PARTIAL>(a, st);
+  if (dh == 128) return launch<E, 128, PARTIAL>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename E>
+int normalized(const void* q, const void* k, const void* v, void* out,
+               int bh, int T, int dh, int causal, float scale,
+               void* stream) {
+  const Args a{q, k, v, out, nullptr, nullptr, nullptr, bh, T, T, 0, 0,
+               causal, scale};
+  return dispatch<E, false>(a, dh, stream);
+}
+
+template <typename E>
+int partial(const void* q, const void* k, const void* v, void* acc, void* m,
+            void* l, int bh, int Tq, int Tk, int dh, int q_off, int k_off,
+            int causal, float scale, void* stream) {
+  const Args a{q, k, v, nullptr, static_cast<float*>(acc),
+               static_cast<float*>(m), static_cast<float*>(l), bh, Tq, Tk,
+               q_off, k_off, causal, scale};
+  return dispatch<E, true>(a, dh, stream);
 }
 
 }  // namespace
@@ -277,7 +338,7 @@ extern "C" int mx_flash_attention_f32(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int T, int dh, int causal, float scale,
                                       void* stream) {
-  return dispatch<float>(q, k, v, out, bh, T, dh, causal, scale, stream);
+  return normalized<float>(q, k, v, out, bh, T, dh, causal, scale, stream);
 }
 
 // The same over bfloat16 q, k, v and out.
@@ -285,8 +346,8 @@ extern "C" int mx_flash_attention_bf16(const void* q, const void* k,
                                        const void* v, void* out, int bh,
                                        int T, int dh, int causal,
                                        float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, bh, T, dh, causal, scale,
-                                 stream);
+  return normalized<__nv_bfloat16>(q, k, v, out, bh, T, dh, causal, scale,
+                                   stream);
 }
 
 // The same over float16 q, k, v and out.
@@ -294,5 +355,34 @@ extern "C" int mx_flash_attention_f16(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int T, int dh, int causal, float scale,
                                       void* stream) {
-  return dispatch<__half>(q, k, v, out, bh, T, dh, causal, scale, stream);
+  return normalized<__half>(q, k, v, out, bh, T, dh, causal, scale, stream);
+}
+
+// Partial mode: q (bh, Tq, dh), k and v (bh, Tk, dh) float32, contiguous,
+// 16-byte aligned, one device; acc (bh, Tq, dh), m and l (bh, Tq) float32
+// out. dh must be 64 or 128 and bh <= 65535. Returns cudaGetLastError().
+extern "C" int mx_flash_attention_partial_f32(
+    const void* q, const void* k, const void* v, void* acc, void* m, void* l,
+    int bh, int Tq, int Tk, int dh, int q_off, int k_off, int causal,
+    float scale, void* stream) {
+  return partial<float>(q, k, v, acc, m, l, bh, Tq, Tk, dh, q_off, k_off,
+                        causal, scale, stream);
+}
+
+// The same over bfloat16 q, k and v (acc, m and l float32).
+extern "C" int mx_flash_attention_partial_bf16(
+    const void* q, const void* k, const void* v, void* acc, void* m, void* l,
+    int bh, int Tq, int Tk, int dh, int q_off, int k_off, int causal,
+    float scale, void* stream) {
+  return partial<__nv_bfloat16>(q, k, v, acc, m, l, bh, Tq, Tk, dh, q_off,
+                                k_off, causal, scale, stream);
+}
+
+// The same over float16 q, k and v (acc, m and l float32).
+extern "C" int mx_flash_attention_partial_f16(
+    const void* q, const void* k, const void* v, void* acc, void* m, void* l,
+    int bh, int Tq, int Tk, int dh, int q_off, int k_off, int causal,
+    float scale, void* stream) {
+  return partial<__half>(q, k, v, acc, m, l, bh, Tq, Tk, dh, q_off, k_off,
+                         causal, scale, stream);
 }

@@ -52,6 +52,7 @@ import torch
 from .base import MXNetError
 from .ndarray import NDArray, to_torch_dtype
 from .ops.registry import dispatch
+from .parallel.spmd import plan_scope
 
 __all__ = ["Executor", "parse_compute_dtype", "cast_counts",
            "reset_cast_counts"]
@@ -128,12 +129,16 @@ class Executor:
     ``grad_req``: ``"write"``, ``"add"`` or ``"null"``, one for all or a
     dict / list per argument; an argument without an ``args_grad`` cell
     is not differentiated. ``compute_dtype``: None, or ``"bfloat16"`` or
-    ``"float16"`` for mixed precision (see the module docstring)."""
+    ``"float16"`` for mixed precision (see the module docstring).
+    ``spmd_plan``: the binding's ``parallel.SpmdPlan``, armed as the active
+    plan around every forward and backward (the ``attention`` ops read it
+    and lower to ring attention over its ``seq`` axis)."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None, compute_dtype=None):
+                 aux_states=None, compute_dtype=None, spmd_plan=None):
         self._symbol = symbol
         self._ctx = ctx
+        self._spmd_plan = spmd_plan
         self.compute_dtype = parse_compute_dtype(compute_dtype)
         self._label_names = _loss_label_names(symbol) \
             if self.compute_dtype is not None else set()
@@ -215,7 +220,8 @@ class Executor:
                 if req != "null":
                     leaves[name] = self.arg_dict[name].astorch().detach() \
                         .requires_grad_(True)
-        with torch.set_grad_enabled(bool(leaves)):
+        with torch.set_grad_enabled(bool(leaves)), \
+                plan_scope(self._spmd_plan):
             outs = self._run(bool(is_train), leaves)
         self.outputs = [NDArray(o.detach(), ctx=self._ctx) for o in outs]
         if leaves:
@@ -300,10 +306,11 @@ class Executor:
         pairs = [(o, h) for o, h in zip(outs, heads)
                  if h is not None and o.requires_grad]
         names = list(leaves)
-        grads = torch.autograd.grad(
-            [o for o, _ in pairs], [leaves[n] for n in names],
-            [h for _, h in pairs], allow_unused=True) if pairs \
-            else [None] * len(names)
+        with plan_scope(self._spmd_plan):
+            grads = torch.autograd.grad(
+                [o for o, _ in pairs], [leaves[n] for n in names],
+                [h for _, h in pairs], allow_unused=True) if pairs \
+                else [None] * len(names)
         self._recorded = None
         for name, g in zip(names, grads):
             cell = self.grad_dict[name]

@@ -7,8 +7,10 @@ callback hook points, the train metric logged at each epoch end, the
 epoch-end callbacks given the current parameters, and an optional
 ``score`` over ``eval_data``. The JAX package's arrangements around that
 loop are not ported yet, and ``fit`` refuses each of them by name:
-``spmd``, ``zero_stage``, ``steps_per_dispatch`` > 1, ``remat``,
+``zero_stage``, ``steps_per_dispatch`` > 1, ``remat``,
 ``health``, ``elastic``, ``checkpoint`` / ``resume`` and ``monitor``.
+``spmd`` and ``mesh`` are taken (the sequence-parallel path: see
+``module.Module``).
 
 Per-batch telemetry, as in the JAX package: with the span tracer enabled
 each batch is a ``module.fit.batch`` span (histogram
@@ -43,9 +45,8 @@ __all__ = ["BaseModule"]
 #: fit() options of the JAX package that the port does not take yet,
 #: each with the value that leaves it off
 _NOT_PORTED = {"monitor": None, "steps_per_dispatch": 1, "zero_stage": 0,
-               "spmd": False, "mesh": None, "checkpoint": None,
-               "resume": False, "elastic": False, "remat": "none",
-               "health": False}
+               "checkpoint": None, "resume": False, "elastic": False,
+               "remat": "none", "health": False}
 
 
 def _as_list(obj):
@@ -79,6 +80,15 @@ class BaseModule:
         self.forward(data_batch, is_train=True)
         self.backward()
 
+    def _keep_spmd(self, spmd, mesh, force_rebind):
+        """Keep fit's ``spmd`` / ``mesh`` for the bind. Only ``Module``
+        binds an spmd plan, so any other module refuses them rather than
+        train unsharded."""
+        if spmd or mesh is not None:
+            raise MXNetError(
+                f"{type(self).__name__}.fit(spmd=, mesh=): only Module binds"
+                " an spmd plan in the PyTorch package (ROADMAP.md A8)")
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", optimizer="sgd",
@@ -87,9 +97,12 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            **not_ported):
+            spmd=None, mesh=None, **not_ported):
         """Train for ``num_epoch`` epochs over ``train_data``. The
-        initializer defaults to ``Uniform(0.01)``."""
+        initializer defaults to ``Uniform(0.01)``. ``spmd`` (default
+        ``MXNET_SPMD``, else off) and ``mesh`` (a ``parallel.MeshConfig``)
+        are kept for the bind: see ``module.Module``; a module bound
+        otherwise raises unless ``force_rebind``."""
         from ..initializer import Uniform
         unknown = set(not_ported) - set(_NOT_PORTED)
         if unknown:
@@ -104,6 +117,7 @@ class BaseModule:
                              "the PyTorch package yet (ROADMAP.md)")
         if num_epoch is None:
             raise ValueError("fit() needs num_epoch")
+        self._keep_spmd(spmd, mesh, force_rebind)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)

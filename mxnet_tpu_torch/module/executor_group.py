@@ -1,4 +1,14 @@
-"""Executor group over ONE device (the port binds a single context).
+"""Executor group over ONE device.
+
+Without ``spmd`` the group binds a single context, as the reference's
+group binds one executor per device and the port has one device. With
+``spmd`` (the JAX package's ``executor_group.py:152-163``) it takes the
+whole context list, builds the binding's ``parallel.SpmdPlan`` over it
+(mesh from ``mesh_config``, else ``MXNET_MESH_*``, else a data axis over
+every context) and binds one executor on the first context with the
+plan; the contexts must name one device (``[mx.gpu(0)] * 4``), since
+every op but attention runs there unpartitioned. Sharding over distinct
+devices is the multi-GPU slice (``ROADMAP.md`` A8).
 
 Allocates the argument, gradient and aux cells of a bound symbol, shares
 parameter cells with a ``shared_group`` (the bucket ladder's leader), and
@@ -24,6 +34,7 @@ from ..base import MXNetError
 from ..executor import Executor, aux_dtypes
 from ..io import DataDesc
 from ..ndarray import NDArray, to_torch_dtype
+from ..parallel.spmd import SpmdPlan
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -32,9 +43,16 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, shared_group=None,
                  logger=logging, inputs_need_grad=False, grad_req="write",
-                 compute_dtype=None):
-        if len(contexts) != 1:
-            raise MXNetError(f"the port binds one device, got {contexts}")
+                 compute_dtype=None, spmd=False, mesh_config=None):
+        self._spmd_plan = None
+        if spmd:
+            self._spmd_plan = SpmdPlan(
+                SpmdPlan.build_mesh_for(contexts, mesh_config))
+        elif len(contexts) != 1:
+            raise MXNetError(
+                f"the port binds one device without spmd, got {contexts}: "
+                "bind a context list with spmd=True (one device named "
+                "several times), or see ROADMAP.md A8 for distinct devices")
         self.symbol = symbol
         self.compute_dtype = compute_dtype
         self.contexts = contexts
@@ -113,7 +131,8 @@ class DataParallelExecutorGroup:
                                     ctx=self.context)
         self.executor = Executor(self.symbol, self.context, args, grads,
                                  self.grad_req, aux,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype,
+                                 spmd_plan=self._spmd_plan)
         self.execs = [self.executor]
         self.param_arrays = [args[n] for n in self.param_names]
         self.grad_arrays = [grads.get(n) for n in self.param_names]

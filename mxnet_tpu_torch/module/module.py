@@ -10,6 +10,12 @@ update into one jitted step on a single device; PyTorch runs eagerly and
 there is no program to fuse, so the port keeps the updater path, which
 computes the same numbers.
 
+``spmd=True`` (``bind``, ``fit`` or ``MXNET_SPMD=1``) binds a context
+list as one ``parallel.SpmdPlan`` over the mesh ``mesh`` (a
+``parallel.MeshConfig``): with a ``seq`` axis the ``attention`` ops lower
+to ring attention, the rest of the graph runs on the first context, and
+the kvstore is dropped as in the JAX package.
+
 ``compute_dtype="bfloat16"`` or ``"float16"`` is the JAX package's mixed
 precision: the graph reads every floating parameter, input and aux state
 cast to the compute dtype (labels of loss heads excepted), while the bound cells — master
@@ -18,6 +24,7 @@ weights, gradients, optimizer states, moving statistics — stay float32.
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 
 from .. import optimizer as opt
@@ -27,10 +34,14 @@ from ..executor import parse_compute_dtype
 from ..initializer import Uniform
 from ..model import _create_kvstore, load_checkpoint
 from ..ndarray import NDArray
+from ..parallel.spmd import SpmdPlan
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
+
+_REBIND_SPMD = ("Module is already bound with another spmd plan than the one "
+                "asked for; pass force_rebind=True to re-bind")
 
 
 class Module(BaseModule):
@@ -68,6 +79,8 @@ class Module(BaseModule):
         self._optimizer = None
         self._updater = None
         self._preload_opt_states = None
+        self._spmd = None               # None -> MXNET_SPMD at bind time
+        self._mesh_config = None        # parallel.MeshConfig (spmd mode)
 
     # ------------------------------------------------------------ checkpoint
     @staticmethod
@@ -151,23 +164,55 @@ class Module(BaseModule):
         self.params_initialized = True
 
     # ------------------------------------------------------------------ bind
+    def _resolve_spmd(self):
+        """SPMD mode: the last bind or fit argument (self._spmd) >
+        MXNET_SPMD env; default off."""
+        if self._spmd is not None:
+            return bool(self._spmd)
+        return os.environ.get("MXNET_SPMD", "").lower() in \
+            ("1", "true", "yes", "on")
+
+    def _keep_spmd(self, spmd, mesh, force_rebind):
+        if self.binded and not force_rebind and \
+                not self._bound_as_asked(spmd, mesh):
+            raise MXNetError(_REBIND_SPMD)
+        if spmd is not None:
+            self._spmd = bool(spmd)
+        if mesh is not None:
+            self._mesh_config = mesh
+
+    def _bound_as_asked(self, spmd, mesh):
+        """Whether the bound group has the plan that ``spmd`` / ``mesh``
+        ask for; what is not asked (None) is what is bound. A ``mesh``
+        without an spmd plan is not read, bound or not."""
+        plan = self._exec_group._spmd_plan
+        if not (bool(spmd) if spmd is not None else plan is not None):
+            return plan is None
+        return plan is not None and (
+            mesh is None or plan.mesh.shape ==
+            SpmdPlan.build_mesh_for(self._context, mesh).shape)
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
-             grad_req="write"):
+             grad_req="write", spmd=None, mesh=None):
         """Allocate the cells of the bound graph (gradient cells too when
         ``for_training``). With ``shared_module`` (bound and initialized)
         the parameter cells are that module's own objects, and so are aux
         cells of equal shape and dtype. Params loaded before binding
-        (``Module.load``) are copied in."""
+        (``Module.load``) are copied in. ``spmd`` / ``mesh``: see the
+        module docstring."""
         if force_rebind:
             self.binded = False
             self._exec_group = None
         if self.binded:
+            if not self._bound_as_asked(spmd, mesh):
+                raise MXNetError(_REBIND_SPMD)
             self.logger.warning("Module is already bound; ignoring bind() "
                                 "(use force_rebind=True to re-bind)")
             return
         if inputs_need_grad and not for_training:
             raise MXNetError("inputs_need_grad needs for_training=True")
+        self._keep_spmd(spmd, mesh, True)     # kept for a later re-bind
         shared_group = None
         if shared_module is not None:
             assert isinstance(shared_module, Module) and \
@@ -177,7 +222,8 @@ class Module(BaseModule):
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, shared_group,
             logger=self.logger, inputs_need_grad=inputs_need_grad,
-            grad_req=grad_req, compute_dtype=self._compute_dtype)
+            grad_req=grad_req, compute_dtype=self._compute_dtype,
+            spmd=self._resolve_spmd(), mesh_config=self._mesh_config)
         self.for_training = bool(for_training)
         self.inputs_need_grad = bool(inputs_need_grad)
         self.binded = True
@@ -204,7 +250,17 @@ class Module(BaseModule):
             self.logger.warning("optimizer is already initialized; "
                                 "ignoring init_optimizer()")
             return
-        _create_kvstore(kvstore, len(self._context))
+        n_device = len(self._context)
+        if self._exec_group._spmd_plan is not None:
+            # one device runs the plan, so no store reduces anything: a
+            # local/device store is dropped (the JAX package drops it for
+            # its in-program collectives); a dist store still raises below
+            n_device = 1
+            if kvstore is not None and "dist" not in str(kvstore):
+                self.logger.info("spmd mode: %r kvstore dropped — one "
+                                 "device runs the plan", kvstore)
+                kvstore = None
+        _create_kvstore(kvstore, n_device)
         if isinstance(optimizer, str):
             params = dict(optimizer_params)
             params.setdefault("rescale_grad",

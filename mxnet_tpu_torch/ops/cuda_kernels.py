@@ -1,29 +1,31 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
-``rtc.py``'s flash-attention kernel). Sixteen kernels, each a CUDA C++
-source under ``mxnet_tpu_torch/csrc/``:
+``rtc.py``'s flash-attention kernel). Seventeen kernels, each in a CUDA
+C++ source under ``mxnet_tpu_torch/csrc/`` (the flash-attention forward
+and its partial mode share one source and one library):
 
-=========================  ==================================================  ===================
-wrapper                    replaces (mxnet_tpu/ops/pallas_kernels.py)          source
-=========================  ==================================================  ===================
-``embedding``              ``_emb_gather_kernel`` (``_pl_embedding``)          embedding.cu
-``layernorm``              ``_ln_fwd_kernel`` (``_pl_layernorm_fwd``)          layernorm.cu
-``bias_gelu``              ``_bias_gelu_kernel`` (``_pl_bias_gelu``)           bias_gelu.cu
-``decode_attention``       ``_decode_attn_kernel``                             decode_attention.cu
-``softmax``                ``_softmax_fwd_kernel`` (``_pl_softmax``)           softmax.cu
-``softmax_ce_bwd``         ``_softmax_ce_bwd_kernel``                          softmax_ce_bwd.cu
-``sgd_mom_update``         ``_sgd_mom_kernel`` (``_tiled_elementwise``)        sgd_mom.cu
-``adam_update``            ``_adam_kernel`` (``_tiled_elementwise``)           adam.cu
-``layernorm_bwd_dx``       ``_ln_bwd_dx_kernel`` (``_ln_pl_bwd_rule``)         ln_bwd_dx.cu
-``layernorm_bwd_dparams``  ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd_dparams.cu
-``bias_gelu_dx``           ``_bias_gelu_dx_kernel`` (``_bias_gelu_bwd_rule``)  bias_gelu_dx.cu
-``flash_attention``        ``_flash_kernel`` of ``mxnet_tpu/rtc.py``           flash_attention.cu
-``qfc_matmul``             ``_qfc_kernel`` of ``mxnet_tpu/ops/quant.py``       qfc_matmul.cu
-``dequant_rows``           ``_dequant_rows_kernel`` of ``ops/quant.py``        dequant_rows.cu
-``bn_stats``               ``_bn_stats_kernel`` (``_pl_channel_stats``)        bn_stats.cu
-``bn_apply_relu``          ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
-=========================  ==================================================  ===================
+===========================  ==================================================  ===================
+wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)          source
+===========================  ==================================================  ===================
+``embedding``                ``_emb_gather_kernel`` (``_pl_embedding``)          embedding.cu
+``layernorm``                ``_ln_fwd_kernel`` (``_pl_layernorm_fwd``)          layernorm.cu
+``bias_gelu``                ``_bias_gelu_kernel`` (``_pl_bias_gelu``)           bias_gelu.cu
+``decode_attention``         ``_decode_attn_kernel``                             decode_attention.cu
+``softmax``                  ``_softmax_fwd_kernel`` (``_pl_softmax``)           softmax.cu
+``softmax_ce_bwd``           ``_softmax_ce_bwd_kernel``                          softmax_ce_bwd.cu
+``sgd_mom_update``           ``_sgd_mom_kernel`` (``_tiled_elementwise``)        sgd_mom.cu
+``adam_update``              ``_adam_kernel`` (``_tiled_elementwise``)           adam.cu
+``layernorm_bwd_dx``         ``_ln_bwd_dx_kernel`` (``_ln_pl_bwd_rule``)         ln_bwd_dx.cu
+``layernorm_bwd_dparams``    ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd_dparams.cu
+``bias_gelu_dx``             ``_bias_gelu_dx_kernel`` (``_bias_gelu_bwd_rule``)  bias_gelu_dx.cu
+``flash_attention``          ``_flash_kernel`` of ``mxnet_tpu/rtc.py``           flash_attention.cu
+``flash_attention_partial``  ``_flash_kernel(partial=True)`` (ring attention)    flash_attention.cu
+``qfc_matmul``               ``_qfc_kernel`` of ``mxnet_tpu/ops/quant.py``       qfc_matmul.cu
+``dequant_rows``             ``_dequant_rows_kernel`` of ``ops/quant.py``        dequant_rows.cu
+``bn_stats``                 ``_bn_stats_kernel`` (``_pl_channel_stats``)        bn_stats.cu
+``bn_apply_relu``            ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
+===========================  ==================================================  ===================
 
 The first four serve the decode path. Each wrapper launches the instance
 of its data's dtype and counts the launch under that instance's counter:
@@ -41,10 +43,13 @@ and for the quantized matmul's, as the TPU kernels store them); it is
 never the float32 kernel behind a cast. The updates (``sgd_mom_update``,
 ``adam_update``) take float32 master weights and states only, and
 ``dequant_rows`` writes float32 rows from narrow weights whatever the
-data's type. A CUDA tensor of a dtype no instance takes raises, naming
-the dtype.
+data's type. ``flash_attention_partial`` has the three instances too,
+and writes its float32 state whatever its input's type. A CUDA tensor
+of a dtype no instance takes raises, naming the dtype.
 With the ones from ``layernorm_bwd_dx`` to ``flash_attention`` they
-train the transformer LM;
+train the transformer LM, and ``flash_attention_partial`` takes the
+place of ``flash_attention`` under a sequence-parallel plan (ring
+attention, ``parallel/ring_attention.py``);
 softmax / cross-entropy and the optimizer updates serve every training
 path; ``qfc_matmul`` and ``dequant_rows`` serve the quantized tiers
 (``QuantizedFullyConnected`` and ``QuantizedConvolution``), each with one
@@ -121,6 +126,7 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "layernorm_bwd_dx_plain", "layernorm_bwd_dparams",
            "layernorm_bwd_dparams_plain", "bias_gelu_dx",
            "bias_gelu_dx_plain", "flash_attention", "flash_attention_plain",
+           "flash_attention_partial", "flash_attention_partial_plain",
            "embedding_bwd_plain", "layernorm_fn", "bias_gelu_fn",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
            "dequant_rows_plain", "bn_stats", "bn_stats_plain",
@@ -194,6 +200,11 @@ _SPECS = {
                          "bf16": "mx_flash_attention_bf16",
                          "f16": "mx_flash_attention_f16"},
                         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "flash_attention_partial": (
+        "flash_attention.cu", {"f32": "mx_flash_attention_partial_f32",
+                               "bf16": "mx_flash_attention_partial_bf16",
+                               "f16": "mx_flash_attention_partial_f16"},
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "qfc_matmul": ("qfc_matmul.cu",
                    {"f32:int8": "mx_qfc_matmul_i8_f32",
                     "f32:e4m3": "mx_qfc_matmul_e4m3_f32",
@@ -218,9 +229,9 @@ _SPECS = {
 KERNELS = tuple(_SPECS)
 
 _lock = threading.Lock()
-_libs = {}             # kernel name -> loaded library
+_libs = {}             # library (source stem) -> loaded library
 _fns = {}              # (kernel name, C symbol) -> bound ctypes function
-build_log = {}         # kernel name -> nvcc's stderr (ptxas register report)
+build_log = {}         # library -> nvcc's stderr (ptxas register report)
 
 
 def _nvcc():
@@ -234,20 +245,27 @@ def _nvcc():
                      "kernels are built from source at first use")
 
 
-def _lib_path(name):
-    h = hashlib.sha256((_CSRC / _SPECS[name][0]).read_bytes())
+def _library(name):
+    """The library that holds kernel ``name``: its source's stem (the
+    flash-attention forward and its partial mode share one)."""
+    return _SPECS[name][0][:-len(".cu")]
+
+
+def _lib_path(lib):
+    h = hashlib.sha256((_CSRC / f"{lib}.cu").read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(_ARCH.encode())
-    return _BUILD_DIR / f"libmx_{name}_{h.hexdigest()[:12]}.so"
+    return _BUILD_DIR / f"libmx_{lib}_{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS):
-    """Compile every kernel in ``names`` whose library is missing, one
-    ``nvcc`` per source, all running at once; raise with the compiler's
-    output if any fails. Returns the wall seconds spent."""
+    """Compile the library of every kernel in ``names`` that is missing,
+    one ``nvcc`` per source, all running at once; raise with the
+    compiler's output if any fails. Returns the wall seconds spent."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = sorted(lib for lib in {_library(n) for n in names}
+                  if not _lib_path(lib).exists())
     if not todo:
         return 0.0
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -258,7 +276,7 @@ def build(names=KERNELS):
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(_CSRC / _SPECS[n][0])]
+               str(_CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -282,12 +300,13 @@ def _fn(name, key):
     fn = _fns.get((name, sym))
     if fn is not None:
         return fn
+    lib = _library(name)
     with _lock:
-        if name not in _libs:
+        if lib not in _libs:
             build([name])
-            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            _libs[lib] = ctypes.CDLL(str(_lib_path(lib)))
         if (name, sym) not in _fns:
-            fn = getattr(_libs[name], sym)
+            fn = getattr(_libs[lib], sym)
             fn.argtypes = _SPECS[name][2]
             fn.restype = ctypes.c_int
             _fns[(name, sym)] = fn
@@ -1053,6 +1072,83 @@ def flash_attention(q, k, v, causal=False):
 
 
 flash_attention_bf16 = _pinned(flash_attention, "bf16", (torch.bfloat16,))
+
+
+# ==========================================================================
+# 12b. flash-attention partial mode (the local block of ring attention)
+# ==========================================================================
+def _ring_scale(q):
+    """The ring's default scale, 1/sqrt(Dh), as the JAX package takes it."""
+    return 1.0 / float(q.shape[-1]) ** 0.5
+
+
+def flash_attention_partial_plain(q, k, v, q_off=0, k_off=0, causal=False,
+                                  scale=None):
+    """The unnormalized online-softmax state of q (B, H, Tq, Dh) over one
+    K/V shard k, v (B, H, Tk, Dh), as the partial kernel leaves it at the
+    end of its key loop: s = (q * scale) . k in float32, keys masked where
+    ``q_off + t < k_off + key`` under ``causal``; m = max_key s (-inf for a
+    row that sees no key), p = exp(s - m) where s is finite else 0 (m read
+    as 0 where it is -inf), l = sum_key p, acc = p . v. Returns (acc (B, H,
+    Tq, Dh), m (B, H, Tq), l (B, H, Tq)), all float32: one key block of the
+    kernel's arithmetic, which rescales partial sums where this sums
+    once."""
+    if scale is None:
+        scale = _ring_scale(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * scale,
+                     k.to(torch.float32))
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        live = (q_off + torch.arange(tq, device=q.device))[:, None] >= \
+            (k_off + torch.arange(tk, device=q.device))[None, :]
+        s = s.masked_fill(~live, float("-inf"))
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
+    return (torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32)), m,
+            p.sum(dim=-1))
+
+
+@_wrapper("flash_attention_partial")
+def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
+                            scale=None):
+    """The partial flash-attention block of ring attention: q (B, H, Tq,
+    Dh) over the K/V shard k, v (B, H, Tk, Dh) float32, bfloat16 or
+    float16, the shards at absolute sequence offsets ``q_off`` and
+    ``k_off`` -> (acc, m, l) float32 (see ``flash_attention_partial_
+    plain``); the 16-bit tiles are widened exactly and all arithmetic is
+    float32. The scale defaults to 1/sqrt(Dh). The kernel takes Dh in {64,
+    128} and any Tq, Tk."""
+    if scale is None:
+        scale = _ring_scale(q)
+    if not _cpu_or_cuda("flash_attention_partial", q):
+        return flash_attention_partial_plain(q, k, v, q_off, k_off, causal,
+                                             scale)
+    key = _instance("flash_attention_partial", q)
+    _check("flash_attention_partial", q=(q, q.dtype), k=(k, q.dtype),
+           v=(v, q.dtype))
+    if q.ndim != 4 or tuple(k.shape) != tuple(v.shape) or k.ndim != 4 or \
+            k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise MXNetError(f"flash_attention_partial: want q (B, H, Tq, Dh) and "
+                         f"k, v (B, H, Tk, Dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Tq, Dh = q.shape
+    if Dh not in (64, 128):
+        raise MXNetError(f"flash_attention_partial: head dim {Dh} — the "
+                         "kernel takes 64 or 128")
+    if B * H > 65535:
+        raise MXNetError(f"flash_attention_partial: B*H={B * H} > 65535")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise MXNetError("flash_attention_partial: q, k, v must be 16-byte "
+                         "aligned")
+    acc = torch.empty((B, H, Tq, Dh), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    _launch("flash_attention_partial", key, q, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B * H,
+            Tq, k.shape[2], Dh, int(q_off), int(k_off), int(bool(causal)),
+            float(scale))
+    return acc, m, l
 
 
 # ==========================================================================

@@ -71,6 +71,18 @@ Dh = 128 (0.08837890625 for 0.0883883) and keep exact at Dh = 64, so
 more than the rounding of their type. The decode read
 (``attention_decode``'s ``"cuda"`` variant) takes float16 q and caches
 as it takes bfloat16 ones.
+
+Under a sequence-parallel plan (a ``parallel.SpmdPlan`` whose mesh has a
+``seq`` axis longer than 1, armed by the executor around its forward and
+backward) both attention ops lower to ring attention over that axis
+(``parallel.ring_attention_sharded``; the batch split over the ``data``
+axis too when that divides B) wherever the JAX package's ``ring``
+variant is eligible (``_attention_ring_eligible``: self-attention shapes,
+T and B divisible by the shard counts): on the card the ring's local
+block is ``cuda_kernels.flash_attention_partial``, on the CPU the plain
+ring. The plan decides inside the op, not as a third variant: the
+registry keeps one variant per device. ``ring_decisions()`` records each
+lowering once per op, shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -91,9 +103,12 @@ from .ops import cuda_kernels
 from .ops.nn import rope_apply
 from .ops.optimizer_op import sgd_mom_step
 from .ops.registry import OP_REGISTRY, register
+from .parallel import spmd as _spmd
+from .parallel.ring_attention import ring_attention_sharded
 
 __all__ = ["Rtc", "register_cuda_op", "kernel_source", "launch_counts",
-           "reset_launch_counts", "flash_attention_fn",
+           "reset_launch_counts", "flash_attention_fn", "ring_decisions",
+           "clear_ring_decisions",
            "fp8_cast"]
 
 
@@ -144,10 +159,87 @@ def flash_attention_fn(q, k, v, causal=False):
     return _FlashAttentionFn.apply(q, k, v, bool(causal))
 
 
-def _attention_cuda(attrs, inputs, aux, is_train, rng):
-    q, k, v = (t.contiguous() for t in inputs)
-    return [flash_attention_fn(q, k, v,
-                               parse_bool(attrs.get("causal", False)))], []
+# --------------------------------------------------------------------------
+# attention under a sequence-parallel plan: the ring lowering
+# --------------------------------------------------------------------------
+_RING_DECISIONS = []
+_ring_noted = set()       # (op, shapes, dtypes) keys already recorded
+
+
+def ring_decisions():
+    """The ring lowerings taken so far, one record per (op, shapes,
+    dtypes): op, variant "ring", shapes, dtypes, backend, the reason and
+    its source "plan" (the JAX package's ``kernel_tier.decisions()``
+    records of its ``ring`` variant)."""
+    return list(_RING_DECISIONS)
+
+
+def clear_ring_decisions():
+    _RING_DECISIONS.clear()
+    _ring_noted.clear()
+
+
+def _attention_ring_eligible(attrs, in_shapes, in_dtypes):
+    """Eligible only under an active seq-sharded plan whose shard counts
+    divide (B, T); self-attention shapes only (q/k/v agree)."""
+    plan = _spmd.active_plan()
+    if plan is None:
+        return False
+    n_seq = plan.n_seq_shards()
+    if n_seq <= 1:
+        return False
+    if len(in_shapes) < 3 or len(in_shapes[0]) != 4:
+        return False
+    if not (tuple(in_shapes[0]) == tuple(in_shapes[1])
+            == tuple(in_shapes[2])):
+        return False
+    b, _h, t, _d = in_shapes[0]
+    if t < n_seq or t % n_seq:
+        return False
+    nd = plan.n_data_shards()
+    return not (nd > 1 and b % nd)
+
+
+def _attention_ring(op, attrs, q, k, v):
+    """Ring attention over the active plan's ``seq`` axis (the batch over
+    its ``data`` axis too when that divides B) when the plan and the
+    shapes take it, recording the decision; else None."""
+    plan = _spmd.active_plan()
+    shapes = [tuple(t.shape) for t in (q, k, v)]
+    dtypes = [str(t.dtype).replace("torch.", "") for t in (q, k, v)]
+    if not _attention_ring_eligible(attrs, shapes, dtypes):
+        return None
+    n_seq, nd = plan.n_seq_shards(), plan.n_data_shards()
+    key = (op, tuple(shapes), tuple(dtypes))
+    if key not in _ring_noted:
+        _ring_noted.add(key)
+        _RING_DECISIONS.append({
+            "op": op, "variant": "ring", "shapes": [list(x) for x in shapes],
+            "dtypes": dtypes, "backend": q.device.type,
+            "reason": f"sequence-sharded plan (seq={n_seq}): ring attention "
+                      "over ppermute", "source": "plan"})
+    data_axis = plan.data_axis if nd > 1 and q.shape[0] % nd == 0 else None
+    return ring_attention_sharded(q, k, v, plan.mesh,
+                                  parse_bool(attrs.get("causal", False)),
+                                  plan.seq_axis, data_axis)
+
+
+def _attention_forwards(op):
+    """The plain forward and the ``"cuda"`` variant of attention op
+    ``op``: ring attention under a sequence-parallel plan, else the plain
+    composition and the flash kernel."""
+    def plain(attrs, q, k, v):
+        out = _attention_ring(op, attrs, q, k, v)
+        return _attention_plain(attrs, q, k, v) if out is None else out
+
+    def cuda(attrs, inputs, aux, is_train, rng):
+        q, k, v = (t.contiguous() for t in inputs)
+        out = _attention_ring(op, attrs, q, k, v)
+        if out is None:
+            out = flash_attention_fn(q, k, v,
+                                     parse_bool(attrs.get("causal", False)))
+        return [out], []
+    return plain, cuda
 
 
 # --------------------------------------------------------------------------
@@ -372,12 +464,13 @@ def _pallas_sgd_mom_cuda(attrs, inputs, aux, is_train, rng):
 def _register():
     for name in ("attention", "pallas_flash_attention"):
         if name not in OP_REGISTRY:
+            plain, cuda = _attention_forwards(name)
             register(name, inputs=("q", "k", "v"),
-                     simple=_attention_plain, shape_passthrough=True,
+                     simple=plain, shape_passthrough=True,
                      attr_spec={"causal": (None, False),
                                 "block_q": (int, 128),
                                 "block_k": (int, 128)},
-                     variants={"cuda": _attention_cuda})
+                     variants={"cuda": cuda})
     if "attention_decode" not in OP_REGISTRY:
         register("attention_decode", inputs=("q", "k", "v"),
                  aux=("k_cache", "v_cache", "cache_pos"),

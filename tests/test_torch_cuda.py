@@ -1989,3 +1989,167 @@ def _lm_bf16_fit_both(half):
         spread = float(np.abs(v - cpu32[k]).max())
         np.testing.assert_allclose(card[k], v, atol=3 * spread + 1e-6,
                                    rtol=0, err_msg=k)
+
+
+# ------------------------- ring attention's partial flash kernel (row 15)
+#: (B, H, Tq, Tk, Dh, q_off, k_off, causal): the sequence-parallel LM's
+#: shard shapes (T = 4096 over seq = 4) non-causal, on the diagonal, a past
+#: shard, a future shard (every row sees no key) and a shifted diagonal,
+#: then Tq != Tk (ragged tiles), Dh 128 and one query
+_PARTIAL_CASES = [(2, 8, 1024, 1024, 64, 0, 0, False),
+                  (2, 8, 1024, 1024, 64, 1024, 1024, True),
+                  (2, 8, 1024, 1024, 64, 2048, 1024, True),
+                  (2, 8, 1024, 1024, 64, 0, 1024, True),
+                  (1, 2, 256, 256, 64, 30, 0, True),
+                  (1, 3, 200, 1000, 64, 900, 0, True),
+                  (1, 2, 1000, 65, 64, 0, 0, True),
+                  (2, 1, 130, 70, 128, 64, 0, True),
+                  (1, 1, 1, 64, 64, 5, 0, True)]
+
+
+def _partial_close(got, want, tol=TOL):
+    """acc, m and l: the -inf rows of m (rows that see no key) exactly
+    where the plain version has them, with l = 0 and acc = 0 there; every
+    finite value within ``tol`` of the array's largest magnitude (the
+    kernel sums the products and the online softmax in another order)."""
+    torch.cuda.synchronize()
+    acc, m, l = got
+    racc, rm, rl = want
+    assert torch.equal(torch.isneginf(m), torch.isneginf(rm))
+    dead = torch.isneginf(rm)
+    assert not l[dead].any() and not acc[dead].any()
+    for a, b in ((acc, racc), (m[~dead], rm[~dead]), (l, rl)):
+        assert a.dtype == torch.float32
+        if b.numel():
+            top = max(float(b.abs().max()), 1.0)
+            assert float((a - b).abs().max()) <= tol * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32"] + list(HALVES))
+@pytest.mark.parametrize("case", _PARTIAL_CASES)
+def test_flash_attention_partial_kernel(dev, case, dtype):
+    """Each instance against the plain version on the same values (16-bit
+    q, k, v widened exactly, float32 state out); only its counter
+    moves."""
+    B, H, tq, tk, dh, q_off, k_off, causal = case
+    dt = getattr(torch, dtype)
+    q = _rnd(dev, B, H, tq, dh, seed=1).to(dt)
+    k, v = (_rnd(dev, B, H, tk, dh, seed=i).to(dt) for i in (2, 3))
+    name = "flash_attention_partial" + (
+        "" if dtype == "float32" else "_" + HALVES[dtype][1])
+    before = ck.launch_counts()
+    got = ck.flash_attention_partial(q, k, v, q_off, k_off, causal)
+    after = ck.launch_counts()
+    _partial_close(got, ck.flash_attention_partial_plain(q, k, v, q_off,
+                                                         k_off, causal))
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {name: 1}
+
+
+@pytest.mark.cuda
+def test_flash_attention_partial_refuses_what_it_does_not_take(dev):
+    q = _rnd(dev, 1, 2, 16, 32)
+    with pytest.raises(MXNetError, match="head dim"):
+        ck.flash_attention_partial(q, q, q)
+    q = _rnd(dev, 1, 2, 16, 64)
+    with pytest.raises(MXNetError, match="Tk"):
+        ck.flash_attention_partial(q, _rnd(dev, 1, 2, 8, 64),
+                                   _rnd(dev, 1, 2, 9, 64))
+    with pytest.raises(MXNetError, match="float32"):
+        ck.flash_attention_partial(q.double(), q.double(), q.double())
+    with pytest.raises(MXNetError, match="contiguous"):
+        t = q.transpose(2, 3)
+        ck.flash_attention_partial(t, t, t)
+
+
+def _ring_mesh(n=4):
+    from mxnet_tpu_torch.parallel import MeshConfig, build_mesh
+    return build_mesh(MeshConfig(seq=n), [mx.gpu(0)] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,launches", [(True, 10), (False, 16)])
+def test_ring_of_four_on_one_card(dev, causal, launches):
+    """Ring attention over [gpu(0)] * 4 against full attention on the card
+    (forward 2e-5 of the output's scale: online softmax in another order)
+    and its gradients (the plain ring's recompute) against the unsharded
+    ones within 1e-4 of each array's largest magnitude; the partial kernel
+    launches once per (position, step) but for a causal ring's future
+    shards, and the normalized flash kernel not at all."""
+    from mxnet_tpu_torch.parallel import ring_attention_sharded
+    from mxnet_tpu_torch.rtc import _attention_plain
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        qkv = [_rnd(dev, 2, 4, 256, 64, seed=i).requires_grad_(True)
+               for i in range(3)]
+        ck.reset_launch_counts()
+        out = ring_attention_sharded(*qkv, _ring_mesh(), causal=causal)
+        counts = ck.launch_counts()
+        assert {k: n for k, n in counts.items() if n} == \
+            {"flash_attention_partial": launches}
+        ref = _attention_plain({"causal": causal}, *qkv)
+        _same(out, ref, tol=TOL)
+        ct = _rnd(dev, 2, 4, 256, 64, seed=7)
+        got = torch.autograd.grad(out, qkv, ct)
+        want = torch.autograd.grad(ref, qkv, ct)
+        for g, w in zip(got, want):
+            torch.cuda.synchronize()
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None] + list(HALVES))
+def test_small_lm_seq_parallel_fit_on_card(dev, half):
+    """A small LM (d_model 128, 2 heads: Dh 64; T 64) through
+    fit(spmd=True, mesh=MeshConfig(seq=4)) over [gpu(0)] * 4 and over
+    [cpu(i)] * 4 from the same parameters, TF32 off: the card launches
+    L x 10 partial kernels a step and no normalized flash kernel, and
+    every parameter agrees with the CPU's within 1e-4 (float32, as the
+    unsharded small LM) or 3 times the CPU's own 16-bit-vs-float32
+    distance plus 1e-6."""
+    from mxnet_tpu_torch.parallel import MeshConfig
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        V, D, L, H, T, B, N = 300, 128, 2, 2, 64, 2, 3
+        sym = tfm.get_symbol(V, D, L, H, T)
+        shapes, _, _ = sym.infer_shape(data=(B, T), softmax_label=(B * T,))
+        rs = np.random.RandomState(0)
+        params = {n: ((1.0 if n.endswith("gamma") else 0.0)
+                      + 0.1 * rs.randn(*s)).astype(np.float32)
+                  for n, s in zip(sym.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+        out = {}
+        runs = [(mx.gpu(0), half), (mx.cpu(), half)]
+        if half is not None:
+            runs.append((mx.cpu(), None))
+        for ctx, cd in runs:
+            ck.reset_launch_counts()
+            mod = mx.mod.Module(sym, context=[ctx] * 4, compute_dtype=cd)
+            mod.fit(tfm.SyntheticLMIter(V, B, T, N, seed=1), num_epoch=1,
+                    arg_params=mx.convert.params_from_numpy(params, ctx),
+                    spmd=True, mesh=MeshConfig(seq=4), optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.05})
+            out[(ctx.device_type, cd)] = {
+                k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            counts = ck.launch_counts()
+            sfx = "" if cd is None else "_" + HALVES[cd][1]
+            if ctx.device_type == "gpu":
+                assert counts["flash_attention_partial" + sfx] == N * L * 10
+                assert counts["flash_attention" + sfx] == 0
+        card, cpu = out[("gpu", half)], out[("cpu", half)]
+        for k, v in cpu.items():
+            assert np.abs(v - params[k]).max() > 0, k
+            if half is None:
+                np.testing.assert_allclose(card[k], v, atol=1e-4, rtol=1e-4,
+                                           err_msg=k)
+            else:
+                spread = float(np.abs(v - out[("cpu", None)][k]).max())
+                np.testing.assert_allclose(card[k], v, rtol=0,
+                                           atol=3 * spread + 1e-6, err_msg=k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -170,7 +170,7 @@ def test_checkpoint_round_trip(tmp_path):
 def test_fit_refuses_what_is_not_ported():
     X, y = _data((1, 4, 4), 8, 10)
     it = mxt.io.NDArrayIter(X, y, batch_size=8)
-    for kw in ({"spmd": True}, {"zero_stage": 1}, {"steps_per_dispatch": 4},
+    for kw in ({"zero_stage": 1}, {"steps_per_dispatch": 4},
                {"remat": "all"}, {"health": True}, {"elastic": True},
                {"checkpoint": "/nonexistent"}, {"resume": True},
                {"monitor": object()}):
