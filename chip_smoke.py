@@ -34,7 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels at the same shapes and edges, and the dequant-fused matmul's
    bfloat16 and float16 instances at the quantized path's; the softmax
    head's pair at the LM head's (8192, 32000) in float32, bfloat16 and
-   float16, device time beside the bound);
+   float16, device time beside the bound; ``F.layer_norm``'s device time
+   beside the LayerNorm kernel's at the decode shape; each flash-attention
+   instance's HGMMA count in its SASS and ptxas' registers and spills —
+   the 16-bit instances, both modes, must run on the tensor cores without
+   spilling and the float32 ones off them);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -311,6 +315,7 @@ checkout, the script exits non-zero and prints no result.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -675,6 +680,7 @@ def phase_kernels(mx, ck):
         max_abs_err=err, ms=_timed(lambda: ck.layernorm(x, g, b, 1e-5)),
         plain_ms=_timed(lambda: ck.layernorm_plain(x, g, b, 1e-5)),
         library_ms=_timed(lambda: F.layer_norm(x, (D,), g, b, 1e-5)),
+        library_call=lambda: F.layer_norm(x, (D,), g, b, 1e-5),
         bound=_bound_ms(2 * x.numel() * 4 + 2 * D * 4 + 2 * 8 * 4,
                         8 * x.numel()))
     # 3. bias + GeLU: (8, 2048)
@@ -727,6 +733,7 @@ def phase_kernels(mx, ck):
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_ring_kernels(ck, rs, t, rec))
+    _flash_tensor_cores(ck)
     for half in HALF_SFX:
         calls.update(_lm_bf16_kernels(ck, rs, t, rec, half))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
@@ -740,12 +747,16 @@ def phase_kernels(mx, ck):
     for name, r in rec.items():
         dev_ms = _device_ms(calls[name])
         err = r.get("ulps", r.get("rel_err", r["max_abs_err"]))
+        # the library call's device time, where the kernel's ms is mostly
+        # the host's launch path (LayerNorm at the decode shape)
+        lib_dev = (f"library_device_ms={_device_ms(r['library_call'])} "
+                   if "library_call" in r else "")
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
               + (f"rel_err={err:.3g} " if "rel_err" in r else "")
               + (f"ulps={err:.3g} " if "ulps" in r else "")
               + f"(tol {TOL[name]}) kernel_ms={r['ms']:.5f} "
               f"device_ms={dev_ms} plain_ms={r['plain_ms']:.5f} "
-              f"library_ms={r['library_ms']} "
+              f"library_ms={r['library_ms']} {lib_dev}"
               f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
         if not err <= TOL[name]:
             raise AssertionError(f"kernel {name} disagrees with its plain "
@@ -1081,13 +1092,45 @@ def _ring_kernels(ck, rs, t, rec):
               f"{_bound_ms(nbytes, flops / 2, peak)[0]:.6f} ms: half the "
               "pairs); "
               "library_ms None: no one PyTorch call returns the "
-              "unnormalized (acc, m, l)" + (
-                  "" if dtype == "float32" else
-                  f"; its operations at the float32 CUDA-core rate it "
-                  f"computes in would take {flops / F32_FLOPS_PER_S * 1e3:.6f}"
-                  " ms"))
+              "unnormalized (acc, m, l)")
         calls[name] = lambda past=past: ck.flash_attention_partial(*past)
     return calls
+
+
+#: a demangled flash kernel: ``...::tc::flash_tc<__half, (int)64,
+#: (bool)1>`` (16-bit, tensor cores) or ``...::cc::flash_fwd<(int)64,
+#: (bool)0>`` (float32, CUDA cores)
+_FLASH_INSTANCE = re.compile(r"::(flash_tc|flash_fwd)<(?:(\w+), )?"
+                             r"\(int\)(\d+), \(bool\)([01])>")
+
+
+def _flash_tensor_cores(ck):
+    """Print each flash-attention instance's HGMMA (wgmma) count in its
+    SASS and ptxas' registers (at launch: the 16-bit instances then move
+    them to their consumers with setmaxnreg) and spill bytes; fail unless
+    every bfloat16 and float16 instance, both modes and head dims, holds
+    HGMMA and spills nothing, and no float32 instance holds HGMMA (the
+    reference's Precision.HIGHEST rules out TF32)."""
+    seen = set()
+    for fn, res in sorted(ck.resources("flash_attention").items()):
+        m = _FLASH_INSTANCE.search(fn)
+        if not m:
+            continue
+        _kind, elem, dh, partial = m.groups()
+        elem = elem or "float"
+        hgmma = res.get("sass", {}).get("HGMMA", 0)
+        spills = (res["spill_stores"], res["spill_loads"])
+        print(f"kernels: flash_attention{'_partial' * (partial == '1')} "
+              f"<{elem}, Dh {dh}>: HGMMA {hgmma}, ptxas registers "
+              f"{res['registers']}, spill stores / loads {spills[0]} / "
+              f"{spills[1]} bytes")
+        if (hgmma > 0) != (elem != "float") or (elem != "float" and
+                                                any(spills)):
+            raise AssertionError(f"flash <{elem}, {dh}, {partial}>: HGMMA "
+                                 f"{hgmma}, spills {spills}")
+        seen.add((elem, dh, partial))
+    if len(seen) != 12:
+        raise AssertionError(f"flash instances in the SASS: {sorted(seen)}")
 
 
 def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
@@ -1095,9 +1138,9 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
     path's shapes (LayerNorm backward over (8192, 512), GeLU' over (8192,
     2048), causal flash attention over (8, 8, 1024, 64)) and edges: one
     row, one column, C = 13, 65536, misaligned views (one value at a
-    time), T = 1, a ragged T, Dh 128, non-causal. Bounds at bfloat16
-    bytes and the bfloat16 peak (flash attention's operations at the
-    float32 CUDA-core rate it computes in printed beside).
+    time), T = 1, a ragged T, T on both sides of the 16-bit flash
+    kernel's 128-row tiles, Dh 128, non-causal. Bounds at bfloat16 bytes
+    and the bfloat16 peak.
     Also the softmax head's bfloat16 pair at the LM head's (8192, 32000)
     beside the float32 pair's device times. Fills ``rec``; returns the
     timed calls."""
@@ -1180,7 +1223,8 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
     ulps, err = _half_ulps(half, got, want, atol=2e-5), _max_err(got, want)
     for shape, causal in (((2, 2, 1, Dh), True), ((1, 2, 1000, Dh), True),
                           ((2, 2, 200, 128), True), ((2, 2, 256, Dh), False),
-                          ((1, 2, 300, 128), False)):
+                          ((1, 2, 300, 128), False), ((2, 2, 129, Dh), True),
+                          ((1, 2, 257, 128), False)):
         e = [tb(rs.randn(*shape)) for _ in range(3)]
         got, want = ck.flash_attention(*e, causal), \
             ck.flash_attention_plain(*e, causal)
@@ -1196,9 +1240,7 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
             q, k, v, is_causal=True), reps=50),
         bound=_bound_ms(4 * q.numel() * 2, 4 * pairs * Dh, BF16_FLOPS_PER_S))
     print(f"kernels: LM {sfx} rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}),"
-          f" flash {tuple(q.shape)} causal; flash_attention_{sfx}'s "
-          f"operations at the float32 CUDA-core rate it computes in would "
-          f"take {4 * pairs * Dh / F32_FLOPS_PER_S * 1e3:.6f} ms")
+          f" flash {tuple(q.shape)} causal")
     # the softmax head's pair at the LM head's (8192, 32000)
     head = torch.randn(N, V, device=q.device,
                        generator=torch.Generator(q.device).manual_seed(SEED))
@@ -1522,6 +1564,7 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32, half="bfloat16"):
         ms=_timed(lambda: ck.layernorm(x, g, b, 1e-5)),
         plain_ms=_timed(lambda: ck.layernorm_plain(x, g, b, 1e-5)),
         library_ms=_timed(lambda: F.layer_norm(x, (D,), g, b, 1e-5)),
+        library_call=lambda: F.layer_norm(x, (D,), g, b, 1e-5),
         bound=_bound_ms(2 * x.numel() * 2 + 2 * D * 2 + 2 * 8 * 4,
                         8 * x.numel(), BF16_FLOPS_PER_S))
     h, hb = f32["h"].to(bf), f32["hb"].to(bf)
@@ -2195,7 +2238,7 @@ def phase_adam(mx, ck):
 _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
                  "adam_f32", "ln_fwd", "bias_gelu", "emb_gather",
                  "decode_attn", "ln_bwd_dx", "ln_dparams_", "flash_fwd",
-                 "bn_stats_", "bn_apply_relu_")
+                 "flash_tc", "bn_stats_", "bn_apply_relu_")
 
 
 def _kernel_group(key):

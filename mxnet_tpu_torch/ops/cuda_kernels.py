@@ -40,7 +40,13 @@ storage type (int8, float8_e4m3fn) for each data type. A 16-bit instance
 reads its type, computes in float32 as the TPU kernel does, and stores
 its type once (float32 for the statistics, for the decode read's output
 and for the quantized matmul's, as the TPU kernels store them); it is
-never the float32 kernel behind a cast. The updates (``sgd_mom_update``,
+never the float32 kernel behind a cast. The 16-bit flash-attention
+instances (both modes) are a design of their own on the tensor cores
+(wgmma, TMA): 16-bit q and k go into the first product as stored (their
+products are exact in float32), the float32 scores are scaled and take
+the float32 online softmax, and P . V is p_hi . V + p_lo . V with P
+split into two 16-bit terms, so no float32 value is rounded to 16 bits
+before the output. The updates (``sgd_mom_update``,
 ``adam_update``) take float32 master weights and states only, and
 ``dequant_rows`` writes float32 rows from narrow weights whatever the
 data's type. ``flash_attention_partial`` has the three instances too,
@@ -98,6 +104,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -135,6 +142,7 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
            "bias_gelu_dx_bf16", "flash_attention_bf16", "launch_counts",
            "reset_launch_counts", "libraries_loaded", "source",
+           "resources",
            "KERNELS", "COUNTERS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -231,7 +239,8 @@ KERNELS = tuple(_SPECS)
 _lock = threading.Lock()
 _libs = {}             # library (source stem) -> loaded library
 _fns = {}              # (kernel name, C symbol) -> bound ctypes function
-build_log = {}         # library -> nvcc's stderr (ptxas register report)
+build_log = {}         # library -> nvcc's stderr (ptxas register report),
+                       # kept beside the library
 
 
 def _nvcc():
@@ -264,8 +273,12 @@ def build(names=KERNELS):
     one ``nvcc`` per source, all running at once; raise with the
     compiler's output if any fails. Returns the wall seconds spent."""
     t0 = time.perf_counter()
-    todo = sorted(lib for lib in {_library(n) for n in names}
-                  if not _lib_path(lib).exists())
+    libs = {_library(n) for n in names}
+    for lib in libs:        # the report of a library built before
+        log = _lib_path(lib).with_suffix(".log")
+        if lib not in build_log and log.exists():
+            build_log[lib] = log.read_text()
+    todo = sorted(lib for lib in libs if not _lib_path(lib).exists())
     if not todo:
         return 0.0
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -287,6 +300,7 @@ def build(names=KERNELS):
         if proc.returncode != 0:
             failed.append(f"--- {n} (nvcc exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise MXNetError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -311,6 +325,57 @@ def _fn(name, key):
             fn.restype = ctypes.c_int
             _fns[(name, sym)] = fn
     return _fns[(name, sym)]
+
+
+def _tool(name):
+    """A CUDA toolkit program beside nvcc."""
+    path = Path(_nvcc()).parent / name
+    if not path.exists():
+        raise MXNetError(f"{name} not found beside nvcc ({path.parent})")
+    return str(path)
+
+
+def resources(name):
+    """What the compiler made of kernel ``name``'s library, per kernel
+    function (demangled by ``cu++filt``): ``registers``,
+    ``spill_stores`` and ``spill_loads`` (bytes) from ptxas' report, and
+    ``sass``, the count of each SASS opcode (``HGMMA``, ``FFMA``, ...,
+    without modifiers) in ``cuobjdump -sass``. Builds the library first
+    if it is missing."""
+    build([name])
+    lib = _library(name)
+    funcs, fn = {}, None
+    for line in build_log.get(lib, "").splitlines():
+        m = re.search(r"entry function '(\w+)'|Function properties for "
+                      r"(\w+)", line)
+        if m:
+            fn = funcs.setdefault(m.group(1) or m.group(2), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+    sass = subprocess.run([_tool("cuobjdump"), "-sass",
+                           str(_lib_path(lib))], capture_output=True,
+                          text=True, check=True).stdout
+    ops = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            ops = funcs.setdefault(m.group(1), {}).setdefault("sass", {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if m and ops is not None:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    names = list(funcs)
+    plain = subprocess.run([_tool("cu++filt")], input="\n".join(names),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return {p: funcs[n] for n, p in zip(names, plain)}
 
 
 def libraries_loaded():
@@ -1041,10 +1106,13 @@ def flash_attention_plain(q, k, v, causal=False):
 @_wrapper("flash_attention")
 def flash_attention(q, k, v, causal=False):
     """Self-attention of q, k, v (B, H, T, Dh) float32, bfloat16 or float16
-    -> (B, H, T, Dh) in q's dtype: the 16-bit tiles widened exactly as
-    they are staged, q scaled and every product and the online softmax in
-    float32 (no 16-bit tensor cores), the output rounded once. The kernel
-    takes Dh in {64, 128}, any T, and Tq == Tk only."""
+    -> (B, H, T, Dh) in q's dtype, the output rounded once. float32: q
+    scaled, every product and the online softmax float32 FMAs on the CUDA
+    cores. bfloat16 / float16: the tensor cores (wgmma) take q and k as
+    stored (exact float32 products, float32 sums), the float32 scores are
+    then scaled and take the same float32 online softmax, and P . V is
+    p_hi . V + p_lo . V with p_hi = round16(p), p_lo = round16(p - p_hi).
+    The kernel takes Dh in {64, 128}, any T, and Tq == Tk only."""
     if not _cpu_or_cuda("flash_attention", q):
         return flash_attention_plain(q, k, v, causal)
     key = _instance("flash_attention", q)
@@ -1116,9 +1184,11 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     Dh) over the K/V shard k, v (B, H, Tk, Dh) float32, bfloat16 or
     float16, the shards at absolute sequence offsets ``q_off`` and
     ``k_off`` -> (acc, m, l) float32 (see ``flash_attention_partial_
-    plain``); the 16-bit tiles are widened exactly and all arithmetic is
-    float32. The scale defaults to 1/sqrt(Dh). The kernel takes Dh in {64,
-    128} and any Tq, Tk."""
+    plain``); the 16-bit instances run on the tensor cores as
+    ``flash_attention``'s do (exact 16-bit products summed in float32,
+    the float32 softmax, P . V from P split into two 16-bit terms). The
+    scale defaults to 1/sqrt(Dh). The kernel takes Dh in {64, 128} and any
+    Tq, Tk."""
     if scale is None:
         scale = _ring_scale(q)
     if not _cpu_or_cuda("flash_attention_partial", q):

@@ -31,7 +31,10 @@ must repeat bit for bit, each differentiable op's gradients on the card
 must match its plain op's on the CPU, and a small LM fits alike on both.
 Their bfloat16 instances are held the same way in bfloat16 ulps (one
 beyond 2e-5; the parameter sums one beyond 1e-4), aligned and on
-misaligned views, with only the bfloat16 counters moving; the ops'
+misaligned views, with only the bfloat16 counters moving (flash
+attention also at T on both sides of its 16-bit tiles, and its SASS
+must hold HGMMA, wgmma on the tensor cores, in every 16-bit instance of
+both modes and none in the float32 ones, with no spills); the ops'
 gradients in bfloat16 on the card against the CPU's, and a small LM's
 bfloat16 fit (ids and labels past 256) against the CPU's within three
 times the CPU's own bfloat16-vs-float32 distance.
@@ -67,6 +70,8 @@ tensors (an NDArray body on the device, the numpy softmax head against
 ``SoftmaxOutput``) and ``mx.autograd`` over convolutions on the card
 against the CPU, TF32 off (1e-4: cuDNN and oneDNN sum in other orders).
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1840,12 +1845,18 @@ def test_bias_gelu_dx_bf16_kernel(dev, n, c, half):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(8, 8, 1024, 64), (2, 2, 1, 64),
                                    (1, 2, 1000, 64), (2, 1, 200, 128),
-                                   (1, 1, 64, 128), (1, 3, 65, 64)])
+                                   (1, 1, 64, 128), (1, 3, 65, 64),
+                                   (2, 2, 127, 64), (2, 2, 128, 64),
+                                   (2, 2, 129, 64), (1, 2, 257, 64),
+                                   (1, 2, 127, 128), (1, 2, 129, 128),
+                                   (1, 2, 257, 128), (1, 4, 1024, 128)])
 def test_flash_attention_bf16_kernel(dev, shape, causal, half):
-    """bfloat16 q, k, v widened exactly, float32 arithmetic, the output
-    rounded once: within one bfloat16 ulp beyond 2e-5 of the plain
-    version on the same values (T = 1, T not a multiple of 64, Dh 128);
-    only the bfloat16 counter moves."""
+    """16-bit q and k straight into the tensor cores, S scaled in
+    float32, the float32 online softmax, P . V as p_hi . V + p_lo . V,
+    the output rounded once: within one ulp of the type beyond 2e-5 of
+    the plain version on the same values (T = 1, T on both sides of the
+    128-row query tile and of the key tile, 128 at Dh 64 and 64 at Dh
+    128, Dh 128 at T = 1024); only the instance's counter moves."""
     hd, sfx = HALVES[half][:2]
     q, k, v = (_rnd(dev, *shape, seed=i).to(hd)
                for i in range(3))
@@ -2004,7 +2015,12 @@ _PARTIAL_CASES = [(2, 8, 1024, 1024, 64, 0, 0, False),
                   (1, 3, 200, 1000, 64, 900, 0, True),
                   (1, 2, 1000, 65, 64, 0, 0, True),
                   (2, 1, 130, 70, 128, 64, 0, True),
-                  (1, 1, 1, 64, 64, 5, 0, True)]
+                  (1, 1, 1, 64, 64, 5, 0, True),
+                  # shifts that are no multiple of a tile (128 queries;
+                  # 128 keys at Dh 64, 64 at Dh 128)
+                  (1, 2, 300, 260, 64, 517, 130, True),
+                  (1, 2, 200, 333, 128, 77, 0, True),
+                  (2, 2, 256, 384, 64, 0, 93, True)]
 
 
 def _partial_close(got, want, tol=TOL):
@@ -2045,6 +2061,51 @@ def test_flash_attention_partial_kernel(dev, case, dtype):
                                                          k_off, causal))
     assert {n: after[n] - before[n] for n in after
             if after[n] != before[n]} == {name: 1}
+
+
+#: a demangled flash kernel: ``...::tc::flash_tc<__half, (int)64,
+#: (bool)1>`` (16-bit) or ``...::cc::flash_fwd<(int)64, (bool)0>``
+_FLASH_INSTANCE = re.compile(r"::(flash_tc|flash_fwd)<(?:(\w+), )?"
+                             r"\(int\)(\d+), \(bool\)([01])>")
+
+
+def _flash_instances():
+    """{(element type, Dh, partial): what the compiler made of it} for
+    the flash-attention library's eight kernels (float32 on the CUDA
+    cores, ``flash_fwd``; the 16-bit instances, ``flash_tc``)."""
+    out = {}
+    for fn, res in ck.resources("flash_attention").items():
+        m = _FLASH_INSTANCE.search(fn)
+        if m:
+            kind, elem, dh, partial = m.groups()
+            assert (kind == "flash_fwd") == (elem is None), fn
+            out[(elem or "float", int(dh), partial == "1")] = res
+    return out
+
+
+@pytest.mark.cuda
+def test_flash_attention_16bit_instances_use_wgmma(dev):
+    """The SASS of the bfloat16 and float16 instances, both modes, both
+    head dims, holds HGMMA (wgmma); the float32 instances' holds none:
+    the reference's Precision.HIGHEST rules out TF32."""
+    inst = _flash_instances()
+    assert set(inst) == {(e, dh, p) for e in ("float", "__nv_bfloat16",
+                                              "__half")
+                         for dh in (64, 128) for p in (False, True)}
+    for key, res in inst.items():
+        hgmma = res["sass"].get("HGMMA", 0)
+        assert (hgmma > 0) == (key[0] != "float"), (key, hgmma)
+
+
+@pytest.mark.cuda
+def test_flash_attention_16bit_instances_do_not_spill(dev):
+    """ptxas' report (``build_log["flash_attention"]``) shows 0 bytes of
+    spill stores and loads for every 16-bit instance."""
+    ck.build(["flash_attention"])
+    assert "spill stores" in ck.build_log["flash_attention"]
+    for key, res in _flash_instances().items():
+        if key[0] != "float":
+            assert res["spill_stores"] == res["spill_loads"] == 0, key
 
 
 @pytest.mark.cuda
