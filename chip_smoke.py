@@ -34,8 +34,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels at the same shapes and edges, and the dequant-fused matmul's
    bfloat16 and float16 instances at the quantized path's; the softmax
    head's pair at the LM head's (8192, 32000) in float32, bfloat16 and
-   float16, device time beside the bound; ``F.layer_norm``'s device time
-   beside the LayerNorm kernel's at the decode shape; each flash-attention
+   float16, device time beside the bound and ``torch.softmax``'s, the
+   softmax held to its plain version there; LayerNorm at the LM's (8192,
+   512) in the three types, held to its plain version, its device time
+   beside ``F.layer_norm``'s and the bound; ``F.layer_norm``'s and
+   ``torch.softmax``'s device times beside the kernels' at the decode and
+   ResNet-50 head shapes; the host's launch path of the LayerNorm and
+   softmax wrappers, piece by piece, as it is and as it was (the earlier
+   path re-enacted); ptxas' registers and spills of every softmax and
+   LayerNorm instance (none may spill); each flash-attention
    instance's HGMMA count in its SASS and ptxas' registers and spills —
    the 16-bit instances, both modes, must run on the tensor cores without
    spilling and the float32 ones off them);
@@ -369,6 +376,18 @@ TOL.update({k.replace("_bf16", "_f16"): v for k, v in TOL.items()
 # each array's largest magnitude (float32 sums in another order), the
 # rows that see no key exactly -inf / 0 / 0 as the plain version's
 LOGIT_TOL = 2e-3               # card vs CPU logits, full model, float32
+#: softmax edge shapes: each route's limits +-1 (one warp to C = 1024, one
+#: block to 32768 with 16-byte units and 16384 without, a cluster of up to
+#: four blocks to 65536), C = 1, odd C, the LM head's C = 32000 at N = 64,
+#: N = 1
+SOFTMAX_EDGES = ((4, 1), (1, 7), (70, 33), (3, 1023), (2, 1024), (3, 1025),
+                 (2, 16383), (2, 16384), (2, 16385), (2, 32767), (2, 32768),
+                 (2, 32769),
+                 (2, 65536), (64, 32000), (1, 1000))
+#: LayerNorm edge shapes: the register route's limit +-1 (C = 1024), C = 1,
+#: odd C, N = 1
+LN_EDGES = ((3, 100), (5, 13), (1, 4096), (2, 1023), (2, 1024), (2, 1025),
+            (4, 1), (1, 512))
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
     "layernorm": "mxnet_tpu/ops/pallas_kernels.py:585",
@@ -524,21 +543,26 @@ BOTTLENECK = dict(batch=32, channels=256, mid=64, hw=56)
 FP8_LOGIT_TOL = 1e-2
 
 
-def _timed(fn, reps=200, warm=20):
+def _timed(fn, reps=200, warm=20, rounds=3):
     """Milliseconds per call on the card: CUDA events around ``reps``
-    calls after ``warm`` untimed ones."""
+    calls after ``warm`` untimed ones, the median of ``rounds`` such runs
+    (a small kernel's calls are timed at the host's pace, and the host is
+    shared: one run can land in a slow moment)."""
     import torch
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    runs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop) / reps)
+    return sorted(runs)[rounds // 2]
 
 
 def _device_ms(fn, reps=50):
@@ -594,6 +618,27 @@ def _halved(names, half):
     if isinstance(names, dict):
         return {k.replace("_bf16", sfx): v for k, v in names.items()}
     return tuple(k.replace("_bf16", sfx) for k in names)
+
+
+def _rstd_err(a, b):
+    """rstd's error: absolute below 1, relative above (a row of one value,
+    or of equal values, has rstd = 1 / sqrt(eps) ~ 316, where a float32
+    ulp is 3e-5)."""
+    import torch
+    return _max_err(a / torch.clamp(b.abs(), min=1.0),
+                    b / torch.clamp(b.abs(), min=1.0))
+
+
+def _ln_err(ck, x, g, b):
+    """The LayerNorm kernel against its plain version: the largest error
+    of y, mean and rstd; its std output must be 1 / rstd bit for bit."""
+    import torch
+    y, stats = ck.layernorm_stats(x, g, b, 1e-5)
+    ref = ck.layernorm_plain(x, g, b, 1e-5)
+    if not torch.equal(stats[2], 1.0 / stats[1]):
+        raise AssertionError("layernorm: std is not 1 / rstd bit for bit")
+    return max(_max_err(y, ref[0]), _max_err(stats[0], ref[1]),
+               _rstd_err(stats[1], ref[2]))
 
 
 def _max_err(a, b):
@@ -674,8 +719,12 @@ def phase_kernels(mx, ck):
     x = t(rs.randn(8, D).astype(np.float32))
     g = t(1 + 0.1 * rs.randn(D).astype(np.float32))
     b = t(0.1 * rs.randn(D).astype(np.float32))
-    got, ref = ck.layernorm(x, g, b, 1e-5), ck.layernorm_plain(x, g, b, 1e-5)
-    err = max(_max_err(p, q) for p, q in zip(got, ref))
+    err = 0.0
+    for xx, gg, bb in [(x, g, b)] + [
+            (t(3 * rs.randn(*e).astype(np.float32) + 1),
+             t(1 + 0.1 * rs.randn(e[1]).astype(np.float32)),
+             t(0.1 * rs.randn(e[1]).astype(np.float32))) for e in LN_EDGES]:
+        err = max(err, _ln_err(ck, xx, gg, bb))
     rec["layernorm"] = dict(
         max_abs_err=err, ms=_timed(lambda: ck.layernorm(x, g, b, 1e-5)),
         plain_ms=_timed(lambda: ck.layernorm_plain(x, g, b, 1e-5)),
@@ -734,6 +783,7 @@ def phase_kernels(mx, ck):
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_ring_kernels(ck, rs, t, rec))
     _flash_tensor_cores(ck)
+    _row_kernel_resources(ck)
     for half in HALF_SFX:
         calls.update(_lm_bf16_kernels(ck, rs, t, rec, half))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
@@ -741,6 +791,7 @@ def phase_kernels(mx, ck):
     calls.update(_bn_kernels(mx, ck, rs, t, rec))
     for half in HALF_SFX:
         calls.update(_bf16_kernels(mx, ck, rs, t, rec, half))
+    _launch_path_probe(ck)
     print("kernels: device_ms is CUDA events around each call with 1 GiB "
           "written before it (inputs read from device memory); the events' "
           f"floor (no call) {_device_ms(lambda: None):.6f} ms")
@@ -762,6 +813,214 @@ def phase_kernels(mx, ck):
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {err} > {TOL[name]}")
     return rec
+
+
+def _host_path_us(fn, reps=500, warm=50):
+    """Host microseconds per call of ``fn``: ``time.perf_counter_ns``
+    around ``reps`` calls (the card synchronized before; the launches it
+    makes are not waited for)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
+def _launch_path_probe(ck):
+    """The host's launch path of the LayerNorm and softmax wrappers at
+    the decode and ResNet-50 head shapes (float32), piece by piece: each
+    piece as the earlier path did it ("was", re-enacted here) and as the
+    wrappers do it now, host microseconds per call; then the whole
+    wrappers, the earlier wrapper re-enacted, and the one PyTorch call. The
+    re-enactment calls today's C entry point (one more pointer, a scratch
+    std) and counts into a scratch dict."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(8, D, device=dev, generator=gen)
+    g, b = torch.randn(D, device=dev, generator=gen), \
+        torch.randn(D, device=dev, generator=gen)
+    xs = torch.randn(TRAIN_BATCH, TRAIN_CLASSES, device=dev, generator=gen)
+    n, c = x.shape
+    fn_ln, ctr_ln = ck._fn("layernorm", "f32")
+    fn_sm, _ = ck._fn("softmax", "f32")
+    y, ys = torch.empty_like(x), torch.empty_like(xs)
+    stats = torch.empty((3, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev)
+    p = stats.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    ln_args = (x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), p,
+               p + 4 * n, p + 8 * n, n, c, 1e-5, stream)
+    sm_args = (xs.data_ptr(), ys.data_ptr(), *xs.shape, stream)
+    counts = dict.fromkeys(ck.COUNTERS, 0)
+    old_fns = {("layernorm", "mx_layernorm_fwd_f32"): fn_ln,
+               ("softmax", "mx_softmax_f32"): fn_sm}
+
+    def old_check(name, **tensors):        # the earlier _check
+        dev_ = None
+        for key, (t, dtype) in tensors.items():
+            if t.device.type != "cuda":
+                raise AssertionError(key)
+            if dev_ is not None and t.device != dev_:
+                raise AssertionError(key)
+            dev_ = t.device
+            if t.dtype != dtype:
+                raise AssertionError(key)
+            if not t.is_contiguous():
+                raise AssertionError(key)
+
+    def old_fn(name, key):                 # the earlier two-level lookup
+        return old_fns.get((name, ck._SPECS[name][1][key]))
+
+    def old_device():
+        with torch.cuda.device(x.device):
+            pass
+
+    def old_count(name):
+        counts[ck._counter(name, "f32")] += 1
+
+    def new_count():
+        counts[ctr_ln] += 1
+
+    def old_layernorm(x2, gamma, beta, eps):
+        if x2.device.type != "cuda":
+            raise AssertionError("cpu")
+        key = ck._instance("layernorm", x2)
+        old_check("layernorm", x=(x2, x2.dtype), gamma=(gamma, x2.dtype),
+                  beta=(beta, x2.dtype))
+        if x2.ndim != 2:
+            raise AssertionError("ndim")
+        n_, c_ = x2.shape
+        if gamma.shape != (c_,) or beta.shape != (c_,):
+            raise AssertionError("shape")
+        y_ = torch.empty_like(x2)
+        mean = torch.empty((n_,), dtype=torch.float32, device=x2.device)
+        rstd = torch.empty((n_,), dtype=torch.float32, device=x2.device)
+        with torch.cuda.device(x2.device):
+            st = torch.cuda.current_stream(x2.device).cuda_stream
+            err = old_fn("layernorm", key)(
+                x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                y_.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                scratch.data_ptr(), n_, c_, float(eps), st)
+        if err != 0:
+            raise AssertionError(err)
+        old_count("layernorm")
+        return y_, mean, rstd
+
+    def old_softmax(x2):
+        if x2.device.type != "cuda":
+            raise AssertionError("cpu")
+        key = ck._instance("softmax", x2)
+        old_check("softmax", x=(x2, x2.dtype))
+        if x2.ndim != 2 or x2.shape[1] > ck.SOFTMAX_MAX_C:
+            raise AssertionError("shape")
+        n_, c_ = x2.shape
+        y_ = torch.empty_like(x2)
+        with torch.cuda.device(x2.device):
+            st = torch.cuda.current_stream(x2.device).cuda_stream
+            err = old_fn("softmax", key)(x2.data_ptr(), y_.data_ptr(), n_,
+                                         c_, st)
+        if err != 0:
+            raise AssertionError(err)
+        old_count("softmax")
+        return y_
+
+    def old_op(x2, gamma, beta, eps):     # the op: Function, 1 / rstd
+        y_, mean, rstd, _ = ck._LayerNormFn.apply(x2, gamma, beta, eps)
+        return y_, mean, 1.0 / rstd
+
+    checks = dict(x=(x, x.dtype), gamma=(g, x.dtype), beta=(b, x.dtype))
+    pieces = [
+        ("device test", lambda: x.device.type == "cuda", lambda: x.is_cuda),
+        ("instance key", lambda: ck._instance("layernorm", x),
+         lambda: ck._instance("layernorm", x)),
+        ("check (3 tensors)", lambda: old_check("layernorm", **checks),
+         lambda: ck._check("layernorm", **checks)),
+        ("outputs", lambda: (torch.empty_like(x), torch.empty(
+            (n,), dtype=torch.float32, device=x.device), torch.empty(
+            (n,), dtype=torch.float32, device=x.device)),
+         lambda: (torch.empty_like(x), x.new_empty((3, n),
+                                                    dtype=torch.float32))),
+        ("statistics views", lambda: None, lambda: (stats[0], stats[1])),
+        ("device switch", old_device,
+         lambda: x.get_device() == torch._C._cuda_getDevice()),
+        ("stream", lambda: torch.cuda.current_stream(x.device).cuda_stream,
+         lambda: torch._C._cuda_getCurrentRawStream(0)),
+        ("bound function", lambda: old_fn("layernorm", "f32"),
+         lambda: ck._fns.get(("layernorm", "f32"))),
+        ("ctypes call + launch", lambda: fn_ln(*ln_args),
+         lambda: fn_ln(*ln_args)),
+        ("launch counter", lambda: old_count("layernorm"), new_count),
+        ("op's std (1 / rstd)", lambda: 1.0 / stats[1], lambda: None),
+        ("autograd.Function under no_grad",
+         lambda: ck._LayerNormFn.apply(x, g, b, 1e-5), lambda: None),
+    ]
+
+    def medians(*fns, rounds=5):
+        """Each call's host us, the calls timed in turns, median of
+        ``rounds`` (the host is shared: a piece timed alone can land in a
+        slow moment)."""
+        runs = [[_host_path_us(f) for f in fns] for _ in range(rounds)]
+        return [sorted(r[i] for r in runs)[rounds // 2]
+                for i in range(len(fns))]
+    floor, = medians(lambda: None)
+    print(f"launch path: host us per call (time.perf_counter_ns around 500 "
+          f"calls, was and now in turns, median of 5; an empty call "
+          f"{floor:.3f} us, not subtracted), LayerNorm at ({n}, {c}) "
+          f"float32, was (the earlier path, re-enacted) -> now")
+    with torch.no_grad():
+        for name, was, now in pieces:
+            a, b_ = medians(was, now)
+            print(f"launch path: {name}: {a:.3f} -> {b_:.3f}")
+        whole = [
+            ("layernorm wrapper", lambda: old_layernorm(x, g, b, 1e-5),
+             lambda: ck.layernorm(x, g, b, 1e-5),
+             lambda: F.layer_norm(x, (c,), g, b, 1e-5)),
+            # F.layer_norm hands Python one tensor; these, three
+            ("layernorm wrapper against the three-output call",
+             lambda: old_layernorm(x, g, b, 1e-5),
+             lambda: ck.layernorm(x, g, b, 1e-5),
+             lambda: torch.native_layer_norm(x, (c,), g, b, 1e-5)),
+            ("layernorm_stats (y and one statistics block)",
+             lambda: old_layernorm(x, g, b, 1e-5),
+             lambda: ck.layernorm_stats(x, g, b, 1e-5),
+             lambda: F.layer_norm(x, (c,), g, b, 1e-5)),
+            ("LayerNorm op (fused_layernorm, no grad)",
+             lambda: old_op(x, g, b, 1e-5),
+             lambda: ck.fused_layernorm(x, g, b, 1e-5),
+             lambda: F.layer_norm(x, (c,), g, b, 1e-5)),
+            (f"softmax wrapper {tuple(xs.shape)}",
+             lambda: old_softmax(xs), lambda: ck.softmax(xs),
+             lambda: torch.softmax(xs, -1)),
+            ("softmax ctypes call + launch", lambda: fn_sm(*sm_args),
+             lambda: fn_sm(*sm_args), lambda: torch.softmax(xs, -1))]
+        for name, was, now, lib in whole:
+            a, b_, l_ = medians(was, now, lib)
+            print(f"launch path: {name}: {a:.3f} -> {b_:.3f} (one PyTorch "
+                  f"call: {l_:.3f}; now / PyTorch {b_ / l_:.2f})")
+
+
+def _row_kernel_resources(ck):
+    """ptxas' registers and spills of every softmax and LayerNorm
+    instance; the row-resident designs may not spill."""
+    spills = []
+    for lib in ("softmax", "layernorm"):
+        for fn, r in sorted(ck.resources(lib).items()):
+            if "registers" not in r:
+                continue
+            print(f"resources {lib}: {fn}: registers={r['registers']} "
+                  f"spill_stores={r.get('spill_stores')} "
+                  f"spill_loads={r.get('spill_loads')}")
+            if r.get("spill_stores") or r.get("spill_loads"):
+                spills.append(fn)
+    if spills:
+        raise AssertionError(f"spilling row kernels: {spills}")
 
 
 def _decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1):
@@ -837,16 +1096,17 @@ def _training_kernels(mx, ck, rs, t, rec):
     import torch
     from mxnet_tpu_torch.ops.loss import softmax_output
     N, C = TRAIN_BATCH, TRAIN_CLASSES
-    # 5. softmax: (32, 1000), then C = 1, 1025 (block-per-row), 65536, N = 1
+    # 5. softmax: (32, 1000), then SOFTMAX_EDGES
     x = t(4 * rs.randn(N, C).astype(np.float32))
     err = _max_err(ck.softmax(x), ck.softmax_plain(x))
-    for shape in ((4, 1), (3, 1025), (2, 65536), (1, C)):
+    for shape in SOFTMAX_EDGES:
         e = t(4 * rs.randn(*shape).astype(np.float32))
         err = max(err, _max_err(ck.softmax(e), ck.softmax_plain(e)))
     rec["softmax"] = dict(
         max_abs_err=err, ms=_timed(lambda: ck.softmax(x)),
         plain_ms=_timed(lambda: ck.softmax_plain(x)),
         library_ms=_timed(lambda: torch.softmax(x, -1)),
+        library_call=lambda: torch.softmax(x, -1),
         bound=_bound_ms(2 * N * C * 4, 5 * N * C))
     # 6. cross-entropy backward: labels in range, past C and negative;
     #    the op's ignore mask and "valid" normalization through autograd
@@ -1142,8 +1402,10 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
     kernel's 128-row tiles, Dh 128, non-causal. Bounds at bfloat16 bytes
     and the bfloat16 peak.
     Also the softmax head's bfloat16 pair at the LM head's (8192, 32000)
-    beside the float32 pair's device times. Fills ``rec``; returns the
-    timed calls."""
+    beside the float32 pair's device times and ``torch.softmax``'s, the
+    softmax held to its plain version there, and LayerNorm at the LM's
+    (8192, 512) beside ``F.layer_norm`` (float32 with the bfloat16 call).
+    Fills ``rec``; returns the timed calls."""
     sfx = HALF_SFX[half]
     import numpy as np
     import torch
@@ -1249,14 +1511,49 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
     for dtype, tag, peak in heads + ((bf, "_" + sfx, BF16_FLOPS_PER_S),):
         z = (4 * head).to(dtype)
         p = ck.softmax(z)
+        want = ck.softmax_plain(z)
+        err = _max_err(p, want) if dtype == torch.float32 else \
+            _half_ulps(half, p, want)
+        del want
+        if not err <= TOL["softmax" + tag]:
+            raise AssertionError(f"softmax{tag} at the LM head: {err} > "
+                                 f"{TOL['softmax' + tag]}")
         nb = N * V * z.element_size()
         print(f"kernels: at the LM head's ({N}, {V}) {dtype}: softmax{tag} "
-              f"device_ms={_device_ms(lambda: ck.softmax(z), reps=10)} "
+              f"{'max_abs_err' if dtype == torch.float32 else 'ulps'}={err:.3g}"
+              f" device_ms={_device_ms(lambda: ck.softmax(z), reps=10)} "
+              f"library_device_ms="
+              f"{_device_ms(lambda: torch.softmax(z, -1), reps=10)} "
               f"bound_ms={_bound_ms(2 * nb, 5 * N * V, peak)[0]:.6f}; "
               f"softmax_ce_bwd{tag} device_ms="
               f"{_device_ms(lambda: ck.softmax_ce_bwd(p, lab, 1.0), reps=10)}"
               f" bound_ms={_bound_ms(2 * nb + N * 4, 3 * N * V, peak)[0]:.6f}")
-    del head, z, p
+        del z, p
+        xl = (3 * head[:, :D] + 1).to(dtype).contiguous()
+        gl = (1 + 0.1 * head[0, D:2 * D]).to(dtype)
+        bl = (0.1 * head[1, D:2 * D]).to(dtype)
+        y, stats = ck.layernorm_stats(xl, gl, bl, 1e-5)
+        ref = ck.layernorm_plain(xl, gl, bl, 1e-5)
+        err = _max_err(y, ref[0]) if dtype == torch.float32 else \
+            _half_ulps(half, y, ref[0], atol=2e-5)
+        stat_err = max(_max_err(stats[0], ref[1]),
+                       _rstd_err(stats[1], ref[2]))
+        if not (err <= TOL["layernorm" + tag] and stat_err <= 2e-5 and
+                torch.equal(stats[2], 1.0 / stats[1])):
+            raise AssertionError(f"layernorm{tag} at ({N}, {D}): {err}, "
+                                 f"statistics {stat_err}")
+        lb = 2 * N * D * xl.element_size() + 2 * D * xl.element_size() + \
+            3 * N * 4
+        print(f"kernels: LayerNorm at the LM's ({N}, {D}) {dtype}: "
+              f"layernorm{tag} "
+              f"{'max_abs_err' if dtype == torch.float32 else 'ulps'}="
+              f"{err:.3g} statistics {stat_err:.3g} device_ms="
+              f"{_device_ms(lambda: ck.layernorm(xl, gl, bl, 1e-5))} "
+              f"library_device_ms="
+              f"{_device_ms(lambda: F.layer_norm(xl, (D,), gl, bl, 1e-5))} "
+              f"bound_ms={_bound_ms(lb, 10 * N * D, peak)[0]:.6f}")
+        del xl, y, stats, ref
+    del head
     return {"layernorm_bwd_dx_" + sfx: lambda: ck.layernorm_bwd_dx(x, g, ct, m,
                                                                  r),
             "layernorm_bwd_dparams_" + sfx: lambda: ck.layernorm_bwd_dparams(
@@ -1545,18 +1842,20 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32, half="bfloat16"):
         bound=_bound_ms(n * 4 + 2 * n * D * 2, n * D, BF16_FLOPS_PER_S))
     x, g, b = (f32[k].to(bf) for k in ("x", "g", "b"))
     ulps = abs_err = stat_err = 0.0
-    for xx, gg, bb in ((x, g, b),
-                       (tb(3 * rs.randn(3, 100)), tb(rs.randn(100)),
-                        tb(rs.randn(100))),
-                       (tb(rs.randn(5, 13)), tb(rs.randn(13)),
-                        tb(rs.randn(13))),
-                       (skew(4 * D, 4, D), g, b)):
-        got, ref = ck.layernorm(xx, gg, bb, 1e-5), \
-            ck.layernorm_plain(xx, gg, bb, 1e-5)
-        ulps = max(ulps, _half_ulps(half, got[0], ref[0], atol=2e-5))
-        abs_err = max(abs_err, _max_err(got[0], ref[0]))
-        stat_err = max(stat_err, *(_max_err(p, q)
-                                   for p, q in zip(got[1:], ref[1:])))
+    for xx, gg, bb in [(x, g, b)] + [
+            (tb(3 * rs.randn(*e) + 1), tb(rs.randn(e[1])),
+             tb(rs.randn(e[1]))) for e in LN_EDGES] + [
+            (skew(4 * D, 4, D), g, b),
+            (skew(2 * 1024, 2, 1024), tb(rs.randn(1024)),
+             tb(rs.randn(1024)))]:
+        y, stats = ck.layernorm_stats(xx, gg, bb, 1e-5)
+        ref = ck.layernorm_plain(xx, gg, bb, 1e-5)
+        ulps = max(ulps, _half_ulps(half, y, ref[0], atol=2e-5))
+        abs_err = max(abs_err, _max_err(y, ref[0]))
+        stat_err = max(stat_err, _max_err(stats[0], ref[1]),
+                       _rstd_err(stats[1], ref[2]))
+        if not torch.equal(stats[2], 1.0 / stats[1]):
+            raise AssertionError(f"layernorm_{sfx}: std is not 1 / rstd")
     if not stat_err <= 2e-5:
         raise AssertionError(f"layernorm_bf16: mean/rstd off by {stat_err}")
     rec["layernorm_" + sfx] = dict(
@@ -1635,14 +1934,16 @@ def _bf16_kernels(mx, ck, rs, t, rec, half="bfloat16"):
     x = tb(4 * rs.randn(N, C).astype(np.float32))
     ulps = _half_ulps(half, ck.softmax(x), ck.softmax_plain(x))
     for e in [tb(4 * rs.randn(*sh).astype(np.float32))
-              for sh in ((1, 7), (3, 1025), (2, 65536), (4, 2))] + \
-            [skew(4 * C, 4, C)]:
+              for sh in SOFTMAX_EDGES + ((4, 2),)] + \
+            [skew(4 * C, 4, C), skew(3 * 1024, 3, 1024),
+             skew(2 * 32000, 2, 32000)]:
         ulps = max(ulps, _half_ulps(half, ck.softmax(e), ck.softmax_plain(e)))
     rec["softmax_" + sfx] = dict(
         max_abs_err=_max_err(ck.softmax(x), ck.softmax_plain(x)), ulps=ulps,
         ms=_timed(lambda: ck.softmax(x)),
         plain_ms=_timed(lambda: ck.softmax_plain(x)),
         library_ms=_timed(lambda: torch.softmax(x, -1)),
+        library_call=lambda: torch.softmax(x, -1),
         bound=_bound_ms(2 * N * C * 2, 5 * N * C, BF16_FLOPS_PER_S))
     p = ck.softmax_plain(x)
     lab = t(np.concatenate([rs.randint(0, C, N - 5),
@@ -1988,10 +2289,11 @@ def _step_recorder():
 
 class _HandOffStamps:
     """A DataIter seen through a clock: keeps the time at which each batch
-    is handed to ``fit``. From there to the batch's end callback is the
-    work that ``fit``'s ``module.fit.batch`` span times (forward, backward,
-    update, to completion) plus the metric update, and not the iterator's
-    host copy of the next batch, which the span leaves out."""
+    is handed to ``fit``. From there to the start of the batch's metric
+    update (``_metric_stamps``) is the work that ``fit``'s
+    ``module.fit.batch`` span times (forward, backward, update, to
+    completion), without the metric update and the iterator's host copy of
+    the next batch, which the span leaves out."""
 
     def __init__(self, it):
         self._it, self.stamps = it, []
@@ -2006,6 +2308,18 @@ class _HandOffStamps:
         batch = next(self._it)
         self.stamps.append(time.perf_counter())
         return batch
+
+
+def _metric_stamps(metric):
+    """Wrap ``metric.update`` to keep the time at which each batch's
+    metric update starts; returns the list of stamps."""
+    stamps, update = [], metric.update
+
+    def stamped(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        return update(*args, **kwargs)
+    metric.update = stamped
+    return stamps
 
 
 @contextlib.contextmanager
@@ -2027,9 +2341,10 @@ def _mfu_readings(mx, mod, it, batch_ms, rates, label):
     ``mfu.achieved_flops_per_sec`` (``rates``, the first batch excluded)
     lies within MFU_RTOL of those FLOPs plus the optimizer update's over
     the p50 of the script's own batch times (``batch_ms``: hand-off to
-    batch end, the same batches). The step time between end callbacks
-    also holds the iterator's host copy of the batch, which the span
-    leaves out, and which varies with the load on a shared host."""
+    the start of the metric update, the same batches). The step time
+    between end callbacks also holds the iterator's host copy of the
+    batch and the metric update, which the span leaves out, and which
+    vary with the load on a shared host."""
     import numpy as np
     from mxnet_tpu_torch.ops.cost import optimizer_flops
     from mxnet_tpu_torch.telemetry import metrics, mfu
@@ -2052,7 +2367,7 @@ def _mfu_readings(mx, mod, it, batch_ms, rates, label):
           f"{got['mfu.node_coverage']:.3f} mfu.achieved_flops_per_sec="
           f"{got['mfu.achieved_flops_per_sec']:.6g} (last batch; p50 over "
           f"the batches {100 * off:+.1f}% from the script's FLOPs per step "
-          f"{flops:.6g} over the p50 batch, hand-off to end, "
+          f"{flops:.6g} over the p50 batch, hand-off to metric update, "
           f"{np.percentile(batch_ms, 50):.2f} ms = {own:.6g} FLOP/s, limit "
           f"{100 * MFU_RTOL:.0f}%)")
     if got["mfu.flops_per_step"] != table["train_flops"] or \
@@ -2100,6 +2415,7 @@ def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
     before = {k: args[k].asnumpy() for k in watch}
     step_end, stamps, rates = _step_recorder()
     metric = mx.metric.create(["acc", "ce"])
+    metric_starts = _metric_stamps(metric)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launch_counts()
@@ -2111,7 +2427,7 @@ def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
                                                  else []), **fit_kw)
     counts = ck.launch_counts()
     steps = np.diff(stamps) * 1e3          # the first batch excluded
-    batches = (np.subtract(stamps, fed.stamps) * 1e3)[1:]
+    batches = (np.subtract(metric_starts, fed.stamps) * 1e3)[1:]
     got = dict(rate=items * len(steps) / (steps.sum() / 1e3),
                p50=float(np.percentile(steps, 50)),
                p99=float(np.percentile(steps, 99)),
@@ -2621,7 +2937,8 @@ def _unload(ck, names):
     in ``ck.libraries_loaded()``."""
     for name in names:
         ck._libs.pop(name, None)
-    for key in [k for k in ck._fns if k[0] in names]:
+    for key in [k for k in ck._fns
+                if ck._library(ck._WRAPPER_KERNEL[k[0]]) in names]:
         del ck._fns[key]
 
 

@@ -84,9 +84,15 @@ the plain version; given CUDA tensors it launches the kernel (building it
 first if needed) or raises — a build failure, a launch failure and an
 input the kernel does not take all raise, and nothing gives way to the
 plain version. Every launch is counted (``launch_counts()``) where it is
-made and nowhere else. The optimizer wrappers update the weight and state tensors
-in place on both devices, and on the card bump their version counters
-(the kernels write through raw pointers, which PyTorch does not see).
+made and nowhere else. A small kernel's time is mostly the host's: the
+launch path (``_check``, ``_launch``) reads plain tensor attributes, keeps
+each bound C function with its counter after the first call, takes the
+stream as a raw handle and switches devices only when it must; LayerNorm
+writes the op's std itself, its three statistics in one allocation
+(``layernorm_stats``). The optimizer wrappers update the weight and state
+tensors in place on both devices, and on the card bump their version
+counters (the kernels write through raw pointers, which PyTorch does not
+see).
 
 Build: at first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` per source, all started together, into
@@ -124,7 +130,8 @@ from .registry import get_op
 from .tensor import embedding_lookup
 
 __all__ = ["build", "embedding", "embedding_plain", "layernorm",
-           "layernorm_plain", "fused_layernorm", "bias_gelu",
+           "layernorm_plain", "layernorm_stats", "fused_layernorm",
+           "bias_gelu",
            "bias_gelu_plain", "decode_attention", "decode_attention_fp8",
            "decode_attention_plain",
            "softmax", "softmax_plain", "softmax_ce_bwd",
@@ -165,7 +172,7 @@ _SPECS = {
     "layernorm": ("layernorm.cu", {"f32": "mx_layernorm_fwd_f32",
                                    "bf16": "mx_layernorm_fwd_bf16",
                                    "f16": "mx_layernorm_fwd_f16"},
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "bias_gelu": ("bias_gelu.cu", {"f32": "mx_bias_gelu_f32",
                                    "bf16": "mx_bias_gelu_bf16",
                                    "f16": "mx_bias_gelu_f16"},
@@ -238,7 +245,8 @@ KERNELS = tuple(_SPECS)
 
 _lock = threading.Lock()
 _libs = {}             # library (source stem) -> loaded library
-_fns = {}              # (kernel name, C symbol) -> bound ctypes function
+_fns = {}              # (wrapper name, instance key) -> (bound ctypes
+                       # function, launch counter)
 build_log = {}         # library -> nvcc's stderr (ptxas register report),
                        # kept beside the library
 
@@ -307,24 +315,22 @@ def build(names=KERNELS):
     return time.perf_counter() - t0
 
 
-def _fn(name, key):
-    """The bound C entry point of instance ``key`` of kernel ``name``,
-    building and loading its library on first use."""
-    sym = _SPECS[name][1][key]
-    fn = _fns.get((name, sym))
-    if fn is not None:
-        return fn
+def _fn(wrapper, key):
+    """(the bound C entry point, the launch counter) of instance ``key``
+    of wrapper ``wrapper``'s kernel, building and loading its library on
+    first use; resolved once and kept in ``_fns``."""
+    name = _WRAPPER_KERNEL[wrapper]
     lib = _library(name)
     with _lock:
         if lib not in _libs:
             build([name])
             _libs[lib] = ctypes.CDLL(str(_lib_path(lib)))
-        if (name, sym) not in _fns:
-            fn = getattr(_libs[lib], sym)
+        if (wrapper, key) not in _fns:
+            fn = getattr(_libs[lib], _SPECS[name][1][key])
             fn.argtypes = _SPECS[name][2]
             fn.restype = ctypes.c_int
-            _fns[(name, sym)] = fn
-    return _fns[(name, sym)]
+            _fns[(wrapper, key)] = fn, _counter(wrapper, key)
+    return _fns[(wrapper, key)]
 
 
 def _tool(name):
@@ -426,14 +432,21 @@ def _instance(name, t, storage=None):
 def _launch(name, key, tensor, *args):
     """Launch instance ``key`` of wrapper ``name``'s kernel on the current
     stream of ``tensor``'s device, raise on a refused launch, and count
-    the launch under the instance's counter."""
-    with torch.cuda.device(tensor.device):
-        stream = torch.cuda.current_stream(tensor.device).cuda_stream
-        err = _fn(_WRAPPER_KERNEL[name], key)(*args, stream)
+    the launch under the instance's counter. The host's cost is most of a
+    small kernel's time, so this path reads raw handles: the stream as an
+    integer (no ``Stream`` object), and the device is switched only when
+    the tensor is not on the current one."""
+    bound = _fns.get((name, key)) or _fn(name, key)
+    dev = tensor.get_device()
+    if dev == torch._C._cuda_getDevice():
+        err = bound[0](*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = bound[0](*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise MXNetError(f"CUDA kernel {name!r} launch failed: cudaError "
                          f"{err}")
-    _LAUNCHES[_counter(name, key)] += 1
+    _LAUNCHES[bound[1]] += 1
 
 
 #: what the float32-only kernels (the updates on float32 master weights)
@@ -445,16 +458,20 @@ _HALF_LATER = ("the update kernels read float32 master weights, states and "
 
 def _check(name, **tensors):
     """The inputs a kernel takes: the dtype named for each, contiguous,
-    all on one CUDA device. Anything else raises."""
+    all on one CUDA device. Anything else raises. Plain attribute reads
+    (``is_cuda``, ``get_device()``): a ``device`` object is built only for
+    an error's message."""
     dev = None
     for key, (t, dtype) in tensors.items():
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise MXNetError(f"{name}: {key} is on {t.device}, the kernel "
                              "needs a CUDA tensor")
-        if dev is not None and t.device != dev:
-            raise MXNetError(f"{name}: inputs span {dev} and {t.device}")
-        dev = t.device
-        if t.dtype != dtype:
+        index = t.get_device()
+        if dev is not None and index != dev:
+            raise MXNetError(f"{name}: inputs span "
+                             f"{torch.device('cuda', dev)} and {t.device}")
+        dev = index
+        if t.dtype is not dtype:
             raise MXNetError(f"{name}: {key} is {t.dtype}, the kernel "
                              f"takes {dtype}")
         if not t.is_contiguous():
@@ -463,9 +480,9 @@ def _check(name, **tensors):
 
 def _cpu_or_cuda(name, t):
     """True for CUDA, False for CPU; raise for any other device."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise MXNetError(f"{name}: no kernel or plain version for device "
                      f"{t.device}")
@@ -529,7 +546,7 @@ def embedding(ids, weight, scale=1.0):
         raise MXNetError(f"embedding: want ids (N,) and weight (V, D), got "
                          f"{tuple(ids.shape)} and {tuple(weight.shape)}")
     n, (v, d) = ids.shape[0], weight.shape
-    out = torch.empty((n, d), dtype=weight.dtype, device=weight.device)
+    out = weight.new_empty((n, d))
     _launch("embedding", key, weight, ids.data_ptr(), weight.data_ptr(),
             out.data_ptr(), n, v, d, float(scale))
     return out
@@ -588,15 +605,15 @@ def _embedding_cuda(attrs, inputs, aux, is_train, rng):
 # 2. LayerNorm forward
 # ==========================================================================
 def layernorm_plain(x2, gamma, beta, eps):
-    """Two-pass float32 statistics over the last axis of x2 (N, C):
-    returns (y (N, C), mean (N,), rstd (N,))."""
+    """Two-pass float32 statistics over the last axis of x2 (N, C) (or
+    any (..., C)): returns (y like x2, mean (N,), rstd (N,))."""
     x = x2.to(torch.float32)
     mean = x.mean(dim=-1, keepdim=True)
     d = x - mean
     var = (d * d).mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     y = d * rstd * gamma.to(torch.float32) + beta.to(torch.float32)
-    return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
+    return y.to(x2.dtype), mean[..., 0], rstd[..., 0]
 
 
 @_wrapper("layernorm")
@@ -604,64 +621,92 @@ def layernorm(x2, gamma, beta, eps):
     """LayerNorm of x2 (N, C) float32, bfloat16 or float16 (gamma, beta
     (C,) of the same dtype) -> (y in x2's dtype, mean (N,), rstd (N,)
     float32): float32 statistics and arithmetic, y rounded once."""
-    if not _cpu_or_cuda("layernorm", x2):
-        return layernorm_plain(x2, gamma, beta, eps)
-    key = _instance("layernorm", x2)
-    _check("layernorm", x=(x2, x2.dtype), gamma=(gamma, x2.dtype),
-           beta=(beta, x2.dtype))
     if x2.ndim != 2:
         raise MXNetError(f"layernorm: want x (N, C), got {tuple(x2.shape)}")
-    n, c = x2.shape
+    y, stats = layernorm_stats(x2, gamma, beta, eps)
+    return y, stats[0], stats[1]
+
+
+def layernorm_stats(x, gamma, beta, eps):
+    """``layernorm`` over the last axis of x (..., C), with its
+    statistics in one float32 block: ``(y, stats)``, y shaped like x and
+    stats (3, ...) holding the mean, rstd and the LayerNorm op's std
+    output ``1 / rstd`` (an IEEE division, bit for bit PyTorch's ``1.0 /
+    rstd``). On the card one launch writes all four, and the statistics
+    take one allocation."""
+    if not _cpu_or_cuda("layernorm", x):
+        y, mean, rstd = layernorm_plain(x, gamma, beta, eps)
+        return y, torch.stack((mean, rstd, 1.0 / rstd))
+    key = _instance("layernorm", x)
+    _check("layernorm", x=(x, x.dtype), gamma=(gamma, x.dtype),
+           beta=(beta, x.dtype))
+    c = x.shape[-1]
     if gamma.shape != (c,) or beta.shape != (c,):
         raise MXNetError(f"layernorm: gamma/beta must be ({c},)")
-    y = torch.empty_like(x2)
-    mean = torch.empty((n,), dtype=torch.float32, device=x2.device)
-    rstd = torch.empty((n,), dtype=torch.float32, device=x2.device)
-    _launch("layernorm", key, x2, x2.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            n, c, float(eps))
-    return y, mean, rstd
+    y = torch.empty_like(x)
+    stats = x.new_empty((3,) + x.shape[:-1], dtype=torch.float32)
+    n = stats.numel() // 3
+    mean = stats.data_ptr()
+    _launch("layernorm", key, x, x.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), y.data_ptr(), mean, mean + 4 * n,
+            mean + 8 * n, n, c, float(eps))
+    return y, stats
 
 
 class _LayerNormFn(torch.autograd.Function):
-    """Forward: the LayerNorm kernel, which saves mean and rstd.
-    Backward: ``layernorm_bwd_dx`` and ``layernorm_bwd_dparams``; the
+    """Forward: the LayerNorm kernel over x (..., C), which saves mean
+    and rstd and also returns the op's std. Backward:
+    ``layernorm_bwd_dx`` and ``layernorm_bwd_dparams`` over the rows; the
     cotangents of the statistic outputs count as zero (they are marked
     non-differentiable), as in ``_ln_pl_bwd_rule``."""
 
     @staticmethod
-    def forward(ctx, x2, gamma, beta, eps):
-        y, mean, rstd = layernorm(x2, gamma, beta, eps)
-        ctx.save_for_backward(x2, gamma, mean, rstd)
-        ctx.mark_non_differentiable(mean, rstd)
-        return y, mean, rstd
+    def forward(ctx, x, gamma, beta, eps):
+        y, stats = layernorm_stats(x, gamma, beta, eps)
+        mean, rstd, std = stats.unbind(0)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.mark_non_differentiable(mean, rstd, std)
+        # the statistics' cotangents are never read: no zeros are made
+        # (a fill launch each) for them
+        ctx.set_materialize_grads(False)
+        return y, mean, rstd, std
 
     @staticmethod
-    def backward(ctx, gy, _gmean, _grstd):
-        x2, gamma, mean, rstd = ctx.saved_tensors
-        gy = gy.contiguous()
+    def backward(ctx, gy, _gmean, _grstd, _gstd):
+        if gy is None:
+            return None, None, None, None
+        x, gamma, mean, rstd = ctx.saved_tensors
+        c = x.shape[-1]
+        x2, gy = x.reshape(-1, c), gy.reshape(-1, c).contiguous()
+        mean, rstd = mean.reshape(-1), rstd.reshape(-1)
         dx = dg = db = None
         if ctx.needs_input_grad[0]:
-            dx = layernorm_bwd_dx(x2, gamma, gy, mean, rstd)
+            dx = layernorm_bwd_dx(x2, gamma, gy, mean, rstd).reshape(x.shape)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dg, db = layernorm_bwd_dparams(x2, gy, mean, rstd)
         return dx, dg, db, None
 
 
-def layernorm_fn(x2, gamma, beta, eps):
-    """Differentiable ``layernorm``: (y, mean, rstd) of x2 (N, C)."""
-    return _LayerNormFn.apply(x2, gamma, beta, float(eps))
+def layernorm_fn(x, gamma, beta, eps):
+    """Differentiable ``layernorm`` over the last axis of x (..., C)
+    contiguous: (y, mean, rstd, std), std = 1 / rstd."""
+    return _LayerNormFn.apply(x, gamma, beta, float(eps))
 
 
 def fused_layernorm(data, gamma, beta, eps=1e-5):
     """The LayerNorm op's contract over the last axis: ``(out, mean,
-    std)`` with mean/std shaped ``data.shape[:-1]`` and std = 1/rstd."""
-    c = data.shape[-1]
-    y, mean, rstd = layernorm_fn(data.reshape(-1, c).contiguous(), gamma,
-                                 beta, eps)
-    lead = data.shape[:-1]
-    return y.reshape(data.shape), mean.reshape(lead), \
-        (1.0 / rstd).reshape(lead)
+    std)`` with mean/std shaped ``data.shape[:-1]`` and std = 1/rstd (the
+    kernel's own output: nothing is launched after it). Where no gradient
+    is recorded (serving) the kernel is called without the
+    ``autograd.Function`` around it: each tensor object made costs the
+    host microseconds."""
+    x = data.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        y, mean, _rstd, std = layernorm_fn(x, gamma, beta, eps)
+        return y, mean, std
+    y, stats = layernorm_stats(x, gamma, beta, eps)
+    return y, stats[0], stats[2]
 
 
 def _layernorm_cuda(attrs, inputs, aux, is_train, rng):
@@ -800,7 +845,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise MXNetError("decode_attention: the caches must be 16-byte "
                          "aligned")
-    out = torch.empty((B, H, S, Dh), dtype=torch.float32, device=q.device)
+    out = q.new_empty((B, H, S, Dh), dtype=torch.float32)
     _launch("decode_attention", key, q, q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, S, C,
             Dh, float(Dh) ** -0.5)
@@ -1030,9 +1075,9 @@ def layernorm_bwd_dparams(x2, ct, mean, rstd):
     _check_ln_bwd("layernorm_bwd_dparams", x2, ct, mean, rstd)
     n, c = x2.shape
     rows, chunks = _dparams_chunks(n)
-    part = torch.empty((2, chunks, c), dtype=torch.float32, device=x2.device)
-    dg = torch.empty((c,), dtype=x2.dtype, device=x2.device)
-    db = torch.empty((c,), dtype=x2.dtype, device=x2.device)
+    part = x2.new_empty((2, chunks, c), dtype=torch.float32)
+    dg = x2.new_empty((c,))
+    db = x2.new_empty((c,))
     _launch("layernorm_bwd_dparams", key, x2, x2.data_ptr(), ct.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), n, c, rows,
@@ -1211,8 +1256,8 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise MXNetError("flash_attention_partial: q, k, v must be 16-byte "
                          "aligned")
-    acc = torch.empty((B, H, Tq, Dh), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    acc = q.new_empty((B, H, Tq, Dh), dtype=torch.float32)
+    m = q.new_empty((B, H, Tq), dtype=torch.float32)
     l = torch.empty_like(m)
     _launch("flash_attention_partial", key, q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B * H,
@@ -1261,7 +1306,7 @@ def qfc_matmul(x2, wq, scale):
     (m, k), n = x2.shape, wq.shape[0]
     if m > 64 * 65535:
         raise MXNetError(f"qfc_matmul: M={m} > {64 * 65535}")
-    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    out = x2.new_empty((m, n), dtype=torch.float32)
     _launch("qfc_matmul", key, x2, x2.data_ptr(), wq.data_ptr(),
             scale.data_ptr(), out.data_ptr(), m, n, k)
     return out
@@ -1283,7 +1328,7 @@ def dequant_rows(wq2, scale):
                          f"(O,), got {tuple(wq2.shape)}, "
                          f"{tuple(scale.shape)}")
     rows, cols = wq2.shape
-    out = torch.empty((rows, cols), dtype=torch.float32, device=wq2.device)
+    out = wq2.new_empty((rows, cols), dtype=torch.float32)
     _launch("dequant_rows", key, wq2, wq2.data_ptr(), scale.data_ptr(),
             out.data_ptr(), rows, cols)
     return out
@@ -1334,9 +1379,9 @@ def bn_stats(x4):
     if rows * h * w + 256 >= 2 ** 31:
         raise MXNetError(f"bn_stats: {rows} rows of {h * w} values exceed a "
                          "first-stage slice's 32-bit index")
-    part = torch.empty((2, slices, c), dtype=torch.float32, device=x4.device)
-    s = torch.empty((c,), dtype=torch.float32, device=x4.device)
-    sq = torch.empty((c,), dtype=torch.float32, device=x4.device)
+    part = x4.new_empty((2, slices, c), dtype=torch.float32)
+    s = x4.new_empty((c,), dtype=torch.float32)
+    sq = x4.new_empty((c,), dtype=torch.float32)
     _launch("bn_stats", key, x4, x4.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), s.data_ptr(), sq.data_ptr(), n, c, h * w,
             rows, slices)

@@ -117,12 +117,53 @@ def test_embedding_kernel(dev, v, d):
               tol=0)
 
 
+#: LayerNorm shapes: the decode and LM rows, the register route's limit
+#: +-1 (C = 1024), C = 1, odd C, N = 1, and a walked row
+LN_SHAPES = [(8, 512), (8192, 512), (3, 100), (5, 13), (1, 4096), (2, 1023),
+             (2, 1024), (2, 1025), (4, 1), (1, 512)]
+#: softmax shapes: each route's limits +-1 (one warp to C = 1024, one block
+#: to 32768 with 16-byte units and 16384 without, a cluster to 65536), the
+#: ResNet-50 head, the LM head's C = 32000 at N = 64, C = 1, odd C, N = 1
+SOFTMAX_SHAPES = [(32, 1000), (1, 7), (5, 1), (70, 33), (3, 1023), (2, 1024),
+                  (3, 1025), (2, 16383), (2, 16384), (2, 16385), (2, 32767),
+                  (2, 32768), (2, 32769), (64, 32000), (2, 65536)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(8, 512), (3, 100), (5, 13), (1, 4096)])
+@pytest.mark.parametrize("n,c", LN_SHAPES)
 def test_layernorm_kernel(dev, n, c):
+    """y, mean and rstd within 2e-5 of the plain version; the op's std,
+    written by the same launch, is 1 / rstd bit for bit."""
     x = 3 * _rnd(dev, n, c) + 1
     g, b = _rnd(dev, c, seed=1), _rnd(dev, c, seed=2)
     _same(ck.layernorm(x, g, b, 1e-5), ck.layernorm_plain(x, g, b, 1e-5))
+    _, stats = ck.layernorm_stats(x, g, b, 1e-5)
+    assert torch.equal(stats[2], 1.0 / stats[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fused_layernorm_launches_one_kernel_for_all_outputs(dev, dtype):
+    """The LayerNorm op's (out, mean, std) from one kernel launch, with
+    and without a gradient recorded: std equals 1 / rstd bit for bit and
+    the op's outputs match the plain composition's."""
+    x = (3 * _rnd(dev, 2, 3, 64) + 1).to(dtype)
+    g = _rnd(dev, 64, seed=1).to(dtype)
+    b = _rnd(dev, 64, seed=2).to(dtype)
+    sfx = {torch.float32: "", torch.bfloat16: "_bf16",
+           torch.float16: "_f16"}[dtype]
+    for grad in (False, True):
+        gg = g.clone().requires_grad_(grad)
+        before = ck.launch_counts()["layernorm" + sfx]
+        y, mean, std = ck.fused_layernorm(x, gg, b, 1e-5)
+        assert ck.launch_counts()["layernorm" + sfx] == before + 1
+        _, pmean, prstd = ck.layernorm_plain(x.reshape(-1, 64), g, b, 1e-5)
+        _, stats = ck.layernorm_stats(x, g, b, 1e-5)
+        assert torch.equal(std, 1.0 / stats[1])
+        assert std.shape == mean.shape == (2, 3) and y.shape == x.shape
+        _same((mean.reshape(-1), (1.0 / std).reshape(-1)), (pmean, prstd))
+        assert y.requires_grad == grad
 
 
 @pytest.mark.cuda
@@ -315,11 +356,58 @@ def test_small_model_fast_paths_alike_on_card_and_cpu(dev, cache_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c", [(32, 1000), (1, 7), (5, 1), (3, 1025),
-                                 (2, 65536), (70, 33)])
+@pytest.mark.parametrize("n,c", SOFTMAX_SHAPES)
 def test_softmax_kernel(dev, n, c):
-    x = 4 * _rnd(dev, n, c)
-    _same(ck.softmax(x), ck.softmax_plain(x))
+    """Within 2e-5 of the plain version, aligned and on a view one value
+    off its allocation (one value at a time)."""
+    for x in (4 * _rnd(dev, n, c), (4 * _rnd(dev, n * c + 1))[1:].view(n, c)):
+        _same(ck.softmax(x), ck.softmax_plain(x))
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_as_they_did(dev):
+    """The launch path's checks keep their errors and messages: a CPU
+    input, a dtype no instance takes or that differs from the data's, a
+    non-contiguous input."""
+    x, g = _rnd(dev, 4, 8), _rnd(dev, 8)
+    cases = [
+        (lambda: ck.layernorm(x, g.cpu(), g, 1e-5),
+         "layernorm: gamma is on cpu, the kernel needs a CUDA tensor"),
+        (lambda: ck.layernorm(x, g, g.double(), 1e-5),
+         "layernorm: beta is torch.float64, the kernel takes torch.float32"),
+        (lambda: ck.layernorm(x.double(), g.double(), g.double(), 1e-5),
+         "layernorm: no kernel instance takes torch.float64 data; it has "
+         "torch.bfloat16, torch.float16, torch.float32"),
+        (lambda: ck.layernorm(_rnd(dev, 8, 4).t(), g, g, 1e-5),
+         "layernorm: x must be contiguous"),
+        (lambda: ck.softmax(_rnd(dev, 8, 4).t()),
+         "softmax: x must be contiguous"),
+        (lambda: ck.softmax(x.double()),
+         "softmax: no kernel instance takes torch.float64 data; it has "
+         "torch.bfloat16, torch.float16, torch.float32"),
+        (lambda: ck.softmax_ce_bwd(x, torch.zeros(4), 1.0),
+         "softmax_ce_bwd: label is on cpu, the kernel needs a CUDA tensor"),
+        (lambda: ck.bias_gelu(x, g.to(torch.bfloat16)),
+         "bias_gelu: bias is torch.bfloat16, the kernel takes "
+         "torch.float32"),
+    ]
+    for call, message in cases:
+        with pytest.raises(MXNetError) as err:
+            call()
+        assert str(err.value) == message
+
+
+@pytest.mark.cuda
+def test_row_kernels_do_not_spill(dev):
+    """ptxas' report shows 0 bytes of spill stores and loads for every
+    softmax and LayerNorm instance: their rows live in registers."""
+    for lib in ("softmax", "layernorm"):
+        res = {fn: r for fn, r in ck.resources(lib).items()
+               if "registers" in r}
+        assert len(res) >= (30 if lib == "softmax" else 24), sorted(res)
+        for fn, r in res.items():
+            assert r["spill_stores"] == r["spill_loads"] == 0, fn
+            assert r["registers"] <= (64 if "softmax_block" in fn else 255)
 
 
 @pytest.mark.cuda
@@ -976,8 +1064,7 @@ def _misaligned_bf16(dev, n, *shape, dtype=torch.bfloat16):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("half", list(HALVES))
-@pytest.mark.parametrize("n,c", [(32, 1000), (1, 7), (5, 1), (3, 1025),
-                                 (2, 65536), (4, 2)])
+@pytest.mark.parametrize("n,c", SOFTMAX_SHAPES + [(4, 2)])
 def test_softmax_bf16_kernel(dev, n, c, half):
     """The bfloat16 instance within one bfloat16 ulp of its plain version
     (a row sums in another order in float32, which can move a quotient
@@ -1123,7 +1210,7 @@ def test_embedding_bf16_kernel(dev, v, d, half):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("half", list(HALVES))
-@pytest.mark.parametrize("n,c", [(8, 512), (3, 100), (5, 13), (1, 4096)])
+@pytest.mark.parametrize("n,c", LN_SHAPES)
 def test_layernorm_bf16_kernel(dev, n, c, half):
     """y within one bfloat16 ulp of its plain version beyond the float32
     kernel's 2e-5 (the product order can move a rounding), mean and rstd
@@ -1140,6 +1227,8 @@ def test_layernorm_bf16_kernel(dev, n, c, half):
         assert y.dtype == hd and mean.dtype == torch.float32
         assert _ulps16(half, y, py, atol=TOL) <= 1
         _same((mean, rstd), (pmean, prstd))
+        _, stats = ck.layernorm_stats(x, g, b, 1e-5)
+        assert torch.equal(stats[2], 1.0 / stats[1])
         assert after["layernorm_" + sfx] == before["layernorm_" + sfx] + 1
         assert after["layernorm"] == before["layernorm"]
 
