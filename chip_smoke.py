@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all sixteen in parallel; the flash-attention
+   ``nvcc`` per source, all fifteen in parallel; the flash-attention
    source holds the normalized forward and ring attention's partial
-   mode; thirteen kernels hold a
+   mode, the LayerNorm-backward source dx, dgamma and dbeta in one
+   kernel; twelve kernels hold a
    float32, a bfloat16 and a float16 instance, and the dequant-fused
    matmul takes float32, bfloat16 and float16 x), print the build
    seconds,
@@ -28,10 +29,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the bfloat16 instances of softmax, the CE gradient and the BatchNorm
    pair at the bfloat16 ResNet-50 path's shapes and edges, of the
    gather, LayerNorm, GeLU and the decode read at the bfloat16 decode
-   path's shapes and edges, and of the LayerNorm backward pair, GeLU'
-   and flash attention at the bfloat16 LM path's shapes and edges,
-   bounds at bfloat16 bytes; the float16 instances of the same twelve
-   kernels at the same shapes and edges, and the dequant-fused matmul's
+   path's shapes and edges, and of the LayerNorm backward, GeLU' and
+   flash attention at the bfloat16 LM path's shapes and edges, bounds at
+   bfloat16 bytes; the float16 instances of the same eleven kernels at
+   the same shapes and edges; the LayerNorm backward's one call (dx,
+   dgamma and dbeta) in the three types at the LM's (8192, 512) and edges
+   (the register route's limit C = 1024 +-1, the eligibility bound),
+   repeated bit for bit, each single-half wrapper giving its half bit for
+   bit, its device time beside ``native_layer_norm_backward``'s and the
+   pair's bound; and the dequant-fused matmul's
    bfloat16 and float16 instances at the quantized path's; the softmax
    head's pair at the LM head's (8192, 32000) in float32, bfloat16 and
    float16, device time beside the bound and ``torch.softmax``'s, the
@@ -41,8 +47,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.softmax``'s device times beside the kernels' at the decode and
    ResNet-50 head shapes; the host's launch path of the LayerNorm and
    softmax wrappers, piece by piece, as it is and as it was (the earlier
-   path re-enacted); ptxas' registers and spills of every softmax and
-   LayerNorm instance (none may spill); each flash-attention
+   path re-enacted); ptxas' registers and spills of every softmax,
+   LayerNorm and LayerNorm-backward instance (none may spill); each
+   flash-attention
    instance's HGMMA count in its SASS and ptxas' registers and spills —
    the 16-bit instances, both modes, must run on the tensor cores without
    spilling and the float32 ones off them);
@@ -79,7 +86,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    seed 0, Xavier init, SGD lr 0.05) through ``Module.fit`` on ``gpu(0)``
    for 8 batches: tokens/s and p50/p99 step ms without the first batch,
    peak device memory, kernel launches per step (embedding 1, LayerNorm
-   17 forward + 17 dx + 17 dgamma/dbeta, GeLU 8 + 8, flash attention 8,
+   17 forward + 17 backward (``ln_bwd``: dx, dgamma and dbeta in one call;
+   none from the single-half wrappers), GeLU 8 + 8, flash attention 8,
    softmax 1, cross-entropy backward 1), a finite loss, moved
    parameters and the fit's MFU readings as in phase 5;
 10. one SGD step of the same LM at batch 2, T=128 on the card and on the
@@ -230,8 +238,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (float32, bfloat16, bfloat16, float32; 8 batches each, telemetry on):
    tokens/s, p50/p99 step ms, peak device memory and the MFU readings of
    each; every bfloat16 step launches exactly 1 ``embedding_bf16``, 17
-   ``layernorm_bf16`` + 17 ``layernorm_bwd_dx_bf16`` + 17
-   ``layernorm_bwd_dparams_bf16``, 8 ``bias_gelu_bf16`` + 8
+   ``layernorm_bf16`` + 17 ``layernorm_bwd_bf16``, 8 ``bias_gelu_bf16`` + 8
    ``bias_gelu_dx_bf16``, 8 ``flash_attention_bf16``, 1 ``softmax_bf16``
    and 1 ``softmax_ce_bwd_bf16`` and no float32 instance; one cast per
    parameter per step (99: the tied embedding table once); a finite
@@ -297,11 +304,26 @@ diagonal, a past shard, a future shard (rows that see no key), Tq != Tk):
    launches (2 x 10 a step), every parameter within ``BF16_SPREAD`` times
    the unsharded 16-bit-vs-float32 distance plus one ulp.
 
+Then fine-tuning with frozen parameters, the path of the LayerNorm
+backward's single-half wrappers:
+
+49. (run after 48) the bench LM at full width cut to 2 layers, T=1024,
+   batch 8, its embedding table and every LayerNorm's gamma / beta but
+   the first's frozen (``bind(grad_req=...)``), one SGD step in float32,
+   bfloat16 and float16: exactly 4 ``layernorm_bwd_dx`` (dx alone) and 1
+   ``layernorm_bwd_dparams`` (dgamma / dbeta alone: the first
+   LayerNorm's input needs no gradient) launches and no
+   ``layernorm_bwd``; every trained parameter's gradient within
+   FROZEN_GRAD_RTOL of the same step with every parameter trained (5
+   ``layernorm_bwd`` launches); frozen parameters unmoved.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
 while fitting with Adam, the LayerNorm and GeLU backward kernels and
-flash attention while fitting the LM, the quantized kernels while
+flash attention while fitting the LM (the LayerNorm backward's
+single-half wrappers, ``ln_bwd_dx`` / ``ln_bwd_dparams`` and their 16-bit
+counters, in phase 49's frozen steps), the quantized kernels while
 serving int8 and fp8, the BatchNorm pair while fitting and serving the
 fused ResNet-50, ``decode_attention_fp8`` (the decode kernel's fp8
 instances) while serving the fp8 caches, the softmax, CE-gradient and
@@ -335,21 +357,25 @@ PROMPT, NEW, N_REQ = 16, 64, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 # ln_bwd_dparams: sums over up to 8192 rows reach a few hundred, where a
-# float32 ulp is 3e-5, and the plain version sums in another order
+# float32 ulp is 3e-5, and the plain version sums in another order; ln_bwd
+# (dx, dgamma and dbeta from one call) is held to both limits, dx to
+# ln_bwd_dx's and the sums to ln_bwd_dparams', and its line shows the
+# larger error against the sums' limit
 # qfc_matmul's error is relative to the output's largest magnitude (it
 # sums K products in another order than cuBLAS); dequant_rows is exact
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "decode_attention": 2e-5, "decode_attention_fp8": 2e-5,
        "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
        "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
-       "ln_bwd_dparams": 5e-4, "bias_gelu_dx": 2e-5,
+       "ln_bwd_dparams": 5e-4, "ln_bwd": 5e-4, "bias_gelu_dx": 2e-5,
        "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0,
        "bn_stats": 1e-5, "bn_apply_relu": 0.0,
        "softmax_bf16": 1.0, "softmax_ce_bwd_bf16": 0.0,
        "bn_stats_bf16": 1e-5, "bn_apply_relu_bf16": 0.0,
        "embedding_bf16": 0.0, "layernorm_bf16": 1.0, "bias_gelu_bf16": 1.0,
        "decode_attention_bf16": 2e-5, "layernorm_bwd_dx_bf16": 1.0,
-       "layernorm_bwd_dparams_bf16": 1.0, "bias_gelu_dx_bf16": 1.0,
+       "layernorm_bwd_dparams_bf16": 1.0, "layernorm_bwd_bf16": 1.0,
+       "bias_gelu_dx_bf16": 1.0,
        "flash_attention_bf16": 1.0, "qfc_matmul_bf16": 1e-5,
        "flash_attention_partial": 2e-5, "flash_attention_partial_bf16": 2e-5}
 # the float16 instances: the bfloat16 instances' limits, in float16 ulps
@@ -388,6 +414,12 @@ SOFTMAX_EDGES = ((4, 1), (1, 7), (70, 33), (3, 1023), (2, 1024), (3, 1025),
 #: odd C, N = 1
 LN_EDGES = ((3, 100), (5, 13), (1, 4096), (2, 1023), (2, 1024), (2, 1025),
             (4, 1), (1, 512))
+#: the LayerNorm backward's edge shapes: one row, one column, the
+#: eligibility bound (two of the walked route's 64-row chunks at N = 65),
+#: the register route's limit +-1 (C = 1024) over more rows than one
+#: grid's warps at N = 3000, odd C
+LN_BWD_EDGES = ((1, D), (64, 1), (2, 65536), (65, 4096), (70, 1023),
+                (3000, 1024), (70, 1025), (300, 100), (5, 13))
 REPLACES = {
     "embedding": "mxnet_tpu/ops/pallas_kernels.py:858",
     "layernorm": "mxnet_tpu/ops/pallas_kernels.py:585",
@@ -400,6 +432,8 @@ REPLACES = {
     "adam": "mxnet_tpu/ops/pallas_kernels.py:509",
     "ln_bwd_dx": "mxnet_tpu/ops/pallas_kernels.py:600",
     "ln_bwd_dparams": "mxnet_tpu/ops/pallas_kernels.py:612",
+    # both TPU kernels (:600 dx, :612 dgamma / dbeta) in one launch
+    "ln_bwd": "mxnet_tpu/ops/pallas_kernels.py:600",
     "bias_gelu_dx": "mxnet_tpu/ops/pallas_kernels.py:751",
     "flash_attention": "mxnet_tpu/rtc.py:301",
     "qfc_matmul": "mxnet_tpu/ops/quant.py:151",
@@ -416,6 +450,7 @@ REPLACES = {
     "decode_attention_bf16": "mxnet_tpu/ops/pallas_kernels.py:953",
     "layernorm_bwd_dx_bf16": "mxnet_tpu/ops/pallas_kernels.py:600",
     "layernorm_bwd_dparams_bf16": "mxnet_tpu/ops/pallas_kernels.py:612",
+    "layernorm_bwd_bf16": "mxnet_tpu/ops/pallas_kernels.py:600",
     "bias_gelu_dx_bf16": "mxnet_tpu/ops/pallas_kernels.py:751",
     "flash_attention_bf16": "mxnet_tpu/rtc.py:301",
     "flash_attention_partial": "mxnet_tpu/rtc.py:301",
@@ -435,11 +470,12 @@ FWD_TOL = 1e-4          # card vs CPU forward (probabilities, moving stats)
 SPREAD_FACTOR = 10.0    # card vs CPU weights, in units of the CPU's spread
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 1024, 8
 LM_SGD = (("learning_rate", 0.05),)
-LM_KERNELS = ("ln_bwd_dx", "ln_bwd_dparams", "bias_gelu_dx",
-              "flash_attention")
-#: LM launches per training step at the bench's 8 layers
+LM_KERNELS = ("ln_bwd", "bias_gelu_dx", "flash_attention")
+#: LM launches per training step at the bench's 8 layers: one LayerNorm
+#: backward call (dx, dgamma and dbeta) per LayerNorm, none from the
+#: single-half wrappers
 LM_PER_STEP = {"embedding": 1, "layernorm": 2 * N_LAYER + 1,
-               "ln_bwd_dx": 2 * N_LAYER + 1, "ln_bwd_dparams": 2 * N_LAYER + 1,
+               "ln_bwd": 2 * N_LAYER + 1,
                "bias_gelu": N_LAYER, "bias_gelu_dx": N_LAYER,
                "flash_attention": N_LAYER, "softmax": 1, "softmax_ce_bwd": 1}
 LM_PARITY_BATCH, LM_PARITY_SEQ = 2, 128
@@ -472,14 +508,13 @@ HALF_BITS = {"bfloat16": (7, -126), "float16": (10, -14)}
 HALF_LOGIT_TOL = {"bfloat16": BF16_LOGIT_TOL, "float16": BF16_LOGIT_TOL / 8}
 #: the LM-training path's bfloat16 instances (phases 35-37:
 #: Module(compute_dtype="bfloat16").fit of the bench LM)
-BF16_LM_KERNELS = ("layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
-                   "bias_gelu_dx_bf16", "flash_attention_bf16")
+BF16_LM_KERNELS = ("layernorm_bwd_bf16", "bias_gelu_dx_bf16",
+                   "flash_attention_bf16")
 #: bfloat16 LM launches per training step at the bench's 8 layers: every
 #: kernel of LM_PER_STEP in its bfloat16 instance, and nothing else
 LM_BF16_PER_STEP = {
     "embedding_bf16": 1, "layernorm_bf16": 2 * N_LAYER + 1,
-    "layernorm_bwd_dx_bf16": 2 * N_LAYER + 1,
-    "layernorm_bwd_dparams_bf16": 2 * N_LAYER + 1,
+    "layernorm_bwd_bf16": 2 * N_LAYER + 1,
     "bias_gelu_bf16": N_LAYER, "bias_gelu_dx_bf16": N_LAYER,
     "flash_attention_bf16": N_LAYER, "softmax_bf16": 1,
     "softmax_ce_bwd_bf16": 1}
@@ -497,6 +532,17 @@ RING_PER_LAYER = RING_SHARDS * (RING_SHARDS + 1) // 2
 #: the unsharded one recomputes the whole (T, T) product, so float32 sums
 #: run in other orders: the LM parity phase's card-vs-CPU limits
 RING_LOSS_TOL, RING_WEIGHT_TOL = 1e-4, 1e-5
+#: the frozen fine-tuning phase (49): the bench LM cut to 2 layers with its
+#: embedding table and the gamma / beta of every LayerNorm but the first
+#: frozen (``grad_req`` "null"). The first LayerNorm's input then needs no
+#: gradient (dgamma / dbeta alone: ``layernorm_bwd_dparams``) and every
+#: other LayerNorm's parameters none (dx alone: ``layernorm_bwd_dx``)
+FROZEN_LAYERS = 2
+#: its gradients against the same step with every parameter trained: the
+#: same kernel computes each half with the other off, so they should agree
+#: bit for bit; the limit, of each array's largest magnitude, leaves room
+#: for a library that sums in another order from one call to the next
+FROZEN_GRAD_RTOL = 1e-6
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -760,12 +806,13 @@ def phase_kernels(mx, ck):
                       + 1)
     mask = (torch.arange(CAP, device=dev)[None, None, None, :]
             <= pos1.long()[:, None, None, None])
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(q1, kc, vc, attn_mask=mask)
     rec["decode_attention"] = dict(
         max_abs_err=err,
         ms=_timed(lambda: ck.decode_attention(q1, kc, vc, pos1)),
         plain_ms=_timed(lambda: ck.decode_attention_plain(q1, kc, vc, pos1)),
-        library_ms=_timed(lambda: F.scaled_dot_product_attention(
-            q1, kc, vc, attn_mask=mask)),
+        library_ms=_timed(sdpa_decode), library_call=sdpa_decode,
         bound=_bound_ms(
             2 * q1.numel() * 4 + B * 4 + int(live.sum()) * H * Dh * 4 * 2,
             int(live.sum()) * H * Dh * 4))
@@ -799,7 +846,9 @@ def phase_kernels(mx, ck):
         dev_ms = _device_ms(calls[name])
         err = r.get("ulps", r.get("rel_err", r["max_abs_err"]))
         # the library call's device time, where the kernel's ms is mostly
-        # the host's launch path (LayerNorm at the decode shape)
+        # the host's launch path (LayerNorm at the decode shape), and
+        # where the next redesigns are ranked by device time (rows 4, 11 +
+        # 12, 14 and 17)
         lib_dev = (f"library_device_ms={_device_ms(r['library_call'])} "
                    if "library_call" in r else "")
         print(f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} "
@@ -1000,6 +1049,19 @@ def _launch_path_probe(ck):
              lambda: torch.softmax(xs, -1)),
             ("softmax ctypes call + launch", lambda: fn_sm(*sm_args),
              lambda: fn_sm(*sm_args), lambda: torch.softmax(xs, -1))]
+        # the LayerNorm backward: the two calls a LayerNorm made before
+        # (today's single-half wrappers) -> the one call
+        ct = torch.randn(n, c, device=dev, generator=gen)
+        _, m, r = ck.layernorm_plain(x, g, b, 1e-5)
+        _, lm, lr = torch.ops.aten.native_layer_norm(x, (c,), g, b, 1e-5)
+        whole.append((
+            f"LayerNorm backward at ({n}, {c}): two single-half wrappers "
+            "-> layernorm_bwd",
+            lambda: (ck.layernorm_bwd_dx(x, g, ct, m, r),
+                     ck.layernorm_bwd_dparams(x, ct, m, r)),
+            lambda: ck.layernorm_bwd(x, g, ct, m, r),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                ct, x, (c,), lm, lr, g, b, [True, True, True])))
         for name, was, now, lib in whole:
             a, b_, l_ = medians(was, now, lib)
             print(f"launch path: {name}: {a:.3f} -> {b_:.3f} (one PyTorch "
@@ -1007,10 +1069,11 @@ def _launch_path_probe(ck):
 
 
 def _row_kernel_resources(ck):
-    """ptxas' registers and spills of every softmax and LayerNorm
-    instance; the row-resident designs may not spill."""
+    """ptxas' registers and spills of every softmax, LayerNorm and
+    LayerNorm-backward instance; the row-resident designs may not
+    spill."""
     spills = []
-    for lib in ("softmax", "layernorm"):
+    for lib in ("softmax", "layernorm", "ln_bwd"):
         for fn, r in sorted(ck.resources(lib).items()):
             if "registers" not in r:
                 continue
@@ -1186,6 +1249,43 @@ def _training_kernels(mx, ck, rs, t, rec):
             "adam": lambda: [ck.adam_update(*a, **ah) for a in adam]}
 
 
+def _same_bytes(x, ct, label):
+    """The LayerNorm backward's bytes (x and ct read, one (N, C) written)
+    through one PyTorch elementwise call, ``torch.add(x, ct, out=)``: its
+    device time, the yardstick for the kernel's streaming part."""
+    import torch
+    out = torch.empty_like(x)
+    print(f"kernels: the LayerNorm backward's bytes at {tuple(x.shape)} "
+          f"{label} through torch.add(x, ct, out=): device_ms="
+          f"{_device_ms(lambda: torch.add(x, ct, out=out))}")
+
+
+def _ln_bwd_fused_errs(ck, cases, err_dx, err_dp):
+    """``layernorm_bwd`` (one call for dx, dgamma and dbeta) against its
+    plain version over ``cases`` (x, gamma, beta, ct, mean, rstd): the
+    largest error of dx and of the two sums under each ``(err_dx,
+    err_dp)`` pair of measures given. Each call must repeat bit for bit,
+    and each single-half wrapper must give its half bit for bit (the same
+    kernel with the other half off)."""
+    import torch
+    worst = [[0.0, 0.0] for _ in err_dx]
+    for x, g, _b, ct, m, r in cases:
+        got = ck.layernorm_bwd(x, g, ct, m, r)
+        want = ck.layernorm_bwd_plain(x, g, ct, m, r)
+        for w, edx, edp in zip(worst, err_dx, err_dp):
+            w[0] = max(w[0], edx(got[0], want[0]))
+            w[1] = max(w[1], edp(got[1], want[1]), edp(got[2], want[2]))
+        again = ck.layernorm_bwd(x, g, ct, m, r)
+        halves = (ck.layernorm_bwd_dx(x, g, ct, m, r),
+                  *ck.layernorm_bwd_dparams(x, ct, m, r))
+        for a, b, c in zip(got, again, halves):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(
+                    f"ln_bwd at {tuple(x.shape)} {x.dtype}: a repeated call"
+                    " or a single-half wrapper gave other bits")
+    return worst
+
+
 def _lm_kernels(ck, rs, t, rec):
     """The four LM-training kernels at the full-width LM path's shapes:
     LayerNorm over (8192, 512), GeLU over (8192, 2048), causal flash
@@ -1203,8 +1303,7 @@ def _lm_kernels(ck, rs, t, rec):
         ct = t(rs.randn(n, c).astype(np.float32))
         _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
         return x, g, b, ct, mean, rstd
-    cases = [ln_case(N, C)] + [ln_case(*e) for e in ((1, C), (64, 1),
-                                                      (2, 65536))]
+    cases = [ln_case(N, C)] + [ln_case(*e) for e in LN_BWD_EDGES]
     err_dx = max(_max_err(ck.layernorm_bwd_dx(x, g, ct, m, r),
                           ck.layernorm_bwd_dx_plain(x, g, ct, m, r))
                  for x, g, _b, ct, m, r in cases)
@@ -1212,13 +1311,34 @@ def _lm_kernels(ck, rs, t, rec):
         ck.layernorm_bwd_dparams(x, ct, m, r),
         ck.layernorm_bwd_dparams_plain(x, ct, m, r)))
         for x, _g, _b, ct, m, r in cases)
+    fused, = _ln_bwd_fused_errs(ck, cases, [_max_err], [_max_err])
+    if not (fused[0] <= TOL["ln_bwd_dx"]
+            and fused[1] <= TOL["ln_bwd_dparams"]):
+        raise AssertionError(f"ln_bwd disagrees with its plain version: dx "
+                             f"{fused[0]}, dgamma / dbeta {fused[1]}")
     x, g, b, ct, m, r = cases[0]
     # the library's LayerNorm backward computes dx, dgamma, dbeta in one
     # call: its time stands beside rows 11 and 12 together
     _, lm_mean, lm_rstd = torch.ops.aten.native_layer_norm(x, (C,), g, b,
                                                            1e-5)
-    lib = _timed(lambda: torch.ops.aten.native_layer_norm_backward(
-        ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True]))
+
+    def library():
+        return torch.ops.aten.native_layer_norm_backward(
+            ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True])
+    lib = _timed(library)
+    rec["ln_bwd"] = dict(
+        max_abs_err=max(fused), ms=_timed(
+            lambda: ck.layernorm_bwd(x, g, ct, m, r)),
+        plain_ms=_timed(lambda: ck.layernorm_bwd_plain(x, g, ct, m, r)),
+        library_ms=lib, library_call=library,
+        bound=_bound_ms((3 * N * C + 3 * C + 2 * N) * 4, 15 * N * C))
+    print(f"kernels: LayerNorm backward at the LM's ({N}, {C}) float32: "
+          f"ln_bwd (dx, dgamma and dbeta, one call) dx err {fused[0]:.3g}, "
+          f"dgamma / dbeta err {fused[1]:.3g}, repeats bit for bit; the "
+          f"pair's bound {rec['ln_bwd']['bound'][0]:.6f} ms (x and ct read "
+          "and dx written once); native_layer_norm_backward ms "
+          f"{lib:.5f}")
+    _same_bytes(x, ct, "float32")
     rec["ln_bwd_dx"] = dict(
         max_abs_err=err_dx,
         ms=_timed(lambda: ck.layernorm_bwd_dx(x, g, ct, m, r)),
@@ -1262,19 +1382,21 @@ def _lm_kernels(ck, rs, t, rec):
         err = max(err, _max_err(ck.flash_attention(*e, causal),
                                 ck.flash_attention_plain(*e, causal)))
     pairs = LM_BATCH * N_HEAD * LM_SEQ * (LM_SEQ + 1) // 2
+    def sdpa_causal():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
     rec["flash_attention"] = dict(
         max_abs_err=err,
         ms=_timed(lambda: ck.flash_attention(q, k, v, True), reps=50),
         plain_ms=_timed(lambda: ck.flash_attention_plain(q, k, v, True),
                         reps=20, warm=3),
-        library_ms=_timed(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), reps=50),
+        library_ms=_timed(sdpa_causal, reps=50), library_call=sdpa_causal,
         bound=_bound_ms(4 * q.numel() * 4, 4 * pairs * Dh))
     print(f"kernels: LM rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}), "
-          f"flash {tuple(q.shape)} causal; library_ms of ln_bwd_dx and "
-          "ln_bwd_dparams is ONE native_layer_norm_backward call (dx, "
+          f"flash {tuple(q.shape)} causal; library_ms of ln_bwd, ln_bwd_dx "
+          "and ln_bwd_dparams is ONE native_layer_norm_backward call (dx, "
           "dgamma and dbeta together)")
-    return {"ln_bwd_dx": lambda: ck.layernorm_bwd_dx(x, g, ct, m, r),
+    return {"ln_bwd": lambda: ck.layernorm_bwd(x, g, ct, m, r),
+            "ln_bwd_dx": lambda: ck.layernorm_bwd_dx(x, g, ct, m, r),
             "ln_bwd_dparams": lambda: ck.layernorm_bwd_dparams(x, ct, m, r),
             "bias_gelu_dx": lambda: ck.bias_gelu_dx(h, hb, hct),
             "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
@@ -1426,8 +1548,7 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
         ct = tb(rs.randn(n, c))
         _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
         return x, g, b, ct, mean, rstd
-    cases = [ln_case(N, C)] + [ln_case(*e) for e in (
-        (1, C), (64, 1), (5, 13), (2, 65536))] + [
+    cases = [ln_case(N, C)] + [ln_case(*e) for e in LN_BWD_EDGES] + [
         ln_case(4, C, skew(4 * C, 4, C))]
     ulp_dx = ulp_dp = err_dx = err_dp = 0.0
     for x, g, _b, ct, m, r in cases:
@@ -1439,11 +1560,33 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
                              ck.layernorm_bwd_dparams_plain(x, ct, m, r)):
             ulp_dp = max(ulp_dp, _half_ulps(half, got, want, atol=1e-4))
             err_dp = max(err_dp, _max_err(got, want))
+    ulps, fused = _ln_bwd_fused_errs(
+        ck, cases, [lambda a, b: _half_ulps(half, a, b, atol=2e-5), _max_err],
+        [lambda a, b: _half_ulps(half, a, b, atol=1e-4), _max_err])
+    if not max(ulps) <= TOL["layernorm_bwd_" + sfx]:
+        raise AssertionError(f"layernorm_bwd_{sfx} disagrees with its plain "
+                             f"version: dx, dgamma / dbeta {ulps} ulps")
     x, g, b, ct, m, r = cases[0]
     _, lm_mean, lm_rstd = torch.ops.aten.native_layer_norm(x, (C,), g, b,
                                                            1e-5)
-    lib = _timed(lambda: torch.ops.aten.native_layer_norm_backward(
-        ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True]))
+
+    def library():
+        return torch.ops.aten.native_layer_norm_backward(
+            ct, x, (C,), lm_mean, lm_rstd, g, b, [True, True, True])
+    lib = _timed(library)
+    rec["layernorm_bwd_" + sfx] = dict(
+        max_abs_err=max(fused), ulps=max(ulps),
+        ms=_timed(lambda: ck.layernorm_bwd(x, g, ct, m, r)),
+        plain_ms=_timed(lambda: ck.layernorm_bwd_plain(x, g, ct, m, r)),
+        library_ms=lib, library_call=library,
+        bound=_bound_ms(3 * N * C * 2 + 3 * C * 2 + 2 * N * 4, 15 * N * C,
+                        BF16_FLOPS_PER_S))
+    print(f"kernels: LayerNorm backward at the LM's ({N}, {C}) {half}: "
+          f"layernorm_bwd_{sfx} (one call) dx {ulps[0]:.3g} ulps, dgamma / "
+          f"dbeta {ulps[1]:.3g} ulps, repeats bit for bit; the pair's bound "
+          f"{rec['layernorm_bwd_' + sfx]['bound'][0]:.6f} ms; "
+          f"native_layer_norm_backward ms {lib:.5f}")
+    _same_bytes(x, ct, half)
     rec["layernorm_bwd_dx_" + sfx] = dict(
         max_abs_err=err_dx, ulps=ulp_dx,
         ms=_timed(lambda: ck.layernorm_bwd_dx(x, g, ct, m, r)),
@@ -1554,7 +1697,8 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
               f"bound_ms={_bound_ms(lb, 10 * N * D, peak)[0]:.6f}")
         del xl, y, stats, ref
     del head
-    return {"layernorm_bwd_dx_" + sfx: lambda: ck.layernorm_bwd_dx(x, g, ct, m,
+    return {"layernorm_bwd_" + sfx: lambda: ck.layernorm_bwd(x, g, ct, m, r),
+            "layernorm_bwd_dx_" + sfx: lambda: ck.layernorm_bwd_dx(x, g, ct, m,
                                                                  r),
             "layernorm_bwd_dparams_" + sfx: lambda: ck.layernorm_bwd_dparams(
                 x, ct, m, r),
@@ -1660,6 +1804,7 @@ def _quant_kernels(mx, ck, rs, t, rec):
                                  for a in convs["int8"]], reps=50, warm=5),
         library_ms=_timed(lambda: [_dequant_library(*a)
                                    for a in convs["int8"]], reps=50, warm=5),
+        library_call=lambda: [_dequant_library(*a) for a in convs["int8"]],
         bound=_bound_ms(5 * n_el + 4 * sum(s[0] for s in shapes), n_el))
     return {"qfc_matmul": lambda: ck.qfc_matmul(x8, *fc["int8"]),
             "dequant_rows": lambda: [ck.dequant_rows(*a)
@@ -2553,7 +2698,7 @@ def phase_adam(mx, ck):
 #: reduction kernels, and copies
 _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
                  "adam_f32", "ln_fwd", "bias_gelu", "emb_gather",
-                 "decode_attn", "ln_bwd_dx", "ln_dparams_", "flash_fwd",
+                 "decode_attn", "ln_bwd_", "ln_dparams_", "flash_fwd",
                  "flash_tc", "bn_stats_", "bn_apply_relu_")
 
 
@@ -2727,13 +2872,12 @@ def _ring_launches(label, per_step, n_layer, sfx=""):
     kernels."""
     want = dict(LM_PER_STEP, flash_attention=0,
                 flash_attention_partial=n_layer * RING_PER_LAYER)
-    for k in ("layernorm", "ln_bwd_dx", "ln_bwd_dparams"):
+    for k in ("layernorm", "ln_bwd"):
         want[k] = 2 * n_layer + 1
     for k in ("bias_gelu", "bias_gelu_dx"):
         want[k] = n_layer
     if sfx:
-        wrapper = {"ln_bwd_dx": "layernorm_bwd_dx",
-                   "ln_bwd_dparams": "layernorm_bwd_dparams"}
+        wrapper = {"ln_bwd": "layernorm_bwd"}
         want = {wrapper.get(k, k) + sfx: v for k, v in want.items()}
     want = {k: want.get(k, 0) for k in per_step}
     print(f"{label}: flash_attention_partial{sfx} "
@@ -5121,6 +5265,99 @@ def phase_lm_bf16_profile(mx, mods, steps=2):
                         label="lm bf16 profile, kernels")
 
 
+def _frozen_step(mx, sym, params, batch, compute_dtype, grad_req):
+    """One forward/backward of the LM on gpu(0) from ``params`` under
+    ``grad_req``, then one SGD update: ({name: gradient} of the trained
+    parameters, numpy float32; the launches of the forward/backward; the
+    parameters after)."""
+    ctx = mx.gpu(0)
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
+    mod.bind(batch.provide_data, batch.provide_label, grad_req=grad_req)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(params, ctx))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=LM_SGD)
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    mod.forward_backward(batch)
+    counts = ck.launch_counts()
+    grads = {k: v.asnumpy() for k, v in
+             mod._exec_group.executor.grad_dict.items()}
+    mod.update()
+    after = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return grads, counts, after
+
+
+def phase_lm_frozen(mx, ck):
+    """Fine-tuning with frozen parameters, the path of the LayerNorm
+    backward's single-half wrappers: the bench LM at full width cut to
+    FROZEN_LAYERS layers, T=1024, batch 8 (the LM cell's 8192 rows), with
+    the embedding table and the gamma / beta of every LayerNorm but the
+    first frozen (``bind(grad_req=...)``, "null"), in float32, bfloat16
+    and float16. One step each: exactly 2L ``layernorm_bwd_dx`` and one
+    ``layernorm_bwd_dparams`` launch and no ``layernorm_bwd``; every
+    trained parameter's gradient within FROZEN_GRAD_RTOL of the same
+    step with every parameter trained (which launches ``layernorm_bwd``
+    2L + 1 times); the frozen parameters unmoved, the trained ones moved.
+    Returns {counter: launches} of the single-half wrappers' counters in
+    the frozen steps."""
+    import numpy as np
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(False) + " (frozen fine-tuning phase)")
+    sym = tfm.get_symbol(vocab_size=V, d_model=D, n_layer=FROZEN_LAYERS,
+                         n_head=N_HEAD, seq_len=LM_SEQ)
+    shapes, _, _ = sym.infer_shape(data=(LM_BATCH, LM_SEQ),
+                                   softmax_label=(LM_BATCH * LM_SEQ,))
+    rs = np.random.RandomState(SEED + 8)
+    params = {n: ((1 + 0.1 * rs.randn(*s)) if n.endswith("gamma")
+                  else 0.02 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    batch = next(iter(tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, 1,
+                                          seed=SEED + 9)))
+    norms = [n for n in params if n.endswith(("_gamma", "_beta"))]
+    frozen = {n for n in params if "embed" in n} | {
+        n for n in norms if not n.startswith("lm_l0_ln1_")}
+    req = {n: "null" if n in frozen else "write" for n in params}
+    total = {}
+    for dtype in ("float32",) + tuple(HALF_SFX):
+        sfx = "" if dtype == "float32" else "_" + HALF_SFX[dtype]
+        cd = None if dtype == "float32" else dtype
+        full, full_counts, _ = _frozen_step(mx, sym, params, batch, cd,
+                                            "write")
+        grads, counts, after = _frozen_step(mx, sym, params, batch, cd, req)
+        names = {"ln_bwd": "layernorm_bwd", "ln_bwd_dx": "layernorm_bwd_dx",
+                 "ln_bwd_dparams": "layernorm_bwd_dparams"}
+        key = {k: (k if not sfx else names[k] + sfx) for k in names}
+        got = {k: counts[key[k]] for k in names}
+        want = {"ln_bwd": 0, "ln_bwd_dx": 2 * FROZEN_LAYERS,
+                "ln_bwd_dparams": 1}
+        worst, same = (0.0, ""), True
+        for k, g in grads.items():
+            ratio = float(np.abs(g - full[k]).max()) / (
+                FROZEN_GRAD_RTOL * float(np.abs(full[k]).max()) + 1e-30)
+            worst = max(worst, (ratio, k))
+            same = same and np.array_equal(g, full[k])
+        still = max(float(np.abs(after[k] - params[k]).max())
+                    for k in frozen)
+        moved = min(float(np.abs(after[k] - params[k]).max())
+                    for k in params if k not in frozen)
+        print(f"lm frozen {dtype}: {FROZEN_LAYERS} layers, ({LM_BATCH}, "
+              f"{LM_SEQ}), {len(frozen)} of {len(params)} parameters frozen:"
+              f" LayerNorm backward launches {got} (want {want}; the full "
+              f"step: {key['ln_bwd']} {full_counts[key['ln_bwd']]}); "
+              f"{len(grads)} gradients against the full step's: bit for bit"
+              f" {same}, worst {worst[1]} {worst[0]:.3g} of its limit "
+              f"({FROZEN_GRAD_RTOL} x its max |g|); frozen moved by "
+              f"{still:.3g}, trained by at least {moved:.3g}")
+        if not (got == want and full_counts[key["ln_bwd"]] ==
+                2 * FROZEN_LAYERS + 1 and worst[0] <= 1.0 and still == 0.0
+                and moved > 0 and set(grads) == set(params) - frozen):
+            raise AssertionError(f"lm frozen {dtype}: launches {got}, "
+                                 f"gradients {worst}, frozen moved {still}")
+        for k in ("ln_bwd_dx", "ln_bwd_dparams"):
+            total[key[k]] = got[k]
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5229,6 +5466,10 @@ def main():
         ring_counts[half] = phase_ring_half(mx, ck, half)
     print(f"chip_smoke: the sequence-parallel phases took "
           f"{time.perf_counter() - t_ring:.1f} s")
+    t_frozen = time.perf_counter()
+    frozen_counts = phase_lm_frozen(mx, ck)
+    print(f"chip_smoke: the frozen fine-tuning phase took "
+          f"{time.perf_counter() - t_frozen:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches["adam"] = adam_counts["adam"]
@@ -5253,6 +5494,7 @@ def main():
         name = "flash_attention_partial" + (
             "" if dtype == "float32" else "_" + HALF_SFX[dtype])
         launches[name] = counts[name]
+    launches.update(frozen_counts)
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

@@ -1,11 +1,13 @@
 // Loads and stores of W consecutive values as float32, for the kernels that
 // have a float32, a bfloat16 and a float16 instance (embedding, layernorm,
 // bias_gelu, decode_attention, softmax, softmax_ce_bwd, bn_stats,
-// bn_apply_relu, ln_bwd_dx, ln_bwd_dparams, bias_gelu_dx, flash_attention,
-// qfc_matmul).
+// bn_apply_relu, ln_bwd, bias_gelu_dx, flash_attention, qfc_matmul).
 //
 // Io<T, W>::load(p, u, f) reads unit u (the W values p[u*W .. u*W+W-1]) into
-// f[0..W-1] as float32; Io<T, W>::store(p, u, f) writes f back in T. A unit is
+// f[0..W-1] as float32; Io<T, W>::store(p, u, f) writes f back in T. The
+// same load in two steps, for a kernel that fetches a unit ahead of its use:
+// Io<T, W>::raw(p, u) returns the unit as stored (Io<T, W>::Raw, registers
+// that hold the bytes) and Io<T, W>::widen(r, f) widens it. A unit is
 // one aligned access: W = 4 floats or 8 16-bit values are 16 bytes, W = 4
 // 16-bit values 8 bytes, W = 2 16-bit values 4 bytes; the caller checks the
 // alignment. bfloat16 and float16 are widened exactly (__bfloat162float,
@@ -26,6 +28,11 @@ struct Io;
 
 template <>
 struct Io<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw raw(const float* p, int64_t u) {
+    return p[u];
+  }
+  static __device__ __forceinline__ void widen(Raw r, float* f) { f[0] = r; }
   static __device__ __forceinline__ void load(const float* p, int64_t u,
                                               float* f) {
     f[0] = p[u];
@@ -38,6 +45,16 @@ struct Io<float, 1> {
 
 template <>
 struct Io<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw raw(const float* p, int64_t u) {
+    return reinterpret_cast<const float4*>(p)[u];
+  }
+  static __device__ __forceinline__ void widen(Raw v, float* f) {
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
   static __device__ __forceinline__ void load(const float* p, int64_t u,
                                               float* f) {
     const float4 v = reinterpret_cast<const float4*>(p)[u];
@@ -93,6 +110,13 @@ struct Half<__half> {
 
 template <typename H>
 struct IoOne {
+  using Raw = H;
+  static __device__ __forceinline__ Raw raw(const H* p, int64_t u) {
+    return p[u];
+  }
+  static __device__ __forceinline__ void widen(Raw r, float* f) {
+    f[0] = Half<H>::widen(r);
+  }
   static __device__ __forceinline__ void load(const H* p, int64_t u,
                                               float* f) {
     f[0] = Half<H>::widen(p[u]);
@@ -104,20 +128,26 @@ struct IoOne {
 };
 
 // W 16-bit values as W / 2 pairs inside one access of 2 * W bytes
-template <typename H, int W, typename Raw>
+template <typename H, int W, typename R>
 struct IoPairs {
-  static_assert(sizeof(Raw) == 2 * W, "one access holds W 16-bit values");
+  static_assert(sizeof(R) == 2 * W, "one access holds W 16-bit values");
+  using Raw = R;
   using Pair = typename Half<H>::Pair;
-  static __device__ __forceinline__ void load(const H* p, int64_t u,
-                                              float* f) {
-    const Raw raw = reinterpret_cast<const Raw*>(p)[u];
-    const Pair* h = reinterpret_cast<const Pair*>(&raw);
+  static __device__ __forceinline__ Raw raw(const H* p, int64_t u) {
+    return reinterpret_cast<const Raw*>(p)[u];
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* f) {
+    const Pair* h = reinterpret_cast<const Pair*>(&r);
 #pragma unroll
     for (int k = 0; k < W / 2; ++k) {
       const float2 v = Half<H>::widen2(h[k]);
       f[2 * k] = v.x;
       f[2 * k + 1] = v.y;
     }
+  }
+  static __device__ __forceinline__ void load(const H* p, int64_t u,
+                                              float* f) {
+    widen(raw(p, u), f);
   }
   static __device__ __forceinline__ void store(H* p, int64_t u,
                                                const float* f) {

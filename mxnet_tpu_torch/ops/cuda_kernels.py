@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
-``rtc.py``'s flash-attention kernel). Seventeen kernels, each in a CUDA
+``rtc.py``'s flash-attention kernel). Sixteen kernels, each in a CUDA
 C++ source under ``mxnet_tpu_torch/csrc/`` (the flash-attention forward
-and its partial mode share one source and one library):
+and its partial mode share one source and one library; the LayerNorm
+backward's three wrappers launch one kernel, with one half off or
+none):
 
 ===========================  ==================================================  ===================
 wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)          source
@@ -16,8 +18,9 @@ wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)         
 ``softmax_ce_bwd``           ``_softmax_ce_bwd_kernel``                          softmax_ce_bwd.cu
 ``sgd_mom_update``           ``_sgd_mom_kernel`` (``_tiled_elementwise``)        sgd_mom.cu
 ``adam_update``              ``_adam_kernel`` (``_tiled_elementwise``)           adam.cu
-``layernorm_bwd_dx``         ``_ln_bwd_dx_kernel`` (``_ln_pl_bwd_rule``)         ln_bwd_dx.cu
-``layernorm_bwd_dparams``    ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd_dparams.cu
+``layernorm_bwd``            ``_ln_bwd_dx_kernel`` + ``_ln_bwd_dparams_kernel``  ln_bwd.cu
+``layernorm_bwd_dx``         ``_ln_bwd_dx_kernel`` (``_ln_pl_bwd_rule``)         ln_bwd.cu
+``layernorm_bwd_dparams``    ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd.cu
 ``bias_gelu_dx``             ``_bias_gelu_dx_kernel`` (``_bias_gelu_bwd_rule``)  bias_gelu_dx.cu
 ``flash_attention``          ``_flash_kernel`` of ``mxnet_tpu/rtc.py``           flash_attention.cu
 ``flash_attention_partial``  ``_flash_kernel(partial=True)`` (ring attention)    flash_attention.cu
@@ -29,7 +32,7 @@ wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)         
 
 The first four serve the decode path. Each wrapper launches the instance
 of its data's dtype and counts the launch under that instance's counter:
-twelve kernels (``embedding`` to ``bn_apply_relu`` but the updates and
+eleven kernels (``embedding`` to ``bn_apply_relu`` but the updates and
 ``dequant_rows``) have a float32, a bfloat16 and a float16 instance
 (``compute_dtype="bfloat16"`` or ``"float16"``, the JAX package's mixed
 precision), counted in ``<kernel>``, ``<wrapper>_bf16`` and
@@ -52,7 +55,7 @@ before the output. The updates (``sgd_mom_update``,
 data's type. ``flash_attention_partial`` has the three instances too,
 and writes its float32 state whatever its input's type. A CUDA tensor
 of a dtype no instance takes raises, naming the dtype.
-With the ones from ``layernorm_bwd_dx`` to ``flash_attention`` they
+With the ones from ``layernorm_bwd`` to ``flash_attention`` they
 train the transformer LM, and ``flash_attention_partial`` takes the
 place of ``flash_attention`` under a sequence-parallel plan (ring
 attention, ``parallel/ring_attention.py``);
@@ -69,10 +72,13 @@ and ``chip_smoke.py`` holds the kernel against it on the card.
 
 Gradients: the ``"cuda"`` variants of ``LayerNorm``, ``FusedBiasGeLU``
 and ``Embedding`` (and ``attention``'s, in ``rtc.py``) are
-``torch.autograd.Function``s. LayerNorm's backward is the two backward
-kernels (the statistic outputs' cotangents count as zero, as in the JAX
-rule); FusedBiasGeLU's is ``bias_gelu_dx`` plus a plain column sum for
-the bias, as the JAX package leaves that sum to XLA; Embedding's is a
+``torch.autograd.Function``s. LayerNorm's backward is one
+``layernorm_bwd`` launch, dx, dgamma and dbeta from one pass over x and
+the cotangent (``layernorm_bwd_dx`` or ``layernorm_bwd_dparams`` when
+only one half is needed; the statistic outputs' cotangents count as
+zero, as in the JAX rule); FusedBiasGeLU's is ``bias_gelu_dx`` plus a
+plain column sum for the bias, as the JAX package leaves that sum to
+XLA; Embedding's is a
 plain float32 ``index_add_`` of ``ct * scale`` (``embedding_bwd_plain``),
 the counterpart of ``_emb_bwd_rule``, which is no kernel in the JAX
 package either. FusedConvBNReLU's backward recomputes its plain
@@ -136,7 +142,8 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "decode_attention_plain",
            "softmax", "softmax_plain", "softmax_ce_bwd",
            "softmax_ce_bwd_plain", "sgd_mom_update", "sgd_mom_update_plain",
-           "adam_update", "adam_update_plain", "layernorm_bwd_dx",
+           "adam_update", "adam_update_plain", "layernorm_bwd",
+           "layernorm_bwd_plain", "layernorm_bwd_dx",
            "layernorm_bwd_dx_plain", "layernorm_bwd_dparams",
            "layernorm_bwd_dparams_plain", "bias_gelu_dx",
            "bias_gelu_dx_plain", "flash_attention", "flash_attention_plain",
@@ -197,15 +204,10 @@ _SPECS = {
                 [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
     "adam": ("adam.cu", {"f32": "mx_adam_f32"},
              [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
-    "ln_bwd_dx": ("ln_bwd_dx.cu", {"f32": "mx_ln_bwd_dx_f32",
-                                   "bf16": "mx_ln_bwd_dx_bf16",
-                                   "f16": "mx_ln_bwd_dx_f16"},
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
-    "ln_bwd_dparams": ("ln_bwd_dparams.cu",
-                       {"f32": "mx_ln_bwd_dparams_f32",
-                        "bf16": "mx_ln_bwd_dparams_bf16",
-                        "f16": "mx_ln_bwd_dparams_f16"},
-                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "ln_bwd": ("ln_bwd.cu", {"f32": "mx_ln_bwd_f32",
+                             "bf16": "mx_ln_bwd_bf16",
+                             "f16": "mx_ln_bwd_f16"},
+               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "bias_gelu_dx": ("bias_gelu_dx.cu", {"f32": "mx_bias_gelu_dx_f32",
                                          "bf16": "mx_bias_gelu_dx_bf16",
                                          "f16": "mx_bias_gelu_dx_f16"},
@@ -397,21 +399,27 @@ _DTYPES = {k: dt for dt, k in _STORAGE.items()}
 
 #: wrapper name -> the kernel (``_SPECS`` key) it launches
 _WRAPPER_KERNEL = {}
+#: wrapper name -> the counter of its float32 instance
+_F32_COUNTER = {}
 
 
-def _wrapper(kernel):
-    """Register the decorated function as the wrapper of ``kernel``."""
+def _wrapper(kernel, f32_counter=None):
+    """Register the decorated function as the wrapper of ``kernel``; its
+    float32 launches count under ``f32_counter`` (default: the kernel's
+    name), for a kernel that more than one wrapper launches."""
     def register_wrapper(fn):
         _WRAPPER_KERNEL[fn.__name__] = kernel
+        _F32_COUNTER[fn.__name__] = f32_counter or kernel
         return fn
     return register_wrapper
 
 
 def _counter(name, key):
-    """The launch counter of wrapper ``name``'s instance ``key``: the
-    kernel's name for float32 data, else ``<wrapper>_<bf16|f16|fp8>``."""
+    """The launch counter of wrapper ``name``'s instance ``key``: its
+    float32 counter (the kernel's name unless it says otherwise) for
+    float32 data, else ``<wrapper>_<bf16|f16|fp8>``."""
     data = key.split(":")[0]
-    return _WRAPPER_KERNEL[name] if data == "f32" else f"{name}_{data}"
+    return _F32_COUNTER[name] if data == "f32" else f"{name}_{data}"
 
 
 def _instance(name, t, storage=None):
@@ -655,10 +663,12 @@ def layernorm_stats(x, gamma, beta, eps):
 
 class _LayerNormFn(torch.autograd.Function):
     """Forward: the LayerNorm kernel over x (..., C), which saves mean
-    and rstd and also returns the op's std. Backward:
-    ``layernorm_bwd_dx`` and ``layernorm_bwd_dparams`` over the rows; the
-    cotangents of the statistic outputs count as zero (they are marked
-    non-differentiable), as in ``_ln_pl_bwd_rule``."""
+    and rstd and also returns the op's std. Backward over the rows: one
+    ``layernorm_bwd`` call when x and a parameter both need gradients
+    (every training step), else ``layernorm_bwd_dx`` or
+    ``layernorm_bwd_dparams`` alone; the cotangents of the statistic
+    outputs count as zero (they are marked non-differentiable), as in
+    ``_ln_pl_bwd_rule``."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
@@ -679,12 +689,16 @@ class _LayerNormFn(torch.autograd.Function):
         c = x.shape[-1]
         x2, gy = x.reshape(-1, c), gy.reshape(-1, c).contiguous()
         mean, rstd = mean.reshape(-1), rstd.reshape(-1)
+        need_dx = ctx.needs_input_grad[0]
+        need_dp = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
         dx = dg = db = None
-        if ctx.needs_input_grad[0]:
-            dx = layernorm_bwd_dx(x2, gamma, gy, mean, rstd).reshape(x.shape)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        if need_dx and need_dp:
+            dx, dg, db = layernorm_bwd(x2, gamma, gy, mean, rstd)
+        elif need_dx:
+            dx = layernorm_bwd_dx(x2, gamma, gy, mean, rstd)
+        elif need_dp:
             dg, db = layernorm_bwd_dparams(x2, gy, mean, rstd)
-        return dx, dg, db, None
+        return None if dx is None else dx.reshape(x.shape), dg, db, None
 
 
 def layernorm_fn(x, gamma, beta, eps):
@@ -984,10 +998,13 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
 
 
 # ==========================================================================
-# 9. LayerNorm backward: dx
+# 9-10. LayerNorm backward: dx, dgamma and dbeta (one kernel, ln_bwd.cu)
 # ==========================================================================
 #: the JAX package's eligibility bound for its LayerNorm kernels
 LN_MAX_C = 65536
+#: the longest row the kernel holds in a warp's registers (its register
+#: route, one pass over x and ct); longer rows take its walked route
+LN_REG_ROW_MAX = 1024
 
 
 def layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd):
@@ -1002,45 +1019,6 @@ def layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd):
     return (r * (gy - m1 - xh * m2)).to(x2.dtype)
 
 
-def _check_ln_bwd(name, x2, ct, mean, rstd):
-    if x2.ndim != 2 or tuple(ct.shape) != tuple(x2.shape) or \
-            tuple(mean.shape) != (x2.shape[0],) or \
-            tuple(rstd.shape) != (x2.shape[0],):
-        raise MXNetError(f"{name}: want x, ct (N, C) and mean, rstd (N,), "
-                         f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
-                         f"{tuple(mean.shape)}, {tuple(rstd.shape)}")
-    if x2.shape[1] > LN_MAX_C:
-        raise MXNetError(f"{name}: C={x2.shape[1]} > {LN_MAX_C}")
-
-
-@_wrapper("ln_bwd_dx")
-def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
-    """LayerNorm's input gradient: x2, ct (N, C), gamma (C,) float32,
-    bfloat16 or float16, mean, rstd (N,) float32, C <= 65536 -> dx (N, C)
-    in x2's dtype: float32 arithmetic, dx rounded once."""
-    if not _cpu_or_cuda("layernorm_bwd_dx", x2):
-        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
-    key = _instance("layernorm_bwd_dx", x2)
-    _check("layernorm_bwd_dx", x=(x2, x2.dtype), gamma=(gamma, x2.dtype),
-           ct=(ct, x2.dtype), mean=(mean, torch.float32),
-           rstd=(rstd, torch.float32))
-    _check_ln_bwd("layernorm_bwd_dx", x2, ct, mean, rstd)
-    n, c = x2.shape
-    if tuple(gamma.shape) != (c,):
-        raise MXNetError(f"layernorm_bwd_dx: gamma must be ({c},)")
-    dx = torch.empty_like(x2)
-    _launch("layernorm_bwd_dx", key, x2, x2.data_ptr(), gamma.data_ptr(),
-            ct.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            n, c)
-    return dx
-
-
-layernorm_bwd_dx_bf16 = _pinned(layernorm_bwd_dx, "bf16", (torch.bfloat16,))
-
-
-# ==========================================================================
-# 10. LayerNorm backward: dgamma, dbeta
-# ==========================================================================
 def layernorm_bwd_dparams_plain(x2, ct, mean, rstd):
     """(dgamma, dbeta), each (C,), summed in float32 over the rows of x2
     and ct (N, C): ``sum(ct xh)`` and ``sum(ct)``, each stored in x2's
@@ -1052,36 +1030,141 @@ def layernorm_bwd_dparams_plain(x2, ct, mean, rstd):
     return (c32 * xh).sum(dim=0).to(x2.dtype), c32.sum(dim=0).to(x2.dtype)
 
 
+def layernorm_bwd_plain(x2, gamma, ct, mean, rstd):
+    """(dx, dgamma, dbeta): ``layernorm_bwd_dx_plain`` and
+    ``layernorm_bwd_dparams_plain`` together."""
+    return (layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd),
+            *layernorm_bwd_dparams_plain(x2, ct, mean, rstd))
+
+
 def _dparams_chunks(n):
-    """(rows per chunk, chunks) of the kernel's first stage: 64-row
-    chunks, larger (a multiple of 8) when N needs more than 65535."""
+    """(rows per chunk, chunks) of the walked route's parameter
+    gradients: 64-row chunks, larger (a multiple of 8) when N needs more
+    than 65535; at least one chunk (``walk_chunks`` in ln_bwd.cu)."""
     rows = max(64, -(-n // 65535))
     rows = -(-rows // 8) * 8
     return rows, max(1, -(-n // rows))
 
 
-@_wrapper("ln_bwd_dparams")
+_SMS = {}              # device index -> its SM count
+_LN_SCRATCH = {}       # (device index, stream) -> float32 partials scratch
+
+
+def _ln_bwd_scratch(x2, rows, c):
+    """float32 scratch of ``rows`` x 2C values for the kernel's column
+    partials. The register route's (at most two rows an SM) is kept per
+    device and stream and reused: launches on one stream run in order, so
+    one buffer serves every call there, and a call makes no allocation
+    for it. The walked route's, a row per chunk of rows, is allocated per
+    call."""
+    if c > LN_REG_ROW_MAX:
+        return x2.new_empty((rows * 2 * c,), dtype=torch.float32)
+    dev = x2.get_device()
+    key = (dev, torch._C._cuda_getCurrentRawStream(dev))
+    buf = _LN_SCRATCH.get(key)
+    if buf is None or buf.numel() < rows * 2 * c:
+        buf = _LN_SCRATCH[key] = x2.new_empty(
+            (max(rows, 2 * _SMS[dev]) * 2 * LN_REG_ROW_MAX,),
+            dtype=torch.float32)
+    return buf
+
+
+def _ln_bwd_part_rows(x2, n, c):
+    """Rows of the float32 scratch (2C values each) the parameter
+    gradients need: one per block of the register route's persistent grid
+    (at most two blocks an SM, and a block holds 8 warps or more: at most
+    ceil(N / 8)), one per chunk of rows on the walked route."""
+    if c > LN_REG_ROW_MAX:
+        return _dparams_chunks(n)[1]
+    dev = x2.get_device()
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return max(1, min(2 * sms, -(-n // 8)))
+
+
+def _ln_bwd(name, x2, gamma, ct, mean, rstd, want_dx, want_dp):
+    """One launch of ln_bwd.cu for wrapper ``name`` with the halves asked
+    for: (dx or None, dgdb (2, C) — dgamma, dbeta — or None). gamma is
+    read only for dx."""
+    key = _instance(name, x2)
+    tensors = dict(x=(x2, x2.dtype))
+    if want_dx:
+        tensors["gamma"] = (gamma, x2.dtype)
+    _check(name, **tensors, ct=(ct, x2.dtype), mean=(mean, torch.float32),
+           rstd=(rstd, torch.float32))
+    n_rows = x2.shape[:1]
+    if x2.ndim != 2 or ct.shape != x2.shape or mean.shape != n_rows or \
+            rstd.shape != n_rows:
+        raise MXNetError(f"{name}: want x, ct (N, C) and mean, rstd (N,), "
+                         f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
+                         f"{tuple(mean.shape)}, {tuple(rstd.shape)}")
+    n, c = x2.shape
+    if c > LN_MAX_C:
+        raise MXNetError(f"{name}: C={c} > {LN_MAX_C}")
+    if want_dx and gamma.shape != x2.shape[1:]:
+        raise MXNetError(f"{name}: gamma must be ({c},)")
+    dx = torch.empty_like(x2) if want_dx else None
+    dgdb = part = None
+    rows = 0
+    if want_dp:
+        rows = _ln_bwd_part_rows(x2, n, c)
+        dgdb = x2.new_empty((2, c))
+        part = _ln_bwd_scratch(x2, rows, c)
+    _launch(name, key, x2, x2.data_ptr(),
+            gamma.data_ptr() if want_dx else None, ct.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr() if want_dx else None,
+            dgdb.data_ptr() if want_dp else None,
+            part.data_ptr() if want_dp else None, n, c, rows)
+    return dx, dgdb
+
+
+@_wrapper("ln_bwd")
+def layernorm_bwd(x2, gamma, ct, mean, rstd):
+    """LayerNorm's three gradients in one call: x2, ct (N, C), gamma (C,)
+    float32, bfloat16 or float16, mean, rstd (N,) float32, C <= 65536 ->
+    (dx (N, C), dgamma (C,), dbeta (C,)) in x2's dtype, float32
+    arithmetic and sums, each output rounded once. On the card one
+    launch reads x and ct once for all three (C <= 1024; longer rows take
+    the walked route); dgamma and dbeta are the two rows of one (2, C)
+    tensor, and the reduction's scratch is kept between calls on a
+    stream (one allocation for the walked route)."""
+    if not _cpu_or_cuda("layernorm_bwd", x2):
+        return layernorm_bwd_plain(x2, gamma, ct, mean, rstd)
+    dx, dgdb = _ln_bwd("layernorm_bwd", x2, gamma, ct, mean, rstd, True,
+                       True)
+    dg, db = dgdb
+    return dx, dg, db
+
+
+@_wrapper("ln_bwd", "ln_bwd_dx")
+def layernorm_bwd_dx(x2, gamma, ct, mean, rstd):
+    """LayerNorm's input gradient alone (``layernorm_bwd``'s kernel with
+    the parameter gradients off): x2, ct (N, C), gamma (C,) float32,
+    bfloat16 or float16, mean, rstd (N,) float32, C <= 65536 -> dx (N, C)
+    in x2's dtype: float32 arithmetic, dx rounded once."""
+    if not _cpu_or_cuda("layernorm_bwd_dx", x2):
+        return layernorm_bwd_dx_plain(x2, gamma, ct, mean, rstd)
+    return _ln_bwd("layernorm_bwd_dx", x2, gamma, ct, mean, rstd, True,
+                   False)[0]
+
+
+layernorm_bwd_dx_bf16 = _pinned(layernorm_bwd_dx, "bf16", (torch.bfloat16,))
+
+
+@_wrapper("ln_bwd", "ln_bwd_dparams")
 def layernorm_bwd_dparams(x2, ct, mean, rstd):
-    """LayerNorm's parameter gradients over x2, ct (N, C) float32,
-    bfloat16 or float16 with mean, rstd (N,) float32, C <= 65536 ->
-    (dgamma, dbeta) (C,) in x2's dtype, each the float32 sum rounded once
-    in the kernel's final stage. A deterministic two-stage reduction: one
-    call, one launch count."""
+    """LayerNorm's parameter gradients alone (``layernorm_bwd``'s kernel
+    with dx off): x2, ct (N, C) float32, bfloat16 or float16 with mean,
+    rstd (N,) float32, C <= 65536 -> (dgamma, dbeta) (C,) in x2's dtype,
+    each the float32 sum rounded once. A reduction in a fixed order (no
+    float atomics): repeated calls give the same bits."""
     if not _cpu_or_cuda("layernorm_bwd_dparams", x2):
         return layernorm_bwd_dparams_plain(x2, ct, mean, rstd)
-    key = _instance("layernorm_bwd_dparams", x2)
-    _check("layernorm_bwd_dparams", x=(x2, x2.dtype), ct=(ct, x2.dtype),
-           mean=(mean, torch.float32), rstd=(rstd, torch.float32))
-    _check_ln_bwd("layernorm_bwd_dparams", x2, ct, mean, rstd)
-    n, c = x2.shape
-    rows, chunks = _dparams_chunks(n)
-    part = x2.new_empty((2, chunks, c), dtype=torch.float32)
-    dg = x2.new_empty((c,))
-    db = x2.new_empty((c,))
-    _launch("layernorm_bwd_dparams", key, x2, x2.data_ptr(), ct.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), dg.data_ptr(), db.data_ptr(), n, c, rows,
-            chunks)
+    dg, db = _ln_bwd("layernorm_bwd_dparams", x2, None, ct, mean, rstd,
+                     False, True)[1]
     return dg, db
 
 

@@ -25,9 +25,13 @@ fitted on both, and the launch counters must show every kernel ran.
 
 The LM-training kernels (LayerNorm dx and dgamma/dbeta, the GeLU input
 gradient, flash attention) are held against their plain versions at the
-LM path's shapes and edge shapes (one row, one column, C = 65536, T = 1
-and a ragged T, Dh = 128, non-causal), the parameter-gradient reduction
-must repeat bit for bit, each differentiable op's gradients on the card
+LM path's shapes and edge shapes (one row, one column, C = 65536, the
+LayerNorm backward's register-route limit C = 1024 +-1, T = 1 and a
+ragged T, Dh = 128, non-causal); the LayerNorm backward's one call
+(``layernorm_bwd``: dx, dgamma and dbeta) and its single-half wrappers,
+the same kernel with one half off, must agree bit for bit, its
+instances must not spill, and the parameter-gradient reduction
+must repeat bit for bit; each differentiable op's gradients on the card
 must match its plain op's on the CPU, and a small LM fits alike on both.
 Their bfloat16 instances are held the same way in bfloat16 ulps (one
 beyond 2e-5; the parameter sums one beyond 1e-4), aligned and on
@@ -522,6 +526,71 @@ def test_ln_bwd_dparams_repeats_bit_for_bit(dev):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+#: the LayerNorm backward's shapes: the LM's, one row, one column, the
+#: eligibility bound, odd C, a short row, and the register route's limit
+#: +-1 (C = 1024)
+LN_BWD_SHAPES = [(8192, 512), (1, 512), (7, 1), (3, 65536), (5, 13),
+                 (300, 100), (70, 1023), (70, 1024), (70, 1025)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", LN_BWD_SHAPES)
+def test_ln_bwd_fused_kernel(dev, n, c):
+    """``layernorm_bwd``, one launch for dx, dgamma and dbeta, against its
+    plain version (dx within 2e-5, the sums over N rows within 1e-4);
+    only ``ln_bwd`` moves, once; each single-half wrapper gives its half
+    bit for bit (the same kernel with the other half off) and moves its
+    own counter."""
+    x = 3 * _rnd(dev, n, c) + 1
+    g, b = _rnd(dev, c, seed=1), _rnd(dev, c, seed=2)
+    ct = _rnd(dev, n, c, seed=3)
+    _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
+    before = ck.launch_counts()
+    dx, dg, db = ck.layernorm_bwd(x, g, ct, mean, rstd)
+    after = ck.launch_counts()
+    want = ck.layernorm_bwd_plain(x, g, ct, mean, rstd)
+    _same(dx, want[0])
+    _same((dg, db), want[1:], tol=1e-4)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"ln_bwd": 1}
+    assert dx.shape == (n, c) and dg.shape == db.shape == (c,)
+    before = ck.launch_counts()
+    assert torch.equal(ck.layernorm_bwd_dx(x, g, ct, mean, rstd), dx)
+    for got, ref in zip(ck.layernorm_bwd_dparams(x, ct, mean, rstd),
+                        (dg, db)):
+        assert torch.equal(got, ref)
+    after = ck.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"ln_bwd_dx": 1, "ln_bwd_dparams": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8192, 512), (70, 1024), (300, 4096)])
+def test_ln_bwd_fused_repeats_bit_for_bit(dev, n, c):
+    """The fused call's parameter gradients in a fixed order (no float
+    atomics): repeated calls give identical bits, dx too."""
+    x, ct = _rnd(dev, n, c), _rnd(dev, n, c, seed=1)
+    g = _rnd(dev, c, seed=2)
+    mean = x.mean(1)
+    rstd = torch.rsqrt(x.var(1, unbiased=False) + 1e-5)
+    first = ck.layernorm_bwd(x, g, ct, mean, rstd)
+    for _ in range(3):
+        again = ck.layernorm_bwd(x, g, ct, mean, rstd)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_ln_bwd_does_not_spill(dev):
+    """ptxas' report shows 0 bytes of spill stores and loads for every
+    instance of the LayerNorm backward: its rows and running column sums
+    live in registers."""
+    res = {fn: r for fn, r in ck.resources("ln_bwd").items()
+           if "registers" in r}
+    assert len(res) >= 3 * 6, sorted(res)
+    for fn, r in res.items():
+        assert r["spill_stores"] == r["spill_loads"] == 0, (fn, r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c", [(8192, 2048), (3, 13), (1, 4)])
 def test_bias_gelu_dx_kernel(dev, n, c):
@@ -568,7 +637,7 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
 _GRAD_CASES = {
     "LayerNorm": (lambda d: [3 * _rnd(d, 4, 64, 512) + 1,
                              _rnd(d, 512, seed=1), _rnd(d, 512, seed=2)],
-                  {}, ("layernorm", "ln_bwd_dx", "ln_bwd_dparams")),
+                  {}, ("layernorm", "ln_bwd")),
     "FusedBiasGeLU": (lambda d: [_rnd(d, 256, 2048), _rnd(d, 2048, seed=1)],
                       {}, ("bias_gelu", "bias_gelu_dx")),
     "Embedding": (lambda d: [torch.tensor([[0, 5, 99, -1], [3, 3, 100, -101]],
@@ -652,8 +721,7 @@ def _lm_fit_both(pos_embed):
         counts = ck.launch_counts()
         if ctx.device_type == "gpu":
             want = {"embedding": 1 + (pos_embed == "learned"),
-                    "layernorm": 2 * L + 1,
-                    "ln_bwd_dx": 2 * L + 1, "ln_bwd_dparams": 2 * L + 1,
+                    "layernorm": 2 * L + 1, "ln_bwd": 2 * L + 1,
                     "bias_gelu": L, "bias_gelu_dx": L,
                     "flash_attention": L, "softmax": 1, "softmax_ce_bwd": 1}
             assert counts == {k: N * want.get(k, 0) for k in counts}, counts
@@ -1886,9 +1954,11 @@ def test_ln_bwd_bf16_kernels(dev, n, c, half):
             assert _ulps16(half, got, want, atol=1e-4) <= 1
         assert _moved(before, after, (
             "layernorm_bwd_dx_" + sfx, "layernorm_bwd_dparams_" + sfx,
-            "ln_bwd_dx", "ln_bwd_dparams")) == {
+            "layernorm_bwd_" + sfx, "ln_bwd_dx", "ln_bwd_dparams",
+            "ln_bwd")) == {
                 "layernorm_bwd_dx_" + sfx: 1, "layernorm_bwd_dparams_" + sfx: 1,
-                "ln_bwd_dx": 0, "ln_bwd_dparams": 0}
+                "layernorm_bwd_" + sfx: 0, "ln_bwd_dx": 0,
+                "ln_bwd_dparams": 0, "ln_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -1904,6 +1974,44 @@ def test_ln_bwd_dparams_bf16_repeats_bit_for_bit(dev, half):
     for _ in range(3):
         again = ck.layernorm_bwd_dparams(x, ct, mean, rstd)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
+@pytest.mark.parametrize("n,c", LN_BWD_SHAPES)
+def test_ln_bwd_fused_bf16_kernel(dev, n, c, half):
+    """The fused call's 16-bit instance against its plain version on the
+    same values, aligned and on a misaligned view (one value at a time):
+    dx within one ulp beyond 2e-5, dgamma / dbeta within one ulp beyond
+    1e-4, all three 16-bit; only ``layernorm_bwd_<half>`` moves, once a
+    call; repeated calls and the single-half wrappers give the same
+    bits."""
+    hd, sfx = HALVES[half][:2]
+    g = (1 + 0.3 * _rnd(dev, c, seed=1)).to(hd)
+    b = _rnd(dev, c, seed=2).to(hd)
+    ct = _rnd(dev, n, c, seed=3).to(hd)
+    for x in ((3 * _rnd(dev, n, c) + 1).to(hd),
+              _misaligned_bf16(dev, n * c, n, c, dtype=hd)):
+        _, mean, rstd = ck.layernorm_plain(x, g, b, 1e-5)
+        before = ck.launch_counts()
+        got = ck.layernorm_bwd(x, g, ct, mean, rstd)
+        after = ck.launch_counts()
+        assert all(t.dtype == hd for t in got)
+        want = ck.layernorm_bwd_plain(x, g, ct, mean, rstd)
+        assert _ulps16(half, got[0], want[0], atol=TOL) <= 1
+        for a, w in zip(got[1:], want[1:]):
+            assert _ulps16(half, a, w, atol=1e-4) <= 1
+        assert _moved(before, after, (
+            "layernorm_bwd_" + sfx, "layernorm_bwd_dx_" + sfx,
+            "layernorm_bwd_dparams_" + sfx, "ln_bwd")) == {
+                "layernorm_bwd_" + sfx: 1, "layernorm_bwd_dx_" + sfx: 0,
+                "layernorm_bwd_dparams_" + sfx: 0, "ln_bwd": 0}
+        for a, w in zip(ck.layernorm_bwd(x, g, ct, mean, rstd), got):
+            assert torch.equal(a, w)
+        assert torch.equal(ck.layernorm_bwd_dx(x, g, ct, mean, rstd), got[0])
+        for a, w in zip(ck.layernorm_bwd_dparams(x, ct, mean, rstd),
+                        got[1:]):
+            assert torch.equal(a, w)
 
 
 @pytest.mark.cuda
@@ -1987,8 +2095,7 @@ _BF16_GRAD_CASES = {
     "LayerNorm": (lambda d: [3 * _rnd(d, 4, 64, 512) + 1,
                              1 + 0.3 * _rnd(d, 512, seed=1),
                              _rnd(d, 512, seed=2)], {},
-                  ("layernorm_bf16", "layernorm_bwd_dx_bf16",
-                   "layernorm_bwd_dparams_bf16")),
+                  ("layernorm_bf16", "layernorm_bwd_bf16")),
     "FusedBiasGeLU": (lambda d: [_rnd(d, 256, 2048), _rnd(d, 2048, seed=1)],
                       {}, ("bias_gelu_bf16", "bias_gelu_dx_bf16")),
     "attention": (lambda d: [_rnd(d, 2, 4, 300, 64, seed=i)
@@ -2073,8 +2180,7 @@ def _lm_bf16_fit_both(half):
         counts = ck.launch_counts()
         if ctx.device_type == "gpu":
             want = {"embedding": 1, "layernorm": 2 * L + 1,
-                    "layernorm_bwd_dx": 2 * L + 1,
-                    "layernorm_bwd_dparams": 2 * L + 1,
+                    "layernorm_bwd": 2 * L + 1,
                     "bias_gelu": L, "bias_gelu_dx": L,
                     "flash_attention": L, "softmax": 1,
                     "softmax_ce_bwd": 1}
