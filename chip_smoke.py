@@ -47,8 +47,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.softmax``'s device times beside the kernels' at the decode and
    ResNet-50 head shapes; the host's launch path of the LayerNorm and
    softmax wrappers, piece by piece, as it is and as it was (the earlier
-   path re-enacted); ptxas' registers and spills of every softmax,
-   LayerNorm and LayerNorm-backward instance (none may spill); each
+   path re-enacted); the decode read (key range split over blocks) in
+   every instance at the prefill window (S = 64 at the served shape) and
+   at a 4096-key cache (S = 1, Dh 64 and 128), held to its plain version,
+   its device time beside the byte bound and SDPA's with the same cursor
+   mask; row 16's library column, ``torch._weight_int8pack_mm``, where
+   the installed PyTorch runs it; ptxas' registers and spills of every
+   softmax, LayerNorm, LayerNorm-backward and decode-read instance (none
+   may spill); each
    flash-attention
    instance's HGMMA count in its SASS and ptxas' registers and spills —
    the 16-bit instances, both modes, must run on the tensor cores without
@@ -821,6 +827,8 @@ def phase_kernels(mx, ck):
              "bias_gelu": lambda: ck.bias_gelu(h, hb),
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
+    _decode_window_rows(ck, rs, t, kc, vc)
+    _decode_long_rows(ck, rs, t)
     calls.update(_decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1))
     f32 = dict(ids=ids, w=w, scale=scale, x=x, g=g, b=b, h=h, hb=hb, kc=kc,
                vc=vc, q1=q1, pos1=pos1, mask=mask, live=live)
@@ -1069,11 +1077,11 @@ def _launch_path_probe(ck):
 
 
 def _row_kernel_resources(ck):
-    """ptxas' registers and spills of every softmax, LayerNorm and
-    LayerNorm-backward instance; the row-resident designs may not
-    spill."""
+    """ptxas' registers and spills of every softmax, LayerNorm,
+    LayerNorm-backward and decode-read instance; the row-resident designs
+    and the decode read may not spill."""
     spills = []
-    for lib in ("softmax", "layernorm", "ln_bwd"):
+    for lib in ("softmax", "layernorm", "ln_bwd", "decode_attention"):
         for fn, r in sorted(ck.resources(lib).items()):
             if "registers" not in r:
                 continue
@@ -1084,6 +1092,113 @@ def _row_kernel_resources(ck):
                 spills.append(fn)
     if spills:
         raise AssertionError(f"spilling row kernels: {spills}")
+
+
+#: the decode read's instances: cache dtype name, query dtype name
+DECODE_INSTANCES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+                    ("float16", "float16"), ("float8_e4m3fn", "float32"),
+                    ("float8_e5m2", "float32"))
+#: the prefill window's row (S = PREFILL_CHUNK at the served shape) and
+#: the long-context rows (C = 4096, every cursor at its end, S = 1)
+WINDOW_CURSORS = [0, 1, 127, 128, 192, 63, 150, 31]
+LONG_CAP = 4096
+
+
+def _decode_caches(ck, rs, t, cache_dt, B, H, C, Dh):
+    """K and V caches of one instance from the same float32 draws: 16-bit
+    caches rounded once, fp8 ones cast as the decode path casts them."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.rtc import fp8_cast
+    dt = getattr(torch, cache_dt)
+    out = []
+    for _ in range(2):
+        c = t(rs.randn(B, H, C, Dh).astype(np.float32))
+        out.append(fp8_cast(c, dt) if dt in (torch.float8_e4m3fn,
+                                             torch.float8_e5m2)
+                   else c.to(dt))
+    return out
+
+
+def _decode_row(ck, name, q, kc, vc, pos, live_keys, scores, sdpa=True):
+    """One decode read against its plain version (within TOL) and timed:
+    device ms (L2 flushed) beside its bound (``live_keys`` K and V rows
+    read, ``scores`` live (query, key) pairs of 4 Dh flops each, at the
+    float32 peak, or the 16-bit one for 16-bit inputs) and, where SDPA
+    takes the dtype, SDPA's device ms with the same cursor mask. Prints
+    one line."""
+    import torch
+    import torch.nn.functional as F
+    B, H, S, Dh = q.shape
+    C = kc.shape[2]
+    err = _max_err(ck.decode_attention(q, kc, vc, pos),
+                   ck.decode_attention_plain(q, kc, vc, pos))
+    if not err <= TOL["decode_attention"]:
+        raise AssertionError(f"{name}: decode_attention disagrees with its "
+                             f"plain version: {err}")
+    nbytes = (q.numel() * (q.element_size() + 4) + B * 4
+              + 2 * live_keys * H * Dh * kc.element_size())
+    bound = _bound_ms(nbytes, 4 * scores * H * Dh,
+                      BF16_FLOPS_PER_S if q.element_size() == 2
+                      else F32_FLOPS_PER_S)
+    dev_ms = _device_ms(lambda: ck.decode_attention(q, kc, vc, pos))
+    line = (f"{name}: max_abs_err={err:.3g} device_ms={dev_ms:.6f} "
+            f"bound_ms={bound[0]:.6f} ({bound[1]}) "
+            f"x_bound={dev_ms / bound[0]:.2f}")
+    if sdpa:
+        q_pos = pos.long()[:, None] + torch.arange(S, device=q.device)
+        mask = (torch.arange(C, device=q.device)[None, None, :]
+                <= q_pos[:, :, None])[:, None]
+        def call():
+            return F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)
+        lib = _device_ms(call)
+        line += f" sdpa_device_ms={lib:.6f} kernel/sdpa={dev_ms / lib:.2f}"
+    else:
+        line += " sdpa_device_ms=- (SDPA needs a dequantized copy)"
+    print(line)
+    return dev_ms
+
+
+def _decode_window_rows(ck, rs, t, kc, vc):
+    """The prefill window: S = 64 at the served shape (B 8, H 8, C 256,
+    Dh 64), cursors WINDOW_CURSORS, every instance, SDPA beside the
+    16-bit and float32 ones."""
+    import numpy as np
+    import torch
+    B, H, C, Dh = kc.shape
+    pos = t(WINDOW_CURSORS, torch.int32)
+    cur = np.asarray(WINDOW_CURSORS)
+    live = int(np.minimum(C, cur + PREFILL_CHUNK).sum())
+    scores = int(np.minimum(C, cur[:, None] + np.arange(PREFILL_CHUNK) + 1)
+                 .sum())
+    for cache_dt, q_dt in DECODE_INSTANCES:
+        caches = (kc, vc) if cache_dt == "float32" else _decode_caches(
+            ck, rs, t, cache_dt, B, H, C, Dh)
+        q = t(rs.randn(B, H, PREFILL_CHUNK, Dh).astype(np.float32)).to(
+            getattr(torch, q_dt))
+        _decode_row(ck, f"decode window S={PREFILL_CHUNK} {cache_dt}", q,
+                    *caches, pos, live, scores,
+                    sdpa=not cache_dt.startswith("float8"))
+
+
+def _decode_long_rows(ck, rs, t):
+    """The long-context rows: B 8, H 8, C = 4096, S 1, every cursor at
+    4095, Dh 64 and 128, every instance: the bytes (134.2 MB float32 at
+    Dh 64) bound the call, unlike the served step's 256 keys."""
+    import numpy as np
+    import torch
+    B, H = 8, N_HEAD
+    pos = t([LONG_CAP - 1] * B, torch.int32)
+    for dh in (64, 128):
+        for cache_dt, q_dt in DECODE_INSTANCES:
+            kc, vc = _decode_caches(ck, rs, t, cache_dt, B, H, LONG_CAP, dh)
+            q = t(rs.randn(B, H, 1, dh).astype(np.float32)).to(
+                getattr(torch, q_dt))
+            _decode_row(ck, f"decode long C={LONG_CAP} Dh={dh} {cache_dt}",
+                        q, kc, vc, pos, B * LONG_CAP, B * LONG_CAP,
+                        sdpa=not cache_dt.startswith("float8"))
+            del kc, vc
+        torch.cuda.empty_cache()
 
 
 def _decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1):
@@ -1796,8 +1911,8 @@ def _quant_kernels(mx, ck, rs, t, rec):
     rec["qfc_matmul"] = dict(
         max_abs_err=err_q, rel_err=rel_q, ms=qfc["int8"],
         plain_ms=_timed(lambda: ck.qfc_matmul_plain(x8, *fc["int8"])),
-        library_ms=None,    # torch._int_mm / _scaled_mm need narrow x too
         bound=_bound_ms(m * k * 4 + n * k + n * 4 + m * n * 4, 2 * m * n * k))
+    _int8pack_library(ck, rec["qfc_matmul"], x8, *fc["int8"])
     rec["dequant_rows"] = dict(
         max_abs_err=err_d, ms=deq["int8"],
         plain_ms=_timed(lambda: [ck.dequant_rows_plain(*a)
@@ -1809,6 +1924,32 @@ def _quant_kernels(mx, ck, rs, t, rec):
     return {"qfc_matmul": lambda: ck.qfc_matmul(x8, *fc["int8"]),
             "dequant_rows": lambda: [ck.dequant_rows(*a)
                                      for a in convs["int8"]]}
+
+
+def _int8pack_library(ck, r, x, w, s):
+    """Row 16's library column: ``torch._weight_int8pack_mm(x, w, scales)``,
+    y = x . (w . scale)^T with an int8 weight (N, K) and the scales in x's
+    dtype, timed into record ``r`` where it runs on the card for x's
+    dtype (its difference from the kernel printed, relative to the
+    largest output), ``library_ms`` None and the error printed where it
+    raises."""
+    import torch
+    r["library_ms"] = None
+    sc = s.to(x.dtype)
+    label = f"row 16 library torch._weight_int8pack_mm {x.dtype}"
+    try:
+        y = torch._weight_int8pack_mm(x, w, sc)
+        torch.cuda.synchronize()
+    except Exception as e:            # the installed build's answer
+        print(f"{label}: raises {type(e).__name__}: "
+              f"{str(e).strip().splitlines()[0][:200]}")
+        return
+    ref = ck.qfc_matmul(x, w, s)
+    print(f"{label}: runs; max |y - kernel| {_max_err(y, ref):.3g} "
+          f"({_max_err(y, ref) / float(ref.abs().max()):.3g} of the "
+          f"largest output)")
+    r["library_ms"] = _timed(lambda: torch._weight_int8pack_mm(x, w, sc))
+    r["library_call"] = lambda: torch._weight_int8pack_mm(x, w, sc)
 
 
 def _quant_half_kernels(ck, rs, t, rec):
@@ -1846,9 +1987,9 @@ def _quant_half_kernels(ck, rs, t, rec):
             max_abs_err=err_q, rel_err=rel_q,
             ms=_timed(lambda x8=x8: ck.qfc_matmul(x8, w, s)),
             plain_ms=_timed(lambda x8=x8: ck.qfc_matmul_plain(x8, w, s)),
-            library_ms=None,    # no PyTorch call takes an int8 weight here
             bound=_bound_ms(m * k * 2 + n * k + n * 4 + m * n * 4,
                             2 * m * n * k))
+        _int8pack_library(ck, rec[name], x8, w, s)
         calls[name] = lambda x8=x8: ck.qfc_matmul(x8, w, s)
     return calls
 
@@ -2042,6 +2183,8 @@ def _bf16_decode_kernels(ck, rs, t, rec, f32, half="bfloat16"):
         plain_ms=_timed(lambda: ck.decode_attention_plain(q1, kc, vc, pos1)),
         library_ms=_timed(lambda: F.scaled_dot_product_attention(
             q1, kc, vc, attn_mask=f32["mask"])),
+        library_call=lambda: F.scaled_dot_product_attention(
+            q1, kc, vc, attn_mask=f32["mask"]),
         bound=_bound_ms(q1.numel() * (2 + 4) + B * 4 + live * H * Dh * 2 * 2,
                         live * H * Dh * 4, BF16_FLOPS_PER_S))
     return {"embedding_" + sfx: lambda: ck.embedding(ids, w, scale),

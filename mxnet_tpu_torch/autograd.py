@@ -25,6 +25,12 @@ value beside the gradient of its training-mode forward. Here, as in
 MXNet, the value and the gradient come from one training-mode forward
 (``ROADMAP.md`` §C has the numbers). Ops that ignore ``is_train`` agree
 with the JAX package exactly.
+
+``grad_and_loss`` and ``grad`` record with training off: ``func`` runs
+with ``is_train=False`` (a BatchNorm takes its moving statistics and
+updates none), value and gradient from that one forward, as the JAX
+package differentiates ``func`` under ``jax.vjp`` outside any train
+section.
 """
 from __future__ import annotations
 
@@ -41,7 +47,10 @@ __all__ = ["grad_and_loss", "grad", "mark_variables", "backward",
            "train_section", "test_section", "set_is_training",
            "is_training"]
 
-_STATE = {"train": False}
+#: "train": ops run with is_train=True; "record": imperative ops record
+#: autograd history. A train section sets both, ``grad_and_loss`` records
+#: with training off
+_STATE = {"train": False, "record": False}
 #: id -> every variable marked and still alive (its ``_grad`` holds the
 #: cell); keyed by id, as the JAX package keys its marks, because an
 #: NDArray's ``==`` is elementwise and a set would compare arrays
@@ -49,9 +58,10 @@ _MARKED = weakref.WeakValueDictionary()
 
 
 def set_is_training(is_train):
-    """Switch recording on or off; returns the previous state."""
+    """Switch training and recording on or off together; returns the
+    previous training state."""
     prev = _STATE["train"]
-    _STATE["train"] = bool(is_train)
+    _STATE["train"] = _STATE["record"] = bool(is_train)
     return prev
 
 
@@ -59,24 +69,30 @@ def is_training():
     return _STATE["train"]
 
 
+def is_recording():
+    """True where imperative ops record autograd history: inside a train
+    section, and inside ``grad_and_loss``'s call of its function."""
+    return _STATE["record"]
+
+
 @contextmanager
+def _state(train, record):
+    prev = dict(_STATE)
+    _STATE.update(train=train, record=record)
+    try:
+        yield
+    finally:
+        _STATE.update(prev)
+
+
 def train_section():
     """Record imperative ops (and run them with ``is_train=True``)."""
-    prev = set_is_training(True)
-    try:
-        yield
-    finally:
-        set_is_training(prev)
+    return _state(True, True)
 
 
-@contextmanager
 def test_section():
     """Stop recording inside a train section."""
-    prev = set_is_training(False)
-    try:
-        yield
-    finally:
-        set_is_training(prev)
+    return _state(False, False)
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):
@@ -149,8 +165,9 @@ def backward(outputs, out_grads=None, retain_graph=False):
 
 def grad_and_loss(func, argnum=None):
     """``func``'s gradients and outputs: the returned function runs
-    ``func`` inside a train section on fresh leaves over its arguments
-    (the arguments' own handles stay untouched) and differentiates its
+    ``func`` recording, with training off (``is_train=False``, as the
+    JAX package runs it), on fresh leaves over its arguments (the
+    arguments' own handles stay untouched) and differentiates its
     outputs with ones as head gradients. ``argnum`` (an int or a tuple)
     picks the arguments whose gradients it returns; default all."""
     @functools.wraps(func)
@@ -159,7 +176,7 @@ def grad_and_loss(func, argnum=None):
         argnums = tuple(range(len(args))) if argnum is None else \
             ((argnum,) if isinstance(argnum, int) else tuple(argnum))
         leaves = [a.astorch().detach().requires_grad_(True) for a in args]
-        with train_section():
+        with _state(False, True):
             out = func(*[NDArray(t, ctx=a.context)
                          for t, a in zip(leaves, args)])
         many = isinstance(out, (list, tuple))

@@ -12,33 +12,64 @@
 //
 // The cache is float32 or fp8 storage (float8_e4m3fn, float8_e5m2) with a
 // float32 query, or bfloat16 or float16 with a query of the same type (the
-// mixed-precision paths), one template instance each. An fp8, bfloat16 or
-// float16 tile is read 16 bytes a thread and widened to float32 while it is
-// staged into shared memory, as the TPU kernel widens its query and cache
-// blocks on read (astype(float32)); a 16-bit query is widened before it is
-// scaled. Every widening is exact, so from the staged tile on the narrow
-// instances compute exactly what the float32 instance computes, and the output
-// is float32 in every instance (the op casts it to the query's type). A score
-// that is NaN or +inf (a NaN cell, e.g. a float8_e4m3fn overflow on write, or
-// an e5m2 infinity) makes its row NaN, as it does in the plain softmax.
+// mixed-precision paths), one template instance each. Cache values are
+// widened to float32 as they are read from shared memory, as the TPU kernel
+// widens its blocks on read (astype(float32)); fp8 goes through half, and
+// every widening is exact, so the narrow instances compute exactly what the
+// float32 instance computes on the same values. A 16-bit query is widened
+// before it is scaled. The output is float32 in every instance (the op
+// casts it to the query's type). A live score that is NaN or +inf (a NaN
+// cell, e.g. a float8_e4m3fn overflow on write, or an e5m2 infinity) makes
+// its row NaN, as it does in the plain softmax: its p is NaN, so the
+// normalizer l and the accumulator carry the poison through every rescale
+// (NaN * 0 is NaN) and every merge, while m ignores it (fmaxf drops NaN).
 //
 // Bound: bytes. Each row reads its live K and V prefix once, 2 * live * Dh
 // * (4, 2 or 1) bytes, for 4 * S * live * Dh flops; at S=1 that is half a
 // flop (one for bfloat16, two for fp8) per byte, far below the card's
-// operations-per-byte line. The TPU kernel runs the key blocks as a sequential grid axis with
-// scratch carried between steps, and skips dead blocks by clamping its index
-// map; here a block owns one (b, h) row and up to kSq query rows and LOOPS
-// over the key tiles of the live prefix, so dead tiles are neither read nor
-// computed. Tiles of kBk keys are staged in shared memory (K rows padded by
-// one float so the 32 lanes of a warp, one key each, hit 32 different
-// banks); every product is a float32 FMA, no tensor cores and so no TF32,
-// matching the reference's Precision.HIGHEST. The cursor is taken per
-// (b, h) row, b-major: b = bh / H.
+// operations-per-byte line. At the served step (B*H = 64 rows of at most
+// 256 keys) the bytes take about a microsecond, so what the design fights
+// is latency:
 //
-// Known limit of this first version: the grid is one block per (b, h) row
-// and query tile, so the decode path's B=8, H=8, S=1 launches 64 blocks on
-// 132 SMs and the card is not filled; splitting the key range across
-// blocks (split-K with a combine pass) is later work.
+// * The key range is split over blocks: the grid is (B*H, query tiles,
+//   splits), the split size chosen on the host from B*H, S, C and the SM
+//   count (cuda_kernels._decode_splits; it never reads the cursors), so
+//   the served step runs 256 blocks of 64 keys instead of 64 blocks that
+//   each walk a whole row, and a 4096-key cache 4 splits of 1024. A split
+//   wholly past its row's live prefix reads nothing and leaves an empty
+//   partial (m = -inf, l = 0, acc = 0).
+// * Inside a block each warp is a flash-decode of its own: it takes the
+//   split's 32-key chunks w, w + warps, ..., one key a lane for the
+//   scores, and keeps (m, l, acc) in registers. A chunk's K and V rows are
+//   copied into the warp's own shared-memory ring with cp.async, 16 bytes
+//   a copy in every instance (the caches are 16-byte aligned, rows are 64
+//   to 512 bytes), all of a chunk's copies in flight together and, where
+//   a warp has more than one chunk, the next chunk's issued before this
+//   one is consumed (two stages; one for a window over 256- or 512-byte
+//   rows, to keep two blocks an SM). No block-wide barrier runs inside
+//   the key loop: a warp waits for its own copies and syncs with
+//   __syncwarp. The first chunks' copies are issued before the query rows
+//   are staged, so the two loads overlap.
+// * S = 1 has its own instance: one query row, one score a lane (four
+//   interleaved partial sums), p handed to the accumulator by shuffles; a
+//   lane accumulates Dh / 32 dims; two warps a block. A window (1 < S <=
+//   64) takes tiles of 16 query rows, four warps a block; a full tile runs
+//   every row's chains unguarded, so they interleave, and the last tile's
+//   rows past S are skipped by warp-uniform branches, never computed nor
+//   merged.
+// * The block's warps are merged in warp order, in shared memory. With
+//   more than one split each block writes its float32 (m, l, acc) to a
+//   workspace and bumps its (row, tile) counter after a __threadfence;
+//   the block that arrives last merges the splits in split order 0, 1, 2,
+//   ... (so the bits do not depend on which block is last), writes the
+//   output and resets the counter: one launch, no float atomics, the same
+//   bits on every call. Every merge, warp or split, is the online rule:
+//   m = max, m_safe = isfinite(m) ? m : 0, each side scaled by
+//   exp(m_side - m_safe) (0 for a side whose m is not finite), added.
+//
+// Every product is a float32 FMA, no tensor cores and so no TF32, matching
+// the reference's Precision.HIGHEST; exp is expf. The cursor is taken per
+// (b, h) row, b-major: b = bh / H.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -51,10 +82,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kSq = 16;        // query rows per block
-constexpr int kBk = 32;        // keys per shared-memory tile (one per lane)
+constexpr int kKeys = 32;               // keys a chunk: one a lane
+constexpr int kWinRows = 16;            // query rows a window tile
+constexpr int kPsStride = kWinRows + 4;  // floats a key's p row (padded)
+constexpr int kMaxDevices = 16;
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 // fp8 storage types: the interpretation __nv_cvt_fp8x2_to_halfraw2 takes
 struct E4M3 {
@@ -64,295 +96,566 @@ struct E5M2 {
   static constexpr __nv_fp8_interpretation_t kind = __NV_E5M2;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// 16 fp8 codes (one aligned 16-byte load) -> 16 floats, converted in pairs
-// through half (exact for both fp8 formats, NaN and infinities kept)
-template <typename Fp8>
-__device__ __forceinline__ void fp8x16_to_float(uint4 raw, float* dst) {
-  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __nv_fp8x2_storage_t pair =
-          static_cast<__nv_fp8x2_storage_t>(words[w] >> (16 * h));
-      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(pair, Fp8::kind);
-      const float2 f = __half22float2(__half2(hr));
-      dst[4 * w + 2 * h] = f.x;
-      dst[4 * w + 2 * h + 1] = f.y;
-    }
-  }
-}
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
-
-// the 16-bit cache types, read 8 values (16 bytes) a unit
 template <typename Cache>
 constexpr bool kHalf16 = std::is_same<Cache, __nv_bfloat16>::value ||
                          std::is_same<Cache, __half>::value;
 
-// Stage keys [k_start, k_start + kBk) of one (b, h) row into ks/vs, zero
-// past n_keys. float32 cache: one float a thread per step. bfloat16 or
-// float16 cache: one 16-byte chunk (8 values of one row) a thread per
-// step. fp8 cache: one 16-byte chunk (16 codes of one row) a thread per
-// step.
-template <int DH, typename Cache>
-__device__ __forceinline__ void stage_tile(const void* kb, const void* vb,
-                                           int k_start, int n_keys,
-                                           float (*ks)[DH + 1],
-                                           float (*vs)[DH]) {
-  const int t = threadIdx.x;
+// bytes of one cache value
+template <typename Cache>
+constexpr int kElem = std::is_same<Cache, float>::value ? 4
+                      : kHalf16<Cache>                   ? 2
+                                                         : 1;
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kAllLanes, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAllLanes, v, o);
+  return v;
+}
+
+// a pair of fp8 codes -> two floats, through half (exact for both formats,
+// NaN and infinities kept)
+template <typename Fp8>
+__device__ __forceinline__ float2 fp8x2_to_float2(uint32_t pair) {
+  const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xffffu), Fp8::kind);
+  return __half22float2(__half2(hr));
+}
+
+// N consecutive cache values at p (N * kElem bytes, aligned to that) ->
+// N floats, widened exactly. N is 2, 4, 8 or 16, one shared-memory access.
+template <typename Cache, int N>
+__device__ __forceinline__ void widen(const uint8_t* p, float* f) {
+  constexpr int kBytes = N * kElem<Cache>;
+  static_assert(kBytes == 2 || kBytes == 4 || kBytes == 8 || kBytes == 16,
+                "one access of 2 to 16 bytes");
+  uint32_t w[kBytes >= 4 ? kBytes / 4 : 1];
+  if constexpr (kBytes == 16) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+  } else if constexpr (kBytes == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x, w[1] = r.y;
+  } else if constexpr (kBytes == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
   if constexpr (std::is_same<Cache, float>::value) {
-    const float* kf = static_cast<const float*>(kb);
-    const float* vf = static_cast<const float*>(vb);
-    for (int e = t; e < kBk * DH; e += kThreads) {
-      const int j = e / DH, d = e % DH;
-      const int kp = k_start + j;
-      const bool in = kp < n_keys;
-      ks[j][d] = in ? kf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
-      vs[j][d] = in ? vf[static_cast<int64_t>(kp) * DH + d] : 0.0f;
-    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = __uint_as_float(w[i]);
   } else if constexpr (kHalf16<Cache>) {
-    using Unit = mxio::Io<Cache, 8>;
-    constexpr int kChunks = DH / 8;  // 16-byte chunks per cache row
-    const Cache* kh = static_cast<const Cache*>(kb);
-    const Cache* vh = static_cast<const Cache*>(vb);
-    for (int c = t; c < kBk * kChunks; c += kThreads) {
-      const int j = c / kChunks, d0 = (c % kChunks) * 8;
-      const int kp = k_start + j;
-      float kv[8], vv[8];
-      if (kp < n_keys) {
-        const int64_t u = static_cast<int64_t>(kp) * kChunks + c % kChunks;
-        Unit::load(kh, u, kv);
-        Unit::load(vh, u, vv);
-      } else {
+    using Pair = typename mxio::Half<Cache>::Pair;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) kv[i] = vv[i] = 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        ks[j][d0 + i] = kv[i];
-        vs[j][d0 + i] = vv[i];
-      }
+    for (int i = 0; i < N / 2; ++i) {
+      const uint32_t bits = w[i];
+      const float2 v =
+          mxio::Half<Cache>::widen2(*reinterpret_cast<const Pair*>(&bits));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
     }
   } else {
-    constexpr int kChunks = DH / 16;  // 16-byte chunks per cache row
-    const uint8_t* k8 = static_cast<const uint8_t*>(kb);
-    const uint8_t* v8 = static_cast<const uint8_t*>(vb);
-    for (int c = t; c < kBk * kChunks; c += kThreads) {
-      const int j = c / kChunks, d0 = (c % kChunks) * 16;
-      const int kp = k_start + j;
-      float kv[16], vv[16];
-      if (kp < n_keys) {
-        const int64_t off = static_cast<int64_t>(kp) * DH + d0;
-        fp8x16_to_float<Cache>(
-            __ldg(reinterpret_cast<const uint4*>(k8 + off)), kv);
-        fp8x16_to_float<Cache>(
-            __ldg(reinterpret_cast<const uint4*>(v8 + off)), vv);
-      } else {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) kv[i] = vv[i] = 0.0f;
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 v = fp8x2_to_float2<Cache>(w[i / 2] >> (16 * (i % 2)));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+}
+
+__device__ __forceinline__ float widen1(float x) { return x; }
+__device__ __forceinline__ float widen1(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen1(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+
+
+// exp(x - m_safe) of a state whose max is x: 0 unless x is finite (the
+// argument is selected, so expf runs unconditionally: no branch)
+__device__ __forceinline__ float rescale(float x, float m_safe) {
+  return expf(isfinite(x) ? x - m_safe : -INFINITY);
+}
+
+// Merge the state (mb, lb, ab) into (m, l, a): the online-softmax rule of
+// the TPU kernel's m/l/corr update, for one accumulator entry
+__device__ __forceinline__ void merge(float& m, float& l, float& a, float mb,
+                                      float lb, float ab) {
+  const float mn = fmaxf(m, mb);
+  const float ms = isfinite(mn) ? mn : 0.0f;
+  const float c0 = rescale(m, ms), c1 = rescale(mb, ms);
+  l = fmaf(lb, c1, l * c0);
+  a = fmaf(ab, c1, a * c0);
+  m = mn;
+}
+
+// Shared-memory layout of one launch (bytes), for a block of ROWS query
+// rows over Dh = DH. A chunk stage holds 32 K rows then 32 V rows, each
+// padded by 16 bytes so the lanes of a quarter warp, one K row each, hit
+// distinct banks.
+template <int DH, typename Cache, int ROWS>
+struct Smem {
+  // warps a block: two at S = 1, four for a window tile (16 rows give a
+  // chunk 16 times the work, so more warps share a split)
+  static constexpr int kWarps = ROWS == 1 ? 2 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRowBytes = DH * kElem<Cache>;
+  static constexpr int kPitch = kRowBytes + 16;
+  static constexpr int kStage = 2 * kKeys * kPitch;
+  // ring stages a warp may take: two, but one for a window's four warps
+  // over 256- or 512-byte rows, so that two blocks still fit an SM
+  static constexpr int kMaxStages = ROWS == 1 || kRowBytes <= 128 ? 2 : 1;
+  static constexpr int kQ = ROWS * DH * 4;
+  static constexpr int kPs = ROWS > 1 ? kWarps * kKeys * kPsStride * 4 : 0;
+  // the warps' (m, l, acc) for the block merge, then each row's merge
+  // coefficients and merged (m, l), over the ring
+  static constexpr int kMerge =
+      (kWarps * ROWS * (DH + 2) + ROWS * (2 * kWarps + 2)) * 4;
+  static constexpr int bytes(int stages) {
+    return kQ + kPs +
+           (kWarps * stages * kStage > kMerge ? kWarps * stages * kStage
+                                              : kMerge);
+  }
+};
+
+// One chunk's online-softmax update of every live row of a tile: the
+// scores of the chunk's keys (lane = key) against the tile's scaled query
+// rows, the TPU kernel's m / l / corr rule, and acc = acc * corr + sum_j
+// p_j v_j. FULL (a full tile: every window tile but the last, and S = 1)
+// drops the row guards, so the rows' chains interleave. Inlined, so the
+// state arrays stay in registers.
+template <bool FULL, int DH, typename Cache, int ROWS>
+__device__ __forceinline__ void chunk_update(
+    const uint8_t* st, int ks, int k_hi, int nrows, int64_t first_pos,
+    const float* qs, float* ps, int lane, float (&m)[ROWS], float (&l)[ROWS],
+    float (&acc)[ROWS][DH / 32]) {
+  using L = Smem<DH, Cache, ROWS>;
+  constexpr int kPitch = L::kPitch;
+  constexpr int kUnits = L::kRowBytes / 16;        // 16-byte units a row
+  constexpr int kU = 16 / kElem<Cache>;            // values a unit
+  constexpr int kVd = DH / 32;                     // dims a lane
+  constexpr int kVBytes = kVd * kElem<Cache>;
+  const int nk = min(kKeys, k_hi - ks);
+  const int kp = ks + lane;
+  // scores: lane = key, its K row read 16 bytes at a time; one row in
+  // four interleaved sums (the S = 1 route), or one sum a row
+  constexpr int kParts = ROWS == 1 ? 4 : 1;
+  float sc[ROWS][kParts];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int x = 0; x < kParts; ++x) sc[r][x] = 0.0f;
+  const uint8_t* krow = st + lane * kPitch;
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    float f[kU];
+    widen<Cache, kU>(krow + 16 * u, f);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (FULL || r < nrows) {
+        const float* qr = qs + r * DH + u * kU;
+#pragma unroll
+        for (int x = 0; x < kU; ++x)
+          sc[r][u % kParts] = fmaf(qr[x], f[x], sc[r][u % kParts]);
+      }
+    }
+  }
+  // online-softmax update of each row (the TPU kernel's m/l/corr rule)
+  float p[ROWS], corr[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    p[r] = 0.0f;
+    corr[r] = 1.0f;
+    if (FULL || r < nrows) {
+      float dot = sc[r][0];
+      if constexpr (kParts == 4)
+        dot = (sc[r][0] + sc[r][1]) + (sc[r][2] + sc[r][3]);
+      const bool valid = lane < nk && kp <= first_pos + r;
+      const float s = valid ? dot : -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(s));
+      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+      // p: exp(s - m_safe); 0 for a masked key; NaN for NaN or +inf
+      p[r] = expf(isfinite(s) ? s - m_safe
+                              : (s == -INFINITY ? -INFINITY : NAN));
+      corr[r] = rescale(m[r], m_safe);
+      l[r] = l[r] * corr[r] + warp_sum(p[r]);
+      m[r] = m_new;
+    }
+  }
+  // acc = acc * corr + sum_j p_j v_j, keys in order; a lane's dims
+  // [lane * kVd, lane * kVd + kVd)
+  const uint8_t* vrow = st + kKeys * kPitch + lane * kVBytes;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (FULL || r < nrows) {
+#pragma unroll
+      for (int d = 0; d < kVd; ++d) acc[r][d] *= corr[r];
+    }
+  }
+  if constexpr (ROWS == 1) {
+#pragma unroll 8
+    for (int j = 0; j < nk; ++j) {
+      const float pj = __shfl_sync(kAllLanes, p[0], j);
+      float vv[kVd];
+      widen<Cache, kVd>(vrow + j * kPitch, vv);
+#pragma unroll
+      for (int d = 0; d < kVd; ++d) acc[0][d] = fmaf(pj, vv[d], acc[0][d]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < ROWS; r += 4)
+      *reinterpret_cast<float4*>(ps + lane * kPsStride + r) =
+          make_float4(p[r], p[r + 1], p[r + 2], p[r + 3]);
+    __syncwarp();
+#pragma unroll 2
+    for (int j = 0; j < nk; ++j) {
+      float vv[kVd];
+      widen<Cache, kVd>(vrow + j * kPitch, vv);
+      float pj[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; r += 4) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(ps + j * kPsStride + r);
+        pj[r] = p4.x, pj[r + 1] = p4.y, pj[r + 2] = p4.z, pj[r + 3] = p4.w;
       }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        ks[j][d0 + i] = kv[i];
-        vs[j][d0 + i] = vv[i];
+      for (int r = 0; r < ROWS; ++r) {
+        if (FULL || r < nrows) {
+#pragma unroll
+          for (int d = 0; d < kVd; ++d)
+            acc[r][d] = fmaf(pj[r], vv[d], acc[r][d]);
+        }
       }
     }
   }
 }
 
-template <int DH, typename Cache, typename Q>
-__global__ void __launch_bounds__(kThreads)
-decode_attn(const Q* __restrict__ q, const void* __restrict__ k,
-            const void* __restrict__ v, const int32_t* __restrict__ pos,
-            float* __restrict__ out, int heads, int s_len, int cap,
-            float scale) {
-  constexpr int kAcc = kSq * DH / kThreads;  // accumulator entries / thread
-  constexpr int kElem = std::is_same<Cache, float>::value ? 4
-                        : kHalf16<Cache>                    ? 2
-                                                            : 1;
-  __shared__ float qs[kSq][DH];
-  __shared__ float ks[kBk][DH + 1];
-  __shared__ float vs[kBk][DH];
-  __shared__ float ps[kSq][kBk];
-  __shared__ float m_s[kSq], l_s[kSq], corr_s[kSq];
+template <int DH, typename Cache, typename Q, int ROWS>
+__global__ void __launch_bounds__(Smem<DH, Cache, ROWS>::kThreads)
+decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
+            const uint8_t* __restrict__ v, const int32_t* __restrict__ pos,
+            float* __restrict__ out, float* __restrict__ ws,
+            int* __restrict__ counters, int heads,
+            int s_len, int cap, int split_keys, int stages, float scale) {
+  using L = Smem<DH, Cache, ROWS>;
+  constexpr int kWarps = L::kWarps, kThreads = L::kThreads;
+  constexpr int kRowBytes = L::kRowBytes;
+  constexpr int kPitch = L::kPitch;
+  constexpr int kUnits = kRowBytes / 16;          // 16-byte units a row
+  constexpr int kVd = DH / 32;                    // dims a lane
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ps_all = reinterpret_cast<float*>(smem + L::kQ);
+  uint8_t* ring = smem + L::kQ + L::kPs;
 
-  const int bh = blockIdx.x;
-  const int s0 = blockIdx.y * kSq;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
+  const int bh = blockIdx.x, tile = blockIdx.y, split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int s0 = tile * ROWS;
+  const int nrows = min(ROWS, s_len - s0);
   const int64_t cursor = pos[bh / heads];
-  const Q* qb = q + static_cast<int64_t>(bh) * s_len * DH;
-  const int64_t row_bytes = static_cast<int64_t>(bh) * cap * DH * kElem;
-  const void* kb = static_cast<const uint8_t*>(k) + row_bytes;
-  const void* vb = static_cast<const uint8_t*>(v) + row_bytes;
+  // keys this tile's rows see: [0, min(C, cursor + s0 + nrows))
+  int64_t live = cursor + s0 + nrows;
+  live = live < 0 ? 0 : (live > cap ? cap : live);
+  const int n_keys = static_cast<int>(live);
+  const int k_lo = split * split_keys;
+  const int k_hi = min(k_lo + split_keys, n_keys);
+  const int n_chunks = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
 
-  // the scaled query tile; rows past S are zero and never written out
-  for (int e = t; e < kSq * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    qs[r][d] = (s0 + r < s_len) ? widen(qb[(s0 + r) * DH + d]) * scale
-                                : 0.0f;
-  }
-  if (t < kSq) {
-    m_s[t] = -INFINITY;
-    l_s[t] = 0.0f;
-  }
-  float acc[kAcc];
+  const int64_t row_off = static_cast<int64_t>(bh) * cap * kRowBytes;
+  const uint8_t* kb = k + row_off;
+  const uint8_t* vb = v + row_off;
+  uint8_t* wring = ring + warp * stages * L::kStage;
+  const int n_mine = n_chunks > warp ? (n_chunks - warp + kWarps - 1) / kWarps
+                                     : 0;
+
+  // the K and V rows of this warp's i-th chunk into its stage (keys past
+  // k_hi are not copied: their scores are masked and their V rows unread)
+  auto load = [&](int i) {
+    const int ks = k_lo + (warp + i * kWarps) * kKeys;
+    const int nk = min(kKeys, k_hi - ks);
+    uint8_t* st = wring + (i % stages) * L::kStage;
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
-
-  // keys this block's rows can see: [0, min(C, cursor + s_hi))
-  const int s_hi = min(s_len, s0 + kSq);
-  int64_t live = cursor + s_hi;
-  if (live > cap) live = cap;
-  const int n_keys = live > 0 ? static_cast<int>(live) : 0;
-
-  for (int k_start = 0; k_start < n_keys; k_start += kBk) {
-    __syncthreads();  // previous tile fully consumed (and qs/m/l ready)
-    stage_tile<DH, Cache>(kb, vb, k_start, n_keys, ks, vs);
-    __syncthreads();
-
-    // scores: warp w takes rows w, w+4, ...; lane j takes key j
-    for (int r = warp; r < kSq; r += kWarps) {
-      const int s = s0 + r;
-      const int kp = k_start + lane;
-      float sc = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) sc = fmaf(qs[r][d], ks[lane][d], sc);
-      const bool valid = s < s_len && kp < cap &&
-                         static_cast<int64_t>(kp) <= cursor + s;
-      sc = valid ? sc : -INFINITY;
-      // online-softmax update of row r (the TPU kernel's m/l/corr rule); a
-      // live NaN or +inf score poisons the row as in the plain softmax
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(sc));
-      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      const float p = isfinite(sc) ? expf(sc - m_safe)
-                      : (isnan(sc) || sc > 0.0f) ? NAN : 0.0f;
-      const float corr = isfinite(m_old) ? expf(m_old - m_safe) : 0.0f;
-      const float psum = warp_sum(p);
-      ps[r][lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + psum;
-        corr_s[r] = corr;
+    for (int c = 0; c < kUnits; ++c) {
+      const int e = lane + 32 * c;
+      const int j = e / kUnits, u = e % kUnits;
+      if (j < nk) {
+        const int64_t src = static_cast<int64_t>(ks + j) * kRowBytes + 16 * u;
+        cp_async16(st + j * kPitch + 16 * u, kb + src);
+        cp_async16(st + (kKeys + j) * kPitch + 16 * u, vb + src);
       }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // acc[r][d] = acc[r][d] * corr[r] + sum_j p[r][j] * v[j][d]
+  float m[ROWS], l[ROWS], acc[ROWS][kVd];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = t + i * kThreads;
-      const int r = e / DH, d = e % DH;
-      float a = acc[i] * corr_s[r];
-#pragma unroll 8
-      for (int j = 0; j < kBk; ++j) a = fmaf(ps[r][j], vs[j][d], a);
-      acc[i] = a;
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kVd; ++d) acc[r][d] = 0.0f;
+  }
+  float* ps = ps_all + warp * kKeys * kPsStride;
+
+  // the ring: the first chunks are in flight while the query rows load,
+  // and chunk i + 1 while chunk i is consumed (an empty group keeps the
+  // count where no chunk is left)
+  for (int i = 0; i < stages; ++i) {
+    if (i < n_mine)
+      load(i);
+    else
+      cp_async_commit();
+  }
+  // the scaled query rows of this tile (rows past S are never read)
+  const Q* qb = q + (static_cast<int64_t>(bh) * s_len + s0) * DH;
+  for (int e = t; e < nrows * DH; e += kThreads)
+    qs[e] = widen1(qb[e]) * scale;
+  __syncthreads();
+  for (int i = 0; i < n_mine; ++i) {
+    if (stages > 1)  // chunk i has landed (chunk i + 1 may be pending)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncwarp();
+    const uint8_t* st = wring + (i % stages) * L::kStage;
+    const int ks = k_lo + (warp + i * kWarps) * kKeys;
+    if (ROWS == 1 || nrows == ROWS)
+      chunk_update<true, DH, Cache, ROWS>(st, ks, k_hi, nrows, cursor + s0,
+                                          qs, ps, lane, m, l, acc);
+    else
+      chunk_update<false, DH, Cache, ROWS>(st, ks, k_hi, nrows, cursor + s0,
+                                           qs, ps, lane, m, l, acc);
+    __syncwarp();  // the stage and ps are free for the next chunk
+    if (i + stages < n_mine)
+      load(i + stages);
+    else
+      cp_async_commit();
+  }
+
+  // merge the warps in warp order (the ring's memory holds their states)
+  __syncthreads();
+  float* mg = reinterpret_cast<float*>(ring);
+  {
+    float* wm = mg + warp * ROWS * (DH + 2);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r < nrows) {
+#pragma unroll
+        for (int d = 0; d < kVd; ++d) wm[r * DH + lane * kVd + d] = acc[r][d];
+        if (lane == 0) {
+          wm[ROWS * DH + r] = m[r];
+          wm[ROWS * DH + ROWS + r] = l[r];
+        }
+      }
     }
   }
   __syncthreads();
-
+  // the rule's scales depend on the maxima alone, so a row's (c0, c1) for
+  // each warp are worked out once, by one thread a row, and every entry of
+  // the row takes them: the same arithmetic as merge() on each entry
+  float* coef = mg + kWarps * ROWS * (DH + 2);      // [ROWS][kWarps][2]
+  float* row_ml = coef + ROWS * kWarps * 2;         // m then l, a row
+  if (t < nrows) {
+    float mm = -INFINITY, ll = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = t + i * kThreads;
-    const int r = e / DH, d = e % DH;
-    const int s = s0 + r;
-    if (s < s_len) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-      out[(static_cast<int64_t>(bh) * s_len + s) * DH + d] = acc[i] / l;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* wm = mg + w * ROWS * (DH + 2);
+      const float mb = wm[ROWS * DH + t], lb = wm[ROWS * DH + ROWS + t];
+      const float mn = fmaxf(mm, mb);
+      const float ms = isfinite(mn) ? mn : 0.0f;
+      const float c0 = rescale(mm, ms), c1 = rescale(mb, ms);
+      ll = fmaf(lb, c1, ll * c0);
+      mm = mn;
+      coef[(t * kWarps + w) * 2] = c0;
+      coef[(t * kWarps + w) * 2 + 1] = c1;
     }
+    row_ml[t] = mm;
+    row_ml[ROWS + t] = ll;
+  }
+  __syncthreads();
+  const int64_t group = static_cast<int64_t>(bh) * gridDim.y + tile;
+  constexpr int kSlot = ROWS * (DH + 2);
+  float* part = splits > 1 ? ws + (group * splits + split) * kSlot : nullptr;
+  for (int e = t; e < nrows * DH; e += kThreads) {
+    const int r = e / DH;
+    float aa = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* c = coef + (r * kWarps + w) * 2;
+      aa = fmaf(mg[w * ROWS * (DH + 2) + e], c[1], aa * c[0]);
+    }
+    if (splits == 1) {
+      out[(static_cast<int64_t>(bh) * s_len + s0) * DH + e] =
+          aa / fmaxf(row_ml[ROWS + r], 1e-30f);
+    } else {
+      part[e] = aa;
+      if (e % DH == 0) {
+        part[ROWS * DH + r] = row_ml[r];
+        part[ROWS * DH + ROWS + r] = row_ml[ROWS + r];
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the last block of this (row, tile) to finish merges the splits, in
+  // split order
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    int* counter = counters + group;
+    last = atomicAdd(counter, 1) == splits - 1;
+    if (last) *counter = 0;  // every block of the group has counted
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // every thread's entries (rows past S skipped), the loads of a batch
+  // of splits in flight together, merged in split order
+  const float* first = ws + group * splits * kSlot;
+  constexpr int kPer = ROWS * DH / kThreads;   // entries a thread
+  constexpr int kBatch = kPer >= 8 ? 1 : 8 / kPer;
+  float mm[kPer], ll[kPer], aa[kPer];
+#pragma unroll
+  for (int x = 0; x < kPer; ++x) mm[x] = -INFINITY, ll[x] = aa[x] = 0.0f;
+  for (int i0 = 0; i0 < splits; i0 += kBatch) {
+    float mb[kBatch][kPer], lb[kBatch][kPer], ab[kBatch][kPer];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float* pi = first + (i0 + j) * kSlot;
+#pragma unroll
+      for (int x = 0; x < kPer; ++x) {
+        const int e = t + x * kThreads, r = e / DH;
+        if (i0 + j < splits && r < nrows) {
+          mb[j][x] = __ldcg(pi + ROWS * DH + r);
+          lb[j][x] = __ldcg(pi + ROWS * DH + ROWS + r);
+          ab[j][x] = __ldcg(pi + e);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+#pragma unroll
+      for (int x = 0; x < kPer; ++x) {
+        if (i0 + j < splits && (t + x * kThreads) / DH < nrows)
+          merge(mm[x], ll[x], aa[x], mb[j][x], lb[j][x], ab[j][x]);
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < kPer; ++x) {
+    const int e = t + x * kThreads;
+    if (e / DH < nrows)
+      out[(static_cast<int64_t>(bh) * s_len + s0) * DH + e] =
+          aa[x] / fmaxf(ll[x], 1e-30f);
   }
 }
 
-template <typename Cache, typename Q = float>
-int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, int batch, int heads, int s_len, int cap, int dh,
-           float scale, void* stream) {
-  if (batch * heads == 0 || s_len == 0) return 0;
-  const dim3 grid(batch * heads, (s_len + kSq - 1) / kSq);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Q* qt = static_cast<const Q*>(q);
-  const int32_t* pf = static_cast<const int32_t*>(pos);
-  float* of = static_cast<float*>(out);
-  if (dh == 64) {
-    decode_attn<64, Cache, Q><<<grid, kThreads, 0, st>>>(
-        qt, k, v, pf, of, heads, s_len, cap, scale);
-  } else if (dh == 128) {
-    decode_attn<128, Cache, Q><<<grid, kThreads, 0, st>>>(
-        qt, k, v, pf, of, heads, s_len, cap, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+// one launch's arguments, as the entry points take them
+struct Args {
+  const void *q, *k, *v, *pos;
+  void *out, *ws, *counters;
+  int bh, heads, s_len, cap, split_keys, splits;
+  float scale;
+  cudaStream_t st;
+};
+
+template <int DH, typename Cache, typename Q, int ROWS>
+int launch_rows(const Args& a) {
+  using L = Smem<DH, Cache, ROWS>;
+  auto kern = decode_attn<DH, Cache, Q, ROWS>;
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::bytes(L::kMaxStages));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
   }
+  // as many stages as a warp has chunks in its split, up to kMaxStages
+  const int per_warp = (a.split_keys / kKeys + L::kWarps - 1) / L::kWarps;
+  const int stages = per_warp < L::kMaxStages ? per_warp : L::kMaxStages;
+  const dim3 grid(a.bh, (a.s_len + ROWS - 1) / ROWS, a.splits);
+  kern<<<grid, L::kThreads, L::bytes(stages), a.st>>>(
+      static_cast<const Q*>(a.q), static_cast<const uint8_t*>(a.k),
+      static_cast<const uint8_t*>(a.v), static_cast<const int32_t*>(a.pos),
+      static_cast<float*>(a.out), static_cast<float*>(a.ws),
+      static_cast<int*>(a.counters), a.heads, a.s_len, a.cap, a.split_keys,
+      stages, a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Cache, typename Q = float>
+int launch(const Args& a, int dh) {
+  if (a.bh == 0 || a.s_len == 0) return 0;
+  if (a.split_keys <= 0 || a.split_keys % kKeys != 0 || a.splits < 1 ||
+      a.splits > 65535 ||
+      static_cast<int64_t>(a.split_keys) * a.splits < a.cap ||
+      (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool one = a.s_len == 1;
+  if (dh == 64)
+    return one ? launch_rows<64, Cache, Q, 1>(a)
+               : launch_rows<64, Cache, Q, kWinRows>(a);
+  if (dh == 128)
+    return one ? launch_rows<128, Cache, Q, 1>(a)
+               : launch_rows<128, Cache, Q, kWinRows>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q (b*h, s, dh) float32 (bfloat16 or float16 for those entry points), k/v
 // cache (b*h, cap, dh) of the entry point's storage type, pos (b,) int32,
-// out (b*h, s, dh) float32; contiguous, one device; an fp8, bfloat16 or
-// float16 cache 16-byte aligned. dh must be 64 or 128. Returns
-// cudaGetLastError() (cudaErrorInvalidValue for another dh).
-extern "C" int mx_decode_attention_f32(const void* q, const void* k,
-                                       const void* v, const void* pos,
-                                       void* out, int batch, int heads,
-                                       int s_len, int cap, int dh,
-                                       float scale, void* stream) {
-  return launch<float>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
-                       stream);
-}
+// out (b*h, s, dh) float32; contiguous, one device, the caches 16-byte
+// aligned. dh must be 64 or 128. The key range is cut into `splits` splits
+// of `split_keys` keys (a multiple of 32, split_keys * splits >= cap); with
+// more than one split, ws holds the splits' float32 partials
+// (cuda_kernels._decode_ws_sizes) and counters an int32 counter a (row,
+// query tile), kept at 0 between launches (zeroed once, reset by the
+// kernel; never shared with the partials, whose layout changes with the
+// shape). Returns cudaGetLastError() (cudaErrorInvalidValue for another
+// dh or a split plan the kernel does not take).
+#define MX_DECODE_ENTRY(NAME, ...)                                           \
+  extern "C" int NAME(const void* q, const void* k, const void* v,          \
+                      const void* pos, void* out, void* ws, void* counters, \
+                      int batch, int heads, int s_len, int cap, int dh,     \
+                      int split_keys, int splits, float scale,              \
+                      void* stream) {                                       \
+    return launch<__VA_ARGS__>(                                              \
+        Args{q, k, v, pos, out, ws, counters, batch * heads, heads, s_len,   \
+             cap, split_keys, splits, scale,                                 \
+             static_cast<cudaStream_t>(stream)},                             \
+        dh);                                                                 \
+  }
 
-extern "C" int mx_decode_attention_e4m3(const void* q, const void* k,
-                                        const void* v, const void* pos,
-                                        void* out, int batch, int heads,
-                                        int s_len, int cap, int dh,
-                                        float scale, void* stream) {
-  return launch<E4M3>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
-                      stream);
-}
-
-extern "C" int mx_decode_attention_e5m2(const void* q, const void* k,
-                                        const void* v, const void* pos,
-                                        void* out, int batch, int heads,
-                                        int s_len, int cap, int dh,
-                                        float scale, void* stream) {
-  return launch<E5M2>(q, k, v, pos, out, batch, heads, s_len, cap, dh, scale,
-                      stream);
-}
-
-extern "C" int mx_decode_attention_bf16(const void* q, const void* k,
-                                        const void* v, const void* pos,
-                                        void* out, int batch, int heads,
-                                        int s_len, int cap, int dh,
-                                        float scale, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, pos, out, batch,
-                                              heads, s_len, cap, dh, scale,
-                                              stream);
-}
-
-extern "C" int mx_decode_attention_f16(const void* q, const void* k,
-                                       const void* v, const void* pos,
-                                       void* out, int batch, int heads,
-                                       int s_len, int cap, int dh,
-                                       float scale, void* stream) {
-  return launch<__half, __half>(q, k, v, pos, out, batch, heads, s_len, cap,
-                                dh, scale, stream);
-}
+MX_DECODE_ENTRY(mx_decode_attention_f32, float)
+MX_DECODE_ENTRY(mx_decode_attention_e4m3, E4M3)
+MX_DECODE_ENTRY(mx_decode_attention_e5m2, E5M2)
+MX_DECODE_ENTRY(mx_decode_attention_bf16, __nv_bfloat16, __nv_bfloat16)
+MX_DECODE_ENTRY(mx_decode_attention_f16, __half, __half)

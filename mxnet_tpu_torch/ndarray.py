@@ -245,10 +245,11 @@ def _index(key):
 
 def _grad_scope(mutates=False):
     """Where an imperative op runs: recording autograd inside
-    ``autograd.train_section()``, under ``torch.no_grad()`` everywhere
-    else and for ops that update their inputs."""
+    ``autograd.train_section()`` and ``grad_and_loss``, under
+    ``torch.no_grad()`` everywhere else and for ops that update their
+    inputs."""
     from . import autograd
-    if autograd.is_training() and not mutates:
+    if autograd.is_recording() and not mutates:
         return torch.enable_grad()
     return torch.no_grad()
 

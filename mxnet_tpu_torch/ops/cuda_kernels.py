@@ -190,7 +190,8 @@ _SPECS = {
                           "f16": "mx_decode_attention_f16",
                           "fp8:e4m3": "mx_decode_attention_e4m3",
                           "fp8:e5m2": "mx_decode_attention_e5m2"},
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _F, _P]),
     "softmax": ("softmax.cu", {"f32": "mx_softmax_f32",
                                "bf16": "mx_softmax_bf16",
                                "f16": "mx_softmax_f16"},
@@ -818,6 +819,77 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
 #: fp8 cache storage dtype -> the storage part of its instance key
 _FP8_STORAGE = {torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
 
+#: the decode kernel's shapes (csrc/decode_attention.cu): keys a warp
+#: takes at once (one a lane), query rows a window tile, and warps a block
+#: by the query rows a block takes (one at S = 1)
+DECODE_CHUNK, DECODE_WIN_ROWS = 32, 16
+DECODE_WARPS = {1: 2, DECODE_WIN_ROWS: 4}
+
+
+def _decode_splits(bh, s, c, sms):
+    """(splits, keys a split) of the decode kernel's key range for B*H =
+    ``bh`` rows, S = ``s`` queries, capacity ``c`` on a card of ``sms``
+    SMs. From the shapes alone, never the cursors (reading them would
+    synchronize): splits of a power of two of 32-key chunks, at most 32
+    (16 a warp, streamed through its ring), so that the (row, query tile)
+    grid holds about two blocks an SM at S = 1, whose blocks are short,
+    and one block for every two SMs for a window, whose 16 query rows
+    give a block 16 times the work and four warps to share it; a long
+    cache keeps few partials to merge."""
+    tiles = 1 if s == 1 else -(-s // DECODE_WIN_ROWS)
+    chunks = max(1, -(-c // DECODE_CHUNK))
+    blocks = 2 * sms if s == 1 else max(1, sms // 2)
+    want = max(-(-blocks // max(1, bh * tiles)), -(-chunks // 32))
+    per = -(-chunks // min(want, chunks))
+    keys = (1 << (per - 1).bit_length()) * DECODE_CHUNK
+    return max(1, -(-c // keys)), keys
+
+
+def _decode_ws_sizes(bh, s, dh, splits):
+    """(float32 partials, int32 counters) of the decode kernel's
+    workspace: each split's (acc, m, l) of each query tile's rows, and a
+    counter a (row, query tile); (0, 0) for one split, where the kernel
+    writes its output directly."""
+    if splits == 1:
+        return 0, 0
+    rows = 1 if s == 1 else DECODE_WIN_ROWS
+    tiles = -(-s // rows)
+    return bh * tiles * splits * rows * (dh + 2), bh * tiles
+
+
+_DECODE_WS = {}        # (device index, stream) -> [float32 partials,
+                       # int32 counters (zeros)]
+_DECODE_PLAN = {}      # (device index, B*H, S, C, Dh) -> (splits, keys a
+                       # split, partials, counters)
+
+
+def _decode_plan(q, bh, s, c, dh):
+    """(splits, keys a split, partials pointer, counters pointer) of a
+    decode launch (null pointers for one split). The workspace is kept per
+    device and stream and reused: launches on one stream run in order, and
+    the kernel leaves its counters at 0. The counters are allocated
+    zeroed and the partials uninitialized, each 1 MiB at least, and a
+    buffer that is too small is replaced by one twice as large."""
+    dev = q.get_device()
+    plan = _DECODE_PLAN.get((dev, bh, s, c, dh))
+    if plan is None:
+        splits, keys = _decode_splits(bh, s, c, _sm_count(dev))
+        plan = _DECODE_PLAN[(dev, bh, s, c, dh)] = (
+            splits, keys, *_decode_ws_sizes(bh, s, dh, splits))
+    if plan[0] == 1:
+        return plan[0], plan[1], 0, 0
+    key = (dev, torch._C._cuda_getCurrentRawStream(dev))
+    bufs = _DECODE_WS.get(key)
+    if bufs is None:
+        bufs = _DECODE_WS[key] = [None, None]
+    for i, (need, make) in enumerate(((plan[2], torch.empty),
+                                      (plan[3], torch.zeros))):
+        if bufs[i] is None or bufs[i].numel() < need:
+            old = bufs[i].numel() if bufs[i] is not None else 0
+            bufs[i] = make(max(need, 1 << 18, 2 * old), device=q.device,
+                           dtype=torch.float32 if i == 0 else torch.int32)
+    return plan[0], plan[1], bufs[0].data_ptr(), bufs[1].data_ptr()
+
 
 @_wrapper("decode_attention")
 def decode_attention(q, k_cache, v_cache, pos):
@@ -825,11 +897,12 @@ def decode_attention(q, k_cache, v_cache, pos):
     caches (B, H, C, Dh) float32, float8_e4m3fn or float8_e5m2, or q and
     caches bfloat16 or float16 (the mixed-precision paths), with this
     step's rows already written, pos (B,) int32 per-row cursors ->
-    float32 (B, H, S, Dh). Narrow cells are widened exactly as each tile is
-    staged (no float32 copy of the cache is made); fp8 launches count in
-    ``decode_attention_fp8``. The kernel takes Dh in {64, 128}, S <= 64,
-    and caches 16-byte aligned (a narrow cache is read 16 bytes a
-    thread)."""
+    float32 (B, H, S, Dh). Narrow cells are widened exactly as they are
+    read (no float32 copy of the cache is made); fp8 launches count in
+    ``decode_attention_fp8``. The key range is split over blocks
+    (``_decode_splits``) and the splits merged in order inside the same
+    launch. The kernel takes Dh in {64, 128}, S <= 64, and caches 16-byte
+    aligned (every cache is read 16 bytes a copy)."""
     if not _cpu_or_cuda("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if k_cache.dtype in _FP8_STORAGE:
@@ -860,9 +933,10 @@ def decode_attention(q, k_cache, v_cache, pos):
         raise MXNetError("decode_attention: the caches must be 16-byte "
                          "aligned")
     out = q.new_empty((B, H, S, Dh), dtype=torch.float32)
+    splits, keys, ws, counters = _decode_plan(q, B * H, S, C, Dh)
     _launch("decode_attention", key, q, q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, S, C,
-            Dh, float(Dh) ** -0.5)
+            v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), ws, counters,
+            B, H, S, C, Dh, keys, splits, float(Dh) ** -0.5)
     return out
 
 
@@ -1047,6 +1121,16 @@ def _dparams_chunks(n):
 
 
 _SMS = {}              # device index -> its SM count
+
+
+def _sm_count(dev):
+    """The SM count of CUDA device ``dev``, read once and kept."""
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
+
 _LN_SCRATCH = {}       # (device index, stream) -> float32 partials scratch
 
 
@@ -1076,12 +1160,7 @@ def _ln_bwd_part_rows(x2, n, c):
     ceil(N / 8)), one per chunk of rows on the walked route."""
     if c > LN_REG_ROW_MAX:
         return _dparams_chunks(n)[1]
-    dev = x2.get_device()
-    sms = _SMS.get(dev)
-    if sms is None:
-        sms = _SMS[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return max(1, min(2 * sms, -(-n // 8)))
+    return max(1, min(2 * _sm_count(x2.get_device()), -(-n // 8)))
 
 
 def _ln_bwd(name, x2, gamma, ct, mean, rstd, want_dx, want_dp):

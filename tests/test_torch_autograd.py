@@ -365,3 +365,44 @@ def test_batchnorm_in_train_section_is_training_mode():
     # package's inference-mode run leaves it
     np.testing.assert_allclose(mt, 0.1 * mu.ravel(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(mj, 0.0)
+
+
+def test_grad_and_loss_runs_batchnorm_in_inference_mode():
+    """``grad_and_loss`` records with training off in both packages:
+    BatchNorm (fix_gamma=False) over (4, 3, 5, 5) normalizes with the
+    moving statistics, ones as the head. dgamma, dbeta, dx and the value
+    agree with the JAX package within 1e-4, and the caller's moving mean
+    and variance stay as they were."""
+    rs = np.random.RandomState(5)
+    xv = (1.5 * rs.randn(4, 3, 5, 5) + 0.7).astype(np.float32)
+    gamma = rs.uniform(0.5, 1.5, 3).astype(np.float32)
+    beta = rs.randn(3).astype(np.float32)
+    mm = (0.2 * rs.randn(3)).astype(np.float32)
+    mv = rs.uniform(0.5, 2.0, 3).astype(np.float32)
+    eps = 1e-3
+
+    def run(pkg):
+        mean, var = _arr(pkg, mm), _arr(pkg, mv)
+
+        def f(x, g, b):
+            return pkg.nd.BatchNorm(x, g, b, mean, var, eps=eps,
+                                    fix_gamma=False)[0]
+        grads, y = pkg.autograd.grad_and_loss(f)(
+            _arr(pkg, xv), _arr(pkg, gamma), _arr(pkg, beta))
+        return ([g.asnumpy() for g in grads], y.asnumpy(), mean.asnumpy(),
+                var.asnumpy())
+    (gj, yj, mj, vj), (gt, yt, mt, vt) = _each(run)
+    for a, b in zip(gt + [yt], gj + [yj]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    g, m, sd = (gamma[None, :, None, None], mm[None, :, None, None],
+                np.sqrt(mv + eps)[None, :, None, None])
+    np.testing.assert_allclose(yt, (xv - m) / sd * g
+                               + beta[None, :, None, None],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gt[1], ((xv - m) / sd).sum(axis=(0, 2, 3)),
+                               rtol=1e-4, atol=1e-4)
+    assert np.abs(gt[1]).max() > 1.0     # not the batch statistics' ~0
+    for got in (mt, mj):
+        np.testing.assert_array_equal(got, mm)
+    for got in (vt, vj):
+        np.testing.assert_array_equal(got, mv)

@@ -13,6 +13,13 @@ caches that are not a multiple of the key tile, cursors at both ends,
 float32 and fp8 (float8_e4m3fn, float8_e5m2) caches, NaN cells;
 softmax rows of 1 and 65536 classes, labels outside the classes and
 ignored rows; update lengths that are not a multiple of the block).
+The decode read splits each row's key range over blocks: every instance
+(float32, bfloat16, float16, float8_e4m3fn, float8_e5m2) against its
+plain version at the card's split edges (cursors 0, a split's last key,
+the next split's first key, C - S) for C 64, 256 and 4096 and S 1, 16
+and 64; two calls bit for bit with the workspace's counters back at 0;
+the float32 kernel against ``tests/decode_split_emul.py``, the same
+splits merged in the same order on the CPU.
 Tolerance: float32 2e-5 (the kernels sum in another order); the gather
 and the elementwise updates, which round as their plain versions do, are
 held to 1e-6. The decode kernels' bfloat16 instances: the gather bit for
@@ -86,6 +93,8 @@ from mxnet_tpu_torch.models import transformer as tfm
 from mxnet_tpu_torch.ops import cuda_kernels as ck
 from mxnet_tpu_torch.rtc import fp8_cast
 from mxnet_tpu_torch.serve import FakeClock
+
+from decode_split_emul import decode_attention_split
 
 TOL = 2e-5
 
@@ -240,6 +249,85 @@ def test_decode_attention_nan_cells_pass_through(dev, dtype):
     _same(got, ck.decode_attention_plain(q, kc, vc, cursors))
     assert got[1, 0].isnan().all() and got[2, 1, :, 9].isnan().all()
     assert not got[0].isnan().any()
+
+
+#: the decode read's instances: cache dtype, query dtype, counter
+DECODE_INSTANCES = {
+    "f32": (torch.float32, torch.float32, "decode_attention"),
+    "bf16": (torch.bfloat16, torch.bfloat16, "decode_attention_bf16"),
+    "f16": (torch.float16, torch.float16, "decode_attention_f16"),
+    "e4m3": (torch.float8_e4m3fn, torch.float32, "decode_attention_fp8"),
+    "e5m2": (torch.float8_e5m2, torch.float32, "decode_attention_fp8"),
+}
+
+
+def _split_inputs(dev, inst, B, H, S, C, dh, seed=0):
+    """q, caches and cursors at the card's split edges: 0, a split's last
+    key, the next split's first key, C - S (B a multiple of 4)."""
+    cache_dt, q_dt, _ = DECODE_INSTANCES[inst]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, keys = ck._decode_splits(B * H, S, C, sms)
+    cur = [0, min(keys - 1, C - 1), min(keys, C - 1), max(C - S, 0)] * \
+        (B // 4)
+    q = _rnd(dev, B, H, S, dh, seed=seed).to(q_dt)
+    kc, vc = ((2 * _rnd(dev, B, H, C, dh, seed=seed + i)).to(cache_dt)
+              if cache_dt in (torch.float32, torch.bfloat16, torch.float16)
+              else fp8_cast(2 * _rnd(dev, B, H, C, dh, seed=seed + i),
+                            cache_dt) for i in (1, 2))
+    return q, kc, vc, torch.tensor(cur, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S", [1, 16, 64])
+@pytest.mark.parametrize("C", [64, 256, 4096])
+@pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
+def test_decode_attention_split_kernel(dev, inst, C, S, dh):
+    """Every instance against the plain read at the split edges of the
+    card's plan (``_decode_splits``), one launch counted on its counter;
+    float32 out within 2e-5 (the values are widened exactly)."""
+    q, kc, vc, pos = _split_inputs(dev, inst, 4, 2, S, C, dh)
+    counter = DECODE_INSTANCES[inst][2]
+    before = ck.launch_counts()[counter]
+    got = ck.decode_attention(q, kc, vc, pos)
+    assert ck.launch_counts()[counter] == before + 1
+    assert got.dtype == torch.float32
+    _same(got, ck.decode_attention_plain(q, kc, vc, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C", [(1, 256), (1, 4096), (16, 256), (64, 256),
+                                 (3, 100)])
+@pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
+def test_decode_attention_repeats_bit_for_bit(dev, inst, S, C):
+    """Two calls give the same bits (the splits merge in a fixed order,
+    no float atomics), and the workspace's counters are back at 0."""
+    q, kc, vc, pos = _split_inputs(dev, inst, 8, 8, S, C, 64, seed=3)
+    a = ck.decode_attention(q, kc, vc, pos)
+    b = ck.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    splits, _ = ck._decode_splits(
+        64, S, C, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if splits > 1:
+        tiles = 1 if S == 1 else -(-S // 16)
+        counters = ck._DECODE_WS[(dev.index or 0, torch.cuda.current_stream(
+            dev).cuda_stream)][1]
+        assert not counters[:64 * tiles].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,dh", [(1, 256, 64), (1, 4096, 128),
+                                    (16, 256, 64), (64, 256, 128)])
+def test_decode_attention_matches_split_emulation(dev, S, C, dh):
+    """The float32 kernel against ``tests/decode_split_emul.py``, the
+    same splits in the same order on the CPU, within 2e-5."""
+    q, kc, vc, pos = _split_inputs(dev, "f32", 4, 2, S, C, dh, seed=5)
+    got = ck.decode_attention(q, kc, vc, pos)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = decode_attention_split(q.cpu(), kc.cpu(), vc.cpu(), pos.cpu(),
+                                  sms)
+    _same(got.cpu(), want)
 
 
 @pytest.mark.cuda

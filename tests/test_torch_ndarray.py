@@ -187,3 +187,24 @@ def test_relu():
     z = X3.copy()
     z[0, 0, :2] = 0.0
     _same(*_both(lambda pkg, x: pkg.nd.relu(x), z))
+
+
+def test_int32_power_with_negative_exponent_truncates():
+    """Integer ``**`` with a negative exponent: the port gives the
+    truncated value, 0 for |base| > 1 and +-1 for a base of +-1 (C's
+    integer division of 1 by base ** -e). The JAX package's ``jnp.power``
+    on int32 overflows there (``5 ** -2`` is -558738647), an undefined
+    value that is not copied; bases of +-1 and 0 results agree."""
+    base = np.array([5, 7, 1, -1, 2, -1, -3, 1], np.int32)
+    expo = np.array([-2, -1, -3, -3, -1, -2, -1, -1], np.int32)
+    want = np.array([0, 0, 1, -1, 0, 1, 0, 1], np.int32)
+    a, b = (mxt.nd.array(x, ctx=mxt.cpu()) for x in (base, expo))
+    got = (a ** b).asnumpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    refl = (2 ** b).asnumpy()       # 2 ** negative: 0 everywhere
+    np.testing.assert_array_equal(refl, np.zeros(8, np.int32))
+    ref = (mxj.nd.array(base, ctx=mxj.cpu())
+           ** mxj.nd.array(expo, ctx=mxj.cpu())).asnumpy()
+    unit = np.abs(base) == 1
+    np.testing.assert_array_equal(got[unit], ref[unit])
