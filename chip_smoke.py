@@ -57,8 +57,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    may spill); each
    flash-attention
    instance's HGMMA count in its SASS and ptxas' registers and spills —
-   the 16-bit instances, both modes, must run on the tensor cores without
-   spilling and the float32 ones off them);
+   the 16-bit instances, both modes, must run on the tensor cores and
+   the float32 ones off them, and none may spill; the float32 flash
+   forward at Dh 128, (4, 8, 1024, 128) causal, beside SDPA's; row 16 at
+   ResNet-50's head at every serving rung (M = 1, 2, 4, 8) in every
+   instance, ``torch._weight_int8pack_mm`` beside the int8 rows; the
+   route-break table (row 16's GEMV and tiled routes around the break at
+   N = 1000 and 32000);
+   ptxas' registers and spills of every row 16 instance of both routes
+   (none may spill));
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -843,6 +850,7 @@ def phase_kernels(mx, ck):
         calls.update(_lm_bf16_kernels(ck, rs, t, rec, half))
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
     calls.update(_quant_half_kernels(ck, rs, t, rec))
+    _qfc_rungs(ck, rs, t)
     calls.update(_bn_kernels(mx, ck, rs, t, rec))
     for half in HALF_SFX:
         calls.update(_bf16_kernels(mx, ck, rs, t, rec, half))
@@ -1506,6 +1514,26 @@ def _lm_kernels(ck, rs, t, rec):
                         reps=20, warm=3),
         library_ms=_timed(sdpa_causal, reps=50), library_call=sdpa_causal,
         bound=_bound_ms(4 * q.numel() * 4, 4 * pairs * Dh))
+    q2, k2, v2 = (t(rs.randn(4, N_HEAD, LM_SEQ, 128).astype(np.float32))
+                  for _ in range(3))
+    err2 = _max_err(ck.flash_attention(q2, k2, v2, True),
+                    ck.flash_attention_plain(q2, k2, v2, True))
+    if not err2 <= TOL["flash_attention"]:
+        raise AssertionError(f"flash_attention Dh 128: {err2}")
+    pairs2 = 4 * N_HEAD * LM_SEQ * (LM_SEQ + 1) // 2
+
+    def flash128():
+        return ck.flash_attention(q2, k2, v2, True)
+
+    def sdpa128():
+        return F.scaled_dot_product_attention(q2, k2, v2, is_causal=True)
+    print(f"kernels: flash_attention float32 {tuple(q2.shape)} causal: "
+          f"max_abs_err {err2:.3g} ms {_timed(flash128, reps=50):.5f} "
+          f"device_ms {_device_ms(flash128):.6f} bound_ms "
+          f"{_bound_ms(4 * q2.numel() * 4, 4 * pairs2 * 128)[0]:.6f} "
+          f"(operations); SDPA causal ms {_timed(sdpa128, reps=50):.5f} "
+          f"device_ms {_device_ms(sdpa128):.6f}")
+    del q2, k2, v2
     print(f"kernels: LM rows at LayerNorm ({N}, {C}), GeLU ({N}, {F4}), "
           f"flash {tuple(q.shape)} causal; library_ms of ln_bwd, ln_bwd_dx "
           "and ln_bwd_dparams is ONE native_layer_norm_backward call (dx, "
@@ -1606,8 +1634,8 @@ def _flash_tensor_cores(ck):
     SASS and ptxas' registers (at launch: the 16-bit instances then move
     them to their consumers with setmaxnreg) and spill bytes; fail unless
     every bfloat16 and float16 instance, both modes and head dims, holds
-    HGMMA and spills nothing, and no float32 instance holds HGMMA (the
-    reference's Precision.HIGHEST rules out TF32)."""
+    HGMMA, no float32 instance holds HGMMA (the reference's
+    Precision.HIGHEST rules out TF32), and no instance spills."""
     seen = set()
     for fn, res in sorted(ck.resources("flash_attention").items()):
         m = _FLASH_INSTANCE.search(fn)
@@ -1621,8 +1649,7 @@ def _flash_tensor_cores(ck):
               f"<{elem}, Dh {dh}>: HGMMA {hgmma}, ptxas registers "
               f"{res['registers']}, spill stores / loads {spills[0]} / "
               f"{spills[1]} bytes")
-        if (hgmma > 0) != (elem != "float") or (elem != "float" and
-                                                any(spills)):
+        if (hgmma > 0) != (elem != "float") or any(spills):
             raise AssertionError(f"flash <{elem}, {dh}, {partial}>: HGMMA "
                                  f"{hgmma}, spills {spills}")
         seen.add((elem, dh, partial))
@@ -1849,7 +1876,8 @@ def _dequant_library(wq, scale):
 def _quant_kernels(mx, ck, rs, t, rec):
     """The two quantized-serving kernels, int8 and float8_e4m3fn weights:
     the dequant-fused matmul at ResNet-50's fc1 rung 8 ((8, 2048) x (1000,
-    2048)) and at edges (M = 1, 257; K = 13; N = 1, 1001), held within
+    2048)) and at edges (M = 1, 257; K = 13; N = 1, 1001; QFC_TILED_EDGE,
+    the tiled route), held within
     QFC_RTOL of the output's largest magnitude; the row dequant at the
     path's (512, 4608) and (2048, 512) and at edges (1 and 147 columns),
     held bit for bit to its plain version and, with int8 weights, to
@@ -1859,6 +1887,11 @@ def _quant_kernels(mx, ck, rs, t, rec):
     import numpy as np
     import torch
     storages = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+    edge_m, edge_k, edge_n = QFC_TILED_EDGE
+    edge = ck._qfc_route(edge_m, edge_n, edge_k, _sm_count())
+    if edge != (0, 1):
+        raise AssertionError(f"row 16 at (M, K, N) {QFC_TILED_EDGE} takes "
+                             f"route {edge}, not the tiled one")
 
     def scale(n):
         return t(np.abs(rs.randn(n)).astype(np.float32) / 100 + 1e-3)
@@ -1866,7 +1899,7 @@ def _quant_kernels(mx, ck, rs, t, rec):
     for st in storages.values():
         for m, k, n in ((QUANT_RUNGS[-1], 2048, TRAIN_CLASSES),
                         (1, 2048, 1000), (257, 64, 33), (5, 13, 7),
-                        (3, 300, 1), (4, 64, 1001)):
+                        (3, 300, 1), (4, 64, 1001), QFC_TILED_EDGE):
             x = t(rs.randn(m, k).astype(np.float32))
             w, s = _quant_weight(rs, t, n, k, st), scale(n)
             ref = ck.qfc_matmul_plain(x, w, s)
@@ -1956,7 +1989,8 @@ def _quant_half_kernels(ck, rs, t, rec):
     """The dequant-fused matmul's bfloat16 and float16 instances (a
     quantized graph under compute_dtype), int8 and float8_e4m3fn weights:
     x in the 16-bit type at ResNet-50's fc1 rung 8 ((8, 2048) x (1000,
-    2048)) and at edges (M = 1, 257; K = 13; N = 1, 1001), held within
+    2048)) and at edges (M = 1, 257; K = 13; N = 1, 1001; QFC_TILED_EDGE,
+    the tiled route), held within
     TOL (1e-5) of the output's largest magnitude of the plain version on
     the same values (x widened exactly, float32 sums, float32 out). Timed
     with
@@ -1973,7 +2007,8 @@ def _quant_half_kernels(ck, rs, t, rec):
         err_q = rel_q = 0.0
         for st in storages:
             for mm, kk, nn in ((m, k, n), (1, 2048, 1000), (257, 64, 33),
-                               (5, 13, 7), (3, 300, 1), (4, 64, 1001)):
+                               (5, 13, 7), (3, 300, 1), (4, 64, 1001),
+                               QFC_TILED_EDGE):
                 x = t(rs.randn(mm, kk).astype(np.float32)).to(dt)
                 ww = _quant_weight(rs, t, nn, kk, st)
                 ss = t(np.abs(rs.randn(nn)).astype(np.float32) / 100 + 1e-3)
@@ -1992,6 +2027,127 @@ def _quant_half_kernels(ck, rs, t, rec):
         _int8pack_library(ck, rec[name], x8, w, s)
         calls[name] = lambda x8=x8: ck.qfc_matmul(x8, w, s)
     return calls
+
+
+#: row 16's route-break table around the break: N -> M of (M, 2048) x
+#: (N, 2048), both routes (the full sweep: tools/qfc_flash_prev_kernel.py)
+QFC_BREAK_MS = {1000: (8, 976, 977), 32000: (32, 64)}
+#: (M, K, N) of a row 16 edge that takes the tiled route (M N past 7400
+#: outputs an SM of an H100's 132, with ragged bands and channel tiles)
+QFC_TILED_EDGE = (1000, 64, 1001)
+QFC_X = ("float32", "bfloat16", "float16")
+
+
+def _sm_count():
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _qfc_route_ms(ck, x, w, s, route):
+    """Device ms of one route of the dequant-fused matmul, launched
+    through its bound C entry point (no launch counted)."""
+    import torch
+    key = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}[x.dtype] + ":" + \
+        {torch.int8: "int8", torch.float8_e4m3fn: "e4m3"}[w.dtype]
+    fn = ck._fn("qfc_matmul", key)[0]
+    (m, k), n = x.shape, w.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+
+    def call():
+        err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+                 m, n, k, *route, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"qfc_matmul route {route}: cudaError "
+                                 f"{err}")
+    call()
+    ref = ck.qfc_matmul_plain(x, w, s)
+    rel = _max_err(out, ref) / max(float(ref.abs().max()), 1e-30)
+    if not rel <= TOL["qfc_matmul"]:
+        raise AssertionError(f"qfc_matmul route {route} at M={m}: {rel}")
+    return _device_ms(call, reps=20)
+
+
+def _qfc_break_rows(ck, rs, t, ms, k):
+    """Both routes of row 16 at (M, k) x (N, k), int8 weights, float32 x,
+    for N -> the Ms in ``ms``: each route's device ms (each held within
+    TOL to the plain version) and the wrapper's route."""
+    import numpy as np
+    import torch
+    sms = _sm_count()
+    for n, rows in ms.items():
+        w = _quant_weight(rs, t, n, k, torch.int8)
+        s = t(np.abs(rs.randn(n)).astype(np.float32) / 100 + 1e-3)
+        for m in rows:
+            x = t(rs.randn(m, k).astype(np.float32))
+            gemv = ck._qfc_gemv_plan(m, n, k, sms)
+            g_ms = _qfc_route_ms(ck, x, w, s, gemv)
+            t_ms = _qfc_route_ms(ck, x, w, s, (0, 1))
+            print(f"  route break N={n} M={m}: gemv {gemv} {g_ms:.6f} "
+                  f"tiled {t_ms:.6f} (gemv / tiled {g_ms / t_ms:.3f}); "
+                  f"wrapper {ck._qfc_route(m, n, k, sms)}")
+
+
+def _qfc_rungs(ck, rs, t):
+    """Row 16 at ResNet-50's head, (M, 2048) x (1000, 2048), at every
+    serving rung M in QUANT_RUNGS, every instance (float32, bfloat16 and
+    float16 x; int8 and float8_e4m3fn weights): the route, the error
+    against the plain version (within TOL of the largest output), ms,
+    device ms, plain ms and the bound, with ``torch._weight_int8pack_mm``'s
+    ms and device ms beside the int8 rows. Then the route-break table
+    around the break (the GEMV and the tiled route's device ms at
+    QFC_BREAK_MS, float32 x, int8 weights, the wrapper's route beside) and
+    ptxas' registers and spills of every instance of both routes (fails
+    on a spill)."""
+    import numpy as np
+    import torch
+    n, k = TRAIN_CLASSES, 2048
+    s = t(np.abs(rs.randn(n)).astype(np.float32) / 100 + 1e-3)
+    ws = {"int8": _quant_weight(rs, t, n, k, torch.int8),
+          "e4m3": _quant_weight(rs, t, n, k, torch.float8_e4m3fn)}
+    sms = _sm_count()
+    for m in QUANT_RUNGS:
+        for xt in QFC_X:
+            dt = getattr(torch, xt)
+            x = t(rs.randn(m, k).astype(np.float32)).to(dt)
+            bound = _bound_ms(m * k * x.element_size() + n * k + n * 4 +
+                              m * n * 4, 2 * m * n * k)
+            for st, w in ws.items():
+                ref = ck.qfc_matmul_plain(x, w, s)
+                rel = _max_err(ck.qfc_matmul(x, w, s), ref) / \
+                    max(float(ref.abs().max()), 1e-30)
+                if not rel <= TOL["qfc_matmul"]:
+                    raise AssertionError(f"row 16 M={m} {xt} {st}: {rel}")
+                kern = (lambda x=x, w=w: ck.qfc_matmul(x, w, s))
+                lib = ""
+                if st == "int8":
+                    r = {}
+                    _int8pack_library(ck, r, x, w, s)
+                    lib = " torch._weight_int8pack_mm raises"
+                    if r["library_ms"] is not None:
+                        lib = (f" torch._weight_int8pack_mm ms "
+                               f"{r['library_ms']:.5f} device_ms "
+                               f"{_device_ms(r['library_call']):.6f}")
+                print(f"kernels: row 16 M={m} x {xt} w {st}: route "
+                      f"{ck._qfc_route(m, n, k, sms)} rel_err {rel:.3g} "
+                      f"ms {_timed(kern):.5f} device_ms "
+                      f"{_device_ms(kern):.6f} plain_ms "
+                      f"{_timed(lambda x=x, w=w: ck.qfc_matmul_plain(x, w, s)):.5f}"
+                      f" bound_ms {bound[0]:.6f} ({bound[1]}){lib}")
+    print(f"kernels: row 16 route break, (M, {k}) x (N, {k}) int8, "
+          f"float32 x, device ms")
+    _qfc_break_rows(ck, rs, t, QFC_BREAK_MS, k)
+    spills = []
+    for fn, r in sorted(ck.resources("qfc_matmul").items()):
+        if "registers" not in r:
+            continue
+        print(f"resources qfc_matmul: {fn}: registers={r['registers']} "
+              f"spill_stores={r.get('spill_stores')} "
+              f"spill_loads={r.get('spill_loads')}")
+        if r.get("spill_stores") or r.get("spill_loads"):
+            spills.append(fn)
+    if spills:
+        raise AssertionError(f"spilling qfc_matmul instances: {spills}")
 
 
 def _stats_err(ck, x):
@@ -3452,9 +3608,12 @@ def phase_quant_half(mx, ck, mod):
 
 
 def _quant_group(key):
-    for name in ("dequant_rows", "qfc_matmul"):
+    # the dequant-fused matmul's two routes: qfc_gemv and qfc_matmul_f32
+    for name, group in (("dequant_rows", "dequant_rows"),
+                        ("qfc_matmul", "qfc_matmul"),
+                        ("qfc_gemv", "qfc_matmul")):
         if name in key:
-            return f"{name} kernel"
+            return f"{group} kernel"
     if "softmax_rows_" in key:
         return "softmax kernel"
     if key.startswith("Memcpy") or key.startswith("Memset"):

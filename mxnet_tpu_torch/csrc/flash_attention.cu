@@ -31,15 +31,32 @@
 // TF32, so every product is a float32 FMA: q is scaled before the
 // product, S and P . V are float32 sums. Bound: operations, 4 Tq Tk Dh
 // flops per (b, h) row (half under the causal mask) at the float32
-// CUDA-core rate, ~250 flops per byte at T = 1024, Dh = 64. One block of
-// 256 threads per (b*h, 64-query tile) LOOPS over 64-key tiles (the TPU
-// kernel's sequential grid axis), staging the scaled Q tile once and each
-// K and V tile in shared memory, m, l and the accumulator in registers.
-// Each thread owns 4 query rows (the same rows in S and in the
-// accumulator, so corr applies in place) and 4 keys of S, taken 16 apart
-// so the float4 reads of K rows (padded by 4 floats) hit distinct banks;
-// a row's max and sum reduce over the 16 lanes that share it. P goes
-// through shared memory, stored key-major, for the P . V product.
+// CUDA-core rate, ~250 flops per byte at T = 1024, Dh = 64. What keeps a
+// kernel from that rate is the shared-memory reads that feed the FMAs,
+// the latency a block's warps cannot hide, the barriers that stall them
+// and, under the causal mask, the unequal work of the query tiles. One
+// block of 128 threads (two blocks an SM) per (b*h, 64-query tile) LOOPS
+// over key tiles (the TPU kernel's sequential grid axis): 64 keys at Dh =
+// 64, 32 at Dh = 128 (Tile<DH>). The Q tile and tile
+// 0's K and V are copied global -> shared with cp.async, all in flight at
+// once, and Q is scaled in place; each later tile's copies go into the
+// other of two stages as soon as every thread is done with it, so they
+// fly while the current tile's products run. Each thread owns 4 query
+// rows (the same rows in S and in the accumulator, so corr applies in
+// place; rows rg + 16 j, strided so that a warp's 4 row groups read
+// distinct banks), the keys cg + 8 i of S and the output columns 4 cg +
+// 32 h: at Dh = 64 a 4 x 8 tile of S and of the accumulator, and each
+// 16-byte shared read of K or V feeds 16 FMAs (a warp's 8 rows or column
+// groups, padded rows, one wavefront); at Dh = 128 4 x 4 of S and 4 x 16
+// of the accumulator. A row's max and sum reduce over the 8 lanes that
+// share it. P goes through shared memory, key-major, each thread's rows
+// side by side; a row group is 8 lanes of one warp, so P's rows are
+// written and read inside a warp (__syncwarp): one block barrier a tile,
+// where the next tile's copies start. The position mask is applied only
+// on tiles that cross the diagonal or Tk; every tile keeps the isfinite
+// guards (expf of a selected argument, no branch). Blocks start row by
+// row with every row's heaviest query tile (the most keys under the
+// causal mask) first, so the light tiles fill the end of the grid.
 //
 // bfloat16 and float16 (namespace tc, on the tensor cores). Bound:
 // operations at the 16-bit tensor-core rate first (989 TFLOP/s dense;
@@ -126,172 +143,267 @@ namespace cc {
 
 using mxio::Io;
 
-constexpr int kThreads = 256;
-constexpr int kBq = 64;  // query rows per block
-constexpr int kBk = 64;  // keys per shared-memory tile
-constexpr int kPadP = kBq + 4;
+// A block's shape by head dim: kBq query rows, kBk keys a tile, kG lanes a
+// row group. Each thread owns kR query rows (rg + kRg j, strided so that
+// the warp's row groups read distinct banks) in S and in the accumulator,
+// the keys cg + kG i of S and the output columns 4 cg + 4 kG h.
+template <int DH>
+struct Tile;
+template <>
+struct Tile<64> {  // S 4 x 8, acc 4 x 8 a thread
+  static constexpr int kBq = 64, kG = 8, kBk = 64, kR = 4;
+};
+template <>
+struct Tile<128> {  // S 4 x 4, acc 4 x 16 a thread
+  static constexpr int kBq = 64, kG = 8, kBk = 32, kR = 4;
+};
 
 template <int DH>
-constexpr int smem_floats() {
-  return kBq * (DH + 4) + kBk * (DH + 4) + kBk * DH + kBk * kPadP;
-}
+struct Cfg {
+  static constexpr int kBq = Tile<DH>::kBq, kG = Tile<DH>::kG;
+  static constexpr int kBk = Tile<DH>::kBk;  // keys per K / V tile
+  static constexpr int kR = Tile<DH>::kR;    // query rows a thread
+  static constexpr int kRg = kBq / kR;    // row groups
+  static constexpr int kThreads = kRg * kG;
+  static constexpr int kKs = kBk / kG;    // keys of S a thread
+  static constexpr int kCs = DH / kG;     // output columns a thread
+  static constexpr int kLd = DH + 4;      // padded row of the Q and K tiles
+  static constexpr int kLdP = kBq + 4;    // a key's row of P
+  static constexpr int kQ = kBq * kLd, kK = kBk * kLd, kV = kBk * DH;
+  static constexpr int kFloats = kQ + 2 * kK + 2 * kV + kBk * kLdP;
+  static_assert(kThreads == 128 && kCs % 4 == 0 && kR % 4 == 0 &&
+                    32 % kG == 0,
+                "shape");
+};
 
-__device__ __forceinline__ float max16(float v) {
-  for (int o = 8; o > 0; o >>= 1)
+// A row's max and sum over the kG lanes that share it (lanes of one row
+// group are kG consecutive lanes); the butterfly leaves the same bits in
+// every lane.
+template <int G>
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-__device__ __forceinline__ float sum16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+template <int G>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Stage kBk rows of one (b, h) row's (T, DH) operand, from row r0 on, into
-// a shared tile with leading dimension ld, times `scale`, zeros past T:
-// one float4 load a unit.
+// 16 bytes global -> shared, asynchronously; zeros where `live` is false
+// (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy the kBk K and V rows of one (b, h) row from key k0 on into a stage:
+// K into a padded [kBk][kLd] tile, V into [kBk][DH]; rows past Tk zeros.
 template <int DH>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int r0,
-                                      int T_, float scale, float* dst,
-                                      int ld) {
-  constexpr int kUnits = DH / 4;  // 16-byte units per row
-  for (int e = threadIdx.x; e < kBk * kUnits; e += kThreads) {
+__device__ __forceinline__ void copy_kv(const float* __restrict__ kb,
+                                        const float* __restrict__ vb, int k0,
+                                        int Tk, float* ks, float* vs) {
+  using C = Cfg<DH>;
+  constexpr int kBk = C::kBk, kUnits = DH / 4;
+  for (int e = threadIdx.x; e < kBk * kUnits; e += C::kThreads) {
     const int r = e / kUnits, u = e % kUnits;
-    float f[4];
-    if (r0 + r < T_) {
-      Io<float, 4>::load(src, static_cast<int64_t>(r0 + r) * kUnits + u, f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f[i] *= scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f[i] = 0.0f;
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + u * 4) =
-        make_float4(f[0], f[1], f[2], f[3]);
+    const bool live = k0 + r < Tk;
+    const int64_t src = live ? static_cast<int64_t>(k0 + r) * DH + 4 * u : 0;
+    cp_async16(ks + r * C::kLd + 4 * u, kb + src, live);
+    cp_async16(vs + r * DH + 4 * u, vb + src, live);
   }
+  cp_async_commit();
 }
 
 template <int DH, bool PARTIAL>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const Args op, int n_qt) {
-  static_assert(kBq == kBk, "stage() walks kBk rows for Q tiles too");
-  constexpr int kLd = DH + 4;    // padded row of the Q and K tiles
-  constexpr int kNv = DH / 64;   // float4 groups of the accumulator
+__global__ void __launch_bounds__(128, 1)
+    flash_fwd(const Args op, int n_qt) {
+  using C = Cfg<DH>;
+  constexpr int kBq = C::kBq, kBk = C::kBk, kG = C::kG, kRg = C::kRg;
+  constexpr int kKs = C::kKs, kR = C::kR;
+  constexpr int kCs = C::kCs, kLd = C::kLd, kLdP = C::kLdP;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBq][kLd], scaled
-  float* ks = qs + kBq * kLd;                   // [kBk][kLd]
-  float* vs = ks + kBk * kLd;                   // [kBk][DH]
-  float* ps = vs + kBk * DH;                    // [kBk][kPadP], key-major
+  float* kst = qs + C::kQ;                      // 2 x [kBk][kLd]
+  float* vst = kst + 2 * C::kK;                 // 2 x [kBk][DH]
+  float* ps = vst + 2 * C::kV;  // [kBk][kLdP]: key c, row rg + kRg j at
+                                // column kR rg + j
 
   const int t = threadIdx.x;
-  const int tx = t & 15;   // keys tx + 16 i of S; columns of the output
-  const int ty = t >> 4;   // query rows 4 ty .. 4 ty + 3
-  const int bh = blockIdx.y;
+  const int cg = t % kG, rg = t / kG;
+  const int bh = blockIdx.x;
   const int Tq = op.Tq, Tk = op.Tk, causal = op.causal;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBq;
-  const int64_t q_base = static_cast<int64_t>(bh) * Tq * DH;
+  // blocks start in order of x, then y: every row's heaviest query tile
+  // (the most keys under the causal mask) first
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBq;
   const int64_t k_base = static_cast<int64_t>(bh) * Tk * DH;
-  const float* qb = static_cast<const float*>(op.q) + q_base;
+  const float* qb = static_cast<const float*>(op.q) +
+                    static_cast<int64_t>(bh) * Tq * DH;
   const float* kb = static_cast<const float*>(op.k) + k_base;
   const float* vb = static_cast<const float*>(op.v) + k_base;
   // the causal test in shard-local positions: key kp is live for query qp
   // when k_off + kp <= q_off + qp, i.e. kp <= qp + shift
   const int shift = op.q_off - op.k_off;
+  // key tiles wholly above the tile's last query row are not visited
+  const int k_end = causal ? min(Tk, q0 + kBq + shift) : Tk;
+  if (k_end > 0) {
+    // the Q tile (zeros past Tq) and tile 0's K and V copies all in
+    // flight; once Q has landed, each thread scales the units it copied
+    for (int e = t; e < kBq * DH / 4; e += C::kThreads) {
+      const int r = e / (DH / 4), u = e % (DH / 4);
+      const bool live = q0 + r < Tq;
+      cp_async16(qs + r * kLd + 4 * u,
+                 qb + (live ? static_cast<int64_t>(q0 + r) * DH + 4 * u : 0),
+                 live);
+    }
+    cp_async_commit();
+    copy_kv<DH>(kb, vb, 0, Tk, kst, vst);
+    cp_async_wait<1>();  // Q's group
+    for (int e = t; e < kBq * DH / 4; e += C::kThreads) {
+      float4* p = reinterpret_cast<float4*>(qs + (e / (DH / 4)) * kLd +
+                                            4 * (e % (DH / 4)));
+      const float4 f = *p;
+      *p = make_float4(f.x * op.scale, f.y * op.scale, f.z * op.scale,
+                       f.w * op.scale);
+    }
+  }
 
-  stage<DH>(qb, q0, Tq, op.scale, qs, kLd);
-
-  float m[4], l[4], acc[4][kNv * 4];
+  float m[kR], l[kR], acc[kR][kCs];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kR; ++j) {
     m[j] = -INFINITY;
     l[j] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < kNv * 4; ++e) acc[j][e] = 0.0f;
+    for (int e = 0; e < kCs; ++e) acc[j][e] = 0.0f;
   }
 
-  // key tiles wholly above the tile's last query row are not visited
-  const int k_end = causal ? min(Tk, q0 + kBq + shift) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kBk) {
-    __syncthreads();  // the previous tile is consumed (and qs is ready)
-    stage<DH>(kb, k0, Tk, 1.0f, ks, kLd);
-    stage<DH>(vb, k0, Tk, 1.0f, vs, DH);
+  int stage = 0;
+  for (int k0 = 0; k0 < k_end; k0 += kBk, stage ^= 1) {
+    // tile k0 has landed, and every thread is done with the previous
+    // tile (its stage and P): the next tile's copies may start
+    cp_async_wait<0>();
     __syncthreads();
+    if (k0 + kBk < k_end)
+      copy_kv<DH>(kb, vb, k0 + kBk, Tk, kst + (stage ^ 1) * C::kK,
+                  vst + (stage ^ 1) * C::kV);
+    const float* ks = kst + stage * C::kK;
+    const float* vs = vst + stage * C::kV;
 
-    // S = (q * scale) . k for 4 rows x 4 keys
-    float s[4][4];
+    // S = (q * scale) . k for kR rows x kKs keys
+    float s[kR][kKs];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kR; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
-#pragma unroll 4
+      for (int i = 0; i < kKs; ++i) s[j][i] = 0.0f;
+#pragma unroll
     for (int d = 0; d < DH; d += 4) {
-      float4 a[4], b[4];
+      float4 a[kR];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        a[j] = *reinterpret_cast<const float4*>(qs + (ty * 4 + j) * kLd + d);
+      for (int j = 0; j < kR; ++j)
+        a[j] = *reinterpret_cast<const float4*>(qs + (rg + kRg * j) * kLd +
+                                                d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        b[i] = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * kLd + d);
+      for (int i = 0; i < kKs; ++i) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(ks + (cg + kG * i) * kLd + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[j][i] = fmaf(a[j].x, b[i].x, s[j][i]);
-          s[j][i] = fmaf(a[j].y, b[i].y, s[j][i]);
-          s[j][i] = fmaf(a[j].z, b[i].z, s[j][i]);
-          s[j][i] = fmaf(a[j].w, b[i].w, s[j][i]);
+        for (int j = 0; j < kR; ++j) {
+          s[j][i] = fmaf(a[j].x, b.x, s[j][i]);
+          s[j][i] = fmaf(a[j].y, b.y, s[j][i]);
+          s[j][i] = fmaf(a[j].z, b.z, s[j][i]);
+          s[j][i] = fmaf(a[j].w, b.w, s[j][i]);
         }
+      }
     }
 
-    // mask, then the online-softmax update of each of the 4 rows
+    // the position mask, only on a tile that crosses the diagonal or Tk
+    if (k0 + kBk > Tk || (causal && k0 + kBk - 1 > q0 + shift)) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qp = q0 + ty * 4 + j;
+      for (int j = 0; j < kR; ++j) {
+        const int qp = q0 + rg + kRg * j;
+#pragma unroll
+        for (int i = 0; i < kKs; ++i) {
+          const int kp = k0 + cg + kG * i;
+          const bool live = kp < Tk && (!causal || kp <= qp + shift);
+          s[j][i] = live ? s[j][i] : -INFINITY;
+        }
+      }
+    }
+
+    // the online-softmax update of each row; exp of a selected argument
+    // (-inf where the guard fails), so expf runs without a branch
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
       float mb = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + tx + 16 * i;
-        const bool live = kp < Tk && (!causal || kp <= qp + shift);
-        s[j][i] = live ? s[j][i] : -INFINITY;
-        mb = fmaxf(mb, s[j][i]);
-      }
-      const float m_new = fmaxf(m[j], max16(mb));
+      for (int i = 0; i < kKs; ++i) mb = fmaxf(mb, s[j][i]);
+      const float m_new = fmaxf(m[j], row_max<kG>(mb));
       const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      const float corr = isfinite(m[j]) ? expf(m[j] - m_safe) : 0.0f;
+      const float corr = expf(isfinite(m[j]) ? m[j] - m_safe : -INFINITY);
       float psum = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = isfinite(s[j][i]) ? expf(s[j][i] - m_safe) : 0.0f;
+      for (int i = 0; i < kKs; ++i) {
+        const float p =
+            expf(isfinite(s[j][i]) ? s[j][i] - m_safe : -INFINITY);
         s[j][i] = p;
         psum += p;
       }
-      l[j] = l[j] * corr + sum16(psum);
+      l[j] = l[j] * corr + row_sum<kG>(psum);
       m[j] = m_new;
 #pragma unroll
-      for (int e = 0; e < kNv * 4; ++e) acc[j][e] *= corr;
+      for (int e = 0; e < kCs; ++e) acc[j][e] *= corr;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(ps + (tx + 16 * i) * kPadP + ty * 4) =
-          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
-    __syncthreads();
+    for (int i = 0; i < kKs; ++i) {
+      float* prow = ps + (cg + kG * i) * kLdP + kR * rg;
+#pragma unroll
+      for (int j = 0; j < kR; j += 4)
+        *reinterpret_cast<float4*>(prow + j) =
+            make_float4(s[j][i], s[j + 1][i], s[j + 2][i], s[j + 3][i]);
+    }
+    __syncwarp();  // a row group's lanes are one warp's: so are P's rows
 
-    // acc += P . V over the tile's keys
-    const int kn = min(kBk, Tk - k0);
-#pragma unroll 4
-    for (int c = 0; c < kn; ++c) {
-      const float4 p =
-          *reinterpret_cast<const float4*>(ps + c * kPadP + ty * 4);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
+    // acc += P . V over the tile's keys (keys past Tk: p = 0, V rows 0)
+#pragma unroll 8
+    for (int c = 0; c < kBk; ++c) {
+      float pr[kR];
 #pragma unroll
-      for (int g = 0; g < kNv; ++g) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(vs + c * DH + g * 64 + tx * 4);
+      for (int j = 0; j < kR; j += 4) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(ps + c * kLdP + kR * rg + j);
+        pr[j] = p4.x;
+        pr[j + 1] = p4.y;
+        pr[j + 2] = p4.z;
+        pr[j + 3] = p4.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[j][g * 4 + 0] = fmaf(pr[j], w.x, acc[j][g * 4 + 0]);
-          acc[j][g * 4 + 1] = fmaf(pr[j], w.y, acc[j][g * 4 + 1]);
-          acc[j][g * 4 + 2] = fmaf(pr[j], w.z, acc[j][g * 4 + 2]);
-          acc[j][g * 4 + 3] = fmaf(pr[j], w.w, acc[j][g * 4 + 3]);
+      for (int h = 0; h < kCs / 4; ++h) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            vs + c * DH + 4 * cg + 4 * kG * h);
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          acc[j][4 * h + 0] = fmaf(pr[j], w.x, acc[j][4 * h + 0]);
+          acc[j][4 * h + 1] = fmaf(pr[j], w.y, acc[j][4 * h + 1]);
+          acc[j][4 * h + 2] = fmaf(pr[j], w.z, acc[j][4 * h + 2]);
+          acc[j][4 * h + 3] = fmaf(pr[j], w.w, acc[j][4 * h + 3]);
         }
       }
     }
@@ -299,18 +411,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args op, int n_qt) {
 
   // emit: acc / l, or (partial) the registers as they stand
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int qp = q0 + ty * 4 + j;
+  for (int j = 0; j < kR; ++j) {
+    const int qp = q0 + rg + kRg * j;
     if (qp >= Tq) continue;
     const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
     if (PARTIAL) {
       float* arow = op.acc + row * DH;
 #pragma unroll
-      for (int g = 0; g < kNv; ++g)  // 4 values at tx * 4
-        *reinterpret_cast<float4*>(arow + g * 64 + tx * 4) =
-            make_float4(acc[j][g * 4], acc[j][g * 4 + 1], acc[j][g * 4 + 2],
-                        acc[j][g * 4 + 3]);
-      if (tx == 0) {  // the 16 lanes of a row hold the same m and l
+      for (int h = 0; h < kCs / 4; ++h)
+        *reinterpret_cast<float4*>(arow + 4 * cg + 4 * kG * h) =
+            make_float4(acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2],
+                        acc[j][4 * h + 3]);
+      if (cg == 0) {  // the kG lanes of a row hold the same m and l
         op.m[row] = m[j];
         op.l[row] = l[j];
       }
@@ -318,11 +430,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args op, int n_qt) {
       const float lj = fmaxf(l[j], 1e-30f);
       float* orow = static_cast<float*>(op.out) + row * DH;
 #pragma unroll
-      for (int g = 0; g < kNv; ++g) {
+      for (int h = 0; h < kCs / 4; ++h) {
         float o[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = acc[j][g * 4 + e] / lj;
-        Io<float, 4>::store(orow + g * 64, tx, o);  // 4 values at tx * 4
+        for (int e = 0; e < 4; ++e) o[e] = acc[j][4 * h + e] / lj;
+        Io<float, 4>::store(orow, cg + kG * h, o);  // columns 4 cg + 4 kG h
       }
     }
   }
@@ -330,13 +442,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args op, int n_qt) {
 
 template <int DH, bool PARTIAL>
 int launch(const Args& a, cudaStream_t st) {
-  constexpr int bytes = smem_floats<DH>() * static_cast<int>(sizeof(float));
+  constexpr int bytes = Cfg<DH>::kFloats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<DH, PARTIAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (a.Tq + kBq - 1) / kBq;
-  flash_fwd<DH, PARTIAL><<<dim3(n_qt, a.bh), kThreads, bytes, st>>>(a, n_qt);
+  const int n_qt = (a.Tq + Cfg<DH>::kBq - 1) / Cfg<DH>::kBq;
+  flash_fwd<DH, PARTIAL>
+      <<<dim3(a.bh, n_qt), Cfg<DH>::kThreads, bytes, st>>>(a, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -114,6 +114,7 @@ compile count.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -230,7 +231,7 @@ _SPECS = {
                     "bf16:e4m3": "mx_qfc_matmul_e4m3_bf16",
                     "f16:int8": "mx_qfc_matmul_i8_f16",
                     "f16:e4m3": "mx_qfc_matmul_e4m3_f16"},
-                   [_P, _P, _P, _P, _I, _I, _I, _P]),
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_rows": ("dequant_rows.cu",
                      {"f32:int8": "mx_dequant_rows_i8_f32",
                       "f32:e4m3": "mx_dequant_rows_e4m3_f32"},
@@ -1448,13 +1449,80 @@ def _quant_storage(name, wq):
     return storage
 
 
+#: the dequant-fused matmul's GEMV route (csrc/qfc_matmul.cu): output
+#: channels a warp, warps a block, floats a staged 16-value unit of x
+QFC_NR, QFC_WARPS, QFC_PITCH = 4, 8, 20
+#: the route break, fit to the route-break table (PERF.md; N 1000, 4096 and
+#: 32000): the outputs an SM computes on the GEMV route while one 64 x 64
+#: tile of the tiled route runs, and those in a tile's share of the card's
+#: time once the tiles fill it (the tiled route's full rate is 4096 / 3200
+#: the GEMV route's)
+QFC_GEMV_PER_SM, QFC_GEMV_PER_TILE = 7400, 3200
+#: shared memory a block may opt into on Hopper
+_SMEM_OPT_IN = 232448
+
+
+def _qfc_gemv_smem(mt, k):
+    """Bytes of dynamic shared memory the GEMV route takes for ``mt`` rows
+    of x of ``k`` values: the staged rows and the warps' sums."""
+    return (mt * -(-k // 16) * QFC_PITCH + QFC_WARPS * QFC_NR * mt) * 4
+
+
+def _qfc_gemv_plan(m, n, k, sms=132):
+    """(mt, ks) of the GEMV route for x (m, k) and a (n, k) weight on a
+    card of ``sms`` SMs, or None where one row of x does not fit a
+    block's shared memory: mt rows of x a block (the least power of two
+    >= m, at most 4, halved while the staged rows do not fit) and K split
+    over ks warps, the least power of two that gives the card ``sms``
+    blocks, at most 8 and at most K / 512 (32 units a split, one a
+    lane)."""
+    mt = min(4, 1 << (max(m, 1) - 1).bit_length())
+    while mt > 1 and _qfc_gemv_smem(mt, k) > _SMEM_OPT_IN:
+        mt //= 2
+    if _qfc_gemv_smem(mt, k) > _SMEM_OPT_IN:
+        return None
+    units = -(-k // 16)
+    ks_max = min(QFC_WARPS, 1 << ((units // 32).bit_length() - 1)) \
+        if units >= 32 else 1
+    rows = -(-m // mt)
+    ks = 1
+    while ks < ks_max and \
+            -(-n // (QFC_NR * QFC_WARPS // ks)) * rows < sms:
+        ks *= 2
+    return mt, ks
+
+
+def _qfc_gemv_wins(m, n, sms=132):
+    """Whether the GEMV route is the faster for m rows of x and n output
+    channels on a card of ``sms`` SMs. Both routes' times grow with K. The
+    GEMV route's grows with m n; the tiled route takes one tile's time
+    until its tiles fill the card, then grows with the tiles, padding
+    included (N = 33 fills half of each)."""
+    tiles = -(-m // 64) * -(-n // 64)
+    return m * n <= max(QFC_GEMV_PER_SM * sms, QFC_GEMV_PER_TILE * tiles)
+
+
+@functools.lru_cache(maxsize=1024)
+def _qfc_route(m, n, k, sms=132):
+    """(mt, ks): the dequant-fused matmul's route for x (m, k) and a (n, k)
+    weight on a card of ``sms`` SMs, from the shapes alone: the GEMV
+    route's plan (``_qfc_gemv_plan``) where it is the faster
+    (``_qfc_gemv_wins``), else (0, 1), the tiled route (also for a K whose
+    single row of x does not fit a block's shared memory)."""
+    plan = _qfc_gemv_plan(m, n, k, sms) if _qfc_gemv_wins(m, n, sms) \
+        else None
+    return plan or (0, 1)
+
+
 @_wrapper("qfc_matmul")
 def qfc_matmul(x2, wq, scale):
     """``x2 @ (wq * scale[:, None]).T``: x2 (M, K) float32, bfloat16 or
     float16, wq (N, K) int8 or float8_e4m3fn, scale (N,) float32 -> (M, N)
     float32, each weight scaled before the product, x widened exactly and
     every product summed in float32 (the TPU kernel's output is float32
-    whatever x's type; the op rounds to x's type after the bias)."""
+    whatever x's type; the op rounds to x's type after the bias). The
+    kernel's route comes from the shapes (``_qfc_route``): a GEMV with K
+    split over warps for small M, 64 x 64 tiles above."""
     if not _cpu_or_cuda("qfc_matmul", x2):
         return qfc_matmul_plain(x2, wq, scale)
     key = _instance("qfc_matmul", x2, _quant_storage("qfc_matmul", wq))
@@ -1468,9 +1536,10 @@ def qfc_matmul(x2, wq, scale):
     (m, k), n = x2.shape, wq.shape[0]
     if m > 64 * 65535:
         raise MXNetError(f"qfc_matmul: M={m} > {64 * 65535}")
+    route = _qfc_route(m, n, k, _sm_count(x2.get_device()))
     out = x2.new_empty((m, n), dtype=torch.float32)
     _launch("qfc_matmul", key, x2, x2.data_ptr(), wq.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), m, n, k)
+            scale.data_ptr(), out.data_ptr(), m, n, k, *route)
     return out
 
 

@@ -95,6 +95,7 @@ from mxnet_tpu_torch.rtc import fp8_cast
 from mxnet_tpu_torch.serve import FakeClock
 
 from decode_split_emul import decode_attention_split
+from qfc_gemv_emul import qfc_gemv
 
 TOL = 2e-5
 
@@ -2497,3 +2498,142 @@ def test_small_lm_seq_parallel_fit_on_card(dev, half):
                                            atol=3 * spread + 1e-6, err_msg=k)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ------------------------------------------- row 16's GEMV route, row 14 / 15
+#: M at the route's break at N 1000 on an H100's 132 SMs (976: the GEMV
+#: route up to it, the tiled route above; 975 at N 1001) and on both sides
+#: of it, and the serving rungs
+_QFC_BREAK = ck.QFC_GEMV_PER_SM * 132 // 1000
+_QFC_MS = sorted({1, 8, _QFC_BREAK - 1, _QFC_BREAK, _QFC_BREAK + 1})
+_QFC_X = {"float32": (torch.float32, "qfc_matmul"),
+          "bfloat16": (torch.bfloat16, "qfc_matmul_bf16"),
+          "float16": (torch.float16, "qfc_matmul_f16")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 1000, 1001])
+@pytest.mark.parametrize("k", [4, 13, 300, 2048])
+@pytest.mark.parametrize("m", _QFC_MS)
+@pytest.mark.parametrize("xt", list(_QFC_X))
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+def test_qfc_matmul_routes(dev, storage, xt, m, k, n):
+    """Every instance at the GEMV route's break M and M +- 1 (the tiled
+    route above), K of one 16-byte unit's quarter, unaligned and ragged
+    units, N of one channel, of a ragged channel group and past the
+    serving head, on aligned x and on an offset view (its pointer not 16
+    bytes aligned): within 1e-5 of the output's largest magnitude of the
+    plain version, two calls bit for bit, one launch a call on the
+    instance's counter and on no other."""
+    dt, name = _QFC_X[xt]
+    base = _rnd(dev, m * k + 1, seed=m + k).to(dt)
+    w = _quant_weight(dev, n, k, storage, seed=n)
+    s = _rnd(dev, n, seed=1).abs() / 100 + 1e-3
+    for x in (base[:m * k].view(m, k), base[1:].view(m, k)):
+        before = ck.launch_counts()
+        got = ck.qfc_matmul(x, w, s)
+        after = ck.launch_counts()
+        again = ck.qfc_matmul(x, w, s)
+        ref = ck.qfc_matmul_plain(x, w, s)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+        assert float((got - ref).abs().max()) <= \
+            1e-5 * max(float(ref.abs().max()), 1e-30)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        moved = {c: after[c] - before[c] for c in after
+                 if after[c] != before[c]}
+        assert moved == {name: 1}
+
+
+@pytest.mark.cuda
+def test_qfc_matmul_gemv_more_bands_than_a_grid_row(dev):
+    """One output channel keeps the GEMV route at any M: 300000 rows are
+    75000 bands of 4, more than a grid's y extent (65535), in one launch."""
+    m, k, n = 300000, 16, 1
+    x = _rnd(dev, m, k, seed=6)
+    w = _quant_weight(dev, n, k, torch.int8, seed=7)
+    s = _rnd(dev, n, seed=8).abs() / 100 + 1e-3
+    assert ck._qfc_route(m, n, k, ck._sm_count(0))[0] == 4
+    got, ref = ck.qfc_matmul(x, w, s), ck.qfc_matmul_plain(x, w, s)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (1, 2048, 1000),
+                                   (3, 300, 33), (8, 2048, 7)])
+def test_qfc_matmul_matches_gemv_emulation(dev, storage, m, k, n):
+    """The kernel against ``tests/qfc_gemv_emul.py``, the same route, lane
+    order, butterfly and split order on the CPU (FMAs emulated in float64
+    and rounded once): within 1e-6 of the output's largest magnitude."""
+    x = _rnd(dev, m, k, seed=3)
+    w = _quant_weight(dev, n, k, storage, seed=4)
+    s = _rnd(dev, n, seed=5).abs() / 100 + 1e-3
+    got = ck.qfc_matmul(x, w, s).cpu()
+    want = qfc_gemv(x.cpu(), w.cpu(), s.cpu(),
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    assert float((got - want).abs().max()) <= \
+        1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_qfc_matmul_does_not_spill(dev):
+    """ptxas' report: no instance of either route spills, and none runs on
+    the tensor cores (float32 FMAs, as the reference's HIGHEST)."""
+    res = ck.resources("qfc_matmul")
+    gemv = [fn for fn in res if "qfc_gemv" in fn]
+    assert len(gemv) == 18, sorted(res)
+    for fn, r in res.items():
+        if "registers" in r:
+            assert r["spill_stores"] == r["spill_loads"] == 0, fn
+            sass = r.get("sass", {})
+            assert not sass.get("HGMMA") and not sass.get("HMMA"), fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 1000])
+def test_flash_attention_float32_tiles(dev, T, dh, causal):
+    """Row 14 float32 at T on both sides of the 64-key and the 64- / 128-
+    query tiles, both head dims: within 2e-5 of the plain version."""
+    q, k, v = (_rnd(dev, 2, 3, T, dh, seed=T + i) for i in range(3))
+    _same(ck.flash_attention(q, k, v, causal),
+          ck.flash_attention_plain(q, k, v, causal))
+
+
+#: (Tq, Tk, q_off, k_off): past, diagonal, future and Tq != Tk shards,
+#: at the float32 tiles' edges
+_F32_SHARDS = [(1024, 1024, 2048, 1024), (1024, 1024, 1024, 1024),
+               (129, 129, 0, 129), (128, 129, 0, 0), (129, 128, 64, 0),
+               (200, 65, 300, 100), (65, 200, 0, 63), (1, 1000, 999, 0),
+               (1000, 1, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("shard", _F32_SHARDS)
+def test_flash_attention_partial_float32_shards(dev, shard, dh):
+    """Row 15 float32: acc, m and l against the plain version, the rows
+    that see no key exactly -inf / 0 / 0; only its counter moves."""
+    tq, tk, q_off, k_off = shard
+    q = _rnd(dev, 1, 2, tq, dh, seed=1)
+    k, v = (_rnd(dev, 1, 2, tk, dh, seed=i) for i in (2, 3))
+    before = ck.launch_counts()
+    got = ck.flash_attention_partial(q, k, v, q_off, k_off, True)
+    after = ck.launch_counts()
+    _partial_close(got, ck.flash_attention_partial_plain(q, k, v, q_off,
+                                                         k_off, True))
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"flash_attention_partial": 1}
+
+
+@pytest.mark.cuda
+def test_flash_attention_float32_instances_do_not_spill(dev):
+    """ptxas' report shows 0 bytes of spill stores and loads for the four
+    float32 instances (both modes, both head dims)."""
+    inst = {key: r for key, r in _flash_instances().items()
+            if key[0] == "float"}
+    assert len(inst) == 4
+    for key, res in inst.items():
+        assert res["spill_stores"] == res["spill_loads"] == 0, key
