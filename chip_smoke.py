@@ -65,7 +65,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    route-break table (row 16's GEMV and tiled routes around the break at
    N = 1000 and 32000);
    ptxas' registers and spills of every row 16 instance of both routes
-   (none may spill));
+   (none may spill); the optimizer updates over ResNet-50's 157 arrays:
+   the multi-tensor kernels (one launch) bit for bit the per-array
+   kernels (157 launches) and within 1e-6 of their plain versions, both
+   timed, beside ``torch._fused_sgd_`` / ``torch._fused_adam_`` over the
+   same arrays (the same bytes, not the same function) and the byte
+   bound, and again over the LM's 99 arrays);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -79,19 +84,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    synthetic data through ``NDArrayIter``, Xavier init, SGD lr 0.1
    momentum 0.9 wd 1e-4) through ``Module.fit`` on ``gpu(0)`` for 8
    batches: images/s and p50/p99 step ms without the first batch, kernel
-   launches per step (softmax 1, cross-entropy backward 1, sgd_mom 157),
+   launches per step (softmax 1, cross-entropy backward 1, sgd_mom_multi
+   1: ``Module.update``'s one launch over the 157 arrays, no per-array
+   ``sgd_mom``),
    a finite loss and moved parameters, and with telemetry on the fit's
    MFU readings (``mfu.model`` of the bf16 peak, ``mfu.flops_per_step``,
    ``mfu.node_coverage``, ``mfu.achieved_flops_per_sec``), held to the
-   script's own FLOPs over the p50 step within 10 %;
+   script's own FLOPs over the p50 step within 10 %; then
+   ``Module.update``'s host ms a step beside a per-index loop over the
+   module's updater (``Updater(i, g, w)``, a caller's own path: 157
+   per-array ``sgd_mom`` launches) on the same gradients, in turns, the
+   weights and states put back after;
 6. one step of the same model at batch 2 on the card and on the CPU from
    the same parameters, TF32 off: the forward (probabilities, BatchNorm
    moving statistics) within 1e-4, and the updated weights within ten
    times the CPU's own spread under a 1e-6 relative perturbation of the
    starting weights (one ResNet-50 step at batch 2 amplifies rounding:
    a perturbation that small already moves conv0's gradient visibly);
-7. two steps of the same fit with ``optimizer="adam"`` at batch 4 (the
-   Adam kernel must launch, 157 times per step);
+7. two steps of the same fit with ``optimizer="adam"`` at batch 4 (one
+   ``adam_multi`` launch a step and no per-array ``adam``), then phase
+   5's host ms of ``Module.update`` beside the per-index loop (157
+   per-array ``adam`` launches);
 8. profile 4 ResNet-50 training steps: device-busy share, the kernels
    that take the most device time, ms per step;
 9. train the repo's transformer LM at the bench's full width (V=32000,
@@ -133,8 +146,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 15. train ResNet-50 in its fused configuration (the 33 Conv -> BatchNorm
    -> ReLU triples as ``FusedConvBNReLU``) through ``Module.fit`` as in
    phase 5, telemetry on: img/s, p50/p99, exactly 33 ``bn_stats`` + 33
-   ``bn_apply_relu`` + 1 softmax + 1 cross-entropy backward + 157
-   ``sgd_mom`` launches per step and nothing else, a finite loss, moved
+   ``bn_apply_relu`` + 1 softmax + 1 cross-entropy backward + 1
+   ``sgd_mom_multi`` launches per step and nothing else, a finite loss, moved
    parameters, the MFU readings;
 16. one fused step at batch 2, TF32 off, on the card and on the CPU
    through the CUDA variant's ``autograd.Function`` (its kernels are
@@ -177,8 +190,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``Module(compute_dtype="bfloat16").fit`` as in phase 5, telemetry on:
    img/s, p50/p99, the MFU readings, exactly 1 ``softmax_bf16`` + 1
    ``softmax_ce_bwd_bf16`` (+ 33 ``bn_stats_bf16`` + 33
-   ``bn_apply_relu_bf16`` fused) + 157 ``sgd_mom`` per step and no float32
-   instance, a finite loss, and every bound cell still float32;
+   ``bn_apply_relu_bf16`` fused) + 1 ``sgd_mom_multi`` per step and no
+   float32 instance, a finite loss, and every bound cell still float32;
 25. bfloat16 card vs CPU at batch 2 (phase 6's parameters with random
    BatchNorm statistics and affine, TF32 off): the inference forward and
    a training step's forward within ``BF16_SPREAD`` times the CPU's own
@@ -332,8 +345,10 @@ backward's single-half wrappers:
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
-cross-entropy / SGD-momentum while fitting ResNet-50 with SGD, Adam
-while fitting with Adam, the LayerNorm and GeLU backward kernels and
+cross-entropy / the multi-tensor SGD-momentum while fitting ResNet-50
+with SGD, the multi-tensor Adam while fitting with Adam, the per-array
+SGD-momentum and Adam kernels in phases 5 and 7's per-index updater
+loops, the LayerNorm and GeLU backward kernels and
 flash attention while fitting the LM (the LayerNorm backward's
 single-half wrappers, ``ln_bwd_dx`` / ``ln_bwd_dparams`` and their 16-bit
 counters, in phase 49's frozen steps), the quantized kernels while
@@ -355,6 +370,7 @@ line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
 checkout, the script exits non-zero and prints no result.
 """
 import contextlib
+import functools
 import json
 import os
 import re
@@ -379,7 +395,8 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "decode_attention": 2e-5, "decode_attention_fp8": 2e-5,
        "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
-       "sgd_mom": 1e-6, "adam": 1e-6, "ln_bwd_dx": 2e-5,
+       "sgd_mom": 1e-6, "adam": 1e-6, "sgd_mom_multi": 1e-6,
+       "adam_multi": 1e-6, "ln_bwd_dx": 2e-5,
        "ln_bwd_dparams": 5e-4, "ln_bwd": 5e-4, "bias_gelu_dx": 2e-5,
        "flash_attention": 2e-5, "qfc_matmul": 1e-5, "dequant_rows": 0.0,
        "bn_stats": 1e-5, "bn_apply_relu": 0.0,
@@ -443,6 +460,11 @@ REPLACES = {
     "softmax_ce_bwd": "mxnet_tpu/ops/pallas_kernels.py:112",
     "sgd_mom": "mxnet_tpu/ops/pallas_kernels.py:497",
     "adam": "mxnet_tpu/ops/pallas_kernels.py:509",
+    # the per-array kernels' arithmetic over a whole step's arrays, as the
+    # JAX package's fused step applies it (mxnet_tpu/optimizer.py
+    # SGD.fused_plan :222, Adam.fused_plan :366)
+    "sgd_mom_multi": "mxnet_tpu/ops/pallas_kernels.py:497",
+    "adam_multi": "mxnet_tpu/ops/pallas_kernels.py:509",
     "ln_bwd_dx": "mxnet_tpu/ops/pallas_kernels.py:600",
     "ln_bwd_dparams": "mxnet_tpu/ops/pallas_kernels.py:612",
     # both TPU kernels (:600 dx, :612 dgamma / dbeta) in one launch
@@ -486,7 +508,8 @@ LM_SGD = (("learning_rate", 0.05),)
 LM_KERNELS = ("ln_bwd", "bias_gelu_dx", "flash_attention")
 #: LM launches per training step at the bench's 8 layers: one LayerNorm
 #: backward call (dx, dgamma and dbeta) per LayerNorm, none from the
-#: single-half wrappers
+#: single-half wrappers, and no update kernel (LM_SGD has no momentum:
+#: sgd_update, which has no kernel, as in the JAX package)
 LM_PER_STEP = {"embedding": 1, "layernorm": 2 * N_LAYER + 1,
                "ln_bwd": 2 * N_LAYER + 1,
                "bias_gelu": N_LAYER, "bias_gelu_dx": N_LAYER,
@@ -1315,61 +1338,180 @@ def _training_kernels(mx, ck, rs, t, rec):
         plain_ms=_timed(lambda: ck.softmax_ce_bwd_plain(p, lab, 1.0)),
         library_ms=None,     # no one PyTorch call emits this gradient
         bound=_bound_ms(2 * N * C * 4 + N * 4, 3 * N * C))
-    # 7./8. the updates, over one step's 157 arrays, plus an odd length
+    # 7./8. the updates, over one step's 157 arrays, plus an odd length:
+    # the multi-tensor kernel (Module.update's one launch a step) and the
+    # per-array kernel (157 launches), timed in the same call
     shapes = _resnet50_param_shapes(mx, N)
     n_el = sum(int(np.prod(s)) for s in shapes)
     big = max(shapes, key=lambda s: int(np.prod(s)))
     dev = x.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def arrays(k):
-        return [[torch.randn(s, device=dev, generator=gen).abs_()
-                 if j == 3 else torch.randn(s, device=dev, generator=gen)
-                 for j in range(k)] for s in shapes]
     hp = dict(lr=0.1, momentum=0.9, wd=1e-4, rescale=1 / N, clip=-1.0)
-    err = 0.0
+    ah = dict(lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=1e-4,
+              rescale=1 / N, clip=-1.0)
+    err = {"sgd_mom": 0.0, "adam": 0.0}
     for s in (big, (1000003,)):
         w, g, m = (torch.randn(s, device=dev, generator=gen)
                    for _ in range(3))
+        var = torch.rand(s, device=dev, generator=gen)
         for clip in (-1.0, 0.01):
             h = dict(hp, clip=clip)
-            err = max(err, max(_max_err(a, b) for a, b in zip(
-                ck.sgd_mom_update(w.clone(), g, m.clone(), **h),
-                ck.sgd_mom_update_plain(w, g, m, **h))))
-    sgd = arrays(3)
-    rec["sgd_mom"] = dict(
-        max_abs_err=err,
-        ms=_timed(lambda: [ck.sgd_mom_update(*a, **hp) for a in sgd],
-                  reps=50, warm=5),
-        plain_ms=_timed(lambda: [ck.sgd_mom_update_plain(*a, **hp)
-                                 for a in sgd], reps=20, warm=2),
-        library_ms=None,     # torch.optim.SGD keeps buf = mu*buf + g
-        bound=_bound_ms(5 * 4 * n_el, 7 * n_el))
-    ah = dict(lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=1e-4,
-              rescale=1 / N, clip=-1.0)
-    err = 0.0
-    for s in (big, (1000003,)):
-        w, g, mean = (torch.randn(s, device=dev, generator=gen)
-                      for _ in range(3))
-        var = torch.rand(s, device=dev, generator=gen)
-        err = max(err, max(_max_err(a, b) for a, b in zip(
-            ck.adam_update(w.clone(), g, mean.clone(), var.clone(), **ah),
-            ck.adam_update_plain(w, g, mean, var, **ah))))
-    adam = arrays(4)
-    rec["adam"] = dict(
-        max_abs_err=err,
-        ms=_timed(lambda: [ck.adam_update(*a, **ah) for a in adam],
-                  reps=50, warm=5),
-        plain_ms=_timed(lambda: [ck.adam_update_plain(*a, **ah)
-                                 for a in adam], reps=20, warm=2),
-        library_ms=None,     # torch.optim.Adam places epsilon elsewhere
-        bound=_bound_ms(7 * 4 * n_el, 14 * n_el))
+            err["sgd_mom"] = max(err["sgd_mom"], max(
+                _max_err(a, b) for a, b in zip(
+                    ck.sgd_mom_update(w.clone(), g, m.clone(), **h),
+                    ck.sgd_mom_update_plain(w, g, m, **h))))
+        err["adam"] = max(err["adam"], max(_max_err(a, b) for a, b in zip(
+            ck.adam_update(w.clone(), g, m.clone(), var.clone(), **ah),
+            ck.adam_update_plain(w, g, m, var, **ah))))
+    calls = {}
+    for name, ops, per in (("sgd_mom", 3, hp), ("adam", 4, ah)):
+        lists = _update_lists(shapes, ops, gen)
+        arrays = list(zip(*lists))
+        one = getattr(ck, name + "_update")
+        plain = getattr(ck, name + "_update_plain")
+        calls[name] = functools.partial(_per_array, one, arrays, per)
+        rec[name] = dict(
+            max_abs_err=err[name], ms=_timed(calls[name], reps=50, warm=5),
+            plain_ms=_timed(functools.partial(_per_array, plain, arrays,
+                                              per), reps=20, warm=2),
+            # torch.optim.SGD keeps buf = mu * buf + g; torch.optim.Adam
+            # places epsilon elsewhere
+            library_ms=None, bound=_update_bound(name, n_el))
+        multi = _multi_row(ck, name, shapes, gen, per)
+        rec[name + "_multi"] = multi
+        calls[name + "_multi"] = multi.pop("call")
+    _multi_lm_rows(mx, ck, gen, hp, ah)
     print(f"kernels: the updates are timed over one ResNet-50 step: "
-          f"{len(shapes)} arrays, {n_el} elements, largest {big}")
+          f"{len(shapes)} arrays, {n_el} elements, largest {big}; "
+          "library_ms / library_device_ms of the multi rows: "
+          "torch._fused_sgd_ (momentum 0.9) / torch._fused_adam_ over the "
+          "same arrays: the same bytes, not the same function")
     return {"softmax": lambda: ck.softmax(x),
             "softmax_ce_bwd": lambda: ck.softmax_ce_bwd(p, lab, 1.0),
-            "sgd_mom": lambda: [ck.sgd_mom_update(*a, **hp) for a in sgd],
-            "adam": lambda: [ck.adam_update(*a, **ah) for a in adam]}
+            **calls}
+
+
+#: each update's bytes an element (inputs read once, outputs written
+#: once: SGD-momentum reads w, g, m and writes w, m; Adam reads w, g,
+#: mean, var and writes w, mean, var) and float32 operations an element
+UPDATE_BYTES = {"sgd_mom": 20, "adam": 28}
+UPDATE_FLOPS = {"sgd_mom": 7, "adam": 14}
+
+
+def _update_bound(name, n_el):
+    return _bound_ms(UPDATE_BYTES[name] * n_el, UPDATE_FLOPS[name] * n_el)
+
+
+def _update_lists(shapes, ops, gen):
+    """``ops`` operand lists over ``shapes`` on the card (the last of
+    Adam's four, its var, non-negative)."""
+    import torch
+    return [[torch.randn(s, device=gen.device, generator=gen).abs_()
+             if j == 3 else torch.randn(s, device=gen.device, generator=gen)
+             for s in shapes] for j in range(ops)]
+
+
+def _per_array(fn, arrays, hyper):
+    """``fn`` (a per-array update or its plain version) over each
+    array's operands."""
+    return [fn(*a, **hyper) for a in arrays]
+
+
+def _multi_args(name, lists, hyper):
+    """The positional arguments of ``<name>_update_multi`` (and of its
+    plain version) over ``lists``, every array with ``hyper``'s lr and
+    wd."""
+    n = len(lists[0])
+    rest = ((hyper["momentum"],) if name == "sgd_mom" else
+            (hyper["beta1"], hyper["beta2"], hyper["epsilon"]))
+    return (*lists, [hyper["lr"]] * n, [hyper["wd"]] * n, *rest,
+            hyper["rescale"], hyper["clip"])
+
+
+def _fused_library(name, lists, hyper):
+    """PyTorch's own multi-tensor update over the same arrays: the same
+    bytes, not the same function (its momentum buffer takes g, its
+    epsilon sits elsewhere)."""
+    import torch
+    if name == "sgd_mom":
+        return functools.partial(
+            torch._fused_sgd_, lists[0], lists[1], lists[2],
+            weight_decay=hyper["wd"], momentum=hyper["momentum"],
+            lr=hyper["lr"], dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False)
+    steps = [torch.tensor(3.0, device=lists[0][0].device) for _ in lists[0]]
+    return functools.partial(
+        torch._fused_adam_, lists[0], lists[1], lists[2], lists[3], [], steps,
+        lr=hyper["lr"], beta1=hyper["beta1"], beta2=hyper["beta2"],
+        weight_decay=hyper["wd"], eps=hyper["epsilon"], amsgrad=False,
+        maximize=False)
+
+
+def _multi_row(ck, name, shapes, gen, hyper):
+    """The multi-tensor kernel's record over ``shapes``: its error against
+    its plain version on the same lists (with clip, and lengths around a
+    vector and a chunk), required bit for bit the per-array kernel's on
+    copies; ``call``, the timed launch."""
+    import torch
+    multi = getattr(ck, name + "_update_multi")
+    plain = getattr(ck, name + "_update_multi_plain")
+    one = getattr(ck, name + "_update")
+    ops = 3 if name == "sgd_mom" else 4
+    err, same = 0.0, True
+    for case, clip in ((shapes, -1.0), (shapes, 0.01),
+                       ([(1,), (3,), (4,), (5,), (4097,), (1000003,)], 0.01)):
+        h = dict(hyper, clip=clip)
+        lists = _update_lists(case, ops, gen)
+        copies = [[t.clone() for t in op] for op in lists]
+        want = plain(*_multi_args(name, lists, h))
+        multi(*_multi_args(name, lists, h))
+        _per_array(one, list(zip(*copies)), h)
+        for i, new in enumerate(want):
+            for j, dst in enumerate(k for k in range(ops) if k != 1):
+                err = max(err, _max_err(lists[dst][i], new[j]))
+                same = same and torch.equal(lists[dst][i], copies[dst][i])
+    print(f"kernel {name}_multi: bit for bit the per-array kernel over "
+          f"{len(shapes)} ResNet-50 arrays and the length edges, clip off "
+          f"and on: {same}")
+    if not same:
+        raise AssertionError(f"{name}_multi differs from the per-array "
+                             "kernel")
+    lists = _update_lists(shapes, ops, gen)
+    args = _multi_args(name, lists, hyper)
+    library = _fused_library(name, lists, hyper)
+    n_el = sum(t.numel() for t in lists[0])
+    return dict(
+        max_abs_err=err, call=functools.partial(multi, *args),
+        ms=_timed(functools.partial(multi, *args), reps=50, warm=5),
+        plain_ms=_timed(functools.partial(plain, *args), reps=20, warm=2),
+        library_ms=_timed(library, reps=50, warm=5), library_call=library,
+        bound=_update_bound(name, n_el))
+
+
+def _multi_lm_rows(mx, ck, gen, hp, ah):
+    """Both multi-tensor kernels over the bench LM's 99 parameter arrays
+    (the (32000, 512) table the largest): device ms beside the per-array
+    kernel's, PyTorch's multi-tensor update's and the byte bound."""
+    import numpy as np
+    sym = _lm_symbol(LM_SEQ)
+    arg_shapes, _, _ = sym.infer_shape(
+        data=(LM_BATCH, LM_SEQ), softmax_label=(LM_BATCH * LM_SEQ,))
+    shapes = [s for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")]
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    for name, ops, hyper in (("sgd_mom", 3, hp), ("adam", 4, ah)):
+        lists = _update_lists(shapes, ops, gen)
+        multi = functools.partial(getattr(ck, name + "_update_multi"),
+                                  *_multi_args(name, lists, hyper))
+        per = functools.partial(_per_array, getattr(ck, name + "_update"),
+                                list(zip(*lists)), hyper)
+        print(f"kernel {name}_multi over the LM's {len(shapes)} arrays "
+              f"({n_el} elements): ms={_timed(multi, reps=50, warm=5):.5f} "
+              f"device_ms={_device_ms(multi):.6f} per-array "
+              f"device_ms={_device_ms(per):.6f} library_device_ms="
+              f"{_device_ms(_fused_library(name, lists, hyper)):.6f} "
+              f"bound_ms={_update_bound(name, n_el)[0]:.6f} (bytes)")
+        del lists
 
 
 def _same_bytes(x, ct, label):
@@ -2835,13 +2977,68 @@ def phase_train(mx, ck):
     counts, per_step = _fit_phase(mx, ck, mod, it, "train", TRAIN_BATCH,
                                   "img", ("conv0_weight", "fc1_weight"),
                                   optimizer_params=SGD)
-    want = {"softmax": 1, "softmax_ce_bwd": 1,
-            "sgd_mom": len(mod.get_params()[0])}
+    # Module.update: one multi-tensor launch a step, no per-array launch
+    want = {"softmax": 1, "softmax_ce_bwd": 1, "sgd_mom_multi": 1,
+            "sgd_mom": 0}
     for k, v in want.items():
         if per_step[k] != v:
             raise AssertionError(f"{k}: {per_step[k]} launches per step, "
                                  f"want {v}")
-    return counts, mod, it
+    per_index = _update_host_ms(ck, mod, "train", "sgd_mom")
+    return counts, mod, it, per_index
+
+
+def _update_host_ms(ck, mod, label, kernel, rounds=5):
+    """Module.update's host ms a step (its one multi-tensor launch) beside
+    a per-index loop over ``mod._updater`` (a caller's own ``Updater(i,
+    g, w)``: the per-array kernel, one launch an array) on the same module
+    and gradients, in turns; medians of ``rounds`` calls, each timed from
+    a synchronized card to the call's return, with its launches counted
+    from 0. The weights, states and update counts are put back after.
+    Returns the per-array kernel's launches of the per-index calls."""
+    import numpy as np
+    import torch
+    ex, upd, o = mod._exec_group, mod._updater, mod._optimizer
+    cells = list(ex.param_arrays)
+    for st in upd.states.values():
+        cells += [x for x in (st if isinstance(st, tuple) else (st,))
+                  if x is not None]
+    saved = [c.astorch().clone() for c in cells]
+    counts = dict(o._index_update_count), o.num_update
+
+    def per_index():
+        for i, (w, g) in enumerate(zip(ex.param_arrays, ex.grad_arrays)):
+            if g is not None:
+                upd(i, g, w)
+    paths = {"Module.update": mod.update, "per-index Updater": per_index}
+    ms = {k: [] for k in paths}
+    launches = {k: {} for k in paths}
+    for r in range(rounds):
+        for name in (list(paths) if r % 2 == 0 else list(paths)[::-1]):
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            paths[name]()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            for k, v in ck.launch_counts().items():
+                if v:
+                    launches[name][k] = launches[name].get(k, 0) + v
+    for c, v in zip(cells, saved):
+        c.astorch().copy_(v)
+    o._index_update_count, o.num_update = counts
+    n = sum(g is not None for g in ex.grad_arrays)
+    print(f"{label}: host ms a step, {n} arrays, medians of {rounds} in "
+          "turns: " + "; ".join(
+              f"{k} {np.median(v):.4f} (launches a call "
+              f"{ {c: x / rounds for c, x in launches[k].items()} })"
+              for k, v in ms.items()))
+    want = {"Module.update": {kernel + "_multi": rounds},
+            "per-index Updater": {kernel: n * rounds}}
+    if launches != want:
+        raise AssertionError(f"{label}: update launches {launches}, want "
+                             f"{want}")
+    return launches["per-index Updater"][kernel]
 
 
 def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
@@ -2970,7 +3167,9 @@ def phase_train_parity(mx):
 
 
 def phase_adam(mx, ck):
-    """Two Adam steps of the same fit at batch 4; returns the counts."""
+    """Two Adam steps of the same fit at batch 4, then Module.update's
+    host ms beside the per-index loop's; returns the fit's counts, with
+    ``adam`` the per-index loop's launches."""
     import torch
     print(_tf32(True))
     X, y = _images(8, SEED + 3)
@@ -2982,11 +3181,14 @@ def phase_adam(mx, ck):
             optimizer_params={"learning_rate": 1e-3, "wd": 1e-4})
     torch.cuda.synchronize()
     counts = ck.launch_counts()
-    n_params = len(mod.get_params()[0])
-    print(f"adam: 2 steps at batch 4: launches {counts}")
-    if counts["adam"] != 2 * n_params or counts["sgd_mom"]:
-        raise AssertionError(f"adam launched {counts['adam']} times, want "
-                             f"{2 * n_params}")
+    print(f"adam: 2 steps at batch 4: launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["adam_multi"] != 2 or counts["adam"] or counts["sgd_mom"] \
+            or counts["sgd_mom_multi"]:
+        raise AssertionError(f"adam_multi launched {counts['adam_multi']} "
+                             "times, want 2 (one a step), and no other "
+                             "update kernel")
+    counts["adam"] = _update_host_ms(ck, mod, "adam", "adam", rounds=3)
     return counts
 
 
@@ -2996,7 +3198,7 @@ def phase_adam(mx, ck):
 #: libraries (cuDNN, cuBLAS, CUTLASS), PyTorch's own elementwise /
 #: reduction kernels, and copies
 _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
-                 "adam_f32", "ln_fwd", "bias_gelu", "emb_gather",
+                 "adam_f32", "multi_update", "ln_fwd", "bias_gelu", "emb_gather",
                  "decode_attn", "ln_bwd_", "ln_dparams_", "flash_fwd",
                  "flash_tc", "bn_stats_", "bn_apply_relu_")
 
@@ -3705,10 +3907,10 @@ def phase_fused_train(mx, ck):
     n_params = len(mod.get_params()[0])
     want = dict.fromkeys(counts, 0)
     want.update(bn_stats=n_cbr, bn_apply_relu=n_cbr, softmax=1,
-                softmax_ce_bwd=1, sgd_mom=n_params)
+                softmax_ce_bwd=1, sgd_mom_multi=1)
     print(f"fused train: want per step {n_cbr} bn_stats and "
-          f"bn_apply_relu, 1 softmax, 1 softmax_ce_bwd, {n_params} sgd_mom"
-          " (one per parameter array), nothing else")
+          f"bn_apply_relu, 1 softmax, 1 softmax_ce_bwd, 1 sgd_mom_multi "
+          f"(all {n_params} parameter arrays), nothing else")
     if per_step != want:
         raise AssertionError(f"fused launches per step {per_step}, want "
                              f"{want}")
@@ -3934,7 +4136,8 @@ def phase_bf16_train(mx, ck, half="bfloat16"):
     .fit on gpu(0): phase 5's data, Xavier seed and SGD, batch 32, 8
     batches, telemetry on. Exactly the bfloat16 instances launch (1
     softmax + 1 CE gradient, and for the fused net 33 + 33 BatchNorm
-    kernels) beside 157 float32 sgd_mom per step, and nothing else.
+    kernels) beside 1 float32 sgd_mom_multi per step (all 157 arrays),
+    and nothing else.
     Returns ({net: launch counts}, {net: module})."""
     sfx = HALF_SFX[half]
     import torch
@@ -3957,7 +4160,7 @@ def phase_bf16_train(mx, ck, half="bfloat16"):
                     for n in mod.symbol._topo_nodes())
         want = dict.fromkeys(per_step, 0)
         want.update({"softmax_" + sfx: 1, "softmax_ce_bwd_" + sfx: 1,
-                     "sgd_mom": len(mod.get_params()[0])})
+                     "sgd_mom_multi": 1})
         if n_cbr:
             want.update({"bn_stats_" + sfx: n_cbr,
                          "bn_apply_relu_" + sfx: n_cbr})
@@ -5681,7 +5884,7 @@ def main():
     rec = phase_kernels(mx, ck)
     serve_counts, sym, params, prompts = phase_serve(mx, ck)
     phase_profile(mx, sym, params)
-    train_counts, train_mod, train_it = phase_train(mx, ck)
+    train_counts, train_mod, train_it, sgd_per_array = phase_train(mx, ck)
     phase_train_parity(mx)
     adam_counts = phase_adam(mx, ck)
     phase_train_profile(train_mod, train_it)
@@ -5774,7 +5977,6 @@ def main():
           f"{time.perf_counter() - t_frozen:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
-    launches["adam"] = adam_counts["adam"]
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
     launches.update(quant_counts)
     launches.update({k: cbr_counts[k] + cbr_serve_counts[k]
@@ -5797,6 +5999,11 @@ def main():
             "" if dtype == "float32" else "_" + HALF_SFX[dtype])
         launches[name] = counts[name]
     launches.update(frozen_counts)
+    # the per-array kernels' launches: a caller's own Updater(i, g, w)
+    # loop (phases 5 and 7), the path Module.update no longer takes
+    launches["sgd_mom"] = sgd_per_array
+    for k in ("adam", "adam_multi"):
+        launches[k] = adam_counts[k]
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

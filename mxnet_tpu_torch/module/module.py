@@ -3,12 +3,14 @@
 The reference's arrangement for one device: ``bind`` allocates the cells
 (with gradient cells when ``for_training``), ``init_params`` fills them,
 ``init_optimizer`` builds the optimizer (``rescale_grad`` = 1 / batch
-unless given) and its updater, and ``update`` calls the updater once per
-parameter with its gradient — one update op, so one kernel launch on the
-card, per parameter array. The JAX package fuses forward, backward and
-update into one jitted step on a single device; PyTorch runs eagerly and
-there is no program to fuse, so the port keeps the updater path, which
-computes the same numbers.
+unless given) and its updater, and ``update`` hands the updater every
+parameter that has a gradient at once (``Updater.update_multi``): SGD
+with momentum and Adam update the whole step in one multi-tensor kernel
+launch on the card, with the per-index lr and wd of the per-index path.
+The JAX package fuses forward, backward and update into one jitted step
+on a single device; PyTorch runs eagerly and there is no program to
+fuse, so the port keeps the updater's states and counts, which compute
+the same numbers.
 
 ``spmd=True`` (``bind``, ``fit`` or ``MXNET_SPMD=1``) binds a context
 list as one ``parallel.SpmdPlan`` over the mesh ``mesh`` (a
@@ -287,13 +289,16 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """One optimizer step on every parameter that has a gradient."""
+        """One optimizer step on every parameter that has a gradient, in
+        one updater call."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
-        for i, (w, g) in enumerate(zip(self._exec_group.param_arrays,
-                                       self._exec_group.grad_arrays)):
-            if g is not None:
-                self._updater(i, g, w)
+        live = [(i, w, g) for i, (w, g) in enumerate(zip(
+            self._exec_group.param_arrays, self._exec_group.grad_arrays))
+            if g is not None]
+        self._updater.update_multi([i for i, _, _ in live],
+                                   [g for _, _, g in live],
+                                   [w for _, w, _ in live])
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
-``rtc.py``'s flash-attention kernel). Sixteen kernels, each in a CUDA
+``rtc.py``'s flash-attention kernel). Eighteen kernels, each in a CUDA
 C++ source under ``mxnet_tpu_torch/csrc/`` (the flash-attention forward
-and its partial mode share one source and one library; the LayerNorm
-backward's three wrappers launch one kernel, with one half off or
-none):
+and its partial mode share one source and one library, as each update's
+one-array and multi-tensor kernels do; the LayerNorm backward's three
+wrappers launch one kernel, with one half off or none):
 
 ===========================  ==================================================  ===================
 wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)          source
@@ -18,6 +18,8 @@ wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)         
 ``softmax_ce_bwd``           ``_softmax_ce_bwd_kernel``                          softmax_ce_bwd.cu
 ``sgd_mom_update``           ``_sgd_mom_kernel`` (``_tiled_elementwise``)        sgd_mom.cu
 ``adam_update``              ``_adam_kernel`` (``_tiled_elementwise``)           adam.cu
+``sgd_mom_update_multi``     ``_sgd_mom_kernel`` over a whole step's arrays      sgd_mom.cu
+``adam_update_multi``        ``_adam_kernel`` over a whole step's arrays         adam.cu
 ``layernorm_bwd``            ``_ln_bwd_dx_kernel`` + ``_ln_bwd_dparams_kernel``  ln_bwd.cu
 ``layernorm_bwd_dx``         ``_ln_bwd_dx_kernel`` (``_ln_pl_bwd_rule``)         ln_bwd.cu
 ``layernorm_bwd_dparams``    ``_ln_bwd_dparams_kernel`` (``_ln_pl_bwd_rule``)    ln_bwd.cu
@@ -50,7 +52,10 @@ products are exact in float32), the float32 scores are scaled and take
 the float32 online softmax, and P . V is p_hi . V + p_lo . V with P
 split into two 16-bit terms, so no float32 value is rounded to 16 bits
 before the output. The updates (``sgd_mom_update``,
-``adam_update``) take float32 master weights and states only, and
+``adam_update`` and their ``*_multi`` forms: one launch for up to
+``MULTI_CAP`` arrays, each with its own lr and wd, the JAX package's
+fused step's update; ``Module.update`` takes them) take float32 master
+weights and states only, and
 ``dequant_rows`` writes float32 rows from narrow weights whatever the
 data's type. ``flash_attention_partial`` has the three instances too,
 and writes its float32 state whatever its input's type. A CUDA tensor
@@ -116,6 +121,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
+import operator
 import os
 import re
 import shutil
@@ -124,6 +131,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
@@ -143,7 +151,9 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "decode_attention_plain",
            "softmax", "softmax_plain", "softmax_ce_bwd",
            "softmax_ce_bwd_plain", "sgd_mom_update", "sgd_mom_update_plain",
-           "adam_update", "adam_update_plain", "layernorm_bwd",
+           "adam_update", "adam_update_plain", "sgd_mom_update_multi",
+           "sgd_mom_update_multi_plain", "adam_update_multi",
+           "adam_update_multi_plain", "layernorm_bwd",
            "layernorm_bwd_plain", "layernorm_bwd_dx",
            "layernorm_bwd_dx_plain", "layernorm_bwd_dparams",
            "layernorm_bwd_dparams_plain", "bias_gelu_dx",
@@ -206,6 +216,10 @@ _SPECS = {
                 [_P, _P, _P, _L, _F, _F, _F, _F, _F, _P]),
     "adam": ("adam.cu", {"f32": "mx_adam_f32"},
              [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
+    "sgd_mom_multi": ("sgd_mom.cu", {"f32": "mx_sgd_mom_multi_f32"},
+                      [_P, _L, _I, _F, _F, _F, _P]),
+    "adam_multi": ("adam.cu", {"f32": "mx_adam_multi_f32"},
+                   [_P, _L, _I, _F, _F, _F, _F, _F, _F, _F, _P]),
     "ln_bwd": ("ln_bwd.cu", {"f32": "mx_ln_bwd_f32",
                              "bf16": "mx_ln_bwd_bf16",
                              "f16": "mx_ln_bwd_f16"},
@@ -1070,6 +1084,192 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
             float(clip))
     increment_version((weight, mean, var))
     return weight, mean, var
+
+
+# ==========================================================================
+# 7-8 multi. SGD-momentum and Adam over a whole step's arrays, one launch
+# ==========================================================================
+#: arrays a launch's table holds, and elements a block updates (csrc/
+#: multi_update.cuh kCap and kChunk)
+MULTI_CAP = 512
+MULTI_CHUNK = 8192
+_SHAPE, _DTYPE, _IS_CPU = (operator.attrgetter(a)
+                           for a in ("shape", "dtype", "is_cpu"))
+
+
+def _multi_dtype(ops):
+    """``mxmulti::Table<ops>`` (csrc/multi_update.cuh) as a numpy
+    structured type: the same fields in the same order, packed as the C
+    struct lays them out (every field lands on its own alignment)."""
+    cap = MULTI_CAP
+    return np.dtype([("ptr", np.uint64, (ops, cap)), ("n", np.int64, cap),
+                     ("lr", np.float32, cap), ("wd", np.float32, cap),
+                     ("chunk_end", np.int32, cap), ("vec", np.int32, cap),
+                     ("count", np.int32), ("pad", np.int32)])
+
+
+#: operands an array (3: SGD-momentum, 4: Adam) -> its launch table's type
+_MULTI_TABLE = {ops: _multi_dtype(ops) for ops in (3, 4)}
+
+
+def _multi_plan(lens):
+    """The launches of a multi-tensor update over arrays of lengths
+    ``lens``, in index order: (positions in the list, cumulative
+    MULTI_CHUNK-element chunk counts) for each, at most MULTI_CAP arrays
+    a launch; zero-length arrays are left out."""
+    lens = np.asarray(lens, np.int64)
+    live = np.flatnonzero(lens > 0)
+    return [(pos, np.cumsum(-(-lens[pos] // MULTI_CHUNK)))
+            for pos in (live[s:s + MULTI_CAP]
+                        for s in range(0, len(live), MULTI_CAP))]
+
+
+def _multi_tables(ptrs, lens, lrs, wds):
+    """(table, blocks) for each launch of a multi-tensor update: ``ptrs``
+    (operands, arrays) the operands' addresses (weight, gradient, then the
+    states), ``lens``, ``lrs`` and ``wds`` one per array; each table a 0-d
+    array of ``_MULTI_TABLE[operands]``. An array whose operands all lie on
+    16-byte boundaries is flagged for 16-byte accesses."""
+    ptrs = np.asarray(ptrs, np.uint64)
+    lens = np.asarray(lens, np.int64)
+    vec = (ptrs % 16 == 0).all(axis=0)
+    lrs, wds = np.asarray(lrs, np.float32), np.asarray(wds, np.float32)
+    out = []
+    for pos, ends in _multi_plan(lens):
+        table, k = np.zeros((), _MULTI_TABLE[len(ptrs)]), len(pos)
+        table["ptr"][:, :k] = ptrs[:, pos]
+        table["n"][:k] = lens[pos]
+        table["lr"][:k] = lrs[pos]
+        table["wd"][:k] = wds[pos]
+        table["chunk_end"][:k] = ends
+        table["vec"][:k] = vec[pos]
+        table["count"] = k
+        out.append((table, int(ends[-1])))
+    return out
+
+
+def _multi_check(name, operands, lrs, wds):
+    """``"cuda"`` when every tensor of ``operands`` ({name: list}, one
+    entry an array) lies on one CUDA device as float32, contiguous, each
+    array's operands of one shape; ``"cpu"`` when every tensor lies on the
+    CPU (shapes checked too); None for empty lists. Anything else raises,
+    naming the array's position. The common case takes a few reads over
+    whole lists (``map``: a step's lists hold hundreds of tensors); only a
+    failure walks them one by one, to name the array."""
+    n = len(lrs)
+    if len(wds) != n or any(len(ts) != n for ts in operands.values()):
+        raise MXNetError(f"{name}: the lists differ in length: " + ", ".join(
+            f"{k} {len(v)}" for k, v in
+            dict(operands, lrs=lrs, wds=wds).items()))
+    if not n:
+        return None
+    lead, first = next(iter(operands.items()))
+    cuda = _cpu_or_cuda(name, first[0])
+    dev = first[0].get_device()
+    every = list(itertools.chain.from_iterable(operands.values()))
+    shapes = list(map(_SHAPE, first))
+    if set(map(torch.Tensor.get_device, every)) == {dev} and all(
+            list(map(_SHAPE, ts)) == shapes for ts in operands.values()) \
+            and (set(map(_DTYPE, every)) == {torch.float32} and
+                 all(map(torch.Tensor.is_contiguous, every)) if cuda
+                 else all(map(_IS_CPU, every))):
+        return "cuda" if cuda else "cpu"
+    for i in range(n):
+        for key, ts in operands.items():
+            t = ts[i]
+            if t.get_device() != dev or not (cuda or t.is_cpu):
+                raise MXNetError(f"{name}: {key}[{i}] is on {t.device}, "
+                                 f"{lead}[0] on {first[0].device}")
+            if t.shape != shapes[i]:
+                raise MXNetError(f"{name}: {key}[{i}] is "
+                                 f"{tuple(t.shape)}, its weight "
+                                 f"{tuple(shapes[i])}")
+            if not cuda:
+                continue
+            if t.dtype is not torch.float32:
+                raise MXNetError(
+                    f"{name}: {key}[{i}] is {t.dtype}; " + (
+                        _HALF_LATER if t.dtype in (torch.bfloat16,
+                                                   torch.float16)
+                        else "the kernel takes torch.float32"))
+            if not t.is_contiguous():
+                raise MXNetError(f"{name}: {key}[{i}] must be contiguous")
+    return "cuda" if cuda else "cpu"
+
+
+def _multi_launch(name, operands, lrs, wds, *hyper):
+    """Launch ``name``'s multi-tensor kernel over ``operands`` (checked),
+    as many launches as the tables need, and bump the written tensors'
+    version counters."""
+    ts = list(operands.values())
+    for table, blocks in _multi_tables(
+            [list(map(torch.Tensor.data_ptr, op)) for op in ts],
+            list(map(torch.Tensor.numel, ts[0])), lrs, wds):
+        _launch(name, "f32", ts[0][0], table.ctypes.data, table.nbytes,
+                blocks, *hyper)
+    increment_version([t for j, op in enumerate(ts) if j != 1 for t in op])
+
+
+def sgd_mom_update_multi_plain(weights, grads, moms, lrs, wds, momentum=0.0,
+                               rescale=1.0, clip=-1.0):
+    """[(w', m')]: ``sgd_mom_update_plain`` of each array with its own lr
+    and wd."""
+    return [sgd_mom_update_plain(w, g, m, lr, momentum, wd, rescale, clip)
+            for w, g, m, lr, wd in zip(weights, grads, moms, lrs, wds)]
+
+
+@_wrapper("sgd_mom_multi")
+def sgd_mom_update_multi(weights, grads, moms, lrs, wds, momentum=0.0,
+                         rescale=1.0, clip=-1.0):
+    """``sgd_mom_update`` of every array of the lists in place, array i
+    with ``lrs[i]`` and ``wds[i]``: on the card one launch for up to
+    MULTI_CAP arrays (a longer list takes more, in index order), bit for
+    bit the per-array kernel's result. An empty list launches nothing."""
+    ops = {"weights": weights, "grads": grads, "moms": moms}
+    where = _multi_check("sgd_mom_update_multi", ops, lrs, wds)
+    if where is None:
+        return
+    if where == "cpu":
+        for w, m, new in zip(weights, moms, sgd_mom_update_multi_plain(
+                weights, grads, moms, lrs, wds, momentum, rescale, clip)):
+            w.copy_(new[0])
+            m.copy_(new[1])
+        return
+    _multi_launch("sgd_mom_update_multi", ops, lrs, wds, float(momentum),
+                  float(rescale), float(clip))
+
+
+def adam_update_multi_plain(weights, grads, means, vars, lrs, wds,
+                            beta1=0.9, beta2=0.999, epsilon=1e-8,
+                            rescale=1.0, clip=-1.0):
+    """[(w', mean', var')]: ``adam_update_plain`` of each array with its
+    own lr and wd."""
+    return [adam_update_plain(w, g, m, v, lr, beta1, beta2, epsilon, wd,
+                              rescale, clip)
+            for w, g, m, v, lr, wd in zip(weights, grads, means, vars, lrs,
+                                          wds)]
+
+
+@_wrapper("adam_multi")
+def adam_update_multi(weights, grads, means, vars, lrs, wds, beta1=0.9,
+                      beta2=0.999, epsilon=1e-8, rescale=1.0, clip=-1.0):
+    """``adam_update`` of every array of the lists in place, array i with
+    ``lrs[i]`` (the bias correction folded in) and ``wds[i]``; launches
+    as ``sgd_mom_update_multi``."""
+    ops = {"weights": weights, "grads": grads, "means": means, "vars": vars}
+    where = _multi_check("adam_update_multi", ops, lrs, wds)
+    if where is None:
+        return
+    if where == "cpu":
+        for dst, new in zip(zip(weights, means, vars), adam_update_multi_plain(
+                weights, grads, means, vars, lrs, wds, beta1, beta2, epsilon,
+                rescale, clip)):
+            for d, s in zip(dst, new):
+                d.copy_(s)
+        return
+    _multi_launch("adam_update_multi", ops, lrs, wds, float(beta1),
+                  float(1 - beta1), float(beta2), float(1 - beta2),
+                  float(epsilon), float(rescale), float(clip))
 
 
 # ==========================================================================

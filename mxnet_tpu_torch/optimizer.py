@@ -7,10 +7,16 @@ parameter whose name ends neither in ``_weight`` nor ``_gamma`` — biases,
 betas — gets wd 0), ``rescale_grad``, ``clip_gradient``, a per-index
 update count, and ``get_updater`` for the module's update path.
 
-Each update is ONE op call per weight, as the reference calls
+``update`` is ONE op call per weight, as the reference calls
 ``mx.nd.sgd_mom_update``: on the card ``sgd_mom_update`` and
 ``adam_update`` launch their CUDA kernels, which update the weight and
-its state in place.
+its state in place. ``update_multi`` is a whole step's update, the
+module's path: SGD with momentum and Adam make one multi-tensor call
+(``cuda_kernels.sgd_mom_update_multi`` / ``adam_update_multi``, one
+launch on the card) with per-index lr and wd computed in the per-index
+order, as the JAX package's fused step takes them
+(``Module._fused_lr_wd`` there); every other case updates index by
+index.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import math
 import torch
 
 from .ndarray import NDArray, imperative_invoke
+from .ops import cuda_kernels as ck
 
 __all__ = ["Optimizer", "SGD", "Adam", "create", "get_updater", "Updater",
            "register"]
@@ -63,6 +70,29 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi(self, indices, weights, grads, states):
+        """One step over ``indices`` (with their weights, gradients and
+        states), in their order. Here index by index; an optimizer with a
+        multi-tensor kernel overrides it."""
+        for i, w, g, s in zip(indices, weights, grads, states):
+            self.update(i, w, g, s)
+
+    def _lrs_wds(self, indices, scale=None):
+        """Per-index lr and wd in the per-index update's order: each
+        index's lr and wd are read before its update count advances, so
+        a scheduler step inside the list moves only the later indices;
+        ``scale(t)`` (Adam's bias correction) multiplies the lr at the
+        index's new count t."""
+        lrs, wds = [], []
+        for i in indices:
+            lr = self._get_lr(i)
+            wds.append(self._get_wd(i))
+            self._update_count(i)
+            if scale is not None:
+                lr *= scale(self._index_update_count[i])
+            lrs.append(lr)
+        return lrs, wds
 
     def _sym_mult(self, key):
         out = {}
@@ -146,6 +176,19 @@ class SGD(Optimizer):
         else:
             imperative_invoke("sgd_update", weight, grad, **kwargs)
 
+    def update_multi(self, indices, weights, grads, states):
+        """One ``sgd_mom_update_multi`` call over the step; without
+        momentum (no state: the plain ``sgd_update``, which has no kernel)
+        index by index."""
+        if any(s is None for s in states):
+            return super().update_multi(indices, weights, grads, states)
+        lrs, wds = self._lrs_wds(indices)
+        with torch.no_grad():
+            ck.sgd_mom_update_multi(
+                [w.astorch() for w in weights], [g.astorch() for g in grads],
+                [s.astorch() for s in states], lrs, wds, self.momentum,
+                self.rescale_grad, self._clip())
+
 
 @register
 class Adam(Optimizer):
@@ -167,14 +210,27 @@ class Adam(Optimizer):
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         self._update_count(index)
-        t = self._index_update_count[index]
-        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        lr *= self._bias_correction(self._index_update_count[index])
         mean, var = state
         imperative_invoke("adam_update", weight, grad, mean, var, lr=lr,
                           wd=wd, beta1=self.beta1, beta2=self.beta2,
                           epsilon=self.epsilon,
                           rescale_grad=self.rescale_grad,
                           clip_gradient=self._clip())
+
+    def update_multi(self, indices, weights, grads, states):
+        """One ``adam_update_multi`` call over the step."""
+        lrs, wds = self._lrs_wds(indices, self._bias_correction)
+        with torch.no_grad():
+            ck.adam_update_multi(
+                [w.astorch() for w in weights], [g.astorch() for g in grads],
+                [s[0].astorch() for s in states],
+                [s[1].astorch() for s in states], lrs, wds, self.beta1,
+                self.beta2, self.epsilon, self.rescale_grad, self._clip())
+
+    def _bias_correction(self, t):
+        """The lr multiplier at update count t, in double."""
+        return math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
 
 
 class Updater:
@@ -188,6 +244,15 @@ class Updater:
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def update_multi(self, indices, grads, weights):
+        """Every listed index in one step (``Optimizer.update_multi``),
+        each missing state created first as ``__call__`` creates it."""
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state(i, w)
+        self.optimizer.update_multi(indices, weights, grads,
+                                    [self.states[i] for i in indices])
 
 
 def get_updater(optimizer):

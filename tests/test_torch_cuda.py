@@ -569,6 +569,204 @@ def test_adam_kernel(dev, n):
     _same(got, want, tol=1e-6)
 
 
+def _resnet50_shapes():
+    """ResNet-50's 157 parameter shapes."""
+    from mxnet_tpu_torch.models import resnet
+    sym = resnet.get_symbol(1000, 50, "3,224,224")
+    shapes, _, _ = sym.infer_shape(data=(1, 3, 224, 224))
+    return [s for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")]
+
+
+#: the multi-tensor update's length cases: one element, under, at and over
+#: a vector, one past a block's pass, an odd length over several chunks
+MULTI_LENGTHS = [(1,), (3,), (4,), (5,), (4097,), (1000003,)]
+
+
+def _multi_lists(dev, shapes, ops, seed, offset=0, special=False):
+    """``ops`` operand lists over ``shapes`` (the last operand, an Adam
+    var, non-negative), each operand a view ``offset`` floats into its
+    storage; per-array lrs and wds (lr 0 and wd 0 among them); with
+    ``special`` NaN and +-inf in the first arrays' gradients."""
+    gen = torch.Generator().manual_seed(seed)
+    lists = [[] for _ in range(ops)]
+    for s in shapes:
+        n = int(np.prod(s))
+        for j in range(ops):
+            a = torch.randn(n + offset, generator=gen)
+            if j == ops - 1 and ops == 4:
+                a = a.abs()
+            lists[j].append(a.to(dev)[offset:].view(s))
+    if special:
+        for k, v in enumerate((float("nan"), float("inf"), -float("inf"))):
+            lists[1][k % len(shapes)].view(-1)[k] = v
+    rs = np.random.RandomState(seed)
+    lrs = list(rs.uniform(1e-3, 0.2, len(shapes)))
+    wds = list(rs.uniform(0.0, 1e-2, len(shapes)))
+    lrs[0] = 0.0
+    wds[-1] = 0.0
+    return lists, lrs, wds
+
+
+def _bits(a, b):
+    return torch.equal(a.reshape(-1).view(torch.int32),
+                       b.reshape(-1).view(torch.int32))
+
+
+def _multi_against_per_array(lists, lrs, wds, kind, clip):
+    """The multi kernel's in-place result against the per-array kernel's
+    on copies, bit for bit (NaN payloads too); returns the launches."""
+    one = [[t.clone() for t in op] for op in lists]
+    before = ck.launch_counts()
+    if kind == "sgd":
+        hp = dict(momentum=0.9, rescale=1 / 32, clip=clip)
+        ck.sgd_mom_update_multi(*lists, lrs, wds, **hp)
+        for w, g, m, lr, wd in zip(*one, lrs, wds):
+            ck.sgd_mom_update(w, g, m, lr, wd=wd, **hp)
+    else:
+        hp = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, rescale=1 / 32,
+                  clip=clip)
+        ck.adam_update_multi(*lists, lrs, wds, **hp)
+        for w, g, m, v, lr, wd in zip(*one, lrs, wds):
+            ck.adam_update(w, g, m, v, lr, wd=wd, **hp)
+    torch.cuda.synchronize()
+    for j, (a, b) in enumerate(zip(lists, one)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert _bits(x, y), (kind, j, i, tuple(x.shape))
+    after = ck.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,ops", [("sgd", 3), ("adam", 4)])
+@pytest.mark.parametrize("clip", [-1.0, 0.01])
+@pytest.mark.parametrize("case", ["resnet50", "lengths", "offset1",
+                                  "offset2", "offset3", "nan_inf"])
+def test_multi_update_is_the_per_array_kernel_bit_for_bit(dev, kind, ops,
+                                                          clip, case):
+    """One launch over the list; every element as the per-array kernel
+    writes it: ResNet-50's 157 arrays, lengths around a vector and a
+    chunk, views 1-3 floats into their storage (4-byte accesses), NaN and
+    +-inf gradients; lr 0 and wd 0 among the arrays."""
+    shapes = _resnet50_shapes() if case == "resnet50" else MULTI_LENGTHS
+    offset = int(case[-1]) if case.startswith("offset") else 0
+    lists, lrs, wds = _multi_lists(dev, shapes, ops, 0, offset,
+                                   special=case == "nan_inf")
+    got = _multi_against_per_array(lists, lrs, wds, kind, clip)
+    per_array = "sgd_mom" if kind == "sgd" else "adam"
+    assert got == {per_array + "_multi": 1, per_array: len(shapes)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,ops", [("sgd", 3), ("adam", 4)])
+def test_multi_update_mixed_alignment_and_many_launches(dev, kind, ops):
+    """Arrays whose gradient alone is misaligned take 4-byte accesses
+    beside aligned ones in one launch; 2000 arrays of 7 take
+    ceil(2000 / MULTI_CAP) launches, bit for bit the per-array kernel."""
+    lists, lrs, wds = _multi_lists(dev, MULTI_LENGTHS, ops, 1)
+    base = torch.randn(4097 + 2, device=dev)
+    lists[1][4] = base[2:]
+    lists[1][1] = base[1:4]
+    got = _multi_against_per_array(lists, lrs, wds, kind, -1.0)
+    assert got[("sgd_mom" if kind == "sgd" else "adam") + "_multi"] == 1
+    lists, lrs, wds = _multi_lists(dev, [(7,)] * 2000, ops, 2)
+    got = _multi_against_per_array(lists, lrs, wds, kind, 0.01)
+    assert got[("sgd_mom" if kind == "sgd" else "adam") + "_multi"] == \
+        -(-2000 // ck.MULTI_CAP)
+
+
+@pytest.mark.cuda
+def test_multi_update_empty_and_zero_length_launch_nothing(dev):
+    before = ck.launch_counts()
+    ck.sgd_mom_update_multi([], [], [], [], [])
+    z = [torch.zeros(0, device=dev)]
+    ck.adam_update_multi(z, z, z, z, [0.1], [0.0])
+    lists, lrs, wds = _multi_lists(dev, [(0,), (5,), (0,)], 3, 3)
+    _multi_against_per_array(lists, lrs, wds, "sgd", -1.0)
+    after = ck.launch_counts()
+    assert after["adam_multi"] == before["adam_multi"]
+    assert after["sgd_mom_multi"] == before["sgd_mom_multi"] + 1
+
+
+@pytest.mark.cuda
+def test_multi_update_refusals_name_the_array(dev):
+    """A CUDA list raises, naming the array, for what the kernel does not
+    take; nothing launches and nothing gives way to another path."""
+    lists, lrs, wds = _multi_lists(dev, [(4, 3), (5,), (6,)], 3, 4)
+    w, g, m = lists
+    before = ck.launch_counts()
+    cases = [
+        ((w, g[:2] + [g[2].double()], m), r"grads\[2\] is torch.float64"),
+        ((w, [g[0], g[1].to(torch.bfloat16), g[2]], m),
+         r"grads\[1\] is torch.bfloat16; .*later slice"),
+        (([w[0].t()] + w[1:], [g[0].t()] + g[1:], [m[0].t()] + m[1:]),
+         r"weights\[0\] must be contiguous"),
+        ((w, g, m[:1] + [m[2], m[2]]), r"moms\[1\] is \(6,\)"),
+        ((w, g[:1] + [g[1].cpu()] + g[2:], m),
+         r"grads\[1\] is on cpu, weights\[0\] on cuda:0"),
+        (([x.cpu() for x in w], g, m), r"grads\[0\] is on cuda:0"),
+        ((w, g, m[:2]), "differ in length"),
+    ]
+    for args, msg in cases:
+        with pytest.raises(MXNetError, match=msg):
+            ck.sgd_mom_update_multi(*args, lrs, wds, 0.9)
+    mean = [x.clone() for x in m]
+    with pytest.raises(MXNetError, match=r"vars\[2\] is torch.float16"):
+        ck.adam_update_multi(w, g, mean, m[:2] + [m[2].half()], lrs, wds)
+    assert ck.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_optimizer_states_reloaded_mid_fit_give_the_same_bits(
+        dev, optimizer, tmp_path):
+    """Two batches, a checkpoint with optimizer states, a fresh module
+    loading it and two more batches: the bits of an uninterrupted 4-batch
+    fit, one multi launch a step and no per-array launch."""
+    rs = np.random.RandomState(0)
+    X = rs.rand(32, 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, 32).astype(np.float32)
+    from mxnet_tpu_torch import models
+    sym = models.mlp.get_symbol(10)
+    opt = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4} \
+        if optimizer == "sgd" else {"learning_rate": 1e-3, "wd": 1e-4}
+    init = mx.mod.Module(sym, context=mx.gpu(0))
+    init.bind([("data", (8, 1, 28, 28))], [("softmax_label", (8,))])
+    init.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(0)))
+    params = {k: v.asnumpy() for k, v in init.get_params()[0].items()}
+
+    def fit(mod, lo, hi, start=False):
+        ck.reset_launch_counts()
+        mod.fit(mx.io.NDArrayIter(X[lo:hi], y[lo:hi], batch_size=8),
+                num_epoch=1, optimizer=optimizer, optimizer_params=opt,
+                arg_params=mx.convert.params_from_numpy(params, mx.gpu(0))
+                if start else None)
+        upd = "sgd_mom" if optimizer == "sgd" else "adam"
+        counts = ck.launch_counts()
+        assert counts[upd + "_multi"] == (hi - lo) // 8 and not counts[upd]
+        return mod
+
+    def state(mod):
+        st = mx.convert.optimizer_states_to_numpy(mod)
+        return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}, \
+            {k: v if isinstance(v, list) else [v] for k, v in st.items()}, \
+            mod._optimizer._index_update_count, mod._optimizer.num_update
+
+    whole = state(fit(mx.mod.Module(sym, context=mx.gpu(0)), 0, 32, True))
+    first = fit(mx.mod.Module(sym, context=mx.gpu(0)), 0, 16, True)
+    first.save_checkpoint(str(tmp_path / "m"), 1, save_optimizer_states=True)
+    fresh = mx.mod.Module.load(str(tmp_path / "m"), 1,
+                               load_optimizer_states=True, context=mx.gpu(0))
+    got = state(fit(fresh, 16, 32))
+    assert got[2] == whole[2] and got[3] == whole[3]
+    for k, v in whole[0].items():
+        np.testing.assert_array_equal(got[0][k], v, err_msg=k)
+    for k, v in whole[1].items():
+        for a, b in zip(got[1][k], v):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
 @pytest.mark.cuda
 def test_training_kernels_refuse_what_they_do_not_take(dev):
     x = _rnd(dev, 4, 8)
@@ -862,9 +1060,9 @@ def _fit_both(models, model, optimizer):
         counts = ck.launch_counts()
         if ctx.device_type == "gpu":
             upd = "sgd_mom" if optimizer == "sgd" else "adam"
-            n_params = len(out["gpu"])
             assert counts["softmax"] == counts["softmax_ce_bwd"] == 8
-            assert counts[upd] == 8 * n_params, counts
+            # Module.update: one multi-tensor launch a step, no per-array
+            assert counts[upd + "_multi"] == 8 and counts[upd] == 0, counts
         else:
             assert not any(counts.values()), counts
     for k, v in out["cpu"].items():
@@ -1701,10 +1899,10 @@ def test_kept_bf16_casts_follow_the_update_kernel(dev, half):
     batch = mx.io.DataBatch([X], [y])
     mod.forward(batch, is_train=False)
     first = mod.get_outputs()[0].asnumpy()
-    before = ck.launch_counts()["sgd_mom"]
+    before = ck.launch_counts()["sgd_mom_multi"]
     mod.forward_backward(batch)
     mod.update()
-    assert ck.launch_counts()["sgd_mom"] > before
+    assert ck.launch_counts()["sgd_mom_multi"] == before + 1
     mod.forward(batch, is_train=False)
     got = mod.get_outputs()[0].asnumpy()
     fresh = mx.mod.Module(net, context=mx.gpu(0), compute_dtype=half)
