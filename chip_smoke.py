@@ -70,7 +70,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels (157 launches) and within 1e-6 of their plain versions, both
    timed, beside ``torch._fused_sgd_`` / ``torch._fused_adam_`` over the
    same arrays (the same bytes, not the same function) and the byte
-   bound, and again over the LM's 99 arrays);
+   bound, and again over the LM's 99 arrays; ``bn_stats`` (one launch a
+   call) beside ``torch.var_mean``'s device time over the same 33
+   tensors in each type, the stem alone beside its byte bound; the
+   attention kernels at head dim 32 (the bench LM over 16 heads), every
+   instance against its plain version and timed: the decode read at the
+   served step and the S = 64 window beside SDPA, the causal flash
+   forward (8, 16, 1024, 32) beside SDPA and beside its Dh 64 instance
+   at the same width and at the same rows, the ring's partial block at
+   the past shard and the diagonal (2, 16, 1024, 1024, 32); and in phase
+   29, ``torch.relu``'s and ``threshold_backward``'s device times beside
+   row 18's user kernels);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
    8 layers, 8 heads, rotary, cache 256, slot ladder [1, 4, 8], random
    weights from a numpy seed) through ``serve_decoder``'s dispatch thread:
@@ -160,10 +170,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    exactly 33 ``bn_apply_relu`` and 0 ``bn_stats`` per forward, outputs
    within 1e-4 of the float32 ladder's;
 18. profile fused and plain ResNet-50 training steps at batch 32 in turns
-   (plain, fused, fused, plain; 2 each) and 8 rung-8 dispatches of each
-   ladder: device busy, launches, and device time by group (cuDNN / the
-   BatchNorm pair / the port's other kernels / PyTorch elementwise /
-   copies);
+   (plain, fused, fused, plain; 2 each), 2 fused steps with the moving
+   statistics' zero cotangents filled again (the fused op's Function as
+   it was before it stopped materializing them), and 8 rung-8 dispatches
+   of each ladder: device busy, launches, and device time by group (cuDNN
+   / the BatchNorm pair / the port's other kernels / PyTorch elementwise
+   / copies);
 19. chunked prefill: phase 3's model through ``serve_decoder(symbol_gen=,
    prefill_chunk=64)`` at ladder [1, 4, 8], 8 prompts of 65-150 tokens and
    64 new tokens each, submitted at once and pumped on a real clock, then
@@ -343,6 +355,19 @@ backward's single-half wrappers:
    FROZEN_GRAD_RTOL of the same step with every parameter trained (5
    ``layernorm_bwd`` launches); frozen parameters unmoved.
 
+Then attention at head dim 32:
+
+50. (run after 49) the bench LM over 16 heads (d_model 512, Dh 32) from
+   phase 3's parameters through ``serve_decoder`` in float32 and
+   bfloat16 (phase 3's prompts and arrivals, exact launches a dispatch,
+   one stream teacher-forced card vs CPU within LOGIT_TOL /
+   HALF_LOGIT_TOL), through ``Module.fit`` in float32 and bfloat16 at T
+   1024, batch 8 (exact launches a step), one step card vs CPU at batch
+   2, T 128 in both types (phases 10 and 36's limits), and through the
+   sequence-parallel fit at 2 layers against the unsharded fit (phase
+   46's limits); the Dh 32 runs must launch the decode read, the flash
+   forward (float32 and bfloat16) and the partial block.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / the multi-tensor SGD-momentum while fitting ResNet-50
@@ -363,7 +388,8 @@ instances in phases 38, 40, 42 and 44, the dequant-fused matmul's
 16-bit instances in phase 41, the partial flash kernel's three
 instances in the ring fits of phases 46 and 48, the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
-(the relu_user fit; their source is this script) — max abs error against
+(the relu_user fit; their source is this script), and the attention
+kernels' launches in phase 50 added to theirs — max abs error against
 the plain version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
@@ -579,6 +605,14 @@ FROZEN_LAYERS = 2
 #: bit for bit; the limit, of each array's largest magnitude, leaves room
 #: for a library that sums in another order from one call to the next
 FROZEN_GRAD_RTOL = 1e-6
+#: the head-dim-32 phases (2's rows, 50): the bench LM over 16 heads, Dh
+#: 32 at d_model 512, which the attention kernels take beside 64 and 128;
+#: fit batches a dtype (the first excluded from the rates)
+DH32_HEADS, DH32_STEPS = 16, 4
+#: the attention kernels whose Dh 32 instances phase 50 must launch
+DH32_KERNELS = ("decode_attention", "decode_attention_bf16",
+                "flash_attention", "flash_attention_bf16",
+                "flash_attention_partial")
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -867,6 +901,7 @@ def phase_kernels(mx, ck):
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_ring_kernels(ck, rs, t, rec))
+    _headdim32_rows(ck, rs, t)
     _flash_tensor_cores(ck)
     _row_kernel_resources(ck)
     for half in HALF_SFX:
@@ -1190,10 +1225,10 @@ def _decode_row(ck, name, q, kc, vc, pos, live_keys, scores, sdpa=True):
     return dev_ms
 
 
-def _decode_window_rows(ck, rs, t, kc, vc):
+def _decode_window_rows(ck, rs, t, kc, vc, label="decode window"):
     """The prefill window: S = 64 at the served shape (B 8, H 8, C 256,
-    Dh 64), cursors WINDOW_CURSORS, every instance, SDPA beside the
-    16-bit and float32 ones."""
+    Dh 64, or the shape of ``kc``), cursors WINDOW_CURSORS, every
+    instance, SDPA beside the 16-bit and float32 ones."""
     import numpy as np
     import torch
     B, H, C, Dh = kc.shape
@@ -1207,7 +1242,7 @@ def _decode_window_rows(ck, rs, t, kc, vc):
             ck, rs, t, cache_dt, B, H, C, Dh)
         q = t(rs.randn(B, H, PREFILL_CHUNK, Dh).astype(np.float32)).to(
             getattr(torch, q_dt))
-        _decode_row(ck, f"decode window S={PREFILL_CHUNK} {cache_dt}", q,
+        _decode_row(ck, f"{label} S={PREFILL_CHUNK} {cache_dt}", q,
                     *caches, pos, live, scores,
                     sdpa=not cache_dt.startswith("float8"))
 
@@ -1687,6 +1722,87 @@ def _lm_kernels(ck, rs, t, rec):
             "flash_attention": lambda: ck.flash_attention(q, k, v, True)}
 
 
+def _headdim32_rows(ck, rs, t):
+    """The attention kernels at head dim 32, the bench LM over DH32_HEADS
+    heads: every instance against its plain version and timed (device
+    ms, L2 flushed) beside its bound and, where it takes the type, SDPA's
+    device time with the same mask: the decode read at the served step (B
+    8, C 256, S 1, phase 2's cursors) and at the S = 64 window; the
+    causal flash forward over (8, 16, 1024, 32) in float32, bfloat16 and
+    float16, beside its Dh 64 instance at the same width (8, 8, 1024, 64)
+    and at the same rows (8, 16, 1024, 64); ring attention's partial
+    block at the past shard and the diagonal of (2, 16, 1024, 1024, 32)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    B, H, Dh = 8, DH32_HEADS, D // DH32_HEADS
+    cursors = [0, 1, 127, 128, 255, 63, 200, 31]
+    pos = t(cursors, torch.int32)
+    live = int(np.minimum(CAP, np.asarray(cursors) + 1).sum())
+    for cache_dt, q_dt in DECODE_INSTANCES:
+        kc, vc = _decode_caches(ck, rs, t, cache_dt, B, H, CAP, Dh)
+        q = t(rs.randn(B, H, 1, Dh).astype(np.float32)).to(
+            getattr(torch, q_dt))
+        _decode_row(ck, f"dh32 decode served step {cache_dt}", q, kc, vc,
+                    pos, live, live, sdpa=not cache_dt.startswith("float8"))
+        if cache_dt == "float32":
+            _decode_window_rows(ck, rs, t, kc, vc, label="dh32 decode window")
+    pairs = LM_BATCH * LM_SEQ * (LM_SEQ + 1) // 2
+    for dtype in ("float32",) + tuple(HALF_SFX):
+        dt = getattr(torch, dtype)
+        peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
+        line = []
+        for label, shape in (("Dh 32", (LM_BATCH, H, LM_SEQ, Dh)),
+                             ("Dh 64 same width", (LM_BATCH, N_HEAD, LM_SEQ,
+                                                   D // N_HEAD)),
+                             ("Dh 64 same rows", (LM_BATCH, H, LM_SEQ, 64))):
+            q, k, v = (t(rs.randn(*shape).astype(np.float32)).to(dt)
+                       for _ in range(3))
+            got = ck.flash_attention(q, k, v, True)
+            want = ck.flash_attention_plain(q, k, v, True)
+            err = _max_err(got, want) if dtype == "float32" else \
+                _half_ulps(dtype, got, want, atol=2e-5)
+            if not err <= (TOL["flash_attention"] if dtype == "float32"
+                           else 1.0):
+                raise AssertionError(f"flash_attention {dtype} {label} "
+                                     f"{shape}: {err}")
+            bound = _bound_ms(4 * q.numel() * q.element_size(),
+                              4 * pairs * shape[1] * shape[3], peak)
+            kern = _device_ms(lambda: ck.flash_attention(q, k, v, True))
+            sdpa = _device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            line.append(f"{label} {shape}: err {err:.3g} device_ms "
+                        f"{kern:.6f} bound_ms {bound[0]:.6f} ({bound[1]}) "
+                        f"x_bound {kern / bound[0]:.2f} sdpa_device_ms "
+                        f"{sdpa:.6f}")
+            del q, k, v
+        print(f"dh32 flash_attention {dtype} causal: " + "; ".join(line))
+        Ts = RING_SEQ // RING_SHARDS
+        q, k, v = (t(rs.randn(RING_BATCH, H, Ts, Dh).astype(np.float32))
+                   .to(dt) for _ in range(3))
+        nbytes = 3 * q.numel() * q.element_size() + q.numel() * 4 + \
+            2 * RING_BATCH * H * Ts * 4
+        flops = 4 * RING_BATCH * H * Ts * Ts * Dh
+        line = []
+        for label, q_off, k_off, frac in (("past shard", 2 * Ts, Ts, 1.0),
+                                          ("diagonal", Ts, Ts, 0.5)):
+            e = _partial_err(
+                ck.flash_attention_partial(q, k, v, q_off, k_off, True),
+                ck.flash_attention_partial_plain(q, k, v, q_off, k_off, True))
+            if not e[1] <= TOL["flash_attention_partial"]:
+                raise AssertionError(f"flash_attention_partial {dtype} "
+                                     f"Dh 32 {label}: {e}")
+            kern = _device_ms(lambda: ck.flash_attention_partial(
+                q, k, v, q_off, k_off, True))
+            bound = _bound_ms(nbytes, flops * frac, peak)
+            line.append(f"{label}: rel_err {e[1]:.3g} device_ms {kern:.6f} "
+                        f"bound_ms {bound[0]:.6f} ({bound[1]}) x_bound "
+                        f"{kern / bound[0]:.2f}")
+        print(f"dh32 flash_attention_partial {dtype} at {tuple(q.shape)}: "
+              + "; ".join(line))
+        del q, k, v
+
+
 def _partial_err(got, want):
     """(largest |got - want| over the finite values of acc, m and l, the
     same relative to each array's largest magnitude): inf unless the rows
@@ -1765,17 +1881,20 @@ def _ring_kernels(ck, rs, t, rec):
 
 
 #: a demangled flash kernel: ``...::tc::flash_tc<__half, (int)64,
-#: (bool)1>`` (16-bit, tensor cores) or ``...::cc::flash_fwd<(int)64,
-#: (bool)0>`` (float32, CUDA cores)
+#: (int)32, (bool)1>`` (16-bit, tensor cores: the tile's head dim, then
+#: the stored one) or ``...::cc::flash_fwd<(int)64, (bool)0>`` (float32,
+#: CUDA cores)
 _FLASH_INSTANCE = re.compile(r"::(flash_tc|flash_fwd)<(?:(\w+), )?"
-                             r"\(int\)(\d+), \(bool\)([01])>")
+                             r"\(int\)(\d+), (?:\(int\)(\d+), )?"
+                             r"\(bool\)([01])>")
 
 
 def _flash_tensor_cores(ck):
     """Print each flash-attention instance's HGMMA (wgmma) count in its
     SASS and ptxas' registers (at launch: the 16-bit instances then move
     them to their consumers with setmaxnreg) and spill bytes; fail unless
-    every bfloat16 and float16 instance, both modes and head dims, holds
+    every bfloat16 and float16 instance, both modes and head dims (32,
+    64, 128), holds
     HGMMA, no float32 instance holds HGMMA (the reference's
     Precision.HIGHEST rules out TF32), and no instance spills."""
     seen = set()
@@ -1783,8 +1902,8 @@ def _flash_tensor_cores(ck):
         m = _FLASH_INSTANCE.search(fn)
         if not m:
             continue
-        _kind, elem, dh, partial = m.groups()
-        elem = elem or "float"
+        _kind, elem, tile, dh, partial = m.groups()
+        elem, dh = elem or "float", dh or tile
         hgmma = res.get("sass", {}).get("HGMMA", 0)
         spills = (res["spill_stores"], res["spill_loads"])
         print(f"kernels: flash_attention{'_partial' * (partial == '1')} "
@@ -1795,7 +1914,7 @@ def _flash_tensor_cores(ck):
             raise AssertionError(f"flash <{elem}, {dh}, {partial}>: HGMMA "
                                  f"{hgmma}, spills {spills}")
         seen.add((elem, dh, partial))
-    if len(seen) != 12:
+    if len(seen) != 18:
         raise AssertionError(f"flash instances in the SASS: {sorted(seen)}")
 
 
@@ -2302,6 +2421,35 @@ def _stats_err(ck, x):
         torch.stack([s, sq]), torch.stack([ps, psq]))
 
 
+def _bn_stats_stem(ck, xs, name):
+    """bn_stats over the stem's conv output (``xs[0]``) alone, its plan,
+    device ms beside its byte bound and torch.var_mean's device ms; then
+    the yardsticks of the step's 33 calls: the same bytes read by
+    torch.sum, and 33 calls over one-value tensors (the per-call floor)."""
+    import torch
+    stem = xs[0]
+    n, c, h, w = stem.shape
+    plan = ck._bn_stats_plan(n, c, h * w, stem.element_size(),
+                             stem.data_ptr() % 16 == 0, _sm_count())
+    kern = _device_ms(lambda: ck.bn_stats(stem))
+    lib = _device_ms(lambda: torch.var_mean(stem, dim=(0, 2, 3),
+                                            unbiased=False))
+    bound = _bound_ms(stem.numel() * stem.element_size() + 8 * c,
+                      3 * stem.numel())
+    print(f"kernels: {name} stem {tuple(stem.shape)} alone, plan {plan}: "
+          f"device_ms {kern:.6f} bound_ms {bound[0]:.6f} ({bound[1]}) "
+          f"x_bound {kern / bound[0]:.3f}; torch.var_mean device_ms "
+          f"{lib:.6f}")
+    tiny = [torch.ones((1, 1, 1, 1), device="cuda", dtype=stem.dtype)
+            for _ in xs]
+    read = _device_ms(lambda: [torch.sum(x) for x in xs])
+    floor = _device_ms(lambda: [ck.bn_stats(x) for x in tiny])
+    print(f"kernels: {name} over the step's {len(xs)} tensors: the same "
+          f"bytes read by torch.sum device_ms {read:.6f}; {len(xs)} calls "
+          f"over one-value tensors (the per-call floor) device_ms "
+          f"{floor:.6f}")
+
+
 def _bn_kernels(mx, ck, rs, t, rec):
     """The two FusedConvBNReLU kernels at the fused ResNet-50 path's
     shapes: the 33 fused conv outputs of one batch-32 training step (ms,
@@ -2347,15 +2495,18 @@ def _bn_kernels(mx, ck, rs, t, rec):
           f"bn_stats {_timed(lambda: ck.bn_stats(stem)):.5f} ms, "
           f"bn_apply_relu "
           f"{_timed(lambda: ck.bn_apply_relu(stem, *ss[0])):.5f} ms")
+    _bn_stats_stem(ck, xs, "bn_stats")
+
+    def var_mean():
+        return [torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                for x in xs]
     rec["bn_stats"] = dict(
         max_abs_err=abs_s, rel_err=rel_s,
         ms=_timed(lambda: [ck.bn_stats(x) for x in xs], reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_stats_plain(x) for x in xs],
                         reps=20, warm=2),
         # one read of x and the moments the op derives from the sums
-        library_ms=_timed(lambda: [torch.var_mean(x, dim=(0, 2, 3),
-                                                  unbiased=False)
-                                   for x in xs], reps=20, warm=2),
+        library_ms=_timed(var_mean, reps=20, warm=2), library_call=var_mean,
         bound=_bound_ms(4 * elems + 8 * chans, 3 * elems))
     rec["bn_apply_relu"] = dict(
         max_abs_err=abs_a,
@@ -2577,15 +2728,18 @@ def _bf16_kernels(mx, ck, rs, t, rec, half="bfloat16"):
           f"bn_stats_{sfx} {_timed(lambda: ck.bn_stats(stem)):.5f} ms, "
           f"bn_apply_relu_{sfx} "
           f"{_timed(lambda: ck.bn_apply_relu(stem, *ss[0])):.5f} ms")
+    _bn_stats_stem(ck, xs, "bn_stats_" + sfx)
+
+    def var_mean():
+        return [torch.var_mean(xx, dim=(0, 2, 3), unbiased=False)
+                for xx in xs]
     rec["bn_stats_" + sfx] = dict(
         max_abs_err=abs_s, rel_err=rel_s,
         ms=_timed(lambda: [ck.bn_stats(xx) for xx in xs], reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_stats_plain(xx) for xx in xs],
                         reps=20, warm=2),
         # one read of x and the moments the op derives from the sums
-        library_ms=_timed(lambda: [torch.var_mean(xx, dim=(0, 2, 3),
-                                                  unbiased=False)
-                                   for xx in xs], reps=20, warm=2),
+        library_ms=_timed(var_mean, reps=20, warm=2), library_call=var_mean,
         bound=_bound_ms(2 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
     rec["bn_apply_relu_" + sfx] = dict(
         max_abs_err=abs_a,
@@ -3276,10 +3430,10 @@ def _lm_gemm_flops():
     return 6 * weights * LM_BATCH * LM_SEQ + attn
 
 
-def _lm_symbol(seq):
+def _lm_symbol(seq, n_head=N_HEAD):
     from mxnet_tpu_torch.models import transformer as tfm
     return tfm.get_symbol(vocab_size=V, d_model=D, n_layer=N_LAYER,
-                          n_head=N_HEAD, seq_len=seq)
+                          n_head=n_head, seq_len=seq)
 
 
 def phase_lm_train(mx, ck):
@@ -3306,13 +3460,13 @@ def phase_lm_train(mx, ck):
     return counts, mod, it
 
 
-def _ring_start(n_layer):
+def _ring_start(n_layer, n_head=N_HEAD):
     """The sequence-parallel phases' LM symbol at T = 4096 and its
     numpy-seeded parameters (the LM parity phase's recipe)."""
     import numpy as np
     from mxnet_tpu_torch.models import transformer as tfm
     sym = tfm.get_symbol(vocab_size=V, d_model=D, n_layer=n_layer,
-                         n_head=N_HEAD, seq_len=RING_SEQ)
+                         n_head=n_head, seq_len=RING_SEQ)
     shapes, _, _ = sym.infer_shape(data=(RING_BATCH, RING_SEQ),
                                    softmax_label=(RING_BATCH * RING_SEQ,))
     rs = np.random.RandomState(SEED + 6)
@@ -3508,12 +3662,12 @@ def _lm_step(mx, sym, params, ctx, batch, compute_dtype=None):
             {k: v.asnumpy() for k, v in mod.get_params()[0].items()})
 
 
-def _lm_parity_start(mx):
+def _lm_parity_start(mx, n_head=N_HEAD):
     """The parity phases' LM symbol (T=128), numpy-seeded parameters and
     one batch of batch 2."""
     import numpy as np
     from mxnet_tpu_torch.models import transformer as tfm
-    sym = _lm_symbol(LM_PARITY_SEQ)
+    sym = _lm_symbol(LM_PARITY_SEQ, n_head)
     shapes, _, _ = sym.infer_shape(
         data=(LM_PARITY_BATCH, LM_PARITY_SEQ),
         softmax_label=(LM_PARITY_BATCH * LM_PARITY_SEQ,))
@@ -3527,11 +3681,11 @@ def _lm_parity_start(mx):
     return sym, params, batch
 
 
-def phase_lm_parity(mx):
+def phase_lm_parity(mx, n_head=N_HEAD):
     """One LM step at full width, batch 2, T=128, card vs CPU, TF32 off."""
     import numpy as np
-    print(_tf32(False) + " (LM parity phase)")
-    sym, params, batch = _lm_parity_start(mx)
+    print(_tf32(False) + f" (LM parity phase, {n_head} heads)")
+    sym, params, batch = _lm_parity_start(mx, n_head)
     t0 = time.perf_counter()
     cpu = _lm_step(mx, sym, params, mx.cpu(), batch)
     t_cpu = time.perf_counter() - t0
@@ -3548,7 +3702,8 @@ def phase_lm_parity(mx):
         worst_g = max(worst_g, (ratio, k))
         d = float(np.abs(gpu[2][k] - cpu[2][k]).max())
         worst_w = max(worst_w, (d, k))
-    print(f"lm parity: one step at batch {LM_PARITY_BATCH}, T="
+    print(f"lm parity ({n_head} heads): one step at batch "
+          f"{LM_PARITY_BATCH}, T="
           f"{LM_PARITY_SEQ} (CPU step {t_cpu:.1f} s): loss card "
           f"{loss[0]:.7f} cpu {loss[1]:.7f}; max |prob card - cpu| = "
           f"{prob_err:.3g} (limit {FWD_TOL}); worst gradient "
@@ -4057,10 +4212,13 @@ def _profiled(fn, steps, group=None):
 def phase_fused_profile(mx, fused_server, plain_server, steps=2):
     """Fused vs plain ResNet-50 under the profiler: training steps at
     batch 32 in turns (plain, fused, fused, plain; ``steps`` each, so 4
-    per net), then 8 rung-8 dispatches of each ladder. Device busy,
-    launches, and device time by group."""
+    per net), then ``steps`` fused steps with the moving statistics' zero
+    cotangents filled again (FusedConvBNReLU's Function before it stopped
+    materializing them), then 8 rung-8 dispatches of each ladder. Device
+    busy, launches, and device time by group."""
     import numpy as np
     import torch
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
     print(_tf32(True) + " (fused profile phase)")
     X, y = _images(TRAIN_BATCH, SEED + 8)
     batch = mx.io.DataBatch([X], [y])
@@ -4079,6 +4237,18 @@ def phase_fused_profile(mx, fused_server, plain_server, steps=2):
     runs = {"plain": [], "fused": []}
     for name in ("plain", "fused", "fused", "plain"):
         runs[name].append(_profiled(lambda m=mods[name]: step(m), steps))
+    keep = ck._ConvBNReLUFn.__dict__["forward"]
+
+    def filled(ctx, *args):
+        out = keep.__func__(ctx, *args)
+        ctx.set_materialize_grads(True)
+        return out
+    ck._ConvBNReLUFn.forward = staticmethod(filled)
+    try:
+        runs["fused, zero cotangents filled"] = [
+            _profiled(lambda: step(mods["fused"]), steps)]
+    finally:
+        ck._ConvBNReLUFn.forward = keep
     Xs = np.random.RandomState(SEED + 7).rand(QUANT_RUNGS[-1], *TRAIN_IMAGE) \
         .astype(np.float32)
 
@@ -4329,12 +4499,12 @@ def phase_bf16_profile(mods, servers, steps=2):
 # --------------------------------------------------------------------------
 # phases 19-24: decode serving's fast paths
 # --------------------------------------------------------------------------
-def _gen(n_layer=N_LAYER, cache_dtype=None):
+def _gen(n_layer=N_LAYER, cache_dtype=None, n_head=N_HEAD):
     """The decode graph at full width as a ``step_len -> Symbol`` factory
     (``serve_decoder``'s ``symbol_gen``)."""
     from mxnet_tpu_torch.models import transformer as tfm
     return lambda s: tfm.get_decode_symbol(
-        vocab_size=V, d_model=D, n_layer=n_layer, n_head=N_HEAD,
+        vocab_size=V, d_model=D, n_layer=n_layer, n_head=n_head,
         capacity=CAP, per_slot=True, step_len=s, cache_dtype=cache_dtype)
 
 
@@ -5226,10 +5396,15 @@ def _relu_kernel_records(mx, shapes):
             "library_ms": _timed(lambda: [thb(c, x, 0.0) for x, c
                                           in zip(xs, cts)], 20, 3),
             "bound": _bound_ms(3 * 4 * n, n)}}
+    recs["relu_user"]["library_device_ms"] = _device_ms(
+        lambda: [torch.relu(x) for x in xs], reps=10)
+    recs["relu_user_vjp"]["library_device_ms"] = _device_ms(
+        lambda: [thb(c, x, 0.0) for x, c in zip(xs, cts)], reps=10)
     for name, r in recs.items():
         print(f"{name}: over one step's {len(xs)} inputs ({n} values): "
               f"{r['ms']:.5f} ms per step, device {r['device_ms']}, plain "
-              f"{r['plain_ms']:.5f}, library {r['library_ms']:.5f}, bound "
+              f"{r['plain_ms']:.5f}, library {r['library_ms']:.5f} "
+              f"(device {r['library_device_ms']:.6f}), bound "
               f"{r['bound'][0]:.5f} ({r['bound'][1]}), max |err| "
               f"{r['max_abs_err']}")
         if r["max_abs_err"] != 0.0:
@@ -5683,7 +5858,7 @@ def phase_lm_bf16_train(mx, ck, half="bfloat16"):
     return counts, mods
 
 
-def phase_lm_bf16_parity(mx, half="bfloat16"):
+def phase_lm_bf16_parity(mx, half="bfloat16", n_head=N_HEAD):
     """One bfloat16 SGD step of the LM at full width, batch 2, T=128, on
     the card and on the CPU from phase 10's parameters and batch, TF32
     off, beside the CPU's float32 step: the probabilities, every gradient
@@ -5695,8 +5870,8 @@ def phase_lm_bf16_parity(mx, half="bfloat16"):
     bfloat16 and float32 happen to agree). The losses are printed."""
     sfx = HALF_SFX[half]
     import numpy as np
-    print(_tf32(False) + f" (LM {sfx} parity phase)")
-    sym, params, batch = _lm_parity_start(mx)
+    print(_tf32(False) + f" (LM {sfx} parity phase, {n_head} heads)")
+    sym, params, batch = _lm_parity_start(mx, n_head)
     t0 = time.perf_counter()
     cpu = _lm_step(mx, sym, params, mx.cpu(), batch, half)
     cpu32 = _lm_step(mx, sym, params, mx.cpu(), batch)
@@ -5721,7 +5896,8 @@ def phase_lm_bf16_parity(mx, half="bfloat16"):
             (ratio(card[i][k], cpu[i][k],
                    float(np.abs(cpu[i][k] - cpu32[i][k]).max())), k)
             for k in cpu[i])
-    print(f"lm {sfx} parity: one step at batch {LM_PARITY_BATCH}, T="
+    print(f"lm {sfx} parity ({n_head} heads): one step at batch "
+          f"{LM_PARITY_BATCH}, T="
           f"{LM_PARITY_SEQ} (two CPU steps {t_cpu:.1f} s): loss card "
           f"{loss[0]:.6f} cpu {sfx} {loss[1]:.6f} cpu float32 {loss[2]:.6f}; "
           f"worst of its limit (BF16_SPREAD {BF16_SPREAD} x the CPU's "
@@ -5863,6 +6039,138 @@ def phase_lm_frozen(mx, ck):
     return total
 
 
+def _dh32_teacher_forced(mx, sym, params, stream, half):
+    """``stream`` teacher-forced through the decode graph ``sym`` on the
+    card and on the CPU (in ``half``, or float32 for None): (the worst
+    |logit card - cpu|, the worst of it over its limit). Float32 is held
+    to LOGIT_TOL, a 16-bit type to HALF_LOGIT_TOL (atol and rtol); every
+    token past the prompt must be the CPU's argmax or a near-tie."""
+    import numpy as np
+    gpu, cpu = (_decoder(mx, sym, params, ctx, compute_dtype=half)
+                for ctx in (mx.gpu(0), mx.cpu()))
+    for d in (gpu, cpu):
+        d.join(0)
+    worst = ratio = 0.0
+    for i, tok in enumerate(stream[:-1]):
+        a, b = (d.step(np.asarray([[tok]])).asnumpy()[0, 0]
+                for d in (gpu, cpu))
+        if a.shape != (V,) or not np.isfinite(a).all():
+            raise AssertionError(f"dh32 step {i}: logits {a.shape} not "
+                                 "finite")
+        if half:
+            w, r = _bf16_within(a, b, half)
+            near = 2 * HALF_LOGIT_TOL[half] * (1 + abs(float(b.max())))
+        else:
+            w = float(np.abs(a - b).max())
+            r, near = w / LOGIT_TOL, LOGIT_TOL
+        worst, ratio = max(worst, w), max(ratio, r)
+        if i >= PROMPT - 1 and b[stream[i + 1]] < b.max() - near:
+            raise AssertionError(f"dh32: served token {stream[i + 1]} at "
+                                 f"step {i} is not the CPU argmax "
+                                 f"{int(b.argmax())} nor a near-tie")
+    return worst, ratio
+
+
+def phase_headdim32(mx, ck, params, prompts):
+    """Phase 50: the bench LM over DH32_HEADS heads (d_model 512, Dh 32)
+    through the port's entry points on the card. serve_decoder in float32
+    and bfloat16 with phase 3's prompts and arrivals (rungs 1 -> 4 -> 8)
+    and phase 3's parameters (a head count leaves the parameters' shapes
+    alone): exact launches a dispatch, request 0's stream teacher-forced
+    card vs CPU within LOGIT_TOL / HALF_LOGIT_TOL; Module.fit in float32
+    and bfloat16 at T 1024, batch 8, DH32_STEPS SGD steps each, exact
+    launches a step; one step card vs CPU at batch 2, T 128 in float32
+    (GRAD_RTOL) and bfloat16 (BF16_SPREAD); the sequence-parallel fit
+    (MeshConfig(seq=4)) at RING_HALF_LAYERS layers against the unsharded
+    fit (RING_LOSS_TOL / RING_WEIGHT_TOL). Every counter is set to 0 just
+    before each run and read just after; returns the Dh 32 runs' launches
+    of DH32_KERNELS, each of which must be launched."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    heads = DH32_HEADS
+    print(_tf32(False) + f" (head dim {D // heads}: {heads} heads)")
+    total = dict.fromkeys(DH32_KERNELS, 0)
+    sym = _gen(n_head=heads)(1)
+    for cd in (None, "bfloat16"):
+        label = f"dh32 serve {cd or 'float32'}"
+        sfx = "" if cd is None else "_" + HALF_SFX[cd]
+        t0 = time.perf_counter()
+        sched = mx.serve.serve_decoder(
+            sym, mx.convert.params_from_numpy(params, mx.gpu(0)),
+            name=f"lm-dh32-{cd or 'float32'}", capacity=CAP, ladder=LADDER,
+            context=mx.gpu(0), default_max_new=NEW, compute_dtype=cd)
+        warm_s = time.perf_counter() - t0
+        ck.reset_launch_counts()
+        outs, wall = _serve_waves(sched, prompts)
+        counts, st = ck.launch_counts(), sched.stats()
+        n_tok = sum(len(o) for o in outs)
+        print(f"{label}: built and warmed in {warm_s:.2f} s; {n_tok} tokens "
+              f"in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; iteration "
+              f"ms {st['step_ms']}; {st['iterations']} iterations, "
+              f"{st['migrations']} migrations")
+        _check_served(outs, st)
+        _decode_launches(label, counts, st["iterations"],
+                         read="decode_attention" + sfx, suffix=sfx)
+        total["decode_attention" + sfx] += counts["decode_attention" + sfx]
+        stream = prompts[0] + outs[0][:8].tolist()
+        worst, ratio = _dh32_teacher_forced(mx, sym, params, stream, cd)
+        print(f"{label}: teacher-forced {len(stream) - 1} steps: max "
+              f"|logit card - cpu| = {worst:.3g}, {ratio:.3f} of the limit "
+              f"({HALF_LOGIT_TOL[cd] if cd else LOGIT_TOL})")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: card and CPU logits disagree")
+    print(_tf32(True) + " (PyTorch's default, for the Dh 32 LM fits)")
+    for cd in (None, "bfloat16"):
+        label = f"dh32 lm {cd or 'float32'} train"
+        torch.cuda.empty_cache()
+        it = tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, DH32_STEPS, seed=SEED)
+        mod = mx.mod.Module(_lm_symbol(LM_SEQ, heads), context=mx.gpu(0),
+                            compute_dtype=cd)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(mx.initializer.Xavier(
+            rng=torch.Generator().manual_seed(SEED)))
+        counts, per_step = _fit_phase(
+            mx, ck, mod, it, label, LM_BATCH * LM_SEQ, "tokens",
+            ("lm_tok_embed_weight", "lm_l0_qkv_weight", "lm_ln_f_gamma"),
+            optimizer="sgd", optimizer_params=LM_SGD)
+        want = LM_PER_STEP if cd is None else _halved(LM_BF16_PER_STEP, cd)
+        want = {k: want.get(k, 0) for k in per_step}
+        if per_step != want:
+            raise AssertionError(f"{label}: launches per step {per_step}, "
+                                 f"want {want}")
+        name = "flash_attention" + ("" if cd is None else
+                                    "_" + HALF_SFX[cd])
+        total[name] += counts[name]
+        del mod
+    phase_lm_parity(mx, heads)
+    phase_lm_bf16_parity(mx, "bfloat16", heads)
+    print(_tf32(False) + " (Dh 32 sequence-parallel fit)")
+    rsym, rparams = _ring_start(RING_HALF_LAYERS, heads)
+    runs = {ring: _ring_fit(mx, ck, rsym, rparams,
+                            "dh32 ring fit " + ("ring" if ring
+                                                else "unsharded"), ring)
+            for ring in (False, True)}
+    _ring_launches("dh32 ring fit ring", runs[True][1], RING_HALF_LAYERS)
+    (_, _, loss0, p0, _), (counts, _, loss1, p1, _) = runs[False], \
+        runs[True]
+    loss_err = float(np.abs(loss1 - loss0).max())
+    worst = max((float(np.abs(p1[k] - p0[k]).max()), k) for k in p0)
+    print(f"dh32 ring fit: losses unsharded {loss0.tolist()} ring "
+          f"{loss1.tolist()}: max |diff| {loss_err:.3g} (limit "
+          f"{RING_LOSS_TOL}); worst parameter {worst[1]}: |ring - "
+          f"unsharded| = {worst[0]:.3g} (limit {RING_WEIGHT_TOL})")
+    if not (loss_err <= RING_LOSS_TOL and worst[0] <= RING_WEIGHT_TOL):
+        raise AssertionError("the Dh 32 ring fit and the unsharded fit "
+                             "disagree")
+    total["flash_attention_partial"] += counts["flash_attention_partial"]
+    print(f"dh32: the Dh 32 runs' launches {total}")
+    idle = [k for k, n in total.items() if not n > 0]
+    if idle:
+        raise AssertionError(f"Dh 32 kernels not launched: {idle}")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5975,6 +6283,10 @@ def main():
     frozen_counts = phase_lm_frozen(mx, ck)
     print(f"chip_smoke: the frozen fine-tuning phase took "
           f"{time.perf_counter() - t_frozen:.1f} s")
+    t_dh32 = time.perf_counter()
+    dh32_counts = phase_headdim32(mx, ck, params, prompts)
+    print(f"chip_smoke: the head-dim-32 phase took "
+          f"{time.perf_counter() - t_dh32:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -5999,6 +6311,8 @@ def main():
             "" if dtype == "float32" else "_" + HALF_SFX[dtype])
         launches[name] = counts[name]
     launches.update(frozen_counts)
+    for k, n in dh32_counts.items():
+        launches[k] += n
     # the per-array kernels' launches: a caller's own Updater(i, g, w)
     # loop (phases 5 and 7), the path Module.update no longer takes
     launches["sgd_mom"] = sgd_per_array

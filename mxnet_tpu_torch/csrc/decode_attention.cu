@@ -125,12 +125,27 @@ __device__ __forceinline__ float2 fp8x2_to_float2(uint32_t pair) {
   return __half22float2(__half2(hr));
 }
 
+__device__ __forceinline__ float widen1(float x) { return x; }
+__device__ __forceinline__ float widen1(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen1(__half x) { return __half2float(x); }
+
 // N consecutive cache values at p (N * kElem bytes, aligned to that) ->
-// N floats, widened exactly. N is 2, 4, 8 or 16, one shared-memory access.
+// N floats, widened exactly. N is 1 (a lane's one V dim at Dh = 32), 2,
+// 4, 8 or 16, one shared-memory access.
 template <typename Cache, int N>
 __device__ __forceinline__ void widen(const uint8_t* p, float* f) {
+  if constexpr (N == 1 && !std::is_same<Cache, float>::value) {
+    if constexpr (kHalf16<Cache>)
+      f[0] = widen1(*reinterpret_cast<const Cache*>(p));
+    else
+      f[0] = fp8x2_to_float2<Cache>(*p).x;
+    return;
+  }
   constexpr int kBytes = N * kElem<Cache>;
-  static_assert(kBytes == 2 || kBytes == 4 || kBytes == 8 || kBytes == 16,
+  static_assert(N == 1 || kBytes == 2 || kBytes == 4 || kBytes == 8 ||
+                    kBytes == 16,
                 "one access of 2 to 16 bytes");
   uint32_t w[kBytes >= 4 ? kBytes / 4 : 1];
   if constexpr (kBytes == 16) {
@@ -166,12 +181,6 @@ __device__ __forceinline__ void widen(const uint8_t* p, float* f) {
     }
   }
 }
-
-__device__ __forceinline__ float widen1(float x) { return x; }
-__device__ __forceinline__ float widen1(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float widen1(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -534,7 +543,9 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
   // every thread's entries (rows past S skipped), the loads of a batch
   // of splits in flight together, merged in split order
   const float* first = ws + group * splits * kSlot;
-  constexpr int kPer = ROWS * DH / kThreads;   // entries a thread
+  // entries a thread (one at S = 1, Dh = 32, where the block's 64 threads
+  // outnumber the row's 32 entries: the rest skip by the row guard)
+  constexpr int kPer = (ROWS * DH + kThreads - 1) / kThreads;
   constexpr int kBatch = kPer >= 8 ? 1 : 8 / kPer;
   float mm[kPer], ll[kPer], aa[kPer];
 #pragma unroll
@@ -619,6 +630,9 @@ int launch(const Args& a, int dh) {
       (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool one = a.s_len == 1;
+  if (dh == 32)
+    return one ? launch_rows<32, Cache, Q, 1>(a)
+               : launch_rows<32, Cache, Q, kWinRows>(a);
   if (dh == 64)
     return one ? launch_rows<64, Cache, Q, 1>(a)
                : launch_rows<64, Cache, Q, kWinRows>(a);
@@ -633,7 +647,7 @@ int launch(const Args& a, int dh) {
 // q (b*h, s, dh) float32 (bfloat16 or float16 for those entry points), k/v
 // cache (b*h, cap, dh) of the entry point's storage type, pos (b,) int32,
 // out (b*h, s, dh) float32; contiguous, one device, the caches 16-byte
-// aligned. dh must be 64 or 128. The key range is cut into `splits` splits
+// aligned. dh must be 32, 64 or 128. The key range is cut into `splits` splits
 // of `split_keys` keys (a multiple of 32, split_keys * splits >= cap); with
 // more than one split, ws holds the splits' float32 partials
 // (cuda_kernels._decode_ws_sizes) and counters an int32 counter a (row,

@@ -21,8 +21,8 @@
 // position holds, at absolute offsets q_off and k_off. Key tiles wholly
 // above the diagonal are not visited, so a query row that sees no key
 // keeps the initial m = -inf, l = 0, acc = 0, as the TPU kernel's scratch
-// does. Dh is 64 or 128; any T is taken; the query tiles with the most
-// keys are scheduled first.
+// does. Dh is 32, 64 or 128; any T is taken; the query tiles with the
+// most keys are scheduled first.
 //
 // Two designs, one per element type.
 //
@@ -35,9 +35,10 @@
 // kernel from that rate is the shared-memory reads that feed the FMAs,
 // the latency a block's warps cannot hide, the barriers that stall them
 // and, under the causal mask, the unequal work of the query tiles. One
-// block of 128 threads (two blocks an SM) per (b*h, 64-query tile) LOOPS
-// over key tiles (the TPU kernel's sequential grid axis): 64 keys at Dh =
-// 64, 32 at Dh = 128 (Tile<DH>). The Q tile and tile
+// block of 128 threads (two blocks an SM) per (b*h, query tile) LOOPS
+// over key tiles (the TPU kernel's sequential grid axis): 64 queries and
+// 64 keys at Dh = 64, 64 and 32 at Dh = 128, 128 and 64 at Dh = 32
+// (Tile<DH>). The Q tile and tile
 // 0's K and V are copied global -> shared with cp.async, all in flight at
 // once, and Q is scaled in place; each later tile's copies go into the
 // other of two stages as soon as every thread is done with it, so they
@@ -48,7 +49,10 @@
 // 32 h: at Dh = 64 a 4 x 8 tile of S and of the accumulator, and each
 // 16-byte shared read of K or V feeds 16 FMAs (a warp's 8 rows or column
 // groups, padded rows, one wavefront); at Dh = 128 4 x 4 of S and 4 x 16
-// of the accumulator. A row's max and sum reduce over the 8 lanes that
+// of the accumulator; at Dh = 32 each thread owns 8 rows (rg + 16 j of a
+// 128-query tile), 8 x 8 of S and 8 x 4 of the accumulator, so a 16-byte
+// read of V feeds 32 FMAs where 4 rows would leave it 16 on a 4-column
+// share. A row's max and sum reduce over the 8 lanes that
 // share it. P goes through shared memory, key-major, each thread's rows
 // side by side; a row group is 8 lanes of one warp, so P's rows are
 // written and read inside a warp (__syncwarp): one block barrier a tile,
@@ -100,7 +104,12 @@
 // memory (MN-major: the transpose bit). Tile j's S is issued together
 // with tile j - 1's P . V, and tile j's softmax runs while that product
 // finishes. Bk is 128 keys at Dh = 64 (S: 64 registers a thread) and 64
-// at Dh = 128, where the accumulator doubles. Keys past Tk get -inf
+// at Dh = 128, where the accumulator doubles. Dh = 32 runs the Dh = 64
+// tiles on TMA maps whose inner dimension is 32: the box's columns 32 to
+// 63 arrive as zeros, which leave S unchanged and give P . V zero columns
+// that are not stored; the scale is the caller's (32^-1/2). It pays the
+// Dh = 64 products for half the bytes: the softmax's float32 work a
+// score, which sets the pace, is the same. Keys past Tk get -inf
 // scores, and queries past Tq are not written. What holds it at ~1.8x
 // SDPA's time (PERF.md, PR 13): the softmax's float32 work a score (the
 // accurate expf, the guards, the split) beside 1.5x the products of a
@@ -149,6 +158,11 @@ using mxio::Io;
 // the keys cg + kG i of S and the output columns 4 cg + 4 kG h.
 template <int DH>
 struct Tile;
+template <>
+struct Tile<32> {  // S 8 x 8, acc 8 x 4 a thread: 128-query blocks, so a
+                   // 16-byte read of V still feeds 32 FMAs
+  static constexpr int kBq = 128, kG = 8, kBk = 64, kR = 8;
+};
 template <>
 struct Tile<64> {  // S 4 x 8, acc 4 x 8 a thread
   static constexpr int kBq = 64, kG = 8, kBk = 64, kR = 4;
@@ -761,7 +775,10 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-template <typename E, int DH, bool PARTIAL>
+// DH is the tile's head dim (64 or 128); DO <= DH the operands' own, the
+// columns written (DO = 32 runs the DH = 64 tiles: TMA fills the columns
+// past DO with zeros, which leave S unchanged and give P . V zero columns)
+template <typename E, int DH, int DO, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
@@ -949,9 +966,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (qp >= Tq) continue;
     const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
     if (PARTIAL) {
-      float* arow = op.acc + row * DH;
+      float* arow = op.acc + row * DO;
 #pragma unroll
-      for (int i = 0; i < DH / 8; ++i)
+      for (int i = 0; i < DO / 8; ++i)
         *reinterpret_cast<float2*>(arow + 8 * i + cq) =
             make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
       if (lane % 4 == 0) {  // the 4 lanes of a row hold the same m and l
@@ -960,9 +977,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {
       const float lh = fmaxf(l[h], 1e-30f);
-      E* orow = static_cast<E*>(op.out) + row * DH;
+      E* orow = static_cast<E*>(op.out) + row * DO;
 #pragma unroll
-      for (int i = 0; i < DH / 8; ++i)
+      for (int i = 0; i < DO / 8; ++i)
         Ty<E>::store2(orow + 8 * i + cq, o[4 * i + 2 * h] / lh,
                       o[4 * i + 2 * h + 1] / lh);
     }
@@ -995,8 +1012,9 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (bh, T, DH) 16-bit operand as the 3-D map (DH, T, bh) with boxes of
-// 64 columns x `rows` rows x 1, 128-byte swizzle, zeros outside
+// A (bh, T, dh) 16-bit operand as the 3-D map (dh, T, bh) with boxes of
+// 64 columns x `rows` rows x 1, 128-byte swizzle, zeros outside (at dh =
+// 32 a box's columns 32 to 63)
 template <typename E>
 bool tile_map(CUtensorMap* map, const void* ptr, int bh, int T, int dh,
               int rows) {
@@ -1015,26 +1033,26 @@ bool tile_map(CUtensorMap* map, const void* ptr, int bh, int T, int dh,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename E, int DH, bool PARTIAL>
+template <typename E, int DH, int DO, bool PARTIAL>
 int launch(const Args& a, cudaStream_t st) {
   using C = Cfg<DH>;
   constexpr int bytes = C::kSmem;
   const int n_qt = (a.Tq + kBq - 1) / kBq;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc<E, DH, PARTIAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_tc<E, DH, DO, PARTIAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // an empty K/V shard is never read: its maps are drawn over q
   const int tk = a.Tk > 0 ? a.Tk : a.Tq;
   const void* k = a.Tk > 0 ? a.k : a.q;
   const void* v = a.Tk > 0 ? a.v : a.q;
   CUtensorMap mq, mk, mv;
-  if (!tile_map<E>(&mq, a.q, a.bh, a.Tq, DH, kBq) ||
-      !tile_map<E>(&mk, k, a.bh, tk, DH, C::kBk) ||
-      !tile_map<E>(&mv, v, a.bh, tk, DH, C::kBk))
+  if (!tile_map<E>(&mq, a.q, a.bh, a.Tq, DO, kBq) ||
+      !tile_map<E>(&mk, k, a.bh, tk, DO, C::kBk) ||
+      !tile_map<E>(&mv, v, a.bh, tk, DO, C::kBk))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_tc<E, DH, PARTIAL><<<dim3(a.bh, n_qt), kThreads, bytes, st>>>(
+  flash_tc<E, DH, DO, PARTIAL><<<dim3(a.bh, n_qt), kThreads, bytes, st>>>(
       mq, mk, mv, a, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1046,11 +1064,13 @@ int dispatch(const Args& a, int dh, void* stream) {
   if (a.bh == 0 || a.Tq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same<E, float>::value) {
+    if (dh == 32) return cc::launch<32, PARTIAL>(a, st);
     if (dh == 64) return cc::launch<64, PARTIAL>(a, st);
     if (dh == 128) return cc::launch<128, PARTIAL>(a, st);
   } else {
-    if (dh == 64) return tc::launch<E, 64, PARTIAL>(a, st);
-    if (dh == 128) return tc::launch<E, 128, PARTIAL>(a, st);
+    if (dh == 32) return tc::launch<E, 64, 32, PARTIAL>(a, st);
+    if (dh == 64) return tc::launch<E, 64, 64, PARTIAL>(a, st);
+    if (dh == 128) return tc::launch<E, 128, 128, PARTIAL>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1077,7 +1097,7 @@ int partial(const void* q, const void* k, const void* v, void* acc, void* m,
 }  // namespace
 
 // q, k, v, out (bh, T, dh) float32, contiguous, 16-byte aligned, one
-// device; dh must be 64 or 128 and bh <= 65535. Returns
+// device; dh must be 32, 64 or 128 and bh <= 65535. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for another dh).
 extern "C" int mx_flash_attention_f32(const void* q, const void* k,
                                       const void* v, void* out, int bh,
@@ -1106,7 +1126,8 @@ extern "C" int mx_flash_attention_f16(const void* q, const void* k,
 
 // Partial mode: q (bh, Tq, dh), k and v (bh, Tk, dh) float32, contiguous,
 // 16-byte aligned, one device; acc (bh, Tq, dh), m and l (bh, Tq) float32
-// out. dh must be 64 or 128 and bh <= 65535. Returns cudaGetLastError().
+// out. dh must be 32, 64 or 128 and bh <= 65535. Returns
+// cudaGetLastError().
 extern "C" int mx_flash_attention_partial_f32(
     const void* q, const void* k, const void* v, void* acc, void* m, void* l,
     int bh, int Tq, int Tk, int dh, int q_off, int k_off, int causal,

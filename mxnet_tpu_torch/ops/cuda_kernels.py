@@ -122,6 +122,7 @@ import ctypes
 import functools
 import hashlib
 import itertools
+import math
 import operator
 import os
 import re
@@ -253,7 +254,7 @@ _SPECS = {
     "bn_stats": ("bn_stats.cu", {"f32": "mx_bn_stats_f32",
                                  "bf16": "mx_bn_stats_bf16",
                                  "f16": "mx_bn_stats_f16"},
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                 [_P, _P] + [_I] * 9 + [_P]),
     "bn_apply_relu": ("bn_apply_relu.cu", {"f32": "mx_bn_apply_relu_f32",
                                            "bf16": "mx_bn_apply_relu_bf16",
                                            "f16": "mx_bn_apply_relu_f16"},
@@ -834,6 +835,10 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
 #: fp8 cache storage dtype -> the storage part of its instance key
 _FP8_STORAGE = {torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
 
+#: the head dims the attention kernels take (decode read, flash forward and
+#: its partial mode): every other Dh raises on the card
+HEAD_DIMS = (32, 64, 128)
+
 #: the decode kernel's shapes (csrc/decode_attention.cu): keys a warp
 #: takes at once (one a lane), query rows a window tile, and warps a block
 #: by the query rows a block takes (one at S = 1)
@@ -850,7 +855,10 @@ def _decode_splits(bh, s, c, sms):
     grid holds about two blocks an SM at S = 1, whose blocks are short,
     and one block for every two SMs for a window, whose 16 query rows
     give a block 16 times the work and four warps to share it; a long
-    cache keeps few partials to merge."""
+    cache keeps few partials to merge. The rule counts blocks, not bytes:
+    at one d_model, Dh 32 has twice Dh 64's rows (B*H), so it takes half
+    the splits and a block reads the same bytes (the bench LM's served
+    step: 2 splits of 128 keys at Dh 32, 4 of 64 at Dh 64)."""
     tiles = 1 if s == 1 else -(-s // DECODE_WIN_ROWS)
     chunks = max(1, -(-c // DECODE_CHUNK))
     blocks = 2 * sms if s == 1 else max(1, sms // 2)
@@ -916,8 +924,8 @@ def decode_attention(q, k_cache, v_cache, pos):
     read (no float32 copy of the cache is made); fp8 launches count in
     ``decode_attention_fp8``. The key range is split over blocks
     (``_decode_splits``) and the splits merged in order inside the same
-    launch. The kernel takes Dh in {64, 128}, S <= 64, and caches 16-byte
-    aligned (every cache is read 16 bytes a copy)."""
+    launch. The kernel takes Dh in {32, 64, 128}, S <= 64, and caches
+    16-byte aligned (every cache is read 16 bytes a copy)."""
     if not _cpu_or_cuda("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if k_cache.dtype in _FP8_STORAGE:
@@ -933,9 +941,9 @@ def decode_attention(q, k_cache, v_cache, pos):
            v_cache=(v_cache, k_cache.dtype), pos=(pos, torch.int32))
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
-    if Dh not in (64, 128):
+    if Dh not in HEAD_DIMS:
         raise MXNetError(f"decode_attention: head dim {Dh} — the kernel "
-                         "takes 64 or 128")
+                         "takes 32, 64 or 128")
     if S > 64:
         raise MXNetError(f"decode_attention: window S={S} > 64")
     if tuple(k_cache.shape) != (B, H, C, Dh) or \
@@ -1520,7 +1528,9 @@ def flash_attention(q, k, v, causal=False):
     stored (exact float32 products, float32 sums), the float32 scores are
     then scaled and take the same float32 online softmax, and P . V is
     p_hi . V + p_lo . V with p_hi = round16(p), p_lo = round16(p - p_hi).
-    The kernel takes Dh in {64, 128}, any T, and Tq == Tk only."""
+    The kernel takes Dh in {32, 64, 128}, any T, and Tq == Tk only (the
+    16-bit instances run Dh 32 on the Dh 64 tiles, the columns past 32
+    zeros)."""
     if not _cpu_or_cuda("flash_attention", q):
         return flash_attention_plain(q, k, v, causal)
     key = _instance("flash_attention", q)
@@ -1533,9 +1543,9 @@ def flash_attention(q, k, v, causal=False):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, T, Dh = q.shape
-    if Dh not in (64, 128):
+    if Dh not in HEAD_DIMS:
         raise MXNetError(f"flash_attention: head dim {Dh} — the kernel "
-                         "takes 64 or 128")
+                         "takes 32, 64 or 128")
     if B * H > 65535:
         raise MXNetError(f"flash_attention: B*H={B * H} > 65535")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -1595,8 +1605,8 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     plain``); the 16-bit instances run on the tensor cores as
     ``flash_attention``'s do (exact 16-bit products summed in float32,
     the float32 softmax, P . V from P split into two 16-bit terms). The
-    scale defaults to 1/sqrt(Dh). The kernel takes Dh in {64, 128} and any
-    Tq, Tk."""
+    scale defaults to 1/sqrt(Dh). The kernel takes Dh in {32, 64, 128}
+    and any Tq, Tk."""
     if scale is None:
         scale = _ring_scale(q)
     if not _cpu_or_cuda("flash_attention_partial", q):
@@ -1611,9 +1621,9 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
                          f"k, v (B, H, Tk, Dh), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Tq, Dh = q.shape
-    if Dh not in (64, 128):
+    if Dh not in HEAD_DIMS:
         raise MXNetError(f"flash_attention_partial: head dim {Dh} — the "
-                         "kernel takes 64 or 128")
+                         "kernel takes 32, 64 or 128")
     if B * H > 65535:
         raise MXNetError(f"flash_attention_partial: B*H={B * H} > 65535")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -1782,41 +1792,92 @@ def _check_nchw(name, x4):
                          f"{tuple(x4.shape)}")
 
 
-#: floats of one channel that one first-stage block of ``bn_stats`` sums
-_STATS_SLICE = 8192
+#: bn_stats' blocks (csrc/bn_stats.cu): threads a block, units (one load
+#: each) a thread keeps in flight and a stage holds a thread, the blocks an
+#: SM the grid aims for, and the most splits of N a channel group takes
+#: (its blocks are one cluster: the portable most)
+BN_STATS_THREADS, BN_STATS_LOADS, BN_STATS_BLOCKS_PER_SM = 256, 4, 4
+BN_STATS_SPLITS = 8
+#: bn_stats' routes: the kernel's ``route`` argument
+BN_PLANES, BN_SLABS = 0, 1
 
 
-def _stats_slices(n, hw):
-    """(rows per slice, slices) of ``bn_stats``' first stage: whole (n, c)
-    rows, about ``_STATS_SLICE`` floats a slice, at most 65535 slices; a
-    function of the shape alone, so repeated calls sum in one order."""
-    rows = min(n, max(1, -(-_STATS_SLICE // max(hw, 1))))
-    rows = max(rows, -(-n // 65535), 1)
-    return rows, max(1, -(-n // rows))
+def _pow2_floor(v):
+    return 1 << (max(int(v), 1).bit_length() - 1)
+
+
+def _bn_stats_plan(n, c, hw, itemsize, aligned, sms):
+    """(route, vec, group, stage_rows, rows, splits) of a ``bn_stats``
+    launch over x (n, c, hw) of ``itemsize``-byte values, 16-byte aligned
+    or not, on a card of ``sms`` SMs; a function of these alone, so a shape
+    always sums in one order. Planes (``BN_PLANES``: one channel a block,
+    its (n, c) planes read ``vec`` values a load) where HW is a multiple of
+    the 16-byte unit and x aligned; else slabs (``BN_SLABS``: ``group``
+    channels a block, a power of two with group * HW a multiple of the
+    unit, so each row's slab of the group is one aligned run; about HW / 6
+    lanes a channel, at most 32, and no more channels than leave the grid
+    its blocks at BN_STATS_SPLITS splits; a stage of ``stage_rows`` rows at
+    most BN_STATS_LOADS units a thread) where the unit allows; else planes
+    one value a load. N is cut into ``splits`` splits of ``rows`` rows, at
+    most BN_STATS_SPLITS, so that the grid holds about
+    BN_STATS_BLOCKS_PER_SM blocks an SM."""
+    vec = 16 // itemsize
+    cap = BN_STATS_LOADS * BN_STATS_THREADS       # units a stage holds
+    slots = BN_STATS_BLOCKS_PER_SM * sms
+    route, group, stage = BN_PLANES, 1, 0
+    if not (aligned and hw % vec == 0):
+        g0 = vec // math.gcd(hw, vec) if hw else vec
+        if aligned and hw and (c * hw) % vec == 0 and g0 * hw <= cap * vec:
+            lanes = min(32, _pow2_floor(hw // 6))
+            group = max(g0, min(BN_STATS_THREADS // lanes,
+                                1 << (max(c, 1) - 1).bit_length(),
+                                _pow2_floor(cap * vec // hw),
+                                _pow2_floor(c * BN_STATS_SPLITS // slots)))
+            route = BN_SLABS
+            stage = max(1, cap // (group * hw // vec))
+        else:
+            vec = 1
+    groups = -(-c // group)
+    splits = max(1, min(n, BN_STATS_SPLITS, slots // max(groups, 1)))
+    rows = -(-n // splits) if n > 0 else 0
+    splits = -(-n // rows) if rows else 1
+    if route == BN_SLABS:
+        stage = min(stage, max(rows, 1))
+    return route, vec, group, stage, rows, splits
+
+
+_BN_PLAN = {}          # (device index, N, C, HW, itemsize, aligned) -> the
+                       # plan
 
 
 @_wrapper("bn_stats")
 def bn_stats(x4):
     """Per-channel (sum, sum of squares) of x4 (N, C, H, W) float32,
-    bfloat16 or float16 -> two (C,) float32, each value widened exactly. A
-    deterministic two-stage reduction: one call, one launch count."""
+    bfloat16 or float16 -> two (C,) float32 (views of one (2, C) buffer),
+    each value widened exactly and x * x rounded before it is added. One
+    launch a call, the splits of each channel group one thread-block
+    cluster whose partials are added in split order inside it (no float
+    atomics, no workspace): repeated calls give the same bits."""
     if not _cpu_or_cuda("bn_stats", x4):
         return bn_stats_plain(x4)
     key = _instance("bn_stats", x4)
     _check("bn_stats", x=(x4, x4.dtype))
     _check_nchw("bn_stats", x4)
     n, c, h, w = x4.shape
-    rows, slices = _stats_slices(n, h * w)
-    if rows * h * w + 256 >= 2 ** 31:
+    ptr = x4.data_ptr()
+    dev = x4.get_device()
+    pk = (dev, n, c, h * w, x4.element_size(), ptr % 16 == 0)
+    plan = _BN_PLAN.get(pk)
+    if plan is None:
+        plan = _BN_PLAN[pk] = _bn_stats_plan(*pk[1:], _sm_count(dev))
+    route, vec, group, stage, rows, splits = plan
+    if rows * h * w + BN_STATS_LOADS * BN_STATS_THREADS >= 2 ** 31:
         raise MXNetError(f"bn_stats: {rows} rows of {h * w} values exceed a "
-                         "first-stage slice's 32-bit index")
-    part = x4.new_empty((2, slices, c), dtype=torch.float32)
-    s = x4.new_empty((c,), dtype=torch.float32)
-    sq = x4.new_empty((c,), dtype=torch.float32)
-    _launch("bn_stats", key, x4, x4.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), s.data_ptr(), sq.data_ptr(), n, c, h * w,
-            rows, slices)
-    return s, sq
+                         "block's 32-bit index")
+    out = x4.new_empty((2, c), dtype=torch.float32)
+    _launch("bn_stats", key, x4, ptr, out.data_ptr(), n, c, h * w, route,
+            vec, group, stage, rows, splits)
+    return out[0], out[1]
 
 
 def bn_apply_relu_plain(x4, scale, shift):
@@ -1899,7 +1960,9 @@ class _ConvBNReLUFn(torch.autograd.Function):
     so the plain composition (``cbr_plain``: convolution, BatchNorm with
     its two-pass statistics, ReLU) is recomputed and differentiated with
     respect to data, weight, gamma and beta; the moving statistics get no
-    gradient."""
+    gradient. Gradients are not materialized: the moving statistics'
+    cotangents arrive as None, not as zeros filled on every backward (and
+    y's as None where nothing reads y)."""
 
     @staticmethod
     def forward(ctx, data, weight, gamma, beta, moving_mean, moving_var,
@@ -1910,10 +1973,13 @@ class _ConvBNReLUFn(torch.autograd.Function):
                               moving_var)
         ctx.attrs, ctx.is_train = attrs, is_train
         ctx.mark_non_differentiable(new_mean, new_var)
+        ctx.set_materialize_grads(False)
         return y, new_mean, new_var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
+        if gy is None:
+            return (None,) * 8
         data, weight, gamma, beta, mm, mv = ctx.saved_tensors
         need = ctx.needs_input_grad[:4]
         with torch.enable_grad():

@@ -19,7 +19,7 @@ import torch
 #: the kernel's tiles, ``cc::Tile<Dh>``'s kBq and kBk: head dim -> (query
 #: rows a block, keys a K / V tile); ``tests/test_torch_flash_f32.py``
 #: holds them to the source
-TILES = {64: (64, 64), 128: (64, 32)}
+TILES = {32: (128, 64), 64: (64, 64), 128: (64, 32)}
 
 
 def flash_f32(q, k, v, q_off=0, k_off=0, causal=False, scale=None,

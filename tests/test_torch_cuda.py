@@ -94,6 +94,7 @@ from mxnet_tpu_torch.ops import cuda_kernels as ck
 from mxnet_tpu_torch.rtc import fp8_cast
 from mxnet_tpu_torch.serve import FakeClock
 
+from bn_stats_emul import bn_stats_emul
 from decode_split_emul import decode_attention_split
 from qfc_gemv_emul import qfc_gemv
 
@@ -188,7 +189,7 @@ def test_bias_gelu_kernel(dev, n, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("S,C", [(1, 256), (16, 256), (17, 100), (64, 64)])
 def test_decode_attention_kernel(dev, dh, S, C):
     B, H = 3, 2
@@ -210,7 +211,7 @@ def _fp8_cache(dev, shape, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", _FP8, ids=["e4m3", "e5m2"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("S,C", [(1, 256), (4, 256), (64, 256), (17, 100)])
 def test_decode_attention_fp8_kernel(dev, dtype, dh, S, C):
     """The fp8 instances against the plain read of the same cells, at
@@ -279,7 +280,7 @@ def _split_inputs(dev, inst, B, H, S, C, dh, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("S", [1, 16, 64])
 @pytest.mark.parametrize("C", [64, 256, 4096])
 @pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
@@ -319,7 +320,9 @@ def test_decode_attention_repeats_bit_for_bit(dev, inst, S, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,C,dh", [(1, 256, 64), (1, 4096, 128),
-                                    (16, 256, 64), (64, 256, 128)])
+                                    (16, 256, 64), (64, 256, 128),
+                                    (1, 256, 32), (64, 256, 32),
+                                    (3, 100, 32)])
 def test_decode_attention_matches_split_emulation(dev, S, C, dh):
     """The float32 kernel against ``tests/decode_split_emul.py``, the
     same splits in the same order on the CPU, within 2e-5."""
@@ -333,12 +336,12 @@ def test_decode_attention_matches_split_emulation(dev, S, C, dh):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(dev):
-    q = _rnd(dev, 1, 1, 1, 32)
-    kc = _rnd(dev, 1, 1, 8, 32)
+    q = _rnd(dev, 1, 1, 1, 48)
+    kc = _rnd(dev, 1, 1, 8, 48)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(MXNetError, match="head dim"):
+    with pytest.raises(MXNetError, match="head dim 48 .* takes 32, 64 or"):
         ck.decode_attention(q, kc, kc, pos)
-    k8 = fp8_cast(_rnd(dev, 1, 1, 8, 32), torch.float8_e4m3fn)
+    k8 = fp8_cast(_rnd(dev, 1, 1, 8, 48), torch.float8_e4m3fn)
     with pytest.raises(MXNetError, match="head dim"):
         ck.decode_attention(q, k8, k8, pos)
     q64 = _rnd(dev, 1, 1, 1, 64)
@@ -899,8 +902,8 @@ def test_flash_attention_kernel(dev, shape, causal):
 
 @pytest.mark.cuda
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
-    q = _rnd(dev, 1, 2, 16, 32)
-    with pytest.raises(MXNetError, match="head dim"):
+    q = _rnd(dev, 1, 2, 16, 48)
+    with pytest.raises(MXNetError, match="head dim 48 .* takes 32, 64 or"):
         ck.flash_attention(q, q, q, True)
     q = _rnd(dev, 1, 2, 16, 64)
     with pytest.raises(MXNetError, match="Tq == Tk"):
@@ -1468,8 +1471,8 @@ def test_softmax_ce_bwd_bf16_kernel(dev, c, use_ignore, half):
 def test_bn_kernels_bf16(dev, shape, half):
     """bn_stats' bfloat16 instance within 1e-5 of each channel's sum of
     squares (float32 sums in another order), bn_apply_relu's bit for
-    bit, at the 16-byte (HW % 8 == 0), 8-byte (HW = 196) and
-    one-value (HW = 49, 15, 1) paths; only the bfloat16 counters move."""
+    bit, on planes (HW % 8 == 0), slabs (HW = 196, 49, 1) and one value a
+    load (HW = 15); only the bfloat16 counters move."""
     hd, sfx = HALVES[half][:2]
     x = (2 * _rnd(dev, *shape) + 0.5).to(hd)
     c = shape[1]
@@ -1645,9 +1648,9 @@ def test_bf16_decode_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(MXNetError, match="want torch.bfloat16"):
         ck.decode_attention_bf16(q, kc.float(), kc.float(), pos)
     with pytest.raises(MXNetError, match="head dim"):
-        ck.decode_attention(q[..., :32].contiguous(),
-                            kc[..., :32].contiguous(),
-                            kc[..., :32].contiguous(), pos)
+        ck.decode_attention(q[..., :48].contiguous(),
+                            kc[..., :48].contiguous(),
+                            kc[..., :48].contiguous(), pos)
     x, g = _rnd(dev, 2, 8).to(bf), _rnd(dev, 8).to(bf)
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.layernorm(x, g.float(), g, 1e-5)               # float32 gamma
@@ -2333,7 +2336,10 @@ def test_bias_gelu_dx_bf16_kernel(dev, n, c, half):
                                    (2, 2, 127, 64), (2, 2, 128, 64),
                                    (2, 2, 129, 64), (1, 2, 257, 64),
                                    (1, 2, 127, 128), (1, 2, 129, 128),
-                                   (1, 2, 257, 128), (1, 4, 1024, 128)])
+                                   (1, 2, 257, 128), (1, 4, 1024, 128),
+                                   (8, 16, 1024, 32), (2, 2, 1, 32),
+                                   (1, 2, 127, 32), (1, 2, 129, 32),
+                                   (1, 3, 257, 32)])
 def test_flash_attention_bf16_kernel(dev, shape, causal, half):
     """16-bit q and k straight into the tensor cores, S scaled in
     float32, the float32 online softmax, P . V as p_hi . V + p_lo . V,
@@ -2364,7 +2370,7 @@ def test_lm_bf16_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.flash_attention(q, q.float(), q, True)
     with pytest.raises(MXNetError, match="head dim"):
-        t = _rnd(dev, 1, 2, 16, 32).to(bf)
+        t = _rnd(dev, 1, 2, 16, 48).to(bf)
         ck.flash_attention(t, t, t)
     x, g = _rnd(dev, 4, 8).to(bf), _rnd(dev, 8).to(bf)
     m = torch.zeros(4, device=dev)
@@ -2502,7 +2508,13 @@ _PARTIAL_CASES = [(2, 8, 1024, 1024, 64, 0, 0, False),
                   # 128 keys at Dh 64, 64 at Dh 128)
                   (1, 2, 300, 260, 64, 517, 130, True),
                   (1, 2, 200, 333, 128, 77, 0, True),
-                  (2, 2, 256, 384, 64, 0, 93, True)]
+                  (2, 2, 256, 384, 64, 0, 93, True),
+                  # Dh 32: the ring's past shard and diagonal at the
+                  # bench LM over 16 heads, a ragged shift, one query
+                  (2, 16, 1024, 1024, 32, 2048, 1024, True),
+                  (2, 16, 1024, 1024, 32, 1024, 1024, True),
+                  (1, 2, 300, 260, 32, 517, 130, True),
+                  (1, 1, 1, 64, 32, 5, 0, True)]
 
 
 def _partial_close(got, want, tol=TOL):
@@ -2546,9 +2558,11 @@ def test_flash_attention_partial_kernel(dev, case, dtype):
 
 
 #: a demangled flash kernel: ``...::tc::flash_tc<__half, (int)64,
-#: (bool)1>`` (16-bit) or ``...::cc::flash_fwd<(int)64, (bool)0>``
+#: (int)32, (bool)1>`` (16-bit: the tile's head dim, then the stored
+#: one) or ``...::cc::flash_fwd<(int)64, (bool)0>``
 _FLASH_INSTANCE = re.compile(r"::(flash_tc|flash_fwd)<(?:(\w+), )?"
-                             r"\(int\)(\d+), \(bool\)([01])>")
+                             r"\(int\)(\d+), (?:\(int\)(\d+), )?"
+                             r"\(bool\)([01])>")
 
 
 def _flash_instances():
@@ -2559,21 +2573,21 @@ def _flash_instances():
     for fn, res in ck.resources("flash_attention").items():
         m = _FLASH_INSTANCE.search(fn)
         if m:
-            kind, elem, dh, partial = m.groups()
-            assert (kind == "flash_fwd") == (elem is None), fn
-            out[(elem or "float", int(dh), partial == "1")] = res
+            kind, elem, tile, dh, partial = m.groups()
+            assert (kind == "flash_fwd") == (elem is None) == (dh is None)
+            out[(elem or "float", int(dh or tile), partial == "1")] = res
     return out
 
 
 @pytest.mark.cuda
 def test_flash_attention_16bit_instances_use_wgmma(dev):
-    """The SASS of the bfloat16 and float16 instances, both modes, both
-    head dims, holds HGMMA (wgmma); the float32 instances' holds none:
+    """The SASS of the bfloat16 and float16 instances, both modes, every
+    head dim, holds HGMMA (wgmma); the float32 instances' holds none:
     the reference's Precision.HIGHEST rules out TF32."""
     inst = _flash_instances()
     assert set(inst) == {(e, dh, p) for e in ("float", "__nv_bfloat16",
                                               "__half")
-                         for dh in (64, 128) for p in (False, True)}
+                         for dh in (32, 64, 128) for p in (False, True)}
     for key, res in inst.items():
         hgmma = res["sass"].get("HGMMA", 0)
         assert (hgmma > 0) == (key[0] != "float"), (key, hgmma)
@@ -2592,7 +2606,7 @@ def test_flash_attention_16bit_instances_do_not_spill(dev):
 
 @pytest.mark.cuda
 def test_flash_attention_partial_refuses_what_it_does_not_take(dev):
-    q = _rnd(dev, 1, 2, 16, 32)
+    q = _rnd(dev, 1, 2, 16, 48)
     with pytest.raises(MXNetError, match="head dim"):
         ck.flash_attention_partial(q, q, q)
     q = _rnd(dev, 1, 2, 16, 64)
@@ -2790,11 +2804,11 @@ def test_qfc_matmul_does_not_spill(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 1000])
 def test_flash_attention_float32_tiles(dev, T, dh, causal):
     """Row 14 float32 at T on both sides of the 64-key and the 64- / 128-
-    query tiles, both head dims: within 2e-5 of the plain version."""
+    query tiles, every head dim: within 2e-5 of the plain version."""
     q, k, v = (_rnd(dev, 2, 3, T, dh, seed=T + i) for i in range(3))
     _same(ck.flash_attention(q, k, v, causal),
           ck.flash_attention_plain(q, k, v, causal))
@@ -2809,7 +2823,7 @@ _F32_SHARDS = [(1024, 1024, 2048, 1024), (1024, 1024, 1024, 1024),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("shard", _F32_SHARDS)
 def test_flash_attention_partial_float32_shards(dev, shard, dh):
     """Row 15 float32: acc, m and l against the plain version, the rows
@@ -2828,10 +2842,178 @@ def test_flash_attention_partial_float32_shards(dev, shard, dh):
 
 @pytest.mark.cuda
 def test_flash_attention_float32_instances_do_not_spill(dev):
-    """ptxas' report shows 0 bytes of spill stores and loads for the four
-    float32 instances (both modes, both head dims)."""
+    """ptxas' report shows 0 bytes of spill stores and loads for the six
+    float32 instances (both modes, every head dim)."""
     inst = {key: r for key, r in _flash_instances().items()
             if key[0] == "float"}
-    assert len(inst) == 4
+    assert len(inst) == 6
     for key, res in inst.items():
         assert res["spill_stores"] == res["spill_loads"] == 0, key
+
+
+# ------------------------------------------------- row 7 in one launch
+_BN_DTYPES = {"float32": (torch.float32, "bn_stats"),
+              "bfloat16": (torch.bfloat16, "bn_stats_bf16"),
+              "float16": (torch.float16, "bn_stats_f16")}
+#: planes and slabs, HW 1, 7 x 7, 14 x 14, 56 x 56, 3 x 5, C = 1, N = 1,
+#: many splits, and ResNet-50's stage-1 and stage-4 tensors
+_BN_SHAPES = [(3, 16, 7, 7), (4, 64, 1, 1), (2, 16, 14, 14), (3, 8, 56, 56),
+              (600, 2, 2, 2), (32, 512, 7, 7), (1, 1, 1, 1), (2, 3, 3, 5),
+              (5, 1, 7, 7), (32, 64, 56, 56), (1, 256, 14, 14)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(_BN_DTYPES))
+@pytest.mark.parametrize("shape", _BN_SHAPES)
+def test_bn_stats_matches_emulation_bit_for_bit(dev, shape, dtype):
+    """Each instance gives the bits of ``tests/bn_stats_emul.py`` (the same
+    plan, the same float32 sums in the same order) on a 16-byte aligned x
+    and on a view 4 (2) bytes off, twice in a row."""
+    dt = _BN_DTYPES[dtype][0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = int(np.prod(shape))
+    flat = (2 * _rnd(dev, n + 1) + 0.5).to(dt)
+    for x in (flat[:n].view(shape), flat[1:].view(shape)):
+        got = [ck.bn_stats(x), ck.bn_stats(x)]
+        torch.cuda.synchronize()
+        want = bn_stats_emul(x.float().cpu().numpy(), x.element_size(),
+                             x.data_ptr() % 16 == 0, sms)
+        for s in got:
+            for a, b in zip(s, want):
+                assert a.dtype == torch.float32
+                np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(_BN_DTYPES))
+def test_bn_stats_one_launch_a_call(dev, dtype):
+    """Three calls: three launches on the instance's counter, and on the
+    card (the profiler's device events) kernels of the one-launch design
+    only, never more than three, exactly three in one of up to three
+    profiled rounds (the profiler can drop an event of a short session),
+    whichever route the shape takes; one (2, C) allocation of outputs."""
+    dt, counter = _BN_DTYPES[dtype]
+    for shape in ((32, 64, 56, 56), (32, 512, 7, 7), (4, 256, 14, 14),
+                  (2, 3, 5, 3), (70, 3, 4, 4)):
+        x = _rnd(dev, *shape).to(dt)
+        s, sq = ck.bn_stats(x)          # the workspace, allocated once
+        assert s.data_ptr() + 4 * shape[1] == sq.data_ptr()
+        torch.cuda.synchronize()
+        seen = []
+        for _round in range(3):
+            before = ck.launch_counts()[counter]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    ck.bn_stats(x)
+                torch.cuda.synchronize()
+            assert ck.launch_counts()[counter] == before + 3
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert all("bn_stats_planes" in k or "bn_stats_slabs" in k
+                       for k in kernels), kernels
+            seen.append(len(kernels))
+            if len(kernels) == 3:
+                break
+        assert max(seen) == 3, (shape, seen)
+
+
+# ------------------------------------------------------------ head dim 32
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C", [(1, 256), (1, 4096), (16, 256), (64, 256),
+                                 (3, 100)])
+@pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
+def test_decode_attention_repeats_bit_for_bit_at_head_dim_32(dev, inst, S, C):
+    """The Dh 32 read (a lane's one V dim) at the bench LM's rows (8
+    rows of 16 heads): two calls give the same bits and agree with the
+    plain version, the counters back at 0."""
+    q, kc, vc, pos = _split_inputs(dev, inst, 8, 16, S, C, 32, seed=4)
+    a = ck.decode_attention(q, kc, vc, pos)
+    b = ck.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _same(a, ck.decode_attention_plain(q, kc, vc, pos))
+    for _ws, counters in ck._DECODE_WS.values():
+        assert not counters.any()
+
+
+def _dh32_lm_params(sym, **shapes):
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    rs = np.random.RandomState(0)
+    return {n: ((1.0 if n.endswith("gamma") else 0.0)
+                + 0.1 * rs.randn(*s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None] + list(HALVES))
+def test_small_lm_at_head_dim_32_decodes_on_card(dev, half):
+    """A small LM at Dh 32 (d_model 64, 2 heads) through serve_decoder on
+    the card and on the CPU: the same greedy chains in float32 (a 16-bit
+    card run: tokens of the CPU's vocabulary, every chain its length) and
+    the Dh 32 decode read launched in the instance of the type."""
+    V, D, L, H, CAP = 96, 64, 2, 2, 32
+    sym = tfm.get_decode_symbol(vocab_size=V, d_model=D, n_layer=L,
+                                n_head=H, capacity=CAP, per_slot=True)
+    params = _dh32_lm_params(sym, data=(1, 1))
+    prompts = [np.random.RandomState(i).randint(0, V, 5).tolist()
+               for i in range(3)]
+    chains = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ck.reset_launch_counts()
+        sched = mx.serve.serve_decoder(
+            sym, mx.convert.params_from_numpy(params, ctx), ladder=[1, 2, 4],
+            clock=FakeClock(), start=False, context=ctx,
+            compute_dtype=half if ctx.device_type == "gpu" else None)
+        hs = [sched.submit(p, max_new_tokens=8) for p in prompts]
+        sched.pump()
+        chains[ctx.device_type] = [h.result(timeout=0).tolist() for h in hs]
+        if ctx.device_type == "gpu":
+            name = "decode_attention" + (
+                "" if half is None else "_" + HALVES[half][1])
+            assert ck.launch_counts()[name] > 0
+    if half is None:
+        assert chains["gpu"] == chains["cpu"]
+    for chain in chains["gpu"]:
+        assert len(chain) == 8 and all(0 <= t < V for t in chain)
+
+
+@pytest.mark.cuda
+def test_small_lm_at_head_dim_32_fits_on_card(dev):
+    """Four SGD batches of a small LM at Dh 32 (d_model 64, 2 heads) on
+    the card and on the CPU, TF32 off: parameters within 1e-4 and L flash
+    launches a step; then two ring steps (fit(spmd=True, mesh=
+    MeshConfig(seq=4))) launch L x 10 partial kernels a step."""
+    from mxnet_tpu_torch.parallel import MeshConfig
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        V, D, L, H, T, B, N = 96, 64, 2, 2, 64, 4, 4
+        sym = tfm.get_symbol(V, D, L, H, T)
+        params = _dh32_lm_params(sym, data=(B, T), softmax_label=(B * T,))
+        out = {}
+        for ctx in (mx.gpu(0), mx.cpu()):
+            ck.reset_launch_counts()
+            mod = mx.mod.Module(sym, context=ctx)
+            mod.fit(tfm.SyntheticLMIter(V, B, T, N, seed=1), num_epoch=1,
+                    arg_params=mx.convert.params_from_numpy(params, ctx),
+                    optimizer="sgd", optimizer_params={"learning_rate": 0.05})
+            out[ctx.device_type] = {k: v.asnumpy()
+                                    for k, v in mod.get_params()[0].items()}
+            if ctx.device_type == "gpu":
+                assert ck.launch_counts()["flash_attention"] == N * L
+        for k, v in out["cpu"].items():
+            np.testing.assert_allclose(out["gpu"][k], v, atol=1e-4,
+                                       rtol=1e-4, err_msg=k)
+        ck.reset_launch_counts()
+        mod = mx.mod.Module(sym, context=[mx.gpu(0)] * 4)
+        mod.fit(tfm.SyntheticLMIter(V, B, T, 2, seed=1), num_epoch=1,
+                arg_params=mx.convert.params_from_numpy(params, mx.gpu(0)),
+                spmd=True, mesh=MeshConfig(seq=4), optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05})
+        counts = ck.launch_counts()
+        assert counts["flash_attention_partial"] == 2 * L * 10
+        assert counts["flash_attention"] == 0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
