@@ -78,7 +78,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    served step and the S = 64 window beside SDPA, the causal flash
    forward (8, 16, 1024, 32) beside SDPA and beside its Dh 64 instance
    at the same width and at the same rows, the ring's partial block at
-   the past shard and the diagonal (2, 16, 1024, 1024, 32); and in phase
+   the past shard and the diagonal (2, 16, 1024, 1024, 32); the
+   conv-weight dequant over ResNet-50's 53 int8 and e4m3 weights, one
+   ``dequant_rows_multi`` launch bit for bit the plain version, its
+   device time beside the 53 single-array calls', ``flat_i8.to(float32)``
+   over the same values and the byte bound, and one weight a call through
+   each kernel (host-paced and device ms, in turns); and in phase
    29, ``torch.relu``'s and ``threshold_backward``'s device times beside
    row 18's user kernels);
 3. serve the repo's transformer LM at full width (V=32000, d_model=512,
@@ -139,11 +144,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1-3 rows, one every 4 ms, through ``run_scripted`` on a real clock:
    req/s, p50/p99 latency, occupancy, padding waste, the two quantized
    kernels' libraries (unloaded first) loaded by a quantized ladder's
-   warmup and no kernel library loaded after it, exactly 53
-   ``dequant_rows`` + 1 ``qfc_matmul`` launches per quantized forward
-   (warmup's 2 per rung included) and none on the float ladder,
-   quantized outputs within ``INT8_TOL`` / ``FP8_TOL`` of the float
-   ladder's;
+   warmup and no kernel library loaded after it, exactly 1
+   ``dequant_rows_multi`` (the conv prologue's, over the 53 conv
+   weights) + 1 ``qfc_matmul`` launches per quantized forward (warmup's
+   2 per rung included), no single-array ``dequant_rows``, and none on
+   the float ladder, quantized outputs within ``INT8_TOL`` / ``FP8_TOL``
+   of the float ladder's; then the imperative path, one
+   ``mx.nd.QuantizedConvolution`` call for each of the int8 rewrite's 53
+   convs, each dequantizing its own weight (53 ``dequant_rows``, no
+   ``dequant_rows_multi``), against the convolution of its plain
+   dequant;
 13. one int8 and one fp8 quantized ResNet-50 forward at batch 2 on the
    card, through the engine phase 12 served, and on the CPU from the
    same quantized parameters, TF32 off: probabilities within 1e-5, the
@@ -152,7 +162,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (float32, int8, fp8, fp8, int8, float32; 8 each), then 8 of each
    under the profiler: device busy, launches per forward, and for int8
    the device time by group (cuDNN / the two quantized kernels / softmax
-   / PyTorch elementwise / copies);
+   / PyTorch elementwise / copies); then an int8 rung-8 forward of the
+   rewritten graph through a Module with its conv prologue (one
+   dequant launch) and through one bound with the prologue taken off (a
+   dequant launch a conv), in 16 turns: wall ms per forward, the median
+   of the per-turn differences with a sign test of whether they are
+   resolved, and the peak ``torch.cuda.max_memory_allocated`` above the
+   bound state;
 15. train ResNet-50 in its fused configuration (the 33 Conv -> BatchNorm
    -> ReLU triples as ``FusedConvBNReLU``) through ``Module.fit`` as in
    phase 5, telemetry on: img/s, p50/p99, exactly 33 ``bn_stats`` + 33
@@ -303,8 +319,8 @@ bfloat16 phase functions given the dtype:
    ``mx.serve.serve(compute_dtype="float16")``;
 41. ResNet-50 quantized to int8 through ``Module(quantize_symbol(...),
    compute_dtype=...)`` in bfloat16 and float16: one rung-8 forward
-   each with exactly 1 ``qfc_matmul_bf16`` / ``qfc_matmul_f16``, 53
-   ``dequant_rows`` and the head's 16-bit softmax, then card vs CPU at
+   each with exactly 1 ``qfc_matmul_bf16`` / ``qfc_matmul_f16``, 1
+   ``dequant_rows_multi`` and the head's 16-bit softmax, then card vs CPU at
    batch 2 within ``BF16_SPREAD`` times the CPU's own 16-bit-vs-float32
    distance;
 42. (run after 34) phase 32 in float16: ``serve_decoder(compute_dtype=
@@ -368,6 +384,18 @@ Then attention at head dim 32:
    46's limits); the Dh 32 runs must launch the decode read, the flash
    forward (float32 and bfloat16) and the partial block.
 
+Then the head dims between the attention kernels' tiles:
+
+51. (run after 50) for Dh 16, 48, 80, 96 and 112 a 2-layer LM at d_model
+   8 Dh over 8 heads (V 32000), numpy-seeded: ``serve_decoder`` in
+   float32 and bfloat16 (4 requests, the decode read's instance of the
+   type launched; float32 one stream teacher-forced card vs CPU within
+   LOGIT_TOL), ``Module.fit`` in float32 and bfloat16 (T 256, batch 4,
+   exact flash launches a step), one float32 step card vs CPU (phase
+   10's limits), the sequence-parallel fit (``MeshConfig(seq=4)``)
+   against the unsharded one (phase 46's limits); Dh 24 and 144 raise in
+   each attention wrapper, naming what the kernels take.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / the multi-tensor SGD-momentum while fitting ResNet-50
@@ -419,6 +447,7 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 # qfc_matmul's error is relative to the output's largest magnitude (it
 # sums K products in another order than cuBLAS); dequant_rows is exact
 TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
+       "dequant_rows_multi": 0.0,
        "decode_attention": 2e-5, "decode_attention_fp8": 2e-5,
        "softmax": 2e-5, "softmax_ce_bwd": 2e-5,
        "sgd_mom": 1e-6, "adam": 1e-6, "sgd_mom_multi": 1e-6,
@@ -499,6 +528,8 @@ REPLACES = {
     "flash_attention": "mxnet_tpu/rtc.py:301",
     "qfc_matmul": "mxnet_tpu/ops/quant.py:151",
     "dequant_rows": "mxnet_tpu/ops/quant.py:234",
+    # the same TPU kernel over a forward's conv weights, one launch
+    "dequant_rows_multi": "mxnet_tpu/ops/quant.py:234",
     "bn_stats": "mxnet_tpu/ops/pallas_kernels.py:217",
     "bn_apply_relu": "mxnet_tpu/ops/pallas_kernels.py:231",
     "softmax_bf16": "mxnet_tpu/ops/pallas_kernels.py:104",
@@ -546,7 +577,13 @@ LM_WEIGHT_TOL = 1e-5    # card vs CPU LM weights after one step
 QUANT_RUNGS = [1, 2, 4, 8]
 QUANT_REQS = 24         # requests of 1-3 rows, one every QUANT_GAP_S
 QUANT_GAP_S = 0.004
-QUANT_KERNELS = ("qfc_matmul", "dequant_rows")
+#: the quantized kernels a served forward launches: the conv prologue's
+#: one dequant over every conv weight, and the dense layer's matmul
+QUANT_KERNELS = ("qfc_matmul", "dequant_rows_multi")
+#: the quantized-forward A/B of phase 14: rung-8 forwards a turn, and the
+#: turns of each arm (enough for a sign test of the paired differences to
+#: reach p < 0.05 when 13 of 16 agree)
+QUANT_AB_FORWARDS, QUANT_AB_TURNS = 8, 16
 QUANT_PARITY_TOL = 1e-5  # card vs CPU quantized probabilities, TF32 off
 QUANT_LOGIT_RTOL = 1e-4  # the same, on logits, of their largest magnitude
 CBR_KERNELS = ("bn_stats", "bn_apply_relu")
@@ -613,6 +650,14 @@ DH32_HEADS, DH32_STEPS = 16, 4
 DH32_KERNELS = ("decode_attention", "decode_attention_bf16",
                 "flash_attention", "flash_attention_bf16",
                 "flash_attention_partial")
+#: the head dims between the attention kernels' tiles (phase 2's rows and
+#: phase 51): the LMs there are HEADDIM_LAYERS deep at d_model 8 Dh over 8
+#: heads, fitted at T HEADDIM_SEQ, batch HEADDIM_BATCH, HEADDIM_STEPS
+#: batches a run
+HEADDIMS = (16, 48, 80, 96, 112)
+HEADDIM_LAYERS, HEADDIM_SEQ, HEADDIM_BATCH, HEADDIM_STEPS = 2, 256, 4, 2
+#: head dims no attention kernel takes (phase 51's refusals)
+HEADDIMS_REFUSED = (24, 144)
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -902,6 +947,7 @@ def phase_kernels(mx, ck):
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_ring_kernels(ck, rs, t, rec))
     _headdim32_rows(ck, rs, t)
+    _headdim_rows(ck, rs, t)
     _flash_tensor_cores(ck)
     _row_kernel_resources(ck)
     for half in HALF_SFX:
@@ -1225,10 +1271,12 @@ def _decode_row(ck, name, q, kc, vc, pos, live_keys, scores, sdpa=True):
     return dev_ms
 
 
-def _decode_window_rows(ck, rs, t, kc, vc, label="decode window"):
+def _decode_window_rows(ck, rs, t, kc, vc, label="decode window",
+                        instances=DECODE_INSTANCES):
     """The prefill window: S = 64 at the served shape (B 8, H 8, C 256,
-    Dh 64, or the shape of ``kc``), cursors WINDOW_CURSORS, every
-    instance, SDPA beside the 16-bit and float32 ones."""
+    Dh 64, or the shape of ``kc``), cursors WINDOW_CURSORS, each of
+    ``instances`` (every one by default), SDPA beside the 16-bit and
+    float32 ones."""
     import numpy as np
     import torch
     B, H, C, Dh = kc.shape
@@ -1237,7 +1285,7 @@ def _decode_window_rows(ck, rs, t, kc, vc, label="decode window"):
     live = int(np.minimum(C, cur + PREFILL_CHUNK).sum())
     scores = int(np.minimum(C, cur[:, None] + np.arange(PREFILL_CHUNK) + 1)
                  .sum())
-    for cache_dt, q_dt in DECODE_INSTANCES:
+    for cache_dt, q_dt in instances:
         caches = (kc, vc) if cache_dt == "float32" else _decode_caches(
             ck, rs, t, cache_dt, B, H, C, Dh)
         q = t(rs.randn(B, H, PREFILL_CHUNK, Dh).astype(np.float32)).to(
@@ -1803,6 +1851,87 @@ def _headdim32_rows(ck, rs, t):
         del q, k, v
 
 
+def _headdim_rows(ck, rs, t):
+    """The attention kernels at the head dims between their tiles
+    (HEADDIMS), each on the smallest tile that holds it: every instance
+    against its plain version and timed (device ms, L2 flushed) beside
+    its bound (the real Dh's bytes and flops) and, where it takes the
+    type, SDPA's device time with the same mask: the decode read at the
+    served step (B 8, 8 heads, C 256, S 1, phase 2's cursors) and at the
+    S = 64 window (float32 and bfloat16; the card tests hold every
+    instance's windows); the causal flash forward over (8, 8, 1024, Dh) in
+    float32, bfloat16 and float16; ring attention's partial block at the
+    past shard (2, 8, 1024, 1024, Dh)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    B, H = 8, N_HEAD
+    cursors = [0, 1, 127, 128, 255, 63, 200, 31]
+    pos = t(cursors, torch.int32)
+    live = int(np.minimum(CAP, np.asarray(cursors) + 1).sum())
+    pairs = LM_BATCH * LM_SEQ * (LM_SEQ + 1) // 2
+    Ts = RING_SEQ // RING_SHARDS
+    for dh in HEADDIMS:
+        print(f"head dim {dh}: the decode read and the float32 flash "
+              f"forward on the Dh {ck.head_tile(dh)} tile, the 16-bit "
+              f"flash forward on the Dh {max(64, ck.head_tile(dh))} tile")
+        for cache_dt, q_dt in DECODE_INSTANCES:
+            kc, vc = _decode_caches(ck, rs, t, cache_dt, B, H, CAP, dh)
+            q = t(rs.randn(B, H, 1, dh).astype(np.float32)).to(
+                getattr(torch, q_dt))
+            _decode_row(ck, f"dh{dh} decode served step {cache_dt}", q, kc,
+                        vc, pos, live, live,
+                        sdpa=not cache_dt.startswith("float8"))
+            if cache_dt == "float32":
+                _decode_window_rows(ck, rs, t, kc, vc,
+                                    label=f"dh{dh} decode window",
+                                    instances=DECODE_INSTANCES[:2])
+            del kc, vc
+        for dtype in ("float32",) + tuple(HALF_SFX):
+            dt = getattr(torch, dtype)
+            peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
+            shape = (LM_BATCH, H, LM_SEQ, dh)
+            q, k, v = (t(rs.randn(*shape).astype(np.float32)).to(dt)
+                       for _ in range(3))
+            got = ck.flash_attention(q, k, v, True)
+            want = ck.flash_attention_plain(q, k, v, True)
+            err = _max_err(got, want) if dtype == "float32" else \
+                _half_ulps(dtype, got, want, atol=2e-5)
+            if not err <= (TOL["flash_attention"] if dtype == "float32"
+                           else 1.0):
+                raise AssertionError(f"flash_attention {dtype} Dh {dh}: "
+                                     f"{err}")
+            bound = _bound_ms(4 * q.numel() * q.element_size(),
+                              4 * pairs * H * dh, peak)
+            kern = _device_ms(lambda: ck.flash_attention(q, k, v, True))
+            sdpa = _device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            del q, k, v
+            q, k, v = (t(rs.randn(RING_BATCH, H, Ts, dh).astype(np.float32))
+                       .to(dt) for _ in range(3))
+            e = _partial_err(
+                ck.flash_attention_partial(q, k, v, 2 * Ts, Ts, True),
+                ck.flash_attention_partial_plain(q, k, v, 2 * Ts, Ts, True))
+            if not e[1] <= TOL["flash_attention_partial"]:
+                raise AssertionError(f"flash_attention_partial {dtype} Dh "
+                                     f"{dh}: {e}")
+            part = _device_ms(lambda: ck.flash_attention_partial(
+                q, k, v, 2 * Ts, Ts, True))
+            pbound = _bound_ms(3 * q.numel() * q.element_size()
+                               + q.numel() * 4 + 2 * RING_BATCH * H * Ts * 4,
+                               4 * RING_BATCH * H * Ts * Ts * dh, peak)
+            print(f"dh{dh} flash_attention {dtype} causal {shape}: err "
+                  f"{err:.3g} device_ms {kern:.6f} bound_ms {bound[0]:.6f} "
+                  f"({bound[1]}) x_bound {kern / bound[0]:.2f} "
+                  f"sdpa_device_ms {sdpa:.6f} kernel/sdpa {kern / sdpa:.2f};"
+                  f" partial past shard {tuple(q.shape)}: rel_err "
+                  f"{e[1]:.3g} device_ms {part:.6f} bound_ms "
+                  f"{pbound[0]:.6f} ({pbound[1]}) x_bound "
+                  f"{part / pbound[0]:.2f}")
+            del q, k, v
+        torch.cuda.empty_cache()
+
+
 def _partial_err(got, want):
     """(largest |got - want| over the finite values of acc, m and l, the
     same relative to each array's largest magnitude): inf unless the rows
@@ -1881,29 +2010,28 @@ def _ring_kernels(ck, rs, t, rec):
 
 
 #: a demangled flash kernel: ``...::tc::flash_tc<__half, (int)64,
-#: (int)32, (bool)1>`` (16-bit, tensor cores: the tile's head dim, then
-#: the stored one) or ``...::cc::flash_fwd<(int)64, (bool)0>`` (float32,
-#: CUDA cores)
+#: (bool)1>`` (16-bit, tensor cores: the tile's head dim) or
+#: ``...::cc::flash_fwd<(int)64, (bool)0>`` (float32, CUDA cores)
 _FLASH_INSTANCE = re.compile(r"::(flash_tc|flash_fwd)<(?:(\w+), )?"
-                             r"\(int\)(\d+), (?:\(int\)(\d+), )?"
-                             r"\(bool\)([01])>")
+                             r"\(int\)(\d+), \(bool\)([01])>")
 
 
 def _flash_tensor_cores(ck):
     """Print each flash-attention instance's HGMMA (wgmma) count in its
     SASS and ptxas' registers (at launch: the 16-bit instances then move
     them to their consumers with setmaxnreg) and spill bytes; fail unless
-    every bfloat16 and float16 instance, both modes and head dims (32,
-    64, 128), holds
-    HGMMA, no float32 instance holds HGMMA (the reference's
-    Precision.HIGHEST rules out TF32), and no instance spills."""
+    every bfloat16 and float16 instance, both modes and tiles (Dh 64,
+    which also runs Dh 16 to 48, and Dh 128, which runs 80 to 112),
+    holds HGMMA, no float32 instance (tiles Dh 32, 64, 128) holds HGMMA
+    (the reference's Precision.HIGHEST rules out TF32), and no instance
+    spills."""
     seen = set()
     for fn, res in sorted(ck.resources("flash_attention").items()):
         m = _FLASH_INSTANCE.search(fn)
         if not m:
             continue
-        _kind, elem, tile, dh, partial = m.groups()
-        elem, dh = elem or "float", dh or tile
+        _kind, elem, dh, partial = m.groups()
+        elem = elem or "float"
         hgmma = res.get("sass", {}).get("HGMMA", 0)
         spills = (res["spill_stores"], res["spill_loads"])
         print(f"kernels: flash_attention{'_partial' * (partial == '1')} "
@@ -1914,7 +2042,7 @@ def _flash_tensor_cores(ck):
             raise AssertionError(f"flash <{elem}, {dh}, {partial}>: HGMMA "
                                  f"{hgmma}, spills {spills}")
         seen.add((elem, dh, partial))
-    if len(seen) != 18:
+    if len(seen) != 14:
         raise AssertionError(f"flash instances in the SASS: {sorted(seen)}")
 
 
@@ -2142,9 +2270,15 @@ def _quant_kernels(mx, ck, rs, t, rec):
     QFC_RTOL of the output's largest magnitude; the row dequant at the
     path's (512, 4608) and (2048, 512) and at edges (1 and 147 columns),
     held bit for bit to its plain version and, with int8 weights, to
-    ``_dequant_library``. Timed with int8 weights (fp8 printed beside): the
-    matmul per call, the dequant per ResNet-50 forward — all 53 conv
-    weights, 53 launches. Fills ``rec``; returns the timed calls."""
+    ``_dequant_library``; the multi-weight dequant over ResNet-50's 53
+    conv weights in their conv shapes (and a 1-byte-offset view of 147
+    columns, the scalar route) held bit for bit to its plain version.
+    Timed with int8 weights (fp8 printed beside): the matmul per call,
+    the dequant per ResNet-50 forward — all 53 conv weights, 53 launches
+    or one; the device times of the multi launch, of the 53 single-array
+    calls and of ``flat_i8.to(torch.float32)`` over one int8 buffer of the
+    same 23.5 M values (the same bytes in one PyTorch call) side by side.
+    Fills ``rec``; returns the timed calls."""
     import numpy as np
     import torch
     storages = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
@@ -2188,6 +2322,41 @@ def _quant_kernels(mx, ck, rs, t, rec):
                   scale(s[0])) for s in shapes]
              for k, st in storages.items()}
     n_el = sum(int(np.prod(s)) for s in shapes)
+    multi = {k: ([w.reshape(sh) for (w, _), sh in zip(convs[k], shapes)],
+                 [sc for _, sc in convs[k]]) for k in storages}
+    err_m = 0.0
+    for key, st in storages.items():
+        flat = _quant_weight(rs, t, 1, 1 + 64 * 147, st).reshape(-1)
+        ws, ss = multi[key][0] + [flat[1:].view(64, 147)], \
+            multi[key][1] + [scale(64)]
+        for got, w, sc in zip(ck.dequant_rows_multi(ws, ss), ws, ss):
+            ref = ck.dequant_rows_plain(w, sc)
+            if got.shape != w.shape or not torch.equal(
+                    got.view(torch.int32), ref.view(torch.int32)):
+                err_m = max(err_m, _max_err(got.reshape(ref.shape), ref),
+                            1e-30)
+    flat_i8 = t(rs.randint(-128, 128, n_el), torch.int8)
+    dev_multi = {k: _device_ms(lambda k=k: ck.dequant_rows_multi(*multi[k]))
+                 for k in storages}
+    dev_single = {k: _device_ms(lambda k=k: [ck.dequant_rows(*a)
+                                             for a in convs[k]])
+                  for k in storages}
+    dev_yard = _device_ms(lambda: flat_i8.to(torch.float32))
+    bound_d = _bound_ms(5 * n_el + 4 * sum(s[0] for s in shapes), n_el)
+    ratio = dev_multi["int8"] / dev_single["int8"]
+    print(f"kernels: dequant_rows_multi, ResNet-50's {len(shapes)} conv "
+          f"weights ({n_el} values) in one launch: device ms int8 "
+          f"{dev_multi['int8']:.6f} e4m3 {dev_multi['e4m3']:.6f}; the "
+          f"{len(shapes)} single-array calls int8 {dev_single['int8']:.6f} "
+          f"e4m3 {dev_single['e4m3']:.6f}; multi / singles int8 "
+          f"{ratio:.3f} e4m3 "
+          f"{dev_multi['e4m3'] / dev_single['e4m3']:.3f} (required <= 0.5: "
+          f"{'met' if ratio <= 0.5 else 'missed'}); flat_i8.to(float32) "
+          f"over {n_el} int8 values {dev_yard:.6f} (multi / it "
+          f"{dev_multi['int8'] / dev_yard:.3f}); bound "
+          f"{bound_d[0]:.6f} ({bound_d[1]}): multi x_bound "
+          f"{dev_multi['int8'] / bound_d[0]:.2f}")
+    _dequant_one_weight(ck, convs["int8"])
     m, (n, k) = x8.shape[0], fc["int8"][0].shape
     qfc = {key: _timed(lambda key=key: ck.qfc_matmul(x8, *fc[key]))
            for key in storages}
@@ -2207,6 +2376,13 @@ def _quant_kernels(mx, ck, rs, t, rec):
         plain_ms=_timed(lambda: ck.qfc_matmul_plain(x8, *fc["int8"])),
         bound=_bound_ms(m * k * 4 + n * k + n * 4 + m * n * 4, 2 * m * n * k))
     _int8pack_library(ck, rec["qfc_matmul"], x8, *fc["int8"])
+    rec["dequant_rows_multi"] = dict(
+        max_abs_err=err_m,
+        ms=_timed(lambda: ck.dequant_rows_multi(*multi["int8"])),
+        plain_ms=_timed(lambda: ck.dequant_rows_multi_plain(
+            *multi["int8"]), reps=50, warm=5),
+        library_ms=None,    # one PyTorch call a weight: torch.mul x 53
+        bound=bound_d)
     rec["dequant_rows"] = dict(
         max_abs_err=err_d, ms=deq["int8"],
         plain_ms=_timed(lambda: [ck.dequant_rows_plain(*a)
@@ -2217,7 +2393,42 @@ def _quant_kernels(mx, ck, rs, t, rec):
         bound=_bound_ms(5 * n_el + 4 * sum(s[0] for s in shapes), n_el))
     return {"qfc_matmul": lambda: ck.qfc_matmul(x8, *fc["int8"]),
             "dequant_rows": lambda: [ck.dequant_rows(*a)
-                                     for a in convs["int8"]]}
+                                     for a in convs["int8"]],
+            "dequant_rows_multi": lambda: ck.dequant_rows_multi(
+                *multi["int8"])}
+
+
+def _dequant_one_weight(ck, convs):
+    """The computed-weight path's dequant, one weight a call, through each
+    kernel: ``dequant_rows(w, s)`` and ``dequant_rows_multi([w], [s])``
+    over the 53 int8 conv weights ``convs`` one at a time, bit for bit
+    alike; host-paced ms (``_timed``, the ``ms`` column's clock) and
+    device ms, in turns (single, multi, multi, single)."""
+    import numpy as np
+    import torch
+    calls = {"dequant_rows": lambda: [ck.dequant_rows(*a) for a in convs],
+             "dequant_rows_multi([w], [s])": lambda: [
+                 ck.dequant_rows_multi([w], [s])[0] for w, s in convs]}
+    for a, b in zip(*(c() for c in calls.values())):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("dequant_rows_multi of one weight differs "
+                                 "from dequant_rows")
+    order = list(calls) + list(calls)[::-1]
+    host, dev = ({k: [] for k in calls} for _ in range(2))
+    for k in order:
+        host[k].append(_timed(calls[k], reps=50, warm=5))
+        dev[k].append(_device_ms(calls[k], reps=20))
+    h, d = ({k: float(np.mean(v)) for k, v in t.items()}
+            for t in (host, dev))
+    single, multi = calls
+    print(f"kernels: dequant of one weight a call, ResNet-50's {len(convs)} "
+          f"int8 conv weights one by one: ms {single} "
+          f"{' / '.join(f'{v:.5f}' for v in host[single])}, {multi} "
+          f"{' / '.join(f'{v:.5f}' for v in host[multi])} (multi / single "
+          f"{h[multi] / h[single]:.3f}); device ms {single} "
+          f"{' / '.join(f'{v:.6f}' for v in dev[single])}, {multi} "
+          f"{' / '.join(f'{v:.6f}' for v in dev[multi])} (multi / single "
+          f"{d[multi] / d[single]:.3f})")
 
 
 def _int8pack_library(ck, r, x, w, s):
@@ -3735,6 +3946,7 @@ def _unload(ck, names):
     """Forget the loaded libraries of kernels ``names`` (their built
     files stay), so that their next launch loads them again and counts
     in ``ck.libraries_loaded()``."""
+    names = {ck._library(n) for n in names}
     for name in names:
         ck._libs.pop(name, None)
     for key in [k for k in ck._fns
@@ -3830,22 +4042,27 @@ def phase_quant_serve(mx, ck):
     mod.init_params(mx.initializer.Xavier(
         rng=torch.Generator().manual_seed(SEED)))
     ops = [n.op for n in mod._symbol._topo_nodes() if not n.is_variable]
-    per_fwd = {"dequant_rows": ops.count("Convolution"),
+    # one prologue launch a forward over every conv weight; no conv
+    # dequantizes its own
+    per_fwd = {"dequant_rows_multi": 1, "dequant_rows": 0,
                "qfc_matmul": ops.count("FullyConnected")}
+    kernels = QUANT_KERNELS + ("dequant_rows",)
+    libs = len({ck._library(k) for k in kernels})
     outs, launches, servers = {}, dict.fromkeys(QUANT_KERNELS, 0), {}
     for tier in (None, "int8", "fp8"):
         name = tier or "float32"
         server, warm_loads, forwards, ran, outs[name] = _serve_ladder(
-            mx, ck, mod, name, QUANT_KERNELS, compute_dtype=tier)
-        if warm_loads != (len(QUANT_KERNELS) if tier else 0):
+            mx, ck, mod, name, kernels, compute_dtype=tier)
+        if warm_loads != (libs if tier else 0):
             raise AssertionError(f"{name}: warmup loaded {warm_loads} "
                                  "kernel libraries")
-        for k in QUANT_KERNELS:
+        for k in kernels:
             want = per_fwd[k] * forwards if tier else 0
             if ran[k] != want:
                 raise AssertionError(f"{name}: {k} launched {ran[k]} "
                                      f"times, want {want}")
-            launches[k] += ran[k]
+            if k in launches:
+                launches[k] += ran[k]
         servers[name] = server
     for tier, tol in (("int8", quant.INT8_TOL), ("fp8", quant.FP8_TOL)):
         worst = max(float(np.abs(q - f).max())
@@ -3860,7 +4077,58 @@ def phase_quant_serve(mx, ck):
                    for q, f in zip(outs[tier], outs["float32"])):
             raise AssertionError(f"{tier} outputs leave {tol} of the float "
                                  "ladder's")
+    launches["dequant_rows"] = _imperative_qconv(mx, ck, mod)
     return mod, launches, servers, outs["float32"]
+
+
+def _imperative_qconv(mx, ck, mod):
+    """The imperative path of a quantized convolution: for each of the int8
+    rewrite's QuantizedConvolution nodes, one ``mx.nd.QuantizedConvolution``
+    call on the card at batch 1 and 14 x 14 (its own weight's dequant:
+    the single-array kernel; no executor, so no prologue), held to the
+    convolution of its plain dequant (the same float32 weight bit for
+    bit, so the same cuDNN call: within 1e-5 of the largest output),
+    TF32 off. Returns its ``dequant_rows`` launches (one a call, and no
+    ``dequant_rows_multi``)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import quant
+    from mxnet_tpu_torch.ops.nn import _convolution
+    print(_tf32(False) + " (imperative quantized convolutions)")
+    args = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    qsym, qargs = quant.quantize_symbol(mod._symbol, args, dtype="int8")
+    rs = np.random.RandomState(SEED + 8)
+
+    def card(a):
+        return mx.nd.NDArray(torch.as_tensor(a).to("cuda"), ctx=mx.gpu(0))
+    ck.reset_launch_counts()
+    worst, n = 0.0, 0
+    for node in qsym._topo_nodes():
+        if node.op != "QuantizedConvolution":
+            continue
+        w, sc = (card(qargs[inp.name].astorch())
+                 for inp, _ in node.inputs[1:3])
+        groups = int(node.attrs.get("num_group", 1))
+        x = card(rs.rand(1, w.shape[1] * groups, 14, 14).astype(np.float32))
+        ins = [x, w, sc] + [card(qargs[inp.name].astorch())
+                            for inp, _ in node.inputs[3:]]
+        got = mx.nd.QuantizedConvolution(*ins, **node.attrs).astorch()
+        wf = ck.dequant_rows_plain(w.astorch(), sc.astorch())
+        want = _convolution(node.attrs, x.astorch(), wf,
+                            ins[3].astorch() if len(ins) > 3 else None)
+        worst = max(worst, _max_err(got, want) /
+                    max(float(want.abs().max()), 1e-30))
+        n += 1
+    counts = ck.launch_counts()
+    print(f"quant imperative: {n} mx.nd.QuantizedConvolution calls, "
+          f"launches dequant_rows {counts['dequant_rows']} "
+          f"dequant_rows_multi {counts['dequant_rows_multi']}; worst "
+          f"|out - conv of the plain dequant| {worst:.3g} of the largest "
+          "output (limit 1e-5)")
+    if counts["dequant_rows"] != n or counts["dequant_rows_multi"] != 0 \
+            or not worst <= 1e-5:
+        raise AssertionError("the imperative quantized convolutions")
+    return counts["dequant_rows"]
 
 
 def phase_quant_parity(mx, mod, servers):
@@ -3906,8 +4174,9 @@ def phase_quant_half(mx, ck, mod):
     ``Module(quantize_symbol(...), compute_dtype=...)`` on gpu(0), in
     bfloat16 and in float16: one rung-8 forward each, which launches
     exactly one 16-bit matmul instance (``qfc_matmul_bf16`` /
-    ``qfc_matmul_f16``), 53 ``dequant_rows`` and the head's 16-bit
-    softmax, and nothing else, and
+    ``qfc_matmul_f16``), 1 ``dequant_rows_multi`` (the conv prologue's,
+    the int8 weights' scales widened from the compute dtype) and the
+    head's 16-bit softmax, and nothing else, and
     answers in the compute dtype. Then a batch-2 forward of the same on the
     card and on the CPU in the compute dtype, beside the CPU's float32
     quantized forward, TF32 off: the card's centered logits within
@@ -3920,8 +4189,6 @@ def phase_quant_half(mx, ck, mod):
     args, auxs = ({k: v.asnumpy() for k, v in d.items()}
                   for d in mod.get_params())
     qsym, qargs = quant.quantize_symbol(mod._symbol, args, dtype="int8")
-    n_conv = sum(n.op == "QuantizedConvolution"
-                 for n in qsym._topo_nodes())
     rung = QUANT_RUNGS[-1]
     X8, X2 = _images(rung, SEED + 7)[0], _images(2, SEED + 6)[0]
 
@@ -3932,7 +4199,7 @@ def phase_quant_half(mx, ck, mod):
         m.init_params(arg_params=qargs, aux_params=auxs)
         m.forward(mx.io.DataBatch([X], None), is_train=False)
         return m.get_outputs()[0]
-    launches = {}
+    launches = {"dequant_rows_multi": 0}
     z32 = _centered_log(forward(mx.cpu(), X2, None).asnumpy())
     for half, sfx in HALF_SFX.items():
         ck.reset_launch_counts()
@@ -3941,7 +4208,7 @@ def phase_quant_half(mx, ck, mod):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in ck.launch_counts().items() if v}
-        want = {"qfc_matmul_" + sfx: 1, "dequant_rows": n_conv,
+        want = {"qfc_matmul_" + sfx: 1, "dequant_rows_multi": 1,
                 "softmax_" + sfx: 1}
         print(f"quant {sfx}: int8 ResNet-50 under compute_dtype={half}, "
               f"rung {rung} forward (bind included) {wall:.3f} s, launches "
@@ -3950,6 +4217,7 @@ def phase_quant_half(mx, ck, mod):
             raise AssertionError(f"quant {sfx}: launches {counts}, want "
                                  f"{want}; output {out.astorch().dtype}")
         launches["qfc_matmul_" + sfx] = counts["qfc_matmul_" + sfx]
+        launches["dequant_rows_multi"] += counts["dequant_rows_multi"]
         z = [_centered_log(forward(ctx, X2, half).asnumpy()
                            .astype(np.float32))
              for ctx in (mx.gpu(0), mx.cpu())]
@@ -4039,6 +4307,105 @@ def phase_quant_profile(servers, steps=8):
         for us, count, key in sorted(rows, reverse=True)[:8]:
             print(f"  {us / 1e3 / steps:9.4f} ms/dispatch  "
                   f"{count / steps:6.1f} launches/dispatch  {key[:90]}")
+
+
+def _sign_test_p(k, n):
+    """Two-sided sign test: the chance of a split at least as uneven as
+    ``k`` of ``n`` when each side is equally likely."""
+    from math import comb
+    tail = sum(comb(n, i) for i in range(min(k, n - k) + 1)) / 2 ** n
+    return min(1.0, 2 * tail)
+
+
+def phase_quant_hoist(mx, ck, mod):
+    """The conv prologue on an int8 rung-8 ResNet-50 forward (phase 12's
+    parameters), TF32 on: the rewritten graph bound as the executor binds
+    it (one ``dequant_rows_multi`` launch over the 53 conv weights before
+    the nodes) and bound with QuantizedConvolution's prologue taken off
+    (each conv dequantizes its own weight, a ``dequant_rows`` launch a
+    conv: the path before the prologue). The two arms' outputs must agree
+    bit for bit; then QUANT_AB_TURNS turns of QUANT_AB_FORWARDS
+    synchronized forwards each, in turns: wall ms per forward (the host's
+    dispatch included), launches per forward, and the peak of
+    ``torch.cuda.max_memory_allocated`` during one forward above what was
+    allocated before it (every float32 conv weight lives until the
+    forward ends in the prologue arm: ~94 MB; one at a time in the
+    other). The per-turn differences' median and a two-sided sign test
+    say whether the wall difference is resolved."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import quant
+    from mxnet_tpu_torch.ops.registry import get_op
+    print(_tf32(True) + " (quantized prologue A/B)")
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in mod.get_params())
+    qsym, qargs = quant.quantize_symbol(mod._symbol, args, dtype="int8")
+    rung = QUANT_RUNGS[-1]
+    batch = mx.io.DataBatch([_images(rung, SEED + 7)[0]], None)
+    op = get_op("QuantizedConvolution")
+    mods = {}
+    for arm in ("prologue", "per conv"):
+        saved = op.prologue
+        if arm == "per conv":
+            op.prologue = None      # read once, when the executor binds
+        try:
+            m = mx.mod.Module(qsym, context=mx.gpu(0))
+            m.bind([("data", (rung,) + TRAIN_IMAGE)],
+                   [("softmax_label", (rung,))], for_training=False)
+            m.init_params(arg_params=qargs, aux_params=auxs)
+        finally:
+            op.prologue = saved
+        mods[arm] = m
+
+    def forward(m):
+        m.forward(batch, is_train=False)
+        return m.get_outputs()[0].astorch()
+    outs, peaks, counts = {}, {}, {}
+    for arm, m in mods.items():
+        forward(m)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[arm] = forward(m)
+        torch.cuda.synchronize()
+        peaks[arm] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        counts[arm] = {k: v for k, v in ck.launch_counts().items()
+                       if v and k.startswith("dequant")}
+    if not torch.equal(outs["prologue"], outs["per conv"]):
+        raise AssertionError("the conv prologue changed the int8 forward's "
+                             "output")
+    if counts["prologue"] != {"dequant_rows_multi": 1} or \
+            counts["per conv"] != {"dequant_rows": 53}:
+        raise AssertionError(f"launches a forward: {counts}")
+    walls = {arm: [] for arm in mods}
+    for turn in range(QUANT_AB_TURNS):
+        order = list(mods) if turn % 2 == 0 else list(mods)[::-1]
+        for arm in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(QUANT_AB_FORWARDS):
+                forward(mods[arm])
+            torch.cuda.synchronize()
+            walls[arm].append((time.perf_counter() - t0) * 1e3 /
+                              QUANT_AB_FORWARDS)
+    for arm in mods:
+        print(f"quant prologue A/B {arm}: int8 rung-{rung} forward wall "
+              f"ms {' / '.join(f'{w:.3f}' for w in walls[arm])} (median "
+              f"{np.median(walls[arm]):.3f}); launches "
+              f"{counts[arm]}; peak memory above the bound state "
+              f"{peaks[arm]:.1f} MiB")
+    diffs = np.subtract(walls["per conv"], walls["prologue"])
+    faster = int((diffs > 0).sum())
+    p = _sign_test_p(faster, len(diffs))
+    print(f"quant prologue A/B: per conv - prologue, paired by turn: median "
+          f"{np.median(diffs):.3f} ms a forward (quartiles "
+          f"{np.percentile(diffs, 25):.3f} / {np.percentile(diffs, 75):.3f}"
+          f"); the prologue faster in {faster} of {len(diffs)} turns, sign "
+          f"test p = {p:.4f}: "
+          f"{'resolved' if p < 0.05 else 'not resolved'}")
+    del mods
+    torch.cuda.empty_cache()
 
 
 def phase_fused_train(mx, ck):
@@ -6039,7 +6406,7 @@ def phase_lm_frozen(mx, ck):
     return total
 
 
-def _dh32_teacher_forced(mx, sym, params, stream, half):
+def _dh32_teacher_forced(mx, sym, params, stream, half, label="dh32"):
     """``stream`` teacher-forced through the decode graph ``sym`` on the
     card and on the CPU (in ``half``, or float32 for None): (the worst
     |logit card - cpu|, the worst of it over its limit). Float32 is held
@@ -6055,7 +6422,7 @@ def _dh32_teacher_forced(mx, sym, params, stream, half):
         a, b = (d.step(np.asarray([[tok]])).asnumpy()[0, 0]
                 for d in (gpu, cpu))
         if a.shape != (V,) or not np.isfinite(a).all():
-            raise AssertionError(f"dh32 step {i}: logits {a.shape} not "
+            raise AssertionError(f"{label} step {i}: logits {a.shape} not "
                                  "finite")
         if half:
             w, r = _bf16_within(a, b, half)
@@ -6065,8 +6432,8 @@ def _dh32_teacher_forced(mx, sym, params, stream, half):
             r, near = w / LOGIT_TOL, LOGIT_TOL
         worst, ratio = max(worst, w), max(ratio, r)
         if i >= PROMPT - 1 and b[stream[i + 1]] < b.max() - near:
-            raise AssertionError(f"dh32: served token {stream[i + 1]} at "
-                                 f"step {i} is not the CPU argmax "
+            raise AssertionError(f"{label}: served token {stream[i + 1]} "
+                                 f"at step {i} is not the CPU argmax "
                                  f"{int(b.argmax())} nor a near-tie")
     return worst, ratio
 
@@ -6171,6 +6538,189 @@ def phase_headdim32(mx, ck, params, prompts):
     return total
 
 
+def _headdim_params(sym, seed, **shapes):
+    """Numpy-seeded parameters of ``sym`` at ``shapes`` (the LM parity
+    phase's recipe)."""
+    import numpy as np
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    rs = np.random.RandomState(seed)
+    return {n: ((1 + 0.1 * rs.randn(*s)) if n.endswith("gamma")
+                else 0.02 * rs.randn(*s)).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+
+
+def _headdim_fit(mx, ck, sym, params, ctx, compute_dtype=None, mesh=None):
+    """HEADDIM_STEPS SGD batches of ``sym`` from ``params`` on ``ctx`` (a
+    context list and ``mesh`` for the sequence-parallel fit): (the launch
+    counts, the parameters after, numpy)."""
+    from mxnet_tpu_torch.models import transformer as tfm
+    it = tfm.SyntheticLMIter(V, HEADDIM_BATCH, HEADDIM_SEQ, HEADDIM_STEPS,
+                             seed=SEED + 9)
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
+    mod.bind(it.provide_data, it.provide_label, spmd=mesh is not None,
+             mesh=mesh)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(params,
+                                                            mx.gpu(0)))
+    ck.reset_launch_counts()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=LM_SGD)
+    counts = ck.launch_counts()
+    return counts, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def _headdim_refusals(ck):
+    """Each attention wrapper raises on the card at HEADDIMS_REFUSED,
+    naming what the kernels take. Prints the messages."""
+    import torch
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.rtc import fp8_cast
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for dh in HEADDIMS_REFUSED:
+        q = torch.randn(1, 2, 16, dh, device="cuda")
+        c = torch.randn(1, 2, 16, dh, device="cuda")
+        calls = {
+            "decode_attention": lambda: ck.decode_attention(
+                q[:1, :, :1].contiguous(), c, c, pos),
+            "decode_attention_fp8": lambda: ck.decode_attention(
+                q[:1, :, :1].contiguous(), fp8_cast(c, torch.float8_e4m3fn),
+                fp8_cast(c, torch.float8_e4m3fn), pos),
+            "flash_attention": lambda: ck.flash_attention(q, q, q, True),
+            "flash_attention_bf16": lambda: ck.flash_attention(
+                q.bfloat16(), q.bfloat16(), q.bfloat16(), True),
+            "flash_attention_partial": lambda: ck.flash_attention_partial(
+                q, q, q, 0, 0, True)}
+        for name, call in calls.items():
+            try:
+                call()
+            except MXNetError as e:
+                if f"head dim {dh}" not in str(e):
+                    raise
+                print(f"headdims: Dh {dh} {name} raises: {e}")
+                continue
+            raise AssertionError(f"{name} took head dim {dh}")
+
+
+def phase_headdims(mx, ck, prompts):
+    """Phase 51: for each Dh of HEADDIMS a HEADDIM_LAYERS-layer LM at
+    d_model 8 Dh over 8 heads (V 32000), numpy-seeded, through the
+    port's entry points on the card: ``serve_decoder`` in float32 and
+    bfloat16 (4 of phase 3's prompts, ladder [1, 4], 8 new tokens each;
+    the decode read's instance of the type must launch), the float32
+    stream of request 0 teacher-forced card vs CPU (LOGIT_TOL);
+    ``Module.fit`` in float32 and bfloat16 (T HEADDIM_SEQ, batch
+    HEADDIM_BATCH, HEADDIM_STEPS batches, exactly HEADDIM_LAYERS flash
+    launches of the type a step); one float32 step card vs CPU at batch
+    2 (phase 10's limits); the sequence-parallel fit against the
+    unsharded one in float32 (phase 46's weight limit, L x 10 partial
+    launches a step). Every counter is set to 0 just before each run and
+    read just after; returns the runs' launches of DH32_KERNELS, each of
+    which must be launched at every Dh. Then the refusals of
+    HEADDIMS_REFUSED."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import MeshConfig
+    from mxnet_tpu_torch.serve import FakeClock
+    total = dict.fromkeys(DH32_KERNELS, 0)
+    for dh in HEADDIMS:
+        t_dh = time.perf_counter()
+        seen = dict.fromkeys(DH32_KERNELS, 0)
+        d_model, heads = 8 * dh, 8
+        print(_tf32(False) + f" (head dim {dh}: d_model {d_model})")
+        dsym = tfm.get_decode_symbol(vocab_size=V, d_model=d_model,
+                                     n_layer=HEADDIM_LAYERS, n_head=heads,
+                                     capacity=CAP, per_slot=True)
+        dparams = _headdim_params(dsym, SEED + dh, data=(1, 1))
+        for cd in (None, "bfloat16"):
+            sfx = "" if cd is None else "_" + HALF_SFX[cd]
+            sched = mx.serve.serve_decoder(
+                dsym, mx.convert.params_from_numpy(dparams, mx.gpu(0)),
+                name=f"lm-dh{dh}-{cd or 'float32'}", capacity=CAP,
+                ladder=[1, 4], context=mx.gpu(0), clock=FakeClock(),
+                start=False, compute_dtype=cd)
+            ck.reset_launch_counts()
+            hs = [sched.submit(p[:8], max_new_tokens=8) for p in prompts[:4]]
+            sched.pump()
+            outs = [h.result(timeout=0) for h in hs]
+            counts = ck.launch_counts()
+            if any(len(o) != 8 or not ((o >= 0) & (o < V)).all()
+                   for o in outs):
+                raise AssertionError(f"dh{dh} serve: {outs}")
+            seen["decode_attention" + sfx] += counts["decode_attention" + sfx]
+            if cd is None:
+                stream = prompts[0][:8] + outs[0][:4].tolist()
+                worst, ratio = _dh32_teacher_forced(
+                    mx, dsym, dparams, stream, None, label=f"dh{dh}")
+                print(f"dh{dh} serve float32: teacher-forced "
+                      f"{len(stream) - 1} steps: max |logit card - cpu| = "
+                      f"{worst:.3g}, {ratio:.3f} of the limit ({LOGIT_TOL})")
+                if not ratio <= 1.0:
+                    raise AssertionError(f"dh{dh}: card and CPU logits "
+                                         "disagree")
+        sym = tfm.get_symbol(V, d_model, HEADDIM_LAYERS, heads, HEADDIM_SEQ)
+        params = _headdim_params(sym, SEED + dh + 1,
+                                 data=(HEADDIM_BATCH, HEADDIM_SEQ),
+                                 softmax_label=(HEADDIM_BATCH * HEADDIM_SEQ,))
+        runs = {}
+        for cd in (None, "bfloat16"):
+            sfx = "" if cd is None else "_" + HALF_SFX[cd]
+            counts, after = _headdim_fit(mx, ck, sym, params, mx.gpu(0), cd)
+            runs[cd] = after
+            want = HEADDIM_STEPS * HEADDIM_LAYERS
+            if counts["flash_attention" + sfx] != want or \
+                    counts["flash_attention_partial" + sfx] != 0:
+                raise AssertionError(f"dh{dh} fit {cd}: flash launches "
+                                     f"{counts['flash_attention' + sfx]}, "
+                                     f"want {want}")
+            if not all(np.isfinite(v).all() for v in after.values()) or \
+                    not np.abs(after["lm_l0_qkv_weight"] -
+                               params["lm_l0_qkv_weight"]).max() > 0:
+                raise AssertionError(f"dh{dh} fit {cd}: parameters not "
+                                     "finite or not moved")
+            seen["flash_attention" + sfx] += counts["flash_attention" + sfx]
+        # one float32 step card vs CPU at batch 2
+        batch = next(iter(tfm.SyntheticLMIter(V, 2, HEADDIM_SEQ, 1,
+                                              seed=SEED + 10)))
+        cpu = _lm_step(mx, sym, params, mx.cpu(), batch)
+        gpu = _lm_step(mx, sym, params, mx.gpu(0), batch)
+        prob_err = float(np.abs(gpu[0] - cpu[0]).max())
+        worst_g = max(float(np.abs(gpu[1][k] - g).max()) /
+                      (GRAD_RTOL * float(np.abs(g).max()) + 1e-12)
+                      for k, g in cpu[1].items())
+        worst_w = max(float(np.abs(gpu[2][k] - w).max())
+                      for k, w in cpu[2].items())
+        # the sequence-parallel fit against the unsharded one, float32
+        counts, ring = _headdim_fit(mx, ck, sym, params,
+                                    [mx.gpu(0)] * RING_SHARDS,
+                                    mesh=MeshConfig(seq=RING_SHARDS))
+        want = HEADDIM_STEPS * HEADDIM_LAYERS * RING_PER_LAYER
+        ring_err = max(float(np.abs(ring[k] - v).max())
+                       for k, v in runs[None].items())
+        seen["flash_attention_partial"] += counts["flash_attention_partial"]
+        print(f"dh{dh}: step card vs CPU max |prob| {prob_err:.3g} (limit "
+              f"{FWD_TOL}), worst gradient {worst_g:.3g} of its limit, "
+              f"worst weight {worst_w:.3g} (limit {LM_WEIGHT_TOL}); ring "
+              f"fit: partial launches {counts['flash_attention_partial']} "
+              f"(want {want}), flash {counts['flash_attention']}, worst "
+              f"|ring - unsharded| weight {ring_err:.3g} (limit "
+              f"{RING_WEIGHT_TOL}); launches {seen}; "
+              f"{time.perf_counter() - t_dh:.1f} s")
+        if not (prob_err <= FWD_TOL and worst_g <= 1.0 and
+                worst_w <= LM_WEIGHT_TOL):
+            raise AssertionError(f"dh{dh}: card and CPU LM steps disagree")
+        if counts["flash_attention_partial"] != want or \
+                counts["flash_attention"] or not ring_err <= RING_WEIGHT_TOL:
+            raise AssertionError(f"dh{dh}: the ring fit")
+        idle = [k for k, n in seen.items() if not n > 0]
+        if idle:
+            raise AssertionError(f"Dh {dh}: kernels not launched: {idle}")
+        for k, n in seen.items():
+            total[k] += n
+        torch.cuda.empty_cache()
+    _headdim_refusals(ck)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6206,6 +6756,7 @@ def main():
     q_mod, quant_counts, q_servers, float_outs = phase_quant_serve(mx, ck)
     phase_quant_parity(mx, q_mod, q_servers)
     phase_quant_profile(q_servers)
+    phase_quant_hoist(mx, ck, q_mod)
     cbr_counts = phase_fused_train(mx, ck)
     phase_fused_parity(mx, ck)
     cbr_serve_counts, f_server = phase_fused_serve(mx, ck, q_mod, float_outs)
@@ -6287,6 +6838,10 @@ def main():
     dh32_counts = phase_headdim32(mx, ck, params, prompts)
     print(f"chip_smoke: the head-dim-32 phase took "
           f"{time.perf_counter() - t_dh32:.1f} s")
+    t_dh = time.perf_counter()
+    headdim_counts = phase_headdims(mx, ck, prompts)
+    print(f"chip_smoke: the head-dims phase took "
+          f"{time.perf_counter() - t_dh:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -6305,14 +6860,16 @@ def main():
     launches.update(f16_decode_counts)
     launches.update({k: f16_lm_counts[k]
                      for k in _halved(BF16_LM_KERNELS, "float16")})
-    launches.update(quant_half_counts)
+    for k, n in quant_half_counts.items():
+        launches[k] = launches.get(k, 0) + n
     for dtype, counts in ring_counts.items():
         name = "flash_attention_partial" + (
             "" if dtype == "float32" else "_" + HALF_SFX[dtype])
         launches[name] = counts[name]
     launches.update(frozen_counts)
-    for k, n in dh32_counts.items():
-        launches[k] += n
+    for counts in (dh32_counts, headdim_counts):
+        for k, n in counts.items():
+            launches[k] += n
     # the per-array kernels' launches: a caller's own Updater(i, g, w)
     # loop (phases 5 and 7), the path Module.update no longer takes
     launches["sgd_mom"] = sgd_per_array

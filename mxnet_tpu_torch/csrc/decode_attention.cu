@@ -50,9 +50,16 @@
 //   the key loop: a warp waits for its own copies and syncs with
 //   __syncwarp. The first chunks' copies are issued before the query rows
 //   are staged, so the two loads overlap.
+// * Head dims: every multiple of 16 up to 128 runs on the smallest of the
+//   Dh 32, 64 and 128 tiles that holds it (head_tile). A row of any cache
+//   type is then a whole number of 16-byte copies; the copies past Dh are
+//   zero-filled (nothing is read), the staged query is zero past Dh, so
+//   the scores are Dh's own and the accumulator's columns past Dh hold
+//   zeros, which are not stored. 1/sqrt(Dh) is the caller's, from the
+//   real Dh.
 // * S = 1 has its own instance: one query row, one score a lane (four
 //   interleaved partial sums), p handed to the accumulator by shuffles; a
-//   lane accumulates Dh / 32 dims; two warps a block. A window (1 < S <=
+//   lane accumulates Dh / 32 dims of the tile; two warps a block. A window (1 < S <=
 //   64) takes tiles of 16 query rows, four warps a block; a full tile runs
 //   every row's chains unguarded, so they interleave, and the last tile's
 //   rows past S are skipped by warp-uniform branches, never computed nor
@@ -182,10 +189,13 @@ __device__ __forceinline__ void widen(const uint8_t* p, float* f) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// 16 bytes global -> shared, asynchronously; zeros where `live` is false
+// (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 16 : 0)
                : "memory");
 }
 
@@ -219,9 +229,10 @@ __device__ __forceinline__ void merge(float& m, float& l, float& a, float mb,
 }
 
 // Shared-memory layout of one launch (bytes), for a block of ROWS query
-// rows over Dh = DH. A chunk stage holds 32 K rows then 32 V rows, each
-// padded by 16 bytes so the lanes of a quarter warp, one K row each, hit
-// distinct banks.
+// rows on the tile of head dim DH (32, 64 or 128; the cache's own Dh may be
+// less, its columns past Dh zeros). A chunk stage holds 32 K rows then 32 V
+// rows, each padded by 16 bytes so the lanes of a quarter warp, one K row
+// each, hit distinct banks.
 template <int DH, typename Cache, int ROWS>
 struct Smem {
   // warps a block: two at S = 1, four for a window tile (16 rows give a
@@ -359,19 +370,25 @@ __device__ __forceinline__ void chunk_update(
   }
 }
 
+// DH is the tile's head dim, dh <= DH the operands' own (a multiple of 16,
+// so a row of every cache type is a whole number of 16-byte copies): the
+// copies past dh are zero-filled, the query's columns past dh are zeros,
+// so the scores are dh's and the accumulator's columns past dh are zeros,
+// which are not stored. The scale is the caller's, dh^-1/2.
 template <int DH, typename Cache, typename Q, int ROWS>
 __global__ void __launch_bounds__(Smem<DH, Cache, ROWS>::kThreads)
 decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
             const uint8_t* __restrict__ v, const int32_t* __restrict__ pos,
             float* __restrict__ out, float* __restrict__ ws,
             int* __restrict__ counters, int heads,
-            int s_len, int cap, int split_keys, int stages, float scale) {
+            int s_len, int cap, int dh, int split_keys, int stages,
+            float scale) {
   using L = Smem<DH, Cache, ROWS>;
   constexpr int kWarps = L::kWarps, kThreads = L::kThreads;
-  constexpr int kRowBytes = L::kRowBytes;
   constexpr int kPitch = L::kPitch;
-  constexpr int kUnits = kRowBytes / 16;          // 16-byte units a row
+  constexpr int kUnits = L::kRowBytes / 16;       // 16-byte units a tile row
   constexpr int kVd = DH / 32;                    // dims a lane
+  const int row_bytes = dh * kElem<Cache>;        // a cache row's own bytes
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ps_all = reinterpret_cast<float*>(smem + L::kQ);
@@ -391,7 +408,7 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
   const int k_hi = min(k_lo + split_keys, n_keys);
   const int n_chunks = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
 
-  const int64_t row_off = static_cast<int64_t>(bh) * cap * kRowBytes;
+  const int64_t row_off = static_cast<int64_t>(bh) * cap * row_bytes;
   const uint8_t* kb = k + row_off;
   const uint8_t* vb = v + row_off;
   uint8_t* wring = ring + warp * stages * L::kStage;
@@ -399,7 +416,8 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
                                      : 0;
 
   // the K and V rows of this warp's i-th chunk into its stage (keys past
-  // k_hi are not copied: their scores are masked and their V rows unread)
+  // k_hi are not copied: their scores are masked and their V rows unread;
+  // the units past the row's own bytes are zero-filled)
   auto load = [&](int i) {
     const int ks = k_lo + (warp + i * kWarps) * kKeys;
     const int nk = min(kKeys, k_hi - ks);
@@ -409,9 +427,11 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
       const int e = lane + 32 * c;
       const int j = e / kUnits, u = e % kUnits;
       if (j < nk) {
-        const int64_t src = static_cast<int64_t>(ks + j) * kRowBytes + 16 * u;
-        cp_async16(st + j * kPitch + 16 * u, kb + src);
-        cp_async16(st + (kKeys + j) * kPitch + 16 * u, vb + src);
+        const bool live = 16 * u < row_bytes;
+        const int64_t src =
+            static_cast<int64_t>(ks + j) * row_bytes + (live ? 16 * u : 0);
+        cp_async16(st + j * kPitch + 16 * u, kb + src, live);
+        cp_async16(st + (kKeys + j) * kPitch + 16 * u, vb + src, live);
       }
     }
     cp_async_commit();
@@ -436,10 +456,13 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
     else
       cp_async_commit();
   }
-  // the scaled query rows of this tile (rows past S are never read)
-  const Q* qb = q + (static_cast<int64_t>(bh) * s_len + s0) * DH;
-  for (int e = t; e < nrows * DH; e += kThreads)
-    qs[e] = widen1(qb[e]) * scale;
+  // the scaled query rows of this tile, zeros past dh (rows past S are
+  // never read)
+  const Q* qb = q + (static_cast<int64_t>(bh) * s_len + s0) * dh;
+  for (int e = t; e < nrows * DH; e += kThreads) {
+    const int r = e / DH, d = e % DH;
+    qs[e] = d < dh ? widen1(qb[r * dh + d]) * scale : 0.0f;
+  }
   __syncthreads();
   for (int i = 0; i < n_mine; ++i) {
     if (stages > 1)  // chunk i has landed (chunk i + 1 may be pending)
@@ -506,6 +529,7 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
   const int64_t group = static_cast<int64_t>(bh) * gridDim.y + tile;
   constexpr int kSlot = ROWS * (DH + 2);
   float* part = splits > 1 ? ws + (group * splits + split) * kSlot : nullptr;
+  float* ob = out + (static_cast<int64_t>(bh) * s_len + s0) * dh;
   for (int e = t; e < nrows * DH; e += kThreads) {
     const int r = e / DH;
     float aa = 0.0f;
@@ -515,8 +539,8 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
       aa = fmaf(mg[w * ROWS * (DH + 2) + e], c[1], aa * c[0]);
     }
     if (splits == 1) {
-      out[(static_cast<int64_t>(bh) * s_len + s0) * DH + e] =
-          aa / fmaxf(row_ml[ROWS + r], 1e-30f);
+      if (e % DH < dh)
+        ob[r * dh + e % DH] = aa / fmaxf(row_ml[ROWS + r], 1e-30f);
     } else {
       part[e] = aa;
       if (e % DH == 0) {
@@ -577,9 +601,8 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
 #pragma unroll
   for (int x = 0; x < kPer; ++x) {
     const int e = t + x * kThreads;
-    if (e / DH < nrows)
-      out[(static_cast<int64_t>(bh) * s_len + s0) * DH + e] =
-          aa[x] / fmaxf(ll[x], 1e-30f);
+    if (e / DH < nrows && e % DH < dh)
+      ob[(e / DH) * dh + e % DH] = aa[x] / fmaxf(ll[x], 1e-30f);
   }
 }
 
@@ -587,7 +610,7 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *pos;
   void *out, *ws, *counters;
-  int bh, heads, s_len, cap, split_keys, splits;
+  int bh, heads, s_len, cap, dh, split_keys, splits;
   float scale;
   cudaStream_t st;
 };
@@ -616,30 +639,35 @@ int launch_rows(const Args& a) {
       static_cast<const Q*>(a.q), static_cast<const uint8_t*>(a.k),
       static_cast<const uint8_t*>(a.v), static_cast<const int32_t*>(a.pos),
       static_cast<float*>(a.out), static_cast<float*>(a.ws),
-      static_cast<int*>(a.counters), a.heads, a.s_len, a.cap, a.split_keys,
-      stages, a.scale);
+      static_cast<int*>(a.counters), a.heads, a.s_len, a.cap, a.dh,
+      a.split_keys, stages, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile a head dim runs on: the smallest of 32, 64 and 128 that holds
+// it (cuda_kernels.head_tile keeps the same rule)
+int head_tile(int dh) { return dh <= 32 ? 32 : (dh <= 64 ? 64 : 128); }
+
 template <typename Cache, typename Q = float>
-int launch(const Args& a, int dh) {
+int launch(const Args& a) {
   if (a.bh == 0 || a.s_len == 0) return 0;
-  if (a.split_keys <= 0 || a.split_keys % kKeys != 0 || a.splits < 1 ||
-      a.splits > 65535 ||
+  if (a.dh < 16 || a.dh > 128 || a.dh % 16 != 0 || a.split_keys <= 0 ||
+      a.split_keys % kKeys != 0 || a.splits < 1 || a.splits > 65535 ||
       static_cast<int64_t>(a.split_keys) * a.splits < a.cap ||
       (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool one = a.s_len == 1;
-  if (dh == 32)
-    return one ? launch_rows<32, Cache, Q, 1>(a)
-               : launch_rows<32, Cache, Q, kWinRows>(a);
-  if (dh == 64)
-    return one ? launch_rows<64, Cache, Q, 1>(a)
-               : launch_rows<64, Cache, Q, kWinRows>(a);
-  if (dh == 128)
-    return one ? launch_rows<128, Cache, Q, 1>(a)
-               : launch_rows<128, Cache, Q, kWinRows>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_tile(a.dh)) {
+    case 32:
+      return one ? launch_rows<32, Cache, Q, 1>(a)
+                 : launch_rows<32, Cache, Q, kWinRows>(a);
+    case 64:
+      return one ? launch_rows<64, Cache, Q, 1>(a)
+                 : launch_rows<64, Cache, Q, kWinRows>(a);
+    default:
+      return one ? launch_rows<128, Cache, Q, 1>(a)
+                 : launch_rows<128, Cache, Q, kWinRows>(a);
+  }
 }
 
 }  // namespace
@@ -647,14 +675,16 @@ int launch(const Args& a, int dh) {
 // q (b*h, s, dh) float32 (bfloat16 or float16 for those entry points), k/v
 // cache (b*h, cap, dh) of the entry point's storage type, pos (b,) int32,
 // out (b*h, s, dh) float32; contiguous, one device, the caches 16-byte
-// aligned. dh must be 32, 64 or 128. The key range is cut into `splits` splits
-// of `split_keys` keys (a multiple of 32, split_keys * splits >= cap); with
-// more than one split, ws holds the splits' float32 partials
-// (cuda_kernels._decode_ws_sizes) and counters an int32 counter a (row,
-// query tile), kept at 0 between launches (zeroed once, reset by the
-// kernel; never shared with the partials, whose layout changes with the
-// shape). Returns cudaGetLastError() (cudaErrorInvalidValue for another
-// dh or a split plan the kernel does not take).
+// aligned. dh must be a multiple of 16 from 16 to 128 (it runs on the tile
+// of head_tile(dh)). The key range is cut into `splits` splits of
+// `split_keys` keys (a multiple of 32, split_keys * splits >= cap); with
+// more than one split, ws holds the splits' float32 partials, laid out at
+// the tile's head dim (cuda_kernels._decode_ws_sizes) and counters an int32
+// counter a (row, query tile), kept at 0 between launches (zeroed once,
+// reset by the kernel; never shared with the partials, whose layout
+// changes with the shape). Returns cudaGetLastError()
+// (cudaErrorInvalidValue for another dh or a split plan the kernel does
+// not take).
 #define MX_DECODE_ENTRY(NAME, ...)                                           \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* pos, void* out, void* ws, void* counters, \
@@ -663,9 +693,8 @@ int launch(const Args& a, int dh) {
                       void* stream) {                                       \
     return launch<__VA_ARGS__>(                                              \
         Args{q, k, v, pos, out, ws, counters, batch * heads, heads, s_len,   \
-             cap, split_keys, splits, scale,                                 \
-             static_cast<cudaStream_t>(stream)},                             \
-        dh);                                                                 \
+             cap, dh, split_keys, splits, scale,                             \
+             static_cast<cudaStream_t>(stream)});                            \
   }
 
 MX_DECODE_ENTRY(mx_decode_attention_f32, float)

@@ -21,8 +21,13 @@
 // position holds, at absolute offsets q_off and k_off. Key tiles wholly
 // above the diagonal are not visited, so a query row that sees no key
 // keeps the initial m = -inf, l = 0, acc = 0, as the TPU kernel's scratch
-// does. Dh is 32, 64 or 128; any T is taken; the query tiles with the
-// most keys are scheduled first.
+// does. Dh is any multiple of 16 up to 128, run on the smallest of the Dh
+// 32, 64 and 128 tiles that holds it (head_tile; the 16-bit instances take
+// the Dh 64 tiles for 16, 32 and 48): the operands' columns past Dh reach
+// the tiles as zeros, which leave the scores unchanged and give the
+// accumulator zero columns that are not stored, and the scale is the
+// caller's, 1/sqrt of the real Dh. Any T is taken; the query tiles with
+// the most keys are scheduled first.
 //
 // Two designs, one per element type.
 //
@@ -70,9 +75,10 @@
 //  - S = Q . K^T is one wgmma (.f32.bf16.bf16 / .f32.f16.f16) per 16 of
 //    Dh on q and k as they are stored: a product of two 16-bit values is
 //    exact in float32 and wgmma sums in float32. The float32 S is then
-//    multiplied by `scale`. At Dh = 64 the scale, 1/8, is a power of two
-//    and this is the reference's (q * scale) . k apart from the order of
-//    the sums; at Dh = 128 it differs by O(1) float32 ulp.
+//    multiplied by `scale`. At Dh = 16 and 64 the scale, 1/4 or 1/8, is
+//    a power of two and this is the reference's (q * scale) . k apart
+//    from the order of the sums; at any other Dh it differs by O(1)
+//    float32 ulp.
 //  - the mask and the online softmax above, in float32, as the float32
 //    instance computes them; l sums the unsplit float32 p.
 //  - P . V: each float32 p is split into p_hi = round16(p) and p_lo =
@@ -104,12 +110,14 @@
 // memory (MN-major: the transpose bit). Tile j's S is issued together
 // with tile j - 1's P . V, and tile j's softmax runs while that product
 // finishes. Bk is 128 keys at Dh = 64 (S: 64 registers a thread) and 64
-// at Dh = 128, where the accumulator doubles. Dh = 32 runs the Dh = 64
-// tiles on TMA maps whose inner dimension is 32: the box's columns 32 to
-// 63 arrive as zeros, which leave S unchanged and give P . V zero columns
-// that are not stored; the scale is the caller's (32^-1/2). It pays the
-// Dh = 64 products for half the bytes: the softmax's float32 work a
-// score, which sets the pace, is the same. Keys past Tk get -inf
+// at Dh = 128, where the accumulator doubles. A Dh below its tile's (16,
+// 32 and 48 on the Dh = 64 tiles; 80, 96 and 112 on Dh = 128's) runs on
+// TMA maps whose inner dimension is the real Dh: the box stays 64 columns
+// (128 bytes, the swizzle's span) and its columns past Dh arrive as
+// zeros, which leave S unchanged and give P . V zero columns that are not
+// stored; the scale is the caller's (Dh^-1/2). It pays the tile's
+// products for fewer bytes: the softmax's float32 work a score, which
+// sets the pace, is the same. Keys past Tk get -inf
 // scores, and queries past Tq are not written. What holds it at ~1.8x
 // SDPA's time (PERF.md, PR 13): the softmax's float32 work a score (the
 // accurate expf, the guards, the split) beside 1.5x the products of a
@@ -129,10 +137,10 @@
 
 namespace {
 
-// One launch's operands: q (bh, Tq, DH), k and v (bh, Tk, DH); out (bh,
-// Tq, DH) in the element type for the normalized mode, acc (bh, Tq, DH),
+// One launch's operands: q (bh, Tq, dh), k and v (bh, Tk, dh); out (bh,
+// Tq, dh) in the element type for the normalized mode, acc (bh, Tq, dh),
 // m and l (bh, Tq) float32 for the partial mode (the other outputs are
-// null).
+// null). dh is the operands' own head dim, at most the tile's DH.
 struct Args {
   const void* q;
   const void* k;
@@ -141,9 +149,13 @@ struct Args {
   float* acc;
   float* m;
   float* l;
-  int bh, Tq, Tk, q_off, k_off, causal;
+  int bh, Tq, Tk, dh, q_off, k_off, causal;
   float scale;
 };
+
+// The tile a head dim runs on: the smallest of 32, 64 and 128 that holds
+// it (cuda_kernels.head_tile keeps the same rule)
+int head_tile(int dh) { return dh <= 32 ? 32 : (dh <= 64 ? 64 : 128); }
 
 // ==========================================================================
 // float32: the CUDA cores
@@ -229,18 +241,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy the kBk K and V rows of one (b, h) row from key k0 on into a stage:
-// K into a padded [kBk][kLd] tile, V into [kBk][DH]; rows past Tk zeros.
+// Copy the kBk K and V rows (dh floats each) of one (b, h) row from key k0
+// on into a stage: K into a padded [kBk][kLd] tile, V into [kBk][DH]; rows
+// past Tk and columns past dh zeros.
 template <int DH>
 __device__ __forceinline__ void copy_kv(const float* __restrict__ kb,
                                         const float* __restrict__ vb, int k0,
-                                        int Tk, float* ks, float* vs) {
+                                        int Tk, int dh, float* ks, float* vs) {
   using C = Cfg<DH>;
   constexpr int kBk = C::kBk, kUnits = DH / 4;
   for (int e = threadIdx.x; e < kBk * kUnits; e += C::kThreads) {
     const int r = e / kUnits, u = e % kUnits;
-    const bool live = k0 + r < Tk;
-    const int64_t src = live ? static_cast<int64_t>(k0 + r) * DH + 4 * u : 0;
+    const bool live = k0 + r < Tk && 4 * u < dh;
+    const int64_t src = live ? static_cast<int64_t>(k0 + r) * dh + 4 * u : 0;
     cp_async16(ks + r * C::kLd + 4 * u, kb + src, live);
     cp_async16(vs + r * DH + 4 * u, vb + src, live);
   }
@@ -264,13 +277,13 @@ __global__ void __launch_bounds__(128, 1)
   const int t = threadIdx.x;
   const int cg = t % kG, rg = t / kG;
   const int bh = blockIdx.x;
-  const int Tq = op.Tq, Tk = op.Tk, causal = op.causal;
+  const int Tq = op.Tq, Tk = op.Tk, causal = op.causal, dh = op.dh;
   // blocks start in order of x, then y: every row's heaviest query tile
   // (the most keys under the causal mask) first
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBq;
-  const int64_t k_base = static_cast<int64_t>(bh) * Tk * DH;
+  const int64_t k_base = static_cast<int64_t>(bh) * Tk * dh;
   const float* qb = static_cast<const float*>(op.q) +
-                    static_cast<int64_t>(bh) * Tq * DH;
+                    static_cast<int64_t>(bh) * Tq * dh;
   const float* kb = static_cast<const float*>(op.k) + k_base;
   const float* vb = static_cast<const float*>(op.v) + k_base;
   // the causal test in shard-local positions: key kp is live for query qp
@@ -279,17 +292,18 @@ __global__ void __launch_bounds__(128, 1)
   // key tiles wholly above the tile's last query row are not visited
   const int k_end = causal ? min(Tk, q0 + kBq + shift) : Tk;
   if (k_end > 0) {
-    // the Q tile (zeros past Tq) and tile 0's K and V copies all in
-    // flight; once Q has landed, each thread scales the units it copied
+    // the Q tile (zeros past Tq and past dh) and tile 0's K and V copies
+    // all in flight; once Q has landed, each thread scales the units it
+    // copied
     for (int e = t; e < kBq * DH / 4; e += C::kThreads) {
       const int r = e / (DH / 4), u = e % (DH / 4);
-      const bool live = q0 + r < Tq;
+      const bool live = q0 + r < Tq && 4 * u < dh;
       cp_async16(qs + r * kLd + 4 * u,
-                 qb + (live ? static_cast<int64_t>(q0 + r) * DH + 4 * u : 0),
+                 qb + (live ? static_cast<int64_t>(q0 + r) * dh + 4 * u : 0),
                  live);
     }
     cp_async_commit();
-    copy_kv<DH>(kb, vb, 0, Tk, kst, vst);
+    copy_kv<DH>(kb, vb, 0, Tk, dh, kst, vst);
     cp_async_wait<1>();  // Q's group
     for (int e = t; e < kBq * DH / 4; e += C::kThreads) {
       float4* p = reinterpret_cast<float4*>(qs + (e / (DH / 4)) * kLd +
@@ -316,7 +330,7 @@ __global__ void __launch_bounds__(128, 1)
     cp_async_wait<0>();
     __syncthreads();
     if (k0 + kBk < k_end)
-      copy_kv<DH>(kb, vb, k0 + kBk, Tk, kst + (stage ^ 1) * C::kK,
+      copy_kv<DH>(kb, vb, k0 + kBk, Tk, dh, kst + (stage ^ 1) * C::kK,
                   vst + (stage ^ 1) * C::kV);
     const float* ks = kst + stage * C::kK;
     const float* vs = vst + stage * C::kV;
@@ -423,28 +437,31 @@ __global__ void __launch_bounds__(128, 1)
     }
   }
 
-  // emit: acc / l, or (partial) the registers as they stand
+  // emit: acc / l, or (partial) the registers as they stand; the columns
+  // 4 cg + 4 kG h .. + 3 of a thread's group h lie wholly below dh or not
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
     const int qp = q0 + rg + kRg * j;
     if (qp >= Tq) continue;
     const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
     if (PARTIAL) {
-      float* arow = op.acc + row * DH;
+      float* arow = op.acc + row * dh;
 #pragma unroll
       for (int h = 0; h < kCs / 4; ++h)
-        *reinterpret_cast<float4*>(arow + 4 * cg + 4 * kG * h) =
-            make_float4(acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2],
-                        acc[j][4 * h + 3]);
+        if (4 * cg + 4 * kG * h < dh)
+          *reinterpret_cast<float4*>(arow + 4 * cg + 4 * kG * h) =
+              make_float4(acc[j][4 * h], acc[j][4 * h + 1],
+                          acc[j][4 * h + 2], acc[j][4 * h + 3]);
       if (cg == 0) {  // the kG lanes of a row hold the same m and l
         op.m[row] = m[j];
         op.l[row] = l[j];
       }
     } else {
       const float lj = fmaxf(l[j], 1e-30f);
-      float* orow = static_cast<float*>(op.out) + row * DH;
+      float* orow = static_cast<float*>(op.out) + row * dh;
 #pragma unroll
       for (int h = 0; h < kCs / 4; ++h) {
+        if (4 * cg + 4 * kG * h >= dh) continue;
         float o[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[e] = acc[j][4 * h + e] / lj;
@@ -775,10 +792,10 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-// DH is the tile's head dim (64 or 128); DO <= DH the operands' own, the
-// columns written (DO = 32 runs the DH = 64 tiles: TMA fills the columns
-// past DO with zeros, which leave S unchanged and give P . V zero columns)
-template <typename E, int DH, int DO, bool PARTIAL>
+// DH is the tile's head dim (64 or 128); op.dh <= DH the operands' own, the
+// columns written (TMA fills the columns past it with zeros, which leave S
+// unchanged and give P . V zero columns)
+template <typename E, int DH, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
@@ -960,28 +977,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // emit: acc / l rounded once, or (partial) the registers as they stand;
   // accumulator register 4 i + 2 h + e is row r0 + 8 h, column 8 i + cq + e
+  // (8-column block i lies wholly below dh, a multiple of 16, or not)
+  const int dh = op.dh;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qp = r0 + 8 * h;
     if (qp >= Tq) continue;
     const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
     if (PARTIAL) {
-      float* arow = op.acc + row * DO;
+      float* arow = op.acc + row * dh;
 #pragma unroll
-      for (int i = 0; i < DO / 8; ++i)
-        *reinterpret_cast<float2*>(arow + 8 * i + cq) =
-            make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
+      for (int i = 0; i < DH / 8; ++i)
+        if (8 * i < dh)
+          *reinterpret_cast<float2*>(arow + 8 * i + cq) =
+              make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
       if (lane % 4 == 0) {  // the 4 lanes of a row hold the same m and l
         op.m[row] = m[h];
         op.l[row] = l[h];
       }
     } else {
       const float lh = fmaxf(l[h], 1e-30f);
-      E* orow = static_cast<E*>(op.out) + row * DO;
+      E* orow = static_cast<E*>(op.out) + row * dh;
 #pragma unroll
-      for (int i = 0; i < DO / 8; ++i)
-        Ty<E>::store2(orow + 8 * i + cq, o[4 * i + 2 * h] / lh,
-                      o[4 * i + 2 * h + 1] / lh);
+      for (int i = 0; i < DH / 8; ++i)
+        if (8 * i < dh)
+          Ty<E>::store2(orow + 8 * i + cq, o[4 * i + 2 * h] / lh,
+                        o[4 * i + 2 * h + 1] / lh);
     }
   }
 }
@@ -1013,8 +1034,8 @@ EncodeTiled encoder() {
 }
 
 // A (bh, T, dh) 16-bit operand as the 3-D map (dh, T, bh) with boxes of
-// 64 columns x `rows` rows x 1, 128-byte swizzle, zeros outside (at dh =
-// 32 a box's columns 32 to 63)
+// 64 columns x `rows` rows x 1, 128-byte swizzle, zeros outside (a box's
+// columns past dh)
 template <typename E>
 bool tile_map(CUtensorMap* map, const void* ptr, int bh, int T, int dh,
               int rows) {
@@ -1033,14 +1054,14 @@ bool tile_map(CUtensorMap* map, const void* ptr, int bh, int T, int dh,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename E, int DH, int DO, bool PARTIAL>
+template <typename E, int DH, bool PARTIAL>
 int launch(const Args& a, cudaStream_t st) {
   using C = Cfg<DH>;
   constexpr int bytes = C::kSmem;
   const int n_qt = (a.Tq + kBq - 1) / kBq;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc<E, DH, DO, PARTIAL>,
+      flash_tc<E, DH, PARTIAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // an empty K/V shard is never read: its maps are drawn over q
@@ -1048,11 +1069,11 @@ int launch(const Args& a, cudaStream_t st) {
   const void* k = a.Tk > 0 ? a.k : a.q;
   const void* v = a.Tk > 0 ? a.v : a.q;
   CUtensorMap mq, mk, mv;
-  if (!tile_map<E>(&mq, a.q, a.bh, a.Tq, DO, kBq) ||
-      !tile_map<E>(&mk, k, a.bh, tk, DO, C::kBk) ||
-      !tile_map<E>(&mv, v, a.bh, tk, DO, C::kBk))
+  if (!tile_map<E>(&mq, a.q, a.bh, a.Tq, a.dh, kBq) ||
+      !tile_map<E>(&mk, k, a.bh, tk, a.dh, C::kBk) ||
+      !tile_map<E>(&mv, v, a.bh, tk, a.dh, C::kBk))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_tc<E, DH, DO, PARTIAL><<<dim3(a.bh, n_qt), kThreads, bytes, st>>>(
+  flash_tc<E, DH, PARTIAL><<<dim3(a.bh, n_qt), kThreads, bytes, st>>>(
       mq, mk, mv, a, n_qt);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1060,28 +1081,29 @@ int launch(const Args& a, cudaStream_t st) {
 }  // namespace tc
 
 template <typename E, bool PARTIAL>
-int dispatch(const Args& a, int dh, void* stream) {
+int dispatch(const Args& a, void* stream) {
+  if (a.dh < 16 || a.dh > 128 || a.dh % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.bh == 0 || a.Tq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tile = head_tile(a.dh);
   if constexpr (std::is_same<E, float>::value) {
-    if (dh == 32) return cc::launch<32, PARTIAL>(a, st);
-    if (dh == 64) return cc::launch<64, PARTIAL>(a, st);
-    if (dh == 128) return cc::launch<128, PARTIAL>(a, st);
-  } else {
-    if (dh == 32) return tc::launch<E, 64, 32, PARTIAL>(a, st);
-    if (dh == 64) return tc::launch<E, 64, 64, PARTIAL>(a, st);
-    if (dh == 128) return tc::launch<E, 128, 128, PARTIAL>(a, st);
+    if (tile == 32) return cc::launch<32, PARTIAL>(a, st);
+    if (tile == 64) return cc::launch<64, PARTIAL>(a, st);
+    return cc::launch<128, PARTIAL>(a, st);
+  } else {  // wgmma reads 128-byte rows: the Dh 64 tiles hold 16 to 64
+    if (tile <= 64) return tc::launch<E, 64, PARTIAL>(a, st);
+    return tc::launch<E, 128, PARTIAL>(a, st);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename E>
 int normalized(const void* q, const void* k, const void* v, void* out,
                int bh, int T, int dh, int causal, float scale,
                void* stream) {
-  const Args a{q, k, v, out, nullptr, nullptr, nullptr, bh, T, T, 0, 0,
+  const Args a{q, k, v, out, nullptr, nullptr, nullptr, bh, T, T, dh, 0, 0,
                causal, scale};
-  return dispatch<E, false>(a, dh, stream);
+  return dispatch<E, false>(a, stream);
 }
 
 template <typename E>
@@ -1090,15 +1112,15 @@ int partial(const void* q, const void* k, const void* v, void* acc, void* m,
             int causal, float scale, void* stream) {
   const Args a{q, k, v, nullptr, static_cast<float*>(acc),
                static_cast<float*>(m), static_cast<float*>(l), bh, Tq, Tk,
-               q_off, k_off, causal, scale};
-  return dispatch<E, true>(a, dh, stream);
+               dh, q_off, k_off, causal, scale};
+  return dispatch<E, true>(a, stream);
 }
 
 }  // namespace
 
 // q, k, v, out (bh, T, dh) float32, contiguous, 16-byte aligned, one
-// device; dh must be 32, 64 or 128 and bh <= 65535. Returns
-// cudaGetLastError() (cudaErrorInvalidValue for another dh).
+// device; dh must be a multiple of 16 from 16 to 128 and bh <= 65535.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for another dh).
 extern "C" int mx_flash_attention_f32(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int T, int dh, int causal, float scale,
@@ -1126,8 +1148,8 @@ extern "C" int mx_flash_attention_f16(const void* q, const void* k,
 
 // Partial mode: q (bh, Tq, dh), k and v (bh, Tk, dh) float32, contiguous,
 // 16-byte aligned, one device; acc (bh, Tq, dh), m and l (bh, Tq) float32
-// out. dh must be 32, 64 or 128 and bh <= 65535. Returns
-// cudaGetLastError().
+// out. dh must be a multiple of 16 from 16 to 128 and bh <= 65535.
+// Returns cudaGetLastError().
 extern "C" int mx_flash_attention_partial_f32(
     const void* q, const void* k, const void* v, void* acc, void* m, void* l,
     int bh, int Tq, int Tk, int dh, int q_off, int k_off, int causal,

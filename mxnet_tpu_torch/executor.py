@@ -12,6 +12,16 @@ training forward (BatchNorm's moving statistics), and after every forward
 of a ``stateful_infer`` op (the KV caches and their cursors). ``outputs``
 holds the forward's output NDArrays.
 
+Prologues: an op that declares a per-forward prologue
+(``ops.registry.OpDef.set_prologue``) has it run once a forward, before
+the nodes, over all of its nodes whose declared inputs come straight from
+variables (their values as the graph reads them, cast included); each of
+those nodes then runs on its prepared tensor. ``QuantizedConvolution``'s
+prologue dequantizes every such conv weight in one call: one launch on the
+card a forward (a conv whose weight the graph computes dequantizes its own,
+one launch), and all of the forward's float32 conv weights exist together
+until the forward ends.
+
 Training: ``forward(is_train=True)`` records autograd. Every argument
 whose ``grad_req`` is not ``"null"`` enters the graph as a leaf that
 shares its cell's storage; ``backward(out_grads)`` seeds ones for loss
@@ -51,7 +61,7 @@ import torch
 
 from .base import MXNetError
 from .ndarray import NDArray, to_torch_dtype
-from .ops.registry import dispatch
+from .ops.registry import dispatch, dispatch_prepared, run_prologue
 from .parallel.spmd import plan_scope
 
 __all__ = ["Executor", "parse_compute_dtype", "cast_counts",
@@ -159,6 +169,7 @@ class Executor:
         self.grad_dict = {n: grads[n] for n, r in self.grad_req.items()
                           if r != "null"}
         self._nodes = symbol._topo_nodes()
+        self._prologues = _prologue_plan(self._nodes)
         self._loss_mask = [not n.is_variable and n.opdef().is_loss
                            for n, _ in symbol._outputs]
         self.outputs = []
@@ -258,14 +269,28 @@ class Executor:
                     t = leaves[node.name] if node.name in leaves else \
                         self.arg_dict[node.name].astorch()
                 values[id(node)] = [self._load(node.name, t)]
+        # each declared prologue once, over all of its nodes, before them
+        prepared = {}
+        for opdef, nodes in self._prologues:
+            pos = opdef.prologue["inputs"]
+            groups = [tuple(values[id(node.inputs[i][0])][0] for i in pos)
+                      for node in nodes]
+            prepared.update(zip(map(id, nodes), run_prologue(opdef, groups)))
+        for node in self._nodes:
+            if node.is_variable:
                 continue
             opdef = node.opdef()
             ins = [values[id(inp)][idx] for inp, idx in node.inputs]
             n_aux = len(opdef.aux_names(node.attrs))
             regular = ins[:len(ins) - n_aux] if n_aux else ins
             aux = ins[len(ins) - n_aux:] if n_aux else []
-            outs, new_aux = dispatch(opdef, node.attrs, regular, aux,
-                                     is_train, None)
+            if id(node) in prepared:
+                outs, new_aux = dispatch_prepared(
+                    opdef, node.attrs, regular, prepared.pop(id(node)), aux,
+                    is_train, None)
+            else:
+                outs, new_aux = dispatch(opdef, node.attrs, regular, aux,
+                                         is_train, None)
             if not ins:
                 # a source op (``_arange``: the learned positions' ids)
                 # makes its tensor on the host; it belongs on the bound
@@ -320,6 +345,22 @@ class Executor:
             if self.grad_req[name] == "add":
                 g = cell.astorch() + g
             cell._set(g)
+
+
+def _prologue_plan(nodes):
+    """[(opdef, [node, ...])]: for each op that declares a prologue, its
+    nodes whose inputs at the declared positions all come straight from
+    variables, in topological order."""
+    plan = {}
+    for node in nodes:
+        if node.is_variable:
+            continue
+        opdef = node.opdef()
+        if opdef.prologue is not None and all(
+                i < len(node.inputs) and node.inputs[i][0].is_variable
+                for i in opdef.prologue["inputs"]):
+            plan.setdefault(opdef.name, (opdef, []))[1].append(node)
+    return list(plan.values())
 
 
 def _write_back(old, new):

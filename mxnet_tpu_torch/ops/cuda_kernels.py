@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
-``rtc.py``'s flash-attention kernel). Eighteen kernels, each in a CUDA
+``rtc.py``'s flash-attention kernel). Nineteen kernels, each in a CUDA
 C++ source under ``mxnet_tpu_torch/csrc/`` (the flash-attention forward
 and its partial mode share one source and one library, as each update's
-one-array and multi-tensor kernels do; the LayerNorm backward's three
-wrappers launch one kernel, with one half off or none):
+and the conv-weight dequant's one-array and multi-tensor kernels do; the
+LayerNorm backward's three wrappers launch one kernel, with one half off
+or none):
 
 ===========================  ==================================================  ===================
 wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)          source
@@ -28,6 +29,7 @@ wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)         
 ``flash_attention_partial``  ``_flash_kernel(partial=True)`` (ring attention)    flash_attention.cu
 ``qfc_matmul``               ``_qfc_kernel`` of ``mxnet_tpu/ops/quant.py``       qfc_matmul.cu
 ``dequant_rows``             ``_dequant_rows_kernel`` of ``ops/quant.py``        dequant_rows.cu
+``dequant_rows_multi``       ``_dequant_rows_kernel`` over a forward's weights   dequant_rows.cu
 ``bn_stats``                 ``_bn_stats_kernel`` (``_pl_channel_stats``)        bn_stats.cu
 ``bn_apply_relu``            ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
 ===========================  ==================================================  ===================
@@ -56,8 +58,9 @@ before the output. The updates (``sgd_mom_update``,
 ``MULTI_CAP`` arrays, each with its own lr and wd, the JAX package's
 fused step's update; ``Module.update`` takes them) take float32 master
 weights and states only, and
-``dequant_rows`` writes float32 rows from narrow weights whatever the
-data's type. ``flash_attention_partial`` has the three instances too,
+``dequant_rows`` (and ``dequant_rows_multi``, every conv weight of a
+forward in one launch: ``QuantizedConvolution``'s per-forward prologue)
+writes float32 rows from narrow weights whatever the data's type. ``flash_attention_partial`` has the three instances too,
 and writes its float32 state whatever its input's type. A CUDA tensor
 of a dtype no instance takes raises, naming the dtype.
 With the ones from ``layernorm_bwd`` to ``flash_attention`` they
@@ -162,7 +165,8 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "flash_attention_partial", "flash_attention_partial_plain",
            "embedding_bwd_plain", "layernorm_fn", "bias_gelu_fn",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
-           "dequant_rows_plain", "bn_stats", "bn_stats_plain",
+           "dequant_rows_plain", "dequant_rows_multi",
+           "dequant_rows_multi_plain", "bn_stats", "bn_stats_plain",
            "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
            "conv_bn_relu_fn", "decode_attention_bf16",
            "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
@@ -251,6 +255,10 @@ _SPECS = {
                      {"f32:int8": "mx_dequant_rows_i8_f32",
                       "f32:e4m3": "mx_dequant_rows_e4m3_f32"},
                      [_P, _P, _P, _I, _I, _P]),
+    "dequant_rows_multi": ("dequant_rows.cu",
+                           {"f32:int8": "mx_dequant_rows_multi_i8_f32",
+                            "f32:e4m3": "mx_dequant_rows_multi_e4m3_f32"},
+                           [_P, _L, _I, _P]),
     "bn_stats": ("bn_stats.cu", {"f32": "mx_bn_stats_f32",
                                  "bf16": "mx_bn_stats_bf16",
                                  "f16": "mx_bn_stats_f16"},
@@ -835,9 +843,26 @@ def decode_attention_plain(q, k_cache, v_cache, pos):
 #: fp8 cache storage dtype -> the storage part of its instance key
 _FP8_STORAGE = {torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
 
-#: the head dims the attention kernels take (decode read, flash forward and
-#: its partial mode): every other Dh raises on the card
-HEAD_DIMS = (32, 64, 128)
+#: the attention kernels' tiles by head dim (decode read, flash forward and
+#: its partial mode; the 16-bit flash instances have the Dh 64 and 128 ones)
+HEAD_TILES = (32, 64, 128)
+#: the head dims the attention kernels take: every multiple of 16 up to the
+#: largest tile, so that a row of every cache type is a whole number of
+#: 16-byte copies; every other Dh raises on the card
+HEAD_DIMS = tuple(range(16, HEAD_TILES[-1] + 1, 16))
+
+
+def head_tile(dh):
+    """The tile head dim ``dh`` runs on: the smallest of HEAD_TILES that
+    holds it (the sources' ``head_tile`` keeps the same rule). The columns
+    past ``dh`` reach the tile as zeros and are not stored."""
+    return next(t for t in HEAD_TILES if dh <= t)
+
+
+def _check_head_dim(name, dh):
+    if dh not in HEAD_DIMS:
+        raise MXNetError(f"{name}: head dim {dh} — the kernel takes a "
+                         f"multiple of 16 from 16 to {HEAD_DIMS[-1]}")
 
 #: the decode kernel's shapes (csrc/decode_attention.cu): keys a warp
 #: takes at once (one a lane), query rows a window tile, and warps a block
@@ -858,7 +883,11 @@ def _decode_splits(bh, s, c, sms):
     cache keeps few partials to merge. The rule counts blocks, not bytes:
     at one d_model, Dh 32 has twice Dh 64's rows (B*H), so it takes half
     the splits and a block reads the same bytes (the bench LM's served
-    step: 2 splits of 128 keys at Dh 32, 4 of 64 at Dh 64)."""
+    step: 2 splits of 128 keys at Dh 32, 4 of 64 at Dh 64). Nor does a
+    head dim between the tiles change the plan: at d_model 384 over 8
+    heads of 48 or 6 of 64 the served step takes 4 splits of 64 keys, so a
+    block reads 48 / 64 of the bytes a Dh 64 block reads; at d_model 640
+    over 8 heads of 80 or 10 of 64, 80 / 64 of them."""
     tiles = 1 if s == 1 else -(-s // DECODE_WIN_ROWS)
     chunks = max(1, -(-c // DECODE_CHUNK))
     blocks = 2 * sms if s == 1 else max(1, sms // 2)
@@ -898,7 +927,7 @@ def _decode_plan(q, bh, s, c, dh):
     if plan is None:
         splits, keys = _decode_splits(bh, s, c, _sm_count(dev))
         plan = _DECODE_PLAN[(dev, bh, s, c, dh)] = (
-            splits, keys, *_decode_ws_sizes(bh, s, dh, splits))
+            splits, keys, *_decode_ws_sizes(bh, s, head_tile(dh), splits))
     if plan[0] == 1:
         return plan[0], plan[1], 0, 0
     key = (dev, torch._C._cuda_getCurrentRawStream(dev))
@@ -924,8 +953,9 @@ def decode_attention(q, k_cache, v_cache, pos):
     read (no float32 copy of the cache is made); fp8 launches count in
     ``decode_attention_fp8``. The key range is split over blocks
     (``_decode_splits``) and the splits merged in order inside the same
-    launch. The kernel takes Dh in {32, 64, 128}, S <= 64, and caches
-    16-byte aligned (every cache is read 16 bytes a copy)."""
+    launch. The kernel takes Dh a multiple of 16 up to 128 (on the tile
+    ``head_tile(Dh)``), S <= 64, and caches 16-byte aligned (every cache
+    is read 16 bytes a copy)."""
     if not _cpu_or_cuda("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if k_cache.dtype in _FP8_STORAGE:
@@ -941,9 +971,7 @@ def decode_attention(q, k_cache, v_cache, pos):
            v_cache=(v_cache, k_cache.dtype), pos=(pos, torch.int32))
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
-    if Dh not in HEAD_DIMS:
-        raise MXNetError(f"decode_attention: head dim {Dh} — the kernel "
-                         "takes 32, 64 or 128")
+    _check_head_dim("decode_attention", Dh)
     if S > 64:
         raise MXNetError(f"decode_attention: window S={S} > 64")
     if tuple(k_cache.shape) != (B, H, C, Dh) or \
@@ -1120,16 +1148,15 @@ def _multi_dtype(ops):
 _MULTI_TABLE = {ops: _multi_dtype(ops) for ops in (3, 4)}
 
 
-def _multi_plan(lens):
-    """The launches of a multi-tensor update over arrays of lengths
+def _multi_plan(lens, chunk=MULTI_CHUNK, cap=MULTI_CAP):
+    """The launches of a multi-tensor kernel over arrays of lengths
     ``lens``, in index order: (positions in the list, cumulative
-    MULTI_CHUNK-element chunk counts) for each, at most MULTI_CAP arrays
-    a launch; zero-length arrays are left out."""
+    ``chunk``-element chunk counts) for each, at most ``cap`` arrays a
+    launch; zero-length arrays are left out."""
     lens = np.asarray(lens, np.int64)
     live = np.flatnonzero(lens > 0)
-    return [(pos, np.cumsum(-(-lens[pos] // MULTI_CHUNK)))
-            for pos in (live[s:s + MULTI_CAP]
-                        for s in range(0, len(live), MULTI_CAP))]
+    return [(pos, np.cumsum(-(-lens[pos] // chunk)))
+            for pos in (live[s:s + cap] for s in range(0, len(live), cap))]
 
 
 def _multi_tables(ptrs, lens, lrs, wds):
@@ -1528,9 +1555,9 @@ def flash_attention(q, k, v, causal=False):
     stored (exact float32 products, float32 sums), the float32 scores are
     then scaled and take the same float32 online softmax, and P . V is
     p_hi . V + p_lo . V with p_hi = round16(p), p_lo = round16(p - p_hi).
-    The kernel takes Dh in {32, 64, 128}, any T, and Tq == Tk only (the
-    16-bit instances run Dh 32 on the Dh 64 tiles, the columns past 32
-    zeros)."""
+    The kernel takes Dh a multiple of 16 up to 128, any T, and Tq == Tk
+    only (Dh runs on the tile ``head_tile(Dh)``, the 16-bit instances on
+    the Dh 64 tiles at Dh <= 64, the columns past Dh zeros)."""
     if not _cpu_or_cuda("flash_attention", q):
         return flash_attention_plain(q, k, v, causal)
     key = _instance("flash_attention", q)
@@ -1543,9 +1570,7 @@ def flash_attention(q, k, v, causal=False):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, T, Dh = q.shape
-    if Dh not in HEAD_DIMS:
-        raise MXNetError(f"flash_attention: head dim {Dh} — the kernel "
-                         "takes 32, 64 or 128")
+    _check_head_dim("flash_attention", Dh)
     if B * H > 65535:
         raise MXNetError(f"flash_attention: B*H={B * H} > 65535")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -1605,8 +1630,8 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     plain``); the 16-bit instances run on the tensor cores as
     ``flash_attention``'s do (exact 16-bit products summed in float32,
     the float32 softmax, P . V from P split into two 16-bit terms). The
-    scale defaults to 1/sqrt(Dh). The kernel takes Dh in {32, 64, 128}
-    and any Tq, Tk."""
+    scale defaults to 1/sqrt(Dh). The kernel takes Dh a multiple of 16 up
+    to 128 (as ``flash_attention``) and any Tq, Tk."""
     if scale is None:
         scale = _ring_scale(q)
     if not _cpu_or_cuda("flash_attention_partial", q):
@@ -1621,9 +1646,7 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
                          f"k, v (B, H, Tk, Dh), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Tq, Dh = q.shape
-    if Dh not in HEAD_DIMS:
-        raise MXNetError(f"flash_attention_partial: head dim {Dh} — the "
-                         "kernel takes 32, 64 or 128")
+    _check_head_dim("flash_attention_partial", Dh)
     if B * H > 65535:
         raise MXNetError(f"flash_attention_partial: B*H={B * H} > 65535")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -1773,6 +1796,123 @@ def dequant_rows(wq2, scale):
     _launch("dequant_rows", key, wq2, wq2.data_ptr(), scale.data_ptr(),
             out.data_ptr(), rows, cols)
     return out
+
+
+#: weights a multi-weight dequant launch's table holds, and values a block
+#: dequantizes (csrc/dequant_rows.cu kCap and kChunk)
+DEQUANT_CAP, DEQUANT_CHUNK = 512, 16384
+#: the multi-weight dequant's launch table (csrc/dequant_rows.cu ``Table``)
+#: as a numpy structured type: the same fields in the same order
+_DEQUANT_TABLE = np.dtype([
+    ("w", np.uint64, DEQUANT_CAP), ("s", np.uint64, DEQUANT_CAP),
+    ("out", np.uint64, DEQUANT_CAP), ("n", np.int64, DEQUANT_CAP),
+    ("cols", np.int32, DEQUANT_CAP), ("chunk_end", np.int32, DEQUANT_CAP),
+    ("vec", np.int32, DEQUANT_CAP), ("count", np.int32), ("pad", np.int32)])
+
+
+def dequant_rows_multi_plain(weights, scales):
+    """``float(w[o, ...]) * s[o]`` for each weight w (O, ...) and its scale
+    s (O,): the plain dequant weight by weight, float32 in each weight's
+    shape."""
+    return [dequantize(w, s) for w, s in zip(weights, scales)]
+
+
+def _dequant_tables(wptrs, sptrs, optrs, rows, cols, chunk=DEQUANT_CHUNK):
+    """(table, blocks) for each launch of a multi-weight dequant over
+    weights (rows, cols) at ``wptrs`` with scales at ``sptrs`` into
+    outputs at ``optrs``: each table a 0-d array of ``_DEQUANT_TABLE``, at
+    most DEQUANT_CAP weights, a block a ``chunk``-value chunk (the
+    kernel's kChunk). A weight
+    takes the 16-byte route where its columns are a multiple of 16 and its
+    weight and output lie on 16-byte boundaries; any other weight the
+    kernel's one-value route."""
+    wptrs, sptrs, optrs = (np.asarray(p, np.uint64)
+                           for p in (wptrs, sptrs, optrs))
+    cols = np.asarray(cols, np.int64)
+    ns = np.asarray(rows, np.int64) * cols
+    vec = (cols % 16 == 0) & (wptrs % 16 == 0) & (optrs % 16 == 0)
+    out = []
+    for pos, ends in _multi_plan(ns, chunk, DEQUANT_CAP):
+        table, k = np.zeros((), _DEQUANT_TABLE), len(pos)
+        for field, vals in (("w", wptrs), ("s", sptrs), ("out", optrs),
+                            ("n", ns), ("cols", cols), ("vec", vec)):
+            table[field][:k] = vals[pos]
+        table["chunk_end"][:k] = ends
+        table["count"] = k
+        out.append((table, int(ends[-1])))
+    return out
+
+
+def _dequant_multi_check(weights, scales):
+    """The storage key of a multi-weight dequant on the card: every tensor
+    on one CUDA device and contiguous, the weights of one storage type
+    (int8 or float8_e4m3fn), each scale float32 (O,) for its weight (O,
+    ...). One walk over the pairs; the first pair that breaks a rule
+    raises, naming its position."""
+    name = "dequant_rows_multi"
+    storage = _quant_storage(name, weights[0])
+    dev, wdt, f32 = weights[0].get_device(), weights[0].dtype, torch.float32
+    for i, (w, sc) in enumerate(zip(weights, scales)):
+        if w.dtype is wdt and sc.dtype is f32 and w.ndim >= 1 and \
+                w.get_device() == dev == sc.get_device() and \
+                w.is_contiguous() and sc.is_contiguous() and \
+                sc.shape == w.shape[:1]:
+            continue
+        if w.dtype is not wdt:
+            raise MXNetError(f"{name}: weights[{i}] is {w.dtype}, "
+                             f"weights[0] {wdt}: one storage type a call")
+        _check(name, **{f"weights[{i}]": (w, wdt),
+                        f"scales[{i}]": (sc, f32)})
+        if w.get_device() != dev:
+            raise MXNetError(f"{name}: weights[{i}] is on {w.device}, "
+                             f"weights[0] on {weights[0].device}")
+        raise MXNetError(f"{name}: want scales[{i}] (O,) for weights[{i}] "
+                         f"(O, ...), got {tuple(sc.shape)} and "
+                         f"{tuple(w.shape)}")
+    return storage
+
+
+@_wrapper("dequant_rows_multi")
+def dequant_rows_multi(weights, scales):
+    """``dequant_rows`` of every weight of the list: weights (O, ...) int8 or
+    float8_e4m3fn, one storage type a call, scales (O,) float32 ->
+    float32 tensors in the weights' shapes, bit for bit the plain
+    version's. On the card one launch for up to DEQUANT_CAP weights (a
+    longer list takes more, in order); the outputs are views of one
+    allocation, each starting on a 16-byte boundary. CPU tensors run the
+    plain version; a list that mixes devices raises. An empty list
+    launches nothing."""
+    weights, scales = list(weights), list(scales)
+    if len(weights) != len(scales):
+        raise MXNetError(f"dequant_rows_multi: {len(weights)} weights, "
+                         f"{len(scales)} scales")
+    if not weights:
+        return []
+    if not _cpu_or_cuda("dequant_rows_multi", weights[0]):
+        bad = next((i for i, t in enumerate(weights + scales)
+                    if not t.is_cpu), None)
+        if bad is not None:
+            raise MXNetError(f"dequant_rows_multi: tensor {bad} of the "
+                             "lists is on a CUDA device, weights[0] on the "
+                             "CPU")
+        return dequant_rows_multi_plain(weights, scales)
+    key = "f32:" + _dequant_multi_check(weights, scales)
+    shapes = list(map(_SHAPE, weights))
+    numels = list(map(torch.Tensor.numel, weights))
+    rows = [sh[0] for sh in shapes]
+    padded = np.asarray([-(-n // 4) * 4 for n in numels], np.int64)
+    offs = np.cumsum(padded) - padded
+    flat = torch.empty(int(padded.sum()), dtype=torch.float32,
+                       device=weights[0].device)
+    for table, blocks in _dequant_tables(
+            list(map(torch.Tensor.data_ptr, weights)),
+            list(map(torch.Tensor.data_ptr, scales)),
+            np.uint64(flat.data_ptr()) + 4 * offs.astype(np.uint64), rows,
+            [n // r if r else 0 for n, r in zip(numels, rows)]):
+        _launch("dequant_rows_multi", key, flat, table.ctypes.data,
+                table.nbytes, blocks)
+    return [torch.as_strided(flat, sh, w.stride(), int(off))
+            for sh, w, off in zip(shapes, weights, offs)]
 
 
 # ==========================================================================
@@ -2071,17 +2211,37 @@ def _qfc_cuda(attrs, inputs, aux, is_train, rng):
 
 
 def _qconv_cuda(attrs, inputs, aux, is_train, rng):
-    """QuantizedConvolution on the card: the row-dequant kernel rebuilds
-    the float32 weight, then cuDNN convolves in the data's dtype (the
-    weight cast to it, as the JAX package's convolution casts it; the
-    convolution stays a library call, as it stays XLA's in the JAX
-    package). Under ``compute_dtype`` the scale arrives in the compute
-    dtype and is widened exactly."""
+    """QuantizedConvolution on the card where the graph computes its
+    weight: the row-dequant kernel rebuilds the float32 weight, then
+    cuDNN convolves in the data's dtype (the weight cast to it, as the
+    JAX package's convolution casts it; the convolution stays a library
+    call, as it stays XLA's in the JAX package). Under ``compute_dtype``
+    the scale arrives in the compute dtype and is widened exactly. A conv
+    whose weight and scale are variables takes the op's prologue
+    (``_qconv_prologue``) instead."""
     data, weight, scale = inputs[:3]
     wf = dequant_rows(weight.reshape(weight.shape[0], -1),
                       scale.to(torch.float32))
     return [nn_convolution(attrs, data, wf.reshape(weight.shape),
                            inputs[3] if len(inputs) > 3 else None)], []
+
+
+def _qconv_prologue(groups):
+    """QuantizedConvolution's per-forward prologue: the float32 weights of
+    all the forward's nodes whose weight and scale are variables, from one
+    ``dequant_rows_multi`` call (one launch on the card; the plain version
+    on the CPU), each scale in a compute dtype widened exactly first."""
+    return dequant_rows_multi(
+        [w for w, _ in groups],
+        [s if s.dtype is torch.float32 else s.to(torch.float32)
+         for _, s in groups])
+
+
+def _qconv_prepared(attrs, inputs, aux, is_train, rng):
+    """QuantizedConvolution on the float32 weight its prologue made: the
+    convolution alone, in the data's dtype (cuDNN on the card)."""
+    return [nn_convolution(attrs, inputs[0], inputs[1],
+                           inputs[2] if len(inputs) > 2 else None)], []
 
 
 def _cbr_cuda(attrs, inputs, aux, is_train, rng):
@@ -2119,3 +2279,5 @@ get_op("QuantizedFullyConnected").add_variant("cuda", _qfc_cuda,
                                               backward_pending=_QUANT_BWD)
 get_op("QuantizedConvolution").add_variant("cuda", _qconv_cuda,
                                            backward_pending=_QUANT_BWD)
+get_op("QuantizedConvolution").set_prologue((1, 2), _qconv_prologue,
+                                            _qconv_prepared)

@@ -29,6 +29,14 @@ naming that kernel, and ``dispatch`` refuses to run it on inputs that
 require grad — its output would carry no autograd history, and the
 gradient would be lost without a word.
 
+Prologues: an op may declare a per-forward prologue over the inputs of
+its nodes that come straight from variables (``OpDef.set_prologue``). The
+executor runs it once a forward, before the nodes, over every such node of
+the op together (``run_prologue``: one launch on the card where it is a
+multi-tensor kernel), and each of those nodes then runs on its prepared
+tensor (``dispatch_prepared``). ``QuantizedConvolution`` declares one: its
+conv weights' dequant, one launch a forward where there was one a conv.
+
 Cost metadata: ``flops(attrs, in_shapes)`` and ``bytes_moved(attrs,
 in_shapes)`` estimate one forward execution at those input shapes
 (``ops/cost.py`` seeds them; ``telemetry/mfu.py`` folds them over a bound
@@ -43,7 +51,8 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "OP_REGISTRY",
-           "dispatch", "refuse_without_backward"]
+           "dispatch", "dispatch_prepared", "run_prologue",
+           "refuse_without_backward"]
 
 OP_REGISTRY = {}
 
@@ -92,6 +101,7 @@ class OpDef:
         self.is_loss = bool(is_loss)
         self.mutate_inputs = tuple(mutate_inputs)
         self.forward = forward
+        self.prologue = None
         self.variants = {}
         for vname, vfn in (variants or {}).items():
             self.add_variant(vname, vfn)
@@ -154,6 +164,22 @@ class OpDef:
                                "backward_pending": backward_pending}
         return self
 
+    # --- per-forward prologue ----------------------------------------------
+    def set_prologue(self, inputs, run, forward):
+        """Declare a per-forward prologue over the inputs at positions
+        ``inputs``. For the nodes of this op whose inputs there all come
+        straight from variables, the executor calls ``run`` once a forward,
+        before any node runs, with those inputs of every such node (a list
+        of tuples, in node order); ``run`` returns one prepared tensor per
+        node and dispatches by device itself, as a kernel wrapper does.
+        Such a node then runs ``forward`` (the full signature) on its
+        inputs with its prepared tensor at ``inputs[0]`` and the other
+        positions of ``inputs`` taken out. A node whose inputs there are
+        computed by the graph runs the op as usual."""
+        self.prologue = {"inputs": tuple(inputs), "run": run,
+                         "forward": forward}
+        return self
+
     # --- cost metadata ------------------------------------------------------
     def set_cost(self, flops=None, bytes_moved=None):
         """Attach or replace cost metadata (fn(attrs, in_shapes) -> float)."""
@@ -202,14 +228,46 @@ def dispatch(opdef, attrs, inputs, aux, is_train, rng):
     """Run one op: the ``"cuda"`` variant when its tensors lie on a CUDA
     device and the op has one, the plain ``forward`` otherwise. The
     device of the first tensor input (else the first aux) decides."""
-    lead = next((t for t in list(inputs) + list(aux) if t is not None),
-                None)
-    if lead is not None and lead.device.type == "cuda" and \
-            "cuda" in opdef.variants:
-        variant = opdef.variants["cuda"]
+    variant = _cuda_variant(opdef, list(inputs) + list(aux))
+    if variant is not None:
         refuse_without_backward(opdef, variant, inputs)
         return variant["fn"](attrs, inputs, aux, is_train, rng)
     return opdef.forward(attrs, inputs, aux, is_train, rng)
+
+
+def _cuda_variant(opdef, tensors):
+    """The op's ``"cuda"`` variant where the first of ``tensors`` lies on a
+    CUDA device and the op has one, else None."""
+    lead = next((t for t in tensors if t is not None), None)
+    if lead is not None and lead.device.type == "cuda":
+        return opdef.variants.get("cuda")
+    return None
+
+
+def run_prologue(opdef, groups):
+    """The prepared tensors of ``opdef``'s prologue over ``groups`` (one
+    tuple of inputs a node). Refused, as ``dispatch`` refuses the op's
+    CUDA variant, where that variant has no backward and an input requires
+    grad."""
+    variant = _cuda_variant(opdef, groups[0])
+    if variant is not None:
+        refuse_without_backward(opdef, variant,
+                                [t for group in groups for t in group])
+    return opdef.prologue["run"](groups)
+
+
+def dispatch_prepared(opdef, attrs, inputs, prepared, aux, is_train, rng):
+    """Run a node on the tensor its op's prologue prepared: ``inputs`` are
+    all the node's inputs, and ``prepared`` takes the place of those the
+    prologue read. The CUDA variant's refusal of inputs that require grad
+    holds here too."""
+    variant = _cuda_variant(opdef, list(inputs) + list(aux))
+    if variant is not None:
+        refuse_without_backward(opdef, variant, inputs)
+    pos = opdef.prologue["inputs"]
+    merged = [prepared if i == pos[0] else t for i, t in enumerate(inputs)
+              if i not in pos[1:]]
+    return opdef.prologue["forward"](attrs, merged, aux, is_train, rng)
 
 
 def refuse_without_backward(opdef, variant, inputs):

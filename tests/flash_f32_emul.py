@@ -2,8 +2,9 @@
 namespace ``cc``) in plain PyTorch, for the CPU tests
 (``tests/test_torch_flash_f32.py``). Torch only.
 
-For every (b, h) row and query tile of ``TILES[Dh][0]`` rows, the key
-tiles of ``TILES[Dh][1]`` keys are walked in order from key
+For every (b, h) row and query tile of ``TILES[tile][0]`` rows, the key
+tiles of ``TILES[tile][1]`` keys (``tile``: the smallest tile head dim that
+holds Dh, whose columns past Dh are zeros) are walked in order from key
 0, up to the tile's last live key under the causal mask (tiles wholly
 above the diagonal are not visited); each tile's scores are (q * scale) .
 k in float32, masked (-inf) where a key is past Tk or above the diagonal,
@@ -28,7 +29,7 @@ def flash_f32(q, k, v, q_off=0, k_off=0, causal=False, scale=None,
     kernel's output: (B, H, Tq, Dh), or (acc, m, l) when ``partial``."""
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
-    bq, bk = TILES[Dh]
+    bq, bk = TILES[min(t for t in TILES if t >= Dh)]
     if scale is None:
         scale = float(Dh) ** -0.5
     qs = (q.to(torch.float32) * scale).reshape(B * H, Tq, Dh)

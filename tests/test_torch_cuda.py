@@ -188,8 +188,13 @@ def test_bias_gelu_kernel(dev, n, c):
     _same(ck.bias_gelu(x, b), ck.bias_gelu_plain(x, b))
 
 
+#: every head dim the attention kernels take: the Dh 32, 64 and 128 tiles'
+#: own and the multiples of 16 between them, which run on the next tile
+HEAD_DIMS = [16, 32, 48, 64, 80, 96, 112, 128]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("S,C", [(1, 256), (16, 256), (17, 100), (64, 64)])
 def test_decode_attention_kernel(dev, dh, S, C):
     B, H = 3, 2
@@ -211,7 +216,7 @@ def _fp8_cache(dev, shape, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", _FP8, ids=["e4m3", "e5m2"])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("S,C", [(1, 256), (4, 256), (64, 256), (17, 100)])
 def test_decode_attention_fp8_kernel(dev, dtype, dh, S, C):
     """The fp8 instances against the plain read of the same cells, at
@@ -280,7 +285,7 @@ def _split_inputs(dev, inst, B, H, S, C, dh, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 16, 64])
 @pytest.mark.parametrize("C", [64, 256, 4096])
 @pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
@@ -322,7 +327,9 @@ def test_decode_attention_repeats_bit_for_bit(dev, inst, S, C):
 @pytest.mark.parametrize("S,C,dh", [(1, 256, 64), (1, 4096, 128),
                                     (16, 256, 64), (64, 256, 128),
                                     (1, 256, 32), (64, 256, 32),
-                                    (3, 100, 32)])
+                                    (3, 100, 32), (1, 256, 16),
+                                    (64, 256, 48), (1, 4096, 80),
+                                    (16, 256, 96), (3, 100, 112)])
 def test_decode_attention_matches_split_emulation(dev, S, C, dh):
     """The float32 kernel against ``tests/decode_split_emul.py``, the
     same splits in the same order on the CPU, within 2e-5."""
@@ -336,14 +343,16 @@ def test_decode_attention_matches_split_emulation(dev, S, C, dh):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(dev):
-    q = _rnd(dev, 1, 1, 1, 48)
-    kc = _rnd(dev, 1, 1, 8, 48)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(MXNetError, match="head dim 48 .* takes 32, 64 or"):
-        ck.decode_attention(q, kc, kc, pos)
-    k8 = fp8_cast(_rnd(dev, 1, 1, 8, 48), torch.float8_e4m3fn)
-    with pytest.raises(MXNetError, match="head dim"):
-        ck.decode_attention(q, k8, k8, pos)
+    for dh in (24, 144, 8):
+        q = _rnd(dev, 1, 1, 1, dh)
+        kc = _rnd(dev, 1, 1, 8, dh)
+        with pytest.raises(MXNetError, match=f"head dim {dh} .* multiple "
+                                             "of 16 from 16 to 128"):
+            ck.decode_attention(q, kc, kc, pos)
+        k8 = fp8_cast(_rnd(dev, 1, 1, 8, dh), torch.float8_e4m3fn)
+        with pytest.raises(MXNetError, match="head dim"):
+            ck.decode_attention(q, k8, k8, pos)
     q64 = _rnd(dev, 1, 1, 1, 64)
     flat = fp8_cast(_rnd(dev, 1 + 9 * 64), torch.float8_e5m2)
     k8 = flat[:9 * 64].view(1, 1, 9, 64)
@@ -902,9 +911,11 @@ def test_flash_attention_kernel(dev, shape, causal):
 
 @pytest.mark.cuda
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
-    q = _rnd(dev, 1, 2, 16, 48)
-    with pytest.raises(MXNetError, match="head dim 48 .* takes 32, 64 or"):
-        ck.flash_attention(q, q, q, True)
+    for dh in (24, 144):
+        q = _rnd(dev, 1, 2, 16, dh)
+        with pytest.raises(MXNetError, match=f"head dim {dh} .* multiple "
+                                             "of 16 from 16 to 128"):
+            ck.flash_attention(q, q, q, True)
     q = _rnd(dev, 1, 2, 16, 64)
     with pytest.raises(MXNetError, match="Tq == Tk"):
         ck.flash_attention(q, _rnd(dev, 1, 2, 8, 64), _rnd(dev, 1, 2, 8, 64))
@@ -1144,7 +1155,8 @@ def test_quantized_module_under_compute_dtype_on_card(dev, half):
     card and on the CPU from the same parameters: the probabilities in
     the compute dtype within a few of its ulps at 1 (2e-2 for bfloat16,
     2.5e-3 for float16) and the same top-1; one 16-bit matmul launch, one
-    dequant launch and the head's 16-bit softmax a forward."""
+    multi-weight dequant launch (the conv prologue's) and the head's
+    16-bit softmax a forward."""
     data = mx.sym.var("data")
     c = mx.sym.Convolution(data=data, kernel=(3, 3), num_filter=8,
                            pad=(1, 1), name="c1")
@@ -1173,8 +1185,8 @@ def test_quantized_module_under_compute_dtype_on_card(dev, half):
         outs[ctx.device_type] = out.asnumpy().astype(np.float32)
         if ctx.device_type == "gpu":
             counts = {k: v for k, v in ck.launch_counts().items() if v}
-            assert counts == {"qfc_matmul_" + sfx: 1, "dequant_rows": 1,
-                              "softmax_" + sfx: 1}
+            assert counts == {"qfc_matmul_" + sfx: 1,
+                              "dequant_rows_multi": 1, "softmax_" + sfx: 1}
     np.testing.assert_allclose(outs["gpu"], outs["cpu"],
                                atol=_PROB_TOL[half])
     assert outs["gpu"].argmax(1).tolist() == outs["cpu"].argmax(1).tolist()
@@ -1201,6 +1213,96 @@ def test_dequant_rows_kernel_bitwise(dev, storage, rows, cols):
         # promotes to float32 and rounds each product once
         lib = torch.mul(w, s.unsqueeze(1))
         assert torch.equal(got.view(torch.int32), lib.view(torch.int32))
+
+
+def _resnet50_conv_shapes():
+    """The 53 conv weights' shapes of ResNet-50 (1000 classes)."""
+    from mxnet_tpu_torch.models import resnet
+    sym = resnet.get_symbol(1000, 50, "3,224,224")
+    shapes, _, _ = sym.infer_shape(data=(1, 3, 224, 224))
+    return [s for s in shapes if len(s) == 4 and s != (1, 3, 224, 224)]
+
+
+def _dequant_lists(dev, shapes, storage, seed=0):
+    ws = [_quant_weight(dev, sh[0], int(np.prod(sh[1:])), storage,
+                        seed=seed + i).reshape(sh)
+          for i, sh in enumerate(shapes)]
+    ss = [_rnd(dev, sh[0], seed=seed + i).abs() / 100 + 1e-3
+          for i, sh in enumerate(shapes)]
+    return ws, ss
+
+
+def _int_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+def test_dequant_rows_multi_resnet50_bitwise(dev, storage):
+    """The multi-weight dequant over ResNet-50's 53 conv weights: one
+    launch, each output bit for bit the plain version's and the
+    single-array kernel's, in its weight's shape, 16-byte aligned."""
+    shapes = _resnet50_conv_shapes()
+    assert len(shapes) == 53
+    ws, ss = _dequant_lists(dev, shapes, storage)
+    before = ck.launch_counts()
+    got = ck.dequant_rows_multi(ws, ss)
+    after = ck.launch_counts()
+    assert _moved(before, after, ("dequant_rows_multi", "dequant_rows")) == \
+        {"dequant_rows_multi": 1, "dequant_rows": 0}
+    torch.cuda.synchronize()
+    for w, sc, g in zip(ws, ss, got):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert g.data_ptr() % 16 == 0
+        assert torch.equal(_int_bits(g), _int_bits(ck.dequant_rows_plain(w, sc)))
+        assert torch.equal(_int_bits(g).reshape(w.shape[0], -1),
+                           _int_bits(ck.dequant_rows(w.reshape(w.shape[0], -1),
+                                                 sc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", _QSTORAGE, ids=["int8", "e4m3"])
+def test_dequant_rows_multi_edges(dev, storage):
+    """The scalar route in the same launch (147 columns, 13 columns, one
+    column, an offset view of a weight), an empty weight, and more weights
+    than one table holds (two launches, in order): bit for bit the plain
+    version's; the same bits on a repeat."""
+    shapes = [(64, 3, 7, 7), (5, 13), (3, 1), (0, 16), (256, 64, 1, 1)] + \
+        [(2, 16)] * (ck.DEQUANT_CAP + 3)
+    ws, ss = _dequant_lists(dev, shapes, storage, seed=7)
+    flat = _quant_weight(dev, 1, 1 + 32 * 48, storage, seed=3).reshape(-1)
+    ws.append(flat[1:].view(32, 48))            # 1 byte off: the scalar route
+    ss.append(_rnd(dev, 32, seed=4).abs() + 1e-3)
+    before = ck.launch_counts()["dequant_rows_multi"]
+    got = ck.dequant_rows_multi(ws, ss)
+    again = ck.dequant_rows_multi(ws, ss)
+    assert ck.launch_counts()["dequant_rows_multi"] == before + 4
+    torch.cuda.synchronize()
+    for w, sc, g, g2 in zip(ws, ss, got, again):
+        assert g.shape == w.shape
+        assert torch.equal(_int_bits(g), _int_bits(ck.dequant_rows_plain(w, sc)))
+        assert torch.equal(_int_bits(g), _int_bits(g2))
+
+
+@pytest.mark.cuda
+def test_dequant_rows_multi_refuses_what_it_does_not_take(dev):
+    w = _quant_weight(dev, 4, 16, torch.int8)
+    e = _quant_weight(dev, 4, 16, torch.float8_e4m3fn)
+    s = torch.ones(4, device=dev)
+    with pytest.raises(MXNetError, match="one storage type"):
+        ck.dequant_rows_multi([w, e], [s, s])
+    with pytest.raises(MXNetError, match="takes torch.int8 or"):
+        ck.dequant_rows_multi([w.float()], [s])
+    with pytest.raises(MXNetError, match="scales\\[1\\] .*torch.float32"):
+        ck.dequant_rows_multi([w, w], [s, s.half()])
+    with pytest.raises(MXNetError, match="want scales\\[0\\] \\(O,\\)"):
+        ck.dequant_rows_multi([w], [torch.ones(3, device=dev)])
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.dequant_rows_multi([w.t()], [torch.ones(16, device=dev)])
+    with pytest.raises(MXNetError, match="CUDA tensor"):
+        ck.dequant_rows_multi([w, w.cpu()], [s, s.cpu()])
+    with pytest.raises(MXNetError, match="on a CUDA device"):
+        ck.dequant_rows_multi([w.cpu(), w], [s.cpu(), s])
 
 
 @pytest.mark.cuda
@@ -1241,7 +1343,8 @@ def test_quantized_variants_refuse_what_they_do_not_take(dev):
 def test_quantized_server_on_card(dev, tier):
     """A small convnet served through mx.serve.serve on gpu(0) and on the
     CPU from the same parameters: the same outputs (TF32 off), no kernel
-    build after warmup, and exactly one dequant per conv and one fused
+    build after warmup, and exactly one dequant launch per forward (the
+    conv prologue's, over every conv weight) and one fused
     matmul per dense layer on every card forward."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1280,8 +1383,11 @@ def test_quantized_server_on_card(dev, tier):
             assert server.stats()["compiles_since_warmup"] == 0
             assert h.bucket == 4
             if ctx.device_type == "gpu":
-                assert warm["dequant_rows"] == warm["qfc_matmul"] == 6
-                assert counts["dequant_rows"] == counts["qfc_matmul"] == 7
+                assert warm["dequant_rows_multi"] == \
+                    warm["qfc_matmul"] == 6
+                assert counts["dequant_rows_multi"] == \
+                    counts["qfc_matmul"] == 7
+                assert counts["dequant_rows"] == 0
             else:
                 assert not any(counts.values()), counts
             server.stop()
@@ -1610,7 +1716,7 @@ def test_bias_gelu_bf16_kernel(dev, n, c, half):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("half", list(HALVES))
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 16, 48, 80, 96, 112])
 @pytest.mark.parametrize("S,C", [(1, 256), (16, 256), (17, 100), (64, 64)])
 def test_decode_attention_bf16_kernel(dev, dh, S, C, half):
     """bfloat16 q and caches, widened exactly: within 2e-5 of the plain
@@ -1648,9 +1754,9 @@ def test_bf16_decode_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(MXNetError, match="want torch.bfloat16"):
         ck.decode_attention_bf16(q, kc.float(), kc.float(), pos)
     with pytest.raises(MXNetError, match="head dim"):
-        ck.decode_attention(q[..., :48].contiguous(),
-                            kc[..., :48].contiguous(),
-                            kc[..., :48].contiguous(), pos)
+        ck.decode_attention(q[..., :24].contiguous(),
+                            kc[..., :24].contiguous(),
+                            kc[..., :24].contiguous(), pos)
     x, g = _rnd(dev, 2, 8).to(bf), _rnd(dev, 8).to(bf)
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.layernorm(x, g.float(), g, 1e-5)               # float32 gamma
@@ -2339,7 +2445,12 @@ def test_bias_gelu_dx_bf16_kernel(dev, n, c, half):
                                    (1, 2, 257, 128), (1, 4, 1024, 128),
                                    (8, 16, 1024, 32), (2, 2, 1, 32),
                                    (1, 2, 127, 32), (1, 2, 129, 32),
-                                   (1, 3, 257, 32)])
+                                   (1, 3, 257, 32), (2, 2, 1, 16),
+                                   (1, 2, 129, 16), (2, 8, 1024, 48),
+                                   (1, 2, 127, 48), (1, 2, 257, 48),
+                                   (2, 8, 1024, 80), (1, 2, 65, 80),
+                                   (1, 2, 129, 96), (2, 2, 1, 96),
+                                   (1, 3, 200, 112), (1, 2, 63, 112)])
 def test_flash_attention_bf16_kernel(dev, shape, causal, half):
     """16-bit q and k straight into the tensor cores, S scaled in
     float32, the float32 online softmax, P . V as p_hi . V + p_lo . V,
@@ -2370,7 +2481,7 @@ def test_lm_bf16_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.flash_attention(q, q.float(), q, True)
     with pytest.raises(MXNetError, match="head dim"):
-        t = _rnd(dev, 1, 2, 16, 48).to(bf)
+        t = _rnd(dev, 1, 2, 16, 24).to(bf)
         ck.flash_attention(t, t, t)
     x, g = _rnd(dev, 4, 8).to(bf), _rnd(dev, 8).to(bf)
     m = torch.zeros(4, device=dev)
@@ -2514,7 +2625,15 @@ _PARTIAL_CASES = [(2, 8, 1024, 1024, 64, 0, 0, False),
                   (2, 16, 1024, 1024, 32, 2048, 1024, True),
                   (2, 16, 1024, 1024, 32, 1024, 1024, True),
                   (1, 2, 300, 260, 32, 517, 130, True),
-                  (1, 1, 1, 64, 32, 5, 0, True)]
+                  (1, 1, 1, 64, 32, 5, 0, True),
+                  # the head dims between the tiles: a past shard, the
+                  # diagonal, a ragged shift and one query
+                  (2, 8, 512, 512, 16, 1024, 512, True),
+                  (2, 8, 512, 512, 48, 512, 512, True),
+                  (1, 2, 300, 260, 80, 517, 130, True),
+                  (1, 1, 1, 64, 96, 5, 0, True),
+                  (1, 2, 200, 333, 112, 77, 0, True),
+                  (2, 2, 256, 384, 48, 0, 93, True)]
 
 
 def _partial_close(got, want, tol=TOL):
@@ -2558,36 +2677,38 @@ def test_flash_attention_partial_kernel(dev, case, dtype):
 
 
 #: a demangled flash kernel: ``...::tc::flash_tc<__half, (int)64,
-#: (int)32, (bool)1>`` (16-bit: the tile's head dim, then the stored
-#: one) or ``...::cc::flash_fwd<(int)64, (bool)0>``
+#: (bool)1>`` (16-bit: the tile's head dim) or ``...::cc::flash_fwd<
+#: (int)64, (bool)0>``
 _FLASH_INSTANCE = re.compile(r"::(flash_tc|flash_fwd)<(?:(\w+), )?"
-                             r"\(int\)(\d+), (?:\(int\)(\d+), )?"
-                             r"\(bool\)([01])>")
+                             r"\(int\)(\d+), \(bool\)([01])>")
 
 
 def _flash_instances():
-    """{(element type, Dh, partial): what the compiler made of it} for
-    the flash-attention library's eight kernels (float32 on the CUDA
+    """{(element type, tile Dh, partial): what the compiler made of it}
+    for the flash-attention library's ten kernels (float32 on the CUDA
     cores, ``flash_fwd``; the 16-bit instances, ``flash_tc``)."""
     out = {}
     for fn, res in ck.resources("flash_attention").items():
         m = _FLASH_INSTANCE.search(fn)
         if m:
-            kind, elem, tile, dh, partial = m.groups()
-            assert (kind == "flash_fwd") == (elem is None) == (dh is None)
-            out[(elem or "float", int(dh or tile), partial == "1")] = res
+            kind, elem, tile, partial = m.groups()
+            assert (kind == "flash_fwd") == (elem is None)
+            out[(elem or "float", int(tile), partial == "1")] = res
     return out
 
 
 @pytest.mark.cuda
 def test_flash_attention_16bit_instances_use_wgmma(dev):
     """The SASS of the bfloat16 and float16 instances, both modes, every
-    head dim, holds HGMMA (wgmma); the float32 instances' holds none:
-    the reference's Precision.HIGHEST rules out TF32."""
+    tile (Dh 64's, which also runs Dh 16 to 48, and Dh 128's), holds
+    HGMMA (wgmma); the float32 instances' holds none: the reference's
+    Precision.HIGHEST rules out TF32."""
     inst = _flash_instances()
     assert set(inst) == {(e, dh, p) for e in ("float", "__nv_bfloat16",
                                               "__half")
-                         for dh in (32, 64, 128) for p in (False, True)}
+                         for dh in ((32, 64, 128) if e == "float"
+                                    else (64, 128))
+                         for p in (False, True)}
     for key, res in inst.items():
         hgmma = res["sass"].get("HGMMA", 0)
         assert (hgmma > 0) == (key[0] != "float"), (key, hgmma)
@@ -2606,7 +2727,7 @@ def test_flash_attention_16bit_instances_do_not_spill(dev):
 
 @pytest.mark.cuda
 def test_flash_attention_partial_refuses_what_it_does_not_take(dev):
-    q = _rnd(dev, 1, 2, 16, 48)
+    q = _rnd(dev, 1, 2, 16, 144)
     with pytest.raises(MXNetError, match="head dim"):
         ck.flash_attention_partial(q, q, q)
     q = _rnd(dev, 1, 2, 16, 64)
@@ -2804,7 +2925,7 @@ def test_qfc_matmul_does_not_spill(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 1000])
 def test_flash_attention_float32_tiles(dev, T, dh, causal):
     """Row 14 float32 at T on both sides of the 64-key and the 64- / 128-
@@ -2823,7 +2944,7 @@ _F32_SHARDS = [(1024, 1024, 2048, 1024), (1024, 1024, 1024, 1024),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("shard", _F32_SHARDS)
 def test_flash_attention_partial_float32_shards(dev, shard, dh):
     """Row 15 float32: acc, m and l against the plain version, the rows
@@ -2946,14 +3067,13 @@ def _dh32_lm_params(sym, **shapes):
             if n not in ("data", "softmax_label")}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("half", [None] + list(HALVES))
-def test_small_lm_at_head_dim_32_decodes_on_card(dev, half):
-    """A small LM at Dh 32 (d_model 64, 2 heads) through serve_decoder on
-    the card and on the CPU: the same greedy chains in float32 (a 16-bit
-    card run: tokens of the CPU's vocabulary, every chain its length) and
-    the Dh 32 decode read launched in the instance of the type."""
-    V, D, L, H, CAP = 96, 64, 2, 2, 32
+def _small_lm_decodes(half, dh):
+    """A small LM at head dim ``dh`` (2 heads, 2 layers) through
+    serve_decoder on the card and on the CPU: the same greedy chains in
+    float32 (a 16-bit card run: tokens of the CPU's vocabulary, every chain
+    its length) and the decode read launched in the instance of the
+    type."""
+    V, D, L, H, CAP = 96, 2 * dh, 2, 2, 32
     sym = tfm.get_decode_symbol(vocab_size=V, d_model=D, n_layer=L,
                                 n_head=H, capacity=CAP, per_slot=True)
     params = _dh32_lm_params(sym, data=(1, 1))
@@ -2980,16 +3100,31 @@ def test_small_lm_at_head_dim_32_decodes_on_card(dev, half):
 
 
 @pytest.mark.cuda
-def test_small_lm_at_head_dim_32_fits_on_card(dev):
-    """Four SGD batches of a small LM at Dh 32 (d_model 64, 2 heads) on
-    the card and on the CPU, TF32 off: parameters within 1e-4 and L flash
+@pytest.mark.parametrize("half", [None] + list(HALVES))
+def test_small_lm_at_head_dim_32_decodes_on_card(dev, half):
+    """``_small_lm_decodes`` at Dh 32 (d_model 64)."""
+    _small_lm_decodes(half, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [None] + list(HALVES))
+@pytest.mark.parametrize("dh", [48, 80])
+def test_small_lm_at_head_dims_48_and_80_decodes_on_card(dev, dh, half):
+    """``_small_lm_decodes`` at Dh 48 and 80 (d_model 96, 160), head dims
+    between the kernels' tiles."""
+    _small_lm_decodes(half, dh)
+
+
+def _small_lm_fits(dh):
+    """Four SGD batches of a small LM at head dim ``dh`` (2 heads) on the
+    card and on the CPU, TF32 off: parameters within 1e-4 and L flash
     launches a step; then two ring steps (fit(spmd=True, mesh=
     MeshConfig(seq=4))) launch L x 10 partial kernels a step."""
     from mxnet_tpu_torch.parallel import MeshConfig
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        V, D, L, H, T, B, N = 96, 64, 2, 2, 64, 4, 4
+        V, D, L, H, T, B, N = 96, 2 * dh, 2, 2, 64, 4, 4
         sym = tfm.get_symbol(V, D, L, H, T)
         params = _dh32_lm_params(sym, data=(B, T), softmax_label=(B * T,))
         out = {}
@@ -3017,3 +3152,16 @@ def test_small_lm_at_head_dim_32_fits_on_card(dev):
         assert counts["flash_attention"] == 0
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_small_lm_at_head_dim_32_fits_on_card(dev):
+    """``_small_lm_fits`` at Dh 32 (d_model 64)."""
+    _small_lm_fits(32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [48, 80])
+def test_small_lm_at_head_dims_48_and_80_fit_on_card(dev, dh):
+    """``_small_lm_fits`` at Dh 48 and 80 (d_model 96, 160)."""
+    _small_lm_fits(dh)

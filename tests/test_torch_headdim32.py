@@ -1,29 +1,34 @@
-"""Attention at head dim 32 (d_model 256 over 8 heads, the bench LM over 16
-heads): ``mxnet_tpu_torch`` against ``mxnet_tpu`` on the CPU.
+"""Attention at the head dims between the kernels' tiles (16, 32, 48, 80,
+96 and 112; every test is one case a Dh): ``mxnet_tpu_torch`` against
+``mxnet_tpu`` on the CPU.
 
-The card's three attention kernels take Dh 32 beside 64 and 128: the decode
-read (``csrc/decode_attention.cu``, a lane's one V dim), the float32 flash
-forward and its partial mode (``cc::Tile<32>``: 128-query tiles of 64 keys)
-and their 16-bit instances (the Dh 64 tiles on TMA maps whose inner
-dimension is 32: the columns past 32 arrive as zeros, which leave the
-scores unchanged and give P . V zero columns that are not stored). The
-kernels run only on a card; here, on the same numpy-seeded values, within
-the limits their own tests use:
+The card's three attention kernels take every head dim that is a multiple
+of 16 up to 128, each on the smallest of the Dh 32, 64 and 128 tiles that
+holds it (``cuda_kernels.head_tile``): the decode read
+(``csrc/decode_attention.cu``, the copies past Dh zero-filled), the
+float32 flash forward and its partial mode (``cc::Tile<32 | 64 | 128>``)
+and their 16-bit instances (the Dh 64 tiles at Dh <= 64, Dh 128's above,
+on TMA maps whose inner dimension is the real Dh: the columns past Dh
+arrive as zeros, which leave the scores unchanged and give P . V zero
+columns that are not stored). 1/sqrt(Dh) is the real Dh's. The kernels
+run only on a card; here, on the same numpy-seeded values, within the
+limits their own tests use:
 
 * the decode read's order of work (``tests/decode_split_emul.py``, the
   wrapper's split plan) and its plain version against the JAX package's
   Pallas kernel in interpret mode, for every cache type (float32,
   bfloat16, float16, float8_e4m3fn, float8_e5m2), S = 1 and windows:
   2e-5 (every cell widened exactly; float32 sums in other orders);
-* the float32 flash forward's order (``tests/flash_f32_emul.py``) in
-  both modes against ``rtc.flash_attention`` / ``flash_attention_partial``
-  (Pallas, interpret) and the plain versions: 2e-5;
+* the float32 flash forward's order (``tests/flash_f32_emul.py``, on the
+  tile the kernel takes) in both modes against ``rtc.flash_attention`` /
+  ``flash_attention_partial`` (Pallas, interpret) and the plain versions:
+  2e-5;
 * the 16-bit flash forward's arithmetic (``tc_flash`` of
-  ``tests/test_torch_flash_tc.py``) on the zero-padded Dh 64 tiles, cut
-  back to 32 columns, against the plain versions and the Pallas kernel:
-  one 16-bit ulp beyond 2e-5 (normalized), 2e-5 of each array's largest
+  ``tests/test_torch_flash_tc.py``) on the zero-padded tiles, cut back to
+  Dh columns, against the plain versions and the Pallas kernel: one
+  16-bit ulp beyond 2e-5 (normalized), 2e-5 of each array's largest
   magnitude (partial);
-* a small transformer (d_model 64, 2 heads, 2 layers) through
+* a small transformer (2 heads of Dh, 2 layers) through
   ``serve_decoder``: the JAX package's greedy token chains, the JAX side
   lowered as its XLA composition and as its Pallas kernels; and one
   ``Module`` training step's gradients within 2e-5 of the JAX package's.
@@ -50,7 +55,8 @@ from decode_split_emul import decode_attention_split
 from flash_f32_emul import TILES, flash_f32
 from test_torch_flash_tc import HALVES, _partial_close, _ulps, tc_flash
 
-DH = 32
+#: the head dims under test: Dh 32 (PR 19's) and the five between the tiles
+DHS = [16, 32, 48, 80, 96, 112]
 TOL = 2e-5
 SMS = 132                      # an H100's SM count
 CPU = mxt.cpu()
@@ -83,22 +89,33 @@ def jax_tier(request, monkeypatch):
     kernel_tier.clear()
 
 
-def test_the_kernels_take_head_dim_32():
-    """Dh 32 is a head dim of every attention kernel, and the float32
-    flash forward's emulation walks the tiles ``cc::Tile<32>`` gives."""
-    assert ck.HEAD_DIMS == (32, 64, 128)
-    assert TILES[DH] == (128, 64)
+@pytest.fixture(params=DHS)
+def dh(request):
+    return request.param
+
+
+def test_the_kernels_take_head_dim_32(dh):
+    """Every multiple of 16 up to 128 is a head dim of every attention
+    kernel, on the smallest tile that holds it; the float32 flash
+    forward's emulation walks the tiles ``cc::Tile`` gives there. Dh 24
+    and 144 are none."""
+    assert ck.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    assert dh in ck.HEAD_DIMS and 24 not in ck.HEAD_DIMS and \
+        144 not in ck.HEAD_DIMS
+    tile = ck.head_tile(dh)
+    assert tile == min(t for t in (32, 64, 128) if t >= dh)
+    assert TILES[tile] == {32: (128, 64), 64: (64, 64), 128: (64, 32)}[tile]
 
 
 # ------------------------------------------------------------ decode read
-def _decode_inputs(cache, S, B=4, H=2, c=160, seed=0):
+def _decode_inputs(cache, S, dh, B=4, H=2, c=160, seed=0):
     """(torch q, k, v, pos), (jax q, k, v, pos) of the same values, each
     rounded once from the same float32 draws; cursors at 0, a split's last
     key, the next split's first key and C - S."""
     t_dt, np_dt, q_t, q_j = CACHES[cache]
-    rs = np.random.RandomState(seed + S)
-    q = rs.randn(B, H, S, DH).astype(np.float32)
-    k, v = (2 * rs.randn(B, H, c, DH).astype(np.float32) for _ in range(2))
+    rs = np.random.RandomState(seed + S + dh)
+    q = rs.randn(B, H, S, dh).astype(np.float32)
+    k, v = (2 * rs.randn(B, H, c, dh).astype(np.float32) for _ in range(2))
     _, keys = ck._decode_splits(B * H, S, c, SMS)
     pos = np.asarray([0, keys - 1, min(keys, c - S), c - S], np.int32)
     tq = torch.from_numpy(q).to(q_t)
@@ -110,38 +127,47 @@ def _decode_inputs(cache, S, B=4, H=2, c=160, seed=0):
 
 @pytest.mark.parametrize("S", [1, 3, 16, 64])
 @pytest.mark.parametrize("cache", list(CACHES))
-def test_decode_matches_pallas_and_plain(cache, S):
-    (tq, tk, tv, tpos), (jq, jk, jv, jpos) = _decode_inputs(cache, S)
+def test_decode_matches_pallas_and_plain(cache, S, dh):
+    (tq, tk, tv, tpos), (jq, jk, jv, jpos) = _decode_inputs(cache, S, dh)
     got = decode_attention_split(tq, tk, tv, tpos, SMS)
     plain = ck.decode_attention_plain(tq, tk, tv, tpos)
     assert got.dtype == plain.dtype == torch.float32
-    assert got.shape == (4, 2, S, DH)
+    assert got.shape == (4, 2, S, dh)
     _close(got, plain)
     _close(got, pk.decode_attention(jq, jk, jv, jpos))
 
 
-def test_decode_split_plan_at_the_bench_width():
-    """The bench LM's served step (rung 8, 16 heads, C 256) takes 2 splits
-    of 128 keys at Dh 32, where 8 heads of 64 take 4 of 64: a block reads
-    the same bytes."""
-    assert ck._decode_splits(8 * 16, 1, 256, SMS) == (2, 128)
+def test_decode_split_plan_at_the_bench_width(dh):
+    """The split rule reads B*H, S and C, never Dh. The bench LM's served
+    step (rung 8, C 256) over 512 / Dh heads where Dh divides 512 takes 2
+    splits of 128 keys at Dh 16 and 32, where 8 heads of 64 take 4 of 64
+    (a Dh 32 block reads a Dh 64 block's bytes); at d_model 8 Dh over 8
+    heads (chip_smoke's head-dim phase) every Dh takes 4 of 64, as Dh 64
+    over d_model / 64 heads does at 48 and 80 (d_model 384, 640). The
+    split workspace is laid out at the tile's head dim."""
     assert ck._decode_splits(8 * 8, 1, 256, SMS) == (4, 64)
+    if 512 % dh == 0:
+        assert ck._decode_splits(8 * (512 // dh), 1, 256, SMS) == (2, 128)
+    if dh in (48, 80):
+        assert ck._decode_splits(8 * (8 * dh // 64), 1, 256, SMS) == (4, 64)
+    tile = ck.head_tile(dh)
+    assert ck._decode_ws_sizes(64, 1, tile, 4) == (64 * 4 * (tile + 2), 64)
 
 
 # ------------------------------------------------------ float32 flash
-def _qkv(tq, tk, seed, B=1, H=2):
-    rs = np.random.RandomState(seed)
-    return (rs.randn(B, H, tq, DH).astype(np.float32),
-            rs.randn(B, H, tk, DH).astype(np.float32),
-            rs.randn(B, H, tk, DH).astype(np.float32))
+def _qkv(tq, tk, seed, dh, B=1, H=2):
+    rs = np.random.RandomState(seed + dh)
+    return (rs.randn(B, H, tq, dh).astype(np.float32),
+            rs.randn(B, H, tk, dh).astype(np.float32),
+            rs.randn(B, H, tk, dh).astype(np.float32))
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [32, 96, 128, 160])
-def test_flash_f32_matches_pallas_and_plain(T, causal):
-    """T below one query tile, one tile, across the 128-query and 64-key
-    tiles, ragged."""
-    q, k, v = _qkv(T, T, seed=T)
+def test_flash_f32_matches_pallas_and_plain(T, causal, dh):
+    """T below one query tile, one tile, across the query and key tiles,
+    ragged."""
+    q, k, v = _qkv(T, T, seed=T, dh=dh)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     got = flash_f32(tq, tk, tv, causal=causal)
     ref = jrtc.flash_attention(jnp.asarray(q), jnp.asarray(k),
@@ -157,9 +183,9 @@ _SHARDS = [(128, 128, 128, 0), (96, 96, 96, 96), (64, 64, 0, 64),
 
 
 @pytest.mark.parametrize("shard", _SHARDS)
-def test_flash_f32_partial_matches_pallas_and_plain(shard):
+def test_flash_f32_partial_matches_pallas_and_plain(shard, dh):
     tq, tk, q_off, k_off = shard
-    q, k, v = _qkv(tq, tk, seed=tq + tk + q_off)
+    q, k, v = _qkv(tq, tk, seed=tq + tk + q_off, dh=dh)
     tq_, tk_, tv_ = map(torch.from_numpy, (q, k, v))
     got = flash_f32(tq_, tk_, tv_, q_off, k_off, True, partial=True)
     ref = jrtc.flash_attention_partial(
@@ -178,29 +204,36 @@ def test_flash_f32_partial_matches_pallas_and_plain(shard):
 
 
 # ------------------------------------------------------- 16-bit flash
+def _tc_tile(dh):
+    """The 16-bit kernels' tile: Dh 64's up to 64, Dh 128's above."""
+    return max(64, ck.head_tile(dh))
+
+
 def _padded(t):
-    """The Dh 64 tile TMA fills from a Dh 32 operand: columns 32 to 63
-    zeros."""
-    return torch.cat([t, torch.zeros_like(t)], dim=-1)
+    """The tile TMA fills from an operand of a narrower Dh: the columns
+    past Dh zeros."""
+    pad = _tc_tile(t.shape[-1]) - t.shape[-1]
+    return torch.cat([t, t.new_zeros(t.shape[:-1] + (pad,))], dim=-1)
 
 
-def _tc32(q, k, v, causal, q_off=0, k_off=0, partial=False):
-    """The 16-bit kernels at Dh 32: the Dh 64 instance's arithmetic on the
-    zero-padded tiles with the caller's scale, 32^-1/2; the 32 stored
+def _tc(q, k, v, causal, q_off=0, k_off=0, partial=False):
+    """The 16-bit kernels at q's Dh: the tile's arithmetic on the
+    zero-padded operands with the caller's scale, Dh^-1/2; the Dh stored
     columns."""
+    dh = q.shape[-1]
     out = tc_flash(*map(_padded, (q, k, v)), causal, q_off, k_off,
-                   scale=DH ** -0.5, partial=partial)
+                   scale=dh ** -0.5, partial=partial)
     if partial:
         acc, m, l = out
-        assert not acc[..., DH:].any()
-        return acc[..., :DH], m, l
-    assert not out[..., DH:].float().any()
-    return out[..., :DH]
+        assert not acc[..., dh:].any()
+        return acc[..., :dh], m, l
+    assert not out[..., dh:].float().any()
+    return out[..., :dh]
 
 
-def _half_qkv(half, tq, tk, seed):
+def _half_qkv(half, tq, tk, seed, dh):
     return [torch.from_numpy(a).to(HALVES[half][0])
-            for a in _qkv(tq, tk, seed)]
+            for a in _qkv(tq, tk, seed, dh)]
 
 
 def _jnp(t, half):
@@ -210,9 +243,9 @@ def _jnp(t, half):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [1, 65, 200])
 @pytest.mark.parametrize("half", list(HALVES))
-def test_flash_tc_matches_plain(half, T, causal):
-    q, k, v = _half_qkv(half, T, T, seed=T)
-    got = _tc32(q, k, v, causal)
+def test_flash_tc_matches_plain(half, T, causal, dh):
+    q, k, v = _half_qkv(half, T, T, seed=T, dh=dh)
+    got = _tc(q, k, v, causal)
     want = ck.flash_attention_plain(q, k, v, causal)
     assert got.dtype == want.dtype == HALVES[half][0]
     assert _ulps(half, got, want, atol=2e-5) <= 1.0
@@ -229,12 +262,12 @@ def pallas_tier(monkeypatch):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("half", list(HALVES))
-def test_flash_tc_matches_pallas(pallas_tier, half, causal):
-    q, k, v = _half_qkv(half, 128, 128, seed=7)
+def test_flash_tc_matches_pallas(pallas_tier, half, causal, dh):
+    q, k, v = _half_qkv(half, 128, 128, seed=7, dh=dh)
     ref = jrtc.flash_attention(*(_jnp(t, half) for t in (q, k, v)),
                                causal=causal, block_q=64, block_k=64)
     want = torch.from_numpy(np.array(ref.astype(jnp.float32)))
-    assert _ulps(half, _tc32(q, k, v, causal).float(), want,
+    assert _ulps(half, _tc(q, k, v, causal).float(), want,
                  atol=2e-5) <= 1.0
 
 
@@ -243,11 +276,11 @@ def test_flash_tc_matches_pallas(pallas_tier, half, causal):
                                    (160, 64, 96, 0)])
 @pytest.mark.parametrize("half", list(HALVES))
 def test_flash_tc_partial_matches_plain_and_pallas(pallas_tier, half,
-                                                   shard):
+                                                   shard, dh):
     tq, tk, q_off, k_off = shard
     causal = shard != (128, 128, 0, 0)
-    q, k, v = _half_qkv(half, tq, tk, seed=tq + q_off)
-    got = _tc32(q, k, v, causal, q_off, k_off, partial=True)
+    q, k, v = _half_qkv(half, tq, tk, seed=tq + q_off, dh=dh)
+    got = _tc(q, k, v, causal, q_off, k_off, partial=True)
     _partial_close(got, ck.flash_attention_partial_plain(
         q, k, v, q_off, k_off, causal))
     ref = jrtc.flash_attention_partial(*(_jnp(t, half) for t in (q, k, v)),
@@ -257,11 +290,10 @@ def test_flash_tc_partial_matches_plain_and_pallas(pallas_tier, half,
 
 
 # ------------------------------------------------------- the small LM
-V, D, L, H, CAP, T, B = 64, 64, 2, 2, 16, 32, 4
+V, L, H, CAP, T, B = 64, 2, 2, 16, 32, 4
 
 
-@pytest.fixture(scope="module")
-def decode_params():
+def _decode_params(D):
     sym = ttfm.get_decode_symbol(vocab_size=V, d_model=D, n_layer=L,
                                  n_head=H, capacity=CAP, per_slot=True)
     shapes, _, _ = sym.infer_shape(data=(1, 1))
@@ -288,9 +320,11 @@ def _drive(sched, clock, prompts):
     return [h.result(timeout=0).tolist() for h in handles]
 
 
-def test_serve_decoder_chains_match_jax(decode_params, jax_tier):
-    """Greedy chains of four staggered requests at ladder [1, 2, 4]."""
-    assert D // H == DH
+def test_serve_decoder_chains_match_jax(jax_tier, dh):
+    """Greedy chains of four staggered requests at ladder [1, 2, 4], d_model
+    2 Dh."""
+    D = H * dh
+    decode_params = _decode_params(D)
     rs = np.random.RandomState(4)
     prompts = [rs.randint(0, V, rs.randint(1, 5)).tolist() for _ in range(4)]
     kw = dict(vocab_size=V, d_model=D, n_layer=L, n_head=H, capacity=CAP,
@@ -299,20 +333,21 @@ def test_serve_decoder_chains_match_jax(decode_params, jax_tier):
     jsched = mx.serve.serve_decoder(
         jtfm.get_decode_symbol(**kw),
         {k: mx.nd.array(v) for k, v in decode_params.items()},
-        name="dh32", ladder=[1, 2, 4], clock=jclock, start=False,
+        name=f"dh{dh}", ladder=[1, 2, 4], clock=jclock, start=False,
         context=mx.cpu())
     tsched = mxt.serve.serve_decoder(
         ttfm.get_decode_symbol(**kw),
-        mxt.convert.params_from_numpy(decode_params, CPU), name="dh32",
+        mxt.convert.params_from_numpy(decode_params, CPU), name=f"dh{dh}",
         ladder=[1, 2, 4], clock=tclock, start=False, context=CPU)
     chains = _drive(tsched, tclock, prompts)
     assert chains == _drive(jsched, jclock, prompts)
     assert [len(c) for c in chains] == [4, 5, 6, 7]
 
 
-def test_fit_step_gradients_match_jax(jax_tier):
+def test_fit_step_gradients_match_jax(jax_tier, dh):
     """One training step's gradients from the same Xavier start (carried
-    across as numpy), every parameter's within 2e-5."""
+    across as numpy) at d_model 2 Dh, every parameter's within 2e-5."""
+    D = H * dh
     it = jtfm.SyntheticLMIter(V, B, T, 1, seed=2)
     jmod = mx.mod.Module(jtfm.get_symbol(V, D, L, H, T), context=mx.cpu())
     jmod.bind(it.provide_data, it.provide_label)
