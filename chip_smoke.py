@@ -393,8 +393,23 @@ Then the head dims between the attention kernels' tiles:
    LOGIT_TOL), ``Module.fit`` in float32 and bfloat16 (T 256, batch 4,
    exact flash launches a step), one float32 step card vs CPU (phase
    10's limits), the sequence-parallel fit (``MeshConfig(seq=4)``)
-   against the unsharded one (phase 46's limits); Dh 24 and 144 raise in
-   each attention wrapper, naming what the kernels take.
+   against the unsharded one (phase 46's limits).
+52. (run after 51) inputs the JAX package runs that the port's kernels
+   once refused, through the public entry points on the card: the runs
+   of phase 51 for LMs at Dh 40 (no multiple of 16) and Dh 256 (the
+   wide routes); ``serve_decoder(prefill_chunk=128)`` at capacity 256
+   (128-row windows), its greedy chains against chunk 1's; an LM fit
+   over a 128256-word vocabulary in float32 and bfloat16 (the streaming
+   softmax) and one step card vs CPU; a segmentation net
+   (``SoftmaxOutput(multi_output=True)`` over the channel axis,
+   ``LayerNorm(axis=1)``) through ``Module.fit`` card vs CPU; the fp8
+   ResNet-50 under ``compute_dtype="bfloat16"`` through an
+   ``InferenceServer`` (the e4m3 weights reach rows 16 and 17 as
+   stored); ``mx.nd.attention`` with Tq != Tk (NaN rows where a query
+   sees no key) and over B*H 65536, card vs CPU. Then the new routes'
+   device ms beside their bounds and SDPA / ``torch.softmax`` /
+   ``native_layer_norm_backward``, and the 16-bit flash operands'
+   zero-padded copy alone.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
@@ -417,7 +432,7 @@ instances in phases 38, 40, 42 and 44, the dequant-fused matmul's
 instances in the ring fits of phases 46 and 48, the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
 (the relu_user fit; their source is this script), and the attention
-kernels' launches in phase 50 added to theirs — max abs error against
+kernels' launches in phases 50 to 52 added to theirs — max abs error against
 the plain version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
@@ -656,8 +671,20 @@ DH32_KERNELS = ("decode_attention", "decode_attention_bf16",
 #: batches a run
 HEADDIMS = (16, 48, 80, 96, 112)
 HEADDIM_LAYERS, HEADDIM_SEQ, HEADDIM_BATCH, HEADDIM_STEPS = 2, 256, 4, 2
-#: head dims no attention kernel takes (phase 51's refusals)
-HEADDIMS_REFUSED = (24, 144)
+#: phase 52, inputs the card once refused: LMs at a head dim that is no
+#: multiple of 16 and at one above 128 (phase 51's runs at each), a
+#: prefill chunk past 64 rows at full width, an LM head past 64 K (the
+#: Llama-3 vocabulary), a segmentation net (multi_output softmax over the
+#: channel axis, LayerNorm over it), the fp8 ResNet-50 under bfloat16
+REFUSED_DHS = (40, 256)
+WIDE_PREFILL, WIDE_PREFILL_PROMPTS, WIDE_PREFILL_NEW = 128, [129, 200, 160,
+                                                             140], 8
+BIG_V, BIG_D, BIG_T, BIG_BATCH, BIG_STEPS = 128256, 256, 128, 4, 2
+SEG_IMAGE, SEG_CLASSES, SEG_BATCH, SEG_STEPS = (3, 32, 32), 5, 8, 3
+#: card vs CPU segmentation-net weights after SEG_STEPS SGD steps, of each
+#: array's largest magnitude, TF32 off: cuDNN and the CPU's convolutions
+#: sum in other orders (phase 10's gradient limit)
+SEG_WEIGHT_RTOL = GRAD_RTOL
 RESNET50 = dict(units=[3, 4, 6, 3], filter_list=[64, 256, 512, 1024, 2048],
                 num_classes=TRAIN_CLASSES, image_shape=TRAIN_IMAGE)
 BN = dict(fix_gamma=False, eps=2e-5, momentum=0.9)
@@ -1714,8 +1741,15 @@ def _lm_kernels(ck, rs, t, rec):
     rec["bias_gelu_dx"] = dict(
         max_abs_err=err, ms=_timed(lambda: ck.bias_gelu_dx(h, hb, hct)),
         plain_ms=_timed(lambda: ck.bias_gelu_dx_plain(h, hb, hct)),
-        library_ms=None,     # no one PyTorch call takes GeLU' x ct
+        # two PyTorch calls, the bias add and aten.gelu_backward: no one
+        # call takes the bias
+        library_ms=_timed(lambda: torch.ops.aten.gelu_backward(hct, h + hb)),
         bound=_bound_ms((3 * N * F4 + F4) * 4, 12 * N * F4))
+    two = _device_ms(lambda: torch.ops.aten.gelu_backward(hct, h + hb))
+    print(f"kernels: bias_gelu_dx library_ms is two calls (h + bias, "
+          f"aten.gelu_backward); device ms "
+          f"{_device_ms(lambda: ck.bias_gelu_dx(h, hb, hct)):.6f} against "
+          f"the two calls' {two:.6f}")
     # flash attention: causal (8, 8, 1024, 64), then T = 1, T = 1000
     # (a ragged last tile), Dh = 128, and non-causal
     Dh = D // N_HEAD
@@ -6568,38 +6602,6 @@ def _headdim_fit(mx, ck, sym, params, ctx, compute_dtype=None, mesh=None):
     return counts, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
 
 
-def _headdim_refusals(ck):
-    """Each attention wrapper raises on the card at HEADDIMS_REFUSED,
-    naming what the kernels take. Prints the messages."""
-    import torch
-    from mxnet_tpu_torch.base import MXNetError
-    from mxnet_tpu_torch.rtc import fp8_cast
-    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
-    for dh in HEADDIMS_REFUSED:
-        q = torch.randn(1, 2, 16, dh, device="cuda")
-        c = torch.randn(1, 2, 16, dh, device="cuda")
-        calls = {
-            "decode_attention": lambda: ck.decode_attention(
-                q[:1, :, :1].contiguous(), c, c, pos),
-            "decode_attention_fp8": lambda: ck.decode_attention(
-                q[:1, :, :1].contiguous(), fp8_cast(c, torch.float8_e4m3fn),
-                fp8_cast(c, torch.float8_e4m3fn), pos),
-            "flash_attention": lambda: ck.flash_attention(q, q, q, True),
-            "flash_attention_bf16": lambda: ck.flash_attention(
-                q.bfloat16(), q.bfloat16(), q.bfloat16(), True),
-            "flash_attention_partial": lambda: ck.flash_attention_partial(
-                q, q, q, 0, 0, True)}
-        for name, call in calls.items():
-            try:
-                call()
-            except MXNetError as e:
-                if f"head dim {dh}" not in str(e):
-                    raise
-                print(f"headdims: Dh {dh} {name} raises: {e}")
-                continue
-            raise AssertionError(f"{name} took head dim {dh}")
-
-
 def phase_headdims(mx, ck, prompts):
     """Phase 51: for each Dh of HEADDIMS a HEADDIM_LAYERS-layer LM at
     d_model 8 Dh over 8 heads (V 32000), numpy-seeded, through the
@@ -6614,110 +6616,448 @@ def phase_headdims(mx, ck, prompts):
     unsharded one in float32 (phase 46's weight limit, L x 10 partial
     launches a step). Every counter is set to 0 just before each run and
     read just after; returns the runs' launches of DH32_KERNELS, each of
-    which must be launched at every Dh. Then the refusals of
-    HEADDIMS_REFUSED."""
-    import numpy as np
+    which must be launched at every Dh."""
     import torch
+    total = dict.fromkeys(DH32_KERNELS, 0)
+    for dh in HEADDIMS:
+        for k, n in _headdim_lm(mx, ck, prompts, dh).items():
+            total[k] += n
+        torch.cuda.empty_cache()
+    return total
+
+
+def _headdim_lm(mx, ck, prompts, dh):
+    """Phase 51's runs for one head dim ``dh`` (its docstring); returns
+    the runs' launches of DH32_KERNELS, each of which must be launched."""
+    import numpy as np
     from mxnet_tpu_torch.models import transformer as tfm
     from mxnet_tpu_torch.parallel import MeshConfig
     from mxnet_tpu_torch.serve import FakeClock
-    total = dict.fromkeys(DH32_KERNELS, 0)
-    for dh in HEADDIMS:
-        t_dh = time.perf_counter()
-        seen = dict.fromkeys(DH32_KERNELS, 0)
-        d_model, heads = 8 * dh, 8
-        print(_tf32(False) + f" (head dim {dh}: d_model {d_model})")
-        dsym = tfm.get_decode_symbol(vocab_size=V, d_model=d_model,
-                                     n_layer=HEADDIM_LAYERS, n_head=heads,
-                                     capacity=CAP, per_slot=True)
-        dparams = _headdim_params(dsym, SEED + dh, data=(1, 1))
-        for cd in (None, "bfloat16"):
-            sfx = "" if cd is None else "_" + HALF_SFX[cd]
-            sched = mx.serve.serve_decoder(
-                dsym, mx.convert.params_from_numpy(dparams, mx.gpu(0)),
-                name=f"lm-dh{dh}-{cd or 'float32'}", capacity=CAP,
-                ladder=[1, 4], context=mx.gpu(0), clock=FakeClock(),
-                start=False, compute_dtype=cd)
-            ck.reset_launch_counts()
-            hs = [sched.submit(p[:8], max_new_tokens=8) for p in prompts[:4]]
-            sched.pump()
-            outs = [h.result(timeout=0) for h in hs]
-            counts = ck.launch_counts()
-            if any(len(o) != 8 or not ((o >= 0) & (o < V)).all()
-                   for o in outs):
-                raise AssertionError(f"dh{dh} serve: {outs}")
-            seen["decode_attention" + sfx] += counts["decode_attention" + sfx]
-            if cd is None:
-                stream = prompts[0][:8] + outs[0][:4].tolist()
-                worst, ratio = _dh32_teacher_forced(
-                    mx, dsym, dparams, stream, None, label=f"dh{dh}")
-                print(f"dh{dh} serve float32: teacher-forced "
-                      f"{len(stream) - 1} steps: max |logit card - cpu| = "
-                      f"{worst:.3g}, {ratio:.3f} of the limit ({LOGIT_TOL})")
-                if not ratio <= 1.0:
-                    raise AssertionError(f"dh{dh}: card and CPU logits "
-                                         "disagree")
-        sym = tfm.get_symbol(V, d_model, HEADDIM_LAYERS, heads, HEADDIM_SEQ)
-        params = _headdim_params(sym, SEED + dh + 1,
-                                 data=(HEADDIM_BATCH, HEADDIM_SEQ),
-                                 softmax_label=(HEADDIM_BATCH * HEADDIM_SEQ,))
-        runs = {}
-        for cd in (None, "bfloat16"):
-            sfx = "" if cd is None else "_" + HALF_SFX[cd]
-            counts, after = _headdim_fit(mx, ck, sym, params, mx.gpu(0), cd)
-            runs[cd] = after
-            want = HEADDIM_STEPS * HEADDIM_LAYERS
-            if counts["flash_attention" + sfx] != want or \
-                    counts["flash_attention_partial" + sfx] != 0:
-                raise AssertionError(f"dh{dh} fit {cd}: flash launches "
-                                     f"{counts['flash_attention' + sfx]}, "
-                                     f"want {want}")
-            if not all(np.isfinite(v).all() for v in after.values()) or \
-                    not np.abs(after["lm_l0_qkv_weight"] -
-                               params["lm_l0_qkv_weight"]).max() > 0:
-                raise AssertionError(f"dh{dh} fit {cd}: parameters not "
-                                     "finite or not moved")
-            seen["flash_attention" + sfx] += counts["flash_attention" + sfx]
-        # one float32 step card vs CPU at batch 2
-        batch = next(iter(tfm.SyntheticLMIter(V, 2, HEADDIM_SEQ, 1,
-                                              seed=SEED + 10)))
-        cpu = _lm_step(mx, sym, params, mx.cpu(), batch)
-        gpu = _lm_step(mx, sym, params, mx.gpu(0), batch)
-        prob_err = float(np.abs(gpu[0] - cpu[0]).max())
-        worst_g = max(float(np.abs(gpu[1][k] - g).max()) /
-                      (GRAD_RTOL * float(np.abs(g).max()) + 1e-12)
-                      for k, g in cpu[1].items())
-        worst_w = max(float(np.abs(gpu[2][k] - w).max())
-                      for k, w in cpu[2].items())
-        # the sequence-parallel fit against the unsharded one, float32
-        counts, ring = _headdim_fit(mx, ck, sym, params,
-                                    [mx.gpu(0)] * RING_SHARDS,
-                                    mesh=MeshConfig(seq=RING_SHARDS))
-        want = HEADDIM_STEPS * HEADDIM_LAYERS * RING_PER_LAYER
-        ring_err = max(float(np.abs(ring[k] - v).max())
-                       for k, v in runs[None].items())
-        seen["flash_attention_partial"] += counts["flash_attention_partial"]
-        print(f"dh{dh}: step card vs CPU max |prob| {prob_err:.3g} (limit "
-              f"{FWD_TOL}), worst gradient {worst_g:.3g} of its limit, "
-              f"worst weight {worst_w:.3g} (limit {LM_WEIGHT_TOL}); ring "
-              f"fit: partial launches {counts['flash_attention_partial']} "
-              f"(want {want}), flash {counts['flash_attention']}, worst "
-              f"|ring - unsharded| weight {ring_err:.3g} (limit "
-              f"{RING_WEIGHT_TOL}); launches {seen}; "
-              f"{time.perf_counter() - t_dh:.1f} s")
-        if not (prob_err <= FWD_TOL and worst_g <= 1.0 and
-                worst_w <= LM_WEIGHT_TOL):
-            raise AssertionError(f"dh{dh}: card and CPU LM steps disagree")
-        if counts["flash_attention_partial"] != want or \
-                counts["flash_attention"] or not ring_err <= RING_WEIGHT_TOL:
-            raise AssertionError(f"dh{dh}: the ring fit")
-        idle = [k for k, n in seen.items() if not n > 0]
-        if idle:
-            raise AssertionError(f"Dh {dh}: kernels not launched: {idle}")
-        for k, n in seen.items():
-            total[k] += n
+    t_dh = time.perf_counter()
+    seen = dict.fromkeys(DH32_KERNELS, 0)
+    d_model, heads = 8 * dh, 8
+    print(_tf32(False) + f" (head dim {dh}: d_model {d_model})")
+    dsym = tfm.get_decode_symbol(vocab_size=V, d_model=d_model,
+                                 n_layer=HEADDIM_LAYERS, n_head=heads,
+                                 capacity=CAP, per_slot=True)
+    dparams = _headdim_params(dsym, SEED + dh, data=(1, 1))
+    for cd in (None, "bfloat16"):
+        sfx = "" if cd is None else "_" + HALF_SFX[cd]
+        sched = mx.serve.serve_decoder(
+            dsym, mx.convert.params_from_numpy(dparams, mx.gpu(0)),
+            name=f"lm-dh{dh}-{cd or 'float32'}", capacity=CAP,
+            ladder=[1, 4], context=mx.gpu(0), clock=FakeClock(),
+            start=False, compute_dtype=cd)
+        ck.reset_launch_counts()
+        hs = [sched.submit(p[:8], max_new_tokens=8) for p in prompts[:4]]
+        sched.pump()
+        outs = [h.result(timeout=0) for h in hs]
+        counts = ck.launch_counts()
+        if any(len(o) != 8 or not ((o >= 0) & (o < V)).all()
+               for o in outs):
+            raise AssertionError(f"dh{dh} serve: {outs}")
+        seen["decode_attention" + sfx] += counts["decode_attention" + sfx]
+        if cd is None:
+            stream = prompts[0][:8] + outs[0][:4].tolist()
+            worst, ratio = _dh32_teacher_forced(
+                mx, dsym, dparams, stream, None, label=f"dh{dh}")
+            print(f"dh{dh} serve float32: teacher-forced "
+                  f"{len(stream) - 1} steps: max |logit card - cpu| = "
+                  f"{worst:.3g}, {ratio:.3f} of the limit ({LOGIT_TOL})")
+            if not ratio <= 1.0:
+                raise AssertionError(f"dh{dh}: card and CPU logits "
+                                     "disagree")
+    sym = tfm.get_symbol(V, d_model, HEADDIM_LAYERS, heads, HEADDIM_SEQ)
+    params = _headdim_params(sym, SEED + dh + 1,
+                             data=(HEADDIM_BATCH, HEADDIM_SEQ),
+                             softmax_label=(HEADDIM_BATCH * HEADDIM_SEQ,))
+    runs = {}
+    for cd in (None, "bfloat16"):
+        sfx = "" if cd is None else "_" + HALF_SFX[cd]
+        counts, after = _headdim_fit(mx, ck, sym, params, mx.gpu(0), cd)
+        runs[cd] = after
+        want = HEADDIM_STEPS * HEADDIM_LAYERS
+        if counts["flash_attention" + sfx] != want or \
+                counts["flash_attention_partial" + sfx] != 0:
+            raise AssertionError(f"dh{dh} fit {cd}: flash launches "
+                                 f"{counts['flash_attention' + sfx]}, "
+                                 f"want {want}")
+        if not all(np.isfinite(v).all() for v in after.values()) or \
+                not np.abs(after["lm_l0_qkv_weight"] -
+                           params["lm_l0_qkv_weight"]).max() > 0:
+            raise AssertionError(f"dh{dh} fit {cd}: parameters not "
+                                 "finite or not moved")
+        seen["flash_attention" + sfx] += counts["flash_attention" + sfx]
+    # one float32 step card vs CPU at batch 2
+    batch = next(iter(tfm.SyntheticLMIter(V, 2, HEADDIM_SEQ, 1,
+                                          seed=SEED + 10)))
+    cpu = _lm_step(mx, sym, params, mx.cpu(), batch)
+    gpu = _lm_step(mx, sym, params, mx.gpu(0), batch)
+    prob_err = float(np.abs(gpu[0] - cpu[0]).max())
+    worst_g = max(float(np.abs(gpu[1][k] - g).max()) /
+                  (GRAD_RTOL * float(np.abs(g).max()) + 1e-12)
+                  for k, g in cpu[1].items())
+    worst_w = max(float(np.abs(gpu[2][k] - w).max())
+                  for k, w in cpu[2].items())
+    # the sequence-parallel fit against the unsharded one, float32
+    counts, ring = _headdim_fit(mx, ck, sym, params,
+                                [mx.gpu(0)] * RING_SHARDS,
+                                mesh=MeshConfig(seq=RING_SHARDS))
+    want = HEADDIM_STEPS * HEADDIM_LAYERS * RING_PER_LAYER
+    ring_err = max(float(np.abs(ring[k] - v).max())
+                   for k, v in runs[None].items())
+    seen["flash_attention_partial"] += counts["flash_attention_partial"]
+    print(f"dh{dh}: step card vs CPU max |prob| {prob_err:.3g} (limit "
+          f"{FWD_TOL}), worst gradient {worst_g:.3g} of its limit, "
+          f"worst weight {worst_w:.3g} (limit {LM_WEIGHT_TOL}); ring "
+          f"fit: partial launches {counts['flash_attention_partial']} "
+          f"(want {want}), flash {counts['flash_attention']}, worst "
+          f"|ring - unsharded| weight {ring_err:.3g} (limit "
+          f"{RING_WEIGHT_TOL}); launches {seen}; "
+          f"{time.perf_counter() - t_dh:.1f} s")
+    if not (prob_err <= FWD_TOL and worst_g <= 1.0 and
+            worst_w <= LM_WEIGHT_TOL):
+        raise AssertionError(f"dh{dh}: card and CPU LM steps disagree")
+    if counts["flash_attention_partial"] != want or \
+            counts["flash_attention"] or not ring_err <= RING_WEIGHT_TOL:
+        raise AssertionError(f"dh{dh}: the ring fit")
+    idle = [k for k, n in seen.items() if not n > 0]
+    if idle:
+        raise AssertionError(f"Dh {dh}: kernels not launched: {idle}")
+    return seen
+
+
+def _seg_fit(mx, ck, ctx, X, Y, params):
+    """SEG_STEPS SGD batches of the segmentation net on ``ctx`` from
+    ``params``, scored by pixel accuracy (argmax over axis 1 against a
+    label a position): (launch counts, parameters after, numpy)."""
+    import torch
+
+    class PixelAccuracy(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("pixel-accuracy")
+
+        def update(self, labels, preds):
+            for label, pred in zip(labels, preds):
+                lab = label.astorch().to(torch.int64)
+                hit = pred.astorch().argmax(1).to(lab.device) == lab
+                self._accumulate(hit.sum(), lab.numel())
+    data = mx.sym.var("data")
+    net = mx.sym.Convolution(data, num_filter=16, kernel=(3, 3), pad=(1, 1),
+                             name="c1")
+    net = mx.sym.LayerNorm(net, axis=1, name="ln1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.Convolution(net, num_filter=SEG_CLASSES, kernel=(1, 1),
+                             name="c2")
+    sym = mx.sym.SoftmaxOutput(net, multi_output=True, use_ignore=True,
+                               ignore_label=0, normalization="valid",
+                               name="softmax")
+    it = mx.io.NDArrayIter(X, Y, batch_size=SEG_BATCH)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(params, ctx),
+                    aux_params={})
+    ck.reset_launch_counts()
+    mod.fit(it, num_epoch=1, eval_metric=PixelAccuracy(),
+            optimizer="sgd", optimizer_params={"learning_rate": 0.05,
+                                               "momentum": 0.9})
+    return ck.launch_counts(), {k: v.asnumpy()
+                                for k, v in mod.get_params()[0].items()}
+
+
+def _refused_rows(ck):
+    """Device ms (L2 flushed) of the routes phase 52 adds, at shapes a
+    path gives them, beside their bound and the one PyTorch call that
+    computes the same function (SDPA with the same mask, torch.softmax,
+    native_layer_norm_backward), as lines "refused rows: ..."."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.rtc import fp8_cast
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    def line(label, fn, nbytes, flops, peak, lib=None):
+        ms = _device_ms(fn)
+        bound, by = _bound_ms(nbytes, flops, peak)
+        lib_ms = None if lib is None else _device_ms(lib)
+        print(f"refused rows: {label}: device {ms:.6f} ms, bound "
+              f"{bound:.6f} ({by}), {ms / bound:.2f}x; library "
+              + ("None" if lib_ms is None else
+                 f"{lib_ms:.6f} ms (the kernel {ms / lib_ms:.2f}x)"))
+
+    def decode(dh, S, dtype, cache=None):
+        B, H, C = 8, 8, CAP
+        q = rnd(B, H, S, dh, dtype=dtype)
+        kc, vc = rnd(B, H, C, dh, dtype=dtype), rnd(B, H, C, dh, dtype=dtype)
+        if cache is not None:
+            kc, vc = fp8_cast(kc, cache), fp8_cast(vc, cache)
+        pos = torch.full((B,), C - S, dtype=torch.int32, device=dev)
+        live = (torch.arange(C, device=dev)[None, :] <=
+                (C - S + torch.arange(S, device=dev))[:, None])
+        el = kc.element_size()
+        nbytes = 2 * B * H * C * dh * el + B * H * S * dh * (
+            q.element_size() + 4)
+        lib = None if cache is not None else (
+            lambda: F.scaled_dot_product_attention(q, kc, vc,
+                                                   attn_mask=live))
+        route = ck.decode_route(dh, S, el, kc.data_ptr(), vc.data_ptr())
+        line(f"decode_attention Dh {dh} S {S} {kc.dtype} (8 x 8 rows, C "
+             f"{C}, route {route})",
+             lambda: ck.decode_attention(q, kc, vc, pos), nbytes,
+             4 * B * H * int(live.sum()) * dh,
+             F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S,
+             lib)
+
+    for dh in (40, 256):
+        decode(dh, 1, torch.float32)
+        decode(dh, 1, torch.bfloat16)
+        decode(dh, 1, torch.float32, torch.float8_e4m3fn)
+    decode(64, 128, torch.float32)
+    decode(64, 128, torch.bfloat16)
+
+    def flash(B, H, tq, tk, dh, dtype, causal=True):
+        q = rnd(B, H, tq, dh, dtype=dtype)
+        k, v = rnd(B, H, tk, dh, dtype=dtype), rnd(B, H, tk, dh, dtype=dtype)
+        live = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(tk - tq)
+        visible = int(live.sum()) if causal else tq * tk
+        el = q.element_size()
+        nbytes = B * H * (2 * tq + 2 * tk) * dh * el
+        line(f"flash_attention {B}x{H} Tq {tq} Tk {tk} Dh {dh} {dtype} "
+             f"causal {causal}",
+             lambda: ck.flash_attention(q, k, v, causal), nbytes,
+             4 * B * H * visible * dh,
+             F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S,
+             lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=live if causal else None))
+        return q, k, v
+
+    for dtype in (torch.float32, torch.bfloat16):
+        flash(8, 8, 1024, 1024, 40, dtype)
+        flash(2, 8, 1024, 1024, 256, dtype)
+        flash(8, 8, 512, 1024, 64, dtype)
+        flash(4096, 16, 8, 8, 64, dtype)
+    q, k, v = flash(8, 8, 1024, 1024, 20, torch.bfloat16)
+    pad = _device_ms(lambda: ck._flash_operands(q, k, v))
+    print(f"refused rows: the zero-padded copy of bfloat16 q, k, v (8, 8, "
+          f"1024, 20 -> 24) alone: device {pad:.6f} ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = 4 * rnd(8192, BIG_V, dtype=dtype)
+        el = x.element_size()
+        line(f"softmax (8192, {BIG_V}) {dtype} (streaming route)",
+             lambda: ck.softmax(x), 2 * x.numel() * el, 4 * x.numel(),
+             F32_FLOPS_PER_S, lambda: torch.softmax(x, -1))
+        del x
+        n, c = 256, 131072
+        x, ct = rnd(n, c, dtype=dtype), rnd(n, c, dtype=dtype)
+        g = rnd(c, dtype=dtype)
+        _, mean, rstd = ck.layernorm_plain(x, g, g, 1e-5)
+        _, lm, lr = torch.ops.aten.native_layer_norm(x, (c,), g, g, 1e-5)
+        line(f"ln_bwd ({n}, {c}) {dtype} (walked route)",
+             lambda: ck.layernorm_bwd(x, g, ct, mean, rstd),
+             (3 * n * c + 3 * c) * el + 8 * n, 11 * n * c, F32_FLOPS_PER_S,
+             lambda: torch.ops.aten.native_layer_norm_backward(
+                 ct, x, (c,), lm, lr, g, g, [True, True, True]))
+        del x, ct
+    torch.cuda.empty_cache()
+
+
+def phase_refused_inputs(mx, ck, prompts, params, cpu_ref, q_mod):
+    """Phase 52: inputs the JAX package runs that the port's kernels once
+    refused on the card, through the public entry points on gpu(0), each
+    against the CPU or the plain version: LMs at Dh 40 and 256 (phase
+    51's runs: ``serve_decoder``, ``Module.fit``, the ring fit, one step
+    card vs CPU); ``serve_decoder(prefill_chunk=128)`` at capacity 256
+    (the S = 128 windows' greedy chains against chunk 1's, or a
+    near-tie); an LM fit over V 128256 (the streaming softmax, one step
+    card vs CPU); a ``multi_output`` + ``LayerNorm(axis=1)`` net through
+    ``Module.fit`` card vs CPU; the fp8 ResNet-50 under
+    ``compute_dtype="bfloat16"`` through an ``InferenceServer`` (the e4m3
+    instances launch; centered logits within BF16_SPREAD of the CPU's
+    own bfloat16 distance); ``mx.nd.attention`` with Tq != Tk and over
+    B*H 65536 card vs CPU. Every counter is set to 0 just before each run
+    and read just after. Then the new routes' device times
+    (``_refused_rows``). Returns {counter: launches}."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.ops import quant
+    from mxnet_tpu_torch.serve import FakeClock
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    # LMs at a head dim no multiple of 16 and one above 128
+    for dh in REFUSED_DHS:
+        add(_headdim_lm(mx, ck, prompts, dh))
         torch.cuda.empty_cache()
-    _headdim_refusals(ck)
+    # prefill windows of 128 rows at full width
+    print(_tf32(False) + " (phase 52)")
+    rs = np.random.RandomState(SEED + 52)
+    wprompts = [rs.randint(0, V, n).tolist() for n in WIDE_PREFILL_PROMPTS]
+    gen, runs = _gen(), {}
+    for chunk in (WIDE_PREFILL, 1):
+        sched = mx.serve.serve_decoder(
+            gen(1), mx.convert.params_from_numpy(params, mx.gpu(0)),
+            name=f"prefill-wide{chunk}", capacity=CAP, ladder=LADDER,
+            context=mx.gpu(0), start=False, symbol_gen=gen,
+            prefill_chunk=chunk, prefix_cache_mb=0)
+        ck.reset_launch_counts()
+        outs, _, wall = _serve_all(sched, wprompts, WIDE_PREFILL_NEW)
+        counts, st = ck.launch_counts(), sched.stats()
+        _decode_launches(f"refused: prefill chunk {chunk}", counts,
+                         st["iterations"])
+        runs[chunk] = (outs, st)
+        add(counts)
+        print(f"refused: prefill chunk {chunk}: {st['prefill_chunks']} "
+              f"prefill chunks, {st['iterations']} iterations in "
+              f"{wall:.3f} s")
+    if not runs[WIDE_PREFILL][1]["prefill_chunks"]:
+        raise AssertionError("no 128-row prefill window was dispatched")
+    parted = _same_or_near_ties(cpu_ref, wprompts, runs[WIDE_PREFILL][0],
+                                runs[1][0], "refused: prefill 128")
+    print(f"refused: prefill chunk {WIDE_PREFILL} and chunk 1 greedy "
+          f"chains: {len(wprompts) - parted} of {len(wprompts)} equal")
+    # an LM head over V 128256: fit in float32 and bfloat16, one step
+    # card vs CPU
+    sym = tfm.get_symbol(BIG_V, BIG_D, 1, BIG_D // 64, BIG_T)
+    big = _headdim_params(sym, SEED + 53, data=(BIG_BATCH, BIG_T),
+                          softmax_label=(BIG_BATCH * BIG_T,))
+    for cd in (None, "bfloat16"):
+        sfx = "" if cd is None else "_" + HALF_SFX[cd]
+        it = tfm.SyntheticLMIter(BIG_V, BIG_BATCH, BIG_T, BIG_STEPS,
+                                 seed=SEED + 54)
+        mod = mx.mod.Module(sym, context=mx.gpu(0), compute_dtype=cd)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=mx.convert.params_from_numpy(big,
+                                                                mx.gpu(0)))
+        ck.reset_launch_counts()
+        mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=LM_SGD)
+        counts = ck.launch_counts()
+        after = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        print(f"refused: V {BIG_V} fit {cd or 'float32'}: softmax "
+              f"{counts['softmax' + sfx]}, CE gradient "
+              f"{counts['softmax_ce_bwd' + sfx]} launches")
+        if counts["softmax" + sfx] != BIG_STEPS or \
+                counts["softmax_ce_bwd" + sfx] != BIG_STEPS or \
+                not all(np.isfinite(v).all() for v in after.values()):
+            raise AssertionError(f"V {BIG_V} fit {cd}: launches or weights")
+        add(counts)
+        del mod
+    batch = next(iter(tfm.SyntheticLMIter(BIG_V, 2, BIG_T, 1,
+                                          seed=SEED + 55)))
+    cpu = _lm_step(mx, sym, big, mx.cpu(), batch)
+    gpu = _lm_step(mx, sym, big, mx.gpu(0), batch)
+    prob_err = float(np.abs(gpu[0] - cpu[0]).max())
+    worst_g = max(float(np.abs(gpu[1][k] - g).max()) /
+                  (GRAD_RTOL * float(np.abs(g).max()) + 1e-12)
+                  for k, g in cpu[1].items())
+    print(f"refused: V {BIG_V} step card vs CPU max |prob| {prob_err:.3g} "
+          f"(limit {FWD_TOL}), worst gradient {worst_g:.3g} of its limit")
+    if not (prob_err <= FWD_TOL and worst_g <= 1.0):
+        raise AssertionError(f"V {BIG_V}: card and CPU steps disagree")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    # a segmentation net: multi_output softmax and LayerNorm over axis 1
+    rs = np.random.RandomState(SEED + 56)
+    X = rs.rand(SEG_BATCH * SEG_STEPS, *SEG_IMAGE).astype(np.float32)
+    Y = rs.randint(0, SEG_CLASSES, (len(X),) + SEG_IMAGE[1:]).astype(
+        np.float32)
+    seg_params = {
+        "c1_weight": 0.3 * rs.randn(16, 3, 3, 3), "c1_bias": np.zeros(16),
+        "ln1_gamma": 1 + 0.1 * rs.randn(16), "ln1_beta": 0.1 * rs.randn(16),
+        "c2_weight": 0.3 * rs.randn(SEG_CLASSES, 16, 1, 1),
+        "c2_bias": np.zeros(SEG_CLASSES)}
+    seg_params = {k: v.astype(np.float32) for k, v in seg_params.items()}
+    card_counts, card_w = _seg_fit(mx, ck, mx.gpu(0), X, Y, seg_params)
+    _, cpu_w = _seg_fit(mx, ck, mx.cpu(), X, Y, seg_params)
+    worst = max(float(np.abs(card_w[k] - w).max()) /
+                (SEG_WEIGHT_RTOL * float(np.abs(w).max()) + 1e-12)
+                for k, w in cpu_w.items())
+    want = {k: SEG_STEPS for k in ("softmax", "softmax_ce_bwd", "layernorm",
+                                   "ln_bwd")}
+    got = {k: card_counts[k] for k in want}
+    print(f"refused: multi_output + LayerNorm(axis=1) net fit: launches "
+          f"{got}; weights card vs CPU {worst:.3g} of the limit")
+    if got != want or not worst <= 1.0:
+        raise AssertionError("the segmentation net's fit")
+    add(card_counts)
+    # the fp8 ResNet-50 under compute_dtype="bfloat16", served
+    args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in q_mod.get_params())
+    qsym, qargs = quant.quantize_symbol(q_mod._symbol, args, dtype="fp8")
+
+    def bound(ctx, n, cd):
+        m = mx.mod.Module(qsym, context=ctx, compute_dtype=cd)
+        m.bind([("data", (n,) + TRAIN_IMAGE)], [("softmax_label", (n,))],
+               for_training=False)
+        m.init_params(arg_params=qargs, aux_params=auxs)
+        return m
+    # a ladder whose top rung the request fills: one dispatch at once
+    server = mx.serve.serve(bound(mx.gpu(0), 2, "bfloat16"),
+                            name="fp8-bf16", ladder=[1, 2], start=False,
+                            clock=FakeClock())
+    X2 = _images(2, SEED + 6)[0]
+    ck.reset_launch_counts()
+    h = server.submit({"data": X2})
+    if server.pump() != 1:
+        raise AssertionError("the fp8 bfloat16 request did not dispatch")
+    out = h.result(timeout=0)[0].asnumpy()
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    server.stop()
+    want = {"qfc_matmul_bf16": 1, "dequant_rows_multi": 1, "softmax_bf16": 1}
+    print(f"refused: fp8 ResNet-50 under bfloat16, served 2 rows: launches "
+          f"{counts}")
+    if counts != want:
+        raise AssertionError(f"fp8 bfloat16 serve: launches {counts}, want "
+                             f"{want}")
+    add(counts)
+    card = _centered_log(np.asarray(out, np.float32))
+
+    def cpu_fwd(cd):
+        m = bound(mx.cpu(), 2, cd)
+        m.forward(mx.io.DataBatch([X2], None), is_train=False)
+        return _centered_log(m.get_outputs()[0].asnumpy().astype(
+            np.float32))
+    host, host32 = cpu_fwd("bfloat16"), cpu_fwd(None)
+    d, own = float(np.abs(card - host).max()), float(np.abs(host -
+                                                            host32).max())
+    print(f"refused: fp8 bfloat16 served centered logits card vs CPU "
+          f"{d:.4g}, CPU bfloat16 vs float32 {own:.4g} (limit "
+          f"{BF16_SPREAD} x)")
+    if not (np.isfinite(card).all() and d <= BF16_SPREAD * own):
+        raise AssertionError("fp8 bfloat16: card and CPU disagree")
+    # attention with Tq != Tk, and over B*H 65536
+    for shape_q, shape_k, causal in (((2, 4, 70, 64), (2, 4, 200, 64), True),
+                                     ((2, 4, 200, 64), (2, 4, 70, 64), True),
+                                     ((2, 4, 200, 40), (2, 4, 70, 40), False),
+                                     ((4096, 16, 8, 64), (4096, 16, 8, 64),
+                                      True)):
+        rs = np.random.RandomState(sum(shape_q))
+        q = rs.randn(*shape_q).astype(np.float32)
+        k, v = (rs.randn(*shape_k).astype(np.float32) for _ in range(2))
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            ck.reset_launch_counts()
+            o = mx.nd.attention(*(mx.nd.array(a, ctx=ctx) for a in (q, k, v)),
+                                causal=causal)
+            res.append(o.asnumpy())
+            if ctx.device_type == "gpu":
+                add(ck.launch_counts())
+                if ck.launch_counts()["flash_attention"] != 1:
+                    raise AssertionError("attention: no flash launch")
+        nan = np.isnan(res[1])
+        err = float(np.abs(res[0][~nan] - res[1][~nan]).max())
+        print(f"refused: attention q {shape_q} k {shape_k} causal {causal}: "
+              f"card vs CPU {err:.3g} (limit {FWD_TOL}), NaN rows "
+              f"{int(nan.any(-1).sum())} on both: "
+              f"{np.array_equal(nan, np.isnan(res[0]))}")
+        if not (err <= FWD_TOL and np.array_equal(nan, np.isnan(res[0]))):
+            raise AssertionError("attention: card and CPU disagree")
+    _refused_rows(ck)
     return total
 
 
@@ -6842,6 +7182,11 @@ def main():
     headdim_counts = phase_headdims(mx, ck, prompts)
     print(f"chip_smoke: the head-dims phase took "
           f"{time.perf_counter() - t_dh:.1f} s")
+    t_refused = time.perf_counter()
+    refused_counts = phase_refused_inputs(mx, ck, prompts, params, cpu_ref,
+                                          q_mod)
+    print(f"chip_smoke: phase 52 (inputs the card refused) took "
+          f"{time.perf_counter() - t_refused:.1f} s")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -6867,7 +7212,7 @@ def main():
             "" if dtype == "float32" else "_" + HALF_SFX[dtype])
         launches[name] = counts[name]
     launches.update(frozen_counts)
-    for counts in (dh32_counts, headdim_counts):
+    for counts in (dh32_counts, headdim_counts, refused_counts):
         for k, n in counts.items():
             launches[k] += n
     # the per-array kernels' launches: a caller's own Updater(i, g, w)

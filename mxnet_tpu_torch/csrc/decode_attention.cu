@@ -50,20 +50,33 @@
 //   the key loop: a warp waits for its own copies and syncs with
 //   __syncwarp. The first chunks' copies are issued before the query rows
 //   are staged, so the two loads overlap.
-// * Head dims: every multiple of 16 up to 128 runs on the smallest of the
-//   Dh 32, 64 and 128 tiles that holds it (head_tile). A row of any cache
-//   type is then a whole number of 16-byte copies; the copies past Dh are
-//   zero-filled (nothing is read), the staged query is zero past Dh, so
-//   the scores are Dh's own and the accumulator's columns past Dh hold
-//   zeros, which are not stored. 1/sqrt(Dh) is the caller's, from the
-//   real Dh.
+// * Head dims: a Dh up to 128 whose rows are a whole number of 16-byte
+//   copies (and whose caches are 16-byte aligned) runs on the smallest of
+//   the Dh 32, 64 and 128 tiles that holds it (head_tile); the copies
+//   past Dh are zero-filled (nothing is read), the staged query is zero
+//   past Dh, so the scores are Dh's own and the accumulator's columns
+//   past Dh hold zeros, which are not stored. 1/sqrt(Dh) is the caller's,
+//   from the real Dh.
+// * Every other Dh takes the general route (WIDE): the Dh 128 tile, the
+//   output's columns cut into groups of 128 on the grid's x axis (B*H *
+//   groups blocks; one group up to 128), so a lane still holds 4 of V's
+//   dims a row, whatever Dh. Each block takes the scores over the keys'
+//   full Dh in 128-wide steps: for each step a warp copies the chunk's K
+//   columns into its stage and its query rows' columns into its own slice
+//   of shared memory, and adds the step's products to the scores; its
+//   group's V columns come with the first step. One stage a warp, the
+//   steps in order (the K rows are read once a group). Rows are copied in
+//   the widest unit that divides their bytes and both caches' addresses
+//   (`unit`, chosen by the wrapper: 16, 8 or 4 bytes through cp.async, 2
+//   or 1 by plain loads, as an fp8 row of an odd Dh needs). Its S = 1
+//   instance takes a thread's full 255 registers (decode_attn_any).
 // * S = 1 has its own instance: one query row, one score a lane (four
 //   interleaved partial sums), p handed to the accumulator by shuffles; a
-//   lane accumulates Dh / 32 dims of the tile; two warps a block. A window (1 < S <=
-//   64) takes tiles of 16 query rows, four warps a block; a full tile runs
-//   every row's chains unguarded, so they interleave, and the last tile's
-//   rows past S are skipped by warp-uniform branches, never computed nor
-//   merged.
+//   lane accumulates Dh / 32 dims of the tile; two warps a block. A window
+//   (S > 1, any S) takes tiles of 16 query rows on the grid's y axis, four
+//   warps a block; a full tile runs every row's chains unguarded, so they
+//   interleave, and the last tile's rows past S are skipped by
+//   warp-uniform branches, never computed nor merged.
 // * The block's warps are merged in warp order, in shared memory. With
 //   more than one split each block writes its float32 (m, l, acc) to a
 //   workspace and bumps its (row, tile) counter after a __threadfence;
@@ -199,6 +212,52 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 or 4 bytes global -> shared, asynchronously; zeros where `live` is
+// false
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool live) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(live ? N : 0)
+               : "memory");
+}
+
+// one `unit`-byte copy (16, 8 or 4 through cp.async; 2 or 1 by a plain
+// load and store), zeros where `live` is false
+__device__ __forceinline__ void copy_unit(uint8_t* d, const uint8_t* s,
+                                          bool live, int unit) {
+  switch (unit) {
+    case 16: cp_async16(d, s, live); break;
+    case 8: cp_async_ca<8>(d, s, live); break;
+    case 4: cp_async_ca<4>(d, s, live); break;
+    case 2:
+      *reinterpret_cast<uint16_t*>(d) =
+          live ? *reinterpret_cast<const uint16_t*>(s) : uint16_t(0);
+      break;
+    default: *d = live ? *s : uint8_t(0);
+  }
+}
+
+// Rows [0, nk) of a cache at src (row_bytes apart), the tile's bytes [c0,
+// c0 + TILE) of each, into dst (PITCH apart) in `unit`-byte copies, the
+// bytes past the row's own zero-filled; one warp, lane by lane
+template <int TILE, int PITCH>
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src,
+                                          int nk, int row_bytes, int c0,
+                                          int unit, int lane) {
+  const int per = TILE / unit;
+#pragma unroll 1
+  for (int e = lane; e < nk * per; e += 32) {
+    const int j = e / per, u = e % per;
+    const int off = c0 + u * unit;
+    const bool live = off < row_bytes;
+    copy_unit(dst + j * PITCH + u * unit,
+              src + static_cast<int64_t>(j) * row_bytes + (live ? off : 0),
+              live, unit);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -233,7 +292,7 @@ __device__ __forceinline__ void merge(float& m, float& l, float& a, float mb,
 // less, its columns past Dh zeros). A chunk stage holds 32 K rows then 32 V
 // rows, each padded by 16 bytes so the lanes of a quarter warp, one K row
 // each, hit distinct banks.
-template <int DH, typename Cache, int ROWS>
+template <int DH, typename Cache, int ROWS, bool WIDE = false>
 struct Smem {
   // warps a block: two at S = 1, four for a window tile (16 rows give a
   // chunk 16 times the work, so more warps share a split)
@@ -244,8 +303,12 @@ struct Smem {
   static constexpr int kStage = 2 * kKeys * kPitch;
   // ring stages a warp may take: two, but one for a window's four warps
   // over 256- or 512-byte rows, so that two blocks still fit an SM
-  static constexpr int kMaxStages = ROWS == 1 || kRowBytes <= 128 ? 2 : 1;
-  static constexpr int kQ = ROWS * DH * 4;
+  // (the wide route: one, its steps in order)
+  static constexpr int kMaxStages =
+      WIDE ? 1 : (ROWS == 1 || kRowBytes <= 128 ? 2 : 1);
+  // the scaled query rows: the block's, or on the wide route each warp's
+  // own, one 128-column step at a time
+  static constexpr int kQ = (WIDE ? kWarps : 1) * ROWS * DH * 4;
   static constexpr int kPs = ROWS > 1 ? kWarps * kKeys * kPsStride * 4 : 0;
   // the warps' (m, l, acc) for the block merge, then each row's merge
   // coefficients and merged (m, l), over the ring
@@ -258,34 +321,20 @@ struct Smem {
   }
 };
 
-// One chunk's online-softmax update of every live row of a tile: the
-// scores of the chunk's keys (lane = key) against the tile's scaled query
-// rows, the TPU kernel's m / l / corr rule, and acc = acc * corr + sum_j
-// p_j v_j. FULL (a full tile: every window tile but the last, and S = 1)
-// drops the row guards, so the rows' chains interleave. Inlined, so the
-// state arrays stay in registers.
+// The scores of one chunk's keys (lane = key, its K row in the stage
+// read 16 bytes at a time) against the tile's scaled query rows qs
+// ([ROWS][DH]), added to sc: one row in four interleaved sums (the S = 1
+// route), or one sum a row. FULL (a full tile: every window tile but the
+// last, and S = 1) drops the row guards, so the rows' chains interleave.
 template <bool FULL, int DH, typename Cache, int ROWS>
-__device__ __forceinline__ void chunk_update(
-    const uint8_t* st, int ks, int k_hi, int nrows, int64_t first_pos,
-    const float* qs, float* ps, int lane, float (&m)[ROWS], float (&l)[ROWS],
-    float (&acc)[ROWS][DH / 32]) {
+__device__ __forceinline__ void chunk_scores(
+    const uint8_t* st, int nrows, const float* qs, int lane,
+    float (&sc)[ROWS][ROWS == 1 ? 4 : 1]) {
   using L = Smem<DH, Cache, ROWS>;
-  constexpr int kPitch = L::kPitch;
   constexpr int kUnits = L::kRowBytes / 16;        // 16-byte units a row
   constexpr int kU = 16 / kElem<Cache>;            // values a unit
-  constexpr int kVd = DH / 32;                     // dims a lane
-  constexpr int kVBytes = kVd * kElem<Cache>;
-  const int nk = min(kKeys, k_hi - ks);
-  const int kp = ks + lane;
-  // scores: lane = key, its K row read 16 bytes at a time; one row in
-  // four interleaved sums (the S = 1 route), or one sum a row
   constexpr int kParts = ROWS == 1 ? 4 : 1;
-  float sc[ROWS][kParts];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int x = 0; x < kParts; ++x) sc[r][x] = 0.0f;
-  const uint8_t* krow = st + lane * kPitch;
+  const uint8_t* krow = st + lane * L::kPitch;
 #pragma unroll
   for (int u = 0; u < kUnits; ++u) {
     float f[kU];
@@ -300,6 +349,24 @@ __device__ __forceinline__ void chunk_update(
       }
     }
   }
+}
+
+// One chunk's online-softmax update of every live row from its scores sc:
+// the TPU kernel's m / l / corr rule, and acc = acc * corr + sum_j p_j v_j
+// over the chunk's V rows in the stage. Inlined, so the state arrays stay
+// in registers.
+template <bool FULL, int DH, typename Cache, int ROWS>
+__device__ __forceinline__ void chunk_apply(
+    const uint8_t* st, int ks, int k_hi, int nrows, int64_t first_pos,
+    float* ps, int lane, const float (&sc)[ROWS][ROWS == 1 ? 4 : 1],
+    float (&m)[ROWS], float (&l)[ROWS], float (&acc)[ROWS][DH / 32]) {
+  using L = Smem<DH, Cache, ROWS>;
+  constexpr int kPitch = L::kPitch;
+  constexpr int kVd = DH / 32;                     // dims a lane
+  constexpr int kVBytes = kVd * kElem<Cache>;
+  constexpr int kParts = ROWS == 1 ? 4 : 1;
+  const int nk = min(kKeys, k_hi - ks);
+  const int kp = ks + lane;
   // online-softmax update of each row (the TPU kernel's m/l/corr rule)
   float p[ROWS], corr[ROWS];
 #pragma unroll
@@ -370,20 +437,80 @@ __device__ __forceinline__ void chunk_update(
   }
 }
 
-// DH is the tile's head dim, dh <= DH the operands' own (a multiple of 16,
-// so a row of every cache type is a whole number of 16-byte copies): the
-// copies past dh are zero-filled, the query's columns past dh are zeros,
-// so the scores are dh's and the accumulator's columns past dh are zeros,
-// which are not stored. The scale is the caller's, dh^-1/2.
-template <int DH, typename Cache, typename Q, int ROWS>
-__global__ void __launch_bounds__(Smem<DH, Cache, ROWS>::kThreads)
-decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
-            const uint8_t* __restrict__ v, const int32_t* __restrict__ pos,
-            float* __restrict__ out, float* __restrict__ ws,
-            int* __restrict__ counters, int heads,
-            int s_len, int cap, int dh, int split_keys, int stages,
-            float scale) {
-  using L = Smem<DH, Cache, ROWS>;
+// One chunk's scores and update, its K and V rows staged together
+template <bool FULL, int DH, typename Cache, int ROWS>
+__device__ __forceinline__ void chunk_update(
+    const uint8_t* st, int ks, int k_hi, int nrows, int64_t first_pos,
+    const float* qs, float* ps, int lane, float (&m)[ROWS], float (&l)[ROWS],
+    float (&acc)[ROWS][DH / 32]) {
+  float sc[ROWS][ROWS == 1 ? 4 : 1];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int x = 0; x < (ROWS == 1 ? 4 : 1); ++x) sc[r][x] = 0.0f;
+  chunk_scores<FULL, DH, Cache, ROWS>(st, nrows, qs, lane, sc);
+  chunk_apply<FULL, DH, Cache, ROWS>(st, ks, k_hi, nrows, first_pos, ps,
+                                     lane, sc, m, l, acc);
+}
+
+// The wide route's chunk (DH = 128 a step, dh > 128): for each 128-column
+// step of the keys' Dh, the chunk's K columns into the warp's stage and
+// its query rows' columns, scaled, into its own slice wq, the step's
+// products added to the scores; the group's V columns come with step 0.
+// The steps run in order on one stage (each waits for its copies).
+template <bool FULL, int DH, typename Cache, typename Q, int ROWS>
+__device__ __forceinline__ void wide_chunk(
+    uint8_t* st, const uint8_t* kb, const uint8_t* vb, const Q* qb, int ks,
+    int k_hi, int nrows, int64_t first_pos, int dh, int group, int unit,
+    float scale, float* wq, float* ps, int lane, float (&m)[ROWS],
+    float (&l)[ROWS], float (&acc)[ROWS][DH / 32]) {
+  using L = Smem<DH, Cache, ROWS, true>;
+  const int row_bytes = dh * kElem<Cache>;
+  const int nk = min(kKeys, k_hi - ks);
+  const int64_t off = static_cast<int64_t>(ks) * row_bytes;
+  float sc[ROWS][ROWS == 1 ? 4 : 1];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int x = 0; x < (ROWS == 1 ? 4 : 1); ++x) sc[r][x] = 0.0f;
+  for (int c0 = 0; c0 < dh; c0 += DH) {
+    __syncwarp();  // the stage and wq are read to their end
+    copy_rows<L::kRowBytes, L::kPitch>(st, kb + off, nk, row_bytes,
+                                       c0 * kElem<Cache>, unit, lane);
+    if (c0 == 0)
+      copy_rows<L::kRowBytes, L::kPitch>(st + kKeys * L::kPitch, vb + off,
+                                         nk, row_bytes,
+                                         group * L::kRowBytes, unit, lane);
+    cp_async_commit();
+    for (int e = lane; e < nrows * DH; e += 32) {
+      const int r = e / DH, d = c0 + e % DH;
+      wq[e] = d < dh ? widen1(qb[r * dh + d]) * scale : 0.0f;
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+    chunk_scores<FULL, DH, Cache, ROWS>(st, nrows, wq, lane, sc);
+  }
+  chunk_apply<FULL, DH, Cache, ROWS>(st, ks, k_hi, nrows, first_pos, ps, lane,
+                                     sc, m, l, acc);
+}
+
+// DH is the tile's head dim, dh <= DH the operands' own (or, WIDE, any dh
+// and `groups` = ceil(dh / DH) output-column groups on the grid's x axis,
+// this block's the `blockIdx.x % groups`-th): the copies past dh are
+// zero-filled, the query's columns past dh are zeros, so the scores are
+// dh's and the accumulator's columns past dh are zeros, which are not
+// stored. The tiles' rows are copied 16 bytes a copy; the general route
+// (WIDE) copies `unit` bytes a copy, and also takes, as one column group
+// of the Dh 128 tile, every Dh up to 128 whose rows or caches are not a
+// multiple of 16 bytes. The scale is the caller's, dh^-1/2.
+template <int DH, typename Cache, typename Q, int ROWS, bool WIDE>
+__device__ __forceinline__ void decode_body(
+    const Q* __restrict__ q, const uint8_t* __restrict__ k,
+    const uint8_t* __restrict__ v, const int32_t* __restrict__ pos,
+    float* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ counters, int heads, int s_len, int cap, int dh,
+    int split_keys, int stages, int unit, int groups, float scale) {
+  using L = Smem<DH, Cache, ROWS, WIDE>;
   constexpr int kWarps = L::kWarps, kThreads = L::kThreads;
   constexpr int kPitch = L::kPitch;
   constexpr int kUnits = L::kRowBytes / 16;       // 16-byte units a tile row
@@ -394,7 +521,9 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
   float* ps_all = reinterpret_cast<float*>(smem + L::kQ);
   uint8_t* ring = smem + L::kQ + L::kPs;
 
-  const int bh = blockIdx.x, tile = blockIdx.y, split = blockIdx.z;
+  const int bh = WIDE ? blockIdx.x / groups : blockIdx.x;
+  const int group = WIDE ? blockIdx.x % groups : 0;
+  const int tile = blockIdx.y, split = blockIdx.z;
   const int splits = gridDim.z;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int s0 = tile * ROWS;
@@ -446,43 +575,58 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
     for (int d = 0; d < kVd; ++d) acc[r][d] = 0.0f;
   }
   float* ps = ps_all + warp * kKeys * kPsStride;
-
-  // the ring: the first chunks are in flight while the query rows load,
-  // and chunk i + 1 while chunk i is consumed (an empty group keeps the
-  // count where no chunk is left)
-  for (int i = 0; i < stages; ++i) {
-    if (i < n_mine)
-      load(i);
-    else
-      cp_async_commit();
-  }
-  // the scaled query rows of this tile, zeros past dh (rows past S are
-  // never read)
   const Q* qb = q + (static_cast<int64_t>(bh) * s_len + s0) * dh;
-  for (int e = t; e < nrows * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    qs[e] = d < dh ? widen1(qb[r * dh + d]) * scale : 0.0f;
-  }
-  __syncthreads();
-  for (int i = 0; i < n_mine; ++i) {
-    if (stages > 1)  // chunk i has landed (chunk i + 1 may be pending)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncwarp();
-    const uint8_t* st = wring + (i % stages) * L::kStage;
-    const int ks = k_lo + (warp + i * kWarps) * kKeys;
-    if (ROWS == 1 || nrows == ROWS)
-      chunk_update<true, DH, Cache, ROWS>(st, ks, k_hi, nrows, cursor + s0,
-                                          qs, ps, lane, m, l, acc);
-    else
-      chunk_update<false, DH, Cache, ROWS>(st, ks, k_hi, nrows, cursor + s0,
-                                           qs, ps, lane, m, l, acc);
-    __syncwarp();  // the stage and ps are free for the next chunk
-    if (i + stages < n_mine)
-      load(i + stages);
-    else
-      cp_async_commit();
+
+  if constexpr (WIDE) {
+    // each chunk's steps in order on one stage, the query staged by the
+    // warp step by step; a window's rows keep their guards (one instance
+    // of the chunk, which halves the route's build)
+    float* wq = qs + warp * ROWS * DH;
+    for (int i = 0; i < n_mine; ++i) {
+      const int ks = k_lo + (warp + i * kWarps) * kKeys;
+      wide_chunk<ROWS == 1, DH, Cache, Q, ROWS>(
+          wring, kb, vb, qb, ks, k_hi, nrows, cursor + s0, dh, group, unit,
+          scale, wq, ps, lane, m, l, acc);
+      __syncwarp();  // ps is free for the next chunk
+    }
+  } else {
+    // the ring: the first chunks are in flight while the query rows load,
+    // and chunk i + 1 while chunk i is consumed (an empty group keeps the
+    // count where no chunk is left)
+    for (int i = 0; i < stages; ++i) {
+      if (i < n_mine)
+        load(i);
+      else
+        cp_async_commit();
+    }
+    // the scaled query rows of this tile, zeros past dh (rows past S are
+    // never read)
+    for (int e = t; e < nrows * DH; e += kThreads) {
+      const int r = e / DH, d = e % DH;
+      qs[e] = d < dh ? widen1(qb[r * dh + d]) * scale : 0.0f;
+    }
+    __syncthreads();
+    for (int i = 0; i < n_mine; ++i) {
+      if (stages > 1)  // chunk i has landed (chunk i + 1 may be pending)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncwarp();
+      const uint8_t* st = wring + (i % stages) * L::kStage;
+      const int ks = k_lo + (warp + i * kWarps) * kKeys;
+      if (ROWS == 1 || nrows == ROWS)
+        chunk_update<true, DH, Cache, ROWS>(st, ks, k_hi, nrows, cursor + s0,
+                                            qs, ps, lane, m, l, acc);
+      else
+        chunk_update<false, DH, Cache, ROWS>(st, ks, k_hi, nrows,
+                                             cursor + s0, qs, ps, lane, m, l,
+                                             acc);
+      __syncwarp();  // the stage and ps are free for the next chunk
+      if (i + stages < n_mine)
+        load(i + stages);
+      else
+        cp_async_commit();
+    }
   }
 
   // merge the warps in warp order (the ring's memory holds their states)
@@ -526,10 +670,13 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
     row_ml[ROWS + t] = ll;
   }
   __syncthreads();
-  const int64_t group = static_cast<int64_t>(bh) * gridDim.y + tile;
+  // the (row, column group, tile) this block's partials belong to
+  const int64_t slot_of = static_cast<int64_t>(blockIdx.x) * gridDim.y + tile;
   constexpr int kSlot = ROWS * (DH + 2);
-  float* part = splits > 1 ? ws + (group * splits + split) * kSlot : nullptr;
-  float* ob = out + (static_cast<int64_t>(bh) * s_len + s0) * dh;
+  float* part = splits > 1 ? ws + (slot_of * splits + split) * kSlot : nullptr;
+  // this block's output columns start at col0
+  const int col0 = group * DH;
+  float* ob = out + (static_cast<int64_t>(bh) * s_len + s0) * dh + col0;
   for (int e = t; e < nrows * DH; e += kThreads) {
     const int r = e / DH;
     float aa = 0.0f;
@@ -539,7 +686,7 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
       aa = fmaf(mg[w * ROWS * (DH + 2) + e], c[1], aa * c[0]);
     }
     if (splits == 1) {
-      if (e % DH < dh)
+      if (col0 + e % DH < dh)
         ob[r * dh + e % DH] = aa / fmaxf(row_ml[ROWS + r], 1e-30f);
     } else {
       part[e] = aa;
@@ -557,7 +704,7 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
   __threadfence();
   __syncthreads();
   if (t == 0) {
-    int* counter = counters + group;
+    int* counter = counters + slot_of;
     last = atomicAdd(counter, 1) == splits - 1;
     if (last) *counter = 0;  // every block of the group has counted
   }
@@ -566,7 +713,7 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
   __threadfence();
   // every thread's entries (rows past S skipped), the loads of a batch
   // of splits in flight together, merged in split order
-  const float* first = ws + group * splits * kSlot;
+  const float* first = ws + slot_of * splits * kSlot;
   // entries a thread (one at S = 1, Dh = 32, where the block's 64 threads
   // outnumber the row's 32 entries: the rest skip by the row guard)
   constexpr int kPer = (ROWS * DH + kThreads - 1) / kThreads;
@@ -601,24 +748,53 @@ decode_attn(const Q* __restrict__ q, const uint8_t* __restrict__ k,
 #pragma unroll
   for (int x = 0; x < kPer; ++x) {
     const int e = t + x * kThreads;
-    if (e / DH < nrows && e % DH < dh)
+    if (e / DH < nrows && col0 + e % DH < dh)
       ob[(e / DH) * dh + e % DH] = aa[x] / fmaxf(ll[x], 1e-30f);
   }
+}
+
+#define MX_DECODE_PARAMS                                                   \
+  const Q *__restrict__ q, const uint8_t *__restrict__ k,                  \
+      const uint8_t *__restrict__ v, const int32_t *__restrict__ pos,      \
+      float *__restrict__ out, float *__restrict__ ws,                     \
+      int *__restrict__ counters, int heads, int s_len, int cap, int dh,   \
+      int split_keys, int stages, int unit, int groups, float scale
+#define MX_DECODE_ARGS                                                     \
+  q, k, v, pos, out, ws, counters, heads, s_len, cap, dh, split_keys,      \
+      stages, unit, groups, scale
+
+template <int DH, typename Cache, typename Q, int ROWS, bool WIDE>
+__global__ void __launch_bounds__(Smem<DH, Cache, ROWS, WIDE>::kThreads)
+    decode_attn(MX_DECODE_PARAMS) {
+  decode_body<DH, Cache, Q, ROWS, WIDE>(MX_DECODE_ARGS);
+}
+
+// The general route at S = 1: held to ptxas' default register budget it
+// spills (64 registers a thread), so it is allowed a thread's full 255
+template <int DH, typename Cache, typename Q, int ROWS, bool WIDE>
+__global__ void __launch_bounds__(Smem<DH, Cache, ROWS, WIDE>::kThreads, 1)
+    decode_attn_any(MX_DECODE_PARAMS) {
+  decode_body<DH, Cache, Q, ROWS, WIDE>(MX_DECODE_ARGS);
 }
 
 // one launch's arguments, as the entry points take them
 struct Args {
   const void *q, *k, *v, *pos;
   void *out, *ws, *counters;
-  int bh, heads, s_len, cap, dh, split_keys, splits;
+  int bh, heads, s_len, cap, dh, split_keys, splits, unit, groups;
   float scale;
   cudaStream_t st;
 };
 
-template <int DH, typename Cache, typename Q, int ROWS>
+template <int DH, typename Cache, typename Q, int ROWS, bool WIDE>
 int launch_rows(const Args& a) {
-  using L = Smem<DH, Cache, ROWS>;
-  auto kern = decode_attn<DH, Cache, Q, ROWS>;
+  using L = Smem<DH, Cache, ROWS, WIDE>;
+  auto kern = [] {  // one kernel a route (each instance is compiled)
+    if constexpr (WIDE && ROWS == 1)
+      return decode_attn_any<DH, Cache, Q, ROWS, WIDE>;
+    else
+      return decode_attn<DH, Cache, Q, ROWS, WIDE>;
+  }();
   static bool ready[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -634,39 +810,59 @@ int launch_rows(const Args& a) {
   // as many stages as a warp has chunks in its split, up to kMaxStages
   const int per_warp = (a.split_keys / kKeys + L::kWarps - 1) / L::kWarps;
   const int stages = per_warp < L::kMaxStages ? per_warp : L::kMaxStages;
-  const dim3 grid(a.bh, (a.s_len + ROWS - 1) / ROWS, a.splits);
+  const int tiles = (a.s_len + ROWS - 1) / ROWS;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a.bh) * a.groups, tiles, a.splits);
   kern<<<grid, L::kThreads, L::bytes(stages), a.st>>>(
       static_cast<const Q*>(a.q), static_cast<const uint8_t*>(a.k),
       static_cast<const uint8_t*>(a.v), static_cast<const int32_t*>(a.pos),
       static_cast<float*>(a.out), static_cast<float*>(a.ws),
       static_cast<int*>(a.counters), a.heads, a.s_len, a.cap, a.dh,
-      a.split_keys, stages, a.scale);
+      a.split_keys, stages, a.unit, a.groups, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The tile a head dim runs on: the smallest of 32, 64 and 128 that holds
-// it (cuda_kernels.head_tile keeps the same rule)
+// it, 128 above (cuda_kernels.head_tile keeps the same rule)
 int head_tile(int dh) { return dh <= 32 ? 32 : (dh <= 64 ? 64 : 128); }
+
+// The route's copy unit is the caller's: a power of two from 1 to 16 that
+// divides a row's bytes and both caches' addresses
+template <typename Cache>
+bool unit_ok(const Args& a) {
+  const uintptr_t bits = static_cast<uintptr_t>(a.dh) * kElem<Cache> |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  return (a.unit == 1 || a.unit == 2 || a.unit == 4 || a.unit == 8 ||
+          a.unit == 16) &&
+         (bits & static_cast<uintptr_t>(a.unit - 1)) == 0;
+}
 
 template <typename Cache, typename Q = float>
 int launch(const Args& a) {
   if (a.bh == 0 || a.s_len == 0) return 0;
-  if (a.dh < 16 || a.dh > 128 || a.dh % 16 != 0 || a.split_keys <= 0 ||
-      a.split_keys % kKeys != 0 || a.splits < 1 || a.splits > 65535 ||
+  const int groups = a.dh > 128 ? (a.dh + 127) / 128 : 1;
+  if (a.dh < 1 || a.groups != groups || !unit_ok<Cache>(a) ||
+      a.split_keys <= 0 || a.split_keys % kKeys != 0 || a.splits < 1 ||
+      a.splits > 65535 ||
       static_cast<int64_t>(a.split_keys) * a.splits < a.cap ||
       (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool one = a.s_len == 1;
+  // the general route: above 128, or rows copied in units below 16 bytes
+  if (groups > 1 || a.unit != 16)
+    return one ? launch_rows<128, Cache, Q, 1, true>(a)
+               : launch_rows<128, Cache, Q, kWinRows, true>(a);
   switch (head_tile(a.dh)) {
     case 32:
-      return one ? launch_rows<32, Cache, Q, 1>(a)
-                 : launch_rows<32, Cache, Q, kWinRows>(a);
+      return one ? launch_rows<32, Cache, Q, 1, false>(a)
+                 : launch_rows<32, Cache, Q, kWinRows, false>(a);
     case 64:
-      return one ? launch_rows<64, Cache, Q, 1>(a)
-                 : launch_rows<64, Cache, Q, kWinRows>(a);
+      return one ? launch_rows<64, Cache, Q, 1, false>(a)
+                 : launch_rows<64, Cache, Q, kWinRows, false>(a);
     default:
-      return one ? launch_rows<128, Cache, Q, 1>(a)
-                 : launch_rows<128, Cache, Q, kWinRows>(a);
+      return one ? launch_rows<128, Cache, Q, 1, false>(a)
+                 : launch_rows<128, Cache, Q, kWinRows, false>(a);
   }
 }
 
@@ -674,26 +870,29 @@ int launch(const Args& a) {
 
 // q (b*h, s, dh) float32 (bfloat16 or float16 for those entry points), k/v
 // cache (b*h, cap, dh) of the entry point's storage type, pos (b,) int32,
-// out (b*h, s, dh) float32; contiguous, one device, the caches 16-byte
-// aligned. dh must be a multiple of 16 from 16 to 128 (it runs on the tile
-// of head_tile(dh)). The key range is cut into `splits` splits of
-// `split_keys` keys (a multiple of 32, split_keys * splits >= cap); with
-// more than one split, ws holds the splits' float32 partials, laid out at
-// the tile's head dim (cuda_kernels._decode_ws_sizes) and counters an int32
-// counter a (row, query tile), kept at 0 between launches (zeroed once,
-// reset by the kernel; never shared with the partials, whose layout
-// changes with the shape). Returns cudaGetLastError()
-// (cudaErrorInvalidValue for another dh or a split plan the kernel does
-// not take).
+// out (b*h, s, dh) float32; contiguous, one device. Any dh >= 1 and any s
+// (up to 16 * 65535): dh up to 128 runs on the tile of head_tile(dh), a
+// larger dh on the wide route with `groups` = ceil(dh / 128) column groups
+// (1 otherwise). `unit`: the copy's bytes, a power of two up to 16 that
+// divides dh's row bytes and both caches' addresses. The key range is cut
+// into `splits` splits of `split_keys` keys (a multiple of 32,
+// split_keys * splits >= cap); with more than one split, ws holds the
+// splits' float32 partials, laid out at the tile's head dim for every
+// (row, column group, query tile) (cuda_kernels._decode_ws_sizes) and
+// counters an int32 counter for each of those, kept at 0 between launches
+// (zeroed once, reset by the kernel; never shared with the partials, whose
+// layout changes with the shape). Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a route or a split plan the kernel does not
+// take).
 #define MX_DECODE_ENTRY(NAME, ...)                                           \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* pos, void* out, void* ws, void* counters, \
                       int batch, int heads, int s_len, int cap, int dh,     \
-                      int split_keys, int splits, float scale,              \
-                      void* stream) {                                       \
+                      int split_keys, int splits, int unit, int groups,     \
+                      float scale, void* stream) {                          \
     return launch<__VA_ARGS__>(                                              \
         Args{q, k, v, pos, out, ws, counters, batch * heads, heads, s_len,   \
-             cap, dh, split_keys, splits, scale,                             \
+             cap, dh, split_keys, splits, unit, groups, scale,               \
              static_cast<cudaStream_t>(stream)});                            \
   }
 

@@ -14,20 +14,29 @@
 //   corr = exp(m - m_safe) where m is finite else 0,
 //   l = l * corr + sum_k p,  acc = acc * corr + p . v
 // The normalized mode writes out = acc / max(l, 1e-30) in the element
-// type, rounded once (q, k, v, out (B*H, T, Dh), Tq = Tk, no offsets).
+// type, rounded once (q, out (B*H, Tq, Dh), k, v (B*H, Tk, Dh); the causal
+// mask bottom-right aligned as in the reference, tril(ones(Tq, Tk), Tk -
+// Tq): the offsets q_off = Tk - Tq, k_off = 0, and a row that sees no key
+// (Tq > Tk) is NaN, the reference's softmax over -inf alone).
 // The partial mode writes the state as the key loop leaves it: acc (B*H,
 // Tq, Dh), m and l (B*H, Tq), float32 whatever the element type; q (B*H,
 // Tq, Dh) is one query shard and k, v (B*H, Tk, Dh) the K/V shard a ring
 // position holds, at absolute offsets q_off and k_off. Key tiles wholly
 // above the diagonal are not visited, so a query row that sees no key
 // keeps the initial m = -inf, l = 0, acc = 0, as the TPU kernel's scratch
-// does. Dh is any multiple of 16 up to 128, run on the smallest of the Dh
-// 32, 64 and 128 tiles that holds it (head_tile; the 16-bit instances take
-// the Dh 64 tiles for 16, 32 and 48): the operands' columns past Dh reach
-// the tiles as zeros, which leave the scores unchanged and give the
-// accumulator zero columns that are not stored, and the scale is the
-// caller's, 1/sqrt of the real Dh. Any T is taken; the query tiles with
-// the most keys are scheduled first.
+// does. Any Dh up to 128 runs on the smallest of the Dh 32, 64 and 128
+// tiles that holds it (head_tile; the 16-bit instances take the Dh 64
+// tiles for 8 to 64): the operands' columns past Dh reach the tiles as
+// zeros, which leave the scores unchanged and give the accumulator zero
+// columns that are not stored, and the scale is the caller's, 1/sqrt of
+// the real Dh. The copies are 16 bytes: the float32 instance takes a Dh
+// that is a multiple of 4, the 16-bit tensor-core instances a multiple of
+// 8 (TMA's row pitch), each on 16-byte aligned operands, and the wrapper
+// hands them any other Dh up to 128 as a zero-padded copy. Above 128 every element type takes the wide route
+// (cc::flash_wide): column groups of 128 on the grid's x axis, the
+// scores over Dh in 128-wide steps on the Dh 128 register tile. B*H is
+// on the grid's x axis (2^31 - 1 blocks), the query tiles on y. Any T is
+// taken; the query tiles with the most keys are scheduled first.
 //
 // Two designs, one per element type.
 //
@@ -260,13 +269,187 @@ __device__ __forceinline__ void copy_kv(const float* __restrict__ kb,
   cp_async_commit();
 }
 
+// S += (q * scale) . k for this thread's kR rows x kKs keys, over the DH
+// columns of the Q tile qs and the K tile ks (both [.][kLd], q scaled)
+template <int DH>
+__device__ __forceinline__ void scores(
+    const float* qs, const float* ks, int rg, int cg,
+    float (&s)[Cfg<DH>::kR][Cfg<DH>::kKs]) {
+  using C = Cfg<DH>;
+  constexpr int kR = C::kR, kKs = C::kKs, kLd = C::kLd;
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) {
+    float4 a[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j)
+      a[j] = *reinterpret_cast<const float4*>(qs + (rg + C::kRg * j) * kLd +
+                                              d);
+#pragma unroll
+    for (int i = 0; i < kKs; ++i) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(ks + (cg + C::kG * i) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        s[j][i] = fmaf(a[j].x, b.x, s[j][i]);
+        s[j][i] = fmaf(a[j].y, b.y, s[j][i]);
+        s[j][i] = fmaf(a[j].z, b.z, s[j][i]);
+        s[j][i] = fmaf(a[j].w, b.w, s[j][i]);
+      }
+    }
+  }
+}
+
+// One key tile's mask, online-softmax update and acc += P . V from its
+// scores s (this thread's kR rows x kKs keys) and the V tile vs
+// ([kBk][DH], this thread's columns 4 cg + 4 kG h), P through ps
+template <int DH>
+__device__ __forceinline__ void softmax_pv(
+    float (&s)[Cfg<DH>::kR][Cfg<DH>::kKs], const float* vs, float* ps,
+    int k0, int q0, int Tk, int causal, int shift, int rg, int cg,
+    float (&m)[Cfg<DH>::kR], float (&l)[Cfg<DH>::kR],
+    float (&acc)[Cfg<DH>::kR][Cfg<DH>::kCs]) {
+  using C = Cfg<DH>;
+  constexpr int kBk = C::kBk, kG = C::kG, kRg = C::kRg;
+  constexpr int kKs = C::kKs, kR = C::kR, kCs = C::kCs, kLdP = C::kLdP;
+  // the position mask, only on a tile that crosses the diagonal or Tk
+  if (k0 + kBk > Tk || (causal && k0 + kBk - 1 > q0 + shift)) {
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int qp = q0 + rg + kRg * j;
+#pragma unroll
+      for (int i = 0; i < kKs; ++i) {
+        const int kp = k0 + cg + kG * i;
+        const bool live = kp < Tk && (!causal || kp <= qp + shift);
+        s[j][i] = live ? s[j][i] : -INFINITY;
+      }
+    }
+  }
+
+  // the online-softmax update of each row; exp of a selected argument
+  // (-inf where the guard fails), so expf runs without a branch
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    float mb = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kKs; ++i) mb = fmaxf(mb, s[j][i]);
+    const float m_new = fmaxf(m[j], row_max<kG>(mb));
+    const float m_safe = isfinite(m_new) ? m_new : 0.0f;
+    const float corr = expf(isfinite(m[j]) ? m[j] - m_safe : -INFINITY);
+    float psum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kKs; ++i) {
+      const float p = expf(isfinite(s[j][i]) ? s[j][i] - m_safe : -INFINITY);
+      s[j][i] = p;
+      psum += p;
+    }
+    l[j] = l[j] * corr + row_sum<kG>(psum);
+    m[j] = m_new;
+#pragma unroll
+    for (int e = 0; e < kCs; ++e) acc[j][e] *= corr;
+  }
+#pragma unroll
+  for (int i = 0; i < kKs; ++i) {
+    float* prow = ps + (cg + kG * i) * kLdP + kR * rg;
+#pragma unroll
+    for (int j = 0; j < kR; j += 4)
+      *reinterpret_cast<float4*>(prow + j) =
+          make_float4(s[j][i], s[j + 1][i], s[j + 2][i], s[j + 3][i]);
+  }
+  __syncwarp();  // a row group's lanes are one warp's: so are P's rows
+
+  // acc += P . V over the tile's keys (keys past Tk: p = 0, V rows 0)
+#pragma unroll 8
+  for (int c = 0; c < kBk; ++c) {
+    float pr[kR];
+#pragma unroll
+    for (int j = 0; j < kR; j += 4) {
+      const float4 p4 =
+          *reinterpret_cast<const float4*>(ps + c * kLdP + kR * rg + j);
+      pr[j] = p4.x;
+      pr[j + 1] = p4.y;
+      pr[j + 2] = p4.z;
+      pr[j + 3] = p4.w;
+    }
+#pragma unroll
+    for (int h = 0; h < kCs / 4; ++h) {
+      const float4 w =
+          *reinterpret_cast<const float4*>(vs + c * DH + 4 * cg + 4 * kG * h);
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        acc[j][4 * h + 0] = fmaf(pr[j], w.x, acc[j][4 * h + 0]);
+        acc[j][4 * h + 1] = fmaf(pr[j], w.y, acc[j][4 * h + 1]);
+        acc[j][4 * h + 2] = fmaf(pr[j], w.z, acc[j][4 * h + 2]);
+        acc[j][4 * h + 3] = fmaf(pr[j], w.w, acc[j][4 * h + 3]);
+      }
+    }
+  }
+}
+
+// emit: acc / l rounded once to E, or (partial) the registers as they
+// stand, for this thread's rows and its columns 4 cg + 4 kG h .. + 3 of
+// the block's column group starting at col0; 16-byte stores of float
+// where dh is a multiple of 4 (each group of 4 lies wholly below dh or
+// not), one value at a time otherwise. A normalized row that sees no key
+// under the causal mask (Tq > Tk: q_off + qp < k_off) is NaN, the
+// softmax of a row of -inf alone, as in the reference.
+template <int DH, bool PARTIAL, typename E>
+__device__ __forceinline__ void emit(
+    const Args& op, int bh, int q0, int col0, int rg, int cg,
+    const float (&m)[Cfg<DH>::kR], const float (&l)[Cfg<DH>::kR],
+    const float (&acc)[Cfg<DH>::kR][Cfg<DH>::kCs]) {
+  using C = Cfg<DH>;
+  constexpr int kG = C::kG, kRg = C::kRg, kR = C::kR, kCs = C::kCs;
+  const int Tq = op.Tq, dh = op.dh;
+  const bool vec = std::is_same<E, float>::value && (dh & 3) == 0;
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int qp = q0 + rg + kRg * j;
+    if (qp >= Tq) continue;
+    const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
+    float o[kCs];
+    if (PARTIAL) {
+#pragma unroll
+      for (int e = 0; e < kCs; ++e) o[e] = acc[j][e];
+      if (cg == 0 && col0 == 0) {  // the kG lanes of a row hold the same
+        op.m[row] = m[j];          // m and l
+        op.l[row] = l[j];
+      }
+    } else {
+      const float lj = fmaxf(l[j], 1e-30f);
+      const bool none = op.causal && qp + op.q_off - op.k_off < 0;
+#pragma unroll
+      for (int e = 0; e < kCs; ++e) o[e] = none ? NAN : acc[j][e] / lj;
+    }
+    float* frow = PARTIAL ? op.acc + row * dh + col0 : nullptr;
+    E* erow = PARTIAL ? nullptr : static_cast<E*>(op.out) + row * dh + col0;
+#pragma unroll
+    for (int h = 0; h < kCs / 4; ++h) {
+      const int c = 4 * cg + 4 * kG * h;
+      if (col0 + c >= dh) continue;
+      if (vec) {
+        float* dst = PARTIAL ? frow + c : reinterpret_cast<float*>(erow) + c;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(o[4 * h], o[4 * h + 1], o[4 * h + 2], o[4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (col0 + c + e >= dh) break;
+          if (PARTIAL)
+            frow[c + e] = o[4 * h + e];
+          else
+            Io<E, 1>::store(erow, c + e, &o[4 * h + e]);
+        }
+      }
+    }
+  }
+}
+
 template <int DH, bool PARTIAL>
 __global__ void __launch_bounds__(128, 1)
     flash_fwd(const Args op, int n_qt) {
   using C = Cfg<DH>;
-  constexpr int kBq = C::kBq, kBk = C::kBk, kG = C::kG, kRg = C::kRg;
-  constexpr int kKs = C::kKs, kR = C::kR;
-  constexpr int kCs = C::kCs, kLd = C::kLd, kLdP = C::kLdP;
+  constexpr int kBq = C::kBq, kBk = C::kBk, kG = C::kG, kR = C::kR;
+  constexpr int kKs = C::kKs, kCs = C::kCs, kLd = C::kLd;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBq][kLd], scaled
   float* kst = qs + C::kQ;                      // 2 x [kBk][kLd]
@@ -332,143 +515,105 @@ __global__ void __launch_bounds__(128, 1)
     if (k0 + kBk < k_end)
       copy_kv<DH>(kb, vb, k0 + kBk, Tk, dh, kst + (stage ^ 1) * C::kK,
                   vst + (stage ^ 1) * C::kV);
-    const float* ks = kst + stage * C::kK;
-    const float* vs = vst + stage * C::kV;
-
-    // S = (q * scale) . k for kR rows x kKs keys
     float s[kR][kKs];
 #pragma unroll
     for (int j = 0; j < kR; ++j)
 #pragma unroll
       for (int i = 0; i < kKs; ++i) s[j][i] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      float4 a[kR];
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-        a[j] = *reinterpret_cast<const float4*>(qs + (rg + kRg * j) * kLd +
-                                                d);
-#pragma unroll
-      for (int i = 0; i < kKs; ++i) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(ks + (cg + kG * i) * kLd + d);
-#pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          s[j][i] = fmaf(a[j].x, b.x, s[j][i]);
-          s[j][i] = fmaf(a[j].y, b.y, s[j][i]);
-          s[j][i] = fmaf(a[j].z, b.z, s[j][i]);
-          s[j][i] = fmaf(a[j].w, b.w, s[j][i]);
-        }
-      }
-    }
-
-    // the position mask, only on a tile that crosses the diagonal or Tk
-    if (k0 + kBk > Tk || (causal && k0 + kBk - 1 > q0 + shift)) {
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const int qp = q0 + rg + kRg * j;
-#pragma unroll
-        for (int i = 0; i < kKs; ++i) {
-          const int kp = k0 + cg + kG * i;
-          const bool live = kp < Tk && (!causal || kp <= qp + shift);
-          s[j][i] = live ? s[j][i] : -INFINITY;
-        }
-      }
-    }
-
-    // the online-softmax update of each row; exp of a selected argument
-    // (-inf where the guard fails), so expf runs without a branch
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      float mb = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kKs; ++i) mb = fmaxf(mb, s[j][i]);
-      const float m_new = fmaxf(m[j], row_max<kG>(mb));
-      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      const float corr = expf(isfinite(m[j]) ? m[j] - m_safe : -INFINITY);
-      float psum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kKs; ++i) {
-        const float p =
-            expf(isfinite(s[j][i]) ? s[j][i] - m_safe : -INFINITY);
-        s[j][i] = p;
-        psum += p;
-      }
-      l[j] = l[j] * corr + row_sum<kG>(psum);
-      m[j] = m_new;
-#pragma unroll
-      for (int e = 0; e < kCs; ++e) acc[j][e] *= corr;
-    }
-#pragma unroll
-    for (int i = 0; i < kKs; ++i) {
-      float* prow = ps + (cg + kG * i) * kLdP + kR * rg;
-#pragma unroll
-      for (int j = 0; j < kR; j += 4)
-        *reinterpret_cast<float4*>(prow + j) =
-            make_float4(s[j][i], s[j + 1][i], s[j + 2][i], s[j + 3][i]);
-    }
-    __syncwarp();  // a row group's lanes are one warp's: so are P's rows
-
-    // acc += P . V over the tile's keys (keys past Tk: p = 0, V rows 0)
-#pragma unroll 8
-    for (int c = 0; c < kBk; ++c) {
-      float pr[kR];
-#pragma unroll
-      for (int j = 0; j < kR; j += 4) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(ps + c * kLdP + kR * rg + j);
-        pr[j] = p4.x;
-        pr[j + 1] = p4.y;
-        pr[j + 2] = p4.z;
-        pr[j + 3] = p4.w;
-      }
-#pragma unroll
-      for (int h = 0; h < kCs / 4; ++h) {
-        const float4 w = *reinterpret_cast<const float4*>(
-            vs + c * DH + 4 * cg + 4 * kG * h);
-#pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          acc[j][4 * h + 0] = fmaf(pr[j], w.x, acc[j][4 * h + 0]);
-          acc[j][4 * h + 1] = fmaf(pr[j], w.y, acc[j][4 * h + 1]);
-          acc[j][4 * h + 2] = fmaf(pr[j], w.z, acc[j][4 * h + 2]);
-          acc[j][4 * h + 3] = fmaf(pr[j], w.w, acc[j][4 * h + 3]);
-        }
-      }
-    }
+    scores<DH>(qs, kst + stage * C::kK, rg, cg, s);
+    softmax_pv<DH>(s, vst + stage * C::kV, ps, k0, q0, Tk, causal, shift, rg,
+                   cg, m, l, acc);
   }
+  emit<DH, PARTIAL, float>(op, bh, q0, 0, rg, cg, m, l, acc);
+}
 
-  // emit: acc / l, or (partial) the registers as they stand; the columns
-  // 4 cg + 4 kG h .. + 3 of a thread's group h lie wholly below dh or not
+// Rows [r0, r0 + rows) of one (b, h) row's operand (dh values of E each),
+// columns [c0, c0 + 128), widened to float32 and multiplied by `scale`
+// (exact for 1) into a tile [rows][LD]: rows past T and columns past dh
+// zeros. Plain loads, neighbouring threads on neighbouring columns.
+template <typename E, int LD>
+__device__ __forceinline__ void stage_cols(const E* __restrict__ src, int r0,
+                                           int rows, int T, int c0, int dh,
+                                           float scale, float* dst) {
+  for (int e = threadIdx.x; e < rows * 128; e += 128) {
+    const int r = e >> 7, d = e & 127;
+    float f = 0.0f;
+    if (r0 + r < T && c0 + d < dh)
+      Io<E, 1>::load(src, static_cast<int64_t>(r0 + r) * dh + c0 + d, &f);
+    dst[r * LD + d] = f * scale;
+  }
+}
+
+// The wide route, Dh > 128, every element type (float32 and, for these
+// head dims, bfloat16 and float16 too, on the CUDA cores): the Dh 128
+// tile's block and register tile, one block per (b*h, column group, query
+// tile) with the groups on the grid's x axis, each group 128 of the
+// output's columns. For every key tile the scores take the keys' full Dh
+// in 128-wide steps: the step's Q and K columns are staged, widened to
+// float32 (q scaled), and added to S; the group's V columns come with the
+// first step. One stage, the steps in order between two barriers each.
+template <typename E, bool PARTIAL>
+__global__ void __launch_bounds__(128, 1)
+    flash_wide(const Args op, int n_qt, int groups) {
+  constexpr int DH = 128;
+  using C = Cfg<DH>;
+  constexpr int kBq = C::kBq, kBk = C::kBk, kG = C::kG, kR = C::kR;
+  constexpr int kKs = C::kKs, kCs = C::kCs, kLd = C::kLd;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [kBq][kLd], scaled
+  float* ks = qs + C::kQ;                       // [kBk][kLd]
+  float* vs = ks + C::kK;                       // [kBk][DH]
+  float* ps = vs + C::kV;                       // [kBk][kLdP]
+
+  const int t = threadIdx.x;
+  const int cg = t % kG, rg = t / kG;
+  const int bh = blockIdx.x / groups;
+  const int col0 = (blockIdx.x % groups) * DH;
+  const int Tq = op.Tq, Tk = op.Tk, causal = op.causal, dh = op.dh;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBq;
+  const int64_t k_base = static_cast<int64_t>(bh) * Tk * dh;
+  const E* qb = static_cast<const E*>(op.q) +
+                static_cast<int64_t>(bh) * Tq * dh;
+  const E* kb = static_cast<const E*>(op.k) + k_base;
+  const E* vb = static_cast<const E*>(op.v) + k_base;
+  const int shift = op.q_off - op.k_off;
+  const int k_end = causal ? min(Tk, q0 + kBq + shift) : Tk;
+
+  float m[kR], l[kR], acc[kR][kCs];
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
-    const int qp = q0 + rg + kRg * j;
-    if (qp >= Tq) continue;
-    const int64_t row = static_cast<int64_t>(bh) * Tq + qp;
-    if (PARTIAL) {
-      float* arow = op.acc + row * dh;
+    m[j] = -INFINITY;
+    l[j] = 0.0f;
 #pragma unroll
-      for (int h = 0; h < kCs / 4; ++h)
-        if (4 * cg + 4 * kG * h < dh)
-          *reinterpret_cast<float4*>(arow + 4 * cg + 4 * kG * h) =
-              make_float4(acc[j][4 * h], acc[j][4 * h + 1],
-                          acc[j][4 * h + 2], acc[j][4 * h + 3]);
-      if (cg == 0) {  // the kG lanes of a row hold the same m and l
-        op.m[row] = m[j];
-        op.l[row] = l[j];
-      }
-    } else {
-      const float lj = fmaxf(l[j], 1e-30f);
-      float* orow = static_cast<float*>(op.out) + row * dh;
-#pragma unroll
-      for (int h = 0; h < kCs / 4; ++h) {
-        if (4 * cg + 4 * kG * h >= dh) continue;
-        float o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = acc[j][4 * h + e] / lj;
-        Io<float, 4>::store(orow, cg + kG * h, o);  // columns 4 cg + 4 kG h
-      }
-    }
+    for (int e = 0; e < kCs; ++e) acc[j][e] = 0.0f;
   }
+  for (int k0 = 0; k0 < k_end; k0 += kBk) {
+    float s[kR][kKs];
+#pragma unroll
+    for (int j = 0; j < kR; ++j)
+#pragma unroll
+      for (int i = 0; i < kKs; ++i) s[j][i] = 0.0f;
+    for (int c0 = 0; c0 < dh; c0 += DH) {
+      __syncthreads();  // every thread is done with the tiles (and P)
+      stage_cols<E, kLd>(qb, q0, kBq, Tq, c0, dh, op.scale, qs);
+      stage_cols<E, kLd>(kb, k0, kBk, Tk, c0, dh, 1.0f, ks);
+      if (c0 == 0) stage_cols<E, DH>(vb, k0, kBk, Tk, col0, dh, 1.0f, vs);
+      __syncthreads();
+      scores<DH>(qs, ks, rg, cg, s);
+    }
+    softmax_pv<DH>(s, vs, ps, k0, q0, Tk, causal, shift, rg, cg, m, l, acc);
+  }
+  emit<DH, PARTIAL, E>(op, bh, q0, col0, rg, cg, m, l, acc);
+}
+
+// The 16-byte copies take a dh that is a multiple of 4 floats on 16-byte
+// aligned operands (the wrapper pads any other to such a copy)
+inline bool aligned16(const Args& a) {
+  const uintptr_t bits = static_cast<uintptr_t>(a.dh) * 4 |
+                         reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  return (bits & 15) == 0;
 }
 
 template <int DH, bool PARTIAL>
@@ -479,8 +624,29 @@ int launch(const Args& a, cudaStream_t st) {
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (a.Tq + Cfg<DH>::kBq - 1) / Cfg<DH>::kBq;
+  if (n_qt > 65535 || !aligned16(a))
+    return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd<DH, PARTIAL>
       <<<dim3(a.bh, n_qt), Cfg<DH>::kThreads, bytes, st>>>(a, n_qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E, bool PARTIAL>
+int launch_wide(const Args& a, cudaStream_t st) {
+  using C = Cfg<128>;
+  constexpr int bytes =
+      (C::kQ + C::kK + C::kV + C::kBk * C::kLdP) * static_cast<int>(
+          sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wide<E, PARTIAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (a.Tq + C::kBq - 1) / C::kBq;
+  const int groups = (a.dh + 127) / 128;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  flash_wide<E, PARTIAL>
+      <<<dim3(static_cast<unsigned>(a.bh) * groups, n_qt), C::kThreads,
+         bytes, st>>>(a, n_qt, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -977,7 +1143,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // emit: acc / l rounded once, or (partial) the registers as they stand;
   // accumulator register 4 i + 2 h + e is row r0 + 8 h, column 8 i + cq + e
-  // (8-column block i lies wholly below dh, a multiple of 16, or not)
+  // (8-column block i lies wholly below dh, a multiple of 8, or not); a
+  // normalized row that sees no key under the causal mask is NaN
   const int dh = op.dh;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -996,7 +1163,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         op.l[row] = l[h];
       }
     } else {
-      const float lh = fmaxf(l[h], 1e-30f);
+      const float lh = causal && qp + shift < 0 ? NAN : fmaxf(l[h], 1e-30f);
       E* orow = static_cast<E*>(op.out) + row * dh;
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i)
@@ -1082,27 +1249,37 @@ int launch(const Args& a, cudaStream_t st) {
 
 template <typename E, bool PARTIAL>
 int dispatch(const Args& a, void* stream) {
-  if (a.dh < 16 || a.dh > 128 || a.dh % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.dh < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (a.bh == 0 || a.Tq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.dh > 128) return cc::launch_wide<E, PARTIAL>(a, st);
   const int tile = head_tile(a.dh);
   if constexpr (std::is_same<E, float>::value) {
     if (tile == 32) return cc::launch<32, PARTIAL>(a, st);
     if (tile == 64) return cc::launch<64, PARTIAL>(a, st);
     return cc::launch<128, PARTIAL>(a, st);
-  } else {  // wgmma reads 128-byte rows: the Dh 64 tiles hold 16 to 64
+  } else {  // wgmma reads 128-byte rows: the Dh 64 tiles hold 8 to 64
+    // TMA takes a row pitch and addresses that are multiples of 16 bytes
+    const uintptr_t bits = static_cast<uintptr_t>(a.dh) * 2 |
+                           reinterpret_cast<uintptr_t>(a.q) |
+                           reinterpret_cast<uintptr_t>(a.k) |
+                           reinterpret_cast<uintptr_t>(a.v);
+    if (bits & 15) return static_cast<int>(cudaErrorInvalidValue);
     if (tile <= 64) return tc::launch<E, 64, PARTIAL>(a, st);
     return tc::launch<E, 128, PARTIAL>(a, st);
   }
 }
 
+// The normalized mode over q (bh, Tq, dh) and k, v (bh, Tk, dh): the
+// causal mask bottom-right aligned, key kp live for query qp when kp <=
+// qp + Tk - Tq (the reference's tril(ones(Tq, Tk), Tk - Tq)), i.e. the
+// offsets q_off = Tk - Tq, k_off = 0
 template <typename E>
 int normalized(const void* q, const void* k, const void* v, void* out,
-               int bh, int T, int dh, int causal, float scale,
+               int bh, int Tq, int Tk, int dh, int causal, float scale,
                void* stream) {
-  const Args a{q, k, v, out, nullptr, nullptr, nullptr, bh, T, T, dh, 0, 0,
-               causal, scale};
+  const Args a{q, k, v, out, nullptr, nullptr, nullptr, bh, Tq, Tk, dh,
+               Tk - Tq, 0, causal, scale};
   return dispatch<E, false>(a, stream);
 }
 
@@ -1118,38 +1295,41 @@ int partial(const void* q, const void* k, const void* v, void* acc, void* m,
 
 }  // namespace
 
-// q, k, v, out (bh, T, dh) float32, contiguous, 16-byte aligned, one
-// device; dh must be a multiple of 16 from 16 to 128 and bh <= 65535.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for another dh).
+// q, out (bh, Tq, dh) and k, v (bh, Tk, dh) float32, contiguous, one
+// device; any dh >= 1 (above 128 the wide route), any bh. Returns
+// cudaGetLastError().
 extern "C" int mx_flash_attention_f32(const void* q, const void* k,
                                       const void* v, void* out, int bh,
-                                      int T, int dh, int causal, float scale,
-                                      void* stream) {
-  return normalized<float>(q, k, v, out, bh, T, dh, causal, scale, stream);
+                                      int Tq, int Tk, int dh, int causal,
+                                      float scale, void* stream) {
+  return normalized<float>(q, k, v, out, bh, Tq, Tk, dh, causal, scale,
+                           stream);
 }
 
-// The same over bfloat16 q, k, v and out, on the tensor cores
-// (cudaErrorInvalidValue also where a TMA map cannot be made).
+// The same over bfloat16 q, k, v and out, on the tensor cores for dh up to
+// 128, a multiple of 8 on 16-byte aligned operands (cudaErrorInvalidValue
+// for another such dh, and where a TMA map cannot be made); above 128 the
+// wide route on the CUDA cores, any dh.
 extern "C" int mx_flash_attention_bf16(const void* q, const void* k,
                                        const void* v, void* out, int bh,
-                                       int T, int dh, int causal,
+                                       int Tq, int Tk, int dh, int causal,
                                        float scale, void* stream) {
-  return normalized<__nv_bfloat16>(q, k, v, out, bh, T, dh, causal, scale,
-                                   stream);
+  return normalized<__nv_bfloat16>(q, k, v, out, bh, Tq, Tk, dh, causal,
+                                   scale, stream);
 }
 
 // The same over float16 q, k, v and out, on the tensor cores.
 extern "C" int mx_flash_attention_f16(const void* q, const void* k,
                                       const void* v, void* out, int bh,
-                                      int T, int dh, int causal, float scale,
-                                      void* stream) {
-  return normalized<__half>(q, k, v, out, bh, T, dh, causal, scale, stream);
+                                      int Tq, int Tk, int dh, int causal,
+                                      float scale, void* stream) {
+  return normalized<__half>(q, k, v, out, bh, Tq, Tk, dh, causal, scale,
+                            stream);
 }
 
 // Partial mode: q (bh, Tq, dh), k and v (bh, Tk, dh) float32, contiguous,
-// 16-byte aligned, one device; acc (bh, Tq, dh), m and l (bh, Tq) float32
-// out. dh must be a multiple of 16 from 16 to 128 and bh <= 65535.
-// Returns cudaGetLastError().
+// one device; acc (bh, Tq, dh), m and l (bh, Tq) float32 out. Any dh >= 1
+// and bh, as the normalized mode. Returns cudaGetLastError().
 extern "C" int mx_flash_attention_partial_f32(
     const void* q, const void* k, const void* v, void* acc, void* m, void* l,
     int bh, int Tq, int Tk, int dh, int q_off, int k_off, int causal,

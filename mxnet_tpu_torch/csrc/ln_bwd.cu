@@ -46,8 +46,13 @@
 //          sum is rounded once.
 // One launch a call; without the parameter gradients an ordinary launch.
 //
-// The walked route, 1024 < C <= 65536 (the JAX eligibility bound): the row
-// does not fit a warp's registers. dx: one warp per row walks it twice
+// The walked route, C > 1024, any length (past the JAX package's
+// eligibility bound of 65536 too: an LM head's LayerNorm over a vocabulary
+// past 64 K): the row does not fit a warp's registers. Nothing in it
+// holds a row: its indices are 64-bit where they scale with N * C, its
+// grid's x axis takes ceil(C / 32) blocks (2^31 - 1 at most), and the
+// parameter sums stay in the same fixed order at any C. dx: one warp per
+// row walks it twice
 // (both row means in one pass, then the write, the second walk served
 // from L1). dgamma / dbeta: a block of 32 columns x 8 row lanes walks a
 // chunk of `rows` rows (lane ty every 8th row) and adds its lanes in order

@@ -18,7 +18,7 @@
 // float32: a thread loads its share of it (units of W values, vec_io.cuh,
 // all issued before the first is used), takes its max, turns each value
 // into exp(x - m) in place (the exponential once per element), sums them,
-// and writes e / s from the same registers. Three routes, chosen from C:
+// and writes e / s from the same registers. Four routes, chosen from C:
 //   - C <= 1024 (the ResNet-50 head's 1000): one warp per row, up to 32
 //     values a lane; warp shuffles reduce, and the warp waits on device
 //     memory once. A block holds one warp below 1024 rows (a small batch
@@ -31,7 +31,7 @@
 //     (cp.async, each thread its own slots, 128 KB a block in float32) while
 //     this row is reduced, exponentiated and written, so device memory is
 //     read ahead of the arithmetic and the block never waits on a load.
-//   - Longer rows, up to the JAX eligibility bound 65536: a cluster of
+//   - Rows up to 65536 (the JAX package's eligibility bound): a cluster of
 //     R = ceil(C / 16384) blocks on neighbouring SMs holds the row (R = 4 at
 //     65536), each block a contiguous slice at 16 values a thread; the
 //     blocks exchange their partial max and sum through distributed shared
@@ -39,6 +39,16 @@
 //     were measured slower at C = 32000 (each cluster barrier waited ~1 us
 //     for the other SM), so a cluster is kept for rows one block cannot
 //     hold.
+//   - Longer rows, any C (the streaming route: an LM head over a vocabulary
+//     past 64 K): a row no longer fits a cluster's registers, so one block
+//     of 512 threads a row (persistent, four blocks an SM) reads it twice.
+//     Pass one keeps a running max and sum a thread, unit by unit (a unit
+//     whose max exceeds the running max rescales the sum by exp(m_old -
+//     m_new) first), merged over the block in a fixed order (an xor
+//     butterfly over each warp, the warps' partials in warp order through
+//     the same butterfly); pass two writes exp(x - m) / s. Bytes: the row
+//     read twice and written once, where the register routes read it
+//     once; the second read is served from L2 where the rows in flight fit.
 // A row takes 16-byte units where C is a multiple of the unit and the
 // pointers are 16-byte aligned, 16-bit pairs where C is even and they are
 // 4-byte aligned, else one value at a time. Reduction order (the CPU tests
@@ -267,6 +277,91 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   if (kCluster) cl.sync();
 }
 
+constexpr int kStreamThreads = 512;               // the streaming route
+constexpr int kStreamRowMin = 4 * kClusterRowMax;  // its rows: C > 65536
+
+// Merge a running (max, sum) pair (mo, so) into (m, s): each side's sum
+// scaled by exp(its max - the new max), a side whose max is -inf (no value
+// yet, or only -inf) adding nothing
+__device__ __forceinline__ void merge_ms(float& m, float& s, float mo,
+                                         float so) {
+  const float mn = fmaxf(m, mo);
+  const float a = m == -INFINITY ? 0.0f : expf(m - mn);
+  const float b = mo == -INFINITY ? 0.0f : expf(mo - mn);
+  s = s * a + so * b;
+  m = mn;
+}
+
+// (max, sum) over the block: the xor butterfly over a warp's lanes, then
+// the warps' pairs in warp order through the same butterfly; every thread
+// gets the result
+__device__ __forceinline__ void block_merge_ms(float& m, float& s,
+                                               float* red_m, float* red_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1)
+    merge_ms(m, s, __shfl_xor_sync(0xffffffffu, m, o),
+             __shfl_xor_sync(0xffffffffu, s, o));
+  if (lane == 0) red_m[warp] = m, red_s[warp] = s;
+  __syncthreads();
+  constexpr int kWarps = kStreamThreads / 32;
+  m = lane < kWarps ? red_m[lane] : -INFINITY;
+  s = lane < kWarps ? red_s[lane] : 0.0f;
+  for (int o = 16; o > 0; o >>= 1)
+    merge_ms(m, s, __shfl_xor_sync(0xffffffffu, m, o),
+             __shfl_xor_sync(0xffffffffu, s, o));
+  __syncthreads();  // red_* are reused by the next row
+}
+
+// The streaming route (C > 65536, no upper bound): one block a row,
+// persistent over rows row0, row0 + gridDim.x, ...; a thread takes units
+// u = t, t + 512, ... of W values. Pass one: the running max and sum; pass
+// two: y = exp(x - m) / s. A NaN or +inf makes the row NaN and a row of
+// -inf alone is NaN, as in the plain version (exp(-inf) is 0 otherwise).
+template <typename T, int W>
+__global__ void __launch_bounds__(kStreamThreads)
+    softmax_stream(const T* __restrict__ x, T* __restrict__ y, int n, int c) {
+  __shared__ float red_m[kStreamThreads / 32], red_s[kStreamThreads / 32];
+  const int units = c / W;
+  for (int row = blockIdx.x; row < n; row += gridDim.x) {
+    const T* xr = x + static_cast<int64_t>(row) * c;
+    float m = -INFINITY, s = 0.0f;
+    for (int u = threadIdx.x; u < units; u += kStreamThreads) {
+      float f[W];
+      Io<T, W>::load(xr, u, f);
+      float um = f[0];
+#pragma unroll
+      for (int w = 1; w < W; ++w) um = fmaxf(um, f[w]);
+      if (um > m) {  // (a NaN sum stays NaN: 0 * NaN)
+        s *= m == -INFINITY ? 0.0f : expf(m - um);
+        m = um;
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        s += f[w] == -INFINITY ? 0.0f : expf(f[w] - m);
+    }
+    block_merge_ms(m, s, red_m, red_s);
+    T* yr = y + static_cast<int64_t>(row) * c;
+    for (int u = threadIdx.x; u < units; u += kStreamThreads) {
+      float f[W];
+      Io<T, W>::load(xr, u, f);
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        f[w] = (f[w] == -INFINITY ? 0.0f : expf(f[w] - m)) / s;
+      Io<T, W>::store(yr, u, f);
+    }
+  }
+}
+
+template <typename T, int W>
+cudaError_t launch_stream(const T* x, T* y, int n, int c, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = std::min(n, 4 * std::max(1, sms));
+  softmax_stream<T, W><<<blocks, kStreamThreads, 0, st>>>(x, y, n, c);
+  return cudaSuccess;
+}
+
 // The values a thread holds, 8, 16 or 32, the fewest that cover `units`
 // units of W values over `threads`
 template <int W>
@@ -324,6 +419,7 @@ cudaError_t launch(const void* xv, void* yv, int n, int c,
     }
     return cudaSuccess;
   }
+  if (c > kStreamRowMin) return launch_stream<T, W>(x, y, n, c, st);
   if (c > kBlockThreads * block_vals<T, W>()) {
     const int r = (c + kClusterRowMax - 1) / kClusterRowMax;
     return launch_block<T, W, 16 / W, true>(x, y, n, c, r,
@@ -346,7 +442,7 @@ int finish(cudaError_t launched) {
 
 }  // namespace
 
-// x (n, c) -> y (n, c), float32, contiguous, on one device; c <= 65536.
+// x (n, c) -> y (n, c), float32, contiguous, on one device; any c.
 // Returns the launch's error, else cudaGetLastError().
 extern "C" int mx_softmax_f32(const void* x, void* y, int n, int c,
                               void* stream) {

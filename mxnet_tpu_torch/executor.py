@@ -68,6 +68,8 @@ __all__ = ["Executor", "parse_compute_dtype", "cast_counts",
            "reset_cast_counts"]
 
 _GRAD_REQS = ("write", "add", "null")
+#: fp8 storage dtypes, which ``compute_dtype`` does not widen
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 #: id(source tensor) -> (weak reference to it, its version when cast, the
 #: cast): the casts of ``compute_dtype`` reads that autograd does not
@@ -239,10 +241,16 @@ class Executor:
             self._recorded = (outs, leaves)
         return self.outputs
 
-    def _load(self, name, t):
+    def _load(self, name, t, aux=False):
         """A variable's tensor as the graph reads it: cast to
-        ``compute_dtype`` when floating and not a loss label."""
+        ``compute_dtype`` when floating and not a loss label. An fp8
+        argument (a quantized weight) reaches its op as stored: the
+        quantized kernels read float8_e4m3fn, and every e4m3 value is
+        exact in bfloat16 and float16, so the widening the JAX executor
+        makes changes no value. An fp8 aux state (a decode cache cell) is
+        widened, as the JAX executor widens it."""
         if self.compute_dtype is None or not t.is_floating_point() or \
+                (t.dtype in _FP8 and not aux) or \
                 name in self._label_names or t.dtype == self.compute_dtype:
             return t
         if t.requires_grad:
@@ -263,12 +271,13 @@ class Executor:
         values = {}
         for node in self._nodes:
             if node.is_variable:
-                if node._extra.get("__is_aux__"):
+                aux = bool(node._extra.get("__is_aux__"))
+                if aux:
                     t = self.aux_dict[node.name].astorch()
                 else:
                     t = leaves[node.name] if node.name in leaves else \
                         self.arg_dict[node.name].astorch()
-                values[id(node)] = [self._load(node.name, t)]
+                values[id(node)] = [self._load(node.name, t, aux)]
         # each declared prologue once, over all of its nodes, before them
         prepared = {}
         for opdef, nodes in self._prologues:

@@ -207,7 +207,7 @@ _SPECS = {
                           "fp8:e4m3": "mx_decode_attention_e4m3",
                           "fp8:e5m2": "mx_decode_attention_e5m2"},
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _F, _P]),
+                          _I, _I, _I, _F, _P]),
     "softmax": ("softmax.cu", {"f32": "mx_softmax_f32",
                                "bf16": "mx_softmax_bf16",
                                "f16": "mx_softmax_f16"},
@@ -237,7 +237,7 @@ _SPECS = {
                         {"f32": "mx_flash_attention_f32",
                          "bf16": "mx_flash_attention_bf16",
                          "f16": "mx_flash_attention_f16"},
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "flash_attention_partial": (
         "flash_attention.cu", {"f32": "mx_flash_attention_partial_f32",
                                "bf16": "mx_flash_attention_partial_bf16",
@@ -749,14 +749,17 @@ def fused_layernorm(data, gamma, beta, eps=1e-5):
 
 
 def _layernorm_cuda(attrs, inputs, aux, is_train, rng):
+    """LayerNorm over any axis: the kernels normalize the last, so another
+    axis is moved last first (a per-call copy of the activation) and the
+    output moved back; mean and std come out over the other axes in their
+    order, the JAX op's shapes."""
     data, gamma, beta = inputs
-    axis = int(attrs.get("axis", -1))
-    if axis not in (-1, data.ndim - 1):
-        raise MXNetError(f"LayerNorm: the CUDA kernel normalizes the last "
-                         f"axis, got axis={axis}")
-    y, mean, std = fused_layernorm(data, gamma, beta,
+    axis = int(attrs.get("axis", -1)) % data.ndim
+    last = axis == data.ndim - 1
+    y, mean, std = fused_layernorm(data if last else data.movedim(axis, -1),
+                                   gamma, beta,
                                    parse_float(attrs.get("eps", 1e-5)))
-    return [y, mean, std], []
+    return [y if last else y.movedim(-1, axis), mean, std], []
 
 
 # ==========================================================================
@@ -846,23 +849,31 @@ _FP8_STORAGE = {torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
 #: the attention kernels' tiles by head dim (decode read, flash forward and
 #: its partial mode; the 16-bit flash instances have the Dh 64 and 128 ones)
 HEAD_TILES = (32, 64, 128)
-#: the head dims the attention kernels take: every multiple of 16 up to the
-#: largest tile, so that a row of every cache type is a whole number of
-#: 16-byte copies; every other Dh raises on the card
+#: the head dims whose rows are a whole number of 16-byte copies in every
+#: cache type, on one tile: every multiple of 16 up to the largest tile.
+#: Every other Dh >= 1 runs too (``decode_route``; the flash kernels take
+#: any Dh up to 128 on a tile, above it their wide route: column groups of
+#: 128, the scores over Dh in 128-wide steps)
 HEAD_DIMS = tuple(range(16, HEAD_TILES[-1] + 1, 16))
 
 
 def head_tile(dh):
     """The tile head dim ``dh`` runs on: the smallest of HEAD_TILES that
-    holds it (the sources' ``head_tile`` keeps the same rule). The columns
+    holds it, or the largest, 128, for the wide routes' column groups
+    above it (the sources' ``head_tile`` keeps the same rule). The columns
     past ``dh`` reach the tile as zeros and are not stored."""
-    return next(t for t in HEAD_TILES if dh <= t)
+    return next((t for t in HEAD_TILES if dh <= t), HEAD_TILES[-1])
+
+
+def head_groups(dh):
+    """Output-column groups of a head dim: 1 up to 128 (one tile), else
+    ceil(Dh / 128), the wide routes' blocks a (b, h) row and query tile."""
+    return 1 if dh <= HEAD_TILES[-1] else -(-dh // HEAD_TILES[-1])
 
 
 def _check_head_dim(name, dh):
-    if dh not in HEAD_DIMS:
-        raise MXNetError(f"{name}: head dim {dh} — the kernel takes a "
-                         f"multiple of 16 from 16 to {HEAD_DIMS[-1]}")
+    if dh < 1:
+        raise MXNetError(f"{name}: head dim {dh}; want Dh >= 1")
 
 #: the decode kernel's shapes (csrc/decode_attention.cu): keys a warp
 #: takes at once (one a lane), query rows a window tile, and warps a block
@@ -911,23 +922,46 @@ def _decode_ws_sizes(bh, s, dh, splits):
 
 _DECODE_WS = {}        # (device index, stream) -> [float32 partials,
                        # int32 counters (zeros)]
-_DECODE_PLAN = {}      # (device index, B*H, S, C, Dh) -> (splits, keys a
-                       # split, partials, counters)
+_DECODE_PLAN = {}      # (device index, B*H, S, C, tile, groups) ->
+                       # (splits, keys a split, partials, counters)
 
 
-def _decode_plan(q, bh, s, c, dh):
+def decode_route(dh, s, itemsize, *ptrs):
+    """(tile, column groups, query rows a block, copy unit) of a decode
+    launch at head dim ``dh``, S = ``s``, ``itemsize`` bytes a cache
+    value, the caches at ``ptrs``. The copy unit is the widest, 16, 8, 4
+    (cp.async), 2 or 1 bytes (plain loads), that divides a row's bytes
+    and the caches' addresses. Rows of whole 16-byte copies up to Dh 128
+    run on the tile ``head_tile(dh)`` in one group: every multiple of 16
+    up to 128 (HEAD_DIMS) on aligned caches, as before the general route.
+    Any other Dh takes the general route: the Dh 128 tile in ceil(Dh /
+    128) column groups. One query row at S = 1, else window tiles of 16
+    (any S: the tiles on the grid's y axis)."""
+    unit = 16
+    for v in (dh * itemsize, *ptrs):
+        while v % unit:
+            unit //= 2
+    general = unit != 16 or dh > HEAD_TILES[-1]
+    return (HEAD_TILES[-1] if general else head_tile(dh), head_groups(dh),
+            1 if s == 1 else DECODE_WIN_ROWS, unit)
+
+
+def _decode_plan(q, bh, s, c, tile, groups):
     """(splits, keys a split, partials pointer, counters pointer) of a
-    decode launch (null pointers for one split). The workspace is kept per
-    device and stream and reused: launches on one stream run in order, and
-    the kernel leaves its counters at 0. The counters are allocated
+    decode launch on the route's ``tile`` and column ``groups`` (null
+    pointers for one split); the general route's column groups count as
+    rows (B*H * groups blocks a query tile). The workspace is kept per
+    device and stream and reused: launches on one stream run in order,
+    and the kernel leaves its counters at 0. The counters are allocated
     zeroed and the partials uninitialized, each 1 MiB at least, and a
     buffer that is too small is replaced by one twice as large."""
     dev = q.get_device()
-    plan = _DECODE_PLAN.get((dev, bh, s, c, dh))
+    plan = _DECODE_PLAN.get((dev, bh, s, c, tile, groups))
     if plan is None:
-        splits, keys = _decode_splits(bh, s, c, _sm_count(dev))
-        plan = _DECODE_PLAN[(dev, bh, s, c, dh)] = (
-            splits, keys, *_decode_ws_sizes(bh, s, head_tile(dh), splits))
+        rows = bh * groups
+        splits, keys = _decode_splits(rows, s, c, _sm_count(dev))
+        plan = _DECODE_PLAN[(dev, bh, s, c, tile, groups)] = (
+            splits, keys, *_decode_ws_sizes(rows, s, tile, splits))
     if plan[0] == 1:
         return plan[0], plan[1], 0, 0
     key = (dev, torch._C._cuda_getCurrentRawStream(dev))
@@ -953,9 +987,10 @@ def decode_attention(q, k_cache, v_cache, pos):
     read (no float32 copy of the cache is made); fp8 launches count in
     ``decode_attention_fp8``. The key range is split over blocks
     (``_decode_splits``) and the splits merged in order inside the same
-    launch. The kernel takes Dh a multiple of 16 up to 128 (on the tile
-    ``head_tile(Dh)``), S <= 64, and caches 16-byte aligned (every cache
-    is read 16 bytes a copy)."""
+    launch. Any Dh >= 1 and any S (``decode_route``: rows of whole
+    16-byte copies up to Dh 128 on the tile ``head_tile(Dh)``, every other
+    Dh on the general route, column groups of 128 with rows copied in the
+    widest unit their bytes and the caches' addresses allow)."""
     if not _cpu_or_cuda("decode_attention", q):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if k_cache.dtype in _FP8_STORAGE:
@@ -972,22 +1007,20 @@ def decode_attention(q, k_cache, v_cache, pos):
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
     _check_head_dim("decode_attention", Dh)
-    if S > 64:
-        raise MXNetError(f"decode_attention: window S={S} > 64")
     if tuple(k_cache.shape) != (B, H, C, Dh) or \
             tuple(v_cache.shape) != (B, H, C, Dh) or \
             tuple(pos.shape) != (B,):
         raise MXNetError(f"decode_attention: want caches (B, H, C, Dh) and "
                          f"pos (B,), got {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}, {tuple(pos.shape)}")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise MXNetError("decode_attention: the caches must be 16-byte "
-                         "aligned")
     out = q.new_empty((B, H, S, Dh), dtype=torch.float32)
-    splits, keys, ws, counters = _decode_plan(q, B * H, S, C, Dh)
-    _launch("decode_attention", key, q, q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), ws, counters,
-            B, H, S, C, Dh, keys, splits, float(Dh) ** -0.5)
+    kp, vp = k_cache.data_ptr(), v_cache.data_ptr()
+    tile, groups, _, unit = decode_route(Dh, S, k_cache.element_size(), kp,
+                                         vp)
+    splits, keys, ws, counters = _decode_plan(q, B * H, S, C, tile, groups)
+    _launch("decode_attention", key, q, q.data_ptr(), kp, vp,
+            pos.data_ptr(), out.data_ptr(), ws, counters, B, H, S, C, Dh,
+            keys, splits, unit, groups, float(Dh) ** -0.5)
     return out
 
 
@@ -1003,21 +1036,23 @@ decode_attention_bf16 = _pinned(decode_attention, "bf16", (torch.bfloat16,),
 #: (the SoftmaxOutput op's own row function, shared)
 softmax_plain = softmax_rows
 
-#: the JAX package's eligibility bound for its softmax kernel
+#: the JAX package's eligibility bound for its softmax kernel: the longest
+#: row the kernel's register routes hold (a cluster of four blocks at it);
+#: longer rows take its streaming route, which has no bound
 SOFTMAX_MAX_C = 65536
 
 
 @_wrapper("softmax")
 def softmax(x2):
-    """Row softmax of x2 (N, C) float32, bfloat16 or float16, C <= 65536
-    -> (N, C) in x2's dtype: float32 arithmetic, y rounded once."""
+    """Row softmax of x2 (N, C) float32, bfloat16 or float16, any C -> (N,
+    C) in x2's dtype: float32 arithmetic, y rounded once (rows past
+    ``SOFTMAX_MAX_C`` read twice by the streaming route)."""
     if not _cpu_or_cuda("softmax", x2):
         return softmax_plain(x2)
     key = _instance("softmax", x2)
     _check("softmax", x=(x2, x2.dtype))
-    if x2.ndim != 2 or x2.shape[1] > SOFTMAX_MAX_C:
-        raise MXNetError(f"softmax: want (N, C) with C <= {SOFTMAX_MAX_C}, "
-                         f"got {tuple(x2.shape)}")
+    if x2.ndim != 2:
+        raise MXNetError(f"softmax: want (N, C), got {tuple(x2.shape)}")
     n, c = x2.shape
     y = torch.empty_like(x2)
     _launch("softmax", key, x2, x2.data_ptr(), y.data_ptr(), n, c)
@@ -1310,7 +1345,8 @@ def adam_update_multi(weights, grads, means, vars, lrs, wds, beta1=0.9,
 # ==========================================================================
 # 9-10. LayerNorm backward: dx, dgamma and dbeta (one kernel, ln_bwd.cu)
 # ==========================================================================
-#: the JAX package's eligibility bound for its LayerNorm kernels
+#: the JAX package's eligibility bound for its LayerNorm kernels; the
+#: backward kernel's walked route takes rows past it too
 LN_MAX_C = 65536
 #: the longest row the kernel holds in a warp's registers (its register
 #: route, one pass over x and ct); longer rows take its walked route
@@ -1416,8 +1452,6 @@ def _ln_bwd(name, x2, gamma, ct, mean, rstd, want_dx, want_dp):
                          f"got {tuple(x2.shape)}, {tuple(ct.shape)}, "
                          f"{tuple(mean.shape)}, {tuple(rstd.shape)}")
     n, c = x2.shape
-    if c > LN_MAX_C:
-        raise MXNetError(f"{name}: C={c} > {LN_MAX_C}")
     if want_dx and gamma.shape != x2.shape[1:]:
         raise MXNetError(f"{name}: gamma must be ({c},)")
     dx = torch.empty_like(x2) if want_dx else None
@@ -1546,40 +1580,59 @@ def flash_attention_plain(q, k, v, causal=False):
                         v.to(torch.float32)).to(q.dtype)
 
 
+def _flash_operands(q, k, v):
+    """(q, k, v, head dim) as the kernel takes them: as they are, but on
+    the routes of Dh <= 128, whose copies are 16 bytes (cp.async for
+    float32, TMA's row pitch and addresses for 16 bits), where a row is no
+    multiple of 16 bytes (Dh of 4 floats, of 8 16-bit values) or an operand
+    is not 16-byte aligned: then zero-padded copies to that multiple, whose
+    columns past Dh leave the scores unchanged and give the output zero
+    columns, cut off after the call. A per-call copy of the activations."""
+    dh = q.shape[-1]
+    unit = 16 // q.element_size()
+    if dh > HEAD_TILES[-1] or (
+            dh % unit == 0 and not any(t.data_ptr() % 16 for t in (q, k, v))):
+        return q, k, v, dh
+    pad = -dh % unit
+    return (*(torch.nn.functional.pad(t, (0, pad)) if pad else t.clone()
+              for t in (q, k, v)), dh + pad)
+
+
 @_wrapper("flash_attention")
 def flash_attention(q, k, v, causal=False):
-    """Self-attention of q, k, v (B, H, T, Dh) float32, bfloat16 or float16
-    -> (B, H, T, Dh) in q's dtype, the output rounded once. float32: q
-    scaled, every product and the online softmax float32 FMAs on the CUDA
-    cores. bfloat16 / float16: the tensor cores (wgmma) take q and k as
-    stored (exact float32 products, float32 sums), the float32 scores are
-    then scaled and take the same float32 online softmax, and P . V is
-    p_hi . V + p_lo . V with p_hi = round16(p), p_lo = round16(p - p_hi).
-    The kernel takes Dh a multiple of 16 up to 128, any T, and Tq == Tk
-    only (Dh runs on the tile ``head_tile(Dh)``, the 16-bit instances on
-    the Dh 64 tiles at Dh <= 64, the columns past Dh zeros)."""
+    """Attention of q (B, H, Tq, Dh) over k, v (B, H, Tk, Dh) float32,
+    bfloat16 or float16 -> (B, H, Tq, Dh) in q's dtype, the output rounded
+    once; under ``causal`` the mask is bottom-right aligned (key j is live
+    for query i when j <= i + Tk - Tq), and a query row that sees no key
+    (Tq > Tk) is NaN, as in the reference. float32: q scaled, every
+    product and the online softmax float32 FMAs on the CUDA cores.
+    bfloat16 / float16: the tensor cores (wgmma) take q and k as stored
+    (exact float32 products, float32 sums), the float32 scores are then
+    scaled and take the same float32 online softmax, and P . V is p_hi . V
+    + p_lo . V with p_hi = round16(p), p_lo = round16(p - p_hi). Any Dh
+    (up to 128 on the tile ``head_tile(Dh)``, the 16-bit instances on the
+    Dh 64 tiles at Dh <= 64; a zero-padded copy where Dh is no multiple
+    of 8, of 4 in float32 (``_flash_operands``); above 128 every type on
+    the CUDA cores' wide route, column groups of 128), any T and any
+    B*H."""
     if not _cpu_or_cuda("flash_attention", q):
         return flash_attention_plain(q, k, v, causal)
     key = _instance("flash_attention", q)
     _check("flash_attention", q=(q, q.dtype), k=(k, q.dtype),
            v=(v, q.dtype))
-    if q.ndim != 4 or tuple(k.shape) != tuple(q.shape) or \
-            tuple(v.shape) != tuple(q.shape):
-        raise MXNetError(f"flash_attention: self-attention only, want q, k, "
-                         f"v (B, H, T, Dh) alike (Tq == Tk), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, H, T, Dh = q.shape
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or \
+            k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise MXNetError(f"flash_attention: want q (B, H, Tq, Dh) and k, v "
+                         f"(B, H, Tk, Dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Tq, Dh = q.shape
     _check_head_dim("flash_attention", Dh)
-    if B * H > 65535:
-        raise MXNetError(f"flash_attention: B*H={B * H} > 65535")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise MXNetError("flash_attention: q, k, v must be 16-byte aligned")
-    out = torch.empty_like(q)
-    _launch("flash_attention", key, q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B * H, T, Dh, int(bool(causal)),
-            float(Dh) ** -0.5)
-    return out
+    qk, kk, vk, dk = _flash_operands(q, k, v)
+    out = qk.new_empty((B, H, Tq, dk))
+    _launch("flash_attention", key, q, qk.data_ptr(), kk.data_ptr(),
+            vk.data_ptr(), out.data_ptr(), B * H, Tq, k.shape[2], dk,
+            int(bool(causal)), float(Dh) ** -0.5)
+    return out if dk == Dh else out[..., :Dh].contiguous()
 
 
 flash_attention_bf16 = _pinned(flash_attention, "bf16", (torch.bfloat16,))
@@ -1630,8 +1683,8 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     plain``); the 16-bit instances run on the tensor cores as
     ``flash_attention``'s do (exact 16-bit products summed in float32,
     the float32 softmax, P . V from P split into two 16-bit terms). The
-    scale defaults to 1/sqrt(Dh). The kernel takes Dh a multiple of 16 up
-    to 128 (as ``flash_attention``) and any Tq, Tk."""
+    scale defaults to 1/sqrt(Dh). Any Dh, Tq, Tk and B*H, as
+    ``flash_attention`` takes them."""
     if scale is None:
         scale = _ring_scale(q)
     if not _cpu_or_cuda("flash_attention_partial", q):
@@ -1647,19 +1700,15 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Tq, Dh = q.shape
     _check_head_dim("flash_attention_partial", Dh)
-    if B * H > 65535:
-        raise MXNetError(f"flash_attention_partial: B*H={B * H} > 65535")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise MXNetError("flash_attention_partial: q, k, v must be 16-byte "
-                         "aligned")
-    acc = q.new_empty((B, H, Tq, Dh), dtype=torch.float32)
+    qk, kk, vk, dk = _flash_operands(q, k, v)
+    acc = q.new_empty((B, H, Tq, dk), dtype=torch.float32)
     m = q.new_empty((B, H, Tq), dtype=torch.float32)
     l = torch.empty_like(m)
-    _launch("flash_attention_partial", key, q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B * H,
-            Tq, k.shape[2], Dh, int(q_off), int(k_off), int(bool(causal)),
+    _launch("flash_attention_partial", key, q, qk.data_ptr(), kk.data_ptr(),
+            vk.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B * H,
+            Tq, k.shape[2], dk, int(q_off), int(k_off), int(bool(causal)),
             float(scale))
-    return acc, m, l
+    return acc if dk == Dh else acc[..., :Dh].contiguous(), m, l
 
 
 # ==========================================================================
@@ -1755,7 +1804,9 @@ def qfc_matmul(x2, wq, scale):
     every product summed in float32 (the TPU kernel's output is float32
     whatever x's type; the op rounds to x's type after the bias). The
     kernel's route comes from the shapes (``_qfc_route``): a GEMV with K
-    split over warps for small M, 64 x 64 tiles above."""
+    split over warps for small M, 64 x 64 tiles above. The tiles' rows sit
+    on the grid's y axis, so M past ``QFC_CHUNK_M`` (64 x 65535) is
+    launched in chunks of rows, a launch each, at pointer offsets."""
     if not _cpu_or_cuda("qfc_matmul", x2):
         return qfc_matmul_plain(x2, wq, scale)
     key = _instance("qfc_matmul", x2, _quant_storage("qfc_matmul", wq))
@@ -1767,13 +1818,20 @@ def qfc_matmul(x2, wq, scale):
                          f"scale (N,), got {tuple(x2.shape)}, "
                          f"{tuple(wq.shape)}, {tuple(scale.shape)}")
     (m, k), n = x2.shape, wq.shape[0]
-    if m > 64 * 65535:
-        raise MXNetError(f"qfc_matmul: M={m} > {64 * 65535}")
-    route = _qfc_route(m, n, k, _sm_count(x2.get_device()))
     out = x2.new_empty((m, n), dtype=torch.float32)
-    _launch("qfc_matmul", key, x2, x2.data_ptr(), wq.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), m, n, k, *route)
+    sms = _sm_count(x2.get_device())
+    for r0 in range(0, max(m, 1), QFC_CHUNK_M):
+        rows = min(QFC_CHUNK_M, m - r0)
+        _launch("qfc_matmul", key, x2,
+                x2.data_ptr() + r0 * k * x2.element_size(), wq.data_ptr(),
+                scale.data_ptr(), out.data_ptr() + r0 * n * 4, rows, n, k,
+                *_qfc_route(rows, n, k, sms))
     return out
+
+
+#: the rows of one qfc_matmul launch: its tiled route's 64-row tiles on
+#: the grid's y axis (65535 at most)
+QFC_CHUNK_M = 64 * 65535
 
 
 @_wrapper("dequant_rows")
@@ -2165,12 +2223,10 @@ def _softmax_output_cuda(attrs, inputs, aux, is_train, rng):
     """SoftmaxOutput on the card: the softmax kernel forward, the
     cross-entropy kernel backward (an autograd.Function, so the variant
     trains). Labels go to the kernel as float32, as the TPU path casts
-    them."""
+    them. ``multi_output`` (softmax over axis 1, a label a position) runs
+    the same two kernels over the rows of the data with axis 1 moved last,
+    (N * d..., C) (``loss.softmax_output``)."""
     data, label = inputs
-    if parse_bool(attrs.get("multi_output", False)):
-        raise MXNetError("SoftmaxOutput(multi_output=True): no CUDA kernel "
-                         "takes the per-position softmax yet; run it on "
-                         "mx.cpu()")
     return [softmax_output(data, label.to(torch.float32).contiguous(),
                            attrs, softmax=softmax,
                            ce_grad=softmax_ce_bwd)], []

@@ -12,8 +12,9 @@ op's ``"cuda"`` variant, attached in ``cuda_kernels.py``).
 
 Data of more than two dimensions without ``multi_output`` is softmaxed
 over all but the batch axis, reshaped to (N, -1) as the composition does.
-``multi_output`` (softmax over axis 1 with a label per position) is the
-plain composition only; its CUDA variant raises until a kernel takes it.
+``multi_output`` (softmax over axis 1 with a label per position) moves
+axis 1 last and takes the same two row functions over the rows (N * d...,
+C), one label a row, then moves it back.
 """
 from __future__ import annotations
 
@@ -55,60 +56,43 @@ def _head_attrs(attrs):
             attrs.get("normalization", "null"))
 
 
-def _multi_output_grad(prob, label, attrs):
-    """The composition's gradient for ``multi_output``: data (N, C, ...)
-    and label (N, ...)."""
-    grad_scale, use_ignore, ignore_label, norm = _head_attrs(attrs)
-    lab = label.to(torch.float32)
-    classes = torch.arange(prob.shape[1], device=prob.device)
-    classes = classes.reshape((1, -1) + (1,) * (prob.ndim - 2))
-    onehot = (classes == lab.to(torch.int64).unsqueeze(1)).to(prob.dtype)
-    mask = (lab != ignore_label).to(prob.dtype) if use_ignore \
-        else torch.ones_like(lab, dtype=prob.dtype)
-    grad = (prob - onehot) * mask.unsqueeze(1)
-    if norm == "batch":
-        grad = grad / prob.shape[0]
-    elif norm == "valid":
-        grad = grad / torch.clamp(mask.sum(), min=1.0)
-    return grad * grad_scale
-
-
 class _SoftmaxOutputFn(torch.autograd.Function):
-    """Forward: ``softmax`` over the rows of data reshaped (N, -1).
-    Backward: ``ce_grad`` over the saved probabilities, the head
-    gradient ignored; ``normalization="valid"`` divides afterwards by the
-    count of kept rows (at least 1), as the TPU path does."""
+    """Forward: ``softmax`` over the rows of data reshaped (N, -1), or with
+    ``multi_output`` over the rows of data with axis 1 moved last, (N *
+    d..., C). Backward: ``ce_grad`` over the saved probabilities' rows,
+    the head gradient ignored, scaled by 1/N for
+    ``normalization="batch"``; ``"valid"`` divides afterwards by the count
+    of kept rows (at least 1) on the device, as the TPU path does."""
 
     @staticmethod
     def forward(ctx, data, label, attrs, softmax, ce_grad):
         multi = parse_bool(attrs.get("multi_output", False))
-        if multi:
-            prob = torch.softmax(data.to(torch.float32), dim=1).to(
-                data.dtype)
-        else:
-            prob = softmax(data.reshape(data.shape[0], -1).contiguous()
-                           ).reshape(data.shape)
+        x = data.movedim(1, -1) if multi else data
+        rows = x.reshape(-1, x.shape[-1]) if multi else \
+            x.reshape(x.shape[0], -1)
+        prob = softmax(rows.contiguous())
         ctx.save_for_backward(prob, label)
         ctx.attrs, ctx.ce_grad, ctx.multi = attrs, ce_grad, multi
-        return prob
+        ctx.batch, ctx.shape = data.shape[0], x.shape
+        prob = prob.reshape(x.shape)
+        return prob.movedim(-1, 1).contiguous() if multi else prob
 
     @staticmethod
     def backward(ctx, _head_grad):
         prob, label = ctx.saved_tensors
-        if ctx.multi:
-            return _multi_output_grad(prob, label, ctx.attrs), None, None, \
-                None, None
         grad_scale, use_ignore, ignore_label, norm = _head_attrs(ctx.attrs)
-        n = prob.shape[0]
         lab = label.reshape(-1)
-        scale = grad_scale / (n if norm == "batch" else 1.0)
-        grad = ctx.ce_grad(prob.reshape(n, -1), lab, scale, use_ignore,
-                           ignore_label)
+        scale = grad_scale / (ctx.batch if norm == "batch" else 1.0)
+        grad = ctx.ce_grad(prob, lab, scale, use_ignore, ignore_label)
         if norm == "valid":
             valid = (lab != ignore_label).to(torch.float32).sum() \
-                if use_ignore else torch.tensor(float(n), device=grad.device)
+                if use_ignore else torch.tensor(float(prob.shape[0]),
+                                                device=grad.device)
             grad = grad / torch.clamp(valid, min=1.0).to(grad.dtype)
-        return grad.reshape(prob.shape), None, None, None, None
+        grad = grad.reshape(ctx.shape)
+        if ctx.multi:
+            grad = grad.movedim(-1, 1).contiguous()
+        return grad, None, None, None, None
 
 
 def softmax_output(data, label, attrs, softmax=softmax_rows,

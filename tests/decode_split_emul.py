@@ -17,6 +17,10 @@ order, not the kernel's FMA order, so the two agree within a float32
 tolerance, not bit for bit. A chunk wholly past a row's keys is a no-op
 of the online rule (m unchanged, corr exactly 1 or 0), so the emulation
 walks every chunk and masks.
+
+Above Dh 128 (the kernel's wide route) a chunk's scores are the sum of
+their 128-column steps, in step order, and the split plan counts the
+route's column groups as rows (B*H * ceil(Dh / 128) blocks a query tile).
 """
 import torch
 
@@ -61,7 +65,8 @@ def decode_attention_split(q, k_cache, v_cache, pos, sms=132):
     B, H, S, Dh = q.shape
     C = k_cache.shape[2]
     bh = B * H
-    splits, keys = ck._decode_splits(bh, S, C, sms)
+    splits, keys = ck._decode_splits(bh * ck.head_groups(Dh), S, C, sms)
+    step = ck.HEAD_TILES[-1]
     rows = 1 if S == 1 else ck.DECODE_WIN_ROWS
     warps, chunk = ck.DECODE_WARPS[rows], ck.DECODE_CHUNK
     qf = q.to(torch.float32).reshape(bh, S, Dh) * (float(Dh) ** -0.5)
@@ -88,7 +93,10 @@ def decode_attention_split(q, k_cache, v_cache, pos, sms=132):
                         break
                     idx_c = torch.clamp(idx, max=C - 1)
                     kc, vc = kf[:, idx_c], vf[:, idx_c]
-                    sc = torch.einsum("brd,bkd->brk", qt, kc)
+                    sc = sum(torch.einsum("brd,bkd->brk",
+                                          qt[..., c0:c0 + step],
+                                          kc[..., c0:c0 + step])
+                             for c0 in range(0, Dh, step))
                     copied = idx[None, :] < k_hi[:, None]         # (bh, k)
                     valid = copied[:, None, :] & \
                         (idx[None, None, :] <= q_pos[:, :, None])

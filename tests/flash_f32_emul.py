@@ -10,12 +10,18 @@ above the diagonal are not visited); each tile's scores are (q * scale) .
 k in float32, masked (-inf) where a key is past Tk or above the diagonal,
 and go through the TPU kernel's online update with its guards (m_safe,
 corr, p = 0 for a non-finite score); P . V adds the tile's keys. The
-normalized mode returns acc / max(l, 1e-30), the partial mode (acc, m, l).
+normalized mode returns acc / max(l, 1e-30), the partial mode (acc, m, l);
+a normalized row that sees no key under the causal mask (q_off + t <
+k_off, as Tq > Tk gives with q_off = Tk - Tq) is NaN. Above Dh 128 (the
+wide route) the tiles are Dh 128's and a tile's scores the sum of their
+128-column steps, in step order.
 Every value is float32; a score or a tile's P . V is a float32 dot product
 in torch's order, not the kernel's FMA order, so the two agree within a
 float32 tolerance, not bit for bit.
 """
 import torch
+
+from mxnet_tpu_torch.ops import cuda_kernels as ck
 
 #: the kernel's tiles, ``cc::Tile<Dh>``'s kBq and kBk: head dim -> (query
 #: rows a block, keys a K / V tile); ``tests/test_torch_flash_f32.py``
@@ -29,7 +35,8 @@ def flash_f32(q, k, v, q_off=0, k_off=0, causal=False, scale=None,
     kernel's output: (B, H, Tq, Dh), or (acc, m, l) when ``partial``."""
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
-    bq, bk = TILES[min(t for t in TILES if t >= Dh)]
+    bq, bk = TILES[ck.head_tile(Dh)]
+    step = ck.HEAD_TILES[-1]
     if scale is None:
         scale = float(Dh) ** -0.5
     qs = (q.to(torch.float32) * scale).reshape(B * H, Tq, Dh)
@@ -47,7 +54,9 @@ def flash_f32(q, k, v, q_off=0, k_off=0, causal=False, scale=None,
         for k0 in range(0, max(k_end, 0), bk):
             kp = torch.arange(k0, k0 + bk)
             kc = torch.clamp(kp, max=Tk - 1)
-            s = torch.einsum("bqd,bkd->bqk", qs[:, rows], kf[:, kc])
+            s = sum(torch.einsum("bqd,bkd->bqk", qs[:, rows, c0:c0 + step],
+                                 kf[:, kc, c0:c0 + step])
+                    for c0 in range(0, Dh, step))
             live = (kp[None, :] < Tk) & \
                 ((kp[None, :] <= qp[:, None] + shift) if causal else True)
             s = torch.where(live, s, float("-inf"))
@@ -70,4 +79,7 @@ def flash_f32(q, k, v, q_off=0, k_off=0, causal=False, scale=None,
         return (acc.reshape(B, H, Tq, Dh), m.reshape(B, H, Tq),
                 l.reshape(B, H, Tq))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    if causal:
+        none = torch.arange(Tq) + shift < 0
+        out[:, none] = float("nan")
     return out.reshape(B, H, Tq, Dh)

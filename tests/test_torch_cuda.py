@@ -343,27 +343,32 @@ def test_decode_attention_matches_split_emulation(dev, S, C, dh):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(dev):
+    """Refused: an empty head dim, mixed cache types, a query or cache
+    dtype no instance takes, non-contiguous rows. Head dims 24, 144 and 8,
+    a cache 1 byte off 16 and a 65-row window run (their routes: narrow
+    copies, the wide route, more query tiles) and match the plain
+    version."""
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     for dh in (24, 144, 8):
         q = _rnd(dev, 1, 1, 1, dh)
-        kc = _rnd(dev, 1, 1, 8, dh)
-        with pytest.raises(MXNetError, match=f"head dim {dh} .* multiple "
-                                             "of 16 from 16 to 128"):
-            ck.decode_attention(q, kc, kc, pos)
-        k8 = fp8_cast(_rnd(dev, 1, 1, 8, dh), torch.float8_e4m3fn)
-        with pytest.raises(MXNetError, match="head dim"):
-            ck.decode_attention(q, k8, k8, pos)
+        for kc in (_rnd(dev, 1, 1, 8, dh),
+                   fp8_cast(_rnd(dev, 1, 1, 8, dh), torch.float8_e4m3fn)):
+            _same(ck.decode_attention(q, kc, kc, pos),
+                  ck.decode_attention_plain(q, kc, kc, pos))
+    with pytest.raises(MXNetError, match="head dim 0"):
+        z = _rnd(dev, 1, 1, 1, 0)
+        ck.decode_attention(z, z, z, pos)
     q64 = _rnd(dev, 1, 1, 1, 64)
     flat = fp8_cast(_rnd(dev, 1 + 9 * 64), torch.float8_e5m2)
     k8 = flat[:9 * 64].view(1, 1, 9, 64)
     shifted = flat[1:1 + 8 * 64].view(1, 1, 8, 64)    # 1 byte off
-    with pytest.raises(MXNetError, match="16-byte aligned"):
-        ck.decode_attention(q64, shifted, shifted, pos)
+    _same(ck.decode_attention(q64, shifted, shifted, pos),
+          ck.decode_attention_plain(q64, shifted, shifted, pos))
     with pytest.raises(MXNetError, match="float8_e5m2"):
         ck.decode_attention(q64, k8[:, :, :8], _rnd(dev, 1, 1, 8, 64), pos)
-    with pytest.raises(MXNetError, match="S=65"):
-        ck.decode_attention(_rnd(dev, 1, 1, 65, 64), k8[:, :, :8],
-                            k8[:, :, :8], pos)
+    q65 = _rnd(dev, 1, 1, 65, 64)
+    _same(ck.decode_attention(q65, k8[:, :, :8], k8[:, :, :8], pos),
+          ck.decode_attention_plain(q65, k8[:, :, :8], k8[:, :, :8], pos))
     with pytest.raises(MXNetError, match="want float8"):
         ck.decode_attention_fp8(q64, _rnd(dev, 1, 1, 8, 64),
                                 _rnd(dev, 1, 1, 8, 64), pos)
@@ -553,10 +558,13 @@ def test_softmax_output_op_on_card(dev, norm):
     after = ck.launch_counts()
     assert after["softmax"] == before["softmax"] + 1
     assert after["softmax_ce_bwd"] == before["softmax_ce_bwd"] + 1
-    with pytest.raises(MXNetError, match="multi_output"):
-        op.variants["cuda"]["fn"](op.normalize_attrs({"multi_output": True}),
-                                  [x.reshape(8, 10, 1), label[:, None]], [],
-                                  False, None)
+    # multi_output: the same two kernels over (N * d..., C)
+    mattrs = op.normalize_attrs({"multi_output": True})
+    xm = x.reshape(8, 10, 1)
+    (pm,), _ = op.variants["cuda"]["fn"](mattrs, [xm, label[:, None]], [],
+                                         False, None)
+    _same(pm, softmax_output(xm, label[:, None], mattrs))
+    assert ck.launch_counts()["softmax"] == after["softmax"] + 1
 
 
 @pytest.mark.cuda
@@ -784,8 +792,6 @@ def test_training_kernels_refuse_what_they_do_not_take(dev):
     x = _rnd(dev, 4, 8)
     with pytest.raises(MXNetError, match="float32"):
         ck.softmax(x.double())
-    with pytest.raises(MXNetError, match="65536"):
-        ck.softmax(_rnd(dev, 1, 65537))
     with pytest.raises(MXNetError, match="float32"):
         ck.softmax_ce_bwd(x, torch.zeros(4, dtype=torch.int64, device=dev),
                           1.0)
@@ -911,14 +917,18 @@ def test_flash_attention_kernel(dev, shape, causal):
 
 @pytest.mark.cuda
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
+    """Refused: k and v of other shapes, a dtype no instance takes,
+    non-contiguous rows. Head dims 24 and 144, Tq != Tk and a LayerNorm
+    backward over 65537 columns run and match the plain versions."""
     for dh in (24, 144):
         q = _rnd(dev, 1, 2, 16, dh)
-        with pytest.raises(MXNetError, match=f"head dim {dh} .* multiple "
-                                             "of 16 from 16 to 128"):
-            ck.flash_attention(q, q, q, True)
+        _same(ck.flash_attention(q, q, q, True),
+              ck.flash_attention_plain(q, q, q, True))
     q = _rnd(dev, 1, 2, 16, 64)
-    with pytest.raises(MXNetError, match="Tq == Tk"):
-        ck.flash_attention(q, _rnd(dev, 1, 2, 8, 64), _rnd(dev, 1, 2, 8, 64))
+    kv = _rnd(dev, 1, 2, 8, 64)
+    _same(ck.flash_attention(q, kv, kv), ck.flash_attention_plain(q, kv, kv))
+    with pytest.raises(MXNetError, match="Tk"):
+        ck.flash_attention(q, kv, _rnd(dev, 1, 2, 9, 64))
     with pytest.raises(MXNetError, match="float32"):
         ck.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(MXNetError, match="contiguous"):
@@ -928,9 +938,11 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
     m = torch.zeros(4, device=dev)
     with pytest.raises(MXNetError, match="contiguous"):
         ck.layernorm_bwd_dx(x.t(), x[0], x.t(), m, m)
-    with pytest.raises(MXNetError, match="65536"):
-        big = _rnd(dev, 1, 65537)
-        ck.layernorm_bwd_dparams(big, big, m[:1], m[:1])
+    big = _rnd(dev, 1, 65537)
+    for got, want in zip(ck.layernorm_bwd_dparams(big, big, m[:1], m[:1]),
+                         ck.layernorm_bwd_dparams_plain(big, big, m[:1],
+                                                        m[:1])):
+        _same(got, want)
     with pytest.raises(MXNetError, match="float32"):
         ck.bias_gelu_dx(x.double(), x[0].double(), x.double())
 
@@ -1747,16 +1759,15 @@ def test_bf16_decode_kernels_refuse_what_they_do_not_take(dev):
     kc = _rnd(dev, 1, 1, 8, 64).to(bf)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
     shifted = _misaligned_bf16(dev, 8 * 64, 1, 1, 8, 64)
-    with pytest.raises(MXNetError, match="16-byte aligned"):
-        ck.decode_attention(q, shifted, shifted, pos)
+    _same(ck.decode_attention(q, shifted, shifted, pos),            # 2-byte
+          ck.decode_attention_plain(q, shifted, shifted, pos))      # copies
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.decode_attention(q.float(), kc, kc, pos)       # float32 q
     with pytest.raises(MXNetError, match="want torch.bfloat16"):
         ck.decode_attention_bf16(q, kc.float(), kc.float(), pos)
-    with pytest.raises(MXNetError, match="head dim"):
-        ck.decode_attention(q[..., :24].contiguous(),
-                            kc[..., :24].contiguous(),
-                            kc[..., :24].contiguous(), pos)
+    q24, k24 = q[..., :24].contiguous(), kc[..., :24].contiguous()
+    _same(ck.decode_attention(q24, k24, k24, pos),
+          ck.decode_attention_plain(q24, k24, k24, pos))
     x, g = _rnd(dev, 2, 8).to(bf), _rnd(dev, 8).to(bf)
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.layernorm(x, g.float(), g, 1e-5)               # float32 gamma
@@ -2476,13 +2487,16 @@ def test_lm_bf16_kernels_refuse_what_they_do_not_take(dev):
     bf = torch.bfloat16
     q = _rnd(dev, 1, 2, 16, 64).to(bf)
     shifted = _misaligned_bf16(dev, 2 * 16 * 64, 1, 2, 16, 64)
-    with pytest.raises(MXNetError, match="16-byte aligned"):
-        ck.flash_attention(shifted, shifted, shifted, True)
+    assert ck._flash_operands(shifted, shifted, shifted)[0] is not shifted
+    assert _ulps16("bfloat16",                                # realigned
+                   ck.flash_attention(shifted, shifted, shifted, True),
+                   ck.flash_attention_plain(shifted, shifted, shifted, True),
+                   atol=TOL) <= 1
     with pytest.raises(MXNetError, match="takes torch.bfloat16"):
         ck.flash_attention(q, q.float(), q, True)
-    with pytest.raises(MXNetError, match="head dim"):
-        t = _rnd(dev, 1, 2, 16, 24).to(bf)
-        ck.flash_attention(t, t, t)
+    t = _rnd(dev, 1, 2, 16, 24).to(bf)
+    assert _ulps16("bfloat16", ck.flash_attention(t, t, t),
+                   ck.flash_attention_plain(t, t, t), atol=TOL) <= 1
     x, g = _rnd(dev, 4, 8).to(bf), _rnd(dev, 8).to(bf)
     m = torch.zeros(4, device=dev)
     with pytest.raises(MXNetError, match="takes torch.float32"):
@@ -2727,9 +2741,10 @@ def test_flash_attention_16bit_instances_do_not_spill(dev):
 
 @pytest.mark.cuda
 def test_flash_attention_partial_refuses_what_it_does_not_take(dev):
-    q = _rnd(dev, 1, 2, 16, 144)
-    with pytest.raises(MXNetError, match="head dim"):
-        ck.flash_attention_partial(q, q, q)
+    q = _rnd(dev, 1, 2, 16, 144)                # the wide route runs it
+    for got, want in zip(ck.flash_attention_partial(q, q, q),
+                         ck.flash_attention_partial_plain(q, q, q)):
+        _same(got, want)
     q = _rnd(dev, 1, 2, 16, 64)
     with pytest.raises(MXNetError, match="Tk"):
         ck.flash_attention_partial(q, _rnd(dev, 1, 2, 8, 64),
@@ -3165,3 +3180,298 @@ def test_small_lm_at_head_dim_32_fits_on_card(dev):
 def test_small_lm_at_head_dims_48_and_80_fit_on_card(dev, dh):
     """``_small_lm_fits`` at Dh 48 and 80 (d_model 96, 160)."""
     _small_lm_fits(dh)
+
+
+# -------------------------- inputs the kernels once refused (slice 21)
+#: head dims no multiple of 16 and above 128: one value a row, narrow
+#: copies, the tiles' edges and the wide routes' column groups
+ANY_DHS = [1, 2, 8, 24, 40, 72, 120, 136, 192, 256, 512, 520]
+
+
+def _flash_case(dev, dtype, B, H, tq, tk, dh, seed=0):
+    return (_rnd(dev, B, H, tq, dh, seed=seed).to(dtype),
+            _rnd(dev, B, H, tk, dh, seed=seed + 1).to(dtype),
+            _rnd(dev, B, H, tk, dh, seed=seed + 2).to(dtype))
+
+
+def _flash_close(dtype, got, want):
+    """float32 within 2e-5; 16-bit within one ulp beyond 2e-5 (the
+    normalized output, rounded once), NaN where the plain version is."""
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if dtype is torch.float32:
+        _same(got, want)
+    else:
+        half = {torch.bfloat16: "bfloat16", torch.float16: "float16"}[dtype]
+        ok = ~torch.isnan(want)
+        assert _ulps16(half, got[ok], want[ok], atol=TOL) <= 1
+
+
+_FLASH_COUNTER = {torch.float32: "", torch.bfloat16: "_bf16",
+                  torch.float16: "_f16"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", ANY_DHS)
+@pytest.mark.parametrize("S", [1, 16, 64])
+@pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
+def test_decode_attention_at_any_head_dim(dev, inst, S, dh):
+    """Any Dh >= 1 in the decode read, every instance, S = 1 and windows,
+    at the split edges, against the plain read (float32 out, 2e-5), one
+    launch on the instance's counter."""
+    q, kc, vc, pos = _split_inputs(dev, inst, 4, 2, S, 300, dh)
+    counter = DECODE_INSTANCES[inst][2]
+    before = ck.launch_counts()[counter]
+    got = ck.decode_attention(q, kc, vc, pos)
+    assert ck.launch_counts()[counter] == before + 1
+    _same(got, ck.decode_attention_plain(q, kc, vc, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [40, 64, 256])
+@pytest.mark.parametrize("S", [64, 65, 128, 256])
+@pytest.mark.parametrize("inst", list(DECODE_INSTANCES))
+def test_decode_attention_windows_past_64_rows(dev, inst, S, dh):
+    """Windows of S > 64 rows (more 16-row query tiles) at capacity 512,
+    every instance, against the plain read; the split emulation agrees
+    in float32."""
+    q, kc, vc, pos = _split_inputs(dev, inst, 4, 2, S, 512, dh)
+    got = ck.decode_attention(q, kc, vc, pos)
+    _same(got, ck.decode_attention_plain(q, kc, vc, pos))
+    if inst == "f32":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _same(got.cpu(), decode_attention_split(q.cpu(), kc.cpu(), vc.cpu(),
+                                                pos.cpu(), sms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", ANY_DHS)
+@pytest.mark.parametrize("dtype", list(_FLASH_COUNTER))
+def test_flash_attention_at_any_head_dim(dev, dtype, dh):
+    """Any Dh >= 1 in the flash forward and its partial mode, every
+    instance, causal and not: against the plain versions, one launch each
+    on the instance's counter (16-bit Dh <= 128 not a multiple of 8 after
+    a zero-padded copy; above 128 the wide route)."""
+    q, k, v = _flash_case(dev, dtype, 1, 3, 70, 70, dh)
+    sfx = _FLASH_COUNTER[dtype]
+    for causal in (True, False):
+        before = ck.launch_counts()
+        got = ck.flash_attention(q, k, v, causal)
+        after = ck.launch_counts()
+        assert after["flash_attention" + sfx] == \
+            before["flash_attention" + sfx] + 1
+        _flash_close(dtype, got, ck.flash_attention_plain(q, k, v, causal))
+        acc, m, l = ck.flash_attention_partial(q, k, v, 7, 3, causal)
+        want = ck.flash_attention_partial_plain(q, k, v, 7, 3, causal)
+        _same((acc, m, l), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [24, 64, 128])
+def test_flash_attention_float32_on_misaligned_operands(dev, dh):
+    """float32 operands 1, 2 or 3 floats off 16 bytes reach the 16-byte
+    copies as an aligned per-call copy: both modes against their plain
+    versions, one launch each on the float32 counters."""
+    for off in (1, 2, 3):
+        base = _rnd(dev, 3 * 70 * dh + off)
+        q = base[off:].reshape(1, 3, 70, dh)
+        assert q.data_ptr() % 16 != 0
+        before = ck.launch_counts()
+        got = ck.flash_attention(q, q, q, True)
+        acc = ck.flash_attention_partial(q, q, q, 5, 0, True)
+        after = ck.launch_counts()
+        assert after["flash_attention"] == before["flash_attention"] + 1
+        assert after["flash_attention_partial"] == \
+            before["flash_attention_partial"] + 1
+        _flash_close(torch.float32, got,
+                     ck.flash_attention_plain(q, q, q, True))
+        _same(acc, ck.flash_attention_partial_plain(q, q, q, 5, 0, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk", [(24, 70), (70, 24), (130, 257),
+                                   (257, 130), (1, 64), (64, 1)])
+@pytest.mark.parametrize("dtype", list(_FLASH_COUNTER))
+def test_flash_attention_with_tq_ne_tk(dev, dtype, tq, tk, causal):
+    """Tq != Tk: the mask bottom-right aligned; a query row that sees no
+    key (Tq > Tk, causal) NaN, as the plain version and the reference."""
+    q, k, v = _flash_case(dev, dtype, 2, 2, tq, tk, 64)
+    got = ck.flash_attention(q, k, v, causal)
+    want = ck.flash_attention_plain(q, k, v, causal)
+    _flash_close(dtype, got, want)
+    if causal and tq > tk:
+        assert torch.isnan(got[:, :, :tq - tk].float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh", [65535, 65536])
+@pytest.mark.parametrize("dtype", list(_FLASH_COUNTER))
+def test_flash_attention_over_b_times_h_past_65535(dev, dtype, bh):
+    """B*H on the grid's x axis: 65535 and 65536 rows, both modes."""
+    q, k, v = _flash_case(dev, dtype, bh, 1, 5, 5, 64)
+    _flash_close(dtype, ck.flash_attention(q, k, v, True),
+                 ck.flash_attention_plain(q, k, v, True))
+    _same(ck.flash_attention_partial(q, k, v, 2, 0, True),
+          ck.flash_attention_partial_plain(q, k, v, 2, 0, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [65536, 65537, 128256, 262144])
+@pytest.mark.parametrize("dtype", list(_FLASH_COUNTER))
+def test_softmax_rows_past_65536(dev, dtype, c):
+    """Rows past the register routes (the streaming route), and at their
+    bound, against the plain version (one ulp in 16 bits), with a NaN row
+    and a row of -inf alone NaN."""
+    x = 4 * _rnd(dev, 3, c)
+    x[1, 7] = float("nan")
+    x[2] = float("-inf")
+    x = x.to(dtype)
+    got, want = ck.softmax(x), ck.softmax_plain(x)
+    if dtype is torch.float32:
+        _same(got, want)
+    else:
+        half = {torch.bfloat16: "bfloat16", torch.float16: "float16"}[dtype]
+        assert torch.isnan(got[1:]).all()
+        assert _ulps16(half, got[:1], want[:1], atol=TOL) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [65537, 131072])
+@pytest.mark.parametrize("dtype", list(_FLASH_COUNTER))
+def test_ln_bwd_rows_past_65536(dev, dtype, c):
+    """The LayerNorm backward's walked route past the JAX bound: dx, dγ
+    and dβ against the plain version (float32 1e-4, 16-bit one ulp beyond
+    it), the parameter sums repeating bit for bit."""
+    x, ct = _rnd(dev, 5, c).to(dtype), _rnd(dev, 5, c, seed=1).to(dtype)
+    g = (1 + 0.1 * _rnd(dev, c, seed=2)).to(dtype)
+    _, mean, rstd = ck.layernorm_plain(x, g, g, 1e-5)
+    got = ck.layernorm_bwd(x, g, ct, mean, rstd)
+    want = ck.layernorm_bwd_plain(x, g, ct, mean, rstd)
+    for a, b in zip(got, want):
+        if dtype is torch.float32:
+            _same(a, b, tol=1e-4)
+        else:
+            half = {torch.bfloat16: "bfloat16",
+                    torch.float16: "float16"}[dtype]
+            assert _ulps16(half, a, b, atol=1e-4) <= 1
+    assert torch.equal(ck.layernorm_bwd(x, g, ct, mean, rstd)[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["null", "valid"])
+@pytest.mark.parametrize("shape", [(4, 10, 3, 5), (3, 7, 33)])
+def test_softmax_output_multi_output_on_card(dev, shape, norm):
+    """``multi_output`` (N, C, H, W) and (N, C, T) with ignored positions:
+    the op's CUDA variant (the softmax and cross-entropy kernels over the
+    (N * d..., C) rows, one launch each) against the plain op on the
+    CPU, probabilities and gradients."""
+    op = mx.ops.get_op("SoftmaxOutput")
+    attrs = op.normalize_attrs({"multi_output": True, "use_ignore": True,
+                                "ignore_label": 0, "normalization": norm})
+    x = _rnd(dev, *shape)
+    label = torch.randint(0, shape[1], (shape[0],) + shape[2:],
+                          generator=torch.Generator().manual_seed(1)).to(
+        dev, torch.float32)
+    res = []
+    for d, run in ((dev, op.variants["cuda"]["fn"]), ("cpu", op.forward)):
+        xx = x.to(d).clone().requires_grad_(True)
+        before = ck.launch_counts()
+        (prob,), _ = run(attrs, [xx, label.to(d)], [], True, None)
+        prob.backward(torch.ones_like(prob))
+        res.append((prob.detach().cpu(), xx.grad.cpu()))
+        if d == dev:
+            assert _moved(before, ck.launch_counts(),
+                          ("softmax", "softmax_ce_bwd")) == {
+                "softmax": 1, "softmax_ce_bwd": 1}
+    _same(res[0], res[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,shape", [(1, (4, 96, 7)), (-2, (3, 50, 9)),
+                                        (1, (2, 33, 4, 5))])
+def test_layernorm_over_any_axis_on_card(dev, axis, shape):
+    """``LayerNorm(axis)``: the op's CUDA variant (the axis moved last,
+    the forward kernel and the one backward call) against the plain op on
+    the CPU, outputs in the JAX op's shapes and gradients."""
+    op = mx.ops.get_op("LayerNorm")
+    attrs = op.normalize_attrs({"axis": axis})
+    c = shape[axis]
+    base = [_rnd(dev, *shape), 1 + 0.1 * _rnd(dev, c, seed=1),
+            0.1 * _rnd(dev, c, seed=2)]
+    ct = _rnd(dev, *shape, seed=3)
+    res = []
+    for d, run in ((dev, op.variants["cuda"]["fn"]), ("cpu", op.forward)):
+        leaves = [t.to(d).clone().requires_grad_(True) for t in base]
+        before = ck.launch_counts()
+        outs, _ = run(attrs, leaves, [], True, None)
+        outs[0].backward(ct.to(d))
+        res.append(tuple(o.detach().cpu() for o in outs) +
+                   tuple(t.grad.cpu() for t in leaves))
+        if d == dev:
+            assert _moved(before, ck.launch_counts(),
+                          ("layernorm", "ln_bwd")) == {"layernorm": 1,
+                                                       "ln_bwd": 1}
+    assert [t.shape for t in res[0]] == [t.shape for t in res[1]]
+    _same(res[0], res[1], tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", list(HALVES))
+def test_fp8_graph_under_compute_dtype_on_card(dev, half):
+    """An fp8-quantized convnet under ``compute_dtype``: the e4m3 weights
+    reach rows 16 and 17 as stored (their e4m3 instances launch: the dense
+    layer's 16-bit one, the conv dequant's), and the card's probabilities
+    match the CPU Module's within the type's few ulps at 1."""
+    from mxnet_tpu_torch.ops.quant import quantize_symbol
+    data = mx.sym.var("data")
+    net = mx.sym.Convolution(data, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                             name="c1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(mx.sym.Flatten(net), num_hidden=10,
+                                name="f1")
+    sym = mx.sym.SoftmaxOutput(net, name="softmax")
+    shape = (4, 3, 8, 8)
+    arg_shapes, _, _ = sym.infer_shape(data=shape)
+    rs = np.random.RandomState(0)
+    params = {n: (0.3 * rs.randn(*s)).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    qsym, qargs = quantize_symbol(sym, params, dtype="fp8")
+    X = rs.rand(*shape).astype(np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        before = ck.launch_counts()
+        mod = mx.mod.Module(qsym, context=ctx, compute_dtype=half)
+        mod.bind([("data", shape)], [("softmax_label", (4,))],
+                 for_training=False)
+        mod.init_params(initializer=None, arg_params=qargs, aux_params={},
+                        allow_missing=False)
+        mod.forward(mx.io.DataBatch([X], []), is_train=False)
+        outs.append(mod.get_outputs()[0].astorch().float().cpu())
+        if ctx.device_type == "gpu":
+            moved = {k: v - before[k] for k, v in ck.launch_counts().items()
+                     if v != before[k]}
+            sfx = HALVES[half][1]
+            assert moved.get("qfc_matmul_" + sfx) == 1, moved
+            assert moved.get("dequant_rows_multi", 0) + \
+                moved.get("dequant_rows", 0) == 1, moved
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=_PROB_TOL[half])
+
+
+@pytest.mark.cuda
+def test_qfc_matmul_rows_past_one_grid(dev):
+    """M past 64 x 65535 rows (the tiled route's grid y): two launches at
+    row offsets, against the plain version."""
+    from mxnet_tpu_torch.ops.quant import quantize_per_channel
+    m = ck.QFC_CHUNK_M + 3
+    x = _rnd(dev, m, 4)
+    wq, scale = quantize_per_channel(torch.randn(3, 4), dtype="int8")
+    wq, scale = wq.to(dev), scale.to(dev)
+    before = ck.launch_counts()["qfc_matmul"]
+    got = ck.qfc_matmul(x, wq, scale)
+    assert ck.launch_counts()["qfc_matmul"] == before + 2
+    want = ck.qfc_matmul_plain(x, wq, scale)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -96,9 +96,11 @@ def dh(request):
 
 def test_the_kernels_take_head_dim_32(dh):
     """Every multiple of 16 up to 128 is a head dim of every attention
-    kernel, on the smallest tile that holds it; the float32 flash
-    forward's emulation walks the tiles ``cc::Tile`` gives there. Dh 24
-    and 144 are none."""
+    kernel whose rows are whole 16-byte copies on the smallest tile that
+    holds it (``HEAD_DIMS``); the float32 flash forward's emulation walks
+    the tiles ``cc::Tile`` gives there. Dh 24 and 144 are not among them:
+    they run on narrower copies and on the wide routes
+    (``tests/test_torch_any_shape.py``)."""
     assert ck.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
     assert dh in ck.HEAD_DIMS and 24 not in ck.HEAD_DIMS and \
         144 not in ck.HEAD_DIMS
