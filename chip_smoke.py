@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all fifteen in parallel; the flash-attention
+   ``nvcc`` per source, all in parallel; the decode read's general route
+   in a source of its own; the flash-attention
    source holds the normalized forward and ring attention's partial
    mode, the LayerNorm-backward source dx, dgamma and dbeta in one
    kernel; twelve kernels hold a
@@ -332,7 +333,9 @@ bfloat16 phase functions given the dtype:
 44. (run after 37) phase 35 in float16: the bench LM through
    ``Module(compute_dtype="float16").fit`` in turns with float32, exact
    ``*_f16`` launches and 99 casts a step;
-45. phase 36 in float16: one LM step card vs CPU.
+45. phase 36 in float16: one LM step card vs CPU, at 2 of the 8 layers
+   and T 32 (F16_LM_PARITY_LAYERS, F16_LM_PARITY_SEQ: the CPU's float16
+   matmuls are slow).
 
 The profiles (phases 27, 34, 37) run in bfloat16 only.
 
@@ -411,6 +414,41 @@ Then the head dims between the attention kernels' tiles:
    ``native_layer_norm_backward``, and the 16-bit flash operands'
    zero-padded copy alone.
 
+Then the random chain (``mx.random``: the JAX package's threefry2x32
+keys) and the classifiers that use Dropout, LRN and Concat; phase 2 also
+holds the threefry kernel against its plain version (Dropout in every
+instance at the bench LM's and VGG's drop6 shapes and at 1, 7 and 4099
+values, aligned and one element off 16 bytes, bit for bit, one case on
+the CPU too; uniform at the embedding table's (V, D) and the edges, bit
+for bit, its normal and exponential transforms within their limits) and
+times it beside ``F.dropout`` / ``torch.rand`` and its bound (bytes, or
+threefry's integer operations at the card's INT32 rate):
+
+53. (run after 52) AlexNet, VGG-16 and Inception-BN at 224 x 224 and
+   Inception-v3 at 299 x 299 (1000 classes) through ``Module.fit`` on
+   ``gpu(0)`` after ``mx.random.seed(0)``: Xavier weights drawn on the
+   card by the uniform kernel (one launch a weight), ZOO_STEPS batches of
+   ZOO_BATCH (SGD momentum 0.9, wd 1e-4, telemetry on): img/s without
+   the first batch, exactly 1 softmax + 1 CE backward + 1
+   ``sgd_mom_multi`` (+ AlexNet's and VGG's 2 ``dropout``) launches a
+   step, the MFU readings (the rate printed, not held: two timed batches
+   of a host-bound net), the masks under the module's key chain bit for
+   bit the plain
+   version's on the card and the CPU, the device-busy share of 2 more
+   steps; then one step of each at batch 2 card vs CPU from the same
+   parameters and seed, TF32 off and cuDNN deterministic (phase 6's
+   limits), at 67, 32, 224 and 299 pixels (ZOO's last entries);
+54. the bench LM with ``dropout=0.1`` (16 Dropouts) through
+   ``Module.fit`` for LM_DROPOUT_STEPS batches in float32, bfloat16 and
+   float16: tokens/s, phase 9's (35's, 44's) launches a step plus 16
+   ``dropout`` (``dropout_bf16``, ``dropout_f16``), the MFU readings
+   (the rate printed, not held: two timed batches), the masks under the
+   key chain bit for bit the plain version's on the card (the first on
+   the CPU), the float32 fit's device-busy share.
+
+Each phase's seconds are printed on a line of their own ("chip_smoke:
+phase N (...) took S s").
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / the multi-tensor SGD-momentum while fitting ResNet-50
@@ -432,7 +470,9 @@ instances in phases 38, 40, 42 and 44, the dequant-fused matmul's
 instances in the ring fits of phases 46 and 48, the user kernels
 ``rtc_axpb`` (its two checked pushes), ``relu_user`` and ``relu_user_vjp``
 (the relu_user fit; their source is this script), and the attention
-kernels' launches in phases 50 to 52 added to theirs — max abs error against
+kernels' launches in phases 50 to 52 added to theirs, and the threefry
+kernel's in phases 53 (``uniform``: the initializers' draws; ``dropout``)
+and 54 (``dropout`` and its 16-bit instances) — max abs error against
 the plain version, kernel /
 plain / library milliseconds and the bound); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
@@ -454,6 +494,13 @@ LADDER = [1, 4, 8]
 PROMPT, NEW, N_REQ = 16, 64, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+# H100 SXM 32-bit integer operations: 64 a clock an SM, half the float32
+# lanes whose fused multiply-adds make the data sheet's 67 TFLOP/s
+INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
+# threefry2x32's integer operations for one element's 32 bits: 20 rounds
+# of add, rotate (one funnel shift) and xor, five key injections of two
+# adds, the counter's two adds and the final xor
+THREEFRY_OPS = 20 * 3 + 5 * 2 + 2 + 1
 # ln_bwd_dparams: sums over up to 8192 rows reach a few hundred, where a
 # float32 ulp is 3e-5, and the plain version sums in another order; ln_bwd
 # (dx, dgamma and dbeta from one call) is held to both limits, dx to
@@ -477,7 +524,8 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "layernorm_bwd_dparams_bf16": 1.0, "layernorm_bwd_bf16": 1.0,
        "bias_gelu_dx_bf16": 1.0,
        "flash_attention_bf16": 1.0, "qfc_matmul_bf16": 1e-5,
-       "flash_attention_partial": 2e-5, "flash_attention_partial_bf16": 2e-5}
+       "flash_attention_partial": 2e-5, "flash_attention_partial_bf16": 2e-5,
+       "dropout": 0.0, "dropout_bf16": 0.0, "uniform": 0.0}
 # the float16 instances: the bfloat16 instances' limits, in float16 ulps
 # where those are in ulps
 TOL.update({k.replace("_bf16", "_f16"): v for k, v in TOL.items()
@@ -563,6 +611,11 @@ REPLACES = {
     "flash_attention_partial": "mxnet_tpu/rtc.py:301",
     "flash_attention_partial_bf16": "mxnet_tpu/rtc.py:301",
     "qfc_matmul_bf16": "mxnet_tpu/ops/quant.py:151",
+    # no TPU kernel: jax.random's threefry in XLA, where the JAX package
+    # draws Dropout's mask (its bernoulli) and the samplers' uniform bits
+    "dropout": "mxnet_tpu/ops/nn.py:638",
+    "dropout_bf16": "mxnet_tpu/ops/nn.py:638",
+    "uniform": "mxnet_tpu/ops/tensor.py:678",
     "rtc_axpb": "mxnet_tpu/rtc.py:41",
     "relu_user": "mxnet_tpu/rtc.py:101",
     "relu_user_vjp": "mxnet_tpu/rtc.py:101",
@@ -570,6 +623,27 @@ REPLACES = {
 REPLACES.update({k.replace("_bf16", "_f16"): v for k, v in REPLACES.items()
                  if k.endswith("_bf16")})
 DECODE_KERNELS = ("embedding", "layernorm", "bias_gelu", "decode_attention")
+#: phase 53: the image classifiers of models/ at their published widths,
+#: each fitted ZOO_STEPS batches of ZOO_BATCH through Module.fit (name,
+#: module, get_symbol kwargs, input side), and one step of each at
+#: ZOO_PARITY_BATCH card vs CPU (the last entry: the input side; AlexNet
+#: and VGG at the smallest they take, since their fc layers at 224 pixels
+#: hold 60M and 138M weights that a CPU step copies and perturbs for ~15
+#: s of the time limit; Inception-BN at 32 pixels ends in 1 x 1 BatchNorms
+#: over 2 values, whose step is chaotic in float32, so it stays at 224);
+#: phase 54 the bench LM with Dropout
+ZOO = (("alexnet", "alexnet", {}, 224, 67),
+       ("vgg16", "vgg", {"num_layers": 16}, 224, 32),
+       ("inception_bn", "inception_bn", {}, 224, 224),
+       ("inception_v3", "inception_v3", {}, 299, 299))
+ZOO_BATCH, ZOO_STEPS, ZOO_PARITY_BATCH = 32, 3, 2
+ZOO_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+LM_DROPOUT, LM_DROPOUT_STEPS = 0.1, 3
+#: phase 45 (the float16 LM step card vs CPU) at 2 of the 8 layers and T
+#: 32 of 128: the card machine's CPU takes float16 matmuls slowly (45-57 s
+#: for the two CPU steps at 8 layers and T 128, most of it the 32000-word
+#: head), and the time limit holds the script to 720 s
+F16_LM_PARITY_LAYERS, F16_LM_PARITY_SEQ = 2, 32
 TRAIN_CLASSES, TRAIN_IMAGE, TRAIN_BATCH, TRAIN_STEPS = 1000, (3, 224, 224), \
     32, 8
 SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
@@ -888,6 +962,7 @@ def phase_kernels(mx, ck):
         return torch.as_tensor(np.asarray(a)).to(dev, dtype)
 
     rec = {}
+    part = _PhaseClock()
     # 1. embedding: 8 ids into the (32000, 512) table, scale sqrt(512)
     ids = t(rs.randint(0, V, 8), torch.int32)
     w = t(rs.randn(V, D).astype(np.float32))
@@ -963,6 +1038,7 @@ def phase_kernels(mx, ck):
              "bias_gelu": lambda: ck.bias_gelu(h, hb),
              "decode_attention": lambda: ck.decode_attention(q1, kc, vc,
                                                              pos1)}
+    part("2a (the decode kernels, float32)")
     _decode_window_rows(ck, rs, t, kc, vc)
     _decode_long_rows(ck, rs, t)
     calls.update(_decode_fp8_kernel(ck, rs, t, rec, kc, vc, q1, pos1))
@@ -970,22 +1046,33 @@ def phase_kernels(mx, ck):
                vc=vc, q1=q1, pos1=pos1, mask=mask, live=live)
     for half in HALF_SFX:
         calls.update(_bf16_decode_kernels(ck, rs, t, rec, f32, half))
+    part("2b (decode rows, fp8 and 16-bit decode kernels)")
     calls.update(_training_kernels(mx, ck, rs, t, rec))
     calls.update(_lm_kernels(ck, rs, t, rec))
     calls.update(_ring_kernels(ck, rs, t, rec))
+    part("2c (training, LM and ring kernels)")
     _headdim32_rows(ck, rs, t)
+    part("2d (head dim 32 rows)")
     _headdim_rows(ck, rs, t)
+    part("2e (head dims 16 to 112 rows)")
     _flash_tensor_cores(ck)
     _row_kernel_resources(ck)
+    part("2f (tensor cores, registers and spills)")
     for half in HALF_SFX:
         calls.update(_lm_bf16_kernels(ck, rs, t, rec, half))
+    part("2g (16-bit LM kernels)")
     calls.update(_quant_kernels(mx, ck, rs, t, rec))
     calls.update(_quant_half_kernels(ck, rs, t, rec))
     _qfc_rungs(ck, rs, t)
+    part("2h (quantized kernels)")
     calls.update(_bn_kernels(mx, ck, rs, t, rec))
     for half in HALF_SFX:
         calls.update(_bf16_kernels(mx, ck, rs, t, rec, half))
+    part("2i (BatchNorm and 16-bit ResNet kernels)")
+    calls.update(_threefry_kernels(ck, rs, t, rec))
+    part("2j (threefry)")
     _launch_path_probe(ck)
+    part("2k (launch path)")
     print("kernels: device_ms is CUDA events around each call with 1 GiB "
           "written before it (inputs read from device memory); the events' "
           f"floor (no call) {_device_ms(lambda: None):.6f} ms")
@@ -1008,6 +1095,7 @@ def phase_kernels(mx, ck):
         if not err <= TOL[name]:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {err} > {TOL[name]}")
+    part("2l (device ms of every kernel)")
     return rec
 
 
@@ -1220,8 +1308,10 @@ def _row_kernel_resources(ck):
     LayerNorm-backward and decode-read instance; the row-resident designs
     and the decode read may not spill."""
     spills = []
-    for lib in ("softmax", "layernorm", "ln_bwd", "decode_attention"):
-        for fn, r in sorted(ck.resources(lib).items()):
+    for lib in ("softmax", "layernorm", "ln_bwd", "decode_attention",
+                "decode_attention_16", "decode_attention_fp8",
+                "decode_attention_any"):
+        for fn, r in sorted(ck.resources(lib, sass=False).items()):
             if "registers" not in r:
                 continue
             print(f"resources {lib}: {fn}: registers={r['registers']} "
@@ -3319,9 +3409,10 @@ def _telemetry(mx):
         mx.telemetry.disable()
 
 
-def _mfu_readings(mx, mod, it, batch_ms, rates, label):
+def _mfu_readings(mx, mod, it, batch_ms, rates, label, gate=True):
     """Print the four MFU readings ``Module.fit`` set while telemetry was
-    on, and hold them to the script's own count: ``mfu.flops_per_step``
+    on, and hold them to the script's own count (the rate only under
+    ``gate``): ``mfu.flops_per_step``
     is ``cost_table``'s train FLOPs; the p50 of the per-batch
     ``mfu.achieved_flops_per_sec`` (``rates``, the first batch excluded)
     lies within MFU_RTOL of those FLOPs plus the optimizer update's over
@@ -3354,9 +3445,11 @@ def _mfu_readings(mx, mod, it, batch_ms, rates, label):
           f"the batches {100 * off:+.1f}% from the script's FLOPs per step "
           f"{flops:.6g} over the p50 batch, hand-off to metric update, "
           f"{np.percentile(batch_ms, 50):.2f} ms = {own:.6g} FLOP/s, limit "
-          f"{100 * MFU_RTOL:.0f}%)")
+          f"{100 * MFU_RTOL:.0f}%" + ("" if gate else ", not held: the rate "
+                                        "of a few host-bound batches") + ")")
     if got["mfu.flops_per_step"] != table["train_flops"] or \
-            abs(off) > MFU_RTOL or got["mfu.node_coverage"] != 1.0:
+            (gate and abs(off) > MFU_RTOL) or \
+            got["mfu.node_coverage"] != 1.0:
         raise AssertionError(f"{label}: MFU readings disagree with the "
                              "script's count")
 
@@ -3441,11 +3534,12 @@ def _update_host_ms(ck, mod, label, kernel, rounds=5):
 
 
 def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
-               on_batch=None, **fit_kw):
+               on_batch=None, mfu_gate=True, **fit_kw):
     """Fit the bound, initialized ``mod`` over ``it`` on the card for one
     epoch with telemetry on: prints items/s and p50/p99 step ms without
-    the first batch, peak device memory, the MFU readings, launches per
-    step and the train metric; requires a finite loss and the ``watch``
+    the first batch, peak device memory, the MFU readings (held to the
+    script's own count unless ``mfu_gate`` is off), launches per step and
+    the train metric; requires a finite loss and the ``watch``
     parameters moved. ``into``, a dict, takes the rate, the p50 / p99
     step ms and the peak GiB; ``on_batch`` runs after each batch's end
     stamp. Returns (launches of the fit, launches per step)."""
@@ -3478,7 +3572,7 @@ def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
           f"s (first {1e3 * (stamps[0] - t0):.1f} ms); without the first: "
           f"{got['rate']:.1f} {unit}/s, step p50 {got['p50']:.2f} ms p99 "
           f"{got['p99']:.2f} ms; peak device memory {got['peak']:.2f} GiB")
-    _mfu_readings(mx, mod, it, batches, rates, label)
+    _mfu_readings(mx, mod, it, batches, rates, label, gate=mfu_gate)
     per_step = {k: v / len(stamps) for k, v in counts.items()}
     print(f"{label}: launches per step {per_step}")
     names, values = metric.get()
@@ -3520,9 +3614,11 @@ def _resnet50_start(mx, batch):
 
 
 def _step_parity(mx, sym, args, auxs, X, y, label,
-                 cpu_scope=contextlib.nullcontext):
-    """One SGD step of ``sym`` on the card and on the CPU (inside
-    ``cpu_scope()``) from the same parameters: the forward (probabilities,
+                 cpu_scope=contextlib.nullcontext, seed=None, sgd=SGD):
+    """One SGD step (``sgd``) of ``sym`` on the card and on the CPU (inside
+    ``cpu_scope()``) from the same parameters, each after
+    ``mx.random.seed(seed)`` where a seed is given (a graph with Dropout
+    then draws the same masks on both): the forward (probabilities,
     moving statistics) within FWD_TOL, the updated weights within
     SPREAD_FACTOR times the CPU's own spread under a 1e-6 relative
     perturbation of the starting weights."""
@@ -3530,15 +3626,20 @@ def _step_parity(mx, sym, args, auxs, X, y, label,
     rs = np.random.RandomState(SEED + 2)
     nudged = {k: (v * (1 + 1e-6 * rs.randn(*v.shape))).astype(np.float32)
               for k, v in args.items()}
+
+    def step(start, ctx):
+        if seed is not None:
+            mx.random.seed(seed)
+        return _one_step(mx, sym, start, auxs, ctx, X, y, sgd)
     t0 = time.perf_counter()
     with cpu_scope():
-        cpu = _one_step(mx, sym, args, auxs, mx.cpu(), X, y, SGD)
-        spread = _one_step(mx, sym, nudged, auxs, mx.cpu(), X, y, SGD)
+        cpu = step(args, mx.cpu())
+        spread = step(nudged, mx.cpu())
     t_cpu = time.perf_counter() - t0
-    gpu = _one_step(mx, sym, args, auxs, mx.gpu(0), X, y, SGD)
+    gpu = step(args, mx.gpu(0))
     prob_err = float(np.abs(gpu[0] - cpu[0]).max())
-    aux_err = max(float((np.abs(gpu[2][k] - v) / (1 + np.abs(v))).max())
-                  for k, v in cpu[2].items())
+    aux_err = max((float((np.abs(gpu[2][k] - v) / (1 + np.abs(v))).max())
+                   for k, v in cpu[2].items()), default=0.0)
     worst, worst_k, arg_err = -1.0, None, 0.0
     for k, v in cpu[1].items():
         d = float(np.abs(gpu[1][k] - v).max())
@@ -3599,7 +3700,8 @@ def phase_adam(mx, ck):
 _PORT_KERNELS = ("softmax_rows_", "softmax_ce_bwd_kernel", "sgd_mom_f32",
                  "adam_f32", "multi_update", "ln_fwd", "bias_gelu", "emb_gather",
                  "decode_attn", "ln_bwd_", "ln_dparams_", "flash_fwd",
-                 "flash_tc", "bn_stats_", "bn_apply_relu_")
+                 "flash_tc", "bn_stats_", "bn_apply_relu_", "dropout<",
+                 "uniform_f32")
 
 
 def _kernel_group(key):
@@ -3675,9 +3777,9 @@ def _lm_gemm_flops():
     return 6 * weights * LM_BATCH * LM_SEQ + attn
 
 
-def _lm_symbol(seq, n_head=N_HEAD):
+def _lm_symbol(seq, n_head=N_HEAD, n_layer=N_LAYER):
     from mxnet_tpu_torch.models import transformer as tfm
-    return tfm.get_symbol(vocab_size=V, d_model=D, n_layer=N_LAYER,
+    return tfm.get_symbol(vocab_size=V, d_model=D, n_layer=n_layer,
                           n_head=n_head, seq_len=seq)
 
 
@@ -3907,22 +4009,22 @@ def _lm_step(mx, sym, params, ctx, batch, compute_dtype=None):
             {k: v.asnumpy() for k, v in mod.get_params()[0].items()})
 
 
-def _lm_parity_start(mx, n_head=N_HEAD):
-    """The parity phases' LM symbol (T=128), numpy-seeded parameters and
-    one batch of batch 2."""
+def _lm_parity_start(mx, n_head=N_HEAD, n_layer=N_LAYER, seq=LM_PARITY_SEQ):
+    """The parity phases' LM symbol (T = ``seq``, ``n_layer`` layers),
+    numpy-seeded parameters and one batch of batch 2."""
     import numpy as np
     from mxnet_tpu_torch.models import transformer as tfm
-    sym = _lm_symbol(LM_PARITY_SEQ, n_head)
+    sym = _lm_symbol(seq, n_head, n_layer)
     shapes, _, _ = sym.infer_shape(
-        data=(LM_PARITY_BATCH, LM_PARITY_SEQ),
-        softmax_label=(LM_PARITY_BATCH * LM_PARITY_SEQ,))
+        data=(LM_PARITY_BATCH, seq),
+        softmax_label=(LM_PARITY_BATCH * seq,))
     rs = np.random.RandomState(SEED + 4)
     params = {n: ((1 + 0.1 * rs.randn(*s)) if n.endswith("gamma")
                   else 0.02 * rs.randn(*s)).astype(np.float32)
               for n, s in zip(sym.list_arguments(), shapes)
               if n not in ("data", "softmax_label")}
-    batch = next(iter(tfm.SyntheticLMIter(V, LM_PARITY_BATCH, LM_PARITY_SEQ,
-                                          1, seed=SEED + 5)))
+    batch = next(iter(tfm.SyntheticLMIter(V, LM_PARITY_BATCH, seq, 1,
+                                          seed=SEED + 5)))
     return sym, params, batch
 
 
@@ -3977,10 +4079,13 @@ class _PacedClock:
 
 
 def _unload(ck, names):
-    """Forget the loaded libraries of kernels ``names`` (their built
-    files stay), so that their next launch loads them again and counts
-    in ``ck.libraries_loaded()``."""
-    names = {ck._library(n) for n in names}
+    """Forget the loaded libraries of kernels ``names`` and of their
+    routes (the decode read's per-type and general-route libraries; the
+    built files stay), so that their next launch loads them again and
+    counts in ``ck.libraries_loaded()``."""
+    names = {ck._library(n) for n in names} | {
+        ck._library(kernel) for kernel, wrapper in ck._ROUTES.values()
+        if wrapper in names}
     for name in names:
         ck._libs.pop(name, None)
     for key in [k for k in ck._fns
@@ -6259,7 +6364,8 @@ def phase_lm_bf16_train(mx, ck, half="bfloat16"):
     return counts, mods
 
 
-def phase_lm_bf16_parity(mx, half="bfloat16", n_head=N_HEAD):
+def phase_lm_bf16_parity(mx, half="bfloat16", n_head=N_HEAD,
+                         n_layer=N_LAYER, seq=LM_PARITY_SEQ):
     """One bfloat16 SGD step of the LM at full width, batch 2, T=128, on
     the card and on the CPU from phase 10's parameters and batch, TF32
     off, beside the CPU's float32 step: the probabilities, every gradient
@@ -6271,8 +6377,9 @@ def phase_lm_bf16_parity(mx, half="bfloat16", n_head=N_HEAD):
     bfloat16 and float32 happen to agree). The losses are printed."""
     sfx = HALF_SFX[half]
     import numpy as np
-    print(_tf32(False) + f" (LM {sfx} parity phase, {n_head} heads)")
-    sym, params, batch = _lm_parity_start(mx, n_head)
+    print(_tf32(False) + f" (LM {sfx} parity phase, {n_head} heads, "
+          f"{n_layer} layers, T={seq})")
+    sym, params, batch = _lm_parity_start(mx, n_head, n_layer, seq)
     t0 = time.perf_counter()
     cpu = _lm_step(mx, sym, params, mx.cpu(), batch, half)
     cpu32 = _lm_step(mx, sym, params, mx.cpu(), batch)
@@ -6297,9 +6404,9 @@ def phase_lm_bf16_parity(mx, half="bfloat16", n_head=N_HEAD):
             (ratio(card[i][k], cpu[i][k],
                    float(np.abs(cpu[i][k] - cpu32[i][k]).max())), k)
             for k in cpu[i])
-    print(f"lm {sfx} parity ({n_head} heads): one step at batch "
-          f"{LM_PARITY_BATCH}, T="
-          f"{LM_PARITY_SEQ} (two CPU steps {t_cpu:.1f} s): loss card "
+    print(f"lm {sfx} parity ({n_head} heads, {n_layer} layers): one step"
+          f" at batch {LM_PARITY_BATCH}, T="
+          f"{seq} (two CPU steps {t_cpu:.1f} s): loss card "
           f"{loss[0]:.6f} cpu {sfx} {loss[1]:.6f} cpu float32 {loss[2]:.6f}; "
           f"worst of its limit (BF16_SPREAD {BF16_SPREAD} x the CPU's "
           f"{half}-vs-float32 distance + one {sfx} ulp of the array's max):"
@@ -7061,6 +7168,332 @@ def phase_refused_inputs(mx, ck, prompts, params, cpu_ref, q_mod):
     return total
 
 
+def _threefry_kernels(ck, rs, t, rec):
+    """The threefry kernel's two entry points against their plain
+    versions on the same inputs. Dropout in every instance at the bench
+    LM's shape (LM_BATCH, LM_SEQ, D), at VGG's drop6 (ZOO_BATCH, 4096) and
+    at the edges (1, 7 and 4099 values: no whole 16-byte unit, an odd
+    size, a tail past the last unit), each aligned and on a view one
+    element off 16 bytes, y and the mask bit for bit; uniform at the
+    embedding table's (V, D), the initializers' largest draw, and at the
+    edges, bit for bit, with its normal transform within 1e-5 of max(1,
+    |value|) and its exponential within 2 ulps (erfinvf and log1pf
+    against PyTorch's). Timed beside F.dropout and torch.rand (the same
+    bytes and the distribution, not the same bits) and the bound: the
+    larger of the bytes (x read, y and mask written) and threefry's
+    integer operations at the card's INT32 rate. Returns the calls that
+    device_ms times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import random as mxr
+    key = mxr.split(mxr.prng_key(SEED))[1]
+    lm, drop6 = (LM_BATCH, LM_SEQ, D), (ZOO_BATCH, 4096)
+    calls = {}
+    for dtype, name in ((torch.float32, "dropout"),
+                        (torch.bfloat16, "dropout_bf16"),
+                        (torch.float16, "dropout_f16")):
+        err = 0.0
+        for shape in (lm, drop6, (1,), (7,), (4099,)):
+            n = int(np.prod(shape))
+            flat = t(rs.randn(n + 1).astype(np.float32), dtype)
+            for x in (flat[:n].view(shape), flat[1:].view(shape)):
+                for keep in (0.9, 0.5):
+                    y, m = ck.dropout(x, key, keep)
+                    py, pm = ck.dropout_plain(x, key, keep)
+                    if not (torch.equal(y, py) and torch.equal(m, pm)):
+                        err = max(err, _max_err(y, py), _max_err(m, pm),
+                                  float("inf") if not torch.equal(
+                                      m == 0, pm == 0) else 0.0)
+        cpu_y, cpu_m = ck.dropout_plain(flat[:7].cpu(), key, 0.5)
+        y, m = ck.dropout(flat[:7], key, 0.5)
+        if not (torch.equal(y.cpu(), cpu_y) and torch.equal(m.cpu(), cpu_m)):
+            err = float("inf")
+        x = t(rs.randn(*lm).astype(np.float32), dtype)
+        n = x.numel()
+        rec[name] = dict(
+            max_abs_err=err, ms=_timed(lambda: ck.dropout(x, key, 0.9)),
+            plain_ms=_timed(lambda: ck.dropout_plain(x, key, 0.9), reps=20,
+                            warm=2),
+            library_ms=_timed(lambda: F.dropout(x, 0.1, True)),
+            library_call=lambda x=x: F.dropout(x, 0.1, True),
+            bound=_int_bound_ms(3 * n * x.element_size(), THREEFRY_OPS * n))
+        calls[name] = lambda x=x: ck.dropout(x, key, 0.9)
+    err = 0.0
+    for shape in ((V, D), (1,), (7,), (4099,)):
+        for lo, hi in ((0.0, 1.0), (-0.0765, 0.0765)):
+            got = ck.uniform(key, shape, lo, hi, device="cuda")
+            # the table's 16.4M draws against the plain version on the
+            # card (integer arithmetic, the same bits on any device), the
+            # edges against it on the CPU
+            want = ck.uniform_plain(key, shape, lo, hi,
+                                    device="cuda" if shape == (V, D)
+                                    else None)
+            err = max(err, 0.0 if torch.equal(got.to(want.device), want)
+                      else float("inf"))
+    for transform, limit in ((mxr.NORMAL, None), (mxr.EXPONENTIAL, 2)):
+        got = ck.uniform(key, (4099,), transform=transform,
+                         device="cuda").cpu()
+        want = ck.uniform_plain(key, (4099,), transform=transform)
+        if limit is None:
+            rel = float(((got - want).abs() / want.abs().clamp(min=1.0))
+                        .max())
+            ok = rel <= 1e-5
+        else:
+            ok = int((got.view(torch.int32).long() -
+                      want.view(torch.int32).long()).abs().max()) <= limit
+        print(f"kernel uniform: transform {transform} against torch's "
+              f"erfinv / log1p: {'within' if ok else 'OUTSIDE'} its limit")
+        if not ok:
+            err = float("inf")
+    n = V * D
+    rec["uniform"] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: ck.uniform(key, (V, D), device="cuda"), reps=50),
+        plain_ms=_timed(lambda: ck.uniform_plain(key, (V, D), device="cuda"),
+                        reps=5, warm=1),
+        library_ms=_timed(lambda: torch.rand((V, D), device="cuda"),
+                          reps=50),
+        library_call=lambda: torch.rand((V, D), device="cuda"),
+        bound=_int_bound_ms(4 * n, THREEFRY_OPS * n))
+    calls["uniform"] = lambda: ck.uniform(key, (V, D), device="cuda")
+    return calls
+
+
+def _int_bound_ms(nbytes, int_ops):
+    """The least time for ``nbytes`` moved and ``int_ops`` 32-bit integer
+    operations at the card's INT32 rate."""
+    return _bound_ms(nbytes, int_ops, peak=INT32_OPS_PER_S)
+
+
+@contextlib.contextmanager
+def _dropout_tap(ck):
+    """Keep every Dropout kernel call's (key, keep, x, mask) while the
+    block runs: the wrapper is wrapped, the kernel and its counter are
+    the wrapper's own."""
+    import numpy as np
+    seen, real = [], ck.dropout
+
+    def tapped(x, key, keep):
+        y, m = real(x, key, keep)
+        seen.append((np.array(key, dtype=np.uint32), keep, x, m))
+        return y, m
+    ck.dropout = tapped
+    try:
+        yield seen
+    finally:
+        ck.dropout = real
+
+
+def _check_dropout_chain(ck, label, sym, step_key, seen, steps, cpu_every):
+    """The masks a fit drew: each step's Dropout nodes under the module's
+    chain (the step's key is the second half of splitting the chain's
+    key; node i folds in i, its index in the node list), each mask bit
+    for bit the plain version's on the card, and every ``cpu_every``-th
+    bit for bit the plain version's on the CPU. Returns the masks
+    compared on the CPU."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import random as mxr
+    nodes = [i for i, n in enumerate(sym._topo_nodes())
+             if not n.is_variable and n.op == "Dropout"]
+    want, k = [], np.array(step_key, dtype=np.uint32)
+    for _ in range(steps):
+        k, sub = mxr.split(k)
+        want += [mxr.fold_in(sub, i) for i in nodes]
+    if len(seen) != len(want):
+        raise AssertionError(f"{label}: {len(seen)} Dropout launches, want "
+                             f"{len(want)}")
+    on_cpu = 0
+    for j, ((key, keep, x, m), w) in enumerate(zip(seen, want)):
+        if not np.array_equal(key, w):
+            raise AssertionError(f"{label}: Dropout call {j} ran under key "
+                                 f"{key}, the chain gives {w}")
+        if not torch.equal(m, ck.dropout_plain(x, key, keep)[1]):
+            raise AssertionError(f"{label}: Dropout call {j}'s mask is not "
+                                 "the plain version's on the card")
+        if j % cpu_every == 0:
+            on_cpu += 1
+            if not torch.equal(m.cpu(),
+                               ck.dropout_plain(x.cpu(), key, keep)[1]):
+                raise AssertionError(f"{label}: Dropout call {j}'s mask is "
+                                     "not the CPU's")
+    if seen:
+        kept = float(np.mean([float((m != 0).float().mean())
+                              for _, _, _, m in seen]))
+        print(f"{label}: {len(seen)} Dropout masks under the module's key "
+              f"chain, bit for bit the plain version's on the card, {on_cpu}"
+              f" of them on the CPU too; kept share {kept:.4f}")
+    return on_cpu
+
+
+def _zoo_symbol(module, kw):
+    import importlib
+    return importlib.import_module(f"mxnet_tpu_torch.models.{module}") \
+        .get_symbol(num_classes=TRAIN_CLASSES, **kw)
+
+
+def _zoo_images(n, side, seed):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return (rs.rand(n, 3, side, side).astype(np.float32),
+            rs.randint(0, TRAIN_CLASSES, n).astype(np.float32))
+
+
+def phase_zoo(mx, ck):
+    """AlexNet, VGG-16, Inception-BN and Inception-v3 (1000 classes, 224 x
+    224, Inception-v3 299 x 299) through Module.fit on gpu(0): after
+    mx.random.seed(SEED) the module binds, its Xavier weights are drawn
+    on the card by the uniform kernel (one launch a weight), and it fits
+    ZOO_STEPS batches of ZOO_BATCH (ZOO_SGD, telemetry on): img/s without
+    the first batch, launches per step (1 softmax, 1 CE backward, 1
+    sgd_mom_multi, and AlexNet's and VGG's 2 Dropouts), a finite loss,
+    moved weights; the Dropout masks under the module's key chain, bit
+    for bit the plain version's (on the CPU too); the device-busy share
+    of 2 more steps. Then one step of each at ZOO_PARITY_BATCH card vs
+    CPU from the same parameters and seed, TF32 off (phase 6's rule).
+    Returns the launches of the fits and the initializations."""
+    import numpy as np
+    import torch
+    counts = {}
+    for label, module, kw, side, parity_side in ZOO:
+        print(_tf32(True) + f" (PyTorch's default, for the {label} fit)")
+        t0 = time.perf_counter()
+        sym = _zoo_symbol(module, kw)
+        X, y = _zoo_images(ZOO_BATCH * ZOO_STEPS, side, SEED)
+        it = mx.io.NDArrayIter(X, y, batch_size=ZOO_BATCH)
+        mx.random.seed(SEED)
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        mod.bind(it.provide_data, it.provide_label)
+        ck.reset_launch_counts()
+        mod.init_params(mx.initializer.Xavier())
+        n_weights = sum(1 for k in mod.get_params()[0]
+                        if k.endswith("weight"))
+        inits = ck.launch_counts()["uniform"]
+        print(f"zoo {label}: {n_weights} weights drawn on the card, "
+              f"{inits} uniform launches")
+        if inits != n_weights:
+            raise AssertionError(f"zoo {label}: {inits} uniform launches "
+                                 f"for {n_weights} weights")
+        counts["uniform"] = counts.get("uniform", 0) + inits
+        mod.init_optimizer(optimizer_params=ZOO_SGD)
+        step_key = mod._step_key
+        names = list(mod.get_params()[0])
+        with _dropout_tap(ck) as seen:
+            # two timed batches of a host-bound net: the telemetry span's
+            # rate and the script's differ by more than MFU_RTOL there
+            # (Inception-BN +10.4 %), so the rate is printed, not held
+            fit_counts, per_step = _fit_phase(
+                mx, ck, mod, it, f"zoo {label}", ZOO_BATCH, "img",
+                (names[0], names[-1]), mfu_gate=False)
+        drops = sum(1 for n in sym._topo_nodes()
+                    if not n.is_variable and n.op == "Dropout")
+        want = {"softmax": 1, "softmax_ce_bwd": 1, "sgd_mom_multi": 1,
+                "dropout": drops}
+        got = {k: per_step.get(k, 0) for k in want}
+        print(f"zoo {label}: Dropout launches a step {got['dropout']}")
+        if got != want or any(v for k, v in per_step.items()
+                              if k not in want):
+            raise AssertionError(f"zoo {label}: launches per step "
+                                 f"{per_step}, want {want}")
+        _check_dropout_chain(ck, f"zoo {label}", sym, step_key, seen,
+                             ZOO_STEPS, 1)
+        del seen
+        for k, v in fit_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        phase_train_profile(mod, it, steps=2, label=f"zoo {label} profile")
+        del mod, it
+        torch.cuda.empty_cache()
+        print(f"zoo {label}: fit phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        print(_tf32(False) + f" (the {label} parity step)")
+        Xp, yp = _zoo_images(ZOO_PARITY_BATCH, parity_side, SEED + 1)
+        init = mx.mod.Module(sym, context=mx.cpu())
+        init.bind([("data", Xp.shape)], [("softmax_label", yp.shape)])
+        init.init_params(mx.initializer.Xavier(
+            rng=torch.Generator().manual_seed(SEED)))
+        args, auxs = ({k: v.asnumpy() for k, v in d.items()}
+                      for d in init.get_params())
+        with _deterministic():
+            _step_parity(mx, sym, args, auxs, Xp, yp, f"zoo {label} parity",
+                         seed=SEED, sgd=ZOO_SGD)
+        print(f"zoo {label}: parity step took "
+              f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_lm_dropout(mx, ck):
+    """The bench LM with dropout=LM_DROPOUT (two Dropouts a layer, 16)
+    through Module.fit on gpu(0), LM_DROPOUT_STEPS batches in float32,
+    bfloat16 and float16 (compute_dtype): tokens/s, launches per step
+    (LM_PER_STEP plus 16 Dropouts, the 16-bit paths' instances), the
+    masks under the module's key chain bit for bit the plain version's
+    on the card (the first step's first on the CPU too), the
+    device-busy share of 2 more steps (float32). Returns the fits'
+    launch counts."""
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(True) + " (PyTorch's default, for the LM Dropout fits)")
+    counts = {}
+    sym = tfm.get_symbol(vocab_size=V, d_model=D, n_layer=N_LAYER,
+                         n_head=N_HEAD, seq_len=LM_SEQ, dropout=LM_DROPOUT)
+    drops = 2 * N_LAYER
+    for dtype in ("float32", "bfloat16", "float16"):
+        t0 = time.perf_counter()
+        it = tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, LM_DROPOUT_STEPS,
+                                 seed=SEED)
+        mx.random.seed(SEED)
+        mod = mx.mod.Module(sym, context=mx.gpu(0),
+                            compute_dtype=None if dtype == "float32"
+                            else dtype)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(mx.initializer.Xavier(
+            rng=torch.Generator().manual_seed(SEED)))
+        mod.init_optimizer(optimizer="sgd", optimizer_params=LM_SGD)
+        step_key = mod._step_key
+        label = f"lm dropout {dtype}"
+        with _dropout_tap(ck) as seen:
+            # two timed batches: the MFU rate is printed, not held (as in
+            # phase 53)
+            fit_counts, per_step = _fit_phase(
+                mx, ck, mod, it, label, LM_BATCH * LM_SEQ, "tokens",
+                ("lm_tok_embed_weight", "lm_ln_f_gamma"), mfu_gate=False)
+        base = LM_PER_STEP if dtype == "float32" else \
+            _halved(LM_BF16_PER_STEP, dtype)
+        name = "dropout" + ("" if dtype == "float32"
+                            else "_" + HALF_SFX[dtype])
+        want = {k: base.get(k, 0) for k in per_step}
+        want[name] = drops
+        print(f"{label}: Dropout launches a step {per_step.get(name)}")
+        if per_step != want:
+            raise AssertionError(f"{label}: launches per step {per_step}, "
+                                 f"want {want}")
+        _check_dropout_chain(ck, label, sym, step_key, seen,
+                             LM_DROPOUT_STEPS, drops * LM_DROPOUT_STEPS)
+        del seen
+        for k, v in fit_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        if dtype == "float32":
+            phase_train_profile(mod, it, steps=2, label=f"{label} profile")
+        del mod, it
+        torch.cuda.empty_cache()
+        print(f"{label}: took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+class _PhaseClock:
+    """Prints, on a line of its own, the seconds since the last call (or
+    since it was made) under the phase's name."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, label):
+        now = time.perf_counter()
+        print(f"chip_smoke: phase {label} took {now - self.t:.1f} s")
+        self.t = now
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7076,117 +7509,150 @@ def main():
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
     t_start = time.perf_counter()
+    tick = _PhaseClock()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     smi = phase_build(ck)
+    tick("1 (build)")
     rec = phase_kernels(mx, ck)
+    tick("2 (kernels)")
     serve_counts, sym, params, prompts = phase_serve(mx, ck)
+    tick("3 (serve)")
     phase_profile(mx, sym, params)
+    tick("4 (decode profile)")
     train_counts, train_mod, train_it, sgd_per_array = phase_train(mx, ck)
+    tick("5 (ResNet-50 fit)")
     phase_train_parity(mx)
+    tick("6 (ResNet-50 parity)")
     adam_counts = phase_adam(mx, ck)
+    tick("7 (Adam)")
     phase_train_profile(train_mod, train_it)
+    tick("8 (ResNet-50 profile)")
     del train_mod, train_it
     lm_counts, lm_mod, lm_it = phase_lm_train(mx, ck)
+    tick("9 (LM fit)")
     phase_lm_parity(mx)
+    tick("10 (LM parity)")
     phase_train_profile(lm_mod, lm_it, label="lm profile",
                         gemm_flops=_lm_gemm_flops())
+    tick("11 (LM profile)")
     del lm_mod, lm_it
     torch.cuda.empty_cache()
     q_mod, quant_counts, q_servers, float_outs = phase_quant_serve(mx, ck)
+    tick("12 (quantized serving)")
     phase_quant_parity(mx, q_mod, q_servers)
+    tick("13 (quantized parity)")
     phase_quant_profile(q_servers)
     phase_quant_hoist(mx, ck, q_mod)
+    tick("14 (quantized profile, prologue A/B)")
     cbr_counts = phase_fused_train(mx, ck)
+    tick("15 (fused fit)")
     phase_fused_parity(mx, ck)
+    tick("16 (fused parity)")
     cbr_serve_counts, f_server = phase_fused_serve(mx, ck, q_mod, float_outs)
+    tick("17 (fused serving)")
     phase_fused_profile(mx, f_server, q_servers["float32"])
+    tick("18 (fused profile)")
     bf16_counts, bf16_mods = phase_bf16_train(mx, ck)
+    tick("24 (bfloat16 ResNet-50 fit)")
     phase_bf16_parity(mx)
+    tick("25 (bfloat16 parity)")
     bf16_serve_counts, bf16_servers = phase_bf16_serve(mx, ck, q_mod,
                                                        float_outs)
+    tick("26 (bfloat16 serving)")
     phase_bf16_profile(bf16_mods, bf16_servers)
+    tick("27 (bfloat16 profile)")
     del bf16_mods
-    t_f16 = time.perf_counter()
     f16_counts, f16_mods = phase_bf16_train(mx, ck, "float16")
     del f16_mods
+    tick("38 (float16 ResNet-50 fit)")
     phase_bf16_parity(mx, "float16")
+    tick("39 (float16 parity)")
     f16_serve_counts, f16_servers = phase_bf16_serve(mx, ck, q_mod,
                                                      float_outs, "float16")
+    tick("40 (float16 serving)")
     quant_half_counts = phase_quant_half(mx, ck, q_mod)
-    print(f"chip_smoke: the float16 ResNet-50 and quantized half phases "
-          f"took {time.perf_counter() - t_f16:.1f} s")
+    tick("41 (quantized 16-bit)")
     for server in list(q_servers.values()) + [f_server] + \
             list(bf16_servers.values()) + list(f16_servers.values()):
         server.stop()
     mx.telemetry.trace.configure(capacity=1 << 16)
     cpu_ref = _CpuRef(mx, params)
     prefill_sched = phase_prefill(mx, ck, params, cpu_ref)
+    tick("19 (chunked prefill)")
     spec_sched = phase_spec(mx, ck, params, prompts, cpu_ref)
+    tick("20 (speculation)")
     phase_prefix(mx, ck, params)
+    tick("21 (prefix store)")
     fp8_launches = phase_fp8(mx, ck, params, prompts)
+    tick("22 (fp8 cache)")
     phase_fastpath_profile(mx, prefill_sched, spec_sched)
+    tick("23 (fast-path profile)")
     del prefill_sched, spec_sched
     bf16_decode_counts, bf16_scheds, bf16_chains = phase_bf16_decode(
         mx, ck, params, prompts)
+    tick("32 (bfloat16 decode)")
     phase_bf16_fastpaths(mx, ck, params, prompts, bf16_chains, cpu_ref)
+    tick("33 (bfloat16 fast paths)")
     phase_bf16_decode_profile(mx, bf16_scheds)
+    tick("34 (bfloat16 decode profile)")
     del bf16_scheds
-    t_f16 = time.perf_counter()
     f16_decode_counts, f16_scheds, f16_chains = phase_bf16_decode(
         mx, ck, params, prompts, "float16")
     del f16_scheds
+    tick("42 (float16 decode)")
     phase_bf16_fastpaths(mx, ck, params, prompts, f16_chains, cpu_ref,
                          "float16")
-    print(f"chip_smoke: the float16 decode phases took "
-          f"{time.perf_counter() - t_f16:.1f} s")
+    tick("43 (float16 fast paths)")
     torch.cuda.empty_cache()
     user_rec, axpb_launches = phase_rtc(mx)
+    tick("28 (mx.rtc)")
     args50, auxs50, _, _ = _resnet50_start(mx, 2)
     relu_rec, relu_counts = phase_user_op(mx, args50, auxs50)
+    tick("29 (user op)")
     user_rec = {"rtc_axpb": user_rec, **relu_rec}
     phase_custom_op(mx, args50, auxs50)
+    tick("30 (CustomOp)")
     phase_autograd(mx)
+    tick("31 (autograd)")
     del args50, auxs50
     torch.cuda.empty_cache()
-    t_lm = time.perf_counter()
     bf16_lm_counts, lm_mods = phase_lm_bf16_train(mx, ck)
+    tick("35 (bfloat16 LM fit)")
     phase_lm_bf16_parity(mx)
+    tick("36 (bfloat16 LM parity)")
     phase_lm_bf16_profile(mx, lm_mods)
+    tick("37 (bfloat16 LM profile)")
     del lm_mods
-    print(f"chip_smoke: phases 35-37 (LM training in bfloat16) took "
-          f"{time.perf_counter() - t_lm:.1f} s")
-    t_lm = time.perf_counter()
     f16_lm_counts, lm_mods = phase_lm_bf16_train(mx, ck, "float16")
     del lm_mods
-    phase_lm_bf16_parity(mx, "float16")
-    print(f"chip_smoke: the float16 LM training phases took "
-          f"{time.perf_counter() - t_lm:.1f} s")
+    tick("44 (float16 LM fit)")
+    phase_lm_bf16_parity(mx, "float16", n_layer=F16_LM_PARITY_LAYERS,
+                         seq=F16_LM_PARITY_SEQ)
+    tick("45 (float16 LM parity)")
     torch.cuda.empty_cache()
-    t_ring = time.perf_counter()
     ring_counts = {"float32": phase_ring_fit(mx, ck)}
+    tick("46 (ring fit)")
     phase_ring_layer(mx)
+    tick("47 (ring layer)")
     for half in HALF_SFX:
         ring_counts[half] = phase_ring_half(mx, ck, half)
-    print(f"chip_smoke: the sequence-parallel phases took "
-          f"{time.perf_counter() - t_ring:.1f} s")
-    t_frozen = time.perf_counter()
+    tick("48 (16-bit ring fits)")
     frozen_counts = phase_lm_frozen(mx, ck)
-    print(f"chip_smoke: the frozen fine-tuning phase took "
-          f"{time.perf_counter() - t_frozen:.1f} s")
-    t_dh32 = time.perf_counter()
+    tick("49 (frozen fine-tuning)")
     dh32_counts = phase_headdim32(mx, ck, params, prompts)
-    print(f"chip_smoke: the head-dim-32 phase took "
-          f"{time.perf_counter() - t_dh32:.1f} s")
-    t_dh = time.perf_counter()
+    tick("50 (head dim 32)")
     headdim_counts = phase_headdims(mx, ck, prompts)
-    print(f"chip_smoke: the head-dims phase took "
-          f"{time.perf_counter() - t_dh:.1f} s")
-    t_refused = time.perf_counter()
+    tick("51 (head dims)")
     refused_counts = phase_refused_inputs(mx, ck, prompts, params, cpu_ref,
                                           q_mod)
-    print(f"chip_smoke: phase 52 (inputs the card refused) took "
-          f"{time.perf_counter() - t_refused:.1f} s")
+    tick("52 (inputs the card refused)")
+    del q_mod
+    torch.cuda.empty_cache()
+    zoo_counts = phase_zoo(mx, ck)
+    tick("53 (AlexNet, VGG-16, Inception-BN, Inception-v3)")
+    lm_drop_counts = phase_lm_dropout(mx, ck)
+    tick("54 (the LM with Dropout)")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -7212,9 +7678,10 @@ def main():
             "" if dtype == "float32" else "_" + HALF_SFX[dtype])
         launches[name] = counts[name]
     launches.update(frozen_counts)
-    for counts in (dh32_counts, headdim_counts, refused_counts):
+    for counts in (dh32_counts, headdim_counts, refused_counts, zoo_counts,
+                   lm_drop_counts):
         for k, n in counts.items():
-            launches[k] += n
+            launches[k] = launches.get(k, 0) + n
     # the per-array kernels' launches: a caller's own Updater(i, g, w)
     # loop (phases 5 and 7), the path Module.update no longer takes
     launches["sgd_mom"] = sgd_per_array

@@ -21,11 +21,16 @@ surfaces: ``mx.rtc.Rtc`` and ``mx.rtc.register_cuda_op`` (the user's
 own CUDA kernels), ``mx.operator.CustomOp`` (a Python layer) and
 ``mx.autograd`` (imperative gradients), and sequence-parallel LM
 training (``fit(spmd=True, mesh=parallel.MeshConfig(seq=n))``: ring
-attention over a mesh of one device's contexts, ``parallel/``). The TPU
+attention over a mesh of one device's contexts, ``parallel/``), and
+``mx.random`` (the JAX package's threefry2x32 key chain: ``seed``, the
+samplers, the initializers' draws and ``Dropout``'s masks, the same bits
+on the CPU and the card) with the classifiers that use Dropout, LRN and
+Concat (AlexNet, VGG, Inception-BN, Inception-v3). The TPU
 kernels on those paths are rewritten as CUDA C++ for sm_90a
 (``ops/cuda_kernels.py``, sources under ``csrc/``).
 """
 from . import base
+from . import random
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
 from . import ops  # populates the op registry (before nd/sym autogen)

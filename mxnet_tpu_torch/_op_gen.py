@@ -29,6 +29,9 @@ def _make_ndarray_function(op_name):
                     raise TypeError(f"{op_name}: no input named {k!r}")
                 by_name[names.index(k)] = v
             inputs = [a for a in by_name if a is not None]
+        if callable(opdef._inputs) and "num_args" in opdef.attr_spec \
+                and "num_args" not in params:
+            params["num_args"] = len(inputs)
         return imperative_invoke(op_name, *inputs, out=out, **params)
 
     fn.__name__ = op_name

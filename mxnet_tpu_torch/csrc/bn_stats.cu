@@ -154,27 +154,28 @@ __device__ __forceinline__ void finish(float s, float q, int c0, int gc,
 
 // Planes: block (c, split) sums channel c over rows [split * rows, + rows)
 // of HW = units * V values each, V values a unit (HW % V == 0, x aligned
-// to a unit; units * rows < 2^31 - kLoads * kThreads)
+// to a unit). Offsets and the walk over a split's units are 64-bit: a
+// split may hold more than 2^31 values of its channel.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     bn_stats_planes(const T* __restrict__ x, float* __restrict__ out,
-                    int n, int c, int hw, int rows) {
+                    int n, int c, int64_t hw, int rows) {
   __shared__ float2 red[kWarps], part[1];
   using Raw = typename Io<T, V>::Raw;
   const int ch = blockIdx.x, t = threadIdx.x;
   const int n0 = blockIdx.y * rows;
   const int nr = min(rows, n - n0);
-  const int units = hw / V;  // units a plane
+  const int64_t units = hw / V;  // units a plane
   float s = 0.0f, q = 0.0f;
   if (nr > 0 && units > 0) {
     const T* base = x + (static_cast<int64_t>(n0) * c + ch) * hw;
     const int64_t pitch = static_cast<int64_t>(c) * units;  // units a row
-    const int total = nr * units;
+    const int64_t total = nr * units;
     // unit f = r * units + u: (r, u) of this thread's next unit, moved
     // kThreads units on by (dr, du) with a carry
-    const int dr = kThreads / units, du = kThreads % units;
-    int r = t / units, u = t % units;
-    for (int f0 = t; f0 < total; f0 += kLoads * kThreads) {
+    const int64_t dr = kThreads / units, du = kThreads % units;
+    int64_t r = t / units, u = t % units;
+    for (int64_t f0 = t; f0 < total; f0 += kLoads * kThreads) {
       Raw raw[kLoads];
 #pragma unroll
       for (int k = 0; k < kLoads; ++k) {
@@ -211,6 +212,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     bn_stats_slabs(const T* __restrict__ x, float* __restrict__ out,
                    int n, int c, int hw, int G, int stage_rows, int rows) {
+  // the host takes this route only where G HW fits a stage (< 2^14)
   extern __shared__ __align__(16) uint8_t stage_raw[];
   __shared__ float2 red[kWarps], part[kThreads];
   using Raw = typename Io<T, V>::Raw;
@@ -268,7 +270,9 @@ __global__ void __launch_bounds__(kThreads)
 struct Args {
   const void* x;
   void* out;
-  int n, c, hw, route, vec, group, stage_rows, rows, splits;
+  int n, c;
+  int64_t hw;
+  int route, vec, group, stage_rows, rows, splits;
   cudaStream_t st;
 };
 
@@ -303,9 +307,10 @@ int planes(const Args& a) {
 
 template <typename T, int V>
 int slabs(const Args& a) {
-  const int bytes = a.stage_rows * a.group * a.hw * static_cast<int>(sizeof(T));
+  const int hw = static_cast<int>(a.hw);   // G HW fits a stage
+  const int bytes = a.stage_rows * a.group * hw * static_cast<int>(sizeof(T));
   return launch(a, bn_stats_slabs<T, V>, bytes, static_cast<const T*>(a.x),
-                static_cast<float*>(a.out), a.n, a.c, a.hw, a.group,
+                static_cast<float*>(a.out), a.n, a.c, hw, a.group,
                 a.stage_rows, a.rows);
 }
 
@@ -317,7 +322,6 @@ int run(const Args& a) {
   const bool bad_plan =
       a.n < 0 || a.hw < 0 || a.splits < 1 || a.splits > kMaxSplits ||
       a.rows < 0 || covered < a.n ||
-      static_cast<int64_t>(a.rows) * a.hw + kLoads * kThreads >= (1ll << 31) ||
       (a.vec != 1 && a.vec != kV) ||
       (a.vec > 1 && !mxio::aligned(a.x, 16));
   if (bad_plan) return static_cast<int>(cudaErrorInvalidValue);
@@ -346,7 +350,7 @@ int run(const Args& a) {
 // >= n). Both on one device. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for a plan the kernel does not take).
 #define MX_BN_STATS_ENTRY(NAME, T)                                           \
-  extern "C" int NAME(const void* x, void* out, int n, int c, int hw,       \
+  extern "C" int NAME(const void* x, void* out, int n, int c, long long hw, \
                       int route, int vec, int group, int stage_rows,        \
                       int rows, int splits, void* stream) {                 \
     return run<T>(Args{x, out, n, c, hw, route, vec, group, stage_rows,     \

@@ -166,6 +166,14 @@ struct Args {
 // it (cuda_kernels.head_tile keeps the same rule)
 int head_tile(int dh) { return dh <= 32 ? 32 : (dh <= 64 ? 64 : 128); }
 
+// The query tiles go on the grid's y axis in chunks of its limit, one
+// launch a chunk; a block's tile is y0 + blockIdx.y of the n_qt, counted
+// from the heaviest
+constexpr int kGridY = 65535;
+inline unsigned grid_y(int n_qt, int y0) {
+  return static_cast<unsigned>(n_qt - y0 < kGridY ? n_qt - y0 : kGridY);
+}
+
 // ==========================================================================
 // float32: the CUDA cores
 // ==========================================================================
@@ -446,7 +454,7 @@ __device__ __forceinline__ void emit(
 
 template <int DH, bool PARTIAL>
 __global__ void __launch_bounds__(128, 1)
-    flash_fwd(const Args op, int n_qt) {
+    flash_fwd(const Args op, int n_qt, int y0) {
   using C = Cfg<DH>;
   constexpr int kBq = C::kBq, kBk = C::kBk, kG = C::kG, kR = C::kR;
   constexpr int kKs = C::kKs, kCs = C::kCs, kLd = C::kLd;
@@ -463,7 +471,7 @@ __global__ void __launch_bounds__(128, 1)
   const int Tq = op.Tq, Tk = op.Tk, causal = op.causal, dh = op.dh;
   // blocks start in order of x, then y: every row's heaviest query tile
   // (the most keys under the causal mask) first
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBq;
+  const int q0 = (n_qt - 1 - y0 - static_cast<int>(blockIdx.y)) * kBq;
   const int64_t k_base = static_cast<int64_t>(bh) * Tk * dh;
   const float* qb = static_cast<const float*>(op.q) +
                     static_cast<int64_t>(bh) * Tq * dh;
@@ -554,7 +562,7 @@ __device__ __forceinline__ void stage_cols(const E* __restrict__ src, int r0,
 // first step. One stage, the steps in order between two barriers each.
 template <typename E, bool PARTIAL>
 __global__ void __launch_bounds__(128, 1)
-    flash_wide(const Args op, int n_qt, int groups) {
+    flash_wide(const Args op, int n_qt, int groups, int y0) {
   constexpr int DH = 128;
   using C = Cfg<DH>;
   constexpr int kBq = C::kBq, kBk = C::kBk, kG = C::kG, kR = C::kR;
@@ -570,7 +578,7 @@ __global__ void __launch_bounds__(128, 1)
   const int bh = blockIdx.x / groups;
   const int col0 = (blockIdx.x % groups) * DH;
   const int Tq = op.Tq, Tk = op.Tk, causal = op.causal, dh = op.dh;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBq;
+  const int q0 = (n_qt - 1 - y0 - static_cast<int>(blockIdx.y)) * kBq;
   const int64_t k_base = static_cast<int64_t>(bh) * Tk * dh;
   const E* qb = static_cast<const E*>(op.q) +
                 static_cast<int64_t>(bh) * Tq * dh;
@@ -624,11 +632,15 @@ int launch(const Args& a, cudaStream_t st) {
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (a.Tq + Cfg<DH>::kBq - 1) / Cfg<DH>::kBq;
-  if (n_qt > 65535 || !aligned16(a))
-    return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd<DH, PARTIAL>
-      <<<dim3(a.bh, n_qt), Cfg<DH>::kThreads, bytes, st>>>(a, n_qt);
-  return static_cast<int>(cudaGetLastError());
+  if (!aligned16(a)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int y0 = 0; y0 < n_qt; y0 += kGridY) {
+    flash_fwd<DH, PARTIAL>
+        <<<dim3(a.bh, grid_y(n_qt, y0)), Cfg<DH>::kThreads, bytes, st>>>(
+            a, n_qt, y0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 template <typename E, bool PARTIAL>
@@ -643,11 +655,14 @@ int launch_wide(const Args& a, cudaStream_t st) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (a.Tq + C::kBq - 1) / C::kBq;
   const int groups = (a.dh + 127) / 128;
-  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  flash_wide<E, PARTIAL>
-      <<<dim3(static_cast<unsigned>(a.bh) * groups, n_qt), C::kThreads,
-         bytes, st>>>(a, n_qt, groups);
-  return static_cast<int>(cudaGetLastError());
+  for (int y0 = 0; y0 < n_qt; y0 += kGridY) {
+    flash_wide<E, PARTIAL>
+        <<<dim3(static_cast<unsigned>(a.bh) * groups, grid_y(n_qt, y0)),
+           C::kThreads, bytes, st>>>(a, n_qt, groups, y0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace cc
@@ -966,7 +981,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_tc(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v, const Args op,
-             int n_qt) {
+             int n_qt, int y0) {
   using C = Cfg<DH>;
   constexpr int kBk = C::kBk;
   constexpr int kS = kBk / 2;   // S registers a thread (m64 x kBk)
@@ -983,7 +998,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_empty = smem_u32(&bars[1 + kStages]);   // + 8 s
 
   const int bh = blockIdx.x;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBq;
+  const int q0 = (n_qt - 1 - y0 - static_cast<int>(blockIdx.y)) * kBq;
   const int Tq = op.Tq, Tk = op.Tk, causal = op.causal;
   const float scale = op.scale;
   // key kp is live for query qp when kp <= qp + shift (causal); key
@@ -1226,8 +1241,7 @@ int launch(const Args& a, cudaStream_t st) {
   using C = Cfg<DH>;
   constexpr int bytes = C::kSmem;
   const int n_qt = (a.Tq + kBq - 1) / kBq;
-  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       flash_tc<E, DH, PARTIAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1240,9 +1254,14 @@ int launch(const Args& a, cudaStream_t st) {
       !tile_map<E>(&mk, k, a.bh, tk, a.dh, C::kBk) ||
       !tile_map<E>(&mv, v, a.bh, tk, a.dh, C::kBk))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_tc<E, DH, PARTIAL><<<dim3(a.bh, n_qt), kThreads, bytes, st>>>(
-      mq, mk, mv, a, n_qt);
-  return static_cast<int>(cudaGetLastError());
+  for (int y0 = 0; y0 < n_qt; y0 += kGridY) {
+    flash_tc<E, DH, PARTIAL>
+        <<<dim3(a.bh, grid_y(n_qt, y0)), kThreads, bytes, st>>>(
+            mq, mk, mv, a, n_qt, y0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace tc

@@ -22,6 +22,14 @@ card a forward (a conv whose weight the graph computes dequantizes its own,
 one launch), and all of the forward's float32 conv weights exist together
 until the forward ends.
 
+Randomness (the JAX package's runner): a forward draws one key from
+``mx.random`` (``next_key()``; a module's training step hands its own
+chain's key to ``forward_with_key``), and node i of the node list,
+variables counted, whose op needs randomness (``OpDef.need_rng``:
+Dropout, the samplers) runs under ``mx.random.fold_in(key, i)``; every
+other op gets None. A backward reuses what the forward drew: Dropout's
+mask is its hidden output, and its gradient multiplies by it.
+
 Training: ``forward(is_train=True)`` records autograd. Every argument
 whose ``grad_req`` is not ``"null"`` enters the graph as a leaf that
 shares its cell's storage; ``backward(out_grads)`` seeds ones for loss
@@ -59,6 +67,7 @@ import weakref
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .ndarray import NDArray, to_torch_dtype
 from .ops.registry import dispatch, dispatch_prepared, run_prologue
@@ -216,8 +225,17 @@ class Executor:
     def forward(self, is_train=False, **kwargs):
         """Run the graph once. Keyword NDArrays/arrays overwrite the named
         argument cells first. ``is_train=True`` records autograd for a
-        following ``backward()`` and writes the new aux values back.
+        following ``backward()`` and writes the new aux values back. The
+        forward draws one key from ``mx.random`` (``forward_with_key``).
         Returns ``outputs``."""
+        return self.forward_with_key(_random.next_key(), is_train, **kwargs)
+
+    def forward_with_key(self, key, is_train=False, **kwargs):
+        """``forward`` with ``key`` as the forward's random key: node i of
+        the node list, variables counted, whose op needs randomness runs
+        under ``mx.random.fold_in(key, i)``, as the JAX package's runner
+        folds it. A module's training step passes its own chain's key;
+        ``backward()`` reuses what the forward drew (Dropout's mask)."""
         for name, val in kwargs.items():
             cell = self.arg_dict.get(name)
             if cell is None:
@@ -235,7 +253,7 @@ class Executor:
                         .requires_grad_(True)
         with torch.set_grad_enabled(bool(leaves)), \
                 plan_scope(self._spmd_plan):
-            outs = self._run(bool(is_train), leaves)
+            outs = self._run(bool(is_train), leaves, key)
         self.outputs = [NDArray(o.detach(), ctx=self._ctx) for o in outs]
         if leaves:
             self._recorded = (outs, leaves)
@@ -267,7 +285,7 @@ class Executor:
                        t._version, cast)
         return cast
 
-    def _run(self, is_train, leaves):
+    def _run(self, is_train, leaves, key):
         values = {}
         for node in self._nodes:
             if node.is_variable:
@@ -285,10 +303,12 @@ class Executor:
             groups = [tuple(values[id(node.inputs[i][0])][0] for i in pos)
                       for node in nodes]
             prepared.update(zip(map(id, nodes), run_prologue(opdef, groups)))
-        for node in self._nodes:
+        device = self._ctx.torch_device()
+        for i, node in enumerate(self._nodes):
             if node.is_variable:
                 continue
             opdef = node.opdef()
+            rng = _random.fold_in(key, i) if opdef.need_rng else None
             ins = [values[id(inp)][idx] for inp, idx in node.inputs]
             n_aux = len(opdef.aux_names(node.attrs))
             regular = ins[:len(ins) - n_aux] if n_aux else ins
@@ -299,12 +319,12 @@ class Executor:
                     is_train, None)
             else:
                 outs, new_aux = dispatch(opdef, node.attrs, regular, aux,
-                                         is_train, None)
+                                         is_train, rng, device)
             if not ins:
                 # a source op (``_arange``: the learned positions' ids)
-                # makes its tensor on the host; it belongs on the bound
-                # device with everything that reads it
-                outs = [o.to(self._ctx.torch_device()) for o in outs]
+                # makes its tensor on the host, a sampler on the bound
+                # device; it belongs there with everything that reads it
+                outs = [o.to(device) for o in outs]
             if n_aux and (is_train or opdef.stateful_infer):
                 for (inp, _), new in zip(node.inputs[len(ins) - n_aux:],
                                          new_aux):

@@ -4,17 +4,23 @@ An Initializer is called as ``init(name, arr)`` and routes on the
 parameter name: ``*bias`` and ``*beta`` -> 0, ``*gamma`` -> 1,
 ``*moving_mean`` -> 0, ``*moving_var`` -> 1, ``*weight`` -> the class's
 own rule (``_init_weight``); any other name raises. Random draws come
-from an explicit ``torch.Generator`` on the CPU (``rng``; by default one
-seeded with 0 per initializer), then move to the array's device, so the
-card and the CPU start from the same values. The draws differ from the
-JAX package's (another generator): a test that compares the two packages
-carries the parameters across (``convert.py``).
+from the ``mx.random`` chain, one ``next_key()`` a weight, in the JAX
+package's arithmetic: after the same ``mx.random.seed`` and the same
+order of calls (``Module.init_params`` goes by sorted name, as the JAX
+package's does) both packages hold the same initial weights, uniform
+draws bit for bit and the standard normal ones within 1e-5 of max(1,
+|value|) (``erfinv`` is not XLA's polynomial). A weight on the card is
+drawn there by the threefry kernel (``cuda_kernels.uniform``), one
+launch, with the same bits as on the CPU. ``rng``, a
+``torch.Generator``, draws from that generator on the CPU instead (then
+moved to the weight's device) and leaves the chain alone.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import random as _random
 from .ndarray import NDArray
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
@@ -25,8 +31,21 @@ class Initializer:
     """Base: route by parameter name."""
 
     def __init__(self, rng=None):
-        self.rng = rng if rng is not None else \
-            torch.Generator().manual_seed(0)
+        self.rng = rng
+
+    def _draw(self, arr, transform, scale=1.0):
+        """float32 draws of ``arr``'s shape, standard normal or uniform in
+        [-scale, scale): from ``rng`` when given, else under
+        ``next_key()`` where ``arr`` lies (the uniform kernel on the
+        card)."""
+        shape = tuple(arr.shape)
+        if self.rng is not None:
+            if transform == _random.NORMAL:
+                return torch.randn(shape, generator=self.rng)
+            return (2 * torch.rand(shape, generator=self.rng) - 1) * scale
+        from .ops.cuda_kernels import uniform
+        return uniform(_random.next_key(), shape, -scale, scale, transform,
+                       arr.astorch().device)
 
     def __call__(self, name, arr):
         if not isinstance(name, str):
@@ -83,8 +102,7 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, _, arr):
-        u = torch.rand(arr.shape, generator=self.rng)
-        arr.astorch().copy_((2 * u - 1) * self.scale)
+        arr.astorch().copy_(self._draw(arr, _random.UNIFORM, self.scale))
 
 
 class Normal(Initializer):
@@ -95,8 +113,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, _, arr):
-        arr.astorch().copy_(
-            self.sigma * torch.randn(arr.shape, generator=self.rng))
+        arr.astorch().copy_(self.sigma * self._draw(arr, _random.NORMAL))
 
 
 class Xavier(Initializer):
@@ -124,9 +141,9 @@ class Xavier(Initializer):
                   "out": fan_out}[self.factor_type]
         scale = float(np.sqrt(self.magnitude / factor))
         if self.rnd_type == "uniform":
-            val = (2 * torch.rand(shape, generator=self.rng) - 1) * scale
+            val = self._draw(arr, _random.UNIFORM, scale)
         else:
-            val = scale * torch.randn(shape, generator=self.rng)
+            val = scale * self._draw(arr, _random.NORMAL)
         arr.astorch().copy_(val)
 
 

@@ -64,10 +64,12 @@ def _proj(x, num_hidden, name, no_bias=False):
 
 
 def _block(x, *, i, seq_len, d_model, n_head, pos_embed, rope_base, name,
-           decode=False, capacity=None, per_slot=False, cache_dtype=None):
+           dropout=0.0, decode=False, capacity=None, per_slot=False,
+           cache_dtype=None):
     """One pre-LN transformer block; ``decode=True`` swaps the full
     ``attention`` for the KV-cache ``attention_decode`` (same parameter
-    names either way)."""
+    names either way). ``dropout`` > 0 puts a ``Dropout`` after the
+    attention projection and after the FFN, before each residual add."""
     pfx = f"{name}_l{i}"
     dh = d_model // n_head
     T = seq_len
@@ -99,6 +101,8 @@ def _block(x, *, i, seq_len, d_model, n_head, pos_embed, rope_base, name,
     proj = sym.FullyConnected(att, num_hidden=d_model, name=f"{pfx}_proj")
     proj = sym.Reshape(proj, shape=(-1, T, d_model),
                        name=f"{pfx}_proj_unfold")
+    if dropout:
+        proj = sym.Dropout(proj, p=dropout, name=f"{pfx}_drop1")
     x = x + proj
 
     ln2 = sym.LayerNorm(x, name=f"{pfx}_ln2")
@@ -108,6 +112,8 @@ def _block(x, *, i, seq_len, d_model, n_head, pos_embed, rope_base, name,
     h = sym.FusedBiasGeLU(h, name=f"{pfx}_ffn_gelu")
     h = sym.FullyConnected(h, num_hidden=d_model, name=f"{pfx}_ffn2")
     h = sym.Reshape(h, shape=(-1, T, d_model), name=f"{pfx}_ffn_unfold")
+    if dropout:
+        h = sym.Dropout(h, p=dropout, name=f"{pfx}_drop2")
     return x + h
 
 
@@ -156,10 +162,7 @@ def get_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
     ``SoftmaxOutput`` head (named ``softmax``, ``normalization`` as
     given) over the logits ``(B*seq_len, vocab)`` of the tied embedding.
     ``include_loss=False`` returns the logits ``(B, seq_len, vocab)``.
-    ``dropout`` > 0 raises: ``Dropout`` is not ported yet."""
-    if dropout:
-        raise MXNetError("get_symbol: dropout > 0 needs the Dropout op, "
-                         "which is not ported yet; use dropout=0")
+    ``dropout`` > 0 adds the two Dropouts of each block."""
     _validate(d_model, n_head, pos_embed)
     max_seq_len = max_seq_len or seq_len
     T = seq_len
@@ -170,7 +173,8 @@ def get_symbol(vocab_size=256, d_model=64, n_layer=2, n_head=4,
                max_seq_len=max_seq_len, name=name)
     for i in range(n_layer):
         x = _block(x, i=i, seq_len=T, d_model=d_model, n_head=n_head,
-                   pos_embed=pos_embed, rope_base=rope_base, name=name)
+                   dropout=dropout, pos_embed=pos_embed,
+                   rope_base=rope_base, name=name)
     x = sym.LayerNorm(x, name=f"{name}_ln_f")
     flat = sym.Reshape(x, shape=(-3, 0), name=f"{name}_head_fold")
     # tied-embedding head: logits = x @ E^T over the SAME variable the

@@ -155,9 +155,11 @@ class DataParallelExecutorGroup:
                         f"does not match the bound {cell.shape}")
                 cell.astorch().copy_(src)
 
-    def forward(self, data_batch, is_train=None):
+    def forward(self, data_batch, is_train=None, key=None):
         """Load the batch's data (and labels, which loss heads read) into
-        the bound input cells, on the bound device, and run."""
+        the bound input cells, on the bound device, and run: under
+        ``key`` (the module's training chain) when given, else under a
+        key the executor draws from ``mx.random``."""
         if is_train is None:
             is_train = self.for_training
         if is_train and not self.for_training:
@@ -173,7 +175,10 @@ class DataParallelExecutorGroup:
                     else torch.as_tensor(arr)
                 dst._set(src.to(device=dst.astorch().device,
                                 dtype=dst.astorch().dtype))
-        self.executor.forward(is_train=bool(is_train))
+        if key is None:
+            self.executor.forward(is_train=bool(is_train))
+        else:
+            self.executor.forward_with_key(key, is_train=bool(is_train))
 
     def backward(self, out_grads=None):
         if not self.for_training:

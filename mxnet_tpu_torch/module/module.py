@@ -10,7 +10,15 @@ launch on the card, with the per-index lr and wd of the per-index path.
 The JAX package fuses forward, backward and update into one jitted step
 on a single device; PyTorch runs eagerly and there is no program to
 fuse, so the port keeps the updater's states and counts, which compute
-the same numbers.
+the same numbers. It keeps the fused step's random chain: where the JAX
+package arms that step (SGD or Adam, a training binding whose gradient
+requests are ``"write"`` or ``"null"`` and that wants no input
+gradients), ``init_optimizer`` draws one ``mx.random.next_key()``, and
+each ``forward_backward`` splits it and runs the forward under the second
+half; a ``mx.random.seed()`` since the last step draws the chain again.
+So after the same seed a fit draws the JAX package's Dropout masks step by
+step. Elsewhere every forward draws ``next_key()``, as the JAX package's
+unfused path does.
 
 ``spmd=True`` (``bind``, ``fit`` or ``MXNET_SPMD=1``) binds a context
 list as one ``parallel.SpmdPlan`` over the mesh ``mesh`` (a
@@ -30,6 +38,7 @@ import os
 import pickle
 
 from .. import optimizer as opt
+from .. import random as _random
 from ..base import MXNetError
 from ..context import current_context
 from ..executor import parse_compute_dtype
@@ -80,6 +89,8 @@ class Module(BaseModule):
         self._aux_params = None
         self._optimizer = None
         self._updater = None
+        self._step_key = None           # the training step's key chain
+        self._step_gen = None
         self._preload_opt_states = None
         self._spmd = None               # None -> MXNET_SPMD at bind time
         self._mesh_config = None        # parallel.MeshConfig (spmd mode)
@@ -274,6 +285,14 @@ class Module(BaseModule):
             raise TypeError("optimizer must be a name or an Optimizer")
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        group = self._exec_group
+        self._step_key = None
+        if isinstance(optimizer, (opt.SGD, opt.Adam)) and \
+                group.for_training and not group.inputs_need_grad and \
+                all(r in ("write", "null") for r in group.grad_req.values()):
+            # the JAX package's fused step: its key chain, drawn once here
+            self._step_key = _random.next_key()
+            self._step_gen = _random.generation()
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -283,6 +302,20 @@ class Module(BaseModule):
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
         self._exec_group.forward(data_batch, is_train)
+
+    def forward_backward(self, data_batch):
+        """A training forward and its backward. Where the JAX package
+        would run its fused step, the forward's key is the next of the
+        step's own chain (see the module docstring)."""
+        assert self.binded and self.params_initialized
+        key = None
+        if self.optimizer_initialized and self._step_key is not None:
+            if self._step_gen != _random.generation():
+                self._step_key = _random.next_key()
+                self._step_gen = _random.generation()
+            self._step_key, key = _random.split(self._step_key)
+        self._exec_group.forward(data_batch, True, key=key)
+        self.backward()
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized

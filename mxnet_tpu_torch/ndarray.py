@@ -29,6 +29,7 @@ import struct
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .context import Context, context_of, current_context
 from .ops.registry import dispatch, get_op
@@ -377,7 +378,9 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
     declares ``mutate_inputs`` (the optimizer updates) has output k
     written into the handle of input ``mutate_inputs[k]``; its CUDA
     kernel updates that tensor in place, so the write is the same tensor
-    there. Inside ``autograd.train_section()`` the op runs with
+    there. An op that needs randomness (Dropout, the samplers) draws one
+    ``mx.random.next_key()`` a call; an op with no input (a sampler) runs
+    on the current context. Inside ``autograd.train_section()`` the op runs with
     ``is_train=True`` and records autograd history (an op that updates
     its inputs records none); elsewhere with ``is_train=False`` under
     ``torch.no_grad()``."""
@@ -393,9 +396,10 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
     regular, aux = (arrs[:len(arrs) - aux_n], arrs[len(arrs) - aux_n:]) \
         if aux_n else (arrs, [])
     is_train = autograd.is_training()
+    rng = _random.next_key() if opdef.need_rng else None
     with _grad_scope(mutates=bool(opdef.mutate_inputs)):
         outputs, new_aux = dispatch(opdef, attrs, regular, aux, is_train,
-                                    None)
+                                    rng, ctx.torch_device())
     for mname, new_val in zip(opdef.mutate_inputs, outputs):
         handle = inputs[in_names.index(mname)]
         if isinstance(handle, NDArray):

@@ -296,6 +296,20 @@ def _ew(flops_per_elem, reads=1, writes=1):
     return flops, nbytes
 
 
+def _sampler(flops_per_elem):
+    """A sampler: no input, the ``shape`` attr's elements written; k
+    floating-point operations an element (the threefry hash is integer
+    work and is not counted). The JAX package's table has no entry for
+    the samplers; the port gives every registered op one."""
+    def flops(attrs, in_shapes):
+        return flops_per_elem * _prod(parse_tuple(attrs.get("shape", ())))
+
+    def nbytes(attrs, in_shapes):
+        return _B * _prod(parse_tuple(attrs.get("shape", ())))
+
+    return flops, nbytes
+
+
 def _move():
     """Pure data movement: 0 FLOPs, in+out bytes."""
     def flops(attrs, in_shapes):
@@ -400,6 +414,13 @@ _SPECIFIC = {
     "IdentityAttachKLSparseReg": _ew(6.0),
     "add_n": (lambda attrs, s: float(max(0, len(s) - 1)) * _elems(s),
               lambda attrs, s: _B * (_sum_elems(s) + _elems(s))),
+    "_random_uniform": _sampler(2.0),
+    "_random_normal": _sampler(12.0),       # erfinv ≈ a dozen ops
+    "_random_exponential": _sampler(4.0),
+    "_random_gamma": _sampler(20.0),
+    "_random_poisson": _sampler(20.0),
+    "_random_negative_binomial": _sampler(40.0),
+    "_random_generalized_negative_binomial": _sampler(40.0),
 }
 
 _UNARY_1FLOP = {

@@ -1,12 +1,15 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` (and of
-``rtc.py``'s flash-attention kernel). Nineteen kernels, each in a CUDA
-C++ source under ``mxnet_tpu_torch/csrc/`` (the flash-attention forward
-and its partial mode share one source and one library, as each update's
-and the conv-weight dequant's one-array and multi-tensor kernels do; the
-LayerNorm backward's three wrappers launch one kernel, with one half off
-or none):
+``rtc.py``'s flash-attention kernel), and the threefry2x32 random bits
+that the JAX package draws through XLA. Twenty-one kernels, each in a
+CUDA C++ source under ``mxnet_tpu_torch/csrc/`` (the flash-attention
+forward and its partial mode share one source and one library, as each
+update's and the conv-weight dequant's one-array and multi-tensor kernels
+do, and Dropout and the uniform draws; the LayerNorm backward's three
+wrappers launch one kernel, with one half off or none; the decode read is
+four libraries, its tiles by cache type and its general route, which all
+count as ``decode_attention``):
 
 ===========================  ==================================================  ===================
 wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)          source
@@ -32,6 +35,8 @@ wrapper                      replaces (mxnet_tpu/ops/pallas_kernels.py)         
 ``dequant_rows_multi``       ``_dequant_rows_kernel`` over a forward's weights   dequant_rows.cu
 ``bn_stats``                 ``_bn_stats_kernel`` (``_pl_channel_stats``)        bn_stats.cu
 ``bn_apply_relu``            ``_bn_apply_relu_kernel`` (``_pl_apply_bn_relu``)   bn_apply_relu.cu
+``dropout``                  no TPU kernel: Dropout's ``jax.random.bernoulli``   threefry.cu
+``uniform``                  no TPU kernel: ``jax.random.uniform`` (samplers)    threefry.cu
 ===========================  ==================================================  ===================
 
 The first four serve the decode path. Each wrapper launches the instance
@@ -72,7 +77,11 @@ path; ``qfc_matmul`` and ``dequant_rows`` serve the quantized tiers
 (``QuantizedFullyConnected`` and ``QuantizedConvolution``), each with one
 C entry point per weight storage type (int8, float8_e4m3fn); the last two
 are the BatchNorm-and-ReLU half of ``FusedConvBNReLU``, in training and
-inference. Each source carries a note on what
+inference. ``dropout`` (float32, bfloat16 and float16 instances) is the
+``Dropout`` op's forward in training, mask and output in one launch under
+the node's ``mx.random`` key; ``uniform`` (float32) draws the samplers'
+and the initializers' values on the card, the same bits as
+``mx.random``'s plain versions on the CPU, as the JAX package's. Each source carries a note on what
 bounds it on the card and what its design does about that. Beside each wrapper sits its
 plain PyTorch version (``*_plain``), which computes the same function the
 way the TPU kernel does; the CPU tests hold it against the JAX package,
@@ -142,11 +151,13 @@ from torch.autograd.graph import increment_version
 from ..base import MXNetError, parse_bool, parse_float
 from .loss import softmax_ce_grad, softmax_output, softmax_rows
 from .nn import _INV_SQRT2, _convolution as nn_convolution, \
-    bias_gelu as nn_bias_gelu, cbr_plain, momentum_update, weak_scalar
+    bias_gelu as nn_bias_gelu, cbr_plain, dropout_mask_value, \
+    dropout_plain, momentum_update, weak_scalar
 from .optimizer_op import adam_step, sgd_mom_step
 from .quant import dequantize, qfc_matmul_plain
 from .registry import get_op
-from .tensor import embedding_lookup
+from .tensor import embedding_lookup, sample as tensor_sample
+from .. import random as _random
 
 __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "layernorm_plain", "layernorm_stats", "fused_layernorm",
@@ -167,7 +178,9 @@ __all__ = ["build", "embedding", "embedding_plain", "layernorm",
            "embedding_fn", "qfc_matmul", "qfc_matmul_plain", "dequant_rows",
            "dequant_rows_plain", "dequant_rows_multi",
            "dequant_rows_multi_plain", "bn_stats", "bn_stats_plain",
-           "bn_apply_relu", "bn_apply_relu_plain", "conv_bn_relu",
+           "bn_apply_relu", "bn_apply_relu_plain", "dropout",
+           "dropout_plain", "dropout_fn", "dropout_mask_value", "uniform",
+           "uniform_plain", "conv_bn_relu",
            "conv_bn_relu_fn", "decode_attention_bf16",
            "layernorm_bwd_dx_bf16", "layernorm_bwd_dparams_bf16",
            "bias_gelu_dx_bf16", "flash_attention_bf16", "launch_counts",
@@ -179,8 +192,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _ARCH = "arch=compute_90a,code=sm_90a"
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_uint
 
 #: kernel name -> (source file, {instance key: C symbol}, ctypes argtypes).
 #: An instance key is the data type its tensors hold ("f32", "bf16",
@@ -200,14 +213,31 @@ _SPECS = {
                                    "bf16": "mx_bias_gelu_bf16",
                                    "f16": "mx_bias_gelu_f16"},
                   [_P, _P, _P, _I, _I, _P]),
+    # the decode read: the tiles in three libraries by cache type and the
+    # general route in a fourth, so that they build in parallel; every
+    # launch counts as decode_attention's (``_ROUTES``)
     "decode_attention": ("decode_attention.cu",
-                         {"f32": "mx_decode_attention_f32",
-                          "bf16": "mx_decode_attention_bf16",
-                          "f16": "mx_decode_attention_f16",
-                          "fp8:e4m3": "mx_decode_attention_e4m3",
-                          "fp8:e5m2": "mx_decode_attention_e5m2"},
+                         {"f32": "mx_decode_attention_f32"},
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _F, _P]),
+    "decode_attention_16": ("decode_attention_16.cu",
+                            {"bf16": "mx_decode_attention_bf16",
+                             "f16": "mx_decode_attention_f16"},
+                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _P]),
+    "decode_attention_fp8": ("decode_attention_fp8.cu",
+                             {"fp8:e4m3": "mx_decode_attention_e4m3",
+                              "fp8:e5m2": "mx_decode_attention_e5m2"},
+                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _P]),
+    "decode_attention_any": ("decode_attention_any.cu",
+                             {"f32": "mx_decode_attention_any_f32",
+                              "bf16": "mx_decode_attention_any_bf16",
+                              "f16": "mx_decode_attention_any_f16",
+                              "fp8:e4m3": "mx_decode_attention_any_e4m3",
+                              "fp8:e5m2": "mx_decode_attention_any_e5m2"},
+                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _P]),
     "softmax": ("softmax.cu", {"f32": "mx_softmax_f32",
                                "bf16": "mx_softmax_bf16",
                                "f16": "mx_softmax_f16"},
@@ -262,11 +292,17 @@ _SPECS = {
     "bn_stats": ("bn_stats.cu", {"f32": "mx_bn_stats_f32",
                                  "bf16": "mx_bn_stats_bf16",
                                  "f16": "mx_bn_stats_f16"},
-                 [_P, _P] + [_I] * 9 + [_P]),
+                 [_P, _P, _I, _I, _L] + [_I] * 6 + [_P]),
     "bn_apply_relu": ("bn_apply_relu.cu", {"f32": "mx_bn_apply_relu_f32",
                                            "bf16": "mx_bn_apply_relu_bf16",
                                            "f16": "mx_bn_apply_relu_f16"},
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "dropout": ("threefry.cu", {"f32": "mx_dropout_f32",
+                                "bf16": "mx_dropout_bf16",
+                                "f16": "mx_dropout_f16"},
+                [_P, _P, _P, _L, _U, _U, _F, _F, _P]),
+    "uniform": ("threefry.cu", {"f32": "mx_uniform_f32"},
+                [_P, _L, _U, _U, _F, _F, _I, _P]),
 }
 KERNELS = tuple(_SPECS)
 
@@ -368,13 +404,14 @@ def _tool(name):
     return str(path)
 
 
-def resources(name):
+def resources(name, sass=True):
     """What the compiler made of kernel ``name``'s library, per kernel
     function (demangled by ``cu++filt``): ``registers``,
     ``spill_stores`` and ``spill_loads`` (bytes) from ptxas' report, and
-    ``sass``, the count of each SASS opcode (``HGMMA``, ``FFMA``, ...,
-    without modifiers) in ``cuobjdump -sass``. Builds the library first
-    if it is missing."""
+    (``sass``) the count of each SASS opcode (``HGMMA``, ``FFMA``, ...,
+    without modifiers) in ``cuobjdump -sass``, which takes seconds for a
+    library of many instances. Builds the library first if it is
+    missing."""
     build([name])
     lib = _library(name)
     funcs, fn = {}, None
@@ -391,11 +428,11 @@ def resources(name):
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             fn["registers"] = int(m.group(1))
-    sass = subprocess.run([_tool("cuobjdump"), "-sass",
+    dump = subprocess.run([_tool("cuobjdump"), "-sass",
                            str(_lib_path(lib))], capture_output=True,
-                          text=True, check=True).stdout
+                          text=True, check=True).stdout if sass else ""
     ops = None
-    for line in sass.splitlines():
+    for line in dump.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             ops = funcs.setdefault(m.group(1), {}).setdefault("sass", {})
@@ -439,12 +476,26 @@ def _wrapper(kernel, f32_counter=None):
     return register_wrapper
 
 
+#: the instances and routes of a wrapper that live in libraries of their
+#: own and count under the wrapper's counters: route name -> (its kernel,
+#: the wrapper); registered after the wrapper (``_route``)
+_ROUTES = {}
+
+
+def _route(name, kernel, wrapper):
+    _ROUTES[name] = (kernel, wrapper)
+    _WRAPPER_KERNEL[name] = kernel
+    _F32_COUNTER[name] = wrapper
+
+
 def _counter(name, key):
     """The launch counter of wrapper ``name``'s instance ``key``: its
     float32 counter (the kernel's name unless it says otherwise) for
-    float32 data, else ``<wrapper>_<bf16|f16|fp8>``."""
+    float32 data, else ``<wrapper>_<bf16|f16|fp8>`` (a route of its own
+    library counts as its wrapper)."""
     data = key.split(":")[0]
-    return _F32_COUNTER[name] if data == "f32" else f"{name}_{data}"
+    base = _ROUTES[name][1] if name in _ROUTES else name
+    return _F32_COUNTER[name] if data == "f32" else f"{base}_{data}"
 
 
 def _instance(name, t, storage=None):
@@ -462,13 +513,14 @@ def _instance(name, t, storage=None):
     return key
 
 
-def _launch(name, key, tensor, *args):
+def _launch(name, key, tensor, *args, launches=1):
     """Launch instance ``key`` of wrapper ``name``'s kernel on the current
     stream of ``tensor``'s device, raise on a refused launch, and count
-    the launch under the instance's counter. The host's cost is most of a
-    small kernel's time, so this path reads raw handles: the stream as an
-    integer (no ``Stream`` object), and the device is switched only when
-    the tensor is not on the current one."""
+    the launch under the instance's counter (``launches`` of them where
+    the C entry point launches its grid in chunks). The host's cost is
+    most of a small kernel's time, so this path reads raw handles: the
+    stream as an integer (no ``Stream`` object), and the device is
+    switched only when the tensor is not on the current one."""
     bound = _fns.get((name, key)) or _fn(name, key)
     dev = tensor.get_device()
     if dev == torch._C._cuda_getDevice():
@@ -479,7 +531,17 @@ def _launch(name, key, tensor, *args):
     if err != 0:
         raise MXNetError(f"CUDA kernel {name!r} launch failed: cudaError "
                          f"{err}")
-    _LAUNCHES[bound[1]] += 1
+    _LAUNCHES[bound[1]] += launches
+
+
+#: the grid's y limit: the decode read's and the flash forward's query
+#: tiles go on that axis in chunks of it, one launch a chunk
+GRID_Y = 65535
+
+
+def _grid_chunks(tiles):
+    """Launches of a grid of ``tiles`` query tiles on the y axis."""
+    return max(1, -(-tiles // GRID_Y))
 
 
 #: what the float32-only kernels (the updates on float32 master weights)
@@ -995,8 +1057,10 @@ def decode_attention(q, k_cache, v_cache, pos):
         return decode_attention_plain(q, k_cache, v_cache, pos)
     if k_cache.dtype in _FP8_STORAGE:
         key, q_dtype = "fp8:" + _FP8_STORAGE[k_cache.dtype], torch.float32
+        lib = "decode_attention_fp8"
     elif k_cache.dtype in _STORAGE:
-        key, q_dtype = _instance("decode_attention", k_cache), k_cache.dtype
+        key, q_dtype = _STORAGE[k_cache.dtype], k_cache.dtype
+        lib = "decode_attention" if key == "f32" else "decode_attention_16"
     else:
         raise MXNetError(f"decode_attention: cache is {k_cache.dtype}, the "
                          "kernel takes float32, bfloat16, float16, "
@@ -1015,15 +1079,20 @@ def decode_attention(q, k_cache, v_cache, pos):
                          f"{tuple(v_cache.shape)}, {tuple(pos.shape)}")
     out = q.new_empty((B, H, S, Dh), dtype=torch.float32)
     kp, vp = k_cache.data_ptr(), v_cache.data_ptr()
-    tile, groups, _, unit = decode_route(Dh, S, k_cache.element_size(), kp,
-                                         vp)
+    tile, groups, rows, unit = decode_route(Dh, S, k_cache.element_size(),
+                                            kp, vp)
     splits, keys, ws, counters = _decode_plan(q, B * H, S, C, tile, groups)
-    _launch("decode_attention", key, q, q.data_ptr(), kp, vp,
-            pos.data_ptr(), out.data_ptr(), ws, counters, B, H, S, C, Dh,
-            keys, splits, unit, groups, float(Dh) ** -0.5)
+    general = unit != 16 or groups > 1
+    _launch("decode_attention_any" if general else lib, key,
+            q, q.data_ptr(), kp, vp, pos.data_ptr(), out.data_ptr(), ws,
+            counters, B, H, S, C, Dh, keys, splits, unit, groups,
+            float(Dh) ** -0.5, launches=_grid_chunks(-(-S // rows)))
     return out
 
 
+_route("decode_attention_16", "decode_attention_16", "decode_attention")
+_route("decode_attention_fp8", "decode_attention_fp8", "decode_attention")
+_route("decode_attention_any", "decode_attention_any", "decode_attention")
 decode_attention_fp8 = _pinned(decode_attention, "fp8", tuple(_FP8_STORAGE),
                                arg=1, want="float8_e4m3fn or float8_e5m2")
 decode_attention_bf16 = _pinned(decode_attention, "bf16", (torch.bfloat16,),
@@ -1598,6 +1667,18 @@ def _flash_operands(q, k, v):
               for t in (q, k, v)), dh + pad)
 
 
+def flash_query_rows(dh, dtype):
+    """Query rows a block of the flash forward takes (csrc/
+    flash_attention.cu): float32 128 on the Dh 32 tile and 64 on the
+    others, the 16-bit tensor-core tiles 128, the wide route (Dh past
+    128, every type) 64."""
+    if dh > HEAD_TILES[-1]:
+        return 64
+    if dtype == torch.float32:
+        return 128 if head_tile(dh) == 32 else 64
+    return 128
+
+
 @_wrapper("flash_attention")
 def flash_attention(q, k, v, causal=False):
     """Attention of q (B, H, Tq, Dh) over k, v (B, H, Tk, Dh) float32,
@@ -1631,7 +1712,8 @@ def flash_attention(q, k, v, causal=False):
     out = qk.new_empty((B, H, Tq, dk))
     _launch("flash_attention", key, q, qk.data_ptr(), kk.data_ptr(),
             vk.data_ptr(), out.data_ptr(), B * H, Tq, k.shape[2], dk,
-            int(bool(causal)), float(Dh) ** -0.5)
+            int(bool(causal)), float(Dh) ** -0.5,
+            launches=_grid_chunks(-(-Tq // flash_query_rows(dk, q.dtype))))
     return out if dk == Dh else out[..., :Dh].contiguous()
 
 
@@ -1707,7 +1789,8 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     _launch("flash_attention_partial", key, q, qk.data_ptr(), kk.data_ptr(),
             vk.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), B * H,
             Tq, k.shape[2], dk, int(q_off), int(k_off), int(bool(causal)),
-            float(scale))
+            float(scale),
+            launches=_grid_chunks(-(-Tq // flash_query_rows(dk, q.dtype))))
     return acc if dk == Dh else acc[..., :Dh].contiguous(), m, l
 
 
@@ -2069,9 +2152,6 @@ def bn_stats(x4):
     if plan is None:
         plan = _BN_PLAN[pk] = _bn_stats_plan(*pk[1:], _sm_count(dev))
     route, vec, group, stage, rows, splits = plan
-    if rows * h * w + BN_STATS_LOADS * BN_STATS_THREADS >= 2 ** 31:
-        raise MXNetError(f"bn_stats: {rows} rows of {h * w} values exceed a "
-                         "block's 32-bit index")
     out = x4.new_empty((2, c), dtype=torch.float32)
     _launch("bn_stats", key, x4, ptr, out.data_ptr(), n, c, h * w, route,
             vec, group, stage, rows, splits)
@@ -2199,6 +2279,113 @@ def conv_bn_relu_fn(attrs, data, weight, gamma, beta, moving_mean,
                                moving_var, attrs, bool(is_train))
 
 
+# ==========================================================================
+# 17. threefry2x32: Dropout, and the uniform draws of the samplers and
+#     initializers (no TPU kernel: jax.random's threefry in XLA)
+# ==========================================================================
+@_wrapper("dropout")
+def dropout(x, key, keep):
+    """Dropout's forward over ``x`` (float32, bfloat16 or float16) under
+    the key ``key`` (two uint32 words), keeping each element with
+    probability ``keep``: (y, mask) in x's dtype, one launch on the card
+    that hashes each element's index with threefry2x32 and writes y and
+    the mask, bit for bit ``dropout_plain``."""
+    if not _cpu_or_cuda("dropout", x):
+        return dropout_plain(x, key, keep)
+    inst = _instance("dropout", x)
+    _check("dropout", x=(x, x.dtype))
+    y, mask = torch.empty_like(x), torch.empty_like(x)
+    if x.numel():
+        k0, k1 = _random.key_words(key)
+        _launch("dropout", inst, x, x.data_ptr(), y.data_ptr(),
+                mask.data_ptr(), x.numel(), k0, k1,
+                float(np.float32(keep)), dropout_mask_value(keep, x.dtype))
+    return y, mask
+
+
+class _DropoutFn(torch.autograd.Function):
+    """Forward: the Dropout kernel, (y, mask) with the mask not
+    differentiable. Backward: ``ct * mask``, the forward's own mask (the
+    backward never draws)."""
+
+    @staticmethod
+    def forward(ctx, x, key, keep):
+        ctx.set_materialize_grads(False)
+        y, mask = dropout(x, key, keep)
+        ctx.save_for_backward(mask)
+        ctx.mark_non_differentiable(mask)
+        return y, mask
+
+    @staticmethod
+    def backward(ctx, ct, _ct_mask):
+        if ct is None:
+            return None, None, None
+        mask, = ctx.saved_tensors
+        return ct * mask, None, None
+
+
+def dropout_fn(x, key, keep):
+    """Differentiable ``dropout``: (y, mask)."""
+    return _DropoutFn.apply(x, key, float(keep))
+
+
+def uniform_plain(key, shape, lo=0.0, hi=1.0, transform=_random.UNIFORM,
+                  device=None):
+    """The float32 draws of ``uniform``: ``mx.random.draw``."""
+    return _random.draw(key, shape, transform, lo, hi, device=device)
+
+
+@_wrapper("uniform")
+def uniform(key, shape, lo=0.0, hi=1.0, transform=_random.UNIFORM,
+            device=None):
+    """float32 draws of ``shape`` under ``key`` on ``device`` (default the
+    CPU): uniform in [lo, hi) (``max(lo, fma(u, hi - lo, lo))``, XLA's
+    arithmetic), or ``mx.random.NORMAL`` (``sqrt(2) * erfinv`` of a draw in
+    (nextafter(-1, 0), 1)) or ``EXPONENTIAL`` (``-log1p(-u)``), whose
+    ranges are their own. One launch on the card; the plain version on
+    the CPU."""
+    device = torch.device(device if device is not None else "cpu")
+    if device.type == "cpu":
+        return uniform_plain(key, shape, lo, hi, transform)
+    if device.type != "cuda":
+        raise MXNetError(f"uniform: no kernel or plain version for device "
+                         f"{device}")
+    if transform == _random.NORMAL:
+        lo, hi = _random.normal_lo(torch.float32), 1.0
+    elif transform == _random.EXPONENTIAL:
+        lo, hi = 0.0, 1.0
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if out.numel():
+        k0, k1 = _random.key_words(key)
+        lo32, hi32 = np.float32(lo), np.float32(hi)
+        _launch("uniform", "f32", out, out.data_ptr(), out.numel(), k0, k1,
+                float(lo32), float(np.float32(hi32 - lo32)), int(transform))
+    return out
+
+
+def _sampler_cuda(name):
+    """A sampler on the card (``tensor.sample``): its uniform, normal and
+    exponential draws from the threefry kernel, on the current device."""
+    def forward(attrs, inputs, aux, is_train, rng):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        return [tensor_sample(
+            name, attrs, rng, dev,
+            lambda key, shape, lo, hi, transform: uniform(
+                key, shape, lo, hi, transform, dev))], []
+    return forward
+
+
+def _dropout_cuda(attrs, inputs, aux, is_train, rng):
+    """Dropout on the card: the threefry kernel's y and mask (an
+    autograd.Function whose backward multiplies by the mask)."""
+    x = inputs[0]
+    p = parse_float(attrs.get("p", 0.5))
+    if not is_train or p <= 0.0:
+        return [x, torch.ones_like(x)], []
+    y, mask = dropout_fn(x.contiguous(), rng, 1.0 - p)
+    return [y, mask], []
+
+
 def _counters():
     """(the launch counters in wrapper order, {counter: its kernel})."""
     kernel_of = {}
@@ -2323,6 +2510,12 @@ _QUANT_BWD = ("a gradient of a quantized op: quantized graphs are an "
               "inference tier, which the JAX package gives no gradient "
               "either")
 get_op("FusedBiasGeLU").add_variant("cuda", _bias_gelu_cuda)
+get_op("Dropout").add_variant("cuda", _dropout_cuda)
+for _name in ("_random_uniform", "_random_normal", "_random_gamma",
+              "_random_exponential", "_random_poisson",
+              "_random_negative_binomial",
+              "_random_generalized_negative_binomial"):
+    get_op(_name).add_variant("cuda", _sampler_cuda(_name))
 get_op("FusedConvBNReLU").add_variant("cuda", _cbr_cuda)
 get_op("Embedding").add_variant("cuda", _embedding_cuda)
 get_op("LayerNorm").add_variant("cuda", _layernorm_cuda)

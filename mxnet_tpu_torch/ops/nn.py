@@ -13,7 +13,12 @@ The image-classification layers the ResNet training path binds —
 kernel), ``Pooling``, ``Activation`` and ``BatchNorm`` — are the JAX
 package's compositions written in PyTorch; their backward is autograd's.
 ``FusedConvBNReLU`` is those three in one op (its plain forward is their
-composition; the BatchNorm-and-ReLU half has CUDA kernels).
+composition; the BatchNorm-and-ReLU half has CUDA kernels). The other
+classifiers of ``models/`` also bind ``LRN`` and ``Concat`` (the JAX
+package's compositions, plain on both devices) and ``Dropout``, whose
+mask is ``mx.random``'s bernoulli draw under the node's key, bit for bit
+the JAX package's (its CUDA variant, the threefry kernel, is attached in
+``cuda_kernels.py``).
 
 Mixed precision (``compute_dtype="bfloat16"`` or ``"float16"``): the
 executor hands these ops 16-bit data, parameters and moving statistics.
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import (parse_tuple, parse_bool, parse_int, parse_float,
                     merge_shape, shape_is_known)
 from .registry import register, alias
@@ -473,3 +479,100 @@ _CBR_ATTRS.update({"eps": (parse_float, 1e-3),
 register("FusedConvBNReLU", inputs=("data", "weight", "gamma", "beta"),
          aux=("moving_mean", "moving_var"), full=_cbr_forward,
          attr_spec=_CBR_ATTRS, infer_shape=_cbr_infer)
+
+
+# --------------------------------------------------------------------------
+# LRN
+# --------------------------------------------------------------------------
+@register("LRN", inputs=("data",),
+          attr_spec={"alpha": (parse_float, 1e-4), "beta": (parse_float, 0.75),
+                     "knorm": (parse_float, 2.0), "nsize": (parse_int, 5)},
+          num_outputs=2, num_visible=1, output_names=["output", "tmp_norm"],
+          infer_shape=lambda attrs, s: (s, [s[0], s[0]], []))
+def _lrn(attrs, data):
+    """The JAX package's composition: the squares summed over a window of
+    ``nsize`` channels, zero-padded by ``nsize // 2`` on each side, then
+    ``norm = (knorm + alpha / nsize * window) ** beta``; outputs [data /
+    norm, norm]."""
+    nsize = parse_int(attrs.get("nsize", 5))
+    alpha = parse_float(attrs.get("alpha", 1e-4))
+    beta = parse_float(attrs.get("beta", 0.75))
+    knorm = parse_float(attrs.get("knorm", 2.0))
+    half = nsize // 2
+    c = data.shape[1]
+    widths = [0, 0] * (data.ndim - 2) + [half, half]
+    padded = F.pad(torch.square(data), widths)
+    windows = 0
+    for i in range(nsize):
+        windows = windows + padded[:, i:i + c]
+    norm = (knorm + alpha / nsize * windows) ** beta
+    return data / norm, norm
+
+
+# --------------------------------------------------------------------------
+# Dropout
+# --------------------------------------------------------------------------
+def dropout_mask_value(keep, dtype):
+    """The value a kept element's mask holds, ``1 / keep`` as the JAX
+    package's ``bernoulli(...).astype(dtype) / keep`` gives it: ``keep`` (a
+    weakly typed Python float) rounded to ``dtype`` first
+    (``weak_scalar``), the quotient taken in float32 and rounded to
+    ``dtype``."""
+    k = torch.tensor(float(keep), dtype=dtype).to(torch.float32)
+    return float((torch.ones((), dtype=torch.float32) / k).to(dtype))
+
+
+def dropout_plain(x, key, keep):
+    """(y, mask): ``mask`` holds ``dropout_mask_value(keep, x.dtype)``
+    where ``mx.random.bernoulli(key, keep, x.shape)`` is true and 0
+    elsewhere, in x's dtype, and ``y = x * mask``: the JAX package's
+    Dropout, bit for bit."""
+    kept = _random.bernoulli(key, keep, x.shape, device=x.device)
+    mask = torch.where(kept, torch.tensor(
+        dropout_mask_value(keep, x.dtype), dtype=x.dtype, device=x.device),
+        torch.zeros((), dtype=x.dtype, device=x.device))
+    return x * mask, mask
+
+
+def _dropout_fwd(attrs, inputs, aux, is_train, rng):
+    """Outside training, or at ``p <= 0``, the identity and a mask of
+    ones; in training ``dropout_plain`` under the node's key, keeping
+    each element with probability ``1 - p``. The backward multiplies by
+    the forward's mask (autograd through ``x * mask``) and draws nothing."""
+    x = inputs[0]
+    p = parse_float(attrs.get("p", 0.5))
+    if not is_train or p <= 0.0:
+        return [x, torch.ones_like(x)], []
+    return list(dropout_plain(x, rng, 1.0 - p)), []
+
+
+register("Dropout", inputs=("data",), full=_dropout_fwd, need_rng=True,
+         num_outputs=2, num_visible=1, output_names=["output", "mask"],
+         attr_spec={"p": (parse_float, 0.5), "mode": (None, "training")},
+         infer_shape=lambda attrs, s: (s, [s[0], s[0]], []))
+
+
+# --------------------------------------------------------------------------
+# Concat
+# --------------------------------------------------------------------------
+def _concat_inputs(attrs):
+    return [f"arg{i}" for i in range(parse_int(attrs.get("num_args", 2)))]
+
+
+def _concat_infer(attrs, in_shapes):
+    dim = parse_int(attrs.get("dim", 1))
+    if any(s is None for s in in_shapes):
+        return in_shapes, [None], []
+    out = list(in_shapes[0])
+    out[dim] = sum(s[dim] for s in in_shapes)
+    return in_shapes, [tuple(out)], []
+
+
+@register("Concat", inputs=_concat_inputs,
+          attr_spec={"num_args": (parse_int, 2), "dim": (parse_int, 1)},
+          infer_shape=_concat_infer)
+def _concat(attrs, *xs):
+    return torch.cat(xs, dim=parse_int(attrs.get("dim", 1)))
+
+
+alias("concat", "Concat")

@@ -88,14 +88,19 @@ class OpDef:
     aux_dtypes : dict aux name -> dtype (or callable(attrs) -> dtype|None)
         for aux cells that must not bind as float32 (a KV cache's int32
         cursor).
+    need_rng : the forward consumes a random key (Dropout, the samplers):
+        the executor hands each such node ``mx.random.fold_in(key, i)``,
+        the forward's key folded with the node's index, and an imperative
+        call one ``next_key()``; every other op gets None.
     """
 
     def __init__(self, name, forward, inputs=("data",), aux=(),
                  num_outputs=1, output_names=None, attr_spec=None,
                  infer_shape=None, num_visible=None, shape_passthrough=False,
                  variants=None, stateful_infer=False, aux_dtypes=None,
-                 is_loss=False, mutate_inputs=()):
+                 is_loss=False, mutate_inputs=(), need_rng=False):
         self.name = name
+        self.need_rng = bool(need_rng)
         self.flops = None           # cost metadata: ops/cost.py seeds it
         self.bytes_moved = None
         self.is_loss = bool(is_loss)
@@ -224,22 +229,30 @@ class OpDef:
         return f"OpDef({self.name})"
 
 
-def dispatch(opdef, attrs, inputs, aux, is_train, rng):
+def dispatch(opdef, attrs, inputs, aux, is_train, rng, device=None):
     """Run one op: the ``"cuda"`` variant when its tensors lie on a CUDA
     device and the op has one, the plain ``forward`` otherwise. The
-    device of the first tensor input (else the first aux) decides."""
-    variant = _cuda_variant(opdef, list(inputs) + list(aux))
+    device of the first tensor input (else the first aux) decides; an op
+    with no tensor at all (a sampler) runs where ``device`` says, its
+    CUDA variant under that device."""
+    tensors = list(inputs) + list(aux)
+    variant = _cuda_variant(opdef, tensors, device)
     if variant is not None:
         refuse_without_backward(opdef, variant, inputs)
+        if not any(t is not None for t in tensors):
+            with torch.cuda.device(device):
+                return variant["fn"](attrs, inputs, aux, is_train, rng)
         return variant["fn"](attrs, inputs, aux, is_train, rng)
     return opdef.forward(attrs, inputs, aux, is_train, rng)
 
 
-def _cuda_variant(opdef, tensors):
-    """The op's ``"cuda"`` variant where the first of ``tensors`` lies on a
-    CUDA device and the op has one, else None."""
+def _cuda_variant(opdef, tensors, device=None):
+    """The op's ``"cuda"`` variant where the first of ``tensors`` (or,
+    with no tensor, ``device``) lies on a CUDA device and the op has one,
+    else None."""
     lead = next((t for t in tensors if t is not None), None)
-    if lead is not None and lead.device.type == "cuda":
+    where = lead.device if lead is not None else device
+    if where is not None and torch.device(where).type == "cuda":
         return opdef.variants.get("cuda")
     return None
 

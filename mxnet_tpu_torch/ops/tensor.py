@@ -5,19 +5,22 @@ binds: ``Reshape`` with its special codes, ``transpose``, ``slice_axis``,
 ``dot``, elementwise and broadcast add, ``expand_dims``, ``_arange`` and
 the ``Embedding`` composition — plus ``Flatten``, which the image
 classifiers bind, and ``sum`` (alias ``sum_axis``) and the unary
-``relu``, which imperative autograd code calls. Every op here except
-``Embedding`` is
-plain PyTorch on both devices, as the JAX package leaves them to XLA;
-``Embedding`` gets its CUDA kernel as the ``"cuda"`` variant in
-``cuda_kernels.py``.
+``relu``, which imperative autograd code calls, and the samplers
+(``_random_uniform`` ... ``_random_generalized_negative_binomial`` and
+their aliases: ``sample``). Every op here except ``Embedding`` and the
+samplers is plain PyTorch on both devices, as the JAX package leaves them
+to XLA; ``Embedding`` gets its CUDA kernel as the ``"cuda"`` variant in
+``cuda_kernels.py``, and so do the samplers (the threefry kernel's
+uniform draws).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..base import (parse_tuple, parse_bool, parse_int, parse_float,
-                    merge_shape, str_to_attr)
+from .. import random as _random
+from ..base import (MXNetError, parse_tuple, parse_bool, parse_int,
+                    parse_float, merge_shape, str_to_attr)
 from .registry import register, alias
 
 
@@ -225,3 +228,107 @@ def _embedding(attrs, data, weight):
     in the transformer)."""
     return embedding_lookup(data, weight,
                             parse_float(attrs.get("scale", 1.0)))
+
+
+# --------------------------------------------------------------------------
+# samplers: the JAX package's ``_random_*`` ops on the ``mx.random`` chain
+# --------------------------------------------------------------------------
+#: sampler -> its attrs beyond shape and dtype
+_SAMPLER_EXTRA = {
+    "_random_uniform": {"low": (parse_float, 0.0), "high": (parse_float, 1.0)},
+    "_random_normal": {"loc": (parse_float, 0.0), "scale": (parse_float, 1.0)},
+    "_random_gamma": {"alpha": (parse_float, 1.0), "beta": (parse_float, 1.0)},
+    "_random_exponential": {"lam": (parse_float, 1.0)},
+    "_random_poisson": {"lam": (parse_float, 1.0)},
+    "_random_negative_binomial": {"k": (parse_int, 1), "p": (parse_float, 1.0)},
+    "_random_generalized_negative_binomial": {
+        "mu": (parse_float, 1.0), "alpha": (parse_float, 1.0)},
+}
+
+
+def _key_generator(key, device):
+    """A PyTorch generator on ``device`` seeded with the key's 64 bits."""
+    k0, k1 = _random.key_words(key)
+    return torch.Generator(device=device).manual_seed((k0 << 32) | k1)
+
+
+def _gamma(alpha, shape, gen, device):
+    conc = torch.full(shape, float(alpha), dtype=torch.float32,
+                      device=device)
+    return torch._standard_gamma(conc, generator=gen)
+
+
+def sample(name, attrs, key, device, uniform=None):
+    """One draw of sampler ``name`` under ``key`` on ``device``.
+
+    Uniform, normal and exponential draws are the JAX package's bits
+    (``mx.random.draw``; uniform bit for bit, normal and exponential
+    within a few float32 ulps, since ``erfinv`` and ``log1p`` are not
+    XLA's polynomials), through ``uniform(key, shape, lo, hi, transform)``
+    where the caller passes one (the card's threefry kernel, float32) and
+    the plain version otherwise. Gamma, Poisson and the two negative
+    binomials draw with PyTorch's samplers (``torch._standard_gamma``,
+    ``torch.poisson``) under a generator seeded from the key: their
+    draws are the JAX package's in distribution (moments), not in value."""
+    from ..ndarray import to_torch_dtype
+    shape = tuple(attrs.get("shape", ()))
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+
+    def base(transform, lo=0.0, hi=1.0):
+        if uniform is None:
+            return _random.draw(key, shape, transform, lo, hi, dtype,
+                                device)
+        if dtype != torch.float32:
+            raise MXNetError(f"{name}: the card's threefry kernel draws "
+                             f"float32, got dtype {dtype}")
+        return uniform(key, shape, lo, hi, transform)
+
+    if name == "_random_uniform":
+        return base(_random.UNIFORM, attrs.get("low", 0.0),
+                    attrs.get("high", 1.0))
+    if name == "_random_normal":
+        return attrs.get("loc", 0.0) + attrs.get("scale", 1.0) * \
+            base(_random.NORMAL)
+    if name == "_random_exponential":
+        return base(_random.EXPONENTIAL) / attrs.get("lam", 1.0)
+    gen = _key_generator(key, device)
+    if name == "_random_gamma":
+        out = _gamma(attrs.get("alpha", 1.0), shape, gen, device) * \
+            attrs.get("beta", 1.0)
+    elif name == "_random_poisson":
+        out = torch.poisson(torch.full(shape, float(attrs.get("lam", 1.0)),
+                                       device=device), generator=gen)
+    else:
+        if name == "_random_negative_binomial":
+            r, p = attrs.get("k", 1), attrs.get("p", 0.5)
+        else:
+            r = 1.0 / attrs.get("alpha", 1.0)
+            p = r / (r + attrs.get("mu", 1.0))
+        lam = _gamma(r, shape, gen, device) * (1 - p) / p
+        out = torch.poisson(lam, generator=gen)
+    return out.to(dtype)
+
+
+def _register_sampler(name):
+    def forward(attrs, inputs, aux, is_train, rng):
+        return [sample(name, attrs, rng, torch.device("cpu"))], []
+    register(name, inputs=(), full=forward, need_rng=True,
+             attr_spec={"shape": (parse_tuple, ()),
+                        "dtype": (None, "float32"),
+                        **_SAMPLER_EXTRA[name]},
+             infer_shape=lambda attrs, in_shapes: (
+                 [], [tuple(attrs.get("shape", ()))], []))
+
+
+for _name in _SAMPLER_EXTRA:
+    _register_sampler(_name)
+for _alias, _name in (
+        ("uniform", "_random_uniform"), ("random_uniform", "_random_uniform"),
+        ("normal", "_random_normal"), ("random_normal", "_random_normal"),
+        ("random_gamma", "_random_gamma"),
+        ("random_exponential", "_random_exponential"),
+        ("random_poisson", "_random_poisson"),
+        ("random_negative_binomial", "_random_negative_binomial"),
+        ("random_generalized_negative_binomial",
+         "_random_generalized_negative_binomial")):
+    alias(_alias, _name)

@@ -480,6 +480,11 @@ def _make_symbol_function(op_name):
                     raise TypeError(f"{op_name}: no input named {k!r}")
                 by_name[in_names.index(k)] = v
             input_syms = by_name
+        # a variadic op (Concat) counts its inputs when not told
+        if callable(opdef._inputs) and "num_args" in opdef.attr_spec and \
+                "num_args" not in params:
+            params["num_args"] = len([s for s in input_syms
+                                      if s is not None]) or len(args)
         return _create(op_name, input_syms, name=name, attr=attr, **params)
 
     creator.__name__ = op_name

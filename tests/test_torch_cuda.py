@@ -1076,6 +1076,9 @@ def _fit_both(models, model, optimizer):
         if optimizer == "sgd" else {"learning_rate": 1e-3}
     out = {}
     for ctx in (mx.gpu(0), mx.cpu()):
+        # the same seed, so the same Xavier draws on both devices (the
+        # card draws them with the threefry kernel)
+        mx.random.seed(0)
         ck.reset_launch_counts()
         mod = mx.mod.Module(sym, context=ctx)
         mod.fit(mx.io.NDArrayIter(X, y, batch_size=8), num_epoch=2,
@@ -1089,6 +1092,9 @@ def _fit_both(models, model, optimizer):
             assert counts["softmax"] == counts["softmax_ce_bwd"] == 8
             # Module.update: one multi-tensor launch a step, no per-array
             assert counts[upd + "_multi"] == 8 and counts[upd] == 0, counts
+            # Xavier drew each weight on the card: one uniform launch each
+            assert counts["uniform"] == sum(
+                k.endswith("weight") for k in out["gpu"]), counts
         else:
             assert not any(counts.values()), counts
     for k, v in out["cpu"].items():
@@ -3475,3 +3481,152 @@ def test_qfc_matmul_rows_past_one_grid(dev):
     want = ck.qfc_matmul_plain(x, wq, scale)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------- threefry
+def _tkey(seed):
+    return mx.random.split(mx.random.prng_key(seed))[1]
+
+
+#: Dropout sizes: one value, odd, no multiple of a 16-byte unit, the VGG
+#: drop6 shape at batch 32, the bench LM's (8, 1024, 512)
+DROPOUT_SHAPES = [(1,), (7,), (4099,), (3, 5, 11), (32, 4096),
+                  (8, 1024, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES)
+def test_dropout_kernel_bit_for_bit(dev, dtype, shape):
+    """y and the mask equal the plain version's bit for bit (aligned and
+    on a view one element off 16 bytes), one launch a call."""
+    name = {torch.float32: "dropout", torch.bfloat16: "dropout_bf16",
+            torch.float16: "dropout_f16"}[dtype]
+    n = int(np.prod(shape))
+    flat = _rnd(dev, n + 1, seed=3).to(dtype)
+    for x in (flat[:n].view(shape), flat[1:].view(shape)):
+        for i, keep in enumerate((0.9, 0.5, 0.3)):
+            key = _tkey(i)
+            before = ck.launch_counts()[name]
+            y, m = ck.dropout(x, key, keep)
+            assert ck.launch_counts()[name] == before + 1
+            py, pm = ck.dropout_plain(x.cpu(), key, keep)
+            assert torch.equal(y.cpu(), py) and torch.equal(m.cpu(), pm)
+            assert y.dtype == m.dtype == dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5, 11), (1 << 20,)])
+def test_uniform_kernel(dev, shape):
+    """Uniform draws bit for bit the plain version's; normal within 1e-5
+    of max(1, |value|) (erfinvf against torch.erfinv), exponential
+    within 2 float32 ulps; one launch a call."""
+    key = _tkey(5)
+    for lo, hi in ((0.0, 1.0), (-0.07, 0.07), (-2.5, 3.3)):
+        before = ck.launch_counts()["uniform"]
+        got = ck.uniform(key, shape, lo, hi, device=dev)
+        assert ck.launch_counts()["uniform"] == before + 1
+        assert torch.equal(got.cpu(), ck.uniform_plain(key, shape, lo, hi))
+    got = ck.uniform(key, shape, transform=mx.random.NORMAL, device=dev)
+    want = ck.uniform_plain(key, shape, transform=mx.random.NORMAL)
+    err = (got.cpu() - want).abs() / want.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5
+    got = ck.uniform(key, shape, transform=mx.random.EXPONENTIAL,
+                     device=dev).cpu()
+    want = ck.uniform_plain(key, shape, transform=mx.random.EXPONENTIAL)
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 2
+
+
+@pytest.mark.cuda
+def test_dropout_op_and_samplers_on_card(dev):
+    """A Dropout graph's forward and gradients on the card equal the
+    CPU's after the same seed (the same key chain, the masks bit for
+    bit); the imperative samplers and an initializer draw the CPU's
+    values; a 16-bit sampler on the card raises."""
+    def graph():
+        d = mx.sym.Dropout(mx.sym.var("data"), p=0.4, name="d0")
+        return mx.sym.Group([d, mx.sym.Dropout(d, p=0.25, name="d1")])
+    x = np.random.RandomState(0).randn(16, 300).astype("f")
+    outs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mx.random.seed(7)
+        exe = graph().simple_bind(ctx, grad_req="write", data=x.shape)
+        exe.arg_dict["data"][:] = x
+        before = ck.launch_counts()["dropout"]
+        o = exe.forward(is_train=True)
+        exe.backward([mx.nd.array(np.ones(x.shape, "f"), ctx=ctx)] * 2)
+        if ctx.device_type == "gpu":
+            assert ck.launch_counts()["dropout"] == before + 2
+        outs[ctx.device_type] = ([t.asnumpy() for t in o],
+                                 exe.grad_dict["data"].asnumpy())
+    for a, b in zip(outs["cpu"][0], outs["gpu"][0]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(outs["cpu"][1], outs["gpu"][1])
+    draws = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mx.random.seed(11)
+        with ctx:
+            u = mx.nd.random_uniform(low=-1.0, high=2.0, shape=(33, 7))
+            w = mx.nd.zeros((64, 3, 3, 3))
+        mx.initializer.Xavier()("c_weight", w)
+        draws[ctx.device_type] = (u.asnumpy(), w.asnumpy())
+    for a, b in zip(draws["cpu"], draws["gpu"]):
+        assert np.array_equal(a, b)
+    with mx.gpu(0), pytest.raises(MXNetError, match="float32"):
+        mx.nd.random_uniform(shape=(3,), dtype="float16")
+
+
+# ------------------------------------------ grid and index limits lifted
+@pytest.mark.cuda
+def test_bn_stats_one_channel_past_2_31_values(dev):
+    """One channel of 2^31 + 1 bfloat16 values (4.3 GB; an odd plane, so
+    the one-value walk): zeros but for values at both ends and past 2^31,
+    so a 32-bit offset would miss them; the sums are exact."""
+    hw = 2 ** 31 + 1
+    x = torch.zeros((1, 1, 1, hw), dtype=torch.bfloat16, device=dev)
+    x[0, 0, 0, 0] = 2.0
+    x[0, 0, 0, 2 ** 31 - 1] = -1.0
+    x[0, 0, 0, 2 ** 31] = 3.0
+    before = ck.launch_counts()["bn_stats_bf16"]
+    s, q = ck.bn_stats(x)
+    assert ck.launch_counts()["bn_stats_bf16"] == before + 1
+    assert float(s[0]) == 4.0 and float(q[0]) == 14.0
+    del x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_decode_attention_rows_past_one_grid(dev):
+    """S past 16 x 65535 query rows: the window's tiles in two launches,
+    against the plain version."""
+    s = ck.DECODE_WIN_ROWS * ck.GRID_Y + 1
+    q = _rnd(dev, 1, 1, s, 16, seed=1)
+    kc, vc = _rnd(dev, 1, 1, 32, 16, seed=2), _rnd(dev, 1, 1, 32, 16, seed=3)
+    pos = torch.tensor([3], dtype=torch.int32, device=dev)
+    before = ck.launch_counts()["decode_attention"]
+    got = ck.decode_attention(q, kc, vc, pos)
+    assert ck.launch_counts()["decode_attention"] == before + 2
+    _same(got, ck.decode_attention_plain(q, kc, vc, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.bfloat16, 16),
+                                      (torch.float16, 16)])
+def test_flash_attention_rows_past_one_grid(dev, dtype, dh):
+    """Tq past the grid's y limit of query tiles (64 x 65535 in float32 at
+    Dh 64, 128 x 65535 in 16 bits), non-causal over Tk 64: two launches,
+    against the plain version."""
+    tq = ck.flash_query_rows(dh, dtype) * ck.GRID_Y + 1
+    q = _rnd(dev, 1, 1, tq, dh, seed=4).to(dtype)
+    k, v = (_rnd(dev, 1, 1, 64, dh, seed=s).to(dtype) for s in (5, 6))
+    name = "flash_attention" + {torch.float32: "", torch.bfloat16: "_bf16",
+                                torch.float16: "_f16"}[dtype]
+    before = ck.launch_counts()[name]
+    got = ck.flash_attention(q, k, v, causal=False)
+    assert ck.launch_counts()[name] == before + 2
+    want = ck.flash_attention_plain(q, k, v, False)
+    tol = TOL if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

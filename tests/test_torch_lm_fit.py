@@ -5,7 +5,7 @@ heads, T=32, batch 8).
 
 * ``get_symbol`` gives the JAX package's JSON byte for byte (loss head,
   ``normalization``, learned positions, the loss-free graph), and
-  ``dropout`` > 0 is refused;
+  ``dropout`` > 0 adds the JAX package's two Dropouts a block;
 * ``SyntheticLMIter`` yields the JAX iterator's batches, dtypes included;
 * a 4-batch SGD fit from the same parameters (Xavier in the JAX package,
   carried across as numpy) leaves the same parameters in both packages,
@@ -18,6 +18,8 @@ heads, T=32, batch 8).
 Tolerance: 2e-5 absolute and relative after 4 steps (the two frameworks
 sum the matmuls and the reductions in other orders).
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -97,8 +99,14 @@ def test_lm_get_symbol_defaults_and_refusals():
     sym = ttfm.get_symbol()
     assert sym.list_outputs() == ["softmax_output"]
     assert sym.list_arguments()[-1] == "softmax_label"
-    with pytest.raises(MXNetError, match="Dropout"):
-        ttfm.get_symbol(dropout=0.1)
+    with mxt.name.NameManager():
+        dropped = ttfm.get_symbol(dropout=0.1).tojson()
+    with mx.name.NameManager():
+        want = jtfm.get_symbol(dropout=0.1).tojson()
+    assert [n["name"] for n in json.loads(dropped)["nodes"]
+            if n["op"] == "Dropout"] == [
+        f"lm_l{i}_drop{j}" for i in range(2) for j in (1, 2)]
+    assert dropped == want
 
 
 def test_synthetic_lm_iter_matches_jax():

@@ -298,5 +298,8 @@ def test_lm_wrappers_on_cpu_count_nothing():
     q = torch.randn(1, 1, 4, 64)
     ck.flash_attention(q, q, q, True)
     assert ck.launch_counts() == {n: 0 for n in ck.COUNTERS}
-    assert len(ck.KERNELS) == 19
+    # nineteen kernels, the threefry source's two entry points, and the
+    # decode read's three other libraries (its tiles by cache type, its
+    # general route)
+    assert len(ck.KERNELS) == 24
 
