@@ -501,6 +501,9 @@ INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
 # of add, rotate (one funnel shift) and xor, five key injections of two
 # adds, the counter's two adds and the final xor
 THREEFRY_OPS = 20 * 3 + 5 * 2 + 2 + 1
+# the 16-bit normal and exponential draws on the card against the plain
+# version: erfinvf / log1pf against PyTorch's, each rounded to the type
+UNIFORM16_ULPS = 1
 # ln_bwd_dparams: sums over up to 8192 rows reach a few hundred, where a
 # float32 ulp is 3e-5, and the plain version sums in another order; ln_bwd
 # (dx, dgamma and dbeta from one call) is held to both limits, dx to
@@ -525,7 +528,8 @@ TOL = {"embedding": 0.0, "layernorm": 2e-5, "bias_gelu": 2e-5,
        "bias_gelu_dx_bf16": 1.0,
        "flash_attention_bf16": 1.0, "qfc_matmul_bf16": 1e-5,
        "flash_attention_partial": 2e-5, "flash_attention_partial_bf16": 2e-5,
-       "dropout": 0.0, "dropout_bf16": 0.0, "uniform": 0.0}
+       "dropout": 0.0, "dropout_bf16": 0.0, "uniform": 0.0,
+       "uniform_bf16": 0.0}
 # the float16 instances: the bfloat16 instances' limits, in float16 ulps
 # where those are in ulps
 TOL.update({k.replace("_bf16", "_f16"): v for k, v in TOL.items()
@@ -616,6 +620,7 @@ REPLACES = {
     "dropout": "mxnet_tpu/ops/nn.py:638",
     "dropout_bf16": "mxnet_tpu/ops/nn.py:638",
     "uniform": "mxnet_tpu/ops/tensor.py:678",
+    "uniform_bf16": "mxnet_tpu/ops/tensor.py:678",
     "rtc_axpb": "mxnet_tpu/rtc.py:41",
     "relu_user": "mxnet_tpu/rtc.py:101",
     "relu_user_vjp": "mxnet_tpu/rtc.py:101",
@@ -639,6 +644,19 @@ ZOO = (("alexnet", "alexnet", {}, 224, 67),
 ZOO_BATCH, ZOO_STEPS, ZOO_PARITY_BATCH = 32, 3, 2
 ZOO_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
 LM_DROPOUT, LM_DROPOUT_STEPS = 0.1, 3
+#: phases 55-56: kill and resume, RESUME_EPOCHS epochs of
+#: RESUME_LM_BATCHES (the bench LM) or RESUME_R50_BATCHES (ResNet-50)
+#: batches, a checkpoint every RESUME_EVERY batches, killed at RESUME_KILL;
+#: RESUME_SPREAD bounds a resumed run by the uninterrupted run's own
+#: repeat where that is not bit for bit. Phases 57-58: the Predictor and a
+#: warm restart (ResNet-50 int8 at batch PRED_BATCH; the decode LM at
+#: PRED_SLOTS slots, PRED_NEW greedy tokens)
+RESUME_EPOCHS, RESUME_LM_BATCHES, RESUME_R50_BATCHES = 2, 4, 3
+RESUME_EVERY, RESUME_KILL, RESUME_SPREAD = 2, (1, 1), 10.0
+PRED_BATCH, PRED_SLOTS, PRED_NEW = 8, 8, 32
+#: phase 59: the 16-bit samplers' draw (the CPU draws it too, in int64
+#: PyTorch: the embedding table's 16.4M would take seconds there)
+SAMPLER_SHAPE = (D, D)
 #: phase 45 (the float16 LM step card vs CPU) at 2 of the 8 layers and T
 #: 32 of 128: the card machine's CPU takes float16 matmuls slowly (45-57 s
 #: for the two CPU steps at 8 layers and T 128, most of it the 32000-word
@@ -744,6 +762,9 @@ DH32_KERNELS = ("decode_attention", "decode_attention_bf16",
 #: heads, fitted at T HEADDIM_SEQ, batch HEADDIM_BATCH, HEADDIM_STEPS
 #: batches a run
 HEADDIMS = (16, 48, 80, 96, 112)
+#: phase 2's device-ms rows at those head dims (cut from HEADDIMS to fit
+#: the time limit; one Dh on each of the 64 and 128 tiles)
+HEADDIM_ROWS = (48, 112)
 HEADDIM_LAYERS, HEADDIM_SEQ, HEADDIM_BATCH, HEADDIM_STEPS = 2, 256, 4, 2
 #: phase 52, inputs the card once refused: LMs at a head dim that is no
 #: multiple of 16 and at one above 128 (phase 51's runs at each), a
@@ -1333,20 +1354,20 @@ WINDOW_CURSORS = [0, 1, 127, 128, 192, 63, 150, 31]
 LONG_CAP = 4096
 
 
-def _decode_caches(ck, rs, t, cache_dt, B, H, C, Dh):
-    """K and V caches of one instance from the same float32 draws: 16-bit
-    caches rounded once, fp8 ones cast as the decode path casts them."""
+def _decode_caches(ck, rs, t, cache_dt, B, H, C, Dh, base=None):
+    """K and V caches of one instance from the same float32 draws (new
+    ones, or ``base``, a float32 pair drawn once for several instances):
+    16-bit caches rounded once, fp8 ones cast as the decode path casts
+    them."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.rtc import fp8_cast
     dt = getattr(torch, cache_dt)
-    out = []
-    for _ in range(2):
-        c = t(rs.randn(B, H, C, Dh).astype(np.float32))
-        out.append(fp8_cast(c, dt) if dt in (torch.float8_e4m3fn,
-                                             torch.float8_e5m2)
-                   else c.to(dt))
-    return out
+    if base is None:
+        base = [t(rs.randn(B, H, C, Dh).astype(np.float32))
+                for _ in range(2)]
+    return [fp8_cast(c, dt) if dt in (torch.float8_e4m3fn, torch.float8_e5m2)
+            else c.to(dt) for c in base]
 
 
 def _decode_row(ck, name, q, kc, vc, pos, live_keys, scores, sdpa=True):
@@ -1421,14 +1442,20 @@ def _decode_long_rows(ck, rs, t):
     B, H = 8, N_HEAD
     pos = t([LONG_CAP - 1] * B, torch.int32)
     for dh in (64, 128):
+        # one float32 draw a Dh for every instance: 2 x 33.5M (Dh 128)
+        # normals from numpy take seconds on the card machine's host
+        base = [t(rs.randn(B, H, LONG_CAP, dh).astype(np.float32))
+                for _ in range(2)]
         for cache_dt, q_dt in DECODE_INSTANCES:
-            kc, vc = _decode_caches(ck, rs, t, cache_dt, B, H, LONG_CAP, dh)
+            kc, vc = _decode_caches(ck, rs, t, cache_dt, B, H, LONG_CAP, dh,
+                                    base)
             q = t(rs.randn(B, H, 1, dh).astype(np.float32)).to(
                 getattr(torch, q_dt))
             _decode_row(ck, f"decode long C={LONG_CAP} Dh={dh} {cache_dt}",
                         q, kc, vc, pos, B * LONG_CAP, B * LONG_CAP,
                         sdpa=not cache_dt.startswith("float8"))
             del kc, vc
+        del base
         torch.cuda.empty_cache()
 
 
@@ -1976,8 +2003,10 @@ def _headdim32_rows(ck, rs, t):
 
 
 def _headdim_rows(ck, rs, t):
-    """The attention kernels at the head dims between their tiles
-    (HEADDIMS), each on the smallest tile that holds it: every instance
+    """The attention kernels at head dims between their tiles
+    (HEADDIM_ROWS, one below the Dh 64 tile's full width and one below the
+    Dh 128 tile's; phase 51 fits every Dh of HEADDIMS and the card tests
+    hold every instance at each), each on the smallest tile that holds it: every instance
     against its plain version and timed (device ms, L2 flushed) beside
     its bound (the real Dh's bytes and flops) and, where it takes the
     type, SDPA's device time with the same mask: the decode read at the
@@ -1995,7 +2024,7 @@ def _headdim_rows(ck, rs, t):
     live = int(np.minimum(CAP, np.asarray(cursors) + 1).sum())
     pairs = LM_BATCH * LM_SEQ * (LM_SEQ + 1) // 2
     Ts = RING_SEQ // RING_SHARDS
-    for dh in HEADDIMS:
+    for dh in HEADDIM_ROWS:
         print(f"head dim {dh}: the decode read and the float32 flash "
               f"forward on the Dh {ck.head_tile(dh)} tile, the 16-bit "
               f"flash forward on the Dh {max(64, ck.head_tile(dh))} tile")
@@ -2011,12 +2040,15 @@ def _headdim_rows(ck, rs, t):
                                     label=f"dh{dh} decode window",
                                     instances=DECODE_INSTANCES[:2])
             del kc, vc
+        shape = (LM_BATCH, H, LM_SEQ, dh)
+        # one float32 draw a Dh for the three types (flash, then partial)
+        drawn = [t(rs.randn(*shape).astype(np.float32)) for _ in range(3)]
+        ring = [t(rs.randn(RING_BATCH, H, Ts, dh).astype(np.float32))
+                for _ in range(3)]
         for dtype in ("float32",) + tuple(HALF_SFX):
             dt = getattr(torch, dtype)
             peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
-            shape = (LM_BATCH, H, LM_SEQ, dh)
-            q, k, v = (t(rs.randn(*shape).astype(np.float32)).to(dt)
-                       for _ in range(3))
+            q, k, v = (x.to(dt) for x in drawn)
             got = ck.flash_attention(q, k, v, True)
             want = ck.flash_attention_plain(q, k, v, True)
             err = _max_err(got, want) if dtype == "float32" else \
@@ -2031,8 +2063,7 @@ def _headdim_rows(ck, rs, t):
             sdpa = _device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))
             del q, k, v
-            q, k, v = (t(rs.randn(RING_BATCH, H, Ts, dh).astype(np.float32))
-                       .to(dt) for _ in range(3))
+            q, k, v = (x.to(dt) for x in ring)
             e = _partial_err(
                 ck.flash_attention_partial(q, k, v, 2 * Ts, Ts, True),
                 ck.flash_attention_partial_plain(q, k, v, 2 * Ts, Ts, True))
@@ -2053,6 +2084,7 @@ def _headdim_rows(ck, rs, t):
                   f"{pbound[0]:.6f} ({pbound[1]}) x_bound "
                   f"{part / pbound[0]:.2f}")
             del q, k, v
+        del drawn, ring
         torch.cuda.empty_cache()
 
 
@@ -3164,7 +3196,8 @@ def _check_served(outs, stats):
 
 def phase_serve(mx, ck):
     """Full-width serve_decoder through its dispatch thread; returns the
-    per-kernel launch counts of the served run."""
+    per-kernel launch counts of the served run, the symbol, parameters,
+    prompts and the served chains."""
     import numpy as np
     rs = np.random.RandomState(SEED)
     sym, params = _model(mx, rs)
@@ -3217,7 +3250,7 @@ def phase_serve(mx, ck):
           f"cpu| = {worst:.3g} (tol {LOGIT_TOL})")
     if not worst <= LOGIT_TOL:
         raise AssertionError("card and CPU logits disagree")
-    return counts, sym, params, prompts
+    return counts, sym, params, prompts, outs
 
 
 def phase_profile(mx, sym, params, steps=16):
@@ -7257,7 +7290,56 @@ def _threefry_kernels(ck, rs, t, rec):
         library_call=lambda: torch.rand((V, D), device="cuda"),
         bound=_int_bound_ms(4 * n, THREEFRY_OPS * n))
     calls["uniform"] = lambda: ck.uniform(key, (V, D), device="cuda")
+    for dtype, name in ((torch.bfloat16, "uniform_bf16"),
+                        (torch.float16, "uniform_f16")):
+        calls[name] = _uniform16_row(ck, key, dtype, name, rec)
     return calls
+
+
+def _uniform16_row(ck, key, dtype, name, rec):
+    """The threefry kernel's 16-bit uniform instance against the plain
+    version: uniform draws at the embedding table's (V, D) (on the card:
+    integer arithmetic, the same bits on any device) and at the edges (on
+    the CPU) bit for bit, normal and exponential within UNIFORM16_ULPS of
+    the type (erfinvf / log1pf against PyTorch's, each rounded to the
+    type). Timed beside torch.rand in the type and the bound (2 bytes
+    written and threefry's integer operations an element). Returns the
+    call that device_ms times."""
+    import torch
+    from mxnet_tpu_torch import random as mxr
+    err = 0.0
+    for shape in ((V, D), (1,), (7,), (4099,)):
+        for lo, hi in ((0.0, 1.0), (-0.0765, 0.0765), (-2.5, 3.3)):
+            got = ck.uniform(key, shape, lo, hi, device="cuda", dtype=dtype)
+            want = ck.uniform_plain(key, shape, lo, hi,
+                                    device="cuda" if shape == (V, D)
+                                    else None, dtype=dtype)
+            if not torch.equal(got.to(want.device), want):
+                err = float("inf")
+    for transform in (mxr.NORMAL, mxr.EXPONENTIAL):
+        got = ck.uniform(key, (4099,), transform=transform, device="cuda",
+                         dtype=dtype).cpu()
+        want = ck.uniform_plain(key, (4099,), transform=transform,
+                                dtype=dtype)
+        ulps = int((got.view(torch.int16).long() -
+                    want.view(torch.int16).long()).abs().max())
+        print(f"kernel {name}: transform {transform} within {ulps} ulps "
+              f"of the plain version (limit {UNIFORM16_ULPS})")
+        if ulps > UNIFORM16_ULPS:
+            err = float("inf")
+    n = V * D
+    rec[name] = dict(
+        max_abs_err=err,
+        ms=_timed(lambda: ck.uniform(key, (V, D), device="cuda",
+                                     dtype=dtype), reps=50),
+        plain_ms=_timed(lambda: ck.uniform_plain(key, (V, D), device="cuda",
+                                                 dtype=dtype),
+                        reps=5, warm=1),
+        library_ms=_timed(lambda: torch.rand((V, D), device="cuda",
+                                             dtype=dtype), reps=50),
+        library_call=lambda: torch.rand((V, D), device="cuda", dtype=dtype),
+        bound=_int_bound_ms(2 * n, THREEFRY_OPS * n))
+    return lambda: ck.uniform(key, (V, D), device="cuda", dtype=dtype)
 
 
 def _int_bound_ms(nbytes, int_ops):
@@ -7481,6 +7563,644 @@ def phase_lm_dropout(mx, ck):
     return counts
 
 
+def _card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+class _Killed(Exception):
+    """A kill at a batch boundary: raised from the end callback, before
+    the boundary's checkpoint tick; the module is abandoned."""
+
+
+def _ckpt_dir(name):
+    """A fresh directory for a phase's checkpoints, under the checkout's
+    git-ignored build/."""
+    import shutil
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_ckpt", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _resume_fit(mx, sym, make_iter, init, optimizer, opt_params, seed,
+                kill_at=None, mgr=None, resume=False, stamps=None):
+    """One fit of RESUME_EPOCHS epochs on gpu(0) from the parameters
+    ``init`` (NDArrays, copied in) after ``mx.random.seed(seed)``;
+    ``kill_at`` raises out of the fit at that batch; ``stamps`` takes the
+    time at each batch's end (the card synchronized). Returns the
+    module."""
+    import torch
+    mx.random.seed(seed)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+
+    def cb(p):
+        if stamps is not None:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        if (p.epoch, p.nbatch) == kill_at:
+            raise _Killed()
+    try:
+        mod.fit(make_iter(), num_epoch=RESUME_EPOCHS, batch_end_callback=cb,
+                arg_params=init[0], aux_params=init[1], optimizer=optimizer,
+                optimizer_params=opt_params(), checkpoint=mgr, resume=resume)
+    except _Killed:
+        pass
+    torch.cuda.synchronize()
+    return mod
+
+
+def _fit_state(mod):
+    """(parameters, aux states, optimizer states by name, num_update):
+    the card's tensors, cloned."""
+    arg, aux = mod.get_params()
+    names = mod._param_names
+    states = {}
+    for i, st in mod._updater.states.items():
+        leaves = st if isinstance(st, tuple) else (st,)
+        states[names[i]] = [s.astorch().clone() for s in leaves
+                            if s is not None]
+    return ({k: v.astorch().clone() for k, v in arg.items()},
+            {k: v.astorch().clone() for k, v in aux.items()}, states,
+            mod._optimizer.num_update)
+
+
+def _state_diff(a, b):
+    """{array name: max |a - b|} over the arrays that differ."""
+    import torch
+    out = {}
+    for part in range(3):
+        for k, v in a[part].items():
+            for x, z in zip(v if part == 2 else [v],
+                            b[part][k] if part == 2 else [b[part][k]]):
+                if not torch.equal(x, z):
+                    out[k] = max(out.get(k, 0.0),
+                                 float((x.double() - z.double()).abs().max()))
+    if a[3] != b[3]:
+        out["num_update"] = float(abs(a[3] - b[3]))
+    return out
+
+
+def _repeat(label, full, again):
+    """Whether the uninterrupted run repeats itself bit for bit: prints it
+    (naming the arrays that do not repeat) and returns {array: its own
+    run-to-run difference}, empty when it repeats."""
+    rep = _state_diff(full, again)
+    if rep:
+        worst = sorted(rep.items(), key=lambda kv: -kv[1])[:6]
+        print(f"{label}: the uninterrupted run does NOT repeat itself bit "
+              f"for bit: {len(rep)} arrays differ, the largest {worst}")
+    else:
+        print(f"{label}: the uninterrupted run repeats itself bit for bit "
+              f"(parameters, aux states, optimizer states, num_update "
+              f"{full[3]})")
+    return rep
+
+
+def _resume_gate(label, what, full, rep, got):
+    """The bit-for-bit gate on ``got`` (the end state of ``what``): equal
+    to the uninterrupted run ``full``; where that run does not repeat
+    itself (``rep``, from ``_repeat``), within RESUME_SPREAD times its
+    own difference, array by array."""
+    diff = _state_diff(full, got)
+    if not diff:
+        print(f"{label}: {what}: bit for bit the uninterrupted run")
+        return
+    worst = sorted(diff.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{label}: {what} differs in {len(diff)} arrays, the largest "
+          f"{worst}")
+    if not rep:
+        raise AssertionError(f"{label}: {what} is not bit for bit the "
+                             "uninterrupted run, which repeats itself")
+    for k, d in diff.items():
+        if d > RESUME_SPREAD * rep.get(k, 0.0):
+            raise AssertionError(
+                f"{label}: {k} differs by {d} after {what}, more than "
+                f"{RESUME_SPREAD} x the uninterrupted run's own repeat "
+                f"{rep.get(k, 0.0)}")
+
+
+def _ckpt_metrics(mx, mgr_dir):
+    """The checkpoint telemetry of the last fit, read exactly from the
+    flight ring's ``ckpt.snapshot`` (exposed_us) and ``ckpt.commit``
+    (dur_us) records (the ``ckpt.exposed_stall.seconds`` and
+    ``ckpt.snapshot.seconds`` histograms hold the same observations in
+    buckets), and the newest commit's payload bytes."""
+    import numpy as np
+    recs = mx.telemetry.flightrec.get_records()
+    stall = np.array([r["exposed_us"] for r in recs
+                      if r.get("kind") == "ckpt.snapshot"]) / 1e6
+    commit = np.array([r["dur_us"] for r in recs
+                       if r.get("kind") == "ckpt.commit"]) / 1e6
+    hist = mx.telemetry.get_metric("ckpt.exposed_stall.seconds")
+    if hist is None or hist.count != len(stall):
+        raise AssertionError("ckpt.exposed_stall.seconds does not hold "
+                             "every save")
+    _, path = mx.checkpoint.latest_checkpoint(mgr_dir)
+    size = os.path.getsize(os.path.join(path, "state.pkl"))
+    return (f"ckpt.exposed_stall.seconds p50 {np.median(stall):.4f} max "
+            f"{stall.max():.4f} over {len(stall)} saves {stall.round(4)}; "
+            f"ckpt.snapshot.seconds p50 {np.median(commit):.3f} max "
+            f"{commit.max():.3f} over {len(commit)} commits; payload "
+            f"{size} bytes")
+
+
+def _grad_repeat(mx, sym, init, make_iter):
+    """One training step's gradients twice from the same state and key:
+    the names of the arrays whose gradients differ."""
+    import numpy as np
+    import torch
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    it = make_iter()
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=init[0], aux_params=init[1])
+    batch = next(iter(it))
+    grads = []
+    for _ in range(2):
+        mx.random.seed(SEED)
+        mod.forward_backward(batch)
+        torch.cuda.synchronize()
+        grads.append({n: g.astorch().clone() for n, g in zip(
+            mod._param_names, mod._exec_group.grad_arrays) if g is not None})
+    del mod
+    return sorted(n for n in grads[0]
+                  if not torch.equal(grads[0][n], grads[1][n]))
+
+
+def phase_lm_resume(mx, ck):
+    """The bench LM (dropout LM_DROPOUT) with Adam at lr 1e-3 under a
+    FactorScheduler, RESUME_EPOCHS epochs of RESUME_LM_BATCHES batches on
+    gpu(0), through kill and resume. First one step's gradients twice from
+    the same state and key, naming the arrays whose gradients do not
+    repeat; then, under PyTorch's deterministic algorithms (index_add_'s
+    deterministic route; uninitialized memory left unfilled), the
+    uninterrupted run twice (does it repeat itself bit for bit?), once
+    with a CheckpointManager saving every RESUME_EVERY batches (tokens/s
+    with and without it, the exposed stall, the snapshot seconds, the
+    payload's bytes; the same final state as without), killed at
+    RESUME_KILL, and resumed with fit(resume=dir) in a fresh Module under
+    another seed: bit for bit the uninterrupted run. Returns the resumed
+    fit's launch counts."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(True) + " (PyTorch's default, for the LM resume phase)")
+    sym = tfm.get_symbol(vocab_size=V, d_model=D, n_layer=N_LAYER,
+                         n_head=N_HEAD, seq_len=LM_SEQ, dropout=LM_DROPOUT)
+    start = mx.mod.Module(sym, context=mx.gpu(0))
+    start.bind([mx.io.DataDesc("data", (LM_BATCH, LM_SEQ), np.int32)],
+               [("softmax_label", (LM_BATCH * LM_SEQ,))])
+    start.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    init = start.get_params()
+    del start
+
+    def make_iter():
+        return tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, RESUME_LM_BATCHES,
+                                   seed=SEED)
+
+    def adam():
+        return {"learning_rate": 1e-3, "lr_scheduler":
+                mx.lr_scheduler.FactorScheduler(step=3, factor=0.5)}
+    label = "lm resume"
+    tokens = LM_BATCH * LM_SEQ
+    steps = RESUME_EPOCHS * RESUME_LM_BATCHES
+    print(f"{label}: on {_card_line()}; V={V} d_model={D} {N_LAYER} "
+          f"layers {N_HEAD} heads T={LM_SEQ} batch {LM_BATCH} dropout "
+          f"{LM_DROPOUT}, Adam lr 1e-3 "
+          f"FactorScheduler(3, 0.5), {RESUME_EPOCHS} epochs of "
+          f"{RESUME_LM_BATCHES} batches")
+    differ = _grad_repeat(mx, sym, init, make_iter)
+    print(f"{label}: one step's gradients twice from the same state and "
+          f"key: {len(differ)} arrays differ {differ[:4]}"
+          + (" - the embedding backward's index_add_ (float32 atomics over "
+             "a batch's repeated ids) does not repeat" if differ ==
+             ["lm_tok_embed_weight"] else ""))
+    print(f"{label}: the fits below run under "
+          "torch.use_deterministic_algorithms(True, warn_only=True), which "
+          "gives index_add_ its deterministic route")
+    det = torch.utils.deterministic
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        counts = _lm_resume_runs(mx, ck, sym, init, make_iter, adam, label,
+                                 tokens, steps)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+    return counts
+
+
+def _lm_resume_runs(mx, ck, sym, init, make_iter, adam, label, tokens,
+                    steps):
+    import numpy as np
+    ck.reset_launch_counts()
+    plain_stamps = []
+    full = _fit_state(_resume_fit(mx, sym, make_iter, init, "adam", adam,
+                                  SEED))
+    per_step = {k: v / steps for k, v in ck.launch_counts().items() if v}
+    print(f"{label}: launches a step {per_step}")
+    for name, want in (("adam_multi", 1), ("dropout", 2 * N_LAYER)):
+        if per_step.get(name) != want:
+            raise AssertionError(f"{label}: {name} launches a step "
+                                 f"{per_step.get(name)}, want {want}")
+    again = _fit_state(_resume_fit(mx, sym, make_iter, init, "adam", adam,
+                                   SEED, stamps=plain_stamps))
+    d_every = _ckpt_dir("lm_every")
+    mgr = mx.checkpoint.CheckpointManager(d_every,
+                                          every_n_batches=RESUME_EVERY,
+                                          keep_last=1)
+    ckpt_stamps = []
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    t0 = time.perf_counter()
+    try:
+        saved = _fit_state(_resume_fit(mx, sym, make_iter, init, "adam",
+                                       adam, SEED, mgr=mgr,
+                                       stamps=ckpt_stamps))
+        wall_ckpt = time.perf_counter() - t0
+        metrics = _ckpt_metrics(mx, d_every)
+    finally:
+        mx.telemetry.disable()
+        mgr.close()
+    for what, st in (("without", plain_stamps), ("with", ckpt_stamps)):
+        per = np.diff(st)
+        print(f"{label}: {what} the manager: {tokens / np.median(per):.1f} "
+              f"tokens/s at the median step ({np.median(per) * 1e3:.2f} "
+              f"ms), {tokens * len(per) / per.sum():.1f} tokens/s over "
+              f"steps 2-{steps}")
+    print(f"{label}: the saving fit took {wall_ckpt:.2f} s, the last "
+          f"commit's wait included; {metrics}")
+    d_kill = _ckpt_dir("lm_kill")
+    mgr = mx.checkpoint.CheckpointManager(d_kill,
+                                          every_n_batches=RESUME_EVERY)
+    try:
+        _resume_fit(mx, sym, make_iter, init, "adam", adam, SEED,
+                    kill_at=RESUME_KILL, mgr=mgr)
+    finally:
+        mgr.close()
+    seq, path = mx.checkpoint.latest_checkpoint(d_kill)
+    with open(os.path.join(path, "manifest.json")) as f:
+        cursor = json.load(f)["cursor"]
+    print(f"{label}: killed at {RESUME_KILL}; newest commit {seq} at "
+          f"cursor {cursor}")
+    ck.reset_launch_counts()
+    resumed_mod = _resume_fit(mx, sym, make_iter, init, "adam", adam,
+                              SEED + 99, resume=d_kill)
+    counts = ck.launch_counts()
+    print(f"{label}: the resumed fit's launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    rep = _repeat(label, full, again)
+    _resume_gate(label, "killed and resumed", full, rep,
+                 _fit_state(resumed_mod))
+    _resume_gate(label, f"the fit that saved every {RESUME_EVERY} batches",
+                 full, rep, saved)
+    import shutil
+    shutil.rmtree(os.path.dirname(d_kill), ignore_errors=True)
+    return counts
+
+
+def phase_resnet_resume(mx, ck):
+    """ResNet-50 at batch TRAIN_BATCH, SGD momentum 0.9 wd 1e-4, an
+    NDArrayIter with shuffle=True, RESUME_EPOCHS epochs of
+    RESUME_R50_BATCHES batches, under cuDNN's deterministic algorithms:
+    the uninterrupted run twice, killed at RESUME_KILL with a checkpoint
+    every RESUME_EVERY batches, resumed: the bit-for-bit gate. Returns
+    the resumed fit's launch counts."""
+    import torch
+    label = "resnet-50 resume"
+    print(_tf32(True) + " (PyTorch's default); cudnn.deterministic = True "
+          f"for this phase; on {_card_line()}")
+    n = RESUME_R50_BATCHES * TRAIN_BATCH
+    X, y = _images(n, SEED + 2)
+    args, auxs, _, _ = _resnet50_start(mx, 1)
+    init = (mx.convert.params_from_numpy(args, mx.gpu(0)),
+            mx.convert.params_from_numpy(auxs, mx.gpu(0)))
+    sym = _resnet50(mx)
+
+    def make_iter():
+        return mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH, shuffle=True)
+
+    def sgd():
+        return dict(SGD, momentum=0.9, wd=1e-4)
+    with _deterministic():
+        full = _fit_state(_resume_fit(mx, sym, make_iter, init, "sgd", sgd,
+                                      SEED))
+        again = _fit_state(_resume_fit(mx, sym, make_iter, init, "sgd", sgd,
+                                       SEED))
+        d = _ckpt_dir("resnet50")
+        mgr = mx.checkpoint.CheckpointManager(d,
+                                              every_n_batches=RESUME_EVERY)
+        try:
+            _resume_fit(mx, sym, make_iter, init, "sgd", sgd, SEED,
+                        kill_at=RESUME_KILL, mgr=mgr)
+        finally:
+            mgr.close()
+        seq, path = mx.checkpoint.latest_checkpoint(d)
+        with open(os.path.join(path, "manifest.json")) as f:
+            cursor = json.load(f)["cursor"]
+        print(f"{label}: killed at {RESUME_KILL}; newest commit {seq} at "
+              f"cursor {cursor}, "
+              f"{os.path.getsize(os.path.join(path, 'state.pkl'))} bytes")
+        ck.reset_launch_counts()
+        resumed = _fit_state(_resume_fit(mx, sym, make_iter, init, "sgd",
+                                         sgd, SEED + 99, resume=d))
+        counts = ck.launch_counts()
+    print(f"{label}: the resumed fit's launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for name in ("softmax", "softmax_ce_bwd", "sgd_mom_multi"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{label}: {name} did not launch")
+    _resume_gate(label, "killed and resumed", full,
+                 _repeat(label, full, again), resumed)
+    import shutil
+    shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _serve_all_pumped(server, model, requests):
+    """Each request through a FakeClock server, pumped: the outputs."""
+    outs = []
+    for x in requests:
+        h = server.submit({"data": x}, model=model)
+        server._clock.advance(1.0)
+        server.pump()
+        outs.append(h.result(timeout=0)[0].asnumpy())
+    return outs
+
+
+def _greedy_predictor(pred, prompts, new, slot_tokens=None):
+    """Greedy decode through a per-slot decode Predictor: every slot fed
+    its prompt a token a step, then ``new`` greedy steps. Returns (the
+    chains, the logits of every greedy step, forward ms a step)."""
+    import numpy as np
+    slots = len(prompts)
+    steps_ms, logits = [], []
+    toks = np.zeros((slots, 1), np.int32)
+    chains = [[] for _ in range(slots)]
+    for t in range(len(prompts[0]) + new - 1):
+        for s in range(slots):
+            toks[s, 0] = prompts[s][t] if t < len(prompts[s]) else \
+                chains[s][-1]
+        t0 = time.perf_counter()
+        out = pred.forward(data=toks)[0].asnumpy()[:, 0]
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        if t >= len(prompts[0]) - 1:
+            logits.append(out)
+            for s in range(slots):
+                chains[s].append(int(out[s].argmax()))
+    return chains, logits, float(np.median(steps_ms))
+
+
+def _chains_agree(label, got, got_logits, want):
+    """Greedy chains against the served ones: equal, or the first token
+    they differ at is a float32 near-tie of the Predictor's own logits
+    (the two tokens within LOGIT_TOL)."""
+    same = 0
+    for s, (g, w) in enumerate(zip(got, want)):
+        w = list(w[:len(g)])
+        if g == w:
+            same += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        row = got_logits[j][s]
+        if row[g[j]] - row[w[j]] > LOGIT_TOL:
+            raise AssertionError(
+                f"{label}: slot {s} token {j}: {g[j]} against the served "
+                f"{w[j]}, logits {row[g[j]]} vs {row[w[j]]}")
+    print(f"{label}: {same} of {len(got)} greedy chains equal the served "
+          "ones token for token (the others first differ at a near-tie)")
+
+
+def phase_predictor(mx, ck, params, prompts, served):
+    """The Predictor on the card. (a) ResNet-50 exported with
+    quantize="int8" at batch PRED_BATCH, served through
+    InferenceServer.register(predictor=path) beside a BucketEngine over
+    the same quantized graph at rung PRED_BATCH: the same outputs, the
+    quantized kernels read from their counters, forward ms of both.
+    (b) The bench decode LM exported per_slot at PRED_SLOTS slots: greedy
+    decode of phase 3's prompts, PRED_NEW tokens, through
+    Predictor.forward against serve_decoder's chains; reset_slot frees a
+    slot, which then decodes phase 3's first prompt again, token for token
+    as slot 0 did. Returns (launch counts, the server, its requests and
+    outputs, the artifact's directory)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(False) + f" (the Predictor against the engine); on "
+          f"{_card_line()}")
+    label = "predictor int8"
+    counts = {}
+    d = _ckpt_dir("predictor")
+    os.makedirs(d)
+    args, auxs, X, _ = _resnet50_start(mx, PRED_BATCH)
+    sym = _resnet50(mx)
+    path = os.path.join(d, "resnet50_int8.mxt")
+    t0 = time.perf_counter()
+    mx.export_model(path, sym, mx.convert.params_from_numpy(args, mx.cpu()),
+                    mx.convert.params_from_numpy(auxs, mx.cpu()),
+                    {"data": (PRED_BATCH,) + TRAIN_IMAGE}, quantize="int8")
+    print(f"{label}: exported in {time.perf_counter() - t0:.2f} s, "
+          f"{os.path.getsize(path)} bytes")
+    server = mx.serve.InferenceServer(clock=mx.serve.FakeClock())
+    server.register("r50-int8-pred", predictor=path)
+    server.register("r50-int8", symbol=sym,
+                    arg_params=mx.convert.params_from_numpy(args, mx.cpu()),
+                    aux_params=mx.convert.params_from_numpy(auxs, mx.cpu()),
+                    data_shapes={"data": TRAIN_IMAGE}, ladder=[PRED_BATCH],
+                    context=mx.gpu(0), compute_dtype="int8")
+    rs = np.random.RandomState(SEED + 3)
+    requests = [X[:r] + 0.01 * rs.rand(r, *TRAIN_IMAGE).astype(np.float32)
+                for r in (PRED_BATCH, 3, 5)]
+    ck.reset_launch_counts()
+    got = _serve_all_pumped(server, "r50-int8-pred", requests)
+    pcounts = ck.launch_counts()
+    want = _serve_all_pumped(server, "r50-int8", requests)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    print(f"{label}: PredictorEngine vs BucketEngine at rung {PRED_BATCH}: "
+          f"max |diff| {err:.3g} over {len(requests)} requests")
+    if err != 0.0:
+        raise AssertionError(f"{label}: the Predictor's outputs differ from "
+                             f"the BucketEngine's by {err}")
+    per_fwd = {k: v / len(requests) for k, v in pcounts.items() if v}
+    print(f"{label}: launches a Predictor forward {per_fwd}")
+    for name in QUANT_KERNELS:
+        if per_fwd.get(name) != 1:
+            raise AssertionError(f"{label}: {name} launches a forward "
+                                 f"{per_fwd.get(name)}, want 1")
+    counts.update(pcounts)
+    pred = server.engine("r50-int8-pred")._pred
+    eng = server.engine("r50-int8")
+    full = {"data": requests[0]}
+    for what, fn in (("Predictor.forward", lambda: pred.forward(**full)),
+                     ("BucketEngine.forward",
+                      lambda: eng.forward(PRED_BATCH, full))):
+        ms = _timed(lambda: fn()[0].asnumpy(), reps=10, warm=2, rounds=3)
+        print(f"{label}: {what} at batch {PRED_BATCH}: {ms:.3f} ms "
+              "(host to host)")
+
+    label = "predictor decode"
+    dsym = tfm.get_decode_symbol(vocab_size=V, d_model=D, n_layer=N_LAYER,
+                                 n_head=N_HEAD, capacity=CAP, per_slot=True)
+    dpath = os.path.join(d, "lm_decode.mxt")
+    mx.export_model(dpath, dsym, mx.convert.params_from_numpy(params,
+                                                               mx.cpu()),
+                    {}, {"data": (PRED_SLOTS, 1)},
+                    data_dtypes={"data": np.int32})
+    dpred = mx.Predictor(dpath)
+    if not dpred.stateful:
+        raise AssertionError(f"{label}: the decode artifact is not stateful")
+    ck.reset_launch_counts()
+    chains, logits, ms = _greedy_predictor(dpred, prompts[:PRED_SLOTS],
+                                           PRED_NEW)
+    dcounts = ck.launch_counts()
+    n_fwd = PROMPT + PRED_NEW - 1
+    print(f"{label}: {PRED_SLOTS} slots, {n_fwd} forwards, "
+          f"{ms:.3f} ms a forward (median, host to host); launches a "
+          f"forward { {k: v / n_fwd for k, v in dcounts.items() if v} }")
+    for name in DECODE_KERNELS:
+        if not dcounts[name] > 0:
+            raise AssertionError(f"{label}: {name} did not launch")
+    _chains_agree(label, chains, logits, served)
+    drv = _decoder(mx, dsym, params, mx.gpu(0), slots=PRED_SLOTS)
+    for s in range(PRED_SLOTS):
+        drv.join(s)
+    tok = np.zeros((PRED_SLOTS, 1), np.int32)
+    eng_ms = _timed(lambda: drv.step(tok).asnumpy(), reps=16, warm=2,
+                    rounds=3)
+    print(f"{label}: the engine's driver (BatchedKVCacheDecoder) step at "
+          f"{PRED_SLOTS} slots: {eng_ms:.3f} ms; the Predictor's forward "
+          f"{ms:.3f} ms")
+    del drv
+    ck.reset_launch_counts()
+    # free slot 3 and decode phase 3's first prompt there while the other
+    # slots go on with their chains
+    slot = 3
+    dpred.reset_slot(slot)
+    again = [list(prompts[s]) + chains[s] for s in range(PRED_SLOTS)]
+    toks = np.zeros((PRED_SLOTS, 1), np.int32)
+    fresh = []
+    for t in range(PROMPT + PRED_NEW - 1):
+        for s in range(PRED_SLOTS):
+            if s == slot:
+                toks[s, 0] = prompts[0][t] if t < PROMPT else fresh[-1]
+            else:
+                toks[s, 0] = again[s][-1]
+        out = dpred.forward(data=toks)[0].asnumpy()[:, 0]
+        for s in range(PRED_SLOTS):
+            if s != slot:
+                again[s].append(int(out[s].argmax()))
+        if t >= PROMPT - 1:
+            fresh.append(int(out[slot].argmax()))
+    same = fresh == chains[0]
+    print(f"{label}: slot {slot} freed by reset_slot decodes prompt 0 "
+          f"again: {'the same' if same else 'ANOTHER'} chain as slot 0")
+    if not same:
+        raise AssertionError(f"{label}: slot {slot} after reset_slot "
+                             f"decoded {fresh[:8]}..., slot 0 "
+                             f"{chains[0][:8]}...")
+    for k, v in ck.launch_counts().items():
+        dcounts[k] += v
+    for k, v in dcounts.items():
+        counts[k] = counts.get(k, 0) + v
+    del dpred
+    torch.cuda.empty_cache()
+    return counts, server, requests, {"r50-int8-pred": got,
+                                      "r50-int8": want}
+
+
+def phase_warm_restart(mx, ck, server, requests, outs):
+    """Phase 57's server committed with checkpoint_to, dropped, and
+    rebuilt by restore_server(dir, start=True) (the quantized kernels'
+    libraries unloaded first, so warmup loads them again): the seconds
+    from restore_server to the first response, the same requests' same
+    outputs, and no kernel build after warmup."""
+    import numpy as np
+    label = "warm restart"
+    print(f"{label}: on {_card_line()}")
+    d = _ckpt_dir("serve")
+    t0 = time.perf_counter()
+    seq = server.checkpoint_to(d)
+    print(f"{label}: checkpoint_to committed seq {seq} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    server.stop()
+    del server
+    _unload(ck, QUANT_KERNELS)
+    before = ck.libraries_loaded()
+    t0 = time.perf_counter()
+    restored = mx.serve.restore_server(d, start=True)
+    first = restored.submit({"data": requests[0]},
+                            model="r50-int8-pred").result(timeout=120)
+    t_first = time.perf_counter() - t0
+    try:
+        print(f"{label}: restore_server to the first response "
+              f"{t_first:.2f} s (warmup loaded "
+              f"{ck.libraries_loaded() - before} kernel libraries)")
+        got = {m: [restored.submit({"data": x}, model=m).result(
+            timeout=120)[0].asnumpy() for x in requests] for m in outs}
+        if not np.array_equal(first[0].asnumpy(), outs["r50-int8-pred"][0]):
+            raise AssertionError(f"{label}: the first response differs")
+        for m, want in outs.items():
+            err = max(float(np.abs(g - w).max())
+                      for g, w in zip(got[m], want))
+            print(f"{label}: {m}: max |restored - before| {err:.3g}")
+            if err != 0.0:
+                raise AssertionError(f"{label}: {m} answers differently "
+                                     "after the restart")
+        compiles = restored.stats()["compiles_since_warmup"]
+        print(f"{label}: compiles_since_warmup {compiles}")
+        if compiles != 0:
+            raise AssertionError(f"{label}: {compiles} kernel builds after "
+                                 "warmup")
+    finally:
+        restored.stop()
+    import shutil
+    shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+
+
+def phase_samplers16(mx, ck):
+    """The imperative samplers in bfloat16 and float16 on gpu(0) (the
+    threefry kernel's 16-bit instances) after mx.random.seed, at
+    SAMPLER_SHAPE: uniform bit for bit the CPU's draws after
+    the same seed, normal and exponential within UNIFORM16_ULPS. Returns
+    the launch counts."""
+    import torch
+    print(f"samplers: on {_card_line()}")
+    ck.reset_launch_counts()
+    for dtype in ("bfloat16", "float16"):
+        draws = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            mx.random.seed(SEED)
+            with ctx:
+                draws[ctx.device_type] = [t.astorch().cpu() for t in (
+                    mx.nd.random_uniform(low=-0.07, high=0.07,
+                                         shape=SAMPLER_SHAPE, dtype=dtype),
+                    mx.nd.random_normal(shape=SAMPLER_SHAPE, dtype=dtype),
+                    mx.nd.random_exponential(shape=SAMPLER_SHAPE,
+                                             dtype=dtype))]
+        cpu, gpu = draws["cpu"], draws["gpu"]
+        ulps = [int((a.view(torch.int16).long() -
+                     b.view(torch.int16).long()).abs().max())
+                for a, b in zip(cpu[1:], gpu[1:])]
+        same = torch.equal(cpu[0], gpu[0])
+        print(f"samplers {dtype}: uniform "
+              f"{'bit for bit' if same else 'DIFFERENT'}, normal / "
+              f"exponential within {ulps} ulps of the CPU's")
+        if not same or max(ulps) > UNIFORM16_ULPS:
+            raise AssertionError(f"samplers {dtype}: the card's draws "
+                                 "differ from the CPU's")
+    counts = ck.launch_counts()
+    for name in ("uniform_bf16", "uniform_f16"):
+        if counts[name] != 3:
+            raise AssertionError(f"{name}: {counts[name]} launches, want 3")
+    return counts
+
+
 class _PhaseClock:
     """Prints, on a line of its own, the seconds since the last call (or
     since it was made) under the phase's name."""
@@ -7516,7 +8236,7 @@ def main():
     tick("1 (build)")
     rec = phase_kernels(mx, ck)
     tick("2 (kernels)")
-    serve_counts, sym, params, prompts = phase_serve(mx, ck)
+    serve_counts, sym, params, prompts, served = phase_serve(mx, ck)
     tick("3 (serve)")
     phase_profile(mx, sym, params)
     tick("4 (decode profile)")
@@ -7653,6 +8373,19 @@ def main():
     tick("53 (AlexNet, VGG-16, Inception-BN, Inception-v3)")
     lm_drop_counts = phase_lm_dropout(mx, ck)
     tick("54 (the LM with Dropout)")
+    torch.cuda.empty_cache()
+    lm_resume_counts = phase_lm_resume(mx, ck)
+    tick("55 (the LM through kill and resume)")
+    r50_resume_counts = phase_resnet_resume(mx, ck)
+    tick("56 (ResNet-50 through kill and resume)")
+    pred_counts, pred_server, pred_reqs, pred_outs = phase_predictor(
+        mx, ck, params, prompts, served)
+    tick("57 (the Predictor)")
+    phase_warm_restart(mx, ck, pred_server, pred_reqs, pred_outs)
+    del pred_server
+    tick("58 (a warm restart)")
+    sampler_counts = phase_samplers16(mx, ck)
+    tick("59 (16-bit samplers)")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -7679,7 +8412,8 @@ def main():
         launches[name] = counts[name]
     launches.update(frozen_counts)
     for counts in (dh32_counts, headdim_counts, refused_counts, zoo_counts,
-                   lm_drop_counts):
+                   lm_drop_counts, lm_resume_counts, r50_resume_counts,
+                   pred_counts, sampler_counts):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the per-array kernels' launches: a caller's own Updater(i, g, w)

@@ -63,7 +63,10 @@ from . import module as mod
 from . import models
 from . import telemetry
 from . import faults
+from . import checkpoint
 from . import serve
 from . import convert
+from . import predict
+from .predict import export_model, Predictor
 
 __version__ = "0.1.0"

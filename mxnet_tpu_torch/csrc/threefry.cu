@@ -22,6 +22,17 @@
 // - uniform (float32): max(lo, fma(u, hi - lo, lo)) as XLA fuses it, then
 //   optionally sqrt(2) * erfinvf(.) (the normal sampler, lo = nextafter(-1,
 //   0), hi = 1) or -log1pf(-u) (the exponential sampler).
+// - uniform (bfloat16, float16): the draws of mx.random.draw in the type,
+//   bit for bit for uniform: the low 8 (bfloat16) or 16 (float16) random
+//   bits, their top 7 or 10 under the exponent of 1.0, minus 1 (exact);
+//   then u * span + lo with span = hi - lo rounded to the type by the
+//   caller: float16 takes the float32 product (exact: 11 by 11 bits) and
+//   the float32 sum, rounded once to float16, as XLA keeps float32 through
+//   it on the CPU; bfloat16 rounds the product and the sum each to the
+//   type, as XLA does; max(lo, .) in the type. normal is sqrt(2) (1.4140625
+//   in either type) times erfinv, and exponential -log1p(-u), each function
+//   rounded to the type and the product rounded again, as PyTorch computes
+//   them on 16-bit tensors.
 //
 // Bound: operations. threefry2x32 is ~73 integer operations on 32-bit
 // words for each 32 random bits, and an element of float32 Dropout moves
@@ -158,6 +169,67 @@ __global__ void uniform_f32(float* __restrict__ out, int64_t n, uint32_t k0,
   }
 }
 
+// The 16-bit types' draws: the random bits used (kMask), the shift that
+// leaves the mantissa's, 1.0's bits, and whether u * span + lo rounds each
+// op to the type (bfloat16) or once, from float32 (float16).
+template <typename T>
+struct Bits16;
+template <>
+struct Bits16<__half> {
+  static constexpr uint32_t kMask = 0xFFFFu, kShift = 6, kOne = 0x3C00u;
+  static constexpr bool kRoundEach = false;
+  static __device__ __forceinline__ float unit(uint32_t b) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(
+               ((b & kMask) >> kShift) | kOne))) - 1.0f;
+  }
+};
+template <>
+struct Bits16<__nv_bfloat16> {
+  static constexpr uint32_t kMask = 0xFFu, kShift = 1, kOne = 0x3F80u;
+  static constexpr bool kRoundEach = true;
+  static __device__ __forceinline__ float unit(uint32_t b) {
+    return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(
+               ((b & kMask) >> kShift) | kOne))) - 1.0f;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float round16(float x) {
+  return mxio::Half<T>::widen(mxio::Half<T>::round(x));
+}
+
+// transform as uniform_f32's; lo and span are values of the type T.
+template <typename T>
+__global__ void uniform_16(T* __restrict__ out, int64_t n, uint32_t k0,
+                           uint32_t k1, float lo, float span,
+                           int transform) {
+  constexpr float kSqrt2 = 1.4140625f;   // sqrt(2) rounded to T (both)
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float f = Bits16<T>::unit(
+        threefry_bits(k0, k1, static_cast<uint64_t>(i)));
+    float p = __fmul_rn(f, span);
+    if (Bits16<T>::kRoundEach) p = round16<T>(p);
+    float v = fmaxf(lo, round16<T>(__fadd_rn(p, lo)));
+    if (transform == 1)
+      v = round16<T>(__fmul_rn(kSqrt2, round16<T>(erfinvf(v))));
+    else if (transform == 2)
+      v = -round16<T>(log1pf(-v));
+    out[i] = mxio::Half<T>::round(v);
+  }
+}
+
+template <typename T>
+int launch_uniform_16(void* out, long long n, unsigned k0, unsigned k1,
+                      float lo, float span, int transform, void* stream) {
+  if (n > 0)
+    uniform_16<T><<<blocks_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(out), n, k0, k1, lo, span, transform);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y, mask (n,) in one dtype, contiguous, one device; keep the keep
@@ -193,4 +265,20 @@ extern "C" int mx_uniform_f32(void* out, long long n, unsigned k0,
                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<float*>(out), n, k0, k1, lo, span, transform);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out (n,) bfloat16 / float16: the draws of key (k0, k1), see uniform_16;
+// lo and span are values of the type.
+extern "C" int mx_uniform_bf16(void* out, long long n, unsigned k0,
+                               unsigned k1, float lo, float span,
+                               int transform, void* stream) {
+  return launch_uniform_16<__nv_bfloat16>(out, n, k0, k1, lo, span,
+                                          transform, stream);
+}
+
+extern "C" int mx_uniform_f16(void* out, long long n, unsigned k0,
+                              unsigned k1, float lo, float span,
+                              int transform, void* stream) {
+  return launch_uniform_16<__half>(out, n, k0, k1, lo, span, transform,
+                                   stream);
 }

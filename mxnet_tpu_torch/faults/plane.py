@@ -23,7 +23,8 @@ Unarmed, ``point()`` is one global load and one branch. Every trigger is
 a pure function of its private call counter, so an armed spec fires the
 same way every run. Each injection bumps ``faults.injected{point=...}``
 and leaves a ``fault.injected`` flight-ring record. The port's in-tree
-points are the serving server's ``serve.admit`` and ``serve.dispatch``.
+points are the serving server's ``serve.admit`` and ``serve.dispatch`` and
+the checkpoint writer's ``ckpt.write`` and ``ckpt.d2h``.
 """
 from __future__ import annotations
 

@@ -8,9 +8,19 @@ epoch-end callbacks given the current parameters, and an optional
 ``score`` over ``eval_data``. The JAX package's arrangements around that
 loop are not ported yet, and ``fit`` refuses each of them by name:
 ``zero_stage``, ``steps_per_dispatch`` > 1, ``remat``,
-``health``, ``elastic``, ``checkpoint`` / ``resume`` and ``monitor``.
+``health``, ``elastic`` and ``monitor``.
 ``spmd`` and ``mesh`` are taken (the sequence-parallel path: see
 ``module.Module``).
+
+Checkpoints (``checkpoint/``), as in the JAX package: ``checkpoint=`` (a
+``CheckpointManager`` or a directory; else ``MXNET_CKPT_DIR``) saves at
+the manager's cadence after each batch's end callback, with the cursor of
+the next batch, and at each epoch end with the cursor ``(epoch + 1, 0)``;
+the fit waits for the last commit before it returns, and a writer's
+failure raises there. ``resume=`` (True: the manager's directory, or a
+directory) restores the newest readable commit after the module is
+prepared and skips the batches of the cursor's epoch that were already
+trained, so the run ends bit for bit where an uninterrupted one ends.
 
 Per-batch telemetry, as in the JAX package: with the span tracer enabled
 each batch is a ``module.fit.batch`` span (histogram
@@ -28,6 +38,7 @@ flight-recorder ring.
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -45,8 +56,7 @@ __all__ = ["BaseModule"]
 #: fit() options of the JAX package that the port does not take yet,
 #: each with the value that leaves it off
 _NOT_PORTED = {"monitor": None, "steps_per_dispatch": 1, "zero_stage": 0,
-               "checkpoint": None, "resume": False, "elastic": False,
-               "remat": "none", "health": False}
+               "elastic": False, "remat": "none", "health": False}
 
 
 def _as_list(obj):
@@ -70,6 +80,7 @@ class BaseModule:
         self.params_initialized = False
         self.optimizer_initialized = False
         self._symbol = None
+        self._ckpt_manager = None
 
     @property
     def symbol(self):
@@ -97,12 +108,15 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            spmd=None, mesh=None, **not_ported):
+            spmd=None, mesh=None, checkpoint=None, resume=False,
+            **not_ported):
         """Train for ``num_epoch`` epochs over ``train_data``. The
         initializer defaults to ``Uniform(0.01)``. ``spmd`` (default
         ``MXNET_SPMD``, else off) and ``mesh`` (a ``parallel.MeshConfig``)
         are kept for the bind: see ``module.Module``; a module bound
-        otherwise raises unless ``force_rebind``."""
+        otherwise raises unless ``force_rebind``. ``checkpoint`` /
+        ``resume``: see the module docstring."""
+        from ..checkpoint import CheckpointManager, restore_module
         from ..initializer import Uniform
         unknown = set(not_ported) - set(_NOT_PORTED)
         if unknown:
@@ -117,23 +131,71 @@ class BaseModule:
                              "the PyTorch package yet (ROADMAP.md)")
         if num_epoch is None:
             raise ValueError("fit() needs num_epoch")
-        self._keep_spmd(spmd, mesh, force_rebind)
-        self.bind(data_shapes=train_data.provide_data,
-                  label_shapes=train_data.provide_label, for_training=True,
-                  force_rebind=force_rebind)
-        self.init_params(initializer=initializer or Uniform(0.01),
-                         arg_params=arg_params, aux_params=aux_params,
-                         allow_missing=allow_missing, force_init=force_init)
-        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
-                            optimizer_params=optimizer_params)
-        self._mfu_profile = self._build_mfu_profile(train_data)
-        eval_metric = metric_mod.create(eval_metric)
-        validation_metric = validation_metric or eval_metric
+        # the checkpoint arrangement: the argument, else MXNET_CKPT_DIR
+        # (which engages only on modules with an executor group: a full
+        # capture needs one; an explicit argument raises at the save)
+        if checkpoint is None and os.environ.get("MXNET_CKPT_DIR") and \
+                hasattr(self, "_exec_group"):
+            checkpoint = os.environ["MXNET_CKPT_DIR"]
+        mgr, mgr_owned = None, False
+        if checkpoint is not None:
+            if isinstance(checkpoint, CheckpointManager):
+                mgr = checkpoint
+            else:
+                mgr, mgr_owned = CheckpointManager(str(checkpoint)), True
+        if resume is True and mgr is None:
+            raise ValueError("fit(resume=True) needs a checkpoint manager "
+                             "(checkpoint=... or MXNET_CKPT_DIR)")
+        self._ckpt_manager = mgr
+        try:
+            self._keep_spmd(spmd, mesh, force_rebind)
+            self.bind(data_shapes=train_data.provide_data,
+                      label_shapes=train_data.provide_label,
+                      for_training=True, force_rebind=force_rebind)
+            self.init_params(initializer=initializer or Uniform(0.01),
+                             arg_params=arg_params, aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init)
+            self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                                optimizer_params=optimizer_params)
+            self._mfu_profile = self._build_mfu_profile(train_data)
+            # exact resume: the newest readable commit into the prepared
+            # module, then on from its cursor
+            skip_batches = 0
+            if resume:
+                cursor = restore_module(
+                    self, mgr.directory if resume is True else str(resume))
+                if cursor is not None and \
+                        int(cursor["epoch"]) >= begin_epoch:
+                    begin_epoch = int(cursor["epoch"])
+                    skip_batches = int(cursor["nbatch"])
+            eval_metric = metric_mod.create(eval_metric)
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric or eval_metric,
+                             epoch_end_callback, batch_end_callback,
+                             eval_end_callback, eval_batch_end_callback,
+                             begin_epoch, num_epoch, skip_batches)
+            if mgr is not None:
+                mgr.wait()          # the last checkpoint must be durable
+        finally:
+            self._ckpt_manager = None
+            if mgr_owned:
+                mgr.close()
 
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    skip_batches):
         for epoch in range(begin_epoch, num_epoch):
             start = time.time()
             eval_metric.reset()
+            skip = skip_batches if epoch == begin_epoch else 0
             for nbatch, batch in enumerate(train_data):
+                if nbatch < skip:
+                    # trained before the kill: consuming them keeps the
+                    # data stream aligned with the uninterrupted run
+                    continue
                 self._fit_batch(epoch, nbatch, batch,
                                 getattr(train_data, "batch_size", 0))
                 self.update_metric(eval_metric, batch.label)
@@ -142,6 +204,7 @@ class BaseModule:
                           BatchEndParam(epoch=epoch, nbatch=nbatch,
                                         eval_metric=eval_metric,
                                         locals=locals()))
+                self._ckpt_tick(epoch, nbatch)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -150,6 +213,10 @@ class BaseModule:
             if epoch_end_callback is not None:
                 for cb in _as_list(epoch_end_callback):
                     cb(epoch, self.symbol, arg_now, aux_now)
+            if self._ckpt_manager is not None:
+                # the epoch-boundary checkpoint: the cursor is the start
+                # of the next epoch
+                self._ckpt_manager.save(self, epoch + 1, 0)
             if eval_data:
                 for name, val in self.score(
                         eval_data, validation_metric,
@@ -159,6 +226,13 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def _ckpt_tick(self, epoch, nbatch):
+        """The batch-boundary checkpoint cadence. ``nbatch`` is the batch
+        that just retired, so the saved cursor is ``(epoch, nbatch + 1)``,
+        the next batch a resume runs."""
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.tick(self, epoch, nbatch + 1)
 
     def _fit_batch(self, epoch, nbatch, batch, batch_size):
         """One training batch with its telemetry (see the module's

@@ -124,3 +124,9 @@ class BucketingModule(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         return self._active.get_outputs(merge_multi_context)
+
+    def get_params(self):
+        """(arg_params, aux_params): the leader's cells, which every
+        bucket aliases."""
+        assert self.binded and self.params_initialized
+        return self._leader.get_params()

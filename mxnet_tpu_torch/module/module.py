@@ -37,6 +37,8 @@ import logging
 import os
 import pickle
 
+import numpy as np
+
 from .. import optimizer as opt
 from .. import random as _random
 from ..base import MXNetError
@@ -345,6 +347,41 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
+    # -------------------------------------------------- checkpoint state
+    def _opt_counts(self):
+        """Name-keyed update counts and the global count: the part of the
+        optimizer's state that is not per-parameter arrays (Adam's bias
+        correction, lr schedules)."""
+        o = self._optimizer
+        return {
+            "num_update": int(o.num_update),
+            "index_update_count": {
+                self._param_names[i]: int(c)
+                for i, c in o._index_update_count.items()
+                if 0 <= i < len(self._param_names)}}
+
+    def _restore_opt_counts(self, counts):
+        o = self._optimizer
+        o.num_update = int(counts.get("num_update", o.num_update))
+        idx = {nm: i for i, nm in enumerate(self._param_names)}
+        for nm, c in (counts.get("index_update_count") or {}).items():
+            if nm in idx:
+                o._index_update_count[idx[nm]] = int(c)
+
+    def rng_chain(self):
+        """The training step's key chain as uint32[2] (the JAX package's
+        ``rng_chain``), or None when no chain is armed or a reseed since
+        the last step means the next step draws a new one."""
+        if self._step_key is None or self._step_gen != _random.generation():
+            return None
+        return np.array(self._step_key, dtype=np.uint32)
+
+    def set_rng_chain(self, key):
+        """Reinstate a checkpointed chain and tag it with the current
+        generation, so the next step splits it instead of drawing anew."""
+        self._step_key = np.array(key, dtype=np.uint32).reshape(2)
+        self._step_gen = _random.generation()
+
     # ------------------------------------------------------ optimizer states
     def save_optimizer_states(self, fname):
         """Pickle the updater's states as host numpy arrays, keyed by
@@ -358,14 +395,10 @@ class Module(BaseModule):
             if isinstance(v, (tuple, list)):
                 return [host(x) for x in v]
             return v
-        o = self._optimizer
         payload = {
             "__format__": 2,
             "states": {k: host(v) for k, v in self._updater.states.items()},
-            "num_update": int(o.num_update),
-            "index_update_count": {
-                self._param_names[i]: int(c)
-                for i, c in o._index_update_count.items()}}
+            **self._opt_counts()}
         with open(fname, "wb") as fout:
             pickle.dump(payload, fout)
 
@@ -379,12 +412,7 @@ class Module(BaseModule):
                 payload.get("__format__") == 2):
             raise MXNetError(f"{fname}: not an optimizer-state file of the "
                              "staged layout (format 2)")
-        o = self._optimizer
-        o.num_update = int(payload.get("num_update", o.num_update))
-        idx = {nm: i for i, nm in enumerate(self._param_names)}
-        for nm, c in payload.get("index_update_count", {}).items():
-            if nm in idx:
-                o._index_update_count[idx[nm]] = int(c)
+        self._restore_opt_counts(payload)
         weights = self._exec_group.param_arrays
 
         def dev(v, ctx):

@@ -301,7 +301,9 @@ _SPECS = {
                                 "bf16": "mx_dropout_bf16",
                                 "f16": "mx_dropout_f16"},
                 [_P, _P, _P, _L, _U, _U, _F, _F, _P]),
-    "uniform": ("threefry.cu", {"f32": "mx_uniform_f32"},
+    "uniform": ("threefry.cu", {"f32": "mx_uniform_f32",
+                                "bf16": "mx_uniform_bf16",
+                                "f16": "mx_uniform_f16"},
                 [_P, _L, _U, _U, _F, _F, _I, _P]),
 }
 KERNELS = tuple(_SPECS)
@@ -2330,36 +2332,43 @@ def dropout_fn(x, key, keep):
 
 
 def uniform_plain(key, shape, lo=0.0, hi=1.0, transform=_random.UNIFORM,
-                  device=None):
-    """The float32 draws of ``uniform``: ``mx.random.draw``."""
-    return _random.draw(key, shape, transform, lo, hi, device=device)
+                  device=None, dtype=torch.float32):
+    """The draws of ``uniform``: ``mx.random.draw``."""
+    return _random.draw(key, shape, transform, lo, hi, dtype, device)
 
 
 @_wrapper("uniform")
 def uniform(key, shape, lo=0.0, hi=1.0, transform=_random.UNIFORM,
-            device=None):
-    """float32 draws of ``shape`` under ``key`` on ``device`` (default the
-    CPU): uniform in [lo, hi) (``max(lo, fma(u, hi - lo, lo))``, XLA's
-    arithmetic), or ``mx.random.NORMAL`` (``sqrt(2) * erfinv`` of a draw in
+            device=None, dtype=torch.float32):
+    """Draws of ``shape`` under ``key`` on ``device`` (default the CPU), of
+    ``dtype`` (float32, bfloat16 or float16): uniform in [lo, hi) (XLA's
+    arithmetic in the type: ``max(lo, fma(u, hi - lo, lo))`` in float32),
+    or ``mx.random.NORMAL`` (``sqrt(2) * erfinv`` of a draw in
     (nextafter(-1, 0), 1)) or ``EXPONENTIAL`` (``-log1p(-u)``), whose
-    ranges are their own. One launch on the card; the plain version on
-    the CPU."""
+    ranges are their own. One launch on the card, bit for bit
+    ``mx.random.draw`` for uniform draws; the plain version on the CPU."""
     device = torch.device(device if device is not None else "cpu")
     if device.type == "cpu":
-        return uniform_plain(key, shape, lo, hi, transform)
+        return uniform_plain(key, shape, lo, hi, transform, dtype=dtype)
     if device.type != "cuda":
         raise MXNetError(f"uniform: no kernel or plain version for device "
                          f"{device}")
     if transform == _random.NORMAL:
-        lo, hi = _random.normal_lo(torch.float32), 1.0
+        lo, hi = _random.normal_lo(dtype), 1.0
     elif transform == _random.EXPONENTIAL:
         lo, hi = 0.0, 1.0
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    inst = _instance("uniform", out)
     if out.numel():
         k0, k1 = _random.key_words(key)
-        lo32, hi32 = np.float32(lo), np.float32(hi)
-        _launch("uniform", "f32", out, out.data_ptr(), out.numel(), k0, k1,
-                float(lo32), float(np.float32(hi32 - lo32)), int(transform))
+        if dtype == torch.float32:
+            lo_t, hi_t = np.float32(lo), np.float32(hi)
+            span = np.float32(hi_t - lo_t)
+        else:       # the type's lo and hi - lo, as the plain version
+            lo_t = torch.tensor(lo, dtype=dtype)
+            span = torch.tensor(hi, dtype=dtype) - lo_t
+        _launch("uniform", inst, out, out.data_ptr(), out.numel(), k0, k1,
+                float(lo_t), float(span), int(transform))
     return out
 
 
@@ -2370,8 +2379,8 @@ def _sampler_cuda(name):
         dev = torch.device("cuda", torch.cuda.current_device())
         return [tensor_sample(
             name, attrs, rng, dev,
-            lambda key, shape, lo, hi, transform: uniform(
-                key, shape, lo, hi, transform, dev))], []
+            lambda key, shape, lo, hi, transform, dtype: uniform(
+                key, shape, lo, hi, transform, dev, dtype))], []
     return forward
 
 

@@ -264,9 +264,9 @@ def sample(name, attrs, key, device, uniform=None):
     Uniform, normal and exponential draws are the JAX package's bits
     (``mx.random.draw``; uniform bit for bit, normal and exponential
     within a few float32 ulps, since ``erfinv`` and ``log1p`` are not
-    XLA's polynomials), through ``uniform(key, shape, lo, hi, transform)``
-    where the caller passes one (the card's threefry kernel, float32) and
-    the plain version otherwise. Gamma, Poisson and the two negative
+    XLA's polynomials), through ``uniform(key, shape, lo, hi, transform,
+    dtype)`` where the caller passes one (the card's threefry kernel, in
+    float32, bfloat16 or float16) and the plain version otherwise. Gamma, Poisson and the two negative
     binomials draw with PyTorch's samplers (``torch._standard_gamma``,
     ``torch.poisson``) under a generator seeded from the key: their
     draws are the JAX package's in distribution (moments), not in value."""
@@ -278,10 +278,7 @@ def sample(name, attrs, key, device, uniform=None):
         if uniform is None:
             return _random.draw(key, shape, transform, lo, hi, dtype,
                                 device)
-        if dtype != torch.float32:
-            raise MXNetError(f"{name}: the card's threefry kernel draws "
-                             f"float32, got dtype {dtype}")
-        return uniform(key, shape, lo, hi, transform)
+        return uniform(key, shape, lo, hi, transform, dtype)
 
     if name == "_random_uniform":
         return base(_random.UNIFORM, attrs.get("low", 0.0),

@@ -16,9 +16,13 @@
 Config: ``MXNET_SERVE_BUCKETS`` (default ladder), ``MXNET_SERVE_MAX_QUEUE``,
 ``MXNET_SERVE_DEADLINE_MS``, ``MXNET_SERVE_QUANTIZE``; for decode
 ``MXNET_SERVE_DECODE_SLOTS``, ``MXNET_SERVE_PREFILL_CHUNK``,
-``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_PREFIX_CACHE_MB``. Warm restarts
-(``serve/warm.py``) and ``.mxp`` artifacts (``PredictorEngine``) are not
-ported yet and raise.
+``MXNET_SERVE_SPEC_K``, ``MXNET_SERVE_PREFIX_CACHE_MB``.
+
+* ``PredictorEngine`` (engine.py) — serves an artifact of
+  ``predict.export_model`` at its exported batch;
+* warm restarts (warm.py) — ``InferenceServer.checkpoint_to(manager)`` /
+  ``save_server`` commit the registry through ``checkpoint/``,
+  ``restore_server(directory)`` rebuilds it.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from .decode import (DecodeEngine, DecodeHandle, DecodeScheduler,
                      default_spec_k, serve_decoder)
 from .prefix import PrefixStore
 from .sampling import SamplingParams
+from .warm import save_server, restore_server, server_payload
 
 __all__ = ["MonotonicClock", "FakeClock", "BucketLadder",
            "QueueFullError", "ShedError", "CircuitOpenError",
@@ -45,4 +50,5 @@ __all__ = ["MonotonicClock", "FakeClock", "BucketLadder",
            "serve", "PoissonLoadGen", "run_scripted", "DecodeEngine",
            "DecodeScheduler", "DecodeHandle", "default_slot_ladder",
            "default_prefill_chunk", "default_spec_k", "PrefixStore",
-           "SamplingParams", "serve_decoder"]
+           "SamplingParams", "serve_decoder", "save_server",
+           "restore_server", "server_payload"]

@@ -28,8 +28,9 @@ of CUDA kernel libraries the process has built or loaded
 0. There are no program-cache keys to pin: ``program_keys()`` is empty
 and ``programs_resident()`` is True.
 
-``PredictorEngine`` serves ``.mxp`` artifacts, which hold StableHLO
-programs; it raises until ``predict.py`` is ported in a later slice.
+``PredictorEngine`` serves an artifact of ``predict.export_model``
+through a ``Predictor``: its ladder is the exported batch, and requests
+pad into it.
 """
 from __future__ import annotations
 
@@ -174,6 +175,7 @@ class BucketEngine(_EngineBase):
                 symbol, dict(arg_params or {}), dtype=str(compute_dtype))
             self.quantized = str(compute_dtype)
             compute_dtype = None
+        self._compute_dtype = compute_dtype
 
         if isinstance(data_shapes, dict):
             data_shapes = list(data_shapes.items())
@@ -250,10 +252,61 @@ class BucketEngine(_EngineBase):
 
 
 class PredictorEngine(_EngineBase):
-    """Serving an exported ``.mxp`` artifact: not ported yet."""
+    """Serve an artifact of ``predict.export_model`` directly.
 
-    def __init__(self, name, predictor, ladder=None):
-        raise MXNetError(
-            f"model {name!r}: .mxp artifacts hold StableHLO programs, and "
-            "predict.py (Predictor, export_model) is not ported yet (a "
-            "later slice); register the Module or symbol + params instead")
+    The artifact's shapes are fixed at export time, so the ladder is the
+    single exported batch size; requests pad into it. Re-export at other
+    batch sizes (or use ``BucketEngine``) for a multi-rung ladder.
+    ``predictor``: a path (loaded on ``context``, default the current
+    context) or a ``Predictor``."""
+
+    def __init__(self, name, predictor, ladder=None, context=None):
+        from ..predict import Predictor
+        # keep the artifact path (when there is one) so warm restarts can
+        # re-register this engine from disk (serve/warm.py)
+        self._path = predictor if isinstance(predictor, str) \
+            else getattr(predictor, "_path", None)
+        if isinstance(predictor, str):
+            predictor = Predictor(predictor, device=context)
+        self._pred = predictor
+        shapes = predictor.input_shapes
+        batches = {s[0] for s in shapes.values()}
+        if len(batches) != 1:
+            raise MXNetError(
+                f"model {name!r}: exported inputs disagree on the batch "
+                f"dim ({sorted(batches)}); cannot derive a bucket")
+        exported = batches.pop()
+        if ladder is not None and list(BucketLadder(ladder)) != [exported]:
+            raise MXNetError(
+                f"model {name!r}: an exported artifact serves only its "
+                f"exported batch size {exported}; re-export to change the "
+                "ladder")
+        super().__init__(name, [exported])
+        self.data_names = tuple(shapes)
+        self.example_shapes = {nm: tuple(s[1:])
+                               for nm, s in shapes.items()}
+        self.input_dtypes = dict(predictor.input_dtypes)
+
+    def forward(self, bucket, values):
+        if bucket != self.ladder.max:
+            raise MXNetError(f"model {self.name!r}: exported batch is "
+                             f"{self.ladder.max}, got bucket {bucket}")
+        return self._pred.forward(**values)
+
+    def warmup(self, clock):
+        """Base warmup, then rewind a stateful artifact's carried state:
+        the warmup forwards advance a KV-cache decoder's cache with
+        zero-token garbage, and served decode steps must start from the
+        exported snapshot."""
+        est = super().warmup(clock)
+        self.reset_session()
+        return est
+
+    def reset_session(self):
+        """Rewind a stateful artifact's decoder state: the next submit
+        starts a fresh decode session."""
+        self._pred.reset_state()
+
+    @property
+    def output_names(self):
+        return self._pred.output_names

@@ -140,11 +140,13 @@ class InferenceServer:
         params, per-row input shapes and context are extracted), or
         explicit ``symbol`` + ``arg_params``/``aux_params`` +
         ``data_shapes`` (dict input name -> per-ROW shape, no batch dim).
-        ``predictor`` (a ``.mxp`` artifact) raises until ``predict.py``
-        is ported.
+        ``predictor``: an artifact of ``predict.export_model`` (a path,
+        loaded on ``context``, or a ``Predictor``), served by a
+        ``PredictorEngine`` at its exported batch.
         """
         if predictor is not None:
-            engine = PredictorEngine(name, predictor, ladder=ladder)
+            engine = PredictorEngine(name, predictor, ladder=ladder,
+                                     context=context)
         else:
             if model is not None:
                 if not (model.binded and model.params_initialized):
@@ -565,12 +567,13 @@ class InferenceServer:
 
     # --------------------------------------------------------- warm restart
     def checkpoint_to(self, manager, block=True):
-        """Warm restarts persist the server through ``serve/warm.py`` and
-        ``checkpoint/``, which come with the multi-GPU slice."""
-        raise MXNetError(
-            "InferenceServer.checkpoint_to: warm restarts (serve/warm.py "
-            "over checkpoint/) are not ported yet — they come with the "
-            "multi-GPU slice")
+        """Persist the registry and ladder configuration (symbols, params,
+        shapes, ladders, artifact paths) through a ``CheckpointManager``
+        (or a directory string) so a restarted process can rebuild this
+        server with ``serve.restore_server`` and serve again with zero
+        kernel builds beyond warmup. Returns the committed seq."""
+        from .warm import save_server
+        return save_server(self, manager, block=block)
 
     # ---------------------------------------------------------------- stats
     def stats(self):
@@ -634,8 +637,8 @@ def serve(model, name="default", ladder=None, start=True, clock=None,
           breaker_cooldown_ms=None, shed_watermark=None, **register_kw):
     """One-call front end: ``serve(model).submit({...})``.
 
-    ``model``: a bound+initialized Module (a ``.mxp`` path reaches
-    ``PredictorEngine``, which raises until ``predict.py`` is ported).
+    ``model``: a bound+initialized Module, or the path of an artifact of
+    ``predict.export_model`` (served by a ``PredictorEngine``).
     Builds a single-model ``InferenceServer``, warms the ladder on the
     Module's context (the card, unless it was bound on ``mx.cpu()``), and
     by default starts the dispatch thread; use ``start=False`` +

@@ -3544,7 +3544,8 @@ def test_dropout_op_and_samplers_on_card(dev):
     """A Dropout graph's forward and gradients on the card equal the
     CPU's after the same seed (the same key chain, the masks bit for
     bit); the imperative samplers and an initializer draw the CPU's
-    values; a 16-bit sampler on the card raises."""
+    values, in float32 and in the 16-bit types (the threefry kernel's
+    16-bit instances)."""
     def graph():
         d = mx.sym.Dropout(mx.sym.var("data"), p=0.4, name="d0")
         return mx.sym.Group([d, mx.sym.Dropout(d, p=0.25, name="d1")])
@@ -3574,8 +3575,50 @@ def test_dropout_op_and_samplers_on_card(dev):
         draws[ctx.device_type] = (u.asnumpy(), w.asnumpy())
     for a, b in zip(draws["cpu"], draws["gpu"]):
         assert np.array_equal(a, b)
-    with mx.gpu(0), pytest.raises(MXNetError, match="float32"):
-        mx.nd.random_uniform(shape=(3,), dtype="float16")
+    for dtype, name in (("float16", "uniform_f16"),
+                        ("bfloat16", "uniform_bf16")):
+        got = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            mx.random.seed(13)
+            before = ck.launch_counts()[name]
+            with ctx:
+                u = mx.nd.random_uniform(low=-1.0, high=2.0, shape=(33, 7),
+                                         dtype=dtype)
+            if ctx.device_type == "gpu":
+                assert ck.launch_counts()[name] == before + 1
+            got[ctx.device_type] = u.astorch().cpu()
+        assert torch.equal(got["cpu"], got["gpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_uniform_kernel_16bit(dev, dtype):
+    """The 16-bit instances: uniform draws bit for bit the plain
+    version's (the type's low random bits, float16's single rounding of
+    the float32 product and sum, bfloat16's rounding at each op); normal
+    and exponential within 1 ulp of the type (erfinvf / log1pf against
+    PyTorch's, each rounded to the type); one launch a call, counted
+    under its own counter."""
+    name = {torch.bfloat16: "uniform_bf16", torch.float16: "uniform_f16"}[
+        dtype]
+    key = _tkey(9)
+
+    def ulps(a, b):
+        return int((a.view(torch.int16).long() -
+                    b.view(torch.int16).long()).abs().max())
+    for shape in ((1,), (7,), (3, 5, 11), (1 << 20,)):
+        for lo, hi in ((0.0, 1.0), (-0.07, 0.07), (-2.5, 3.3)):
+            before = ck.launch_counts()[name]
+            got = ck.uniform(key, shape, lo, hi, device=dev, dtype=dtype)
+            assert ck.launch_counts()[name] == before + 1
+            assert got.dtype == dtype
+            assert torch.equal(got.cpu(), ck.uniform_plain(
+                key, shape, lo, hi, dtype=dtype))
+        for tr in (mx.random.NORMAL, mx.random.EXPONENTIAL):
+            got = ck.uniform(key, shape, transform=tr, device=dev,
+                             dtype=dtype).cpu()
+            assert ulps(got, ck.uniform_plain(key, shape, transform=tr,
+                                              dtype=dtype)) <= 1
 
 
 # ------------------------------------------ grid and index limits lifted
@@ -3630,3 +3673,193 @@ def test_flash_attention_rows_past_one_grid(dev, dtype, dh):
     want = ck.flash_attention_plain(q, k, v, False)
     tol = TOL if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------- checkpoint, Predictor, warm restarts
+def _ckpt_mlp():
+    data = mx.sym.var("data")
+    act = mx.sym.Activation(mx.sym.FullyConnected(
+        data, num_hidden=32, name="fc1"), act_type="relu")
+    act = mx.sym.Dropout(act, p=0.3)
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        act, num_hidden=5, name="fc2"), name="softmax")
+
+
+class _CkptKill(Exception):
+    pass
+
+
+def _ckpt_fit(ctx, kill_at=None, ckpt=None, resume=False, seed=7):
+    rs = np.random.RandomState(0)
+    X, y = rs.rand(48, 20).astype("f"), rs.randint(0, 5, 48).astype("f")
+    mx.random.seed(seed)
+    it = mx.io.NDArrayIter(X, y, batch_size=8)
+    mod = mx.mod.Module(_ckpt_mlp(), context=ctx)
+    rs = np.random.RandomState(1)
+    args = {"fc1_weight": rs.randn(32, 20) * 0.1, "fc1_bias": np.zeros(32),
+            "fc2_weight": rs.randn(5, 32) * 0.1, "fc2_bias": np.zeros(5)}
+
+    def cb(p):
+        if (p.epoch, p.nbatch) == kill_at:
+            raise _CkptKill()
+    mgr = mx.checkpoint.CheckpointManager(ckpt, every_n_batches=2) \
+        if ckpt else None
+    try:
+        mod.fit(it, num_epoch=2, batch_end_callback=cb, optimizer="adam",
+                arg_params=mx.convert.params_from_numpy(
+                    {k: v.astype("f") for k, v in args.items()}, mx.cpu()),
+                optimizer_params={"learning_rate": 0.01, "lr_scheduler":
+                                  mx.lr_scheduler.FactorScheduler(4, 0.5)},
+                checkpoint=mgr, resume=resume)
+    except _CkptKill:
+        pass
+    finally:
+        if mgr is not None:
+            mgr.close()
+    return mod
+
+
+@pytest.mark.cuda
+def test_checkpoint_kill_resume_on_card_bit_for_bit(dev, tmp_path):
+    """A CUDA module killed at (1, 2) resumes in a fresh one under another
+    seed and ends bit for bit on the uninterrupted card fit: parameters,
+    Adam states, counts; the resumed fit launches adam_multi and dropout
+    on the card."""
+    ctx = mx.gpu(0)
+    full = _ckpt_fit(ctx)
+    d = str(tmp_path / "ck")
+    _ckpt_fit(ctx, kill_at=(1, 2), ckpt=d)
+    before = ck.launch_counts()
+    resumed = _ckpt_fit(ctx, resume=d, seed=99)
+    after = ck.launch_counts()
+    for name in ("adam_multi", "dropout"):
+        assert after[name] > before[name], name
+    a, b = full.get_params()[0], resumed.get_params()[0]
+    for k in a:
+        assert torch.equal(a[k].astorch(), b[k].astorch()), k
+    for i, st in full._updater.states.items():
+        for x, z in zip(st, resumed._updater.states[i]):
+            assert torch.equal(x.astorch(), z.astorch())
+    assert full._opt_counts() == resumed._opt_counts()
+
+
+@pytest.mark.cuda
+def test_checkpoint_capture_on_card_is_not_torn(dev, tmp_path, monkeypatch):
+    """The writer is held back before its device-to-host copy while two
+    more steps update the weights and Adam states in place on the card;
+    the commit holds the values of the captured step."""
+    from mxnet_tpu_torch.checkpoint import state as cstate
+    import threading
+    mod = _ckpt_fit(mx.gpu(0))
+    want = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    release, entered = threading.Event(), threading.Event()
+    plain = cstate.to_host
+
+    def held(snap):
+        entered.set()
+        assert release.wait(60)
+        return plain(snap)
+    monkeypatch.setattr(cstate, "to_host", held)
+    mgr = mx.checkpoint.CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(mod, 2, 0)
+    assert entered.wait(60)
+    rs = np.random.RandomState(3)
+    it = mx.io.NDArrayIter(rs.rand(16, 20).astype("f"),
+                           rs.randint(0, 5, 16).astype("f"), batch_size=8)
+    for batch in it:
+        mod.forward_backward(batch)
+        mod.update()
+    assert not np.array_equal(mod.get_params()[0]["fc1_weight"].asnumpy(),
+                              want["fc1_weight"])
+    release.set()
+    mgr.wait()
+    mgr.close()
+    _, _, payload = mx.checkpoint.read_committed_payload(str(tmp_path /
+                                                             "ck"))
+    for k, v in want.items():
+        assert np.array_equal(payload["device"]["arg_params"][k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_predictor_on_card_matches_cpu(dev, tmp_path, quantize):
+    """The same artifact through a Predictor on the card and on the CPU:
+    float32 within 1e-5, int8 within 1e-5 of the largest logit (the
+    quantized kernels sum in another order), with the quantized kernels
+    launched on the card."""
+    data = mx.sym.var("data")
+    c = mx.sym.Activation(mx.sym.Convolution(
+        data, kernel=(3, 3), num_filter=8, pad=(1, 1), name="conv1"),
+        act_type="relu")
+    sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Flatten(c), num_hidden=6, name="fc"), name="softmax")
+    shapes = {"data": (4, 3, 8, 8)}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    rs = np.random.RandomState(0)
+    params = {n: (0.3 * rs.randn(*s)).astype("f")
+              for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    path = str(tmp_path / "m.mxt")
+    mx.export_model(path, sym, mx.convert.params_from_numpy(params, mx.cpu()),
+                    {}, shapes, quantize=quantize)
+    x = rs.rand(*shapes["data"]).astype("f")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = ck.launch_counts()
+        got = mx.Predictor(path).forward(data=x)[0].asnumpy()
+        after = ck.launch_counts()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    want = mx.Predictor(path, device=mx.cpu()).forward(data=x)[0].asnumpy()
+    assert after["softmax"] == before["softmax"] + 1
+    if quantize:
+        assert after["qfc_matmul"] == before["qfc_matmul"] + 1
+        assert after["dequant_rows_multi"] == before["dequant_rows_multi"] + 1
+    assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_restore_server_on_card_builds_nothing_after_warmup(dev, tmp_path):
+    """A card server (a bucket model and a Predictor) committed with
+    ``checkpoint_to`` and restored with ``restore_server`` answers the
+    same requests with the same outputs and no kernel build after
+    warmup."""
+    data = mx.sym.var("data")
+    sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        data, num_hidden=6, name="fc"), name="softmax")
+    rs = np.random.RandomState(0)
+    params = {"fc_weight": rs.randn(6, 12).astype("f"),
+              "fc_bias": rs.randn(6).astype("f")}
+    path = str(tmp_path / "m.mxt")
+    mx.export_model(path, sym, mx.convert.params_from_numpy(params, mx.cpu()),
+                    {}, {"data": (4, 12)})
+    clock = mx.serve.FakeClock()
+    server = mx.serve.InferenceServer(clock=clock)
+    server.register("b", symbol=sym,
+                    arg_params=mx.convert.params_from_numpy(params, mx.cpu()),
+                    aux_params={}, data_shapes={"data": (12,)},
+                    ladder=[1, 4], context=mx.gpu(0))
+    server.register("p", predictor=path)
+    xs = [rs.rand(r, 12).astype("f") for r in (1, 3, 4)]
+
+    def answers(srv):
+        out = []
+        for m in ("b", "p"):
+            for x in xs:
+                h = srv.submit({"data": x}, model=m)
+                srv._clock.advance(1.0)
+                srv.pump()
+                out.append(h.result(timeout=0)[0].asnumpy())
+        return out
+    want = answers(server)
+    server.checkpoint_to(str(tmp_path / "ck"))
+    del server
+    restored = mx.serve.restore_server(str(tmp_path / "ck"),
+                                       clock=mx.serve.FakeClock())
+    for g, w in zip(answers(restored), want):
+        assert np.array_equal(g, w)
+    assert restored.stats()["compiles_since_warmup"] == 0

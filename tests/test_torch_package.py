@@ -4,10 +4,12 @@
   ``ml_dtypes`` (the numpy fp8 dtypes the JAX package's quantized tier
   uses) — checked in a fresh interpreter that also quantizes to fp8,
   serves, touches the telemetry and fault planes, takes a gradient
-  through ``mx.autograd`` and registers a user op through ``mx.rtc`` —
+  through ``mx.autograd``, registers a user op through ``mx.rtc``,
+  commits a checkpoint and exports and runs an fp8 artifact through
+  ``mx.Predictor`` —
   and no source
-  file of the port, its ``telemetry/`` and ``faults/`` subpackages
-  included, nor ``chip_smoke.py`` imports any of them (checked on the
+  file of the port, its ``telemetry/``, ``faults/`` and ``checkpoint/``
+  subpackages included, nor ``chip_smoke.py`` imports any of them (checked on the
   syntax tree);
 * entry points default to the card: ``current_context()`` is ``gpu(0)``,
   and without CUDA, binding there raises instead of running on the host
@@ -70,6 +72,18 @@ def test_import_leaves_jax_out():
             "reference=lambda a, v: v + 1)\n"
             "assert mx.nd.pkg_probe(x).asnumpy().tolist() == [2] * 3\n"
             "mx.operator.CustomOpProp; mx.rtc.Rtc\n"
+            "import tempfile, os; d = tempfile.mkdtemp()\n"
+            "net = mx.sym.FullyConnected(mx.sym.var('data'), num_hidden=2, "
+            "name='fc')\n"
+            "m = mx.mod.Module(net, label_names=[], context=mx.cpu())\n"
+            "m.bind([('data', (1, 3))], None)\n"
+            "m.init_params(mx.initializer.Xavier()); m.init_optimizer()\n"
+            "mx.checkpoint.CheckpointManager(d, retry_policy="
+            "mx.faults.RetryPolicy()).save(m, block=True)\n"
+            "a, _ = m.get_params(); p = os.path.join(d, 'm.mxt')\n"
+            "mx.export_model(p, net, a, {}, {'data': (1, 3)}, quantize='fp8')\n"
+            "mx.Predictor(p, device=mx.cpu()).forward(data=np.ones((1, 3)))\n"
+            "mx.serve.restore_server; mx.serve.PredictorEngine\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nassert not bad, bad\n")

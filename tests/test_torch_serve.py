@@ -16,11 +16,13 @@ a FakeClock, make the same dispatches (bucket sequence, occupancy,
 padding waste, deadline misses) and return per-request outputs within
 2e-5 (float32 sums in other orders), in float32 and in int8.
 
-What is not ported raises ``MXNetError``: ``.mxp`` artifacts
-(``PredictorEngine``), warm restarts (``checkpoint_to``) and
-``compute_dtype="float16"`` (bfloat16 is served: ``test_torch_bf16.py``).
+What is not ported raises ``MXNetError``: the JAX package's ``.mxp``
+artifacts (StableHLO programs) and a ``compute_dtype`` with no mixed
+precision (bfloat16 and float16 are served: ``test_torch_bf16.py``).
 """
 import threading
+
+import zipfile
 
 import numpy as np
 import pytest
@@ -572,14 +574,20 @@ def test_serve_quantize_env_default(monkeypatch, tier):
     assert server.engine().quantized == tier
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(tmp_path):
+    # warm restarts and the port's own artifacts are ported
+    # (tests/test_torch_warm.py, tests/test_torch_predict.py); a JAX
+    # package .mxp, a StableHLO program, still raises, naming its format
     server = _serve(_mlp("np"), ladder=[1])
-    with pytest.raises(MXNetError, match="multi-GPU slice"):
-        server.checkpoint_to("/nonexistent")
-    with pytest.raises(MXNetError, match="predict.py"):
-        mx.serve.serve("model.mxp", start=False)
-    with pytest.raises(MXNetError, match="predict.py"):
-        mx.serve.PredictorEngine("m", "model.mxp")
+    assert server.checkpoint_to(str(tmp_path / "ck")) == 1
+    mxp = str(tmp_path / "model.mxp")
+    with zipfile.ZipFile(mxp, "w") as z:
+        z.writestr("manifest.json", "{}")
+        z.writestr("program.stablehlo", b"")
+    with pytest.raises(MXNetError, match="StableHLO"):
+        mx.serve.serve(mxp, start=False, context=CPU)
+    with pytest.raises(MXNetError, match="StableHLO"):
+        mx.serve.PredictorEngine("m", mxp, context=CPU)
     # float16 serves now (the float16 slice); a type with no mixed
     # precision still raises, naming the two that are ported
     x = np.random.RandomState(2).rand(1, FEATS).astype(np.float32)

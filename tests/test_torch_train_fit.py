@@ -172,12 +172,16 @@ def test_fit_refuses_what_is_not_ported():
     it = mxt.io.NDArrayIter(X, y, batch_size=8)
     for kw in ({"zero_stage": 1}, {"steps_per_dispatch": 4},
                {"remat": "all"}, {"health": True}, {"elastic": True},
-               {"checkpoint": "/nonexistent"}, {"resume": True},
                {"monitor": object()}):
         mod = mxt.mod.Module(tmlp.get_symbol(10), context=CPU)
         with pytest.raises(MXNetError, match=next(iter(kw))):
             mod.fit(it, num_epoch=1, **kw)
+    # checkpoint= / resume= are ported (tests/test_torch_checkpoint.py);
+    # resume=True without a manager to resume from raises, as in the JAX
+    # package
     mod = mxt.mod.Module(tmlp.get_symbol(10), context=CPU)
+    with pytest.raises(ValueError, match="resume"):
+        mod.fit(it, num_epoch=1, resume=True)
     with pytest.raises(MXNetError, match="kvstore"):
         mod.fit(it, num_epoch=1, kvstore="dist_sync")
     with pytest.raises(MXNetError, match="one device"):

@@ -1,0 +1,65 @@
+"""chip_smoke.py's phases 55-59 alone, on the card: the build (phase 1),
+the threefry rows of phase 2, the decode serving of phase 3 (whose
+parameters, prompts and served chains phase 57 reads), then the phases
+named on the command line (default all):
+
+    python3 tools/slice_phases.py [55] [56] [57] [58] [59]
+
+55: the bench LM through kill and resume; 56: ResNet-50 through kill and
+resume; 57: the Predictor (58, a warm restart, needs 57); 59: the 16-bit
+samplers."""
+import os
+import sys
+
+here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, here)
+import chip_smoke as cs  # noqa: E402
+
+
+def main():
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    tick = cs._PhaseClock()
+    smi = cs.phase_build(ck)
+    print(smi)
+    tick("1 (build)")
+    rec = {}
+    rs = np.random.RandomState(0)
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a)).to("cuda", dtype)
+    calls = cs._threefry_kernels(ck, rs, t, rec)
+    for name in ("uniform_bf16", "uniform_f16", "uniform"):
+        r = rec[name]
+        dev_ms = cs._device_ms(calls[name])
+        print(f"kernel {name}: max_abs_err={r['max_abs_err']} "
+              f"kernel_ms={r['ms']:.5f} device_ms={dev_ms} "
+              f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']} "
+              f"library_device_ms={cs._device_ms(r['library_call'])} "
+              f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
+    tick("2j (threefry)")
+    serve_counts, sym, params, prompts, served = cs.phase_serve(mx, ck)
+    tick("3 (serve)")
+    only = sys.argv[1:] or ["55", "56", "57", "58", "59"]
+    if "55" in only:
+        cs.phase_lm_resume(mx, ck)
+        tick("55")
+    if "56" in only:
+        cs.phase_resnet_resume(mx, ck)
+        tick("56")
+    if "57" in only:
+        c, srv, reqs, outs = cs.phase_predictor(mx, ck, params, prompts,
+                                                served)
+        tick("57")
+        if "58" in only:
+            cs.phase_warm_restart(mx, ck, srv, reqs, outs)
+            tick("58")
+    if "59" in only:
+        cs.phase_samplers16(mx, ck)
+        tick("59")
+    print("new phases: ok")
+
+
+if __name__ == "__main__":
+    main()
