@@ -445,6 +445,26 @@ threefry's integer operations at the card's INT32 rate):
    (the rate printed, not held: two timed batches), the masks under the
    key chain bit for bit the plain version's on the card (the first on
    the CPU), the float32 fit's device-busy share.
+55-59. the bench LM and ResNet-50 through kill and resume, the
+   Predictor, a warm restart, the 16-bit samplers (each phase's
+   function says what it holds).
+60. the tensor surface: every op name of ``ops/tensor.py`` with
+   ``softmax``, ``log_softmax``, ``SliceChannel`` / ``split`` and
+   ``MakeLoss`` (147) through ``mx.nd`` on ``gpu(0)`` and on the CPU from
+   the same numpy inputs, TF32 off: (8192, 512) for the elementwise,
+   scalar, broadcast, reduction and indexing families, (8, 32000) with a
+   row of repeated values for ``sort`` / ``argsort`` / ``topk`` (k 40,
+   every ``ret_typ``, both directions), (32, 64, 112, 112) for ``Pad`` and
+   ``SliceChannel``; exactly where the op moves, selects, orders or
+   compares, else within rtol 1e-5 / atol 1e-6, the gradients through
+   ``mx.autograd`` the same way. Then the bench LM (phase 9's width) with
+   its head written in those ops, ``MakeLoss(mean(-pick(log_softmax(
+   logits), label)))`` over ``get_internals()["lm_logits_output"]``
+   grouped with ``BlockGrad(softmax(logits))``: its first-step gradients
+   within 1e-5 of each array's max of the ``SoftmaxOutput`` head's (TF32
+   off), 4 batches through ``Module.fit`` (tokens/s beside phase 9's,
+   phase 9's launches a step less the head's softmax and CE gradient,
+   exactly), the device-busy share of 2 more steps.
 
 Each phase's seconds are printed on a line of their own ("chip_smoke:
 phase N (...) took S s").
@@ -678,6 +698,8 @@ LM_PER_STEP = {"embedding": 1, "layernorm": 2 * N_LAYER + 1,
                "ln_bwd": 2 * N_LAYER + 1,
                "bias_gelu": N_LAYER, "bias_gelu_dx": N_LAYER,
                "flash_attention": N_LAYER, "softmax": 1, "softmax_ce_bwd": 1}
+#: phase 9's tokens/s and p50 / p99 step ms, read again in phase 60
+LM_FIT = {}
 LM_PARITY_BATCH, LM_PARITY_SEQ = 2, 128
 GRAD_RTOL = 1e-4        # card vs CPU LM gradients, of each array's max |g|
 LM_WEIGHT_TOL = 1e-5    # card vs CPU LM weights after one step
@@ -824,6 +846,63 @@ BOTTLENECK = dict(batch=32, channels=256, mid=64, hw=56)
 #: that differ in the last bits, and a value at an fp8 rounding boundary
 #: lands one code apart (a 1/16 to 1/8 step in that element)
 FP8_LOGIT_TOL = 1e-2
+
+#: phase 60: every op name of the tensor surface on the card against the
+#: CPU: the bench LM's activation (B*T, d_model) for the elementwise,
+#: scalar, broadcast, reduction and indexing families, the LM head's rows
+#: (B, V) for the orderings (top TS_TOPK), ResNet-50's first activation
+#: for Pad and SliceChannel; arithmetic within TS_RTOL / TS_ATOL, the rest
+#: exactly. Then the bench LM through a loss written in those ops for
+#: CUSTOM_STEPS batches, its first-step gradients within CUSTOM_GRAD_RTOL
+#: of the SoftmaxOutput head's (of each array's largest magnitude)
+TS_SHAPE = (LM_BATCH * LM_SEQ, D)
+TS_ORDER, TS_TOPK = (LM_BATCH, V), 40
+TS_IMAGE = (TRAIN_BATCH, 64, 112, 112)
+TS_RTOL, TS_ATOL = 1e-5, 1e-6
+CUSTOM_STEPS, CUSTOM_GRAD_RTOL = 4, 1e-5
+#: the unary ops' input ranges (the JAX package's sweep table's)
+TS_UNARY = {
+    "abs": (-1, 1), "arccos": (-0.8, 0.8), "arccosh": (1.3, 3.0),
+    "arcsin": (-0.8, 0.8), "arcsinh": (-2, 2), "arctan": (-2, 2),
+    "arctanh": (-0.7, 0.7), "ceil": (-3, 3), "cos": (-1.2, 1.2),
+    "cosh": (-1.5, 1.5), "degrees": (-2, 2), "exp": (-1.5, 1.5),
+    "expm1": (-1.5, 1.5), "fix": (-3, 3), "floor": (-3, 3),
+    "gamma": (0.6, 2.8), "gammaln": (0.6, 2.8), "log": (0.4, 2.5),
+    "log10": (0.4, 2.5), "log1p": (-0.6, 2.0), "log2": (0.4, 2.5),
+    "negative": (-2, 2), "radians": (-90, 90), "rint": (-3, 3),
+    "round": (-3, 3), "rsqrt": (0.4, 2.5), "sigmoid": (-2.5, 2.5),
+    "sign": (-2, 2), "sin": (-1.2, 1.2), "sinh": (-1.5, 1.5),
+    "sqrt": (0.4, 2.5), "square": (-2, 2), "tan": (-0.9, 0.9),
+    "tanh": (-2, 2), "_copy": (-1, 1), "identity": (-1, 1),
+    "BlockGrad": (-1, 1), "stop_gradient": (-1, 1), "make_loss": (-1, 1),
+    "smooth_l1": (-2.5, 2.5), "Cast": (-1, 1), "cast": (-1, 1)}
+#: ops whose result only moves, selects, orders or compares values, and
+#: ops whose gradient does (no sums): both held exactly
+TS_EXACT = {
+    "_copy", "identity", "BlockGrad", "stop_gradient", "make_loss", "Cast",
+    "cast", "negative", "abs", "sign", "ceil", "floor", "fix", "rint",
+    "round", "broadcast_axis", "broadcast_to", "max", "min", "max_axis",
+    "min_axis", "argmax", "argmin", "argmax_channel", "_zeros", "_ones",
+    "_full", "zeros_like", "ones_like", "_identity_with_attr_like_rhs",
+    "slice", "crop", "_slice_assign", "_crop_assign_scalar", "clip",
+    "repeat", "tile", "reverse", "flip", "SwapAxis", "swapaxes", "Pad",
+    "pad", "take", "batch_take", "one_hot", "pick", "where", "sort",
+    "argsort", "topk", "SliceChannel", "split", "MakeLoss"}
+TS_GRAD_EXACT = {
+    "_copy", "identity", "BlockGrad", "stop_gradient", "make_loss", "Cast",
+    "cast", "negative", "abs", "slice", "crop", "_slice_assign",
+    "_crop_assign_scalar", "clip", "reverse", "flip", "SwapAxis",
+    "swapaxes", "batch_take", "pick", "where", "sort", "topk",
+    "SliceChannel", "split", "MakeLoss"}
+#: the ops without a gradient (or with a zero one a.e.)
+TS_NO_GRAD = {
+    "ceil", "floor", "fix", "rint", "round", "sign", "argmax", "argmin",
+    "argmax_channel", "_zeros", "_ones", "_full", "zeros_like", "ones_like",
+    "one_hot", "argsort"}
+TS_BINARY = ("add", "sub", "mul", "div", "power", "hypot", "maximum",
+             "minimum", "equal", "not_equal", "greater", "greater_equal",
+             "lesser", "lesser_equal", "mod")
+TS_COMPARE = TS_BINARY[8:14]
 
 
 def _timed(fn, reps=200, warm=20, rounds=3):
@@ -3567,7 +3646,7 @@ def _update_host_ms(ck, mod, label, kernel, rounds=5):
 
 
 def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
-               on_batch=None, mfu_gate=True, **fit_kw):
+               on_batch=None, mfu_gate=True, metric=None, **fit_kw):
     """Fit the bound, initialized ``mod`` over ``it`` on the card for one
     epoch with telemetry on: prints items/s and p50/p99 step ms without
     the first batch, peak device memory, the MFU readings (held to the
@@ -3575,13 +3654,15 @@ def _fit_phase(mx, ck, mod, it, label, items, unit, watch, into=None,
     the train metric; requires a finite loss and the ``watch``
     parameters moved. ``into``, a dict, takes the rate, the p50 / p99
     step ms and the peak GiB; ``on_batch`` runs after each batch's end
-    stamp. Returns (launches of the fit, launches per step)."""
+    stamp; ``metric`` (acc and ce by default) is the fit's train metric,
+    its second value the loss. Returns (launches of the fit, launches per
+    step)."""
     import numpy as np
     import torch
     args, _ = mod.get_params()
     before = {k: args[k].asnumpy() for k in watch}
     step_end, stamps, rates = _step_recorder()
-    metric = mx.metric.create(["acc", "ce"])
+    metric = metric or mx.metric.create(["acc", "ce"])
     metric_starts = _metric_stamps(metric)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3833,7 +3914,8 @@ def phase_lm_train(mx, ck):
           f"T={LM_SEQ} batch {LM_BATCH}")
     counts, per_step = _fit_phase(mx, ck, mod, it, "lm train",
                                   LM_BATCH * LM_SEQ, "tokens", watch,
-                                  optimizer="sgd", optimizer_params=LM_SGD)
+                                  into=LM_FIT, optimizer="sgd",
+                                  optimizer_params=LM_SGD)
     want = {k: LM_PER_STEP.get(k, 0) for k in counts}
     if per_step != want:
         raise AssertionError(f"LM launches per step {per_step}, want {want}")
@@ -6847,6 +6929,15 @@ def _headdim_lm(mx, ck, prompts, dh):
     ring_err = max(float(np.abs(ring[k] - v).max())
                    for k, v in runs[None].items())
     seen["flash_attention_partial"] += counts["flash_attention_partial"]
+    # one partial call: a query shard against a key shard, float32; q, k,
+    # v read and (acc, m, l) written once, 4 Tq Tk Dh operations a (b, h)
+    tq = HEADDIM_SEQ // RING_SHARDS
+    rows = HEADDIM_BATCH * heads * tq
+    bound = _bound_ms(4 * (4 * rows * dh + 2 * rows),
+                      4 * HEADDIM_BATCH * heads * tq * tq * dh)
+    print(f"dh{dh}: ring partial call ({HEADDIM_BATCH}, {heads}, {tq} "
+          f"queries x {tq} keys, Dh {dh}) float32 bound "
+          f"{bound[0]:.6f} ms ({bound[1]})")
     print(f"dh{dh}: step card vs CPU max |prob| {prob_err:.3g} (limit "
           f"{FWD_TOL}), worst gradient {worst_g:.3g} of its limit, "
           f"worst weight {worst_w:.3g} (limit {LM_WEIGHT_TOL}); ring "
@@ -8201,6 +8292,377 @@ def phase_samplers16(mx, ck):
     return counts
 
 
+def _ts_cases(dev):
+    """(op name, make the numpy inputs, attrs) for every op name of the
+    tensor surface (147: ``ops/tensor.py``'s families, ``softmax``,
+    ``log_softmax``, ``SliceChannel`` / ``split``, ``MakeLoss``), the inputs
+    made when the case runs (one (8192, 512) array is 16 MiB), drawn on
+    ``dev`` from a generator seeded with SEED and copied to the host (a
+    host draw takes 15-30 ms an array, seconds for the phase)."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    X, ROW = TS_SHAPE, (1, TS_SHAPE[1])
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def u(lo, hi, shape=X):
+        return lambda: (rand(shape) * (hi - lo) + lo).cpu().numpy()
+
+    def ints(hi, shape=X, lo=0):
+        return lambda: torch.randint(lo, hi, shape, generator=gen,
+                                     device=dev).to(torch.float32) \
+            .cpu().numpy()
+
+    def away(shape=X):
+        def make():
+            mag = rand(shape) + 0.5
+            return torch.where(rand(shape) < 0.5, -mag, mag).cpu().numpy()
+        return make
+
+    def both(*makers):
+        return lambda: [m() for m in makers]
+
+    cases = []
+
+    def add(name, make, **attrs):
+        cases.append((name, make, attrs))
+
+    for name, (lo, hi) in TS_UNARY.items():
+        attrs = {"dtype": "float16"} if name in ("Cast", "cast") else {}
+        if name == "smooth_l1":
+            attrs = {"scalar": 1.0}
+        add(name, both(u(lo, hi)), **attrs)
+    pair = {"div": both(u(-1, 1), away()),
+            "power": both(u(0.4, 2.0), u(0.4, 2.0)),
+            "hypot": both(away(), away()),
+            "mod": both(u(0.55, 0.95), u(1.1, 2.0))}
+    for b in TS_BINARY:
+        make = both(ints(3), ints(3)) if b in TS_COMPARE else \
+            pair.get(b, both(u(-1, 1), u(-1, 1)))
+        names = [f"elemwise_{b}" if b in ("add", "sub", "mul", "div")
+                 else f"_{b}", f"broadcast_{b}"]
+        for n in names:
+            if n in ("elemwise_add", "broadcast_add"):
+                continue            # ops of an earlier slice
+            if n.startswith("broadcast_"):
+                # positive: rhs's gradient sums 8192 rows, which must not
+                # cancel (a sum's order shows as cancellation's error)
+                lhs, rhs = (ints(3), ints(3, ROW)) if b in TS_COMPARE \
+                    else ((u(0.55, 0.95), u(1.1, 2.0, ROW)) if b == "mod"
+                          else (u(0.4, 2.0), u(0.4, 2.0, ROW)))
+                add(n, both(lhs, rhs))
+            else:
+                add(n, make)
+    scalar = {"power": (u(0.4, 2.0), 2.5), "mod": (u(0.2, 1.2), 1.5),
+              "maximum": (u(-1, 1), 0.1), "minimum": (u(-1, 1), 0.1),
+              "hypot": (away(), 1.5)}
+    for b in TS_BINARY:
+        make, s = (ints(3), 1.0) if b in TS_COMPARE else \
+            scalar.get(b, (away() if b == "div" else u(-1, 1), 1.5))
+        add(f"_{b}_scalar", both(make), scalar=s)
+    for name, make, s in (("_rsub_scalar", u(-1, 1), 1.5),
+                          ("_rdiv_scalar", away(), 1.5),
+                          ("_rpower_scalar", u(-1.5, 1.5), 1.5),
+                          ("_rmod_scalar", u(1.7, 2.8), 1.5),
+                          ("_plus_scalar", u(-1, 1), 1.5),
+                          ("_minus_scalar", u(-1, 1), 1.5),
+                          ("_rminus_scalar", u(-1, 1), 1.5)):
+        add(name, both(make), scalar=s)
+    for name in ("_minus", "_mul", "_grad_add"):
+        add(name, both(u(-1, 1), u(-1, 1)))
+    add("_div", both(u(-1, 1), away()))
+    for name in ("add_n", "ElementWiseSum", "_sum"):
+        add(name, both(u(-1, 1), u(-1, 1), u(-1, 1)), num_args=3)
+    add("broadcast_axis", both(u(-1, 1, (X[0], 1))), axis=1, size=X[1])
+    add("broadcast_to", both(u(-1, 1, ROW)), shape=X)
+    for name, make in (("mean", u(0.5, 1.5)), ("prod", u(0.98, 1.02)),
+                       ("norm", u(-1, 1))):
+        add(name, both(make), axis=1)
+
+    def with_nans(lo, hi):
+        def make():
+            x = u(lo, hi)()
+            x[u(0, 1)() < 0.01] = np.nan
+            return [x]
+        return make
+    add("nansum", with_nans(0.5, 1.5), axis=1)
+    add("nanprod", with_nans(0.98, 1.02), axis=1)
+    for name in ("max", "min", "max_axis", "min_axis", "argmax", "argmin"):
+        add(name, both(ints(50)), axis=1)       # ties along every row
+    add("argmax_channel", both(ints(50)))
+    add("softmax_cross_entropy", both(u(-3, 3), ints(X[1], (X[0],))))
+    add("_zeros", both(), shape=X)
+    add("_ones", both(), shape=X, dtype="int32")
+    add("_full", both(), shape=X, value=0.1)
+    add("zeros_like", both(u(-1, 1)))
+    add("ones_like", both(u(-1, 1)))
+    add("_identity_with_attr_like_rhs", both(u(-1, 1), u(-1, 1)))
+    seq = (LM_BATCH, LM_SEQ, D // N_HEAD)
+    add("batch_dot", both(u(0, 1, seq), u(0, 1, seq)), transpose_b=True)
+    half, col = (X[0] // 2, X[1] // 2), X[1] // 8
+    add("slice", both(u(-1, 1)), begin=(0, col), end=half)
+    add("crop", both(u(-1, 1)), begin=(3, 0), end=(X[0], 5 * col))
+    add("_slice_assign", both(u(-1, 1), u(-1, 1, (half[0], half[1] - col))),
+        begin=(0, col), end=half)
+    add("_crop_assign_scalar", both(u(-1, 1)), begin=(7, 3), end=half,
+        scalar=2.5)
+
+    def at_bounds():
+        x = u(-1, 1)()
+        x.reshape(-1)[::7] = 0.5
+        x.reshape(-1)[3::7] = -0.5
+        return [x]
+    add("clip", at_bounds, a_min=-0.5, a_max=0.5)
+    add("repeat", both(u(-1, 1)), repeats=2, axis=1)
+    add("tile", both(u(-1, 1)), reps=(1, 2))
+    add("reverse", both(u(-1, 1)), axis=1)
+    add("flip", both(u(-1, 1)), axis=(0, 1))
+    add("SwapAxis", both(u(-1, 1)), dim1=0, dim2=1)
+    add("swapaxes", both(u(-1, 1)), dim1=1, dim2=0)
+    image_pad = (0, 0, 0, 0, 1, 1, 1, 1)
+    for name, mode in (("Pad", "constant"), ("Pad", "edge"),
+                       ("pad", "reflect")):
+        add(name, both(u(-1, 1, TS_IMAGE)), mode=mode, pad_width=image_pad,
+            constant_value=0.5)
+    add("take", both(u(-1, 1), ints(X[0] + 100, (X[0] // 2,), lo=-100)))
+    add("batch_take", both(u(-1, 1), ints(X[1], (X[0],))))
+    add("one_hot", both(ints(X[1] + 8, (X[0],), lo=-8)), depth=X[1])
+    add("pick", both(u(-1, 1), ints(X[1], (X[0],))))
+    add("where", both(ints(2, (X[0],)), u(-1, 1), u(-1, 1)))
+
+    def head_rows():
+        x = u(-1, 1, TS_ORDER)()
+        x[0] = ints(20, (TS_ORDER[1],))()        # a row of repeated values
+        return [x]
+    for asc in (True, False):
+        add("sort", head_rows, is_ascend=asc)
+        add("argsort", head_rows, is_ascend=asc)
+        for ret in ("indices", "value", "both", "mask"):
+            add("topk", head_rows, k=TS_TOPK, ret_typ=ret, is_ascend=asc)
+    add("softmax", both(u(-3, 3)), axis=-1)
+    add("log_softmax", both(u(-3, 3)), axis=-1)
+    add("SliceChannel", both(u(-1, 1, TS_IMAGE)), num_outputs=2, axis=1)
+    add("split", both(u(-1, 1, TS_IMAGE)), num_outputs=4, axis=1,
+        squeeze_axis=False)
+    add("MakeLoss", both(u(-1, 1)), grad_scale=0.5, normalization="batch")
+    return cases
+
+
+def _ts_heads(name, dev, seed):
+    """The head gradients of a case: made once from the first run's
+    outputs (drawn on ``dev`` from ``seed``), then the same for every
+    run. Positive, U(0.5, 1.5): a gradient that sums them (a broadcast's)
+    must not cancel, or the order of the sum shows as its error; rows of
+    zero sum for log_softmax, whose gradient g - softmax * sum(g) would
+    cancel to ~0 where it meets a softmax one ulp of log-space away on
+    the other device."""
+    import torch
+    made = []
+
+    def heads(outs):
+        if not made:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            made.extend(torch.rand(o.shape, generator=gen, device=dev) +
+                        0.5 for o in outs)
+            if name == "log_softmax":
+                made[:] = [h - h.mean(dim=-1, keepdim=True) for h in made]
+        return made
+    return heads
+
+
+def _ts_run(mx, name, arrays, attrs, ctx, heads):
+    """``mx.nd.<name>`` on ``ctx`` inside a train section and, unless the
+    op has no gradient, the gradients of its outputs with respect to its
+    inputs under ``heads(outputs)``: (outputs, gradients), tensors on
+    ``ctx``."""
+    xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    gs = [mx.nd.zeros(a.shape, ctx=ctx) for a in arrays]
+    differentiable = name not in TS_NO_GRAD
+    if differentiable:
+        mx.autograd.mark_variables(xs, gs)
+    with ctx, mx.autograd.train_section():      # ctx: ops with no input
+        out = getattr(mx.nd, name)(*xs, **attrs)
+    outs = out if isinstance(out, list) else [out]
+    # BlockGrad's output carries no history: its gradient cells stay 0
+    if differentiable and any(o.astorch().requires_grad for o in outs):
+        mx.autograd.backward(outs, out_grads=heads(outs))
+    return [o.astorch().detach() for o in outs], \
+        [g.astorch() for g in gs] if differentiable else []
+
+
+def _ts_err(got, want, exact):
+    """0 where the card's ``got`` is the CPU's ``want`` (NaN where it is
+    NaN), else the worst |got - want| over the limit (inf for exact
+    tensors that differ); compared on the card (numpy takes ~30 s for
+    the phase's arrays)."""
+    import torch
+    want = want.to(got.device)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    if exact:
+        same = torch.equal(got, want) or (got.is_floating_point() and
+                                          torch.allclose(got, want, rtol=0,
+                                                         atol=0,
+                                                         equal_nan=True))
+        return 0.0 if same else float("inf")
+    g, w = got.double(), want.double()
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        return float("inf")
+    ok = ~torch.isnan(w)
+    return float((torch.abs(g[ok] - w[ok]) /
+                  (TS_ATOL + TS_RTOL * torch.abs(w[ok]))).max()) \
+        if bool(ok.any()) else 0.0
+
+
+def phase_tensor_surface(mx):
+    """Phase 60(a): every op name of the tensor surface through ``mx.nd``
+    on gpu(0) and on the CPU from the same numpy inputs, TF32 off: the
+    outputs exactly for ops that move, select, order or compare, else
+    within TS_RTOL / TS_ATOL; the gradients through ``mx.autograd`` the
+    same way (exactly where the backward only moves values) for every
+    differentiable op, from the same random head gradients."""
+    print(_tf32(False) + " (the tensor surface, card vs CPU)")
+    names, calls, grads, worst = set(), 0, 0, {}
+    t0 = time.perf_counter()
+    spent = dict.fromkeys(("inputs", "cpu", "card"), 0.0)
+    dev = mx.gpu(0).torch_device()
+    for i, (name, make, attrs) in enumerate(_ts_cases(dev)):
+        t = time.perf_counter()
+        arrays = make()
+        heads = _ts_heads(name, dev, SEED + 1000 + i)
+        spent["inputs"] += time.perf_counter() - t
+        t = time.perf_counter()
+        want, want_g = _ts_run(mx, name, arrays, attrs, mx.cpu(), heads)
+        spent["cpu"] += time.perf_counter() - t
+        t = time.perf_counter()
+        got, got_g = _ts_run(mx, name, arrays, attrs, mx.gpu(0), heads)
+        spent["card"] += time.perf_counter() - t
+        err = max(_ts_err(g, w, name in TS_EXACT)
+                  for g, w in zip(got, want))
+        gerr = max([_ts_err(g, w, name in TS_GRAD_EXACT)
+                    for g, w in zip(got_g, want_g)] or [0.0])
+        worst[name] = max(worst.get(name, 0.0), err, gerr)
+        if not (err <= 1.0 and gerr <= 1.0):
+            raise AssertionError(
+                f"tensor surface: {name}({attrs}) on the card differs from "
+                f"the CPU: output {err:.3g}, gradient {gerr:.3g} of the "
+                "limit (inf: an exact op that differs)")
+        names.add(name)
+        calls += 1
+        grads += bool(got_g)
+    arith = {k: v for k, v in worst.items() if k not in TS_EXACT}
+    top = sorted(arith.items(), key=lambda kv: -kv[1])[:5]
+    print(f"tensor surface: {len(names)} op names, {calls} calls, "
+          f"{grads} with gradients, card vs CPU in "
+          f"{time.perf_counter() - t0:.1f} s (inputs {spent['inputs']:.1f}, "
+          f"CPU {spent['cpu']:.1f}, card with its copies "
+          f"{spent['card']:.1f}): {len(names & TS_EXACT)} "
+          f"names exact; arithmetic worst of the limit (rtol {TS_RTOL}, "
+          f"atol {TS_ATOL}): " + ", ".join(f"{k} {v:.3g}" for k, v in top))
+    if len(names) != 147:
+        raise AssertionError(f"tensor surface: {len(names)} op names run, "
+                             "want 147")
+
+
+def _custom_head(mx, sym):
+    """The bench LM's logits under ``MakeLoss(mean(-pick(log_softmax(
+    logits), label)))``, with ``BlockGrad(softmax(logits))`` beside it."""
+    logits = sym.get_internals()["lm_logits_output"]
+    label = mx.sym.var("softmax_label")
+    loss = mx.sym.MakeLoss(mx.sym.mean(-mx.sym.pick(
+        mx.sym.log_softmax(logits), label)), name="ce")
+    return mx.sym.Group([loss, mx.sym.BlockGrad(mx.sym.softmax(logits),
+                                                name="prob")])
+
+
+def _prob_metric(mx):
+    """acc and ce over the custom head's probabilities (its second
+    output: the first is the scalar loss)."""
+    class OnProbabilities(mx.metric.CompositeEvalMetric):
+        def update(self, labels, preds):
+            super().update(labels, preds[1:])
+    return OnProbabilities(["acc", "ce"])
+
+
+def _head_grads(mx, sym, params, batch):
+    """One training forward and backward of ``sym`` on gpu(0): the
+    parameters' gradients (numpy)."""
+    import numpy as np
+    req = {k: "write" if k in params else "null"
+           for k in sym.list_arguments()}
+    ex = sym.simple_bind(ctx=mx.gpu(0), grad_req=req,
+                         data=(LM_BATCH, LM_SEQ),
+                         softmax_label=(LM_BATCH * LM_SEQ,),
+                         type_dict={"data": np.int32})
+    ex.forward(is_train=True, data=batch.data[0],
+               softmax_label=batch.label[0], **params)
+    ex.backward()
+    return {k: ex.grad_dict[k].asnumpy() for k in params}
+
+
+def phase_custom_loss(mx, ck):
+    """Phase 60(b): the bench LM (phase 9's width) with its head written
+    in the tensor ops (``_custom_head``) on gpu(0): from the same Xavier
+    parameters (seed SEED) and batch, TF32 off, its first-step gradients
+    within CUSTOM_GRAD_RTOL of each array's largest magnitude of the
+    ``SoftmaxOutput(normalization="batch")`` head's; then CUSTOM_STEPS
+    batches through ``Module.fit`` (SGD, phase 9's settings and TF32):
+    tokens/s beside phase 9's, the launches a step (phase 9's less the
+    head's softmax and CE-gradient kernels, exactly), the device-busy
+    share of 2 more steps. Returns the fit's launch counts."""
+    import torch
+    from mxnet_tpu_torch.models import transformer as tfm
+    print(_tf32(False) + " (the custom head against SoftmaxOutput)")
+    sym = _lm_symbol(LM_SEQ)
+    head = _custom_head(mx, sym)
+    init = mx.mod.Module(sym, context=mx.gpu(0))
+    it = tfm.SyntheticLMIter(V, LM_BATCH, LM_SEQ, CUSTOM_STEPS, seed=SEED)
+    init.bind(it.provide_data, it.provide_label)
+    init.init_params(mx.initializer.Xavier(
+        rng=torch.Generator().manual_seed(SEED)))
+    params = init.get_params()[0]
+    batch = next(iter(it))
+    want = _head_grads(mx, sym, params, batch)
+    got = _head_grads(mx, head, params, batch)
+    worst = max(float(abs(got[k] - g).max()) / float(abs(g).max())
+                for k, g in want.items())
+    print(f"custom loss: first-step gradients of the MakeLoss head against "
+          f"SoftmaxOutput's over {len(want)} arrays: worst "
+          f"{worst:.3g} of the array's max |g| (limit {CUSTOM_GRAD_RTOL})")
+    if not worst <= CUSTOM_GRAD_RTOL:
+        raise AssertionError("custom loss: its gradients differ from the "
+                             "SoftmaxOutput head's")
+    del want, got, init
+    torch.cuda.empty_cache()
+    print(_tf32(True) + " (PyTorch's default, for the custom-loss fit)")
+    it.reset()
+    mod = mx.mod.Module(head, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params)
+    into = {}
+    counts, per_step = _fit_phase(
+        mx, ck, mod, it, "custom loss fit", LM_BATCH * LM_SEQ, "tokens",
+        ("lm_tok_embed_weight", "lm_ln_f_gamma"), into=into,
+        metric=_prob_metric(mx), mfu_gate=False, optimizer="sgd",
+        optimizer_params=LM_SGD)
+    print(f"custom loss fit: {into['rate']:.1f} tokens/s beside phase 9's "
+          f"SoftmaxOutput head {LM_FIT.get('rate', float('nan')):.1f} "
+          f"(step p50 {into['p50']:.2f} ms against "
+          f"{LM_FIT.get('p50', float('nan')):.2f} ms)")
+    want = {k: v for k, v in LM_PER_STEP.items()
+            if k not in ("softmax", "softmax_ce_bwd")}
+    want = {k: want.get(k, 0) for k in per_step}
+    if per_step != want:
+        raise AssertionError(f"custom loss fit: launches per step "
+                             f"{per_step}, want {want}")
+    phase_train_profile(mod, it, steps=2, label="custom loss profile")
+    del mod, it
+    torch.cuda.empty_cache()
+    return counts
+
+
 class _PhaseClock:
     """Prints, on a line of its own, the seconds since the last call (or
     since it was made) under the phase's name."""
@@ -8386,6 +8848,9 @@ def main():
     tick("58 (a warm restart)")
     sampler_counts = phase_samplers16(mx, ck)
     tick("59 (16-bit samplers)")
+    phase_tensor_surface(mx)
+    custom_counts = phase_custom_loss(mx, ck)
+    tick("60 (the tensor surface)")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -8413,7 +8878,7 @@ def main():
     launches.update(frozen_counts)
     for counts in (dh32_counts, headdim_counts, refused_counts, zoo_counts,
                    lm_drop_counts, lm_resume_counts, r50_resume_counts,
-                   pred_counts, sampler_counts):
+                   pred_counts, sampler_counts, custom_counts):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the per-array kernels' launches: a caller's own Updater(i, g, w)

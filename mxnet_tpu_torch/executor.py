@@ -321,9 +321,10 @@ class Executor:
                 outs, new_aux = dispatch(opdef, node.attrs, regular, aux,
                                          is_train, rng, device)
             if not ins:
-                # a source op (``_arange``: the learned positions' ids)
-                # makes its tensor on the host, a sampler on the bound
-                # device; it belongs there with everything that reads it
+                # a source op (``_arange``, a sampler) makes its tensor on
+                # the bound device (``dispatch``); a Python op with no
+                # input (``Custom``) may make it on the host, and it
+                # belongs with everything that reads it
                 outs = [o.to(device) for o in outs]
             if n_aux and (is_train or opdef.stateful_infer):
                 for (inp, _), new in zip(node.inputs[len(ins) - n_aux:],

@@ -18,9 +18,22 @@ variable marked with ``autograd.mark_variables`` stays a leaf that
 requires grad whatever ``_set`` swaps in: ``backward`` differentiates
 its current value.
 
-Sync points: ``asnumpy()`` copies to the host, which waits for the
-device; so does ``bool()`` of a one-element array. Nothing else here
-synchronizes.
+The rest of the JAX package's NDArray surface: ``copy``, ``copyto``,
+``as_in_context``, ``astype``, ``asscalar``, ``reshape`` (MXNet's 0 and
+-1 codes), ``T``, ``size``, ``len()`` and iteration over the first axis;
+the factories ``zeros``, ``ones``, ``full``, ``empty`` (zeros, as the JAX
+package makes it), ``arange`` and ``concatenate``, each made on its
+context's device; and the module helpers ``add`` ... ``lesser_equal``
+(scalar or array operands, comparisons as float32 0/1), ``moveaxis`` and
+``onehot_encode``. Every registry op is added to this module as
+``mx.nd.<op>`` when the package is imported (``_op_gen``), so the
+builtins that share an op's name (``slice``, ``max``, ...) are reached
+here through ``_py_*`` names.
+
+Sync points: ``asnumpy()`` and ``asscalar()`` copy to the host, which
+waits for the device; so does ``bool()`` of a one-element array;
+``wait_to_read`` / ``wait_to_write`` and ``waitall`` synchronize the card
+(nothing on the CPU). Nothing else here synchronizes.
 """
 from __future__ import annotations
 
@@ -34,8 +47,14 @@ from .base import MXNetError
 from .context import Context, context_of, current_context
 from .ops.registry import dispatch, get_op
 
-__all__ = ["NDArray", "array", "zeros", "load", "save", "imperative_invoke",
-           "to_torch_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concatenate", "waitall", "load", "save", "imperative_invoke",
+           "to_torch_dtype", "add", "subtract", "multiply", "divide",
+           "true_divide", "power", "maximum", "minimum", "equal",
+           "not_equal", "greater", "greater_equal", "lesser",
+           "lesser_equal", "moveaxis", "onehot_encode"]
+
+_py_slice = slice
 
 _NP_TO_TORCH = {
     np.dtype("float32"): torch.float32, np.dtype("float64"): torch.float64,
@@ -78,7 +97,8 @@ def _to_tensor(data):
     arr = np.asarray(data)
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
-    return torch.tensor(np.ascontiguousarray(arr))
+    # reshape: ascontiguousarray makes a 0-d array 1-d
+    return torch.tensor(np.ascontiguousarray(arr).reshape(arr.shape))
 
 
 class NDArray:
@@ -129,8 +149,14 @@ class NDArray:
         return self._data.ndim
 
     @property
+    def size(self):
+        return self._data.numel()
+
+    @property
     def context(self):
         return self._ctx
+
+    ctx = context
 
     def asnumpy(self):
         """Copy to host numpy (waits for the device). bfloat16 and fp8
@@ -139,6 +165,77 @@ class NDArray:
         if t.dtype not in _TORCH_TO_NP:
             t = t.float()
         return t.cpu().numpy()
+
+    def asscalar(self):
+        """The one value of a one-element array, as a numpy scalar."""
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def wait_to_read(self):
+        """Wait for the work that writes this array (the card's stream)."""
+        if self._data.is_cuda:
+            torch.cuda.synchronize(self._data.device)
+
+    wait_to_write = wait_to_read
+
+    def copyto(self, other):
+        """Copy into another NDArray (its dtype and device; shapes must
+        match) or onto a Context (a new array there)."""
+        if isinstance(other, NDArray):
+            if other.shape != self.shape:
+                raise ValueError(
+                    f"copyto shape mismatch {self.shape} vs {other.shape}")
+            dst = other.astorch()
+            other._set(self._data.detach().to(device=dst.device,
+                                               dtype=dst.dtype, copy=True))
+            return other
+        if isinstance(other, Context):
+            return NDArray(self._data.detach().to(other.torch_device(),
+                                                  copy=True), ctx=other)
+        raise TypeError(f"copyto does not support type {type(other)}")
+
+    def as_in_context(self, ctx):
+        """This array where ``ctx`` says: itself when it is there, else a
+        copy."""
+        if ctx == self._ctx:
+            return self
+        return self.copyto(ctx)
+
+    def copy(self):
+        return NDArray(self._data.detach().clone(), ctx=self._ctx)
+
+    def astype(self, dtype):
+        return NDArray(self._data.detach().to(to_torch_dtype(dtype),
+                                              copy=True), ctx=self._ctx)
+
+    def reshape(self, shape, **kwargs):
+        """A view of the new shape: 0 copies the input's dim at that
+        position, -1 takes what is left (``reverse`` is not taken, as in
+        the JAX package)."""
+        if isinstance(shape, int):
+            shape = (shape,)
+        if kwargs.get("reverse"):
+            raise NotImplementedError("reshape(reverse=True)")
+        shape = _resolve_reshape(self.shape, tuple(int(s) for s in shape))
+        with _grad_scope():
+            return NDArray(self._data.reshape(shape), ctx=self._ctx)
+
+    @property
+    def T(self):
+        """All axes reversed."""
+        with _grad_scope():
+            return NDArray(self._data.permute(*reversed(range(self.ndim))),
+                           ctx=self._ctx)
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
 
     def __repr__(self):
         return (f"{self.asnumpy()!r}\n<NDArray "
@@ -162,7 +259,7 @@ class NDArray:
         if isinstance(value, torch.Tensor):
             value = value.to(device=t.device, dtype=t.dtype)
         with _grad_scope():
-            if isinstance(key, slice) and key == slice(None):
+            if isinstance(key, _py_slice) and key == _py_slice(None):
                 new = torch.empty(t.shape, dtype=t.dtype, device=t.device)
                 if isinstance(value, torch.Tensor):
                     new.copy_(value)
@@ -255,6 +352,17 @@ def _grad_scope(mutates=False):
     return torch.no_grad()
 
 
+def _resolve_reshape(old, new):
+    """MXNet's reshape codes as the JAX package reads them: 0 copies the
+    old dim at that position, -1 takes the rest (floor division)."""
+    out = [old[i] if s == 0 else s for i, s in enumerate(new)]
+    if -1 in out:
+        known = int(np.prod([s for s in out if s != -1], dtype=np.int64))
+        total = int(np.prod(old, dtype=np.int64))
+        out[out.index(-1)] = total // (known if known > 1 else 1)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------- factories
 def array(source_array, ctx=None, dtype=None):
     """Create an NDArray from any array-like, on ``ctx`` (default: the
@@ -271,11 +379,67 @@ def array(source_array, ctx=None, dtype=None):
     return NDArray(src, ctx=ctx)
 
 
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
 def zeros(shape, ctx=None, dtype=None):
     ctx = ctx or current_context()
-    return NDArray(torch.zeros(tuple(shape),
+    return NDArray(torch.zeros(_shape(shape),
                                dtype=to_torch_dtype(dtype or "float32"),
                                device=ctx.torch_device()), ctx=ctx)
+
+
+def ones(shape, ctx=None, dtype=None):
+    ctx = ctx or current_context()
+    return NDArray(torch.ones(_shape(shape),
+                              dtype=to_torch_dtype(dtype or "float32"),
+                              device=ctx.torch_device()), ctx=ctx)
+
+
+def full(shape, val, ctx=None, dtype=None):
+    ctx = ctx or current_context()
+    return NDArray(torch.full(_shape(shape), val,
+                              dtype=to_torch_dtype(dtype or "float32"),
+                              device=ctx.torch_device()), ctx=ctx)
+
+
+def empty(shape, ctx=None, dtype=None):
+    """Zeros, as the JAX package makes an empty array (MXNet leaves it
+    uninitialized)."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    """[start, stop) by step (``stop`` None: [0, start)), each value
+    ``repeat`` times, made on ``ctx``'s device."""
+    ctx = ctx or current_context()
+    if stop is None:
+        start, stop = 0, start
+    arr = torch.arange(start, stop, step,
+                       dtype=to_torch_dtype(dtype or "float32"),
+                       device=ctx.torch_device())
+    if repeat > 1:
+        arr = torch.repeat_interleave(arr, repeat)
+    return NDArray(arr, ctx=ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """The arrays joined along ``axis``, on the first one's context."""
+    if not arrays:
+        raise ValueError("need at least one array")
+    if len(arrays) == 1 and not always_copy:
+        return arrays[0]
+    with _grad_scope():
+        out = torch.cat([a.astorch() for a in arrays], dim=axis)
+    return NDArray(out, ctx=arrays[0].context)
+
+
+def waitall():
+    """Wait for all work on every card (nothing to wait for on the CPU)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 # ------------------------------------------------------------- save / load
@@ -415,3 +579,68 @@ def imperative_invoke(op_name, *inputs, out=None, **kwargs):
             dst._set(src.astorch())
         return out
     return results[0] if len(results) == 1 else results
+
+
+# ---------------------------------------------------------------------
+# module helpers: scalar-or-array operands over the broadcast ops
+def _operand(x, like):
+    """An operand as a tensor: an NDArray's own, a scalar as a 0-d tensor
+    on ``like``'s device (its weak type: a Python float beside int32
+    gives float32, beside float32 float32, as JAX's scalars do)."""
+    if isinstance(x, NDArray):
+        return x.astorch()
+    if isinstance(x, np.generic):
+        x = x.item()
+    return torch.tensor(x, device=like.device if like is not None
+                        else None)
+
+
+def _binary_fn(op, name):
+    def fn(lhs, rhs):
+        lead = lhs if isinstance(lhs, NDArray) else \
+            rhs if isinstance(rhs, NDArray) else None
+        like = lead.astorch() if lead is not None else None
+        with _grad_scope():
+            out = op(_operand(lhs, like), _operand(rhs, like))
+        if out.dtype == torch.bool:        # comparisons: 0/1 float32
+            out = out.to(torch.float32)
+        return NDArray(out, ctx=lead.context if lead is not None else None)
+    fn.__name__ = name
+    fn.__doc__ = (f"Element-wise broadcasting ``{name}`` of scalar or array "
+                  "operands.")
+    return fn
+
+
+add = _binary_fn(torch.add, "add")
+subtract = _binary_fn(torch.sub, "subtract")
+multiply = _binary_fn(torch.mul, "multiply")
+divide = _binary_fn(torch.true_divide, "divide")
+true_divide = _binary_fn(torch.true_divide, "true_divide")
+# integer bases to a negative exponent truncate (ROADMAP.md §C)
+power = _binary_fn(torch.pow, "power")
+maximum = _binary_fn(torch.maximum, "maximum")
+minimum = _binary_fn(torch.minimum, "minimum")
+equal = _binary_fn(torch.eq, "equal")
+not_equal = _binary_fn(torch.ne, "not_equal")
+greater = _binary_fn(torch.gt, "greater")
+greater_equal = _binary_fn(torch.ge, "greater_equal")
+lesser = _binary_fn(torch.lt, "lesser")
+lesser_equal = _binary_fn(torch.le, "lesser_equal")
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with axis ``source`` moved to ``destination``."""
+    with _grad_scope():
+        return NDArray(torch.movedim(tensor.astorch(), source, destination),
+                       ctx=tensor.context)
+
+
+def onehot_encode(indices, out):
+    """Write the one-hot rows of ``indices`` (depth ``out.shape[1]``, an
+    index outside it a row of zeros) into ``out``."""
+    depth = out.shape[1]
+    t = out.astorch()
+    idx = indices.astorch().to(torch.int32).reshape(-1)
+    classes = torch.arange(depth, dtype=torch.int32, device=t.device)
+    out._set((idx.to(t.device)[:, None] == classes).to(t.dtype))
+    return out

@@ -421,6 +421,12 @@ _SPECIFIC = {
     "_random_poisson": _sampler(20.0),
     "_random_negative_binomial": _sampler(40.0),
     "_random_generalized_negative_binomial": _sampler(40.0),
+    # the JAX package's table has none of these four either; the port
+    # counts them as data movement, as it counts ``_zeros`` and ``slice``
+    "_full": _move(),
+    "_identity_with_attr_like_rhs": _move(),
+    "_slice_assign": _move(),
+    "_crop_assign_scalar": _move(),
 }
 
 _UNARY_1FLOP = {

@@ -1,4 +1,4 @@
-"""Loss heads: ``SoftmaxOutput``.
+"""Loss heads: ``SoftmaxOutput`` and ``MakeLoss``.
 
 A loss head is at once a predict head (its forward output is the class
 probabilities) and a loss head: its backward IGNORES the incoming head
@@ -15,8 +15,15 @@ over all but the batch axis, reshaped to (N, -1) as the composition does.
 ``multi_output`` (softmax over axis 1 with a label per position) moves
 axis 1 last and takes the same two row functions over the rows (N * d...,
 C), one label a row, then moves it back.
+
+``MakeLoss`` turns any symbol into a loss head: its forward is the
+identity and its backward ``grad_scale`` times ones under its
+``normalization``, as the JAX package's ``custom_vjp``; a loss written in
+the tensor ops (``mean(-pick(log_softmax(x), label))``) trains through it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -129,3 +136,37 @@ register("SoftmaxOutput", inputs=("data", "label"), is_loss=True,
          simple=lambda attrs, data, label: softmax_output(data, label,
                                                           attrs))
 alias("Softmax", "SoftmaxOutput")
+
+
+class _MakeLossFn(torch.autograd.Function):
+    """Forward: the identity. Backward: ``grad_scale`` times ones, the head
+    gradient ignored, divided by the batch (``normalization="batch"``:
+    the first axis) or by every element (``"valid"``; the JAX package
+    reads no ``valid_thresh``)."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, norm):
+        ctx.shape, ctx.dtype, ctx.device = data.shape, data.dtype, \
+            data.device
+        ctx.grad_scale, ctx.norm = grad_scale, norm
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        grad = torch.full(ctx.shape, ctx.grad_scale, dtype=ctx.dtype,
+                          device=ctx.device)
+        if ctx.norm == "batch":
+            grad = grad / ctx.shape[0]
+        elif ctx.norm == "valid":
+            grad = grad / float(math.prod(ctx.shape))
+        return grad, None, None
+
+
+register("MakeLoss", inputs=("data",), is_loss=True,
+         attr_spec={"grad_scale": (parse_float, 1.0),
+                    "valid_thresh": (parse_float, 0.0),
+                    "normalization": (None, "null")},
+         infer_shape=lambda attrs, s: (s, [s[0]], []),
+         simple=lambda attrs, data: _MakeLossFn.apply(
+             data, parse_float(attrs.get("grad_scale", 1.0)),
+             attrs.get("normalization", "null")))

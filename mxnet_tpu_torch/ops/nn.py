@@ -18,7 +18,9 @@ classifiers of ``models/`` also bind ``LRN`` and ``Concat`` (the JAX
 package's compositions, plain on both devices) and ``Dropout``, whose
 mask is ``mx.random``'s bernoulli draw under the node's key, bit for bit
 the JAX package's (its CUDA variant, the threefry kernel, is attached in
-``cuda_kernels.py``).
+``cuda_kernels.py``). ``softmax`` / ``log_softmax`` over an axis and
+``SliceChannel`` (alias ``split``) are the JAX package's, plain on both
+devices.
 
 Mixed precision (``compute_dtype="bfloat16"`` or ``"float16"``): the
 executor hands these ops 16-bit data, parameters and moving statistics.
@@ -576,3 +578,63 @@ def _concat(attrs, *xs):
 
 
 alias("concat", "Concat")
+
+
+# --------------------------------------------------------------------------
+# softmax / log_softmax over an axis, and SliceChannel (plain on both
+# devices: the JAX package's are XLA's ``jax.nn`` compositions; the
+# SoftmaxOutput head's kernels are for the loss head's rows only)
+# --------------------------------------------------------------------------
+@register("softmax", inputs=("data",), shape_passthrough=True,
+          attr_spec={"axis": (parse_int, -1),
+                     "temperature": (None, None)})
+def _softmax_op(attrs, x):
+    t = attrs.get("temperature")
+    if t not in (None, "None"):
+        x = x / parse_float(t)
+    return torch.softmax(x, dim=attrs.get("axis", -1))
+
+
+@register("log_softmax", inputs=("data",), shape_passthrough=True,
+          attr_spec={"axis": (parse_int, -1)})
+def _log_softmax_op(attrs, x):
+    return torch.log_softmax(x, dim=attrs.get("axis", -1))
+
+
+def _slice_channel_outputs(attrs):
+    return parse_int(attrs.get("num_outputs", 1))
+
+
+def _slice_channel_infer(attrs, in_shapes):
+    n = parse_int(attrs.get("num_outputs", 1))
+    axis = parse_int(attrs.get("axis", 1))
+    data_s = in_shapes[0]
+    if data_s is None:
+        return in_shapes, [None] * n, []
+    out = list(data_s)
+    out[axis] = out[axis] // n
+    if parse_bool(attrs.get("squeeze_axis", False)) and out[axis] == 1:
+        out.pop(axis)
+    return in_shapes, [tuple(out)] * n, []
+
+
+@register("SliceChannel", inputs=("data",),
+          attr_spec={"num_outputs": (parse_int, 1), "axis": (parse_int, 1),
+                     "squeeze_axis": (parse_bool, False)},
+          num_outputs=_slice_channel_outputs,
+          infer_shape=_slice_channel_infer)
+def _slice_channel(attrs, x):
+    """``num_outputs`` equal parts of x along ``axis`` (``jnp.split``: the
+    axis must divide), each a view; ``squeeze_axis`` drops the axis."""
+    n = parse_int(attrs.get("num_outputs", 1))
+    axis = parse_int(attrs.get("axis", 1))
+    if x.shape[axis] % n:
+        raise ValueError(f"SliceChannel: axis {axis} of {tuple(x.shape)} "
+                         f"does not split into {n} equal parts")
+    outs = torch.split(x, x.shape[axis] // n, dim=axis)
+    if parse_bool(attrs.get("squeeze_axis", False)):
+        outs = [o.squeeze(axis) for o in outs]
+    return tuple(outs)
+
+
+alias("split", "SliceChannel")

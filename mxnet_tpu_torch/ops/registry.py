@@ -233,16 +233,23 @@ def dispatch(opdef, attrs, inputs, aux, is_train, rng, device=None):
     """Run one op: the ``"cuda"`` variant when its tensors lie on a CUDA
     device and the op has one, the plain ``forward`` otherwise. The
     device of the first tensor input (else the first aux) decides; an op
-    with no tensor at all (a sampler) runs where ``device`` says, its
-    CUDA variant under that device."""
+    with no tensor at all (a sampler, ``_zeros``) runs where ``device``
+    says: its CUDA variant under that CUDA device, its plain version with
+    ``device`` as PyTorch's default device, so its tensor is made there."""
     tensors = list(inputs) + list(aux)
+    sourced = not any(t is not None for t in tensors)
     variant = _cuda_variant(opdef, tensors, device)
     if variant is not None:
         refuse_without_backward(opdef, variant, inputs)
-        if not any(t is not None for t in tensors):
+        if sourced:
             with torch.cuda.device(device):
                 return variant["fn"](attrs, inputs, aux, is_train, rng)
         return variant["fn"](attrs, inputs, aux, is_train, rng)
+    if sourced and device is not None:
+        # an op with no input (``_zeros``, ``_arange``) makes its tensor on
+        # the device, never on the host to copy over
+        with torch.device(device):
+            return opdef.forward(attrs, inputs, aux, is_train, rng)
     return opdef.forward(attrs, inputs, aux, is_train, rng)
 
 

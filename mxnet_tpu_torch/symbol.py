@@ -5,6 +5,14 @@ composition by substitution, bidirectional shape inference, and the
 MXNet-style JSON wire format — a graph written by ``mxnet_tpu``'s
 ``tojson`` loads here and serializes back to the same JSON. Binding hands
 the graph to ``executor.Executor``, which interprets it eagerly.
+
+The operators build the JAX package's nodes: ``+ - * / **`` between
+symbols (``_plus``, ``_minus``, ``_mul``, ``_div``, ``_power``) or with a
+number (``_add_scalar`` ... ``_power_scalar``, the reflected
+``_rsub_scalar`` / ``_rdiv_scalar``), unary ``-`` (``negative``); so does
+every ``mx.sym.<op>`` and the module functions ``zeros``, ``ones``,
+``arange``, ``pow``, ``maximum``, ``minimum`` and ``hypot``. A graph
+built with them serializes to the JAX package's JSON node for node.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ from .context import current_context
 from .ops.registry import OP_REGISTRY, get_op
 from . import attribute, name as _name_mod
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "zeros", "ones", "arange", "pow", "maximum", "minimum", "hypot"]
 
 
 class Node:
@@ -95,6 +104,48 @@ class Symbol:
             return self._outputs[0][0].name
         return None
 
+    # ------------------------------------------------------------ attributes
+    def attr(self, key):
+        """The first output node's attribute ``key`` as a string: a user
+        attribute, else an op parameter, else None."""
+        node = self._outputs[0][0]
+        val = node._extra.get(key)
+        if val is None and key in node.attrs:
+            return attr_to_str(node.attrs[key])
+        return val
+
+    # ------------------------------------------------------------- accessors
+    def __getitem__(self, index):
+        """One output, by position or by name (``list_outputs()``)."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise ValueError(f"no output named {index!r}")
+            index = names.index(index)
+        return Symbol([self._outputs[index]])
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def get_internals(self):
+        """A symbol over every output of every node, variables included,
+        in topological order: ``get_internals()["<node>_output"]``."""
+        outs = []
+        for node in self._topo_nodes():
+            if node.is_variable:
+                outs.append((node, 0))
+            else:
+                outs.extend((node, i) for i in range(
+                    node.opdef().num_outputs(node.attrs)))
+        return Symbol(outs)
+
+    def get_output(self, index):
+        return self[index]
+
     # ------------------------------------------------------------ composition
     def __call__(self, *args, **kwargs):
         """Compose: substitute this symbol's free variables (positional
@@ -134,12 +185,34 @@ class Symbol:
         return Symbol(outs)
 
     # ------------------------------------------------------------ arithmetic
-    def __add__(self, other):
+    def _binary_op(self, other, opname, scalar_op):
         if isinstance(other, Symbol):
-            return _create("_plus", [self, other])
+            return _create(opname, [self, other])
+        if isinstance(other, (int, float, np.generic)):
+            return _create(scalar_op, [self], scalar=float(other))
         return NotImplemented
 
+    def __add__(self, o): return self._binary_op(o, "_plus", "_add_scalar")
     __radd__ = __add__
+    def __sub__(self, o): return self._binary_op(o, "_minus", "_sub_scalar")
+
+    def __rsub__(self, o):
+        return _create("_rsub_scalar", [self], scalar=float(o))
+
+    def __mul__(self, o): return self._binary_op(o, "_mul", "_mul_scalar")
+    __rmul__ = __mul__
+    def __truediv__(self, o): return self._binary_op(o, "_div", "_div_scalar")
+    __div__ = __truediv__
+
+    def __rtruediv__(self, o):
+        return _create("_rdiv_scalar", [self], scalar=float(o))
+    __rdiv__ = __rtruediv__
+
+    def __pow__(self, o): return self._binary_op(o, "_power", "_power_scalar")
+    def __neg__(self): return _create("negative", [self])
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
 
     def __repr__(self):
         name = self.name
@@ -285,6 +358,13 @@ class Symbol:
         from .executor import Executor
         return Executor(self, ctx or current_context(), args, args_grad,
                         grad_req, aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind on ``ctx`` with the given arrays' shapes, no gradients, and
+        run one inference forward on them; returns the outputs."""
+        ex = self.simple_bind(ctx=ctx or current_context(), grad_req="null",
+                              **{k: v.shape for k, v in kwargs.items()})
+        return ex.forward(is_train=False, **kwargs)
 
     def attr_dict(self):
         """{node name: {attr: str}} for every node with attributes (op
@@ -496,3 +576,49 @@ def _init_symbol_module(module_dict):
     """Auto-generate mx.sym.<op> functions from the registry."""
     for op_name in list(OP_REGISTRY):
         module_dict[op_name] = _make_symbol_function(op_name)
+
+
+def zeros(shape, dtype=None, name=None):
+    return _create("_zeros", [], name=name, shape=shape,
+                   dtype=str(np.dtype(dtype or "float32")))
+
+
+def ones(shape, dtype=None, name=None):
+    return _create("_ones", [], name=name, shape=shape,
+                   dtype=str(np.dtype(dtype or "float32")))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, name=None):
+    return _create("_arange", [], name=name, start=start, stop=stop,
+                   step=step, repeat=repeat,
+                   dtype=str(np.dtype(dtype or "float32")))
+
+
+def _sym_scalar_dispatch(both, lscalar, rscalar, pyfn, name):
+    """``name(left, right)`` over Symbol / number operands: the op
+    ``both`` between symbols, ``lscalar`` / ``rscalar`` with a number on
+    the right / left (the ops ``mx.sym`` gains at import), ``pyfn`` on two
+    numbers."""
+    def fn(left, right):
+        g = globals()
+        if isinstance(left, Symbol) and isinstance(right, Symbol):
+            return g[both](left, right)
+        if isinstance(left, Symbol):
+            return g[lscalar](left, scalar=float(right))
+        if isinstance(right, Symbol):
+            return g[rscalar](right, scalar=float(left))
+        return pyfn(left, right)
+    fn.__name__ = name
+    return fn
+
+
+pow = _sym_scalar_dispatch("_power", "_power_scalar", "_rpower_scalar",
+                           lambda a, b: a ** b, "pow")
+maximum = _sym_scalar_dispatch("_maximum", "_maximum_scalar",
+                               "_maximum_scalar",
+                               lambda a, b: a if a > b else b, "maximum")
+minimum = _sym_scalar_dispatch("_minimum", "_minimum_scalar",
+                               "_minimum_scalar",
+                               lambda a, b: a if a < b else b, "minimum")
+hypot = _sym_scalar_dispatch("_hypot", "_hypot_scalar", "_hypot_scalar",
+                             lambda a, b: float(np.hypot(a, b)), "hypot")

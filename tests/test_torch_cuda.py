@@ -3863,3 +3863,86 @@ def test_restore_server_on_card_builds_nothing_after_warmup(dev, tmp_path):
     for g, w in zip(answers(restored), want):
         assert np.array_equal(g, w)
     assert restored.stats()["compiles_since_warmup"] == 0
+
+
+# --------------------------------------------------------------------------
+# the tensor surface on the card (plain PyTorch ops, no kernel of their own)
+# --------------------------------------------------------------------------
+_TIED = np.array([[3, 1, 3, 2, 1, 3, 0, 3] * 8,
+                  [0] * 64,
+                  list(range(32)) * 2], np.float32)
+
+
+def _nd_both(name, x, **attrs):
+    """``mx.nd.<name>`` on gpu(0) and on the CPU: (card, CPU) as numpy
+    lists."""
+    out = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        res = getattr(mx.nd, name)(mx.nd.array(x, ctx=ctx), **attrs)
+        out.append([r.asnumpy() for r in (res if isinstance(res, list)
+                                          else [res])])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,attrs", [
+    ("sort", {"is_ascend": a}) for a in (True, False)] + [
+    ("argsort", {"is_ascend": a, "axis": ax}) for a in (True, False)
+    for ax in (-1, 0)] + [
+    ("topk", {"k": k, "ret_typ": r, "is_ascend": a})
+    for k in (1, 5, 40) for r in ("indices", "value", "both", "mask")
+    for a in (False, True)])
+def test_ordering_with_ties_on_card_equals_cpu(dev, name, attrs):
+    """Ties: the stable sort flipped for is_ascend=False, topk the lower
+    index first (torch.topk orders ties arbitrarily on the card)."""
+    rows = np.concatenate([_TIED, np.random.RandomState(3).randint(
+        0, 5, (5, 64)).astype(np.float32)])
+    card, cpu = _nd_both(name, rows, **attrs)
+    assert len(card) == len(cpu)
+    for g, w in zip(card, cpu):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ordering_ties_at_the_lm_head_width(dev):
+    """(8, 32000) rows of few distinct values: every row is ties."""
+    x = np.random.RandomState(1).randint(0, 7, (8, 32000)).astype(np.float32)
+    for asc in (False, True):
+        for ret in ("both", "mask"):
+            card, cpu = _nd_both("topk", x, k=40, ret_typ=ret, is_ascend=asc)
+            assert all(np.array_equal(g, w) for g, w in zip(card, cpu))
+        card, cpu = _nd_both("argsort", x, is_ascend=asc)
+        assert np.array_equal(card[0], cpu[0])
+
+
+@pytest.mark.cuda
+def test_creation_ops_land_on_the_card(dev):
+    made = [mx.nd.ones((2, 3), ctx=mx.gpu(0)),
+            mx.nd.full((4,), 2.5, ctx=mx.gpu(0)),
+            mx.nd.empty((3,), ctx=mx.gpu(0)),
+            mx.nd.arange(0, 6, 2, ctx=mx.gpu(0))]
+    with mx.gpu(0):
+        made += [mx.nd._zeros(shape=(2, 2)), mx.nd._ones(shape=(3,)),
+                 mx.nd._full(shape=(2,), value=1.5), mx.nd._arange(start=4),
+                 mx.nd.zeros((2,))]
+    for a in made:
+        assert a.astorch().device.type == "cuda", a
+    assert made[2].asnumpy().tolist() == [0.0, 0.0, 0.0]
+    ex = mx.sym.ones((2, 3), dtype="int32").simple_bind(ctx=mx.gpu(0))
+    out = ex.forward()[0]
+    assert out.astorch().device.type == "cuda" and out.dtype == np.int32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["_mul_scalar", "_add_scalar",
+                                  "_div_scalar", "_mod_scalar",
+                                  "_rsub_scalar", "_maximum_scalar",
+                                  "_equal_scalar", "_power_scalar"])
+def test_integer_scalar_ops_keep_their_dtype_on_card(dev, name):
+    x = np.array([[3, -3, 7], [1, 5, -8]], np.int32)
+    card, cpu = _nd_both(name, x, scalar=2.5)
+    want = np.float32 if name == "_div_scalar" else np.int32  # true division
+    assert card[0].dtype == cpu[0].dtype == want
+    assert np.array_equal(card[0], cpu[0])
+    if name == "_mul_scalar":
+        assert card[0].tolist() == [[6, -6, 14], [2, 10, -16]]

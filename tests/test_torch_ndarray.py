@@ -208,3 +208,136 @@ def test_int32_power_with_negative_exponent_truncates():
            ** mxj.nd.array(expo, ctx=mxj.cpu())).asnumpy()
     unit = np.abs(base) == 1
     np.testing.assert_array_equal(got[unit], ref[unit])
+
+
+# --------------------------------------------------------------------------
+# the rest of the NDArray surface: methods, factories, module helpers
+# --------------------------------------------------------------------------
+METHODS = {
+    "copy": lambda pkg, a: a.copy(),
+    "astype_int32": lambda pkg, a: a.astype("int32"),
+    "astype_float16": lambda pkg, a: a.astype(np.float16),
+    "reshape": lambda pkg, a: a.reshape((3, -1)),
+    "reshape_codes": lambda pkg, a: a.reshape((0, 2, -1)),
+    "reshape_int": lambda pkg, a: a.reshape(24),
+    "T": lambda pkg, a: a.T,
+    "as_in_context": lambda pkg, a: a.as_in_context(pkg.cpu()),
+    "copyto_context": lambda pkg, a: a.copyto(pkg.cpu()),
+    "iter": lambda pkg, a: pkg.nd.concatenate(list(a), axis=0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(METHODS))
+def test_ndarray_method(name):
+    _same(*_both(lambda pkg, a: METHODS[name](pkg, a), A))
+
+
+def test_size_len_asscalar_wait():
+    for pkg in (mxj, mxt):
+        a = pkg.nd.array(X3, ctx=pkg.cpu())
+        assert a.size == 24 and len(a) == 2 and a.ndim == 3
+        assert [x.shape for x in a] == [(3, 4), (3, 4)]
+        one = pkg.nd.array(np.array([2.5], np.float32), ctx=pkg.cpu())
+        assert one.asscalar() == np.float32(2.5)
+        assert isinstance(one.asscalar(), np.float32)
+        with pytest.raises(ValueError):
+            a.asscalar()
+        a.wait_to_read()
+        a.wait_to_write()
+        pkg.nd.waitall()
+        with pytest.raises(TypeError):
+            len(pkg.nd.array(np.float32(1.0), ctx=pkg.cpu()))
+
+
+def test_copy_and_astype_do_not_alias():
+    a = mxt.nd.array(A, ctx=mxt.cpu())
+    for b in (a.copy(), a.astype("float32"), a.copyto(mxt.cpu())):
+        b[:] = 0.0
+        assert b.asnumpy().max() == 0.0 and a.asnumpy().max() > 0.0
+    assert a.as_in_context(mxt.cpu()) is a
+
+
+def test_copyto_ndarray_takes_its_dtype():
+    for pkg in (mxj, mxt):
+        dst = pkg.nd.zeros((4, 6), ctx=pkg.cpu(), dtype="int32")
+        out = pkg.nd.array(A * 3, ctx=pkg.cpu()).copyto(dst)
+        assert out is dst
+    _same(*_both(lambda pkg, a: a.copyto(pkg.nd.zeros(
+        (4, 6), ctx=pkg.cpu(), dtype="int32")), A * 3))
+    with pytest.raises(ValueError):
+        mxt.nd.array(A, ctx=mxt.cpu()).copyto(mxt.nd.zeros((2, 2),
+                                                           ctx=mxt.cpu()))
+
+
+FACTORIES = {
+    "ones": lambda pkg: pkg.nd.ones((2, 3), ctx=pkg.cpu()),
+    "ones_int": lambda pkg: pkg.nd.ones(4, ctx=pkg.cpu(), dtype="int32"),
+    "full": lambda pkg: pkg.nd.full((3, 2), 2.5, ctx=pkg.cpu()),
+    "full_f16": lambda pkg: pkg.nd.full((3,), -1.5, ctx=pkg.cpu(),
+                                        dtype="float16"),
+    "empty": lambda pkg: pkg.nd.empty((2, 2), ctx=pkg.cpu()),
+    "zeros": lambda pkg: pkg.nd.zeros((1, 4), ctx=pkg.cpu(), dtype="int32"),
+    "arange": lambda pkg: pkg.nd.arange(2, 11, 3, ctx=pkg.cpu()),
+    "arange_stop_none": lambda pkg: pkg.nd.arange(5, ctx=pkg.cpu()),
+    "arange_repeat": lambda pkg: pkg.nd.arange(0, 3, repeat=2,
+                                               ctx=pkg.cpu(), dtype="int32"),
+    "concatenate": lambda pkg: pkg.nd.concatenate(
+        [pkg.nd.array(A, ctx=pkg.cpu()), pkg.nd.array(B, ctx=pkg.cpu())],
+        axis=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FACTORIES))
+def test_factory(name):
+    want, got = FACTORIES[name](mxj).asnumpy(), FACTORIES[name](mxt).asnumpy()
+    _same(want, got)
+
+
+def test_empty_is_zeros_and_factories_land_on_the_context():
+    """``empty`` is zeros in the JAX package, unlike ``torch.empty``; every
+    factory makes its tensor on its context's device."""
+    with mxt.cpu():
+        for name in ("ones", "full", "empty", "arange"):
+            out = getattr(mxt.nd, name)(*((3,) if name != "full"
+                                          else ((3,), 7.0)))
+            assert out.astorch().device.type == "cpu"
+            assert out.context == mxt.cpu()
+    assert mxt.nd.empty((64,), ctx=mxt.cpu()).asnumpy().tolist() == [0.0] * 64
+
+
+HELPERS = ["add", "subtract", "multiply", "divide", "true_divide", "power",
+           "maximum", "minimum", "equal", "not_equal", "greater",
+           "greater_equal", "lesser", "lesser_equal"]
+
+
+@pytest.mark.parametrize("name", HELPERS)
+@pytest.mark.parametrize("form", ["arrays", "scalar_right", "scalar_left",
+                                  "int_array_float_scalar"])
+def test_module_helper(name, form):
+    a = np.round(P * 2)
+    b = np.round(B * 2)
+
+    def run(pkg, x, y):
+        fn = getattr(pkg.nd, name)
+        if form == "arrays":
+            return fn(x, y)
+        if form == "scalar_right":
+            return fn(x, 2.0)
+        if form == "scalar_left":
+            return fn(2.0, x)
+        return fn(pkg.nd.array(a.astype(np.int32), ctx=pkg.cpu()), 1.5)
+    want, got = _both(run, a, b)
+    _same(want, got)
+
+
+def test_moveaxis_and_onehot_encode():
+    _same(*_both(lambda pkg, x: pkg.nd.moveaxis(x, 0, -1), X3))
+    idx = np.array([0, 3, 5, -1, 2.7], np.float32)
+    for pkg in (mxj, mxt):
+        out = pkg.nd.zeros((5, 4), ctx=pkg.cpu())
+        res = pkg.nd.onehot_encode(pkg.nd.array(idx, ctx=pkg.cpu()), out)
+        assert res is out
+        if pkg is mxj:
+            want = out.asnumpy()
+    _same(want, out.asnumpy())
+    assert out.asnumpy().sum(1).tolist() == [1, 1, 0, 0, 1]

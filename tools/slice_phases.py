@@ -1,13 +1,15 @@
-"""chip_smoke.py's phases 55-59 alone, on the card: the build (phase 1),
-the threefry rows of phase 2, the decode serving of phase 3 (whose
-parameters, prompts and served chains phase 57 reads), then the phases
-named on the command line (default all):
+"""chip_smoke.py's later phases alone, on the card: the build (phase 1),
+the threefry rows of phase 2, the decode serving of phase 3 where phase
+57 is named (it reads phase 3's parameters, prompts and served chains),
+then the phases named on the command line (default 55-60):
 
-    python3 tools/slice_phases.py [55] [56] [57] [58] [59]
+    python3 tools/slice_phases.py [9] [55] [56] [57] [58] [59] [60]
 
-55: the bench LM through kill and resume; 56: ResNet-50 through kill and
-resume; 57: the Predictor (58, a warm restart, needs 57); 59: the 16-bit
-samplers."""
+9: the bench LM fit (phase 60 prints its tokens/s beside it); 55: the
+bench LM through kill and resume; 56: ResNet-50 through kill and resume;
+57: the Predictor (58, a warm restart, needs 57); 59: the 16-bit
+samplers; 60: the tensor surface (every op name card vs CPU, the bench LM
+through a loss written in the ops)."""
 import os
 import sys
 
@@ -39,9 +41,13 @@ def main():
               f"library_device_ms={cs._device_ms(r['library_call'])} "
               f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
     tick("2j (threefry)")
-    serve_counts, sym, params, prompts, served = cs.phase_serve(mx, ck)
-    tick("3 (serve)")
-    only = sys.argv[1:] or ["55", "56", "57", "58", "59"]
+    only = sys.argv[1:] or ["55", "56", "57", "58", "59", "60"]
+    if "57" in only:
+        serve_counts, sym, params, prompts, served = cs.phase_serve(mx, ck)
+        tick("3 (serve)")
+    if "9" in only:
+        cs.phase_lm_train(mx, ck)
+        tick("9")
     if "55" in only:
         cs.phase_lm_resume(mx, ck)
         tick("55")
@@ -58,6 +64,10 @@ def main():
     if "59" in only:
         cs.phase_samplers16(mx, ck)
         tick("59")
+    if "60" in only:
+        cs.phase_tensor_surface(mx)
+        cs.phase_custom_loss(mx, ck)
+        tick("60")
     print("new phases: ok")
 
 
