@@ -465,6 +465,28 @@ threefry's integer operations at the card's INT32 rate):
    off), 4 batches through ``Module.fit`` (tokens/s beside phase 9's,
    phase 9's launches a step less the head's softmax and CE gradient,
    exactly), the device-busy share of 2 more steps.
+61. the remaining nn layers and losses: ``LeakyReLU`` (every
+   ``act_type``), ``Deconvolution``, ``UpSampling``, ``InstanceNorm``,
+   ``L2Normalization``, ``SoftmaxActivation``, ``Crop``, the three
+   sequence ops, ``ROIPooling``, ``BilinearSampler``, ``GridGenerator``,
+   ``SpatialTransformer``, ``Correlation``, the three regression outputs,
+   ``SVMOutput`` and ``IdentityAttachKLSparseReg`` (20) as one-node
+   Executors on ``gpu(0)`` and on the CPU at the CPU tests' shapes, TF32
+   off: outputs within 2e-5, every input's gradient within 1e-5 of its
+   largest magnitude, ``rrelu``'s training slopes (the threefry kernel's
+   uniform draws) bit for bit; Fast R-CNN's ROI pooling (128 ROIs over
+   512 x 38 x 50, 7 x 7 bins) and FlowNet-C's correlation (256 x 48 x 64,
+   max_displacement 20, stride2 2) card vs CPU, each one's device ms and
+   backward peak memory on the card. Then DCGAN (``examples/dcgan.py``'s
+   graph, kept here as ``dcgan_generator`` / ``dcgan_discriminator``) at
+   ngf = ndf = 64, a 100-wide code, batch 64, through two Modules and
+   the example's loop (``dcgan_iteration``: the discriminator bound with
+   ``inputs_need_grad``, its gradients stashed and added, its input
+   gradient through the generator's backward, Adam lr 2e-4 beta1 0.5,
+   the ``CustomMetric`` "dacc"): generator samples a second and iteration
+   p50 over 10 timed iterations, exactly 2 ``adam_multi`` launches an
+   iteration, the device-busy share of 2 more; one iteration card vs CPU
+   from the same parameters and noise (``dcgan_parity``).
 
 Each phase's seconds are printed on a line of their own ("chip_smoke:
 phase N (...) took S s").
@@ -472,7 +494,8 @@ phase N (...) took S s").
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on its path — the decode kernels while serving, softmax /
 cross-entropy / the multi-tensor SGD-momentum while fitting ResNet-50
-with SGD, the multi-tensor Adam while fitting with Adam, the per-array
+with SGD, the multi-tensor Adam while fitting with Adam and training
+DCGAN, the per-array
 SGD-momentum and Adam kernels in phases 5 and 7's per-index updater
 loops, the LayerNorm and GeLU backward kernels and
 flash attention while fitting the LM (the LayerNorm backward's
@@ -509,6 +532,10 @@ import threading
 import time
 
 SEED = 0
+#: rounds of the slowest plain versions' timing (``_timed``; the kernels'
+#: own times keep three): one, so that phase 2 stays within the script's
+#: time as later phases are added
+PLAIN_ROUNDS = 1
 V, D, N_LAYER, N_HEAD, CAP = 32000, 512, 8, 8, 256
 LADDER = [1, 4, 8]
 PROMPT, NEW, N_REQ = 16, 64, 8
@@ -903,6 +930,39 @@ TS_BINARY = ("add", "sub", "mul", "div", "power", "hypot", "maximum",
              "minimum", "equal", "not_equal", "greater", "greater_equal",
              "lesser", "lesser_equal", "mod")
 TS_COMPARE = TS_BINARY[8:14]
+# phase 61(a): the remaining nn layers and losses card vs CPU, TF32 off,
+# at the CPU tests' limits: outputs within NN_TOL (rtol and atol), every
+# input's gradient within NN_GRAD_RTOL of its largest magnitude; rrelu's
+# slopes (the threefry kernel's uniform draws) bit for bit
+NN_TOL, NN_GRAD_RTOL = 2e-5, 1e-5
+#: Fast R-CNN's ROI pooling over VGG-16's conv5_3 of a 600 x 800 image
+#: (stride 16): 128 ROIs into 7 x 7 bins; its backward's peak allocation
+#: on the card beyond the inputs stays under ROI_PEAK_BYTES
+ROI_REAL = ((1, 512, 38, 50), 128, (7, 7), 1.0 / 16)
+ROI_PEAK_BYTES = 1 << 30
+#: FlowNet-C's correlation of its conv3 features (a 384 x 512 pair at
+#: stride 8): 256 channels, max_displacement 20, stride2 2, pad_size 20
+CORR_REAL = ((1, 256, 48, 64), {"kernel_size": 1, "max_displacement": 20,
+                                "stride1": 1, "stride2": 2, "pad_size": 20})
+# phase 61(b): DCGAN (examples/dcgan.py's graph) at the widths of MXNet's
+# example/gan/dcgan.py: ngf = ndf = 64, a 100-wide code, batch 64; Adam
+# lr 2e-4, beta1 0.5; warm-up and timed iterations; one iteration card vs
+# CPU from the same parameters and noise, TF32 off, cuDNN deterministic:
+# the discriminator's and generator's outputs within GAN_OUT_ATOL, the
+# moving statistics within GAN_PARAM_ATOL, every parameter within 2 lr +
+# GAN_PARAM_ATOL (lr / 20), and the share of a module's elements past
+# GAN_PARAM_ATOL within GAN_SPREAD times the CPU's own share, from its
+# parameters moved by one float32 ulp, plus GAN_FLIP_FLOOR. Adam's first
+# step moves a weight by lr * g / (|g| + eps), +-lr wherever |g| >> eps:
+# an element whose gradient lies within float32 noise of 0 takes either
+# sign, and its move changes the next pass's gradients by ~1e-2 of their
+# largest (both on the card and in the CPU's one-ulp run)
+GAN_NGF = GAN_NDF = 64
+GAN_CODE, GAN_BATCH = 100, 64
+GAN_WARM, GAN_ITERS = 3, 10
+GAN_ADAM = {"learning_rate": 2e-4, "beta1": 0.5}
+GAN_OUT_ATOL, GAN_PARAM_ATOL = 1e-5, 1e-5
+GAN_SPREAD, GAN_FLIP_FLOOR = 3, 1e-4
 
 
 def _timed(fn, reps=200, warm=20, rounds=3):
@@ -1679,7 +1739,8 @@ def _training_kernels(mx, ck, rs, t, rec):
         rec[name] = dict(
             max_abs_err=err[name], ms=_timed(calls[name], reps=50, warm=5),
             plain_ms=_timed(functools.partial(_per_array, plain, arrays,
-                                              per), reps=20, warm=2),
+                                              per), reps=20, warm=2,
+                            rounds=PLAIN_ROUNDS),
             # torch.optim.SGD keeps buf = mu * buf + g; torch.optim.Adam
             # places epsilon elsewhere
             library_ms=None, bound=_update_bound(name, n_el))
@@ -1789,7 +1850,8 @@ def _multi_row(ck, name, shapes, gen, hyper):
     return dict(
         max_abs_err=err, call=functools.partial(multi, *args),
         ms=_timed(functools.partial(multi, *args), reps=50, warm=5),
-        plain_ms=_timed(functools.partial(plain, *args), reps=20, warm=2),
+        plain_ms=_timed(functools.partial(plain, *args), reps=20, warm=2,
+                        rounds=PLAIN_ROUNDS),
         library_ms=_timed(library, reps=50, warm=5), library_call=library,
         bound=_update_bound(name, n_el))
 
@@ -1966,7 +2028,7 @@ def _lm_kernels(ck, rs, t, rec):
         max_abs_err=err,
         ms=_timed(lambda: ck.flash_attention(q, k, v, True), reps=50),
         plain_ms=_timed(lambda: ck.flash_attention_plain(q, k, v, True),
-                        reps=20, warm=3),
+                        reps=20, rounds=PLAIN_ROUNDS, warm=3),
         library_ms=_timed(sdpa_causal, reps=50), library_call=sdpa_causal,
         bound=_bound_ms(4 * q.numel() * 4, 4 * pairs * Dh))
     q2, k2, v2 = (t(rs.randn(4, N_HEAD, LM_SEQ, 128).astype(np.float32))
@@ -2229,7 +2291,7 @@ def _ring_kernels(ck, rs, t, rec):
             max_abs_err=worst, rel_err=rel,
             ms=_timed(lambda: ck.flash_attention_partial(*past), reps=50),
             plain_ms=_timed(lambda: ck.flash_attention_partial_plain(*past),
-                            reps=20, warm=3),
+                            reps=20, rounds=PLAIN_ROUNDS, warm=3),
             library_ms=None,    # no one PyTorch call returns (acc, m, l)
             bound=_bound_ms(nbytes, flops, peak))
         diag_ms = _timed(lambda: ck.flash_attention_partial(*diag), reps=50)
@@ -2406,7 +2468,7 @@ def _lm_bf16_kernels(ck, rs, t, rec, half="bfloat16"):
         max_abs_err=err, ulps=ulps,
         ms=_timed(lambda: ck.flash_attention(q, k, v, True), reps=50),
         plain_ms=_timed(lambda: ck.flash_attention_plain(q, k, v, True),
-                        reps=20, warm=3),
+                        reps=20, rounds=PLAIN_ROUNDS, warm=3),
         library_ms=_timed(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=50),
         bound=_bound_ms(4 * q.numel() * 2, 4 * pairs * Dh, BF16_FLOPS_PER_S))
@@ -2950,7 +3012,7 @@ def _bn_kernels(mx, ck, rs, t, rec):
         max_abs_err=abs_s, rel_err=rel_s,
         ms=_timed(lambda: [ck.bn_stats(x) for x in xs], reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_stats_plain(x) for x in xs],
-                        reps=20, warm=2),
+                        reps=20, rounds=PLAIN_ROUNDS, warm=2),
         # one read of x and the moments the op derives from the sums
         library_ms=_timed(var_mean, reps=20, warm=2), library_call=var_mean,
         bound=_bound_ms(4 * elems + 8 * chans, 3 * elems))
@@ -2959,7 +3021,8 @@ def _bn_kernels(mx, ck, rs, t, rec):
         ms=_timed(lambda: [ck.bn_apply_relu(x, *p) for x, p in zip(xs, ss)],
                   reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_apply_relu_plain(x, *p)
-                                 for x, p in zip(xs, ss)], reps=20, warm=2),
+                                 for x, p in zip(xs, ss)], reps=20,
+                        warm=2, rounds=PLAIN_ROUNDS),
         library_ms=None,    # no one PyTorch call scales, shifts and clamps
         bound=_bound_ms(8 * elems + 8 * chans, 3 * elems))
     return {"bn_stats": lambda: [ck.bn_stats(x) for x in xs],
@@ -3183,7 +3246,7 @@ def _bf16_kernels(mx, ck, rs, t, rec, half="bfloat16"):
         max_abs_err=abs_s, rel_err=rel_s,
         ms=_timed(lambda: [ck.bn_stats(xx) for xx in xs], reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_stats_plain(xx) for xx in xs],
-                        reps=20, warm=2),
+                        reps=20, rounds=PLAIN_ROUNDS, warm=2),
         # one read of x and the moments the op derives from the sums
         library_ms=_timed(var_mean, reps=20, warm=2), library_call=var_mean,
         bound=_bound_ms(2 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
@@ -3192,7 +3255,8 @@ def _bf16_kernels(mx, ck, rs, t, rec, half="bfloat16"):
         ms=_timed(lambda: [ck.bn_apply_relu(xx, *q)
                            for xx, q in zip(xs, ss)], reps=50, warm=5),
         plain_ms=_timed(lambda: [ck.bn_apply_relu_plain(xx, *q)
-                                 for xx, q in zip(xs, ss)], reps=20, warm=2),
+                                 for xx, q in zip(xs, ss)], reps=20,
+                        warm=2, rounds=PLAIN_ROUNDS),
         library_ms=None,    # no one PyTorch call scales, shifts and clamps
         bound=_bound_ms(4 * elems + 8 * chans, 3 * elems, BF16_FLOPS_PER_S))
     return {"softmax_" + sfx: lambda: ck.softmax(x),
@@ -7338,7 +7402,7 @@ def _threefry_kernels(ck, rs, t, rec):
         rec[name] = dict(
             max_abs_err=err, ms=_timed(lambda: ck.dropout(x, key, 0.9)),
             plain_ms=_timed(lambda: ck.dropout_plain(x, key, 0.9), reps=20,
-                            warm=2),
+                            warm=2, rounds=PLAIN_ROUNDS),
             library_ms=_timed(lambda: F.dropout(x, 0.1, True)),
             library_call=lambda x=x: F.dropout(x, 0.1, True),
             bound=_int_bound_ms(3 * n * x.element_size(), THREEFRY_OPS * n))
@@ -8663,6 +8727,583 @@ def phase_custom_loss(mx, ck):
     return counts
 
 
+def _nn_cases():
+    """Phase 61(a)'s cases: (op name, [(input name, numpy array)], attrs),
+    the CPU tests' shapes, numpy-seeded. The inputs are the op's, in its
+    order, parameters included."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 61)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    def away(*shape):
+        return (u(*shape, lo=0.3) * np.where(rs.rand(*shape) < 0.5, -1, 1)
+                ).astype(np.float32)
+
+    def const(*rows):
+        return np.array(rows, np.float32)
+
+    relu = np.maximum(u(2, 3, 8, 9), 0)
+    return [
+        ("LeakyReLU", [("data", away(2, 4))], {"act_type": "leaky",
+                                               "slope": 0.3}),
+        ("LeakyReLU", [("data", away(2, 4))], {"act_type": "elu",
+                                               "slope": 0.3}),
+        ("LeakyReLU", [("data", away(2, 3, 4)), ("gamma", u(3))],
+         {"act_type": "prelu"}),
+        ("LeakyReLU", [("data", u(3, 5))], {"act_type": "gelu"}),
+        ("LeakyReLU", [("data", u(5, 16))], {"act_type": "rrelu",
+                                             "lower_bound": 0.1,
+                                             "upper_bound": 0.6}),
+        ("Deconvolution", [("data", u(2, 3, 4, 4)), ("weight", u(3, 2, 4, 4)),
+                           ("bias", u(2))],
+         {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1), "num_filter": 2,
+          "no_bias": False}),
+        ("Deconvolution", [("data", u(1, 4, 3, 3)), ("weight", u(4, 2, 3, 3))],
+         {"kernel": (3, 3), "stride": (2, 2), "num_filter": 4,
+          "num_group": 2}),
+        ("Deconvolution", [("data", u(2, 3, 5)), ("weight", u(3, 4, 3))],
+         {"kernel": (3,), "stride": (2,), "pad": (1,), "adj": (1,),
+          "num_filter": 4}),
+        ("Deconvolution", [("data", u(1, 2, 3, 4)), ("weight", u(2, 3, 3, 3))],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (2, 3),
+          "num_filter": 3}),
+        ("UpSampling", [("arg0", u(1, 2, 2, 2)), ("arg1", u(1, 3, 4, 4))],
+         {"scale": 2, "num_args": 2, "sample_type": "nearest"}),
+        ("UpSampling", [("data", u(2, 3, 2, 3)), ("weight", u(3, 1, 5, 5))],
+         {"scale": 3, "num_filter": 3, "sample_type": "bilinear"}),
+        ("InstanceNorm", [("data", u(2, 3, 4, 5)), ("gamma", u(3)),
+                          ("beta", u(3))], {"eps": 1e-5}),
+        ("L2Normalization", [("data", away(2, 3, 4))], {"mode": "channel"}),
+        ("L2Normalization", [("data", away(2, 3, 2, 2))],
+         {"mode": "instance"}),
+        ("SoftmaxActivation", [("data", u(2, 3, 2, 2))], {"mode": "channel"}),
+        ("SoftmaxActivation", [("data", u(3, 4))], {}),
+        ("Crop", [("data", u(1, 2, 6, 7)), ("crop_like", u(1, 1, 3, 4))],
+         {"num_args": 2, "offset": (1, 2)}),
+        ("Crop", [("data", u(2, 2, 5, 5))], {"num_args": 1, "offset": (4, 3),
+                                             "h_w": (3, 3)}),
+        ("Crop", [("data", u(1, 2, 6, 7))], {"num_args": 1, "h_w": (3, 3),
+                                             "center_crop": True}),
+        ("SequenceLast", [("data", u(4, 3, 2)),
+                          ("sequence_length", const(0, 4, 1.7))],
+         {"use_sequence_length": True}),
+        ("SequenceMask", [("data", u(4, 3, 2)),
+                          ("sequence_length", const(1, 4, 0))],
+         {"use_sequence_length": True, "value": -1.5}),
+        ("SequenceReverse", [("data", u(4, 3, 2)),
+                             ("sequence_length", const(2, 4, 1))],
+         {"use_sequence_length": True}),
+        ("SequenceReverse", [("data", u(3, 2, 4))], {}),
+        ("ROIPooling", [("data", relu), ("rois", const(
+            [0, 0, 0, 15, 11], [1, 3, 2, 9, 14], [1, -4, -2, 30, 40],
+            [0, 6, 6, 6, 6], [1, 40, 2, 50, 8]))],
+         {"pooled_size": (3, 2), "spatial_scale": 0.5}),
+        ("BilinearSampler", [("data", u(2, 3, 5, 4)),
+                             ("grid", u(2, 2, 3, 4, lo=-1.3, hi=1.3))], {}),
+        ("GridGenerator", [("data", u(2, 6))],
+         {"transform_type": "affine", "target_shape": (7, 3)}),
+        ("GridGenerator", [("data", u(1, 2, 4, 4, lo=-0.3, hi=0.3))],
+         {"transform_type": "warp"}),
+        ("SpatialTransformer", [("data", u(2, 3, 6, 6)),
+                                ("loc", u(2, 6, lo=-0.8, hi=0.8))],
+         {"transform_type": "affine", "sampler_type": "bilinear",
+          "target_shape": (4, 5)}),
+        ("Correlation", [("data1", u(1, 3, 5, 6)), ("data2", u(1, 3, 5, 6))],
+         {"max_displacement": 2, "stride2": 2, "pad_size": 2}),
+        ("LinearRegressionOutput", [("data", u(4, 3)), ("label", u(4, 3))],
+         {"grad_scale": 2.0}),
+        ("LogisticRegressionOutput", [("data", u(4, 1)),
+                                      ("label", const([0], [1], [1], [0]))],
+         {"grad_scale": 0.5}),
+        ("MAERegressionOutput", [("data", u(2, 3, 2)), ("label", u(2, 3, 2))],
+         {}),
+        ("SVMOutput", [("data", u(5, 4)), ("label", const(0, 3, 1, 2, 7))],
+         {"margin": 0.5, "regularization_coefficient": 2.0,
+          "use_linear": True}),
+        ("SVMOutput", [("data", u(5, 4)), ("label", const(1, 1, 0, 3, -1))],
+         {"margin": 2.0}),
+        ("IdentityAttachKLSparseReg", [("data", u(6, 3, lo=0.05, hi=0.95))],
+         {"sparseness_target": 0.2, "penalty": 0.1}),
+    ]
+
+
+def _nn_run(mx, name, inputs, attrs, ctx, heads=True):
+    """The op as a one-node graph on ``ctx``: a training forward under
+    mx.random's key from SEED and, with ``heads``, a backward from head
+    gradients U(0.5, 1.5) (numpy, SEED): (outputs, {input: gradient}),
+    tensors on ``ctx``."""
+    import numpy as np
+    node = getattr(mx.sym, name)(*[mx.sym.var(k) for k, _ in inputs],
+                                 name="t", **attrs)
+    ex = node.simple_bind(ctx=ctx, grad_req="write" if heads else "null",
+                          **{k: v.shape for k, v in inputs})
+    mx.random.seed(SEED)
+    outs = ex.forward(is_train=True, **{k: mx.nd.array(v, ctx=ctx)
+                                        for k, v in inputs})
+    if not heads:
+        return [o.astorch() for o in outs], {}
+    rs = np.random.RandomState(SEED)
+    ex.backward([mx.nd.array(rs.uniform(0.5, 1.5, o.shape).astype(
+        np.float32), ctx=ctx) for o in outs])
+    return [o.astorch() for o in outs], {k: ex.grad_dict[k].astorch()
+                                         for k, _ in inputs}
+
+
+def _nn_err(got, want, grads=False):
+    """The card's ``got`` against the CPU's ``want`` as a share of the
+    limit (> 1 fails): outputs elementwise within NN_TOL (rtol and atol,
+    NaN where NaN), gradients within NN_GRAD_RTOL of the largest |want|."""
+    import torch
+    want = want.to(got.device)
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return float("inf")
+    ok = ~torch.isnan(want)
+    if not bool(ok.any()):
+        return 0.0
+    g, w = got[ok].double(), want[ok].double()
+    if grads:
+        return float((g - w).abs().max()) / (
+            NN_GRAD_RTOL * max(float(w.abs().max()), 1e-30))
+    return float(((g - w).abs() / (NN_TOL + NN_TOL * w.abs())).max())
+
+
+def phase_nn_layers(mx):
+    """Phase 61(a): the 20 remaining nn layers and losses (the nn layers,
+    the regression outputs, SVMOutput, IdentityAttachKLSparseReg), each
+    through a one-node Executor on gpu(0) and on the CPU from the same
+    numpy inputs (``_nn_cases``), TF32 off: outputs and every input's
+    gradient within the CPU tests' limits, rrelu's training output bit for
+    bit; then Fast R-CNN's ROI pooling (ROI_REAL) and FlowNet-C's
+    correlation (CORR_REAL) card vs CPU, forward, with each one's backward
+    on the card (its device ms and peak allocation; the ROI gradient's
+    total equals the head's over the non-empty cells)."""
+    import numpy as np
+    import torch
+    print(_tf32(False) + " (the nn layers, card vs CPU)")
+    names, worst = set(), {}
+    for name, inputs, attrs in _nn_cases():
+        want, want_g = _nn_run(mx, name, inputs, attrs, mx.cpu())
+        got, got_g = _nn_run(mx, name, inputs, attrs, mx.gpu(0))
+        if attrs.get("act_type") == "rrelu":
+            same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            print(f"nn layers: rrelu's training output card vs CPU bit for "
+                  f"bit: {same}")
+            if not same:
+                raise AssertionError("nn layers: rrelu's slopes differ on "
+                                     "the card")
+        err = max(_nn_err(g, w) for g, w in zip(got, want))
+        gerr = max(_nn_err(got_g[k], w, grads=True)
+                   for k, w in want_g.items())
+        worst[name] = max(worst.get(name, 0.0), err, gerr)
+        if not (err <= 1.0 and gerr <= 1.0):
+            raise AssertionError(
+                f"nn layers: {name}({attrs}) on the card differs from the "
+                f"CPU: output {err:.3g}, gradient {gerr:.3g} of the limit")
+        names.add(name)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"nn layers: {len(names)} op names card vs CPU, outputs and "
+          f"gradients; worst of the limit (outputs {NN_TOL}, gradients "
+          f"{NN_GRAD_RTOL} of max): " +
+          ", ".join(f"{k} {v:.3g}" for k, v in top))
+    if len(names) != 20:
+        raise AssertionError(f"nn layers: {len(names)} op names, want 20")
+    rs = np.random.RandomState(SEED + 62)
+    shape, n_roi, pooled, scale = ROI_REAL
+    h_img, w_img = shape[2] / scale, shape[3] / scale
+    x1, y1 = rs.uniform(0, w_img - 32, n_roi), rs.uniform(0, h_img - 32, n_roi)
+    rois = np.stack([np.zeros(n_roi), x1, y1,
+                     np.minimum(x1 + rs.uniform(16, 400, n_roi), w_img - 1),
+                     np.minimum(y1 + rs.uniform(16, 300, n_roi), h_img - 1)],
+                    1).astype(np.float32)
+    feats = np.maximum(rs.randn(*shape), 0).astype(np.float32)
+    c_shape, c_attrs = CORR_REAL
+    real = [("ROIPooling", [("data", feats), ("rois", rois)],
+             {"pooled_size": pooled, "spatial_scale": scale}),
+            ("Correlation", [("data1", rs.randn(*c_shape).astype(np.float32)),
+                             ("data2", rs.randn(*c_shape).astype(np.float32))],
+             c_attrs)]
+    for name, inputs, attrs in real:
+        t0 = time.perf_counter()
+        want, _ = _nn_run(mx, name, inputs, attrs, mx.cpu(), heads=False)
+        cpu_s = time.perf_counter() - t0
+        got, _ = _nn_run(mx, name, inputs, attrs, mx.gpu(0), heads=False)
+        err = _nn_err(got[0], want[0])
+        if not err <= 1.0:
+            raise AssertionError(f"nn layers: {name} at its realistic shape "
+                                 f"differs card vs CPU ({err:.3g} of the "
+                                 "limit)")
+        xs = [torch.tensor(v, device="cuda", requires_grad=True)
+              for _, v in inputs]
+        op = mx.ops.get_op(name)
+        a = op.normalize_attrs(attrs)
+
+        def fwd():
+            return op.forward(a, xs, [], True, None)[0][0]
+        out = fwd()
+        g = torch.rand(out.shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(SEED))
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), xs[0], g)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = fwd_bwd()[0]
+        peak = torch.cuda.max_memory_allocated() - base
+        if not bool(torch.isfinite(grads).all()):
+            raise AssertionError(f"nn layers: {name}'s gradient at its "
+                                 "realistic shape is not finite")
+        line = (f"nn layers: {name} {tuple(inputs[0][1].shape)} {attrs}: "
+                f"card vs CPU {err:.3g} of the limit (CPU forward "
+                f"{cpu_s:.2f} s); card forward device_ms="
+                f"{_device_ms(fwd, reps=5):.4f}, forward + backward "
+                f"device_ms={_device_ms(fwd_bwd, reps=5):.4f}, "
+                f"backward peak {peak / 2**20:.1f} MiB above the inputs")
+        if name == "ROIPooling":
+            from mxnet_tpu_torch.ops.nn import roi_bins
+            _, ym, xm = roi_bins(xs[1], scale, pooled, shape[2:], shape[0])
+            full = ym.any(-1)[:, None, :, None] & xm.any(-1)[:, None, None]
+            mass = float((g * full).sum())
+            got_mass = float(grads.sum())
+            line += (f"; gradient total {got_mass:.6g} against the head's "
+                     f"over the non-empty cells {mass:.6g}")
+            if abs(got_mass - mass) > 1e-4 * mass or peak > ROI_PEAK_BYTES:
+                raise AssertionError(f"nn layers: ROIPooling's backward at "
+                                     f"Fast R-CNN's shape: gradient total "
+                                     f"{got_mass} against {mass}, peak "
+                                     f"{peak} bytes")
+        print(line)
+        del xs, out, grads
+        torch.cuda.empty_cache()
+
+
+def dcgan_generator(sym, ngf=GAN_NGF, nc=3):
+    """``examples/dcgan.py``'s ``make_generator`` on ``sym`` (either
+    package's symbol module): four transposed convolutions from the
+    (N, code, 1, 1) ``rand`` to (N, nc, 32, 32), BatchNorm and ReLU
+    between, tanh at the end."""
+    g = sym.Deconvolution(sym.var("rand"), name="g1", kernel=(4, 4),
+                          num_filter=ngf * 4, no_bias=True)
+    g = sym.BatchNorm(g, name="gbn1", fix_gamma=False)
+    g = sym.Activation(g, name="gact1", act_type="relu")
+    for i, nf in ((2, ngf * 2), (3, ngf)):
+        g = sym.Deconvolution(g, name=f"g{i}", kernel=(4, 4), stride=(2, 2),
+                              pad=(1, 1), num_filter=nf, no_bias=True)
+        g = sym.BatchNorm(g, name=f"gbn{i}", fix_gamma=False)
+        g = sym.Activation(g, name=f"gact{i}", act_type="relu")
+    g = sym.Deconvolution(g, name="g4", kernel=(4, 4), stride=(2, 2),
+                          pad=(1, 1), num_filter=nc, no_bias=True)
+    return sym.Activation(g, name="gout", act_type="tanh")
+
+
+def dcgan_discriminator(sym, ndf=GAN_NDF):
+    """``examples/dcgan.py``'s ``make_discriminator`` on ``sym``: four
+    convolutions from (N, 3, 32, 32) to one logit, LeakyReLU(0.2) between
+    (BatchNorm after the second and third), then
+    ``LogisticRegressionOutput`` against ``label`` (N, 1)."""
+    d = sym.var("data")
+    label = sym.var("label")
+    for i, nf in enumerate((ndf, ndf * 2, ndf * 4)):
+        d = sym.Convolution(d, name=f"d{i + 1}", kernel=(4, 4), stride=(2, 2),
+                            pad=(1, 1), num_filter=nf, no_bias=True)
+        if i:
+            d = sym.BatchNorm(d, name=f"dbn{i + 1}", fix_gamma=False)
+        d = sym.LeakyReLU(d, name=f"dact{i + 1}", act_type="leaky",
+                          slope=0.2)
+    d = sym.Convolution(d, name="d4", kernel=(4, 4), num_filter=1,
+                        no_bias=True)
+    return sym.LogisticRegressionOutput(sym.Flatten(d), label, name="dloss")
+
+
+def dcgan_modules(mx, ctx, batch, ngf=GAN_NGF, ndf=GAN_NDF, code=GAN_CODE,
+                  params=None, rng=None):
+    """The generator Module (bound on ``rand``) and the discriminator
+    Module (bound with ``inputs_need_grad=True``) of examples/dcgan.py on
+    ``ctx``, either package as ``mx``: initialized by ``Normal(0.02)``
+    (under mx.random, or from ``rng``, a torch.Generator of the port) or
+    from ``params`` ((arg, aux) numpy dicts for each), Adam lr 2e-4, beta1
+    0.5. Returns (modG, modD)."""
+    modG = mx.mod.Module(dcgan_generator(mx.sym, ngf), data_names=("rand",),
+                         label_names=None, context=ctx)
+    modG.bind(data_shapes=[("rand", (batch, code, 1, 1))])
+    modD = mx.mod.Module(dcgan_discriminator(mx.sym, ndf),
+                         data_names=("data",), label_names=("label",),
+                         context=ctx)
+    modD.bind(data_shapes=[("data", (batch, 3, 32, 32))],
+              label_shapes=[("label", (batch, 1))], inputs_need_grad=True)
+    for i, mod in enumerate((modG, modD)):
+        if params is not None:
+            args, auxs = params[i]
+            mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                        for k, v in args.items()},
+                            aux_params={k: mx.nd.array(v, ctx=ctx)
+                                        for k, v in auxs.items()})
+        else:
+            mod.init_params(mx.initializer.Normal(0.02) if rng is None
+                            else mx.initializer.Normal(0.02, rng=rng))
+        mod.init_optimizer(optimizer="adam", optimizer_params=dict(GAN_ADAM))
+    return modG, modD
+
+
+def dcgan_metric(mx):
+    """The example's discriminator accuracy, a ``CustomMetric``."""
+    return mx.metric.CustomMetric(
+        lambda lab, pred: ((pred > 0.5) == (lab > 0.5)).mean(), name="dacc")
+
+
+def _grads(mod, index, into):
+    """Copy the gradients ``mod``'s update is about to use into ``into``
+    as numpy, keyed ``"<index>:<name>"``."""
+    if into is not None:
+        into.update({f"{index}:{n}": g.asnumpy() for n, g in zip(
+            mod._param_names, mod._exec_group.grad_arrays) if g is not None})
+
+
+def dcgan_iteration(mx, modG, modD, noise, real, labels, metric, grads=None):
+    """One iteration of examples/dcgan.py's loop, either package as
+    ``mx``: the generator's forward on ``noise``; the discriminator's
+    forward and backward on the fakes with label 0, its gradients stashed;
+    on ``real`` with label 1, the stash added, an update; on the fakes
+    with label 1, its input gradient through the generator's backward, an
+    update. ``labels``: (ones, zeros) NDArrays (N, 1); ``grads``: a dict
+    that takes the gradients each update used (``_grads``). Returns the
+    fakes and the discriminator's three outputs (NDArrays)."""
+    ones, zeros = labels
+    batch = mx.io.DataBatch
+    modG.forward(batch([noise], []), is_train=True)
+    fake = modG.get_outputs()[0]
+    modD.forward(batch([fake], [zeros]), is_train=True)
+    modD.backward()
+    stash = [g.copy() if g is not None else None
+             for g in modD._exec_group.grad_arrays]
+    out_fake = modD.get_outputs()[0]
+    metric.update([zeros], [out_fake])
+    modD.forward(batch([real], [ones]), is_train=True)
+    modD.backward()
+    for g, s in zip(modD._exec_group.grad_arrays, stash):
+        if g is not None and s is not None:
+            g += s
+    _grads(modD, 1, grads)
+    modD.update()
+    out_real = modD.get_outputs()[0]
+    metric.update([ones], [out_real])
+    modD.forward(batch([fake], [ones]), is_train=True)
+    modD.backward()
+    modG.backward([modD.get_input_grads()[0]])
+    _grads(modG, 0, grads)
+    modG.update()
+    return fake, [out_fake, out_real, modD.get_outputs()[0]]
+
+
+def real_blobs(rs, n):
+    """examples/dcgan.py's ``real_batch``: a bright gaussian blob at a
+    random centre on a dark 32 x 32 ground, three equal channels, in
+    [-1, 1]."""
+    import numpy as np
+    yy, xx = np.mgrid[0:32, 0:32]
+    imgs = np.empty((n, 3, 32, 32), np.float32)
+    for i in range(n):
+        cy, cx = rs.uniform(8, 24, size=2)
+        blob = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / 30.0))
+        imgs[i] = np.stack([blob] * 3) * 2 - 1
+    return imgs
+
+
+def _module_state(mods):
+    """{name: numpy} of every parameter and moving statistic of the
+    modules, prefixed by the module's index."""
+    out = {}
+    for i, mod in enumerate(mods):
+        args, auxs = mod.get_params()
+        for k, v in list(args.items()) + list(auxs.items()):
+            out[f"{i}:{k}"] = v.asnumpy()
+    return out
+
+
+def _one_ulp(params, seed):
+    """``params`` with every parameter (not the moving statistics) moved
+    by one float32 ulp, up or down at random."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    step = np.float32(2.0 ** -23)
+    return [({k: (v * (1 + step * rs.choice([-1, 1], v.shape))).astype(
+        np.float32) for k, v in args.items()}, auxs) for args, auxs in params]
+
+
+def _gan_diff(a, b):
+    """Run ``a`` against run ``b``: (output error, moving-statistics error,
+    largest parameter error, {module: share of elements past
+    GAN_PARAM_ATOL}, {module: worst gradient error over each array's
+    largest})."""
+    import numpy as np
+    out = max(float(np.abs(x - y).max())
+              for x, y in zip(a["outputs"], b["outputs"]))
+    aux, worst, past, elems, grad = 0.0, 0.0, {}, {}, {}
+    for k, v in b["state"].items():
+        d = np.abs(a["state"][k] - v)
+        m = int(k[0])
+        if k not in b["grads"]:               # a moving statistic
+            aux = max(aux, float(d.max()))
+            continue
+        worst = max(worst, float(d.max()))
+        past[m] = past.get(m, 0) + int((d > GAN_PARAM_ATOL).sum())
+        elems[m] = elems.get(m, 0) + d.size
+        g = b["grads"][k]
+        grad[m] = max(grad.get(m, 0.0), float(np.abs(a["grads"][k] - g).max())
+                      / max(float(np.abs(g).max()), 1e-30))
+    return out, aux, worst, {m: past[m] / elems[m] for m in past}, grad
+
+
+def dcgan_parity(mx, params, z, x, ctxs=None):
+    """One DCGAN iteration on gpu(0) and on the CPU (``ctxs``) from
+    ``params`` (as ``dcgan_modules`` takes them), noise ``z`` and real
+    images ``x``, cuDNN deterministic (TF32 as the caller set it), and on
+    the CPU again from the parameters moved by one ulp (``_one_ulp``):
+    the card's outputs within GAN_OUT_ATOL of the CPU's, its moving
+    statistics within GAN_PARAM_ATOL, every parameter within 2 lr +
+    GAN_PARAM_ATOL, and each module's share of elements past
+    GAN_PARAM_ATOL within GAN_SPREAD times the one-ulp run's plus
+    GAN_FLIP_FLOOR. Returns the line that reports it (with the gradients
+    each update used, against the one-ulp run's); raises on a
+    difference."""
+    import numpy as np
+    batch = z.shape[0]
+    ngf, ndf = params[0][0]["g3_weight"].shape[1], \
+        params[1][0]["d1_weight"].shape[0]
+    card, cpu = ctxs or (mx.gpu(0), mx.cpu())
+    runs = []
+    for ctx, start in ((card, params), (cpu, params),
+                       (cpu, _one_ulp(params, SEED + 61))):
+        mods = dcgan_modules(mx, ctx, batch, ngf, ndf, z.shape[1],
+                             params=start)
+        lab = (mx.nd.ones((batch, 1), ctx=ctx),
+               mx.nd.zeros((batch, 1), ctx=ctx))
+        grads = {}
+        with _deterministic():
+            fake, outs = dcgan_iteration(
+                mx, *mods, mx.nd.array(z, ctx=ctx), mx.nd.array(x, ctx=ctx),
+                lab, dcgan_metric(mx), grads=grads)
+        runs.append({"outputs": [o.asnumpy() for o in [fake] + outs],
+                     "state": _module_state(mods), "grads": grads})
+    out, aux, worst, share, grad = _gan_diff(runs[0], runs[1])
+    _, _, _, ulp_share, ulp_grad = _gan_diff(runs[2], runs[1])
+    limit = {m: GAN_SPREAD * ulp_share[m] + GAN_FLIP_FLOOR for m in share}
+    lr = GAN_ADAM["learning_rate"]
+    names = ("generator", "discriminator")
+    line = (f"dcgan parity: one iteration card vs CPU: the fakes and the "
+            f"discriminator's three outputs within {out:.3g} (limit "
+            f"{GAN_OUT_ATOL}); the moving statistics within {aux:.3g} "
+            f"(limit {GAN_PARAM_ATOL}); the parameters within {worst:.3g} "
+            f"(limit 2 lr + {GAN_PARAM_ATOL}); share of elements past "
+            f"{GAN_PARAM_ATOL}: " + ", ".join(
+                f"{names[m]} {share[m]:.3g} (the CPU's one-ulp run "
+                f"{ulp_share[m]:.3g}, limit {limit[m]:.3g})" for m in share) +
+            "; the gradients the updates used, worst over each array's "
+            "largest: " + ", ".join(
+                f"{names[m]} {grad[m]:.3g} (one-ulp run {ulp_grad[m]:.3g})"
+                for m in grad))
+    if not (out <= GAN_OUT_ATOL and aux <= GAN_PARAM_ATOL and
+            worst <= 2 * lr + GAN_PARAM_ATOL and
+            all(share[m] <= limit[m] for m in share)):
+        raise AssertionError(f"{line}: the card's iteration differs from "
+                             "the CPU's")
+    return line
+
+
+def phase_dcgan(mx, ck):
+    """Phase 61(b): DCGAN through two Modules on gpu(0) at GAN_NGF /
+    GAN_NDF, a GAN_CODE code and batch GAN_BATCH: after mx.random.seed
+    the Normal(0.02) weights drawn on the card (the uniform kernel, one
+    launch a weight), GAN_WARM + GAN_ITERS iterations of the example's
+    loop (``dcgan_iteration``) with its CustomMetric, PyTorch's TF32
+    default: generator samples a second and iteration p50 over the timed
+    ones, exactly 2 ``adam_multi`` launches an iteration and no other port
+    kernel, finite outputs; the device-busy share and launches of 2 more
+    iterations under the profiler (``_profiled``, after one more
+    unprofiled). Then one iteration card vs CPU from the same parameters
+    and noise (TF32 off, cuDNN deterministic, ``dcgan_parity``). Returns
+    the launches of the initialization and the timed iterations."""
+    import numpy as np
+    import torch
+    print(_tf32(True) + " (PyTorch's default, for the DCGAN iterations)")
+    rs = np.random.RandomState(SEED)
+    mx.random.seed(SEED)
+    ck.reset_launch_counts()
+    modG, modD = dcgan_modules(mx, mx.gpu(0), GAN_BATCH)
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    weights = sum(1 for mod in (modG, modD)
+                  for k in mod.get_params()[0] if k.endswith("weight"))
+    print(f"dcgan: {weights} weights drawn on the card, "
+          f"{counts.get('uniform', 0)} uniform launches")
+    if counts != {"uniform": weights}:
+        raise AssertionError(f"dcgan: launches while initializing {counts}")
+    dev = mx.gpu(0)
+    labels = (mx.nd.ones((GAN_BATCH, 1), ctx=dev),
+              mx.nd.zeros((GAN_BATCH, 1), ctx=dev))
+    metric = dcgan_metric(mx)
+    n = GAN_WARM + GAN_ITERS
+    noise = [mx.nd.array(rs.randn(GAN_BATCH, GAN_CODE, 1, 1).astype(
+        np.float32), ctx=dev) for _ in range(n + 3)]
+    real = [mx.nd.array(real_blobs(rs, GAN_BATCH), ctx=dev)
+            for _ in range(n + 3)]
+    ck.reset_launch_counts()
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fake, outs = dcgan_iteration(mx, modG, modD, noise[i], real[i],
+                                     labels, metric)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    loop = {k: v for k, v in ck.launch_counts().items() if v}
+    for k, v in loop.items():
+        counts[k] = counts.get(k, 0) + v
+    per_iter = {k: v / n for k, v in loop.items()}
+    timed = times[GAN_WARM:]
+    p50 = float(np.median(timed))
+    rate = GAN_BATCH * len(timed) / (sum(timed) / 1e3)
+    name, dacc = metric.get()
+    print(f"dcgan: {n} iterations ({GAN_WARM} warm-up) at ngf {GAN_NGF}, "
+          f"ndf {GAN_NDF}, code {GAN_CODE}, batch {GAN_BATCH}: "
+          f"{rate:.1f} generator samples/s over the {len(timed)} timed, "
+          f"iteration p50 {p50:.2f} ms (min {min(timed):.2f}, max "
+          f"{max(timed):.2f}); port kernel launches an iteration "
+          f"{per_iter}; {name} {dacc:.3f}")
+    if per_iter != {"adam_multi": 2.0}:
+        raise AssertionError(f"dcgan: port kernel launches an iteration "
+                             f"{per_iter}, want adam_multi 2")
+    for o in [fake] + outs:
+        if not bool(torch.isfinite(o.astorch()).all()):
+            raise AssertionError("dcgan: an output is not finite")
+    more = iter(range(n, n + 3))
+
+    def step():
+        i = next(more)
+        dcgan_iteration(mx, modG, modD, noise[i], real[i], labels, metric)
+    wall, busy, launches, groups = _profiled(step, 2, _kernel_group)
+    print(f"dcgan profile: 2 iterations: wall {wall:.2f} ms/iteration, "
+          f"device busy {busy:.2f} ms/iteration ({100 * busy / wall:.1f}% "
+          f"of wall), {launches:.0f} kernel launches an iteration")
+    for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  group {g}: {t:.3f} ms/iteration ({100 * t / busy:.1f}% "
+              f"of device time), {c:.0f} launches/iteration")
+    del modG, modD, fake, outs
+    torch.cuda.empty_cache()
+    print(_tf32(False) + " (the DCGAN iteration, card vs CPU)")
+    t0 = time.perf_counter()
+    init = dcgan_modules(mx, mx.cpu(), GAN_BATCH,
+                         rng=torch.Generator().manual_seed(SEED))
+    params = [tuple({k: v.asnumpy() for k, v in d.items()}
+                    for d in mod.get_params()) for mod in init]
+    z = rs.randn(GAN_BATCH, GAN_CODE, 1, 1).astype(np.float32)
+    x = real_blobs(rs, GAN_BATCH)
+    print(dcgan_parity(mx, params, z, x) +
+          f" ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 class _PhaseClock:
     """Prints, on a line of its own, the seconds since the last call (or
     since it was made) under the phase's name."""
@@ -8851,6 +9492,9 @@ def main():
     phase_tensor_surface(mx)
     custom_counts = phase_custom_loss(mx, ck)
     tick("60 (the tensor surface)")
+    phase_nn_layers(mx)
+    dcgan_counts = phase_dcgan(mx, ck)
+    tick("61 (the nn layers and losses, DCGAN)")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -8886,6 +9530,9 @@ def main():
     launches["sgd_mom"] = sgd_per_array
     for k in ("adam", "adam_multi"):
         launches[k] = adam_counts[k]
+    # DCGAN's two Module.update calls an iteration (phase 61)
+    for k, n in dcgan_counts.items():
+        launches[k] = launches.get(k, 0) + n
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

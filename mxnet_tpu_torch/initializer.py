@@ -1,12 +1,14 @@
 """Weight initializers: the JAX package's name-pattern dispatch.
 
 An Initializer is called as ``init(name, arr)`` and routes on the
-parameter name: ``*bias`` and ``*beta`` -> 0, ``*gamma`` -> 1,
-``*moving_mean`` -> 0, ``*moving_var`` -> 1, ``*weight`` -> the class's
-own rule (``_init_weight``); any other name raises. Random draws come
-from the ``mx.random`` chain, one ``next_key()`` a weight, in the JAX
-package's arithmetic: after the same ``mx.random.seed`` and the same
-order of calls (``Module.init_params`` goes by sorted name, as the JAX
+parameter name in the JAX package's order: ``upsampling*`` -> the
+bilinear kernel (``UpSampling``'s weight), then ``*bias`` -> 0,
+``*gamma`` -> 1, ``*beta`` -> 0, ``*weight`` -> the class's own rule
+(``_init_weight``), ``*moving_mean`` -> 0, ``*moving_var`` -> 1,
+``*moving_inv_var`` and ``*moving_avg`` -> 0; any other name raises.
+Random draws come from the ``mx.random`` chain, one ``next_key()`` a
+weight, in the JAX package's arithmetic: after the same
+``mx.random.seed`` and the same order of calls (``Module.init_params`` goes by sorted name, as the JAX
 package's does) both packages hold the same initial weights, uniform
 draws bit for bit and the standard normal ones within 1e-5 of max(1,
 |value|) (``erfinv`` is not XLA's polynomial). A weight on the card is
@@ -24,7 +26,22 @@ from . import random as _random
 from .ndarray import NDArray
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "MSRAPrelu"]
+           "Xavier", "MSRAPrelu", "Bilinear", "bilinear_kernel"]
+
+
+def bilinear_kernel(shape):
+    """The bilinear upsampling kernel of ``shape`` (..., H, W) in float32,
+    bit for bit the JAX package's ``_init_bilinear``: at (y, x) of every
+    plane ``(1 - |x / f - c|) * (1 - |y / f - c|)`` in float64, f =
+    ceil(W / 2), c = (2f - 1 - f % 2) / 2f, then rounded once."""
+    shape = tuple(int(d) for d in shape)
+    f = np.ceil(shape[3] / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    i = np.arange(int(np.prod(shape)))
+    x = i % shape[3]
+    y = (i // shape[3]) % shape[2]
+    weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+    return weight.astype(np.float32).reshape(shape)
 
 
 class Initializer:
@@ -52,15 +69,24 @@ class Initializer:
             raise TypeError("name must be string")
         if not isinstance(arr, NDArray):
             raise TypeError("arr must be NDArray")
-        if name.endswith("bias") or name.endswith("beta") or \
-                name.endswith("moving_mean"):
+        if name.startswith("upsampling"):
+            self._init_bilinear(name, arr)
+        elif name.endswith("bias") or name.endswith("beta"):
             arr.astorch().fill_(0.0)
-        elif name.endswith("gamma") or name.endswith("moving_var"):
+        elif name.endswith("gamma"):
             arr.astorch().fill_(1.0)
         elif name.endswith("weight"):
             self._init_weight(name, arr)
+        elif name.endswith("moving_mean") or \
+                name.endswith("moving_inv_var") or name.endswith("moving_avg"):
+            arr.astorch().fill_(0.0)
+        elif name.endswith("moving_var"):
+            arr.astorch().fill_(1.0)
         else:
             self._init_default(name, arr)
+
+    def _init_bilinear(self, _, arr):
+        arr.astorch().copy_(torch.from_numpy(bilinear_kernel(arr.shape)))
 
     def _init_weight(self, name, arr):
         raise NotImplementedError("must override _init_weight")
@@ -154,3 +180,10 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25, rng=None):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
                          rng)
+
+
+class Bilinear(Initializer):
+    """Every weight the bilinear upsampling kernel (``bilinear_kernel``)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)

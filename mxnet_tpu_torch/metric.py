@@ -1,22 +1,26 @@
 """Evaluation metrics: ``Accuracy``, ``TopKAccuracy``, ``CrossEntropy``,
-``CompositeEvalMetric`` and ``create``.
+the regression metrics ``MAE``, ``MSE`` and ``RMSE``, ``CustomMetric`` and
+``np``, ``CompositeEvalMetric`` and ``create``.
 
 The JAX package's contract: ``update(labels, preds)`` over lists of
 NDArrays, ``get() -> (name, value)``, ``sum_metric`` / ``num_inst``.
 Each update computes its batch total on the predictions' device and
 queues it there; reading the metric (``get``, ``sum_metric``) fetches
 every queued total at once, so a training step on the card is not held
-up by a copy to the host.
+up by a copy to the host. A ``CustomMetric`` runs its Python function on
+host numpy arrays, as the JAX package's does: its update copies the
+batch to the host.
 """
 from __future__ import annotations
 
-import numpy as np
+import numpy as _np
 import torch
 
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "CrossEntropy",
-           "CompositeEvalMetric", "create", "check_label_shapes"]
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "CrossEntropy", "MAE",
+           "MSE", "RMSE", "CustomMetric", "CompositeEvalMetric", "np",
+           "create", "check_label_shapes"]
 
 _REGISTRY = {}
 
@@ -40,9 +44,9 @@ def _pair(label, pred):
     prediction (``compute_dtype``) is widened to float32, as
     ``asnumpy()`` widens it."""
     p = pred.astorch() if isinstance(pred, NDArray) \
-        else torch.as_tensor(np.asarray(pred))
+        else torch.as_tensor(_np.asarray(pred))
     lab = label.astorch() if isinstance(label, NDArray) \
-        else torch.as_tensor(np.asarray(label))
+        else torch.as_tensor(_np.asarray(label))
     p = p.detach()
     if p.dtype in (torch.bfloat16, torch.float16):
         p = p.float()
@@ -185,10 +189,93 @@ class CrossEntropy(EvalMetric):
             self._accumulate(-torch.log(p_t + self.eps).sum(), lab.numel())
 
 
+class _RegressionMetric(EvalMetric):
+    """A batch's error (``_error`` of label and prediction, a 1-D label
+    taken as a column, the prediction reshaped to the label's shape),
+    averaged over batches."""
+
+    def _error(self, lab, pred):
+        raise NotImplementedError
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            lab, p = _pair(label, pred)
+            if lab.ndim == 1:
+                lab = lab[:, None]
+            if p.shape != lab.shape:
+                p = p.reshape(lab.shape)
+            self._accumulate(self._error(lab.to(p.dtype), p), 1)
+
+
+@_register("mae")
+class MAE(_RegressionMetric):
+    def __init__(self):
+        super().__init__("mae")
+
+    def _error(self, lab, pred):
+        return torch.abs(lab - pred).mean()
+
+
+@_register("mse")
+class MSE(_RegressionMetric):
+    def __init__(self):
+        super().__init__("mse")
+
+    def _error(self, lab, pred):
+        return ((lab - pred) ** 2).mean()
+
+
+@_register("rmse")
+class RMSE(_RegressionMetric):
+    def __init__(self):
+        super().__init__("rmse")
+
+    def _error(self, lab, pred):
+        return torch.sqrt(((lab - pred) ** 2).mean())
+
+
+def _host(x):
+    return x.asnumpy() if isinstance(x, NDArray) else _np.asarray(x)
+
+
+class CustomMetric(EvalMetric):
+    """A Python ``feval(label, pred)`` over host numpy arrays as a metric:
+    it returns a batch's value (counted once) or a (total, count) pair.
+    ``allow_extra_outputs`` lets the predictions outnumber the labels."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:          # a lambda
+                name = f"custom({name})"
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            res = self._feval(_host(label), _host(pred))
+            if isinstance(res, tuple):
+                self._accumulate(*res)
+            else:
+                self._accumulate(res, 1)
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A bare numpy function ``feval(label, pred)`` as a ``CustomMetric``."""
+    return CustomMetric(numpy_feval, name, allow_extra_outputs)
+
+
 def create(metric, **kwargs):
-    """Resolve a metric from a name, an instance or a list."""
+    """Resolve a metric from a name, a callable (``CustomMetric``), an
+    instance or a list."""
     if isinstance(metric, EvalMetric):
         return metric
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, list):
         out = CompositeEvalMetric()
         for m in metric:

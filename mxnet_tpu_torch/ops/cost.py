@@ -341,6 +341,63 @@ def _pool_cost():
     return flops, nbytes
 
 
+def _spatial_cost(flops_fn, out_fn):
+    """A spatial op: ``flops_fn(attrs, in_shapes)`` FLOPs, the inputs read
+    and ``out_fn(attrs, in_shapes)`` output elements written. The JAX
+    package's table has no entry for ROIPooling, Correlation or the
+    sampler family; the port gives every registered op one."""
+    def nbytes(attrs, in_shapes):
+        return _B * (_sum_elems(in_shapes) + out_fn(attrs, in_shapes))
+
+    return (lambda attrs, s: float(flops_fn(attrs, s))), nbytes
+
+
+def _roi_out(attrs, s):
+    ph, pw = parse_tuple(attrs["pooled_size"])
+    return s[1][0] * s[0][1] * ph * pw
+
+
+def _corr_dims(attrs, s):
+    """(displacements, N * C * padded H * W, N * H * W)."""
+    n, c, h, w = s[0]
+    pad = int(attrs.get("pad_size", 0))
+    md, s2 = int(attrs.get("max_displacement", 1)), \
+        int(attrs.get("stride2", 1))
+    d = len(range(-md, md + 1, s2))
+    return d * d, n * c * (h + 2 * pad) * (w + 2 * pad), n * h * w
+
+
+def _grid_out(attrs, s):
+    if attrs.get("transform_type", "affine") == "affine":
+        h, w = parse_tuple(attrs["target_shape"])
+        return s[0][0] * 2 * h * w
+    return _prod(s[0])
+
+
+def _st_out(attrs, s):
+    h, w = parse_tuple(attrs["target_shape"])
+    return s[0][0] * s[0][1] * h * w
+
+
+_SPATIAL = {
+    # the max over each ROI's image: one compare a pixel a bin stage
+    "ROIPooling": _spatial_cost(lambda a, s: 2 * s[1][0] * _prod(s[0][1:]),
+                                _roi_out),
+    "Correlation": _spatial_cost(
+        lambda a, s: 2 * _corr_dims(a, s)[0] * _corr_dims(a, s)[1],
+        lambda a, s: _corr_dims(a, s)[0] * _corr_dims(a, s)[2]),
+    # four neighbours weighted: 3 multiplies and an add each, the weights
+    "BilinearSampler": _spatial_cost(
+        lambda a, s: 14 * s[0][0] * s[0][1] * _prod(s[1][2:]),
+        lambda a, s: s[0][0] * s[0][1] * _prod(s[1][2:])),
+    "GridGenerator": _spatial_cost(lambda a, s: 5 * _grid_out(a, s),
+                                   _grid_out),
+    "SpatialTransformer": _spatial_cost(
+        lambda a, s: 14 * _st_out(a, s) + 5 * 2 * _st_out(a, s) //
+        s[0][1], _st_out),
+}
+
+
 def _opt_cost(flops_per_elem, n_arrays):
     def flops(attrs, in_shapes):
         return flops_per_elem * _elems(in_shapes)
@@ -486,6 +543,7 @@ def seed_costs():
     carry metadata keep their own)."""
     table = dict(_family_table())
     table.update(_SPECIFIC)
+    table.update(_SPATIAL)
     for name, (flops, nbytes) in table.items():
         opdef = OP_REGISTRY.get(name)
         if opdef is not None and not opdef.has_cost():

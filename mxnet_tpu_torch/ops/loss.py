@@ -1,4 +1,5 @@
-"""Loss heads: ``SoftmaxOutput`` and ``MakeLoss``.
+"""Loss heads: ``SoftmaxOutput``, ``MakeLoss``, the regression outputs,
+``SVMOutput``, and ``IdentityAttachKLSparseReg``.
 
 A loss head is at once a predict head (its forward output is the class
 probabilities) and a loss head: its backward IGNORES the incoming head
@@ -20,6 +21,13 @@ C), one label a row, then moves it back.
 identity and its backward ``grad_scale`` times ones under its
 ``normalization``, as the JAX package's ``custom_vjp``; a loss written in
 the tensor ops (``mean(-pick(log_softmax(x), label))``) trains through it.
+
+The regression outputs (``LinearRegressionOutput``,
+``LogisticRegressionOutput``, ``MAERegressionOutput``) and ``SVMOutput``
+are loss heads of the same contract, plain PyTorch on both devices (the
+JAX package's are XLA's ``custom_vjp``s: no Pallas kernel);
+``IdentityAttachKLSparseReg`` is the identity with a sparsity penalty in
+its gradient, no loss head.
 """
 from __future__ import annotations
 
@@ -170,3 +178,124 @@ register("MakeLoss", inputs=("data",), is_loss=True,
          simple=lambda attrs, data: _MakeLossFn.apply(
              data, parse_float(attrs.get("grad_scale", 1.0)),
              attrs.get("normalization", "null")))
+
+
+# --------------------------------------------------------------------------
+# Regression outputs: the forward is the identity or the sigmoid, the
+# backward ``(out - label)`` (MAE: its sign) times ``grad_scale`` over the
+# number of outputs a sample, the head gradient ignored
+# --------------------------------------------------------------------------
+_REG_TRANSFORMS = {"LinearRegressionOutput": None,
+                   "LogisticRegressionOutput": torch.sigmoid,
+                   "MAERegressionOutput": None}
+
+
+class _RegressionFn(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` of a regression head: the gradient
+    is ``grad(out, label) * grad_scale / (out.size / N)`` (1 for 1-D
+    output) in out's dtype; the label gets none."""
+
+    @staticmethod
+    def forward(ctx, data, label, name, grad_scale):
+        transform = _REG_TRANSFORMS[name]
+        out = data.clone() if transform is None else transform(data)
+        ctx.save_for_backward(out, label)
+        ctx.mae, ctx.grad_scale = name == "MAERegressionOutput", grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        denom = out.numel() // out.shape[0] if out.ndim > 1 else 1
+        diff = out - label.reshape(out.shape)
+        if ctx.mae:
+            # jnp.sign keeps NaN (torch.sign gives 0)
+            diff = torch.where(torch.isnan(diff), diff, torch.sign(diff))
+        return (diff * ctx.grad_scale / denom).to(out.dtype), None, None, \
+            None
+
+
+def _reg_infer(attrs, in_shapes):
+    data_s = in_shapes[0]
+    return [data_s, data_s], [data_s], []
+
+
+for _name in _REG_TRANSFORMS:
+    register(_name, inputs=("data", "label"), is_loss=True,
+             attr_spec={"grad_scale": (parse_float, 1.0)},
+             infer_shape=_reg_infer,
+             simple=(lambda attrs, data, label, _n=_name: _RegressionFn.apply(
+                 data, label, _n, parse_float(attrs.get("grad_scale", 1.0)))))
+
+
+# --------------------------------------------------------------------------
+# SVMOutput
+# --------------------------------------------------------------------------
+class _SVMFn(torch.autograd.Function):
+    """Forward: the identity on data (N, C). Backward, the head gradient
+    ignored: with ``viol = x - x[label] + margin`` off the label's column,
+    ``use_linear``: ``[viol > 0]`` there and minus their count at the
+    label; squared: ``2 max(viol, 0)`` there and minus their sum twice at
+    the label; times ``regularization_coefficient``. A label outside [0,
+    C) marks no column."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg_coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.hyper = (margin, reg_coef, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        data, label = ctx.saved_tensors
+        margin, reg_coef, use_linear = ctx.hyper
+        classes = torch.arange(data.shape[1], device=data.device)
+        onehot = (classes[None] == label.to(torch.int32)[:, None]).to(
+            data.dtype)
+        correct = torch.sum(data * onehot, dim=1, keepdim=True)
+        viol = data - correct + margin
+        if use_linear:
+            mask = (viol > 0).to(data.dtype) * (1 - onehot)
+            grad = mask - onehot * torch.sum(mask, dim=1, keepdim=True)
+        else:
+            maskv = torch.maximum(viol, torch.zeros((), dtype=viol.dtype,
+                                                    device=viol.device)) * \
+                (1 - onehot)
+            grad = 2 * maskv - 2 * onehot * torch.sum(maskv, dim=1,
+                                                      keepdim=True)
+        return (grad * reg_coef).to(data.dtype), None, None, None, None
+
+
+register("SVMOutput", inputs=("data", "label"), is_loss=True,
+         attr_spec={"margin": (parse_float, 1.0),
+                    "regularization_coefficient": (parse_float, 1.0),
+                    "use_linear": (parse_bool, False)},
+         infer_shape=lambda attrs, s: ([s[0], (s[0][0],) if s[0] else None],
+                                       [s[0]], []),
+         simple=lambda attrs, data, label: _SVMFn.apply(
+             data, label, parse_float(attrs.get("margin", 1.0)),
+             parse_float(attrs.get("regularization_coefficient", 1.0)),
+             parse_bool(attrs.get("use_linear", False))))
+
+
+# --------------------------------------------------------------------------
+# IdentityAttachKLSparseReg: the JAX package's, which takes the penalty from
+# this batch's mean activation and reads no ``momentum`` (MXNet keeps a
+# moving average of it; the port copies the JAX package)
+# --------------------------------------------------------------------------
+@register("IdentityAttachKLSparseReg", inputs=("data",),
+          attr_spec={"sparseness_target": (parse_float, 0.1),
+                     "penalty": (parse_float, 0.001),
+                     "momentum": (parse_float, 0.9)},
+          infer_shape=lambda attrs, s: (s, [s[0]], []))
+def _identity_kl(attrs, data):
+    """The identity forward; the gradient gains the KL-sparsity penalty's,
+    ``penalty * sum(KL(target || mean_batch(data)))`` entering as ``kl -
+    kl.detach()`` (value 0)."""
+    target = parse_float(attrs.get("sparseness_target", 0.1))
+    penalty = parse_float(attrs.get("penalty", 0.001))
+    rho_hat = torch.mean(data, dim=0, keepdim=True)
+    kl = penalty * torch.sum(
+        target * torch.log(target / (rho_hat + 1e-12)) +
+        (1 - target) * torch.log((1 - target) / (1 - rho_hat + 1e-12)))
+    return data + (kl - kl.detach())

@@ -42,6 +42,7 @@ from .. import random as _random
 from ..base import (parse_tuple, parse_bool, parse_int, parse_float,
                     merge_shape, shape_is_known)
 from .registry import register, alias
+from .tensor import _take_along
 
 
 def _fc_inputs(attrs):
@@ -352,8 +353,7 @@ def _activation(attrs, x):
     if t == "softsign":
         return x / (1 + torch.abs(x))
     if t == "gelu":
-        x32 = x.to(torch.float32)
-        return (0.5 * x32 * (1.0 + torch.erf(x32 * _INV_SQRT2))).to(x.dtype)
+        return gelu_exact(x)
     raise ValueError(f"act_type {t}")
 
 
@@ -638,3 +638,542 @@ def _slice_channel(attrs, x):
 
 
 alias("split", "SliceChannel")
+
+
+# --------------------------------------------------------------------------
+# LeakyReLU (every act_type needs a key: only rrelu's training forward uses
+# it, drawing its slopes as the JAX package's ``jax.random.uniform`` does)
+# --------------------------------------------------------------------------
+def gelu_exact(x):
+    """Exact (erf) GeLU in float32, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    return (0.5 * x32 * (1.0 + torch.erf(x32 * _INV_SQRT2))).to(x.dtype)
+
+
+def _lrelu_inputs(attrs):
+    if attrs.get("act_type", "leaky") == "prelu":
+        return ["data", "gamma"]
+    return ["data"]
+
+
+def _lrelu_infer(attrs, in_shapes):
+    data_s = in_shapes[0]
+    if attrs.get("act_type", "leaky") == "prelu":
+        g = (data_s[1],) if data_s is not None else None
+        return [data_s, g], [data_s], []
+    return in_shapes, [data_s], []
+
+
+def _lrelu_fwd(attrs, inputs, aux, is_train, rng):
+    """``x`` where x > 0, else ``slope * x`` (leaky), ``slope * (exp(x) -
+    1)`` (elu), ``gamma[c] * x`` (prelu) or ``r * x`` (rrelu: r uniform in
+    [lower_bound, upper_bound) under the node's key in training, their mean
+    outside it); gelu is the exact GeLU."""
+    t = attrs.get("act_type", "leaky")
+    x = inputs[0]
+    slope = weak_scalar(parse_float(attrs.get("slope", 0.25)), x)
+    if t == "leaky":
+        return [torch.where(x > 0, x, slope * x)], []
+    if t == "elu":
+        return [torch.where(x > 0, x, slope * (torch.exp(x) - 1))], []
+    if t == "prelu":
+        gamma = inputs[1].reshape((1, -1) + (1,) * (x.ndim - 2))
+        return [torch.where(x > 0, x, gamma * x)], []
+    if t == "rrelu":
+        lo = parse_float(attrs.get("lower_bound", 0.125))
+        hi = parse_float(attrs.get("upper_bound", 0.334))
+        if is_train:
+            from .cuda_kernels import uniform
+            r = uniform(rng, tuple(x.shape), lo, hi, device=x.device,
+                        dtype=x.dtype)
+        else:
+            r = weak_scalar((lo + hi) / 2.0, x)
+        return [torch.where(x > 0, x, r * x)], []
+    if t == "gelu":
+        return [gelu_exact(x)], []
+    raise ValueError(f"act_type {t}")
+
+
+register("LeakyReLU", inputs=_lrelu_inputs, full=_lrelu_fwd, need_rng=True,
+         attr_spec={"act_type": (None, "leaky"), "slope": (parse_float, 0.25),
+                    "lower_bound": (parse_float, 0.125),
+                    "upper_bound": (parse_float, 0.334)},
+         infer_shape=_lrelu_infer)
+
+
+# --------------------------------------------------------------------------
+# Deconvolution and UpSampling
+# --------------------------------------------------------------------------
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
+
+
+def conv_transpose(data, weight, stride, pad, adj, groups):
+    """``lax.conv_transpose`` as the JAX package calls it: the input dilated
+    by ``stride`` and padded ``k - 1 - p`` before and ``k - 1 - p + adj``
+    after, so ``out = (in - 1) * s + k - 2p + adj``; weight (cin, nf / ng,
+    k...). PyTorch's ``output_padding`` must stay below the stride and
+    its padding at most ``k - 1``: outside those, the full transposed
+    convolution (no padding) is cropped by ``p`` before and padded with
+    zeros (or cropped) by ``adj - p`` after, which is the same function."""
+    fn = _CONV_T[len(stride)]
+    kernel = weight.shape[2:]
+    if all(a < s and p <= k - 1 for a, s, p, k in zip(adj, stride, pad,
+                                                        kernel)):
+        return fn(data, weight, None, stride, pad, adj, groups)
+    full = fn(data, weight, None, stride, 0, 0, groups)
+    widths = []
+    for p, a in zip(reversed(pad), reversed(adj)):
+        widths += [-p, a - p]
+    return F.pad(full, widths)
+
+
+def _deconv_infer(attrs, in_shapes):
+    kernel = parse_tuple(attrs["kernel"])
+    nf = parse_int(attrs["num_filter"])
+    ng = parse_int(attrs.get("num_group", 1))
+    no_bias = parse_bool(attrs.get("no_bias", True))
+    nd = len(kernel)
+    stride = _ntuple(attrs.get("stride"), nd, 1)
+    pad = _ntuple(attrs.get("pad"), nd, 0)
+    adj = _ntuple(attrs.get("adj"), nd, 0)
+    data_s = in_shapes[0]
+    w_s, out_s = None, None
+    if data_s is not None:
+        w_s = (data_s[1], nf // ng) + kernel
+        spatial = tuple(stride[i] * (data_s[2 + i] - 1) + kernel[i]
+                        - 2 * pad[i] + adj[i] for i in range(nd))
+        out_s = (data_s[0], nf) + spatial
+    return [data_s, w_s] + ([] if no_bias else [(nf,)]), [out_s], []
+
+
+@register("Deconvolution", inputs=_fc_inputs,
+          attr_spec={**_CONV_ATTRS, "adj": (parse_tuple, None),
+                     "target_shape": (parse_tuple, None),
+                     "no_bias": (parse_bool, True)},
+          infer_shape=_deconv_infer)
+def _deconvolution(attrs, data, weight, bias=None):
+    """1-D or 2-D transposed convolution (``conv_transpose``), grouped by
+    ``num_group``; MXNet's weight layout (cin, nf / ng, k...) is
+    PyTorch's. ``target_shape`` and ``dilate`` are parsed and not read,
+    as in the JAX package."""
+    kernel = parse_tuple(attrs["kernel"])
+    nd = len(kernel)
+    if nd not in _CONV_T:
+        raise ValueError(f"Deconvolution: a {nd}-D kernel; 1-D and 2-D "
+                         "only")
+    out = conv_transpose(data, weight.to(data.dtype),
+                         _ntuple(attrs.get("stride"), nd, 1),
+                         _ntuple(attrs.get("pad"), nd, 0),
+                         _ntuple(attrs.get("adj"), nd, 0),
+                         parse_int(attrs.get("num_group", 1)))
+    if bias is not None:
+        out = out + bias.to(data.dtype).reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _upsampling_inputs(attrs):
+    if attrs.get("sample_type", "nearest") == "bilinear":
+        return ["data", "weight"]
+    return [f"arg{i}" for i in range(parse_int(attrs.get("num_args", 1)))]
+
+
+@register("UpSampling", inputs=_upsampling_inputs,
+          attr_spec={"scale": (parse_int, 2), "num_filter": (parse_int, 0),
+                     "sample_type": (None, "nearest"),
+                     "multi_input_mode": (None, "concat"),
+                     "num_args": (parse_int, 1),
+                     "workspace": (parse_int, 512)})
+def _upsampling(attrs, *xs):
+    """``nearest``: every input repeated up to the first input's size times
+    ``scale``, then concatenated over channels or summed
+    (``multi_input_mode``). ``bilinear``: a transposed convolution grouped
+    by channel with the (C, 1, k, k) weight given, stride ``scale`` and
+    padding ``k - 1 - ceil((scale - 1) / 2)`` on each side, k = 2 scale -
+    scale % 2 (the JAX package's padding, whatever the weight's size)."""
+    scale = parse_int(attrs.get("scale", 2))
+    if attrs.get("sample_type", "nearest") == "nearest":
+        th, tw = xs[0].shape[2] * scale, xs[0].shape[3] * scale
+        outs = [x.repeat_interleave(th // x.shape[2], dim=2)
+                .repeat_interleave(tw // x.shape[3], dim=3) for x in xs]
+        if len(outs) == 1:
+            return outs[0]
+        if attrs.get("multi_input_mode", "concat") == "sum":
+            return sum(outs)
+        return torch.cat(outs, dim=1)
+    data, weight = xs
+    k = 2 * scale - scale % 2
+    lo = k - 1 - int(np.ceil((scale - 1) / 2.0))
+    pad = tuple(kw - 1 - lo for kw in weight.shape[2:])
+    return conv_transpose(data, weight.to(data.dtype), (scale, scale), pad,
+                          (0, 0), data.shape[1])
+
+
+# --------------------------------------------------------------------------
+# InstanceNorm, L2Normalization, SoftmaxActivation
+# --------------------------------------------------------------------------
+def _in_infer(attrs, in_shapes):
+    data_s = in_shapes[0]
+    c = (data_s[1],) if data_s is not None else None
+    return [data_s, c, c], [data_s], []
+
+
+@register("InstanceNorm", inputs=("data", "gamma", "beta"),
+          attr_spec={"eps": (parse_float, 1e-3)}, infer_shape=_in_infer)
+def _instance_norm(attrs, data, gamma, beta):
+    """Per sample and channel over the spatial axes, in data's dtype:
+    ``(x - mean) * rsqrt(var + eps) * gamma + beta`` (biased var)."""
+    axes = tuple(range(2, data.ndim))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, unbiased=False, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * torch.rsqrt(var + attrs.get("eps", 1e-3)) * \
+        gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+_L2_AXES = {"instance": lambda nd: tuple(range(1, nd)),
+            "channel": lambda nd: (1,),
+            "spatial": lambda nd: tuple(range(2, nd))}
+
+
+@register("L2Normalization", inputs=("data",),
+          attr_spec={"eps": (parse_float, 1e-10), "mode": (None, "instance")},
+          infer_shape=_id_infer)
+def _l2_normalization(attrs, data):
+    """``x / sqrt(sum(x^2) + eps)`` over every axis but the batch
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``)."""
+    mode = attrs.get("mode", "instance")
+    if mode not in _L2_AXES:
+        raise ValueError(f"L2Normalization: mode {mode!r}")
+    norm = torch.sqrt(torch.sum(torch.square(data), dim=_L2_AXES[mode](
+        data.ndim), keepdim=True) + attrs.get("eps", 1e-10))
+    return data / norm
+
+
+@register("SoftmaxActivation", inputs=("data",),
+          attr_spec={"mode": (None, "instance")}, infer_shape=_id_infer)
+def _softmax_activation(attrs, x):
+    """Softmax over the channel axis (``channel``), or over all but the
+    batch axis (``instance``)."""
+    if attrs.get("mode", "instance") == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+# --------------------------------------------------------------------------
+# Crop
+# --------------------------------------------------------------------------
+@register("Crop", inputs=lambda attrs: ["data", "crop_like"][:parse_int(
+    attrs.get("num_args", 1))],
+    attr_spec={"num_args": (parse_int, 1), "offset": (parse_tuple, (0, 0)),
+               "h_w": (parse_tuple, (0, 0)),
+               "center_crop": (parse_bool, False)})
+def _crop_op(attrs, data, crop_like=None):
+    """An (h, w) window of the last two axes (``crop_like``'s, else
+    ``h_w``) at ``offset`` (or centred). As ``lax.dynamic_slice`` does, a
+    negative start counts from the end, then each start is clamped into
+    [0, dim - size], so the window always lies inside the input; a window
+    larger than the input raises."""
+    oy, ox = attrs.get("offset", (0, 0))
+    if crop_like is not None:
+        h, w = crop_like.shape[2], crop_like.shape[3]
+    else:
+        h, w = attrs.get("h_w", (0, 0))
+    H, W = data.shape[2], data.shape[3]
+    if h > H or w > W:
+        raise ValueError(f"Crop: a ({h}, {w}) window of {tuple(data.shape)}")
+    if parse_bool(attrs.get("center_crop", False)):
+        oy, ox = (H - h) // 2, (W - w) // 2
+    oy, ox = (o + dim if o < 0 else o for o, dim in ((oy, H), (ox, W)))
+    oy, ox = min(max(oy, 0), H - h), min(max(ox, 0), W - w)
+    return data[:, :, oy:oy + h, ox:ox + w]
+
+
+# --------------------------------------------------------------------------
+# Sequence ops (time-major: axis 0 is time; ``sequence_length`` (B,) is
+# truncated to int32, as the JAX package's ``astype`` does)
+# --------------------------------------------------------------------------
+def _seq_inputs(attrs):
+    if parse_bool(attrs.get("use_sequence_length", False)):
+        return ["data", "sequence_length"]
+    return ["data"]
+
+
+def _seq_lengths(sequence_length, ndim):
+    """The lengths as int32, shaped (1, B, 1, ...) against (T, B, ...)."""
+    return sequence_length.to(torch.int32).reshape((1, -1) + (1,) *
+                                                   (ndim - 2))
+
+
+@register("SequenceLast", inputs=_seq_inputs,
+          attr_spec={"use_sequence_length": (parse_bool, False)})
+def _sequence_last(attrs, data, sequence_length=None):
+    """The last step, or step ``length - 1`` of each sequence through
+    ``take_along_axis``' default mode (length 0 reads the last step,
+    a length past T gives NaN)."""
+    if sequence_length is None:
+        return data[-1]
+    return _take_along(data, _seq_lengths(sequence_length, data.ndim) - 1,
+                       0)[0]
+
+
+@register("SequenceMask", inputs=_seq_inputs,
+          attr_spec={"use_sequence_length": (parse_bool, False),
+                     "value": (parse_float, 0.0)})
+def _sequence_mask(attrs, data, sequence_length=None):
+    """Steps at or past each sequence's length set to ``value``."""
+    if sequence_length is None:
+        return data
+    t = data.shape[0]
+    steps = torch.arange(t, dtype=torch.int32, device=data.device).reshape(
+        (t,) + (1,) * (data.ndim - 1))
+    return torch.where(steps < _seq_lengths(sequence_length, data.ndim),
+                       data, torch.tensor(attrs.get("value", 0.0),
+                                          dtype=data.dtype,
+                                          device=data.device))
+
+
+@register("SequenceReverse", inputs=_seq_inputs,
+          attr_spec={"use_sequence_length": (parse_bool, False)})
+def _sequence_reverse(attrs, data, sequence_length=None):
+    """Time reversed, or each sequence's first ``length`` steps reversed
+    and the rest kept (a length past T reads past the end: NaN, as
+    ``take_along_axis`` fills)."""
+    if sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    t = data.shape[0]
+    lengths = sequence_length.to(torch.int32)[None, :]
+    steps = torch.arange(t, dtype=torch.int32, device=data.device)[:, None]
+    idx = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    return _take_along(data, idx.reshape(idx.shape + (1,) * (data.ndim - 2)),
+                       0)
+
+
+# --------------------------------------------------------------------------
+# ROIPooling: the JAX composition masks the whole (C, H, W) image once per
+# output cell; here the same max is taken in two separable stages (the
+# x-bins of every row, then the y-bins of those row maxima) over chunks
+# of ROIs, and the backward recomputes a chunk at a time
+# --------------------------------------------------------------------------
+#: elements of one chunk's largest intermediate (float32: 128 MiB)
+ROI_CHUNK_ELEMS = 1 << 25
+
+
+def roi_bins(rois, scale, pooled, size, batch):
+    """Per ROI its batch index (negative counts from the end, then clamped,
+    as JAX indexing does) and the masks of its y-bins (R, ph, H) and
+    x-bins (R, pw, W): corners ``round(coord * scale)`` (half to even),
+    bin i of a side of length L >= 1 from ``start + floor(i L / n)`` to
+    ``start + ceil((i + 1) L / n)``, cut at the image's edge."""
+    b = rois[:, 0].to(torch.int32).to(torch.int64)
+    b = torch.where(b < 0, b + batch, b).clamp(0, batch - 1)
+    corners = torch.round(rois[:, 1:5] * scale).to(torch.int32)
+    x1, y1, x2, y2 = corners.unbind(1)
+    masks = []
+    for lo, hi, n, dim in ((y1, y2, pooled[0], size[0]),
+                           (x1, x2, pooled[1], size[1])):
+        length = torch.clamp(hi - lo + 1, min=1)[:, None]
+        i = torch.arange(n, dtype=torch.int32, device=rois.device)[None]
+        start = lo[:, None] + (i * length) // n
+        end = torch.clamp(lo[:, None] + ((i + 1) * length + n - 1) // n,
+                          max=dim)
+        pos = torch.arange(dim, dtype=torch.int32, device=rois.device)
+        masks.append((pos >= start[..., None]) & (pos < end[..., None]))
+    return b, masks[0], masks[1]
+
+
+def _roi_pool_chunk(img, ymask, xmask):
+    """Max of img (r, C, H, W) over each (y-bin, x-bin) cell, in two
+    stages, -inf outside a bin; an empty cell gives 0. (r, C, ph, pw)."""
+    neg = torch.full((), float("-inf"), dtype=img.dtype, device=img.device)
+    rows = torch.where(xmask[:, None, None], img[:, :, :, None, :],
+                       neg).amax(dim=-1)                   # (r, C, H, pw)
+    cells = torch.where(ymask[:, None, :, :, None], rows[:, :, None],
+                        neg).amax(dim=3)                   # (r, C, ph, pw)
+    full = ymask.any(-1)[:, :, None] & xmask.any(-1)[:, None, :]
+    return torch.where(full[:, None], cells, torch.zeros((), dtype=img.dtype,
+                                                         device=img.device))
+
+
+def _roi_chunk(data, pooled):
+    _, c, h, w = data.shape
+    return max(1, ROI_CHUNK_ELEMS // max(1, c * h * w * max(pooled)))
+
+
+class _ROIPoolFn(torch.autograd.Function):
+    """Forward: ``_roi_pool_chunk`` over chunks of ROIs, nothing kept but
+    the inputs. Backward: each chunk recomputed with autograd on and its
+    gradient added into the image's (``amax`` splits a cell's gradient
+    evenly among ties at each stage: the joint max of the JAX package
+    splits it evenly among the cell's ties, which agrees wherever the tied
+    rows of a cell hold equally many tied maxima, as a cell of zeros
+    does)."""
+
+    @staticmethod
+    def forward(ctx, data, b, ymask, xmask):
+        ctx.save_for_backward(data, b, ymask, xmask)
+        ctx.step = step = _roi_chunk(data, (ymask.shape[1], xmask.shape[1]))
+        out = data.new_empty((b.shape[0], data.shape[1], ymask.shape[1],
+                              xmask.shape[1]))
+        for i in range(0, b.shape[0], step):
+            out[i:i + step] = _roi_pool_chunk(data[b[i:i + step]],
+                                              ymask[i:i + step],
+                                              xmask[i:i + step])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, b, ymask, xmask = ctx.saved_tensors
+        grad = torch.zeros_like(data)
+        for i in range(0, b.shape[0], ctx.step):
+            rows = b[i:i + ctx.step]
+            with torch.enable_grad():
+                img = data[rows].detach().requires_grad_(True)
+                out = _roi_pool_chunk(img, ymask[i:i + ctx.step],
+                                      xmask[i:i + ctx.step])
+                gi, = torch.autograd.grad(out, img, g[i:i + ctx.step])
+            grad.index_add_(0, rows, gi)
+        return grad, None, None, None
+
+
+@register("ROIPooling", inputs=("data", "rois"),
+          attr_spec={"pooled_size": (parse_tuple, None),
+                     "spatial_scale": (parse_float, 1.0)})
+def _roi_pooling(attrs, data, rois):
+    """rois (R, 5): (batch index, x1, y1, x2, y2) in input pixels, scaled
+    by ``spatial_scale``; out (R, C, ph, pw), the max over each bin
+    (``roi_bins``). The ROIs get no gradient."""
+    b, ymask, xmask = roi_bins(rois.detach(), attrs["spatial_scale"],
+                               attrs["pooled_size"], data.shape[2:],
+                               data.shape[0])
+    return _ROIPoolFn.apply(data, b, ymask, xmask)
+
+
+# --------------------------------------------------------------------------
+# BilinearSampler, GridGenerator, SpatialTransformer
+# --------------------------------------------------------------------------
+def bilinear_sample(data, grid):
+    """The JAX package's sampler: grid (N, 2, Ho, Wo) of (x, y) in [-1, 1]
+    mapped to pixels ``(g + 1) * (size - 1) / 2``; the four neighbours of
+    each point gathered (a neighbour outside the image counts 0) and
+    weighted by the fractional parts. Gradients reach data (a scatter-add
+    of the gather) and grid (through the weights)."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1) * (h - 1) / 2.0
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    wx, wy = (gx - x0)[:, None], (gy - y0)[:, None]
+    flat = data.reshape(n, c, h * w)
+
+    def gather(yy, xx):
+        yi = torch.nan_to_num(yy).clamp(0, h - 1).to(torch.int64)
+        xi = torch.nan_to_num(xx).clamp(0, w - 1).to(torch.int64)
+        valid = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+        idx = (yi * w + xi).reshape(n, 1, -1).expand(n, c, -1)
+        out = torch.gather(flat, 2, idx).reshape((n, c) + tuple(yy.shape[1:]))
+        return out * valid[:, None].to(data.dtype)
+
+    v00, v01 = gather(y0, x0), gather(y0, x0 + 1)
+    v10, v11 = gather(y0 + 1, x0), gather(y0 + 1, x0 + 1)
+    return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy) +
+            v10 * (1 - wx) * wy + v11 * wx * wy)
+
+
+register("BilinearSampler", inputs=("data", "grid"),
+         simple=lambda attrs, data, grid: bilinear_sample(data, grid))
+
+
+def _linspace(n, device):
+    """``jnp.linspace(-1, 1, n)`` in float32, as JAX computes it:
+    ``-1 * (1 - t) + 1 * t`` at t = i / (n - 1), the last point 1."""
+    if n == 1:
+        return torch.full((1,), -1.0, device=device)
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
+    return torch.cat([-(1 - t) + t, torch.ones(1, device=device)])
+
+
+def affine_grid(loc, target_shape):
+    """The affine grid of (N, 6) ``loc`` over a (h, w) target: theta (N, 2,
+    3) times the homogeneous (x, y, 1) of ``linspace(-1, 1)`` points, as
+    (N, 2, h, w)."""
+    h, w = target_shape
+    n = loc.shape[0]
+    ys, xs = torch.meshgrid(_linspace(h, loc.device), _linspace(w, loc.device),
+                            indexing="ij")
+    coords = torch.stack([xs.reshape(-1), ys.reshape(-1),
+                          torch.ones(h * w, device=loc.device)])
+    theta = loc.reshape(n, 2, 3)
+    return torch.matmul(theta, coords.to(theta.dtype)).reshape(n, 2, h, w)
+
+
+@register("GridGenerator", inputs=("data",),
+          attr_spec={"transform_type": (None, "affine"),
+                     "target_shape": (parse_tuple, (0, 0))})
+def _grid_generator(attrs, data):
+    """``affine``: ``affine_grid`` of the (N, 6) data. ``warp``: the (N, 2,
+    h, w) flow plus each pixel's own (x, y), mapped to [-1, 1] as
+    ``(v * 2) / (size - 1) - 1``."""
+    if attrs.get("transform_type", "affine") == "affine":
+        return affine_grid(data, attrs["target_shape"])
+    n, _, h, w = data.shape
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=data.dtype, device=data.device),
+        torch.arange(w, dtype=data.dtype, device=data.device), indexing="ij")
+    gx = (data[:, 0] + xs) * 2 / (w - 1) - 1
+    gy = (data[:, 1] + ys) * 2 / (h - 1) - 1
+    return torch.stack([gx, gy], dim=1)
+
+
+@register("SpatialTransformer", inputs=("data", "loc"),
+          attr_spec={"target_shape": (parse_tuple, (0, 0)),
+                     "transform_type": (None, "affine"),
+                     "sampler_type": (None, "bilinear")})
+def _spatial_transformer(attrs, data, loc):
+    """``bilinear_sample`` of data on the affine grid of ``loc``."""
+    return bilinear_sample(data, affine_grid(loc, attrs["target_shape"]))
+
+
+# --------------------------------------------------------------------------
+# Correlation: the JAX package's composition, which shifts with a
+# wrap-around roll, takes the mean over channels and reads neither
+# ``kernel_size``, ``stride1`` nor ``is_multiply`` (MXNet does none of
+# these; the port copies them)
+# --------------------------------------------------------------------------
+def _wrapped(x, dim, start, length):
+    """``length`` entries of ``x`` along ``dim`` from ``start``, taken
+    modulo its size (``jnp.roll``'s wrap-around): a view where they do not
+    wrap, else two views joined."""
+    size = x.shape[dim]
+    start %= size
+    if start + length <= size:
+        return x.narrow(dim, start, length)
+    head = size - start
+    return torch.cat([x.narrow(dim, start, head),
+                      _wrapped(x, dim, 0, length - head)], dim=dim)
+
+
+@register("Correlation", inputs=("data1", "data2"),
+          attr_spec={"kernel_size": (parse_int, 1),
+                     "max_displacement": (parse_int, 1),
+                     "stride1": (parse_int, 1), "stride2": (parse_int, 1),
+                     "pad_size": (parse_int, 0),
+                     "is_multiply": (parse_bool, True)},
+          num_outputs=2, num_visible=1, output_names=["output", "tmp"])
+def _correlation(attrs, data1, data2):
+    """Both inputs zero-padded by ``pad_size``; for each displacement (dy,
+    dx) in ``range(-md, md + 1, stride2)`` squared, the channel mean of
+    ``data1 * roll(data2, (-dy, -dx))`` over the padded extent, then the
+    padding cropped off. Computed on the kept region alone (there the
+    padded data1 is data1), from windows of the padded data2 that wrap
+    around its edges (``_wrapped``). Outputs (N, D * D, H, W) and a (1,)
+    zero."""
+    md, s2 = attrs["max_displacement"], attrs["stride2"]
+    pad = attrs["pad_size"]
+    d2 = F.pad(data2, [pad] * 4)
+    n_y, n_x = data1.shape[2], data1.shape[3]
+    disp = range(-md, md + 1, s2)
+    out = torch.stack([
+        (data1 * _wrapped(_wrapped(d2, 2, pad + dy, n_y), 3, pad + dx,
+                          n_x)).mean(dim=1)
+        for dy in disp for dx in disp], dim=1)
+    return out, torch.zeros((1,), dtype=data1.dtype, device=data1.device)

@@ -80,7 +80,15 @@ and int32 signatures. CustomOps on CUDA
 tensors (an NDArray body on the device, the numpy softmax head against
 ``SoftmaxOutput``) and ``mx.autograd`` over convolutions on the card
 against the CPU, TF32 off (1e-4: cuDNN and oneDNN sum in other orders).
+
+The remaining nn layers: ``ROIPooling`` at Fast R-CNN's shape
+(equal to the CPU, its backward's peak allocation under 1 GiB beyond the
+inputs), ``Deconvolution`` with ``adj`` at or past the stride and padding
+past k - 1, ``Crop``'s clamped offsets, ``rrelu``'s slopes bit for bit
+against the CPU, and one DCGAN iteration through two Modules card vs CPU
+(``chip_smoke.dcgan_parity``) with one ``adam_multi`` launch an update.
 """
+import os
 import re
 
 import numpy as np
@@ -3946,3 +3954,170 @@ def test_integer_scalar_ops_keep_their_dtype_on_card(dev, name):
     assert np.array_equal(card[0], cpu[0])
     if name == "_mul_scalar":
         assert card[0].tolist() == [[6, -6, 14], [2, 10, -16]]
+
+
+# --------------------------------------------------------------------------
+# the remaining nn layers and losses, DCGAN
+# --------------------------------------------------------------------------
+@pytest.fixture
+def no_tf32():
+    """cuDNN's convolutions in full float32 (its default is TF32)."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _op_both(name, arrays, attrs, seed=0, train=True):
+    """``name`` as a one-node graph on the card and on the CPU: a training
+    forward after mx.random.seed(seed), a backward from the same head
+    gradients; [(outputs, {input: gradient})] as numpy, card first."""
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        node = getattr(mx.sym, name)(*[mx.sym.var(k) for k in arrays],
+                                     name="t", **attrs)
+        ex = node.simple_bind(ctx=ctx, grad_req="write",
+                              **{k: v.shape for k, v in arrays.items()})
+        mx.random.seed(seed)
+        outs = ex.forward(is_train=train, **{
+            k: mx.nd.array(v, ctx=ctx) for k, v in arrays.items()})
+        rs = np.random.RandomState(seed)
+        if train:
+            ex.backward([mx.nd.array(rs.uniform(0.5, 1.5, o.shape).astype(
+                np.float32), ctx=ctx) for o in outs])
+        runs.append(([o.asnumpy() for o in outs],
+                     {k: ex.grad_dict[k].asnumpy() for k in arrays}))
+    return runs
+
+
+def _agree(card, cpu, tol=TOL):
+    for g, w in zip(card[0], cpu[0]):
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+    for k, w in cpu[1].items():
+        assert np.abs(card[1][k] - w).max() <= 1e-5 * max(
+            float(np.abs(w).max()), 1e-30), k
+
+
+@pytest.mark.cuda
+def test_roi_pooling_at_fast_rcnn_shape_within_its_peak_memory(dev):
+    """128 ROIs over VGG-16's conv5_3 of a 600 x 800 image (512 x 38 x 50,
+    scale 1/16, 7 x 7 bins): the card's output equals the CPU's (a max),
+    its backward allocates under 1 GiB beyond the inputs (the chunks are
+    recomputed), and each non-empty cell's gradient reaches the image."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    rs = np.random.RandomState(0)
+    data = np.maximum(rs.randn(1, 512, 38, 50), 0).astype(np.float32)
+    x1, y1 = rs.uniform(0, 760, 128), rs.uniform(0, 560, 128)
+    rois = np.stack([np.zeros(128), x1, y1,
+                     np.minimum(x1 + rs.uniform(16, 400, 128), 799),
+                     np.minimum(y1 + rs.uniform(16, 300, 128), 599)],
+                    1).astype(np.float32)
+    attrs = {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16}
+    want = tnn._roi_pooling(attrs, torch.tensor(data), torch.tensor(rois))
+    x = torch.tensor(data, device=dev, requires_grad=True)
+    r = torch.tensor(rois, device=dev)
+    out = tnn._roi_pooling(attrs, x, r)
+    assert torch.equal(out.detach().cpu(), want)
+    g = torch.rand(out.shape, device=dev,
+                   generator=torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grad, = torch.autograd.grad(out, x, g)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 1 << 30
+    _, ym, xm = tnn.roi_bins(r, 1.0 / 16, (7, 7), (38, 50), 1)
+    full = ym.any(-1)[:, None, :, None] & xm.any(-1)[:, None, None]
+    torch.testing.assert_close(grad.sum(), (g * full).sum(), rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attrs,shape", [
+    ({"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (2, 3),
+      "num_filter": 3}, (2, 2, 3, 4)),
+    ({"kernel": (2, 3), "stride": (1, 2), "pad": (0, 1), "adj": (1, 1),
+      "num_filter": 2, "num_group": 2}, (1, 2, 3, 3)),
+    ({"kernel": (2, 2), "stride": (3, 3), "pad": (2, 2), "num_filter": 2},
+     (1, 2, 4, 4)),
+    ({"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1), "num_filter": 64,
+      "no_bias": False}, (8, 128, 8, 8)),
+])
+def test_deconvolution_with_adj_at_the_stride_on_card(dev, no_tf32, attrs,
+                                                      shape):
+    """``adj`` at or past the stride and padding past k - 1 (PyTorch's
+    ``conv_transpose`` refuses both: the output is cropped and padded
+    instead), and DCGAN's layer, card vs CPU."""
+    rs = np.random.RandomState(2)
+    ng = attrs.get("num_group", 1)
+    arrays = {"data": rs.uniform(-1, 1, shape).astype(np.float32),
+              "weight": rs.uniform(-1, 1, (shape[1], attrs["num_filter"] //
+                                           ng) + attrs["kernel"]).astype(
+                                               np.float32)}
+    if not attrs.get("no_bias", True):
+        arrays["bias"] = rs.uniform(-1, 1, attrs["num_filter"]).astype(
+            np.float32)
+    card, cpu = _op_both("Deconvolution", arrays, attrs)
+    _agree(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attrs,corner", [
+    ({"num_args": 1, "offset": (4, 3), "h_w": (3, 3)}, (2, 3)),
+    ({"num_args": 1, "offset": (-1, 9), "h_w": (4, 2)}, (1, 4)),
+    ({"num_args": 1, "h_w": (3, 3), "center_crop": True}, (1, 1))])
+def test_crop_clamps_its_offset_on_card(dev, attrs, corner):
+    """``lax.dynamic_slice``'s start: a negative one counted from the end,
+    then clamped so the window fits (``corner``)."""
+    x = np.random.RandomState(3).uniform(-1, 1, (2, 2, 5, 6)).astype(
+        np.float32)
+    card, cpu = _op_both("Crop", {"data": x}, attrs)
+    assert np.array_equal(card[0][0], cpu[0][0])
+    assert np.array_equal(card[1]["data"], cpu[1]["data"])
+    (oy, ox), (h, w) = corner, attrs["h_w"]
+    assert np.array_equal(card[0][0], x[:, :, oy:oy + h, ox:ox + w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 16), (64, 256, 8, 8)])
+def test_rrelu_slopes_on_card_are_the_cpus_bit_for_bit(dev, shape):
+    """rrelu's training slopes: the threefry kernel's uniform draws under
+    the node's key (one launch), the CPU's plain draws bit for bit."""
+    x = np.random.RandomState(4).uniform(-1, 1, shape).astype(np.float32)
+    attrs = {"act_type": "rrelu", "lower_bound": 0.1, "upper_bound": 0.6}
+    before = ck.launch_counts()["uniform"]
+    card, cpu = _op_both("LeakyReLU", {"data": x}, attrs, seed=5)
+    assert ck.launch_counts()["uniform"] == before + 1
+    assert np.array_equal(card[0][0], cpu[0][0])
+    assert np.array_equal(card[1]["data"], cpu[1]["data"])
+    card, cpu = _op_both("LeakyReLU", {"data": x}, attrs, train=False)
+    assert np.array_equal(card[0][0], cpu[0][0])
+
+
+@pytest.mark.cuda
+def test_dcgan_iteration_on_card_matches_cpu(dev, no_tf32):
+    """One iteration of examples/dcgan.py's loop through two Modules
+    (chip_smoke's copy of it) at ngf = ndf = 16, batch 8, card vs CPU from
+    the same parameters and noise (``chip_smoke.dcgan_parity``: outputs
+    and moving statistics within 1e-5, every parameter within 2 lr +
+    1e-5, and the share of a module's elements past 1e-5, where Adam's
+    first step took the other sign of a gradient within float32 noise of
+    0, within 3 times the CPU's own share from parameters one ulp away,
+    plus 1e-4), and one ``adam_multi`` launch a ``Module.update``."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    rs = np.random.RandomState(6)
+    init = cs.dcgan_modules(mx, mx.cpu(), 8, 16, 16, 100,
+                            rng=torch.Generator().manual_seed(0))
+    params = [tuple({k: v.asnumpy() for k, v in d.items()}
+                    for d in m.get_params()) for m in init]
+    ck.reset_launch_counts()
+    cs.dcgan_parity(mx, params, rs.randn(8, 100, 1, 1).astype(np.float32),
+                    cs.real_blobs(rs, 8))
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        {"adam_multi": 2}

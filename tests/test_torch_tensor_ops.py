@@ -19,7 +19,7 @@ registry on the same numpy-seeded inputs (CPU).
   ``where`` condition; and the pinned faults (``round`` half to even,
   ``gamma`` as |Γ|, integer powers with negative exponents).
 * The registry's coverage: the JAX package's op names less the port's
-  are exactly the 46 left for later slices.
+  are exactly the 26 left for later slices.
 """
 import json
 import os
@@ -80,13 +80,19 @@ TENSOR_OPS = (UNARY + UNARY_MORE + BINARY_OPS + SUMS + REDUCTIONS + INIT +
 SLICE_OPS = TENSOR_OPS + ["softmax", "log_softmax", "SliceChannel", "split",
                           "MakeLoss"]
 
+#: the remaining nn layers and losses (``tests/test_torch_nn_layers.py``
+#: holds them to the JAX package)
+LAYER_OPS = ["BilinearSampler", "Correlation", "Crop", "Deconvolution",
+             "GridGenerator", "InstanceNorm", "L2Normalization", "LeakyReLU",
+             "ROIPooling", "SequenceLast", "SequenceMask", "SequenceReverse",
+             "SoftmaxActivation", "SpatialTransformer", "UpSampling",
+             "SVMOutput", "IdentityAttachKLSparseReg",
+             "LinearRegressionOutput", "LogisticRegressionOutput",
+             "MAERegressionOutput"]
+
 #: the JAX package's op names the port leaves to later slices (ROADMAP.md
-#: A4.3-A5): nn layers, contrib, the other losses, RNN, RMSProp's updates
+#: A4.5-A6): contrib, RNN, RMSProp's updates
 LATER = {
-    "nn": ["BilinearSampler", "Correlation", "Crop", "Deconvolution",
-           "GridGenerator", "InstanceNorm", "L2Normalization", "LeakyReLU",
-           "ROIPooling", "SequenceLast", "SequenceMask", "SequenceReverse",
-           "SoftmaxActivation", "SpatialTransformer", "UpSampling"],
     "contrib": ["CTCLoss", "ctc_loss", "MultiBoxDetection", "MultiBoxPrior",
                 "MultiBoxTarget", "MultiProposal", "Proposal",
                 "count_sketch", "dequantize", "fft", "ifft", "quantize",
@@ -95,9 +101,6 @@ LATER = {
                 "_contrib_Proposal", "_contrib_count_sketch",
                 "_contrib_ctc_loss", "_contrib_dequantize", "_contrib_fft",
                 "_contrib_ifft", "_contrib_quantize"],
-    "loss": ["SVMOutput", "IdentityAttachKLSparseReg",
-             "LinearRegressionOutput", "LogisticRegressionOutput",
-             "MAERegressionOutput"],
     "rnn": ["RNN"],
     "optimizer": ["rmsprop_update", "rmspropalex_update"],
 }
@@ -233,21 +236,33 @@ def test_registry_difference_is_the_later_slices():
                          text=True, env=env, check=True).stdout
     jax_ops, torch_ops = (set(x) for x in json.loads(out.splitlines()[-1]))
     later = {n for names in LATER.values() for n in names}
-    assert len(later) == 46 and len(SLICE_OPS) == 147 == len(set(SLICE_OPS))
+    assert len(later) == 26 and len(SLICE_OPS) == 147 == len(set(SLICE_OPS))
+    assert len(LAYER_OPS) == 20 == len(set(LAYER_OPS) - set(SLICE_OPS))
     missing = jax_ops - torch_ops
     assert missing == later, (sorted(missing - later), sorted(later - missing))
-    assert torch_ops <= jax_ops and set(SLICE_OPS) <= torch_ops
-    assert len(torch_ops) == 207 and len(jax_ops) == 253
+    assert torch_ops <= jax_ops and set(SLICE_OPS + LAYER_OPS) <= torch_ops
+    assert len(torch_ops) == 227 and len(jax_ops) == 253
 
 
 def test_every_slice_op_keeps_the_jax_attrs():
-    """The same attribute names and defaults (what ``tojson`` writes)."""
-    for name in SLICE_OPS:
+    """The same attribute names and defaults (what ``tojson`` writes), the
+    same loss flag, and for the nn layers and losses also the same need
+    for a key and the same outputs (their number, visible number and
+    names) under their attribute defaults."""
+    for name in SLICE_OPS + LAYER_OPS:
         j, t = jax_op(name).attr_spec, torch_op(name).attr_spec
         assert sorted(j) == sorted(t), name
         assert {k: v[1] for k, v in j.items()} == \
             {k: v[1] for k, v in t.items()}, name
         assert jax_op(name).is_loss == torch_op(name).is_loss, name
+    for name in LAYER_OPS:
+        jo, to = jax_op(name), torch_op(name)
+        assert jo.need_rng == to.need_rng, name
+        ja, ta = jo.normalize_attrs({}), to.normalize_attrs({})
+        assert (jo.num_outputs(ja), jo.num_visible_outputs(ja),
+                jo.output_names(ja), jo.aux_names(ja)) == \
+            (to.num_outputs(ta), to.num_visible_outputs(ta),
+             to.output_names(ta), to.aux_names(ta)), name
 
 
 # --------------------------------------------------------------------------
