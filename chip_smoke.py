@@ -487,6 +487,27 @@ threefry's integer operations at the card's INT32 rate):
    p50 over 10 timed iterations, exactly 2 ``adam_multi`` launches an
    iteration, the device-busy share of 2 more; one iteration card vs CPU
    from the same parameters and noise (``dcgan_parity``).
+62. the contrib ops and SSD (TF32 off): (a) the 10 contrib ops under
+   their 23 names as one-node Executors on ``gpu(0)`` and on the CPU at
+   the CPU tests' shapes: ``quantize``, the anchors, ``MultiBoxTarget``'s
+   ``loc_mask`` and ``cls_target`` and ``MultiBoxDetection``'s ids
+   exactly, every other output within 2e-5, the gradients of CTC,
+   ``fft``, ``ifft`` and ``count_sketch`` within 1e-5 of their largest,
+   the NMS ops twice on the card bit for bit; (b) SSD
+   (``examples/ssd``, kept here as ``ssd_train_symbol`` and its pieces)
+   at the example's defaults (width 32, 96 pixels, batch 16, 128 images,
+   8 epochs, SGD lr 0.01, momentum 0.9, wd 5e-4) through ``Module.fit``
+   with the example's iterators and ``MultiBoxMetric``: images a second,
+   batch p50, the port's launches a step, the device-busy share, and
+   ``MultiBoxTarget``'s device ms and launches at a step's inputs; (c)
+   ``tests/test_ssd.py``'s convergence gate at its settings (width 16, lr
+   0.02, 6 epochs of 96 images): the last epoch's cross-entropy under 0.6
+   of the first's, half the ground-truth boxes hit at IoU > 0.3; (d) the
+   detect symbol card vs CPU from those parameters on 4 images, the
+   decode's device ms and launches; (e) ``MultiProposal`` at Faster
+   R-CNN's defaults over a 38 x 63 map card vs CPU, twice bit for bit;
+   (f) CTC at T 100, batch 32, 29 classes, loss and gradient card vs CPU;
+   each one's device ms and launches.
 
 Each phase's seconds are printed on a line of their own ("chip_smoke:
 phase N (...) took S s").
@@ -963,6 +984,15 @@ GAN_WARM, GAN_ITERS = 3, 10
 GAN_ADAM = {"learning_rate": 2e-4, "beta1": 0.5}
 GAN_OUT_ATOL, GAN_PARAM_ATOL = 1e-5, 1e-5
 GAN_SPREAD, GAN_FLIP_FLOOR = 3, 1e-4
+# phase 62(b): SSD at examples/ssd/train.py's defaults (:111-116, :82-95):
+# width 32, 96 x 96 images, batch 16, 128 images, 8 epochs, SGD lr 0.01,
+# momentum 0.9, wd 5e-4; (c) the convergence gate of tests/test_ssd.py's
+# test_ssd_trains_and_detects at its settings: width 16, lr 0.02, 6 epochs
+# of 96 images
+SSD_TRAIN = {"epochs": 8, "batch_size": 16, "num_images": 128,
+             "data_size": 96, "width": 32, "lr": 0.01}
+SSD_GATE = {"epochs": 6, "num_images": 96, "width": 16, "lr": 0.02}
+SSD_SGD = {"momentum": 0.9, "wd": 5e-4}
 
 
 def _timed(fn, reps=200, warm=20, rounds=3):
@@ -9304,6 +9334,782 @@ def phase_dcgan(mx, ck):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 62: the contrib ops and SSD (examples/ssd) through the port
+# --------------------------------------------------------------------------
+#: examples/ssd/symbol.py's per-scale anchors: (sizes, ratios), A = |sizes|
+#: + |ratios| - 1 a pixel
+SSD_SCALES = [
+    ((0.15, 0.25), (1.0, 2.0, 0.5)),
+    ((0.4, 0.55), (1.0, 2.0, 0.5)),
+    ((0.7, 0.85), (1.0, 2.0, 0.5)),
+]
+
+
+def _ssd_conv_block(sym, data, num_filter, name, stride=(1, 1)):
+    c = sym.Convolution(data, kernel=(3, 3), pad=(1, 1), stride=stride,
+                        num_filter=num_filter, name=f"{name}_conv")
+    b = sym.BatchNorm(c, fix_gamma=False, name=f"{name}_bn")
+    return sym.Activation(b, act_type="relu", name=f"{name}_relu")
+
+
+def ssd_body(sym, data, width=32):
+    """examples/ssd/symbol.py's ``_body``: three detection scales at /8,
+    /16 and /32."""
+    x = _ssd_conv_block(sym, data, width, "b1a")
+    x = sym.Pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                    name="p1")
+    x = _ssd_conv_block(sym, x, width * 2, "b2a")
+    x = sym.Pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                    name="p2")
+    x = _ssd_conv_block(sym, x, width * 2, "b3a")
+    f1 = _ssd_conv_block(sym, x, width * 2, "b3b")
+    x = sym.Pooling(f1, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                    name="p3")
+    f2 = _ssd_conv_block(sym, x, width * 4, "b4a")
+    x = sym.Pooling(f2, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                    name="p4")
+    f3 = _ssd_conv_block(sym, x, width * 4, "b5a")
+    return [f1, f2, f3]
+
+
+def ssd_multibox_layer(sym, features, num_classes):
+    """examples/ssd/symbol.py's ``multibox_layer``: per scale a 3 x 3 loc
+    and cls conv, channel-last flatten, and the scale's anchors ->
+    (loc_preds, cls_preds (N, C + 1, A), anchors)."""
+    loc_layers, cls_layers, anchor_layers = [], [], []
+    for i, (feat, (sizes, ratios)) in enumerate(zip(features, SSD_SCALES)):
+        num_anchors = len(sizes) + len(ratios) - 1
+        loc = sym.Convolution(feat, kernel=(3, 3), pad=(1, 1),
+                              num_filter=num_anchors * 4,
+                              name=f"loc_pred{i}_conv")
+        loc = sym.transpose(loc, axes=(0, 2, 3, 1))
+        loc_layers.append(sym.Flatten(loc))
+        cls = sym.Convolution(
+            feat, kernel=(3, 3), pad=(1, 1),
+            num_filter=num_anchors * (num_classes + 1),
+            name=f"cls_pred{i}_conv")
+        cls = sym.transpose(cls, axes=(0, 2, 3, 1))
+        cls = sym.Reshape(cls, shape=(0, -1, num_classes + 1))
+        cls_layers.append(cls)
+        anchor_layers.append(sym.MultiBoxPrior(
+            feat, sizes=sizes, ratios=ratios, clip=True,
+            name=f"anchors{i}"))
+    loc_preds = sym.Concat(*loc_layers, dim=1, num_args=len(loc_layers),
+                           name="loc_preds")
+    cls_concat = sym.Concat(*cls_layers, dim=1, num_args=len(cls_layers))
+    cls_preds = sym.transpose(cls_concat, axes=(0, 2, 1), name="cls_preds")
+    anchors = sym.Concat(*anchor_layers, dim=1,
+                         num_args=len(anchor_layers), name="anchors")
+    return loc_preds, cls_preds, anchors
+
+
+def ssd_train_symbol(sym, num_classes=2, width=32):
+    """examples/ssd/symbol.py's ``get_train_symbol`` on ``sym`` (either
+    package's symbol module): MultiBoxTarget with hard-negative mining
+    (ratio 3), the class head a valid-normalized SoftmaxOutput that
+    ignores -1, the box head a smooth-L1 MakeLoss, and the class targets
+    as a third, gradient-free output."""
+    data = sym.var("data")
+    label = sym.var("label")
+    loc_preds, cls_preds, anchors = ssd_multibox_layer(
+        sym, ssd_body(sym, data, width), num_classes)
+    tmp = sym.MultiBoxTarget(anchors, label, cls_preds,
+                             overlap_threshold=0.5, ignore_label=-1,
+                             negative_mining_ratio=3,
+                             name="multibox_target")
+    loc_target, loc_mask, cls_target = tmp[0], tmp[1], tmp[2]
+    cls_prob = sym.SoftmaxOutput(cls_preds, cls_target, ignore_label=-1,
+                                 use_ignore=True, multi_output=True,
+                                 normalization="valid", name="cls_prob")
+    loc_diff = loc_mask * (loc_preds - loc_target)
+    loc_loss = sym.MakeLoss(sym.smooth_l1(loc_diff, scalar=1.0),
+                            grad_scale=1.0, normalization="valid",
+                            name="loc_loss")
+    cls_label = sym.MakeLoss(sym.BlockGrad(cls_target), grad_scale=0,
+                             name="cls_label")
+    return sym.Group([cls_prob, loc_loss, cls_label])
+
+
+def ssd_detect_symbol(sym, num_classes=2, width=32, nms_threshold=0.45,
+                      score_threshold=0.1):
+    """examples/ssd/symbol.py's ``get_detect_symbol``: the class softmax
+    and ``MultiBoxDetection`` over the same body and heads."""
+    data = sym.var("data")
+    loc_preds, cls_preds, anchors = ssd_multibox_layer(
+        sym, ssd_body(sym, data, width), num_classes)
+    cls_prob = sym.softmax(cls_preds, axis=1, name="cls_prob_det")
+    return sym.MultiBoxDetection(cls_prob, loc_preds, anchors,
+                                 nms_threshold=nms_threshold,
+                                 threshold=score_threshold,
+                                 force_suppress=False, clip=True,
+                                 name="detection")
+
+
+def ssd_metric(mx):
+    """examples/ssd/train.py's ``MultiBoxMetric`` on ``mx`` (either
+    package): the cross-entropy of the class head over the anchors its
+    target keeps, and the mean smooth-L1 box loss a kept anchor."""
+    import numpy as np
+
+    class MultiBoxMetric(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("MultiBox")
+            self.num = 2
+            self.reset()
+
+        def reset(self):
+            self.sum_metric = [0.0, 0.0]
+            self.num_inst = [0, 0]
+
+        def update(self, labels, preds):
+            cls_prob = preds[0].asnumpy()
+            loc_loss = preds[1].asnumpy()
+            cls_label = preds[2].asnumpy()
+            valid = cls_label >= 0
+            idx = cls_label.astype(int)
+            n, _, a = cls_prob.shape
+            picked = cls_prob[np.arange(n)[:, None], idx,
+                              np.arange(a)[None, :]]
+            ce = -np.log(np.maximum(picked, 1e-12)) * valid
+            self.sum_metric[0] += ce.sum()
+            self.num_inst[0] += int(valid.sum())
+            self.sum_metric[1] += loc_loss.sum()
+            self.num_inst[1] += max(int(valid.sum()), 1)
+
+        def get(self):
+            return (["cross_entropy", "smooth_l1"],
+                    [self.sum_metric[i] / max(self.num_inst[i], 1)
+                     for i in range(2)])
+
+    return MultiBoxMetric()
+
+
+def shapes_dataset(n_images, size=96, rng=None, max_objects=3):
+    """examples/ssd/data.py's ``make_shapes_dataset``: 1-3 coloured
+    squares (class 0) and disks (class 1) on a noisy ground, with
+    normalized [cls, x1, y1, x2, y2] labels."""
+    import numpy as np
+    rng = rng or np.random.RandomState(0)
+    images, labels = [], []
+    for _ in range(n_images):
+        img = rng.randint(0, 40, (size, size, 3)).astype(np.uint8)
+        n_obj = rng.randint(1, max_objects + 1)
+        rows = []
+        for _ in range(n_obj):
+            side = rng.randint(size // 5, size // 2)
+            x0 = rng.randint(0, size - side)
+            y0 = rng.randint(0, size - side)
+            color = rng.randint(120, 255, 3)
+            cls = rng.randint(0, 2)
+            if cls == 0:
+                img[y0:y0 + side, x0:x0 + side] = color
+            else:
+                yy, xx = np.mgrid[0:size, 0:size]
+                cy, cx = y0 + side / 2, x0 + side / 2
+                mask = (yy - cy) ** 2 + (xx - cx) ** 2 <= (side / 2) ** 2
+                img[mask] = color
+            rows.append([cls, x0 / size, y0 / size,
+                         (x0 + side) / size, (y0 + side) / size])
+        images.append(img)
+        labels.append(np.array(rows, dtype=np.float32))
+    return images, labels
+
+
+def ssd_iters(mx, args, rng=None):
+    """examples/ssd/train.py's ``build_iters`` on ``mx``: the training
+    iterator (crop and pad with probability 0.5, mirror, shuffled) and
+    the validation one, ``args`` as the example's namespace."""
+    import numpy as np
+    rng = rng or np.random.RandomState(42)
+    imgs, labs = shapes_dataset(args.num_images, size=args.data_size,
+                                rng=rng)
+    vimgs, vlabs = shapes_dataset(
+        max(args.num_images // 4, args.batch_size), size=args.data_size,
+        rng=rng)
+    shape = (3, args.data_size, args.data_size)
+    train_aug = mx.image.CreateDetAugmenter(
+        shape, rand_crop=0.5, rand_pad=0.5, rand_mirror=True,
+        mean=np.zeros(3), std=np.full(3, 255.0))
+    val_aug = mx.image.CreateDetAugmenter(shape, mean=np.zeros(3),
+                                          std=np.full(3, 255.0))
+    train = mx.image.ImageDetIter(args.batch_size, shape, imgs, labs,
+                                  shuffle=True, aug_list=train_aug,
+                                  max_objects=3)
+    val = mx.image.ImageDetIter(args.batch_size, shape, vimgs, vlabs,
+                                aug_list=val_aug, max_objects=3)
+    return train, val
+
+
+def ssd_detect(mx, mod, args, images, ctx):
+    """examples/ssd/train.py's ``detect`` on ``ctx``: the detect symbol
+    bound there with ``mod``'s parameters over ``images`` -> (N, A, 6)
+    numpy, and the executor."""
+    import numpy as np
+    det_sym = ssd_detect_symbol(mx.sym, num_classes=2, width=args.width)
+    shape = (len(images), 3, args.data_size, args.data_size)
+    exe = det_sym.simple_bind(ctx=ctx, grad_req="null", data=shape)
+    arg_params, aux_params = mod.get_params()
+    exe.copy_params_from(arg_params, aux_params, allow_extra_params=True)
+    batch = np.stack([img.astype(np.float32).transpose(2, 0, 1) / 255.0
+                      for img in images])
+    exe.forward(is_train=False, data=mx.nd.array(batch, ctx=ctx))
+    return exe.outputs[0].asnumpy(), exe
+
+
+def ssd_hits(dets, labs, iou=0.3):
+    """tests/test_ssd.py's gate: the ground-truth boxes that one of the
+    image's top len(gt) kept detections overlaps at IoU > ``iou``."""
+    import numpy as np
+    hits = 0
+    for det, lab in zip(dets, labs):
+        kept = det[det[:, 0] >= 0]
+        if not len(kept):
+            continue
+        top = kept[np.argsort(-kept[:, 1])][: len(lab)]
+        for gt in lab:
+            gx1, gy1, gx2, gy2 = gt[1:5]
+            for row in top:
+                x1, y1, x2, y2 = row[2:6]
+                ix = max(0, min(x2, gx2) - max(x1, gx1))
+                iy = max(0, min(y2, gy2) - max(y1, gy1))
+                inter = ix * iy
+                union = (x2 - x1) * (y2 - y1) + \
+                    (gx2 - gx1) * (gy2 - gy1) - inter
+                if union > 0 and inter / union > iou:
+                    hits += 1
+                    break
+    return hits
+
+
+def _contrib_cases():
+    """Phase 62(a)'s cases, the CPU tests' shapes, numpy-seeded: (op
+    name, [(input name, numpy array)], attrs, whether its gradient is
+    held). Integer inputs keep their dtype."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 62)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    def const(*rows):
+        return np.array(rows, np.float32)
+
+    anchors = const([[0.1, 0.1, 0.4, 0.4], [0.5, 0.5, 0.9, 0.9],
+                     [0.0, 0.0, 0.2, 0.2], [0.6, 0.1, 0.9, 0.4]])
+    labels = const([[0, 0.12, 0.12, 0.38, 0.42], [1, 0.55, 0.5, 0.88, 0.92]],
+                   [[1, 0.0, 0.0, 0.3, 0.25], [-1, 0, 0, 0, 0]])
+    prior = np.concatenate([
+        np.stack(np.meshgrid(np.arange(6) / 6, np.arange(6) / 6), -1)
+        .reshape(-1, 2), np.stack(np.meshgrid(np.arange(6) / 6 + 0.3,
+                                              np.arange(6) / 6 + 0.3), -1)
+        .reshape(-1, 2)], 1)[None].astype(np.float32)
+    span = (const(-1.0), const(1.0))
+    return [
+        ("_contrib_quantize", [("data", u(3, 7)), ("min_range", span[0]),
+                               ("max_range", span[1])], {}, False),
+        ("_contrib_quantize", [("data", u(3, 7, lo=-1.2, hi=1.2)),
+                               ("min_range", span[0]),
+                               ("max_range", span[1])],
+         {"out_type": "int8"}, False),
+        ("_contrib_dequantize", [("data", rs.randint(0, 256, (3, 7))
+                                  .astype(np.uint8)),
+                                 ("min_range", span[0]),
+                                 ("max_range", span[1])], {}, False),
+        ("_contrib_fft", [("data", u(2, 4))], {}, True),
+        ("_contrib_ifft", [("data", u(2, 8))], {}, True),
+        ("_contrib_count_sketch", [("data", u(3, 9)),
+                                   ("h", const([0, 3, -1, -6, 2, 7, 1, -3,
+                                                 5])),
+                                   ("s", const([1, -1, 1, -1, 1, 1, -1, 1,
+                                                -1]))], {"out_dim": 4},
+         True),
+        ("_contrib_ctc_loss", [("data", u(5, 2, 4)),
+                               ("label", const([1, 2, 0], [2, 3, 1]))],
+         {}, True),
+        ("_contrib_ctc_loss", [("data", u(6, 3, 5)),
+                               ("label", const([1, 1, 2], [0, 0, 0],
+                                               [4, 3, 0])),
+                               ("data_lengths", const(6, 4, 5)),
+                               ("label_lengths", const(3, 0, 2))],
+         {"use_data_lengths": True, "use_label_lengths": True}, True),
+        ("MultiBoxPrior", [("data", u(1, 2, 5, 7))],
+         {"sizes": (0.4, 0.8), "ratios": (1.0, 2.0, 0.5), "clip": True},
+         False),
+        ("MultiBoxTarget", [("anchor", anchors[None]), ("label", labels),
+                            ("cls_pred", u(2, 3, 4, lo=0.0))],
+         {"negative_mining_ratio": 3}, False),
+        ("MultiBoxTarget", [("anchor", prior), ("label", labels),
+                            ("cls_pred", np.zeros((2, 3, 36), np.float32))],
+         {"negative_mining_ratio": 3, "minimum_negative_samples": 5},
+         False),
+        ("MultiBoxDetection", [
+            ("cls_prob", rs.dirichlet(np.ones(3), (2, 36)).transpose(
+                0, 2, 1).astype(np.float32)),
+            ("loc_pred", u(2, 144, lo=-0.1, hi=0.1)), ("anchor", prior)],
+         {"nms_threshold": 0.3}, False),
+        ("MultiBoxDetection", [
+            ("cls_prob", np.full((2, 3, 36), 1 / 3, np.float32)),
+            ("loc_pred", np.zeros((2, 144), np.float32)), ("anchor", prior)],
+         {"threshold": 0.2}, False),
+        ("MultiProposal", [("cls_prob", u(2, 6, 4, 5, lo=0.0)),
+                           ("bbox_pred", u(2, 12, 4, 5, lo=-0.2, hi=0.2)),
+                           ("im_info", const([60, 70, 1.0], [50, 64, 0.5]))],
+         {"feature_stride": 16, "scales": (1.0, 2.0, 4.0), "ratios": (1.0,),
+          "rpn_pre_nms_top_n": 40, "rpn_post_nms_top_n": 12,
+          "rpn_min_size": 4, "threshold": 0.5, "output_score": True},
+         False),
+    ]
+
+
+#: phase 62(a)'s outputs held exactly card vs CPU: quantize's integers,
+#: the anchors, MultiBoxTarget's loc_mask and cls_target, and
+#: MultiBoxDetection's ids (its column 0)
+CONTRIB_EXACT = {"_contrib_quantize": (0,), "MultiBoxPrior": (0,),
+                 "MultiBoxTarget": (1, 2)}
+CONTRIB_TOL, CTC_GRAD_RTOL, SKETCH_RTOL = 2e-5, 1e-5, 1e-6
+
+
+def _contrib_run(mx, name, inputs, attrs, ctx, grads=False):
+    """``name`` as a one-node graph on ``ctx``, each input's cell of its
+    own dtype: an inference forward, or with ``grads`` a training forward
+    and a backward from head gradients U(0.5, 1.5) (numpy, SEED) ->
+    (outputs, {float input: gradient}) as tensors on ``ctx``."""
+    import numpy as np
+    node = getattr(mx.sym, name)(*[mx.sym.var(k) for k, _ in inputs],
+                                 name="t", **attrs)
+    floats = [k for k, v in inputs if v.dtype == np.float32]
+    ex = node.simple_bind(
+        ctx=ctx, grad_req={k: "write" if grads and k in floats else "null"
+                           for k, _ in inputs},
+        type_dict={k: v.dtype for k, v in inputs},
+        **{k: v.shape for k, v in inputs})
+    outs = ex.forward(is_train=grads, **{k: mx.nd.array(v, ctx=ctx)
+                                         for k, v in inputs})
+    if not grads:
+        return [o.astorch() for o in outs], {}
+    rs = np.random.RandomState(SEED)
+    ex.backward([mx.nd.array(rs.uniform(0.5, 1.5, o.shape).astype(
+        np.float32), ctx=ctx) for o in outs])
+    return [o.astorch() for o in outs], {k: ex.grad_dict[k].astorch()
+                                         for k in floats}
+
+
+def _contrib_err(name, i, got, want):
+    """Output ``i`` of ``name`` on the card against the CPU's, as a share
+    of its limit (> 1 fails): exactly for CONTRIB_EXACT and
+    MultiBoxDetection's ids, else within CONTRIB_TOL (rtol and atol;
+    count_sketch also within SKETCH_RTOL of the largest magnitude)."""
+    import torch
+    want = want.to(got.device)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    if i in CONTRIB_EXACT.get(name, ()):
+        return 0.0 if torch.equal(got, want) else float("inf")
+    if name == "MultiBoxDetection" and not torch.equal(got[..., 0],
+                                                       want[..., 0]):
+        return float("inf")
+    g, w = got.double(), want.double()
+    err = float(((g - w).abs() / (CONTRIB_TOL + CONTRIB_TOL * w.abs()))
+                .max()) if g.numel() else 0.0
+    if name == "_contrib_count_sketch":
+        err = max(err, float((g - w).abs().max()) / (
+            SKETCH_RTOL * max(float(w.abs().max()), 1e-30)))
+    return err
+
+
+def _ops_alone(fn, reps=3):
+    """(device ms, busy ms, launches) of one call of ``fn`` on the card:
+    CUDA events with the L2 flushed (``_device_ms``; past the launch
+    queue's depth, about a thousand launches, the host's enqueue paces
+    the card and this is the call's host time), and the profiler's sum of
+    the call's kernel times and its launches."""
+    wall, busy, launches, _ = _profiled(fn, 1, _kernel_group)
+    return _device_ms(fn, reps=reps), busy, launches
+
+
+def phase_contrib(mx, card=None):
+    """Phase 62(a): the 10 contrib ops under all 23 of their names, each
+    name through a one-node Executor on the card and on the CPU from the
+    same numpy inputs (``_contrib_cases``; an alias runs its op's first
+    case), TF32 off: quantize, the anchors, MultiBoxTarget's loc_mask and
+    cls_target and MultiBoxDetection's ids exactly, every other output
+    within CONTRIB_TOL (count_sketch also within SKETCH_RTOL of its
+    largest), the gradients of fft, ifft, count_sketch and CTC within
+    CTC_GRAD_RTOL of each one's largest; the ops with an NMS loop run
+    twice on the card and repeat bit for bit."""
+    import torch
+    card = card or mx.gpu(0)
+    print(_tf32(False) + " (the contrib ops, card vs CPU)")
+    cases = _contrib_cases()
+    firsts = {}
+    for case in cases:
+        firsts.setdefault(case[0], case)
+    names = sorted(n for n in mx.ops.OP_REGISTRY
+                   if mx.ops.get_op(n).name in firsts)
+    runs = cases + [(n,) + firsts[mx.ops.get_op(n).name][1:]
+                    for n in names if n not in firsts]
+    worst = {}
+    for name, inputs, attrs, grads in runs:
+        canon = mx.ops.get_op(name).name
+        want, want_g = _contrib_run(mx, name, inputs, attrs, mx.cpu(), grads)
+        got, got_g = _contrib_run(mx, name, inputs, attrs, card, grads)
+        errs = [_contrib_err(canon, i, g, w)
+                for i, (g, w) in enumerate(zip(got, want))]
+        errs += [float((got_g[k].double() - w.to(got_g[k].device).double())
+                       .abs().max()) / (CTC_GRAD_RTOL * max(
+                           float(w.abs().max()), 1e-30))
+                 for k, w in want_g.items()]
+        if canon in ("MultiBoxDetection", "MultiProposal"):
+            again, _ = _contrib_run(mx, name, inputs, attrs, card)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"contrib: {name}({attrs}) does not "
+                                     "repeat bit for bit on the card")
+        err = max(errs)
+        worst[name] = max(worst.get(name, 0.0), err)
+        if not err <= 1.0:
+            raise AssertionError(f"contrib: {name}({attrs}) on the card "
+                                 f"differs from the CPU: {err:.3g} of the "
+                                 "limit")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"contrib: {len(worst)} op names card vs CPU; the NMS ops repeat "
+          f"bit for bit; worst of the limit: " +
+          ", ".join(f"{k} {v:.3g}" for k, v in top))
+    if len(worst) != 23:
+        raise AssertionError(f"contrib: {len(worst)} op names, want 23")
+
+
+def _ssd_args(**kw):
+    import types
+    return types.SimpleNamespace(**{**SSD_TRAIN, **kw})
+
+
+def _seeded():
+    import random
+    import numpy as np
+    random.seed(SEED)
+    np.random.seed(SEED)
+
+
+def phase_ssd_fit(mx, ck):
+    """Phase 62(b): SSD at examples/ssd/train.py's defaults (SSD_TRAIN)
+    through ``Module.fit`` on gpu(0) with the example's iterators,
+    ``MultiBoxMetric`` and SGD, TF32 off: images a second and batch p50
+    within each epoch (its first batch excluded), the port's kernel
+    launches a step, the device-busy share and launches of 2 more steps
+    under the profiler, and ``MultiBoxTarget``'s own device ms and
+    launches at the step's inputs. Returns (the module, its launches)."""
+    import numpy as np
+    import torch
+    args = _ssd_args()
+    _seeded()
+    mx.random.seed(SEED)
+    train_it, val_it = ssd_iters(mx, args)
+    net = ssd_train_symbol(mx.sym, num_classes=2, width=args.width)
+    mod = mx.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    metric = ssd_metric(mx)
+    stamps = []
+
+    def step_end(param):
+        torch.cuda.synchronize()
+        stamps.append((param.epoch, time.perf_counter()))
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(train_it, eval_data=val_it, eval_metric=metric,
+            num_epoch=args.epochs, initializer=mx.initializer.Xavier(),
+            optimizer="sgd",
+            optimizer_params={"learning_rate": args.lr, **SSD_SGD},
+            batch_end_callback=[step_end])
+    fit_s = time.perf_counter() - t0
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    steps = np.array([b - a for (ea, a), (eb, b) in zip(stamps, stamps[1:])
+                      if ea == eb]) * 1e3
+    rate = args.batch_size * len(steps) / (steps.sum() / 1e3)
+    per_step = {k: v / len(stamps) for k, v in counts.items()}
+    names, values = metric.get()
+    print(f"ssd fit: {args.epochs} epochs of {len(stamps) // args.epochs} "
+          f"batches at width {args.width}, {args.data_size} px, batch "
+          f"{args.batch_size}, SGD lr {args.lr}: {fit_s:.2f} s; "
+          f"{rate:.1f} images/s over {len(steps)} batches (each epoch's "
+          f"first excluded), batch p50 {np.percentile(steps, 50):.2f} ms "
+          f"(min {steps.min():.2f}, max {steps.max():.2f}); port kernel "
+          f"launches a step {per_step}; validation "
+          f"{dict(zip(names, (round(float(v), 6) for v in values)))}")
+    if not all(np.isfinite(values)):
+        raise AssertionError("ssd fit: the validation metric is not finite")
+    for k in ("softmax", "softmax_ce_bwd", "sgd_mom_multi"):
+        if not counts.get(k):
+            raise AssertionError(f"ssd fit: the {k} kernel did not launch")
+    train_it.reset()
+    batch = next(iter(train_it))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    wall, busy, launches, groups = _profiled(step, 2, _kernel_group)
+    print(f"ssd profile: 2 steps: wall {wall:.2f} ms/step, device busy "
+          f"{busy:.2f} ms/step ({100 * busy / wall:.1f}% of wall), "
+          f"{launches:.0f} kernel launches a step")
+    for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  group {g}: {t:.3f} ms/step ({100 * t / busy:.1f}% of "
+              f"device time), {c:.0f} launches/step")
+    node = [n for n in net._topo_nodes() if n.name == "multibox_target"][0]
+    inner = mx.sym.Group([net.get_internals()[k] for k in (
+        "anchors_output", "cls_preds_output")])
+    sub = inner.simple_bind(ctx=mx.gpu(0), grad_req="null",
+                            data=batch.data[0].shape)
+    sub.copy_params_from(*mod.get_params(), allow_extra_params=True)
+    anc, cls = sub.forward(is_train=False, data=batch.data[0])
+    lab = mx.nd.array(batch.label[0].asnumpy(), ctx=mx.gpu(0)).astorch()
+    ins = [anc.astorch(), lab, cls.astorch()]
+    op = mx.ops.get_op("MultiBoxTarget")
+    ms, busy, n = _ops_alone(lambda: op.forward(node.attrs, ins, [], False,
+                                                None))
+    print(f"ssd MultiBoxTarget at a step's inputs ({ins[0].shape[1]} "
+          f"anchors, batch {lab.shape[0]}): device_ms={ms:.4f}, kernels "
+          f"{busy:.4f} ms, {n:.0f} launches a call")
+    return mod, counts
+
+
+def phase_ssd_gate(mx):
+    """Phase 62(c): tests/test_ssd.py's ``test_ssd_trains_and_detects`` on
+    gpu(0) at its settings (SSD_GATE: width 16, lr 0.02, 6 epochs of 96
+    images, the iterators from RandomState(1)), its loop of
+    ``forward_backward`` / ``update`` / ``update_metric``: the last
+    epoch's cross-entropy under 0.6 of the first's, and at least half the
+    ground-truth boxes of 4 images from RandomState(9) hit at IoU > 0.3
+    by the decoded detections. Returns (the module, its args)."""
+    import numpy as np
+    args = _ssd_args(**SSD_GATE)
+    _seeded()
+    mx.random.seed(SEED)
+    train_it, _ = ssd_iters(mx, args, rng=np.random.RandomState(1))
+    mod = mx.mod.Module(ssd_train_symbol(mx.sym, 2, args.width),
+                        data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    metric = ssd_metric(mx)
+    ces = []
+    for epoch in range(args.epochs):
+        train_it.reset()
+        metric.reset()
+        for batch in train_it:
+            if not mod.binded:
+                mod.bind(train_it.provide_data, train_it.provide_label,
+                         for_training=True)
+                mod.init_params(mx.initializer.Xavier())
+                mod.init_optimizer(optimizer="sgd", optimizer_params={
+                    "learning_rate": args.lr, **SSD_SGD})
+            mod.forward_backward(batch)
+            mod.update()
+            mod.update_metric(metric, batch.label)
+        ces.append(metric.get()[1][0])
+    imgs, labs = shapes_dataset(4, size=args.data_size,
+                                rng=np.random.RandomState(9))
+    dets, _ = ssd_detect(mx, mod, args, imgs, mx.gpu(0))
+    hits, total = ssd_hits(dets, labs), sum(len(lab) for lab in labs)
+    print(f"ssd gate (tests/test_ssd.py's settings): cross-entropy by epoch "
+          f"{[round(float(c), 4) for c in ces]} (last / first "
+          f"{ces[-1] / ces[0]:.3f}, limit 0.6); {hits} of {total} "
+          f"ground-truth boxes hit at IoU > 0.3 (limit half)")
+    if not (ces[-1] < 0.6 * ces[0] and hits >= total * 0.5):
+        raise AssertionError("ssd gate: the convergence gate of "
+                             "tests/test_ssd.py fails on the card")
+    return mod, args
+
+
+def _kept_rows(det):
+    """The kept rows of one image's (A, 6) detections, ordered by score,
+    and whether two of their scores lie within 1e-5."""
+    import numpy as np
+    kept = det[det[:, 0] >= 0]
+    kept = kept[np.argsort(-kept[:, 1], kind="stable")]
+    near = bool(len(kept) > 1 and np.diff(-kept[:, 1]).min() < 1e-5)
+    return kept, near
+
+
+def phase_ssd_detect(mx, mod, args):
+    """Phase 62(d): the detect symbol from ``mod``'s parameters on the
+    same 4 images on gpu(0) and on the CPU, TF32 off: per image the same
+    number of kept rows, their ids equal and values within CONTRIB_TOL,
+    ordered by score where no two scores lie within 1e-5 and else as sets
+    (ordered by id and box); the decode's device ms and launches (the
+    whole forward, and ``MultiBoxDetection`` alone at its inputs)."""
+    import numpy as np
+    imgs, _ = shapes_dataset(4, size=args.data_size,
+                             rng=np.random.RandomState(7))
+    got, exe = ssd_detect(mx, mod, args, imgs, mx.gpu(0))
+    want, _ = ssd_detect(mx, mod, args, imgs, mx.cpu())
+    kept_n, near_n = 0, 0
+    for g, w in zip(got, want):
+        (gk, gnear), (wk, wnear) = _kept_rows(g), _kept_rows(w)
+        if gnear or wnear:
+            near_n += 1
+            gk, wk = (k[np.lexsort(k[:, ::-1].T)] for k in (gk, wk))
+        if gk.shape != wk.shape or not np.array_equal(gk[:, 0], wk[:, 0]) \
+                or not np.allclose(gk, wk, rtol=CONTRIB_TOL,
+                                   atol=CONTRIB_TOL):
+            raise AssertionError("ssd detect: the kept detections differ "
+                                 "card vs CPU")
+        kept_n += len(gk)
+    batch = mx.nd.array(np.stack([img.astype(np.float32).transpose(2, 0, 1)
+                                  / 255.0 for img in imgs]), ctx=mx.gpu(0))
+    fwd_ms, fwd_busy, fwd_n = _ops_alone(lambda: exe.forward(
+        is_train=False, data=batch))
+    op = mx.ops.get_op("MultiBoxDetection")
+    node = [n for n in exe._symbol._topo_nodes()
+            if n.name == "detection"][0]
+    inner = mx.sym.Group([exe._symbol.get_internals()[k] for k in (
+        "cls_prob_det_output", "loc_preds_output", "anchors_output")])
+    sub = inner.simple_bind(ctx=mx.gpu(0), grad_req="null",
+                            data=batch.shape)
+    sub.copy_params_from(*mod.get_params(), allow_extra_params=True)
+    ins = [o.astorch() for o in sub.forward(is_train=False, data=batch)]
+    ms, busy, n = _ops_alone(lambda: op.forward(node.attrs, ins, [], False,
+                                                None))
+    print(f"ssd detect: 4 images, {kept_n} kept detections card vs CPU "
+          f"({near_n} images compared as sets for scores within 1e-5); "
+          f"the detect forward device_ms={fwd_ms:.4f}, kernels "
+          f"{fwd_busy:.4f} ms, {fwd_n:.0f} launches; MultiBoxDetection "
+          f"alone ({ins[2].shape[1]} anchors, its NMS loop) device_ms="
+          f"{ms:.4f}, kernels {busy:.4f} ms, {n:.0f} launches")
+
+
+#: Faster R-CNN's RPN proposals at the op's defaults: stride 16, 12
+#: anchors (scales 4, 8, 16, 32 x ratios 0.5, 1, 2), pre 6000, post 300,
+#: over the 38 x 63 conv5_3 map of a 600 x 1000 image
+MP_REAL = ((1, 38, 63), {"feature_stride": 16,
+                         "scales": (4.0, 8.0, 16.0, 32.0),
+                         "ratios": (0.5, 1.0, 2.0),
+                         "rpn_pre_nms_top_n": 6000,
+                         "rpn_post_nms_top_n": 300, "threshold": 0.7,
+                         "rpn_min_size": 16, "output_score": True})
+#: CTC at a speech-like shape: T 100 frames, batch 32, 29 classes (blank,
+#: 26 letters, space, apostrophe), labels of 5 to 20
+CTC_REAL = (100, 32, 29, 20)
+
+
+def phase_proposal_ctc(mx):
+    """Phase 62(e, f): MultiProposal at Faster R-CNN's defaults (MP_REAL)
+    card vs CPU, the rois within CONTRIB_TOL and the scores equal where
+    the rank is the same (twice on the card, bit for bit); CTC at
+    CTC_REAL, loss within CONTRIB_TOL and the gradient within
+    CTC_GRAD_RTOL of its largest, card vs CPU. Each one's device ms (CTC:
+    forward plus backward) and launches."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(SEED + 63)
+    (n, h, w), attrs = MP_REAL
+    a = len(attrs["scales"]) * len(attrs["ratios"])
+    # centre shifts only: with the log-size deltas 0 (exp(0) is 1 on
+    # either device) the boxes are the same bits on the card and the CPU,
+    # where ulps of exp would move some of the 6000^2 IoUs across 0.7
+    deltas = rs.normal(0, 0.1, (n, a, 4, h, w)).astype(np.float32)
+    deltas[:, :, 2:] = 0.0
+    inputs = [("cls_prob", rs.uniform(0, 1, (n, 2 * a, h, w)).astype(
+                  np.float32)),
+              ("bbox_pred", deltas.reshape(n, 4 * a, h, w)),
+              ("im_info", np.array([[600.0, 1000.0, 1.0]], np.float32))]
+    t0 = time.perf_counter()
+    want, _ = _contrib_run(mx, "MultiProposal", inputs, attrs, mx.cpu())
+    cpu_s = time.perf_counter() - t0
+    got, _ = _contrib_run(mx, "MultiProposal", inputs, attrs, mx.gpu(0))
+    again, _ = _contrib_run(mx, "MultiProposal", inputs, attrs, mx.gpu(0))
+    err = max(_contrib_err("MultiProposal", i, g, wt)
+              for i, (g, wt) in enumerate(zip(got, want)))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    op = mx.ops.get_op("MultiProposal")
+    at = op.normalize_attrs(attrs)
+    ins = [torch.tensor(v, device="cuda") for _, v in inputs]
+    ms, busy, launches = _ops_alone(
+        lambda: op.forward(at, ins, [], False, None), reps=2)
+    print(f"MultiProposal at Faster R-CNN's shape ({2 * a} x {h} x {w}, "
+          f"pre {attrs['rpn_pre_nms_top_n']}, post "
+          f"{attrs['rpn_post_nms_top_n']}): card vs CPU {err:.3g} of the "
+          f"limit, repeats bit for bit: {same} (CPU {cpu_s:.2f} s); "
+          f"device_ms={ms:.4f}, kernels {busy:.4f} ms, {launches:.0f} "
+          f"launches a call")
+    if not (err <= 1.0 and same):
+        raise AssertionError("MultiProposal at its realistic shape differs "
+                             "card vs CPU or does not repeat")
+    T, N, C, L = CTC_REAL
+    lens = rs.randint(5, L + 1, N)
+    label = np.zeros((N, L), np.float32)
+    for i, k in enumerate(lens):
+        label[i, :k] = rs.randint(1, C, k)
+    inputs = [("data", rs.randn(T, N, C).astype(np.float32)),
+              ("label", label)]
+    want, want_g = _contrib_run(mx, "CTCLoss", inputs, {}, mx.cpu(), True)
+    got, got_g = _contrib_run(mx, "CTCLoss", inputs, {}, mx.gpu(0), True)
+    err = _contrib_err("CTCLoss", 0, got[0], want[0])
+    truth = ctc_float64_grad(mx, inputs[0][1], label)
+    card_err, cpu_err = (float((g["data"].cpu().double() - truth).abs().max())
+                         / float(truth.abs().max()) for g in (got_g, want_g))
+    op = mx.ops.get_op("CTCLoss")
+    x = torch.tensor(inputs[0][1], device="cuda", requires_grad=True)
+    lab = torch.tensor(label, device="cuda")
+    head = torch.ones(N, device="cuda")
+
+    def fwd_bwd():
+        loss = op.forward(op.normalize_attrs({}), [x, lab], [], True,
+                          None)[0][0]
+        return torch.autograd.grad(loss, x, head)
+    ms, busy, launches = _ops_alone(fwd_bwd)
+    print(f"CTC at (T {T}, N {N}, C {C}, labels of 5-{L}): loss card vs "
+          f"CPU {err:.3g} of the limit; the gradient's distance from the "
+          f"CPU's float64 gradient, over its largest: card {card_err:.3g}, "
+          f"CPU float32 {cpu_err:.3g} (limit {CTC_SPREAD} times the CPU's);"
+          f" forward + backward device_ms={ms:.4f}, kernels {busy:.4f} ms, "
+          f"{launches:.0f} launches")
+    if not (err <= 1.0 and card_err <= CTC_SPREAD * cpu_err):
+        raise AssertionError("CTC at its realistic shape differs card vs "
+                             "CPU")
+
+
+#: CTC at CTC_REAL: alpha reaches -400 over 100 frames, where a float32
+#: ulp is 3e-5, so the gradient of either device is held to the CPU's
+#: float64 one, the card within CTC_SPREAD times the CPU's float32 distance
+CTC_SPREAD = 3
+
+
+def ctc_float64_grad(mx, data, label):
+    """The CTC loss's gradient of ``data`` (T, N, C) on the CPU in float64
+    under ``_contrib_run``'s head gradient, the reference both float32
+    runs are held to."""
+    import numpy as np
+    import torch
+    op = mx.ops.get_op("CTCLoss")
+    x = torch.tensor(data, dtype=torch.float64, requires_grad=True)
+    loss = op.forward(op.normalize_attrs({}), [x, torch.tensor(label)], [],
+                      True, None)[0][0]
+    head = np.random.RandomState(SEED).uniform(0.5, 1.5, loss.shape)
+    return torch.autograd.grad(loss, x, torch.tensor(head))[0]
+
+
+def phase_ssd(mx, ck):
+    """Phase 62: the contrib ops card vs CPU, SSD's fit at the example's
+    defaults, the convergence gate of tests/test_ssd.py, the decode card
+    vs CPU, MultiProposal and CTC at realistic shapes. Returns the port
+    kernels' launches of the SSD fit."""
+    import torch
+    tick = _PhaseClock()
+    phase_contrib(mx)
+    tick("62(a) (the contrib ops)")
+    print(_tf32(False) + " (SSD)")
+    mod, counts = phase_ssd_fit(mx, ck)
+    del mod
+    tick("62(b) (SSD fit)")
+    gate_mod, args = phase_ssd_gate(mx)
+    tick("62(c) (SSD gate)")
+    phase_ssd_detect(mx, gate_mod, args)
+    del gate_mod
+    tick("62(d) (SSD detect)")
+    phase_proposal_ctc(mx)
+    tick("62(e, f) (MultiProposal, CTC)")
+    torch.cuda.empty_cache()
+    return counts
+
+
 class _PhaseClock:
     """Prints, on a line of its own, the seconds since the last call (or
     since it was made) under the phase's name."""
@@ -9495,6 +10301,8 @@ def main():
     phase_nn_layers(mx)
     dcgan_counts = phase_dcgan(mx, ck)
     tick("61 (the nn layers and losses, DCGAN)")
+    ssd_counts = phase_ssd(mx, ck)
+    tick("62 (the contrib ops, SSD)")
     launches = dict(train_counts)
     launches.update({k: serve_counts[k] for k in DECODE_KERNELS})
     launches.update({k: lm_counts[k] for k in LM_KERNELS})
@@ -9530,9 +10338,11 @@ def main():
     launches["sgd_mom"] = sgd_per_array
     for k in ("adam", "adam_multi"):
         launches[k] = adam_counts[k]
-    # DCGAN's two Module.update calls an iteration (phase 61)
-    for k, n in dcgan_counts.items():
-        launches[k] = launches.get(k, 0) + n
+    # DCGAN's two Module.update calls an iteration (phase 61), SSD's fit
+    # (phase 62)
+    for counts in (dcgan_counts, ssd_counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
     kernels = []
     for name in ck.launch_counts():
         r = rec[name]

@@ -32,7 +32,7 @@ kernels on those paths are rewritten as CUDA C++ for sm_90a
 from . import base
 from . import random
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context
+from .context import Context, cpu, gpu, current_context, num_gpus
 from . import ops  # populates the op registry (before nd/sym autogen)
 from . import rtc  # registers attention / attention_decode
 from . import parallel
@@ -40,6 +40,7 @@ from . import operator  # registers Custom
 from . import ndarray
 from . import ndarray as nd
 from . import autograd
+from . import contrib  # registers the contrib ops (before nd/sym autogen)
 from . import _op_gen
 _op_gen.init_ndarray_module(ndarray.__dict__)
 from . import symbol
@@ -51,6 +52,7 @@ from .name import NameManager, Prefix
 from . import name
 from .executor import Executor
 from . import io
+from . import image
 from . import initializer
 from . import optimizer
 from .optimizer import Optimizer

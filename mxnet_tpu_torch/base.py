@@ -11,7 +11,10 @@ import ast
 
 import numpy as _np
 
-__all__ = ["MXNetError"]
+__all__ = ["MXNetError", "string_types", "numeric_types"]
+
+string_types = (str,)
+numeric_types = (float, int, _np.generic)
 
 
 class MXNetError(Exception):

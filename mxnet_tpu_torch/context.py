@@ -14,7 +14,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
 
 
 class Context:
@@ -100,3 +100,8 @@ def gpu(device_id=0):
     """CUDA device context."""
     return Context("gpu", device_id)
 
+
+def num_gpus():
+    """The number of CUDA devices this process sees (the JAX package's
+    ``num_gpus`` counts its accelerator devices)."""
+    return torch.cuda.device_count()

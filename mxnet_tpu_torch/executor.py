@@ -210,6 +210,25 @@ class Executor:
         return Executor(symbol, ctx, args, grads, req, aux,
                         compute_dtype=compute_dtype)
 
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy named parameters (NDArrays or arrays) into the bound cells,
+        each cast to its cell's dtype and moved to its device; a name the
+        graph does not have raises unless ``allow_extra_params``."""
+        for params, cells, what in ((arg_params, self.arg_dict, "param"),
+                                    (aux_params or {}, self.aux_dict,
+                                     "aux param")):
+            for nm, arr in params.items():
+                if nm not in cells:
+                    if not allow_extra_params:
+                        raise MXNetError(f"unknown {what} {nm!r}")
+                    continue
+                cell = cells[nm].astorch()
+                src = arr.astorch() if isinstance(arr, NDArray) else \
+                    torch.as_tensor(np.asarray(arr))
+                cells[nm]._set(src.detach().to(cell.device, cell.dtype)
+                               .clone())
+
     @property
     def arg_arrays(self):
         return [self.arg_dict[n] for n in self.arg_names]

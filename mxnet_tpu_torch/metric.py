@@ -54,14 +54,24 @@ def _pair(label, pred):
 
 
 class EvalMetric:
-    """A running (sum, count) with a named readout."""
+    """A running (sum, count) with a named readout; with ``num`` a list of
+    ``num`` of each (a metric of several outputs), read out as
+    ``<name>_<i>``. ``sum_metric`` / ``num_inst`` keep the reference's
+    names and may be assigned, as the JAX package's: an assignment drops
+    the queued batch totals."""
 
-    def __init__(self, name):
+    def __init__(self, name, num=None):
         self.name = name
+        self.num = num
+        self._pending = []
         self.reset()
 
     def reset(self):
-        self._sum_metric, self._num_inst = 0.0, 0
+        if self.num is None:
+            self._sum_metric, self._num_inst = 0.0, 0
+        else:
+            self._sum_metric = [0.0] * self.num
+            self._num_inst = [0] * self.num
         self._pending = []          # (device scalar total, count)
 
     def _accumulate(self, total, count):
@@ -78,18 +88,35 @@ class EvalMetric:
         self._flush()
         return self._sum_metric
 
+    @sum_metric.setter
+    def sum_metric(self, value):
+        self._pending = []
+        self._sum_metric = value
+
     @property
     def num_inst(self):
         self._flush()
         return self._num_inst
 
+    @num_inst.setter
+    def num_inst(self, value):
+        self._pending = []
+        self._num_inst = value
+
     def update(self, labels, preds):
         raise NotImplementedError
 
+    @staticmethod
+    def _ratio(total, count):
+        return total / count if count else float("nan")
+
     def get(self):
         self._flush()
-        return self.name, (self._sum_metric / self._num_inst
-                           if self._num_inst else float("nan"))
+        if self.num is None:
+            return self.name, self._ratio(self._sum_metric, self._num_inst)
+        return ([f"{self.name}_{i}" for i in range(self.num)],
+                [self._ratio(t, c)
+                 for t, c in zip(self._sum_metric, self._num_inst)])
 
     def get_name_value(self):
         names, values = self.get()

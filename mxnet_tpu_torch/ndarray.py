@@ -164,6 +164,10 @@ class NDArray:
         t = self._data.detach()
         if t.dtype not in _TORCH_TO_NP:
             t = t.float()
+        if t.device.type == "cpu":
+            # numpy() of a CPU tensor shares its storage: an in-place
+            # update of the array (an optimizer step) would show through
+            return t.numpy().copy()
         return t.cpu().numpy()
 
     def asscalar(self):

@@ -27,6 +27,8 @@ Conventions (kept deliberately simple and auditable):
 """
 from __future__ import annotations
 
+import math
+
 from ..base import parse_bool, parse_int, parse_tuple
 from .registry import OP_REGISTRY
 
@@ -398,6 +400,74 @@ _SPATIAL = {
 }
 
 
+def _priors(attrs, s):
+    """MultiBoxPrior's anchors over the (h, w) map."""
+    n = len(attrs.get("sizes", (1.0,))) + len(attrs.get("ratios", (1.0,))) - 1
+    return s[0][2] * s[0][3] * n
+
+
+def _anchors(s, i):
+    return _prod(s[i]) // 4
+
+
+def _ctc_flops(attrs, s):
+    """log-softmax (5 a class) and, a step, 3 S gathers, 2 logaddexps of
+    6 operations and a shift of S each, S = 2 L + 1."""
+    t, n, c = s[0]
+    states = 2 * s[1][1] + 1
+    return t * n * (5 * c + 16 * states)
+
+
+def _fft_flops(attrs, s, inverse=False):
+    n = s[0][-1] // 2 if inverse else s[0][-1]
+    rows = _prod(s[0]) // s[0][-1]
+    return 5 * rows * n * max(math.log2(max(n, 1)), 1.0)
+
+
+def _mp_dims(attrs, s):
+    """(N, pre, post) of MultiProposal."""
+    n, _, h, w = s[0]
+    a = len(attrs.get("scales", (4., 8., 16., 32.))) * \
+        len(attrs.get("ratios", (0.5, 1., 2.)))
+    pre = min(int(attrs.get("rpn_pre_nms_top_n", 6000)), h * w * a)
+    return n, pre, int(attrs.get("rpn_post_nms_top_n", 300))
+
+
+#: the contrib ops (the JAX package's table has none): the IoU matrices
+#: and the NMS loop are the work of the detection ops
+_CONTRIB = {
+    "_contrib_quantize": _spatial_cost(lambda a, s: 4 * _prod(s[0]),
+                                       lambda a, s: _prod(s[0]) + 2),
+    "_contrib_dequantize": _spatial_cost(lambda a, s: 3 * _prod(s[0]),
+                                         lambda a, s: _prod(s[0])),
+    "_contrib_fft": _spatial_cost(_fft_flops,
+                                  lambda a, s: 2 * _prod(s[0])),
+    "_contrib_ifft": _spatial_cost(
+        lambda a, s: _fft_flops(a, s, inverse=True),
+        lambda a, s: _prod(s[0]) // 2),
+    "_contrib_count_sketch": _spatial_cost(
+        lambda a, s: 2 * _prod(s[0]),
+        lambda a, s: s[0][0] * int(a["out_dim"])),
+    "_contrib_ctc_loss": _spatial_cost(_ctc_flops, lambda a, s: s[0][1]),
+    "MultiBoxPrior": _spatial_cost(lambda a, s: 6 * _priors(a, s),
+                                   lambda a, s: 4 * _priors(a, s)),
+    # the (A, G) IoU matrix, the encoding, the softmax and the sort
+    "MultiBoxTarget": _spatial_cost(
+        lambda a, s: s[1][0] * _anchors(s, 0) * (12 * s[1][1] + 40 +
+                                                 4 * s[2][1]),
+        lambda a, s: 9 * s[1][0] * _anchors(s, 0)),
+    # the (A, A) IoU matrix and the NMS loop's two passes over (N, A)
+    "MultiBoxDetection": _spatial_cost(
+        lambda a, s: s[0][0] * _anchors(s, 2) * (14 * _anchors(s, 2) + 30 +
+                                                 2 * s[0][1]),
+        lambda a, s: 6 * s[0][0] * _anchors(s, 2)),
+    "MultiProposal": _spatial_cost(
+        lambda a, s: _mp_dims(a, s)[0] * _mp_dims(a, s)[1] *
+        (16 * _mp_dims(a, s)[1] + 40),
+        lambda a, s: 5 * _mp_dims(a, s)[0] * _mp_dims(a, s)[2]),
+}
+
+
 def _opt_cost(flops_per_elem, n_arrays):
     def flops(attrs, in_shapes):
         return flops_per_elem * _elems(in_shapes)
@@ -544,6 +614,7 @@ def seed_costs():
     table = dict(_family_table())
     table.update(_SPECIFIC)
     table.update(_SPATIAL)
+    table.update(_CONTRIB)
     for name, (flops, nbytes) in table.items():
         opdef = OP_REGISTRY.get(name)
         if opdef is not None and not opdef.has_cost():

@@ -1,7 +1,9 @@
 """``mx.rtc``: user CUDA kernels (``Rtc``, ``register_cuda_op``), the
 attention ops of the transformer LM (``attention``, its explicit name
-``pallas_flash_attention``, and the KV-cache ``attention_decode``), and
-the ``pallas_sgd_mom_update`` op name.
+``pallas_flash_attention``, and the KV-cache ``attention_decode``), the
+``pallas_sgd_mom_update`` op name, and the JAX package's functions of
+the same kernels (``flash_attention``, ``flash_attention_partial``,
+``pallas_sgd_mom_update``).
 
 User kernels are MXNet's original ``mx.rtc`` shape: CUDA C++ source,
 compiled at first use and launched on NDArrays. The JAX package's
@@ -107,7 +109,9 @@ from .parallel import spmd as _spmd
 from .parallel.ring_attention import ring_attention_sharded
 
 __all__ = ["Rtc", "register_cuda_op", "kernel_source", "launch_counts",
-           "reset_launch_counts", "flash_attention_fn", "ring_decisions",
+           "reset_launch_counts", "flash_attention_fn", "flash_attention",
+           "flash_attention_partial", "pallas_sgd_mom_update",
+           "ring_decisions",
            "clear_ring_decisions",
            "fp8_cast"]
 
@@ -157,6 +161,38 @@ class _FlashAttentionFn(torch.autograd.Function):
 def flash_attention_fn(q, k, v, causal=False):
     """Differentiable flash attention of q, k, v (B, H, T, Dh)."""
     return _FlashAttentionFn.apply(q, k, v, bool(causal))
+
+
+def flash_attention(q, k, v, causal=False, block_q=128, block_k=128):
+    """Flash attention of q, k, v (B, H, T, Dh) -> (B, H, T, Dh), the JAX
+    package's ``mx.rtc.flash_attention``: the flash kernel on the card,
+    the plain composition on the CPU, differentiable (the backward
+    recomputes the plain composition, ``_FlashAttentionFn``). The block
+    sizes are the TPU kernel's tiling and decide nothing here but the
+    JAX function's refusal: T must be a multiple of min(block, T)."""
+    T = q.shape[2]
+    block_q, block_k = min(block_q, T), min(block_k, T)
+    if T % block_q or T % block_k:
+        raise MXNetError(f"flash_attention: T={T} must be a multiple of "
+                         f"block sizes ({block_q}, {block_k})")
+    return flash_attention_fn(q, k, v, causal)
+
+
+def flash_attention_partial(q, k, v, q_off, k_off, causal=False,
+                            block_q=128, block_k=128, scale=None):
+    """The unnormalized flash-attention block of ring attention, the JAX
+    package's ``mx.rtc.flash_attention_partial``: q (B, H, Tq, Dh) over
+    the K/V shard k, v (B, H, Tk, Dh) at absolute offsets ``q_off`` and
+    ``k_off`` -> (acc (B, H, Tq, Dh), m (B, H, Tq), l (B, H, Tq)) float32
+    (``cuda_kernels.flash_attention_partial``). ``scale`` defaults to
+    1/sqrt(Dh); the block sizes only decide the JAX function's refusal
+    (Tq and Tk multiples of their blocks)."""
+    tq, tk = q.shape[2], k.shape[2]
+    if tq % min(block_q, tq) or tk % min(block_k, tk):
+        raise MXNetError("flash_attention_partial: T must divide blocks")
+    return cuda_kernels.flash_attention_partial(q, k, v, int(q_off),
+                                                int(k_off), bool(causal),
+                                                scale)
 
 
 # --------------------------------------------------------------------------
@@ -459,6 +495,19 @@ def _pallas_sgd_mom_cuda(attrs, inputs, aux, is_train, rng):
     w, g, m = inputs
     return list(cuda_kernels.sgd_mom_update(
         w.clone(), g, m.clone(), **_pallas_sgd_hyper(attrs))), []
+
+
+def pallas_sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                          rescale_grad=1.0, clip_gradient=None):
+    """The fused SGD-momentum update as a function, the JAX package's
+    ``mx.rtc.pallas_sgd_mom_update``: (weight', mom'), its inputs left
+    alone; the ``sgd_mom`` kernel on copies on the card, the plain update
+    on the CPU."""
+    hyper = _pallas_sgd_hyper({"lr": lr, "momentum": momentum, "wd": wd,
+                               "rescale_grad": rescale_grad,
+                               "clip_gradient": clip_gradient})
+    return cuda_kernels.sgd_mom_update(weight.clone(), grad, mom.clone(),
+                                       **hyper)
 
 
 def _register():

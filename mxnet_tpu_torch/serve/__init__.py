@@ -38,7 +38,7 @@ from .loadgen import PoissonLoadGen, run_scripted
 from .decode import (DecodeEngine, DecodeHandle, DecodeScheduler,
                      default_prefill_chunk, default_slot_ladder,
                      default_spec_k, serve_decoder)
-from .prefix import PrefixStore
+from .prefix import PrefixStore, default_prefix_budget_bytes
 from .sampling import SamplingParams
 from .warm import save_server, restore_server, server_payload
 
@@ -50,5 +50,6 @@ __all__ = ["MonotonicClock", "FakeClock", "BucketLadder",
            "serve", "PoissonLoadGen", "run_scripted", "DecodeEngine",
            "DecodeScheduler", "DecodeHandle", "default_slot_ladder",
            "default_prefill_chunk", "default_spec_k", "PrefixStore",
+           "default_prefix_budget_bytes",
            "SamplingParams", "serve_decoder", "save_server",
            "restore_server", "server_payload"]

@@ -9,7 +9,7 @@ plane come with later slices.
 * ``telemetry.metrics`` — counters, gauges, histograms (``stats()``
   reads its serving series);
 * ``telemetry.core`` — ``span`` and ``event`` (off by default),
-  ``enable``/``disable``;
+  ``enable``/``disable``, ``wrap_dispatch`` (a span a dispatch);
 * ``telemetry.mfu`` — cost tables over a bound graph, the card's peaks,
   the ``mfu.*`` gauges ``Module.fit`` sets;
 * ``telemetry.trace`` — per-request span trees;
@@ -26,7 +26,8 @@ Usage::
 """
 from __future__ import annotations
 
-from .core import span, event, record_event, enable, disable, enabled
+from .core import (span, event, record_event, enable, disable, enabled,
+                   clear, get_spans, get_events, null_span, wrap_dispatch)
 from .metrics import (Counter, Gauge, Histogram, counter, gauge, histogram,
                       get_metric)
 from . import core
@@ -36,6 +37,7 @@ from . import trace
 from . import mfu
 
 __all__ = ["span", "event", "record_event", "enable", "disable", "enabled",
+           "clear", "get_spans", "get_events", "null_span", "wrap_dispatch",
            "Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
            "get_metric", "snapshot", "reset", "core", "metrics", "flightrec",
            "trace", "mfu"]

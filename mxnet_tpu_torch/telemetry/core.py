@@ -23,7 +23,7 @@ import time
 from . import flightrec as _flightrec
 
 __all__ = ["span", "event", "record_event", "enable", "disable", "enabled",
-           "clear", "get_spans", "get_events", "null_span"]
+           "clear", "get_spans", "get_events", "null_span", "wrap_dispatch"]
 
 _lock = threading.Lock()
 _local = threading.local()
@@ -156,3 +156,38 @@ def get_spans():
 def get_events():
     with _lock:
         return list(_events)
+
+
+def wrap_dispatch(fn, kind, compiled=True):
+    """Wrap a program so each call records a span, as the JAX package's
+    ``wrap_dispatch`` does: the first call of a ``compiled`` program
+    reports as ``executor.compile`` and every later one (every call of
+    one that is not) as ``executor.run``, under ``{"kind": kind}``, with
+    the duration observed by ``<name>.seconds``. Each call bumps the
+    untagged ``executor.dispatch`` counter and ``<name>.calls``. While
+    telemetry is disabled the call costs a frame and a branch, and the
+    flight recorder (when on) notes its name, ``program=kind`` and
+    duration."""
+    state = {"first": compiled}
+
+    def dispatch(*args):
+        first, state["first"] = state["first"], False
+        name = "executor.compile" if first else "executor.run"
+        if not _enabled:
+            if _flightrec._enabled:
+                t0 = time.perf_counter_ns()
+                try:
+                    return fn(*args)
+                finally:
+                    _flightrec.note(
+                        name, program=kind,
+                        dur_us=(time.perf_counter_ns() - t0) // 1000)
+            return fn(*args)
+        from .metrics import counter
+        counter("executor.dispatch").inc()
+        counter(name + ".calls", kind=kind).inc()
+        with Span(name, {"kind": kind}, hist=name + ".seconds"):
+            return fn(*args)
+
+    dispatch.__wrapped__ = fn
+    return dispatch

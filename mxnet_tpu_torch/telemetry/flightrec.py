@@ -26,7 +26,8 @@ import threading
 import time
 import traceback
 
-__all__ = ["note", "note_span", "note_event", "configure", "get_records", "clear",
+__all__ = ["note", "note_span", "note_event", "enabled", "configure",
+           "get_records", "clear",
            "dump_crash"]
 
 log = logging.getLogger(__name__)
@@ -39,6 +40,10 @@ _ring = collections.deque(maxlen=max(1, int(os.environ.get(
 _dump_dir = os.environ.get("MXNET_CRASH_DIR", ".")
 _dump_lock = threading.Lock()
 _dump_seq = 0
+
+
+def enabled():
+    return _enabled
 
 
 def configure(capacity=None, dump_dir=None, enabled=None):

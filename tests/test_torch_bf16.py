@@ -393,17 +393,19 @@ def jax_tier(request, monkeypatch):
     kernel_tier.clear()
 
 
-@pytest.mark.parametrize("dtype", HALVES)
-@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
-def test_resnet_bf16_fit_matches_jax(fused, dtype, jax_tier):
+def resnet_fit_matches_jax(fused, dtype):
     """Two batches of 4 at lr 0.01 in bfloat16, the JAX package's (its
-    XLA tier and its Pallas tier in interpret mode) and the port's, and
-    the JAX package's in float32 in the same tier. Each weight and moving
-    statistic of the port lies within 3 times the distance between the
-    JAX package's own bfloat16 and float32 fits (plus 1e-6): the two
-    packages' bfloat16 fits differ as much as bfloat16 rounding itself
-    moves a fit (measured 0.95-2.2 times it over these arrays; their
-    float32 fits agree within 3e-7)."""
+    XLA tier and its Pallas tier in interpret mode, as the caller's
+    ``jax_tier`` sets it) and the port's, and the JAX package's in
+    float32 in the same tier. Each weight and moving statistic of the
+    port lies within 3 times the distance between the JAX package's own
+    bfloat16 and float32 fits (plus 1e-6): the two packages' bfloat16
+    fits differ as much as bfloat16 rounding itself moves a fit (measured
+    0.95-2.2 times it over these arrays; their float32 fits agree within
+    3e-7). ``test_resnet_bf16_fit_matches_jax`` runs it, the plain net in
+    ``tests/test_torch_bf16_fit_plain.py`` and the fused one in
+    ``tests/test_torch_bf16_fit_fused.py``: two files, so that
+    pytest-xdist's ``--dist loadfile`` runs them on two workers."""
     args, auxs, X, y = _start(fused, batch=8)
     jsym, tsym = _nets(fused)
     j32 = _fit(mx, jsym, None, args, auxs, X, y)

@@ -87,6 +87,14 @@ inputs), ``Deconvolution`` with ``adj`` at or past the stride and padding
 past k - 1, ``Crop``'s clamped offsets, ``rrelu``'s slopes bit for bit
 against the CPU, and one DCGAN iteration through two Modules card vs CPU
 (``chip_smoke.dcgan_parity``) with one ``adam_multi`` launch an update.
+
+The contrib ops (plain PyTorch on the card): ``MultiBoxDetection`` and
+``MultiProposal`` twice bit for bit (their NMS loops, stable sorts) and
+the CPU's ids; ``MultiBoxTarget``'s forced match with label rows that pick
+the same anchor, the CPU's every run; ``count_sketch`` within 1e-6 of its
+largest magnitude (``index_add_`` adds in no fixed order); CTC's loss
+within 2e-5 and its gradient as near the CPU's float64 one as 3 times the
+CPU's float32 gradient is.
 """
 import os
 import re
@@ -4121,3 +4129,131 @@ def test_dcgan_iteration_on_card_matches_cpu(dev, no_tf32):
                     cs.real_blobs(rs, 8))
     assert {k: v for k, v in ck.launch_counts().items() if v} == \
         {"adam_multi": 2}
+
+
+# --------------------------------------------------------------------------
+# the contrib ops
+# --------------------------------------------------------------------------
+def _grid(n):
+    """A (1, 2 n^2, 4) grid of anchors 0.2 and 0.4 wide."""
+    c = (np.arange(n) + 0.5) / n
+    cy, cx = np.meshgrid(c, c, indexing="ij")
+    boxes = [np.stack([cx - h, cy - h, cx + h, cy + h], -1).reshape(-1, 4)
+             for h in (0.1, 0.2)]
+    return np.concatenate(boxes)[None].astype(np.float32)
+
+
+def _contrib(name, tensors, attrs):
+    op = mx.ops.get_op(name)
+    return op.forward(op.normalize_attrs(attrs), tensors, [], False,
+                      None)[0]
+
+
+@pytest.mark.cuda
+def test_nms_ops_repeat_bit_for_bit_on_card(dev):
+    """MultiBoxDetection and MultiProposal (their NMS loops over the whole
+    batch's masks, stable sorts) twice on the card: the same bits, and
+    the CPU's ids and ordering."""
+    rs = np.random.RandomState(7)
+    anchor = torch.tensor(_grid(8), device=dev)
+    cls = torch.tensor(rs.dirichlet(np.ones(3), (4, 128)).transpose(
+        0, 2, 1).astype(np.float32), device=dev)
+    loc = torch.tensor(rs.uniform(-0.2, 0.2, (4, 512)).astype(np.float32),
+                       device=dev)
+    attrs = {"nms_threshold": 0.3, "threshold": 0.05}
+    a = _contrib("MultiBoxDetection", [cls, loc, anchor], attrs)[0]
+    b = _contrib("MultiBoxDetection", [cls, loc, anchor], attrs)[0]
+    want = _contrib("MultiBoxDetection", [t.cpu() for t in (cls, loc,
+                                                            anchor)], attrs)[0]
+    assert torch.equal(a, b)
+    assert torch.equal(a[..., 0].cpu(), want[..., 0])
+    torch.testing.assert_close(a.cpu(), want, rtol=2e-5, atol=2e-5)
+    ins = [torch.tensor(rs.uniform(0, 1, (2, 24, 6, 7)).astype(np.float32),
+                        device=dev),
+           torch.tensor(rs.uniform(-0.2, 0.2, (2, 48, 6, 7)).astype(
+               np.float32), device=dev),
+           torch.tensor([[96.0, 112.0, 1.0], [80.0, 100.0, 0.8]], device=dev)]
+    attrs = {"feature_stride": 16, "scales": (1.0, 2.0, 4.0, 8.0),
+             "rpn_pre_nms_top_n": 300, "rpn_post_nms_top_n": 50,
+             "rpn_min_size": 4, "output_score": True}
+    a = _contrib("MultiProposal", ins, attrs)
+    b = _contrib("MultiProposal", ins, attrs)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_multibox_target_forced_match_is_deterministic_on_card(dev):
+    """Label rows that pick the same best anchor (a padding row after a
+    valid box whose best anchor is 0, and two boxes over one anchor): the
+    last row decides, on the card as on the CPU, every run."""
+    anchor = torch.tensor(_grid(4))
+    label = torch.tensor([[[1, 0.0, 0.0, 0.15, 0.15], [-1, 0, 0, 0, 0],
+                           [0, 0.3, 0.3, 0.5, 0.5], [1, 0.32, 0.3, 0.52,
+                                                     0.5]],
+                          [[0, 0.6, 0.6, 0.9, 0.9], [0, 0.6, 0.62, 0.9,
+                                                     0.92],
+                           [-1, 0, 0, 0, 0], [-1, 0, 0, 0, 0]]])
+    cls = torch.tensor(np.random.RandomState(8).uniform(
+        -1, 1, (2, 3, 32)).astype(np.float32))
+    attrs = {"negative_mining_ratio": 3}
+    want = _contrib("MultiBoxTarget", [anchor, label, cls], attrs)
+    runs = [_contrib("MultiBoxTarget", [t.to(dev) for t in (anchor, label,
+                                                           cls)], attrs)
+            for _ in range(3)]
+    for got in runs:
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[2].cpu(), want[2])
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-5,
+                                   atol=2e-5)
+    assert want[1][0, :4].tolist() == [0.0] * 4   # the padding row's write
+
+
+@pytest.mark.cuda
+def test_count_sketch_on_card_matches_cpu(dev):
+    """``index_add_`` sums in no fixed order on the card: within 1e-6 of
+    the largest magnitude of the CPU's sketch, hashes negative included."""
+    rs = np.random.RandomState(9)
+    data = rs.randn(64, 4096).astype(np.float32)
+    h = rs.randint(-3000, 3000, (1, 4096)).astype(np.float32)
+    s = np.where(rs.rand(1, 4096) < 0.5, -1, 1).astype(np.float32)
+    attrs = {"out_dim": 512}
+    want = _contrib("count_sketch", [torch.tensor(a) for a in (data, h, s)],
+                    attrs)[0]
+    got = _contrib("count_sketch", [torch.tensor(a, device=dev)
+                                    for a in (data, h, s)], attrs)[0]
+    assert (got.cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [False, True])
+def test_ctc_loss_and_gradient_on_card_match_cpu(dev, lengths):
+    """T 50, batch 8, 12 classes, labels up to 10 (a zero-length one among
+    them): the loss within 2e-5 card vs CPU; the gradient as near the
+    CPU's float64 gradient as 3 times the CPU's float32 one (alpha
+    reaches about -200, where a float32 ulp is 1.5e-5)."""
+    rs = np.random.RandomState(10)
+    T, N, C, L = 50, 8, 12, 10
+    label = np.zeros((N, L), np.float32)
+    lens = rs.randint(0, L + 1, N)
+    lens[0] = 0
+    for i, k in enumerate(lens):
+        label[i, :k] = rs.randint(1, C, k)
+    data = rs.randn(T, N, C).astype(np.float32)
+    attrs, extra = {}, []
+    if lengths:
+        attrs = {"use_data_lengths": True, "use_label_lengths": True}
+        extra = [rs.randint(30, T + 1, N).astype(np.float32),
+                 lens.astype(np.float32)]
+    head = rs.uniform(0.5, 1.5, N)
+    out = []
+    for where, dt in (("cpu", torch.float64), ("cpu", torch.float32),
+                      (dev, torch.float32)):
+        x = torch.tensor(data, device=where, dtype=dt, requires_grad=True)
+        rest = [torch.tensor(a, device=where) for a in [label] + extra]
+        loss = _contrib("CTCLoss", [x] + rest, attrs)[0]
+        g, = torch.autograd.grad(loss, x, torch.tensor(head, device=where,
+                                                       dtype=dt))
+        out.append((loss.detach().cpu().double(), g.cpu().double()))
+    (_, g64), (lw, gw), (lg, gg) = out
+    torch.testing.assert_close(lg, lw, rtol=2e-5, atol=2e-5)
+    assert (gg - g64).abs().max() <= 3 * (gw - g64).abs().max()

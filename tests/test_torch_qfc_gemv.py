@@ -81,12 +81,13 @@ def _close(got, want):
     assert float(np.abs(got - want).max()) <= RTOL * top
 
 
-@pytest.mark.parametrize("n", [1, 7, 33, 1000])
-@pytest.mark.parametrize("k", [13, 300, 2048])
-@pytest.mark.parametrize("m", [1, 2, 3, 8])
-@pytest.mark.parametrize("dtype", list(XTYPES))
-@pytest.mark.parametrize("storage", list(STORAGE))
-def test_gemv_order_matches_pallas_and_plain(storage, dtype, m, k, n):
+def gemv_order_matches(storage, dtype, m, k, n):
+    """The emulated order against the Pallas kernel and the plain version
+    (and the wrapper on a CPU tensor against the plain version).
+    ``test_gemv_order_matches_pallas_and_plain`` runs it for the int8
+    weights here and for the float8_e4m3fn weights in
+    ``tests/test_torch_qfc_gemv_fp8.py``: two files, so that
+    pytest-xdist's ``--dist loadfile`` runs them on two workers."""
     x, w, s = _torch_inputs(storage, dtype, m, k, n)
     assert ck._qfc_route(m, n, k, SMS)[0] > 0
     got = qfc_gemv(x, w, s, SMS)
@@ -95,6 +96,25 @@ def test_gemv_order_matches_pallas_and_plain(storage, dtype, m, k, n):
     plain = ck.qfc_matmul_plain(x, w, s)
     _close(got, plain)
     _close(ck.qfc_matmul(x, w, s), plain)            # CPU: the plain
+
+
+#: the grid of ``test_gemv_order_matches_pallas_and_plain``, less storage
+GRID = [pytest.mark.parametrize("dtype", list(XTYPES)),
+        pytest.mark.parametrize("m", [1, 2, 3, 8]),
+        pytest.mark.parametrize("k", [13, 300, 2048]),
+        pytest.mark.parametrize("n", [1, 7, 33, 1000])]
+
+
+def on_grid(fn):
+    for mark in GRID:
+        fn = mark(fn)
+    return fn
+
+
+@on_grid
+@pytest.mark.parametrize("storage", ["int8"])
+def test_gemv_order_matches_pallas_and_plain(storage, dtype, m, k, n):
+    gemv_order_matches(storage, dtype, m, k, n)
 
 
 @pytest.mark.parametrize("storage", list(STORAGE))

@@ -19,7 +19,7 @@ registry on the same numpy-seeded inputs (CPU).
   ``where`` condition; and the pinned faults (``round`` half to even,
   ``gamma`` as |Γ|, integer powers with negative exponents).
 * The registry's coverage: the JAX package's op names less the port's
-  are exactly the 26 left for later slices.
+  are exactly the 3 left for later slices.
 """
 import json
 import os
@@ -90,17 +90,20 @@ LAYER_OPS = ["BilinearSampler", "Correlation", "Crop", "Deconvolution",
              "LinearRegressionOutput", "LogisticRegressionOutput",
              "MAERegressionOutput"]
 
+#: the contrib ops (``tests/test_torch_contrib.py`` holds them to the JAX
+#: package), every name
+CONTRIB_OPS = ["CTCLoss", "ctc_loss", "MultiBoxDetection", "MultiBoxPrior",
+               "MultiBoxTarget", "MultiProposal", "Proposal",
+               "count_sketch", "dequantize", "fft", "ifft", "quantize",
+               "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
+               "_contrib_MultiBoxTarget", "_contrib_MultiProposal",
+               "_contrib_Proposal", "_contrib_count_sketch",
+               "_contrib_ctc_loss", "_contrib_dequantize", "_contrib_fft",
+               "_contrib_ifft", "_contrib_quantize"]
+
 #: the JAX package's op names the port leaves to later slices (ROADMAP.md
-#: A4.5-A6): contrib, RNN, RMSProp's updates
+#: A5-A6): RNN, RMSProp's updates
 LATER = {
-    "contrib": ["CTCLoss", "ctc_loss", "MultiBoxDetection", "MultiBoxPrior",
-                "MultiBoxTarget", "MultiProposal", "Proposal",
-                "count_sketch", "dequantize", "fft", "ifft", "quantize",
-                "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-                "_contrib_MultiBoxTarget", "_contrib_MultiProposal",
-                "_contrib_Proposal", "_contrib_count_sketch",
-                "_contrib_ctc_loss", "_contrib_dequantize", "_contrib_fft",
-                "_contrib_ifft", "_contrib_quantize"],
     "rnn": ["RNN"],
     "optimizer": ["rmsprop_update", "rmspropalex_update"],
 }
@@ -236,26 +239,40 @@ def test_registry_difference_is_the_later_slices():
                          text=True, env=env, check=True).stdout
     jax_ops, torch_ops = (set(x) for x in json.loads(out.splitlines()[-1]))
     later = {n for names in LATER.values() for n in names}
-    assert len(later) == 26 and len(SLICE_OPS) == 147 == len(set(SLICE_OPS))
+    assert len(later) == 3 and len(SLICE_OPS) == 147 == len(set(SLICE_OPS))
     assert len(LAYER_OPS) == 20 == len(set(LAYER_OPS) - set(SLICE_OPS))
+    assert len(CONTRIB_OPS) == 23 == len(
+        set(CONTRIB_OPS) - set(SLICE_OPS + LAYER_OPS))
     missing = jax_ops - torch_ops
     assert missing == later, (sorted(missing - later), sorted(later - missing))
-    assert torch_ops <= jax_ops and set(SLICE_OPS + LAYER_OPS) <= torch_ops
-    assert len(torch_ops) == 227 and len(jax_ops) == 253
+    assert torch_ops <= jax_ops and \
+        set(SLICE_OPS + LAYER_OPS + CONTRIB_OPS) <= torch_ops
+    assert len(torch_ops) == 250 and len(jax_ops) == 253
 
 
 def test_every_slice_op_keeps_the_jax_attrs():
     """The same attribute names and defaults (what ``tojson`` writes), the
-    same loss flag, and for the nn layers and losses also the same need
-    for a key and the same outputs (their number, visible number and
-    names) under their attribute defaults."""
-    for name in SLICE_OPS + LAYER_OPS:
+    same loss flag, and for the nn layers and losses and the contrib ops
+    also the same need for a key and the same outputs (their number,
+    visible number and names) under their attribute defaults; an alias of
+    a contrib op names the same op in both packages, and ``MultiProposal``
+    with ``output_score`` has two outputs in both."""
+    for name in SLICE_OPS + LAYER_OPS + CONTRIB_OPS:
         j, t = jax_op(name).attr_spec, torch_op(name).attr_spec
         assert sorted(j) == sorted(t), name
         assert {k: v[1] for k, v in j.items()} == \
             {k: v[1] for k, v in t.items()}, name
         assert jax_op(name).is_loss == torch_op(name).is_loss, name
-    for name in LAYER_OPS:
+    for name in CONTRIB_OPS:
+        assert jax_op(name).name == torch_op(name).name, name
+    for attrs in ({"output_score": True}, {"use_data_lengths": True,
+                                           "use_label_lengths": True}):
+        for name in ("MultiProposal", "CTCLoss"):
+            jo, to = jax_op(name), torch_op(name)
+            ja, ta = jo.normalize_attrs(attrs), to.normalize_attrs(attrs)
+            assert (jo.num_outputs(ja), jo.input_names(ja)) == \
+                (to.num_outputs(ta), to.input_names(ta)), (name, attrs)
+    for name in LAYER_OPS + CONTRIB_OPS:
         jo, to = jax_op(name), torch_op(name)
         assert jo.need_rng == to.need_rng, name
         ja, ta = jo.normalize_attrs({}), to.normalize_attrs({})

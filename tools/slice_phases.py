@@ -1,16 +1,17 @@
 """chip_smoke.py's later phases alone, on the card: the build (phase 1),
 the threefry rows of phase 2, the decode serving of phase 3 where phase
 57 is named (it reads phase 3's parameters, prompts and served chains),
-then the phases named on the command line (default 55-61):
+then the phases named on the command line (default 55-62):
 
-    python3 tools/slice_phases.py [9] [55] [56] [57] [58] [59] [60] [61]
+    python3 tools/slice_phases.py [9] [55] [56] [57] [58] [59] [60] [61] [62]
 
 9: the bench LM fit (phase 60 prints its tokens/s beside it); 55: the
 bench LM through kill and resume; 56: ResNet-50 through kill and resume;
 57: the Predictor (58, a warm restart, needs 57); 59: the 16-bit
 samplers; 60: the tensor surface (every op name card vs CPU, the bench LM
 through a loss written in the ops); 61: the remaining nn layers and losses
-card vs CPU, and DCGAN through two Modules."""
+card vs CPU, and DCGAN through two Modules; 62: the contrib ops card vs
+CPU, SSD's fit and decode, MultiProposal and CTC at realistic shapes."""
 import os
 import sys
 
@@ -42,7 +43,7 @@ def main():
               f"library_device_ms={cs._device_ms(r['library_call'])} "
               f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})")
     tick("2j (threefry)")
-    only = sys.argv[1:] or ["55", "56", "57", "58", "59", "60", "61"]
+    only = sys.argv[1:] or ["55", "56", "57", "58", "59", "60", "61", "62"]
     if "57" in only:
         serve_counts, sym, params, prompts, served = cs.phase_serve(mx, ck)
         tick("3 (serve)")
@@ -73,6 +74,9 @@ def main():
         cs.phase_nn_layers(mx)
         cs.phase_dcgan(mx, ck)
         tick("61")
+    if "62" in only:
+        cs.phase_ssd(mx, ck)
+        tick("62")
     print("new phases: ok")
 
 
